@@ -1,0 +1,65 @@
+"""Trial-move proposal builders (port of mpmc_tpu/mc/moves.py).
+
+Every random number comes from one row of the step's uniform table, with
+the lane layout of the fused µVT kernel (mc_kernel.draw_uniforms(lanes=16),
+consumed as in mc_kernel._kernel_uvt):
+
+- lane 0: the slot, by rank among the eligible slots;
+- lanes 1-3: the displacement, or the inserted molecule's fractional COM;
+- lanes 5-7: displace rotation (axis z, axis azimuth, angle / rot_factor),
+  or the inserted molecule's Shoemake quaternion.
+
+Move semantics follow the reference: displace = uniform translation in a
+cube of half-width ``move_factor`` plus a rotation about the mass-weighted
+COM by a uniform angle in [0, rot_factor) about a uniform axis; insert =
+the species template at a uniform fractional position and orientation.
+All functions run on the device with no host sync.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mpmc_tpu_torch.ops import pbc as pbc_ops
+from mpmc_tpu_torch.state import (Params, molecule_com, mol_rows, row_valid,
+                                  take)
+from mpmc_tpu_torch.utils import quaternion as quat
+
+
+def pick_by_rank(mask, u):
+    """(index, count): the j-th True of ``mask`` (0-based, slot order) with
+    j = min(floor(u * count), count - 1) — the kernel's rank pick.  With
+    count 0 the index is 0 and the caller rejects the move."""
+    cnt = torch.sum(mask)
+    j = torch.minimum(torch.floor(u * cnt.to(u.dtype)),
+                      (cnt - 1).to(u.dtype))
+    cs = torch.cumsum(mask.to(torch.int64), 0)
+    return torch.argmax((cs > j).to(torch.int8)), cnt
+
+
+def displace_rows(pos, params: Params, mol, u, move_factor, rot_factor):
+    """[A,3] trial rows of a translate+rotate move of molecule ``mol``
+    from one uniform row ``u`` [16].  Padded rows duplicate the first."""
+    rows = mol_rows(pos, params, mol)
+    valid = row_valid(params, mol)
+    com = molecule_com(pos, params, mol)
+    disp = (2.0 * u[1:4] - 1.0) * move_factor
+    az = 2.0 * u[5] - 1.0
+    aphi = 2.0 * math.pi * u[6]
+    s = torch.sqrt(torch.clamp(1.0 - az * az, min=0.0))
+    axis = torch.stack([s * torch.cos(aphi), s * torch.sin(aphi), az])
+    q = quat.from_axis_angle(axis, u[7] * rot_factor)
+    new = (com + disp) + quat.rotate(rows - com, q)
+    return torch.where(valid[:, None], new, new[0]).contiguous()
+
+
+def place_rows(params: Params, mol, species, u, box):
+    """[A,3] trial rows: the species template at fractional COM u[1:4]
+    and Shoemake orientation u[5:8] (GCMC insertion).  Rows beyond the
+    species' atom count duplicate the first row."""
+    com = pbc_ops._apply33(u[1:4], box)
+    q = quat.uniform_from(u[5], u[6], u[7])
+    new = com + quat.rotate(take(params.species_pos, species), q)
+    return torch.where(row_valid(params, mol)[:, None], new,
+                       new[0]).contiguous()

@@ -1,0 +1,364 @@
+"""High-level run entry: input files -> system -> MC loop -> outputs
+(port of the single-chain scan path of mpmc_tpu/mc/run.py).
+
+The corrtime structure is the reference's: ``corrtime`` steps per chunk
+(mc/metropolis.run_chunk), then a refresh of the cached energies (full
+recompute on the frozen-reuse fast path — B2 restricted to the sorbate
+rows), observables, restart/trajectory output, and annealing/adaptation.
+
+Options outside this port's slice are refused in ``setup`` with
+NotImplementedError naming the ROADMAP item that ports them — a refusal,
+never a fallback.
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mpmc_tpu_torch.config import RunConfig, Thermo
+from mpmc_tpu_torch.io import input_script, output as output_io, pqr as pqr_io
+from mpmc_tpu_torch.mc import fugacity as fug_mod
+from mpmc_tpu_torch.mc import metropolis
+from mpmc_tpu_torch.ops import energy as energy_mod
+from mpmc_tpu_torch.ops import pairs as pairs_mod
+from mpmc_tpu_torch.state import (Params, SimState, Species,
+                                  all_molecule_coms, build_system)
+from mpmc_tpu_torch.utils.averages import Averages, sorbed_mass_obs
+
+
+@dataclasses.dataclass
+class Setup:
+    params: Params
+    state: SimState
+    cfg: RunConfig
+    thermo: Thermo
+    species: Tuple[Species, ...]
+    species_names: List[str]
+    frozen_mass: float
+
+
+def _species_from_atoms(atoms) -> Species:
+    atoms = sorted(atoms, key=lambda a: a.serial)
+    return Species(
+        name=atoms[0].mol_name,
+        atom_names=tuple(a.name for a in atoms),
+        pos=np.stack([a.xyz for a in atoms]),
+        mass=np.array([a.mass for a in atoms]),
+        charge=np.array([a.charge for a in atoms]),
+        polar=np.array([a.polar for a in atoms]),
+        eps=np.array([a.eps for a in atoms]),
+        sig=np.array([a.sig for a in atoms]),
+        omega=np.array([a.omega for a in atoms]),
+        c6=np.array([a.c6 for a in atoms]),
+        c8=np.array([a.c8 for a in atoms]),
+        c10=np.array([a.c10 for a in atoms]),
+        gwp_alpha=np.array([a.gwp_alpha for a in atoms]))
+
+
+def compute_fugacities(job: input_script.Job, names, nsp=None):
+    """Per-species fugacities [atm] for the job's (T, P): explicit
+    ``fugacities`` list > per-species EoS fits > ideal f = P."""
+    nsp = nsp if nsp is not None else max(len(names), 1)
+    if job.fugacities is not None:
+        return list(job.fugacities) + [0.0] * (nsp - len(job.fugacities))
+    fug = []
+    for n in names:
+        key = fug_mod.guess_species_key(n)
+        if job.fugacity_eos.get(key, False):
+            fug.append(fug_mod.fugacity(key, job.temperature,
+                                        job.pressure))
+        else:
+            fug.append(job.pressure)
+    return fug or [job.pressure]
+
+
+def _refuse(what: str, item: str):
+    raise NotImplementedError(f"{what} is not yet ported — ROADMAP {item}")
+
+
+def check_supported(job: input_script.Job):
+    """Refuse every option outside the port's slice (NotImplementedError
+    naming the ROADMAP item)."""
+    cfg = job.cfg
+    if cfg.ensemble in ("npt", "nve"):
+        _refuse(f"ensemble {cfg.ensemble}", "A8")
+    if cfg.ensemble not in ("uvt", "nvt", "te"):
+        _refuse(f"ensemble {cfg.ensemble}", "A12")
+    for flag, what, item in (
+            (cfg.fused_mc, "fused_mc", "A5"),
+            (job.chains > 1, "chains > 1", "A7"),
+            (job.parallel_tempering or job.pt_fugacity,
+             "parallel tempering", "A9"),
+            (cfg.polarization, "polarization", "A10"),
+            (cfg.cavity_bias, "cavity_bias", "A11"),
+            (cfg.tmmc, "tmmc", "A11"),
+            (cfg.quantum_rotation, "quantum_rotation", "A11"),
+            (cfg.cdvdw, "cdvdw", "A12"),
+            (cfg.cdvdw_repulsion != "none", "cdvdw repulsion", "A12"),
+            (cfg.feynman_hibbs or cfg.feynman_kleinert,
+             "feynman_hibbs / feynman_kleinert", "A12"),
+            (cfg.quantum_vibration, "quantum_vibration", "A12"),
+            (cfg.mol_cache, "mol_cache", "A12"),
+            (cfg.cell_list, "cell_list", "A12"),
+            (cfg.rd_crystal, "rd_crystal", "A12"),
+            (cfg.spectre, "spectre", "A12"),
+            (cfg.rd_potential not in ("lj", "none"),
+             f"rd_potential {cfg.rd_potential}", "A12"),
+            (cfg.coulomb == "gwp", "coulomb gwp", "A12"),
+            (job.spatial_devices > 1, "spatial_devices", "A13"),
+            (job.chain_devices > 1, "chain_devices", "A13"),
+            (bool(job.checkpoint_input or job.checkpoint_output),
+             "checkpoint_input/checkpoint_output", "A6"),
+            (job.polarizability_tensor, "polarizability_tensor", "A10")):
+        if flag:
+            _refuse(what, item)
+
+
+def setup(job: input_script.Job, device="cpu",
+          frame: Optional[pqr_io.PqrFrame] = None) -> Setup:
+    """Build (params, state, cfg, thermo) on ``device`` from a parsed Job."""
+    check_supported(job)
+    if frame is None:
+        if not job.pqr_input:
+            raise ValueError("pqr_input is required")
+        frame = pqr_io.read(job.pqr_input)
+    basis = job.basis
+    if job.read_pqr_box and frame.box is not None:
+        basis = frame.box
+    if basis is None:
+        raise ValueError("no cell: provide basis1/2/3, abcbasis, or "
+                         "read_pqr_box with a CRYST1 record")
+    job = dataclasses.replace(job, basis=basis)
+
+    frozen = sorted(frame.frozen, key=lambda a: a.serial)
+    frozen_pos = np.stack([a.xyz for a in frozen]) if frozen else None
+    fp = None
+    if frozen:
+        fp = {k: np.array([getattr(a, k) for a in frozen])
+              for k in ("charge", "mass", "polar", "eps", "sig", "omega",
+                        "c6", "c8", "c10", "gwp_alpha")}
+
+    # group movable molecules into species by mol_name
+    species: List[Species] = []
+    names: List[str] = []
+    instances: Dict[str, List] = {}
+    for mol_id, atoms in sorted(frame.movable_molecules().items()):
+        nm = atoms[0].mol_name
+        if nm not in names:
+            names.append(nm)
+            species.append(_species_from_atoms(atoms))
+            instances[nm] = []
+        sp = species[names.index(nm)]
+        if len(atoms) != sp.natoms:
+            raise ValueError(
+                f"molecule {mol_id} ({nm}) has {len(atoms)} atoms; species "
+                f"template has {sp.natoms}")
+        instances[nm].append(
+            np.stack([a.xyz for a in sorted(atoms, key=lambda x: x.serial)]))
+
+    insert_names: List[str] = []
+    if job.insert_input:
+        tf = pqr_io.read(job.insert_input)
+        mols = tf.movable_molecules() or {0: tf.atoms}
+        for _, atoms in sorted(mols.items()):
+            nm = atoms[0].mol_name
+            if nm not in names:
+                names.append(nm)
+                species.append(_species_from_atoms(atoms))
+                instances[nm] = []
+            insert_names.append(nm)
+    elif job.cfg.ensemble == "uvt":
+        insert_names = list(names)    # clone existing sorbates
+
+    insert_species = tuple(names.index(n) for n in insert_names)
+    counts = [len(instances[n]) for n in names]
+    capacity = [c + (job.max_molecules if i in insert_species else 0)
+                for i, c in enumerate(counts)]
+    capacity = [max(c, 1) for c in capacity]
+    initial_pos = {i: np.stack(instances[n])
+                   for i, n in enumerate(names) if instances[n]}
+
+    b = np.asarray(basis, np.float64)
+    cfg = dataclasses.replace(
+        job.cfg, insert_species=insert_species,
+        ortho_box=bool(np.all(b == np.diag(np.diag(b)))))
+    params, state = build_system(
+        job.basis, frozen_pos=frozen_pos, frozen_params=fp,
+        species=tuple(species), capacity=tuple(capacity),
+        initial_counts=tuple(counts), initial_pos=initial_pos,
+        dtype=cfg.tdtype, seed=cfg.seed, device=device)
+    if job.scale_charge != 1.0:
+        params = params.replace(charge=params.charge * job.scale_charge)
+    if cfg.extrapolate_disp_coeffs:
+        c6 = params.c6.cpu().numpy()
+        c8 = params.c8.cpu().numpy()
+        c10 = np.array(params.c10.cpu().numpy(), np.float64, copy=True)
+        m = (c10 == 0) & (c6 > 0) & (c8 > 0)
+        c10[m] = 49.0 / 40.0 * c8[m] ** 2 / c6[m]
+        params = params.replace(c10=torch.as_tensor(
+            c10, dtype=cfg.tdtype, device=device))
+
+    if cfg.coulomb == "ewald":
+        # non-neutral cells carry the jellium correction, but only on
+        # explicit request (a net charge is usually an input mistake)
+        q = params.charge.cpu().numpy().astype(np.float64)
+        alive = state.atom_alive(params).cpu().numpy()
+        nets = [float(np.sum(np.where(alive, q, 0.0)))] + [
+            float(np.sum(np.asarray(species[s].charge, np.float64)))
+            for s in insert_species]
+        bad = max(abs(x) for x in nets)
+        if bad > 1e-3:
+            if cfg.allow_charged_cell:
+                import warnings
+                warnings.warn(
+                    f"Ewald with a non-neutral cell: |sum q| = {bad:.6g} e "
+                    "— applying the uniform-background (jellium) correction")
+            else:
+                raise ValueError(
+                    f"Ewald with a non-neutral cell: |sum q| = {bad:.6g} e "
+                    "(cell or insertable species). Set allow_charged_cell "
+                    "to compute it in the jellium convention.")
+
+    nsp = max(len(species), 1)
+    thermo = Thermo.make(
+        temperature=job.temperature, pressure=job.pressure,
+        fugacity=compute_fugacities(job, names, nsp),
+        nve_energy=job.total_energy,
+        move_factor=job.move_factor, rot_factor=job.rot_factor,
+        insert_probability=job.insert_probability,
+        volume_probability=job.volume_probability,
+        volume_change_factor=job.volume_change_factor,
+        spinflip_probability=job.spinflip_probability,
+        n_species=nsp, dtype=cfg.tdtype, device=device)
+    return Setup(params, state, cfg, thermo, tuple(species), names,
+                 float(sum(a.mass for a in frozen)))
+
+
+def observables(su: Setup, state: SimState, stats=None) -> Dict[str, float]:
+    """Per-corrtime observables (host floats)."""
+    params = su.params
+    e = state.reported_energy()
+    obs = {f"energy_{k}": float(v) for k, v in e.as_dict().items()}
+    obs["energy_total"] = float(e.total)
+    obs["energy_es"] = float(e.es)
+    obs["volume"] = float(torch.abs(torch.linalg.det(state.box)))
+    obs["N"] = float(state.n_molecules(params))
+    obs["N2"] = obs["N"] ** 2
+    obs["UN"] = obs["energy_total"] * obs["N"]
+    total_sorb_amu = 0.0
+    for i, nm in enumerate(su.species_names):
+        n_i = float(state.n_molecules_of(params, i))
+        obs[f"N_{nm}"] = n_i
+        total_sorb_amu += n_i * su.species[i].total_mass
+    obs.update(sorbed_mass_obs(total_sorb_amu, obs["volume"],
+                               su.frozen_mass))
+    if stats is not None:
+        acc = np.asarray(stats.accepts) / np.maximum(stats.attempts, 1)
+        for i, nm in enumerate(("displace", "insert", "delete", "volume",
+                                "spinflip")):
+            obs[f"acc_{nm}"] = float(acc[i])
+    return obs
+
+
+def run_te(job: input_script.Job, log=None, device="cpu"):
+    """ensemble te: one energy evaluation + per-term printout."""
+    su = setup(job, device=device)
+    e, _ = energy_mod.total_energy(
+        su.state.pos, su.state.box, su.state.mol_alive, su.params, su.cfg,
+        su.thermo)
+    output_io.print_energy_report(e, file=log)
+    return e
+
+
+def run_mc(job: input_script.Job, log=None, jsonl_path=None,
+           device="cpu"):
+    """The main MC loop (ensemble uvt/nvt), single chain, scan path."""
+    su = setup(job, device=device)
+    cfg, params, thermo = su.cfg, su.params, su.thermo
+    writer = output_io.RunWriter(job, su.species_names, log=log,
+                                 jsonl_path=jsonl_path)
+    writer.log_meta(ensemble=cfg.ensemble, temperature=job.temperature,
+                    pressure=job.pressure, fugacities=thermo.fugacity.cpu(),
+                    volume=float(torch.abs(torch.linalg.det(su.state.box))))
+    if job.unknown_options:
+        print(f"WARNING: unknown options ignored: {job.unknown_options}",
+              file=writer.log)
+    state = metropolis.initialize(su.state, params, cfg, thermo)
+    if job.frozen_output:
+        frame = pqr_io.read(job.pqr_input)
+        pqr_io.write(job.frozen_output, frame.frozen,
+                     remark="frozen framework")
+    avgs = Averages()
+    hist = None
+    if job.pop_histogram or job.histogram_output:
+        from mpmc_tpu_torch.utils.histogram import PopulationHistogram
+        hist = PopulationHistogram(state.box.cpu().numpy(),
+                                   job.hist_resolution)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    corr = max(cfg.corrtime, 1)
+    n_blocks = max(cfg.numsteps // corr, 1)
+    refresh_rows = metropolis.frozen_refresh_rows(params, cfg)
+    steps_done = 0
+    t0 = time.time()
+    for _ in range(n_blocks):
+        state, stats = metropolis.run_chunk(state, params, cfg, thermo,
+                                            corr, generator=generator)
+        steps_done += corr
+        # per-corrtime refresh on the frozen-reuse fast path
+        state = metropolis.initialize(state, params, cfg, thermo,
+                                      frozen_rows=refresh_rows)
+        stats = stats.host()
+        obs = observables(su, state, stats)
+        avgs.add(obs)
+        writer.log_block(int(state.step), obs, stats)
+        writer.write_restart(params, state)
+        writer.append_trajectory(params, state)
+        if hist is not None:
+            coms = all_molecule_coms(state.pos, params).cpu().numpy()
+            sel = (metropolis._movable_mask(params, state.mol_alive)
+                   .cpu().numpy())
+            hist.add(coms[sel])
+        if job.adapt_moves:
+            # nudge move sizes toward ~50% displace acceptance
+            acc = obs.get("acc_displace", 0.5)
+            scale = float(np.clip(np.sqrt(max(acc, 1e-3) / 0.5), 0.5, 2.0))
+            rc_now = float(pairs_mod.derived_cutoff(state.box, cfg))
+            thermo = thermo.replace(
+                move_factor=torch.clamp(thermo.move_factor * scale,
+                                        1e-3, rc_now),
+                rot_factor=torch.clamp(thermo.rot_factor * scale,
+                                       1e-3, np.pi))
+        if job.simulated_annealing:
+            thermo = thermo.replace(temperature=torch.clamp(
+                thermo.temperature * job.simulated_annealing_schedule,
+                min=job.simulated_annealing_target))
+    wall = time.time() - t0
+    if hist is not None:
+        path = job.histogram_output or "histogram.dx"
+        hist.write_dx(path)
+        print(f"population histogram written to {path}", file=writer.log)
+    if job.pqr_output:
+        pqr_io.write_state(job.pqr_output, params, state, su.species_names,
+                           remark=f"final step {state.step}")
+    writer.final_averages(avgs, float(thermo.temperature),
+                          fugacities=thermo.fugacity.cpu().numpy())
+    print(f"steps/sec: {steps_done / max(wall, 1e-9):.2f}  "
+          f"({steps_done} steps in {wall:.2f}s)", file=writer.log)
+    writer.close()
+    return dataclasses.replace(su, state=state, thermo=thermo), avgs
+
+
+def run(job: input_script.Job, **kw):
+    if job.cfg.ensemble in ("nvt", "uvt"):
+        return run_mc(job, **kw)
+    if job.cfg.ensemble == "te":
+        kw.pop("jsonl_path", None)
+        return run_te(job, **kw)
+    check_supported(job)
+    raise NotImplementedError(
+        f"ensemble {job.cfg.ensemble!r} not yet implemented")

@@ -1,0 +1,248 @@
+"""Masked O(N^2) pair-interaction passes (port of the GCMC slice of
+mpmc_tpu/ops/pairs.py).
+
+- ``pair_pass``     : full-system terms (refresh and full energy);
+- ``mol_pair_pass`` : one molecule's rows against everything (the
+                      per-move delta of displace, insert and delete).
+
+Both go through ops/cuda/pair_kernel.py: on a CUDA tensor they launch the
+hand-written kernels (B2 and B4), on a CPU tensor they run the kernels'
+plain versions, which are built from ``_tile_values``/``_block_terms``
+below — the dense [rows, cols] reference math.
+
+Raw pass outputs leave the Coulomb constant out; this module applies it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from mpmc_tpu_torch.constants import KE
+from mpmc_tpu_torch.ops import lj as lj_ops
+from mpmc_tpu_torch.ops import pbc as pbc_ops
+from mpmc_tpu_torch.state import mol_rows, row_valid
+
+# raw slot layout of a full pass: [rd, es_real, es_excl, lrc] for the
+# active part, the same four for the frozen-frozen part, then min_r2
+N_SLOTS = 9
+
+
+def derived_cutoff(box, cfg):
+    """Static cutoff if configured, else half min perpendicular width."""
+    if cfg.cutoff is not None:
+        return torch.as_tensor(cfg.cutoff, dtype=box.dtype,
+                               device=box.device)
+    return pbc_ops.default_cutoff(box)
+
+
+def derived_alpha(cutoff, cfg):
+    """Ewald splitting / Wolf damping parameter: ewald 3.5/rc, wolf 2/rc,
+    unless ``ewald_alpha``/``wolf_alpha`` is given."""
+    if cfg.coulomb == "wolf":
+        if cfg.wolf_alpha is not None:
+            return torch.full_like(cutoff, cfg.wolf_alpha)
+        return 2.0 / cutoff
+    if cfg.ewald_alpha is not None:
+        return torch.full_like(cutoff, cfg.ewald_alpha)
+    return 3.5 / cutoff
+
+
+def pair_scalars(box, cfg):
+    """The pair kernels' scalar header: [rc, alpha, box (9), box^-1 (9)],
+    one small tensor on the box's device, read by the kernels from device
+    memory (no host round trip per launch)."""
+    rc = derived_cutoff(box, cfg)
+    alpha = derived_alpha(rc, cfg)
+    return torch.cat([rc.reshape(1), alpha.reshape(1), box.reshape(-1),
+                      torch.linalg.inv(box).reshape(-1)]).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class PairTerms:
+    """Sums from a pair pass.  ``min_r2`` tracks the closest active
+    inter-molecular approach (``cavity_autoreject_absolute``)."""
+    rd: torch.Tensor
+    es_real: torch.Tensor
+    es_excl: torch.Tensor
+    lrc_coeff: torch.Tensor   # sum of tail coefficients; U_lrc = lrc_coeff/V
+    min_r2: torch.Tensor
+
+    def combine(self, o):
+        return PairTerms(self.rd + o.rd, self.es_real + o.es_real,
+                         self.es_excl + o.es_excl,
+                         self.lrc_coeff + o.lrc_coeff,
+                         torch.minimum(self.min_r2, o.min_r2))
+
+
+def _tile_values(r2, qi, ei, si, qj, ej, sj, cfg, rc, alpha):
+    """Per-pair values (no masks, no Coulomb constant) for broadcastable
+    row/column parameter tensors: (rd_u, es_u, ex_u, tc), each None when
+    its term is off.  The semantics of pairs._tile_values in the JAX
+    package for rd lj/none and coulomb ewald/wolf/cutoff/none."""
+    r2s = torch.where(r2 > 1e-12, r2, torch.ones_like(r2))  # guard i == j
+    r = torch.sqrt(r2s)
+    rd_u = tc = es_u = ex_u = None
+    if cfg.rd_potential == "lj":
+        eps, sig = lj_ops.mix(ei, ej, si, sj, cfg.mixing_rule)
+        rd_u = lj_ops.energy(r2s, eps, sig)
+        if cfg.rd_lrc:
+            tc = lj_ops.tail_coefficient(eps, sig, rc)
+    qq = qi * qj
+    if cfg.coulomb == "ewald":
+        es_u = qq * torch.special.erfc(alpha * r) / r
+        ex_u = -qq * torch.erf(alpha * r) / r
+    elif cfg.coulomb == "wolf":
+        es_u = qq * (torch.special.erfc(alpha * r) / r
+                     - torch.special.erfc(alpha * rc) / rc)
+    elif cfg.coulomb == "cutoff":
+        es_u = qq / r
+    return rd_u, es_u, ex_u, tc
+
+
+def _block_terms(pos_i, row_idx, row_ok, row_mol, row_frozen, qi, ei, si,
+                 pos, col_ok, mol_id, col_frozen, charge, eps, sig, scal,
+                 cfg, triangular, row_start=0):
+    """Raw [9] sums of one row block [B] against every column [N].
+
+    ``triangular``: count only cols > row (plus, with ``row_start``, every
+    col < row_start — the skipped frozen-prefix rows reappear as columns).
+    Otherwise every (row, col) pair counts once (molecule pass: the caller
+    masks the molecule's own columns out of ``col_ok``).  Per-term masks:
+    rd/es_real over inter pairs within rc, es_excl over intra pairs, lrc
+    over inter pairs at any distance, min_r2 over active inter pairs at
+    any distance; each sum split by ff = frozen row & frozen col."""
+    rc, alpha = scal[0], scal[1]
+    box, box_inv = scal[2:11].reshape(3, 3), scal[11:20].reshape(3, 3)
+    dr = pbc_ops.min_image(pos_i[:, None, :] - pos[None, :, :], box, box_inv)
+    r2 = torch.sum(dr * dr, dim=-1)                       # [B,N]
+    pair_ok = row_ok[:, None] & col_ok[None, :]
+    if triangular:
+        cols = torch.arange(pos.shape[0], device=pos.device)
+        tri = cols[None, :] > row_idx[:, None]
+        if row_start:
+            tri = tri | (cols[None, :] < row_start)
+        pair_ok = pair_ok & tri
+    same = row_mol[:, None] == mol_id[None, :]
+    inter = pair_ok & ~same
+    intra = pair_ok & same
+    act = inter & (r2 < rc * rc)
+    ff = row_frozen[:, None] & col_frozen[None, :]
+    rd_u, es_u, ex_u, tc = _tile_values(
+        r2, qi[:, None], ei[:, None], si[:, None], charge[None, :],
+        eps[None, :], sig[None, :], cfg, rc, alpha)
+    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+
+    def s(values, mask):
+        if values is None:
+            return zero
+        return torch.sum(torch.where(mask, values, zero))
+
+    out = []
+    for keep in (~ff, ff):
+        out += [s(rd_u, act & keep), s(es_u, act & keep),
+                s(ex_u, intra & keep), s(tc, inter & keep)]
+    out.append(torch.min(torch.where(inter & ~ff, r2,
+                                     torch.full_like(r2, math.inf)))
+               if r2.numel() else torch.full((), math.inf, dtype=pos.dtype,
+                                             device=pos.device))
+    return torch.stack(out)
+
+
+def _pair_terms(raw):
+    """(active, frozen_frozen) PairTerms from a raw [9] pass output."""
+    act = PairTerms(rd=raw[0], es_real=KE * raw[1], es_excl=KE * raw[2],
+                    lrc_coeff=raw[3], min_r2=raw[8])
+    ff = PairTerms(rd=raw[4], es_real=KE * raw[5], es_excl=KE * raw[6],
+                   lrc_coeff=raw[7],
+                   min_r2=torch.full_like(raw[8], math.inf))
+    return act, ff
+
+
+def pair_pass(pos, box, atom_alive, params, cfg, temperature,
+              split_frozen=False, row_start=0):
+    """Full-system pair terms: each (i<j) pair once.  With
+    ``split_frozen`` returns (active, frozen_frozen) PairTerms.
+
+    ``row_start`` restricts the rows to >= row_start, still paired
+    triangularly against ALL columns plus every column < row_start: with
+    the frozen-prefix layout (metropolis.frozen_refresh_rows) that is
+    exactly the ACTIVE part of the split pass, at (N-F)/N of the cost —
+    the per-corrtime fast refresh.  ``temperature`` is unused (it feeds
+    the Feynman-Hibbs terms, outside this slice)."""
+    from mpmc_tpu_torch.ops.cuda import pair_kernel
+
+    frozen = params.mol_frozen[params.mol_id]
+    raw = pair_kernel.pair_terms(
+        pos, params.charge, params.eps, params.sig, params.mol_id32,
+        atom_alive, frozen, pair_scalars(box, cfg), cfg, row_start=row_start)
+    act, ff = _pair_terms(raw)
+    # row-restricted: ff slots are exact zeros (no frozen row)
+    return (act, ff) if split_frozen else act.combine(ff)
+
+
+def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
+                  row_pos=None, scal=None):
+    """Pair terms between molecule ``mol``'s atoms (or its trial rows
+    ``row_pos``) and all OTHER molecules, each pair once — the O(A N)
+    per-move delta.  ``mol`` may be a 0-d device tensor (no host sync).
+    ``scal``: a precomputed pair_scalars(box, cfg), which the MC step
+    builds once per chunk."""
+    from mpmc_tpu_torch.ops.cuda import pair_kernel
+
+    if scal is None:
+        scal = pair_scalars(box, cfg)
+    raw = pair_kernel.mol_pair(
+        pos, params.charge, params.eps, params.sig, params.mol_id32,
+        atom_alive, params.mol_atoms, params.mol_natoms,
+        torch.as_tensor(mol, device=pos.device), row_pos, scal, cfg)
+    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    return PairTerms(rd=raw[0], es_real=KE * raw[1], es_excl=zero,
+                     lrc_coeff=raw[2], min_r2=raw[3])
+
+
+def intra_terms(pos, box, params, cfg, mol, row_pos=None, scal=None):
+    """Ewald exclusion correction of one molecule's internal pairs
+    (-ke q_i q_j erf(alpha r)/r), for GCMC insert/delete.  ``scal`` as
+    in mol_pair_pass (no cutoff, inverse or determinant per call)."""
+    if cfg.coulomb != "ewald":
+        return torch.zeros((), dtype=pos.dtype, device=pos.device)
+    if scal is None:
+        scal = pair_scalars(box, cfg)
+    alpha = scal[1]
+    valid = row_valid(params, mol)
+    A = valid.shape[0]
+    p = mol_rows(pos, params, mol) if row_pos is None else row_pos
+    dr = pbc_ops.min_image(p[:, None, :] - p[None, :, :], box,
+                           scal[11:20].reshape(3, 3))
+    r2 = torch.sum(dr * dr, -1)
+    ar = torch.arange(A, device=pos.device)
+    ok = (ar[None, :] > ar[:, None]) & valid[:, None] & valid[None, :]
+    r = torch.sqrt(torch.where(r2 > 1e-12, r2, torch.ones_like(r2)))
+    q = mol_rows(params.charge, params, mol)
+    qq = q[:, None] * q[None, :]
+    return -KE * torch.sum(torch.where(ok, qq * torch.erf(alpha * r) / r,
+                                       torch.zeros_like(r)))
+
+
+def lrc_self_coefficient(atom_alive, params, cfg, rc):
+    """Self (i==i periodic images) tail term: sum_i T_ii over alive atoms."""
+    if not cfg.rd_lrc or cfg.rd_potential != "lj":
+        return torch.zeros((), dtype=params.eps.dtype,
+                           device=params.eps.device)
+    tc = lj_ops.tail_coefficient(params.eps, params.sig, rc)
+    return torch.sum(torch.where(atom_alive, tc, torch.zeros_like(tc)))
+
+
+def mol_lrc_self_coefficient(params, cfg, rc, mol):
+    """Sum of self tail coefficients T_ii over one molecule's atoms
+    (GCMC insert/delete LRC delta: dU = (lrc_coeff + 0.5 * this) / V)."""
+    if not cfg.rd_lrc or cfg.rd_potential != "lj":
+        return torch.zeros((), dtype=params.eps.dtype,
+                           device=params.eps.device)
+    tc = lj_ops.tail_coefficient(mol_rows(params.eps, params, mol),
+                                 mol_rows(params.sig, params, mol), rc)
+    return torch.sum(torch.where(row_valid(params, mol), tc,
+                                 torch.zeros_like(tc)))
+
