@@ -3,22 +3,33 @@
 Phases (any failure raises, so the exit code is non-zero):
 
 1. device — the card's name and power limit (nvidia-smi);
-2. build  — the CUDA kernels from mpmc_tpu_torch/csrc, with build seconds;
+2. build  — the CUDA kernels from mpmc_tpu_torch/csrc (one nvcc per
+   source, all at once), with build seconds;
 3. kernels — B2 (pair_terms) and B4 (mol_pair) against their plain
    PyTorch versions on the 10.8k-atom bench system (MOF lattice n_side=21
    + 512 H2 slots), float32 and float64, with CUDA-event timings;
-4. energy — total_energy on the card (float32, kernels) against the port
+4. B1 — the fused µVT kernel (run_steps_uvt) against its plain version on
+   the same system: one numpy-seeded [C=2, K=256, 16] uniform table in
+   float64 and float32 (the same decisions, positions and sums within
+   the stated tolerances), each chain of the C = 2 launch against a C = 1
+   launch on its own block, and CUDA-event timings;
+5. energy — total_energy on the card (float32, kernels) against the port
    on the CPU (float64, plain), term by term;
-5. main path — the 10.8k system written to PQR and run as a GCMC deck
-   through mpmc_tpu_torch.mc.run.run (3000 steps): both kernels must have
+6. scan path — the 10.8k system written to PQR and run as a GCMC deck
+   through mpmc_tpu_torch.mc.run.run (3000 steps): B2 and B4 must have
    been launched by it, and the carried energy of a further chunk must
    match a fresh recompute; a profiled chunk shows where a step's time
-   goes; then examples/h2_sorption.inp (5000 steps).
+   goes; then examples/h2_sorption.inp (5000 steps);
+7. fused path — the same deck with ``fused_mc on`` (20,000 steps): B1 and
+   B2 must have been launched, the carried energy of a further chunk
+   must match a fresh recompute, the kernel alone is timed and a chunk
+   profiled; then ``chains 32`` (the reference's headline width), with
+   the bookkeeping of chain 0 and of the last chain and a profiled chunk.
 
-The second-to-last line is a JSON object with each kernel's launches,
-error and times; the last line is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Imports nothing of JAX.
+The second-to-last line is a JSON object with each kernel's launches on
+its main path, error against its plain version, times and bound; the last
+line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -36,9 +47,22 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "mpmc_tpu_torch/csrc/pair_kernel.cu"
+SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
+           "mol_pair": "mpmc_tpu_torch/csrc/pair_kernel.cu",
+           "run_steps_uvt": "mpmc_tpu_torch/csrc/uvt_kernel.cu"}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
-            "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336"}
+            "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
+            "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910"}
+# NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
+# tensor cores, and device memory
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# floating-point operations per evaluated pair (a square root, division,
+# erfc/erf or rounding counted as one), as the sources' notes count them:
+# B2/B4 general-box minimum image 36, r^2 and guard 6, LJ 13, LJ tail 11,
+# Coulomb and exclusion 9, sums 4; B1 see csrc/uvt_kernel.cu
+OPS_PAIR_B2B4 = 79
+OPS_PAIR_B1, OPS_PHASE_B1, OPS_K_B1 = 44, 13, 9
 # the bench system: mof_h2_gcmc(n_side=21, spacing=4.0, n_h2=256,
 # capacity=512) -> 9,261 framework atoms + 512 x 3 H2 sites
 N_SIDE, N_H2, CAPACITY = 21, 256, 512
@@ -91,14 +115,30 @@ def phase_device():
 def phase_build():
     from mpmc_tpu_torch.ops.cuda import _build
     t0 = time.time()
-    path = _build.build(force=True)
+    paths = _build.build(force=True)
     secs = time.time() - t0
-    _build.library()
-    log(f"build: {secs:.1f} s -> {os.path.relpath(path, REPO)}")
-    for line in path.with_suffix(".ptxas.txt").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Function" in line:
-            log("  ptxas: " + line.strip())
+    for name in paths:
+        _build.library(name)
+    log(f"build: {secs:.1f} s (one nvcc per source, in parallel) -> "
+        + ", ".join(os.path.relpath(p, REPO) for p in paths.values()))
+    for path in paths.values():
+        for line in path.with_suffix(".ptxas.txt").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Function" in line:
+                log("  ptxas: " + line.strip())
     return secs
+
+
+def _bound_ms(ops, nbytes):
+    """(bound ms, bound_by): the larger of ops at the f32 peak and bytes
+    at the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
 
 
 def bench_system(dtype, device, n_side=N_SIDE, n_h2=N_H2,
@@ -166,7 +206,18 @@ def phase_kernels(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
             report["pair_terms"]["max_abs_err"] = max(
                 report["pair_terms"]["max_abs_err"], float(err[fin].max()))
             if dtype == "float32" and rs == F:
-                report["pair_terms"].update(ms=ms, plain_ms=pms)
+                # pairs this row-restricted pass evaluates: every alive
+                # row >= F against the alive columns above it and below F
+                idx = np.flatnonzero(alive.cpu().numpy())
+                n_f = int(np.sum(idx < F))
+                pos_in = np.arange(len(idx))
+                n_pairs = int(np.sum((len(idx) - pos_in - 1 + n_f)
+                                     [idx >= F]))
+                bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4,
+                                      _nbytes(*args[:8]) + 9 * 4)
+                report["pair_terms"].update(ms=ms, plain_ms=pms,
+                                            bound_ms=bound, bound_by=by)
+                log(f"    bound {bound:.5f} ms ({by}; {n_pairs} pairs)")
         # B4: an alive H2 (current rows) and a trial next to the framework
         h2 = int(np.flatnonzero(
             (params.mol_species >= 0).cpu().numpy()
@@ -206,8 +257,137 @@ def phase_kernels(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
             report["mol_pair"]["max_abs_err"] = max(
                 report["mol_pair"]["max_abs_err"], float(err.max()))
             if dtype == "float32" and label == "H2":
-                report["mol_pair"].update(ms=ms, plain_ms=pms)
+                own = (params.mol_id == h2).cpu().numpy()
+                n_pairs = int(params.mol_natoms[h2]) * int(np.sum(
+                    alive.cpu().numpy() & ~own))
+                bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4,
+                                      _nbytes(*margs[:11]) + 4 * 4)
+                report["mol_pair"].update(ms=ms, plain_ms=pms,
+                                          bound_ms=bound, bound_by=by)
+                log(f"    bound {bound:.5f} ms ({by}; {n_pairs} pairs)")
     return report
+
+
+def _first_divergence(args, kw, trace, mk, K):
+    """(step, chain, |ln u - ln acc| there) of the first step whose
+    decision differs between the kernel and the plain trace, by
+    bisection over launches on the leading steps of the table."""
+    cum = torch.cumsum(torch.stack([t["accept"] for t in trace]).long(), 0)
+    u = args[24]
+
+    def agrees(k):
+        out = mk.run_steps_uvt(*args[:24], u[:, :k].contiguous(), args[25],
+                               **kw)
+        return torch.equal(out[2][:, 6:9].sum(1).long().cpu(),
+                           cum[k - 1].cpu())
+
+    lo, hi = 0, K              # agrees on lo steps, disagrees on hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if agrees(mid):
+            lo = mid
+        else:
+            hi = mid
+    step = hi - 1
+    out = mk.run_steps_uvt(*args[:24], u[:, :hi].contiguous(), args[25],
+                           **kw)
+    chain = int(torch.nonzero(out[2][:, 6:9].sum(1).long().cpu()
+                              != cum[step].cpu())[0])
+    return step, chain, float(abs(trace[step]["margin"][chain]))
+
+
+def phase_uvt_kernel(device, C=2, K=256, seed=2024):
+    """B1 against its plain version on one numpy-seeded [C, K, 16] table.
+
+    float64: identical move counts and aliveness, positions within 1e-9 A,
+    sums within rel 1e-10 (abs 1e-8 K where a sum cancels to ~0).
+    float32: the same decisions, positions within 1e-4 A, and each energy
+    sum within 2e-5 of its size plus 2e-3 K x sqrt(accepted moves + 1):
+    the phases k.r reach ~44 rad, whose float32 spacing (3.8e-6 rad) moves
+    each accepted move's reciprocal delta by up to ~1e-3 K, and the kernel
+    contracts multiply-adds into FMAs where the plain version rounds
+    twice.  Every chain of the C = 2 launch must equal, bit for bit, a
+    C = 1 launch on its own block.  Returns the kernel's report entry."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    u_np = np.random.default_rng(seed).random((C, K, 16))
+    rep = {"max_abs_err": 0.0}
+    for dtype in ("float64", "float32"):
+        params, state, cfg, thermo = bench_system(dtype, device)
+        state = metropolis.initialize(state, params, cfg, thermo)
+        tables = metropolis.uvt_fused_tables(params, cfg)
+        u = torch.as_tensor(u_np, dtype=cfg.tdtype, device=device)
+        args, kw = metropolis.fused_uvt_launch_args(
+            multichain.stack_states(state, C), params, cfg, thermo, u,
+            tables)
+        k = mk.run_steps_uvt(*args, **kw)
+        torch.cuda.synchronize(device)
+        trace = []
+        p = mk.run_steps_uvt_plain(*args, **kw, trace=trace)
+        ks, ps = k[2].cpu().numpy(), p[2].cpu().numpy()
+        log(f"B1 {dtype} C={C} K={K}: kernel counts {ks[:, 6:12].tolist()}"
+            f" plain {ps[:, 6:12].tolist()}")
+        if not (np.array_equal(ks[:, 6:12], ps[:, 6:12])
+                and torch.equal(k[1], p[1])):
+            step, chain, margin = _first_divergence(args, kw, trace, mk, K)
+            raise AssertionError(
+                f"B1 {dtype}: decisions differ from the plain version; "
+                f"first at step {step} of chain {chain}, |ln u - ln acc| = "
+                f"{margin:.3e}")
+        f64 = dtype == "float64"
+        n_acc = ps[:, 6:9].sum(1, keepdims=True)
+        tol = (np.maximum(1e-10 * np.abs(ps[:, :6]), 1e-8) if f64 else
+               2e-5 * np.abs(ps[:, :6]) + 2e-3 * np.sqrt(n_acc + 1.0))
+        d_sums = np.abs(ks[:, :6] - ps[:, :6])
+        d_pos = float((k[0] - p[0]).abs().max())
+        d_sk = max(float((a - b).abs().max()) for a, b in zip(k[3:], p[3:]))
+        for c in range(C):
+            log("    sums kernel " + " ".join(f"{x: .8e}" for x in ks[c, :6])
+                + "\n    sums plain  "
+                + " ".join(f"{x: .8e}" for x in ps[c, :6]))
+        log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
+            f"{tol.max():.3e}), pos {d_pos:.3e} A, S(k) {d_sk:.3e}")
+        sk_tol = 1e-9 if f64 else 1e-4 * (1.0 + float(p[3].abs().max()))
+        if not (np.all(d_sums <= tol) and d_pos <= (1e-9 if f64 else 1e-4)
+                and d_sk <= sk_tol):
+            raise AssertionError(f"B1 {dtype} disagrees with its plain "
+                                 "version")
+        rep["max_abs_err"] = max(rep["max_abs_err"], float(d_sums.max()),
+                                 d_pos, d_sk)
+        # chain c of the C-chain launch == a C = 1 launch on its block
+        singles = []
+        for c in range(C):
+            a1, kw1 = metropolis.fused_uvt_launch_args(
+                multichain.stack_states(state, 1), params, cfg, thermo,
+                u[c:c + 1], tables)
+            one = mk.run_steps_uvt(*a1, **kw1)
+            if not all(torch.equal(x[0], y[c]) for x, y in zip(one, k)):
+                raise AssertionError(f"B1 {dtype}: chain {c} of the C={C} "
+                                     "launch differs from its C=1 launch")
+            singles.append((a1, kw1))
+        log(f"    every chain equals its C=1 launch bit for bit")
+        if not f64:
+            a1, kw1 = singles[0]
+            ms = time_calls(lambda: mk.run_steps_uvt(*a1, **kw1), device,
+                            n=10) / K
+            pms = time_calls(lambda: mk.run_steps_uvt_plain(*a1, **kw1),
+                             device, n=2) / K
+            nk = kw1["kvecs"].shape[0]
+            ops = sum(int(t["pairs"][0]) * OPS_PAIR_B1
+                      + int(t["phases"][0]) * OPS_PHASE_B1
+                      + (int(t["phases"][0]) > 0) * nk * OPS_K_B1
+                      for t in trace)
+            # each input read once; out: pos, atom alive, slot alive,
+            # S(k) and the sums written once
+            n_in = _nbytes(*a1[:25], *kw1.values())
+            n_out = _nbytes(one[0], a1[1], one[1], one[2], *one[3:])
+            bound, by = _bound_ms(ops, n_in + n_out)
+            rep.update(ms=ms, plain_ms=pms, bound_ms=bound / K, bound_by=by)
+            log(f"B1 f32 C=1: kernel {ms * 1e3:.2f} us/step, plain "
+                f"{pms * 1e3:.1f} us/step, bound {bound / K * 1e3:.4f} "
+                f"us/step ({by}; {ops / K:.3e} ops/step)")
+    return rep
 
 
 def phase_energy(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
@@ -258,11 +438,14 @@ pqr_restart restart.pqr
 """
 
 
-def phase_main(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY,
-               numsteps=3000):
-    """The port's main path at full size through run.run."""
+def _run_deck(device, extra="", numsteps=3000, n_side=N_SIDE, n_h2=N_H2,
+              capacity=CAPACITY):
+    """The 10.8k system written to PQR and run as DECK (plus ``extra``
+    lines) through run.run, every launch count set to 0 just before and
+    read just after.  Returns (Setup, averages, log text, launches)."""
     from mpmc_tpu_torch.io import input_script, pqr
-    from mpmc_tpu_torch.mc import metropolis, run
+    from mpmc_tpu_torch.mc import run
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
     params, state, cfg, _ = bench_system("float32", "cpu", n_side, n_h2,
                                          capacity)
@@ -273,21 +456,43 @@ def phase_main(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY,
             pqr.write_state("bench10k.pqr", params, state, ["H2"])
             with open("bench10k.inp", "w") as f:
                 f.write(DECK.format(numsteps=numsteps,
-                                    L=float(state.box[0, 0])))
+                                    L=float(state.box[0, 0])) + extra)
             job = input_script.parse_file("bench10k.inp")
             buf = io.StringIO()
             pk.reset_counts()
+            mk.reset_counts()
             su, avgs = run.run(job, log=buf, device=device)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            torch.cuda.synchronize(device)
             launches = {"pair_terms": pk.pair_terms.launches,
-                        "mol_pair": pk.mol_pair.launches}
+                        "mol_pair": pk.mol_pair.launches,
+                        "run_steps_uvt": mk.run_steps_uvt.launches}
         finally:
             os.chdir(old)
     text = buf.getvalue()
     log(text.rstrip())
-    log(f"main-path launches: {launches}")
-    if device.type == "cuda" and not all(v > 0 for v in launches.values()):
+    log(f"launches: {launches}")
+    for k in ("N", "energy_total"):
+        if not np.isfinite(avgs.mean(k)):
+            raise AssertionError(f"non-finite average {k}")
+    return su, avgs, text, launches
+
+
+def _check_bookkeeping(label, st, su):
+    """Carried energy after a further chunk against a fresh recompute."""
+    from mpmc_tpu_torch.mc import metropolis
+    fresh = metropolis.initialize(st, su.params, su.cfg, su.thermo)
+    carried, full = float(st.energy.total), float(fresh.energy.total)
+    log(f"bookkeeping {label}: carried {carried:.6f} fresh {full:.6f}")
+    if not abs(carried - full) <= 1e-4 * max(abs(full), 1.0):
+        raise AssertionError(f"{label}: carried energy drifted from a "
+                             "fresh recompute beyond rel 1e-4")
+
+
+def phase_main(device, numsteps=3000):
+    """The port's scan path at full size through run.run."""
+    from mpmc_tpu_torch.mc import metropolis
+    su, avgs, text, launches = _run_deck(device, numsteps=numsteps)
+    if not (launches["pair_terms"] > 0 and launches["mol_pair"] > 0):
         raise AssertionError(f"a kernel was not launched: {launches}")
     rate = float(text.split("steps/sec:")[1].split()[0])
     log(f"GCMC 10.8k scan path: {rate:.2f} steps/s, <N> "
@@ -298,40 +503,121 @@ def phase_main(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY,
     g = torch.Generator(device=device).manual_seed(11)
     st, stats = metropolis.run_chunk(su.state, su.params, su.cfg, su.thermo,
                                      1000, generator=g)
-    fresh = metropolis.initialize(st, su.params, su.cfg, su.thermo)
-    carried, full = float(st.energy.total), float(fresh.energy.total)
-    log(f"bookkeeping after 1000 steps: carried {carried:.6f} fresh "
-        f"{full:.6f} accepts {stats.host().accepts.tolist()}")
-    if not abs(carried - full) <= 1e-4 * max(abs(full), 1.0):
-        raise AssertionError("carried energy drifted from a fresh "
-                             "recompute beyond rel 1e-4")
-    for k in ("N", "energy_total"):
-        if not np.isfinite(avgs.mean(k)):
-            raise AssertionError(f"non-finite average {k}")
+    log(f"scan chunk accepts {stats.host().accepts.tolist()}")
+    _check_bookkeeping("scan path, 1000 steps", st, su)
     return launches, rate, dataclasses.replace(su, state=st)
 
 
-def phase_profile(device, su, n_steps=500):
-    """Where a GCMC step's time goes: one untraced chunk for the rate,
-    then a torch.profiler chunk for device busy time by kernel."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def phase_fused(device, numsteps=20000):
+    """The fused µVT path at full size: the bench deck with fused_mc on."""
     from mpmc_tpu_torch.mc import metropolis
-    g = torch.Generator(device=device).manual_seed(5)
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.state import stack_chains
+    su, avgs, text, launches = _run_deck(device, "fused_mc on\n",
+                                         numsteps=numsteps)
+    if "fused_mc: single-chain fused" not in text:
+        raise AssertionError("the fused deck did not take the fused path")
+    if not (launches["run_steps_uvt"] > 0 and launches["pair_terms"] > 0):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    rate = float(text.split("steps/sec:")[1].split()[0])
+    log(f"GCMC 10.8k fused single chain: {rate:.2f} steps/s (run_mc), <N>"
+        f" {avgs.mean('N'):.3f}, acceptance displace/insert/delete "
+        f"{avgs.mean('acc_displace'):.4f}/{avgs.mean('acc_insert'):.4f}/"
+        f"{avgs.mean('acc_delete'):.4f}")
+    tables = metropolis.uvt_fused_tables(su.params, su.cfg)
+    g = torch.Generator(device=device).manual_seed(13)
+    st, stats = metropolis.run_chunk_fused_uvt(
+        su.state, su.params, su.cfg, su.thermo, 1000, generator=g,
+        tables=tables)
+    log(f"fused chunk accepts {stats.host().accepts.tolist()}")
+    _check_bookkeeping("fused single chain, 1000 steps", st, su)
+    # the kernel alone: CUDA events around one 1000-step launch
+    u = torch.rand((1, 1000, 16), generator=g, device=device)
+    args, kw = metropolis.fused_uvt_launch_args(
+        stack_chains([st]), su.params, su.cfg, su.thermo, u, tables)
+    ms = time_calls(lambda: mk.run_steps_uvt(*args, **kw), device, n=5)
+    log(f"B1 kernel alone, single chain: {ms / 1000 * 1e3:.2f} us/step "
+        f"({ms:.2f} ms per 1000-step launch)")
+    _block_breakdown(device, su, "fused single chain")
+    return launches, rate, dataclasses.replace(su, state=st), ms / 1000
 
-    def chunk():
+
+def _block_breakdown(device, su, label, states=None):
+    """Host-clock seconds of the per-corrtime work of a run_mc block
+    besides the chunk: the refresh, the observables and the restart
+    write (the part of a block that the kernel's time does not cover)."""
+    from mpmc_tpu_torch.io import pqr
+    from mpmc_tpu_torch.mc import metropolis, run
+    from mpmc_tpu_torch.parallel import multichain
+    F = metropolis.frozen_refresh_rows(su.params, su.cfg)
+
+    def clock(fn):
+        torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        metropolis.run_chunk(su.state, su.params, su.cfg, su.thermo,
-                             n_steps, generator=g)
+        fn()
         torch.cuda.synchronize(device)
         return time.perf_counter() - t0
 
-    chunk()
-    wall = chunk()
+    if states is None:
+        refresh = clock(lambda: metropolis.initialize(
+            su.state, su.params, su.cfg, su.thermo, frozen_rows=F))
+        obs = clock(lambda: run.observables(su, su.state))
+    else:
+        refresh = clock(lambda: multichain.initialize_batched(
+            states, su.params, su.cfg, su.thermo, frozen_rows=F))
+        obs = clock(lambda: run.observables_batched(
+            su, states, states.pos.shape[0]))
+    with tempfile.TemporaryDirectory() as tmp:
+        restart = clock(lambda: pqr.write_state(
+            os.path.join(tmp, "r.pqr"), su.params, su.state,
+            su.species_names, wrap=True))
+    log(f"block breakdown {label}: refresh {refresh * 1e3:.2f} ms, "
+        f"observables {obs * 1e3:.2f} ms, restart write "
+        f"{restart * 1e3:.2f} ms (host clock)")
+    return {"refresh_ms": refresh * 1e3, "observables_ms": obs * 1e3,
+            "restart_ms": restart * 1e3}
+
+
+def phase_fused_chains(device, chains=32, numsteps=20000):
+    """The fused µVT path at the reference's headline width: the bench
+    deck with fused_mc on and chains 32; bookkeeping of chain 0 and of
+    the last chain after a further chunk."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.state import slice_chain
+    su, avgs, text, launches = _run_deck(
+        device, f"fused_mc on\nchains {chains}\n", numsteps=numsteps)
+    if not launches["run_steps_uvt"] > 0:
+        raise AssertionError(f"B1 was not launched: {launches}")
+    rate = float(text.split("steps/sec:")[1].split()[0])
+    log(f"GCMC 10.8k fused c{chains}: {rate:.2f} steps/s aggregate, <N> "
+        f"{avgs.mean('N'):.3f}")
+    g = torch.Generator(device=device).manual_seed(17)
+    sts, _ = metropolis.run_chunk_fused_uvt_multi(
+        su.states, su.params, su.cfg, su.thermo, 1000, generator=g)
+    for c in (0, chains - 1):
+        _check_bookkeeping(f"fused c{chains} chain {c}, 1000 steps",
+                           slice_chain(sts, c), su)
+    _block_breakdown(device, su, f"fused c{chains}", states=su.states)
+    return launches, rate, su
+
+
+def _profile(label, chunk, n_steps, device):
+    """One untraced run of ``chunk`` for the rate, then a torch.profiler
+    run for device busy time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed():
+        t0 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
+
+    timed()
+    wall = timed()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_traced = chunk()
+        wall_traced = timed()
     # device-side events only (kernels, memcpy, memset): CPU ops also
     # carry the device time of the kernels they launched
     dev = [(e.key, e.count, e.self_device_time_total)
@@ -339,9 +625,11 @@ def phase_profile(device, su, n_steps=500):
            if e.device_type == DeviceType.CUDA]
     busy_us = sum(t for _, _, t in dev)
     launches = sum(c for _, c, _ in dev)
-    out = {"steps": n_steps, "ms_per_step": 1e3 * wall / n_steps,
+    out = {"path": label, "steps": n_steps,
+           "ms_per_step": 1e3 * wall / n_steps,
            "ms_per_step_traced": 1e3 * wall_traced / n_steps,
            "device_busy_ms_per_step": busy_us / 1e3 / n_steps,
+           "device_busy_share": busy_us / 1e6 / wall,
            "device_busy_share_traced": busy_us / 1e6 / wall_traced,
            "device_ops_per_step": launches / n_steps,
            "top": [{"kernel": k[:90], "count": c, "ms": t / 1e3}
@@ -349,6 +637,17 @@ def phase_profile(device, su, n_steps=500):
     log("profile " + json.dumps(out))
     if busy_us <= 0:
         log("profile: the profiler recorded no device time")
+    return out
+
+
+def phase_profile(device, su, n_steps=500):
+    """Where a scan-path GCMC step's time goes, and the check that a step
+    makes no host sync."""
+    from mpmc_tpu_torch.mc import metropolis
+    g = torch.Generator(device=device).manual_seed(5)
+    out = _profile("scan", lambda: metropolis.run_chunk(
+        su.state, su.params, su.cfg, su.thermo, n_steps, generator=g),
+        n_steps, device)
     # a step makes no host sync: torch raises on any synchronizing call
     step, carry, c, branch, stats = metropolis.chunk_setup(
         su.state, su.params, su.cfg, su.thermo,
@@ -362,6 +661,34 @@ def phase_profile(device, su, n_steps=500):
         torch.cuda.set_sync_debug_mode("default")
     log(f"no host sync in 200 steps (branches {np.bincount(branch)})")
     return out
+
+
+def phase_profile_fused(device, su, n_steps=1000, states=None):
+    """Where a fused chunk's time goes: one launch of B1 plus the
+    per-corrtime refresh, as run_mc runs them for one chain, or as
+    run_mc_chains runs them for the stacked ``states``."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.parallel import multichain
+    g = torch.Generator(device=device).manual_seed(6)
+    tables = metropolis.uvt_fused_tables(su.params, su.cfg)
+    F = metropolis.frozen_refresh_rows(su.params, su.cfg)
+
+    def chunk():
+        if states is None:
+            st, _ = metropolis.run_chunk_fused_uvt(
+                su.state, su.params, su.cfg, su.thermo, n_steps,
+                generator=g, tables=tables)
+            metropolis.initialize(st, su.params, su.cfg, su.thermo,
+                                  frozen_rows=F)
+        else:
+            sts, _ = metropolis.run_chunk_fused_uvt_multi(
+                states, su.params, su.cfg, su.thermo, n_steps, generator=g,
+                tables=tables)
+            multichain.initialize_batched(sts, su.params, su.cfg,
+                                          su.thermo, frozen_rows=F)
+
+    label = "fused" if states is None else f"fused_c{states.pos.shape[0]}"
+    return _profile(label, chunk, n_steps, device)
 
 
 def phase_example(device, numsteps=5000):
@@ -395,19 +722,42 @@ def phase_example(device, numsteps=5000):
 def main():
     dev, smi = phase_device()
     sys.path.insert(0, REPO)
+    t0 = time.time()
     build_s = phase_build()
     report = phase_kernels(dev)
+    report["run_steps_uvt"] = phase_uvt_kernel(dev)
     phase_energy(dev)
-    launches, rate, su = phase_main(dev)
-    phase_profile(dev, su)
+    scan_launches, rate, su = phase_main(dev)
+    prof_scan = phase_profile(dev, su)
     phase_example(dev)
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+    fused_launches, fused_rate, su_f, kernel_us = phase_fused(dev)
+    prof_fused = phase_profile_fused(dev, su_f)
+    chain_launches, chains_rate, su_c = phase_fused_chains(dev)
+    prof_chains = phase_profile_fused(dev, su_c, states=su_c.states)
+    # each kernel's launches on its own main path: B2 and B4 on the scan
+    # path, B1 on the fused single-chain path
+    launches = {"pair_terms": scan_launches["pair_terms"],
+                "mol_pair": scan_launches["mol_pair"],
+                "run_steps_uvt": fused_launches["run_steps_uvt"]}
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
                 "ms": report[name]["ms"],
-                "plain_ms": report[name]["plain_ms"]}
-               for name in ("pair_terms", "mol_pair")]
-    log(f"build_seconds {build_s:.1f}  gcmc_steps_per_sec {rate:.2f}")
+                "plain_ms": report[name]["plain_ms"],
+                "bound_ms": report[name]["bound_ms"],
+                "bound_by": report[name]["bound_by"],
+                "library_ms": None}
+               for name in ("pair_terms", "mol_pair", "run_steps_uvt")]
+    log(f"launches per path: scan {scan_launches}, fused {fused_launches}, "
+        f"fused chains {chain_launches}")
+    log(f"build_seconds {build_s:.1f}  scan_steps_per_sec {rate:.2f}  "
+        f"fused_steps_per_sec {fused_rate:.2f}  "
+        f"fused_c32_steps_per_sec {chains_rate:.2f}  "
+        f"b1_kernel_us_per_step {kernel_us * 1e3:.2f}  "
+        f"fused_device_busy {prof_fused['device_busy_share']:.4f}  "
+        f"fused_c32_device_busy {prof_chains['device_busy_share']:.4f}  "
+        f"scan_device_busy {prof_scan['device_busy_share']:.4f}  "
+        f"wall_seconds {time.time() - t0:.1f}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

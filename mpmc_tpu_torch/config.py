@@ -14,6 +14,18 @@ from typing import Optional, Tuple
 import torch
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    current CUDA device; without one it raises (the CPU is only ever
+    chosen explicitly)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           "CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     # --- job control

@@ -32,6 +32,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_math.cuh"
+
 namespace {
 
 constexpr int PT = 128;    // B2: rows per block = columns per tile
@@ -45,19 +47,6 @@ struct Opts {
   int es;    // 0 none, 1 ewald, 2 wolf, 3 cutoff
   int lrc;   // 1: LJ tail coefficient
 };
-
-__device__ __forceinline__ float x_erfc(float x) { return erfcf(x); }
-__device__ __forceinline__ double x_erfc(double x) { return erfc(x); }
-__device__ __forceinline__ float x_erf(float x) { return erff(x); }
-__device__ __forceinline__ double x_erf(double x) { return erf(x); }
-__device__ __forceinline__ float x_sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double x_sqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float x_rint(float x) { return rintf(x); }
-__device__ __forceinline__ double x_rint(double x) { return rint(x); }
-__device__ __forceinline__ float x_pow(float x, float y) { return powf(x, y); }
-__device__ __forceinline__ double x_pow(double x, double y) { return pow(x, y); }
-__device__ __forceinline__ float x_min(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ double x_min(double a, double b) { return fmin(a, b); }
 
 // One pair: minimum-image r2 and the unmasked term values.
 template <typename T>

@@ -122,6 +122,21 @@ class RunWriter:
                                remark=f"restart step {int(state.step)}",
                                wrap=self.job.cfg.wrapall)
 
+    def write_parallel_restarts(self, params, states, n: int):
+        """One restart PQR per chain: <pqr_restart>-rK (the reference's
+        per-MPI-rank parallel_restarts, SURVEY §2)."""
+        if not (self.job.pqr_restart and self.job.parallel_restarts):
+            return
+        from mpmc_tpu_torch.state import slice_chain
+        base = self.job.pqr_restart
+        for k in range(n):
+            st = slice_chain(states, k)
+            pqr_io.write_state(f"{base}-r{k}", params, st,
+                               self.species_names,
+                               remark=f"restart replica {k} step "
+                                      f"{int(st.step)}",
+                               wrap=self.job.cfg.wrapall)
+
     def append_trajectory(self, params, state):
         if self.job.traj_output:
             mode = "w" if not self._wrote_traj_header else "a"
@@ -130,6 +145,24 @@ class RunWriter:
                                remark=f"frame step {int(state.step)}",
                                wrap=self.job.cfg.wrapall)
             self._wrote_traj_header = True
+
+    def append_parallel_trajectories(self, params, states, n: int):
+        """One trajectory PQR per chain beyond chain 0: <traj_output>-rK
+        (gated on ``parallel_restarts``, the same per-rank-files switch as
+        the restarts — the reference keeps one output stream per MPI
+        rank, SURVEY §2 "MPI layer")."""
+        if not (self.job.traj_output and self.job.parallel_restarts):
+            return
+        from mpmc_tpu_torch.state import slice_chain
+        mode = "w" if not self._wrote_ptraj_header else "a"
+        for k in range(1, n):
+            st = slice_chain(states, k)
+            pqr_io.write_state(f"{self.job.traj_output}-r{k}", params,
+                               st, self.species_names, mode=mode,
+                               remark=f"frame replica {k} step "
+                                      f"{int(st.step)}",
+                               wrap=self.job.cfg.wrapall)
+        self._wrote_ptraj_header = True
 
     def write_dipoles(self, params, state):
         """dipole_output / field_output: induced dipoles [Debye] and static

@@ -1,5 +1,11 @@
-"""The Metropolis Monte Carlo engine, scan path (port of the row-level,
-non-cache part of mpmc_tpu/mc/metropolis.py).
+"""The Metropolis Monte Carlo engine (port of the row-level, non-cache
+scan path and of the fused µVT path of mpmc_tpu/mc/metropolis.py).
+
+The fused path (``run_chunk_fused_uvt`` for one chain,
+``run_chunk_fused_uvt_multi`` for C stacked chains) runs a whole chunk in
+one launch of kernel B1 (ops/cuda/mc_kernel.run_steps_uvt) and applies its
+sums, slot aliveness, positions and S(k) to the state.  The rest of this
+docstring describes the scan path.
 
 One step = one row of a [K, 16] uniform table (lane layout of
 mc_kernel.draw_uniforms(lanes=16), consumed as mc_kernel._kernel_uvt does;
@@ -30,9 +36,10 @@ from mpmc_tpu_torch.constants import ATM2K_A3, KE
 from mpmc_tpu_torch.mc import moves
 from mpmc_tpu_torch.ops import energy as energy_mod
 from mpmc_tpu_torch.ops import ewald, pairs
+from mpmc_tpu_torch.ops.cuda import mc_kernel
 from mpmc_tpu_torch.state import (EnergyBreakdown, Params, SimState,
                                   mol_rows, mol_rows_update, row_valid,
-                                  take)
+                                  slice_chain, stack_chains, take)
 
 # global move-type ids (stats indexing)
 DISPLACE, INSERT, DELETE, VOLUME, SPINFLIP = 0, 1, 2, 3, 4
@@ -339,6 +346,206 @@ def run_chunk(state: SimState, params: Params, cfg: RunConfig,
                          energy=carry["energy"], sk_re=carry["sk_re"],
                          sk_im=carry["sk_im"],
                          step=state.step + n_steps), stats
+
+
+# ---------------------------------------------------------------------------
+# Fused µVT path (kernel B1, ops/cuda/mc_kernel.run_steps_uvt)
+# ---------------------------------------------------------------------------
+
+def _fused_ktable(box, cfg, alpha):
+    """(kvecs [Nk,3], folded coefficients [Nk]) for the fused kernel's S(k)
+    delta, or (None, None) outside ewald: KE (2 pi / V) w exp(-k^2/4a^2)
+    / k^2 with the half-space pair weight w = 2, so dE_recip is a plain
+    dot with |S + dS|^2 - |S|^2."""
+    if cfg.coulomb != "ewald":
+        return None, None
+    kv = ewald.kvectors(box, cfg.ewald_kmax)
+    k2 = torch.sum(kv * kv, dim=-1)
+    k2s = torch.where(k2 > 1e-12, k2, torch.ones_like(k2))
+    vol = torch.abs(torch.linalg.det(box))
+    kcoef = (KE * (2.0 * math.pi / vol) * 2.0
+             * torch.exp(-k2 / (4.0 * alpha * alpha)) / k2s)
+    return kv, torch.where(k2 > 1e-12, kcoef, torch.zeros_like(kcoef))
+
+
+def uvt_fused_tables(params: Params, cfg: RunConfig):
+    """Slot and template tables of the fused µVT kernel, built once per
+    run on the host: (slots [Ms] int64, slot_start [Ms] int32,
+    species_idx [Ms] int32, tmpl [S,A,3], natoms [S] int32, A_list,
+    rep_slots), tensors on the params' device.  ``rep_slots[s]`` = two
+    distinct slots of species s (the second -1 when it has one slot), the
+    molecules ``_uvt_chunk_consts`` evaluates."""
+    slots, slot_start, species_idx, A_list = mc_kernel.movable_slots(
+        params, cfg.insert_species)
+    A = max(A_list)
+    species_pos = params.species_pos.cpu().numpy()
+    tmpl = np.zeros((len(A_list), A, 3), np.float64)
+    rep_slots = []
+    for s, si in enumerate(cfg.insert_species):
+        tp = species_pos[si][:A_list[s]]
+        tmpl[s, :A_list[s]] = tp
+        tmpl[s, A_list[s]:] = tp[:1]
+        own = slots[species_idx == s]
+        rep_slots.append((int(own[0]), int(own[1]) if len(own) >= 2 else -1))
+    dev = params.device
+    return (torch.as_tensor(slots, dtype=torch.int64, device=dev),
+            torch.as_tensor(slot_start, device=dev),
+            torch.as_tensor(species_idx, device=dev),
+            torch.as_tensor(tmpl, dtype=params.charge.dtype, device=dev),
+            torch.as_tensor(np.asarray(A_list, np.int32), device=dev),
+            A_list, tuple(rep_slots))
+
+
+def _uvt_chunk_consts(pos, box, params, thermo, cfg, A_list, rep_slots):
+    """Per-chunk per-species constants of the fused µVT kernel: ([S]
+    d_self, [S] d_excl, [S] c1, [S,S] cx, [S] lnfv, kvecs, kcoef), from
+    the same helpers the scan path's insert and delete use, so both paths
+    agree term by term.  The LRC coefficients pair a representative slot
+    with the frozen atoms (c1) and with a slot of each species (cx); on
+    the card they run through B4."""
+    S = len(A_list)
+    rc = pairs.derived_cutoff(box, cfg)
+    alpha = pairs.derived_alpha(rc, cfg)
+    kv, kcoef = _fused_ktable(box, cfg, alpha)
+    volume = torch.abs(torch.linalg.det(box))
+    dtype, dev = pos.dtype, pos.device
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    a_cap = params.max_atoms_per_mol
+    lrc_on = cfg.rd_potential == "lj" and cfg.rd_lrc
+    frozen_atoms = params.mol_frozen[params.mol_id] & params.atom_ok
+    d_self, d_excl, c1, lnfv, cx = [], [], [], [], []
+    for s in range(S):
+        si = cfg.insert_species[s]
+        A = A_list[s]
+        s0 = rep_slots[s][0]
+        d_self.append(_mol_self_energy(params, cfg, rc, alpha, s0))
+        tp = params.species_pos[si][:A]
+        tmpl_rows = torch.cat([tp, tp[:1].expand(a_cap - A, 3)])
+        d_excl.append(pairs.intra_terms(pos, box, params, cfg, s0,
+                                        row_pos=tmpl_rows.to(dtype)))
+        f = thermo.fugacity[si] * ATM2K_A3
+        lnfv.append(torch.log(torch.clamp(f * volume, min=1e-300)))
+        if lrc_on:
+            own = pairs.mol_lrc_self_coefficient(params, cfg, rc, s0)
+            c_mf = pairs.mol_pair_pass(pos, box, frozen_atoms, params, cfg,
+                                       thermo.temperature, s0).lrc_coeff
+            c1.append((c_mf + 0.5 * own) / volume)
+            row = []
+            for t in range(S):
+                other = rep_slots[t][0] if t != s else rep_slots[s][1]
+                if other < 0:
+                    row.append(zero)
+                    continue
+                other_atoms = (params.mol_id == other) & params.atom_ok
+                row.append(pairs.mol_pair_pass(
+                    pos, box, other_atoms, params, cfg, thermo.temperature,
+                    s0).lrc_coeff / volume)
+            cx.append(torch.stack(row))
+        else:
+            c1.append(zero)
+            cx.append(torch.zeros(S, dtype=dtype, device=dev))
+    return (torch.stack(d_self), torch.stack(d_excl), torch.stack(c1),
+            torch.stack(cx), torch.stack(lnfv), kv, kcoef)
+
+
+def _apply_fused(states, sums, slots, slot_alive, new_pos, sk_re, sk_im,
+                 cfg, n_steps):
+    """(stacked state, MCStats with [C,5] counts) after a fused launch:
+    the sums' energy deltas, the slot table's alive row, positions and
+    S(k).  One host copy of the attempt counts."""
+    d = sums.to(states.pos.dtype)
+    e = states.energy
+    energy = dataclasses.replace(
+        e, rd=e.rd + d[:, 0], es_real=e.es_real + d[:, 1],
+        es_recip=e.es_recip + d[:, 2], es_self=e.es_self + d[:, 3],
+        es_excl=e.es_excl + d[:, 4], lrc=e.lrc + d[:, 5])
+    mol_alive = states.mol_alive.clone()
+    mol_alive[:, slots] = slot_alive
+    C = sums.shape[0]
+    attempts = np.zeros((C, N_MOVE_TYPES), np.int64)
+    attempts[:, :3] = sums[:, 9:12].cpu().numpy().astype(np.int64)
+    accepts = torch.zeros((C, N_MOVE_TYPES), dtype=torch.int64,
+                          device=sums.device)
+    accepts[:, :3] = sums[:, 6:9].to(torch.int64)
+    new = states.replace(pos=new_pos, mol_alive=mol_alive, energy=energy,
+                         step=states.step + n_steps)
+    if cfg.coulomb == "ewald":
+        new = new.replace(sk_re=sk_re.contiguous(), sk_im=sk_im.contiguous())
+    return new, MCStats(attempts, accepts)
+
+
+def fused_uvt_launch_args(states: SimState, params: Params,
+                          cfg: RunConfig, thermo: Thermo, uniforms, tables):
+    """(args, kwargs) of mc_kernel.run_steps_uvt (or its plain version)
+    for a chunk of the stacked ``states`` over the [C, K, 16] table
+    ``uniforms``, with the per-species constants of this chunk.  They
+    come from chain 0: they depend only on the shared box, fugacities and
+    frozen framework, never on sorbate positions."""
+    slots, slot_start, species_idx, tmpl, natoms, A_list, rep_slots = tables
+    C = states.pos.shape[0]
+    box = states.box[0]
+    rc = pairs.derived_cutoff(box, cfg)
+    alpha = pairs.derived_alpha(rc, cfg)
+    d_self, d_excl, c1, cx, lnfv, kv, kcoef = _uvt_chunk_consts(
+        states.pos[0], box, params, thermo, cfg, A_list, rep_slots)
+    betas = (1.0 / thermo.temperature).expand(C).contiguous()
+    lnfvs = lnfv.expand(C, len(A_list)).contiguous()
+    alive = states.mol_alive[:, params.mol_id] & params.atom_ok[None]
+    thr = cfg.cavity_autoreject_absolute
+    ew = cfg.coulomb == "ewald"
+    args = (states.pos, alive, params.eps, params.sig, params.charge,
+            params.mass, slot_start, species_idx,
+            states.mol_alive[:, slots].contiguous(), tmpl, natoms, box, rc,
+            alpha, betas, thermo.move_factor, thermo.rot_factor, thr * thr,
+            thermo.insert_probability, lnfvs, d_self, d_excl, c1, cx,
+            uniforms.to(device=states.pos.device,
+                        dtype=cfg.tdtype).contiguous(), cfg)
+    kw = dict(kvecs=kv, kcoef=kcoef,
+              sk_re=states.sk_re.contiguous() if ew else None,
+              sk_im=states.sk_im.contiguous() if ew else None)
+    return args, kw
+
+
+def run_chunk_fused_uvt_multi(states: SimState, params: Params,
+                              cfg: RunConfig, thermo: Thermo, n_steps: int,
+                              generator=None, uniforms=None, tables=None):
+    """K GCMC steps for C stacked chains (state fields with a leading [C],
+    parallel/multichain.stack_states) in ONE launch of B1.  Returns
+    (states, MCStats with [C,5] counts).
+
+    The [C, K, 16] uniform table is ``uniforms`` when given (tests inject
+    it), else drawn from ``generator`` (a torch.Generator on the states'
+    device): each chain gets its own rows.  ``tables``: a
+    ``uvt_fused_tables`` result to reuse across chunks.  The caller has
+    checked mc_kernel.supported_uvt_multi(cfg, params)."""
+    if tables is None:
+        tables = uvt_fused_tables(params, cfg)
+    if uniforms is None:
+        uniforms = torch.rand((states.pos.shape[0], n_steps, N_LANES),
+                              generator=generator, dtype=cfg.tdtype,
+                              device=generator.device)
+    args, kw = fused_uvt_launch_args(states, params, cfg, thermo, uniforms,
+                                     tables)
+    new_pos, slot_alive, sums, sk_re, sk_im = mc_kernel.run_steps_uvt(
+        *args, **kw)
+    return _apply_fused(states, sums, tables[0], slot_alive, new_pos, sk_re,
+                        sk_im, cfg, n_steps)
+
+
+def run_chunk_fused_uvt(state: SimState, params: Params, cfg: RunConfig,
+                        thermo: Thermo, n_steps: int, generator=None,
+                        uniforms=None, tables=None):
+    """K GCMC steps (displace | insert | delete) of one chain in ONE launch
+    of B1 — the single-chain form of ``run_chunk_fused_uvt_multi`` (C =
+    1).  ``uniforms``: an injected [K, 16] table; returns (state,
+    MCStats)."""
+    if uniforms is not None:
+        uniforms = uniforms.reshape(1, n_steps, N_LANES)
+    states, stats = run_chunk_fused_uvt_multi(
+        stack_chains([state]), params, cfg, thermo, n_steps,
+        generator=generator, uniforms=uniforms, tables=tables)
+    return slice_chain(states, 0), MCStats(stats.attempts[0],
+                                           stats.accepts[0])
 
 
 def frozen_refresh_rows(params: Params, cfg: RunConfig) -> int:

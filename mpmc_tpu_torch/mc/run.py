@@ -1,14 +1,18 @@
 """High-level run entry: input files -> system -> MC loop -> outputs
-(port of the single-chain scan path of mpmc_tpu/mc/run.py).
+(port of the single-chain scan and fused µVT paths and of the fused
+multi-chain path of mpmc_tpu/mc/run.py).
 
 The corrtime structure is the reference's: ``corrtime`` steps per chunk
-(mc/metropolis.run_chunk), then a refresh of the cached energies (full
-recompute on the frozen-reuse fast path — B2 restricted to the sorbate
-rows), observables, restart/trajectory output, and annealing/adaptation.
+(mc/metropolis.run_chunk on the scan path, run_chunk_fused_uvt /
+run_chunk_fused_uvt_multi in one launch of kernel B1 under ``fused_mc``),
+then a refresh of the cached energies (full recompute on the frozen-reuse
+fast path — B2 restricted to the sorbate rows), observables,
+restart/trajectory output, and annealing/adaptation.
 
-Options outside this port's slice are refused in ``setup`` with
-NotImplementedError naming the ROADMAP item that ports them — a refusal,
-never a fallback.
+The entry points run on the current CUDA device unless the caller names
+another (``device="cpu"``), and raise when there is none.  Options outside
+this port's slice are refused with NotImplementedError naming the ROADMAP
+item that ports them — a refusal, never a fallback.
 """
 from __future__ import annotations
 
@@ -20,14 +24,17 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mpmc_tpu_torch.config import RunConfig, Thermo
+from mpmc_tpu_torch.config import RunConfig, Thermo, resolve_device
 from mpmc_tpu_torch.io import input_script, output as output_io, pqr as pqr_io
 from mpmc_tpu_torch.mc import fugacity as fug_mod
 from mpmc_tpu_torch.mc import metropolis
 from mpmc_tpu_torch.ops import energy as energy_mod
 from mpmc_tpu_torch.ops import pairs as pairs_mod
+from mpmc_tpu_torch.ops.cuda import mc_kernel
+from mpmc_tpu_torch.parallel import multichain
 from mpmc_tpu_torch.state import (Params, SimState, Species,
-                                  all_molecule_coms, build_system)
+                                  all_molecule_coms, build_system,
+                                  slice_chain)
 from mpmc_tpu_torch.utils.averages import Averages, sorbed_mass_obs
 
 
@@ -40,6 +47,9 @@ class Setup:
     species: Tuple[Species, ...]
     species_names: List[str]
     frozen_mass: float
+    # the stacked chains at the end of a ``chains N`` run (``state`` is
+    # chain 0)
+    states: Optional[SimState] = None
 
 
 def _species_from_atoms(atoms) -> Species:
@@ -90,8 +100,10 @@ def check_supported(job: input_script.Job):
     if cfg.ensemble not in ("uvt", "nvt", "te"):
         _refuse(f"ensemble {cfg.ensemble}", "A12")
     for flag, what, item in (
-            (cfg.fused_mc, "fused_mc", "A5"),
-            (job.chains > 1, "chains > 1", "A7"),
+            (cfg.fused_mc and cfg.ensemble == "nvt",
+             "fused_mc with ensemble nvt (the fused NVT kernel)", "A8"),
+            (job.chains > 1 and not cfg.fused_mc,
+             "chains > 1 without fused_mc (batched scan chains)", "A7"),
             (job.parallel_tempering or job.pt_fugacity,
              "parallel tempering", "A9"),
             (cfg.polarization, "polarization", "A10"),
@@ -119,10 +131,12 @@ def check_supported(job: input_script.Job):
             _refuse(what, item)
 
 
-def setup(job: input_script.Job, device="cpu",
+def setup(job: input_script.Job, device=None,
           frame: Optional[pqr_io.PqrFrame] = None) -> Setup:
-    """Build (params, state, cfg, thermo) on ``device`` from a parsed Job."""
+    """Build (params, state, cfg, thermo) on ``device`` (default: the
+    current CUDA device) from a parsed Job."""
     check_supported(job)
+    device = resolve_device(device)
     if frame is None:
         if not job.pqr_input:
             raise ValueError("pqr_input is required")
@@ -265,7 +279,7 @@ def observables(su: Setup, state: SimState, stats=None) -> Dict[str, float]:
     return obs
 
 
-def run_te(job: input_script.Job, log=None, device="cpu"):
+def run_te(job: input_script.Job, log=None, device=None):
     """ensemble te: one energy evaluation + per-term printout."""
     su = setup(job, device=device)
     e, _ = energy_mod.total_energy(
@@ -275,10 +289,86 @@ def run_te(job: input_script.Job, log=None, device="cpu"):
     return e
 
 
-def run_mc(job: input_script.Job, log=None, jsonl_path=None,
-           device="cpu"):
-    """The main MC loop (ensemble uvt/nvt), single chain, scan path."""
+def observables_batched(su: Setup, states: SimState,
+                        n_chains: int) -> List[Dict[str, float]]:
+    """Per-chain observables of a stacked state: the keys of
+    ``observables`` without the acceptance ratios, from one host copy."""
+    params = su.params
+    e = states.reported_energy()
+    cols = [e.total, e.rd, e.lrc, e.es, e.es_real, e.es_recip, e.es_self,
+            e.es_excl, e.polar, e.vdw, torch.abs(torch.linalg.det(states.box)),
+            (states.mol_alive & ~params.mol_frozen
+             & (params.mol_species >= 0)).sum(1)]
+    cols += [(states.mol_alive & (params.mol_species == i)).sum(1)
+             for i in range(len(su.species_names))]
+    host = torch.stack([x.double() for x in cols], 1).cpu().numpy()
+    names = ("energy_total", "energy_rd", "energy_lrc", "energy_es",
+             "energy_es_real", "energy_es_recip", "energy_es_self",
+             "energy_es_excl", "energy_polar", "energy_vdw", "volume", "N")
+    out = []
+    for c in range(n_chains):
+        obs = {k: float(host[c, i]) for i, k in enumerate(names)}
+        obs["N2"] = obs["N"] ** 2
+        obs["UN"] = obs["energy_total"] * obs["N"]
+        total_amu = 0.0
+        for i, nm in enumerate(su.species_names):
+            obs[f"N_{nm}"] = float(host[c, len(names) + i])
+            total_amu += obs[f"N_{nm}"] * su.species[i].total_mass
+        obs.update(sorbed_mass_obs(total_amu, obs["volume"],
+                                   su.frozen_mass))
+        out.append(obs)
+    return out
+
+
+def _hist_make(job, box):
+    """Population histogram, or None when not requested."""
+    if not (job.pop_histogram or job.histogram_output):
+        return None
+    from mpmc_tpu_torch.utils.histogram import PopulationHistogram
+    return PopulationHistogram(box.cpu().numpy(), job.hist_resolution)
+
+
+def _hist_add(hist, state: SimState, params: Params):
+    """Bin one chain's alive movable COMs.  run_mc_chains bins every
+    chain into one grid — the reference's reduce of per-rank population
+    histograms to rank 0."""
+    coms = all_molecule_coms(state.pos, params).cpu().numpy()
+    sel = metropolis._movable_mask(params, state.mol_alive).cpu().numpy()
+    hist.add(coms[sel])
+
+
+def _hist_finish(hist, job, writer, what=""):
+    if hist is None:
+        return
+    path = job.histogram_output or "histogram.dx"
+    hist.write_dx(path)
+    print(f"population histogram{what} written to {path}", file=writer.log)
+
+
+def _adapted(thermo, acc_displace, box, cfg):
+    """Move sizes nudged toward ~50 % displace acceptance."""
+    scale = float(np.clip(np.sqrt(max(acc_displace, 1e-3) / 0.5), 0.5, 2.0))
+    rc_now = float(pairs_mod.derived_cutoff(box, cfg))
+    return thermo.replace(
+        move_factor=torch.clamp(thermo.move_factor * scale, 1e-3, rc_now),
+        rot_factor=torch.clamp(thermo.rot_factor * scale, 1e-3, np.pi))
+
+
+def _annealed(thermo, job):
+    return thermo.replace(temperature=torch.clamp(
+        thermo.temperature * job.simulated_annealing_schedule,
+        min=job.simulated_annealing_target))
+
+
+def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
+    """The main MC loop (ensemble uvt/nvt): one chain on the scan path,
+    or on the fused µVT kernel under ``fused_mc``; ``chains N`` goes to
+    ``run_mc_chains``."""
+    if job.chains > 1:
+        return run_mc_chains(job, log=log, jsonl_path=jsonl_path,
+                             device=device)
     su = setup(job, device=device)
+    device = su.state.pos.device
     cfg, params, thermo = su.cfg, su.params, su.thermo
     writer = output_io.RunWriter(job, su.species_names, log=log,
                                  jsonl_path=jsonl_path)
@@ -288,17 +378,24 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None,
     if job.unknown_options:
         print(f"WARNING: unknown options ignored: {job.unknown_options}",
               file=writer.log)
+    tables = None
+    if cfg.fused_mc:
+        if mc_kernel.supported_uvt(cfg, params):
+            tables = metropolis.uvt_fused_tables(params, cfg)
+            print("fused_mc: single-chain fused µVT kernel", file=writer.log)
+        else:
+            print("WARNING: fused_mc requested but unsupported for this "
+                  "configuration (needs <=8-species µVT of rigid <=8-site "
+                  "molecules, lj/none RD, none/cutoff/wolf/ewald ES, a "
+                  "neutral template under ewald, f32) — scan path used",
+                  file=writer.log)
     state = metropolis.initialize(su.state, params, cfg, thermo)
     if job.frozen_output:
         frame = pqr_io.read(job.pqr_input)
         pqr_io.write(job.frozen_output, frame.frozen,
                      remark="frozen framework")
     avgs = Averages()
-    hist = None
-    if job.pop_histogram or job.histogram_output:
-        from mpmc_tpu_torch.utils.histogram import PopulationHistogram
-        hist = PopulationHistogram(state.box.cpu().numpy(),
-                                   job.hist_resolution)
+    hist = _hist_make(job, state.box)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     corr = max(cfg.corrtime, 1)
     n_blocks = max(cfg.numsteps // corr, 1)
@@ -306,8 +403,13 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None,
     steps_done = 0
     t0 = time.time()
     for _ in range(n_blocks):
-        state, stats = metropolis.run_chunk(state, params, cfg, thermo,
-                                            corr, generator=generator)
+        if tables is not None:
+            state, stats = metropolis.run_chunk_fused_uvt(
+                state, params, cfg, thermo, corr, generator=generator,
+                tables=tables)
+        else:
+            state, stats = metropolis.run_chunk(state, params, cfg, thermo,
+                                                corr, generator=generator)
         steps_done += corr
         # per-corrtime refresh on the frozen-reuse fast path
         state = metropolis.initialize(state, params, cfg, thermo,
@@ -319,29 +421,14 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None,
         writer.write_restart(params, state)
         writer.append_trajectory(params, state)
         if hist is not None:
-            coms = all_molecule_coms(state.pos, params).cpu().numpy()
-            sel = (metropolis._movable_mask(params, state.mol_alive)
-                   .cpu().numpy())
-            hist.add(coms[sel])
+            _hist_add(hist, state, params)
         if job.adapt_moves:
-            # nudge move sizes toward ~50% displace acceptance
-            acc = obs.get("acc_displace", 0.5)
-            scale = float(np.clip(np.sqrt(max(acc, 1e-3) / 0.5), 0.5, 2.0))
-            rc_now = float(pairs_mod.derived_cutoff(state.box, cfg))
-            thermo = thermo.replace(
-                move_factor=torch.clamp(thermo.move_factor * scale,
-                                        1e-3, rc_now),
-                rot_factor=torch.clamp(thermo.rot_factor * scale,
-                                       1e-3, np.pi))
+            thermo = _adapted(thermo, obs.get("acc_displace", 0.5),
+                              state.box, cfg)
         if job.simulated_annealing:
-            thermo = thermo.replace(temperature=torch.clamp(
-                thermo.temperature * job.simulated_annealing_schedule,
-                min=job.simulated_annealing_target))
+            thermo = _annealed(thermo, job)
     wall = time.time() - t0
-    if hist is not None:
-        path = job.histogram_output or "histogram.dx"
-        hist.write_dx(path)
-        print(f"population histogram written to {path}", file=writer.log)
+    _hist_finish(hist, job, writer)
     if job.pqr_output:
         pqr_io.write_state(job.pqr_output, params, state, su.species_names,
                            remark=f"final step {state.step}")
@@ -353,7 +440,89 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None,
     return dataclasses.replace(su, state=state, thermo=thermo), avgs
 
 
+def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
+                  device=None):
+    """``chains N``: N independent chains advanced together in one launch
+    of the fused µVT kernel per corrtime.  Observables are averaged over
+    the chains each corrtime (the reference's cross-rank observable
+    reduce); restart and trajectory follow chain 0, with one file per
+    chain under ``parallel_restarts``.  The batched scan path the
+    reference takes for what the fused gate refuses is not ported."""
+    su = setup(job, device=device)
+    device = su.state.pos.device
+    cfg, params, thermo = su.cfg, su.params, su.thermo
+    if not mc_kernel.supported_uvt_multi(cfg, params):
+        _refuse("chains > 1 outside the fused µVT surface (batched scan "
+                "chains)", "A7")
+    C = job.chains
+    writer = output_io.RunWriter(job, su.species_names, log=log,
+                                 jsonl_path=jsonl_path)
+    writer.log_meta(ensemble=cfg.ensemble, temperature=job.temperature,
+                    pressure=job.pressure, fugacities=thermo.fugacity.cpu(),
+                    volume=float(torch.abs(torch.linalg.det(su.state.box))),
+                    n_chains=C)
+    if job.unknown_options:
+        print(f"WARNING: unknown options ignored: {job.unknown_options}",
+              file=writer.log)
+    print(f"batched chains: {C}", file=writer.log)
+    print(f"fused_mc: chain-interleaved multi-chain kernel (C={C})",
+          file=writer.log)
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    state = metropolis.initialize(su.state, params, cfg, thermo)
+    states = multichain.stack_states(state, C)
+    avgs = Averages()
+    hist = _hist_make(job, state.box)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    corr = max(cfg.corrtime, 1)
+    n_blocks = max(cfg.numsteps // corr, 1)
+    refresh_rows = metropolis.frozen_refresh_rows(params, cfg)
+    t0 = time.time()
+    for _ in range(n_blocks):
+        states, stats = metropolis.run_chunk_fused_uvt_multi(
+            states, params, cfg, thermo, corr, generator=generator,
+            tables=tables)
+        states = multichain.initialize_batched(states, params, cfg, thermo,
+                                               frozen_rows=refresh_rows)
+        per_chain = observables_batched(su, states, C)
+        obs = {k: float(np.mean([o[k] for o in per_chain]))
+               for k in per_chain[0]}
+        obs["N_sem_chains"] = float(np.std([o["N"] for o in per_chain])
+                                    / np.sqrt(C))
+        stats = stats.host()
+        acc = stats.accepts.sum(0) / np.maximum(stats.attempts.sum(0), 1)
+        for i, nm in enumerate(("displace", "insert", "delete", "volume",
+                                "spinflip")):
+            obs[f"acc_{nm}"] = float(acc[i])
+        avgs.add(obs)
+        st0 = slice_chain(states, 0)
+        writer.log_block(int(st0.step), obs, None)
+        writer.write_restart(params, st0)
+        writer.write_parallel_restarts(params, states, C)
+        writer.append_trajectory(params, st0)
+        writer.append_parallel_trajectories(params, states, C)
+        if hist is not None:
+            for c in range(C):
+                _hist_add(hist, slice_chain(states, c), params)
+        if job.adapt_moves:
+            thermo = _adapted(thermo, obs["acc_displace"], st0.box, cfg)
+        if job.simulated_annealing:
+            thermo = _annealed(thermo, job)
+    wall = time.time() - t0
+    steps_done = n_blocks * corr
+    _hist_finish(hist, job, writer, f" ({C} chains reduced)")
+    writer.final_averages(avgs, float(thermo.temperature),
+                          fugacities=thermo.fugacity.cpu().numpy())
+    print(f"steps/sec: {steps_done * C / max(wall, 1e-9):.2f} aggregate "
+          f"({C} chains x {steps_done} steps in {wall:.2f}s)",
+          file=writer.log)
+    writer.close()
+    return dataclasses.replace(su, state=st0, thermo=thermo,
+                               states=states), avgs
+
+
 def run(job: input_script.Job, **kw):
+    """Run a parsed job on ``device`` (keyword; default the current CUDA
+    device, and an error without one)."""
     if job.cfg.ensemble in ("nvt", "uvt"):
         return run_mc(job, **kw)
     if job.cfg.ensemble == "te":

@@ -1,5 +1,6 @@
 """Canonical model systems (port of mpmc_tpu/models/systems.py): builders
-returning (params, state, cfg, thermo) on an explicit device.
+returning (params, state, cfg, thermo) on the CUDA device, or on the
+device the caller names (``device="cpu"``).
 
 The H2 model is the three-charge-site + single-LJ-site form of the
 BSS-family hydrogen models; the framework is a synthetic charge-
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from mpmc_tpu_torch.config import RunConfig, Thermo
+from mpmc_tpu_torch.config import RunConfig, Thermo, resolve_device
 from mpmc_tpu_torch.state import Species, build_system
 
 
@@ -56,8 +57,9 @@ def _framework_lattice(n_side: int, spacing: float, polar: float = 0.0):
 
 
 def lj_fluid(n: int = 256, density: float = 0.0212, temperature=120.0,
-             dtype="float32", seed=0, device="cpu"):
+             dtype="float32", seed=0, device=None):
     """NVT LJ fluid (n atoms, number density in A^-3)."""
+    device = resolve_device(device)
     box_len = (n / density) ** (1.0 / 3.0)
     cfg = RunConfig(ensemble="nvt", rd_potential="lj", coulomb="none",
                     ortho_box=True, dtype=dtype, seed=seed)
@@ -73,9 +75,10 @@ def lj_fluid(n: int = 256, density: float = 0.0212, temperature=120.0,
 def mof_h2_gcmc(n_side: int = 8, spacing: float = 4.0, n_h2: int = 64,
                 capacity: int = 256, temperature=77.0, pressure=1.0,
                 dtype="float32", seed=0, ewald_kmax=7, corrtime=1000,
-                device="cpu"):
+                device=None):
     """Synthetic MOF + H2 GCMC system (n_side=21: the 9,261-atom
     framework of the 10.8k bench system)."""
+    device = resolve_device(device)
     fpos, fp, box_len = _framework_lattice(n_side, spacing)
     h2 = h2_bss3()
     if n_h2 > n_side ** 3:

@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-into ``build/mpmc_tpu_torch/`` at the repository root, one shared library
-with a plain C interface, keyed by a hash of the sources (a changed source
-builds a new library; an unchanged one is reused).  Loaded with ctypes:
-every pointer and the stream are ``c_void_p``, every count a ``c_int``,
-and every entry returns its ``cudaGetLastError()``.
+Each source ``csrc/<name>.cu`` becomes its own shared library with a plain
+C interface, ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+-Xcompiler -fPIC`` into ``build/mpmc_tpu_torch/`` at the repository root,
+keyed by a hash of the source and the headers (a changed source builds a
+new library; an unchanged one is reused).  ``build`` starts one nvcc per
+source, all at once, and waits for them together.  The libraries load
+with ctypes: every pointer and the stream are ``c_void_p``, every count a
+``c_int``, a constant a ``c_double``, and every entry returns its
+``cudaGetLastError()``.
 
 Nothing here runs at import: the first kernel launch calls ``library()``.
 """
@@ -24,29 +27,40 @@ BUILD_DIR = _PKG.parent / "build" / "mpmc_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# source stem -> entry -> argtypes (each entry exists as <entry>_f32 and
+# <entry>_f64)
 _SIGNATURES = {
-    # pos q eps sig mol alive frozen scal | n row_start rd mix es lrc |
-    # part pmin out | stream
-    "pair_terms": [_P] * 8 + [_I] * 6 + [_P] * 3 + [_P],
-    # pos q eps sig mol alive mol_atoms natoms mol rows | A | scal | n rd
-    # mix es lrc | part pmin out | stream
-    "mol_pair": [_P] * 10 + [_I] + [_P] + [_I] * 5 + [_P] * 3 + [_P],
+    "pair_kernel": {
+        # pos q eps sig mol alive frozen scal | n row_start rd mix es lrc |
+        # part pmin out | stream
+        "pair_terms": [_P] * 8 + [_I] * 6 + [_P] * 3 + [_P],
+        # pos q eps sig mol alive mol_atoms natoms mol rows | A | scal | n
+        # rd mix es lrc | part pmin out | stream
+        "mol_pair": [_P] * 10 + [_I] + [_P] + [_I] * 5 + [_P] * 3 + [_P],
+    },
+    "uvt_kernel": {
+        # pos alive eps sig q mass slot_start slot_species slot_alive tmpl
+        # natoms scal betas lnfvs d_self d_excl c1 cx u kvec kcoef sk dsk
+        # sums | C n ms S A K nk rd mix es ortho | ke | stream
+        "run_steps_uvt": [_P] * 24 + [_I] * 11 + [ctypes.c_double] + [_P],
+    },
 }
 
-_lib = None
+_libs: dict = {}
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def _digest():
+def _digest(src: Path):
     h = hashlib.sha256()
-    for p in sources():
+    for p in [src] + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH).encode())
     return h.hexdigest()[:16]
+
+
+def target(name: str) -> Path:
+    """Path of the shared library built from ``csrc/<name>.cu``."""
+    return BUILD_DIR / f"lib{name}_{_digest(CSRC / (name + '.cu'))}.so"
 
 
 def nvcc():
@@ -61,35 +75,51 @@ def nvcc():
 
 
 def build(force=False):
-    """Compile csrc/*.cu into the hashed shared library; returns its path.
-    ptxas's register/shared-memory/spill report lands beside it in
+    """Compile every csrc/*.cu into its hashed shared library, one nvcc
+    per source, all started together; returns {name: path}.  ptxas's
+    register/shared-memory/spill report lands beside each library in
     ``<library>.ptxas.txt``."""
-    out = BUILD_DIR / f"libmpmc_tpu_torch_{_digest()}.so"
-    if out.exists() and not force:
-        return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ([nvcc()] + ARCH + ["-std=c++17", "-O3", "-shared",
-                              "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                              "-o", str(tmp)]
-           + [str(p) for p in sources() if p.suffix == ".cu"])
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    out.with_suffix(".ptxas.txt").write_text(r.stderr)
-    os.replace(tmp, out)
-    return out
+    running = {}
+    for name in _SIGNATURES:
+        out = target(name)
+        if out.exists() and not force:
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        err = open(out.with_suffix(".ptxas.txt"), "w")
+        cmd = ([nvcc()] + ARCH + ["-std=c++17", "-O3", "-shared",
+                                  "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                                  "-I", str(CSRC), "-o", str(tmp),
+                                  str(CSRC / (name + ".cu"))])
+        running[name] = (subprocess.Popen(cmd, stdout=err, stderr=err),
+                         err, tmp, out)
+    failed = []
+    for name, (proc, err, tmp, out) in running.items():
+        rc = proc.wait()
+        err.close()
+        if rc != 0:
+            failed.append(f"{name}.cu ({rc}):\n"
+                          + out.with_suffix(".ptxas.txt").read_text())
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return {name: target(name) for name in _SIGNATURES}
 
 
-def library():
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for base, args in _SIGNATURES.items():
-            for sfx in ("f32", "f64"):
-                fn = getattr(lib, f"{base}_{sfx}")
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def library(name: str):
+    """The loaded library of ``csrc/<name>.cu`` (every source is built on
+    the first call)."""
+    if name not in _libs:
+        paths = build()
+        for nm, path in paths.items():
+            if nm in _libs:
+                continue
+            lib = ctypes.CDLL(str(path))
+            for base, args in _SIGNATURES[nm].items():
+                for sfx in ("f32", "f64"):
+                    fn = getattr(lib, f"{base}_{sfx}")
+                    fn.argtypes = args
+                    fn.restype = ctypes.c_int
+            _libs[nm] = lib
+    return _libs[name]

@@ -1,0 +1,488 @@
+"""The fused µVT step loop (B1): wrapper, plain version and host helpers
+(csrc/uvt_kernel.cu).
+
+B1 ``run_steps_uvt`` replaces mpmc_tpu/ops/pallas/mc_kernel.py::_kernel_uvt
+(through ``run_steps_uvt``/``run_steps_uvt_multi``): K whole GCMC steps
+(displace | insert | delete) per launch for C chains, each step one old+new
+pass over all atoms, the S(k) delta, the acceptance test with per-species
+constants, and the in-place commit.  One wrapper serves every C >= 1; the
+single-chain call is C = 1.
+
+Randomness is one [C, K, 16] uniform table in the lane layout of
+mc_kernel.draw_uniforms(lanes=16) (chain c's step k reads row [c, k]):
+lane 8 the move type, 9 the species of an insert/delete, 0 the slot rank,
+1-3 the translation or the inserted COM, 4 the acceptance coin, 5-7 the
+rotation or the inserted orientation.
+
+``run_steps_uvt`` takes the plain version for tensors on the CPU and
+launches the kernel for CUDA tensors; anything else raises.  There is no
+fallback from the kernel to the plain version.  ``run_steps_uvt.launches``
+counts the kernel launches, and nothing else.
+
+The host helpers (``supported_uvt``, ``movable_slots``) are the gates and
+tables of the reference's fused µVT path, restricted to the surface the
+port has: rd lj/none, lb/waldman_hagler mixing, coulomb
+ewald/wolf/cutoff/none, up to MAX_SPECIES insert species of up to MAX_SITES
+rigid sites.  Cavity bias, TMMC, spinflip and the other RD forms are
+refused here (ROADMAP A11/A12).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from mpmc_tpu_torch.constants import KE
+from mpmc_tpu_torch.ops import pairs
+from mpmc_tpu_torch.ops import pbc as pbc_ops
+from mpmc_tpu_torch.ops.cuda.pair_kernel import (_ES, _MIX, _RD, _check,
+                                                 _ptr, _raise_on, _stream,
+                                                 _suffix)
+
+MAX_SITES = 8      # most sites of a movable molecule (kernel row registers)
+MAX_SPECIES = 8    # most insert species (kernel shared-memory tables)
+N_SUMS = 14        # d_rd d_es_real d_es_recip d_es_self d_es_excl d_lrc,
+#                    acc disp/ins/del, att disp/ins/del, acc/att spinflip
+
+
+def _supported_physics(cfg) -> bool:
+    """The physics surface of the fused kernel in the port: the
+    reference's gate (mc_kernel._supported_physics) restricted to the RD
+    and Coulomb forms the port carries."""
+    return (cfg.rd_potential in _RD and cfg.coulomb in _ES
+            and cfg.mixing_rule in _MIX
+            and not cfg.feynman_hibbs and not cfg.feynman_kleinert
+            and not cfg.polarization and not cfg.cdvdw
+            and cfg.cdvdw_repulsion == "none" and not cfg.rd_crystal
+            and cfg.dtype == "float32")
+
+
+def supported_uvt(cfg, params) -> bool:
+    """Static gate for the fused µVT path (the reference's supported_uvt):
+    GCMC over 1..MAX_SPECIES insert species, every movable slot of one of
+    them, uniform rigid slots of <= MAX_SITES sites per species, and no
+    charged template under Ewald (its jellium delta is quadratic in the
+    cell charge, which per-species constants cannot carry).  Host-side,
+    once per run."""
+    if not (cfg.ensemble == "uvt"
+            and 1 <= len(cfg.insert_species) <= MAX_SPECIES
+            and _supported_physics(cfg)
+            and not (cfg.cavity_bias or cfg.tmmc or cfg.quantum_rotation)):
+        return False
+    frozen = params.mol_frozen.cpu().numpy()
+    spec = params.mol_species.cpu().numpy()
+    natoms = params.mol_natoms.cpu().numpy()
+    mov = ~frozen & (spec >= 0)
+    if not mov.any() or not np.isin(spec[mov],
+                                    list(cfg.insert_species)).all():
+        return False
+    charge = params.charge.cpu().numpy().astype(np.float64)
+    mol_id = params.mol_id.cpu().numpy()
+    atom_ok = params.atom_ok.cpu().numpy()
+    for si in cfg.insert_species:
+        a = natoms[mov & (spec == si)]
+        if a.size == 0:        # a species with no slot cannot insert
+            return False
+        if not (a == a[0]).all() or int(a[0]) > MAX_SITES:
+            return False
+        if cfg.coulomb == "ewald":
+            m0 = int(np.flatnonzero(mov & (spec == si))[0])
+            qnet = float(np.where((mol_id == m0) & atom_ok, charge,
+                                  0.0).sum())
+            if abs(qnet) > 1e-6:
+                return False
+    return True
+
+
+def supported_uvt_multi(cfg, params) -> bool:
+    """Gate of the C-chain launch: the same surface as one chain (C is
+    bounded only by device memory)."""
+    return supported_uvt(cfg, params)
+
+
+def movable_slots(params, insert_species=None):
+    """([Ms] slot indices, [Ms] first atom rows, [Ms] species index into
+    ``insert_species`` order, A_list) of every movable molecule slot,
+    alive or dead, as host numpy arrays.  ``A_list`` is the per-species
+    site-count tuple; ``insert_species=None`` takes every movable species
+    in ascending id order."""
+    frozen = params.mol_frozen.cpu().numpy()
+    spec = params.mol_species.cpu().numpy()
+    mov = np.where(~frozen & (spec >= 0))[0]
+    start = params.mol_start.cpu().numpy()[mov].astype(np.int32)
+    natoms = params.mol_natoms.cpu().numpy()
+    if insert_species is None:
+        insert_species = tuple(sorted(set(spec[mov].tolist())))
+    order = {int(si): i for i, si in enumerate(insert_species)}
+    species_idx = np.asarray([order[int(s)] for s in spec[mov]], np.int32)
+    A_list = tuple(int(natoms[mov][species_idx == i][0])
+                   for i in range(len(insert_species)))
+    return mov.astype(np.int32), start, species_idx, A_list
+
+
+def _refuse_cfg(cfg):
+    """Raise on what neither the kernel nor its plain version implements."""
+    if not (cfg.rd_potential in _RD and cfg.coulomb in _ES
+            and cfg.mixing_rule in _MIX):
+        raise NotImplementedError(
+            f"run_steps_uvt: rd {cfg.rd_potential!r} / coulomb "
+            f"{cfg.coulomb!r} / mixing {cfg.mixing_rule!r} not ported")
+    for flag, what in ((cfg.cavity_bias, "cavity_bias"),
+                       (cfg.tmmc, "tmmc"),
+                       (cfg.quantum_rotation, "quantum_rotation"),
+                       (cfg.feynman_hibbs or cfg.feynman_kleinert,
+                        "feynman_hibbs / feynman_kleinert")):
+        if flag:
+            raise NotImplementedError(
+                f"run_steps_uvt: {what} is not yet ported — ROADMAP "
+                + ("A12" if what.startswith("feynman") else "A11"))
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _trial_rows(old, mass, ins, u, tmpl, box, move_factor, rot_factor):
+    """[C,A,3] trial rows from each chain's uniform row u [C,16]:
+    displace = translation (lanes 1-3) + axis-angle rotation (lanes 5-7)
+    about the mass-weighted COM; insert = the template ``tmpl`` [C,A,3]
+    at fractional COM lanes 1-3 with a Shoemake orientation from lanes
+    5-7.  ``mass`` [C,A] is 0 on sites beyond the molecule's count."""
+    disp = (2.0 * u[:, 1:4] - 1.0) * move_factor                  # [C,3]
+    com_new = (u[:, 1:2] * box[0] + u[:, 2:3] * box[1]
+               + u[:, 3:4] * box[2])                                # [C,3]
+    isel = ins[:, None, None]
+    if old.shape[1] == 1:
+        return torch.where(isel, com_new[:, None, :],
+                           old + disp[:, None, :])
+    msum = torch.sum(mass, dim=1)
+    com = (torch.sum(mass[..., None] * old, dim=1)
+           / torch.clamp(msum, min=1e-30)[:, None])
+    two_pi = 2.0 * math.pi
+    u5, u6, u7 = u[:, 5], u[:, 6], u[:, 7]
+    az = 2.0 * u5 - 1.0
+    aphi = two_pi * u6
+    s = torch.sqrt(torch.clamp(1.0 - az * az, min=0.0))
+    ax, ay = s * torch.cos(aphi), s * torch.sin(aphi)
+    ang = u7 * rot_factor
+    ca, sa = torch.cos(ang), torch.sin(ang)
+    omc = 1.0 - ca
+    rd = torch.stack([
+        torch.stack([ca + ax * ax * omc, ax * ay * omc - az * sa,
+                     ax * az * omc + ay * sa], -1),
+        torch.stack([ay * ax * omc + az * sa, ca + ay * ay * omc,
+                     ay * az * omc - ax * sa], -1),
+        torch.stack([az * ax * omc - ay * sa, az * ay * omc + ax * sa,
+                     ca + az * az * omc], -1)], -2)                # [C,3,3]
+    sq1 = torch.sqrt(torch.clamp(1.0 - u5, min=0.0))
+    sq2 = torch.sqrt(torch.clamp(u5, min=0.0))
+    th1, th2 = two_pi * u6, two_pi * u7
+    qx, qy = sq1 * torch.sin(th1), sq1 * torch.cos(th1)
+    qz, qw = sq2 * torch.sin(th2), sq2 * torch.cos(th2)
+    ri = torch.stack([
+        torch.stack([1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qz * qw),
+                     2 * (qx * qz + qy * qw)], -1),
+        torch.stack([2 * (qx * qy + qz * qw), 1 - 2 * (qx * qx + qz * qz),
+                     2 * (qy * qz - qx * qw)], -1),
+        torch.stack([2 * (qx * qz - qy * qw), 2 * (qy * qz + qx * qw),
+                     1 - 2 * (qx * qx + qy * qy)], -1)], -2)
+    rm = torch.where(isel, ri, rd)
+    tr = torch.where(ins[:, None], com_new, com + disp)
+    rel = torch.where(isel, tmpl, old - com[:, None, :])
+    return tr[:, None, :] + (rm[:, None, :, 0] * rel[..., 0:1]
+                             + rm[:, None, :, 1] * rel[..., 1:2]
+                             + rm[:, None, :, 2] * rel[..., 2:3])
+
+
+def _column_pass(rows, use, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
+                 box, box_inv, rc, alpha, cfg):
+    """(rd [C] f64, es [C] f64 without the Coulomb constant, min r2 [C])
+    of each chain's rows [C,A,3] against its columns: pairs within rc for
+    the energies, every pair for the closest approach; chains with
+    ``use`` false give zeros and inf."""
+    dr = pbc_ops.min_image(rows[:, :, None, :] - pos[:, None, :, :], box,
+                           box_inv)
+    r2 = torch.sum(dr * dr, dim=-1)                                # [C,A,N]
+    m = ok[:, None, :] & site_ok[:, :, None] & use[:, None, None]
+    act = m & (r2 < rc * rc)
+    rd_u, es_u, _, _ = pairs._tile_values(
+        r2, qi[..., None], ei[..., None], si[..., None], charge, eps, sig,
+        cfg, rc, alpha)
+    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+
+    def s(v):
+        if v is None:
+            return torch.zeros(pos.shape[0], dtype=torch.float64,
+                               device=pos.device)
+        return torch.where(act, v, zero).double().sum(dim=(1, 2))
+
+    mn = torch.where(m, r2, torch.full_like(r2, math.inf)).amin(dim=(1, 2))
+    return s(rd_u), s(es_u), mn
+
+
+def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
+                        slot_species, slot_alive, tmpl, natoms, box, rc,
+                        alpha, betas, move_factor, rot_factor, thr2, p_ins,
+                        lnfvs, d_self, d_excl, c1, cx, uniforms, cfg,
+                        kvecs=None, kcoef=None, sk_re=None, sk_im=None,
+                        trace=None):
+    """Plain B1: a loop over the K steps of batched tensor ops over the C
+    chains and the N columns, with the kernel's arithmetic (the same
+    per-species constants, the pair sums and the acceptance in float64).
+    Arguments and results as ``run_steps_uvt``; the inputs are not
+    modified.  ``trace``: a list that gets one dict per step — ``accept``
+    [C], ``margin`` [C] = ln u - ln(acceptance), and the work the kernel
+    does for it, ``pairs`` and ``phases`` [C] (pair evaluations and
+    k-vector phases)."""
+    _refuse_cfg(cfg)
+    dt, dev = pos.dtype, pos.device
+    C, N = alive.shape
+    K = uniforms.shape[1]
+    S, A = tmpl.shape[0], tmpl.shape[1]
+    ew = cfg.coulomb == "ewald"
+    pos, alive, slot_alive = pos.clone(), alive.clone(), slot_alive.clone()
+    if ew:
+        sk_re, sk_im = sk_re.clone(), sk_im.clone()
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dt, device=dev)
+
+    rc, alpha, mf, rotf = t(rc), t(alpha), t(move_factor), t(rot_factor)
+    thr2, p_ins = t(thr2), t(p_ins)
+    p_half = 0.5 * p_ins
+    box_inv = torch.linalg.inv(box)
+    ar = torch.arange(C, device=dev)
+    site = torch.arange(A, device=dev)
+    col = torch.arange(N, device=dev)
+    sl_sp = slot_species.long()
+    sl_start = slot_start.long()
+    na_s = natoms.long()
+    sp_ids = torch.arange(S, device=dev)
+    n_valid = (sl_sp[:, None] == sp_ids).sum(0)                    # [S]
+    n_alive = (slot_alive[:, :, None]
+               & (sl_sp[None, :, None] == sp_ids)).sum(1)          # [C,S]
+    beta = betas.double()
+    lnfv = lnfvs.double()
+    dself, dexcl = d_self.double(), d_excl.double()
+    c1d, cxd = c1.double(), cx.double()
+    sums = torch.zeros((C, N_SUMS), dtype=torch.float64, device=dev)
+    for k in range(K):
+        u = uniforms[:, k]
+        u8 = u[:, 8]
+        ins = u8 < p_half
+        dele = ~ins & (u8 < p_ins)
+        disp = ~ins & ~dele
+        su = (torch.clamp((u[:, 9] * S).long(), max=S - 1) if S > 1
+              else torch.zeros(C, dtype=torch.int64, device=dev))
+        n_su = n_alive[ar, su]
+        cnt = torch.where(ins, n_valid[su] - n_su,
+                          torch.where(dele, n_su, n_alive.sum(1)))
+        cnt_t = cnt.to(dt)
+        j = torch.minimum(torch.floor(u[:, 0] * cnt_t), cnt_t - 1.0).long()
+        same = sl_sp[None, :] == su[:, None]
+        elig = torch.where(ins[:, None], ~slot_alive & same,
+                           torch.where(dele[:, None], slot_alive & same,
+                                       slot_alive))
+        rank = torch.cumsum(elig.long(), dim=1)
+        slot = torch.argmax((elig & (rank == (j + 1)[:, None])).to(
+            torch.int8), dim=1)           # 0 where cnt == 0 (rejected)
+        start = sl_start[slot]
+        spf = torch.where(disp, sl_sp[slot], su)
+        na = na_s[spf]
+        site_ok = site[None, :] < na[:, None]                      # [C,A]
+        rows = torch.clamp(start[:, None] + site[None, :], max=N - 1)
+        old = pos[ar[:, None], rows]                               # [C,A,3]
+        qi, ei, si = charge[rows], eps[rows], sig[rows]
+        mi = torch.where(site_ok, mass[rows], torch.zeros_like(qi))
+        new = _trial_rows(old, mi, ins, u, tmpl[spf], box, mf, rotf)
+        own = ((col[None, :] >= start[:, None])
+               & (col[None, :] < (start + na)[:, None]))
+        ok = alive & ~own
+        has_old, has_new = ~ins, ~dele
+        rd_o, es_o, _ = _column_pass(old, has_old, pos, ok, site_ok, qi, ei,
+                                     si, charge, eps, sig, box, box_inv, rc,
+                                     alpha, cfg)
+        rd_n, es_n, mr2 = _column_pass(new, has_new, pos, ok, site_ok, qi,
+                                       ei, si, charge, eps, sig, box,
+                                       box_inv, rc, alpha, cfg)
+        drd = rd_n - rd_o
+        des = KE * (es_n - es_o)
+        if ew:
+            qa = torch.where(site_ok, qi, torch.zeros_like(qi))[..., None]
+
+            def trig(r, use):
+                ph = (r[..., 0:1] * kvecs[:, 0] + r[..., 1:2] * kvecs[:, 1]
+                      + r[..., 2:3] * kvecs[:, 2])                # [C,A,Nk]
+                z = torch.zeros_like(ph)
+                on = use[:, None, None]
+                return (torch.where(on, torch.cos(ph), z),
+                        torch.where(on, torch.sin(ph), z))
+
+            cn, sn = trig(new, has_new)
+            co, so = trig(old, has_old)
+            dsr = torch.sum(qa * (cn - co), dim=1)                 # [C,Nk]
+            dsi = torch.sum(qa * (sn - so), dim=1)
+            drec = (kcoef * ((2.0 * sk_re + dsr) * dsr
+                             + (2.0 * sk_im + dsi) * dsi)).double().sum(1)
+        else:
+            drec = torch.zeros(C, dtype=torch.float64, device=dev)
+        fins, fdel = ins.double(), dele.double()
+        sgn = fins - fdel
+        dslf = sgn * dself[spf]
+        dexc = sgn * dexcl[spf]
+        cx_dot = torch.sum(cxd[spf] * n_alive.double(), dim=1)
+        dlrc = (fins * (c1d[spf] + cx_dot)
+                - fdel * (c1d[spf] + cx_dot - cxd[spf, spf]))
+        du = drd + des + drec + dslf + dexc + dlrc
+        n_s = n_su.double()
+        lnb = torch.where(
+            ins, lnfv[ar, spf] + torch.log(beta) - torch.log(n_s + 1.0),
+            torch.where(dele, torch.log(torch.clamp(n_s, min=1e-30))
+                        - torch.log(beta) - lnfv[ar, spf],
+                        torch.zeros_like(n_s)))
+        reject = (cnt == 0) | ((thr2 > 0) & has_new & (mr2 < thr2))
+        ln_t = lnb - beta * du
+        ln_u = torch.log(torch.clamp(u[:, 4].double(), min=1e-38))
+        accept = ~reject & (ln_u < ln_t)
+        if trace is not None:
+            passes = torch.where(cnt > 0, (has_old.long() + has_new.long())
+                                 * na, 0)
+            trace.append({"accept": accept, "margin": ln_u - ln_t,
+                          "pairs": passes * ok.sum(1),
+                          "phases": passes * (kvecs.shape[0] if ew else 0)})
+        vals = torch.stack([drd, des, drec, dslf, dexc, dlrc], dim=1)
+        sums[:, :6] += torch.where(accept[:, None], vals,
+                                   torch.zeros_like(vals))
+        mt = torch.where(disp, 0, torch.where(ins, 1, 2))
+        sums[ar, 9 + mt] += 1.0
+        sums[ar, 6 + mt] += accept.double()
+        # commit
+        wr = (accept & ~dele)[:, None] & site_ok
+        pos[ar[:, None], rows] = torch.where(wr[..., None], new, old)
+        alive[ar[:, None], rows] = torch.where(
+            accept[:, None] & site_ok, ~dele[:, None],
+            alive[ar[:, None], rows])
+        flip = accept & ~disp
+        slot_alive[ar, slot] = torch.where(flip, ins, slot_alive[ar, slot])
+        n_alive[ar, su] += (flip & ins).long() - (flip & dele).long()
+        if ew:
+            keep = accept[:, None]
+            sk_re = torch.where(keep, sk_re + dsr, sk_re)
+            sk_im = torch.where(keep, sk_im + dsi, sk_im)
+    return pos, slot_alive, sums, sk_re, sk_im
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
+                  slot_species, slot_alive, tmpl, natoms, box, rc, alpha,
+                  betas, move_factor, rot_factor, thr2, p_ins, lnfvs, d_self,
+                  d_excl, c1, cx, uniforms, cfg, kvecs=None, kcoef=None,
+                  sk_re=None, sk_im=None):
+    """B1: K fused µVT steps for C chains.
+
+    Per chain: ``pos`` [C,N,3], atom ``alive`` [C,N] bool, ``slot_alive``
+    [C,Ms] bool, ``uniforms`` [C,K,16], ``betas`` [C] (1/T), ``lnfvs``
+    [C,S] (ln of fugacity*V in K/A^3 units), ``sk_re``/``sk_im`` [C,Nk]
+    (ewald).  Shared: per-atom ``eps``/``sig``/``charge``/``mass`` [N];
+    the slot table ``slot_start``/``slot_species`` [Ms] int32 (first atom
+    row, species index 0..S-1); ``tmpl`` [S,A,3] COM-centred templates
+    and ``natoms`` [S] int32 site counts; the per-species ``d_self``,
+    ``d_excl``, ``c1`` [S] and ``cx`` [S,S] (an insert of species s at
+    per-species counts N_t changes the LRC by c1[s] + sum_t cx[s,t] N_t);
+    ``box`` [3,3]; the scalars ``rc``, ``alpha``, ``move_factor``,
+    ``rot_factor``, ``thr2`` (autoreject radius squared, 0 = off) and
+    ``p_ins``; ``kvecs`` [Nk,3] with ``kcoef`` [Nk] the folded reciprocal
+    coefficients (ewald).
+
+    Returns (pos [C,N,3], slot_alive [C,Ms] bool, sums [C,14] float64,
+    sk_re [C,Nk], sk_im [C,Nk]), sums in the reference order (d_rd,
+    d_es_real, d_es_recip, d_es_self, d_es_excl, d_lrc, acc disp/ins/del,
+    att disp/ins/del, acc/att spinflip).  The inputs are not modified."""
+    if pos.device.type == "cpu":
+        return run_steps_uvt_plain(
+            pos, alive, eps, sig, charge, mass, slot_start, slot_species,
+            slot_alive, tmpl, natoms, box, rc, alpha, betas, move_factor,
+            rot_factor, thr2, p_ins, lnfvs, d_self, d_excl, c1, cx,
+            uniforms, cfg, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re,
+            sk_im=sk_im)
+    if pos.device.type != "cuda":
+        raise ValueError(f"run_steps_uvt: no kernel for {pos.device}")
+    _refuse_cfg(cfg)
+    dt, dev = pos.dtype, pos.device
+    C, N = alive.shape
+    ms = slot_start.shape[0]
+    S, A = tmpl.shape[0], tmpl.shape[1]
+    K = uniforms.shape[1]
+    ew = cfg.coulomb == "ewald"
+    if A > MAX_SITES or S > MAX_SPECIES:
+        raise ValueError(f"run_steps_uvt: {S} species of {A} sites (the "
+                         f"kernel takes <= {MAX_SPECIES} of <= {MAX_SITES})")
+    _check("pos", pos, dt, (C, N, 3), dev)
+    _check("alive", alive, torch.bool, (C, N), dev)
+    for nm, x in (("eps", eps), ("sig", sig), ("charge", charge),
+                  ("mass", mass)):
+        _check(nm, x, dt, (N,), dev)
+    _check("slot_start", slot_start, torch.int32, (ms,), dev)
+    _check("slot_species", slot_species, torch.int32, (ms,), dev)
+    _check("slot_alive", slot_alive, torch.bool, (C, ms), dev)
+    _check("tmpl", tmpl, dt, (S, A, 3), dev)
+    _check("natoms", natoms, torch.int32, (S,), dev)
+    _check("betas", betas, dt, (C,), dev)
+    _check("lnfvs", lnfvs, dt, (C, S), dev)
+    for nm, x in (("d_self", d_self), ("d_excl", d_excl), ("c1", c1)):
+        _check(nm, x, dt, (S,), dev)
+    _check("cx", cx, dt, (S, S), dev)
+    _check("uniforms", uniforms, dt, (C, K, 16), dev)
+    _check("box", box, dt, (3, 3), dev)
+    if ew:
+        nk = kvecs.shape[0]
+        _check("kvecs", kvecs, dt, (nk, 3), dev)
+        _check("kcoef", kcoef, dt, (nk,), dev)
+        _check("sk_re", sk_re, dt, (C, nk), dev)
+        _check("sk_im", sk_im, dt, (C, nk), dev)
+        sk = torch.stack([sk_re, sk_im], dim=1).contiguous()      # [C,2,Nk]
+    else:
+        nk = 0
+        sk = torch.empty((C, 2, 0), dtype=dt, device=dev)
+    dsk = torch.empty_like(sk)
+
+    def s1(x):
+        return torch.as_tensor(x, dtype=dt, device=dev).reshape(1)
+
+    scal = torch.cat([s1(rc), s1(alpha), s1(move_factor), s1(rot_factor),
+                      s1(thr2), s1(p_ins), box.reshape(-1),
+                      torch.linalg.inv(box).reshape(-1)]).contiguous()
+    out_pos, out_alive = pos.clone(), alive.clone()
+    out_slot = slot_alive.clone()
+    sums = torch.empty((C, N_SUMS), dtype=torch.float64, device=dev)
+    ortho = int(bool(cfg.ortho_box))
+    from mpmc_tpu_torch.ops.cuda import _build
+    fn = getattr(_build.library("uvt_kernel"), "run_steps_uvt_" + _suffix(dt))
+    nullp = ctypes.c_void_p(None)
+    err = fn(_ptr(out_pos), _ptr(out_alive), _ptr(eps), _ptr(sig),
+             _ptr(charge), _ptr(mass), _ptr(slot_start), _ptr(slot_species),
+             _ptr(out_slot), _ptr(tmpl), _ptr(natoms), _ptr(scal),
+             _ptr(betas), _ptr(lnfvs), _ptr(d_self), _ptr(d_excl), _ptr(c1),
+             _ptr(cx), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
+             _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
+             _ptr(dsk) if ew else nullp, _ptr(sums), C, N, ms, S, A, K, nk,
+             _RD[cfg.rd_potential], _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
+             ortho, ctypes.c_double(KE), _stream(dev))
+    run_steps_uvt.launches += 1
+    _raise_on(err, "run_steps_uvt")
+    if ew:
+        return out_pos, out_slot, sums, sk[:, 0], sk[:, 1]
+    return out_pos, out_slot, sums, sk_re, sk_im
+
+
+run_steps_uvt.launches = 0
+
+
+def reset_counts():
+    """Zero the kernel's launch counter."""
+    run_steps_uvt.launches = 0

@@ -156,7 +156,7 @@ def pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal, cfg,
     part = torch.empty((nb, 8), dtype=torch.float64, device=dev)
     pmin = torch.empty(nb, dtype=dt, device=dev)
     from mpmc_tpu_torch.ops.cuda import _build
-    fn = getattr(_build.library(), "pair_terms_" + _suffix(dt))
+    fn = getattr(_build.library("pair_kernel"), "pair_terms_" + _suffix(dt))
     err = fn(_ptr(pos), _ptr(charge), _ptr(eps), _ptr(sig), _ptr(mol_id),
              _ptr(alive), _ptr(frozen), _ptr(scal), n, int(row_start),
              rd, mix, es, lrc, _ptr(part), _ptr(pmin), _ptr(out),
@@ -201,7 +201,7 @@ def mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms, mol_natoms,
     pmin = torch.empty(nb, dtype=dt, device=dev)
     out = torch.empty(4, dtype=dt, device=dev)
     from mpmc_tpu_torch.ops.cuda import _build
-    fn = getattr(_build.library(), "mol_pair_" + _suffix(dt))
+    fn = getattr(_build.library("pair_kernel"), "mol_pair_" + _suffix(dt))
     err = fn(_ptr(pos), _ptr(charge), _ptr(eps), _ptr(sig), _ptr(mol_id),
              _ptr(alive), _ptr(mol_atoms), _ptr(mol_natoms), _ptr(mol),
              ctypes.c_void_p(None if rows is None else rows.data_ptr()),

@@ -204,6 +204,34 @@ class SimState:
         return dataclasses.replace(self, **kw)
 
 
+def _map_state(fn, states):
+    """A SimState whose tensor fields (energy slots included) are
+    ``fn([field of each state])``; ``step`` and absent fields are taken
+    from the first state."""
+    kw = {}
+    for f in dataclasses.fields(SimState):
+        vals = [getattr(s, f.name) for s in states]
+        if isinstance(vals[0], EnergyBreakdown):
+            kw[f.name] = EnergyBreakdown(*(fn([getattr(v, k) for v in vals])
+                                           for k in _SLOTS))
+        elif isinstance(vals[0], torch.Tensor):
+            kw[f.name] = fn(vals)
+        else:
+            kw[f.name] = vals[0]
+    return SimState(**kw)
+
+
+def stack_chains(states) -> SimState:
+    """One state with a leading [C] on every tensor field, from a list of
+    C states at the same step (the multi-chain layout)."""
+    return _map_state(torch.stack, states)
+
+
+def slice_chain(states: SimState, k: int) -> SimState:
+    """Chain ``k`` of a stacked state (views, no copy)."""
+    return _map_state(lambda xs: xs[0][k], [states])
+
+
 # ---------------------------------------------------------------------------
 # System builder (host side numpy, then tensors on ``device``)
 # ---------------------------------------------------------------------------

@@ -81,7 +81,7 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 
 
 REFUSED = [
-    ("fused_mc on", "A5"), ("chains 4", "A7"), ("ensemble npt", "A8"),
+    ("fused_mc on", "A8", "nvt"), ("chains 4", "A7"), ("ensemble npt", "A8"),
     ("ensemble nve", "A8"), ("parallel_tempering on", "A9"),
     ("polarization on", "A10"), ("cavity_bias on", "A11"),
     ("tmmc on", "A11"), ("quantum_rotation on", "A11"),
@@ -93,11 +93,30 @@ REFUSED = [
 ]
 
 
-@pytest.mark.parametrize("line,item", REFUSED, ids=[r[0] for r in REFUSED])
-def test_options_outside_the_slice_are_refused(line, item):
-    job = input_script.parse(f"ensemble uvt\n{line}\n")
+@pytest.mark.parametrize("case", REFUSED, ids=[r[0] for r in REFUSED])
+def test_options_outside_the_slice_are_refused(case):
+    """Each option outside the slice raises, naming its ROADMAP item; a
+    case's third field is its ensemble (default uvt): ``fused_mc`` is in
+    the slice for µVT and refused for NVT (the fused NVT kernel)."""
+    line, item, ensemble = (case + ("uvt",))[:3]
+    job = input_script.parse(f"ensemble {ensemble}\n{line}\n")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
-        trun.setup(job)
+        trun.setup(job, device="cpu")
+
+
+def test_run_without_a_device_needs_cuda():
+    """run.run and the system builders default to the CUDA device: with
+    none present they raise, naming the CPU as the explicit choice."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from mpmc_tpu_torch.models import systems as tsystems
+    job = input_script.parse(
+        "ensemble te\nbasis1 16 0 0\nbasis2 0 16 0\nbasis3 0 0 16\n"
+        f"pqr_input {REPO / 'examples' / 'framework_h2.pqr'}\n")
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        trun.run(job)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        tsystems.mof_h2_gcmc(n_side=2, n_h2=1, capacity=2)
 
 
 def test_port_imports_nothing_of_jax():

@@ -112,7 +112,7 @@ def test_port_builder_matches_jax_builder(dtype):
     jp, js, jc, jt = jsystems.mof_h2_gcmc(n_side=4, n_h2=8, capacity=16,
                                           dtype=dtype)
     P, S, C, T = tsystems.mof_h2_gcmc(n_side=4, n_h2=8, capacity=16,
-                                      dtype=dtype)
+                                      dtype=dtype, device="cpu")
     ref = convert.from_jax(jp, js, jc, jt)
     for a, b in zip((P, S.pos, S.box, S.mol_alive), (ref[0], ref[1].pos,
                                                     ref[1].box,

@@ -1,0 +1,276 @@
+"""The port's fused µVT path (kernel B1's plain version and the chunk functions over it)
+against the JAX package: the per-chunk constants and tables, injected-
+uniform trajectories against the fused µVT Pallas kernel (interpret mode)
+for one chain and for two, bookkeeping against a full recompute, the
+deep-core insert trap, and the CLI's fused and chains decks."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from mpmc_tpu.mc import metropolis as jm  # noqa: E402
+from mpmc_tpu.models import systems  # noqa: E402
+from mpmc_tpu.ops import pairs as jpairs  # noqa: E402
+from mpmc_tpu.ops.pallas import mc_kernel as jmk  # noqa: E402
+from mpmc_tpu_torch import convert  # noqa: E402
+from mpmc_tpu_torch.io import input_script  # noqa: E402
+from mpmc_tpu_torch.mc import metropolis as tm  # noqa: E402
+from mpmc_tpu_torch.mc import run as trun  # noqa: E402
+from mpmc_tpu_torch.ops.cuda import mc_kernel as tmk  # noqa: E402
+from mpmc_tpu_torch.state import slice_chain, stack_chains  # noqa: E402
+
+torch.set_num_threads(1)
+REPO = pathlib.Path(__file__).resolve().parents[1]
+# f32 energy sums, plain B1 against the Pallas kernel: the Pallas kernel
+# uses the A&S erfc (|error| <= 1.5e-7, ~1.5e-7 qq KE/r per pair: up to
+# ~1e-3 K per Ewald pair of the H2 quadrupole at 1 A) and accumulates in
+# f32 (self terms of +-3e5 K: ulp 0.03 K); the plain version uses the
+# exact erfc and accumulates in f64
+F32_SUM_ATOL = 5e-2
+F32_SUM_RTOL = 1e-4
+
+
+def _jax_system(dtype="float32", **kw):
+    p, s, c, t = systems.mof_h2_gcmc(n_side=4, n_h2=8, capacity=16,
+                                     dtype=dtype, **kw)
+    return p, jm.initialize(s, p, c, t), c, t
+
+
+def _jax_kernel_inputs(p, s, c, t):
+    slots, start, spidx, tmpl, A_list, rep = jm.uvt_fused_tables(p, c)
+    rc = jpairs.derived_cutoff(s.box, c)
+    alpha = jpairs.derived_alpha(rc, c)
+    consts = jm._uvt_chunk_consts(s.pos, s.box, p, t, c, A_list, rep)
+    return slots, start, spidx, tmpl, A_list, rc, alpha, consts
+
+
+def _port_plain(P, S, C, T, u):
+    """The port's B1 (plain on CPU tensors) on stacked states S and the
+    injected table u [C,K,16]: (pos, slot_alive, sums, sk_re, sk_im)."""
+    args, kw = tm.fused_uvt_launch_args(S, P, C, T, torch.as_tensor(u),
+                                        tm.uvt_fused_tables(P, C))
+    return tmk.run_steps_uvt(*args, **kw)
+
+
+def test_chunk_consts_and_tables_match_jax_f64():
+    p, s, c, t = _jax_system("float64")
+    slots, start, spidx, tmpl, A_list, rc, alpha, consts = (
+        _jax_kernel_inputs(p, s, c, t))
+    P, S, C, T = convert.from_jax(p, s, c, t)
+    got = tm.uvt_fused_tables(P, C)
+    for a, b in zip(got[:3], (slots, start, spidx)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    # the reference keeps its template table in float32
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(tmpl), atol=1e-7)
+    assert got[5] == A_list
+    np.testing.assert_array_equal(got[4].numpy(), A_list)
+    assert got[6] == jm.uvt_fused_tables(p, c)[5]
+    mine = tm._uvt_chunk_consts(S.pos, S.box, P, T, C, got[5], got[6])
+    names = ("d_self", "d_excl", "c1", "cx", "lnfv", "kvecs", "kcoef")
+    for name, a, b in zip(names, mine, consts):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10,
+                                   atol=1e-12, err_msg=name)
+    assert float(np.abs(np.asarray(consts[2])).max()) > 0   # LRC is on
+
+
+def _assert_sums_close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_array_equal(got[6:12], want[6:12])
+    np.testing.assert_allclose(got[:6], want[:6], rtol=F32_SUM_RTOL,
+                               atol=F32_SUM_ATOL)
+
+
+def test_plain_b1_matches_pallas_kernel_one_chain():
+    """One numpy-made [200,16] table through run_steps_uvt(interpret=True)
+    and the port's plain B1 (C = 1): equal move counts and slot aliveness,
+    positions within 1e-4 A, energy sums within the f32 tolerance."""
+    p, s, c, t = _jax_system()
+    slots, start, spidx, tmpl, A_list, rc, alpha, k = _jax_kernel_inputs(
+        p, s, c, t)
+    K = 200
+    u = np.random.default_rng(5).random((K, 16)).astype(np.float32)
+    thr = c.cavity_autoreject_absolute
+    new_pos, slot_alive, sums, _, _, _, _ = jmk.run_steps_uvt(
+        s.pos, p.eps, p.sig, p.charge, p.mass, s.atom_alive(p), start,
+        spidx, s.mol_alive[slots], tmpl, s.box, rc, alpha,
+        1.0 / t.temperature, t.move_factor, t.rot_factor, thr * thr,
+        t.insert_probability, k[4], k[0], k[1], k[2], k[3], jnp.asarray(u),
+        c, K, s.pos.shape[0], A_list=A_list, interpret=True, kvecs=k[5],
+        kcoef=k[6], sk_re=s.sk_re, sk_im=s.sk_im)
+    P, S, C, T = convert.from_jax(p, s, c, t)
+    pos, sa, got, _, _ = _port_plain(P, stack_chains([S]), C, T, u[None])
+    assert float(np.asarray(sums)[6:9].sum()) > 10     # the chain moved
+    _assert_sums_close(got[0].numpy(), sums)
+    np.testing.assert_array_equal(sa[0].numpy(), np.asarray(slot_alive))
+    np.testing.assert_allclose(pos[0].numpy(), np.asarray(new_pos),
+                               atol=1e-4)
+
+
+def test_plain_b1_matches_pallas_multi_chain():
+    """C = 2 through run_steps_uvt_multi(interpret=True) and the port's
+    plain B1: per chain the same counts, aliveness and positions; and
+    chain c of the C = 2 launch equals a C = 1 launch on its own block."""
+    p, s, c, t = _jax_system()
+    slots, start, spidx, tmpl, A_list, rc, alpha, k = _jax_kernel_inputs(
+        p, s, c, t)
+    Cn, K = 2, 120
+    u = np.random.default_rng(9).random((Cn, K, 16)).astype(np.float32)
+    thr = c.cavity_autoreject_absolute
+    alive = jnp.broadcast_to(s.atom_alive(p), (Cn,) + s.pos.shape[:1])
+    new_pos, slot_alive, sums, _, _, _, _ = jmk.run_steps_uvt_multi(
+        jnp.broadcast_to(s.pos, (Cn,) + s.pos.shape), p.eps, p.sig,
+        p.charge, p.mass, alive, start, spidx,
+        jnp.broadcast_to(s.mol_alive[slots], (Cn, len(slots))), tmpl,
+        s.box, rc, alpha, 1.0 / t.temperature, t.move_factor, t.rot_factor,
+        thr * thr, t.insert_probability, k[4], k[0], k[1], k[2], k[3],
+        jnp.asarray(u.reshape(Cn * K, 16)), c, K, s.pos.shape[0],
+        A_list=A_list, interpret=True, kvecs=k[5], kcoef=k[6],
+        sk_re=jnp.broadcast_to(s.sk_re, (Cn,) + s.sk_re.shape),
+        sk_im=jnp.broadcast_to(s.sk_im, (Cn,) + s.sk_im.shape))
+    P, S, C, T = convert.from_jax(p, s, c, t)
+    pos, sa, got, skr, ski = _port_plain(P, stack_chains([S] * Cn), C, T, u)
+    exch = 0
+    for ch in range(Cn):
+        _assert_sums_close(got[ch].numpy(), np.asarray(sums)[ch])
+        np.testing.assert_array_equal(sa[ch].numpy(),
+                                      np.asarray(slot_alive)[ch])
+        np.testing.assert_allclose(pos[ch].numpy(),
+                                   np.asarray(new_pos)[ch], atol=1e-4)
+        one = _port_plain(P, stack_chains([S]), C, T, u[ch:ch + 1])
+        for a, b in zip(one, (pos, sa, got, skr, ski)):
+            assert torch.equal(a[0], b[ch])
+        exch += int(got[ch, 7] + got[ch, 8])
+    assert exch > 0          # the comparison covered exchanges
+
+
+def test_fused_bookkeeping_matches_full_recompute_f64():
+    """run_chunk_fused_uvt in f64 on the CPU: after 500 steps every
+    carried energy term equals a fresh initialize to 1e-9, and S(k)
+    equals a fresh structure factor."""
+    P, S, C, T = convert.from_jax(*_jax_system("float64"))
+    S0 = tm.initialize(S, P, C, T)
+    n0 = int(S0.n_molecules(P))
+    st, stats = tm.run_chunk_fused_uvt(
+        S0, P, C, T, 500, generator=torch.Generator().manual_seed(4))
+    att, acc = stats.attempts, stats.host().accepts
+    assert att.sum() == 500 and att[tm.INSERT] > 50 and att[tm.DELETE] > 50
+    assert acc[tm.INSERT] + acc[tm.DELETE] > 0
+    assert int(st.n_molecules(P)) - n0 == acc[tm.INSERT] - acc[tm.DELETE]
+    assert st.step == S0.step + 500
+    fresh = tm.initialize(st, P, C, T)
+    for k in ("rd", "lrc", "es_real", "es_recip", "es_self", "es_excl"):
+        assert float(getattr(st.energy, k)) == pytest.approx(
+            float(getattr(fresh.energy, k)), rel=1e-9, abs=1e-9), k
+    np.testing.assert_allclose(st.sk_re.numpy(), fresh.sk_re.numpy(),
+                               rtol=1e-9, atol=1e-9)
+    # the caller's state is untouched
+    assert torch.equal(S0.pos, tm.initialize(S, P, C, T).pos)
+
+
+def test_overlap_insert_keeps_accumulators_finite():
+    """A crafted insert 1e-4 A from an atom overflows the f32 LJ sum to
+    inf: the step rejects and the returned sums stay finite (an
+    accept-multiply would give 0 * inf = NaN)."""
+    from mpmc_tpu_torch.config import RunConfig as TRunConfig
+    from mpmc_tpu_torch.models import systems as tsystems
+    from mpmc_tpu_torch.state import build_system as tbuild
+    sp = tsystems.lj_atom()
+    cfg = TRunConfig(ensemble="uvt", rd_potential="lj", coulomb="none",
+                     rd_lrc=False, dtype="float32", insert_species=(0,),
+                     fused_mc=True)
+    params, state = tbuild(np.eye(3) * 10.0, species=(sp,), capacity=(2,),
+                           initial_counts=(1,),
+                           initial_pos={0: np.array([[[5.0, 5.0, 5.0]]])})
+    u = np.zeros((1, 1, 16), np.float32)
+    u[0, 0, 1:4] = [0.5 + 1e-5, 0.5, 0.5]   # insert, COM 1e-4 A away
+    u[0, 0, 4] = 0.5
+    slots, start, spidx, A_list = tmk.movable_slots(params, (0,))
+    f = torch.float32
+    one = torch.ones(1, dtype=f)
+    _, sa, sums, _, _ = tmk.run_steps_uvt(
+        state.pos[None], state.atom_alive(params)[None], params.eps,
+        params.sig, params.charge, params.mass, torch.as_tensor(start),
+        torch.as_tensor(spidx),
+        state.mol_alive[torch.as_tensor(slots, dtype=torch.int64)][None],
+        torch.zeros((1, 1, 3), dtype=f), torch.tensor([1], dtype=torch.int32),
+        state.box, 4.9, 0.0, torch.tensor([1.0 / 120.0]), 0.5, 0.0, 0.0, 1.0,
+        torch.tensor([[5.0]]), one * 0, one * 0, one * 0,
+        torch.zeros((1, 1), dtype=f), torch.as_tensor(u), cfg)
+    s = sums[0].numpy()
+    assert np.isfinite(s).all(), s
+    assert s[7] == 0.0 and s[10] == 1.0    # attempted, rejected
+    assert sa.numpy().tolist() == [[True, False]]
+
+
+def _deck(tmp_path, *extra):
+    text = (REPO / "examples" / "h2_sorption.inp").read_text()
+    text = text.replace("numsteps         20000", "numsteps 400").replace(
+        "corrtime         1000", "corrtime 200").replace(
+        "examples/framework_h2.pqr",
+        str(REPO / "examples" / "framework_h2.pqr"))
+    deck = tmp_path / "deck.inp"
+    deck.write_text(text + "\n".join(extra) + "\n")
+    return deck
+
+
+@pytest.mark.parametrize("extra", [
+    ("fused_mc on",), ("fused_mc on", "chains 3"),
+    ("fused_mc on", "chains 3", "parallel_restarts on")],
+    ids=["fused", "fused-chains3", "fused-chains3-parallel-restarts"])
+def test_cli_fused_decks_run(tmp_path, extra):
+    deck = _deck(tmp_path, *extra)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-m", "mpmc_tpu_torch", "--cpu",
+                        str(deck)], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "fused_mc:" in r.stdout and "=== averages ===" in r.stdout
+    assert "WARNING" not in r.stdout
+    assert r.stdout.count("\nstep ") == 2
+    assert (tmp_path / "restart.pqr").stat().st_size > 0
+    if "chains 3" in extra:
+        assert "aggregate (3 chains" in r.stdout
+    # one restart per chain, and a trajectory per chain beyond chain 0
+    per_chain = ["restart.pqr-r0", "restart.pqr-r1", "restart.pqr-r2",
+                 "traj.pqr-r1", "traj.pqr-r2"]
+    made = [f for f in per_chain if (tmp_path / f).exists()]
+    assert made == (per_chain if "parallel_restarts on" in extra else [])
+
+
+@pytest.mark.parametrize("lines,item", [
+    (("chains 3",), "A7"),
+    (("fused_mc on", "ensemble nvt"), "A8"),
+], ids=["chains-without-fused", "fused-nvt"])
+def test_fused_refusals(tmp_path, lines, item):
+    job = input_script.parse_file(str(_deck(tmp_path, *lines)))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
+        trun.run(job, device="cpu")
+
+
+def test_f64_fused_deck_takes_the_scan_path(tmp_path, monkeypatch):
+    """The reference's gate refuses fusion in float64: a logged WARNING
+    and the scan path, as in mpmc_tpu's run_mc."""
+    import io
+    monkeypatch.chdir(tmp_path)
+    job = input_script.parse_file(str(_deck(tmp_path, "fused_mc on",
+                                            "precision float64")))
+    buf = io.StringIO()
+    trun.run(job, log=buf, device="cpu")
+    assert "WARNING: fused_mc requested but unsupported" in buf.getvalue()
+
+
+def test_stack_and_slice_chains_round_trip():
+    P, S, C, T = convert.from_jax(*_jax_system())
+    st = stack_chains([S, S])
+    assert st.pos.shape == (2,) + S.pos.shape
+    assert st.energy.rd.shape == (2,)
+    back = slice_chain(st, 1)
+    assert torch.equal(back.pos, S.pos) and back.step == S.step
+    assert torch.equal(back.sk_re, S.sk_re)
