@@ -13,6 +13,11 @@ Phases (any failure raises, so the exit code is non-zero):
    float64 and float32 (the same decisions, positions and sums within
    the stated tolerances), each chain of the C = 2 launch against a C = 1
    launch on its own block, and CUDA-event timings;
+4b. B3 — the fused NVT kernel (run_steps) against its plain version on
+   the 10.0k MOF + H2 NVT system and the 10k LJ fluid, each after 2,000
+   steps off its lattice: a numpy-seeded [2, 256, 16] table in float64 and
+   float32 (B1's checks and tolerances), NVE on the LJ fluid, and
+   CUDA-event timings beside the bound;
 5. energy — total_energy on the card (float32, kernels) against the port
    on the CPU (float64, plain), term by term;
 6. scan path — the 10.8k system written to PQR and run as a GCMC deck
@@ -24,7 +29,13 @@ Phases (any failure raises, so the exit code is non-zero):
    B2 must have been launched, the carried energy of a further chunk
    must match a fresh recompute, the kernel alone is timed and a chunk
    profiled; then ``chains 32`` (the reference's headline width), with
-   the bookkeeping of chain 0 and of the last chain and a profiled chunk.
+   the bookkeeping of chain 0 and of the last chain and a profiled chunk;
+8. fused NVT — the MOF + H2 deck under ``ensemble nvt`` with ``fused_mc
+   on`` (20,000 steps, one chain and ``chains 16``), the LJ fluid deck
+   under nvt (20,000 steps) and nve (5,000 steps, total_energy from an
+   ``ensemble te`` run): B3 launched once per corrtime, bookkeeping after
+   a further chunk, the NVE reservoir positive; profiled MOF chunks at
+   C = 1 and 16 with B3's share of the device time.
 
 The second-to-last line is a JSON object with each kernel's launches on
 its main path, error against its plain version, times and bound; the last
@@ -49,10 +60,12 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "mol_pair": "mpmc_tpu_torch/csrc/pair_kernel.cu",
-           "run_steps_uvt": "mpmc_tpu_torch/csrc/uvt_kernel.cu"}
+           "run_steps_uvt": "mpmc_tpu_torch/csrc/uvt_kernel.cu",
+           "run_steps": "mpmc_tpu_torch/csrc/nvt_kernel.cu"}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
-            "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910"}
+            "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
+            "run_steps": "mpmc_tpu/ops/pallas/mc_kernel.py:220"}
 # NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
 # tensor cores, and device memory
 PEAK_F32 = 67e12
@@ -60,12 +73,24 @@ PEAK_BYTES = 3.35e12
 # floating-point operations per evaluated pair (a square root, division,
 # erfc/erf or rounding counted as one), as the sources' notes count them:
 # B2/B4 general-box minimum image 36, r^2 and guard 6, LJ 13, LJ tail 11,
-# Coulomb and exclusion 9, sums 4; B1 see csrc/uvt_kernel.cu
+# Coulomb and exclusion 9, sums 4.  B1 and B3 (csrc/mc_common.cuh
+# pair_values and column_pass), for every pair: displacement 3,
+# orthorhombic minimum image 12, r^2 5, cutoff test 1, sums 3; for a pair
+# within rc only: the r^2 guard 1, LJ 13 (rd lj), the real-space Ewald
+# term 6 (coulomb on); per k-vector phase 13, per reciprocal term 9
 OPS_PAIR_B2B4 = 79
-OPS_PAIR_B1, OPS_PHASE_B1, OPS_K_B1 = 44, 13, 9
+OPS_PAIR_FUSED, OPS_GUARD, OPS_LJ, OPS_COULOMB = 24, 1, 13, 6
+OPS_PHASE_FUSED, OPS_K_FUSED = 13, 9
 # the bench system: mof_h2_gcmc(n_side=21, spacing=4.0, n_h2=256,
 # capacity=512) -> 9,261 framework atoms + 512 x 3 H2 sites
 N_SIDE, N_H2, CAPACITY = 21, 256, 512
+# the 10k LJ fluid of the reference's NVT benchmark: argon, 0.0212 A^-3,
+# box 77.8 A, 120 K; the NVE reservoir per atom of the reference's test
+N_LJ = 10000
+NVE_K_PER_ATOM = 180.0
+# a reservoir whose effective temperature (2/3 of it per atom: 400 K) is
+# far from the fluid's 120 K, where NVE and NVT decisions must differ
+NVE_K_FAR = 600.0
 SLOTS = ("rd", "es_real", "es_excl", "lrc", "rd_ff", "es_real_ff",
          "es_excl_ff", "lrc_ff", "min_r2")
 MOL_SLOTS = ("rd", "es_real", "lrc", "min_r2")
@@ -139,6 +164,18 @@ def _bound_ms(ops, nbytes):
 def _nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts
                if isinstance(t, torch.Tensor))
+
+
+def _fused_ops(trace, cfg, nk):
+    """Floating-point operations of chain 0's steps in a plain B1 or B3
+    trace: what this run's data needs (pairs beyond rc stop after the
+    cutoff test; no LJ or Coulomb operations where the term is off)."""
+    in_rc = (OPS_GUARD + OPS_LJ * (cfg.rd_potential == "lj")
+             + OPS_COULOMB * (cfg.coulomb != "none"))
+    return sum(int(t["pairs"][0]) * OPS_PAIR_FUSED
+               + int(t["pairs_in"][0]) * in_rc
+               + int(t["phases"][0]) * OPS_PHASE_FUSED
+               + (int(t["phases"][0]) > 0) * nk * OPS_K_FUSED for t in trace)
 
 
 def bench_system(dtype, device, n_side=N_SIDE, n_h2=N_H2,
@@ -268,18 +305,15 @@ def phase_kernels(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
     return report
 
 
-def _first_divergence(args, kw, trace, mk, K):
+def _first_divergence(counts_of, trace, K):
     """(step, chain, |ln u - ln acc| there) of the first step whose
-    decision differs between the kernel and the plain trace, by
-    bisection over launches on the leading steps of the table."""
+    decision differs between the kernel and the plain trace, by bisection
+    over launches on the leading steps of the table; ``counts_of(k)`` is
+    the kernel's [C] accepted-move counts over the first k steps."""
     cum = torch.cumsum(torch.stack([t["accept"] for t in trace]).long(), 0)
-    u = args[24]
 
     def agrees(k):
-        out = mk.run_steps_uvt(*args[:24], u[:, :k].contiguous(), args[25],
-                               **kw)
-        return torch.equal(out[2][:, 6:9].sum(1).long().cpu(),
-                           cum[k - 1].cpu())
+        return torch.equal(counts_of(k), cum[k - 1].cpu())
 
     lo, hi = 0, K              # agrees on lo steps, disagrees on hi
     while hi - lo > 1:
@@ -289,10 +323,7 @@ def _first_divergence(args, kw, trace, mk, K):
         else:
             hi = mid
     step = hi - 1
-    out = mk.run_steps_uvt(*args[:24], u[:, :hi].contiguous(), args[25],
-                           **kw)
-    chain = int(torch.nonzero(out[2][:, 6:9].sum(1).long().cpu()
-                              != cum[step].cpu())[0])
+    chain = int(torch.nonzero(counts_of(hi) != cum[step].cpu())[0])
     return step, chain, float(abs(trace[step]["margin"][chain]))
 
 
@@ -330,7 +361,10 @@ def phase_uvt_kernel(device, C=2, K=256, seed=2024):
             f" plain {ps[:, 6:12].tolist()}")
         if not (np.array_equal(ks[:, 6:12], ps[:, 6:12])
                 and torch.equal(k[1], p[1])):
-            step, chain, margin = _first_divergence(args, kw, trace, mk, K)
+            step, chain, margin = _first_divergence(
+                lambda n: mk.run_steps_uvt(
+                    *args[:24], args[24][:, :n].contiguous(), args[25],
+                    **kw)[2][:, 6:9].sum(1).long().cpu(), trace, K)
             raise AssertionError(
                 f"B1 {dtype}: decisions differ from the plain version; "
                 f"first at step {step} of chain {chain}, |ln u - ln acc| = "
@@ -373,11 +407,7 @@ def phase_uvt_kernel(device, C=2, K=256, seed=2024):
                             n=10) / K
             pms = time_calls(lambda: mk.run_steps_uvt_plain(*a1, **kw1),
                              device, n=2) / K
-            nk = kw1["kvecs"].shape[0]
-            ops = sum(int(t["pairs"][0]) * OPS_PAIR_B1
-                      + int(t["phases"][0]) * OPS_PHASE_B1
-                      + (int(t["phases"][0]) > 0) * nk * OPS_K_B1
-                      for t in trace)
+            ops = _fused_ops(trace, cfg, kw1["kvecs"].shape[0])
             # each input read once; out: pos, atom alive, slot alive,
             # S(k) and the sums written once
             n_in = _nbytes(*a1[:25], *kw1.values())
@@ -387,6 +417,156 @@ def phase_uvt_kernel(device, C=2, K=256, seed=2024):
             log(f"B1 f32 C=1: kernel {ms * 1e3:.2f} us/step, plain "
                 f"{pms * 1e3:.1f} us/step, bound {bound / K * 1e3:.4f} "
                 f"us/step ({by}; {ops / K:.3e} ops/step)")
+    return rep
+
+
+def nvt_system(kind, dtype, device, seed=31, warm_steps=2000):
+    """(params, state, cfg, thermo) of a full-width B3 system on the card,
+    after it has run: jittered off its lattice, then ``warm_steps`` fused
+    steps (one B3 launch) and a fresh energy.  ``kind``: "mof" — the
+    10.0k MOF + H2 system (mof_h2_gcmc(n_side=21, n_h2=256, capacity=256),
+    nvt, N = 10,029) — or "lj" — the 10k LJ fluid (lj_fluid(n=10000))."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.models import systems
+    if kind == "mof":
+        params, state, cfg, thermo = systems.mof_h2_gcmc(
+            n_side=N_SIDE, n_h2=N_H2, capacity=N_H2, dtype=dtype,
+            device=device)
+    else:
+        params, state, cfg, thermo = systems.lj_fluid(n=N_LJ, dtype=dtype,
+                                                      device=device)
+    cfg = dataclasses.replace(cfg, ensemble="nvt", fused_mc=True)
+    state = metropolis.initialize(systems.jittered(params, state, seed),
+                                  params, cfg, thermo)
+    u = torch.as_tensor(np.random.default_rng(seed).random((warm_steps, 16)),
+                        dtype=cfg.tdtype, device=device)
+    state, _ = metropolis.run_chunk_fused(state, params, cfg, thermo,
+                                          warm_steps, uniforms=u)
+    return (params, metropolis.initialize(state, params, cfg, thermo), cfg,
+            thermo)
+
+
+def _nvt_check(label, system, u_np, device, rep, trace_out=None):
+    """B3 against its plain version on the table ``u_np`` [C, K, 16] for
+    the stacked copies of ``system``'s state; then every chain against a
+    C = 1 launch on its own block, bit for bit.  Tolerances as for B1.
+    Returns the C = 1 launch arguments of chain 0."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    params, state, cfg, thermo = system
+    C, K = u_np.shape[0], u_np.shape[1]
+    f64 = cfg.tdtype == torch.float64
+    tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+    u = torch.as_tensor(u_np, dtype=cfg.tdtype, device=device)
+    args, kw = metropolis.fused_nvt_launch_args(
+        multichain.stack_states(state, C), params, cfg, thermo, u, tables)
+    k = mk.run_steps(*args, **kw)
+    torch.cuda.synchronize(device)
+    trace = [] if trace_out is None else trace_out
+    p = mk.run_steps_plain(*args, **kw, trace=trace)
+    ks, ps = k[1].cpu().numpy(), p[1].cpu().numpy()
+    log(f"B3 {label} C={C} K={K}: kernel accepts {ks[:, 3].tolist()} plain "
+        f"{ps[:, 3].tolist()}")
+    if not np.array_equal(ks[:, 3], ps[:, 3]):
+        step, chain, margin = _first_divergence(
+            lambda n: mk.run_steps(*args[:15], args[15][:, :n].contiguous(),
+                                   args[16], **kw)[1][:, 3].long().cpu(),
+            trace, K)
+        raise AssertionError(
+            f"B3 {label}: decisions differ from the plain version; first at "
+            f"step {step} of chain {chain}, |ln u - ln acc| = {margin:.3e}")
+    n_acc = ps[:, 3:4]
+    tol = (np.maximum(1e-10 * np.abs(ps[:, :3]), 1e-8) if f64 else
+           2e-5 * np.abs(ps[:, :3]) + 2e-3 * np.sqrt(n_acc + 1.0))
+    d_sums = np.abs(ks[:, :3] - ps[:, :3])
+    d_pos = float((k[0] - p[0]).abs().max())
+    d_sk = (max(float((a - b).abs().max()) for a, b in zip(k[2:], p[2:]))
+            if cfg.coulomb == "ewald" else 0.0)
+    for c in range(C):
+        log("    sums kernel " + " ".join(f"{x: .8e}" for x in ks[c, :3])
+            + "\n    sums plain  " + " ".join(f"{x: .8e}" for x in ps[c, :3]))
+    log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
+        f"{tol.max():.3e}), pos {d_pos:.3e} A, S(k) {d_sk:.3e}")
+    sk_tol = (1e-9 if f64 else 1e-4 * (1.0 + float(p[2].abs().max()))
+              if cfg.coulomb == "ewald" else 0.0)
+    if not (np.all(d_sums <= tol) and d_pos <= (1e-9 if f64 else 1e-4)
+            and d_sk <= sk_tol):
+        raise AssertionError(f"B3 {label} disagrees with its plain version")
+    rep["max_abs_err"] = max(rep["max_abs_err"], float(d_sums.max()), d_pos,
+                             d_sk)
+    first = None
+    for c in range(C):
+        a1, kw1 = metropolis.fused_nvt_launch_args(
+            multichain.stack_states(state, 1), params, cfg, thermo,
+            u[c:c + 1], tables)
+        one = mk.run_steps(*a1, **kw1)
+        if not all(x is None or torch.equal(x[0], y[c])
+                   for x, y in zip(one, k)):
+            raise AssertionError(f"B3 {label}: chain {c} of the C={C} "
+                                 "launch differs from its C=1 launch")
+        if c == 0:
+            first = (a1, kw1, one)
+    if C > 1:
+        log("    every chain equals its C=1 launch bit for bit")
+    return first
+
+
+def phase_nvt_kernel(device, C=2, K=256, seed=2025):
+    """B3 against its plain version on both full-width systems, after
+    they have run (nvt_system), in float64 and float32, on one
+    numpy-seeded [C, K, 16] table: identical decisions, sums within the
+    B1 tolerances, each chain of the C = 2 launch equal to its C = 1
+    launch bit for bit; NVE on the LJ fluid (C = 1) at the reference's
+    reservoir of 180 K per atom, whose effective temperature (2/3 of it)
+    is the thermo's 120 K, and at NVE_K_FAR per atom, where Ray's rule
+    must decide apart from Metropolis (its accept count differs from the
+    NVT launch's on the same rows); and the kernel's time (CUDA events,
+    median of 10 launches of K steps, per step) beside its bound and the
+    plain version's time.  Returns the kernel's report entry (times of
+    the MOF system)."""
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    u_np = np.random.default_rng(seed).random((C, K, 16))
+    rep = {"max_abs_err": 0.0}
+    for kind in ("mof", "lj"):
+        for dtype in ("float64", "float32"):
+            system = nvt_system(kind, dtype, device)
+            params, state, cfg, thermo = system
+            trace = []
+            a1, kw1, one = _nvt_check(f"{kind} {dtype}", system, u_np,
+                                      device, rep, trace_out=trace)
+            if kind == "lj":
+                e = state.reported_energy().total
+                nve_cfg = dataclasses.replace(cfg, ensemble="nve")
+                for per_atom in (NVE_K_PER_ATOM, NVE_K_FAR):
+                    nve = (params, state, nve_cfg, thermo.replace(
+                        nve_energy=e + per_atom * N_LJ))
+                    acc = float(_nvt_check(
+                        f"lj nve {per_atom:g} K/atom {dtype}", nve,
+                        u_np[:1], device, rep)[2][1][0, 3])
+                    log(f"    accepts: nve {acc:g}, nvt "
+                        f"{float(one[1][0, 3]):g} on the same rows")
+                    if per_atom == NVE_K_FAR and acc == float(one[1][0, 3]):
+                        raise AssertionError(
+                            "B3 nve: the same accept count as nvt at an "
+                            "effective temperature far from the thermo's")
+            if dtype == "float64":
+                continue
+            ms = time_calls(lambda: mk.run_steps(*a1, **kw1), device,
+                            n=10) / K
+            pms = time_calls(lambda: mk.run_steps_plain(*a1, **kw1), device,
+                             n=2) / K
+            nk = kw1["kvecs"].shape[0] if kw1["kvecs"] is not None else 0
+            ops = _fused_ops(trace, cfg, nk)
+            # each input read once; out: positions, S(k) and the sums
+            bound, by = _bound_ms(ops, _nbytes(*a1[:16], *kw1.values())
+                                  + _nbytes(*one))
+            log(f"B3 {kind} f32 C=1: kernel {ms * 1e3:.2f} us/step, plain "
+                f"{pms * 1e3:.1f} us/step, bound {bound / K * 1e3:.4f} "
+                f"us/step ({by}; {ops / K:.3e} ops/step)")
+            rep[kind] = {"ms": ms, "plain_ms": pms, "bound_ms": bound / K,
+                         "bound_by": by}
+    rep.update(rep["mof"])
     return rep
 
 
@@ -438,26 +618,60 @@ pqr_restart restart.pqr
 """
 
 
-def _run_deck(device, extra="", numsteps=3000, n_side=N_SIDE, n_h2=N_H2,
-              capacity=CAPACITY):
-    """The 10.8k system written to PQR and run as DECK (plus ``extra``
-    lines) through run.run, every launch count set to 0 just before and
-    read just after.  Returns (Setup, averages, log text, launches)."""
+LJ_DECK = """job_name lj10k
+ensemble nvt
+numsteps {numsteps}
+corrtime 1000
+seed 7
+temperature 120
+basis1 {L} 0 0
+basis2 0 {L} 0
+basis3 0 0 {L}
+move_factor 0.5
+rot_factor 0
+coulomb off
+pqr_input lj10k.pqr
+pqr_restart restart.pqr
+"""
+
+
+def _run_deck(device, extra="", numsteps=3000, kind="mof"):
+    """A full-size system written to PQR and run as a deck through run.run,
+    every launch count set to 0 just before and read just after: ``kind``
+    "mof" — the 10.8k system as DECK (plus ``extra`` lines) — or "lj" —
+    the 10k LJ fluid as LJ_DECK.  An ``ensemble nve`` LJ deck gets
+    total_energy = U0 + NVE_K_PER_ATOM x N, U0 from an ``ensemble te`` run
+    of the same deck.  Returns (Setup, averages, log text, launches)."""
     from mpmc_tpu_torch.io import input_script, pqr
     from mpmc_tpu_torch.mc import run
+    from mpmc_tpu_torch.models import systems
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
-    params, state, cfg, _ = bench_system("float32", "cpu", n_side, n_h2,
-                                         capacity)
+    if kind == "mof":
+        params, state, cfg, _ = bench_system("float32", "cpu")
+        name, template, species = "bench10k", DECK, ["H2"]
+    else:
+        params, state, cfg, _ = systems.lj_fluid(n=N_LJ, device="cpu")
+        name, template, species = "lj10k", LJ_DECK, ["AR"]
     old = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            pqr.write_state("bench10k.pqr", params, state, ["H2"])
-            with open("bench10k.inp", "w") as f:
-                f.write(DECK.format(numsteps=numsteps,
-                                    L=float(state.box[0, 0])) + extra)
-            job = input_script.parse_file("bench10k.inp")
+            pqr.write_state(f"{name}.pqr", params, state, species)
+            text = template.format(numsteps=numsteps,
+                                   L=float(state.box[0, 0]))
+            if "ensemble nve" in extra:
+                with open(f"{name}_te.inp", "w") as f:
+                    f.write(text + "ensemble te\n")
+                e0 = run.run(input_script.parse_file(f"{name}_te.inp"),
+                             log=io.StringIO(), device=device)
+                total = float(e0.total) + NVE_K_PER_ATOM * N_LJ
+                log(f"NVE deck: U0 {float(e0.total):.6f} K (ensemble te), "
+                    f"total_energy {total:.6f} K")
+                extra += f"total_energy {total!r}\n"
+            with open(f"{name}.inp", "w") as f:
+                f.write(text + extra)
+            job = input_script.parse_file(f"{name}.inp")
             buf = io.StringIO()
             pk.reset_counts()
             mk.reset_counts()
@@ -465,7 +679,8 @@ def _run_deck(device, extra="", numsteps=3000, n_side=N_SIDE, n_h2=N_H2,
             torch.cuda.synchronize(device)
             launches = {"pair_terms": pk.pair_terms.launches,
                         "mol_pair": pk.mol_pair.launches,
-                        "run_steps_uvt": mk.run_steps_uvt.launches}
+                        "run_steps_uvt": mk.run_steps_uvt.launches,
+                        "run_steps": mk.run_steps.launches}
         finally:
             os.chdir(old)
     text = buf.getvalue()
@@ -542,6 +757,64 @@ def phase_fused(device, numsteps=20000):
     return launches, rate, dataclasses.replace(su, state=st), ms / 1000
 
 
+def phase_fused_nvt(device, chains=16, nvt_steps=20000, nve_steps=5000):
+    """The fused NVT/NVE path (B3) at full width through run_mc and
+    run_mc_chains: the MOF + H2 deck under nvt, one chain and ``chains``
+    chains (``nvt_steps`` each), the 10k LJ fluid under nvt (``nvt_steps``)
+    and under nve (``nve_steps``).  Each deck must launch B3 once per
+    corrtime and keep its carried energy equal to a fresh recompute after
+    a further 1000 fused steps (chain 0 and the last chain when stacked);
+    under nve the kinetic reservoir must stay positive; each deck's block
+    breakdown (refresh, observables, restart write) is logged.  Returns
+    ({deck: launches}, {deck: steps/s}, {deck: Setup})."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.state import slice_chain
+    decks = (("mof_nvt", "mof", "ensemble nvt\nfused_mc on\n", nvt_steps),
+             (f"mof_nvt_c{chains}", "mof",
+              f"ensemble nvt\nfused_mc on\nchains {chains}\n", nvt_steps),
+             ("lj_nvt", "lj", "fused_mc on\n", nvt_steps),
+             ("lj_nve", "lj", "ensemble nve\nfused_mc on\n", nve_steps))
+    launches, rates, sus = {}, {}, {}
+    for i, (label, kind, extra, numsteps) in enumerate(decks):
+        su, avgs, text, ln = _run_deck(device, extra, numsteps=numsteps,
+                                       kind=kind)
+        want = ("chain-interleaved multi-chain" if "chains" in extra
+                else "single-chain fused NVT")
+        if f"fused_mc: {want}" not in text or "WARNING" in text:
+            raise AssertionError(f"{label} did not take the fused NVT path")
+        if ln["run_steps"] != numsteps // 1000:
+            raise AssertionError(f"{label}: B3 launched {ln['run_steps']} "
+                                 f"times, not numsteps / corrtime = "
+                                 f"{numsteps // 1000}")
+        rate = float(text.split("steps/sec:")[1].split()[0])
+        log(f"{label}: {rate:.2f} steps/s"
+            + (" aggregate" if "chains" in extra else "")
+            + f", <U> {avgs.mean('energy_total'):.4f} K, acceptance "
+            f"{avgs.mean('acc_displace'):.4f}")
+        g = torch.Generator(device=device).manual_seed(19 + i)
+        if su.states is not None:
+            sts, _ = metropolis.run_chunk_fused_multi(
+                su.states, su.params, su.cfg, su.thermo, 1000, generator=g)
+            for c in (0, chains - 1):
+                _check_bookkeeping(f"{label} chain {c}, 1000 steps",
+                                   slice_chain(sts, c), su)
+        else:
+            st, stats = metropolis.run_chunk_fused(
+                su.state, su.params, su.cfg, su.thermo, 1000, generator=g)
+            log(f"{label} chunk accepts {stats.host().accepts.tolist()}")
+            _check_bookkeeping(f"{label}, 1000 steps", st, su)
+            if su.cfg.ensemble == "nve":
+                k = float(su.thermo.nve_energy
+                          - st.reported_energy().total)
+                log(f"{label}: kinetic reservoir after the run and a "
+                    f"further chunk {k:.4f} K")
+                if not k > 0:
+                    raise AssertionError(f"{label}: the reservoir left > 0")
+        _block_breakdown(device, su, label, states=su.states)
+        launches[label], rates[label], sus[label] = ln, rate, su
+    return launches, rates, sus
+
+
 def _block_breakdown(device, su, label, states=None):
     """Host-clock seconds of the per-corrtime work of a run_mc block
     besides the chunk: the refresh, the observables and the restart
@@ -601,9 +874,10 @@ def phase_fused_chains(device, chains=32, numsteps=20000):
     return launches, rate, su
 
 
-def _profile(label, chunk, n_steps, device):
+def _profile(label, chunk, n_steps, device, kernel=None):
     """One untraced run of ``chunk`` for the rate, then a torch.profiler
-    run for device busy time by kernel."""
+    run for device busy time by kernel; ``kernel``: a substring of a
+    kernel's name whose share of the device time is reported."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -632,8 +906,12 @@ def _profile(label, chunk, n_steps, device):
            "device_busy_share": busy_us / 1e6 / wall,
            "device_busy_share_traced": busy_us / 1e6 / wall_traced,
            "device_ops_per_step": launches / n_steps,
+           "device_ops_per_chunk": launches,
            "top": [{"kernel": k[:90], "count": c, "ms": t / 1e3}
                    for k, c, t in sorted(dev, key=lambda x: -x[2])[:10]]}
+    if kernel is not None:
+        out["kernel_share"] = (sum(t for k, _, t in dev if kernel in k)
+                               / max(busy_us, 1e-30))
     log("profile " + json.dumps(out))
     if busy_us <= 0:
         log("profile: the profiler recorded no device time")
@@ -664,31 +942,40 @@ def phase_profile(device, su, n_steps=500):
 
 
 def phase_profile_fused(device, su, n_steps=1000, states=None):
-    """Where a fused chunk's time goes: one launch of B1 plus the
-    per-corrtime refresh, as run_mc runs them for one chain, or as
-    run_mc_chains runs them for the stacked ``states``."""
+    """Where a fused chunk's time goes: one launch of the fused kernel (B3
+    for an nvt/nve Setup, else B1) plus the per-corrtime refresh, as
+    run_mc runs them for one chain, or as run_mc_chains runs them for the
+    stacked ``states``; with the kernel's share of the device time."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.parallel import multichain
     g = torch.Generator(device=device).manual_seed(6)
-    tables = metropolis.uvt_fused_tables(su.params, su.cfg)
     F = metropolis.frozen_refresh_rows(su.params, su.cfg)
+    nvt = su.cfg.ensemble in ("nvt", "nve")
+    if nvt:
+        tables = metropolis.nvt_fused_tables(su.params, su.state.mol_alive)
+        single, multi = (metropolis.run_chunk_fused,
+                         metropolis.run_chunk_fused_multi)
+    else:
+        tables = metropolis.uvt_fused_tables(su.params, su.cfg)
+        single, multi = (metropolis.run_chunk_fused_uvt,
+                         metropolis.run_chunk_fused_uvt_multi)
 
     def chunk():
         if states is None:
-            st, _ = metropolis.run_chunk_fused_uvt(
-                su.state, su.params, su.cfg, su.thermo, n_steps,
-                generator=g, tables=tables)
+            st, _ = single(su.state, su.params, su.cfg, su.thermo, n_steps,
+                           generator=g, tables=tables)
             metropolis.initialize(st, su.params, su.cfg, su.thermo,
                                   frozen_rows=F)
         else:
-            sts, _ = metropolis.run_chunk_fused_uvt_multi(
-                states, su.params, su.cfg, su.thermo, n_steps, generator=g,
-                tables=tables)
+            sts, _ = multi(states, su.params, su.cfg, su.thermo, n_steps,
+                           generator=g, tables=tables)
             multichain.initialize_batched(sts, su.params, su.cfg,
                                           su.thermo, frozen_rows=F)
 
-    label = "fused" if states is None else f"fused_c{states.pos.shape[0]}"
-    return _profile(label, chunk, n_steps, device)
+    label = ("fused_nvt" if nvt else "fused") + (
+        "" if states is None else f"_c{states.pos.shape[0]}")
+    return _profile(label, chunk, n_steps, device,
+                    kernel="nvt_kernel" if nvt else "uvt_kernel")
 
 
 def phase_example(device, numsteps=5000):
@@ -726,6 +1013,7 @@ def main():
     build_s = phase_build()
     report = phase_kernels(dev)
     report["run_steps_uvt"] = phase_uvt_kernel(dev)
+    report["run_steps"] = phase_nvt_kernel(dev)
     phase_energy(dev)
     scan_launches, rate, su = phase_main(dev)
     prof_scan = phase_profile(dev, su)
@@ -734,11 +1022,18 @@ def main():
     prof_fused = phase_profile_fused(dev, su_f)
     chain_launches, chains_rate, su_c = phase_fused_chains(dev)
     prof_chains = phase_profile_fused(dev, su_c, states=su_c.states)
+    nvt_launches, nvt_rates, nvt_sus = phase_fused_nvt(dev)
+    prof_nvt = phase_profile_fused(dev, nvt_sus["mof_nvt"])
+    su16 = nvt_sus["mof_nvt_c16"]
+    prof_nvt16 = phase_profile_fused(dev, su16, states=su16.states)
     # each kernel's launches on its own main path: B2 and B4 on the scan
-    # path, B1 on the fused single-chain path
+    # path, B1 on the fused single-chain µVT path, B3 on the single-chain
+    # MOF NVT deck
     launches = {"pair_terms": scan_launches["pair_terms"],
                 "mol_pair": scan_launches["mol_pair"],
-                "run_steps_uvt": fused_launches["run_steps_uvt"]}
+                "run_steps_uvt": fused_launches["run_steps_uvt"],
+                "run_steps": nvt_launches["mof_nvt"]["run_steps"]}
+    names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -747,17 +1042,25 @@ def main():
                 "bound_ms": report[name]["bound_ms"],
                 "bound_by": report[name]["bound_by"],
                 "library_ms": None}
-               for name in ("pair_terms", "mol_pair", "run_steps_uvt")]
+               for name in names]
     log(f"launches per path: scan {scan_launches}, fused {fused_launches}, "
-        f"fused chains {chain_launches}")
+        f"fused chains {chain_launches}, fused nvt {nvt_launches}")
     log(f"build_seconds {build_s:.1f}  scan_steps_per_sec {rate:.2f}  "
         f"fused_steps_per_sec {fused_rate:.2f}  "
         f"fused_c32_steps_per_sec {chains_rate:.2f}  "
         f"b1_kernel_us_per_step {kernel_us * 1e3:.2f}  "
         f"fused_device_busy {prof_fused['device_busy_share']:.4f}  "
         f"fused_c32_device_busy {prof_chains['device_busy_share']:.4f}  "
-        f"scan_device_busy {prof_scan['device_busy_share']:.4f}  "
-        f"wall_seconds {time.time() - t0:.1f}")
+        f"scan_device_busy {prof_scan['device_busy_share']:.4f}")
+    b3 = report["run_steps"]
+    log("  ".join(f"{k}_steps_per_sec {v:.2f}" for k, v in nvt_rates.items())
+        + f"  b3_kernel_us_per_step mof {b3['mof']['ms'] * 1e3:.2f}"
+        f" lj {b3['lj']['ms'] * 1e3:.2f}"
+        f"  fused_nvt_device_busy {prof_nvt['device_busy_share']:.4f}"
+        f" (b3 share {prof_nvt['kernel_share']:.4f})"
+        f"  fused_nvt_c16_device_busy {prof_nvt16['device_busy_share']:.4f}"
+        f" (b3 share {prof_nvt16['kernel_share']:.4f})"
+        f"  wall_seconds {time.time() - t0:.1f}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

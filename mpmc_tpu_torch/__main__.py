@@ -42,7 +42,7 @@ def main(argv=None):
               file=sys.stderr)
     run_mod.run(job, device=device,
                 **({"jsonl_path": args.jsonl}
-                   if job.cfg.ensemble in ("nvt", "uvt") else {}))
+                   if job.cfg.ensemble in ("nvt", "nve", "uvt") else {}))
 
 
 if __name__ == "__main__":

@@ -143,7 +143,10 @@ class Thermo:
              move_factor=1.0, rot_factor=1.0, insert_probability=0.0,
              volume_probability=0.0, volume_change_factor=0.05,
              spinflip_probability=0.0, nve_energy=0.0, n_species=None,
-             dtype=torch.float32, device="cpu"):
+             dtype=torch.float32, device=None):
+        """The knobs as tensors on ``device`` (default: the current CUDA
+        device; raises without one)."""
+        device = resolve_device(device)
         fug = torch.atleast_1d(torch.as_tensor(fugacity, dtype=dtype,
                                                device=device))
         if n_species is not None and fug.shape[0] < max(n_species, 1):

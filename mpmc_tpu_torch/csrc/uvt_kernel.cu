@@ -53,94 +53,24 @@
 //
 // Scalar header scal[24]: rc, alpha, move_factor, rot_factor, thr2, p_ins,
 //   box (3x3 row-major, rows are cell vectors), box^-1 (3x3 row-major).
+//
+// The pair evaluation, the column pass, the S(k) delta, the block
+// reduction and the displacement trial are shared with B3 (nvt_kernel.cu)
+// in mc_common.cuh; the move selection and the insert trial are B1's own.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "device_math.cuh"
+#include "mc_common.cuh"
 
 namespace {
 
-constexpr int NT = 512;          // threads per block (one block per chain)
-constexpr int NW = NT / 32;
-constexpr int A_PAD = 8;         // most sites per molecule
 constexpr int S_MAX = 8;         // most insert species
 constexpr int N_SUMS = 14;
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Dims {
   int C, n, ms, S, A, K, nk;
 };
-
-struct Opts {
-  int rd;     // 0 none, 1 lj
-  int mix;    // 0 lorentz-berthelot, 1 waldman-hagler
-  int es;     // 0 none, 1 ewald, 2 wolf, 3 cutoff
-  int ortho;  // 1: diagonal box, the cross terms of the minimum image dropped
-};
-
-// Minimum-image r^2 of a displacement, and the unmasked (rd, es) of the pair
-// when it lies within rc (both 0 otherwise).  The Coulomb constant is
-// applied by the caller.
-template <typename T>
-__device__ __forceinline__ void pair_uvt(
-    T dx, T dy, T dz, T ei, T si, T qi, T ej, T sj, T qj,
-    const T* __restrict__ box, const T* __restrict__ bi, const Opts o, T rc,
-    T rc2, T alpha, T& r2, T& rd, T& es) {
-  T rx, ry, rz;
-  if (o.ortho) {
-    T f0 = dx * bi[0], f1 = dy * bi[4], f2 = dz * bi[8];
-    f0 -= x_rint(f0);   // half to even, like torch.round / jnp.round
-    f1 -= x_rint(f1);
-    f2 -= x_rint(f2);
-    rx = f0 * box[0];
-    ry = f1 * box[4];
-    rz = f2 * box[8];
-  } else {
-    T f0 = dx * bi[0] + dy * bi[3] + dz * bi[6];
-    T f1 = dx * bi[1] + dy * bi[4] + dz * bi[7];
-    T f2 = dx * bi[2] + dy * bi[5] + dz * bi[8];
-    f0 -= x_rint(f0);
-    f1 -= x_rint(f1);
-    f2 -= x_rint(f2);
-    rx = f0 * box[0] + f1 * box[3] + f2 * box[6];
-    ry = f0 * box[1] + f1 * box[4] + f2 * box[7];
-    rz = f0 * box[2] + f1 * box[5] + f2 * box[8];
-  }
-  r2 = rx * rx + ry * ry + rz * rz;
-  rd = T(0);
-  es = T(0);
-  if (!(r2 < rc2)) return;
-  const T r2s = r2 > T(1e-12) ? r2 : T(1);
-  if (o.rd == 1) {
-    T eps, sig;
-    if (o.mix == 0) {
-      eps = x_sqrt(ei * ej);
-      sig = T(0.5) * (si + sj);
-    } else {
-      const T s3i = si * si * si, s3j = sj * sj * sj;
-      T denom = s3i * s3i + s3j * s3j;
-      // max(x, 1e-300): the bound is 0 in float, as in the reference
-      denom = denom > T(1e-300) ? denom : T(1e-300);
-      sig = x_pow(T(0.5) * denom, T(1.0 / 6.0));
-      eps = x_sqrt(ei * ej) * (T(2) * s3i * s3j / denom);
-    }
-    const T s2 = sig * sig / r2s;
-    const T s6 = s2 * s2 * s2;
-    rd = T(4) * eps * s6 * (s6 - T(1));
-  }
-  if (o.es != 0) {
-    const T r = x_sqrt(r2s);
-    const T qq = qi * qj;
-    if (o.es == 1) {
-      es = qq * x_erfc(alpha * r) / r;
-    } else if (o.es == 2) {
-      es = qq * (x_erfc(alpha * r) / r - x_erfc(alpha * rc) / rc);
-    } else {
-      es = qq / r;
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(NT) uvt_kernel(
@@ -283,27 +213,17 @@ __global__ void __launch_bounds__(NT) uvt_kernel(
     }
     __syncthreads();
     if (t == 0) {
-      T dsp[3], cnew[3];
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        dsp[e] = (T(2) * s_u[1 + e] - T(1)) * mf;
-        cnew[e] = s_u[1] * s_box[e] + s_u[2] * s_box[3 + e]
-                  + s_u[3] * s_box[6 + e];
-      }
-      if (A == 1) {
+      if (ins) {   // the template at fractional COM lanes 1-3, Shoemake
+        T cnew[3];
 #pragma unroll
         for (int e = 0; e < 3; ++e)
-          s_new[0][e] = ins ? cnew[e] : s_old[0][e] + dsp[e];
-      } else {
-        T msum = T(0), com[3] = {T(0), T(0), T(0)};
-        for (int a = 0; a < na; ++a) msum += s_mi[a];
+          cnew[e] = s_u[1] * s_box[e] + s_u[2] * s_box[3 + e]
+                    + s_u[3] * s_box[6 + e];
+        if (A == 1) {
 #pragma unroll
-        for (int e = 0; e < 3; ++e) {
-          for (int a = 0; a < na; ++a) com[e] += s_mi[a] * s_old[a][e];
-          com[e] = com[e] / x_max(msum, T(1e-30));
-        }
-        T R[3][3];
-        if (ins) {   // uniform orientation (Shoemake) from lanes 5-7
+          for (int e = 0; e < 3; ++e) s_new[0][e] = cnew[e];
+        } else {   // uniform orientation (Shoemake) from lanes 5-7
+          T R[3][3];
           const T sq1 = x_sqrt(x_max(T(1) - s_u[5], T(0)));
           const T sq2 = x_sqrt(x_max(s_u[5], T(0)));
           const T th1 = two_pi * s_u[6], th2 = two_pi * s_u[7];
@@ -318,37 +238,16 @@ __global__ void __launch_bounds__(NT) uvt_kernel(
           R[2][0] = 2 * (qx * qz - qy * qw);
           R[2][1] = 2 * (qy * qz + qx * qw);
           R[2][2] = 1 - 2 * (qx * qx + qy * qy);
-        } else {     // uniform axis, angle uniform in [0, rot_factor)
-          const T az = T(2) * s_u[5] - T(1);
-          const T aphi = two_pi * s_u[6];
-          const T s = x_sqrt(x_max(T(1) - az * az, T(0)));
-          const T ax = s * x_cos(aphi), ay = s * x_sin(aphi);
-          const T ang = s_u[7] * rotf;
-          const T ca = x_cos(ang), sa = x_sin(ang);
-          const T omc = T(1) - ca;
-          R[0][0] = ca + ax * ax * omc;
-          R[0][1] = ax * ay * omc - az * sa;
-          R[0][2] = ax * az * omc + ay * sa;
-          R[1][0] = ay * ax * omc + az * sa;
-          R[1][1] = ca + ay * ay * omc;
-          R[1][2] = ay * az * omc - ax * sa;
-          R[2][0] = az * ax * omc - ay * sa;
-          R[2][1] = az * ay * omc + ax * sa;
-          R[2][2] = ca + az * az * omc;
+          for (int a = 0; a < na; ++a) {
+            T rel[3];
+#pragma unroll
+            for (int e = 0; e < 3; ++e)
+              rel[e] = s_tmpl[(spf * A + a) * 3 + e];
+            place_row<T>(cnew, R, rel, s_new[a]);
+          }
         }
-        T tr[3];
-#pragma unroll
-        for (int e = 0; e < 3; ++e) tr[e] = ins ? cnew[e] : com[e] + dsp[e];
-        for (int a = 0; a < na; ++a) {
-          T rel[3];
-#pragma unroll
-          for (int e = 0; e < 3; ++e)
-            rel[e] = ins ? s_tmpl[(spf * A + a) * 3 + e] : s_old[a][e] - com[e];
-#pragma unroll
-          for (int e = 0; e < 3; ++e)
-            s_new[a][e] = tr[e] + (R[e][0] * rel[0] + R[e][1] * rel[1]
-                                   + R[e][2] * rel[2]);
-        }
+      } else {
+        displace_trial<T>(s_u, mf, rotf, A, na, s_old, s_mi, s_new);
       }
     }
     __syncthreads();
@@ -357,78 +256,19 @@ __global__ void __launch_bounds__(NT) uvt_kernel(
     const bool has_old = !ins, has_new = !del;
     double a_rd = 0.0, a_es = 0.0, a_rec = 0.0;
     T mn = T(INFINITY);
-    for (int jc = t; jc < n; jc += NT) {
-      if (!AL[jc] || (jc >= start && jc < start + na)) continue;
-      const T xj = P[3 * jc], yj = P[3 * jc + 1], zj = P[3 * jc + 2];
-      const T qj = q[jc], ej = eps[jc], sj = sig[jc];
-#pragma unroll
-      for (int a = 0; a < A_PAD; ++a) {
-        if (a >= na) break;
-        T r2, rd, es;
-        if (has_old) {
-          pair_uvt<T>(s_old[a][0] - xj, s_old[a][1] - yj, s_old[a][2] - zj,
-                      s_ei[a], s_si[a], s_qi[a], ej, sj, qj, s_box, s_bi, o,
-                      rc, rc2, alpha, r2, rd, es);
-          a_rd -= double(rd);
-          a_es -= double(es);
-        }
-        if (has_new) {
-          pair_uvt<T>(s_new[a][0] - xj, s_new[a][1] - yj, s_new[a][2] - zj,
-                      s_ei[a], s_si[a], s_qi[a], ej, sj, qj, s_box, s_bi, o,
-                      rc, rc2, alpha, r2, rd, es);
-          a_rd += double(rd);
-          a_es += double(es);
-          mn = x_min(mn, r2);
-        }
-      }
-    }
-    if (o.es == 1) {
-      for (int kk = t; kk < nk; kk += NT) {
-        const T kx = kvec[3 * kk], ky = kvec[3 * kk + 1], kz = kvec[3 * kk + 2];
-        T dr = T(0), di = T(0);
-        for (int a = 0; a < na; ++a) {
-          T sn = T(0), cn = T(0), so = T(0), co = T(0);
-          if (has_new)
-            x_sincos(kx * s_new[a][0] + ky * s_new[a][1] + kz * s_new[a][2],
-                     &sn, &cn);
-          if (has_old)
-            x_sincos(kx * s_old[a][0] + ky * s_old[a][1] + kz * s_old[a][2],
-                     &so, &co);
-          dr += s_qi[a] * (cn - co);
-          di += s_qi[a] * (sn - so);
-        }
-        const T sr = SKr[kk], si = SKi[kk];
-        a_rec += double(kcoef[kk] * ((T(2) * sr + dr) * dr
-                                     + (T(2) * si + di) * di));
-        DSr[kk] = dr;
-        DSi[kk] = di;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      a_rd += __shfl_down_sync(FULL, a_rd, off);
-      a_es += __shfl_down_sync(FULL, a_es, off);
-      a_rec += __shfl_down_sync(FULL, a_rec, off);
-      mn = x_min(mn, __shfl_down_sync(FULL, mn, off));
-    }
-    if (lane == 0) {
-      s_red[0][warp] = a_rd;
-      s_red[1][warp] = a_es;
-      s_red[2][warp] = a_rec;
-      s_min[warp] = mn;
-    }
-    __syncthreads();
+    column_pass<T>(P, AL, q, eps, sig, n, start, na, has_old, has_new, s_old,
+                   s_new, s_ei, s_si, s_qi, s_box, s_bi, o, rc, rc2, alpha,
+                   a_rd, a_es, mn);
+    if (o.es == 1)
+      sk_delta<T>(kvec, kcoef, SKr, SKi, DSr, DSi, nk, na, has_old, has_new,
+                  s_old, s_new, s_qi, a_rec);
+    block_reduce<T>(a_rd, a_es, a_rec, mn, s_red, s_min);
 
     // ---- acceptance (thread 0, double)
     if (t == 0) {
-      double drd = 0.0, des = 0.0, drec = 0.0;
-      T mr2 = T(INFINITY);
-      for (int w = 0; w < NW; ++w) {
-        drd += s_red[0][w];
-        des += s_red[1][w];
-        drec += s_red[2][w];
-        mr2 = x_min(mr2, s_min[w]);
-      }
+      double drd, des, drec;
+      T mr2;
+      block_totals<T>(s_red, s_min, drd, des, drec, mr2);
       des = ke * des;
       const double fins = ins ? 1.0 : 0.0, fdel = del ? 1.0 : 0.0;
       const double sgn = fins - fdel;
@@ -474,12 +314,7 @@ __global__ void __launch_bounds__(NT) uvt_kernel(
         }
         AL[r] = !del;
       }
-      if (o.es == 1) {
-        for (int kk = t; kk < nk; kk += NT) {
-          SKr[kk] += DSr[kk];
-          SKi[kk] += DSi[kk];
-        }
-      }
+      if (o.es == 1) sk_commit<T>(SKr, SKi, DSr, DSi, nk);
       if (t == 0 && !disp) {
         SA[slot] = ins;
         s_nalive[su] += ins ? 1 : -1;

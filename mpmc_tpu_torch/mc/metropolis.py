@@ -1,11 +1,13 @@
 """The Metropolis Monte Carlo engine (port of the row-level, non-cache
-scan path and of the fused µVT path of mpmc_tpu/mc/metropolis.py).
+scan path and of the fused NVT/NVE and µVT paths of
+mpmc_tpu/mc/metropolis.py).
 
-The fused path (``run_chunk_fused_uvt`` for one chain,
-``run_chunk_fused_uvt_multi`` for C stacked chains) runs a whole chunk in
-one launch of kernel B1 (ops/cuda/mc_kernel.run_steps_uvt) and applies its
-sums, slot aliveness, positions and S(k) to the state.  The rest of this
-docstring describes the scan path.
+The fused paths run a whole chunk in one kernel launch and apply its sums,
+positions and S(k) to the state: ``run_chunk_fused`` (one chain) and
+``run_chunk_fused_multi`` (C stacked chains) through kernel B3
+(ops/cuda/mc_kernel.run_steps: NVT, or NVE for one chain), and
+``run_chunk_fused_uvt`` / ``run_chunk_fused_uvt_multi`` through kernel B1
+(run_steps_uvt).  The rest of this docstring describes the scan path.
 
 One step = one row of a [K, 16] uniform table (lane layout of
 mc_kernel.draw_uniforms(lanes=16), consumed as mc_kernel._kernel_uvt does;
@@ -14,7 +16,8 @@ see mc/moves.py for lanes 0-3 and 5-7):
 - lane 8 picks the move type: insert if u8 < p_ins/2, delete if
   u8 < p_ins, else displace (µVT); always displace otherwise;
 - lane 9 picks the species of an insert/delete when there are several;
-- lane 4 is the acceptance coin.
+- lane 4 is the acceptance coin: Metropolis at the temperature, or under
+  ensemble nve Ray's rule against the kinetic reservoir E_total - U.
 
 The move type is the only host decision of a step: it is read from a host
 copy of lane 8, made once per chunk.  Everything else — slot pick, trial
@@ -72,7 +75,8 @@ def draw_uniforms(generator: torch.Generator, n_steps, dtype=torch.float32):
 def make_branch_picker(cfg: RunConfig):
     """(pick(u8_host [K], thermo) -> [K] branch ids, branch_ids): the
     ensemble's move table.  µVT: insert_probability split evenly between
-    insert and delete; every other ensemble of this slice displaces."""
+    insert and delete; every other ensemble of this slice (nvt, nve)
+    displaces."""
     if cfg.ensemble == "uvt" and cfg.insert_species:
         ids = [DISPLACE, INSERT, DELETE]
 
@@ -166,10 +170,12 @@ def make_step_fn(params: Params, cfg: RunConfig):
     mutable state (pos, mol_alive updated in place; energy, sk replaced),
     ``u`` the step's [16] uniform row, ``t`` the host-chosen branch index,
     ``c`` the chunk's _Chunk constants; ``stats`` accumulates in place."""
-    if cfg.ensemble not in ("uvt", "nvt"):
+    if cfg.ensemble not in ("uvt", "nvt", "nve"):
         raise NotImplementedError(
-            f"ensemble {cfg.ensemble} is not yet ported — ROADMAP A8")
+            f"ensemble {cfg.ensemble} is not yet ported — ROADMAP "
+            + ("A8b" if cfg.ensemble == "npt" else "A12"))
     dtype = cfg.tdtype
+    nve = cfg.ensemble == "nve"
     dev = params.device
     zero = torch.zeros((), dtype=dtype, device=dev)
     species = (torch.as_tensor(cfg.insert_species, dtype=torch.int64,
@@ -285,7 +291,26 @@ def make_step_fn(params: Params, cfg: RunConfig):
         mol, rows, alive_new, d, ln_bias, reject, sk = branches[t](
             carry, u, thermo, c)
         du = d.total
-        ln_acc = ln_bias - du / thermo.temperature
+        if nve:
+            # Ray's microcanonical rule (reference metropolis.py:756-777):
+            # the reservoir K = E_total - U (U with the frozen part, the
+            # convention of total_energy) weights configurations as
+            # K^(F/2 - 1), F the kinetic DOF of the alive movable molecules
+            k_old = thermo.nve_energy - (carry["energy"].total
+                                         + carry["u_frozen"])
+            k_new = k_old - du
+            f_dof = torch.sum(torch.where(
+                _movable_mask(params, carry["mol_alive"]), params.mol_dof,
+                zero))
+            live = (k_new > 0) & (k_old > 0)
+            one = torch.ones_like(k_new)
+            ln_acc = torch.where(
+                live, (0.5 * f_dof - 1.0)
+                * (torch.log(torch.where(live, k_new, one))
+                   - torch.log(torch.where(live, k_old, one))),
+                torch.full_like(k_new, -math.inf))
+        else:
+            ln_acc = ln_bias - du / thermo.temperature
         accept = (~reject) & (torch.log(torch.clamp(u[4], min=1e-38))
                               < ln_acc)
         if rows is not None:
@@ -323,6 +348,9 @@ def chunk_setup(state: SimState, params: Params, cfg: RunConfig,
              "energy": state.energy, "sk_re": state.sk_re,
              "sk_im": state.sk_im, "u": u}
     carry["alive"] = carry["mol_alive"][params.mol_id] & params.atom_ok
+    carry["u_frozen"] = (state.e_frozen.total if state.e_frozen is not None
+                         else torch.zeros((), dtype=cfg.tdtype,
+                                          device=state.pos.device))
     return (make_step_fn(params, cfg), carry,
             _Chunk(state.box, params, cfg, thermo), branch,
             MCStats.zero(state.pos.device))
@@ -349,7 +377,7 @@ def run_chunk(state: SimState, params: Params, cfg: RunConfig,
 
 
 # ---------------------------------------------------------------------------
-# Fused µVT path (kernel B1, ops/cuda/mc_kernel.run_steps_uvt)
+# Fused paths: the k-table both kernels read
 # ---------------------------------------------------------------------------
 
 def _fused_ktable(box, cfg, alpha):
@@ -367,6 +395,132 @@ def _fused_ktable(box, cfg, alpha):
              * torch.exp(-k2 / (4.0 * alpha * alpha)) / k2s)
     return kv, torch.where(k2 > 1e-12, kcoef, torch.zeros_like(kcoef))
 
+
+# ---------------------------------------------------------------------------
+# Fused NVT/NVE path (kernel B3, ops/cuda/mc_kernel.run_steps)
+# ---------------------------------------------------------------------------
+
+def nvt_fused_tables(params: Params, mol_alive):
+    """Tables of the fused NVT kernel, built once per run on the host
+    (aliveness never changes under NVT): (mv_start [Mv] int32, mv_natoms
+    [Mv] int32, a_max, mv_slots [Mv] int64, f_dof), the tensors on the
+    params' device; ``f_dof`` is the kinetic degrees of freedom of the
+    alive movable molecules (the NVE exponent is f_dof/2 - 1)."""
+    start, natoms, a_max, slots = mc_kernel.movable_mols(params, mol_alive)
+    f_dof = float(params.mol_dof.cpu().numpy().astype(np.float64)[slots]
+                  .sum())
+    dev = params.device
+    return (torch.as_tensor(start, device=dev),
+            torch.as_tensor(natoms, device=dev), a_max,
+            torch.as_tensor(slots, dtype=torch.int64, device=dev), f_dof)
+
+
+def fused_nvt_launch_args(states: SimState, params: Params, cfg: RunConfig,
+                          thermo: Thermo, uniforms, tables):
+    """(args, kwargs) of mc_kernel.run_steps (or its plain version) for a
+    chunk of the stacked ``states`` over the [C, K, 16] table ``uniforms``
+    (reference _fused_chunk_nvt and _fused_chunk_nvt_multi).  The chains
+    share the box, the parameters and the aliveness of chain 0; the
+    temperature may carry a leading [C] (one beta per chain), the move
+    sizes are chain 0's.  Under NVE the kinetic reservoir at chunk entry
+    is nve_energy - (U + U_frozen) per chain, re-derived from the energy
+    totals at every chunk."""
+    mv_start, mv_natoms, a_max, _, f_dof = tables
+    C = states.pos.shape[0]
+    box = states.box[0]
+    rc = pairs.derived_cutoff(box, cfg)
+    alpha = pairs.derived_alpha(rc, cfg)
+    kv, kcoef = _fused_ktable(box, cfg, alpha)
+    betas = (1.0 / thermo.temperature).reshape(-1).expand(C).contiguous()
+    alive = states.mol_alive[0][params.mol_id] & params.atom_ok
+    thr = cfg.cavity_autoreject_absolute
+    ew = cfg.coulomb == "ewald"
+    args = (states.pos, alive, params.eps, params.sig, params.charge,
+            params.mass, mv_start, mv_natoms, box, rc, alpha, betas,
+            thermo.move_factor.reshape(-1)[0],
+            thermo.rot_factor.reshape(-1)[0], thr * thr,
+            uniforms.to(device=states.pos.device,
+                        dtype=cfg.tdtype).contiguous(), cfg)
+    kw = dict(kvecs=kv, kcoef=kcoef,
+              sk_re=states.sk_re.contiguous() if ew else None,
+              sk_im=states.sk_im.contiguous() if ew else None, a_max=a_max)
+    if cfg.ensemble == "nve":
+        u = states.energy.total
+        if states.e_frozen is not None:
+            u = u + states.e_frozen.total
+        kw.update(nve_k0=(thermo.nve_energy - u).double(),
+                  nve_g=0.5 * f_dof - 1.0)
+    return args, kw
+
+
+def _apply_fused_nvt(states, sums, new_pos, sk_re, sk_im, cfg, n_steps):
+    """(stacked state, MCStats with [C,5] counts) after a B3 launch: the
+    sums' energy deltas (rd, es_real, es_recip; the self, exclusion and
+    tail terms do not change under rigid moves), positions and S(k).  The
+    attempts are known on the host: no sync."""
+    d = sums.to(states.pos.dtype)
+    e = states.energy
+    energy = dataclasses.replace(
+        e, rd=e.rd + d[:, 0], es_real=e.es_real + d[:, 1],
+        es_recip=e.es_recip + d[:, 2])
+    C = sums.shape[0]
+    attempts = np.zeros((C, N_MOVE_TYPES), np.int64)
+    attempts[:, DISPLACE] = n_steps
+    accepts = torch.zeros((C, N_MOVE_TYPES), dtype=torch.int64,
+                          device=sums.device)
+    accepts[:, DISPLACE] = sums[:, 3].to(torch.int64)
+    new = states.replace(pos=new_pos, energy=energy,
+                         step=states.step + n_steps)
+    if cfg.coulomb == "ewald":
+        new = new.replace(sk_re=sk_re.contiguous(), sk_im=sk_im.contiguous())
+    return new, MCStats(attempts, accepts)
+
+
+def run_chunk_fused_multi(states: SimState, params: Params, cfg: RunConfig,
+                          thermo: Thermo, n_steps: int, generator=None,
+                          uniforms=None, tables=None):
+    """K NVT steps for C stacked chains in ONE launch of B3.  Returns
+    (states, MCStats with [C,5] counts).  ``thermo.temperature`` may carry
+    a leading [C] (per-chain temperatures, as the reference's
+    ``thermo_batched``).
+
+    The [C, K, 16] uniform table is ``uniforms`` when given (tests inject
+    it), else drawn from ``generator`` (a torch.Generator on the states'
+    device): each chain gets its own rows.  ``tables``: a
+    ``nvt_fused_tables`` result to reuse across chunks.  The caller has
+    checked mc_kernel.supported_multi(cfg, params) (or, for one chain,
+    mc_kernel.supported)."""
+    if tables is None:
+        tables = nvt_fused_tables(params, states.mol_alive[0])
+    if uniforms is None:
+        uniforms = torch.rand((states.pos.shape[0], n_steps, N_LANES),
+                              generator=generator, dtype=cfg.tdtype,
+                              device=generator.device)
+    args, kw = fused_nvt_launch_args(states, params, cfg, thermo, uniforms,
+                                     tables)
+    new_pos, sums, sk_re, sk_im = mc_kernel.run_steps(*args, **kw)
+    return _apply_fused_nvt(states, sums, new_pos, sk_re, sk_im, cfg,
+                            n_steps)
+
+
+def run_chunk_fused(state: SimState, params: Params, cfg: RunConfig,
+                    thermo: Thermo, n_steps: int, generator=None,
+                    uniforms=None, tables=None):
+    """K NVT (or NVE) translate+rotate steps of one chain in ONE launch of
+    B3 — the single-chain form of ``run_chunk_fused_multi`` (C = 1).
+    ``uniforms``: an injected [K, 16] table; returns (state, MCStats)."""
+    if uniforms is not None:
+        uniforms = uniforms.reshape(1, n_steps, N_LANES)
+    states, stats = run_chunk_fused_multi(
+        stack_chains([state]), params, cfg, thermo, n_steps,
+        generator=generator, uniforms=uniforms, tables=tables)
+    return slice_chain(states, 0), MCStats(stats.attempts[0],
+                                           stats.accepts[0])
+
+
+# ---------------------------------------------------------------------------
+# Fused µVT path (kernel B1, ops/cuda/mc_kernel.run_steps_uvt)
+# ---------------------------------------------------------------------------
 
 def uvt_fused_tables(params: Params, cfg: RunConfig):
     """Slot and template tables of the fused µVT kernel, built once per

@@ -1,12 +1,14 @@
 """High-level run entry: input files -> system -> MC loop -> outputs
-(port of the single-chain scan and fused µVT paths and of the fused
-multi-chain path of mpmc_tpu/mc/run.py).
+(port of the single-chain scan path, the fused NVT/NVE and µVT paths and
+the fused multi-chain path of mpmc_tpu/mc/run.py).
 
 The corrtime structure is the reference's: ``corrtime`` steps per chunk
-(mc/metropolis.run_chunk on the scan path, run_chunk_fused_uvt /
-run_chunk_fused_uvt_multi in one launch of kernel B1 under ``fused_mc``),
-then a refresh of the cached energies (full recompute on the frozen-reuse
-fast path — B2 restricted to the sorbate rows), observables,
+(mc/metropolis.run_chunk on the scan path; under ``fused_mc``
+run_chunk_fused / run_chunk_fused_multi in one launch of kernel B3 for
+NVT and NVE, run_chunk_fused_uvt / run_chunk_fused_uvt_multi in one launch
+of kernel B1 for µVT), then a refresh of the cached energies (full
+recompute on the frozen-reuse fast path — B2 restricted to the sorbate
+rows), observables,
 restart/trajectory output, and annealing/adaptation.
 
 The entry points run on the current CUDA device unless the caller names
@@ -17,6 +19,7 @@ item that ports them — a refusal, never a fallback.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import sys
 import time
 from typing import Dict, List, Optional, Tuple
@@ -95,15 +98,16 @@ def check_supported(job: input_script.Job):
     """Refuse every option outside the port's slice (NotImplementedError
     naming the ROADMAP item)."""
     cfg = job.cfg
-    if cfg.ensemble in ("npt", "nve"):
-        _refuse(f"ensemble {cfg.ensemble}", "A8")
-    if cfg.ensemble not in ("uvt", "nvt", "te"):
+    if cfg.ensemble == "npt":
+        _refuse("ensemble npt (the hybrid fused NPT and the scan-path "
+                "volume move)", "A8b")
+    if cfg.ensemble not in ("uvt", "nvt", "nve", "te"):
         _refuse(f"ensemble {cfg.ensemble}", "A12")
     for flag, what, item in (
-            (cfg.fused_mc and cfg.ensemble == "nvt",
-             "fused_mc with ensemble nvt (the fused NVT kernel)", "A8"),
             (job.chains > 1 and not cfg.fused_mc,
              "chains > 1 without fused_mc (batched scan chains)", "A7"),
+            (job.chains > 1 and cfg.ensemble == "nve",
+             "chains > 1 with ensemble nve (batched scan chains)", "A7"),
             (job.parallel_tempering or job.pt_fugacity,
              "parallel tempering", "A9"),
             (cfg.polarization, "polarization", "A10"),
@@ -361,9 +365,9 @@ def _annealed(thermo, job):
 
 
 def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
-    """The main MC loop (ensemble uvt/nvt): one chain on the scan path,
-    or on the fused µVT kernel under ``fused_mc``; ``chains N`` goes to
-    ``run_mc_chains``."""
+    """The main MC loop (ensemble uvt/nvt/nve): one chain on the scan path,
+    or under ``fused_mc`` on the fused NVT/NVE kernel (B3) or the fused
+    µVT kernel (B1); ``chains N`` goes to ``run_mc_chains``."""
     if job.chains > 1:
         return run_mc_chains(job, log=log, jsonl_path=jsonl_path,
                              device=device)
@@ -378,16 +382,25 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     if job.unknown_options:
         print(f"WARNING: unknown options ignored: {job.unknown_options}",
               file=writer.log)
-    tables = None
+    chunk = metropolis.run_chunk
     if cfg.fused_mc:
-        if mc_kernel.supported_uvt(cfg, params):
-            tables = metropolis.uvt_fused_tables(params, cfg)
+        # the reference's gate order: the NVT/NVE kernel, then the µVT one
+        if mc_kernel.supported(cfg, params):
+            chunk = functools.partial(
+                metropolis.run_chunk_fused,
+                tables=metropolis.nvt_fused_tables(params,
+                                                   su.state.mol_alive))
+            print("fused_mc: single-chain fused NVT kernel", file=writer.log)
+        elif mc_kernel.supported_uvt(cfg, params):
+            chunk = functools.partial(
+                metropolis.run_chunk_fused_uvt,
+                tables=metropolis.uvt_fused_tables(params, cfg))
             print("fused_mc: single-chain fused µVT kernel", file=writer.log)
         else:
             print("WARNING: fused_mc requested but unsupported for this "
-                  "configuration (needs <=8-species µVT of rigid <=8-site "
-                  "molecules, lj/none RD, none/cutoff/wolf/ewald ES, a "
-                  "neutral template under ewald, f32) — scan path used",
+                  "configuration (needs rigid <=8-site NVT/NVE or "
+                  "<=8-species µVT, lj/none RD, none/cutoff/wolf/ewald ES, "
+                  "a neutral template under ewald, f32) — scan path used",
                   file=writer.log)
     state = metropolis.initialize(su.state, params, cfg, thermo)
     if job.frozen_output:
@@ -403,13 +416,8 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     steps_done = 0
     t0 = time.time()
     for _ in range(n_blocks):
-        if tables is not None:
-            state, stats = metropolis.run_chunk_fused_uvt(
-                state, params, cfg, thermo, corr, generator=generator,
-                tables=tables)
-        else:
-            state, stats = metropolis.run_chunk(state, params, cfg, thermo,
-                                                corr, generator=generator)
+        state, stats = chunk(state, params, cfg, thermo, corr,
+                             generator=generator)
         steps_done += corr
         # per-corrtime refresh on the frozen-reuse fast path
         state = metropolis.initialize(state, params, cfg, thermo,
@@ -443,17 +451,26 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
 def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
                   device=None):
     """``chains N``: N independent chains advanced together in one launch
-    of the fused µVT kernel per corrtime.  Observables are averaged over
-    the chains each corrtime (the reference's cross-rank observable
-    reduce); restart and trajectory follow chain 0, with one file per
-    chain under ``parallel_restarts``.  The batched scan path the
-    reference takes for what the fused gate refuses is not ported."""
+    per corrtime of the fused NVT kernel (B3) or the fused µVT kernel
+    (B1).  Observables are averaged over the chains each corrtime (the
+    reference's cross-rank observable reduce); restart and trajectory
+    follow chain 0, with one file per chain under ``parallel_restarts``.
+    The batched scan path the reference takes for what the fused gates
+    refuse is not ported."""
     su = setup(job, device=device)
     device = su.state.pos.device
     cfg, params, thermo = su.cfg, su.params, su.thermo
-    if not mc_kernel.supported_uvt_multi(cfg, params):
-        _refuse("chains > 1 outside the fused µVT surface (batched scan "
-                "chains)", "A7")
+    if mc_kernel.supported_multi(cfg, params):
+        chunk = functools.partial(
+            metropolis.run_chunk_fused_multi,
+            tables=metropolis.nvt_fused_tables(params, su.state.mol_alive))
+    elif mc_kernel.supported_uvt_multi(cfg, params):
+        chunk = functools.partial(
+            metropolis.run_chunk_fused_uvt_multi,
+            tables=metropolis.uvt_fused_tables(params, cfg))
+    else:
+        _refuse("chains > 1 outside the fused NVT and µVT surfaces "
+                "(batched scan chains)", "A7")
     C = job.chains
     writer = output_io.RunWriter(job, su.species_names, log=log,
                                  jsonl_path=jsonl_path)
@@ -467,7 +484,6 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
     print(f"batched chains: {C}", file=writer.log)
     print(f"fused_mc: chain-interleaved multi-chain kernel (C={C})",
           file=writer.log)
-    tables = metropolis.uvt_fused_tables(params, cfg)
     state = metropolis.initialize(su.state, params, cfg, thermo)
     states = multichain.stack_states(state, C)
     avgs = Averages()
@@ -478,9 +494,8 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
     refresh_rows = metropolis.frozen_refresh_rows(params, cfg)
     t0 = time.time()
     for _ in range(n_blocks):
-        states, stats = metropolis.run_chunk_fused_uvt_multi(
-            states, params, cfg, thermo, corr, generator=generator,
-            tables=tables)
+        states, stats = chunk(states, params, cfg, thermo, corr,
+                              generator=generator)
         states = multichain.initialize_batched(states, params, cfg, thermo,
                                                frozen_rows=refresh_rows)
         per_chain = observables_batched(su, states, C)
@@ -523,7 +538,7 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
 def run(job: input_script.Job, **kw):
     """Run a parsed job on ``device`` (keyword; default the current CUDA
     device, and an error without one)."""
-    if job.cfg.ensemble in ("nvt", "uvt"):
+    if job.cfg.ensemble in ("nvt", "nve", "uvt"):
         return run_mc(job, **kw)
     if job.cfg.ensemble == "te":
         kw.pop("jsonl_path", None)

@@ -9,6 +9,7 @@ alternating cubic lattice with MOF-like LJ parameters.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from mpmc_tpu_torch.config import RunConfig, Thermo, resolve_device
 from mpmc_tpu_torch.state import Species, build_system
@@ -104,3 +105,18 @@ def mof_h2_gcmc(n_side: int = 8, spacing: float = 4.0, n_h2: int = 64,
         move_factor=1.0, rot_factor=np.pi, insert_probability=0.5,
         n_species=1, dtype=cfg.tdtype, device=device)
     return params, state, cfg, thermo
+
+
+def jittered(params, state, seed, amplitude=0.3):
+    """``state`` with every movable molecule shifted rigidly by a seeded
+    uniform vector in [-amplitude, amplitude) A.  The builders put their
+    molecules on lattices, where pairs sit exactly at r = rc and two
+    correct evaluations (fused multiply-adds or separate roundings) may
+    count such a tie differently; a jittered state has no such ties."""
+    mov = (~params.mol_frozen & (params.mol_species >= 0)).cpu().numpy()
+    shift = np.random.default_rng(seed).uniform(-amplitude, amplitude,
+                                                (len(mov), 3))
+    shift[~mov] = 0.0
+    shift = torch.as_tensor(shift, dtype=state.pos.dtype,
+                            device=state.pos.device)
+    return state.replace(pos=state.pos + shift[params.mol_id])

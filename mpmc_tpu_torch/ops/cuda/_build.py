@@ -44,6 +44,13 @@ _SIGNATURES = {
         # sums | C n ms S A K nk rd mix es ortho | ke | stream
         "run_steps_uvt": [_P] * 24 + [_I] * 11 + [ctypes.c_double] + [_P],
     },
+    "nvt_kernel": {
+        # pos alive eps sig q mass mv_start mv_natoms scal betas u kvec
+        # kcoef sk dsk nve_k0 sums | C n mv A K nk rd mix es ortho nve |
+        # ke nve_g | stream
+        "run_steps_nvt": [_P] * 17 + [_I] * 11 + [ctypes.c_double] * 2
+        + [_P],
+    },
 }
 
 _libs: dict = {}

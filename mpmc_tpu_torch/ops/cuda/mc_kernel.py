@@ -1,30 +1,39 @@
-"""The fused µVT step loop (B1): wrapper, plain version and host helpers
-(csrc/uvt_kernel.cu).
+"""The fused Monte Carlo step loops — B1 (µVT, csrc/uvt_kernel.cu) and B3
+(NVT/NVE, csrc/nvt_kernel.cu): wrappers, plain versions and host helpers.
 
 B1 ``run_steps_uvt`` replaces mpmc_tpu/ops/pallas/mc_kernel.py::_kernel_uvt
 (through ``run_steps_uvt``/``run_steps_uvt_multi``): K whole GCMC steps
 (displace | insert | delete) per launch for C chains, each step one old+new
 pass over all atoms, the S(k) delta, the acceptance test with per-species
-constants, and the in-place commit.  One wrapper serves every C >= 1; the
-single-chain call is C = 1.
+constants, and the in-place commit.
+
+B3 ``run_steps`` replaces mpmc_tpu/ops/pallas/mc_kernel.py::_kernel (through
+``run_steps``/``run_steps_multi``): K translate+rotate steps per launch for
+C chains that share the parameters, the box and the aliveness (the NVT
+contract), each with its own positions, S(k) and beta; under ensemble nve
+the acceptance is Ray's microcanonical rule against a kinetic reservoir
+carried across the launch's steps.  One wrapper of each kernel serves every
+C >= 1; the single-chain call is C = 1.
 
 Randomness is one [C, K, 16] uniform table in the lane layout of
 mc_kernel.draw_uniforms(lanes=16) (chain c's step k reads row [c, k]):
-lane 8 the move type, 9 the species of an insert/delete, 0 the slot rank,
-1-3 the translation or the inserted COM, 4 the acceptance coin, 5-7 the
-rotation or the inserted orientation.
+lane 8 the move type, 9 the species of an insert/delete, 0 the slot rank
+(B3: the molecule), 1-3 the translation or the inserted COM, 4 the
+acceptance coin, 5-7 the rotation or the inserted orientation.  B3 reads
+lanes 0-7.
 
-``run_steps_uvt`` takes the plain version for tensors on the CPU and
-launches the kernel for CUDA tensors; anything else raises.  There is no
-fallback from the kernel to the plain version.  ``run_steps_uvt.launches``
-counts the kernel launches, and nothing else.
+Each wrapper takes the plain version for tensors on the CPU and launches
+its kernel for CUDA tensors; anything else raises.  There is no fallback
+from a kernel to its plain version.  ``run_steps_uvt.launches`` and
+``run_steps.launches`` count the kernel launches, and nothing else.
 
-The host helpers (``supported_uvt``, ``movable_slots``) are the gates and
-tables of the reference's fused µVT path, restricted to the surface the
-port has: rd lj/none, lb/waldman_hagler mixing, coulomb
-ewald/wolf/cutoff/none, up to MAX_SPECIES insert species of up to MAX_SITES
-rigid sites.  Cavity bias, TMMC, spinflip and the other RD forms are
-refused here (ROADMAP A11/A12).
+The host helpers (``supported_uvt``, ``supported``, ``supported_multi``,
+``movable_slots``, ``movable_mols``) are the gates and tables of the
+reference's fused paths, restricted to the surface the port has: rd
+lj/none, lb/waldman_hagler mixing, coulomb ewald/wolf/cutoff/none, f32,
+rigid molecules of up to MAX_SITES sites (B1: up to MAX_SPECIES insert
+species).  Cavity bias, TMMC, spinflip and the other RD forms are refused
+here (ROADMAP A11/A12).
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ MAX_SITES = 8      # most sites of a movable molecule (kernel row registers)
 MAX_SPECIES = 8    # most insert species (kernel shared-memory tables)
 N_SUMS = 14        # d_rd d_es_real d_es_recip d_es_self d_es_excl d_lrc,
 #                    acc disp/ins/del, att disp/ins/del, acc/att spinflip
+N_SUMS_NVT = 4     # d_rd d_es_real d_es_recip, accepted moves
 
 
 def _supported_physics(cfg) -> bool:
@@ -102,6 +112,27 @@ def supported_uvt_multi(cfg, params) -> bool:
     return supported_uvt(cfg, params)
 
 
+def supported(cfg, params) -> bool:
+    """Static gate for the fused NVT/NVE path (the reference's
+    ``supported``): ensemble nvt or nve, the port's physics surface, no
+    spinflip, and every movable molecule rigid with <= MAX_SITES sites.
+    Host-side, once per run."""
+    if not (cfg.ensemble in ("nvt", "nve") and _supported_physics(cfg)
+            and not (cfg.tmmc or cfg.quantum_rotation)):
+        return False
+    natoms = params.mol_natoms.cpu().numpy()
+    mov = (~params.mol_frozen.cpu().numpy()
+           & (params.mol_species.cpu().numpy() >= 0))
+    return bool(mov.any()) and bool((natoms[mov] <= MAX_SITES).all())
+
+
+def supported_multi(cfg, params) -> bool:
+    """Gate of the C-chain NVT launch: the single-chain surface without
+    NVE (the reference keeps one kinetic reservoir per launch, and its
+    batched chains take the scan path)."""
+    return supported(cfg, params) and cfg.ensemble == "nvt"
+
+
 def movable_slots(params, insert_species=None):
     """([Ms] slot indices, [Ms] first atom rows, [Ms] species index into
     ``insert_species`` order, A_list) of every movable molecule slot,
@@ -122,22 +153,35 @@ def movable_slots(params, insert_species=None):
     return mov.astype(np.int32), start, species_idx, A_list
 
 
-def _refuse_cfg(cfg):
-    """Raise on what neither the kernel nor its plain version implements."""
+def movable_mols(params, mol_alive):
+    """([Mv] first atom row, [Mv] atom count, a_max, [Mv] molecule slot
+    index) of each alive movable molecule, as host numpy arrays (int32)."""
+    alive = mol_alive.cpu().numpy()
+    mv = (alive & ~params.mol_frozen.cpu().numpy()
+          & (params.mol_species.cpu().numpy() >= 0))
+    natoms = params.mol_natoms.cpu().numpy()
+    a_max = int(natoms[mv].max()) if mv.any() else 1
+    return (params.mol_start.cpu().numpy()[mv].astype(np.int32),
+            natoms[mv].astype(np.int32), a_max,
+            np.flatnonzero(mv).astype(np.int32))
+
+
+def _refuse_cfg(cfg, what="run_steps_uvt"):
+    """Raise on what neither kernel nor its plain version implements."""
     if not (cfg.rd_potential in _RD and cfg.coulomb in _ES
             and cfg.mixing_rule in _MIX):
         raise NotImplementedError(
-            f"run_steps_uvt: rd {cfg.rd_potential!r} / coulomb "
+            f"{what}: rd {cfg.rd_potential!r} / coulomb "
             f"{cfg.coulomb!r} / mixing {cfg.mixing_rule!r} not ported")
-    for flag, what in ((cfg.cavity_bias, "cavity_bias"),
-                       (cfg.tmmc, "tmmc"),
-                       (cfg.quantum_rotation, "quantum_rotation"),
-                       (cfg.feynman_hibbs or cfg.feynman_kleinert,
-                        "feynman_hibbs / feynman_kleinert")):
+    for flag, flag_name in ((cfg.cavity_bias, "cavity_bias"),
+                            (cfg.tmmc, "tmmc"),
+                            (cfg.quantum_rotation, "quantum_rotation"),
+                            (cfg.feynman_hibbs or cfg.feynman_kleinert,
+                             "feynman_hibbs / feynman_kleinert")):
         if flag:
             raise NotImplementedError(
-                f"run_steps_uvt: {what} is not yet ported — ROADMAP "
-                + ("A12" if what.startswith("feynman") else "A11"))
+                f"{what}: {flag_name} is not yet ported — ROADMAP "
+                + ("A12" if flag_name.startswith("feynman") else "A11"))
 
 
 # ---------------------------------------------------------------------------
@@ -198,10 +242,10 @@ def _trial_rows(old, mass, ins, u, tmpl, box, move_factor, rot_factor):
 
 def _column_pass(rows, use, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
                  box, box_inv, rc, alpha, cfg):
-    """(rd [C] f64, es [C] f64 without the Coulomb constant, min r2 [C])
-    of each chain's rows [C,A,3] against its columns: pairs within rc for
-    the energies, every pair for the closest approach; chains with
-    ``use`` false give zeros and inf."""
+    """(rd [C] f64, es [C] f64 without the Coulomb constant, min r2 [C],
+    pairs within rc [C]) of each chain's rows [C,A,3] against its
+    columns: pairs within rc for the energies, every pair for the closest
+    approach; chains with ``use`` false give zeros, inf and 0."""
     dr = pbc_ops.min_image(rows[:, :, None, :] - pos[:, None, :, :], box,
                            box_inv)
     r2 = torch.sum(dr * dr, dim=-1)                                # [C,A,N]
@@ -219,7 +263,7 @@ def _column_pass(rows, use, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
         return torch.where(act, v, zero).double().sum(dim=(1, 2))
 
     mn = torch.where(m, r2, torch.full_like(r2, math.inf)).amin(dim=(1, 2))
-    return s(rd_u), s(es_u), mn
+    return s(rd_u), s(es_u), mn, act.sum(dim=(1, 2))
 
 
 def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
@@ -234,8 +278,8 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
     Arguments and results as ``run_steps_uvt``; the inputs are not
     modified.  ``trace``: a list that gets one dict per step — ``accept``
     [C], ``margin`` [C] = ln u - ln(acceptance), and the work the kernel
-    does for it, ``pairs`` and ``phases`` [C] (pair evaluations and
-    k-vector phases)."""
+    does for it, ``pairs``, ``pairs_in`` and ``phases`` [C] (pair
+    evaluations, those within rc, and k-vector phases)."""
     _refuse_cfg(cfg)
     dt, dev = pos.dtype, pos.device
     C, N = alive.shape
@@ -301,12 +345,12 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
                & (col[None, :] < (start + na)[:, None]))
         ok = alive & ~own
         has_old, has_new = ~ins, ~dele
-        rd_o, es_o, _ = _column_pass(old, has_old, pos, ok, site_ok, qi, ei,
-                                     si, charge, eps, sig, box, box_inv, rc,
-                                     alpha, cfg)
-        rd_n, es_n, mr2 = _column_pass(new, has_new, pos, ok, site_ok, qi,
-                                       ei, si, charge, eps, sig, box,
-                                       box_inv, rc, alpha, cfg)
+        rd_o, es_o, _, in_o = _column_pass(old, has_old, pos, ok, site_ok,
+                                           qi, ei, si, charge, eps, sig, box,
+                                           box_inv, rc, alpha, cfg)
+        rd_n, es_n, mr2, in_n = _column_pass(new, has_new, pos, ok, site_ok,
+                                             qi, ei, si, charge, eps, sig,
+                                             box, box_inv, rc, alpha, cfg)
         drd = rd_n - rd_o
         des = KE * (es_n - es_o)
         if ew:
@@ -351,6 +395,7 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
                                  * na, 0)
             trace.append({"accept": accept, "margin": ln_u - ln_t,
                           "pairs": passes * ok.sum(1),
+                          "pairs_in": torch.where(cnt > 0, in_o + in_n, 0),
                           "phases": passes * (kvecs.shape[0] if ew else 0)})
         vals = torch.stack([drd, des, drec, dslf, dexc, dlrc], dim=1)
         sums[:, :6] += torch.where(accept[:, None], vals,
@@ -483,6 +528,225 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
 run_steps_uvt.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# B3: plain version and kernel wrapper
+# ---------------------------------------------------------------------------
+
+def _k0_rows(nve_k0, C, dev):
+    """The kinetic reservoir at launch entry as a [C] float64 tensor."""
+    return torch.as_tensor(nve_k0, dtype=torch.float64,
+                           device=dev).reshape(-1).expand(C).contiguous()
+
+
+def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
+                    box, rc, alpha, betas, move_factor, rot_factor, thr2,
+                    uniforms, cfg, kvecs=None, kcoef=None, sk_re=None,
+                    sk_im=None, nve_k0=None, nve_g=0.0, a_max=None,
+                    trace=None):
+    """Plain B3: a loop over the K steps of batched tensor ops over the C
+    chains and the N columns, with the kernel's arithmetic (the pair sums,
+    the acceptance and the NVE reservoir in float64).  Arguments and
+    results as ``run_steps``; the inputs are not modified.  ``trace``: a
+    list that gets one dict per step — ``accept`` [C], ``margin`` [C] = ln
+    u - ln(acceptance), and the work the kernel does for it, ``pairs``,
+    ``pairs_in`` and ``phases`` [C] (pair evaluations, those within rc,
+    and k-vector phases)."""
+    _refuse_cfg(cfg, "run_steps")
+    dt, dev = pos.dtype, pos.device
+    C, N = pos.shape[0], pos.shape[1]
+    K = uniforms.shape[1]
+    n_mv = mv_start.shape[0]
+    A = int(mv_natoms.max()) if a_max is None else int(a_max)
+    ew = cfg.coulomb == "ewald"
+    nve = cfg.ensemble == "nve"
+    pos = pos.clone()
+    if ew:
+        sk_re, sk_im = sk_re.clone(), sk_im.clone()
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dt, device=dev)
+
+    rc, alpha, mf, rotf, thr2 = (t(rc), t(alpha), t(move_factor),
+                                 t(rot_factor), t(thr2))
+    mv_t = t(float(n_mv))
+    box_inv = torch.linalg.inv(box)
+    ar = torch.arange(C, device=dev)
+    site = torch.arange(A, device=dev)
+    col = torch.arange(N, device=dev)
+    st, nat = mv_start.long(), mv_natoms.long()
+    beta = betas.double()
+    k_cur = _k0_rows(nve_k0, C, dev) if nve else None
+    no_ins = torch.zeros(C, dtype=torch.bool, device=dev)
+    use = ~no_ins
+    sums = torch.zeros((C, N_SUMS_NVT), dtype=torch.float64, device=dev)
+    for k in range(K):
+        u = uniforms[:, k]
+        m = torch.minimum(torch.floor(u[:, 0] * mv_t), mv_t - 1.0).long()
+        start, na = st[m], nat[m]
+        site_ok = site[None, :] < na[:, None]                      # [C,A]
+        rows = torch.clamp(start[:, None] + site[None, :], max=N - 1)
+        old = pos[ar[:, None], rows]                               # [C,A,3]
+        qi, ei, si = charge[rows], eps[rows], sig[rows]
+        mi = torch.where(site_ok, mass[rows], torch.zeros_like(qi))
+        new = _trial_rows(old, mi, no_ins, u, old, box, mf, rotf)
+        own = ((col[None, :] >= start[:, None])
+               & (col[None, :] < (start + na)[:, None]))
+        ok = alive[None, :] & ~own
+        rd_o, es_o, _, in_o = _column_pass(old, use, pos, ok, site_ok, qi,
+                                           ei, si, charge, eps, sig, box,
+                                           box_inv, rc, alpha, cfg)
+        rd_n, es_n, mr2, in_n = _column_pass(new, use, pos, ok, site_ok, qi,
+                                             ei, si, charge, eps, sig, box,
+                                             box_inv, rc, alpha, cfg)
+        drd = rd_n - rd_o
+        des = KE * (es_n - es_o)
+        if ew:
+            qa = torch.where(site_ok, qi, torch.zeros_like(qi))[..., None]
+
+            def trig(r):
+                ph = (r[..., 0:1] * kvecs[:, 0] + r[..., 1:2] * kvecs[:, 1]
+                      + r[..., 2:3] * kvecs[:, 2])                # [C,A,Nk]
+                return torch.cos(ph), torch.sin(ph)
+
+            cn, sn = trig(new)
+            co, so = trig(old)
+            dsr = torch.sum(qa * (cn - co), dim=1)                 # [C,Nk]
+            dsi = torch.sum(qa * (sn - so), dim=1)
+            drec = (kcoef * ((2.0 * sk_re + dsr) * dsr
+                             + (2.0 * sk_im + dsi) * dsi)).double().sum(1)
+        else:
+            drec = torch.zeros(C, dtype=torch.float64, device=dev)
+        du = drd + des + drec
+        reject = (thr2 > 0) & (mr2 < thr2)
+        ln_u = torch.log(torch.clamp(u[:, 4].double(), min=1e-38))
+        if nve:
+            # Ray: P = min(1, (K_new / K_old)^g), K_new > 0
+            k_new = k_cur - du
+            live = (k_new > 0) & (k_cur > 0)
+            one = torch.ones_like(k_new)
+            ln_t = torch.where(
+                live, nve_g * (torch.log(torch.where(live, k_new, one))
+                               - torch.log(torch.where(live, k_cur, one))),
+                torch.full_like(k_new, -math.inf))
+            accept = ~reject & live & (ln_u < ln_t)
+            k_cur = torch.where(accept, k_new, k_cur)
+        else:
+            ln_t = -beta * du
+            accept = ~reject & (ln_u < ln_t)
+        if trace is not None:
+            passes = 2 * na
+            trace.append({"accept": accept, "margin": ln_u - ln_t,
+                          "pairs": passes * ok.sum(1),
+                          "pairs_in": in_o + in_n,
+                          "phases": passes * (kvecs.shape[0] if ew else 0)})
+        vals = torch.stack([drd, des, drec], dim=1)
+        sums[:, :3] += torch.where(accept[:, None], vals,
+                                   torch.zeros_like(vals))
+        sums[:, 3] += accept.double()
+        wr = accept[:, None] & site_ok
+        pos[ar[:, None], rows] = torch.where(wr[..., None], new, old)
+        if ew:
+            keep = accept[:, None]
+            sk_re = torch.where(keep, sk_re + dsr, sk_re)
+            sk_im = torch.where(keep, sk_im + dsi, sk_im)
+    return pos, sums, sk_re, sk_im
+
+
+def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
+              rc, alpha, betas, move_factor, rot_factor, thr2, uniforms, cfg,
+              kvecs=None, kcoef=None, sk_re=None, sk_im=None, nve_k0=None,
+              nve_g=0.0, a_max=None):
+    """B3: K fused NVT (or NVE) steps for C chains.
+
+    Per chain: ``pos`` [C,N,3], ``uniforms`` [C,K,16], ``betas`` [C] (1/T),
+    ``sk_re``/``sk_im`` [C,Nk] (ewald).  Shared: atom ``alive`` [N] bool;
+    per-atom ``eps``/``sig``/``charge``/``mass`` [N]; the table of alive
+    movable molecules ``mv_start``/``mv_natoms`` [Mv] int32 (first atom
+    row, site count; ``movable_mols``) and its largest site count
+    ``a_max`` (computed from ``mv_natoms`` when None: a molecule turns
+    about its COM only when a_max > 1); ``box`` [3,3]; the scalars ``rc``,
+    ``alpha``, ``move_factor``, ``rot_factor``, ``thr2`` (autoreject
+    radius squared, 0 = off); ``kvecs`` [Nk,3] with ``kcoef`` [Nk] the
+    folded reciprocal coefficients (ewald).  Under ``cfg.ensemble ==
+    "nve"``: ``nve_k0`` the kinetic reservoir at entry ([C] or a scalar,
+    E_total - U) and ``nve_g`` the exponent f_dof/2 - 1.
+
+    Returns (pos [C,N,3], sums [C,4] float64 = (d_rd, d_es_real,
+    d_es_recip, accepted moves), sk_re [C,Nk], sk_im [C,Nk]).  The inputs
+    are not modified."""
+    if pos.device.type == "cpu":
+        return run_steps_plain(
+            pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box, rc,
+            alpha, betas, move_factor, rot_factor, thr2, uniforms, cfg,
+            kvecs=kvecs, kcoef=kcoef, sk_re=sk_re, sk_im=sk_im,
+            nve_k0=nve_k0, nve_g=nve_g, a_max=a_max)
+    if pos.device.type != "cuda":
+        raise ValueError(f"run_steps: no kernel for {pos.device}")
+    _refuse_cfg(cfg, "run_steps")
+    dt, dev = pos.dtype, pos.device
+    C, N = pos.shape[0], pos.shape[1]
+    n_mv = mv_start.shape[0]
+    K = uniforms.shape[1]
+    ew = cfg.coulomb == "ewald"
+    nve = cfg.ensemble == "nve"
+    A = int(mv_natoms.max()) if a_max is None else int(a_max)
+    if n_mv == 0 or A > MAX_SITES:
+        raise ValueError(f"run_steps: {n_mv} movable molecules of up to {A} "
+                         f"sites (the kernel takes >= 1 of <= {MAX_SITES})")
+    _check("pos", pos, dt, (C, N, 3), dev)
+    _check("alive", alive, torch.bool, (N,), dev)
+    for nm, x in (("eps", eps), ("sig", sig), ("charge", charge),
+                  ("mass", mass)):
+        _check(nm, x, dt, (N,), dev)
+    _check("mv_start", mv_start, torch.int32, (n_mv,), dev)
+    _check("mv_natoms", mv_natoms, torch.int32, (n_mv,), dev)
+    _check("betas", betas, dt, (C,), dev)
+    _check("uniforms", uniforms, dt, (C, K, 16), dev)
+    _check("box", box, dt, (3, 3), dev)
+    if ew:
+        nk = kvecs.shape[0]
+        _check("kvecs", kvecs, dt, (nk, 3), dev)
+        _check("kcoef", kcoef, dt, (nk,), dev)
+        _check("sk_re", sk_re, dt, (C, nk), dev)
+        _check("sk_im", sk_im, dt, (C, nk), dev)
+        sk = torch.stack([sk_re, sk_im], dim=1).contiguous()      # [C,2,Nk]
+    else:
+        nk = 0
+        sk = torch.empty((C, 2, 0), dtype=dt, device=dev)
+    dsk = torch.empty_like(sk)
+    k0 = _k0_rows(nve_k0, C, dev) if nve else None
+
+    def s1(x):
+        return torch.as_tensor(x, dtype=dt, device=dev).reshape(1)
+
+    scal = torch.cat([s1(rc), s1(alpha), s1(move_factor), s1(rot_factor),
+                      s1(thr2), box.reshape(-1),
+                      torch.linalg.inv(box).reshape(-1)]).contiguous()
+    out_pos = pos.clone()
+    sums = torch.empty((C, N_SUMS_NVT), dtype=torch.float64, device=dev)
+    from mpmc_tpu_torch.ops.cuda import _build
+    fn = getattr(_build.library("nvt_kernel"), "run_steps_nvt_" + _suffix(dt))
+    nullp = ctypes.c_void_p(None)
+    err = fn(_ptr(out_pos), _ptr(alive), _ptr(eps), _ptr(sig), _ptr(charge),
+             _ptr(mass), _ptr(mv_start), _ptr(mv_natoms), _ptr(scal),
+             _ptr(betas), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
+             _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
+             _ptr(dsk) if ew else nullp, _ptr(k0) if nve else nullp,
+             _ptr(sums), C, N, n_mv, A, K, nk, _RD[cfg.rd_potential],
+             _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
+             int(bool(cfg.ortho_box)), int(nve), ctypes.c_double(KE),
+             ctypes.c_double(float(nve_g)), _stream(dev))
+    run_steps.launches += 1
+    _raise_on(err, "run_steps")
+    if ew:
+        return out_pos, sums, sk[:, 0], sk[:, 1]
+    return out_pos, sums, sk_re, sk_im
+
+
+run_steps.launches = 0
+
+
 def reset_counts():
-    """Zero the kernel's launch counter."""
+    """Zero both fused kernels' launch counters."""
     run_steps_uvt.launches = 0
+    run_steps.launches = 0

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mpmc_tpu_torch.config import resolve_device
 
 # ---------------------------------------------------------------------------
 # Species template (host-side description of one rigid molecule type)
@@ -245,10 +246,12 @@ def build_system(box, frozen_pos=None, frozen_params: Optional[dict] = None,
                  initial_counts: tuple = (),
                  initial_pos: Optional[dict] = None,
                  dtype=torch.float32, pad_atoms_to: int = 8, seed: int = 0,
-                 device="cpu"):
+                 device=None):
     """Build (Params, SimState) from a frozen framework + sorbate species —
     the same padded layout as mpmc_tpu.state.build_system (frozen prefix,
-    contiguous per-species slot pools, pad rows at the end)."""
+    contiguous per-species slot pools, pad rows at the end) — on
+    ``device`` (default: the current CUDA device; raises without one)."""
+    device = resolve_device(device)
     box = np.asarray(box, dtype=np.float64)
     F = 0 if frozen_pos is None else len(frozen_pos)
     fp = frozen_params or {}

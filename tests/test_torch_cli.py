@@ -81,8 +81,8 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 
 
 REFUSED = [
-    ("fused_mc on", "A8", "nvt"), ("chains 4", "A7"), ("ensemble npt", "A8"),
-    ("ensemble nve", "A8"), ("parallel_tempering on", "A9"),
+    ("chains 4", "A7"), ("ensemble npt", "A8b"),
+    ("parallel_tempering on", "A9"),
     ("polarization on", "A10"), ("cavity_bias on", "A11"),
     ("tmmc on", "A11"), ("quantum_rotation on", "A11"),
     ("cdvdw on", "A12"), ("feynman_hibbs on", "A12"),
@@ -96,8 +96,7 @@ REFUSED = [
 @pytest.mark.parametrize("case", REFUSED, ids=[r[0] for r in REFUSED])
 def test_options_outside_the_slice_are_refused(case):
     """Each option outside the slice raises, naming its ROADMAP item; a
-    case's third field is its ensemble (default uvt): ``fused_mc`` is in
-    the slice for µVT and refused for NVT (the fused NVT kernel)."""
+    case's third field is its ensemble (default uvt)."""
     line, item, ensemble = (case + ("uvt",))[:3]
     job = input_script.parse(f"ensemble {ensemble}\n{line}\n")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):

@@ -1,5 +1,5 @@
-"""The CUDA kernels (the pair kernels B2/B4 and the fused µVT kernel B1)
-against their plain versions on the card.
+"""The CUDA kernels (the pair kernels B2/B4, the fused µVT kernel B1 and
+the fused NVT/NVE kernel B3) against their plain versions on the card.
 
 These need a CUDA device and ``nvcc``; they skip elsewhere.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -8,6 +8,8 @@ imports nothing of JAX, so it also runs where JAX is not installed:
 
 (``--noconftest`` because tests/conftest.py configures JAX).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -111,3 +113,69 @@ def test_uvt_kernel_matches_plain(device, dtype, chains, capacity):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-10 if f64 else 1e-4,
                                    atol=1e-9 if f64 else 1e-4)
+
+
+# NVE reservoir per molecule: an effective temperature 2 R / dof (400 K for
+# argon, ~240 K for rigid H2) far from the decks' 120 K and 77 K, so that
+# Ray's rule and Metropolis at the thermo's temperature decide apart
+NVE_RESERVOIR = 600.0
+NVT_CASES = [(sys_, c, ens) for sys_ in ("lj", "mof")
+             for c, ens in ((1, "nvt"), (3, "nvt"), (1, "nve"))]
+
+
+@pytest.mark.parametrize("system,chains,ensemble", NVT_CASES,
+                         ids=[f"{a}-c{b}-{c}" for a, b, c in NVT_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_nvt_kernel_matches_plain(device, dtype, system, chains, ensemble):
+    """B3 against its plain version on one numpy-made [C, 200, 16] table:
+    the LJ fluid (a_max 1, no Coulomb) and the MOF + H2 system (a_max 3,
+    Ewald), C = 1 and 3, NVE for one chain (reservoir NVE_RESERVOIR per
+    molecule): the same accept counts; positions within 1e-9 A (f64) /
+    1e-4 A (f32); sums rel 1e-10 (f64) / 2e-5 + 2e-3 K sqrt(accepted + 1)
+    (f32); S(k) as for B1.  Under NVE the kernel's accept count must also
+    differ from an NVT launch on the same table: a kernel that ignored
+    Ray's rule would fail there."""
+    if system == "lj":
+        params, state, cfg, thermo = systems.lj_fluid(n=300, dtype=dtype,
+                                                      device=device)
+    else:
+        params, state, cfg, thermo = systems.mof_h2_gcmc(
+            n_side=6, n_h2=20, capacity=20, dtype=dtype, device=device)
+    cfg = dataclasses.replace(cfg, ensemble=ensemble, fused_mc=True)
+    state = metropolis.initialize(systems.jittered(params, state, 7),
+                                  params, cfg, thermo)
+    tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+    if ensemble == "nve":
+        thermo = thermo.replace(nve_energy=state.reported_energy().total
+                                + NVE_RESERVOIR * len(tables[0]))
+    u = torch.as_tensor(np.random.default_rng(3).random((chains, 200, 16)),
+                        dtype=cfg.tdtype, device=device)
+    args, kw = metropolis.fused_nvt_launch_args(
+        multichain.stack_states(state, chains), params, cfg, thermo, u,
+        tables)
+    before = mk.run_steps.launches
+    k = mk.run_steps(*args, **kw)
+    torch.cuda.synchronize(device)
+    assert mk.run_steps.launches == before + 1
+    p = mk.run_steps_plain(*args, **kw)
+    k_sums, p_sums = k[1].cpu().numpy(), p[1].cpu().numpy()
+    np.testing.assert_array_equal(k_sums[:, 3], p_sums[:, 3])
+    assert (p_sums[:, 3] > 10).all()              # the chains moved
+    f64 = dtype == "float64"
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                               rtol=0, atol=1e-9 if f64 else 1e-4)
+    tol = (np.maximum(1e-10 * np.abs(p_sums[:, :3]), 1e-8) if f64 else
+           2e-5 * np.abs(p_sums[:, :3])
+           + 2e-3 * np.sqrt(p_sums[:, 3:4] + 1.0))
+    assert (np.abs(k_sums[:, :3] - p_sums[:, :3]) <= tol).all()
+    if cfg.coulomb == "ewald":
+        for a, b in zip(k[2:], p[2:]):
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=1e-10 if f64 else 1e-4,
+                                       atol=1e-9 if f64 else 1e-4)
+    if ensemble == "nve":
+        a_nvt, kw_nvt = metropolis.fused_nvt_launch_args(
+            multichain.stack_states(state, 1), params,
+            dataclasses.replace(cfg, ensemble="nvt"), thermo, u, tables)
+        nvt = mk.run_steps(*a_nvt, **kw_nvt)[1].cpu().numpy()
+        assert nvt[0, 3] != k_sums[0, 3], (nvt[0, 3], k_sums[0, 3])

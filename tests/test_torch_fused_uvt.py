@@ -187,7 +187,8 @@ def test_overlap_insert_keeps_accumulators_finite():
                      fused_mc=True)
     params, state = tbuild(np.eye(3) * 10.0, species=(sp,), capacity=(2,),
                            initial_counts=(1,),
-                           initial_pos={0: np.array([[[5.0, 5.0, 5.0]]])})
+                           initial_pos={0: np.array([[[5.0, 5.0, 5.0]]])},
+                           device="cpu")
     u = np.zeros((1, 1, 16), np.float32)
     u[0, 0, 1:4] = [0.5 + 1e-5, 0.5, 0.5]   # insert, COM 1e-4 A away
     u[0, 0, 4] = 0.5
@@ -246,8 +247,8 @@ def test_cli_fused_decks_run(tmp_path, extra):
 
 @pytest.mark.parametrize("lines,item", [
     (("chains 3",), "A7"),
-    (("fused_mc on", "ensemble nvt"), "A8"),
-], ids=["chains-without-fused", "fused-nvt"])
+    (("fused_mc on", "ensemble nve", "chains 3"), "A7"),
+], ids=["chains-without-fused", "fused-nve-chains"])
 def test_fused_refusals(tmp_path, lines, item):
     job = input_script.parse_file(str(_deck(tmp_path, *lines)))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
