@@ -35,7 +35,16 @@ Phases (any failure raises, so the exit code is non-zero):
    under nvt (20,000 steps) and nve (5,000 steps, total_energy from an
    ``ensemble te`` run): B3 launched once per corrtime, bookkeeping after
    a further chunk, the NVE reservoir positive; profiled MOF chunks at
-   C = 1 and 16 with B3's share of the device time.
+   C = 1 and 16 with B3's share of the device time;
+9. polar — the 10.8k system with polarizable framework sites through
+   run.run (phase_polar): plain Metropolis, the scan-path delayed
+   acceptance and the rc 14 A tile-culled CG, 300 steps each, B5 in
+   every CG iteration, with bookkeeping of the polar term, B5 launches
+   against CG iterations, host syncs and a profile per step.
+
+Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
+version on that polar system, dense and culled, and phase 5 adds its
+polar term.
 
 The second-to-last line is a JSON object with each kernel's launches on
 its main path, error against its plain version, times and bound; the last
@@ -61,11 +70,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "mol_pair": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "run_steps_uvt": "mpmc_tpu_torch/csrc/uvt_kernel.cu",
-           "run_steps": "mpmc_tpu_torch/csrc/nvt_kernel.cu"}
+           "run_steps": "mpmc_tpu_torch/csrc/nvt_kernel.cu",
+           "dipole_field": "mpmc_tpu_torch/csrc/thole_kernel.cu",
+           "charge_field": "mpmc_tpu_torch/csrc/thole_kernel.cu"}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
-            "run_steps": "mpmc_tpu/ops/pallas/mc_kernel.py:220"}
+            "run_steps": "mpmc_tpu/ops/pallas/mc_kernel.py:220",
+            "dipole_field": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
+            "charge_field": "mpmc_tpu/ops/pallas/thole_kernel.py:68"}
 # NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
 # tensor cores, and device memory
 PEAK_F32 = 67e12
@@ -81,6 +94,18 @@ PEAK_BYTES = 3.35e12
 OPS_PAIR_B2B4 = 79
 OPS_PAIR_FUSED, OPS_GUARD, OPS_LJ, OPS_COULOMB = 24, 1, 13, 6
 OPS_PHASE_FUSED, OPS_K_FUSED = 13, 9
+# B5 (csrc/thole_kernel.cu), for every pair it evaluates: displacement 3,
+# orthorhombic minimum image 12, r^2 5, cutoff test 1; for a pair inside
+# rc: guard 1, square root 1, exponential damping 15, and the dipole-mode
+# field 24 (1/r^3 2, mu.dr 5, coefficients 5, three components 12) or the
+# charge-mode field 9 (coefficient 3, three components 6)
+OPS_B5_PAIR = 21
+OPS_B5_IN = {"dipole": 1 + 1 + 15 + 24, "charge": 1 + 1 + 15 + 9}
+# the explicit cutoff of the culled polar cell (the reference's rc14 row)
+RC_CULL = 14.0
+# the polar decks: steps each, and a corrtime short enough that a deck
+# makes several per-corrtime refreshes (a full SCF solve each)
+POLAR_STEPS, POLAR_CORRTIME = 300, 100
 # the bench system: mof_h2_gcmc(n_side=21, spacing=4.0, n_h2=256,
 # capacity=512) -> 9,261 framework atoms + 512 x 3 H2 sites
 N_SIDE, N_H2, CAPACITY = 21, 256, 512
@@ -179,10 +204,11 @@ def _fused_ops(trace, cfg, nk):
 
 
 def bench_system(dtype, device, n_side=N_SIDE, n_h2=N_H2,
-                 capacity=CAPACITY):
+                 capacity=CAPACITY, polarization=False):
     from mpmc_tpu_torch.models import systems
     return systems.mof_h2_gcmc(n_side=n_side, n_h2=n_h2, capacity=capacity,
-                               dtype=dtype, device=device)
+                               polarization=polarization, dtype=dtype,
+                               device=device)
 
 
 def _tol(dtype, ref, p32=None):
@@ -570,8 +596,147 @@ def phase_nvt_kernel(device, C=2, K=256, seed=2025):
     return rep
 
 
+def polar_system(dtype, device, seed=37):
+    """(params, state, cfg, thermo) of the polar bench system on the card
+    (mof_h2_gcmc(n_side=21, n_h2=256, capacity=512, polarization=True):
+    N = 10,797, framework sites 0.35 A^3), jittered off its lattice, with
+    its energies, static field and converged dipoles from initialize."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.models import systems
+    params, state, cfg, thermo = bench_system(dtype, device,
+                                              polarization=True)
+    state = metropolis.initialize(systems.jittered(params, state, seed),
+                                  params, cfg, thermo)
+    return params, state, cfg, thermo
+
+
+def _b5_pairs(mode, pos, box, ok, mol, rc, visit=None, rows=256):
+    """(pairs B5 evaluates, of them inside rc) for one call: ok rows
+    against ok columns, i != j, another molecule in charge mode, visited
+    tiles only — counted on the card in row chunks."""
+    from mpmc_tpu_torch.ops import pbc
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    n = pos.shape[0]
+    cols = torch.arange(n, device=pos.device)
+    box_inv = torch.linalg.inv(box)
+    n_eval = n_in = 0
+    for i0 in range(0, n, rows):
+        r = cols[i0:i0 + rows]
+        m = ok[r][:, None] & ok[None, :] & (r[:, None] != cols[None, :])
+        if mode == "charge":
+            m &= mol[r][:, None] != mol[None, :]
+        if visit is not None:
+            m &= visit[(r // tk.TI)[:, None], (cols // tk.TJ)[None, :]] != 0
+        dr = pbc.min_image(pos[r][:, None, :] - pos[None, :, :], box,
+                           box_inv)
+        inside = m & (torch.sum(dr * dr, -1) < rc * rc)
+        n_eval += int(m.sum())
+        n_in += int(inside.sum())
+    return n_eval, n_in
+
+
+def phase_thole_kernel(device):
+    """B5 against its plain version on the polar bench system (N =
+    10,797), float64 and float32, in both modes: dense at the derived rc
+    (42 A), and at rc = RC_CULL on the cell-sorted sites (thole.cull_perm)
+    with the tile-visit table (thole.cull_visit), where the culled launch
+    must equal the dense launch on the same sorted input bit for bit.
+
+    float64: max |kernel - plain| <= 1e-10 x the largest |E_i|.  float32:
+    the plain version in float64 on the same float32 inputs is the
+    reference; the kernel (double sums) may be at most 4x as far from it
+    as the plain float32 version (float32 sums) is, or 2e-6 x the largest
+    |E_i| (a few float32 roundings of one pair's contribution, ~1e-7 each,
+    where the field nearly cancels).  Times (float32): CUDA events, median
+    of 20 calls, beside the bound and the plain version's time.  Returns
+    {name: report entry}."""
+    from mpmc_tpu_torch.ops import pairs, thole
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    rep = {"dipole_field": {"max_abs_err": 0.0},
+           "charge_field": {"max_abs_err": 0.0}}
+    funcs = {"dipole_field": (tk.dipole_field, tk.dipole_field_plain),
+             "charge_field": (tk.charge_field, tk.charge_field_plain)}
+    for dtype in ("float64", "float32"):
+        params, state, cfg, _ = polar_system(dtype, device)
+        alive = state.atom_alive(params)
+        pol_ok = alive & (params.polar > 0)
+        box, lam, kind = state.box, cfg.polar_damp, cfg.polar_damp_type
+        mu = torch.where(pol_ok[:, None], state.mu, 0.0)
+        rc = pairs.derived_cutoff(box, cfg)
+        rc14 = torch.as_tensor(RC_CULL, dtype=box.dtype, device=device)
+        for name, (kern, plain) in funcs.items():
+            mode = name.split("_")[0]
+            ok, src = (pol_ok, mu) if mode == "dipole" else (alive,
+                                                            params.charge)
+            perm, _ = thole.cull_perm(state.pos, box, ok, rc14)
+            pos_s, ok_s = state.pos[perm], ok[perm]
+            src_s, mol_s = src[perm].contiguous(), params.mol_id32[perm]
+            visit = thole.cull_visit(pos_s, ok_s, box, rc14)
+            cases = {
+                "dense": ((state.pos, box, ok, src, params.mol_id32, rc,
+                           lam, kind), None),
+                f"rc{RC_CULL:g} culled": ((pos_s.contiguous(), box, ok_s,
+                                           src_s, mol_s, rc14, lam, kind),
+                                          visit)}
+            for label, (args, vis) in cases.items():
+                k = kern(*args, ortho=True, visit=vis)
+                torch.cuda.synchronize(device)
+                if vis is not None:
+                    dense = kern(*args, ortho=True)
+                    if not torch.equal(k, dense):
+                        raise AssertionError(
+                            f"B5 {name} {dtype}: the culled launch differs "
+                            "from the dense launch on the same input")
+                a64 = tuple(x.double() if torch.is_tensor(x)
+                            and x.is_floating_point() else x for x in args)
+                p64 = plain(*a64).cpu()
+                scale = float(p64.abs().max())
+                err = float((k.double().cpu() - p64).abs().max())
+                if dtype == "float64":
+                    tol = 1e-10 * scale
+                else:
+                    p32 = plain(*args).double().cpu()
+                    tol = max(4.0 * float((p32 - p64).abs().max()),
+                              2e-6 * scale)
+                log(f"B5 {name} {dtype} {label}: max |E| {scale:.6e}, "
+                    f"|kernel - plain| {err:.3e} (tol {tol:.3e})"
+                    + (f", visit {float(vis.float().mean()):.3f} of "
+                       f"{vis.numel()} tiles, culled == dense bit for bit"
+                       if vis is not None else ""))
+                if not err <= tol:
+                    raise AssertionError(f"B5 {name} {dtype} {label} "
+                                         "disagrees with its plain version")
+                rep[name]["max_abs_err"] = max(rep[name]["max_abs_err"],
+                                               err)
+                if dtype == "float64":
+                    continue
+                ms = time_calls(lambda: kern(*args, ortho=True, visit=vis),
+                                device)
+                pms = time_calls(lambda: plain(*args, visit=vis), device,
+                                 n=3)
+                n_eval, n_in = _b5_pairs(mode, args[0], box, args[2],
+                                         args[4], args[5], vis)
+                ops = n_eval * OPS_B5_PAIR + n_in * OPS_B5_IN[mode]
+                # each input read once, the field written once
+                nbytes = _nbytes(*args[:5], tk.scalars(box, args[5], lam),
+                                 vis, k)
+                bound, by = _bound_ms(ops, nbytes)
+                log(f"    f32 kernel {ms:.4f} ms, plain {pms:.3f} ms, bound "
+                    f"{bound:.5f} ms ({by}; {n_eval} pairs evaluated, "
+                    f"{n_in} inside rc)")
+                entry = {"ms": ms, "plain_ms": pms, "bound_ms": bound,
+                         "bound_by": by, "pairs": n_eval,
+                         "pairs_in": n_in}
+                if label == "dense":
+                    rep[name].update(entry)
+                else:
+                    rep[name]["culled"] = entry
+    return rep
+
+
 def phase_energy(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
-    """Card float32 (kernels) against CPU float64 (plain), per term."""
+    """Card float32 (kernels) against CPU float64 (plain), per term; then
+    the polar term of the polar bench system (B5 in both modes)."""
     from mpmc_tpu_torch.ops import energy
     cpu = torch.device("cpu")
     out = {}
@@ -594,6 +759,29 @@ def phase_energy(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
             f"|d| {abs(got - ref):.3e} tol {tol:.3e}")
         if not abs(got - ref) <= tol:
             raise AssertionError(f"energy term {k} disagrees")
+    # the polar term on the same system with polarizable framework sites:
+    # every other term is the one above; the polar energies differ by the
+    # two solves' stopping residuals (_polar_tol) and float32 rounding
+    pol = {}
+    for tag, dtype, dev in (("card f32", "float32", device),
+                            ("cpu f64", "float64", cpu)):
+        params, state, cfg, thermo = bench_system(dtype, dev, n_side, n_h2,
+                                                  capacity, polarization=True)
+        t0 = time.time()
+        e, aux = energy.total_energy(state.pos, state.box, state.mol_alive,
+                                     params, cfg, thermo)
+        pol[tag] = (float(e.polar), aux["polar_iters"],
+                    _polar_tol(state.replace(mu=aux["mu"], energy=e), params,
+                               cfg))
+        log(f"energy polar {tag}: {pol[tag][0]:.8e} K, {pol[tag][1]} CG "
+            f"iterations from mu = 0, {time.time() - t0:.2f} s")
+    # each _polar_tol covers two solves of its own |mu|: average them
+    (got, _, tol_a), (ref, _, tol_b) = pol["card f32"], pol["cpu f64"]
+    tol = 0.5 * (tol_a + tol_b)
+    log(f"    polar     card {got: .8e} cpu-f64 {ref: .8e} "
+        f"|d| {abs(got - ref):.3e} tol {tol:.3e}")
+    if not (ref < 0 and abs(got - ref) <= tol):
+        raise AssertionError("energy term polar disagrees")
 
 
 DECK = """job_name bench10k
@@ -638,8 +826,10 @@ pqr_restart restart.pqr
 def _run_deck(device, extra="", numsteps=3000, kind="mof"):
     """A full-size system written to PQR and run as a deck through run.run,
     every launch count set to 0 just before and read just after: ``kind``
-    "mof" — the 10.8k system as DECK (plus ``extra`` lines) — or "lj" —
-    the 10k LJ fluid as LJ_DECK.  An ``ensemble nve`` LJ deck gets
+    "mof" — the 10.8k system as DECK (plus ``extra`` lines) —, "polar" —
+    the same system with polarizable framework sites (0.35 A^3), as DECK
+    with ``polarization on`` and corrtime POLAR_CORRTIME — or "lj" — the
+    10k LJ fluid as LJ_DECK.  An ``ensemble nve`` LJ deck gets
     total_energy = U0 + NVE_K_PER_ATOM x N, U0 from an ``ensemble te`` run
     of the same deck.  Returns (Setup, averages, log text, launches)."""
     from mpmc_tpu_torch.io import input_script, pqr
@@ -647,9 +837,17 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof"):
     from mpmc_tpu_torch.models import systems
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
     if kind == "mof":
         params, state, cfg, _ = bench_system("float32", "cpu")
         name, template, species = "bench10k", DECK, ["H2"]
+    elif kind == "polar":
+        params, state, cfg, _ = bench_system("float32", "cpu",
+                                             polarization=True)
+        name, species = "bench10k", ["H2"]
+        template = (DECK.replace("corrtime 1000",
+                                 f"corrtime {POLAR_CORRTIME}")
+                    + "polarization on\n")
     else:
         params, state, cfg, _ = systems.lj_fluid(n=N_LJ, device="cpu")
         name, template, species = "lj10k", LJ_DECK, ["AR"]
@@ -675,12 +873,15 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof"):
             buf = io.StringIO()
             pk.reset_counts()
             mk.reset_counts()
+            tk.reset_counts()
             su, avgs = run.run(job, log=buf, device=device)
             torch.cuda.synchronize(device)
             launches = {"pair_terms": pk.pair_terms.launches,
                         "mol_pair": pk.mol_pair.launches,
                         "run_steps_uvt": mk.run_steps_uvt.launches,
-                        "run_steps": mk.run_steps.launches}
+                        "run_steps": mk.run_steps.launches,
+                        "charge_field": tk.charge_field.launches,
+                        "dipole_field": tk.dipole_field.launches}
         finally:
             os.chdir(old)
     text = buf.getvalue()
@@ -692,8 +893,10 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof"):
     return su, avgs, text, launches
 
 
-def _check_bookkeeping(label, st, su):
-    """Carried energy after a further chunk against a fresh recompute."""
+def _check_bookkeeping(label, st, su, polar=False):
+    """Carried energy after a further chunk against a fresh recompute
+    (rel 1e-4); with ``polar`` also the polar term, within
+    _polar_tol(fresh state)."""
     from mpmc_tpu_torch.mc import metropolis
     fresh = metropolis.initialize(st, su.params, su.cfg, su.thermo)
     carried, full = float(st.energy.total), float(fresh.energy.total)
@@ -701,6 +904,30 @@ def _check_bookkeeping(label, st, su):
     if not abs(carried - full) <= 1e-4 * max(abs(full), 1.0):
         raise AssertionError(f"{label}: carried energy drifted from a "
                              "fresh recompute beyond rel 1e-4")
+    if polar:
+        c_pol, f_pol = float(st.energy.polar), float(fresh.energy.polar)
+        tol = _polar_tol(fresh, su.params, su.cfg)
+        log(f"    polar carried {c_pol:.6f} fresh {f_pol:.6f} |d| "
+            f"{abs(c_pol - f_pol):.3e} tol {tol:.3e}")
+        if not abs(c_pol - f_pol) <= tol:
+            raise AssertionError(f"{label}: carried polar energy drifted "
+                                 "from a fresh solve")
+
+
+def _polar_tol(state, params, cfg):
+    """Allowed difference of two polar energies of one configuration, each
+    from a CG solve stopped at an rms residual r <= polar_precision per
+    component: at the fixed point the energy error of a residual r is
+    (ke/2) mu.r, so two solves differ by at most ke |mu| |r| <= ke |mu|
+    polar_precision sqrt(3 n_pol) (Cauchy-Schwarz), plus float32 rounding
+    of the field and the energy sum, rel 1e-4."""
+    from mpmc_tpu_torch.constants import KE
+    pol = state.atom_alive(params) & (params.polar > 0)
+    n_pol = int(pol.sum())
+    mu_norm = float(torch.sqrt(torch.sum(
+        torch.where(pol[:, None], state.mu, 0.0) ** 2)))
+    return (KE * mu_norm * cfg.polar_precision * (3 * n_pol) ** 0.5
+            + 1e-4 * abs(float(state.energy.polar)))
 
 
 def phase_main(device, numsteps=3000):
@@ -813,6 +1040,137 @@ def phase_fused_nvt(device, chains=16, nvt_steps=20000, nve_steps=5000):
         _block_breakdown(device, su, label, states=su.states)
         launches[label], rates[label], sus[label] = ln, rate, su
     return launches, rates, sus
+
+
+def _count_syncs(fn):
+    """(fn's result, host syncs it made): torch's sync debug mode warns
+    once per synchronizing call."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _polar_step_layers(device, su, n=20, seed=23):
+    """The polar step's layers on ``n`` trial displacements of alive H2
+    from ``su``'s state: host-clock ms of thole.move_deltas (the O(A N)
+    field and residual update) and of the warm-started solve_scf (it
+    syncs once per CG iteration), its iterations and the ms per
+    iteration."""
+    from mpmc_tpu_torch.ops import thole
+    from mpmc_tpu_torch.state import mol_rows, mol_rows_update
+    st, params, cfg = su.state, su.params, su.cfg
+    alive = st.atom_alive(params)
+    mols = np.flatnonzero((st.mol_alive & ~params.mol_frozen
+                           & (params.mol_species >= 0)).cpu().numpy())
+    rng = np.random.default_rng(seed)
+    md_ms, solve_ms, iters = [], [], []
+    for mol in rng.choice(mols, size=min(n, len(mols)), replace=False):
+        mol = int(mol)
+        rows = mol_rows(st.pos, params, mol) + torch.as_tensor(
+            rng.uniform(-0.5, 0.5, 3), dtype=st.pos.dtype, device=device)
+
+        def deltas():
+            return thole.move_deltas(
+                st.pos, st.box, alive, params, cfg, mol, st.e0, st.mu,
+                st.r_pol, new_rows=rows,
+                with_residual=thole.residual_supported(cfg),
+                sk=(st.sk_re, st.sk_im))
+
+        # host clock: the function is a few hundred small launches
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        e0_new, r0 = deltas()
+        torch.cuda.synchronize(device)
+        md_ms.append((time.perf_counter() - t0) * 1e3)
+        pos_c = mol_rows_update(st.pos.clone(), params, mol, rows)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        _, it, _ = thole.solve_scf(pos_c, st.box, alive, params, cfg, e0_new,
+                                   mu0=st.mu, r0=r0)
+        torch.cuda.synchronize(device)
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+        iters.append(it)
+    out = {"move_deltas_ms": statistics.median(md_ms),
+           "solve_ms": statistics.median(solve_ms),
+           "solve_iters_mean": float(np.mean(iters)),
+           "ms_per_cg_iter": float(np.sum(solve_ms)
+                                   / max(int(np.sum(iters)), 1))}
+    log(f"polar step layers ({len(iters)} trial displacements): " +
+        json.dumps(out))
+    return out
+
+
+def phase_polar(device, numsteps=POLAR_STEPS):
+    """The polar scan path at full width (the 10.8k system with 9,261
+    polarizable framework sites) through run.run, in three decks: (a)
+    ``polarization on`` — B4 per move, move_deltas, and solve_scf with B5
+    in every CG iteration; (b) with ``polar_delayed on`` — the scan-path
+    delayed acceptance, the SCF only for stage-1 survivors; (c) with
+    ``cutoff 14`` — the tile-culled CG through B5's visit table.  Each
+    deck must take the scan path (no WARNING) and launch B2, B4 and both
+    B5 modes; after a further 100-step chunk the carried energy and its
+    polar term must match a fresh recompute.  On a 50-step chunk of each:
+    B5 dipole launches against the CG iterations (equal: the move's
+    initial residual comes from move_deltas), host syncs per step, and a
+    profile with B5's share of the device time; for (a) the step's layers.
+    Returns ({deck: launches}, {deck: report})."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops import thole
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    decks = (("polar", ""), ("polar_da", "polar_delayed on\n"),
+             (f"polar_rc{RC_CULL:g}", f"cutoff {RC_CULL:g}\n"))
+    launches, reps = {}, {}
+    for i, (label, extra) in enumerate(decks):
+        su, avgs, text, ln = _run_deck(device, extra, numsteps=numsteps,
+                                       kind="polar")
+        if "WARNING" in text:
+            raise AssertionError(f"{label}: a WARNING in the run's log")
+        if not all(ln[k] > 0 for k in ("pair_terms", "mol_pair",
+                                        "charge_field", "dipole_field")):
+            raise AssertionError(f"{label}: a kernel was not launched: {ln}")
+        if thole.cull_supported(su.cfg) != ("cutoff" in extra):
+            raise AssertionError(f"{label}: the culled CG gate is wrong")
+        rate = float(text.split("steps/sec:")[1].split()[0])
+        rep = {"steps_per_sec": rate,
+               "cg_iters_per_step": avgs.mean("polar_iters_per_step"),
+               "b5_launches_per_step": ln["dipole_field"] / numsteps,
+               "polar_K": avgs.mean("energy_polar"),
+               "polar_rrms_debye": avgs.mean("polar_rrms_debye"),
+               "N": avgs.mean("N")}
+        g = torch.Generator(device=device).manual_seed(29 + i)
+        st, stats = metropolis.run_chunk(su.state, su.params, su.cfg,
+                                         su.thermo, 100, generator=g)
+        _check_bookkeeping(f"{label}, 100 steps", st, su, polar=True)
+        su = dataclasses.replace(su, state=st)
+        u = metropolis.draw_uniforms(g, 50, su.cfg.tdtype)
+        tk.reset_counts()
+        (_, stats), syncs = _count_syncs(lambda: metropolis.run_chunk(
+            su.state, su.params, su.cfg, su.thermo, 50, uniforms=u))
+        stats = stats.host()
+        if tk.dipole_field.launches != stats.polar_iters:
+            raise AssertionError(
+                f"{label}: {tk.dipole_field.launches} B5 dipole launches "
+                f"for {stats.polar_iters} CG iterations")
+        rep.update(chunk_cg_iters_per_step=stats.polar_iters / 50,
+                   host_syncs_per_step=syncs / 50)
+        prof = _profile(label, lambda: metropolis.run_chunk(
+            su.state, su.params, su.cfg, su.thermo, 50, generator=g),
+            50, device, kernel="thole_field")
+        rep.update(device_busy_share=prof["device_busy_share"],
+                   b5_share=prof.get("kernel_share"),
+                   ms_per_step=prof["ms_per_step"])
+        if label == "polar":
+            rep["layers"] = _polar_step_layers(device, su)
+            rep["block"] = _block_breakdown(device, su, label)
+        log(f"{label}: " + json.dumps(rep))
+        launches[label], reps[label] = ln, rep
+    return launches, reps
 
 
 def _block_breakdown(device, su, label, states=None):
@@ -1014,6 +1372,7 @@ def main():
     report = phase_kernels(dev)
     report["run_steps_uvt"] = phase_uvt_kernel(dev)
     report["run_steps"] = phase_nvt_kernel(dev)
+    report.update(phase_thole_kernel(dev))
     phase_energy(dev)
     scan_launches, rate, su = phase_main(dev)
     prof_scan = phase_profile(dev, su)
@@ -1026,14 +1385,18 @@ def main():
     prof_nvt = phase_profile_fused(dev, nvt_sus["mof_nvt"])
     su16 = nvt_sus["mof_nvt_c16"]
     prof_nvt16 = phase_profile_fused(dev, su16, states=su16.states)
+    polar_launches, polar_reps = phase_polar(dev)
     # each kernel's launches on its own main path: B2 and B4 on the scan
     # path, B1 on the fused single-chain µVT path, B3 on the single-chain
-    # MOF NVT deck
+    # MOF NVT deck, B5 (both modes) on the polar scan-path deck
     launches = {"pair_terms": scan_launches["pair_terms"],
                 "mol_pair": scan_launches["mol_pair"],
                 "run_steps_uvt": fused_launches["run_steps_uvt"],
-                "run_steps": nvt_launches["mof_nvt"]["run_steps"]}
-    names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps")
+                "run_steps": nvt_launches["mof_nvt"]["run_steps"],
+                "dipole_field": polar_launches["polar"]["dipole_field"],
+                "charge_field": polar_launches["polar"]["charge_field"]}
+    names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps",
+             "dipole_field", "charge_field")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -1061,6 +1424,12 @@ def main():
         f"  fused_nvt_c16_device_busy {prof_nvt16['device_busy_share']:.4f}"
         f" (b3 share {prof_nvt16['kernel_share']:.4f})"
         f"  wall_seconds {time.time() - t0:.1f}")
+    log("  ".join(f"{k}_steps_per_sec {r['steps_per_sec']:.2f}  {k}_cg_iters_"
+                  f"per_step {r['cg_iters_per_step']:.3f}  {k}_device_busy "
+                  f"{r['device_busy_share']:.4f}" for k, r in
+                  polar_reps.items())
+        + f"  polar_launches {polar_launches}"
+        + f"  wall_seconds {time.time() - t0:.1f}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

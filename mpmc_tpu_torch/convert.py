@@ -51,7 +51,8 @@ def from_jax(params, state, cfg, thermo, device="cpu"):
         energy=_energy(state.energy, device),
         step=int(np.asarray(state.step)),
         sk_re=sk(state.sk_re), sk_im=sk(state.sk_im),
-        e_frozen=_energy(state.e_frozen, device))
+        e_frozen=_energy(state.e_frozen, device), mu=sk(state.mu),
+        e0=sk(state.e0), r_pol=sk(state.r_pol))
     t = Thermo(**{f.name: (None if getattr(thermo, f.name, None) is None
                            else _tensor(getattr(thermo, f.name), device))
                   for f in dataclasses.fields(Thermo)})

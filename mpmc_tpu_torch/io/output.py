@@ -171,9 +171,9 @@ class RunWriter:
             return
         if state.mu is None:
             return
-        mu = np.asarray(state.mu)
-        alive = np.asarray(state.atom_alive(params))
-        pol = np.asarray(params.polar) > 0
+        mu = state.mu.cpu().numpy()
+        alive = state.atom_alive(params).cpu().numpy()
+        pol = params.polar.cpu().numpy() > 0
         sel = alive & pol
         if self.job.dipole_output:
             with open(self.job.dipole_output, "w") as f:
@@ -182,7 +182,7 @@ class RunWriter:
                     d = mu[i] * DEBYE_PER_EA
                     f.write(f"{i} {d[0]:.6f} {d[1]:.6f} {d[2]:.6f}\n")
         if self.job.field_output and state.e0 is not None:
-            e0 = np.asarray(state.e0)
+            e0 = state.e0.cpu().numpy()
             with open(self.job.field_output, "w") as f:
                 f.write("# site e0_x e0_y e0_z (e/A^2)\n")
                 for i in np.nonzero(sel)[0]:

@@ -1,6 +1,6 @@
-"""The Metropolis Monte Carlo engine (port of the row-level, non-cache
-scan path and of the fused NVT/NVE and µVT paths of
-mpmc_tpu/mc/metropolis.py).
+"""The Metropolis Monte Carlo engine (port of the non-cache scan path,
+with polarization and its delayed acceptance, and of the fused NVT/NVE
+and µVT paths of mpmc_tpu/mc/metropolis.py).
 
 The fused paths run a whole chunk in one kernel launch and apply its sums,
 positions and S(k) to the state: ``run_chunk_fused`` (one chain) and
@@ -17,14 +17,25 @@ see mc/moves.py for lanes 0-3 and 5-7):
   u8 < p_ins, else displace (µVT); always displace otherwise;
 - lane 9 picks the species of an insert/delete when there are several;
 - lane 4 is the acceptance coin: Metropolis at the temperature, or under
-  ensemble nve Ray's rule against the kinetic reservoir E_total - U.
+  ensemble nve Ray's rule against the kinetic reservoir E_total - U;
+- lane 12 is the stage-2 coin of the polar delayed acceptance, the lane
+  the fused polar DA kernel reads (stage 1 takes lane 4).
 
-The move type is the only host decision of a step: it is read from a host
-copy of lane 8, made once per chunk.  Everything else — slot pick, trial
-rows, the B4 delta passes, the S(k) delta, acceptance and the commit —
-stays on the device with no sync, so a chunk can later be captured in a
-CUDA graph.  The commit updates ``pos`` and ``mol_alive`` in place (one
-clone per chunk keeps the caller's state intact).
+The move type is the only host decision of a step without polarization:
+it is read from a host copy of lane 8, made once per chunk.  Everything
+else — slot pick, trial rows, the B4 delta passes, the S(k) delta,
+acceptance and the commit — stays on the device with no sync.  The commit
+updates ``pos`` and ``mol_alive`` in place (one clone per chunk keeps the
+caller's state intact).
+
+With polarization a step is the reference's full-geometry step: the
+trial positions and alive mask are a clone of the state's with the
+molecule's rows replaced; thole.move_deltas updates the static field and
+the initial CG residual in O(A N), and thole.solve_scf re-solves the
+dipoles warm-started from ``mu`` (B5 in every CG iteration).  The CG
+reads its gate on the host once per iteration; under ``polar_delayed``
+the stage-1 test (the zodid surrogate) is read once more, and only its
+survivors run the SCF.
 """
 from __future__ import annotations
 
@@ -38,7 +49,7 @@ from mpmc_tpu_torch.config import RunConfig, Thermo
 from mpmc_tpu_torch.constants import ATM2K_A3, KE
 from mpmc_tpu_torch.mc import moves
 from mpmc_tpu_torch.ops import energy as energy_mod
-from mpmc_tpu_torch.ops import ewald, pairs
+from mpmc_tpu_torch.ops import ewald, pairs, thole
 from mpmc_tpu_torch.ops.cuda import mc_kernel
 from mpmc_tpu_torch.state import (EnergyBreakdown, Params, SimState,
                                   mol_rows, mol_rows_update, row_valid,
@@ -54,6 +65,7 @@ N_LANES = 16
 class MCStats:
     attempts: np.ndarray    # [N_MOVE_TYPES] host counts
     accepts: torch.Tensor   # [N_MOVE_TYPES] int64 on the state's device
+    polar_iters: int = 0    # SCF iterations of the chunk (host count)
 
     @classmethod
     def zero(cls, device):
@@ -63,7 +75,8 @@ class MCStats:
 
     def host(self):
         """The same counts with ``accepts`` fetched to the host."""
-        return MCStats(self.attempts, self.accepts.cpu().numpy())
+        return MCStats(self.attempts, self.accepts.cpu().numpy(),
+                       self.polar_iters)
 
 
 def draw_uniforms(generator: torch.Generator, n_steps, dtype=torch.float32):
@@ -166,10 +179,12 @@ class _Chunk:
 
 def make_step_fn(params: Params, cfg: RunConfig):
     """The single-step function of this (params, cfg):
-    step(carry, u, t, thermo, c, stats) with ``carry`` a dict of the
-    mutable state (pos, mol_alive updated in place; energy, sk replaced),
-    ``u`` the step's [16] uniform row, ``t`` the host-chosen branch index,
-    ``c`` the chunk's _Chunk constants; ``stats`` accumulates in place."""
+    step(carry, u, t, thermo, c, stats, trace=None) with ``carry`` a dict
+    of the mutable state (pos, mol_alive updated in place; energy, sk and
+    the polar tensors replaced), ``u`` the step's [16] uniform row, ``t``
+    the host-chosen branch index, ``c`` the chunk's _Chunk constants;
+    ``stats`` accumulates in place.  A ``trace`` list gets one dict per
+    step with the trial and its decision (the tests replay them)."""
     if cfg.ensemble not in ("uvt", "nvt", "nve"):
         raise NotImplementedError(
             f"ensemble {cfg.ensemble} is not yet ported — ROADMAP "
@@ -177,6 +192,15 @@ def make_step_fn(params: Params, cfg: RunConfig):
     dtype = cfg.tdtype
     nve = cfg.ensemble == "nve"
     dev = params.device
+    pol = cfg.polarization
+    # the field update in O(A N) instead of a rebuild per trial, and the
+    # analytic initial residual that saves the solve's warm-up matvec
+    pol_delta = pol and thole.field_delta_supported(cfg)
+    pol_resid = pol_delta and thole.residual_supported(cfg)
+    # delayed acceptance: the zodid surrogate filters the trial, the SCF
+    # runs only for stage-1 survivors (not under nve: Ray's rule has no
+    # Boltzmann split)
+    pol_da = pol and cfg.polar_delayed and not nve
     zero = torch.zeros((), dtype=dtype, device=dev)
     species = (torch.as_tensor(cfg.insert_species, dtype=torch.int64,
                                device=dev)
@@ -287,10 +311,65 @@ def make_step_fn(params: Params, cfg: RunConfig):
                 else [b_displace])
     _, branch_ids = make_branch_picker(cfg)
 
-    def step(carry, u, t, thermo, c, stats):
+    def polar_trial(carry, c, mol, rows, alive_new):
+        """(trial pos, trial alive, trial e0, initial residual or None) of
+        moving (``alive_new`` None), inserting (True) or deleting (False)
+        molecule ``mol``; the state's tensors are left as they are."""
+        pos, alive = carry["pos"], carry["alive"]
+        insert, delete = alive_new is True, alive_new is False
+        own = (params.mol_id == mol) & params.atom_ok
+        if delete:
+            pos_c, alive_c = pos, alive & ~own
+        else:
+            pos_c = mol_rows_update(pos.clone(), params, mol, rows)
+            alive_c = alive | own if insert else alive
+        if not pol_delta:
+            return pos_c, alive_c, thole.static_field(
+                pos_c, c.box, alive_c, params, cfg), None
+        e0_new, r0 = thole.move_deltas(
+            pos, c.box, alive, params, cfg, mol, carry["e0"], carry["mu"],
+            carry["r_pol"], new_rows=rows, insert=insert, delete=delete,
+            with_residual=pol_resid,
+            sk=(carry["sk_re"], carry["sk_im"]) if c.ewald else None)
+        return pos_c, alive_c, e0_new, r0
+
+    def polar_solve(carry, c, pos_c, alive_c, e0_new, r0, stats):
+        mu_new, iters, r_new = thole.solve_scf(
+            pos_c, c.box, alive_c, params, cfg, e0_new, mu0=carry["mu"],
+            r0=r0)
+        stats.polar_iters += iters
+        if r_new is None:            # jacobi / direct solvers
+            r_new = torch.zeros_like(carry["mu"])
+        return mu_new, r_new
+
+    def step(carry, u, t, thermo, c, stats, trace=None):
         mol, rows, alive_new, d, ln_bias, reject, sk = branches[t](
             carry, u, thermo, c)
         du = d.total
+        iters0 = stats.polar_iters
+        if pol:
+            pos_c, alive_c, e0_new, r0 = polar_trial(carry, c, mol, rows,
+                                                     alive_new)
+            if pol_da:
+                d_surr = (thole.zodid_energy(e0_new, alive_c, params)
+                          - thole.zodid_energy(carry["e0"], carry["alive"],
+                                               params))
+                acc1 = (~reject) & (
+                    torch.log(torch.clamp(u[4], min=1e-38))
+                    < ln_bias - (du + d_surr) / thermo.temperature)
+                if bool(acc1):       # host read: the SCF of a survivor
+                    mu_new, r_new = polar_solve(carry, c, pos_c, alive_c,
+                                                e0_new, r0, stats)
+                else:
+                    mu_new = carry["mu"]
+                    r_new = (carry["r_pol"] if pol_resid
+                             else torch.zeros_like(carry["mu"]))
+            else:
+                mu_new, r_new = polar_solve(carry, c, pos_c, alive_c, e0_new,
+                                            r0, stats)
+            pol_new = thole.polar_energy(mu_new, e0_new)
+            d_polar = pol_new - carry["energy"].polar
+            du = du + d_polar
         if nve:
             # Ray's microcanonical rule (reference metropolis.py:756-777):
             # the reservoir K = E_total - U (U with the frozen part, the
@@ -311,8 +390,14 @@ def make_step_fn(params: Params, cfg: RunConfig):
                 torch.full_like(k_new, -math.inf))
         else:
             ln_acc = ln_bias - du / thermo.temperature
-        accept = (~reject) & (torch.log(torch.clamp(u[4], min=1e-38))
-                              < ln_acc)
+        if pol_da:
+            # stage 2: only the exact-vs-surrogate polar difference
+            # remains; stage-1 rejects carry acc1 = False
+            accept = acc1 & (torch.log(torch.clamp(u[12], min=1e-38))
+                             < -(d_polar - d_surr) / thermo.temperature)
+        else:
+            accept = (~reject) & (torch.log(torch.clamp(u[4], min=1e-38))
+                                  < ln_acc)
         if rows is not None:
             cur = mol_rows(carry["pos"], params, mol)
             mol_rows_update(carry["pos"], params, mol,
@@ -322,14 +407,29 @@ def make_step_fn(params: Params, cfg: RunConfig):
             ma.index_put_((mol.reshape(1),), torch.where(
                 accept, alive_new, take(ma, mol)).reshape(1))
             carry["alive"] = ma[params.mol_id] & params.atom_ok
-        carry["energy"] = carry["energy"].add(d).select(accept,
-                                                        carry["energy"])
+        new_energy = carry["energy"].add(d)
+        if pol:
+            new_energy = dataclasses.replace(new_energy, polar=pol_new)
+            carry["e0"] = torch.where(accept, e0_new, carry["e0"])
+            carry["mu"] = torch.where(accept, mu_new, carry["mu"])
+            if pol_resid:
+                carry["r_pol"] = torch.where(accept, r_new, carry["r_pol"])
+        carry["energy"] = new_energy.select(accept, carry["energy"])
         if c.ewald:
             carry["sk_re"] = torch.where(accept, sk[0], carry["sk_re"])
             carry["sk_im"] = torch.where(accept, sk[1], carry["sk_im"])
         gid = branch_ids[t]
         stats.attempts[gid] += 1
         stats.accepts[gid] += accept.to(torch.int64)
+        if trace is not None:
+            rec = {"mol": mol, "rows": rows, "accept": accept,
+                   "reject": reject, "ln_bias": ln_bias, "d": d}
+            if pol:
+                rec.update(d_polar=d_polar, e0=e0_new, mu=mu_new,
+                           iters=stats.polar_iters - iters0)
+                if pol_da:
+                    rec.update(acc1=acc1, d_surr=d_surr)
+            trace.append(rec)
 
     return step
 
@@ -346,7 +446,8 @@ def chunk_setup(state: SimState, params: Params, cfg: RunConfig,
     branch = pick(u[:, 8].cpu().numpy(), thermo)
     carry = {"pos": state.pos.clone(), "mol_alive": state.mol_alive.clone(),
              "energy": state.energy, "sk_re": state.sk_re,
-             "sk_im": state.sk_im, "u": u}
+             "sk_im": state.sk_im, "u": u, "mu": state.mu, "e0": state.e0,
+             "r_pol": state.r_pol}
     carry["alive"] = carry["mol_alive"][params.mol_id] & params.atom_ok
     carry["u_frozen"] = (state.e_frozen.total if state.e_frozen is not None
                          else torch.zeros((), dtype=cfg.tdtype,
@@ -372,7 +473,8 @@ def run_chunk(state: SimState, params: Params, cfg: RunConfig,
         step(carry, uniforms[k], int(branch[k]), thermo, c, stats)
     return state.replace(pos=carry["pos"], mol_alive=carry["mol_alive"],
                          energy=carry["energy"], sk_re=carry["sk_re"],
-                         sk_im=carry["sk_im"],
+                         sk_im=carry["sk_im"], mu=carry["mu"],
+                         e0=carry["e0"], r_pol=carry["r_pol"],
                          step=state.step + n_steps), stats
 
 
@@ -729,8 +831,11 @@ def initialize(state: SimState, params: Params, cfg: RunConfig,
     reuse = frozen_rows > 0 and state.e_frozen is not None
     e, e_frozen, aux = energy_mod.total_energy(
         state.pos, state.box, state.mol_alive, params, cfg, thermo,
-        split_frozen=True,
+        mu0=state.mu, split_frozen=True,
         frozen_cached=state.e_frozen if reuse else None,
         active_row_start=frozen_rows if reuse else 0)
+    # without polarization there are no dipoles to carry
+    mu = aux.get("mu", state.mu) if cfg.polarization else None
     return state.replace(energy=e, e_frozen=e_frozen,
-                         sk_re=aux.get("sk_re"), sk_im=aux.get("sk_im"))
+                         sk_re=aux.get("sk_re"), sk_im=aux.get("sk_im"),
+                         mu=mu, e0=aux.get("e0"), r_pol=aux.get("r_pol"))

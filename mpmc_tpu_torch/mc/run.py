@@ -1,6 +1,7 @@
 """High-level run entry: input files -> system -> MC loop -> outputs
-(port of the single-chain scan path, the fused NVT/NVE and µVT paths and
-the fused multi-chain path of mpmc_tpu/mc/run.py).
+(port of the single-chain scan path — with polarization and its delayed
+acceptance —, the fused NVT/NVE and µVT paths and the fused multi-chain
+path of mpmc_tpu/mc/run.py).
 
 The corrtime structure is the reference's: ``corrtime`` steps per chunk
 (mc/metropolis.run_chunk on the scan path; under ``fused_mc``
@@ -28,11 +29,13 @@ import numpy as np
 import torch
 
 from mpmc_tpu_torch.config import RunConfig, Thermo, resolve_device
+from mpmc_tpu_torch.constants import DEBYE_PER_EA
 from mpmc_tpu_torch.io import input_script, output as output_io, pqr as pqr_io
 from mpmc_tpu_torch.mc import fugacity as fug_mod
 from mpmc_tpu_torch.mc import metropolis
 from mpmc_tpu_torch.ops import energy as energy_mod
 from mpmc_tpu_torch.ops import pairs as pairs_mod
+from mpmc_tpu_torch.ops import thole
 from mpmc_tpu_torch.ops.cuda import mc_kernel
 from mpmc_tpu_torch.parallel import multichain
 from mpmc_tpu_torch.state import (Params, SimState, Species,
@@ -108,9 +111,10 @@ def check_supported(job: input_script.Job):
              "chains > 1 without fused_mc (batched scan chains)", "A7"),
             (job.chains > 1 and cfg.ensemble == "nve",
              "chains > 1 with ensemble nve (batched scan chains)", "A7"),
+            (job.chains > 1 and cfg.polarization,
+             "chains > 1 with polarization (batched scan chains)", "A7"),
             (job.parallel_tempering or job.pt_fugacity,
              "parallel tempering", "A9"),
-            (cfg.polarization, "polarization", "A10"),
             (cfg.cavity_bias, "cavity_bias", "A11"),
             (cfg.tmmc, "tmmc", "A11"),
             (cfg.quantum_rotation, "quantum_rotation", "A11"),
@@ -129,10 +133,20 @@ def check_supported(job: input_script.Job):
             (job.spatial_devices > 1, "spatial_devices", "A13"),
             (job.chain_devices > 1, "chain_devices", "A13"),
             (bool(job.checkpoint_input or job.checkpoint_output),
-             "checkpoint_input/checkpoint_output", "A6"),
-            (job.polarizability_tensor, "polarizability_tensor", "A10")):
+             "checkpoint_input/checkpoint_output", "A6")):
         if flag:
             _refuse(what, item)
+
+
+def _promote_polar_cull(cfg, n_atoms: int):
+    """Large derived-rc polar systems (>= 49,152 sites) force the
+    tile-culled SCF matvec, as the reference does from its measurement at
+    54k sites; an explicit ``polar_cull on/off`` always wins."""
+    if (cfg.polarization and cfg.polar_cull == "auto"
+            and cfg.cutoff is None and cfg.ortho_box
+            and n_atoms >= 49152):
+        return dataclasses.replace(cfg, polar_cull="on")
+    return cfg
 
 
 def setup(job: input_script.Job, device=None,
@@ -212,6 +226,7 @@ def setup(job: input_script.Job, device=None,
         dtype=cfg.tdtype, seed=cfg.seed, device=device)
     if job.scale_charge != 1.0:
         params = params.replace(charge=params.charge * job.scale_charge)
+    cfg = _promote_polar_cull(cfg, int(params.n_atoms_max))
     if cfg.extrapolate_disp_coeffs:
         c6 = params.c6.cpu().numpy()
         c8 = params.c8.cpu().numpy()
@@ -268,6 +283,16 @@ def observables(su: Setup, state: SimState, stats=None) -> Dict[str, float]:
     obs["N"] = float(state.n_molecules(params))
     obs["N2"] = obs["N"] ** 2
     obs["UN"] = obs["energy_total"] * obs["N"]
+    if state.mu is not None:
+        # RMS induced dipole per polarizable site [Debye] (the
+        # reference's polar_rrms diagnostic)
+        pol = (params.polar > 0) & state.atom_alive(params)
+        n_pol = int(pol.sum())
+        if n_pol:
+            mu2 = torch.sum(state.mu * state.mu, dim=1)
+            obs["polar_rrms_debye"] = float(
+                torch.sqrt(torch.sum(torch.where(pol, mu2, 0.0)) / n_pol)
+                * DEBYE_PER_EA)
     total_sorb_amu = 0.0
     for i, nm in enumerate(su.species_names):
         n_i = float(state.n_molecules_of(params, i))
@@ -290,6 +315,14 @@ def run_te(job: input_script.Job, log=None, device=None):
         su.state.pos, su.state.box, su.state.mol_alive, su.params, su.cfg,
         su.thermo)
     output_io.print_energy_report(e, file=log)
+    if job.polarizability_tensor:
+        alpha = thole.polarizability_tensor(
+            su.state.pos, su.state.box, su.state.atom_alive(su.params),
+            su.params, su.cfg).cpu().numpy()
+        p = log or sys.stdout
+        print("=== polarizability tensor (A^3) ===", file=p)
+        for row in alpha:
+            print("  " + "  ".join(f"{v:12.6f}" for v in row), file=p)
     return e
 
 
@@ -305,6 +338,14 @@ def observables_batched(su: Setup, states: SimState,
              & (params.mol_species >= 0)).sum(1)]
     cols += [(states.mol_alive & (params.mol_species == i)).sum(1)
              for i in range(len(su.species_names))]
+    if states.mu is not None:
+        # mean squared induced dipole over the polarizable sites
+        pol = ((params.polar > 0)[None, :] & states.mol_alive[:, params.mol_id]
+               & params.atom_ok[None, :])
+        mu2 = torch.sum(states.mu * states.mu, dim=2)
+        n_pol = pol.sum(1)
+        cols += [torch.sum(torch.where(pol, mu2, 0.0), dim=1)
+                 / torch.clamp(n_pol, min=1), n_pol]
     host = torch.stack([x.double() for x in cols], 1).cpu().numpy()
     names = ("energy_total", "energy_rd", "energy_lrc", "energy_es",
              "energy_es_real", "energy_es_recip", "energy_es_self",
@@ -314,6 +355,9 @@ def observables_batched(su: Setup, states: SimState,
         obs = {k: float(host[c, i]) for i, k in enumerate(names)}
         obs["N2"] = obs["N"] ** 2
         obs["UN"] = obs["energy_total"] * obs["N"]
+        if states.mu is not None and host[c, -1] > 0:
+            obs["polar_rrms_debye"] = float(np.sqrt(host[c, -2])
+                                            * DEBYE_PER_EA)
         total_amu = 0.0
         for i, nm in enumerate(su.species_names):
             obs[f"N_{nm}"] = float(host[c, len(names) + i])
@@ -384,7 +428,8 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
               file=writer.log)
     chunk = metropolis.run_chunk
     if cfg.fused_mc:
-        # the reference's gate order: the NVT/NVE kernel, then the µVT one
+        # the reference's gate order: the NVT/NVE kernel, the µVT one (both
+        # refuse polarization), then the polar delayed-acceptance kernel
         if mc_kernel.supported(cfg, params):
             chunk = functools.partial(
                 metropolis.run_chunk_fused,
@@ -396,6 +441,16 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
                 metropolis.run_chunk_fused_uvt,
                 tables=metropolis.uvt_fused_tables(params, cfg))
             print("fused_mc: single-chain fused µVT kernel", file=writer.log)
+        elif mc_kernel.supported_uvt_polar_da(cfg, params):
+            _refuse("fused polar delayed acceptance (kernel B6 and its "
+                    "chunk loop)", "A10b")
+        elif cfg.polarization and cfg.polar_delayed:
+            print("WARNING: polar_delayed requested but the fused "
+                  "stage-1 kernel refuses this combination (it needs "
+                  "a delta-able static field — direct, polar_wolf, or "
+                  "polar_ewald over coulomb ewald — the CG solver, "
+                  "and no cdvdw) — the scan-path delayed acceptance "
+                  "runs instead", file=writer.log)
         else:
             print("WARNING: fused_mc requested but unsupported for this "
                   "configuration (needs rigid <=8-site NVT/NVE or "
@@ -424,10 +479,13 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
                                       frozen_rows=refresh_rows)
         stats = stats.host()
         obs = observables(su, state, stats)
+        if cfg.polarization:
+            obs["polar_iters_per_step"] = stats.polar_iters / corr
         avgs.add(obs)
         writer.log_block(int(state.step), obs, stats)
         writer.write_restart(params, state)
         writer.append_trajectory(params, state)
+        writer.write_dipoles(params, state)
         if hist is not None:
             _hist_add(hist, state, params)
         if job.adapt_moves:

@@ -75,12 +75,14 @@ def lj_fluid(n: int = 256, density: float = 0.0212, temperature=120.0,
 
 def mof_h2_gcmc(n_side: int = 8, spacing: float = 4.0, n_h2: int = 64,
                 capacity: int = 256, temperature=77.0, pressure=1.0,
-                dtype="float32", seed=0, ewald_kmax=7, corrtime=1000,
-                device=None):
+                polarization=False, dtype="float32", seed=0, ewald_kmax=7,
+                corrtime=1000, device=None):
     """Synthetic MOF + H2 GCMC system (n_side=21: the 9,261-atom
-    framework of the 10.8k bench system)."""
+    framework of the 10.8k bench system); ``polarization`` makes the
+    framework sites polarizable (0.35 A^3) and turns the Thole model on."""
     device = resolve_device(device)
-    fpos, fp, box_len = _framework_lattice(n_side, spacing)
+    fpos, fp, box_len = _framework_lattice(
+        n_side, spacing, polar=0.35 if polarization else 0.0)
     h2 = h2_bss3()
     if n_h2 > n_side ** 3:
         raise ValueError(f"n_h2={n_h2} exceeds {n_side ** 3} interstitial "
@@ -93,7 +95,8 @@ def mof_h2_gcmc(n_side: int = 8, spacing: float = 4.0, n_h2: int = 64,
     initial_pos = {0: sites[:, None, :] + h2.pos[None, :, :]}
     cfg = RunConfig(
         ensemble="uvt", rd_potential="lj", coulomb="ewald",
-        ewald_kmax=ewald_kmax, insert_species=(0,), ortho_box=True,
+        ewald_kmax=ewald_kmax, polarization=polarization,
+        insert_species=(0,), ortho_box=True,
         cavity_autoreject_absolute=1.0, corrtime=corrtime, dtype=dtype,
         seed=seed)
     params, state = build_system(

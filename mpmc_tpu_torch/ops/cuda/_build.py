@@ -51,6 +51,11 @@ _SIGNATURES = {
         "run_steps_nvt": [_P] * 17 + [_I] * 11 + [ctypes.c_double] * 2
         + [_P],
     },
+    "thole_kernel": {
+        # pos src ok mol scal visit | n ni nj per_split splits dipole damp
+        # ortho | part out | stream
+        "thole_field": [_P] * 6 + [_I] * 8 + [_P] * 2 + [_P],
+    },
 }
 
 _libs: dict = {}

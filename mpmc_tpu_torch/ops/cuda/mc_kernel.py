@@ -38,13 +38,14 @@ here (ROADMAP A11/A12).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
 from mpmc_tpu_torch.constants import KE
-from mpmc_tpu_torch.ops import pairs
+from mpmc_tpu_torch.ops import pairs, thole
 from mpmc_tpu_torch.ops import pbc as pbc_ops
 from mpmc_tpu_torch.ops.cuda.pair_kernel import (_ES, _MIX, _RD, _check,
                                                  _ptr, _raise_on, _stream,
@@ -104,6 +105,43 @@ def supported_uvt(cfg, params) -> bool:
             if abs(qnet) > 1e-6:
                 return False
     return True
+
+
+def pda_effective_cfg(cfg, params):
+    """The cfg the fused polar delayed-acceptance path runs (the
+    reference's pda_effective_cfg): µVT as it is; NVT as µVT with every
+    movable species a nominal insert species (the kernel's all-displace
+    limit); None for any other ensemble.  Used for routing only: the
+    kernel (B6) is not yet ported."""
+    if cfg.ensemble == "uvt":
+        return cfg
+    if cfg.ensemble == "nvt":
+        spec = params.mol_species.cpu().numpy()
+        mov = ~params.mol_frozen.cpu().numpy() & (spec >= 0)
+        if not mov.any():
+            return None
+        ins = tuple(sorted({int(s) for s in spec[mov]}))
+        return dataclasses.replace(cfg, ensemble="uvt", insert_species=ins)
+    return None
+
+
+def supported_uvt_polar_da(cfg, params) -> bool:
+    """The reference's gate of the fused polar delayed-acceptance path:
+    polarization + polar_delayed with the CG solver, a supported damping,
+    a delta-able static field (thole.field_delta_supported) and no cdvdw,
+    over the fused µVT surface (pda_effective_cfg, without
+    polarization).  The run loop routes on it: where it holds, the run is
+    refused (kernel B6, ROADMAP A10b), never sent to the scan path."""
+    if not (cfg.polarization and cfg.polar_delayed
+            and cfg.polar_solver == "cg"
+            and cfg.polar_damp_type in ("exponential", "linear", "none")
+            and thole.field_delta_supported(cfg) and not cfg.cdvdw):
+        return False
+    cfg_eff = pda_effective_cfg(cfg, params)
+    if cfg_eff is None:
+        return False
+    return supported_uvt(dataclasses.replace(cfg_eff, polarization=False),
+                         params)
 
 
 def supported_uvt_multi(cfg, params) -> bool:

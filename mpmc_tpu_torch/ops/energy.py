@@ -1,17 +1,17 @@
-"""Total-energy dispatcher (port of mpmc_tpu/ops/energy.py, without
-polarization and cdvdw, which this slice refuses at setup): pair pass ->
-reciprocal/self electrostatics -> long-range tail, summed into per-term
-EnergyBreakdown slots.
+"""Total-energy dispatcher (port of mpmc_tpu/ops/energy.py, without cdvdw,
+which the port refuses at setup): pair pass -> reciprocal/self
+electrostatics -> long-range tail -> polarization SCF, summed into
+per-term EnergyBreakdown slots.
 """
 from __future__ import annotations
 
 import torch
 
-from mpmc_tpu_torch.ops import ewald, pairs
+from mpmc_tpu_torch.ops import ewald, pairs, thole
 from mpmc_tpu_torch.state import EnergyBreakdown
 
 
-def total_energy(pos, box, mol_alive, params, cfg, thermo,
+def total_energy(pos, box, mol_alive, params, cfg, thermo, mu0=None,
                  split_frozen=False, frozen_cached=None,
                  active_row_start=0):
     """Full-system energy.
@@ -27,11 +27,14 @@ def total_energy(pos, box, mol_alive, params, cfg, thermo,
     ``active_row_start`` and ``frozen_cached`` is returned as the frozen
     part — the fast per-corrtime refresh.
 
-    aux carries the structure factor (sk_re, sk_im) under Ewald.
+    aux carries the structure factor (sk_re, sk_im) under Ewald and, with
+    polarization, the induced dipoles ``mu`` (the solve warm-starts from
+    ``mu0``), the static field ``e0``, the SCF iterations
+    ``polar_iters`` and — when thole.residual_supported — the re-grounded
+    CG residual ``r_pol`` = e0 - (mu/alpha - T mu).
     """
-    if cfg.polarization or cfg.cdvdw:
-        raise NotImplementedError(
-            "polarization / cdvdw are not yet ported — ROADMAP A10/A12")
+    if cfg.cdvdw:
+        raise NotImplementedError("cdvdw is not yet ported — ROADMAP A12")
     dtype, dev = pos.dtype, pos.device
     alive = mol_alive[params.mol_id] & params.atom_ok
     atom_frozen = params.mol_frozen[params.mol_id]
@@ -97,9 +100,28 @@ def total_energy(pos, box, mol_alive, params, cfg, thermo,
         else:
             es_self = ewald.wolf_self_energy(params.charge, alive, alpha, rc)
 
+    polar = zero
+    if cfg.polarization:
+        e0 = thole.static_field(pos, box, alive, params, cfg)
+        mu, n_iter, _ = thole.solve_scf(pos, box, alive, params, cfg, e0,
+                                        mu0)
+        polar = thole.polar_energy(mu, e0)
+        aux["mu"], aux["e0"], aux["polar_iters"] = mu, e0, n_iter
+        if thole.residual_supported(cfg):
+            # re-ground the carried residual exactly (CG's recurrence
+            # residual drifts from the true one): one matvec per refresh
+            pol_ok = alive & (params.polar > 0)
+            inv_a = torch.where(pol_ok,
+                                1.0 / torch.clamp(params.polar, min=1e-30),
+                                torch.zeros_like(params.polar))[:, None]
+            t_mu = thole.dipole_matvec(pos, box, alive, params, cfg, mu)
+            r_pol = e0 - (inv_a * mu - t_mu)
+            aux["r_pol"] = torch.where(pol_ok[:, None], r_pol,
+                                       torch.zeros_like(r_pol))
+
     e = EnergyBreakdown(
         rd=pt.rd, lrc=lrc, es_real=pt.es_real, es_recip=es_recip,
-        es_self=es_self, es_excl=pt.es_excl, polar=zero, vdw=zero)
+        es_self=es_self, es_excl=pt.es_excl, polar=polar, vdw=zero)
     if not split_frozen:
         return e, aux
     if reuse_ff:

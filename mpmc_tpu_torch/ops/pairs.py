@@ -32,8 +32,9 @@ N_SLOTS = 9
 def derived_cutoff(box, cfg):
     """Static cutoff if configured, else half min perpendicular width."""
     if cfg.cutoff is not None:
-        return torch.as_tensor(cfg.cutoff, dtype=box.dtype,
-                               device=box.device)
+        # a fill on the device, not a host-to-device copy (a host sync)
+        return torch.full((), cfg.cutoff, dtype=box.dtype,
+                          device=box.device)
     return pbc_ops.default_cutoff(box)
 
 

@@ -153,7 +153,10 @@ class EnergyBreakdown:
                 + self.es_self + self.es_excl + self.polar + self.vdw)
 
     @classmethod
-    def zero(cls, dtype=torch.float32, device="cpu"):
+    def zero(cls, dtype=torch.float32, device=None):
+        """All slots 0 on ``device`` (default: the current CUDA device;
+        raises without one)."""
+        device = resolve_device(device)
         return cls(*(torch.zeros((), dtype=dtype, device=device)
                      for _ in _SLOTS))
 
@@ -183,6 +186,14 @@ class SimState:
     sk_im: Optional[torch.Tensor] = None
     # constant frozen-framework energy, kept out of the delta accumulators
     e_frozen: Optional[EnergyBreakdown] = None
+    # polarization: induced dipoles [N,3] (the SCF warm start; zeros from
+    # build_system, None after initialize without polarization), the
+    # cached static field [N,3], and the last solve's CG residual
+    # b - A mu [N,3] (the next move's r_old; None unless
+    # thole.residual_supported)
+    mu: Optional[torch.Tensor] = None
+    e0: Optional[torch.Tensor] = None
+    r_pol: Optional[torch.Tensor] = None
 
     def atom_alive(self, params: Params):
         return self.mol_alive[params.mol_id] & params.atom_ok
@@ -382,7 +393,8 @@ def build_system(box, frozen_pos=None, frozen_params: Optional[dict] = None,
         mol_start=t(mol_start), mol_dof=f(mol_dof), mol_mass=f(mol_mass),
         species_pos=f(species_pos), species_natoms=t(species_natoms))
     state = SimState(pos=f(pos), box=f(box), mol_alive=t(mol_alive),
-                     energy=EnergyBreakdown.zero(dtype, device))
+                     energy=EnergyBreakdown.zero(dtype, device),
+                     mu=torch.zeros((N, 3), dtype=dtype, device=device))
     return params, state
 
 

@@ -83,7 +83,8 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 REFUSED = [
     ("chains 4", "A7"), ("ensemble npt", "A8b"),
     ("parallel_tempering on", "A9"),
-    ("polarization on", "A10"), ("cavity_bias on", "A11"),
+    ("chains 2\nfused_mc on\npolarization on", "A7"),
+    ("cavity_bias on", "A11"),
     ("tmmc on", "A11"), ("quantum_rotation on", "A11"),
     ("cdvdw on", "A12"), ("feynman_hibbs on", "A12"),
     ("feynman_kleinert on", "A12"), ("cell_list on", "A12"),

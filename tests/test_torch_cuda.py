@@ -1,5 +1,6 @@
-"""The CUDA kernels (the pair kernels B2/B4, the fused µVT kernel B1 and
-the fused NVT/NVE kernel B3) against their plain versions on the card.
+"""The CUDA kernels (the pair kernels B2/B4, the fused µVT kernel B1, the
+fused NVT/NVE kernel B3 and the Thole field kernel B5) against their plain
+versions on the card.
 
 These need a CUDA device and ``nvcc``; they skip elsewhere.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -17,9 +18,10 @@ torch = pytest.importorskip("torch")
 
 from mpmc_tpu_torch.mc import metropolis  # noqa: E402
 from mpmc_tpu_torch.models import systems  # noqa: E402
-from mpmc_tpu_torch.ops import pairs  # noqa: E402
+from mpmc_tpu_torch.ops import pairs, thole  # noqa: E402
 from mpmc_tpu_torch.ops.cuda import mc_kernel as mk  # noqa: E402
 from mpmc_tpu_torch.ops.cuda import pair_kernel as pk  # noqa: E402
+from mpmc_tpu_torch.ops.cuda import thole_kernel as tk  # noqa: E402
 from mpmc_tpu_torch.parallel import multichain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -179,3 +181,54 @@ def test_nvt_kernel_matches_plain(device, dtype, system, chains, ensemble):
             dataclasses.replace(cfg, ensemble="nvt"), thermo, u, tables)
         nvt = mk.run_steps(*a_nvt, **kw_nvt)[1].cpu().numpy()
         assert nvt[0, 3] != k_sums[0, 3], (nvt[0, 3], k_sums[0, 3])
+
+
+@pytest.mark.parametrize("mode", ["charge", "dipole"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_thole_kernel_matches_plain(device, dtype, mode):
+    """B5 against its plain version on the polar MOF + H2 system (1,120
+    sites, dipoles from initialize): dense at the derived rc in the
+    orthorhombic cell and in a skewed one; cell-sorted at rc 6 A with the
+    tile-visit table, where the culled launch equals the dense launch bit
+    for bit.  |kernel - plain| <= 1e-12 (float64) or 1e-5 (float32, the
+    plain version's float32 sums against the kernel's double sums) x the
+    largest |E_i|."""
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=10, n_h2=20, capacity=40, polarization=True, dtype=dtype,
+        device=device)
+    state = metropolis.initialize(systems.jittered(params, state, 5),
+                                  params, cfg, thermo)
+    alive = state.atom_alive(params)
+    pol_ok = alive & (params.polar > 0)
+    kern, plain = ((tk.charge_field, tk.charge_field_plain)
+                   if mode == "charge"
+                   else (tk.dipole_field, tk.dipole_field_plain))
+    ok, src = ((alive, params.charge) if mode == "charge"
+               else (pol_ok, torch.where(pol_ok[:, None], state.mu, 0.0)))
+    lam, kind = cfg.polar_damp, cfg.polar_damp_type
+    skew = state.box.clone()
+    skew[1, 0], skew[2, 1] = 0.2 * skew[0, 0], -0.1 * skew[0, 0]
+    rel = 1e-12 if dtype == "float64" else 1e-5
+
+    def check(args, ortho, visit=None):
+        before = kern.launches
+        k = kern(*args, ortho=ortho, visit=visit)
+        torch.cuda.synchronize(device)
+        assert kern.launches == before + 1
+        p = plain(*args, visit=visit)
+        scale = float(p.abs().max())
+        assert scale > 0
+        assert float((k.double() - p.double()).abs().max()) <= rel * scale
+        return k
+
+    for box, ortho in ((state.box, True), (skew, False)):
+        check((state.pos, box, ok, src, params.mol_id32,
+               pairs.derived_cutoff(box, cfg), lam, kind), ortho)
+    rc = torch.tensor(6.0, dtype=state.pos.dtype, device=device)
+    perm, _ = thole.cull_perm(state.pos, state.box, ok, rc)
+    args = (state.pos[perm].contiguous(), state.box, ok[perm],
+            src[perm].contiguous(), params.mol_id32[perm], rc, lam, kind)
+    visit = thole.cull_visit(args[0], args[2], state.box, rc)
+    assert 0 < float(visit.float().mean()) < 1
+    culled = check(args, True, visit)
+    assert torch.equal(culled, kern(*args, ortho=True))
