@@ -40,10 +40,17 @@ Phases (any failure raises, so the exit code is non-zero):
    run.run (phase_polar): plain Metropolis, the scan-path delayed
    acceptance and the rc 14 A tile-culled CG, 300 steps each, B5 in
    every CG iteration, with bookkeeping of the polar term, B5 launches
-   against CG iterations, host syncs and a profile per step.
+   against CG iterations, host syncs and a profile per step;
+9b. fused polar DA — the same system with ``polar_delayed on`` and
+   ``fused_mc on`` (phase_pda_decks): the direct field, ``polar_wolf on``
+   and ``cutoff 14``, 300 steps each through run.run — B6 per segment,
+   the exact SCF per survivor — with the same checks, B6 launches per
+   step and B6's share of a profiled chunk.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
-version on that polar system, dense and culled, and phase 5 adds its
+version on that polar system, dense and culled, phase 4d
+(phase_pda_kernel) holds B6 against its plain version there (direct,
+wolf, ewald fields and nvt; float64 and float32), and phase 5 adds its
 polar term.
 
 The second-to-last line is a JSON object with each kernel's launches on
@@ -72,13 +79,15 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "run_steps_uvt": "mpmc_tpu_torch/csrc/uvt_kernel.cu",
            "run_steps": "mpmc_tpu_torch/csrc/nvt_kernel.cu",
            "dipole_field": "mpmc_tpu_torch/csrc/thole_kernel.cu",
-           "charge_field": "mpmc_tpu_torch/csrc/thole_kernel.cu"}
+           "charge_field": "mpmc_tpu_torch/csrc/thole_kernel.cu",
+           "run_steps_uvt_pda": "mpmc_tpu_torch/csrc/pda_kernel.cu"}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
             "run_steps": "mpmc_tpu/ops/pallas/mc_kernel.py:220",
             "dipole_field": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
-            "charge_field": "mpmc_tpu/ops/pallas/thole_kernel.py:68"}
+            "charge_field": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
+            "run_steps_uvt_pda": "mpmc_tpu/ops/pallas/mc_kernel.py:2089"}
 # NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
 # tensor cores, and device memory
 PEAK_F32 = 67e12
@@ -101,6 +110,16 @@ OPS_PHASE_FUSED, OPS_K_FUSED = 13, 9
 # charge-mode field 9 (coefficient 3, three components 6)
 OPS_B5_PAIR = 21
 OPS_B5_IN = {"dipole": 1 + 1 + 15 + 24, "charge": 1 + 1 + 15 + 9}
+# B6 (csrc/pda_kernel.cu), beyond B1's per-pair and per-phase counts: for
+# a pair inside rc the field coefficient — guard 1, square root 1, the
+# exponential d1 8, then direct d1/r^3 2 or the screened kernel 17 (erfc,
+# exp, the shift and the near field) — and the source's share of dE_j 7
+# (q c 1, three multiply-adds); the field at the trial row 7 per new pair
+# inside rc (and at the old row under polar_ewald); per surrogate column
+# alpha_j (2 E0.dE + |dE|^2) 14
+OPS_B6_FIELD = {"direct": 1 + 1 + 8 + 2 + 7, "screened": 1 + 1 + 8 + 17 + 7}
+OPS_B6_ROW, OPS_B6_COL = 7, 14
+EPS32 = float(np.finfo(np.float32).eps)
 # the explicit cutoff of the culled polar cell (the reference's rc14 row)
 RC_CULL = 14.0
 # the polar decks: steps each, and a corrtime short enough that a deck
@@ -734,6 +753,163 @@ def phase_thole_kernel(device):
     return rep
 
 
+PDA_VARIANTS = (("direct", {}), ("wolf", {"polar_wolf": True}),
+                ("ewald", {"polar_ewald": True}), ("nvt", {"ensemble": "nvt"}))
+
+
+def _pda_survivor_free(launch, u, rng):
+    """``u`` [K,16] with every stage-1 coin 1 - 1e-7 and each row that
+    still survives (a move with ln(acceptance) > ln u) drawn anew until
+    the kernel runs all K rows: B6 never changes the state, so each row
+    decides alone.  ``launch(u)`` returns B6's record."""
+    u = u.clone()
+    u[:, 4] = 1.0 - 1e-7
+    for _ in range(400):
+        rec = launch(u)
+        if float(rec[0, 1]) < 0.5:
+            return u
+        k = int(rec[0, 0]) - 1
+        u[k] = torch.as_tensor(rng.random(16), dtype=u.dtype)
+        u[k, 4] = 1.0 - 1e-7
+    raise AssertionError("B6: no survivor-free table found")
+
+
+def _pda_ops(trace, field, nk):
+    """Floating-point operations of the steps in a plain B6 trace: B1's
+    per-pair and per-phase counts plus the field and surrogate work."""
+    f = OPS_B6_FIELD["direct" if field == "direct" else "screened"]
+    in_rc = OPS_GUARD + OPS_LJ + OPS_COULOMB + f
+    return sum(t["pairs"] * OPS_PAIR_FUSED
+               + (t["in_old"] + t["in_new"]) * in_rc
+               + (t["in_new"] + (field == "ewald") * t["in_old"]) * OPS_B6_ROW
+               + t["cols"] * OPS_B6_COL + t["phases"] * OPS_PHASE_FUSED
+               + (t["phases"] > 0) * nk * OPS_K_FUSED for t in trace)
+
+
+def phase_pda_kernel(device, seed=43):
+    """B6 (run_steps_uvt_pda) against its plain version on the polar bench
+    system (polar_system: N = 10,797, jittered, initialized under each
+    field variant), float64 and float32, for the direct, polar_wolf and
+    polar_ewald fields and ensemble nvt (insert_probability 0): on
+    numpy-seeded [PDA_SEG, 16] tables — per move type one whose step 0
+    survives (lane 4 = 1e-30; under nvt all three displace), one of
+    natural coins, and a survivor-free one (every coin 1 - 1e-7, rows
+    that still survive drawn anew: all 16 steps run).  Equal: n_done, hit,
+    mtype, slot, species and attempts.  float64: the rows within 1e-9 A,
+    the six deltas, d* and lnb within rel 1e-10 + 1e-8 K.  float32: rows
+    within 1e-4 A; each value within 2e-5 of its size + 1e-3 K + 8 float32
+    epsilons x the root sum of squares of its terms (the plain trace's
+    rss): each pair's, column's or k-vector's term is rounded to float32
+    once or twice in either version (the kernel contracts multiply-adds,
+    the plain version rounds each product), so the two sums drift apart
+    as a random walk of that scale.  Times (float32, direct, the
+    survivor-free table): CUDA
+    events, median of 20 launches, per launch and per step, beside the
+    bound (operations from the plain trace, _pda_ops) and the plain
+    version's time.  Returns the kernel's report entry (per step)."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    rng = np.random.default_rng(seed)
+    rep = {"max_abs_err": 0.0}
+    K = mk.PDA_SEG
+    for dtype in ("float64", "float32"):
+        f64 = dtype == "float64"
+        params, state0, cfg0, thermo0 = polar_system(dtype, device)
+        for label, extra in PDA_VARIANTS:
+            cfg = dataclasses.replace(cfg0, polar_delayed=True,
+                                      fused_mc=True, **extra)
+            state, thermo = state0, thermo0
+            if label in ("wolf", "ewald"):     # this variant's static field
+                state = metropolis.initialize(state0, params, cfg, thermo)
+            if label == "nvt":
+                thermo = thermo.replace(insert_probability=torch.zeros_like(
+                    thermo.insert_probability))
+            cfg_eff = mk.pda_effective_cfg(cfg, params)
+            tables = metropolis.uvt_fused_tables(params, cfg_eff)
+            consts = metropolis._uvt_chunk_consts(
+                state.pos, state.box, params, thermo, cfg_eff, tables[5],
+                tables[6])
+
+            def args_of(u):
+                return metropolis.pda_launch_args(state, params, cfg_eff,
+                                                  thermo, u, tables, consts)
+
+            def launch(u):
+                a, kw = args_of(u)
+                return mk.run_steps_uvt_pda(*a, **kw)
+
+            def table(x):
+                return torch.as_tensor(x, dtype=cfg.tdtype, device=device)
+
+            us = {}
+            for mt, lane8 in ((0, 0.9), (1, 0.1), (2, 0.4)):
+                x = rng.random((K, 16))
+                x[0, 4], x[0, 8] = 1e-30, lane8
+                us[f"step 0 survives ({'disp ins del'.split()[mt]})"] = (
+                    table(x))
+            us["natural"] = table(rng.random((K, 16)))
+            us["survivor-free"] = _pda_survivor_free(
+                launch, table(rng.random((K, 16))), rng)
+            hits = 0
+            for name, u in us.items():
+                a, kw = args_of(u)
+                trace = []
+                k = mk.run_steps_uvt_pda(*a, **kw).cpu().numpy()
+                torch.cuda.synchronize(device)
+                p = mk.run_steps_uvt_pda_plain(*a, **kw,
+                                               trace=trace).cpu().numpy()
+                same = np.array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8]],
+                                      p[0, [0, 1, 2, 3, 4, 6, 7, 8]])
+                vals = np.concatenate([k[1, :6], k[0, 9:11]])
+                want = np.concatenate([p[1, :6], p[0, 9:11]])
+                rss = np.zeros(8)
+                if trace[-1].get("rss"):
+                    rss[[0, 1, 2, 6]] = trace[-1]["rss"]
+                tol = (1e-10 * np.abs(want) + 1e-8 if f64
+                       else 2e-5 * np.abs(want) + 1e-3 + 8 * EPS32 * rss)
+                d_vals = np.abs(vals - want)
+                d_rows = float(np.abs(k[2:5] - p[2:5]).max())
+                log(f"B6 {dtype} {label} {name}: n_done {k[0, 0]:g} hit "
+                    f"{k[0, 1]:g} mtype {k[0, 2]:g} (plain: {p[0, 0]:g} "
+                    f"{p[0, 1]:g} {p[0, 2]:g}); |d| deltas/d*/lnb "
+                    f"{d_vals.max():.3e} (worst |d|/tol "
+                    f"{float(np.max(d_vals / tol)):.3f}), rows "
+                    f"{d_rows:.3e} A; d* {k[0, 9]:.6f} K")
+                if not (same and np.all(d_vals <= tol)
+                        and d_rows <= (1e-9 if f64 else 1e-4)):
+                    margins = [f"{t['margin']:.3e}" for t in trace]
+                    raise AssertionError(
+                        f"B6 {dtype} {label} {name} disagrees with its plain "
+                        f"version: kernel {k[:2].tolist()} plain "
+                        f"{p[:2].tolist()}; plain margins {margins}")
+                rep["max_abs_err"] = max(rep["max_abs_err"],
+                                         float(d_vals.max()), d_rows)
+                hits += int(k[0, 1])
+                if f64 or label != "direct" or name != "survivor-free":
+                    continue
+                if k[0, 0] != K or k[0, 1] != 0:
+                    raise AssertionError("B6: the survivor-free table froze")
+                ms = time_calls(lambda: mk.run_steps_uvt_pda(*a, **kw),
+                                device)
+                pms = time_calls(lambda: mk.run_steps_uvt_pda_plain(*a, **kw),
+                                 device, n=3)
+                nk = kw["kvecs"].shape[0]
+                ops = _pda_ops(trace, label, nk)
+                # each input read once, the record written once
+                bound, by = _bound_ms(ops, _nbytes(*a, *kw.values())
+                                      + 8 * 16 * 8)
+                rep.update(ms=ms / K, plain_ms=pms / K, bound_ms=bound / K,
+                           bound_by=by, launch_ms=ms, plain_launch_ms=pms)
+                log(f"B6 f32 direct, survivor-free table: kernel {ms:.4f} ms "
+                    f"per launch of {K} steps ({ms / K * 1e3:.2f} us/step), "
+                    f"plain {pms:.3f} ms, bound {bound / K * 1e3:.4f} us/step"
+                    f" ({by}; {ops / K:.3e} ops/step)")
+            if hits < 3:
+                raise AssertionError(f"B6 {dtype} {label}: only {hits} "
+                                     "survivors on the forced tables")
+    return rep
+
+
 def phase_energy(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
     """Card float32 (kernels) against CPU float64 (plain), per term; then
     the polar term of the polar bench system (B5 in both modes)."""
@@ -881,7 +1057,8 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof"):
                         "run_steps_uvt": mk.run_steps_uvt.launches,
                         "run_steps": mk.run_steps.launches,
                         "charge_field": tk.charge_field.launches,
-                        "dipole_field": tk.dipole_field.launches}
+                        "dipole_field": tk.dipole_field.launches,
+                        "run_steps_uvt_pda": mk.run_steps_uvt_pda.launches}
         finally:
             os.chdir(old)
     text = buf.getvalue()
@@ -1173,6 +1350,85 @@ def phase_polar(device, numsteps=POLAR_STEPS):
     return launches, reps
 
 
+def phase_pda_decks(device, numsteps=POLAR_STEPS, chunk=100):
+    """The fused polar delayed acceptance at full width through run.run:
+    DECK + ``polarization on`` + ``polar_delayed on`` + ``fused_mc on`` on
+    the 10.8k polar system, (a) the direct field (the reference's
+    fused_stage1_delayed_acceptance row), (b) ``polar_wolf on``
+    (bench_polar_wolf_gcmc), (c) ``cutoff 14`` (the culled CG in stage 2,
+    bench_polar_rc14_gcmc).  Each deck must log the PDA route and no
+    WARNING and launch B6, B2 and B5's dipole mode, and B5's charge mode
+    where the static field is the direct one (not under polar_wolf,
+    whose field is plain torch, as in the reference); after a further
+    ``chunk``-step chunk the carried energy and its polar term must match a
+    fresh recompute.  On a second chunk: B6 launches, host syncs and CG
+    iterations per step, B5 dipole launches equal to the CG iterations;
+    and a profile of a third with B6's share of the device time.  Returns
+    ({deck: launches}, {deck: report})."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    decks = (("pda", ""), ("pda_wolf", "polar_wolf on\n"),
+             (f"pda_rc{RC_CULL:g}", f"cutoff {RC_CULL:g}\n"))
+    launches, reps = {}, {}
+    for i, (label, extra) in enumerate(decks):
+        su, avgs, text, ln = _run_deck(
+            device, "polar_delayed on\nfused_mc on\n" + extra,
+            numsteps=numsteps, kind="polar")
+        if ("fused_mc: polar delayed-acceptance stage-1 kernel (exact SCF "
+                "stage 2 per survivor)") not in text or "WARNING" in text:
+            raise AssertionError(f"{label} did not take the fused PDA path")
+        # the wolf-shifted static field is plain torch (as in the
+        # reference): B5's charge mode runs for the direct field only
+        need = ("run_steps_uvt_pda", "pair_terms", "dipole_field") + (
+            () if "polar_wolf" in extra else ("charge_field",))
+        if not all(ln[k] > 0 for k in need):
+            raise AssertionError(f"{label}: a kernel was not launched: {ln}")
+        rate = float(text.split("steps/sec:")[1].split()[0])
+        rep = {"steps_per_sec": rate,
+               "cg_iters_per_step": avgs.mean("polar_iters_per_step"),
+               "b6_launches_per_step": ln["run_steps_uvt_pda"] / numsteps,
+               "polar_K": avgs.mean("energy_polar"), "N": avgs.mean("N"),
+               "acc_displace": avgs.mean("acc_displace"),
+               "acc_insert": avgs.mean("acc_insert"),
+               "acc_delete": avgs.mean("acc_delete")}
+        tables = metropolis.uvt_fused_tables(
+            su.params, mk.pda_effective_cfg(su.cfg, su.params))
+        g = torch.Generator(device=device).manual_seed(47 + i)
+
+        def run_chunk(st, n=chunk):
+            return metropolis.run_chunk_fused_uvt_polar_da(
+                st, su.params, su.cfg, su.thermo, n, generator=g,
+                tables=tables)
+
+        st, _ = run_chunk(su.state)
+        _check_bookkeeping(f"{label}, {chunk} steps", st, su, polar=True)
+        su = dataclasses.replace(su, state=st)
+        mk.reset_counts()
+        tk.reset_counts()
+        (_, stats), syncs = _count_syncs(lambda: run_chunk(su.state))
+        stats = stats.host()
+        steps = int(stats.attempts.sum())
+        if tk.dipole_field.launches != stats.polar_iters:
+            raise AssertionError(
+                f"{label}: {tk.dipole_field.launches} B5 dipole launches "
+                f"for {stats.polar_iters} CG iterations")
+        rep.update(chunk_steps=steps,
+                   chunk_cg_iters_per_step=stats.polar_iters / steps,
+                   chunk_b6_launches_per_step=(mk.run_steps_uvt_pda.launches
+                                               / steps),
+                   chunk_accepts_per_step=int(stats.accepts.sum()) / steps,
+                   host_syncs_per_step=syncs / steps)
+        prof = _profile(label, lambda: run_chunk(su.state), chunk, device,
+                        kernel="pda_kernel")
+        rep.update(device_busy_share=prof["device_busy_share"],
+                   b6_share=prof.get("kernel_share"),
+                   ms_per_step=prof["ms_per_step"])
+        log(f"{label}: " + json.dumps(rep))
+        launches[label], reps[label] = ln, rep
+    return launches, reps
+
+
 def _block_breakdown(device, su, label, states=None):
     """Host-clock seconds of the per-corrtime work of a run_mc block
     besides the chunk: the refresh, the observables and the restart
@@ -1373,6 +1629,7 @@ def main():
     report["run_steps_uvt"] = phase_uvt_kernel(dev)
     report["run_steps"] = phase_nvt_kernel(dev)
     report.update(phase_thole_kernel(dev))
+    report["run_steps_uvt_pda"] = phase_pda_kernel(dev)
     phase_energy(dev)
     scan_launches, rate, su = phase_main(dev)
     prof_scan = phase_profile(dev, su)
@@ -1386,17 +1643,20 @@ def main():
     su16 = nvt_sus["mof_nvt_c16"]
     prof_nvt16 = phase_profile_fused(dev, su16, states=su16.states)
     polar_launches, polar_reps = phase_polar(dev)
+    pda_launches, pda_reps = phase_pda_decks(dev)
     # each kernel's launches on its own main path: B2 and B4 on the scan
     # path, B1 on the fused single-chain µVT path, B3 on the single-chain
-    # MOF NVT deck, B5 (both modes) on the polar scan-path deck
+    # MOF NVT deck, B5 (both modes) on the polar scan-path deck, B6 on the
+    # direct fused PDA deck
     launches = {"pair_terms": scan_launches["pair_terms"],
                 "mol_pair": scan_launches["mol_pair"],
                 "run_steps_uvt": fused_launches["run_steps_uvt"],
                 "run_steps": nvt_launches["mof_nvt"]["run_steps"],
                 "dipole_field": polar_launches["polar"]["dipole_field"],
-                "charge_field": polar_launches["polar"]["charge_field"]}
+                "charge_field": polar_launches["polar"]["charge_field"],
+                "run_steps_uvt_pda": pda_launches["pda"]["run_steps_uvt_pda"]}
     names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps",
-             "dipole_field", "charge_field")
+             "dipole_field", "charge_field", "run_steps_uvt_pda")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -1429,6 +1689,16 @@ def main():
                   f"{r['device_busy_share']:.4f}" for k, r in
                   polar_reps.items())
         + f"  polar_launches {polar_launches}"
+        + f"  wall_seconds {time.time() - t0:.1f}")
+    b6 = report["run_steps_uvt_pda"]
+    log("  ".join(f"{k}_steps_per_sec {r['steps_per_sec']:.2f}  {k}_cg_iters_"
+                  f"per_step {r['cg_iters_per_step']:.3f}  {k}_b6_launches_"
+                  f"per_step {r['b6_launches_per_step']:.3f}  {k}_device_busy "
+                  f"{r['device_busy_share']:.4f}  {k}_b6_share "
+                  f"{r['b6_share']:.4f}" for k, r in pda_reps.items())
+        + f"  b6_kernel_us_per_step {b6['ms'] * 1e3:.2f}"
+        + f"  b6_kernel_ms_per_launch {b6['launch_ms']:.4f}"
+        + f"  pda_launches {pda_launches}"
         + f"  wall_seconds {time.time() - t0:.1f}")
     log(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,11 @@
-// Device code shared by the fused Monte Carlo step loops, B1 (uvt_kernel.cu)
-// and B3 (nvt_kernel.cu): the per-pair evaluation, one molecule's old+new
-// pass over the columns, the S(k) delta and its commit, the block
-// reduction, and the displacement trial (a translation plus an axis-angle
-// rotation about the mass-weighted COM).
+// Device code shared by the fused Monte Carlo step loops, B1 (uvt_kernel.cu),
+// B3 (nvt_kernel.cu) and B6 (pda_kernel.cu): the minimum image and the
+// per-pair evaluation, one molecule's old+new pass over the columns, the
+// S(k) delta and its commit, the block reduction, the slot pick of a µVT
+// move, and the trial rows of an insertion and of a displacement (a
+// translation plus an axis-angle rotation about the mass-weighted COM).
 //
-// Both kernels run one thread block of NT threads per chain.  Each thread
+// The kernels run one thread block of NT threads per chain.  Each thread
 // sums its pair terms in double; warps reduce by shuffles and thread 0 adds
 // the warps' partials in a fixed order, so a launch gives the same bits
 // every run.  erfc is the exact erfcf/erfc.
@@ -29,16 +30,13 @@ struct Opts {
   int ortho;  // 1: diagonal box, the cross terms of the minimum image dropped
 };
 
-// Minimum-image r^2 of a displacement, and the unmasked (rd, es) of the pair
-// when it lies within rc (both 0 otherwise).  The Coulomb constant is
-// applied by the caller.
+// Minimum image (rx, ry, rz) of a displacement (dx, dy, dz).
 template <typename T>
-__device__ __forceinline__ void pair_values(
-    T dx, T dy, T dz, T ei, T si, T qi, T ej, T sj, T qj,
-    const T* __restrict__ box, const T* __restrict__ bi, const Opts o, T rc,
-    T rc2, T alpha, T& r2, T& rd, T& es) {
-  T rx, ry, rz;
-  if (o.ortho) {
+__device__ __forceinline__ void min_image(T dx, T dy, T dz,
+                                          const T* __restrict__ box,
+                                          const T* __restrict__ bi, int ortho,
+                                          T& rx, T& ry, T& rz) {
+  if (ortho) {
     T f0 = dx * bi[0], f1 = dy * bi[4], f2 = dz * bi[8];
     f0 -= x_rint(f0);   // half to even, like torch.round / jnp.round
     f1 -= x_rint(f1);
@@ -57,7 +55,15 @@ __device__ __forceinline__ void pair_values(
     ry = f0 * box[1] + f1 * box[4] + f2 * box[7];
     rz = f0 * box[2] + f1 * box[5] + f2 * box[8];
   }
-  r2 = rx * rx + ry * ry + rz * rz;
+}
+
+// The unmasked (rd, es) of a pair at squared distance r2 when it lies
+// within rc (both 0 otherwise).  The Coulomb constant is applied by the
+// caller.
+template <typename T>
+__device__ __forceinline__ void pair_energy(T r2, T ei, T si, T qi, T ej,
+                                            T sj, T qj, const Opts o, T rc,
+                                            T rc2, T alpha, T& rd, T& es) {
   rd = T(0);
   es = T(0);
   if (!(r2 < rc2)) return;
@@ -90,6 +96,19 @@ __device__ __forceinline__ void pair_values(
       es = qq / r;
     }
   }
+}
+
+// Minimum-image r^2 of a displacement, and the unmasked (rd, es) of the pair
+// (pair_energy).
+template <typename T>
+__device__ __forceinline__ void pair_values(
+    T dx, T dy, T dz, T ei, T si, T qi, T ej, T sj, T qj,
+    const T* __restrict__ box, const T* __restrict__ bi, const Opts o, T rc,
+    T rc2, T alpha, T& r2, T& rd, T& es) {
+  T rx, ry, rz;
+  min_image<T>(dx, dy, dz, box, bi, o.ortho, rx, ry, rz);
+  r2 = rx * rx + ry * ry + rz * rz;
+  pair_energy<T>(r2, ei, si, qi, ej, sj, qj, o, rc, rc2, alpha, rd, es);
 }
 
 // This thread's share of one molecule's old+new pass: the columns jc = t,
@@ -261,6 +280,90 @@ __device__ __forceinline__ void place_row(const T (&tr)[3],
 #pragma unroll
   for (int e = 0; e < 3; ++e)
     out[e] = tr[e] + (R[e][0] * rel[0] + R[e][1] * rel[1] + R[e][2] * rel[2]);
+}
+
+// Thread 0: the trial rows of an insertion from the step's uniforms u: the
+// COM-centred template rows tmpl [na][3] at fractional COM lanes 1-3 with a
+// uniform (Shoemake) orientation from lanes 5-7; one site (A == 1) only
+// translates.
+template <typename T>
+__device__ __forceinline__ void insert_trial(const T* u, const T* box,
+                                             const T* tmpl, int A, int na,
+                                             T (*s_new)[3]) {
+  const T two_pi = T(6.283185307179586476925);
+  T cnew[3];
+#pragma unroll
+  for (int e = 0; e < 3; ++e)
+    cnew[e] = u[1] * box[e] + u[2] * box[3 + e] + u[3] * box[6 + e];
+  if (A == 1) {
+#pragma unroll
+    for (int e = 0; e < 3; ++e) s_new[0][e] = cnew[e];
+    return;
+  }
+  T R[3][3];
+  const T sq1 = x_sqrt(x_max(T(1) - u[5], T(0)));
+  const T sq2 = x_sqrt(x_max(u[5], T(0)));
+  const T th1 = two_pi * u[6], th2 = two_pi * u[7];
+  const T qx = sq1 * x_sin(th1), qy = sq1 * x_cos(th1);
+  const T qz = sq2 * x_sin(th2), qw = sq2 * x_cos(th2);
+  R[0][0] = 1 - 2 * (qy * qy + qz * qz);
+  R[0][1] = 2 * (qx * qy - qz * qw);
+  R[0][2] = 2 * (qx * qz + qy * qw);
+  R[1][0] = 2 * (qx * qy + qz * qw);
+  R[1][1] = 1 - 2 * (qx * qx + qz * qz);
+  R[1][2] = 2 * (qy * qz - qx * qw);
+  R[2][0] = 2 * (qx * qz - qy * qw);
+  R[2][1] = 2 * (qy * qz + qx * qw);
+  R[2][2] = 1 - 2 * (qx * qx + qy * qy);
+  for (int a = 0; a < na; ++a) {
+    T rel[3];
+#pragma unroll
+    for (int e = 0; e < 3; ++e) rel[e] = tmpl[a * 3 + e];
+    place_row<T>(cnew, R, rel, s_new[a]);
+  }
+}
+
+// Block-wide (every thread calls it, with block-uniform arguments): the
+// index of the (j+1)-th eligible slot of the slot table (alive flags SA,
+// species slot_species, ms slots) — a free slot of species su for an
+// insert, an alive one of species su for a delete, any alive slot for a
+// displacement — by an inclusive scan over NT slots at a time.  The caller
+// has checked that at least j + 1 slots are eligible.
+__device__ __forceinline__ int pick_slot(const bool* SA,
+                                         const int32_t* __restrict__
+                                             slot_species,
+                                         int ms, bool ins, bool del, int su,
+                                         int j, int* s_scan, int* s_slot) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int base = 0;
+  for (int t0 = 0; t0 < ms; t0 += NT) {
+    const int i = t0 + t;
+    int f = 0;
+    if (i < ms) {
+      const bool al = SA[i];
+      const bool same = slot_species[i] == su;
+      f = ins ? (!al && same) : (del ? (al && same) : al);
+    }
+    int x = f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, off);
+      if (lane >= off) x += y;
+    }
+    if (lane == 31) s_scan[warp] = x;
+    __syncthreads();
+    int before = 0, tot = 0;
+    for (int w = 0; w < NW; ++w) {
+      const int v = s_scan[w];
+      if (w < warp) before += v;
+      tot += v;
+    }
+    if (f && base + before + x == j + 1) *s_slot = i;
+    base += tot;
+    __syncthreads();
+    if (base > j) break;
+  }
+  return *s_slot;
 }
 
 // Thread 0: the trial rows of a displacement from the step's uniforms u

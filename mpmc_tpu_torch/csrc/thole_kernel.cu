@@ -33,33 +33,13 @@
 #include <stdint.h>
 
 #include "device_math.cuh"
+#include "thole_common.cuh"
 
 namespace {
 
 constexpr int TI = 128;   // rows per block, one thread each
 constexpr int TJ = 128;   // columns per shared tile (== TI: one load a thread)
 constexpr int RT = 256;   // threads of the split sum
-
-// Thole screening factors: kind 0 none, 1 exponential (width lam, 1/A),
-// 2 linear (screening radius lam, A).
-template <typename T>
-__device__ __forceinline__ void damping(T r, T lam, int kind, T& d1, T& d2) {
-  if (kind == 1) {
-    const T x = lam * r;
-    const T e = x_exp(-x);
-    const T p1 = T(1) + x + T(0.5) * x * x;
-    d1 = T(1) - e * p1;
-    d2 = T(1) - e * (p1 + x * x * x / T(6));
-  } else if (kind == 2) {
-    const T u = x_min(r / lam, T(1));
-    const T u3 = u * u * u;
-    d1 = T(4) * u3 - T(3) * u3 * u;
-    d2 = u3 * u;
-  } else {
-    d1 = T(1);
-    d2 = T(1);
-  }
-}
 
 // grid (NI row blocks, splits); block b.y walks column tiles
 // [b.y * per_split, min(nj, (b.y + 1) * per_split)).

@@ -55,8 +55,9 @@
 //   box (3x3 row-major, rows are cell vectors), box^-1 (3x3 row-major).
 //
 // The pair evaluation, the column pass, the S(k) delta, the block
-// reduction and the displacement trial are shared with B3 (nvt_kernel.cu)
-// in mc_common.cuh; the move selection and the insert trial are B1's own.
+// reduction and the displacement trial are shared with B3 (nvt_kernel.cu),
+// the slot pick and the insert trial with B6 (pda_kernel.cu), all in
+// mc_common.cuh.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -99,7 +100,7 @@ __global__ void __launch_bounds__(NT) uvt_kernel(
   __shared__ double s_red[3][NW];
   __shared__ T s_min[NW];
 
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int t = threadIdx.x;
   const int c = blockIdx.x;
   const int n = d.n, ms = d.ms, S = d.S, A = d.A, nk = d.nk;
   T* P = pos + size_t(c) * n * 3;
@@ -139,7 +140,6 @@ __global__ void __launch_bounds__(NT) uvt_kernel(
   const T p_half = T(0.5) * p_ins;
   const T rc2 = rc * rc;
   const double beta = double(betas[c]);
-  const T two_pi = T(6.283185307179586476925);
   double acc[N_SUMS];
 #pragma unroll
   for (int i = 0; i < N_SUMS; ++i) acc[i] = 0.0;
@@ -166,36 +166,9 @@ __global__ void __launch_bounds__(NT) uvt_kernel(
     const T cntT = T(cnt);
     const int j = int(x_min(x_floor(s_u[0] * cntT), cntT - T(1)));
 
-    // ---- the j-th eligible slot: block-wide inclusive scan, NT at a time
-    int base = 0;
-    for (int t0 = 0; t0 < ms; t0 += NT) {
-      const int i = t0 + t;
-      int f = 0;
-      if (i < ms) {
-        const bool al = SA[i];
-        const bool same = slot_species[i] == su;
-        f = ins ? (!al && same) : (del ? (al && same) : al);
-      }
-      int x = f;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const int y = __shfl_up_sync(FULL, x, off);
-        if (lane >= off) x += y;
-      }
-      if (lane == 31) s_scan[warp] = x;
-      __syncthreads();
-      int before = 0, tot = 0;
-      for (int w = 0; w < NW; ++w) {
-        const int v = s_scan[w];
-        if (w < warp) before += v;
-        tot += v;
-      }
-      if (f && base + before + x == j + 1) s_slot = i;
-      base += tot;
-      __syncthreads();
-      if (base > j) break;
-    }
-    const int slot = s_slot;
+    // ---- the j-th eligible slot: block-wide inclusive scan
+    const int slot = pick_slot(SA, slot_species, ms, ins, del, su, j, s_scan,
+                               &s_slot);
     const int start = slot_start[slot];
     const int spf = disp ? slot_species[slot] : su;
     const int na = s_na[spf];
@@ -213,42 +186,10 @@ __global__ void __launch_bounds__(NT) uvt_kernel(
     }
     __syncthreads();
     if (t == 0) {
-      if (ins) {   // the template at fractional COM lanes 1-3, Shoemake
-        T cnew[3];
-#pragma unroll
-        for (int e = 0; e < 3; ++e)
-          cnew[e] = s_u[1] * s_box[e] + s_u[2] * s_box[3 + e]
-                    + s_u[3] * s_box[6 + e];
-        if (A == 1) {
-#pragma unroll
-          for (int e = 0; e < 3; ++e) s_new[0][e] = cnew[e];
-        } else {   // uniform orientation (Shoemake) from lanes 5-7
-          T R[3][3];
-          const T sq1 = x_sqrt(x_max(T(1) - s_u[5], T(0)));
-          const T sq2 = x_sqrt(x_max(s_u[5], T(0)));
-          const T th1 = two_pi * s_u[6], th2 = two_pi * s_u[7];
-          const T qx = sq1 * x_sin(th1), qy = sq1 * x_cos(th1);
-          const T qz = sq2 * x_sin(th2), qw = sq2 * x_cos(th2);
-          R[0][0] = 1 - 2 * (qy * qy + qz * qz);
-          R[0][1] = 2 * (qx * qy - qz * qw);
-          R[0][2] = 2 * (qx * qz + qy * qw);
-          R[1][0] = 2 * (qx * qy + qz * qw);
-          R[1][1] = 1 - 2 * (qx * qx + qz * qz);
-          R[1][2] = 2 * (qy * qz - qx * qw);
-          R[2][0] = 2 * (qx * qz - qy * qw);
-          R[2][1] = 2 * (qy * qz + qx * qw);
-          R[2][2] = 1 - 2 * (qx * qx + qy * qy);
-          for (int a = 0; a < na; ++a) {
-            T rel[3];
-#pragma unroll
-            for (int e = 0; e < 3; ++e)
-              rel[e] = s_tmpl[(spf * A + a) * 3 + e];
-            place_row<T>(cnew, R, rel, s_new[a]);
-          }
-        }
-      } else {
+      if (ins)
+        insert_trial<T>(s_u, s_box, s_tmpl + spf * A * 3, A, na, s_new);
+      else
         displace_trial<T>(s_u, mf, rotf, A, na, s_old, s_mi, s_new);
-      }
     }
     __syncthreads();
 

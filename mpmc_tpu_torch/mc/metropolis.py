@@ -1,13 +1,17 @@
 """The Metropolis Monte Carlo engine (port of the non-cache scan path,
-with polarization and its delayed acceptance, and of the fused NVT/NVE
-and µVT paths of mpmc_tpu/mc/metropolis.py).
+with polarization and its delayed acceptance, and of the fused NVT/NVE,
+µVT and polar delayed-acceptance paths of mpmc_tpu/mc/metropolis.py).
 
 The fused paths run a whole chunk in one kernel launch and apply its sums,
 positions and S(k) to the state: ``run_chunk_fused`` (one chain) and
 ``run_chunk_fused_multi`` (C stacked chains) through kernel B3
 (ops/cuda/mc_kernel.run_steps: NVT, or NVE for one chain), and
 ``run_chunk_fused_uvt`` / ``run_chunk_fused_uvt_multi`` through kernel B1
-(run_steps_uvt).  The rest of this docstring describes the scan path.
+(run_steps_uvt).  ``run_chunk_fused_uvt_polar_da`` alternates launches of
+kernel B6 (run_steps_uvt_pda: stage 1 of the polar delayed acceptance,
+up to PDA_SEG proposals frozen at the first survivor) with the exact SCF
+stage 2 of each survivor.  The rest of this docstring describes the scan
+path.
 
 One step = one row of a [K, 16] uniform table (lane layout of
 mc_kernel.draw_uniforms(lanes=16), consumed as mc_kernel._kernel_uvt does;
@@ -177,6 +181,33 @@ class _Chunk:
             thermo.fugacity * ATM2K_A3 * self.volume, min=1e-300))
 
 
+def polar_trial(carry, c: _Chunk, params: Params, cfg: RunConfig, mol,
+                rows, alive_new):
+    """(trial pos, trial alive, trial e0, initial residual or None) of
+    moving (``alive_new`` None), inserting (True) or deleting (False)
+    molecule ``mol`` to ``rows``, from ``carry``'s pos, alive, e0, mu,
+    r_pol and S(k): the O(A N) move_deltas where the field is delta-able
+    (with the CG's initial residual where thole.residual_supported), else
+    a rebuilt static field.  The carry's tensors are left as they are."""
+    pos, alive = carry["pos"], carry["alive"]
+    insert, delete = alive_new is True, alive_new is False
+    own = (params.mol_id == mol) & params.atom_ok
+    if delete:
+        pos_c, alive_c = pos, alive & ~own
+    else:
+        pos_c = mol_rows_update(pos.clone(), params, mol, rows)
+        alive_c = alive | own if insert else alive
+    if not thole.field_delta_supported(cfg):
+        return pos_c, alive_c, thole.static_field(
+            pos_c, c.box, alive_c, params, cfg), None
+    e0_new, r0 = thole.move_deltas(
+        pos, c.box, alive, params, cfg, mol, carry["e0"], carry["mu"],
+        carry["r_pol"], new_rows=rows, insert=insert, delete=delete,
+        with_residual=thole.residual_supported(cfg),
+        sk=(carry["sk_re"], carry["sk_im"]) if c.ewald else None)
+    return pos_c, alive_c, e0_new, r0
+
+
 def make_step_fn(params: Params, cfg: RunConfig):
     """The single-step function of this (params, cfg):
     step(carry, u, t, thermo, c, stats, trace=None) with ``carry`` a dict
@@ -193,10 +224,9 @@ def make_step_fn(params: Params, cfg: RunConfig):
     nve = cfg.ensemble == "nve"
     dev = params.device
     pol = cfg.polarization
-    # the field update in O(A N) instead of a rebuild per trial, and the
-    # analytic initial residual that saves the solve's warm-up matvec
-    pol_delta = pol and thole.field_delta_supported(cfg)
-    pol_resid = pol_delta and thole.residual_supported(cfg)
+    # the analytic initial residual (polar_trial) that saves the solve's
+    # warm-up matvec
+    pol_resid = thole.residual_supported(cfg)
     # delayed acceptance: the zodid surrogate filters the trial, the SCF
     # runs only for stage-1 survivors (not under nve: Ray's rule has no
     # Boltzmann split)
@@ -311,28 +341,6 @@ def make_step_fn(params: Params, cfg: RunConfig):
                 else [b_displace])
     _, branch_ids = make_branch_picker(cfg)
 
-    def polar_trial(carry, c, mol, rows, alive_new):
-        """(trial pos, trial alive, trial e0, initial residual or None) of
-        moving (``alive_new`` None), inserting (True) or deleting (False)
-        molecule ``mol``; the state's tensors are left as they are."""
-        pos, alive = carry["pos"], carry["alive"]
-        insert, delete = alive_new is True, alive_new is False
-        own = (params.mol_id == mol) & params.atom_ok
-        if delete:
-            pos_c, alive_c = pos, alive & ~own
-        else:
-            pos_c = mol_rows_update(pos.clone(), params, mol, rows)
-            alive_c = alive | own if insert else alive
-        if not pol_delta:
-            return pos_c, alive_c, thole.static_field(
-                pos_c, c.box, alive_c, params, cfg), None
-        e0_new, r0 = thole.move_deltas(
-            pos, c.box, alive, params, cfg, mol, carry["e0"], carry["mu"],
-            carry["r_pol"], new_rows=rows, insert=insert, delete=delete,
-            with_residual=pol_resid,
-            sk=(carry["sk_re"], carry["sk_im"]) if c.ewald else None)
-        return pos_c, alive_c, e0_new, r0
-
     def polar_solve(carry, c, pos_c, alive_c, e0_new, r0, stats):
         mu_new, iters, r_new = thole.solve_scf(
             pos_c, c.box, alive_c, params, cfg, e0_new, mu0=carry["mu"],
@@ -348,8 +356,8 @@ def make_step_fn(params: Params, cfg: RunConfig):
         du = d.total
         iters0 = stats.polar_iters
         if pol:
-            pos_c, alive_c, e0_new, r0 = polar_trial(carry, c, mol, rows,
-                                                     alive_new)
+            pos_c, alive_c, e0_new, r0 = polar_trial(carry, c, params, cfg,
+                                                     mol, rows, alive_new)
             if pol_da:
                 d_surr = (thole.zodid_energy(e0_new, alive_c, params)
                           - thole.zodid_energy(carry["e0"], carry["alive"],
@@ -802,6 +810,170 @@ def run_chunk_fused_uvt(state: SimState, params: Params, cfg: RunConfig,
         generator=generator, uniforms=uniforms, tables=tables)
     return slice_chain(states, 0), MCStats(stats.attempts[0],
                                            stats.accepts[0])
+
+
+# ---------------------------------------------------------------------------
+# Fused polar delayed acceptance (kernel B6, mc_kernel.run_steps_uvt_pda)
+# ---------------------------------------------------------------------------
+
+def pda_launch_args(state: SimState, params: Params, cfg: RunConfig,
+                    thermo: Thermo, uniforms, tables, consts=None):
+    """(args, kwargs) of mc_kernel.run_steps_uvt_pda (or its plain
+    version) for one segment of ``state`` over the [K, 16] table
+    ``uniforms`` — the launch of the reference's _fused_chunk_uvt_pda.
+    ``cfg`` is the µVT cfg the path runs (mc_kernel.pda_effective_cfg),
+    ``tables`` a ``uvt_fused_tables`` result for it, ``consts`` the
+    chunk's ``_uvt_chunk_consts`` (computed when None)."""
+    slots, slot_start, species_idx, tmpl, natoms, A_list, rep_slots = tables
+    box = state.box
+    rc = pairs.derived_cutoff(box, cfg)
+    alpha = pairs.derived_alpha(rc, cfg)
+    if consts is None:
+        consts = _uvt_chunk_consts(state.pos, box, params, thermo, cfg,
+                                   A_list, rep_slots)
+    d_self, d_excl, c1, cx, lnfv, kv, kcoef = consts
+    paf, pkrc = thole._field_variant_consts(box, cfg, state.pos.dtype)
+    thr = cfg.cavity_autoreject_absolute
+    ew = cfg.coulomb == "ewald"
+    args = (state.pos, state.atom_alive(params), params.eps, params.sig,
+            params.charge, params.mass, params.polar, state.e0, slot_start,
+            species_idx, state.mol_alive[slots], tmpl, natoms, box, rc, alpha,
+            1.0 / thermo.temperature, thermo.move_factor, thermo.rot_factor,
+            thr * thr, thermo.insert_probability, lnfv, d_self, d_excl, c1,
+            cx, uniforms.to(device=state.pos.device,
+                            dtype=cfg.tdtype).contiguous(), cfg)
+    kw = dict(kvecs=kv, kcoef=kcoef, sk_re=state.sk_re if ew else None,
+              sk_im=state.sk_im if ew else None,
+              field_alpha=0.0 if paf is None else paf,
+              field_krc=0.0 if pkrc is None else pkrc)
+    return args, kw
+
+
+def _pda_stage2(state: SimState, params: Params, cfg: RunConfig,
+                thermo: Thermo, c: _Chunk, rec, mt, mol, natoms):
+    """(state, accept, CG iterations) after the exact SCF stage 2 of B6's
+    survivor — move type ``mt``, molecule ``mol`` with ``natoms`` sites,
+    record ``rec`` [8,16] on the device (reference _fused_chunk_uvt_pda's
+    stage2_full): the scan path's polar_trial gives the trial geometry,
+    field and residual, then the warm-started solve and its polar energy;
+    the survivor is accepted with ln u2 < -(d_polar - d*) / T,
+    and on accept the positions, aliveness, e0, mu, the CG residual and
+    S(k) are committed, with the energy plus the record's six deltas and
+    the new polar term.  The accept stays on the device."""
+    dtype, dev = state.pos.dtype, state.pos.device
+    insert, delete = mt == 1, mt == 2
+    rows = rec[2:5, :natoms].T.to(dtype)
+    rows = torch.cat([rows, rows[:1].expand(
+        params.max_atoms_per_mol - natoms, 3)]).contiguous()
+    pos = state.pos
+    carry = {"pos": pos, "alive": state.atom_alive(params), "e0": state.e0,
+             "mu": state.mu, "r_pol": state.r_pol, "sk_re": state.sk_re,
+             "sk_im": state.sk_im}
+    pos_c, alive_c, e0_new, r0 = polar_trial(
+        carry, c, params, cfg, mol, None if delete else rows,
+        {0: None, 1: True, 2: False}[mt])
+    mol_alive = state.mol_alive
+    if insert or delete:
+        mol_alive = mol_alive.clone()
+        mol_alive[mol] = insert
+    mu_new, iters, r_new = thole.solve_scf(pos_c, state.box, alive_c, params,
+                                           cfg, e0_new, mu0=state.mu, r0=r0)
+    pol_new = thole.polar_energy(mu_new, e0_new)
+    d_surr, u2 = rec[0, 9].to(dtype), rec[0, 5].to(dtype)
+    accept = (torch.log(torch.clamp(u2, min=1e-38))
+              < -(pol_new - state.energy.polar - d_surr)
+              / thermo.temperature)
+    deltas = rec[1, :6].to(dtype)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    # record row 1: rd, es_real, es_recip, es_self, es_excl, lrc
+    d = EnergyBreakdown(deltas[0], deltas[5], deltas[1], deltas[2],
+                        deltas[3], deltas[4], zero, zero)
+    energy = dataclasses.replace(state.energy.add(d), polar=pol_new)
+    new = state.replace(
+        pos=torch.where(accept, pos_c, pos),
+        mol_alive=torch.where(accept, mol_alive, state.mol_alive),
+        e0=torch.where(accept, e0_new, state.e0),
+        mu=torch.where(accept, mu_new, state.mu),
+        r_pol=torch.where(accept, r_new, state.r_pol),
+        energy=energy.select(accept, state.energy))
+    if c.ewald:
+        if delete:
+            d_re, d_im = _mol_sf_rows(mol_rows(pos, params, mol), params, mol,
+                                      c.kv)
+            d_re, d_im = -d_re, -d_im
+        elif insert:
+            d_re, d_im = _mol_sf_rows(rows, params, mol, c.kv)
+        else:
+            d_re, d_im = _mol_sf_delta(pos, rows, params, mol, c.kv)
+        new = new.replace(
+            sk_re=torch.where(accept, state.sk_re + d_re, state.sk_re),
+            sk_im=torch.where(accept, state.sk_im + d_im, state.sk_im))
+    return new, accept, iters
+
+
+def run_chunk_fused_uvt_polar_da(state: SimState, params: Params,
+                                 cfg: RunConfig, thermo: Thermo,
+                                 n_steps: int, generator=None, uniforms=None,
+                                 tables=None):
+    """About ``n_steps`` polar delayed-acceptance steps: a host loop over
+    segments, each one launch of B6 (mc_kernel.run_steps_uvt_pda: up to
+    PDA_SEG proposals from the fixed state, frozen at the first stage-1
+    survivor) and one host read of its record, then the exact SCF stage 2
+    for that survivor (_pda_stage2) — the reference's
+    run_chunk_fused_uvt_polar_da.  Stage-1 rejections change nothing, so
+    the sampled distribution is the scan path's delayed acceptance (exact
+    w.r.t. the SCF target).  The chunk stops once the segments' n_done
+    reach ``n_steps``: it may overshoot by < PDA_SEG stage-1 rejections,
+    never by an accepted move; ``state.step`` and the stats count the
+    steps done.  Returns (state, MCStats).
+
+    Each segment's [PDA_SEG, 16] table is drawn from ``generator`` (a
+    torch.Generator on the state's device), or is the next of an injected
+    ``uniforms`` [n_seg, PDA_SEG, 16] (tests).  ``tables``: a
+    ``uvt_fused_tables`` result for mc_kernel.pda_effective_cfg(cfg) to
+    reuse across chunks.  ``ensemble nvt`` runs the same kernel in the
+    all-displace limit (insert_probability 0).  The caller has checked
+    mc_kernel.supported_uvt_polar_da(cfg, params)."""
+    if cfg.ensemble == "nvt":
+        thermo = thermo.replace(insert_probability=torch.zeros_like(
+            thermo.insert_probability))
+    cfg = mc_kernel.pda_effective_cfg(cfg, params)
+    if tables is None:
+        tables = uvt_fused_tables(params, cfg)
+    slots_h = tables[0].cpu().numpy()
+    natoms_h = params.mol_natoms.cpu().numpy()
+    consts = _uvt_chunk_consts(state.pos, state.box, params, thermo, cfg,
+                               tables[5], tables[6])
+    c = _Chunk(state.box, params, cfg, thermo)
+    dev = state.pos.device
+    stats = MCStats.zero(dev)
+    done = n_seg = 0
+    while done < n_steps:
+        if uniforms is None:
+            u = torch.rand((mc_kernel.PDA_SEG, N_LANES), generator=generator,
+                           dtype=cfg.tdtype, device=generator.device)
+        elif n_seg < uniforms.shape[0]:
+            u = uniforms[n_seg]
+        else:
+            raise ValueError(f"uniforms: {uniforms.shape[0]} segments used "
+                             f"up after {done} of {n_steps} steps")
+        n_seg += 1
+        args, kw = pda_launch_args(state, params, cfg, thermo, u, tables,
+                                   consts)
+        rec = mc_kernel.run_steps_uvt_pda(*args, **kw)
+        head = rec[0, :9].cpu().numpy()      # the segment's one host read
+        done += int(head[0])
+        stats.attempts[[DISPLACE, INSERT, DELETE]] += head[6:9].astype(
+            np.int64)
+        if head[1] > 0.5:
+            mt, mol = int(head[2]), int(slots_h[int(head[3])])
+            state, accept, iters = _pda_stage2(state, params, cfg, thermo, c,
+                                               rec, mt, mol,
+                                               int(natoms_h[mol]))
+            stats.accepts[(DISPLACE, INSERT, DELETE)[mt]] += accept.to(
+                torch.int64)
+            stats.polar_iters += iters
+    return state.replace(step=state.step + done), stats
 
 
 def frozen_refresh_rows(params: Params, cfg: RunConfig) -> int:

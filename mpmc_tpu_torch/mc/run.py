@@ -1,15 +1,16 @@
 """High-level run entry: input files -> system -> MC loop -> outputs
 (port of the single-chain scan path — with polarization and its delayed
-acceptance —, the fused NVT/NVE and µVT paths and the fused multi-chain
-path of mpmc_tpu/mc/run.py).
+acceptance —, the fused NVT/NVE, µVT and polar delayed-acceptance paths
+and the fused multi-chain path of mpmc_tpu/mc/run.py).
 
 The corrtime structure is the reference's: ``corrtime`` steps per chunk
 (mc/metropolis.run_chunk on the scan path; under ``fused_mc``
 run_chunk_fused / run_chunk_fused_multi in one launch of kernel B3 for
 NVT and NVE, run_chunk_fused_uvt / run_chunk_fused_uvt_multi in one launch
-of kernel B1 for µVT), then a refresh of the cached energies (full
-recompute on the frozen-reuse fast path — B2 restricted to the sorbate
-rows), observables,
+of kernel B1 for µVT, and with polarization and ``polar_delayed``
+run_chunk_fused_uvt_polar_da — kernel B6 per segment, the exact SCF per
+survivor), then a refresh of the cached energies (full recompute on the
+frozen-reuse fast path — B2 restricted to the sorbate rows), observables,
 restart/trajectory output, and annealing/adaptation.
 
 The entry points run on the current CUDA device unless the caller names
@@ -410,8 +411,10 @@ def _annealed(thermo, job):
 
 def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     """The main MC loop (ensemble uvt/nvt/nve): one chain on the scan path,
-    or under ``fused_mc`` on the fused NVT/NVE kernel (B3) or the fused
-    µVT kernel (B1); ``chains N`` goes to ``run_mc_chains``."""
+    or under ``fused_mc`` on the fused NVT/NVE kernel (B3), the fused µVT
+    kernel (B1) or, with polarization and ``polar_delayed``, the fused
+    polar delayed acceptance (B6); ``chains N`` goes to
+    ``run_mc_chains``."""
     if job.chains > 1:
         return run_mc_chains(job, log=log, jsonl_path=jsonl_path,
                              device=device)
@@ -442,8 +445,12 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
                 tables=metropolis.uvt_fused_tables(params, cfg))
             print("fused_mc: single-chain fused µVT kernel", file=writer.log)
         elif mc_kernel.supported_uvt_polar_da(cfg, params):
-            _refuse("fused polar delayed acceptance (kernel B6 and its "
-                    "chunk loop)", "A10b")
+            chunk = functools.partial(
+                metropolis.run_chunk_fused_uvt_polar_da,
+                tables=metropolis.uvt_fused_tables(
+                    params, mc_kernel.pda_effective_cfg(cfg, params)))
+            print("fused_mc: polar delayed-acceptance stage-1 kernel "
+                  "(exact SCF stage 2 per survivor)", file=writer.log)
         elif cfg.polarization and cfg.polar_delayed:
             print("WARNING: polar_delayed requested but the fused "
                   "stage-1 kernel refuses this combination (it needs "

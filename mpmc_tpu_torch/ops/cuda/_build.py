@@ -51,6 +51,13 @@ _SIGNATURES = {
         "run_steps_nvt": [_P] * 17 + [_I] * 11 + [ctypes.c_double] * 2
         + [_P],
     },
+    "pda_kernel": {
+        # pos alive eps sig q mass polar e0 slot_start slot_species
+        # slot_alive tmpl natoms scal lnfv d_self d_excl c1 cx u kvec kcoef
+        # sk dsk rec | n ms S A K nk rd mix es ortho damp field | ke | stream
+        "run_steps_uvt_pda": [_P] * 25 + [_I] * 12 + [ctypes.c_double]
+        + [_P],
+    },
     "thole_kernel": {
         # pos src ok mol scal visit | n ni nj per_split splits dipole damp
         # ortho | part out | stream

@@ -1,5 +1,6 @@
-"""The fused Monte Carlo step loops — B1 (µVT, csrc/uvt_kernel.cu) and B3
-(NVT/NVE, csrc/nvt_kernel.cu): wrappers, plain versions and host helpers.
+"""The fused Monte Carlo step loops — B1 (µVT, csrc/uvt_kernel.cu), B3
+(NVT/NVE, csrc/nvt_kernel.cu) and B6 (the polar delayed acceptance's
+stage 1, csrc/pda_kernel.cu): wrappers, plain versions and host helpers.
 
 B1 ``run_steps_uvt`` replaces mpmc_tpu/ops/pallas/mc_kernel.py::_kernel_uvt
 (through ``run_steps_uvt``/``run_steps_uvt_multi``): K whole GCMC steps
@@ -15,17 +16,28 @@ the acceptance is Ray's microcanonical rule against a kinetic reservoir
 carried across the launch's steps.  One wrapper of each kernel serves every
 C >= 1; the single-chain call is C = 1.
 
+B6 ``run_steps_uvt_pda`` replaces
+mpmc_tpu/ops/pallas/mc_kernel.py::_kernel_uvt_pda (through
+``run_steps_uvt_pda``): up to PDA_SEG µVT proposals of one chain from a
+fixed state that it reads and never writes, each with B1's move, pair
+terms and S(k) delta plus the zodid surrogate delta d* of the
+polarization energy, frozen at the first proposal that passes the
+stage-1 test; it returns that survivor's record for the exact SCF stage
+2 (metropolis.run_chunk_fused_uvt_polar_da).
+
 Randomness is one [C, K, 16] uniform table in the lane layout of
 mc_kernel.draw_uniforms(lanes=16) (chain c's step k reads row [c, k]):
 lane 8 the move type, 9 the species of an insert/delete, 0 the slot rank
 (B3: the molecule), 1-3 the translation or the inserted COM, 4 the
-acceptance coin, 5-7 the rotation or the inserted orientation.  B3 reads
-lanes 0-7.
+acceptance coin (B6: of stage 1), 5-7 the rotation or the inserted
+orientation, 12 B6's stage-2 coin.  B3 reads lanes 0-7; B6 takes one
+chain's [K, 16].
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors; anything else raises.  There is no fallback
-from a kernel to its plain version.  ``run_steps_uvt.launches`` and
-``run_steps.launches`` count the kernel launches, and nothing else.
+from a kernel to its plain version.  ``run_steps_uvt.launches``,
+``run_steps.launches`` and ``run_steps_uvt_pda.launches`` count the
+kernel launches, and nothing else.
 
 The host helpers (``supported_uvt``, ``supported``, ``supported_multi``,
 ``movable_slots``, ``movable_mols``) are the gates and tables of the
@@ -47,12 +59,14 @@ import torch
 from mpmc_tpu_torch.constants import KE
 from mpmc_tpu_torch.ops import pairs, thole
 from mpmc_tpu_torch.ops import pbc as pbc_ops
+from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
 from mpmc_tpu_torch.ops.cuda.pair_kernel import (_ES, _MIX, _RD, _check,
                                                  _ptr, _raise_on, _stream,
                                                  _suffix)
 
 MAX_SITES = 8      # most sites of a movable molecule (kernel row registers)
 MAX_SPECIES = 8    # most insert species (kernel shared-memory tables)
+PDA_SEG = 16       # B6 steps per launch (the reference's segment)
 N_SUMS = 14        # d_rd d_es_real d_es_recip d_es_self d_es_excl d_lrc,
 #                    acc disp/ins/del, att disp/ins/del, acc/att spinflip
 N_SUMS_NVT = 4     # d_rd d_es_real d_es_recip, accepted moves
@@ -110,9 +124,8 @@ def supported_uvt(cfg, params) -> bool:
 def pda_effective_cfg(cfg, params):
     """The cfg the fused polar delayed-acceptance path runs (the
     reference's pda_effective_cfg): µVT as it is; NVT as µVT with every
-    movable species a nominal insert species (the kernel's all-displace
-    limit); None for any other ensemble.  Used for routing only: the
-    kernel (B6) is not yet ported."""
+    movable species a nominal insert species (B6's all-displace limit,
+    run with insert_probability 0); None for any other ensemble."""
     if cfg.ensemble == "uvt":
         return cfg
     if cfg.ensemble == "nvt":
@@ -130,8 +143,9 @@ def supported_uvt_polar_da(cfg, params) -> bool:
     polarization + polar_delayed with the CG solver, a supported damping,
     a delta-able static field (thole.field_delta_supported) and no cdvdw,
     over the fused µVT surface (pda_effective_cfg, without
-    polarization).  The run loop routes on it: where it holds, the run is
-    refused (kernel B6, ROADMAP A10b), never sent to the scan path."""
+    polarization).  Where it holds, ``fused_mc`` runs
+    metropolis.run_chunk_fused_uvt_polar_da: B6 proposes and filters, the
+    exact SCF decides each survivor."""
     if not (cfg.polarization and cfg.polar_delayed
             and cfg.polar_solver == "cg"
             and cfg.polar_damp_type in ("exponential", "linear", "none")
@@ -210,7 +224,8 @@ def _refuse_cfg(cfg, what="run_steps_uvt"):
             and cfg.mixing_rule in _MIX):
         raise NotImplementedError(
             f"{what}: rd {cfg.rd_potential!r} / coulomb "
-            f"{cfg.coulomb!r} / mixing {cfg.mixing_rule!r} not ported")
+            f"{cfg.coulomb!r} / mixing {cfg.mixing_rule!r} is not yet "
+            "ported — ROADMAP A12")
     for flag, flag_name in ((cfg.cavity_bias, "cavity_bias"),
                             (cfg.tmmc, "tmmc"),
                             (cfg.quantum_rotation, "quantum_rotation"),
@@ -288,16 +303,22 @@ def _column_pass(rows, use, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
                            box_inv)
     r2 = torch.sum(dr * dr, dim=-1)                                # [C,A,N]
     m = ok[:, None, :] & site_ok[:, :, None] & use[:, None, None]
+    return _pair_sums(r2, m, qi, ei, si, charge, eps, sig, rc, alpha, cfg)
+
+
+def _pair_sums(r2, m, qi, ei, si, charge, eps, sig, rc, alpha, cfg):
+    """The sums of ``_column_pass`` from the squared distances r2 [C,A,N]
+    and the pair mask m [C,A,N]."""
     act = m & (r2 < rc * rc)
     rd_u, es_u, _, _ = pairs._tile_values(
         r2, qi[..., None], ei[..., None], si[..., None], charge, eps, sig,
         cfg, rc, alpha)
-    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
 
     def s(v):
         if v is None:
-            return torch.zeros(pos.shape[0], dtype=torch.float64,
-                               device=pos.device)
+            return torch.zeros(r2.shape[0], dtype=torch.float64,
+                               device=r2.device)
         return torch.where(act, v, zero).double().sum(dim=(1, 2))
 
     mn = torch.where(m, r2, torch.full_like(r2, math.inf)).amin(dim=(1, 2))
@@ -784,7 +805,334 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
 run_steps.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# B6: plain version and kernel wrapper
+# ---------------------------------------------------------------------------
+
+def _pda_field(cfg):
+    """B6's field kernel: 0 direct, 1 wolf, 2 ewald (its real-space part)."""
+    return 2 if cfg.polar_ewald else (1 if cfg.polar_wolf else 0)
+
+
+def _refuse_pda(cfg):
+    """Raise on what neither B6 nor its plain version implements."""
+    _refuse_cfg(cfg, "run_steps_uvt_pda")
+    if cfg.polar_damp_type not in tk._DAMP:
+        raise ValueError(f"run_steps_uvt_pda: polar_damp_type "
+                         f"{cfg.polar_damp_type!r} not supported")
+
+
+def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
+                            slot_start, slot_species, slot_alive, tmpl,
+                            natoms, box, rc, alpha, beta, move_factor,
+                            rot_factor, thr2, p_ins, lnfv, d_self, d_excl, c1,
+                            cx, uniforms, cfg, kvecs=None, kcoef=None,
+                            sk_re=None, sk_im=None, field_alpha=0.0,
+                            field_krc=0.0, trace=None):
+    """Plain B6: a loop over the K rows of tensor ops over the N columns
+    that stops at the freeze, with the kernel's arithmetic (the pair,
+    surrogate and field sums, the constants and the stage-1 test in
+    float64); the move decisions are read on the host.  Arguments and
+    result as ``run_steps_uvt_pda``.  ``trace``: a list that gets one dict
+    per step — ``hit``, ``margin`` = ln u - ln(stage-1 acceptance), and
+    the work the kernel does for it, ``pairs``, ``in_old``, ``in_new``,
+    ``phases`` and ``cols`` (pair evaluations, those of the current and
+    of the trial rows within rc, k-vector phases and surrogate columns),
+    and ``rss``, the root sum of squares of the terms summed into d_rd,
+    d_es_real, d_es_recip and d* (the scale of their rounding)."""
+    _refuse_pda(cfg)
+    dt, dev = pos.dtype, pos.device
+    N = pos.shape[0]
+    S, A = tmpl.shape[0], tmpl.shape[1]
+    ew = cfg.coulomb == "ewald"
+    field = _pda_field(cfg)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dt, device=dev)
+
+    rc, alpha, mf, rotf, thr2 = (t(rc), t(alpha), t(move_factor),
+                                 t(rot_factor), t(thr2))
+    paf, pkrc = (t(field_alpha), t(field_krc)) if field else (None, None)
+    rc2 = rc * rc
+    p_ins_h = float(t(p_ins))
+    p_half_h = 0.5 * p_ins_h                 # a halving: exact in T too
+    box_inv = torch.linalg.inv(box)
+    u_h = uniforms.cpu()
+    sl_sp = slot_species.long().cpu()
+    sl_start = slot_start.long().cpu()
+    na_s = natoms.long().cpu()
+    sa = slot_alive.cpu()
+    same_sp = sl_sp[:, None] == torch.arange(S)
+    n_valid = same_sp.sum(0)
+    n_alive = (sa[:, None] & same_sp).sum(0)
+    beta = float(t(beta))
+    lnfv, dself, dexcl = lnfv.double(), d_self.double(), d_excl.double()
+    c1d, cxd = c1.double(), cx.double()
+    col = torch.arange(N, device=dev)
+    site = torch.arange(A, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    rec = torch.zeros((8, 16), dtype=torch.float64, device=dev)
+    att = [0, 0, 0]
+    n_done = 0
+
+    def coef(r2):
+        r2s = torch.where(r2 > 1e-12, r2, torch.ones_like(r2))
+        r = torch.sqrt(r2s)
+        d1, _ = tk.damping(r, cfg.polar_damp, cfg.polar_damp_type)
+        return thole._field_coef(r, r2s, d1, paf, pkrc)
+
+    for k in range(uniforms.shape[0]):
+        uk = u_h[k]
+        ins = float(uk[8]) < p_half_h
+        dele = not ins and float(uk[8]) < p_ins_h
+        mt = 1 if ins else (2 if dele else 0)
+        su = min(int(uk[9] * S), S - 1) if S > 1 else 0
+        n_done += 1
+        att[mt] += 1
+        cnt = int(n_valid[su] - n_alive[su] if ins
+                  else (n_alive[su] if dele else n_alive.sum()))
+        if cnt == 0:                 # nothing to move: a stage-1 rejection
+            if trace is not None:
+                trace.append({"hit": False, "margin": math.inf, "pairs": 0,
+                              "in_old": 0, "in_new": 0, "phases": 0,
+                              "cols": 0})
+            continue
+        cnt_t = torch.tensor(float(cnt), dtype=dt)
+        j = int(torch.minimum(torch.floor(uk[0] * cnt_t), cnt_t - 1.0))
+        same = sl_sp == su
+        elig = ~sa & same if ins else (sa & same if dele else sa)
+        slot = int(torch.nonzero(elig)[j, 0])
+        start = int(sl_start[slot])
+        spf = su if ins or dele else int(sl_sp[slot])
+        na = int(na_s[spf])
+        rows = torch.clamp(start + site, max=N - 1)
+        site_ok = site < na
+        old = pos[rows]                                            # [A,3]
+        qi, ei, si = charge[rows], eps[rows], sig[rows]
+        mi = torch.where(site_ok, mass[rows], zero)
+        new = _trial_rows(old[None], mi[None],
+                          torch.tensor([ins], device=dev), uniforms[k:k + 1],
+                          tmpl[spf][None], box, mf, rotf)[0]
+        has_old, has_new = not ins, not dele
+        own = (col >= start) & (col < start + na)
+        ok = alive & ~own
+        m = ok[None, :] & site_ok[:, None]                         # [A,N]
+        dr_o = pbc_ops.min_image(old[:, None, :] - pos[None], box, box_inv)
+        dr_n = pbc_ops.min_image(new[:, None, :] - pos[None], box, box_inv)
+        r2_o = torch.sum(dr_o * dr_o, -1)
+        r2_n = torch.sum(dr_n * dr_n, -1)
+        m_o, m_n = m & has_old, m & has_new
+        sums = [_pair_sums(r2[None], mm[None], qi[None], ei[None], si[None],
+                           charge, eps, sig, rc, alpha, cfg)
+                for r2, mm in ((r2_o, m_o), (r2_n, m_n))]
+        drd = float(sums[1][0] - sums[0][0])
+        des = KE * float(sums[1][1] - sums[0][1])
+        mr2 = float(sums[1][2])
+        # the damped charge-field delta of the moved sites at every column,
+        # summed over the sites before it is squared (tile (a) of
+        # thole.field_delta, dr = r_a - r_j), and the column charges' field
+        # at the trial rows (tile (b)) and, for polar_ewald, at the old rows
+        in_o, in_n = m_o & (r2_o < rc2), m_n & (r2_n < rc2)
+        c_o = torch.where(in_o, coef(r2_o), zero)
+        c_n = torch.where(in_n, coef(r2_n), zero)
+        d_e = torch.sum(qi[:, None, None] * (c_o[..., None] * dr_o
+                                             - c_n[..., None] * dr_n), 0)
+        z_cols = torch.where(ok, polar, zero) * (
+            2.0 * torch.sum(e0 * d_e, 1) + torch.sum(d_e * d_e, 1))
+        z_others = float(z_cols.double().sum())
+        f = (torch.where(in_n, charge * c_n, zero)[..., None]
+             * dr_n).double().sum(1)                               # [A,3]
+        e0_old = e0[rows].double()
+        if field == 2 and has_old:
+            f = e0_old + f - (torch.where(in_o, charge * c_o, zero)[..., None]
+                              * dr_o).double().sum(1)
+        pol_i = torch.where(site_ok, polar[rows], zero).double()
+        z_new = float(torch.sum(pol_i * torch.sum(f * f, 1)))
+        z_old = float(torch.sum(pol_i * torch.sum(e0_old * e0_old, 1)))
+        d_surr = -0.5 * KE * (z_others + (z_new if has_new else 0.0)
+                              - (z_old if has_old else 0.0))
+        nk = kvecs.shape[0] if ew else 0
+        if ew:
+            qa = torch.where(site_ok, qi, zero)[:, None]
+
+            def trig(r, use):
+                ph = (r[:, 0:1] * kvecs[:, 0] + r[:, 1:2] * kvecs[:, 1]
+                      + r[:, 2:3] * kvecs[:, 2])                   # [A,Nk]
+                if not use:
+                    return torch.zeros_like(ph), torch.zeros_like(ph)
+                return torch.cos(ph), torch.sin(ph)
+
+            cn, sn = trig(new, has_new)
+            co, so = trig(old, has_old)
+            dsr = torch.sum(qa * (cn - co), 0)
+            dsi = torch.sum(qa * (sn - so), 0)
+            rec_t = kcoef * ((2.0 * sk_re + dsr) * dsr
+                             + (2.0 * sk_im + dsi) * dsi)
+        else:
+            rec_t = torch.zeros(0, dtype=dt, device=dev)
+        drec = float(rec_t.double().sum())
+        fins, fdel = float(ins), float(dele)
+        dslf = (fins - fdel) * float(dself[spf])
+        dexc = (fins - fdel) * float(dexcl[spf])
+        cx_dot = float(torch.sum(cxd[spf] * n_alive.to(cxd)))
+        c1s, cxs = float(c1d[spf]), float(cxd[spf, spf])
+        dlrc = fins * (c1s + cx_dot) - fdel * (c1s + cx_dot - cxs)
+        du = drd + des + drec + dslf + dexc + dlrc
+        n_s = float(n_alive[su])
+        lnb = 0.0
+        if ins:
+            lnb = float(lnfv[spf]) + math.log(beta) - math.log(n_s + 1.0)
+        elif dele:
+            lnb = (math.log(max(n_s, 1e-30)) - math.log(beta)
+                   - float(lnfv[spf]))
+        reject = float(thr2) > 0.0 and has_new and mr2 < float(thr2)
+        ln1 = lnb - beta * (du + d_surr)
+        margin = math.log(max(float(uk[4]), 1e-38)) - ln1
+        hit = not reject and margin < 0.0
+        if trace is not None:
+            def rss(*terms):         # root sum of squares of a sum's terms
+                return math.sqrt(sum(float(torch.sum(torch.where(
+                    a, v, zero).double() ** 2)) for a, v in terms
+                    if v is not None))
+
+            (rd_o, es_o, _, _), (rd_n, es_n, _, _) = [
+                pairs._tile_values(r2, qi[:, None], ei[:, None], si[:, None],
+                                   charge, eps, sig, cfg, rc, alpha)
+                for r2 in (r2_o, r2_n)]
+            passes = (has_old + has_new) * na
+            trace.append({"hit": hit, "margin": margin,
+                          "pairs": passes * int(ok.sum()),
+                          "in_old": int(in_o.sum()), "in_new": int(in_n.sum()),
+                          "phases": passes * nk, "cols": int(ok.sum()),
+                          "rss": [rss((in_o, rd_o), (in_n, rd_n)),
+                                  KE * rss((in_o, es_o), (in_n, es_n)),
+                                  rss((rec_t == rec_t, rec_t)),
+                                  0.5 * KE * rss((ok, z_cols))]})
+        if hit:
+            rec[0, 1:6] = torch.tensor([1.0, mt, slot, spf, float(uk[12])],
+                                       dtype=torch.float64)
+            rec[0, 9:11] = torch.tensor([d_surr, lnb], dtype=torch.float64)
+            rec[1, :6] = torch.tensor([drd, des, drec, dslf, dexc, dlrc],
+                                      dtype=torch.float64)
+            rec[2:5, :na] = new[:na].T.double()
+            break
+    rec[0, 0] = float(n_done)
+    rec[0, 6:9] = torch.tensor(att, dtype=torch.float64)
+    return rec
+
+
+def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
+                      slot_start, slot_species, slot_alive, tmpl, natoms,
+                      box, rc, alpha, beta, move_factor, rot_factor, thr2,
+                      p_ins, lnfv, d_self, d_excl, c1, cx, uniforms, cfg,
+                      kvecs=None, kcoef=None, sk_re=None, sk_im=None,
+                      field_alpha=0.0, field_krc=0.0):
+    """B6: up to K propose-and-filter µVT steps of one chain from a fixed
+    state, frozen at the first stage-1 survivor of the polar delayed
+    acceptance (csrc/pda_kernel.cu).
+
+    The state: ``pos`` [N,3], atom ``alive`` [N] bool, ``slot_alive``
+    [Ms] bool, the static field ``e0`` [N,3], ``sk_re``/``sk_im`` [Nk]
+    (ewald) — read, never written.  As B1 (``run_steps_uvt``, one chain):
+    per-atom ``eps``/``sig``/``charge``/``mass``, the slot table, ``tmpl``
+    [S,A,3], ``natoms`` [S], the per-species ``lnfv``, ``d_self``,
+    ``d_excl``, ``c1`` [S] and ``cx`` [S,S], ``box``, the scalars ``rc``,
+    ``alpha``, ``beta`` (1/T), ``move_factor``, ``rot_factor``, ``thr2``,
+    ``p_ins``, and ``kvecs``/``kcoef``.  Besides: the polarizabilities
+    ``polar`` [N], and ``field_alpha``/``field_krc``, the screened field
+    kernel's alpha and shift at rc (thole._field_variant_consts; unused
+    for the direct field).  ``uniforms`` [K,16]: lane 4 the stage-1 coin,
+    lane 12 the stage-2 coin recorded for the survivor.  ``cfg`` gives
+    the physics (rd, coulomb, mixing, the Thole damping, polar_wolf /
+    polar_ewald, ortho_box).
+
+    Returns the [8,16] float64 record in the reference's field order: row
+    0 n_done, hit, mtype (0/1/2 displace/insert/delete), slot_idx,
+    species, u2, the attempts of displace/insert/delete, d_surr, lnb, the
+    spinflip attempts (0); row 1 the deltas of rd, es_real, es_recip,
+    es_self, es_excl and lrc; rows 2-4 the survivor's trial rows x/y/z in
+    lanes 0..natoms-1.  Zero where no step survived."""
+    args = (pos, alive, eps, sig, charge, mass, polar, e0, slot_start,
+            slot_species, slot_alive, tmpl, natoms, box, rc, alpha, beta,
+            move_factor, rot_factor, thr2, p_ins, lnfv, d_self, d_excl, c1,
+            cx, uniforms, cfg)
+    if pos.device.type == "cpu":
+        return run_steps_uvt_pda_plain(
+            *args, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re, sk_im=sk_im,
+            field_alpha=field_alpha, field_krc=field_krc)
+    if pos.device.type != "cuda":
+        raise ValueError(f"run_steps_uvt_pda: no kernel for {pos.device}")
+    _refuse_pda(cfg)
+    dt, dev = pos.dtype, pos.device
+    N = pos.shape[0]
+    ms = slot_start.shape[0]
+    S, A = tmpl.shape[0], tmpl.shape[1]
+    K = uniforms.shape[0]
+    ew = cfg.coulomb == "ewald"
+    if A > MAX_SITES or S > MAX_SPECIES:
+        raise ValueError(f"run_steps_uvt_pda: {S} species of {A} sites (the "
+                         f"kernel takes <= {MAX_SPECIES} of <= {MAX_SITES})")
+    _check("pos", pos, dt, (N, 3), dev)
+    _check("alive", alive, torch.bool, (N,), dev)
+    for nm, x in (("eps", eps), ("sig", sig), ("charge", charge),
+                  ("mass", mass), ("polar", polar)):
+        _check(nm, x, dt, (N,), dev)
+    _check("e0", e0, dt, (N, 3), dev)
+    _check("slot_start", slot_start, torch.int32, (ms,), dev)
+    _check("slot_species", slot_species, torch.int32, (ms,), dev)
+    _check("slot_alive", slot_alive, torch.bool, (ms,), dev)
+    _check("tmpl", tmpl, dt, (S, A, 3), dev)
+    _check("natoms", natoms, torch.int32, (S,), dev)
+    for nm, x in (("lnfv", lnfv), ("d_self", d_self), ("d_excl", d_excl),
+                  ("c1", c1)):
+        _check(nm, x, dt, (S,), dev)
+    _check("cx", cx, dt, (S, S), dev)
+    _check("uniforms", uniforms, dt, (K, 16), dev)
+    _check("box", box, dt, (3, 3), dev)
+    if ew:
+        nk = kvecs.shape[0]
+        _check("kvecs", kvecs, dt, (nk, 3), dev)
+        _check("kcoef", kcoef, dt, (nk,), dev)
+        sk = torch.stack([sk_re, sk_im]).to(dt).contiguous()       # [2,Nk]
+    else:
+        nk = 0
+        sk = torch.empty((2, 0), dtype=dt, device=dev)
+    dsk = torch.empty_like(sk)
+
+    def s1(x):      # a device fill or a view: no host-to-device copy
+        if torch.is_tensor(x):
+            return x.to(dt).reshape(1)
+        return torch.full((1,), float(x), dtype=dt, device=dev)
+
+    scal = torch.cat([s1(rc), s1(alpha), s1(move_factor), s1(rot_factor),
+                      s1(thr2), s1(p_ins), s1(beta), s1(cfg.polar_damp),
+                      s1(field_alpha), s1(field_krc), box.reshape(-1),
+                      torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
+    rec = torch.zeros((8, 16), dtype=torch.float64, device=dev)
+    from mpmc_tpu_torch.ops.cuda import _build
+    fn = getattr(_build.library("pda_kernel"),
+                 "run_steps_uvt_pda_" + _suffix(dt))
+    nullp = ctypes.c_void_p(None)
+    err = fn(_ptr(pos), _ptr(alive), _ptr(eps), _ptr(sig), _ptr(charge),
+             _ptr(mass), _ptr(polar), _ptr(e0), _ptr(slot_start),
+             _ptr(slot_species), _ptr(slot_alive), _ptr(tmpl), _ptr(natoms),
+             _ptr(scal), _ptr(lnfv), _ptr(d_self), _ptr(d_excl), _ptr(c1),
+             _ptr(cx), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
+             _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
+             _ptr(dsk) if ew else nullp, _ptr(rec), N, ms, S, A, K, nk,
+             _RD[cfg.rd_potential], _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
+             int(bool(cfg.ortho_box)), tk._DAMP[cfg.polar_damp_type],
+             _pda_field(cfg), ctypes.c_double(KE), _stream(dev))
+    run_steps_uvt_pda.launches += 1
+    _raise_on(err, "run_steps_uvt_pda")
+    return rec
+
+
+run_steps_uvt_pda.launches = 0
+
+
 def reset_counts():
-    """Zero both fused kernels' launch counters."""
+    """Zero the fused kernels' launch counters (B1, B3 and B6)."""
     run_steps_uvt.launches = 0
     run_steps.launches = 0
+    run_steps_uvt_pda.launches = 0

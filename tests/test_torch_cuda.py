@@ -1,6 +1,7 @@
 """The CUDA kernels (the pair kernels B2/B4, the fused µVT kernel B1, the
-fused NVT/NVE kernel B3 and the Thole field kernel B5) against their plain
-versions on the card.
+fused NVT/NVE kernel B3, the Thole field kernel B5 and the polar
+delayed-acceptance stage-1 kernel B6) against their plain versions on the
+card.
 
 These need a CUDA device and ``nvcc``; they skip elsewhere.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -232,3 +233,90 @@ def test_thole_kernel_matches_plain(device, dtype, mode):
     assert 0 < float(visit.float().mean()) < 1
     culled = check(args, True, visit)
     assert torch.equal(culled, kern(*args, ortho=True))
+
+
+PDA_FIELDS = {"direct": {}, "wolf": {"polar_wolf": True},
+              "ewald": {"polar_ewald": True}}
+
+
+def pda_survivor_free(launch, u, rng):
+    """``u`` [K,16] with every stage-1 coin 1 - 1e-7 and each row that
+    still survives (a move with ln(acceptance) > ln u) drawn anew until
+    the kernel runs all K rows: B6 never changes the state, so each row
+    decides alone.  ``launch(u)`` returns B6's record."""
+    u = u.clone()
+    u[:, 4] = 1.0 - 1e-7
+    for _ in range(400):
+        rec = launch(u)
+        if rec[0, 1] < 0.5:
+            return u
+        k = int(rec[0, 0]) - 1
+        u[k] = torch.as_tensor(rng.random(16), dtype=u.dtype)
+        u[k, 4] = 1.0 - 1e-7
+    raise AssertionError("no survivor-free table found")
+
+
+@pytest.mark.parametrize("field", list(PDA_FIELDS))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pda_kernel_matches_plain(device, dtype, field):
+    """B6 against its plain version on the polar MOF + H2 system (1,120
+    sites, jittered, initialized under the field variant): a table per
+    move type whose step 0 survives (stage-1 coin 1e-30), a table of
+    natural coins and a survivor-free table (all 16 steps run).  Equal:
+    n_done, hit, mtype, slot, species and attempts; rows within 1e-9 A
+    (f64) / 1e-4 A (f32); the deltas, d* and lnb within rel 1e-10 + 1e-8 K
+    (f64) / 2e-5 + 1e-3 K + 8 float32 epsilons x the root sum of squares
+    of the summed terms (f32: the plain trace's rss, the scale of the two
+    versions' per-term rounding)."""
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=6, n_h2=20, capacity=40, polarization=True, dtype=dtype,
+        device=device)
+    cfg = dataclasses.replace(cfg, polar_delayed=True, fused_mc=True,
+                              **PDA_FIELDS[field])
+    state = metropolis.initialize(systems.jittered(params, state, 5),
+                                  params, cfg, thermo)
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    rng = np.random.default_rng(3)
+    f64 = dtype == "float64"
+
+    def table(u):
+        return torch.as_tensor(u, dtype=cfg.tdtype, device=device)
+
+    def launch(u):
+        args, kw = metropolis.pda_launch_args(state, params, cfg, thermo, u,
+                                              tables)
+        return mk.run_steps_uvt_pda(*args, **kw).cpu().numpy(), args, kw
+
+    us = []
+    for lane8 in (0.9, 0.1, 0.4):
+        u = rng.random((mk.PDA_SEG, 16))
+        u[0, 4], u[0, 8] = 1e-30, lane8
+        us.append(table(u))
+    us.append(table(rng.random((mk.PDA_SEG, 16))))
+    us.append(pda_survivor_free(lambda u: launch(u)[0],
+                                table(rng.random((mk.PDA_SEG, 16))), rng))
+    hits = 0
+    for u in us:
+        before = mk.run_steps_uvt_pda.launches
+        k, args, kw = launch(u)
+        torch.cuda.synchronize(device)
+        assert mk.run_steps_uvt_pda.launches == before + 1
+        trace = []
+        p = mk.run_steps_uvt_pda_plain(*args, **kw,
+                                       trace=trace).cpu().numpy()
+        np.testing.assert_array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8]],
+                                      p[0, [0, 1, 2, 3, 4, 6, 7, 8]])
+        np.testing.assert_allclose(k[2:5], p[2:5], rtol=0,
+                                   atol=1e-9 if f64 else 1e-4)
+        vals = np.concatenate([k[1, :6], k[0, 9:11]])
+        want = np.concatenate([p[1, :6], p[0, 9:11]])
+        rss = np.zeros(8)
+        if trace and trace[-1].get("rss"):
+            rss[[0, 1, 2, 6]] = trace[-1]["rss"]
+        tol = (1e-10 * np.abs(want) + 1e-8 if f64
+               else 2e-5 * np.abs(want) + 1e-3
+               + 8 * np.finfo(np.float32).eps * rss)
+        assert (np.abs(vals - want) <= tol).all(), (vals, want)
+        hits += int(k[0, 1])
+    assert hits >= 3
+    assert k[0, 0] == mk.PDA_SEG and k[0, 1] == 0     # survivor-free

@@ -2,8 +2,8 @@
 polarization, plain Metropolis and delayed acceptance) against the JAX
 package: a step replay of a polar GCMC chunk, the carried energy against a
 fresh recompute, a polar deck through run_mc on the CPU, and the routing
-of polar_delayed under fused_mc (the fused polar DA kernel B6 is refused,
-ROADMAP A10b; where its gate refuses, the scan-path DA runs)."""
+of polar_delayed under fused_mc (the fused polar DA path over B6 where its
+gate holds; where it refuses, the scan-path DA)."""
 import dataclasses
 import io
 import json
@@ -17,12 +17,10 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from mpmc_tpu.ops import thole as jt  # noqa: E402
-from mpmc_tpu_torch.io import input_script, pqr  # noqa: E402
 from mpmc_tpu_torch.mc import metropolis as tm  # noqa: E402
 from mpmc_tpu_torch.mc import run as trun  # noqa: E402
-from mpmc_tpu_torch.models import systems as tsystems  # noqa: E402
 from mpmc_tpu_torch.state import mol_rows  # noqa: E402
-from torch_polar import mof_polar, to_np  # noqa: E402
+from torch_polar import mof_polar, polar_deck as _polar_deck, to_np  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -151,25 +149,6 @@ def test_polar_chunk_bookkeeping(delayed):
                                atol=1e-8)
 
 
-def _polar_deck(tmp_path, extra="", numsteps=200, precision="float64"):
-    """A small polar GCMC deck (the MOF + H2 system, n_side 3) written to
-    tmp_path; returns the parsed Job."""
-    params, state, _, _ = tsystems.mof_h2_gcmc(
-        n_side=3, n_h2=6, capacity=12, polarization=True, device="cpu")
-    pqr.write_state(str(tmp_path / "polar.pqr"), params, state, ["H2"])
-    L = float(state.box[0, 0])
-    text = (f"ensemble uvt\nnumsteps {numsteps}\ncorrtime 100\nseed 3\n"
-            f"temperature 77\npressure 20.0\nbasis1 {L} 0 0\n"
-            f"basis2 0 {L} 0\nbasis3 0 0 {L}\ninsert_probability 0.5\n"
-            "cavity_autoreject_absolute 1.0\nmax_molecules 12\n"
-            "allow_charged_cell on\npolarization on\n"
-            f"precision {precision}\n"
-            f"pqr_input {tmp_path / 'polar.pqr'}\n"
-            f"pqr_restart {tmp_path / 'restart.pqr'}\n" + extra)
-    (tmp_path / "deck.inp").write_text(text)
-    return input_script.parse_file(str(tmp_path / "deck.inp"))
-
-
 def test_polar_deck_runs_through_run_mc(tmp_path):
     """A polar deck through run_mc on the CPU: the polar_rrms_debye and
     CG-iteration observables in the JSONL stream, and the dipole and
@@ -198,13 +177,17 @@ def test_polar_deck_runs_through_run_mc(tmp_path):
 
 def test_fused_polar_delayed_is_refused_as_a10b(tmp_path):
     """polar_delayed with fused_mc, where the reference takes its fused
-    polar DA kernel (B6: float32, the CG solver, a delta-able field),
-    raises NotImplementedError naming ROADMAP A10b — never a silent scan
-    path."""
+    polar DA kernel (B6: float32, the CG solver, a delta-able field), is
+    no longer refused as ROADMAP A10b: run_mc takes the fused polar DA
+    path with the reference's log line, and never a silent scan path."""
     job = _polar_deck(tmp_path, "polar_delayed on\nfused_mc on\n",
-                      precision="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b$"):
-        trun.run_mc(job, log=io.StringIO(), device="cpu")
+                      numsteps=100, precision="float32")
+    buf = io.StringIO()
+    su, avgs = trun.run_mc(job, log=buf, device="cpu")
+    assert ("fused_mc: polar delayed-acceptance stage-1 kernel (exact SCF "
+            "stage 2 per survivor)") in buf.getvalue()
+    assert "WARNING" not in buf.getvalue()
+    assert su.state.step >= 100 and np.isfinite(avgs.mean("energy_polar"))
 
 
 def test_fused_polar_delayed_refused_by_gate_runs_scan_da(tmp_path):
