@@ -8,16 +8,20 @@ Phases (any failure raises, so the exit code is non-zero):
 3. kernels — B2 (pair_terms) and B4 (mol_pair) against their plain
    PyTorch versions on the 10.8k-atom bench system (MOF lattice n_side=21
    + 512 H2 slots), float32 and float64, with CUDA-event timings;
-4. B1 — the fused µVT kernel (run_steps_uvt) against its plain version on
-   the same system: one numpy-seeded [C=2, K=256, 16] uniform table in
-   float64 and float32 (the same decisions, positions and sums within
-   the stated tolerances), each chain of the C = 2 launch against a C = 1
-   launch on its own block, and CUDA-event timings;
+4. B1 — the fused µVT kernel (run_steps_uvt, one thread-block cluster of
+   G CTAs per chain) against its plain version on the same system, at
+   every cluster size G whose slice fits: one numpy-seeded [C=2, K=256,
+   16] uniform table in float64 and float32 (the same decisions,
+   positions and sums within the stated tolerances), each chain of the
+   C = 2 launch against a C = 1 launch on its own block at the same G,
+   and CUDA-event timings of 1000-step launches at C = 1 and C = 32, at
+   each G and at the G the wrapper picks;
 4b. B3 — the fused NVT kernel (run_steps) against its plain version on
    the 10.0k MOF + H2 NVT system and the 10k LJ fluid, each after 2,000
    steps off its lattice: a numpy-seeded [2, 256, 16] table in float64 and
-   float32 (B1's checks and tolerances), NVE on the LJ fluid, and
-   CUDA-event timings beside the bound;
+   float32 at every G (B1's checks and tolerances), NVE on the LJ fluid,
+   and CUDA-event timings of 1000-step launches (MOF at C = 1 and 16, LJ
+   at C = 1) beside the bound;
 5. energy — total_energy on the card (float32, kernels) against the port
    on the CPU (float64, plain), term by term;
 6. scan path — the 10.8k system written to PQR and run as a GCMC deck
@@ -372,8 +376,28 @@ def _first_divergence(counts_of, trace, K):
     return step, chain, float(abs(trace[step]["margin"][chain]))
 
 
-def phase_uvt_kernel(device, C=2, K=256, seed=2024):
-    """B1 against its plain version on one numpy-seeded [C, K, 16] table.
+def _time_steps(launch, device, K, n=5):
+    """Kernel ms per step of a K-step launch (CUDA events around each
+    launch, median of n; a launch of K = 1000 steps lasts milliseconds, so
+    the wrapper's host time is a small part of it)."""
+    return time_calls(launch, device, n=n) / K
+
+
+def _resident(entry, sfx):
+    """{shape: {G: clusters resident at once}} of one B1/B3 entry, from
+    the wrapper's occupancy queries."""
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    out = {}
+    for key, n in sorted(mk.occupancy.items()):
+        if key[:2] == (entry, sfx):
+            out.setdefault(str(key[2:-1]), {})[key[-1]] = n
+    return out
+
+
+def phase_uvt_kernel(device, C=2, K=256, seed=2024, k_time=1000):
+    """B1 against its plain version on one numpy-seeded [C, K, 16] table,
+    at every cluster size G whose slice fits (16, 8, 4 and 2 in float32;
+    16, 8 and 4 in float64).
 
     float64: identical move counts and aliveness, positions within 1e-9 A,
     sums within rel 1e-10 (abs 1e-8 K where a sum cancels to ~0).
@@ -382,13 +406,16 @@ def phase_uvt_kernel(device, C=2, K=256, seed=2024):
     the phases k.r reach ~44 rad, whose float32 spacing (3.8e-6 rad) moves
     each accepted move's reciprocal delta by up to ~1e-3 K, and the kernel
     contracts multiply-adds into FMAs where the plain version rounds
-    twice.  Every chain of the C = 2 launch must equal, bit for bit, a
-    C = 1 launch on its own block.  Returns the kernel's report entry."""
+    twice.  At each G, every chain of the C = 2 launch must equal, bit for
+    bit, a C = 1 launch on its own block at the same G.  Times (float32,
+    CUDA events, launches of ``k_time`` steps, per step): one chain and 32
+    chains, at each G and at the G the wrapper picks, beside the plain
+    version's time and the bound.  Returns the kernel's report entry."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     from mpmc_tpu_torch.parallel import multichain
     u_np = np.random.default_rng(seed).random((C, K, 16))
-    rep = {"max_abs_err": 0.0}
+    rep = {"max_abs_err": 0.0, "checked_G": {}}
     for dtype in ("float64", "float32"):
         params, state, cfg, thermo = bench_system(dtype, device)
         state = metropolis.initialize(state, params, cfg, thermo)
@@ -397,71 +424,106 @@ def phase_uvt_kernel(device, C=2, K=256, seed=2024):
         args, kw = metropolis.fused_uvt_launch_args(
             multichain.stack_states(state, C), params, cfg, thermo, u,
             tables)
-        k = mk.run_steps_uvt(*args, **kw)
-        torch.cuda.synchronize(device)
         trace = []
         p = mk.run_steps_uvt_plain(*args, **kw, trace=trace)
-        ks, ps = k[2].cpu().numpy(), p[2].cpu().numpy()
-        log(f"B1 {dtype} C={C} K={K}: kernel counts {ks[:, 6:12].tolist()}"
-            f" plain {ps[:, 6:12].tolist()}")
-        if not (np.array_equal(ks[:, 6:12], ps[:, 6:12])
-                and torch.equal(k[1], p[1])):
-            step, chain, margin = _first_divergence(
-                lambda n: mk.run_steps_uvt(
-                    *args[:24], args[24][:, :n].contiguous(), args[25],
-                    **kw)[2][:, 6:9].sum(1).long().cpu(), trace, K)
-            raise AssertionError(
-                f"B1 {dtype}: decisions differ from the plain version; "
-                f"first at step {step} of chain {chain}, |ln u - ln acc| = "
-                f"{margin:.3e}")
+        ps = p[2].cpu().numpy()
         f64 = dtype == "float64"
         n_acc = ps[:, 6:9].sum(1, keepdims=True)
         tol = (np.maximum(1e-10 * np.abs(ps[:, :6]), 1e-8) if f64 else
                2e-5 * np.abs(ps[:, :6]) + 2e-3 * np.sqrt(n_acc + 1.0))
-        d_sums = np.abs(ks[:, :6] - ps[:, :6])
-        d_pos = float((k[0] - p[0]).abs().max())
-        d_sk = max(float((a - b).abs().max()) for a, b in zip(k[3:], p[3:]))
-        for c in range(C):
-            log("    sums kernel " + " ".join(f"{x: .8e}" for x in ks[c, :6])
-                + "\n    sums plain  "
-                + " ".join(f"{x: .8e}" for x in ps[c, :6]))
-        log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
-            f"{tol.max():.3e}), pos {d_pos:.3e} A, S(k) {d_sk:.3e}")
         sk_tol = 1e-9 if f64 else 1e-4 * (1.0 + float(p[3].abs().max()))
-        if not (np.all(d_sums <= tol) and d_pos <= (1e-9 if f64 else 1e-4)
-                and d_sk <= sk_tol):
-            raise AssertionError(f"B1 {dtype} disagrees with its plain "
-                                 "version")
-        rep["max_abs_err"] = max(rep["max_abs_err"], float(d_sums.max()),
-                                 d_pos, d_sk)
-        # chain c of the C-chain launch == a C = 1 launch on its block
-        singles = []
-        for c in range(C):
-            a1, kw1 = metropolis.fused_uvt_launch_args(
-                multichain.stack_states(state, 1), params, cfg, thermo,
-                u[c:c + 1], tables)
-            one = mk.run_steps_uvt(*a1, **kw1)
-            if not all(torch.equal(x[0], y[c]) for x, y in zip(one, k)):
-                raise AssertionError(f"B1 {dtype}: chain {c} of the C={C} "
-                                     "launch differs from its C=1 launch")
-            singles.append((a1, kw1))
-        log(f"    every chain equals its C=1 launch bit for bit")
-        if not f64:
-            a1, kw1 = singles[0]
-            ms = time_calls(lambda: mk.run_steps_uvt(*a1, **kw1), device,
-                            n=10) / K
-            pms = time_calls(lambda: mk.run_steps_uvt_plain(*a1, **kw1),
-                             device, n=2) / K
-            ops = _fused_ops(trace, cfg, kw1["kvecs"].shape[0])
-            # each input read once; out: pos, atom alive, slot alive,
-            # S(k) and the sums written once
-            n_in = _nbytes(*a1[:25], *kw1.values())
-            n_out = _nbytes(one[0], a1[1], one[1], one[2], *one[3:])
-            bound, by = _bound_ms(ops, n_in + n_out)
-            rep.update(ms=ms, plain_ms=pms, bound_ms=bound / K, bound_by=by)
-            log(f"B1 f32 C=1: kernel {ms * 1e3:.2f} us/step, plain "
-                f"{pms * 1e3:.1f} us/step, bound {bound / K * 1e3:.4f} "
-                f"us/step ({by}; {ops / K:.3e} ops/step)")
+        n_all, nk, n_slots = (state.pos.shape[0], kw["kvecs"].shape[0],
+                              args[6].shape[0])
+        # every G that fits, largest first: the main paths use 16 for one
+        # chain and, as the card's resident clusters allow, fewer for more
+        sizes = mk.fitting_cluster_sizes(n_all, cfg.tdtype, nk,
+                                         n_slots)[::-1]
+        rep["checked_G"][dtype] = sizes
+        for G in sizes:
+            k = mk.run_steps_uvt(*args, **kw, cluster=G)
+            torch.cuda.synchronize(device)
+            ks = k[2].cpu().numpy()
+            log(f"B1 {dtype} G={G} C={C} K={K}: kernel counts "
+                f"{ks[:, 6:12].tolist()} plain {ps[:, 6:12].tolist()}")
+            if not (np.array_equal(ks[:, 6:12], ps[:, 6:12])
+                    and torch.equal(k[1], p[1])):
+                step, chain, margin = _first_divergence(
+                    lambda n: mk.run_steps_uvt(
+                        *args[:24], args[24][:, :n].contiguous(), args[25],
+                        **kw, cluster=G)[2][:, 6:9].sum(1).long().cpu(),
+                    trace, K)
+                raise AssertionError(
+                    f"B1 {dtype} G={G}: decisions differ from the plain "
+                    f"version; first at step {step} of chain {chain}, "
+                    f"|ln u - ln acc| = {margin:.3e}")
+            d_sums = np.abs(ks[:, :6] - ps[:, :6])
+            d_pos = float((k[0] - p[0]).abs().max())
+            d_sk = max(float((a - b).abs().max())
+                       for a, b in zip(k[3:], p[3:]))
+            for c in range(C):
+                log("    sums kernel "
+                    + " ".join(f"{x: .8e}" for x in ks[c, :6])
+                    + "\n    sums plain  "
+                    + " ".join(f"{x: .8e}" for x in ps[c, :6]))
+            log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
+                f"{tol.max():.3e}), pos {d_pos:.3e} A, S(k) {d_sk:.3e}")
+            if not (np.all(d_sums <= tol)
+                    and d_pos <= (1e-9 if f64 else 1e-4) and d_sk <= sk_tol):
+                raise AssertionError(f"B1 {dtype} G={G} disagrees with its "
+                                     "plain version")
+            rep["max_abs_err"] = max(rep["max_abs_err"], float(d_sums.max()),
+                                     d_pos, d_sk)
+            # chain c of the C-chain launch == a C = 1 launch on its block,
+            # both at this G
+            for c in range(C):
+                a1, kw1 = metropolis.fused_uvt_launch_args(
+                    multichain.stack_states(state, 1), params, cfg, thermo,
+                    u[c:c + 1], tables)
+                one = mk.run_steps_uvt(*a1, **kw1, cluster=G)
+                if not all(torch.equal(x[0], y[c]) for x, y in zip(one, k)):
+                    raise AssertionError(
+                        f"B1 {dtype} G={G}: chain {c} of the C={C} launch "
+                        "differs from its C=1 launch")
+            log(f"    G={G}: every chain equals its C=1 launch bit for bit")
+        if f64:
+            continue
+        a1, kw1 = metropolis.fused_uvt_launch_args(
+            multichain.stack_states(state, 1), params, cfg, thermo, u[:1],
+            tables)
+        one = mk.run_steps_uvt(*a1, **kw1)
+        pms = time_calls(lambda: mk.run_steps_uvt_plain(*a1, **kw1),
+                         device, n=2) / K
+        ops = _fused_ops(trace, cfg, nk)
+        # each input read once; out: pos, atom alive, slot alive, S(k)
+        # and the sums written once
+        n_in = _nbytes(*a1[:25], *kw1.values())
+        n_out = _nbytes(one[0], a1[1], one[1], one[2], *one[3:])
+        bound, by = _bound_ms(ops, n_in + n_out)
+        rep.update(plain_ms=pms, bound_ms=bound / K, bound_by=by)
+        for chains in (1, 32):
+            ut = torch.as_tensor(np.random.default_rng(seed + chains).random(
+                (chains, k_time, 16)), dtype=cfg.tdtype, device=device)
+            at, kwt = metropolis.fused_uvt_launch_args(
+                multichain.stack_states(state, chains), params, cfg, thermo,
+                ut, tables)
+            by_g = {G: _time_steps(
+                lambda: mk.run_steps_uvt(*at, **kwt, cluster=G), device,
+                k_time) for G in sizes}
+            ms_step = _time_steps(lambda: mk.run_steps_uvt(*at, **kwt),
+                                  device, k_time)
+            G = mk.run_steps_uvt.last_cluster
+            rep[f"c{chains}"] = {"G": G, "ms": ms_step, "by_G": by_g}
+            log(f"B1 f32 C={chains}: kernel {ms_step * 1e3:.3f} us per step"
+                f" at its G={G} ({k_time}-step launches); by G: "
+                + ", ".join(f"{g} {t * 1e3:.3f}" for g, t in by_g.items()))
+        rep.update(ms=rep["c1"]["ms"],
+                   cluster=f"G={rep['c1']['G']} (C=1), "
+                   f"G={rep['c32']['G']} (C=32)")
+        log("B1 f32 resident clusters by G (cudaOccupancyMaxActiveClusters):"
+            f" {_resident('uvt_occupancy', 'f32')}")
+        log(f"B1 f32 C=1: kernel {rep['ms'] * 1e3:.3f} us/step, plain "
+            f"{pms * 1e3:.1f} us/step, bound {bound / K * 1e3:.4f} us/step "
+            f"({by}; {ops / K:.3e} ops/step)")
     return rep
 
 
@@ -491,11 +553,14 @@ def nvt_system(kind, dtype, device, seed=31, warm_steps=2000):
             thermo)
 
 
-def _nvt_check(label, system, u_np, device, rep, trace_out=None):
+def _nvt_check(label, system, u_np, device, rep, trace_out=None,
+               sizes=None):
     """B3 against its plain version on the table ``u_np`` [C, K, 16] for
-    the stacked copies of ``system``'s state; then every chain against a
-    C = 1 launch on its own block, bit for bit.  Tolerances as for B1.
-    Returns the C = 1 launch arguments of chain 0."""
+    the stacked copies of ``system``'s state, at each cluster size G of
+    ``sizes`` (None: every G whose slice fits); at each G every chain
+    against a C = 1 launch on its own block at the same G, bit for bit.
+    Tolerances as for B1.  Returns {G: (the C = 1 launch arguments of
+    chain 0, its outputs)}."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     from mpmc_tpu_torch.parallel import multichain
@@ -506,71 +571,87 @@ def _nvt_check(label, system, u_np, device, rep, trace_out=None):
     u = torch.as_tensor(u_np, dtype=cfg.tdtype, device=device)
     args, kw = metropolis.fused_nvt_launch_args(
         multichain.stack_states(state, C), params, cfg, thermo, u, tables)
-    k = mk.run_steps(*args, **kw)
-    torch.cuda.synchronize(device)
     trace = [] if trace_out is None else trace_out
     p = mk.run_steps_plain(*args, **kw, trace=trace)
-    ks, ps = k[1].cpu().numpy(), p[1].cpu().numpy()
-    log(f"B3 {label} C={C} K={K}: kernel accepts {ks[:, 3].tolist()} plain "
-        f"{ps[:, 3].tolist()}")
-    if not np.array_equal(ks[:, 3], ps[:, 3]):
-        step, chain, margin = _first_divergence(
-            lambda n: mk.run_steps(*args[:15], args[15][:, :n].contiguous(),
-                                   args[16], **kw)[1][:, 3].long().cpu(),
-            trace, K)
-        raise AssertionError(
-            f"B3 {label}: decisions differ from the plain version; first at "
-            f"step {step} of chain {chain}, |ln u - ln acc| = {margin:.3e}")
+    ps = p[1].cpu().numpy()
+    ew = cfg.coulomb == "ewald"
+    nk = kw["kvecs"].shape[0] if ew else 0
     n_acc = ps[:, 3:4]
     tol = (np.maximum(1e-10 * np.abs(ps[:, :3]), 1e-8) if f64 else
            2e-5 * np.abs(ps[:, :3]) + 2e-3 * np.sqrt(n_acc + 1.0))
-    d_sums = np.abs(ks[:, :3] - ps[:, :3])
-    d_pos = float((k[0] - p[0]).abs().max())
-    d_sk = (max(float((a - b).abs().max()) for a, b in zip(k[2:], p[2:]))
-            if cfg.coulomb == "ewald" else 0.0)
-    for c in range(C):
-        log("    sums kernel " + " ".join(f"{x: .8e}" for x in ks[c, :3])
-            + "\n    sums plain  " + " ".join(f"{x: .8e}" for x in ps[c, :3]))
-    log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
-        f"{tol.max():.3e}), pos {d_pos:.3e} A, S(k) {d_sk:.3e}")
-    sk_tol = (1e-9 if f64 else 1e-4 * (1.0 + float(p[2].abs().max()))
-              if cfg.coulomb == "ewald" else 0.0)
-    if not (np.all(d_sums <= tol) and d_pos <= (1e-9 if f64 else 1e-4)
-            and d_sk <= sk_tol):
-        raise AssertionError(f"B3 {label} disagrees with its plain version")
-    rep["max_abs_err"] = max(rep["max_abs_err"], float(d_sums.max()), d_pos,
-                             d_sk)
-    first = None
-    for c in range(C):
-        a1, kw1 = metropolis.fused_nvt_launch_args(
-            multichain.stack_states(state, 1), params, cfg, thermo,
-            u[c:c + 1], tables)
-        one = mk.run_steps(*a1, **kw1)
-        if not all(x is None or torch.equal(x[0], y[c])
-                   for x, y in zip(one, k)):
-            raise AssertionError(f"B3 {label}: chain {c} of the C={C} "
-                                 "launch differs from its C=1 launch")
-        if c == 0:
-            first = (a1, kw1, one)
-    if C > 1:
-        log("    every chain equals its C=1 launch bit for bit")
-    return first
+    sk_tol = ((1e-9 if f64 else 1e-4 * (1.0 + float(p[2].abs().max())))
+              if ew else 0.0)
+    if sizes is None:
+        sizes = mk.fitting_cluster_sizes(state.pos.shape[0], cfg.tdtype,
+                                         nk)[::-1]
+    firsts = {}
+    for G in sizes:
+        k = mk.run_steps(*args, **kw, cluster=G)
+        torch.cuda.synchronize(device)
+        ks = k[1].cpu().numpy()
+        log(f"B3 {label} G={G} C={C} K={K}: kernel accepts "
+            f"{ks[:, 3].tolist()} plain {ps[:, 3].tolist()}")
+        if not np.array_equal(ks[:, 3], ps[:, 3]):
+            step, chain, margin = _first_divergence(
+                lambda n: mk.run_steps(
+                    *args[:15], args[15][:, :n].contiguous(), args[16],
+                    **kw, cluster=G)[1][:, 3].long().cpu(), trace, K)
+            raise AssertionError(
+                f"B3 {label} G={G}: decisions differ from the plain "
+                f"version; first at step {step} of chain {chain}, |ln u - "
+                f"ln acc| = {margin:.3e}")
+        d_sums = np.abs(ks[:, :3] - ps[:, :3])
+        d_pos = float((k[0] - p[0]).abs().max())
+        d_sk = (max(float((a - b).abs().max())
+                    for a, b in zip(k[2:], p[2:])) if ew else 0.0)
+        for c in range(C):
+            log("    sums kernel " + " ".join(f"{x: .8e}" for x in ks[c, :3])
+                + "\n    sums plain  "
+                + " ".join(f"{x: .8e}" for x in ps[c, :3]))
+        log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
+            f"{tol.max():.3e}), pos {d_pos:.3e} A, S(k) {d_sk:.3e}")
+        if not (np.all(d_sums <= tol) and d_pos <= (1e-9 if f64 else 1e-4)
+                and d_sk <= sk_tol):
+            raise AssertionError(f"B3 {label} G={G} disagrees with its "
+                                 "plain version")
+        rep["max_abs_err"] = max(rep["max_abs_err"], float(d_sums.max()),
+                                 d_pos, d_sk)
+        for c in range(C):
+            a1, kw1 = metropolis.fused_nvt_launch_args(
+                multichain.stack_states(state, 1), params, cfg, thermo,
+                u[c:c + 1], tables)
+            one = mk.run_steps(*a1, **kw1, cluster=G)
+            if not all(x is None or torch.equal(x[0], y[c])
+                       for x, y in zip(one, k)):
+                raise AssertionError(f"B3 {label} G={G}: chain {c} of the "
+                                     f"C={C} launch differs from its C=1 "
+                                     "launch")
+            if c == 0:
+                firsts[G] = (a1, kw1, one)
+        if C > 1:
+            log(f"    G={G}: every chain equals its C=1 launch bit for bit")
+    return firsts
 
 
-def phase_nvt_kernel(device, C=2, K=256, seed=2025):
+def phase_nvt_kernel(device, C=2, K=256, seed=2025, k_time=1000):
     """B3 against its plain version on both full-width systems, after
     they have run (nvt_system), in float64 and float32, on one
-    numpy-seeded [C, K, 16] table: identical decisions, sums within the
-    B1 tolerances, each chain of the C = 2 launch equal to its C = 1
-    launch bit for bit; NVE on the LJ fluid (C = 1) at the reference's
+    numpy-seeded [C, K, 16] table, at every cluster size G whose slice
+    fits: identical decisions, sums within the B1 tolerances, each chain
+    of the C = 2 launch equal to its C = 1 launch at the same G bit for
+    bit; NVE on the LJ fluid (C = 1, at one chain's G) at the reference's
     reservoir of 180 K per atom, whose effective temperature (2/3 of it)
     is the thermo's 120 K, and at NVE_K_FAR per atom, where Ray's rule
     must decide apart from Metropolis (its accept count differs from the
     NVT launch's on the same rows); and the kernel's time (CUDA events,
-    median of 10 launches of K steps, per step) beside its bound and the
-    plain version's time.  Returns the kernel's report entry (times of
-    the MOF system)."""
+    median of 5 launches of ``k_time`` steps, per step): the MOF system
+    at one chain and 16 chains, the LJ fluid at one chain, at each G and
+    at the G the wrapper picks, beside the bound and the plain version's
+    time.  Returns the kernel's report entry (times of the MOF system at
+    C = 1)."""
+    from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
     u_np = np.random.default_rng(seed).random((C, K, 16))
     rep = {"max_abs_err": 0.0}
     for kind in ("mof", "lj"):
@@ -578,8 +659,14 @@ def phase_nvt_kernel(device, C=2, K=256, seed=2025):
             system = nvt_system(kind, dtype, device)
             params, state, cfg, thermo = system
             trace = []
-            a1, kw1, one = _nvt_check(f"{kind} {dtype}", system, u_np,
-                                      device, rep, trace_out=trace)
+            firsts = _nvt_check(f"{kind} {dtype}", system, u_np, device,
+                                rep, trace_out=trace)
+            # the G the wrapper picks for one chain, from a default launch
+            a1, kw1, _ = next(iter(firsts.values()))
+            nk = 0 if kw1["kvecs"] is None else kw1["kvecs"].shape[0]
+            mk.run_steps(*a1, **kw1)
+            G1 = mk.run_steps.last_cluster
+            a1, kw1, one = firsts[G1]
             if kind == "lj":
                 e = state.reported_energy().total
                 nve_cfg = dataclasses.replace(cfg, ensemble="nve")
@@ -588,7 +675,7 @@ def phase_nvt_kernel(device, C=2, K=256, seed=2025):
                         nve_energy=e + per_atom * N_LJ))
                     acc = float(_nvt_check(
                         f"lj nve {per_atom:g} K/atom {dtype}", nve,
-                        u_np[:1], device, rep)[2][1][0, 3])
+                        u_np[:1], device, rep, sizes=[G1])[G1][2][1][0, 3])
                     log(f"    accepts: nve {acc:g}, nvt "
                         f"{float(one[1][0, 3]):g} on the same rows")
                     if per_atom == NVE_K_FAR and acc == float(one[1][0, 3]):
@@ -597,21 +684,45 @@ def phase_nvt_kernel(device, C=2, K=256, seed=2025):
                             "effective temperature far from the thermo's")
             if dtype == "float64":
                 continue
-            ms = time_calls(lambda: mk.run_steps(*a1, **kw1), device,
-                            n=10) / K
             pms = time_calls(lambda: mk.run_steps_plain(*a1, **kw1), device,
                              n=2) / K
-            nk = kw1["kvecs"].shape[0] if kw1["kvecs"] is not None else 0
             ops = _fused_ops(trace, cfg, nk)
             # each input read once; out: positions, S(k) and the sums
             bound, by = _bound_ms(ops, _nbytes(*a1[:16], *kw1.values())
                                   + _nbytes(*one))
-            log(f"B3 {kind} f32 C=1: kernel {ms * 1e3:.2f} us/step, plain "
-                f"{pms * 1e3:.1f} us/step, bound {bound / K * 1e3:.4f} "
-                f"us/step ({by}; {ops / K:.3e} ops/step)")
-            rep[kind] = {"ms": ms, "plain_ms": pms, "bound_ms": bound / K,
-                         "bound_by": by}
-    rep.update(rep["mof"])
+            tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+            out = {"plain_ms": pms, "bound_ms": bound / K, "bound_by": by}
+            for chains in ((1, 16) if kind == "mof" else (1,)):
+                ut = torch.as_tensor(
+                    np.random.default_rng(seed + chains).random(
+                        (chains, k_time, 16)), dtype=cfg.tdtype,
+                    device=device)
+                at, kwt = metropolis.fused_nvt_launch_args(
+                    multichain.stack_states(state, chains), params, cfg,
+                    thermo, ut, tables)
+                by_g = {G: _time_steps(
+                    lambda: mk.run_steps(*at, **kwt, cluster=G), device,
+                    k_time) for G in firsts}
+                ms_step = _time_steps(lambda: mk.run_steps(*at, **kwt),
+                                      device, k_time)
+                G = mk.run_steps.last_cluster
+                out[f"c{chains}"] = {"G": G, "ms": ms_step, "by_G": by_g}
+                log(f"B3 {kind} f32 C={chains}: kernel {ms_step * 1e3:.3f} "
+                    f"us per step at its G={G} ({k_time}-step launches); "
+                    "by G: " + ", ".join(f"{g} {t * 1e3:.3f}"
+                                         for g, t in by_g.items()))
+            out["ms"] = out["c1"]["ms"]
+            log(f"B3 {kind} f32 C=1: kernel {out['ms'] * 1e3:.3f} us/step, "
+                f"plain {pms * 1e3:.1f} us/step, bound "
+                f"{bound / K * 1e3:.4f} us/step ({by}; {ops / K:.3e} "
+                "ops/step)")
+            rep[kind] = out
+    rep.update({k: rep["mof"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")})
+    rep["cluster"] = (f"G={rep['mof']['c1']['G']} (C=1), "
+                      f"G={rep['mof']['c16']['G']} (C=16)")
+    log("B3 f32 resident clusters by G (cudaOccupancyMaxActiveClusters):"
+        f" {_resident('nvt_occupancy', 'f32')}")
     return rep
 
 
@@ -1666,12 +1777,17 @@ def main():
                 "bound_by": report[name]["bound_by"],
                 "library_ms": None}
                for name in names]
+    for kern in kernels:       # B1 and B3: the cluster size of each timing
+        if "cluster" in report[kern["name"]]:
+            kern["cluster"] = report[kern["name"]]["cluster"]
     log(f"launches per path: scan {scan_launches}, fused {fused_launches}, "
         f"fused chains {chain_launches}, fused nvt {nvt_launches}")
     log(f"build_seconds {build_s:.1f}  scan_steps_per_sec {rate:.2f}  "
         f"fused_steps_per_sec {fused_rate:.2f}  "
         f"fused_c32_steps_per_sec {chains_rate:.2f}  "
         f"b1_kernel_us_per_step {kernel_us * 1e3:.2f}  "
+        f"b1_c32_kernel_us_per_step "
+        f"{report['run_steps_uvt']['c32']['ms'] * 1e3:.2f}  "
         f"fused_device_busy {prof_fused['device_busy_share']:.4f}  "
         f"fused_c32_device_busy {prof_chains['device_busy_share']:.4f}  "
         f"scan_device_busy {prof_scan['device_busy_share']:.4f}")
@@ -1679,6 +1795,7 @@ def main():
     log("  ".join(f"{k}_steps_per_sec {v:.2f}" for k, v in nvt_rates.items())
         + f"  b3_kernel_us_per_step mof {b3['mof']['ms'] * 1e3:.2f}"
         f" lj {b3['lj']['ms'] * 1e3:.2f}"
+        f" c16 {b3['mof']['c16']['ms'] * 1e3:.2f}"
         f"  fused_nvt_device_busy {prof_nvt['device_busy_share']:.4f}"
         f" (b3 share {prof_nvt['kernel_share']:.4f})"
         f"  fused_nvt_c16_device_busy {prof_nvt16['device_busy_share']:.4f}"

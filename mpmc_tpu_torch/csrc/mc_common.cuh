@@ -1,14 +1,15 @@
 // Device code shared by the fused Monte Carlo step loops, B1 (uvt_kernel.cu),
 // B3 (nvt_kernel.cu) and B6 (pda_kernel.cu): the minimum image and the
-// per-pair evaluation, one molecule's old+new pass over the columns, the
-// S(k) delta and its commit, the block reduction, the slot pick of a µVT
-// move, and the trial rows of an insertion and of a displacement (a
-// translation plus an axis-angle rotation about the mass-weighted COM).
+// per-pair evaluation, the S(k) delta and its commit, the block reduction,
+// the slot pick of a µVT move, and the trial rows of an insertion and of a
+// displacement (a translation plus an axis-angle rotation about the
+// mass-weighted COM).
 //
-// The kernels run one thread block of NT threads per chain.  Each thread
-// sums its pair terms in double; warps reduce by shuffles and thread 0 adds
-// the warps' partials in a fixed order, so a launch gives the same bits
-// every run.  erfc is the exact erfcf/erfc.
+// Every block has NT threads: B6 runs one block per chain, B1 and B3 one
+// cluster of blocks per chain (mc_cluster.cuh).  Each thread sums its pair
+// terms in double; warps reduce by shuffles and thread 0 adds the warps'
+// partials in a fixed order, so a launch gives the same bits every run.
+// erfc is the exact erfcf/erfc.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -18,7 +19,7 @@
 
 namespace {
 
-constexpr int NT = 512;          // threads per block (one block per chain)
+constexpr int NT = 512;          // threads per block
 constexpr int NW = NT / 32;
 constexpr int A_PAD = 8;         // most sites per molecule
 constexpr unsigned FULL = 0xffffffffu;
@@ -98,61 +99,8 @@ __device__ __forceinline__ void pair_energy(T r2, T ei, T si, T qi, T ej,
   }
 }
 
-// Minimum-image r^2 of a displacement, and the unmasked (rd, es) of the pair
-// (pair_energy).
-template <typename T>
-__device__ __forceinline__ void pair_values(
-    T dx, T dy, T dz, T ei, T si, T qi, T ej, T sj, T qj,
-    const T* __restrict__ box, const T* __restrict__ bi, const Opts o, T rc,
-    T rc2, T alpha, T& r2, T& rd, T& es) {
-  T rx, ry, rz;
-  min_image<T>(dx, dy, dz, box, bi, o.ortho, rx, ry, rz);
-  r2 = rx * rx + ry * ry + rz * rz;
-  pair_energy<T>(r2, ei, si, qi, ej, sj, qj, o, rc, rc2, alpha, rd, es);
-}
-
-// This thread's share of one molecule's old+new pass: the columns jc = t,
-// t + NT, ... that are alive (AL) and not the molecule's own rows
-// [start, start + na), against its current rows s_old (has_old) and its
-// trial rows s_new (has_new).  Adds new - old to a_rd and a_es, and takes
-// the closest approach of the trial rows into mn.
-template <typename T>
-__device__ __forceinline__ void column_pass(
-    const T* P, const bool* AL, const T* __restrict__ q,
-    const T* __restrict__ eps, const T* __restrict__ sig, int n, int start,
-    int na, bool has_old, bool has_new, const T (*s_old)[3],
-    const T (*s_new)[3], const T* s_ei, const T* s_si, const T* s_qi,
-    const T* s_box, const T* s_bi, const Opts o, T rc, T rc2, T alpha,
-    double& a_rd, double& a_es, T& mn) {
-  for (int jc = threadIdx.x; jc < n; jc += NT) {
-    if (!AL[jc] || (jc >= start && jc < start + na)) continue;
-    const T xj = P[3 * jc], yj = P[3 * jc + 1], zj = P[3 * jc + 2];
-    const T qj = q[jc], ej = eps[jc], sj = sig[jc];
-#pragma unroll
-    for (int a = 0; a < A_PAD; ++a) {
-      if (a >= na) break;
-      T r2, rd, es;
-      if (has_old) {
-        pair_values<T>(s_old[a][0] - xj, s_old[a][1] - yj, s_old[a][2] - zj,
-                       s_ei[a], s_si[a], s_qi[a], ej, sj, qj, s_box, s_bi, o,
-                       rc, rc2, alpha, r2, rd, es);
-        a_rd -= double(rd);
-        a_es -= double(es);
-      }
-      if (has_new) {
-        pair_values<T>(s_new[a][0] - xj, s_new[a][1] - yj, s_new[a][2] - zj,
-                       s_ei[a], s_si[a], s_qi[a], ej, sj, qj, s_box, s_bi, o,
-                       rc, rc2, alpha, r2, rd, es);
-        a_rd += double(rd);
-        a_es += double(es);
-        mn = x_min(mn, r2);
-      }
-    }
-  }
-}
-
 // This thread's share of the S(k) delta over the k-vectors kk = t, t + NT,
-// ...: dS = sum_a q_a (cis(k.r_new) - cis(k.r_old)) into the chain's scratch
+// ... < nk: dS = sum_a q_a (cis(k.r_new) - cis(k.r_old)) into the scratch
 // row (DSr, DSi), and kcoef (|S + dS|^2 - |S|^2) added to a_rec.
 template <typename T>
 __device__ __forceinline__ void sk_delta(

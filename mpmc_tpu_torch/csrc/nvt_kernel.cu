@@ -16,29 +16,28 @@
 //   kinetic reservoir carried across the chunk's steps); the in-place commit
 //   of positions and S(k).
 //
-// Design: one thread block per chain (grid = C, NT threads), the K steps a
-//   loop inside the block (the TPU kernel's sequential fori_loop).  The
-//   per-atom planes (pos [C,N,3], alive [N] shared by the chains,
-//   eps/sig/q/mass [N]: ~0.3 MB per chain at N = 10k) stay in device memory,
-//   where they are L2-resident; shared memory holds only the step's <= 8
-//   current and trial rows and the reduction scratch.  The S(k) delta of the
-//   step goes to a per-chain scratch row in device memory (dsk) and is
-//   committed by the thread that computed it.  The pair evaluation, the
-//   column pass, the S(k) delta, the block reduction and the displacement
-//   trial are B1's (mc_common.cuh).
+// Design: B1's - one thread-block cluster of G CTAs per chain (grid C x G,
+//   NT threads each), each CTA holding its slice of the chain's columns
+//   (pos, alive, q, eps, sig) and k-vectors (kvec, kcoef, S(k), dS) in
+//   shared memory for the K steps of the launch; the molecule's rows read
+//   from their owners' shared memory, the partials exchanged through
+//   distributed shared memory with one cluster barrier, a split second
+//   barrier after the commit (mc_cluster.cuh).  Every CTA carries the NVE
+//   reservoir in step with the others, as it makes the same decisions.
 //
 // Bound: operations.  A step evaluates 2 x A x (alive columns) pairs - 2 x
 //   3 x 10,029 = 60.2k at the 10.0k MOF + H2 system - at 44 floating-point
 //   operations each (csrc/uvt_kernel.cu counts them), plus 2 x A x Nk phases
 //   of 13 and Nk reciprocal terms of 9: about 2.7 Mflop per step, 0.04 us at
-//   the card's 67 TFLOP/s f32 peak.  One block per chain can use one SM,
-//   1/132 of that peak; the design buys chains, not steps.
+//   the card's 67 TFLOP/s f32 peak.  The cluster brings G SMs to a chain,
+//   each over 1/G of the pairs, from shared memory.
 //
 // Reductions and numerics as in B1: per-thread pair sums in double, warp
-//   shuffles, thread 0 over the warps in a fixed order; the acceptance test
-//   and the NVE reservoir in double on thread 0; energy deltas enter the
-//   accumulators by selection, never by multiplication (a deep-core trial
-//   has an infinite pair energy and 0 * inf would be NaN).
+//   shuffles, thread 0 over the warps in a fixed order, every CTA over the
+//   ranks in rank order; the acceptance test and the NVE reservoir in
+//   double on thread 0 of every CTA; energy deltas enter the accumulators
+//   by selection, never by multiplication (a deep-core trial has an
+//   infinite pair energy and 0 * inf would be NaN).
 //
 // Sums [C,4]: d_rd, d_es_real, d_es_recip, accepted moves.
 //
@@ -48,24 +47,24 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mc_common.cuh"
+#include "mc_cluster.cuh"
 
 namespace {
 
 constexpr int N_SUMS_NVT = 4;
 
 struct DimsNvt {
-  int C, n, mv, A, K, nk;
+  int C, n, mv, A, K, nk, G, nloc, kloc;
 };
 
 template <typename T>
-__global__ void __launch_bounds__(NT) nvt_kernel(
+__global__ void __launch_bounds__(NT, 1) nvt_kernel(
     T* pos, const bool* __restrict__ alive, const T* __restrict__ eps,
     const T* __restrict__ sig, const T* __restrict__ q,
     const T* __restrict__ mass, const int32_t* __restrict__ mv_start,
     const int32_t* __restrict__ mv_natoms, const T* __restrict__ scal,
     const T* __restrict__ betas, const T* __restrict__ u,
-    const T* __restrict__ kvec, const T* __restrict__ kcoef, T* sk, T* dsk,
+    const T* __restrict__ kvec, const T* __restrict__ kcoef, T* sk,
     const double* __restrict__ nve_k0, double* __restrict__ sums,
     const DimsNvt d, const Opts o, const int nve, const double ke,
     const double nve_g) {
@@ -76,21 +75,35 @@ __global__ void __launch_bounds__(NT) nvt_kernel(
   __shared__ int s_accept;
   __shared__ double s_red[3][NW];
   __shared__ T s_min[NW];
+  __shared__ double s_part[N_PART];
+  __shared__ double s_xch[2][G_MAX][N_PART];
 
+  cg::cluster_group cluster = cg::this_cluster();
   const int t = threadIdx.x;
-  const int c = blockIdx.x;
+  const int G = d.G;
+  const int rank = int(cluster.block_rank());
+  const int c = blockIdx.x / G;
   const int n = d.n, nk = d.nk;
+  const int nloc = d.nloc, kloc = d.kloc;
+  const int base = rank * nloc, kbase = rank * kloc;
+  const int cnt_j = max(0, min(nloc, n - base));
+  const int cnt_k = max(0, min(kloc, nk - kbase));
+  const Slice<T> sl = carve_slice<T>(nloc, kloc, 0);
   T* P = pos + size_t(c) * n * 3;
   T* SKr = sk + size_t(c) * 2 * nk;
   T* SKi = SKr + nk;
-  T* DSr = dsk + size_t(c) * 2 * nk;
-  T* DSi = DSr + nk;
   const T* U = u + size_t(c) * d.K * 16;
 
+  load_slice<T>(sl, P, alive, q, eps, sig, base, cnt_j, kvec, kcoef, SKr,
+                SKi, kbase, cnt_k);
   if (t < 9) {
     s_box[t] = scal[5 + t];
     s_bi[t] = scal[14 + t];
   }
+  // every slice is loaded before any CTA reads another's
+  cluster_arrive();
+  cluster_wait();
+
   const T rc = scal[0], alpha = scal[1], mf = scal[2], rotf = scal[3];
   const T thr2 = scal[4];
   const T rc2 = rc * rc;
@@ -99,43 +112,58 @@ __global__ void __launch_bounds__(NT) nvt_kernel(
   double k_cur = nve ? nve_k0[c] : 0.0;   // thread 0's kinetic reservoir
   double acc[N_SUMS_NVT] = {0.0, 0.0, 0.0, 0.0};
 
+  MC_CLOCK_DECL
   for (int k = 0; k < d.K; ++k) {
     if (t < 8) s_u[t] = U[size_t(k) * 16 + t];
     __syncthreads();
-    // ---- the molecule: a direct index into the alive movable table
+    MC_MARK(0)
+    // ---- the molecule: a direct index into the alive movable table; its
+    // current rows from their owners (after barrier B of the last step)
     const int m = int(x_min(x_floor(s_u[0] * mvT), mvT - T(1)));
     const int start = mv_start[m];
     const int na = mv_natoms[m];
+    MC_MARK(1)
+    if (k > 0) cluster_wait();
+    MC_MARK(2)
     if (t < na) {
       const int r = start + t;
-      s_old[t][0] = P[3 * r];
-      s_old[t][1] = P[3 * r + 1];
-      s_old[t][2] = P[3 * r + 2];
+      T row[3];
+      read_row<T>(cluster, sl, r, nloc, row);
+      s_old[t][0] = row[0];
+      s_old[t][1] = row[1];
+      s_old[t][2] = row[2];
       s_qi[t] = q[r];
       s_ei[t] = eps[r];
       s_si[t] = sig[r];
       s_mi[t] = mass[r];
     }
     __syncthreads();
+    MC_MARK(3)
     if (t == 0) displace_trial<T>(s_u, mf, rotf, d.A, na, s_old, s_mi, s_new);
     __syncthreads();
+    MC_MARK(4)
 
-    // ---- one old+new pass over the columns, then the S(k) delta
+    // ---- the old+new pass over this CTA's columns, the S(k) delta over
+    // its k-vectors, and the partials of every rank
     double a_rd = 0.0, a_es = 0.0, a_rec = 0.0;
     T mn = T(INFINITY);
-    column_pass<T>(P, alive, q, eps, sig, n, start, na, true, true, s_old,
-                   s_new, s_ei, s_si, s_qi, s_box, s_bi, o, rc, rc2, alpha,
-                   a_rd, a_es, mn);
+    slice_pass<T>(sl, base, cnt_j, start, na, true, true, s_old, s_new,
+                  s_ei, s_si, s_qi, s_box, s_bi, o, rc, rc2, alpha, a_rd,
+                  a_es, mn);
     if (o.es == 1)
-      sk_delta<T>(kvec, kcoef, SKr, SKi, DSr, DSi, nk, na, true, true, s_old,
-                  s_new, s_qi, a_rec);
+      sk_delta<T>(sl.kv, sl.kc, sl.skr, sl.ski, sl.dsr, sl.dsi, cnt_k, na,
+                  true, true, s_old, s_new, s_qi, a_rec);
     block_reduce<T>(a_rd, a_es, a_rec, mn, s_red, s_min);
+    MC_MARK(5)
+    exchange_partials<T>(cluster, s_red, s_min, s_part, s_xch[k & 1], rank,
+                         G);
+    MC_MARK(6)
 
-    // ---- acceptance (thread 0, double)
+    // ---- acceptance (thread 0 of every CTA, double, the same decision)
     if (t == 0) {
       double drd, des, drec;
       T mr2;
-      block_totals<T>(s_red, s_min, drd, des, drec, mr2);
+      cluster_totals<T>(s_xch[k & 1], G, drd, des, drec, mr2);
       des = ke * des;
       const double du = drd + des + drec;
       const bool reject = thr2 > T(0) && mr2 < thr2;
@@ -158,24 +186,72 @@ __global__ void __launch_bounds__(NT) nvt_kernel(
       s_accept = accept;
     }
     __syncthreads();
+    MC_MARK(7)
 
-    // ---- commit in place
+    // ---- commit in place: the owners their rows, every CTA its S(k)
+    // slice; then barrier B's arrive
     if (s_accept) {
       if (t < na) {
-        const int r = start + t;
-        P[3 * r] = s_new[t][0];
-        P[3 * r + 1] = s_new[t][1];
-        P[3 * r + 2] = s_new[t][2];
+        int owner, rl;
+        owner_of(start + t, nloc, owner, rl);
+        if (owner == rank) {
+          sl.x[rl] = s_new[t][0];
+          sl.y[rl] = s_new[t][1];
+          sl.z[rl] = s_new[t][2];
+        }
       }
-      if (o.es == 1) sk_commit<T>(SKr, SKi, DSr, DSi, nk);
+      if (o.es == 1) sk_commit<T>(sl.skr, sl.ski, sl.dsr, sl.dsi, cnt_k);
     }
-    __syncthreads();
+    cluster_arrive();
+    MC_MARK(8)
   }
-  if (t == 0) {
+  MC_CLOCK_WRITE(c == 0 && rank == 0, d.K)
+  if (d.K > 0) cluster_wait();   // no CTA reads another's slice after this
+  __syncthreads();
+
+  // ---- write back this CTA's slice (and, rank 0, the sums)
+  for (int jl = t; jl < cnt_j; jl += NT) {
+    const int jc = base + jl;
+    P[3 * jc] = sl.x[jl];
+    P[3 * jc + 1] = sl.y[jl];
+    P[3 * jc + 2] = sl.z[jl];
+  }
+  for (int kl = t; kl < cnt_k; kl += NT) {
+    SKr[kbase + kl] = sl.skr[kl];
+    SKi[kbase + kl] = sl.ski[kl];
+  }
+  if (rank == 0 && t == 0) {
 #pragma unroll
     for (int i = 0; i < N_SUMS_NVT; ++i)
       sums[size_t(c) * N_SUMS_NVT + i] = acc[i];
   }
+}
+
+// Per-CTA slice sizes of a G-CTA cluster.
+inline DimsNvt nvt_dims(int C, int n, int mv, int A, int K, int nk, int G) {
+  return DimsNvt{C, n, mv, A, K, nk, G, (n + G - 1) / G, (nk + G - 1) / G};
+}
+
+template <typename T>
+int launch_nvt(T* pos, const bool* alive, const T* eps, const T* sig,
+               const T* q, const T* mass, const int32_t* mv_start,
+               const int32_t* mv_natoms, const T* scal, const T* betas,
+               const T* u, const T* kvec, const T* kcoef, T* sk,
+               const double* nve_k0, double* sums, const DimsNvt d,
+               const Opts o, int nve, double ke, double nve_g,
+               cudaStream_t stream) {
+  if (d.G < 1 || d.G > G_MAX) return int(cudaErrorInvalidValue);
+  const size_t smem = slice_bytes<T>(d.nloc, d.kloc, 0);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = cluster_config(nvt_kernel<T>, d.C, d.G, smem, stream, attr,
+                                 &cfg);
+  if (e != cudaSuccess) return int(e);
+  e = cudaLaunchKernelEx(&cfg, nvt_kernel<T>, pos, alive, eps, sig, q, mass,
+                         mv_start, mv_natoms, scal, betas, u, kvec, kcoef,
+                         sk, nve_k0, sums, d, o, nve, ke, nve_g);
+  if (e != cudaSuccess) return int(e);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -186,18 +262,23 @@ __global__ void __launch_bounds__(NT) nvt_kernel(
       const void* q, const void* mass, const void* mv_start,                 \
       const void* mv_natoms, const void* scal, const void* betas,            \
       const void* u, const void* kvec, const void* kcoef, void* sk,          \
-      void* dsk, const void* nve_k0, void* sums, int C, int n, int mv,       \
-      int A, int K, int nk, int rd, int mix, int es, int ortho, int nve,     \
-      double ke, double nve_g, void* stream) {                               \
+      const void* nve_k0, void* sums, int C, int n, int mv, int A, int K,    \
+      int nk, int G, int rd, int mix, int es, int ortho, int nve, double ke, \
+      double nve_g, void* stream) {                                          \
     if (C <= 0) return 0;                                                    \
-    nvt_kernel<T><<<C, NT, 0, (cudaStream_t)stream>>>(                       \
+    return launch_nvt<T>(                                                    \
         (T*)pos, (const bool*)alive, (const T*)eps, (const T*)sig,           \
         (const T*)q, (const T*)mass, (const int32_t*)mv_start,               \
         (const int32_t*)mv_natoms, (const T*)scal, (const T*)betas,          \
-        (const T*)u, (const T*)kvec, (const T*)kcoef, (T*)sk, (T*)dsk,       \
-        (const double*)nve_k0, (double*)sums, DimsNvt{C, n, mv, A, K, nk},   \
-        Opts{rd, mix, es, ortho}, nve, ke, nve_g);                           \
-    return int(cudaGetLastError());                                          \
+        (const T*)u, (const T*)kvec, (const T*)kcoef, (T*)sk,                \
+        (const double*)nve_k0, (double*)sums,                                \
+        nvt_dims(C, n, mv, A, K, nk, G), Opts{rd, mix, es, ortho}, nve, ke,  \
+        nve_g, (cudaStream_t)stream);                                        \
+  }                                                                          \
+  extern "C" int nvt_occupancy_##SFX(int n, int nk, int G, int* clusters) {  \
+    const DimsNvt d = nvt_dims(1, n, 1, 1, 1, nk, G);                        \
+    return cluster_occupancy(nvt_kernel<T>, G,                               \
+                             slice_bytes<T>(d.nloc, d.kloc, 0), clusters);   \
   }
 
 RUN_STEPS_NVT_ENTRY(f32, float)

@@ -31,7 +31,8 @@
 //   block FREEZES at the first survivor: later rows are neither proposed
 //   nor counted.
 //
-// Design: B1's - one thread block of NT threads for the one chain, the
+// Design: one thread block of NT threads for the one chain (B1's design
+//   before B1 became a cluster per chain, mc_cluster.cuh), the
 //   planes in device memory (L2-resident: pos, alive, eps, sig, q, polar,
 //   e0 ~0.4 MB at N = 10.8k), the step's rows and tables in shared memory.
 //   The per-thread sums (the 2 pair sums, z_others, the reciprocal delta,

@@ -284,6 +284,15 @@ def observables(su: Setup, state: SimState, stats=None) -> Dict[str, float]:
     obs["N"] = float(state.n_molecules(params))
     obs["N2"] = obs["N"] ** 2
     obs["UN"] = obs["energy_total"] * obs["N"]
+    if su.cfg.ensemble == "nve":
+        # kinetic temperature of the reservoir: T = 2(E - U)/F over the
+        # alive movable molecules' degrees of freedom
+        mov = (state.mol_alive & ~params.mol_frozen
+               & (params.mol_species >= 0))
+        f_dof = float(torch.sum(torch.where(
+            mov, params.mol_dof.double(), 0.0)))
+        k = float(su.thermo.nve_energy) - obs["energy_total"]
+        obs["T_kinetic"] = 2.0 * k / max(f_dof, 1.0)
     if state.mu is not None:
         # RMS induced dipole per polarizable site [Debye] (the
         # reference's polar_rrms diagnostic)

@@ -7,8 +7,8 @@ keyed by a hash of the source and the headers (a changed source builds a
 new library; an unchanged one is reused).  ``build`` starts one nvcc per
 source, all at once, and waits for them together.  The libraries load
 with ctypes: every pointer and the stream are ``c_void_p``, every count a
-``c_int``, a constant a ``c_double``, and every entry returns its
-``cudaGetLastError()``.
+``c_int``, a constant a ``c_double``, an output count a pointer to a
+``c_int``, and every entry returns a CUDA error code (0: none).
 
 Nothing here runs at import: the first kernel launch calls ``library()``.
 """
@@ -27,6 +27,7 @@ BUILD_DIR = _PKG.parent / "build" / "mpmc_tpu_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_PI = ctypes.POINTER(ctypes.c_int)
 # source stem -> entry -> argtypes (each entry exists as <entry>_f32 and
 # <entry>_f64)
 _SIGNATURES = {
@@ -40,16 +41,20 @@ _SIGNATURES = {
     },
     "uvt_kernel": {
         # pos alive eps sig q mass slot_start slot_species slot_alive tmpl
-        # natoms scal betas lnfvs d_self d_excl c1 cx u kvec kcoef sk dsk
-        # sums | C n ms S A K nk rd mix es ortho | ke | stream
-        "run_steps_uvt": [_P] * 24 + [_I] * 11 + [ctypes.c_double] + [_P],
+        # natoms scal betas lnfvs d_self d_excl c1 cx u kvec kcoef sk sums |
+        # C n ms S A K nk G rd mix es ortho | ke | stream
+        "run_steps_uvt": [_P] * 23 + [_I] * 12 + [ctypes.c_double] + [_P],
+        # n nk ms G | clusters out
+        "uvt_occupancy": [_I] * 4 + [_PI],
     },
     "nvt_kernel": {
         # pos alive eps sig q mass mv_start mv_natoms scal betas u kvec
-        # kcoef sk dsk nve_k0 sums | C n mv A K nk rd mix es ortho nve |
-        # ke nve_g | stream
-        "run_steps_nvt": [_P] * 17 + [_I] * 11 + [ctypes.c_double] * 2
+        # kcoef sk nve_k0 sums | C n mv A K nk G rd mix es ortho nve | ke
+        # nve_g | stream
+        "run_steps_nvt": [_P] * 16 + [_I] * 12 + [ctypes.c_double] * 2
         + [_P],
+        # n nk G | clusters out
+        "nvt_occupancy": [_I] * 3 + [_PI],
     },
     "pda_kernel": {
         # pos alive eps sig q mass polar e0 slot_start slot_species
@@ -93,6 +98,15 @@ def nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def command(name: str, out: Path, defines=()):
+    """nvcc's command line for ``csrc/<name>.cu`` into ``out``, with the
+    preprocessor ``defines`` (``NAME=value`` strings)."""
+    return ([nvcc()] + ARCH + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
+                               "-fPIC", "-Xptxas", "-v", "-I", str(CSRC)]
+            + [f"-D{d}" for d in defines]
+            + ["-o", str(out), str(CSRC / (name + ".cu"))])
+
+
 def build(force=False):
     """Compile every csrc/*.cu into its hashed shared library, one nvcc
     per source, all started together; returns {name: path}.  ptxas's
@@ -106,11 +120,8 @@ def build(force=False):
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         err = open(out.with_suffix(".ptxas.txt"), "w")
-        cmd = ([nvcc()] + ARCH + ["-std=c++17", "-O3", "-shared",
-                                  "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                                  "-I", str(CSRC), "-o", str(tmp),
-                                  str(CSRC / (name + ".cu"))])
-        running[name] = (subprocess.Popen(cmd, stdout=err, stderr=err),
+        running[name] = (subprocess.Popen(command(name, tmp), stdout=err,
+                                          stderr=err),
                          err, tmp, out)
     failed = []
     for name, (proc, err, tmp, out) in running.items():
@@ -126,19 +137,24 @@ def build(force=False):
     return {name: target(name) for name in _SIGNATURES}
 
 
+def load(name: str, path: Path):
+    """Load ``path`` as the library of ``csrc/<name>.cu``, its entries
+    typed from _SIGNATURES, and use it from now on."""
+    lib = ctypes.CDLL(str(path))
+    for base, args in _SIGNATURES[name].items():
+        for sfx in ("f32", "f64"):
+            fn = getattr(lib, f"{base}_{sfx}")
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    _libs[name] = lib
+    return lib
+
+
 def library(name: str):
     """The loaded library of ``csrc/<name>.cu`` (every source is built on
     the first call)."""
     if name not in _libs:
-        paths = build()
-        for nm, path in paths.items():
-            if nm in _libs:
-                continue
-            lib = ctypes.CDLL(str(path))
-            for base, args in _SIGNATURES[nm].items():
-                for sfx in ("f32", "f64"):
-                    fn = getattr(lib, f"{base}_{sfx}")
-                    fn.argtypes = args
-                    fn.restype = ctypes.c_int
-            _libs[nm] = lib
+        for nm, path in build().items():
+            if nm not in _libs:
+                load(nm, path)
     return _libs[name]

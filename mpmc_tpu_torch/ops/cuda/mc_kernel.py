@@ -8,6 +8,12 @@ B1 ``run_steps_uvt`` replaces mpmc_tpu/ops/pallas/mc_kernel.py::_kernel_uvt
 pass over all atoms, the S(k) delta, the acceptance test with per-species
 constants, and the in-place commit.
 
+B1 and B3 run one thread-block cluster of G CTAs per chain, each CTA with a
+slice of the chain's columns and k-vectors in its shared memory
+(csrc/mc_cluster.cuh).  ``cluster_size`` picks G from the chain count,
+the system's size and the clusters the card holds at once; ``cluster=``
+overrides it.  A chain's result depends on G, not on C.
+
 B3 ``run_steps`` replaces mpmc_tpu/ops/pallas/mc_kernel.py::_kernel (through
 ``run_steps``/``run_steps_multi``): K translate+rotate steps per launch for
 C chains that share the parameters, the box and the aliveness (the NVT
@@ -67,6 +73,9 @@ from mpmc_tpu_torch.ops.cuda.pair_kernel import (_ES, _MIX, _RD, _check,
 MAX_SITES = 8      # most sites of a movable molecule (kernel row registers)
 MAX_SPECIES = 8    # most insert species (kernel shared-memory tables)
 PDA_SEG = 16       # B6 steps per launch (the reference's segment)
+CLUSTER_SIZES = (2, 4, 8, 16)   # CTAs per chain of B1 and B3 (16: non-portable)
+SMEM_BYTES = 232448   # shared memory one block can use (227 KB)
+SMEM_STATIC = 8192    # held back for the kernels' static tables (< 6 KB)
 N_SUMS = 14        # d_rd d_es_real d_es_recip d_es_self d_es_excl d_lrc,
 #                    acc disp/ins/del, att disp/ins/del, acc/att spinflip
 N_SUMS_NVT = 4     # d_rd d_es_real d_es_recip, accepted moves
@@ -237,6 +246,95 @@ def _refuse_cfg(cfg, what="run_steps_uvt"):
                 + ("A12" if flag_name.startswith("feynman") else "A11"))
 
 
+def slice_bytes(n, dtype, G, nk=0, ms=0):
+    """Dynamic shared memory of one CTA of a B1/B3 cluster of G CTAs over
+    n columns, nk k-vectors and ms slots (csrc/mc_cluster.cuh
+    slice_bytes): six column planes and eight k-vector planes of
+    ``dtype``, the slot species (int32) and the column and slot alive
+    flags, each segment rounded up to 16 bytes."""
+    sz = torch.finfo(dtype).bits // 8
+    nloc, kloc = -(-n // G), -(-nk // G)
+
+    def seg(b):
+        return (b + 15) // 16 * 16
+
+    return (seg(6 * nloc * sz) + seg(8 * kloc * sz) + seg(4 * ms)
+            + seg(nloc) + seg(ms))
+
+
+def _fits(n, dtype, G, nk, ms):
+    return slice_bytes(n, dtype, G, nk, ms) <= SMEM_BYTES - SMEM_STATIC
+
+
+def fitting_cluster_sizes(n, dtype, nk=0, ms=0):
+    """The G of CLUSTER_SIZES, ascending, whose slice fits in shared
+    memory."""
+    return [G for G in CLUSTER_SIZES if _fits(n, dtype, G, nk, ms)]
+
+
+def cluster_size(C, n, dtype, resident, nk=0, ms=0):
+    """CTAs per chain (G) of a B1/B3 launch of C chains over n columns (nk
+    k-vectors, ms slots): the largest G in CLUSTER_SIZES whose slice fits
+    in shared memory and of which the card holds C clusters at once; when
+    none holds C, the smallest G that fits (the clusters then run in
+    waves).  ``resident``: {G: clusters of G CTAs the card holds at once},
+    which the wrappers take from cudaOccupancyMaxActiveClusters (a cluster
+    lies within one GPC, so an H100 holds fewer than 132 // G).  Raises
+    when no G fits."""
+    fits = fitting_cluster_sizes(n, dtype, nk, ms)
+    if not fits:
+        raise ValueError(f"{n} columns of {dtype} do not fit in "
+                         f"{max(CLUSTER_SIZES)} CTAs' shared memory")
+    within = [G for G in fits if C <= resident[G]]
+    return max(within) if within else min(fits)
+
+
+def _check_cluster(cluster, n, dtype, nk, ms, what):
+    """``cluster`` checked against CLUSTER_SIZES and shared memory."""
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"{what}: cluster={cluster!r}, the kernel takes "
+                         f"one of {CLUSTER_SIZES}")
+    if not _fits(n, dtype, cluster, nk, ms):
+        raise ValueError(
+            f"{what}: cluster={cluster} needs "
+            f"{slice_bytes(n, dtype, cluster, nk, ms)} bytes of shared "
+            f"memory per CTA, more than {SMEM_BYTES - SMEM_STATIC}")
+    return int(cluster)
+
+
+# clusters resident at once, per (entry, dtype, shape, G), from
+# cudaOccupancyMaxActiveClusters before a shape's first launch
+occupancy: dict = {}
+
+
+def _resident(lib, entry, dt, shape, G, what):
+    """Clusters of G CTAs of this shape the card holds at once."""
+    key = (entry, _suffix(dt)) + tuple(shape) + (G,)
+    if key not in occupancy:
+        out = ctypes.c_int(0)
+        err = getattr(lib, f"{entry}_{_suffix(dt)}")(*shape, G,
+                                                     ctypes.byref(out))
+        _raise_on(err, what)
+        occupancy[key] = out.value
+    return occupancy[key]
+
+
+def _launch_cluster(lib, entry, cluster, C, n, dt, nk, ms, shape, what):
+    """The G of a card launch (``cluster``, or ``cluster_size`` over the
+    card's resident counts), after checking that at least one cluster of
+    that shape can be resident; raises if none can."""
+    if cluster is None:
+        G = cluster_size(C, n, dt, {
+            g: _resident(lib, entry, dt, shape, g, what)
+            for g in fitting_cluster_sizes(n, dt, nk, ms)}, nk, ms)
+    else:
+        G = _check_cluster(cluster, n, dt, nk, ms, what)
+    if _resident(lib, entry, dt, shape, G, what) == 0:
+        raise RuntimeError(f"{what}: no cluster of {G} CTAs of this shape "
+                           "can be resident on the card")
+    return G
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
@@ -330,11 +428,12 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
                         alpha, betas, move_factor, rot_factor, thr2, p_ins,
                         lnfvs, d_self, d_excl, c1, cx, uniforms, cfg,
                         kvecs=None, kcoef=None, sk_re=None, sk_im=None,
-                        trace=None):
+                        cluster=None, trace=None):
     """Plain B1: a loop over the K steps of batched tensor ops over the C
     chains and the N columns, with the kernel's arithmetic (the same
     per-species constants, the pair sums and the acceptance in float64).
-    Arguments and results as ``run_steps_uvt``; the inputs are not
+    Arguments and results as ``run_steps_uvt``; ``cluster`` is ignored
+    (the plain sums do not depend on it); the inputs are not
     modified.  ``trace``: a list that gets one dict per step — ``accept``
     [C], ``margin`` [C] = ln u - ln(acceptance), and the work the kernel
     does for it, ``pairs``, ``pairs_in`` and ``phases`` [C] (pair
@@ -486,8 +585,8 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
                   slot_species, slot_alive, tmpl, natoms, box, rc, alpha,
                   betas, move_factor, rot_factor, thr2, p_ins, lnfvs, d_self,
                   d_excl, c1, cx, uniforms, cfg, kvecs=None, kcoef=None,
-                  sk_re=None, sk_im=None):
-    """B1: K fused µVT steps for C chains.
+                  sk_re=None, sk_im=None, cluster=None):
+    """B1: K fused µVT steps for C chains, one cluster of G CTAs each.
 
     Per chain: ``pos`` [C,N,3], atom ``alive`` [C,N] bool, ``slot_alive``
     [C,Ms] bool, ``uniforms`` [C,K,16], ``betas`` [C] (1/T), ``lnfvs``
@@ -501,28 +600,32 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     ``box`` [3,3]; the scalars ``rc``, ``alpha``, ``move_factor``,
     ``rot_factor``, ``thr2`` (autoreject radius squared, 0 = off) and
     ``p_ins``; ``kvecs`` [Nk,3] with ``kcoef`` [Nk] the folded reciprocal
-    coefficients (ewald).
+    coefficients (ewald).  ``cluster``: G, one of CLUSTER_SIZES whose
+    slice fits in shared memory (None: ``cluster_size``).
 
     Returns (pos [C,N,3], slot_alive [C,Ms] bool, sums [C,14] float64,
     sk_re [C,Nk], sk_im [C,Nk]), sums in the reference order (d_rd,
     d_es_real, d_es_recip, d_es_self, d_es_excl, d_lrc, acc disp/ins/del,
     att disp/ins/del, acc/att spinflip).  The inputs are not modified."""
+    C, N = alive.shape
+    ms = slot_start.shape[0]
+    ew = cfg.coulomb == "ewald"
+    nk = kvecs.shape[0] if ew else 0
     if pos.device.type == "cpu":
+        if cluster is not None:      # checked, then ignored by the plain
+            _check_cluster(cluster, N, pos.dtype, nk, ms, "run_steps_uvt")
         return run_steps_uvt_plain(
             pos, alive, eps, sig, charge, mass, slot_start, slot_species,
             slot_alive, tmpl, natoms, box, rc, alpha, betas, move_factor,
             rot_factor, thr2, p_ins, lnfvs, d_self, d_excl, c1, cx,
             uniforms, cfg, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re,
-            sk_im=sk_im)
+            sk_im=sk_im, cluster=cluster)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps_uvt: no kernel for {pos.device}")
     _refuse_cfg(cfg)
     dt, dev = pos.dtype, pos.device
-    C, N = alive.shape
-    ms = slot_start.shape[0]
     S, A = tmpl.shape[0], tmpl.shape[1]
     K = uniforms.shape[1]
-    ew = cfg.coulomb == "ewald"
     if A > MAX_SITES or S > MAX_SPECIES:
         raise ValueError(f"run_steps_uvt: {S} species of {A} sites (the "
                          f"kernel takes <= {MAX_SPECIES} of <= {MAX_SITES})")
@@ -544,16 +647,13 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     _check("uniforms", uniforms, dt, (C, K, 16), dev)
     _check("box", box, dt, (3, 3), dev)
     if ew:
-        nk = kvecs.shape[0]
         _check("kvecs", kvecs, dt, (nk, 3), dev)
         _check("kcoef", kcoef, dt, (nk,), dev)
         _check("sk_re", sk_re, dt, (C, nk), dev)
         _check("sk_im", sk_im, dt, (C, nk), dev)
         sk = torch.stack([sk_re, sk_im], dim=1).contiguous()      # [C,2,Nk]
     else:
-        nk = 0
         sk = torch.empty((C, 2, 0), dtype=dt, device=dev)
-    dsk = torch.empty_like(sk)
 
     def s1(x):
         return torch.as_tensor(x, dtype=dt, device=dev).reshape(1)
@@ -566,7 +666,10 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     sums = torch.empty((C, N_SUMS), dtype=torch.float64, device=dev)
     ortho = int(bool(cfg.ortho_box))
     from mpmc_tpu_torch.ops.cuda import _build
-    fn = getattr(_build.library("uvt_kernel"), "run_steps_uvt_" + _suffix(dt))
+    lib = _build.library("uvt_kernel")
+    G = _launch_cluster(lib, "uvt_occupancy", cluster, C, N, dt, nk, ms,
+                        (N, nk, ms), "run_steps_uvt")
+    fn = getattr(lib, "run_steps_uvt_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
     err = fn(_ptr(out_pos), _ptr(out_alive), _ptr(eps), _ptr(sig),
              _ptr(charge), _ptr(mass), _ptr(slot_start), _ptr(slot_species),
@@ -574,10 +677,11 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
              _ptr(betas), _ptr(lnfvs), _ptr(d_self), _ptr(d_excl), _ptr(c1),
              _ptr(cx), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
              _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
-             _ptr(dsk) if ew else nullp, _ptr(sums), C, N, ms, S, A, K, nk,
-             _RD[cfg.rd_potential], _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
-             ortho, ctypes.c_double(KE), _stream(dev))
+             _ptr(sums), C, N, ms, S, A, K, nk, G, _RD[cfg.rd_potential],
+             _MIX[cfg.mixing_rule], _ES[cfg.coulomb], ortho,
+             ctypes.c_double(KE), _stream(dev))
     run_steps_uvt.launches += 1
+    run_steps_uvt.last_cluster = G
     _raise_on(err, "run_steps_uvt")
     if ew:
         return out_pos, out_slot, sums, sk[:, 0], sk[:, 1]
@@ -585,6 +689,7 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
 
 
 run_steps_uvt.launches = 0
+run_steps_uvt.last_cluster = None     # G of the last kernel launch
 
 
 # ---------------------------------------------------------------------------
@@ -601,11 +706,12 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
                     box, rc, alpha, betas, move_factor, rot_factor, thr2,
                     uniforms, cfg, kvecs=None, kcoef=None, sk_re=None,
                     sk_im=None, nve_k0=None, nve_g=0.0, a_max=None,
-                    trace=None):
+                    cluster=None, trace=None):
     """Plain B3: a loop over the K steps of batched tensor ops over the C
     chains and the N columns, with the kernel's arithmetic (the pair sums,
     the acceptance and the NVE reservoir in float64).  Arguments and
-    results as ``run_steps``; the inputs are not modified.  ``trace``: a
+    results as ``run_steps``; ``cluster`` is ignored; the inputs are not
+    modified.  ``trace``: a
     list that gets one dict per step — ``accept`` [C], ``margin`` [C] = ln
     u - ln(acceptance), and the work the kernel does for it, ``pairs``,
     ``pairs_in`` and ``phases`` [C] (pair evaluations, those within rc,
@@ -714,8 +820,9 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
 def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
               rc, alpha, betas, move_factor, rot_factor, thr2, uniforms, cfg,
               kvecs=None, kcoef=None, sk_re=None, sk_im=None, nve_k0=None,
-              nve_g=0.0, a_max=None):
-    """B3: K fused NVT (or NVE) steps for C chains.
+              nve_g=0.0, a_max=None, cluster=None):
+    """B3: K fused NVT (or NVE) steps for C chains, one cluster of G CTAs
+    each.
 
     Per chain: ``pos`` [C,N,3], ``uniforms`` [C,K,16], ``betas`` [C] (1/T),
     ``sk_re``/``sk_im`` [C,Nk] (ewald).  Shared: atom ``alive`` [N] bool;
@@ -728,25 +835,30 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
     radius squared, 0 = off); ``kvecs`` [Nk,3] with ``kcoef`` [Nk] the
     folded reciprocal coefficients (ewald).  Under ``cfg.ensemble ==
     "nve"``: ``nve_k0`` the kinetic reservoir at entry ([C] or a scalar,
-    E_total - U) and ``nve_g`` the exponent f_dof/2 - 1.
+    E_total - U) and ``nve_g`` the exponent f_dof/2 - 1.  ``cluster``: G,
+    one of CLUSTER_SIZES whose slice fits in shared memory (None:
+    ``cluster_size``).
 
     Returns (pos [C,N,3], sums [C,4] float64 = (d_rd, d_es_real,
     d_es_recip, accepted moves), sk_re [C,Nk], sk_im [C,Nk]).  The inputs
     are not modified."""
+    C, N = pos.shape[0], pos.shape[1]
+    ew = cfg.coulomb == "ewald"
+    nk = kvecs.shape[0] if ew else 0
     if pos.device.type == "cpu":
+        if cluster is not None:      # checked, then ignored by the plain
+            _check_cluster(cluster, N, pos.dtype, nk, 0, "run_steps")
         return run_steps_plain(
             pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box, rc,
             alpha, betas, move_factor, rot_factor, thr2, uniforms, cfg,
             kvecs=kvecs, kcoef=kcoef, sk_re=sk_re, sk_im=sk_im,
-            nve_k0=nve_k0, nve_g=nve_g, a_max=a_max)
+            nve_k0=nve_k0, nve_g=nve_g, a_max=a_max, cluster=cluster)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps: no kernel for {pos.device}")
     _refuse_cfg(cfg, "run_steps")
     dt, dev = pos.dtype, pos.device
-    C, N = pos.shape[0], pos.shape[1]
     n_mv = mv_start.shape[0]
     K = uniforms.shape[1]
-    ew = cfg.coulomb == "ewald"
     nve = cfg.ensemble == "nve"
     A = int(mv_natoms.max()) if a_max is None else int(a_max)
     if n_mv == 0 or A > MAX_SITES:
@@ -763,16 +875,13 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
     _check("uniforms", uniforms, dt, (C, K, 16), dev)
     _check("box", box, dt, (3, 3), dev)
     if ew:
-        nk = kvecs.shape[0]
         _check("kvecs", kvecs, dt, (nk, 3), dev)
         _check("kcoef", kcoef, dt, (nk,), dev)
         _check("sk_re", sk_re, dt, (C, nk), dev)
         _check("sk_im", sk_im, dt, (C, nk), dev)
         sk = torch.stack([sk_re, sk_im], dim=1).contiguous()      # [C,2,Nk]
     else:
-        nk = 0
         sk = torch.empty((C, 2, 0), dtype=dt, device=dev)
-    dsk = torch.empty_like(sk)
     k0 = _k0_rows(nve_k0, C, dev) if nve else None
 
     def s1(x):
@@ -784,18 +893,22 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
     out_pos = pos.clone()
     sums = torch.empty((C, N_SUMS_NVT), dtype=torch.float64, device=dev)
     from mpmc_tpu_torch.ops.cuda import _build
-    fn = getattr(_build.library("nvt_kernel"), "run_steps_nvt_" + _suffix(dt))
+    lib = _build.library("nvt_kernel")
+    G = _launch_cluster(lib, "nvt_occupancy", cluster, C, N, dt, nk, 0,
+                        (N, nk), "run_steps")
+    fn = getattr(lib, "run_steps_nvt_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
     err = fn(_ptr(out_pos), _ptr(alive), _ptr(eps), _ptr(sig), _ptr(charge),
              _ptr(mass), _ptr(mv_start), _ptr(mv_natoms), _ptr(scal),
              _ptr(betas), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
              _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
-             _ptr(dsk) if ew else nullp, _ptr(k0) if nve else nullp,
-             _ptr(sums), C, N, n_mv, A, K, nk, _RD[cfg.rd_potential],
+             _ptr(k0) if nve else nullp, _ptr(sums), C, N, n_mv, A, K, nk, G,
+             _RD[cfg.rd_potential],
              _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
              int(bool(cfg.ortho_box)), int(nve), ctypes.c_double(KE),
              ctypes.c_double(float(nve_g)), _stream(dev))
     run_steps.launches += 1
+    run_steps.last_cluster = G
     _raise_on(err, "run_steps")
     if ew:
         return out_pos, sums, sk[:, 0], sk[:, 1]
@@ -803,6 +916,7 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
 
 
 run_steps.launches = 0
+run_steps.last_cluster = None         # G of the last kernel launch
 
 
 # ---------------------------------------------------------------------------

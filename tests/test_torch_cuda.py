@@ -1,7 +1,7 @@
 """The CUDA kernels (the pair kernels B2/B4, the fused µVT kernel B1, the
-fused NVT/NVE kernel B3, the Thole field kernel B5 and the polar
-delayed-acceptance stage-1 kernel B6) against their plain versions on the
-card.
+fused NVT/NVE kernel B3 — both at every cluster size —, the Thole field
+kernel B5 and the polar delayed-acceptance stage-1 kernel B6) against
+their plain versions on the card.
 
 These need a CUDA device and ``nvcc``; they skip elsewhere.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -182,6 +182,92 @@ def test_nvt_kernel_matches_plain(device, dtype, system, chains, ensemble):
             dataclasses.replace(cfg, ensemble="nvt"), thermo, u, tables)
         nvt = mk.run_steps(*a_nvt, **kw_nvt)[1].cpu().numpy()
         assert nvt[0, 3] != k_sums[0, 3], (nvt[0, 3], k_sums[0, 3])
+
+
+def _same_chains(launch, args, kw, C, G, slice_c):
+    """Each chain of the C-chain launch equals, bit for bit, a C = 1
+    launch on its own block at the same cluster size G."""
+    k = launch(*args, **kw, cluster=G)
+    for c in range(C):
+        a1, kw1 = slice_c(c)
+        one = launch(*a1, **kw1, cluster=G)
+        assert all(x is None or torch.equal(x[0], y[c])
+                   for x, y in zip(one, k)), c
+    return k
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_uvt_kernel_cluster_sizes(device, dtype, cluster):
+    """B1 at each cluster size G on a [2, 200, 16] table: the plain
+    version's move counts and slot aliveness, positions and sums within
+    test_uvt_kernel_matches_plain's tolerances, and each chain equal to
+    its C = 1 launch at the same G.  The 336 columns split into slices of
+    ceil(336 / G), so molecules straddle ranks."""
+    params, state, cfg, thermo = _system(dtype, device)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    u = torch.as_tensor(np.random.default_rng(5).random((2, 200, 16)),
+                        dtype=cfg.tdtype, device=device)
+
+    def launch_args(states, uu):
+        return metropolis.fused_uvt_launch_args(states, params, cfg, thermo,
+                                                uu, tables)
+
+    args, kw = launch_args(multichain.stack_states(state, 2), u)
+    k = _same_chains(mk.run_steps_uvt, args, kw, 2, cluster,
+                     lambda c: launch_args(multichain.stack_states(state, 1),
+                                           u[c:c + 1]))
+    assert mk.run_steps_uvt.last_cluster == cluster
+    p = mk.run_steps_uvt_plain(*args, **kw)
+    k_sums, p_sums = k[2].cpu().numpy(), p[2].cpu().numpy()
+    np.testing.assert_array_equal(k_sums[:, 6:12], p_sums[:, 6:12])
+    assert p_sums[:, 6:9].sum() > 20
+    assert torch.equal(k[1], p[1])
+    f64 = dtype == "float64"
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                               rtol=0, atol=1e-9 if f64 else 1e-4)
+    np.testing.assert_allclose(k_sums[:, :6], p_sums[:, :6],
+                               rtol=1e-10 if f64 else 2e-5,
+                               atol=1e-8 if f64 else 1e-3)
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_nvt_kernel_cluster_sizes(device, dtype, cluster):
+    """B3 at each cluster size G on the MOF + H2 system (Ewald, 3-site
+    molecules across slice boundaries) with a [2, 200, 16] table: the
+    plain version's accept counts, test_nvt_kernel_matches_plain's
+    tolerances, and each chain equal to its C = 1 launch at the same G."""
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=6, n_h2=20, capacity=20, dtype=dtype, device=device)
+    cfg = dataclasses.replace(cfg, ensemble="nvt", fused_mc=True)
+    state = metropolis.initialize(systems.jittered(params, state, 7),
+                                  params, cfg, thermo)
+    tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+    u = torch.as_tensor(np.random.default_rng(6).random((2, 200, 16)),
+                        dtype=cfg.tdtype, device=device)
+
+    def launch_args(states, uu):
+        return metropolis.fused_nvt_launch_args(states, params, cfg, thermo,
+                                                uu, tables)
+
+    args, kw = launch_args(multichain.stack_states(state, 2), u)
+    k = _same_chains(mk.run_steps, args, kw, 2, cluster,
+                     lambda c: launch_args(multichain.stack_states(state, 1),
+                                           u[c:c + 1]))
+    assert mk.run_steps.last_cluster == cluster
+    p = mk.run_steps_plain(*args, **kw)
+    k_sums, p_sums = k[1].cpu().numpy(), p[1].cpu().numpy()
+    np.testing.assert_array_equal(k_sums[:, 3], p_sums[:, 3])
+    assert (p_sums[:, 3] > 10).all()
+    f64 = dtype == "float64"
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                               rtol=0, atol=1e-9 if f64 else 1e-4)
+    tol = (np.maximum(1e-10 * np.abs(p_sums[:, :3]), 1e-8) if f64 else
+           2e-5 * np.abs(p_sums[:, :3])
+           + 2e-3 * np.sqrt(p_sums[:, 3:4] + 1.0))
+    assert (np.abs(k_sums[:, :3] - p_sums[:, :3]) <= tol).all()
 
 
 @pytest.mark.parametrize("mode", ["charge", "dipole"])

@@ -37,6 +37,9 @@ from mpmc_tpu_torch.state import stack_chains  # noqa: E402
 
 torch.set_num_threads(1)
 REPO = pathlib.Path(__file__).resolve().parents[1]
+# clusters of G CTAs an H100 SXM holds at once, as chip_smoke.py's B1 and
+# B3 phases log them from cudaOccupancyMaxActiveClusters
+H100_RESIDENT = {16: 7, 8: 15, 4: 30, 2: 66}
 # f32 energy sums, plain B3 against the Pallas kernel: the Pallas kernel
 # uses the A&S erfc (|error| <= 1.5e-7, ~1e-3 K per Ewald pair of the H2
 # quadrupole at 1 A) and accumulates in f32; the plain version uses the
@@ -391,3 +394,58 @@ def test_entry_points_need_a_device_or_cuda():
                         capacity=(2,), initial_counts=(1,), device="cpu")
     assert p.device.type == "cpu"
     assert Thermo.make(device="cpu").temperature.device.type == "cpu"
+
+
+@pytest.mark.parametrize("chains,want", [(1, 16), (16, 4), (32, 2)])
+@pytest.mark.parametrize("n,nk", [(10029, 709), (10000, 0)],
+                         ids=["mof_h2", "lj10k"])
+def test_cluster_size_of_the_nvt_systems(chains, want, n, nk):
+    """B3's cluster size at the 10.0k MOF + H2 system (709 k-vectors) and
+    the 10k LJ fluid in float32 on an H100 (H100_RESIDENT): 16 for one
+    chain, 4 for c16, 2 for c32; the slice within shared memory."""
+    G = tmk.cluster_size(chains, n, torch.float32, H100_RESIDENT, nk)
+    assert G == want
+    assert (tmk.slice_bytes(n, torch.float32, G, nk)
+            <= tmk.SMEM_BYTES - tmk.SMEM_STATIC)
+
+
+def _b3_cpu_launch(n=48):
+    """The launch arguments of a two-chain [2, 40, 16] table on the LJ
+    fluid of n atoms, on the CPU."""
+    P, S, C, T = convert.from_jax(*_lj(n=n))
+    u = np.random.default_rng(4).random((2, 40, 16)).astype(np.float32)
+    return tm.fused_nvt_launch_args(stack_chains([S, S]), P, C, T,
+                                    torch.as_tensor(u),
+                                    tm.nvt_fused_tables(P, S.mol_alive))
+
+
+@pytest.mark.parametrize("bad", [0, 1, 6, 64])
+def test_run_steps_rejects_cluster_sizes(bad):
+    args, kw = _b3_cpu_launch()
+    with pytest.raises(ValueError, match="cluster="):
+        tmk.run_steps(*args, **kw, cluster=bad)
+
+
+def test_run_steps_rejects_a_slice_beyond_shared_memory():
+    """cluster=2 in float32 at 40k columns needs ~550 KB per CTA."""
+    args, kw = _b3_cpu_launch()
+    n = 40000
+    big = list(args)
+    big[0] = torch.zeros((2, n, 3))
+    big[1] = torch.zeros(n, dtype=torch.bool)
+    for i in (2, 3, 4, 5):
+        big[i] = torch.zeros(n)
+    with pytest.raises(ValueError, match="cluster=2 needs"):
+        tmk.run_steps(*big, **kw, cluster=2)
+
+
+def test_plain_b3_ignores_cluster():
+    """The plain version's results do not depend on cluster=."""
+    args, kw = _b3_cpu_launch()
+    want = tmk.run_steps(*args, **kw)
+    assert float(want[1][:, 3].sum()) > 0
+    for G in tmk.CLUSTER_SIZES:
+        for fn in (tmk.run_steps, tmk.run_steps_plain):
+            got = fn(*args, **kw, cluster=G)
+            assert all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(got, want))

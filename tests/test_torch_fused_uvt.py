@@ -275,3 +275,101 @@ def test_stack_and_slice_chains_round_trip():
     back = slice_chain(st, 1)
     assert torch.equal(back.pos, S.pos) and back.step == S.step
     assert torch.equal(back.sk_re, S.sk_re)
+
+
+# clusters of G CTAs an H100 SXM holds at once, one CTA per SM (a cluster
+# lies within one GPC), as chip_smoke.py's B1 and B3 phases log them from
+# cudaOccupancyMaxActiveClusters
+H100_RESIDENT = {16: 7, 8: 15, 4: 30, 2: 66}
+
+
+@pytest.mark.parametrize("chains,want", [(1, 16), (2, 16), (16, 4),
+                                         (32, 2), (64, 2), (100, 2)])
+def test_cluster_size_of_the_bench_system(chains, want):
+    """B1's cluster size at the 10.8k bench system (N = 10,797, 709
+    k-vectors, 512 slots) in float32 on an H100: 16 CTAs for one chain,
+    4 each for c16 and 2 each for c32, since the card holds fewer than 16
+    clusters of 8 and fewer than 32 of 4; beyond 66 chains the smallest
+    G, in waves."""
+    assert tmk.cluster_size(chains, 10797, torch.float32, H100_RESIDENT,
+                            709, 512) == want
+    assert tmk.cluster_size(chains, 10797, torch.float32,
+                            H100_RESIDENT) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cluster_size_never_exceeds_shared_memory(dtype):
+    """Every G that cluster_size picks has a slice within one block's
+    227 KB of shared memory (less the kernels' static tables), and is the
+    largest G that fits of which the card holds all C clusters at once,
+    whenever some G that fits does; the float64 bench system first fits
+    at G = 4."""
+    for n in (1, 300, 5000, 10797, 20000, 40000):
+        for chains in (1, 2, 3, 7, 8, 16, 32, 33, 66, 67, 200):
+            G = tmk.cluster_size(chains, n, dtype, H100_RESIDENT, 709, 512)
+            assert G in tmk.CLUSTER_SIZES
+            assert (tmk.slice_bytes(n, dtype, G, 709, 512)
+                    <= tmk.SMEM_BYTES - tmk.SMEM_STATIC)
+            fits = tmk.fitting_cluster_sizes(n, dtype, 709, 512)
+            assert chains <= H100_RESIDENT[G] or G == min(fits)
+            assert all(chains > H100_RESIDENT[g] for g in fits if g > G)
+    assert min(tmk.fitting_cluster_sizes(10797, dtype, 709, 512)) == (
+        4 if dtype == torch.float64 else 2)
+    with pytest.raises(ValueError, match="do not fit"):
+        tmk.cluster_size(1, 200000, dtype, H100_RESIDENT)
+
+
+def _b1_cpu_launch():
+    """The launch arguments of a two-chain [2, 40, 16] table on the small
+    MOF + H2 system, on the CPU."""
+    p, s, c, t = _jax_system()
+    P, S, C, T = convert.from_jax(p, s, c, t)
+    u = np.random.default_rng(2).random((2, 40, 16)).astype(np.float32)
+    return tm.fused_uvt_launch_args(stack_chains([S, S]), P, C, T,
+                                    torch.as_tensor(u),
+                                    tm.uvt_fused_tables(P, C))
+
+
+@pytest.mark.parametrize("bad", [0, 1, 3, 32, 2.5])
+def test_run_steps_uvt_rejects_cluster_sizes(bad):
+    args, kw = _b1_cpu_launch()
+    with pytest.raises(ValueError, match="cluster="):
+        tmk.run_steps_uvt(*args, **kw, cluster=bad)
+
+
+def test_run_steps_uvt_rejects_a_slice_beyond_shared_memory():
+    """cluster=2 in float32 at 40k columns needs ~550 KB per CTA."""
+    args, kw = _b1_cpu_launch()
+    n = 40000
+    big = list(args)
+    big[0] = torch.zeros((2, n, 3))
+    big[1] = torch.zeros((2, n), dtype=torch.bool)
+    for i in (2, 3, 4, 5):
+        big[i] = torch.zeros(n)
+    with pytest.raises(ValueError, match="cluster=2 needs"):
+        tmk.run_steps_uvt(*big, **kw, cluster=2)
+
+
+def test_plain_b1_ignores_cluster():
+    """The plain version's results do not depend on cluster=."""
+    args, kw = _b1_cpu_launch()
+    want = tmk.run_steps_uvt(*args, **kw)
+    assert float(want[2][:, 6:9].sum()) > 0
+    for G in tmk.CLUSTER_SIZES:
+        got = tmk.run_steps_uvt(*args, **kw, cluster=G)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        got = tmk.run_steps_uvt_plain(*args, **kw, cluster=G)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("chains,want", [(1, 16), (7, 16), (8, 8), (16, 4),
+                                         (30, 4), (32, 2), (66, 2),
+                                         (100, 2)])
+def test_cluster_size_follows_the_resident_clusters(chains, want):
+    """The largest G of which the card holds all C clusters at once;
+    beyond that the smallest G that fits."""
+    assert tmk.cluster_size(chains, 10797, torch.float32, H100_RESIDENT,
+                            709, 512) == want
+    # float64 first fits at G = 4
+    assert tmk.cluster_size(chains, 10797, torch.float64, H100_RESIDENT,
+                            709, 512) == max(want, 4)

@@ -26,6 +26,29 @@ The second form checks that B1's outputs in every file equal the first
 file's bit for bit, and prints each file's numbers in the order given
 (run parent, change, change, parent in one call to compare two versions
 on one card).  Needs a CUDA device.
+
+    python tools/measure_torch_ab.py --phases <checkout> <out.json>
+    python tools/measure_torch_ab.py --compare-phases <a.json> [...]
+
+The third form builds <checkout>'s kernels with its own
+``chip_smoke.phase_build`` (ptxas's register, shared-memory and spill
+lines kept) and runs its ``phase_uvt_kernel`` and ``phase_nvt_kernel``,
+which check B1 and B3 against their plain versions and time them (B1
+at C = 1, B3 on the MOF + H2 system and the LJ fluid, f32, per step);
+the fourth prints those times and ptxas lines side by side.
+
+    python tools/measure_torch_ab.py --times <checkout> <out.json>
+
+The fifth times <checkout>'s B1 and B3 the same way in any checkout,
+through its own wrappers at their default launch shape (CUDA events,
+median of 5 launches of 1000 steps, float32, per step): B1 on the 10.8k
+bench system at C = 1 and 32 chains, B3 on the 10.0k MOF + H2 system at
+C = 1 and 16 chains and on the 10k LJ fluid at C = 1 (the systems of its
+chip_smoke.py); ``--compare-phases`` prints these files too.  It then
+runs the checkout's ``phase_pda_kernel`` and keeps every output of B6
+(run_steps_uvt_pda) in launch order in <out.json>.b6.pt;
+``--compare-phases`` fails unless all files' B6 outputs are equal bit for
+bit.
 """
 from __future__ import annotations
 
@@ -137,6 +160,99 @@ def measure(checkout, out):
     _report(checkout, saved)
 
 
+def measure_phases(checkout, out):
+    import json
+    sys.path.insert(0, checkout)
+    import chip_smoke as cs
+    from mpmc_tpu_torch.ops.cuda import _build
+    dev, smi = cs.phase_device()
+    cs.phase_build()
+    ptxas = {}
+    for name in ("uvt_kernel", "nvt_kernel"):
+        text = _build.target(name).with_suffix(".ptxas.txt").read_text()
+        ptxas[name] = [ln.strip() for ln in text.splitlines()
+                       if "registers" in ln or "spill" in ln]
+    b1, b3 = cs.phase_uvt_kernel(dev), cs.phase_nvt_kernel(dev)
+    r = {"card": smi, "b1_us": b1["ms"] * 1e3,
+         "b3_mof_us": b3["mof"]["ms"] * 1e3, "b3_lj_us": b3["lj"]["ms"] * 1e3,
+         "ptxas": ptxas}
+    with open(out, "w") as f:
+        json.dump(r, f, indent=1)
+    _report_phases(checkout, r)
+
+
+def measure_times(checkout, out):
+    import json
+
+    import torch
+    sys.path.insert(0, checkout)
+    import chip_smoke as cs
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    dev, smi = cs.phase_device()
+    cs.phase_build()
+    rng = np.random.default_rng
+    r = {"card": smi, "us": {}}
+
+    def time(label, launch, args, kw):
+        # ms per 1000-step launch = us per step
+        r["us"][label] = cs.time_calls(lambda: launch(*args, **kw), dev,
+                                       n=5)
+        print(f"{label}: {r['us'][label]:.3f} us per step", flush=True)
+
+    params, state, cfg, thermo = cs.bench_system("float32", dev)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    for C in (1, 32):
+        u = torch.as_tensor(rng(7 + C).random((C, 1000, 16)),
+                            dtype=cfg.tdtype, device=dev)
+        args, kw = metropolis.fused_uvt_launch_args(
+            multichain.stack_states(state, C), params, cfg, thermo, u,
+            tables)
+        time(f"B1 C={C}", mk.run_steps_uvt, args, kw)
+    for kind, chains in (("mof", (1, 16)), ("lj", (1,))):
+        params, state, cfg, thermo = cs.nvt_system(kind, "float32", dev)
+        tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+        for C in chains:
+            u = torch.as_tensor(rng(7 + C).random((C, 1000, 16)),
+                                dtype=cfg.tdtype, device=dev)
+            args, kw = metropolis.fused_nvt_launch_args(
+                multichain.stack_states(state, C), params, cfg, thermo, u,
+                tables)
+            time(f"B3 {kind} C={C}", mk.run_steps, args, kw)
+    with open(out, "w") as f:
+        json.dump(r, f, indent=1)
+    # B6's outputs on phase 4d's tables, in launch order
+    recs, b6 = [], mk.run_steps_uvt_pda
+
+    def recording(*a, **kw):
+        rec = b6(*a, **kw)
+        recs.append(rec.cpu())
+        return rec
+
+    # the wrapper counts its launches on the name it is bound to
+    recording.launches = b6.launches
+    mk.run_steps_uvt_pda = recording
+    try:
+        cs.phase_pda_kernel(dev)
+    finally:
+        mk.run_steps_uvt_pda = b6
+    torch.save(recs, out + ".b6.pt")
+
+
+def _report_phases(label, r):
+    if "us" in r:
+        print(f"{label} ({r['card']}): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in r["us"].items()) + " us/step")
+        return
+    print(f"{label} ({r['card']}): B1 {r['b1_us']:.3f} us/step, B3 MOF "
+          f"{r['b3_mof_us']:.3f}, LJ {r['b3_lj_us']:.3f}")
+    for name, lines in r["ptxas"].items():
+        for ln in lines:
+            print(f"    {name}: {ln}")
+
+
 def _report(label, r):
     print(f"{label} ({r['card']}): B1 {r['b1_us_per_step']:.3f} us/step; "
           f"c32 {r['c32_steps_per_sec']:.2f} chain-steps/s, block "
@@ -166,5 +282,28 @@ def compare(paths):
 if __name__ == "__main__":
     if sys.argv[1] == "--compare":
         compare(sys.argv[2:])
+    elif sys.argv[1] == "--phases":
+        measure_phases(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "--times":
+        measure_times(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "--compare-phases":
+        import json
+        import os
+
+        import torch
+        b6 = {p: torch.load(p + ".b6.pt") for p in sys.argv[2:]
+              if os.path.exists(p + ".b6.pt")}
+        for p in sys.argv[2:]:
+            with open(p) as f:
+                _report_phases(p, json.load(f))
+        if b6:
+            first = next(iter(b6.values()))
+            same = all(len(r) == len(first)
+                       and all(torch.equal(a, b) for a, b in zip(r, first))
+                       for r in b6.values())
+            print(f"B6: {len(first)} outputs per file, "
+                  + ("equal bit for bit" if same else "DIFFER"))
+            if not same:
+                raise SystemExit(1)
     else:
         measure(sys.argv[1], sys.argv[2])
