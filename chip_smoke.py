@@ -7,7 +7,9 @@ Phases (any failure raises, so the exit code is non-zero):
    source, all at once), with build seconds;
 3. kernels — B2 (pair_terms) and B4 (mol_pair) against their plain
    PyTorch versions on the 10.8k-atom bench system (MOF lattice n_side=21
-   + 512 H2 slots), float32 and float64, with CUDA-event timings;
+   + 512 H2 slots), float32 and float64, with CUDA-event timings per call
+   and on the card alone (time_device), and the launch floor (an empty
+   kernel timed the same way);
 4. B1 — the fused µVT kernel (run_steps_uvt, one thread-block cluster of
    G CTAs per chain) against its plain version on the same system, at
    every cluster size G whose slice fits: one numpy-seeded [C=2, K=256,
@@ -52,13 +54,16 @@ Phases (any failure raises, so the exit code is non-zero):
    step and B6's share of a profiled chunk.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
-version on that polar system, dense and culled, phase 4d
+version on that polar system, dense and culled (culled == dense bit for
+bit; each check's share of its tolerance logged), phase 4d
 (phase_pda_kernel) holds B6 against its plain version there (direct,
 wolf, ewald fields and nvt; float64 and float32), and phase 5 adds its
 polar term.
 
 The second-to-last line is a JSON object with each kernel's launches on
-its main path, error against its plain version, times and bound; the last
+its main path, error against its plain version, times (``ms`` per call
+around its wrapper, ``device_ms`` on the card alone: back-to-back launches
+between one pair of events) and bound; the last
 line is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
 ...}}``.  Imports nothing of JAX.
 """
@@ -109,9 +114,9 @@ OPS_PAIR_FUSED, OPS_GUARD, OPS_LJ, OPS_COULOMB = 24, 1, 13, 6
 OPS_PHASE_FUSED, OPS_K_FUSED = 13, 9
 # B5 (csrc/thole_kernel.cu), for every pair it evaluates: displacement 3,
 # orthorhombic minimum image 12, r^2 5, cutoff test 1; for a pair inside
-# rc: guard 1, square root 1, exponential damping 15, and the dipole-mode
-# field 24 (1/r^3 2, mu.dr 5, coefficients 5, three components 12) or the
-# charge-mode field 9 (coefficient 3, three components 6)
+# rc: guard 1, reciprocal square root 1, exponential damping 15, and the
+# dipole-mode field 24 (1/r^3 2, mu.dr 5, coefficients 5, three components
+# 12) or the charge-mode field 9 (coefficient 3, three components 6)
 OPS_B5_PAIR = 21
 OPS_B5_IN = {"dipole": 1 + 1 + 15 + 24, "charge": 1 + 1 + 15 + 9}
 # B6 (csrc/pda_kernel.cu), beyond B1's per-pair and per-phase counts: for
@@ -167,6 +172,41 @@ def time_calls(fn, device, n=20):
             fn()
             ts.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ts)
+
+
+def time_device(fn, device, n=100):
+    """ms per call of ``n`` back-to-back calls between one pair of CUDA
+    events, queued behind a spin kernel (torch.cuda._sleep) long enough
+    that the host has queued every call before the card starts them: the
+    card's own time per call, with no host gap between launches.  Retries
+    with a longer spin if the card caught up with the host."""
+    fn()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(device)
+    spin = max(0.02, 3.0 * n * (time.perf_counter() - t0))
+    for _ in range(4):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin * 2e9))      # cycles at up to 2 GHz
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        ahead = not a.query()      # the spin still ran when all were queued
+        torch.cuda.synchronize(device)
+        if ahead:
+            return a.elapsed_time(b) / n
+        spin *= 4.0
+    raise AssertionError("time_device: the host did not queue ahead of the "
+                         "card")
+
+
+def null_launch_ms(device, n=200):
+    """The launch floor: time_device of an empty kernel (a spin of 0
+    cycles)."""
+    return time_device(lambda: torch.cuda._sleep(0), device, n)
 
 
 def phase_device():
@@ -278,10 +318,13 @@ def phase_kernels(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
             fin = np.isfinite(p)
             ms = time_calls(lambda: pk.pair_terms(*args, row_start=rs),
                             device)
+            dms = time_device(lambda: pk.pair_terms(*args, row_start=rs),
+                              device, n=50)
             pms = time_calls(lambda: pk.pair_terms_plain(
                 *args, row_start=rs), device, n=5)
-            log(f"B2 pair_terms {dtype} row_start={rs}: kernel {ms:.3f} ms,"
-                f" plain {pms:.3f} ms")
+            log(f"B2 pair_terms {dtype} row_start={rs}: kernel {ms:.3f} ms "
+                f"per call, {dms:.4f} ms on the card alone; plain {pms:.3f} "
+                "ms")
             for s, name in enumerate(SLOTS):
                 log(f"    {name:11s} kernel {k[s]: .10e} ref {p[s]: .10e} "
                     f"|d| {err[s]:.3e} tol {tol[s]:.3e}")
@@ -301,8 +344,9 @@ def phase_kernels(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
                                      [idx >= F]))
                 bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4,
                                       _nbytes(*args[:8]) + 9 * 4)
-                report["pair_terms"].update(ms=ms, plain_ms=pms,
-                                            bound_ms=bound, bound_by=by)
+                report["pair_terms"].update(ms=ms, device_ms=dms,
+                                            plain_ms=pms, bound_ms=bound,
+                                            bound_by=by)
                 log(f"    bound {bound:.5f} ms ({by}; {n_pairs} pairs)")
         # B4: an alive H2 (current rows) and a trial next to the framework
         h2 = int(np.flatnonzero(
@@ -331,9 +375,10 @@ def phase_kernels(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
                 p = ref64[key]
             err = np.abs(k - p)
             ms = time_calls(lambda: pk.mol_pair(*margs), device)
+            dms = time_device(lambda: pk.mol_pair(*margs), device, n=200)
             pms = time_calls(lambda: pk.mol_pair_plain(*margs), device)
-            log(f"B4 mol_pair {dtype} {label}: kernel {ms:.4f} ms, "
-                f"plain {pms:.4f} ms")
+            log(f"B4 mol_pair {dtype} {label}: kernel {ms:.4f} ms per call, "
+                f"{dms:.4f} ms on the card alone; plain {pms:.4f} ms")
             for s, name in enumerate(MOL_SLOTS):
                 log(f"    {name:11s} kernel {k[s]: .10e} ref {p[s]: .10e} "
                     f"|d| {err[s]:.3e} tol {tol[s]:.3e}")
@@ -348,9 +393,13 @@ def phase_kernels(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
                     alive.cpu().numpy() & ~own))
                 bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4,
                                       _nbytes(*margs[:11]) + 4 * 4)
-                report["mol_pair"].update(ms=ms, plain_ms=pms,
-                                          bound_ms=bound, bound_by=by)
-                log(f"    bound {bound:.5f} ms ({by}; {n_pairs} pairs)")
+                null = null_launch_ms(device)
+                report["mol_pair"].update(ms=ms, device_ms=dms, plain_ms=pms,
+                                          bound_ms=bound, bound_by=by,
+                                          null_device_ms=null)
+                log(f"    bound {bound:.5f} ms ({by}; {n_pairs} pairs); the "
+                    f"launch floor (an empty kernel, back to back) {null:.4f}"
+                    " ms")
     return report
 
 
@@ -511,12 +560,16 @@ def phase_uvt_kernel(device, C=2, K=256, seed=2024, k_time=1000):
                 k_time) for G in sizes}
             ms_step = _time_steps(lambda: mk.run_steps_uvt(*at, **kwt),
                                   device, k_time)
+            dms_step = time_device(lambda: mk.run_steps_uvt(*at, **kwt),
+                                   device, n=5) / k_time
             G = mk.run_steps_uvt.last_cluster
-            rep[f"c{chains}"] = {"G": G, "ms": ms_step, "by_G": by_g}
+            rep[f"c{chains}"] = {"G": G, "ms": ms_step, "device_ms": dms_step,
+                                 "by_G": by_g}
             log(f"B1 f32 C={chains}: kernel {ms_step * 1e3:.3f} us per step"
-                f" at its G={G} ({k_time}-step launches); by G: "
+                f" at its G={G} ({k_time}-step launches; "
+                f"{dms_step * 1e3:.3f} back to back); by G: "
                 + ", ".join(f"{g} {t * 1e3:.3f}" for g, t in by_g.items()))
-        rep.update(ms=rep["c1"]["ms"],
+        rep.update(ms=rep["c1"]["ms"], device_ms=rep["c1"]["device_ms"],
                    cluster=f"G={rep['c1']['G']} (C=1), "
                    f"G={rep['c32']['G']} (C=32)")
         log("B1 f32 resident clusters by G (cudaOccupancyMaxActiveClusters):"
@@ -705,20 +758,25 @@ def phase_nvt_kernel(device, C=2, K=256, seed=2025, k_time=1000):
                     k_time) for G in firsts}
                 ms_step = _time_steps(lambda: mk.run_steps(*at, **kwt),
                                       device, k_time)
+                dms_step = time_device(lambda: mk.run_steps(*at, **kwt),
+                                       device, n=5) / k_time
                 G = mk.run_steps.last_cluster
-                out[f"c{chains}"] = {"G": G, "ms": ms_step, "by_G": by_g}
+                out[f"c{chains}"] = {"G": G, "ms": ms_step,
+                                     "device_ms": dms_step, "by_G": by_g}
                 log(f"B3 {kind} f32 C={chains}: kernel {ms_step * 1e3:.3f} "
-                    f"us per step at its G={G} ({k_time}-step launches); "
-                    "by G: " + ", ".join(f"{g} {t * 1e3:.3f}"
-                                         for g, t in by_g.items()))
+                    f"us per step at its G={G} ({k_time}-step launches; "
+                    f"{dms_step * 1e3:.3f} back to back); by G: "
+                    + ", ".join(f"{g} {t * 1e3:.3f}"
+                                for g, t in by_g.items()))
             out["ms"] = out["c1"]["ms"]
+            out["device_ms"] = out["c1"]["device_ms"]
             log(f"B3 {kind} f32 C=1: kernel {out['ms'] * 1e3:.3f} us/step, "
                 f"plain {pms * 1e3:.1f} us/step, bound "
                 f"{bound / K * 1e3:.4f} us/step ({by}; {ops / K:.3e} "
                 "ops/step)")
             rep[kind] = out
-    rep.update({k: rep["mof"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by")})
+    rep.update({k: rep["mof"][k] for k in ("ms", "device_ms", "plain_ms",
+                                           "bound_ms", "bound_by")})
     rep["cluster"] = (f"G={rep['mof']['c1']['G']} (C=1), "
                       f"G={rep['mof']['c16']['G']} (C=16)")
     log("B3 f32 resident clusters by G (cudaOccupancyMaxActiveClusters):"
@@ -777,13 +835,16 @@ def phase_thole_kernel(device):
     reference; the kernel (double sums) may be at most 4x as far from it
     as the plain float32 version (float32 sums) is, or 2e-6 x the largest
     |E_i| (a few float32 roundings of one pair's contribution, ~1e-7 each,
-    where the field nearly cancels).  Times (float32): CUDA events, median
-    of 20 calls, beside the bound and the plain version's time.  Returns
-    {name: report entry}."""
+    where the field nearly cancels).  Each check logs the share of its
+    tolerance used.  Times (float32): per call (CUDA events around the
+    wrapper, median of 20) with the call's plan built once, as solve_scf
+    calls it, and without, and on the card alone (time_device), beside
+    the bound and the plain version's time.  Returns {name: report
+    entry}."""
     from mpmc_tpu_torch.ops import pairs, thole
     from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
-    rep = {"dipole_field": {"max_abs_err": 0.0},
-           "charge_field": {"max_abs_err": 0.0}}
+    rep = {"dipole_field": {"max_abs_err": 0.0, "tol_share": 0.0},
+           "charge_field": {"max_abs_err": 0.0, "tol_share": 0.0}}
     funcs = {"dipole_field": (tk.dipole_field, tk.dipole_field_plain),
              "charge_field": (tk.charge_field, tk.charge_field_plain)}
     for dtype in ("float64", "float32"):
@@ -809,8 +870,13 @@ def phase_thole_kernel(device):
                                            src_s, mol_s, rc14, lam, kind),
                                           visit)}
             for label, (args, vis) in cases.items():
-                k = kern(*args, ortho=True, visit=vis)
+                fplan = tk.plan(box, args[5], lam, args[0].shape[0], vis)
+                k = kern(*args, ortho=True, visit=vis, plan=fplan)
                 torch.cuda.synchronize(device)
+                if not torch.equal(k, kern(*args, ortho=True, visit=vis)):
+                    raise AssertionError(f"B5 {name} {dtype} {label}: the "
+                                         "launch with a plan differs from "
+                                         "the launch without")
                 if vis is not None:
                     dense = kern(*args, ortho=True)
                     if not torch.equal(k, dense):
@@ -829,7 +895,8 @@ def phase_thole_kernel(device):
                     tol = max(4.0 * float((p32 - p64).abs().max()),
                               2e-6 * scale)
                 log(f"B5 {name} {dtype} {label}: max |E| {scale:.6e}, "
-                    f"|kernel - plain| {err:.3e} (tol {tol:.3e})"
+                    f"|kernel - plain| {err:.3e} (tol {tol:.3e}, "
+                    f"{err / tol:.3f} of it)"
                     + (f", visit {float(vis.float().mean()):.3f} of "
                        f"{vis.numel()} tiles, culled == dense bit for bit"
                        if vis is not None else ""))
@@ -838,29 +905,45 @@ def phase_thole_kernel(device):
                                          "disagrees with its plain version")
                 rep[name]["max_abs_err"] = max(rep[name]["max_abs_err"],
                                                err)
+                rep[name]["tol_share"] = max(rep[name]["tol_share"],
+                                             err / tol)
                 if dtype == "float64":
                     continue
-                ms = time_calls(lambda: kern(*args, ortho=True, visit=vis),
-                                device)
+
+                def call(p=fplan):
+                    return kern(*args, ortho=True, visit=vis, plan=p)
+
+                ms = time_calls(call, device)
+                ms_unplanned = time_calls(lambda: call(None), device)
+                dms = time_device(call, device, n=50)
                 pms = time_calls(lambda: plain(*args, visit=vis), device,
                                  n=3)
                 n_eval, n_in = _b5_pairs(mode, args[0], box, args[2],
                                          args[4], args[5], vis)
                 ops = n_eval * OPS_B5_PAIR + n_in * OPS_B5_IN[mode]
                 # each input read once, the field written once
-                nbytes = _nbytes(*args[:5], tk.scalars(box, args[5], lam),
-                                 vis, k)
+                nbytes = _nbytes(*args[:5], fplan.scal, vis, k)
                 bound, by = _bound_ms(ops, nbytes)
-                log(f"    f32 kernel {ms:.4f} ms, plain {pms:.3f} ms, bound "
-                    f"{bound:.5f} ms ({by}; {n_eval} pairs evaluated, "
-                    f"{n_in} inside rc)")
-                entry = {"ms": ms, "plain_ms": pms, "bound_ms": bound,
-                         "bound_by": by, "pairs": n_eval,
+                log(f"    f32 kernel {ms:.4f} ms per call ({ms_unplanned:.4f}"
+                    f" building its plan), {dms:.4f} ms on the card alone; "
+                    f"plain {pms:.3f} ms, bound {bound:.5f} ms ({by}; "
+                    f"{n_eval} pairs evaluated, {n_in} inside rc)")
+                entry = {"ms": ms, "device_ms": dms,
+                         "unplanned_ms": ms_unplanned, "plain_ms": pms,
+                         "bound_ms": bound, "bound_by": by, "pairs": n_eval,
                          "pairs_in": n_in}
                 if label == "dense":
                     rep[name].update(entry)
                 else:
                     rep[name]["culled"] = entry
+    from mpmc_tpu_torch.ops.cuda import _build
+    log("B5 f32 CTAs on the card (dipole, charge): "
+        f"{tk.card_config(device, torch.float32, 'dipole')}, "
+        f"{tk.card_config(device, torch.float32, 'charge')}; tiles "
+        f"{tk.TI} x {tk.TJ}; " + "; ".join(
+            ln.strip() for ln in _build.target("thole_kernel").with_suffix(
+                ".ptxas.txt").read_text().splitlines()
+            if "registers" in ln or "spill" in ln))
     return rep
 
 
@@ -1002,6 +1085,8 @@ def phase_pda_kernel(device, seed=43):
                     raise AssertionError("B6: the survivor-free table froze")
                 ms = time_calls(lambda: mk.run_steps_uvt_pda(*a, **kw),
                                 device)
+                dms = time_device(lambda: mk.run_steps_uvt_pda(*a, **kw),
+                                  device, n=20)
                 pms = time_calls(lambda: mk.run_steps_uvt_pda_plain(*a, **kw),
                                  device, n=3)
                 nk = kw["kvecs"].shape[0]
@@ -1009,11 +1094,12 @@ def phase_pda_kernel(device, seed=43):
                 # each input read once, the record written once
                 bound, by = _bound_ms(ops, _nbytes(*a, *kw.values())
                                       + 8 * 16 * 8)
-                rep.update(ms=ms / K, plain_ms=pms / K, bound_ms=bound / K,
-                           bound_by=by, launch_ms=ms, plain_launch_ms=pms)
+                rep.update(ms=ms / K, device_ms=dms / K, plain_ms=pms / K,
+                           bound_ms=bound / K, bound_by=by, launch_ms=ms,
+                           plain_launch_ms=pms)
                 log(f"B6 f32 direct, survivor-free table: kernel {ms:.4f} ms "
-                    f"per launch of {K} steps ({ms / K * 1e3:.2f} us/step), "
-                    f"plain {pms:.3f} ms, bound {bound / K * 1e3:.4f} us/step"
+                    f"per launch of {K} steps ({ms / K * 1e3:.2f} us/step; "
+                    f"{dms:.4f} ms back to back), plain {pms:.3f} ms, bound {bound / K * 1e3:.4f} us/step"
                     f" ({by}; {ops / K:.3e} ops/step)")
             if hits < 3:
                 raise AssertionError(f"B6 {dtype} {label}: only {hits} "
@@ -1772,6 +1858,7 @@ def main():
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
                 "ms": report[name]["ms"],
+                "device_ms": report[name]["device_ms"],
                 "plain_ms": report[name]["plain_ms"],
                 "bound_ms": report[name]["bound_ms"],
                 "bound_by": report[name]["bound_by"],

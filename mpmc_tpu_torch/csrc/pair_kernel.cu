@@ -16,10 +16,13 @@
 //   the whole pass is ~32k pairs, 43 blocks of 256 threads.  The rows are
 //   gathered by the kernel itself (mol_atoms[mol], mol read from device
 //   memory), so the wrapper issues no copies and no host sync per move.
+//   One launch: the block that finishes last (an atomic ticket, after a
+//   __threadfence) reduces every block's partials itself.
 //
-// Both: per-block partials [n_blocks, K] in double, then one small kernel
-// reduces them in a fixed order - no atomics, identical results run to
-// run.  Templated on float and double.  Semantics follow the reference
+// Both: per-block partials [n_blocks, K] in double, reduced in a fixed
+// order (B2 by a second one-block kernel, B4 by its last block, with the
+// same tree) - identical results run to run.  Templated on float and
+// double.  Semantics follow the reference
 // (ops/pairs.py jnp path): exact erfc/erf, half-to-even rint in the
 // minimum image, the r2 > 1e-12 guard, and per-term masks (rd/es over
 // inter pairs within rc, es_excl over intra pairs, the LRC coefficient
@@ -200,9 +203,57 @@ __global__ void __launch_bounds__(PT) pair_terms_kernel(
   block_partials<T, PT, 8>(acc, mn, red, rmin, part, pmin, bid);
 }
 
+// ---------------------------------------------------------------- reduce
+// One block of RT threads: thread t sums partials t, t+RT, ... in order,
+// then a fixed tree - the same order every run.  out[0..K) sums (cast to
+// T), out[K] min.  The partials are read from L2 (other blocks wrote them).
+template <typename T, int K>
+__device__ __forceinline__ void reduce_body(
+    const double* __restrict__ part, const T* __restrict__ pmin, int nb,
+    T* __restrict__ out, double (*red)[RT], T* rmin) {
+  const int t = threadIdx.x;
+  double acc[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s) acc[s] = 0.0;
+  T mn = T(INFINITY);
+  for (int b = t; b < nb; b += RT) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) acc[s] += __ldcg(part + size_t(b) * K + s);
+    mn = x_min(mn, __ldcg(pmin + b));
+  }
+#pragma unroll
+  for (int s = 0; s < K; ++s) red[s][t] = acc[s];
+  rmin[t] = mn;
+  __syncthreads();
+  for (int w = RT / 2; w > 0; w >>= 1) {
+    if (t < w) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) red[s][t] += red[s][t + w];
+      rmin[t] = x_min(rmin[t], rmin[t + w]);
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) out[s] = T(red[s][0]);
+    out[K] = rmin[0];
+  }
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(RT) reduce_partials(
+    const double* __restrict__ part, const T* __restrict__ pmin, int nb,
+    T* __restrict__ out) {
+  __shared__ double red[K][RT];
+  __shared__ T rmin[RT];
+  reduce_body<T, K>(part, pmin, nb, out, red, rmin);
+}
+
 // ---------------------------------------------------------------- B4
 // 1-D grid over column chunks of MT; the molecule's rows are gathered into
-// shared memory once per block and read into registers.
+// shared memory once per block and read into registers.  ticket: zero
+// between launches (the last block puts it back).
+static_assert(MT == RT, "B4's last block runs the reduction");
 template <typename T>
 __global__ void __launch_bounds__(MT) mol_pair_kernel(
     const T* __restrict__ pos, const T* __restrict__ q,
@@ -211,11 +262,13 @@ __global__ void __launch_bounds__(MT) mol_pair_kernel(
     const int64_t* __restrict__ mol_atoms,
     const int64_t* __restrict__ mol_natoms, const int64_t* __restrict__ molp,
     const T* __restrict__ rows, int A, const T* __restrict__ sc, int n,
-    Opts o, double* __restrict__ part, T* __restrict__ pmin) {
+    Opts o, double* __restrict__ part, T* __restrict__ pmin,
+    int32_t* __restrict__ ticket, T* __restrict__ out) {
   __shared__ T rx[A_PAD], ry[A_PAD], rz[A_PAD], rq[A_PAD], re[A_PAD],
       rs[A_PAD];
   __shared__ double red[3][MT];
   __shared__ T rmin[MT];
+  __shared__ int last;
   const int t = threadIdx.x;
   const int64_t m = *molp;
   const int na = int(mol_natoms[m]);
@@ -251,43 +304,15 @@ __global__ void __launch_bounds__(MT) mol_pair_kernel(
     }
   }
   block_partials<T, MT, 3>(acc, mn, red, rmin, part, pmin, blockIdx.x);
-}
-
-// ---------------------------------------------------------------- reduce
-// One block: thread t sums partials t, t+RT, ... in order, then a fixed
-// tree - the same order every run.  out[0..K) sums (cast to T), out[K] min.
-template <typename T, int K>
-__global__ void __launch_bounds__(RT) reduce_partials(
-    const double* __restrict__ part, const T* __restrict__ pmin, int nb,
-    T* __restrict__ out) {
-  __shared__ double red[K][RT];
-  __shared__ T rmin[RT];
-  const int t = threadIdx.x;
-  double acc[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) acc[s] = 0.0;
-  T mn = T(INFINITY);
-  for (int b = t; b < nb; b += RT) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) acc[s] += part[size_t(b) * K + s];
-    mn = x_min(mn, pmin[b]);
-  }
-#pragma unroll
-  for (int s = 0; s < K; ++s) red[s][t] = acc[s];
-  rmin[t] = mn;
-  __syncthreads();
-  for (int w = RT / 2; w > 0; w >>= 1) {
-    if (t < w) {
-#pragma unroll
-      for (int s = 0; s < K; ++s) red[s][t] += red[s][t + w];
-      rmin[t] = x_min(rmin[t], rmin[t + w]);
-    }
-    __syncthreads();
-  }
   if (t == 0) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) out[s] = T(red[s][0]);
-    out[K] = rmin[0];
+    __threadfence();            // this block's partials before its ticket
+    last = atomicAdd(ticket, 1) == int(gridDim.x) - 1;
+  }
+  __syncthreads();
+  if (last) {
+    __threadfence();
+    reduce_body<T, 3>(part, pmin, gridDim.x, out, red, rmin);
+    if (t == 0) *ticket = 0;    // ready for the next launch
   }
 }
 
@@ -315,15 +340,12 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
                     const int32_t* mol_id, const bool* alive,
                     const int64_t* mol_atoms, const int64_t* mol_natoms,
                     const int64_t* mol, const T* rows, int A, const T* sc,
-                    int n, Opts o, double* part, T* pmin, T* out,
-                    cudaStream_t stream) {
+                    int n, Opts o, double* part, T* pmin, int32_t* ticket,
+                    T* out, cudaStream_t stream) {
   const int nb = n > 0 ? (n + MT - 1) / MT : 1;
   mol_pair_kernel<T><<<nb, MT, 0, stream>>>(
       pos, q, eps, sig, mol_id, alive, mol_atoms, mol_natoms, mol, rows, A,
-      sc, n, o, part, pmin);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return int(e);
-  reduce_partials<T, 3><<<1, RT, 0, stream>>>(part, pmin, nb, out);
+      sc, n, o, part, pmin, ticket, out);
   return int(cudaGetLastError());
 }
 
@@ -348,14 +370,14 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
       const void* mol_id, const void* alive, const void* mol_atoms,         \
       const void* mol_natoms, const void* mol, const void* rows, int A,     \
       const void* sc, int n, int rd, int mix, int es, int lrc, void* part,  \
-      void* pmin, void* out, void* stream) {                                \
+      void* pmin, void* ticket, void* out, void* stream) {                  \
     return launch_mol_pair<T>(                                              \
         (const T*)pos, (const T*)q, (const T*)eps, (const T*)sig,           \
         (const int32_t*)mol_id, (const bool*)alive,                         \
         (const int64_t*)mol_atoms, (const int64_t*)mol_natoms,              \
         (const int64_t*)mol, (const T*)rows, A, (const T*)sc, n,            \
-        Opts{rd, mix, es, lrc}, (double*)part, (T*)pmin, (T*)out,           \
-        (cudaStream_t)stream);                                              \
+        Opts{rd, mix, es, lrc}, (double*)part, (T*)pmin, (int32_t*)ticket,  \
+        (T*)out, (cudaStream_t)stream);                                     \
   }
 
 PAIR_TERMS_ENTRY(f32, float)

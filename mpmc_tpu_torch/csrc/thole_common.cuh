@@ -1,6 +1,7 @@
-// Device code shared by the kernels that evaluate Thole-damped fields: B5
-// (thole_kernel.cu, the static field and the SCF matvec) and B6
-// (pda_kernel.cu, the charge-field delta of a trial move).
+// Device code of the kernels that evaluate Thole-damped fields: B6
+// (pda_kernel.cu, the charge-field delta of a trial move).  B5
+// (thole_kernel.cu) evaluates the same factors with its divisions made
+// multiplications by reciprocals (damping_rcp there).
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>

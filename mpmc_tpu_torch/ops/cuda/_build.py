@@ -36,8 +36,8 @@ _SIGNATURES = {
         # part pmin out | stream
         "pair_terms": [_P] * 8 + [_I] * 6 + [_P] * 3 + [_P],
         # pos q eps sig mol alive mol_atoms natoms mol rows | A | scal | n
-        # rd mix es lrc | part pmin out | stream
-        "mol_pair": [_P] * 10 + [_I] + [_P] + [_I] * 5 + [_P] * 3 + [_P],
+        # rd mix es lrc | part pmin ticket out | stream
+        "mol_pair": [_P] * 10 + [_I] + [_P] + [_I] * 5 + [_P] * 4 + [_P],
     },
     "uvt_kernel": {
         # pos alive eps sig q mass slot_start slot_species slot_alive tmpl
@@ -64,9 +64,11 @@ _SIGNATURES = {
         + [_P],
     },
     "thole_kernel": {
-        # pos src ok mol scal visit | n ni nj per_split splits dipole damp
-        # ortho | part out | stream
-        "thole_field": [_P] * 6 + [_I] * 8 + [_P] * 2 + [_P],
+        # pos src ok mol scal wl | n ni nj dipole damp ortho grid | part
+        # ticket out | stream
+        "thole_field": [_P] * 6 + [_I] * 7 + [_P] * 3 + [_P],
+        # dipole | [CTAs resident on the card] out
+        "thole_config": [_I, _PI],
     },
 }
 

@@ -302,6 +302,15 @@ def _check_cluster(cluster, n, dtype, nk, ms, what):
     return int(cluster)
 
 
+def _scalar(x, dt, dev):
+    """A [1] tensor of a launch's scalar header: a view of a tensor, or a
+    device fill of a number — no host-to-device copy, which would wait for
+    the stream."""
+    if torch.is_tensor(x):
+        return x.to(dev, dt).reshape(1)
+    return torch.full((1,), float(x), dtype=dt, device=dev)
+
+
 # clusters resident at once, per (entry, dtype, shape, G), from
 # cudaOccupancyMaxActiveClusters before a shape's first launch
 occupancy: dict = {}
@@ -655,12 +664,10 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     else:
         sk = torch.empty((C, 2, 0), dtype=dt, device=dev)
 
-    def s1(x):
-        return torch.as_tensor(x, dtype=dt, device=dev).reshape(1)
-
-    scal = torch.cat([s1(rc), s1(alpha), s1(move_factor), s1(rot_factor),
-                      s1(thr2), s1(p_ins), box.reshape(-1),
-                      torch.linalg.inv(box).reshape(-1)]).contiguous()
+    scal = torch.cat([_scalar(x, dt, dev) for x in (rc, alpha, move_factor,
+                                                     rot_factor, thr2, p_ins)]
+                     + [box.reshape(-1),
+                        torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
     out_pos, out_alive = pos.clone(), alive.clone()
     out_slot = slot_alive.clone()
     sums = torch.empty((C, N_SUMS), dtype=torch.float64, device=dev)
@@ -698,8 +705,10 @@ run_steps_uvt.last_cluster = None     # G of the last kernel launch
 
 def _k0_rows(nve_k0, C, dev):
     """The kinetic reservoir at launch entry as a [C] float64 tensor."""
-    return torch.as_tensor(nve_k0, dtype=torch.float64,
-                           device=dev).reshape(-1).expand(C).contiguous()
+    if not torch.is_tensor(nve_k0):
+        return torch.full((C,), float(nve_k0), dtype=torch.float64,
+                          device=dev)
+    return nve_k0.to(dev, torch.float64).reshape(-1).expand(C).contiguous()
 
 
 def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
@@ -884,12 +893,10 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
         sk = torch.empty((C, 2, 0), dtype=dt, device=dev)
     k0 = _k0_rows(nve_k0, C, dev) if nve else None
 
-    def s1(x):
-        return torch.as_tensor(x, dtype=dt, device=dev).reshape(1)
-
-    scal = torch.cat([s1(rc), s1(alpha), s1(move_factor), s1(rot_factor),
-                      s1(thr2), box.reshape(-1),
-                      torch.linalg.inv(box).reshape(-1)]).contiguous()
+    scal = torch.cat([_scalar(x, dt, dev) for x in (rc, alpha, move_factor,
+                                                     rot_factor, thr2)]
+                     + [box.reshape(-1),
+                        torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
     out_pos = pos.clone()
     sums = torch.empty((C, N_SUMS_NVT), dtype=torch.float64, device=dev)
     from mpmc_tpu_torch.ops.cuda import _build
@@ -1213,15 +1220,11 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
         sk = torch.empty((2, 0), dtype=dt, device=dev)
     dsk = torch.empty_like(sk)
 
-    def s1(x):      # a device fill or a view: no host-to-device copy
-        if torch.is_tensor(x):
-            return x.to(dt).reshape(1)
-        return torch.full((1,), float(x), dtype=dt, device=dev)
-
-    scal = torch.cat([s1(rc), s1(alpha), s1(move_factor), s1(rot_factor),
-                      s1(thr2), s1(p_ins), s1(beta), s1(cfg.polar_damp),
-                      s1(field_alpha), s1(field_krc), box.reshape(-1),
-                      torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
+    scal = torch.cat([_scalar(x, dt, dev) for x in (
+        rc, alpha, move_factor, rot_factor, thr2, p_ins, beta,
+        cfg.polar_damp, field_alpha, field_krc)]
+        + [box.reshape(-1),
+           torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
     rec = torch.zeros((8, 16), dtype=torch.float64, device=dev)
     from mpmc_tpu_torch.ops.cuda import _build
     fn = getattr(_build.library("pda_kernel"),

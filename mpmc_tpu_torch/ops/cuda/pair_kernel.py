@@ -9,7 +9,9 @@ all atoms, optionally restricted to rows >= row_start.  Raw output [9]:
 B4 ``mol_pair`` replaces ops/pallas/pair_kernel.py::_mol_kernel (through
 ``mol_pair_tiles``/``mol_pair_pass_pallas``): one molecule's <= 8 rows
 (current or trial) against every column, its own columns masked.  Raw
-output [4]: [rd, es_real, lrc, min_r2].
+output [4]: [rd, es_real, lrc, min_r2].  One launch per call: its last
+block reduces the blocks' partials, held in scratch kept per device and
+type (``mol_pair_scratch``), so a move allocates only its output.
 
 Each wrapper takes the plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor; anything else raises.  There is no
@@ -169,6 +171,23 @@ def pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal, cfg,
 pair_terms.launches = 0
 
 
+_mol_scratch: dict = {}
+
+
+def mol_pair_scratch(device, dtype, nb):
+    """(part [>= nb, 3] double, pmin [>= nb], ticket [1] int32, zero
+    between launches): B4's block partials on ``device``, grown to the
+    largest call and kept.  Calls share them in stream order (the port
+    launches every kernel on one stream)."""
+    have = _mol_scratch.get((device, dtype))
+    if have is None or have[1].numel() < nb:
+        have = (torch.empty((nb, 3), dtype=torch.float64, device=device),
+                torch.empty(nb, dtype=dtype, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device))
+        _mol_scratch[(device, dtype)] = have
+    return have
+
+
 def mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms, mol_natoms,
              mol, rows, scal, cfg):
     """B4: raw [4] one-molecule sums (module docstring).  ``mol`` is a
@@ -196,9 +215,7 @@ def mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms, mol_natoms,
         _check("rows", rows, dt, (a, 3), dev)
     _check("scal", scal, dt, (20,), dev)
     rd, mix, es, lrc = _opts(cfg)
-    nb = max(-(-n // MT), 1)
-    part = torch.empty((nb, 3), dtype=torch.float64, device=dev)
-    pmin = torch.empty(nb, dtype=dt, device=dev)
+    part, pmin, ticket = mol_pair_scratch(dev, dt, max(-(-n // MT), 1))
     out = torch.empty(4, dtype=dt, device=dev)
     from mpmc_tpu_torch.ops.cuda import _build
     fn = getattr(_build.library("pair_kernel"), "mol_pair_" + _suffix(dt))
@@ -206,7 +223,7 @@ def mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms, mol_natoms,
              _ptr(alive), _ptr(mol_atoms), _ptr(mol_natoms), _ptr(mol),
              ctypes.c_void_p(None if rows is None else rows.data_ptr()),
              a, _ptr(scal), n, rd, mix, es, lrc, _ptr(part), _ptr(pmin),
-             _ptr(out), _stream(dev))
+             _ptr(ticket), _ptr(out), _stream(dev))
     mol_pair.launches += 1
     _raise_on(err, "mol_pair")
     return out

@@ -13,14 +13,29 @@ is inside rc, with dr = r_i - r_j:
 
 d1, d2 are the Thole screening factors (``damping``); a pair at
 r^2 <= 1e-12 is evaluated at r^2 = 1.  Rows that are not ok come out as
-exact zeros.  The arithmetic is the reference's jnp path (square root
-and division; the Pallas kernel's rsqrt-derived reciprocals are not
-carried over).
+exact zeros.  The plain versions follow the reference's jnp path (square
+root and division); the kernel takes its reciprocals from one rsqrt per
+pair, as the Pallas kernel does, within phase 4c's tolerances.
 
 ``visit`` (optional): an [NI, NJ] int32 table over tiles of TI rows x TJ
 columns (``grid_shape``); a tile marked 0 is skipped whole.  Every pair
 of a skipped tile must lie outside rc (thole.cull_visit builds such a
 table), so the result equals the dense one.
+
+On the card the kernel walks a work list of tiles (``work_list``: every
+tile, or the visited ones) on a grid of as many CTAs as the card holds at
+once, and writes each listed tile's double partials to a slot of a
+scratch buffer (TI x 3 doubles a slot, one slot per listed tile: 3 KiB x
+NI x NJ dense, about 22 MB at N = 10.8k and 1.9 GB at 100k; 3 KiB x W
+culled); the last CTA to finish a row tile adds its slots in column-tile
+order (csrc/thole_kernel.cu).  ``plan`` gathers what a call needs besides
+the sites — the scalar header, the work list and its length W (read on
+the host once, to size the slots) — so that a caller making many calls
+with the same box, rc and table (the SCF's CG iterations) builds them
+once; a plan serves only calls with the very tensors it was built from
+(``check_plan``).  The scratch buffer and the row tiles' tickets are kept
+per device (``scratch``) and grow to the largest call.  Calls share them
+in stream order: the port launches every kernel on one stream.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 the kernel for CUDA tensors; anything else raises.  There is no fallback
@@ -30,18 +45,18 @@ nothing else.  The kernel is templated on float and double.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple, Optional
+
 import torch
 
 from mpmc_tpu_torch.ops import pbc as pbc_ops
 from mpmc_tpu_torch.ops.cuda.pair_kernel import (_check, _ptr, _raise_on,
                                                  _stream, _suffix)
 
-TI = 128          # rows per block (one thread per row)
-TJ = 128          # columns per shared-memory tile
+TI = 128          # rows per tile (the kernel's TI)
+TJ = 128          # columns per tile (the kernel's TJ)
 PLAIN_ROWS = 256  # row chunk of the plain versions ([256, N] temporaries)
-# column splits are chosen so that about this many blocks are in flight
-# (4 per SM of an H100's 132)
-TARGET_BLOCKS = 4 * 132
 _DAMP = {"none": 0, "exponential": 1, "linear": 2}
 
 
@@ -144,8 +159,111 @@ def scalars(box, rc, lam):
                       torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
 
 
+def work_list(visit):
+    """The kernel's work list of an [NI, NJ] visit table, built on the
+    table's device with no host sync: int32 [W, rowoff[0..NI],
+    tiles[0..NI*NJ)] — W visited tiles (I * NJ + J), row-major, row tile
+    I's at list positions rowoff[I] .. rowoff[I + 1] - 1 in column order;
+    the entries past W are 0.  The dense list (every tile) is implicit:
+    the kernel takes no list."""
+    ni, nj = visit.shape
+    hit = visit.reshape(-1) != 0
+    count = torch.cumsum(hit, 0, dtype=torch.int32)
+    tiles = torch.nonzero_static(hit, size=ni * nj, fill_value=0)
+    return torch.cat([count[-1:], count.new_zeros(1),
+                      count.reshape(ni, nj)[:, -1],
+                      tiles.reshape(-1).to(torch.int32)])
+
+
+class FieldPlan(NamedTuple):
+    """What a B5 call needs besides the sites: ``n`` sites, the scalar
+    header ``scal``, the work list ``wl`` (None: every tile) and its
+    length ``slots``; and the box, rc, damping width and visit table it
+    was built from."""
+    n: int
+    scal: torch.Tensor
+    wl: Optional[torch.Tensor]
+    slots: int
+    box: torch.Tensor
+    rc: object
+    lam: object
+    visit: Optional[torch.Tensor]
+
+
+def plan(box, rc, lam, n, visit=None):
+    """The FieldPlan of calls on ``n`` sites with this box, rc, damping
+    width and visit table (module docstring).  A culled plan reads its
+    list's length W on the host: one sync."""
+    _, ni, nj = grid_shape(n)
+    if visit is None:
+        return FieldPlan(n, scalars(box, rc, lam), None, ni * nj, box, rc,
+                         lam, None)
+    if tuple(visit.shape) != (ni, nj):
+        raise ValueError(f"visit: shape {tuple(visit.shape)}, {n} sites "
+                         f"take ({ni}, {nj})")
+    wl = work_list(visit)
+    return FieldPlan(n, scalars(box, rc, lam), wl, int(wl[0]), box, rc, lam,
+                     visit)
+
+
+def _same(a, b):
+    """The same tensor, or equal numbers."""
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        return a is b
+    return a == b
+
+
+def check_plan(fplan, box, rc, lam, n, visit):
+    """Raise unless ``fplan`` was built by ``plan`` for this call: the
+    same box, rc and visit tensors (or equal numbers), damping width and
+    site count.  The kernel reads the header and the list from the plan
+    alone, so a plan of another table or cell would skip pairs inside
+    rc."""
+    if not (fplan.n == n and _same(fplan.box, box) and _same(fplan.rc, rc)
+            and _same(fplan.lam, lam) and _same(fplan.visit, visit)):
+        raise ValueError("plan: built for another call (box, rc, lam, "
+                         "site count or visit table)")
+
+
+_config: dict = {}
+_scratch: dict = {}
+
+
+def card_config(device, dtype, mode):
+    """The CTAs the card holds at once of the kernel instance, queried
+    once per device, type and mode."""
+    key = (device, dtype, mode)
+    if key not in _config:
+        from mpmc_tpu_torch.ops.cuda import _build
+        lib = _build.library("thole_kernel")
+        out = (ctypes.c_int * 1)()
+        with torch.cuda.device(device):
+            err = getattr(lib, "thole_config_" + _suffix(dtype))(
+                int(mode == "dipole"), out)
+        _raise_on(err, "thole_config")
+        if out[0] <= 0:
+            raise RuntimeError("thole_kernel: no CTA fits on the card")
+        _config[key] = out[0]
+    return _config[key]
+
+
+def scratch(device, n_part, n_ticket):
+    """(part, ticket): the device's double partial slots (>= ``n_part``)
+    and int32 row-tile tickets (>= ``n_ticket``, zero between launches),
+    grown to the largest call and kept."""
+    have = _scratch.get(device)
+    if (have is None or have[0].numel() < n_part
+            or have[1].numel() < n_ticket):
+        n_part = max(n_part, 0 if have is None else have[0].numel())
+        n_ticket = max(n_ticket, 0 if have is None else have[1].numel())
+        have = (torch.empty(n_part, dtype=torch.float64, device=device),
+                torch.zeros(n_ticket, dtype=torch.int32, device=device))
+        _scratch[device] = have
+    return have
+
+
 def _launch(mode, pos, box, src, site_ok, mol_id, rc, lam, damp_kind,
-            ortho, visit):
+            ortho, visit, fplan):
     n = pos.shape[0]
     dt, dev = pos.dtype, pos.device
     _check("pos", pos, dt, (n, 3))
@@ -161,31 +279,37 @@ def _launch(mode, pos, box, src, site_ok, mol_id, rc, lam, damp_kind,
     out = torch.empty((n, 3), dtype=dt, device=dev)
     if n == 0:
         return out, None
-    per = -(-nj // min(nj, max(1, -(-TARGET_BLOCKS // ni))))
-    splits = -(-nj // per)
-    part = torch.empty((splits, n, 3), dtype=torch.float64, device=dev)
-    scal = scalars(box, rc, lam)
+    if fplan is None:
+        fplan = plan(box, rc, lam, n, visit)
+    else:
+        check_plan(fplan, box, rc, lam, n, visit)
+    blocks = card_config(dev, dt, mode)
+    part, ticket = scratch(dev, max(fplan.slots, 1) * TI * 3, ni)
     from mpmc_tpu_torch.ops.cuda import _build
     fn = getattr(_build.library("thole_kernel"), "thole_field_" + _suffix(dt))
-    err = fn(_ptr(pos), _ptr(src), _ptr(site_ok), _ptr(mol_id), _ptr(scal),
-             _ptr(visit) if visit is not None else None, n, ni, nj, per,
-             splits, int(mode == "dipole"), _DAMP[damp_kind], int(ortho),
-             _ptr(part), _ptr(out), _stream(dev))
+    err = fn(_ptr(pos), _ptr(src), _ptr(site_ok), _ptr(mol_id),
+             _ptr(fplan.scal),
+             _ptr(fplan.wl) if fplan.wl is not None else None, n, ni, nj,
+             int(mode == "dipole"), _DAMP[damp_kind], int(ortho),
+             min(blocks, ni * nj), _ptr(part), _ptr(ticket), _ptr(out),
+             _stream(dev))
     return out, err
 
 
 def charge_field(pos, box, site_ok, charge, mol_id, rc, lam, damp_kind,
-                 ortho=False, visit=None):
+                 ortho=False, visit=None, plan=None):
     """B5 charge mode: the damped intermolecular static field [N, 3]
     (module docstring).  ``mol_id`` int32 on the card, ``site_ok`` bool,
-    ``rc`` a 0-d tensor, ``lam`` the damping width."""
+    ``rc`` a 0-d tensor, ``lam`` the damping width; ``plan`` (optional,
+    the card's: the plain version ignores it) from ``plan`` with the same
+    box, rc, lam, site count and ``visit``."""
     if pos.device.type == "cpu":
         return charge_field_plain(pos, box, site_ok, charge, mol_id, rc, lam,
                                   damp_kind, ortho=ortho, visit=visit)
     if pos.device.type != "cuda":
         raise ValueError(f"charge_field: no kernel for {pos.device}")
     out, err = _launch("charge", pos, box, charge, site_ok, mol_id, rc, lam,
-                       damp_kind, ortho, visit)
+                       damp_kind, ortho, visit, plan)
     if err is not None:
         charge_field.launches += 1
         _raise_on(err, "charge_field")
@@ -196,16 +320,17 @@ charge_field.launches = 0
 
 
 def dipole_field(pos, box, site_ok, mu, mol_id, rc, lam, damp_kind,
-                 ortho=False, visit=None):
+                 ortho=False, visit=None, plan=None):
     """B5 dipole mode: the matvec (T mu) [N, 3] (module docstring);
-    ``mu`` [N, 3], zero where a site is not ok."""
+    ``mu`` [N, 3], zero where a site is not ok; ``plan`` as for
+    ``charge_field``."""
     if pos.device.type == "cpu":
         return dipole_field_plain(pos, box, site_ok, mu, mol_id, rc, lam,
                                   damp_kind, ortho=ortho, visit=visit)
     if pos.device.type != "cuda":
         raise ValueError(f"dipole_field: no kernel for {pos.device}")
     out, err = _launch("dipole", pos, box, mu, site_ok, mol_id, rc, lam,
-                       damp_kind, ortho, visit)
+                       damp_kind, ortho, visit, plan)
     if err is not None:
         dipole_field.launches += 1
         _raise_on(err, "dipole_field")

@@ -568,16 +568,17 @@ def solve_scf(pos, box, atom_alive, params, cfg, e0, mu0=None, r0=None):
     pol_ok = atom_alive & (params.polar > 0)
     cull = cull_supported(cfg)
     polar_vec = params.polar
+    rc_c = derived_cutoff(box, cfg)
+    mol_s, visit = params.mol_id32, None
     if cull:
         # the CG recurrence runs in cell-sorted space with the tile-visit
         # table; the culled matvec equals the dense one, only the CG's
         # reductions reassociate
-        rc_c = derived_cutoff(box, cfg)
         perm, invp = cull_perm(pos, box, pol_ok, rc_c)
         pos = pos[perm]
         pol_ok = pol_ok[perm]
         polar_vec = polar_vec[perm]
-        mol_s = params.mol_id32[perm]
+        mol_s = mol_s[perm]
         e0 = e0[perm]
         mu0 = mu0[perm] if mu0 is not None else None
         r0 = r0[perm] if r0 is not None else None
@@ -588,19 +589,21 @@ def solve_scf(pos, box, atom_alive, params, cfg, e0, mu0=None, r0=None):
     b = torch.where(mask, e0, _zero(e0))
     nsites = torch.clamp(torch.sum(pol_ok), min=1).to(pos.dtype)
     tol2 = (cfg.polar_precision ** 2) * nsites * 3
+    if cfg.polar_solver == "direct":
+        return _solve_direct(pos, box, params, cfg, b, pol_ok), 0, None
+    # B5's scalar header and work list, once for every matvec of the solve
+    fplan = tk.plan(box, rc_c, cfg.polar_damp, pos.shape[0], visit)
+
+    def tmul(x):
+        """(T x) of an x that is zero off the polarizable sites
+        (dipole_matvec) through the solve's plan."""
+        return tk.dipole_field(pos, box, pol_ok, x, mol_s, rc_c,
+                               cfg.polar_damp, cfg.polar_damp_type,
+                               ortho=cfg.ortho_box, visit=visit, plan=fplan)
 
     def amul(x):
         x = torch.where(mask, x, _zero(x))
-        if cull:
-            t = tk.dipole_field(pos, box, pol_ok, x, mol_s, rc_c,
-                                cfg.polar_damp, cfg.polar_damp_type,
-                                ortho=cfg.ortho_box, visit=visit)
-        else:
-            t = dipole_matvec(pos, box, atom_alive, params, cfg, x)
-        return torch.where(mask, inv_a * x - t, _zero(x))
-
-    if cfg.polar_solver == "direct":
-        return _solve_direct(pos, box, params, cfg, b, pol_ok), 0, None
+        return torch.where(mask, inv_a * x - tmul(x), _zero(x))
 
     if cfg.polar_solver == "jacobi":
         # mu <- (1-g) mu + g alpha (E0 + T mu): the reference's plain
@@ -609,7 +612,7 @@ def solve_scf(pos, box, atom_alive, params, cfg, e0, mu0=None, r0=None):
         alpha_site = torch.where(mask, params.polar[:, None], 0.0)
         mu = mu0 if mu0 is not None else _zero(e0)
         for _ in range(cfg.polar_max_iter):
-            t = dipole_matvec(pos, box, atom_alive, params, cfg, mu)
+            t = tmul(torch.where(mask, mu, _zero(mu)))
             mu = torch.where(mask, (1 - g) * mu + g * alpha_site * (b + t),
                              _zero(mu))
         return mu, cfg.polar_max_iter, None

@@ -63,6 +63,9 @@ def test_pair_terms_kernel_matches_plain(device, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_mol_pair_kernel_matches_plain(device, dtype):
+    """B4 (one launch: its last block reduces the partials) against its
+    plain version, current rows and a trial; one launch counted per call,
+    and the scratch kept across calls (no allocation per move)."""
     params, state, cfg, _ = _system(dtype, device)
     mol = torch.tensor(int(np.flatnonzero(
         state.mol_alive.cpu().numpy()
@@ -70,14 +73,24 @@ def test_mol_pair_kernel_matches_plain(device, dtype):
     trial = (state.pos[0] + params.species_pos[0]
              + torch.tensor([2.2, 0.31, 0.17], dtype=state.pos.dtype,
                             device=device))
-    for rows in (None, trial):
+    kept = None
+    for rows in (None, trial, None):
         args = (state.pos, params.charge, params.eps, params.sig,
                 params.mol_id32, state.atom_alive(params), params.mol_atoms,
                 params.mol_natoms, mol, rows,
                 pairs.pair_scalars(state.box, cfg), cfg)
+        before = pk.mol_pair.launches
         k = pk.mol_pair(*args)
         torch.cuda.synchronize(device)
+        assert pk.mol_pair.launches == before + 1
         _close(k, pk.mol_pair_plain(*args), dtype)
+        # the same bits on a repeat: the ticket is back at 0 and the
+        # reduction order fixed
+        assert torch.equal(k, pk.mol_pair(*args))
+        ptrs = [t.data_ptr() for t in pk.mol_pair_scratch(
+            device, state.pos.dtype, 1)]
+        assert kept is None or ptrs == kept
+        kept = ptrs
 
 
 @pytest.mark.parametrize("chains,capacity", [(1, 40), (3, 40), (1, 700)],
@@ -277,9 +290,10 @@ def test_thole_kernel_matches_plain(device, dtype, mode):
     sites, dipoles from initialize): dense at the derived rc in the
     orthorhombic cell and in a skewed one; cell-sorted at rc 6 A with the
     tile-visit table, where the culled launch equals the dense launch bit
-    for bit.  |kernel - plain| <= 1e-12 (float64) or 1e-5 (float32, the
-    plain version's float32 sums against the kernel's double sums) x the
-    largest |E_i|."""
+    for bit, with and without a plan, takes one partial slot per visited
+    tile, and refuses a plan of another table.  |kernel - plain| <= 1e-12
+    (float64) or 1e-5 (float32, the plain version's float32 sums against
+    the kernel's double sums) x the largest |E_i|."""
     params, state, cfg, thermo = systems.mof_h2_gcmc(
         n_side=10, n_h2=20, capacity=40, polarization=True, dtype=dtype,
         device=device)
@@ -319,6 +333,124 @@ def test_thole_kernel_matches_plain(device, dtype, mode):
     assert 0 < float(visit.float().mean()) < 1
     culled = check(args, True, visit)
     assert torch.equal(culled, kern(*args, ortho=True))
+    fplan = tk.plan(state.box, rc, lam, args[0].shape[0], visit)
+    tk._scratch.pop(device, None)
+    for _ in range(2):
+        assert torch.equal(culled, kern(*args, ortho=True, visit=visit,
+                                        plan=fplan))
+    # a culled plan's slots are its visited tiles
+    assert tk._scratch[device][0].numel() == (
+        fplan.slots * tk.TI * 3)
+    assert fplan.slots == int((visit != 0).sum())
+    # a plan of another table (equal shape and values) is refused
+    other = tk.plan(state.box, rc, lam, args[0].shape[0], visit.clone())
+    before = kern.launches
+    with pytest.raises(ValueError, match="another call"):
+        kern(*args, ortho=True, visit=visit, plan=other)
+    assert kern.launches == before
+
+
+def _b5_cloud(n, dtype, device, seed=0, L=20.0, skewed=False):
+    """Random sites in 3-site molecules (about 15 % not ok), charges and
+    dipoles (zero where not ok), molecule ids and a cell of edge L."""
+    rng = np.random.default_rng(seed)
+    box = np.eye(3) * L
+    if skewed:
+        box[1, 0], box[2, 0], box[2, 1] = 0.21 * L, -0.13 * L, 0.17 * L
+    frac = rng.uniform(0.0, 1.0, (n, 3))
+    ok = rng.uniform(size=n) > 0.15
+    mu = np.where(ok[:, None], rng.normal(size=(n, 3)) * 0.01, 0.0)
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(x, dtype=dt, device=device)
+
+    return (t(frac @ box), t(box), t(ok, torch.bool),
+            t(rng.normal(size=n) * 0.3), t(mu),
+            t(np.arange(n) // 3, torch.int32))
+
+
+B5_RAGGED = [(n, m, d, sk) for n in (0, 37, 300)
+             for m in ("charge", "dipole")
+             for d in ("exponential", "linear", "none")
+             for sk in (False, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n,mode,damp,skewed", B5_RAGGED,
+                         ids=[f"n{n}-{m}-{d}-{'tri' if s else 'ortho'}"
+                              for n, m, d, s in B5_RAGGED])
+def test_thole_kernel_ragged(device, dtype, n, mode, damp, skewed):
+    """B5 against its plain version at ragged site counts (none, under one
+    tile, not a multiple of the tile), both modes, the three damping
+    types, orthorhombic and triclinic cells: dense, and with visit tables
+    that hold empty rows and empty columns (the plain version skips the
+    same tiles).  float64: |kernel - plain| <= 1e-12 x max |E|.  float32
+    (random sites come close, so one pair's term can far exceed the
+    field): phase 4c's bound, the plain version in float64 on the same
+    inputs as the reference and at most max(4 x the plain float32
+    version's distance from it, 2e-6 x max |E|)."""
+    pos, box, ok, q, mu, mol = _b5_cloud(n, getattr(torch, dtype), device,
+                                         seed=n, skewed=skewed)
+    kern, plain, src = ((tk.charge_field, tk.charge_field_plain, q)
+                        if mode == "charge"
+                        else (tk.dipole_field, tk.dipole_field_plain, mu))
+    rc = torch.tensor(9.0, dtype=pos.dtype, device=device)
+    args = (pos, box, ok, src, mol, rc, 2.1304, damp)
+    a64 = tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                else x for x in args)
+    _, ni, nj = tk.grid_shape(n, tk.TI, tk.TJ)
+    rng = np.random.default_rng(n + 1)
+    tables = [None, rng.integers(0, 2, (ni, nj)),
+              np.zeros((ni, nj), int), np.ones((ni, nj), int)]
+    tables[1][0, :] = 0                      # an empty row tile
+    tables[1][:, -1] = 0                     # an empty column tile
+    for vis in tables:
+        if vis is not None:
+            vis = torch.as_tensor(vis, dtype=torch.int32, device=device)
+        before = kern.launches
+        k = kern(*args, ortho=not skewed, visit=vis)
+        torch.cuda.synchronize(device)
+        assert k.shape == (n, 3)
+        assert kern.launches == before + (n > 0)
+        if n == 0:
+            continue
+        p64 = plain(*a64, visit=vis)
+        scale = max(float(p64.abs().max()), 1e-30)
+        if dtype == "float64":
+            tol = 1e-12 * scale
+        else:
+            tol = max(4.0 * float((plain(*args, visit=vis).double()
+                                   - p64).abs().max()), 2e-6 * scale)
+        assert float((k.double() - p64).abs().max()) <= tol
+        if vis is not None and int(vis.sum()) == 0:
+            assert not k.any()
+
+
+def test_thole_kernel_scratch_across_sizes(device):
+    """The kept scratch (partial slots and row-tile tickets) serves calls
+    of different site counts: a large call grows it once, smaller and
+    equal calls reuse it, and each call still holds to its plain version
+    (test_thole_kernel_ragged's float32 bound) and repeats bit for bit
+    (the tickets return to zero)."""
+    kept = None
+    for n in (3000, 500, 3000, 129):
+        pos, box, ok, q, mu, mol = _b5_cloud(n, torch.float32, device,
+                                             seed=7, L=40.0)
+        args = (pos, box, ok, mu, mol,
+                torch.tensor(12.0, device=device), 2.1304, "exponential")
+        k = tk.dipole_field(*args, ortho=True)
+        a64 = tuple(x.double() if torch.is_tensor(x)
+                    and x.is_floating_point() else x for x in args)
+        p64 = tk.dipole_field_plain(*a64)
+        tol = max(4.0 * float((tk.dipole_field_plain(*args).double()
+                               - p64).abs().max()),
+                  2e-6 * float(p64.abs().max()))
+        assert float((k.double() - p64).abs().max()) <= tol
+        assert torch.equal(k, tk.dipole_field(*args, ortho=True))
+        ptrs = [t.data_ptr() for t in tk._scratch[device]]
+        if n < 3000:
+            assert ptrs == kept
+        kept = ptrs
 
 
 PDA_FIELDS = {"direct": {}, "wolf": {"polar_wolf": True},

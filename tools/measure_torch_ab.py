@@ -46,9 +46,49 @@ bench system at C = 1 and 32 chains, B3 on the 10.0k MOF + H2 system at
 C = 1 and 16 chains and on the 10k LJ fluid at C = 1 (the systems of its
 chip_smoke.py); ``--compare-phases`` prints these files too.  It then
 runs the checkout's ``phase_pda_kernel`` and keeps every output of B6
-(run_steps_uvt_pda) in launch order in <out.json>.b6.pt;
+(run_steps_uvt_pda) in launch order, but for its timing launches, in
+<out.json>.b6.pt;
 ``--compare-phases`` fails unless all files' B6 outputs are equal bit for
 bit.
+
+    python tools/measure_torch_ab.py --kernels <checkout> <out.json> [--decks]
+        [--scan-decks]
+    python tools/measure_torch_ab.py --compare-kernels <a.json> [...]
+
+The sixth form times <checkout>'s B4 and B5 through its own wrappers on
+its chip_smoke.py's inputs (float32): B4 on phase 3's rows (an H2's
+current rows and a trial beside the framework), B5 in both modes on phase
+4c's polar system, dense and at rc 14 A culled.  Each call is timed
+around the wrapper (chip_smoke.time_calls: CUDA events, median of 20;
+for a wrapper that takes a plan, with the plan built once as solve_scf
+does, and without) and on the card alone (n back-to-back calls between
+one pair of events, queued behind a spin kernel so that the card runs
+them with no host gap), beside an empty kernel timed the same way (the
+launch floor).  B4's outputs (float64 and float32) are kept in
+<out.json>.b4.pt.  With --decks it also runs the checkout's polar decks
+(phase_polar) and fused polar DA decks (phase_pda_decks) and keeps their
+steps/s, CG iterations per step and kernel shares; with --scan-decks it
+runs SCAN_DECKS (chip_smoke's scan-path GCMC deck, fused single-chain µVT
+deck and LJ NVT deck, through its _run_deck) and keeps their steps/s and
+launches.  Each call is also
+timed on the host alone (n calls with no device sync between them), and
+one cold SCF solve (thole.solve_scf from zero, dense and with the culled
+CG at rc 14 A) on the host clock with a device sync.  The seventh form
+prints the files side by side and fails unless B4's outputs are equal
+bit for bit in all of them.
+
+    python tools/measure_torch_ab.py --scan-decks <checkout> <out.json>
+
+The eighth form runs only SCAN_DECKS in <checkout> and prints their
+steps/s, for many runs in turns.
+
+    python tools/measure_torch_ab.py --same-sass <lib_a.so> <lib_b.so> [...]
+
+The ninth form holds two builds of a kernel library to the same machine
+code (cuobjdump -sass, line by line; the source's name and the anonymous
+namespace's per-build hash in the function names left out): a header
+edited in comments only (csrc/thole_common.cuh for B6's pda_kernel)
+leaves the kernel as it was.
 """
 from __future__ import annotations
 
@@ -60,6 +100,11 @@ import time
 import numpy as np
 
 C32_STEPS = 20000
+# (label, extra deck lines, steps, system) of --scan-decks: chip_smoke's
+# scan-path GCMC deck, its fused single-chain µVT deck and the LJ NVT deck
+SCAN_DECKS = (("scan", "", 3000, "mof"),
+              ("fused_uvt", "fused_mc on\n", 20000, "mof"),
+              ("lj_nvt", "fused_mc on\n", 20000, "lj"))
 # (owner, attribute) of each call of run_mc_chains' block loop
 STAGES = (("metropolis", "run_chunk_fused_uvt_multi"),
           ("multichain", "initialize_batched"),
@@ -223,22 +268,284 @@ def measure_times(checkout, out):
             time(f"B3 {kind} C={C}", mk.run_steps, args, kw)
     with open(out, "w") as f:
         json.dump(r, f, indent=1)
-    # B6's outputs on phase 4d's tables, in launch order
-    recs, b6 = [], mk.run_steps_uvt_pda
+    # B6's outputs on phase 4d's tables, in launch order, leaving out the
+    # launches its timings make (their number differs between checkouts,
+    # and a back-to-back timing must not wait for a copy to the host)
+    recs, b6, timing = [], mk.run_steps_uvt_pda, [False]
 
     def recording(*a, **kw):
         rec = b6(*a, **kw)
-        recs.append(rec.cpu())
+        if not timing[0]:
+            recs.append(rec.cpu())
         return rec
 
+    def untimed(fn):
+        def wrapped(*a, **kw):
+            timing[0] = True
+            try:
+                return fn(*a, **kw)
+            finally:
+                timing[0] = False
+        return wrapped
+
+    timers = {k: getattr(cs, k) for k in ("time_calls", "time_device")
+              if hasattr(cs, k)}
     # the wrapper counts its launches on the name it is bound to
     recording.launches = b6.launches
     mk.run_steps_uvt_pda = recording
+    for k, fn in timers.items():
+        setattr(cs, k, untimed(fn))
     try:
         cs.phase_pda_kernel(dev)
     finally:
         mk.run_steps_uvt_pda = b6
+        for k, fn in timers.items():
+            setattr(cs, k, fn)
     torch.save(recs, out + ".b6.pt")
+
+
+def _time_device(fn, dev, n):
+    """ms per call of n back-to-back calls between one pair of CUDA events,
+    queued behind a spin kernel so that the card runs them without a host
+    gap (a longer spin if the card caught up with the host): chip_smoke's
+    time_device, kept here for checkouts whose chip_smoke lacks it."""
+    import torch
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(dev)
+    spin = max(0.02, 3.0 * n * (time.perf_counter() - t0))
+    for _ in range(4):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin * 2e9))
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        ahead = not a.query()
+        torch.cuda.synchronize(dev)
+        if ahead:
+            return a.elapsed_time(b) / n
+        spin *= 4.0
+    raise RuntimeError("the host did not queue ahead of the card")
+
+
+def _host_ms(fn, dev, n=100):
+    """Host ms per call of n calls made without a device sync between
+    them (the wrapper's own time while the card keeps up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize(dev)
+    return t * 1e3
+
+
+def _scan_decks(cs, dev):
+    """{deck: steps/s and launches} of SCAN_DECKS through chip_smoke's
+    _run_deck (run.run's own steps/sec)."""
+    r = {}
+    for label, extra, steps, kind in SCAN_DECKS:
+        _, _, text, launches = cs._run_deck(dev, extra, numsteps=steps,
+                                            kind=kind)
+        r[label] = {"steps_per_sec": float(
+            text.split("steps/sec:")[1].split()[0]), "launches": launches}
+    return r
+
+
+def measure_scan_decks(checkout, out):
+    import json
+
+    sys.path.insert(0, checkout)
+    import chip_smoke as cs
+    dev, smi = cs.phase_device()
+    cs.phase_build()
+    r = {"card": smi, "decks": _scan_decks(cs, dev)}
+    with open(out, "w") as f:
+        json.dump(r, f, indent=1)
+    print(f"{checkout} ({smi}): " + ", ".join(
+        f"{k} {e['steps_per_sec']:.2f}" for k, e in r["decks"].items())
+        + " steps/s")
+
+
+def measure_kernels(checkout, out, decks, scan_decks):
+    import dataclasses
+    import json
+    import statistics
+
+    import torch
+    sys.path.insert(0, checkout)
+    import chip_smoke as cs
+    from mpmc_tpu_torch.ops import pairs, thole
+    from mpmc_tpu_torch.ops.cuda import _build
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    dev, smi = cs.phase_device()
+    for name in _build.build():
+        _build.library(name)
+    r = {"card": smi, "b4": {}, "b5": {}, "ptxas": {}}
+    for name in ("pair_kernel", "thole_kernel"):
+        text = _build.target(name).with_suffix(".ptxas.txt").read_text()
+        r["ptxas"][name] = [ln.strip() for ln in text.splitlines()
+                            if "registers" in ln or "spill" in ln]
+    r["null_device_ms"] = _time_device(lambda: torch.cuda._sleep(0), dev,
+                                       200)
+    saved = {}
+    for dtype in ("float64", "float32"):
+        params, state, cfg, _ = cs.bench_system(dtype, dev)
+        alive = state.atom_alive(params)
+        scal = pairs.pair_scalars(state.box, cfg)
+        h2 = int(np.flatnonzero(
+            (params.mol_species >= 0).cpu().numpy()
+            & state.mol_alive.cpu().numpy())[0])
+        near = state.pos[0] + torch.tensor([2.0, 0.31, 0.17],
+                                           dtype=cfg.tdtype, device=dev)
+        m = torch.tensor(h2, device=dev)
+        for label, rows in (("H2", None),
+                            ("trial", near + params.species_pos[0])):
+            args = (state.pos, params.charge, params.eps, params.sig,
+                    params.mol_id32, alive, params.mol_atoms,
+                    params.mol_natoms, m, rows, scal, cfg)
+            saved[f"b4/{dtype}/{label}"] = pk.mol_pair(*args).cpu()
+            if dtype == "float32":
+                r["b4"][label] = {
+                    "ms": cs.time_calls(lambda: pk.mol_pair(*args), dev),
+                    "device_ms": _time_device(lambda: pk.mol_pair(*args),
+                                              dev, 200),
+                    "host_ms": _host_ms(lambda: pk.mol_pair(*args), dev,
+                                        400)}
+    torch.save(saved, out + ".b4.pt")
+    params, state, cfg, _ = cs.polar_system("float32", dev)
+    alive = state.atom_alive(params)
+    pol_ok = alive & (params.polar > 0)
+    box, lam, kind = state.box, cfg.polar_damp, cfg.polar_damp_type
+    mu = torch.where(pol_ok[:, None], state.mu, 0.0)
+    rc = pairs.derived_cutoff(box, cfg)
+    rc14 = torch.as_tensor(cs.RC_CULL, dtype=box.dtype, device=dev)
+    planned = "plan" in inspect.signature(tk.dipole_field).parameters
+    for mode, kern in (("dipole", tk.dipole_field),
+                       ("charge", tk.charge_field)):
+        ok, src = (pol_ok, mu) if mode == "dipole" else (alive,
+                                                        params.charge)
+        perm, _ = thole.cull_perm(state.pos, box, ok, rc14)
+        pos_s = state.pos[perm].contiguous()
+        vis = thole.cull_visit(pos_s, ok[perm], box, rc14)
+        for label, args, v in (
+                ("dense", (state.pos, box, ok, src, params.mol_id32, rc,
+                           lam, kind), None),
+                ("culled", (pos_s, box, ok[perm], src[perm].contiguous(),
+                            params.mol_id32[perm], rc14, lam, kind), vis)):
+            kw = {"ortho": True, "visit": v}
+            e = {"ms_unplanned": cs.time_calls(lambda: kern(*args, **kw),
+                                               dev)}
+            if planned:
+                kw["plan"] = tk.plan(box, args[5], lam, args[0].shape[0], v)
+            e["ms"] = cs.time_calls(lambda: kern(*args, **kw), dev)
+            e["device_ms"] = _time_device(lambda: kern(*args, **kw), dev, 50)
+            e["host_ms"] = _host_ms(lambda: kern(*args, **kw), dev)
+            r["b5"][f"{mode} {label}"] = e
+    # one cold SCF solve (CG from zero to the deck's precision), host
+    # clock around it with a device sync, median of 10: dense at the
+    # derived rc, and the culled CG at rc 14 A
+    r["solve"] = {}
+    for label, c in (("dense", cfg),
+                     ("culled", dataclasses.replace(cfg,
+                                                    cutoff=cs.RC_CULL))):
+        def solve():
+            return thole.solve_scf(state.pos, box, alive, params, c,
+                                   state.e0)
+
+        solve()
+        ts = []
+        for _ in range(10):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            _, iters, _ = solve()
+            torch.cuda.synchronize(dev)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        r["solve"][label] = {"ms": statistics.median(ts), "iters": iters}
+    if decks:
+        for what, phase in (("polar", cs.phase_polar),
+                            ("pda", cs.phase_pda_decks)):
+            launches, reps = phase(dev)
+            r[what] = {k: {x: v.get(x) for x in (
+                "steps_per_sec", "cg_iters_per_step",
+                "chunk_cg_iters_per_step", "b5_launches_per_step",
+                "b6_launches_per_step", "device_busy_share", "b5_share",
+                "b6_share", "ms_per_step")} for k, v in reps.items()}
+            r[what + "_launches"] = launches
+    if scan_decks:
+        r["decks"] = _scan_decks(cs, dev)
+    r["card_after"] = cs.phase_device()[1]
+    with open(out, "w") as f:
+        json.dump(r, f, indent=1)
+    _report_kernels(checkout, r)
+
+
+def _report_kernels(label, r):
+    print(f"{label} ({r['card']}): launch floor "
+          f"{r['null_device_ms'] * 1e3:.2f} us")
+    for k, e in list(r["b4"].items()) + list(r["b5"].items()):
+        print(f"    {k}: " + ", ".join(f"{x} {v:.4f}" for x, v in e.items())
+              + " ms")
+    for k, e in r.get("solve", {}).items():
+        print(f"    solve {k}: {e['ms']:.3f} ms, {e['iters']} iterations")
+    for what in ("polar", "pda"):
+        for k, e in r.get(what, {}).items():
+            print(f"    {k}: " + ", ".join(f"{x} {v:.4f}" for x, v in
+                                           e.items() if v is not None))
+    for k, e in r.get("decks", {}).items():
+        print(f"    {k}: {e['steps_per_sec']:.2f} steps/s, launches "
+              f"{e['launches']}")
+
+
+def compare_kernels(paths):
+    import json
+
+    import torch
+    runs = []
+    for p in paths:
+        with open(p) as f:
+            runs.append(json.load(f))
+        _report_kernels(p, runs[-1])
+    b4 = [torch.load(p + ".b4.pt") for p in paths]
+    same = all(b.keys() == b4[0].keys()
+               and all(torch.equal(b[k], b4[0][k]) for k in b) for b in b4)
+    print(f"B4: {len(b4[0])} outputs per file, "
+          + ("equal bit for bit" if same else "DIFFER"))
+    if not same:
+        raise SystemExit(1)
+
+
+def same_sass(paths):
+    """The machine code of kernel libraries (cuobjdump -sass) compared
+    line by line, leaving out the source's name and the anonymous
+    namespace's per-build hash in the function names."""
+    import subprocess
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from mpmc_tpu_torch.ops.cuda import _build
+    tool = str(Path(_build.nvcc()).with_name("cuobjdump"))
+
+    def sass(path):
+        text = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True, check=True).stdout
+        return [re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", ln)
+                for ln in text.splitlines() if "identifier" not in ln]
+
+    first = sass(paths[0])
+    for p in paths[1:]:
+        other = sass(p)
+        print(f"{p}: {len(other)} SASS lines, "
+              + ("identical to" if other == first else "DIFFER from")
+              + f" {paths[0]} ({len(first)})")
+        if other != first:
+            raise SystemExit(1)
 
 
 def _report_phases(label, r):
@@ -286,6 +593,15 @@ if __name__ == "__main__":
         measure_phases(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "--times":
         measure_times(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "--kernels":
+        measure_kernels(sys.argv[2], sys.argv[3], "--decks" in sys.argv[4:],
+                        "--scan-decks" in sys.argv[4:])
+    elif sys.argv[1] == "--scan-decks":
+        measure_scan_decks(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "--compare-kernels":
+        compare_kernels(sys.argv[2:])
+    elif sys.argv[1] == "--same-sass":
+        same_sass(sys.argv[2:])
     elif sys.argv[1] == "--compare-phases":
         import json
         import os
