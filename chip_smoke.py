@@ -5,11 +5,12 @@ Phases (any failure raises, so the exit code is non-zero):
 1. device — the card's name and power limit (nvidia-smi);
 2. build  — the CUDA kernels from mpmc_tpu_torch/csrc (one nvcc per
    source, all at once), with build seconds;
-3. kernels — B2 (pair_terms) and B4 (mol_pair) against their plain
-   PyTorch versions on the 10.8k-atom bench system (MOF lattice n_side=21
-   + 512 H2 slots), float32 and float64, with CUDA-event timings per call
-   and on the card alone (time_device), and the launch floor (an empty
-   kernel timed the same way);
+3. kernels — B2 (pair_terms, one launch over its tile work list) at
+   row_start 0 and F and B4 (mol_pair) against their plain PyTorch
+   versions on the 10.8k-atom bench system (MOF lattice n_side=21 + 512
+   H2 slots), float32 and float64, with CUDA-event timings per call and
+   on the card alone (time_device), and the launch floor (an empty kernel
+   timed the same way);
 4. B1 — the fused µVT kernel (run_steps_uvt, one thread-block cluster of
    G CTAs per chain) against its plain version on the same system, at
    every cluster size G whose slice fits: one numpy-seeded [C=2, K=256,
@@ -56,9 +57,10 @@ Phases (any failure raises, so the exit code is non-zero):
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
 bit; each check's share of its tolerance logged), phase 4d
-(phase_pda_kernel) holds B6 against its plain version there (direct,
-wolf, ewald fields and nvt; float64 and float32), and phase 5 adds its
-polar term.
+(phase_pda_kernel) holds B6, one thread-block cluster of G CTAs,
+against its plain version there at every G whose slice fits and at the
+wrapper's own (direct, wolf, ewald fields and nvt; float64 and float32),
+and phase 5 adds its polar term.
 
 The second-to-last line is a JSON object with each kernel's launches on
 its main path, error against its plain version, times (``ms`` per call
@@ -334,20 +336,26 @@ def phase_kernels(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
                                      "with its plain version")
             report["pair_terms"]["max_abs_err"] = max(
                 report["pair_terms"]["max_abs_err"], float(err[fin].max()))
-            if dtype == "float32" and rs == F:
-                # pairs this row-restricted pass evaluates: every alive
-                # row >= F against the alive columns above it and below F
+            if dtype == "float32":
+                # pairs this (row-restricted) pass counts: every alive row
+                # >= rs against the alive columns above it and below rs
                 idx = np.flatnonzero(alive.cpu().numpy())
-                n_f = int(np.sum(idx < F))
+                n_f = int(np.sum(idx < rs))
                 pos_in = np.arange(len(idx))
                 n_pairs = int(np.sum((len(idx) - pos_in - 1 + n_f)
-                                     [idx >= F]))
+                                     [idx >= rs]))
                 bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4,
                                       _nbytes(*args[:8]) + 9 * 4)
-                report["pair_terms"].update(ms=ms, device_ms=dms,
-                                            plain_ms=pms, bound_ms=bound,
-                                            bound_by=by)
-                log(f"    bound {bound:.5f} ms ({by}; {n_pairs} pairs)")
+                entry = dict(ms=ms, device_ms=dms, plain_ms=pms,
+                             bound_ms=bound, bound_by=by, pairs=n_pairs,
+                             tiles=pk.work_list(len(alive), rs,
+                                                device).numel())
+                if rs == F:
+                    report["pair_terms"].update(entry)
+                else:
+                    report["pair_terms"]["full"] = entry
+                log(f"    bound {bound:.5f} ms ({by}; {n_pairs} pairs, "
+                    f"{entry['tiles']} tiles listed)")
         # B4: an alive H2 (current rows) and a trial next to the framework
         h2 = int(np.flatnonzero(
             (params.mol_species >= 0).cpu().numpy()
@@ -996,11 +1004,13 @@ def phase_pda_kernel(device, seed=43):
     rss): each pair's, column's or k-vector's term is rounded to float32
     once or twice in either version (the kernel contracts multiply-adds,
     the plain version rounds each product), so the two sums drift apart
-    as a random walk of that scale.  Times (float32, direct, the
-    survivor-free table): CUDA
-    events, median of 20 launches, per launch and per step, beside the
-    bound (operations from the plain trace, _pda_ops) and the plain
-    version's time.  Returns the kernel's report entry (per step)."""
+    as a random walk of that scale.  Each table runs at every cluster
+    size G whose slice (with the polar planes) fits, then at the G the
+    wrapper picks.  Times (float32, direct, the survivor-free table, the
+    wrapper's G): CUDA events, median of 20 launches, per launch and per
+    step, beside the bound (operations from the plain trace, _pda_ops)
+    and the plain version's time.  Returns the kernel's report entry (per
+    step, with its G)."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     rng = np.random.default_rng(seed)
@@ -1045,39 +1055,50 @@ def phase_pda_kernel(device, seed=43):
             us["survivor-free"] = _pda_survivor_free(
                 launch, table(rng.random((K, 16))), rng)
             hits = 0
+            a0, kw0 = args_of(us["natural"])
+            fits = mk.fitting_cluster_sizes(
+                a0[0].shape[0], a0[0].dtype,
+                kw0["kvecs"].shape[0] if kw0["kvecs"] is not None else 0,
+                a0[8].shape[0], polar=True)
             for name, u in us.items():
                 a, kw = args_of(u)
                 trace = []
-                k = mk.run_steps_uvt_pda(*a, **kw).cpu().numpy()
-                torch.cuda.synchronize(device)
                 p = mk.run_steps_uvt_pda_plain(*a, **kw,
                                                trace=trace).cpu().numpy()
-                same = np.array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8]],
-                                      p[0, [0, 1, 2, 3, 4, 6, 7, 8]])
-                vals = np.concatenate([k[1, :6], k[0, 9:11]])
-                want = np.concatenate([p[1, :6], p[0, 9:11]])
                 rss = np.zeros(8)
                 if trace[-1].get("rss"):
                     rss[[0, 1, 2, 6]] = trace[-1]["rss"]
+                want = np.concatenate([p[1, :6], p[0, 9:11]])
                 tol = (1e-10 * np.abs(want) + 1e-8 if f64
                        else 2e-5 * np.abs(want) + 1e-3 + 8 * EPS32 * rss)
-                d_vals = np.abs(vals - want)
-                d_rows = float(np.abs(k[2:5] - p[2:5]).max())
-                log(f"B6 {dtype} {label} {name}: n_done {k[0, 0]:g} hit "
-                    f"{k[0, 1]:g} mtype {k[0, 2]:g} (plain: {p[0, 0]:g} "
-                    f"{p[0, 1]:g} {p[0, 2]:g}); |d| deltas/d*/lnb "
-                    f"{d_vals.max():.3e} (worst |d|/tol "
-                    f"{float(np.max(d_vals / tol)):.3f}), rows "
-                    f"{d_rows:.3e} A; d* {k[0, 9]:.6f} K")
-                if not (same and np.all(d_vals <= tol)
-                        and d_rows <= (1e-9 if f64 else 1e-4)):
-                    margins = [f"{t['margin']:.3e}" for t in trace]
-                    raise AssertionError(
-                        f"B6 {dtype} {label} {name} disagrees with its plain "
-                        f"version: kernel {k[:2].tolist()} plain "
-                        f"{p[:2].tolist()}; plain margins {margins}")
-                rep["max_abs_err"] = max(rep["max_abs_err"],
-                                         float(d_vals.max()), d_rows)
+                # every G whose slice fits, then the wrapper's own G
+                for G in fits + [None]:
+                    k = mk.run_steps_uvt_pda(*a, **kw,
+                                             cluster=G).cpu().numpy()
+                    torch.cuda.synchronize(device)
+                    G_run = mk.run_steps_uvt_pda.last_cluster
+                    same = np.array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8]],
+                                          p[0, [0, 1, 2, 3, 4, 6, 7, 8]])
+                    vals = np.concatenate([k[1, :6], k[0, 9:11]])
+                    d_vals = np.abs(vals - want)
+                    d_rows = float(np.abs(k[2:5] - p[2:5]).max())
+                    which = "" if G else " (the wrapper's G)"
+                    log(f"B6 {dtype} {label} {name} G={G_run}{which}: n_done "
+                        f"{k[0, 0]:g} hit {k[0, 1]:g} mtype {k[0, 2]:g} "
+                        f"(plain: {p[0, 0]:g} {p[0, 1]:g} {p[0, 2]:g}); "
+                        f"|d| deltas/d*/lnb {d_vals.max():.3e} (worst "
+                        f"|d|/tol {float(np.max(d_vals / tol)):.3f}), rows "
+                        f"{d_rows:.3e} A; d* {k[0, 9]:.6f} K")
+                    if not (same and np.all(d_vals <= tol)
+                            and d_rows <= (1e-9 if f64 else 1e-4)):
+                        margins = [f"{t['margin']:.3e}" for t in trace]
+                        raise AssertionError(
+                            f"B6 {dtype} {label} {name} G={G_run} disagrees "
+                            f"with its plain version: kernel "
+                            f"{k[:2].tolist()} plain {p[:2].tolist()}; "
+                            f"plain margins {margins}")
+                    rep["max_abs_err"] = max(rep["max_abs_err"],
+                                             float(d_vals.max()), d_rows)
                 hits += int(k[0, 1])
                 if f64 or label != "direct" or name != "survivor-free":
                     continue
@@ -1096,11 +1117,16 @@ def phase_pda_kernel(device, seed=43):
                                       + 8 * 16 * 8)
                 rep.update(ms=ms / K, device_ms=dms / K, plain_ms=pms / K,
                            bound_ms=bound / K, bound_by=by, launch_ms=ms,
-                           plain_launch_ms=pms)
-                log(f"B6 f32 direct, survivor-free table: kernel {ms:.4f} ms "
+                           plain_launch_ms=pms,
+                           cluster=mk.run_steps_uvt_pda.last_cluster,
+                           fitting_clusters=fits)
+                log(f"B6 f32 direct, survivor-free table, G="
+                    f"{rep['cluster']} (fitting: {fits}): kernel {ms:.4f} ms "
                     f"per launch of {K} steps ({ms / K * 1e3:.2f} us/step; "
-                    f"{dms:.4f} ms back to back), plain {pms:.3f} ms, bound {bound / K * 1e3:.4f} us/step"
-                    f" ({by}; {ops / K:.3e} ops/step)")
+                    f"{dms:.4f} ms back to back, {dms / K * 1e3:.2f} "
+                    f"us/step), plain {pms:.3f} ms, bound "
+                    f"{bound / K * 1e3:.4f} us/step ({by}; {ops / K:.3e} "
+                    "ops/step)")
             if hits < 3:
                 raise AssertionError(f"B6 {dtype} {label}: only {hits} "
                                      "survivors on the forced tables")
@@ -1901,9 +1927,16 @@ def main():
                   f"{r['device_busy_share']:.4f}  {k}_b6_share "
                   f"{r['b6_share']:.4f}" for k, r in pda_reps.items())
         + f"  b6_kernel_us_per_step {b6['ms'] * 1e3:.2f}"
+        + f"  b6_device_us_per_step {b6['device_ms'] * 1e3:.2f}"
+        + f"  b6_cluster {b6['cluster']}"
         + f"  b6_kernel_ms_per_launch {b6['launch_ms']:.4f}"
         + f"  pda_launches {pda_launches}"
         + f"  wall_seconds {time.time() - t0:.1f}")
+    b2 = report["pair_terms"]
+    log(f"b2_ms_row_start_F {b2['ms']:.4f}  b2_device_ms_row_start_F "
+        f"{b2['device_ms']:.4f}  b2_ms_full {b2['full']['ms']:.4f}  "
+        f"b2_device_ms_full {b2['full']['device_ms']:.4f}  b2_tiles "
+        f"{b2['tiles']} / {b2['full']['tiles']}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 // Float/double overloads of the device math the port's kernels share, so a
 // kernel templated on T calls one name for both precisions.  Exact library
-// functions only (erfcf/erfc, sincosf/sincos): no fast-math intrinsics.
+// functions (erfcf/erfc, sincosf/sincos), but for the reciprocal square
+// root that B2 and B5 take their reciprocals from.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,6 +35,20 @@ __device__ __forceinline__ void x_sincos(float x, float* s, float* c) {
 }
 __device__ __forceinline__ void x_sincos(double x, double* s, double* c) {
   sincos(x, s, c);
+}
+__device__ __forceinline__ float x_rsqrt(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double x_rsqrt(double x) { return rsqrt(x); }
+
+// f - rint(f), rint half to even, for |f| < 2^22 (2^51): adding and taking
+// away 1.5 * 2^23 (2^52) rounds to an integer in the FP32 (FP64) adder, as
+// rint does, without the conversion unit (B2 and B5's minimum image).  The
+// _rn intrinsics are never contracted into a multiply-add.
+__device__ __forceinline__ float frac_image(float f) {
+  return __fsub_rn(f, __fsub_rn(__fadd_rn(f, 12582912.0f), 12582912.0f));
+}
+__device__ __forceinline__ double frac_image(double f) {
+  return __dsub_rn(
+      f, __dsub_rn(__dadd_rn(f, 6755399441055744.0), 6755399441055744.0));
 }
 
 }  // namespace

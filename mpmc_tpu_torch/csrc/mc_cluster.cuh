@@ -1,7 +1,10 @@
 // The thread-block-cluster layer of the fused step loops B1 (uvt_kernel.cu)
-// and B3 (nvt_kernel.cu): one cluster of G CTAs per chain, each CTA holding
-// a contiguous slice of the chain's columns and k-vectors in its shared
-// memory for the K steps of a launch.
+// and B3 (nvt_kernel.cu), and of B6 (pda_kernel.cu): one cluster of G CTAs
+// per chain, each CTA holding a contiguous slice of the chain's columns and
+// k-vectors in its shared memory for the K steps of a launch.  B6 reads a
+// fixed state: it adds the polar planes to the slice (polar_slice_bytes),
+// commits nothing, and meets through one barrier per step
+// (exchange_vector); the rest of this note is B1's and B3's step.
 //
 // Layout.  Rank r of a chain's cluster owns the columns [r nloc, (r + 1)
 //   nloc) with nloc = ceil(n / G), as structure-of-arrays planes x, y, z,
@@ -343,22 +346,81 @@ __device__ __forceinline__ void cluster_totals(const double (*xch)[N_PART],
   }
 }
 
+// ---- B6 (pda_kernel.cu): the same slice with the polar planes, and an
+// exchange of a wider partial vector.  B1 and B3 use neither.
+
+// Dynamic shared memory of one B6 CTA: slice_bytes' layout, then four more
+// column planes of T (polarizability and the static field e0 x/y/z).
+template <typename T>
+__host__ __device__ inline size_t polar_slice_bytes(int nloc, int kloc,
+                                                    int ms) {
+  return slice_bytes<T>(nloc, kloc, ms) + seg16(4 * size_t(nloc) * sizeof(T));
+}
+
+template <typename T>
+struct PolarPlanes {
+  T *p, *ex, *ey, *ez;                 // [nloc] polar, e0 x / y / z
+};
+
+template <typename T>
+__device__ inline PolarPlanes<T> carve_polar(int nloc, int kloc, int ms) {
+  T* f = reinterpret_cast<T*>(dyn_smem + slice_bytes<T>(nloc, kloc, ms));
+  return PolarPlanes<T>{f, f + nloc, f + 2 * nloc, f + 3 * nloc};
+}
+
+// Load this CTA's polar planes: the cnt columns from base of polar [n] and
+// e0 [n,3].  Once per launch.
+template <typename T>
+__device__ __forceinline__ void load_polar(const PolarPlanes<T>& pl,
+                                           const T* __restrict__ polar,
+                                           const T* __restrict__ e0,
+                                           int base, int cnt) {
+  for (int jl = threadIdx.x; jl < cnt; jl += NT) {
+    const int j = base + jl;
+    pl.p[jl] = polar[j];
+    pl.ex[jl] = e0[3 * j];
+    pl.ey[jl] = e0[3 * j + 1];
+    pl.ez[jl] = e0[3 * j + 2];
+  }
+}
+
+// Every thread: the nv values of src (this CTA's partial vector, in its
+// shared memory) into row [rank] of every CTA's exchange half xch (G rows
+// of stride w doubles), one value per thread at a time; then one cluster
+// barrier.  Returns with every CTA's xch holding the G partial vectors.
+// B1 and B3 keep exchange_partials: their 4 values come from thread 0's
+// fold of the warps and go out one destination CTA per thread, with no
+// index arithmetic; spreading G x nv values over every thread is what
+// B6's vector of up to 53 needs, and would only add work to theirs.
+__device__ __forceinline__ void exchange_vector(cg::cluster_group& cluster,
+                                                const double* src, int nv,
+                                                double* xch, int w, int rank,
+                                                int G) {
+  for (int i = threadIdx.x; i < G * nv; i += NT) {
+    const int dst = i / nv, e = i - dst * nv;
+    cluster.map_shared_rank(xch, dst)[rank * w + e] = src[e];
+  }
+  cluster_arrive();
+  cluster_wait();
+}
+
 // Host side: set the kernel's dynamic shared memory and (G > 8) the
-// non-portable cluster size, and fill a launch configuration of C
-// clusters of G CTAs.  Returns a CUDA error code.
+// non-portable cluster size.  Returns a CUDA error code.
 template <typename Kern>
-inline cudaError_t cluster_config(Kern kern, int C, int G, size_t smem,
-                                  cudaStream_t stream,
-                                  cudaLaunchAttribute* attr,
-                                  cudaLaunchConfig_t* cfg) {
+inline cudaError_t cluster_attributes(Kern kern, int G, size_t smem) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
-  if (G > 8) {
+  if (G > 8)
     e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-  }
+  return e;
+}
+
+// Host side: fill a launch configuration of C clusters of G CTAs.
+inline void cluster_launch(int C, int G, size_t smem, cudaStream_t stream,
+                           cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* cfg) {
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = G;
   attr[0].val.clusterDim.y = 1;
@@ -370,6 +432,17 @@ inline cudaError_t cluster_config(Kern kern, int C, int G, size_t smem,
   cfg->stream = stream;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
+}
+
+// Host side: cluster_attributes, then cluster_launch.
+template <typename Kern>
+inline cudaError_t cluster_config(Kern kern, int C, int G, size_t smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr,
+                                  cudaLaunchConfig_t* cfg) {
+  const cudaError_t e = cluster_attributes(kern, G, smem);
+  if (e != cudaSuccess) return e;
+  cluster_launch(C, G, smem, stream, attr, cfg);
   return cudaSuccess;
 }
 

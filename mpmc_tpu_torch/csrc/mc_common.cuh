@@ -5,8 +5,8 @@
 // displacement (a translation plus an axis-angle rotation about the
 // mass-weighted COM).
 //
-// Every block has NT threads: B6 runs one block per chain, B1 and B3 one
-// cluster of blocks per chain (mc_cluster.cuh).  Each thread sums its pair
+// Every block has NT threads: B1, B3 and B6 run one cluster of blocks per
+// chain (mc_cluster.cuh).  Each thread sums its pair
 // terms in double; warps reduce by shuffles and thread 0 adds the warps'
 // partials in a fixed order, so a launch gives the same bits every run.
 // erfc is the exact erfcf/erfc.

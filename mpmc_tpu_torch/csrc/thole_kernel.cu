@@ -62,21 +62,6 @@ constexpr int CS = TJ / S;       // columns per split
 static_assert(G % 32 == 0, "a warp must lie in one column split");
 static_assert(TJ % S == 0 && TJ % 32 == 0, "bad column tile");
 
-// f - rint(f), rint half to even, for |f| < 2^22 (2^51): adding and taking
-// away 1.5 * 2^23 (2^52) rounds to an integer in the FP32 (FP64) adder, as
-// rint does, without the conversion unit.  The _rn intrinsics are never
-// contracted into a multiply-add.
-__device__ __forceinline__ float frac_image(float f) {
-  return __fsub_rn(f, __fsub_rn(__fadd_rn(f, 12582912.0f), 12582912.0f));
-}
-__device__ __forceinline__ double frac_image(double f) {
-  return __dsub_rn(
-      f, __dsub_rn(__dadd_rn(f, 6755399441055744.0), 6755399441055744.0));
-}
-
-__device__ __forceinline__ float x_rsqrt(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double x_rsqrt(double x) { return rsqrt(x); }
-
 // The Thole screening factors of thole_common.cuh's damping (B6's), with
 // its divisions by 6 and by lam made multiplications by reciprocals
 // (inv_lam = 1 / lam): kind 0 none, 1 exponential, 2 linear.

@@ -32,9 +32,11 @@ _PI = ctypes.POINTER(ctypes.c_int)
 # <entry>_f64)
 _SIGNATURES = {
     "pair_kernel": {
-        # pos q eps sig mol alive frozen scal | n row_start rd mix es lrc |
-        # part pmin out | stream
-        "pair_terms": [_P] * 8 + [_I] * 6 + [_P] * 3 + [_P],
+        # pos q eps sig mol alive frozen scal wl | W nt n row_start rd mix
+        # es lrc grid | part pmin ticket out | stream
+        "pair_terms": [_P] * 9 + [_I] * 9 + [_P] * 4 + [_P],
+        # [CTAs resident on the card] out
+        "pair_config": [_PI],
         # pos q eps sig mol alive mol_atoms natoms mol rows | A | scal | n
         # rd mix es lrc | part pmin ticket out | stream
         "mol_pair": [_P] * 10 + [_I] + [_P] + [_I] * 5 + [_P] * 4 + [_P],
@@ -59,9 +61,11 @@ _SIGNATURES = {
     "pda_kernel": {
         # pos alive eps sig q mass polar e0 slot_start slot_species
         # slot_alive tmpl natoms scal lnfv d_self d_excl c1 cx u kvec kcoef
-        # sk dsk rec | n ms S A K nk rd mix es ortho damp field | ke | stream
-        "run_steps_uvt_pda": [_P] * 25 + [_I] * 12 + [ctypes.c_double]
+        # sk rec | n ms S A K nk G rd mix es ortho damp field | ke | stream
+        "run_steps_uvt_pda": [_P] * 24 + [_I] * 13 + [ctypes.c_double]
         + [_P],
+        # n nk ms A field G | clusters out
+        "pda_occupancy": [_I] * 6 + [_PI],
     },
     "thole_kernel": {
         # pos src ok mol scal wl | n ni nj dipole damp ortho grid | part

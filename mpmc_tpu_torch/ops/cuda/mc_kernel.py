@@ -8,11 +8,12 @@ B1 ``run_steps_uvt`` replaces mpmc_tpu/ops/pallas/mc_kernel.py::_kernel_uvt
 pass over all atoms, the S(k) delta, the acceptance test with per-species
 constants, and the in-place commit.
 
-B1 and B3 run one thread-block cluster of G CTAs per chain, each CTA with a
-slice of the chain's columns and k-vectors in its shared memory
-(csrc/mc_cluster.cuh).  ``cluster_size`` picks G from the chain count,
-the system's size and the clusters the card holds at once; ``cluster=``
-overrides it.  A chain's result depends on G, not on C.
+B1, B3 and B6 run one thread-block cluster of G CTAs per chain, each CTA
+with a slice of the chain's columns and k-vectors in its shared memory
+(csrc/mc_cluster.cuh; B6's slice adds the polar planes).
+``cluster_size`` picks G from the chain count, the system's size and the
+clusters the card holds at once; ``cluster=`` overrides it.  A chain's
+result depends on G, not on C.
 
 B3 ``run_steps`` replaces mpmc_tpu/ops/pallas/mc_kernel.py::_kernel (through
 ``run_steps``/``run_steps_multi``): K translate+rotate steps per launch for
@@ -73,9 +74,10 @@ from mpmc_tpu_torch.ops.cuda.pair_kernel import (_ES, _MIX, _RD, _check,
 MAX_SITES = 8      # most sites of a movable molecule (kernel row registers)
 MAX_SPECIES = 8    # most insert species (kernel shared-memory tables)
 PDA_SEG = 16       # B6 steps per launch (the reference's segment)
-CLUSTER_SIZES = (2, 4, 8, 16)   # CTAs per chain of B1 and B3 (16: non-portable)
+CLUSTER_SIZES = (2, 4, 8, 16)   # CTAs per chain of B1, B3, B6 (16: non-portable)
 SMEM_BYTES = 232448   # shared memory one block can use (227 KB)
-SMEM_STATIC = 8192    # held back for the kernels' static tables (< 6 KB)
+SMEM_STATIC = 8192    # held back for B1/B3's static tables (< 6 KB)
+SMEM_STATIC_PDA = 28672   # for B6's (< 25 KB: the exchange rows of 8 sites)
 N_SUMS = 14        # d_rd d_es_real d_es_recip d_es_self d_es_excl d_lrc,
 #                    acc disp/ins/del, att disp/ins/del, acc/att spinflip
 N_SUMS_NVT = 4     # d_rd d_es_real d_es_recip, accepted moves
@@ -246,12 +248,13 @@ def _refuse_cfg(cfg, what="run_steps_uvt"):
                 + ("A12" if flag_name.startswith("feynman") else "A11"))
 
 
-def slice_bytes(n, dtype, G, nk=0, ms=0):
+def slice_bytes(n, dtype, G, nk=0, ms=0, polar=False):
     """Dynamic shared memory of one CTA of a B1/B3 cluster of G CTAs over
     n columns, nk k-vectors and ms slots (csrc/mc_cluster.cuh
     slice_bytes): six column planes and eight k-vector planes of
     ``dtype``, the slot species (int32) and the column and slot alive
-    flags, each segment rounded up to 16 bytes."""
+    flags, each segment rounded up to 16 bytes.  ``polar``: B6's slice
+    (polar_slice_bytes), four more column planes (polar, e0 x/y/z)."""
     sz = torch.finfo(dtype).bits // 8
     nloc, kloc = -(-n // G), -(-nk // G)
 
@@ -259,29 +262,30 @@ def slice_bytes(n, dtype, G, nk=0, ms=0):
         return (b + 15) // 16 * 16
 
     return (seg(6 * nloc * sz) + seg(8 * kloc * sz) + seg(4 * ms)
-            + seg(nloc) + seg(ms))
+            + seg(nloc) + seg(ms) + (seg(4 * nloc * sz) if polar else 0))
 
 
-def _fits(n, dtype, G, nk, ms):
-    return slice_bytes(n, dtype, G, nk, ms) <= SMEM_BYTES - SMEM_STATIC
+def _fits(n, dtype, G, nk, ms, polar=False):
+    return slice_bytes(n, dtype, G, nk, ms, polar) <= SMEM_BYTES - (
+        SMEM_STATIC_PDA if polar else SMEM_STATIC)
 
 
-def fitting_cluster_sizes(n, dtype, nk=0, ms=0):
+def fitting_cluster_sizes(n, dtype, nk=0, ms=0, polar=False):
     """The G of CLUSTER_SIZES, ascending, whose slice fits in shared
-    memory."""
-    return [G for G in CLUSTER_SIZES if _fits(n, dtype, G, nk, ms)]
+    memory (``polar``: B6's)."""
+    return [G for G in CLUSTER_SIZES if _fits(n, dtype, G, nk, ms, polar)]
 
 
-def cluster_size(C, n, dtype, resident, nk=0, ms=0):
+def cluster_size(C, n, dtype, resident, nk=0, ms=0, polar=False):
     """CTAs per chain (G) of a B1/B3 launch of C chains over n columns (nk
-    k-vectors, ms slots): the largest G in CLUSTER_SIZES whose slice fits
-    in shared memory and of which the card holds C clusters at once; when
-    none holds C, the smallest G that fits (the clusters then run in
-    waves).  ``resident``: {G: clusters of G CTAs the card holds at once},
-    which the wrappers take from cudaOccupancyMaxActiveClusters (a cluster
-    lies within one GPC, so an H100 holds fewer than 132 // G).  Raises
-    when no G fits."""
-    fits = fitting_cluster_sizes(n, dtype, nk, ms)
+    k-vectors, ms slots; ``polar``: of B6, C = 1): the largest G in
+    CLUSTER_SIZES whose slice fits in shared memory and of which the card
+    holds C clusters at once; when none holds C, the smallest G that fits
+    (the clusters then run in waves).  ``resident``: {G: clusters of G
+    CTAs the card holds at once}, which the wrappers take from
+    cudaOccupancyMaxActiveClusters (a cluster lies within one GPC, so an
+    H100 holds fewer than 132 // G).  Raises when no G fits."""
+    fits = fitting_cluster_sizes(n, dtype, nk, ms, polar)
     if not fits:
         raise ValueError(f"{n} columns of {dtype} do not fit in "
                          f"{max(CLUSTER_SIZES)} CTAs' shared memory")
@@ -289,17 +293,26 @@ def cluster_size(C, n, dtype, resident, nk=0, ms=0):
     return max(within) if within else min(fits)
 
 
-def _check_cluster(cluster, n, dtype, nk, ms, what):
+def _check_cluster(cluster, n, dtype, nk, ms, what, polar=False):
     """``cluster`` checked against CLUSTER_SIZES and shared memory."""
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"{what}: cluster={cluster!r}, the kernel takes "
                          f"one of {CLUSTER_SIZES}")
-    if not _fits(n, dtype, cluster, nk, ms):
+    if not _fits(n, dtype, cluster, nk, ms, polar):
+        static = SMEM_STATIC_PDA if polar else SMEM_STATIC
         raise ValueError(
             f"{what}: cluster={cluster} needs "
-            f"{slice_bytes(n, dtype, cluster, nk, ms)} bytes of shared "
-            f"memory per CTA, more than {SMEM_BYTES - SMEM_STATIC}")
+            f"{slice_bytes(n, dtype, cluster, nk, ms, polar)} bytes of "
+            f"shared memory per CTA, more than {SMEM_BYTES - static}")
     return int(cluster)
+
+
+def pda_partial_len(na, field):
+    """Length of the partial vector each B6 CTA pushes to every other per
+    step (csrc/pda_kernel.cu partial_len): d_rd, d_es, z_others, d_rec,
+    the trial rows' field en [3 na], under polar_ewald (``field`` 2) the
+    old rows' eo [3 na], and min r^2."""
+    return 4 + 3 * na * (2 if field == 2 else 1) + 1
 
 
 def _scalar(x, dt, dev):
@@ -328,16 +341,18 @@ def _resident(lib, entry, dt, shape, G, what):
     return occupancy[key]
 
 
-def _launch_cluster(lib, entry, cluster, C, n, dt, nk, ms, shape, what):
+def _launch_cluster(lib, entry, cluster, C, n, dt, nk, ms, shape, what,
+                    polar=False):
     """The G of a card launch (``cluster``, or ``cluster_size`` over the
     card's resident counts), after checking that at least one cluster of
     that shape can be resident; raises if none can."""
     if cluster is None:
         G = cluster_size(C, n, dt, {
             g: _resident(lib, entry, dt, shape, g, what)
-            for g in fitting_cluster_sizes(n, dt, nk, ms)}, nk, ms)
+            for g in fitting_cluster_sizes(n, dt, nk, ms, polar)}, nk, ms,
+            polar)
     else:
-        G = _check_cluster(cluster, n, dt, nk, ms, what)
+        G = _check_cluster(cluster, n, dt, nk, ms, what, polar)
     if _resident(lib, entry, dt, shape, G, what) == 0:
         raise RuntimeError(f"{what}: no cluster of {G} CTAs of this shape "
                            "can be resident on the card")
@@ -943,18 +958,41 @@ def _refuse_pda(cfg):
                          f"{cfg.polar_damp_type!r} not supported")
 
 
+def pda_rec_terms(old, new, q, has_old, has_new, kvecs, kcoef, sk_re,
+                  sk_im):
+    """The reciprocal-space terms [Nk] of plain B6's d_rec: sites of charge
+    ``q`` [A] moved from ``old`` to ``new`` [A,3] (``has_old``/``has_new``
+    false: the row is absent, an insert or a delete), against S(k) =
+    (``sk_re``, ``sk_im``): kcoef ((2 S + dS) dS), real and imaginary
+    parts, in the rows' dtype."""
+    def trig(r, use):
+        ph = (r[:, 0:1] * kvecs[:, 0] + r[:, 1:2] * kvecs[:, 1]
+              + r[:, 2:3] * kvecs[:, 2])                           # [A,Nk]
+        if not use:
+            return torch.zeros_like(ph), torch.zeros_like(ph)
+        return torch.cos(ph), torch.sin(ph)
+
+    qa = q[:, None]
+    cn, sn = trig(new, has_new)
+    co, so = trig(old, has_old)
+    dsr = torch.sum(qa * (cn - co), 0)
+    dsi = torch.sum(qa * (sn - so), 0)
+    return kcoef * ((2.0 * sk_re + dsr) * dsr + (2.0 * sk_im + dsi) * dsi)
+
+
 def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
                             slot_start, slot_species, slot_alive, tmpl,
                             natoms, box, rc, alpha, beta, move_factor,
                             rot_factor, thr2, p_ins, lnfv, d_self, d_excl, c1,
                             cx, uniforms, cfg, kvecs=None, kcoef=None,
                             sk_re=None, sk_im=None, field_alpha=0.0,
-                            field_krc=0.0, trace=None):
+                            field_krc=0.0, cluster=None, trace=None):
     """Plain B6: a loop over the K rows of tensor ops over the N columns
     that stops at the freeze, with the kernel's arithmetic (the pair,
     surrogate and field sums, the constants and the stage-1 test in
     float64); the move decisions are read on the host.  Arguments and
-    result as ``run_steps_uvt_pda``.  ``trace``: a list that gets one dict
+    result as ``run_steps_uvt_pda``; ``cluster`` is ignored.  ``trace``:
+    a list that gets one dict
     per step — ``hit``, ``margin`` = ln u - ln(stage-1 acceptance), and
     the work the kernel does for it, ``pairs``, ``in_old``, ``in_new``,
     ``phases`` and ``cols`` (pair evaluations, those of the current and
@@ -1074,21 +1112,9 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
                               - (z_old if has_old else 0.0))
         nk = kvecs.shape[0] if ew else 0
         if ew:
-            qa = torch.where(site_ok, qi, zero)[:, None]
-
-            def trig(r, use):
-                ph = (r[:, 0:1] * kvecs[:, 0] + r[:, 1:2] * kvecs[:, 1]
-                      + r[:, 2:3] * kvecs[:, 2])                   # [A,Nk]
-                if not use:
-                    return torch.zeros_like(ph), torch.zeros_like(ph)
-                return torch.cos(ph), torch.sin(ph)
-
-            cn, sn = trig(new, has_new)
-            co, so = trig(old, has_old)
-            dsr = torch.sum(qa * (cn - co), 0)
-            dsi = torch.sum(qa * (sn - so), 0)
-            rec_t = kcoef * ((2.0 * sk_re + dsr) * dsr
-                             + (2.0 * sk_im + dsi) * dsi)
+            rec_t = pda_rec_terms(old, new, torch.where(site_ok, qi, zero),
+                                  has_old, has_new, kvecs, kcoef, sk_re,
+                                  sk_im)
         else:
             rec_t = torch.zeros(0, dtype=dt, device=dev)
         drec = float(rec_t.double().sum())
@@ -1147,10 +1173,10 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
                       box, rc, alpha, beta, move_factor, rot_factor, thr2,
                       p_ins, lnfv, d_self, d_excl, c1, cx, uniforms, cfg,
                       kvecs=None, kcoef=None, sk_re=None, sk_im=None,
-                      field_alpha=0.0, field_krc=0.0):
+                      field_alpha=0.0, field_krc=0.0, cluster=None):
     """B6: up to K propose-and-filter µVT steps of one chain from a fixed
     state, frozen at the first stage-1 survivor of the polar delayed
-    acceptance (csrc/pda_kernel.cu).
+    acceptance (csrc/pda_kernel.cu), on one cluster of G CTAs.
 
     The state: ``pos`` [N,3], atom ``alive`` [N] bool, ``slot_alive``
     [Ms] bool, the static field ``e0`` [N,3], ``sk_re``/``sk_im`` [Nk]
@@ -1165,7 +1191,9 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
     for the direct field).  ``uniforms`` [K,16]: lane 4 the stage-1 coin,
     lane 12 the stage-2 coin recorded for the survivor.  ``cfg`` gives
     the physics (rd, coulomb, mixing, the Thole damping, polar_wolf /
-    polar_ewald, ortho_box).
+    polar_ewald, ortho_box).  ``cluster``: G, one of CLUSTER_SIZES whose
+    slice (with the polar planes) fits in shared memory (None:
+    ``cluster_size`` for one chain).
 
     Returns the [8,16] float64 record in the reference's field order: row
     0 n_done, hit, mtype (0/1/2 displace/insert/delete), slot_idx,
@@ -1177,19 +1205,23 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
             slot_species, slot_alive, tmpl, natoms, box, rc, alpha, beta,
             move_factor, rot_factor, thr2, p_ins, lnfv, d_self, d_excl, c1,
             cx, uniforms, cfg)
+    N = pos.shape[0]
+    ms = slot_start.shape[0]
+    ew = cfg.coulomb == "ewald"
+    nk = kvecs.shape[0] if ew else 0
     if pos.device.type == "cpu":
+        if cluster is not None:      # checked, then ignored by the plain
+            _check_cluster(cluster, N, pos.dtype, nk, ms,
+                           "run_steps_uvt_pda", polar=True)
         return run_steps_uvt_pda_plain(
             *args, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re, sk_im=sk_im,
-            field_alpha=field_alpha, field_krc=field_krc)
+            field_alpha=field_alpha, field_krc=field_krc, cluster=cluster)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps_uvt_pda: no kernel for {pos.device}")
     _refuse_pda(cfg)
     dt, dev = pos.dtype, pos.device
-    N = pos.shape[0]
-    ms = slot_start.shape[0]
     S, A = tmpl.shape[0], tmpl.shape[1]
     K = uniforms.shape[0]
-    ew = cfg.coulomb == "ewald"
     if A > MAX_SITES or S > MAX_SPECIES:
         raise ValueError(f"run_steps_uvt_pda: {S} species of {A} sites (the "
                          f"kernel takes <= {MAX_SPECIES} of <= {MAX_SITES})")
@@ -1211,14 +1243,9 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
     _check("uniforms", uniforms, dt, (K, 16), dev)
     _check("box", box, dt, (3, 3), dev)
     if ew:
-        nk = kvecs.shape[0]
         _check("kvecs", kvecs, dt, (nk, 3), dev)
         _check("kcoef", kcoef, dt, (nk,), dev)
         sk = torch.stack([sk_re, sk_im]).to(dt).contiguous()       # [2,Nk]
-    else:
-        nk = 0
-        sk = torch.empty((2, 0), dtype=dt, device=dev)
-    dsk = torch.empty_like(sk)
 
     scal = torch.cat([_scalar(x, dt, dev) for x in (
         rc, alpha, move_factor, rot_factor, thr2, p_ins, beta,
@@ -1226,9 +1253,13 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
         + [box.reshape(-1),
            torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
     rec = torch.zeros((8, 16), dtype=torch.float64, device=dev)
+    field = _pda_field(cfg)
     from mpmc_tpu_torch.ops.cuda import _build
-    fn = getattr(_build.library("pda_kernel"),
-                 "run_steps_uvt_pda_" + _suffix(dt))
+    lib = _build.library("pda_kernel")
+    G = _launch_cluster(lib, "pda_occupancy", cluster, 1, N, dt, nk, ms,
+                        (N, nk, ms, A, field), "run_steps_uvt_pda",
+                        polar=True)
+    fn = getattr(lib, "run_steps_uvt_pda_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
     err = fn(_ptr(pos), _ptr(alive), _ptr(eps), _ptr(sig), _ptr(charge),
              _ptr(mass), _ptr(polar), _ptr(e0), _ptr(slot_start),
@@ -1236,16 +1267,18 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
              _ptr(scal), _ptr(lnfv), _ptr(d_self), _ptr(d_excl), _ptr(c1),
              _ptr(cx), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
              _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
-             _ptr(dsk) if ew else nullp, _ptr(rec), N, ms, S, A, K, nk,
-             _RD[cfg.rd_potential], _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
-             int(bool(cfg.ortho_box)), tk._DAMP[cfg.polar_damp_type],
-             _pda_field(cfg), ctypes.c_double(KE), _stream(dev))
+             _ptr(rec), N, ms, S, A, K, nk, G, _RD[cfg.rd_potential],
+             _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
+             int(bool(cfg.ortho_box)), tk._DAMP[cfg.polar_damp_type], field,
+             ctypes.c_double(KE), _stream(dev))
     run_steps_uvt_pda.launches += 1
+    run_steps_uvt_pda.last_cluster = G
     _raise_on(err, "run_steps_uvt_pda")
     return rec
 
 
 run_steps_uvt_pda.launches = 0
+run_steps_uvt_pda.last_cluster = None     # G of the last kernel launch
 
 
 def reset_counts():

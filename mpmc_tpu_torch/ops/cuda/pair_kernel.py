@@ -4,7 +4,11 @@ B2 ``pair_terms`` replaces ops/pallas/pair_kernel.py::_kernel (through
 ``pair_terms_tiles``/``pair_pass_pallas``): the triangular i<j pass over
 all atoms, optionally restricted to rows >= row_start.  Raw output [9]:
 [rd, es_real, es_excl, lrc] active, the same four frozen-frozen, min_r2
-(no Coulomb constant).
+(no Coulomb constant).  One launch per call over a work list of the
+TI x TJ tiles that hold a counted pair (``work_list``, built once per
+(n, row_start, device) and kept), on as many CTAs as the card holds; each
+tile's partials go to a kept slot (``pair_terms_scratch``) and the last
+CTA adds them.
 
 B4 ``mol_pair`` replaces ops/pallas/pair_kernel.py::_mol_kernel (through
 ``mol_pair_tiles``/``mol_pair_pass_pallas``): one molecule's <= 8 rows
@@ -26,13 +30,14 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from mpmc_tpu_torch.ops import pairs
 from mpmc_tpu_torch.state import take
 
 A_PAD = 8        # most rows a molecule may have (B4 row registers)
-PT = 128         # B2 tile edge: rows per block = columns per tile
+PT = 128         # B2 tile edge: rows = columns per tile (TI = TJ)
 MT = 256         # B4 columns per block
 PLAIN_ROWS = 256  # row chunk of the plain full pass ([256, N] temporaries)
 
@@ -128,6 +133,73 @@ def _suffix(dtype):
     raise TypeError(f"pair kernels take float32 or float64, not {dtype}")
 
 
+def tiles_with_pairs(n, row_start):
+    """The tiles (I, J) of PT x PT that hold a pair B2 counts — i >=
+    row_start, and j > i or j < row_start — as int32 I * nt + J in
+    row-major order (nt = ceil(n / PT)), a host numpy array.  Row tile I
+    holds rows [max(I PT, row_start), min((I + 1) PT, n)), column tile J
+    columns [J PT, min((J + 1) PT, n)): a pair j > i exists when the last
+    column exceeds the first row, one j < row_start when the first column
+    lies below row_start."""
+    nt = -(-n // PT)
+    tiles = np.arange(nt * nt, dtype=np.int64)
+    I, J = tiles // max(nt, 1), tiles % max(nt, 1)
+    lo = np.maximum(I * PT, row_start)
+    hi = np.minimum((I + 1) * PT, n) - 1
+    jhi = np.minimum((J + 1) * PT, n) - 1
+    has = (lo <= hi) & ((jhi > lo) | (J * PT < row_start))
+    return tiles[has].astype(np.int32)
+
+
+_lists: dict = {}
+
+
+def work_list(n, row_start, device):
+    """B2's work list of ``tiles_with_pairs(n, row_start)`` on ``device``
+    (int32 [W]), built once per (n, row_start, device) and kept: the list
+    depends on nothing else, so a call copies nothing to the card."""
+    key = (int(n), int(row_start), torch.device(device))
+    if key not in _lists:
+        _lists[key] = torch.as_tensor(tiles_with_pairs(n, row_start),
+                                      device=device)
+    return _lists[key]
+
+
+_pair_scratch: dict = {}
+_pair_config: dict = {}
+
+
+def pair_terms_scratch(device, dtype, w):
+    """(part [>= w, 8] double, pmin [>= w], ticket [1] int32, zero
+    between launches): B2's tile partials on ``device``, grown to the
+    largest list and kept.  Calls share them in stream order (the port
+    launches every kernel on one stream)."""
+    have = _pair_scratch.get((device, dtype))
+    if have is None or have[1].numel() < w:
+        have = (torch.empty((w, 8), dtype=torch.float64, device=device),
+                torch.empty(w, dtype=dtype, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device))
+        _pair_scratch[(device, dtype)] = have
+    return have
+
+
+def card_ctas(device, dtype):
+    """The B2 CTAs the card holds at once, queried once per device and
+    type."""
+    key = (device, dtype)
+    if key not in _pair_config:
+        from mpmc_tpu_torch.ops.cuda import _build
+        out = (ctypes.c_int * 1)()
+        with torch.cuda.device(device):
+            err = getattr(_build.library("pair_kernel"),
+                          "pair_config_" + _suffix(dtype))(out)
+        _raise_on(err, "pair_config")
+        if out[0] <= 0:
+            raise RuntimeError("pair_terms: no CTA fits on the card")
+        _pair_config[key] = out[0]
+    return _pair_config[key]
+
+
 def pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal, cfg,
                row_start=0):
     """B2: raw [9] full-pass sums (module docstring).  ``mol_id`` int32,
@@ -148,21 +220,20 @@ def pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal, cfg,
     _check("scal", scal, dt, (20,), dev)
     rd, mix, es, lrc = _opts(cfg)
     out = torch.empty(pairs.N_SLOTS, dtype=dt, device=dev)
-    n_tiles = -(-n // PT)
-    n_row_tiles = n_tiles - row_start // PT
-    if n_row_tiles <= 0 or n == 0:
+    wl = work_list(n, row_start, dev)
+    w = wl.numel()
+    if w == 0:                        # no row at or past row_start
         out.zero_()
         out[8] = float("inf")
         return out
-    nb = n_tiles * n_row_tiles
-    part = torch.empty((nb, 8), dtype=torch.float64, device=dev)
-    pmin = torch.empty(nb, dtype=dt, device=dev)
+    part, pmin, ticket = pair_terms_scratch(dev, dt, w)
+    grid = min(card_ctas(dev, dt), w)
     from mpmc_tpu_torch.ops.cuda import _build
     fn = getattr(_build.library("pair_kernel"), "pair_terms_" + _suffix(dt))
     err = fn(_ptr(pos), _ptr(charge), _ptr(eps), _ptr(sig), _ptr(mol_id),
-             _ptr(alive), _ptr(frozen), _ptr(scal), n, int(row_start),
-             rd, mix, es, lrc, _ptr(part), _ptr(pmin), _ptr(out),
-             _stream(dev))
+             _ptr(alive), _ptr(frozen), _ptr(scal), _ptr(wl), w, -(-n // PT),
+             n, int(row_start), rd, mix, es, lrc, grid, _ptr(part),
+             _ptr(pmin), _ptr(ticket), _ptr(out), _stream(dev))
     pair_terms.launches += 1
     _raise_on(err, "pair_terms")
     return out

@@ -474,18 +474,58 @@ def pda_survivor_free(launch, u, rng):
     raise AssertionError("no survivor-free table found")
 
 
+def _pda_agree(k, p, trace, f64, drec=None):
+    """B6's record k against the plain record p: equal n_done, hit, mtype,
+    slot, species and attempts; rows within 1e-9 A (f64) / 1e-4 A (f32);
+    the deltas, d* and lnb within rel 1e-10 + 1e-8 K (f64) / 2e-5 + 1e-3 K
+    + 8 float32 epsilons x the root sum of squares of the summed terms
+    (f32: the plain trace's rss, the scale of the two versions' per-term
+    rounding).  ``drec`` = (value, floor): d_rec is held to that value
+    instead of p's, within the larger of the rule's tolerance and floor."""
+    k, p = (x.cpu().numpy() if torch.is_tensor(x) else x for x in (k, p))
+    np.testing.assert_array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8]],
+                                  p[0, [0, 1, 2, 3, 4, 6, 7, 8]])
+    np.testing.assert_allclose(k[2:5], p[2:5], rtol=0,
+                               atol=1e-9 if f64 else 1e-4)
+    vals = np.concatenate([k[1, :6], k[0, 9:11]])
+    want = np.concatenate([p[1, :6], p[0, 9:11]])
+    rss = np.zeros(8)
+    if trace and trace[-1].get("rss"):
+        rss[[0, 1, 2, 6]] = trace[-1]["rss"]
+    if drec is not None:
+        want[2] = drec[0]
+    tol = (1e-10 * np.abs(want) + 1e-8 if f64
+           else 2e-5 * np.abs(want) + 1e-3
+           + 8 * np.finfo(np.float32).eps * rss)
+    if drec is not None:
+        tol[2] = max(tol[2], drec[1])
+    assert (np.abs(vals - want) <= tol).all(), (vals, want, tol)
+
+
+def _drec_on_rows(args, kw, rec, dt):
+    """d_rec of the move in B6's record ``rec`` recomputed from the
+    record's own trial rows (rows 2-4) with the plain version's reciprocal
+    term (mc_kernel.pda_rec_terms) in ``dt``, summed in float64."""
+    rec = rec.cpu().numpy() if torch.is_tensor(rec) else rec
+    mt, slot, spf = (int(rec[0, i]) for i in (2, 3, 4))
+    start, na = int(args[8][slot]), int(args[12][spf])
+    pos, charge = args[0], args[4]
+    new = torch.as_tensor(rec[2:5, :na].T, device=pos.device)
+    return float(mk.pda_rec_terms(
+        pos[start:start + na].to(dt), new.to(dt),
+        charge[start:start + na].to(dt), mt != 1, mt != 2,
+        *(kw[x].to(dt) for x in ("kvecs", "kcoef", "sk_re", "sk_im")))
+        .double().sum())
+
+
 @pytest.mark.parametrize("field", list(PDA_FIELDS))
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_pda_kernel_matches_plain(device, dtype, field):
     """B6 against its plain version on the polar MOF + H2 system (1,120
     sites, jittered, initialized under the field variant): a table per
     move type whose step 0 survives (stage-1 coin 1e-30), a table of
-    natural coins and a survivor-free table (all 16 steps run).  Equal:
-    n_done, hit, mtype, slot, species and attempts; rows within 1e-9 A
-    (f64) / 1e-4 A (f32); the deltas, d* and lnb within rel 1e-10 + 1e-8 K
-    (f64) / 2e-5 + 1e-3 K + 8 float32 epsilons x the root sum of squares
-    of the summed terms (f32: the plain trace's rss, the scale of the two
-    versions' per-term rounding)."""
+    natural coins and a survivor-free table (all 16 steps run), held to
+    _pda_agree's rules."""
     params, state, cfg, thermo = systems.mof_h2_gcmc(
         n_side=6, n_h2=20, capacity=40, polarization=True, dtype=dtype,
         device=device)
@@ -520,21 +560,216 @@ def test_pda_kernel_matches_plain(device, dtype, field):
         torch.cuda.synchronize(device)
         assert mk.run_steps_uvt_pda.launches == before + 1
         trace = []
-        p = mk.run_steps_uvt_pda_plain(*args, **kw,
-                                       trace=trace).cpu().numpy()
-        np.testing.assert_array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8]],
-                                      p[0, [0, 1, 2, 3, 4, 6, 7, 8]])
-        np.testing.assert_allclose(k[2:5], p[2:5], rtol=0,
-                                   atol=1e-9 if f64 else 1e-4)
-        vals = np.concatenate([k[1, :6], k[0, 9:11]])
-        want = np.concatenate([p[1, :6], p[0, 9:11]])
-        rss = np.zeros(8)
-        if trace and trace[-1].get("rss"):
-            rss[[0, 1, 2, 6]] = trace[-1]["rss"]
-        tol = (1e-10 * np.abs(want) + 1e-8 if f64
-               else 2e-5 * np.abs(want) + 1e-3
-               + 8 * np.finfo(np.float32).eps * rss)
-        assert (np.abs(vals - want) <= tol).all(), (vals, want)
+        _pda_agree(k, mk.run_steps_uvt_pda_plain(*args, **kw, trace=trace),
+                   trace, f64)
         hits += int(k[0, 1])
     assert hits >= 3
     assert k[0, 0] == mk.PDA_SEG and k[0, 1] == 0     # survivor-free
+
+
+def _pda_setup(device, dtype, field, small):
+    """(launch(u, cluster) -> record, plain(u) -> record, K) of B6 on the
+    polar MOF + H2 system: small = 56 sites (n_side 3, 8 slots; at G = 16
+    the last two ranks hold no column), else 344 (at G = 16 a ragged last
+    slice); the 709 k-vectors split raggedly at every G;
+    ``field`` one of PDA_FIELDS or "nvt" (all-displace, insert
+    probability 0), initialized under its field."""
+    shape = (dict(n_side=3, n_h2=6, capacity=8) if small
+             else dict(n_side=6, n_h2=20, capacity=40))
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        **shape, polarization=True, dtype=dtype, device=device)
+    cfg = dataclasses.replace(cfg, polar_delayed=True, fused_mc=True,
+                              **({"ensemble": "nvt"} if field == "nvt"
+                                 else PDA_FIELDS[field]))
+    state = metropolis.initialize(systems.jittered(params, state, 5),
+                                  params, cfg, thermo)
+    if field == "nvt":
+        thermo = thermo.replace(insert_probability=torch.zeros_like(
+            thermo.insert_probability))
+    cfg_eff = mk.pda_effective_cfg(cfg, params)
+    tables = metropolis.uvt_fused_tables(params, cfg_eff)
+
+    def args_of(u):
+        return metropolis.pda_launch_args(state, params, cfg_eff, thermo, u,
+                                          tables)
+
+    def launch(u, cluster=None):
+        a, kw = args_of(u)
+        return mk.run_steps_uvt_pda(*a, **kw, cluster=cluster)
+
+    def plain(u, trace=None):
+        a, kw = args_of(u)
+        return mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace)
+
+    return launch, plain, args_of, int(state.pos.shape[0]), cfg.tdtype
+
+
+def _pda_tables(plain, K, tdtype, device, field, rng):
+    """Named [K, 16] tables: step 0 survives (per move type; nvt: three
+    displacements), natural coins, survivor-free (all K steps run), and the
+    freeze at step K - 1 (survivor-free before it)."""
+    def table(x):
+        return torch.as_tensor(x, dtype=tdtype, device=device)
+
+    us = {}
+    for lane8 in (0.9, 0.1, 0.4):
+        x = rng.random((K, 16))
+        x[0, 4], x[0, 8] = 1e-30, lane8
+        us[f"step 0 ({lane8})"] = table(x)
+    us["natural"] = table(rng.random((K, 16)))
+    free = pda_survivor_free(plain, table(rng.random((K, 16))), rng)
+    us["survivor-free"] = free
+    last = free.clone()
+    for _ in range(200):
+        x = rng.random(16)
+        x[4], x[8] = 1e-30, 0.9
+        last[K - 1] = table(x)
+        rec = plain(last)
+        if rec[0, 0] == K and rec[0, 1] > 0.5:
+            us[f"freeze at step {K - 1}"] = last
+            break
+    else:
+        raise AssertionError("no survivor at the last step found")
+    return us
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+@pytest.mark.parametrize("field", ["direct", "wolf", "ewald", "nvt"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pda_kernel_cluster_sizes(device, dtype, field, cluster):
+    """B6 as one cluster of G CTAs, forced with cluster=, against its plain
+    version on the 56-site system (G = 16: ranks with no column) and the
+    344-site one (G = 16: a ragged last slice), for the three fields and
+    nvt: step-0 survivors, natural coins, a survivor-free table (all 16
+    steps) and the freeze at step 15 (test_pda_kernel_matches_plain's
+    tolerances); each launch counted once, run at the G asked for, and a
+    second launch gives the same bits.  On the 56-site cell (12 A wide)
+    float32's d_rec errs by up to ~1e-2 K in the plain version too, past
+    the float32 rule: there d_rec is held to d_rec recomputed in float64
+    from the kernel's own trial rows, within the rule or 4x the plain
+    version's largest distance from its own float64 recomputation on
+    these tables, whichever is larger."""
+    f64 = dtype == "float64"
+    rng = np.random.default_rng(11 + cluster)
+    for small in (True, False):
+        launch, plain, args_of, n, tdtype = _pda_setup(device, dtype, field,
+                                                       small)
+        if small and cluster == 16:
+            nloc = -(-n // 16)
+            assert 15 * nloc >= n      # the last rank holds no column
+        us = _pda_tables(plain, mk.PDA_SEG, tdtype, device, field, rng)
+        a, kw = args_of(us["natural"])
+        floor = None
+        if small and not f64:
+            floor = 4.0 * max(
+                abs(float(p[1, 2]) - _drec_on_rows(a, kw, p, torch.float64))
+                for p in map(plain, us.values()) if p[0, 1] > 0.5)
+        hits = 0
+        for name, u in us.items():
+            before = mk.run_steps_uvt_pda.launches
+            k = launch(u, cluster)
+            torch.cuda.synchronize(device)
+            assert mk.run_steps_uvt_pda.launches == before + 1
+            assert mk.run_steps_uvt_pda.last_cluster == cluster
+            trace = []
+            p = plain(u, trace)
+            drec = None
+            if floor is not None and k[0, 1] > 0.5:
+                drec = (_drec_on_rows(a, kw, k, torch.float64), floor)
+            _pda_agree(k, p, trace, f64, drec)
+            assert torch.equal(k, launch(u, cluster)), name
+            hits += int(k[0, 1])
+        assert hits >= 2
+        assert us["survivor-free"] is not None
+        k = launch(us[f"freeze at step {mk.PDA_SEG - 1}"], cluster)
+        assert k[0, 0] == mk.PDA_SEG and k[0, 1] == 1
+
+
+def _b2_inputs(n, dtype, device, seed=0, skewed=False):
+    """pair_terms' arguments on n random sites in a 24 A cell (a cube, or
+    with skewed a triclinic cell: off-diagonal cell vector terms):
+    molecules of three consecutive sites, the first 40 % frozen, about one
+    site in five dead (rows and columns), LJ + Ewald with the tail term."""
+    params, state, cfg, _ = _system(dtype, device)
+    cfg = dataclasses.replace(cfg, ortho_box=not skewed)
+    rng = np.random.default_rng(seed)
+    dt = cfg.tdtype
+    cell = np.eye(3) * 24.0
+    if skewed:
+        cell[1, 0], cell[2, 0], cell[2, 1] = 5.0, -3.1, 4.1
+    box = torch.as_tensor(cell, dtype=dt, device=device)
+    pos = torch.as_tensor(rng.random((n, 3)) @ cell, dtype=dt,
+                          device=device)
+    charge = torch.as_tensor(rng.uniform(-0.5, 0.5, n), dtype=dt,
+                             device=device)
+    eps = torch.as_tensor(rng.uniform(10.0, 120.0, n), dtype=dt,
+                          device=device)
+    sig = torch.as_tensor(rng.uniform(2.5, 3.5, n), dtype=dt, device=device)
+    mol = torch.as_tensor(np.arange(n) // 3, dtype=torch.int32,
+                          device=device)
+    alive = torch.as_tensor(rng.random(n) > 0.2, device=device)
+    frozen = torch.as_tensor(np.arange(n) < 0.4 * n, device=device)
+    return (pos, charge, eps, sig, mol, alive, frozen,
+            pairs.pair_scalars(box, cfg), cfg)
+
+
+def _b2_agree(device, args64, args32, rs):
+    """B2 in float64 (rel 1e-12, abs 1e-9) and float32 (chip_smoke's
+    rule: rel 2e-5, 4x the plain float32 result's distance from float64,
+    abs 1e-3) against the plain version in float64; returns the float32
+    result."""
+    p64 = pk.pair_terms_plain(*args64, row_start=rs).cpu().numpy()
+    k64 = pk.pair_terms(*args64, row_start=rs).cpu().numpy()
+    np.testing.assert_allclose(k64, p64, rtol=1e-12, atol=1e-9)
+    p32 = pk.pair_terms_plain(*args32, row_start=rs).double().cpu().numpy()
+    k = pk.pair_terms(*args32, row_start=rs)
+    k32 = k.double().cpu().numpy()
+    fin = np.isfinite(p64)
+    tol = np.maximum.reduce([2e-5 * np.abs(p64), 4.0 * np.abs(p32 - p64),
+                             np.full_like(p64, 1e-3)])
+    assert np.array_equal(np.isfinite(k32), fin)
+    assert (np.abs(k32 - p64)[fin] <= tol[fin]).all(), (k32, p64)
+    return k
+
+
+@pytest.mark.parametrize("skewed", [False, True],
+                         ids=["ortho", "triclinic"])
+@pytest.mark.parametrize("n", [0, 1, 129, 300, 10797])
+def test_pair_terms_kernel_work_list(device, n, skewed):
+    """B2 (one launch over the tile work list) against its plain version
+    on n random sites with dead rows and columns, in a cube and in a
+    triclinic cell, float64 and float32, at row_start 0, 77 (not a
+    multiple of the tile) and the frozen prefix; one launch counted per
+    call with a pair (none when no row is at or past row_start); a repeat
+    gives the same bits (the ticket is back at 0)."""
+    a64 = _b2_inputs(n, "float64", device, skewed=skewed)
+    a32 = tuple(x.float() if torch.is_tensor(x) and x.is_floating_point()
+                else x for x in a64[:-2]) + _b2_inputs(
+                    n, "float32", device, skewed=skewed)[-2:]
+    for rs in sorted({0, min(77, n), int(0.4 * n)}):
+        before = pk.pair_terms.launches
+        k = _b2_agree(device, a64, a32, rs)
+        torch.cuda.synchronize(device)
+        listed = pk.work_list(n, rs, device).numel()
+        assert pk.pair_terms.launches == before + 2 * (listed > 0)
+        assert torch.equal(k, pk.pair_terms(*a32, row_start=rs))
+
+
+def test_pair_terms_kernel_scratch_resizes(device):
+    """B2 at 10,797 sites, then at 300 (the kept scratch serves), then at
+    10,797 again: the same bits as the first call, and the scratch grown
+    only for a longer list."""
+    big = _b2_inputs(10797, "float32", device, seed=1)
+    small = _b2_inputs(300, "float32", device, seed=2)
+    first = pk.pair_terms(*big)
+    kept = [t.data_ptr() for t in pk.pair_terms_scratch(
+        device, torch.float32, 1)]
+    pk.pair_terms(*small, row_start=5)
+    assert [t.data_ptr() for t in pk.pair_terms_scratch(
+        device, torch.float32, 1)] == kept
+    assert torch.equal(pk.pair_terms(*big), first)
+    have = pk.pair_terms_scratch(device, torch.float32, 1)[1].numel()
+    assert have >= pk.work_list(10797, 0, device).numel()
+    grown = pk.pair_terms_scratch(device, torch.float32, have + 1)
+    assert grown[1].numel() == have + 1
+    assert torch.equal(pk.pair_terms(*big), first)

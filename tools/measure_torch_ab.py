@@ -89,15 +89,55 @@ code (cuobjdump -sass, line by line; the source's name and the anonymous
 namespace's per-build hash in the function names left out): a header
 edited in comments only (csrc/thole_common.cuh for B6's pda_kernel)
 leaves the kernel as it was.
+
+    python tools/measure_torch_ab.py --b6-b2 <checkout> <out.json> [--decks]
+    python tools/measure_torch_ab.py --compare-b6-b2 <a.json> [...]
+
+The tenth form times <checkout>'s B6 and B2 through its own wrappers on
+its chip_smoke.py's inputs (float32), per call (chip_smoke.time_calls:
+CUDA events, median of 20) and on the card alone (back-to-back calls
+behind a spin kernel): B6 per step of a 16-step launch on phase 4d's
+polar system under the direct field, on a survivor-free table found with
+the plain version (the same table in any checkout), with the cluster
+size its wrapper ran; B2 at row_start F and at 0 on phase 3's bench
+system.  It keeps ptxas's register and spill lines of the pair, B6, B1
+and B3 libraries and B4's outputs on phase 3's rows (float64 and
+float32, <out.json>.b4.pt).  With --decks it also runs the checkout's
+fused polar DA decks (phase_pda_decks: (d) direct, (e) polar_wolf, (f)
+cutoff 14) and its scan-path GCMC deck (SCAN_DECKS' first) for their
+steps/s.  The eleventh form prints the files side by side and fails
+unless B4's outputs are equal bit for bit in all of them; B1 and B3 are
+held to the same machine code with --same-sass.
+
+    python tools/measure_torch_ab.py --pda-small <checkout> <out.pt>
+    python tools/measure_torch_ab.py --compare-pda-small <a.pt> [...]
+
+The twelfth form runs <checkout>'s B6 in float32 on the 56-site polar
+MOF + H2 system of tests/test_torch_cuda.py (a 12 A cell; at G = 16 its
+last two ranks hold no column) for the direct, polar_wolf and
+polar_ewald fields and nvt, on PDA_SMALL_TABLES tables per field whose
+step 0 survives (numpy-seeded, the same in any checkout), at the
+wrapper's own G and, where the wrapper takes cluster=, at each G of
+2, 4, 8, 16; it keeps each record and the plain version's.  The
+thirteenth form holds every file's tables and plain records equal to
+the first's, prints, for each stage-1 survivor, the kernel's and the
+plain version's d_rec, the float32 rule's tolerance (_pda_agree in
+tests/test_torch_cuda.py), the largest difference of their trial rows
+in float32 ulps, and d_rec recomputed from each record's own trial rows
+(the plain version's reciprocal term, in float32 and in float64); and
+says which records equal the first file's bit for bit.
 """
 from __future__ import annotations
 
 import inspect
+import os
 import re
 import sys
 import time
 
 import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 C32_STEPS = 20000
 # (label, extra deck lines, steps, system) of --scan-decks: chip_smoke's
@@ -105,6 +145,11 @@ C32_STEPS = 20000
 SCAN_DECKS = (("scan", "", 3000, "mof"),
               ("fused_uvt", "fused_mc on\n", 20000, "mof"),
               ("lj_nvt", "fused_mc on\n", 20000, "lj"))
+# --pda-small: tables per field, and the fields (tests/test_torch_cuda.py's
+# PDA_FIELDS and nvt)
+PDA_SMALL_TABLES = 12
+PDA_SMALL_FIELDS = {"direct": {}, "wolf": {"polar_wolf": True},
+                    "ewald": {"polar_ewald": True}, "nvt": {"ensemble": "nvt"}}
 # (owner, attribute) of each call of run_mc_chains' block loop
 STAGES = (("metropolis", "run_chunk_fused_uvt_multi"),
           ("multichain", "initialize_batched"),
@@ -487,6 +532,267 @@ def measure_kernels(checkout, out, decks, scan_decks):
     _report_kernels(checkout, r)
 
 
+def _b4_outputs(cs, dev):
+    """B4's outputs on phase 3's rows (an H2's current rows, a trial
+    beside the framework), float64 and float32."""
+    import torch
+
+    from mpmc_tpu_torch.ops import pairs
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    saved = {}
+    for dtype in ("float64", "float32"):
+        params, state, cfg, _ = cs.bench_system(dtype, dev)
+        alive = state.atom_alive(params)
+        scal = pairs.pair_scalars(state.box, cfg)
+        h2 = int(np.flatnonzero(
+            (params.mol_species >= 0).cpu().numpy()
+            & state.mol_alive.cpu().numpy())[0])
+        near = state.pos[0] + torch.tensor([2.0, 0.31, 0.17],
+                                           dtype=cfg.tdtype, device=dev)
+        m = torch.tensor(h2, device=dev)
+        for label, rows in (("H2", None),
+                            ("trial", near + params.species_pos[0])):
+            saved[f"b4/{dtype}/{label}"] = pk.mol_pair(
+                state.pos, params.charge, params.eps, params.sig,
+                params.mol_id32, alive, params.mol_atoms, params.mol_natoms,
+                m, rows, scal, cfg).cpu()
+    return saved
+
+
+def measure_b6_b2(checkout, out, decks):
+    import dataclasses
+    import json
+
+    import torch
+    sys.path.insert(0, checkout)
+    import chip_smoke as cs
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops import pairs
+    from mpmc_tpu_torch.ops.cuda import _build
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    dev, smi = cs.phase_device()
+    for name in _build.build():
+        _build.library(name)
+    r = {"card": smi, "ptxas": {}, "b2": {}}
+    for name in ("pair_kernel", "pda_kernel", "uvt_kernel", "nvt_kernel"):
+        text = _build.target(name).with_suffix(".ptxas.txt").read_text()
+        r["ptxas"][name] = [ln.strip() for ln in text.splitlines()
+                            if "registers" in ln or "spill" in ln]
+    torch.save(_b4_outputs(cs, dev), out + ".b4.pt")
+    # B2 on phase 3's bench system, row_start F and the full pass
+    params, state, cfg, _ = cs.bench_system("float32", dev)
+    args = (state.pos, params.charge, params.eps, params.sig,
+            params.mol_id32, state.atom_alive(params),
+            params.mol_frozen[params.mol_id],
+            pairs.pair_scalars(state.box, cfg), cfg)
+    F = metropolis.frozen_refresh_rows(params, cfg)
+    for label, rs in (("row_start F", F), ("full", 0)):
+        r["b2"][label] = {
+            "ms": cs.time_calls(lambda: pk.pair_terms(*args, row_start=rs),
+                                dev),
+            "device_ms": _time_device(
+                lambda: pk.pair_terms(*args, row_start=rs), dev, 50)}
+    # B6 on phase 4d's polar system, direct field, a survivor-free table
+    params, state, cfg0, thermo = cs.polar_system("float32", dev)
+    cfg = mk.pda_effective_cfg(dataclasses.replace(
+        cfg0, polar_delayed=True, fused_mc=True), params)
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    consts = metropolis._uvt_chunk_consts(state.pos, state.box, params,
+                                          thermo, cfg, tables[5], tables[6])
+
+    def args_of(u):
+        return metropolis.pda_launch_args(state, params, cfg, thermo, u,
+                                          tables, consts)
+
+    rng = np.random.default_rng(43)
+    K = mk.PDA_SEG
+    u = torch.as_tensor(rng.random((K, 16)), dtype=cfg.tdtype, device=dev)
+    u = cs._pda_survivor_free(
+        lambda uu: mk.run_steps_uvt_pda_plain(*args_of(uu)[0],
+                                              **args_of(uu)[1]), u, rng)
+    a, kw = args_of(u)
+    rec = mk.run_steps_uvt_pda(*a, **kw)
+    if float(rec[0, 0]) != K or float(rec[0, 1]) != 0.0:
+        raise AssertionError(f"B6: the survivor-free table froze: {rec[0]}")
+    r["b6"] = {
+        "us_per_step": cs.time_calls(lambda: mk.run_steps_uvt_pda(*a, **kw),
+                                     dev) / K * 1e3,
+        "device_us_per_step": _time_device(
+            lambda: mk.run_steps_uvt_pda(*a, **kw), dev, 20) / K * 1e3,
+        "cluster": getattr(mk.run_steps_uvt_pda, "last_cluster", None)}
+    if decks:
+        launches, reps = cs.phase_pda_decks(dev)
+        r["pda"] = {k: {x: v.get(x) for x in (
+            "steps_per_sec", "cg_iters_per_step", "b6_launches_per_step",
+            "device_busy_share", "b6_share")} for k, v in reps.items()}
+        r["pda_launches"] = launches
+        label, extra, steps, kind = SCAN_DECKS[0]
+        _, _, text, launches = cs._run_deck(dev, extra, numsteps=steps,
+                                            kind=kind)
+        r["decks"] = {label: {"steps_per_sec": float(
+            text.split("steps/sec:")[1].split()[0]), "launches": launches}}
+    r["card_after"] = cs.phase_device()[1]
+    with open(out, "w") as f:
+        json.dump(r, f, indent=1)
+    _report_b6_b2(checkout, r)
+
+
+def _report_b6_b2(label, r):
+    b6 = r["b6"]
+    print(f"{label} ({r['card']}): B6 {b6['us_per_step']:.3f} us/step per "
+          f"call, {b6['device_us_per_step']:.3f} on the card alone (G "
+          f"{b6['cluster']}); B2 " + ", ".join(
+              f"{k} {e['ms']:.4f} / {e['device_ms']:.4f} ms"
+              for k, e in r["b2"].items()))
+    for k, e in r.get("pda", {}).items():
+        print(f"    {k}: " + ", ".join(f"{x} {v:.4f}" for x, v in e.items()
+                                       if v is not None))
+    for k, e in r.get("decks", {}).items():
+        print(f"    {k}: {e['steps_per_sec']:.2f} steps/s")
+    for name, lines in r["ptxas"].items():
+        for ln in lines:
+            print(f"    {name}: {ln}")
+
+
+def compare_b6_b2(paths):
+    import json
+
+    import torch
+    for p in paths:
+        with open(p) as f:
+            _report_b6_b2(p, json.load(f))
+    b4 = [torch.load(p + ".b4.pt") for p in paths]
+    same = all(b.keys() == b4[0].keys()
+               and all(torch.equal(b[k], b4[0][k]) for k in b) for b in b4)
+    print(f"B4: {len(b4[0])} outputs per file, "
+          + ("equal bit for bit" if same else "DIFFER"))
+    if not same:
+        raise SystemExit(1)
+
+def _drec_on_rows(sysd, rec, dt):
+    """d_rec of the move in B6's record ``rec`` [8, 16] recomputed from
+    the record's own trial rows (rows 2-4) with this tree's plain
+    reciprocal term (mc_kernel.pda_rec_terms) in ``dt``, summed in
+    float64; ``sysd``: the system's saved tensors."""
+    import torch
+    sys.path.insert(0, REPO)
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    mt, slot, spf = (int(rec[0, i]) for i in (2, 3, 4))
+    start, na = int(sysd["slot_start"][slot]), int(sysd["natoms"][spf])
+    new = torch.as_tensor(rec[2:5, :na].T)
+    return float(mk.pda_rec_terms(
+        sysd["pos"][start:start + na].to(dt), new.to(dt),
+        sysd["charge"][start:start + na].to(dt), mt != 1, mt != 2,
+        *(sysd[k].to(dt) for k in ("kvecs", "kcoef", "sk_re", "sk_im")))
+        .double().sum())
+
+
+def measure_pda_small(checkout, out):
+    import dataclasses
+    import inspect as _inspect
+
+    import torch
+    sys.path.insert(0, checkout)
+    import chip_smoke as cs
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    dev, smi = cs.phase_device()
+    forced = "cluster" in _inspect.signature(mk.run_steps_uvt_pda).parameters
+    res = {"card": smi, "checkout": checkout, "systems": {}, "cases": []}
+    for field, extra in PDA_SMALL_FIELDS.items():
+        params, state, cfg, thermo = systems.mof_h2_gcmc(
+            n_side=3, n_h2=6, capacity=8, polarization=True,
+            dtype="float32", device=dev)
+        cfg = dataclasses.replace(cfg, polar_delayed=True, fused_mc=True,
+                                  **extra)
+        state = metropolis.initialize(systems.jittered(params, state, 5),
+                                      params, cfg, thermo)
+        if field == "nvt":
+            thermo = thermo.replace(insert_probability=torch.zeros_like(
+                thermo.insert_probability))
+        cfg = mk.pda_effective_cfg(cfg, params)
+        tables = metropolis.uvt_fused_tables(params, cfg)
+        rng = np.random.default_rng(5)
+        for i in range(PDA_SMALL_TABLES):
+            x = rng.random((mk.PDA_SEG, 16))
+            x[0, 4], x[0, 8] = 1e-30, (0.9, 0.1, 0.4)[i % 3]
+            u = torch.as_tensor(x, dtype=cfg.tdtype, device=dev)
+            a, kw = metropolis.pda_launch_args(state, params, cfg, thermo, u,
+                                               tables)
+            trace = []
+            plain = mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace)
+            if i == 0:
+                res["systems"][field] = {
+                    "pos": a[0].cpu(), "charge": a[4].cpu(),
+                    "slot_start": a[8].cpu(), "natoms": a[12].cpu(),
+                    **{k: kw[k].cpu() for k in ("kvecs", "kcoef", "sk_re",
+                                                "sk_im")}}
+            case = {"field": field, "table": i, "u": u.cpu(),
+                    "plain": plain.cpu(), "rss": trace[-1].get("rss"),
+                    "kernel": {}}
+            for G in ((None, 2, 4, 8, 16) if forced else (None,)):
+                rec = (mk.run_steps_uvt_pda(*a, **kw, cluster=G) if forced
+                       else mk.run_steps_uvt_pda(*a, **kw)).cpu()
+                key = str(getattr(mk.run_steps_uvt_pda, "last_cluster", 1)
+                          if G is None else G) + ("*" if G is None else "")
+                case["kernel"][key] = rec
+            res["cases"].append(case)
+    torch.save(res, out)
+
+
+def compare_pda_small(paths):
+    import torch
+    runs = [torch.load(p) for p in paths]
+    first = runs[0]
+    for p, r in zip(paths, runs):
+        same_in = len(r["cases"]) == len(first["cases"]) and all(
+            torch.equal(c["u"], f["u"]) and torch.equal(c["plain"], f["plain"])
+            for c, f in zip(r["cases"], first["cases"]))
+        print(f"{p} ({r['card']}): tables and plain records "
+              + ("equal to" if same_in else "DIFFER from") + f" {paths[0]}")
+        if not same_in:
+            raise SystemExit(1)
+    eps = float(np.finfo(np.float32).eps)
+    for ci, f in enumerate(first["cases"]):
+        p = f["plain"].numpy()
+        if p[0, 1] < 0.5:
+            continue
+        rss = np.asarray(f["rss"] or [0.0, 0.0, 0.0, 0.0])[2]
+        want = p[1, 2]
+        tol = 2e-5 * abs(want) + 1e-3 + 8 * eps * rss
+        sysd = first["systems"][f["field"]]
+        na = int(sysd["natoms"][int(p[0, 4])])
+        pr32, pr64 = (_drec_on_rows(sysd, p, t)
+                      for t in (torch.float32, torch.float64))
+        print(f"{f['field']} table {f['table']} (move {int(p[0, 2])}): plain "
+              f"d_rec {want:.6f}, tolerance {tol:.2e}; on its rows f32 "
+              f"{pr32:.6f} f64 {pr64:.6f} (plain off {want - pr64:+.2e})")
+        for p_, r in zip(paths, runs):
+            for key, rec in r["cases"][ci]["kernel"].items():
+                k = rec.numpy()
+                if k[0, 1] < 0.5 or k[0, 0] != p[0, 0]:
+                    print(f"    {p_} G {key}: stopped at {k[0, 0]} (plain "
+                          f"{p[0, 0]}), hit {k[0, 1]}")
+                    continue
+                kr = k[2:5, :na].astype(np.float32)
+                pr = p[2:5, :na].astype(np.float32)
+                ulps = int(np.max(np.abs(kr.view(np.int32).astype(np.int64)
+                                         - pr.view(np.int32)))) if na else 0
+                k32, k64 = (_drec_on_rows(sysd, k, t)
+                            for t in (torch.float32, torch.float64))
+                bits = torch.equal(rec, first["cases"][ci]["kernel"].get(
+                    key, torch.empty(0)))
+                print(f"    {p_} G {key}: d_rec {k[1, 2]:.6f} (off "
+                      f"{k[1, 2] - want:+.2e}, {abs(k[1, 2] - want) / tol:.2f}"
+                      f" of the tolerance); rows off {ulps} ulp; on its rows "
+                      f"f32 {k32:.6f} f64 {k64:.6f} (kernel off "
+                      f"{k[1, 2] - k64:+.2e}; rows move f64 d_rec by "
+                      f"{k64 - pr64:+.2e})"
+                      + ("; same bits as the first file" if bits else ""))
+
+
 def _report_kernels(label, r):
     print(f"{label} ({r['card']}): launch floor "
           f"{r['null_device_ms'] * 1e3:.2f} us")
@@ -600,6 +906,14 @@ if __name__ == "__main__":
         measure_scan_decks(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "--compare-kernels":
         compare_kernels(sys.argv[2:])
+    elif sys.argv[1] == "--b6-b2":
+        measure_b6_b2(sys.argv[2], sys.argv[3], "--decks" in sys.argv[4:])
+    elif sys.argv[1] == "--compare-b6-b2":
+        compare_b6_b2(sys.argv[2:])
+    elif sys.argv[1] == "--pda-small":
+        measure_pda_small(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "--compare-pda-small":
+        compare_pda_small(sys.argv[2:])
     elif sys.argv[1] == "--same-sass":
         same_sass(sys.argv[2:])
     elif sys.argv[1] == "--compare-phases":
