@@ -54,6 +54,19 @@ Phases (any failure raises, so the exit code is non-zero):
    the exact SCF per survivor — with the same checks, B6 launches per
    step and B6's share of a profiled chunk.
 
+10. batched scan chains — B4 over a chain axis (phase_mol_pair_chains:
+   C = 1 against the single-chain launch bit for bit, C = 2 and 128
+   against the plain version, chains with an empty pick included, times
+   and bound at C = 128), then DECK with ``chains 128`` and no fused_mc
+   (phase_batched: 200 steps, the aggregate rate, B4 and B2 launches,
+   every chain's bookkeeping after a further chunk, the busy share);
+11. parallel tempering (phase_pt) — 8 replicas, 77-250 K or 1-10 atm:
+   fused NVT over B3, fused µVT over B1, batched scan chains with host
+   swaps, and pt_fugacity over B1; each ladder a permutation of its rungs
+   and its last swap round recomputed on the host;
+12. the restart write (phase_restart_write) — the Python writer and the
+   native one on the 10.8k system in turns, median ms, equal bytes.
+
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
 bit; each check's share of its tolerance logged), phase 4d
@@ -91,14 +104,16 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "run_steps": "mpmc_tpu_torch/csrc/nvt_kernel.cu",
            "dipole_field": "mpmc_tpu_torch/csrc/thole_kernel.cu",
            "charge_field": "mpmc_tpu_torch/csrc/thole_kernel.cu",
-           "run_steps_uvt_pda": "mpmc_tpu_torch/csrc/pda_kernel.cu"}
+           "run_steps_uvt_pda": "mpmc_tpu_torch/csrc/pda_kernel.cu",
+           "mol_pair_c128": "mpmc_tpu_torch/csrc/pair_kernel.cu"}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
             "run_steps": "mpmc_tpu/ops/pallas/mc_kernel.py:220",
             "dipole_field": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
             "charge_field": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
-            "run_steps_uvt_pda": "mpmc_tpu/ops/pallas/mc_kernel.py:2089"}
+            "run_steps_uvt_pda": "mpmc_tpu/ops/pallas/mc_kernel.py:2089",
+            "mol_pair_c128": "mpmc_tpu/ops/pallas/pair_kernel.py:336"}
 # NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
 # tensor cores, and device memory
 PEAK_F32 = 67e12
@@ -1277,6 +1292,7 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof"):
             torch.cuda.synchronize(device)
             launches = {"pair_terms": pk.pair_terms.launches,
                         "mol_pair": pk.mol_pair.launches,
+                        "mol_pair_chains": pk.mol_pair_chains.launches,
                         "run_steps_uvt": mk.run_steps_uvt.launches,
                         "run_steps": mk.run_steps.launches,
                         "charge_field": tk.charge_field.launches,
@@ -1843,6 +1859,342 @@ def phase_example(device, numsteps=5000):
     log(f"h2_sorption.inp: {numsteps} steps, <N> {avgs.mean('N'):.3f}")
 
 
+# ---------------------------------------------------------------------------
+# Batched scan chains (B4 over a chain axis), parallel tempering, the native
+# restart writer
+# ---------------------------------------------------------------------------
+
+# the batched scan deck's width (the reference's headline batch,
+# bench.py:71-84) and the PT decks' ladder (bench.py:733-807)
+C_BATCHED = 128
+PT_R, PT_T_MAX = 8, 250.0
+
+
+def _chain_inputs(device, C, seed=29):
+    """B4's inputs over C chains of the 10.8k bench system, {dtype: (args
+    without rows, rows, pick counts, params)}: chain c jittered off the
+    lattice by its own seed, about a tenth of its H2 slots dead, one alive
+    H2 picked by rank from its own uniform (every 16th chain's mask
+    emptied: count 0, index 0) and displaced to trial rows — all in
+    float64; the float32 inputs are those cast (the same picks)."""
+    from mpmc_tpu_torch.mc import metropolis, moves
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.ops import pairs
+    from mpmc_tpu_torch.state import stack_chains
+    out = {}
+    params, state, cfg, _ = bench_system("float64", device)
+    rng = np.random.default_rng(seed)
+    chains = []
+    mov = ((params.mol_species >= 0) & ~params.mol_frozen).cpu().numpy()
+    for c in range(C):
+        st = systems.jittered(params, state, seed + c)
+        kill = mov & (rng.random(len(mov)) < 0.1)
+        alive = st.mol_alive & ~torch.as_tensor(kill, device=device)
+        chains.append(st.replace(mol_alive=alive))
+    states = stack_chains(chains)
+    mask = metropolis._movable_mask(params, states.mol_alive)
+    mask[::16] = False
+    u = torch.as_tensor(rng.random((C, 16)), dtype=torch.float64,
+                        device=device)
+    mol, cnt = moves.pick_by_rank(mask, u[:, 0])
+    rows = moves.displace_rows(states.pos, params, mol, u, 1.0, np.pi)
+    alive = states.mol_alive[:, params.mol_id] & params.atom_ok
+    out["float64"] = ((states.pos, params.charge, params.eps, params.sig,
+                       params.mol_id32, alive, params.mol_atoms,
+                       params.mol_natoms, mol, None,
+                       pairs.pair_scalars(state.box, cfg), cfg), rows, cnt,
+                      params)
+    p32, s32, c32, _ = bench_system("float32", device)
+    out["float32"] = ((states.pos.float(), p32.charge, p32.eps, p32.sig,
+                       p32.mol_id32, alive, p32.mol_atoms, p32.mol_natoms,
+                       mol, None, pairs.pair_scalars(s32.box, c32), c32),
+                      rows.float(), cnt, p32)
+    return out
+
+
+def phase_mol_pair_chains(device, C=C_BATCHED):
+    """B4 over a chain axis on the 10.8k system: C = 1 against the
+    single-chain launch bit for bit; C = 2 and C against the plain version
+    with B4's tolerance (_tol: float64 plain as the reference, float32 by
+    the float32 rule), current and trial rows, chains with an empty pick
+    included; times at C per call, on the card alone and plain, and the
+    bound from this run's inputs."""
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    rep = {"max_abs_err": 0.0}
+    inputs = _chain_inputs(device, C)
+    for dt in ("float64", "float32"):
+        args, rows, cnt, params = inputs[dt]
+        if dt == "float64":
+            log(f"B4 chains: {C} chains, {int((cnt == 0).sum())} with an "
+                "empty pick")
+        # C = 1: the single-chain launch's bits
+        for r in (None, rows):
+            one = list(args)
+            one[0], one[5], one[8] = args[0][:1], args[5][:1], args[8][:1]
+            one[9] = None if r is None else r[:1]
+            k1 = pk.mol_pair_chains(*one)
+            s1 = pk.mol_pair(args[0][0], *args[1:5], args[5][0], *args[6:8],
+                             args[8][0], None if r is None else r[0],
+                             *args[10:])
+            if not torch.equal(k1[0], s1):
+                raise AssertionError(f"B4 {dt}: C = 1 is not the "
+                                     "single-chain launch bit for bit")
+        for width in (2, C):
+            for label, r in (("current", None), ("trial", rows)):
+                a = list(args)
+                a[0], a[5], a[8] = (args[0][:width], args[5][:width],
+                                    args[8][:width])
+                a[9] = None if r is None else r[:width]
+                k = pk.mol_pair_chains(*a).double().cpu().numpy()
+                p = pk.mol_pair_chains_plain(*a).double().cpu().numpy()
+                key = (width, label)
+                if dt == "float64":
+                    inputs[key] = p
+                    tol = _tol(torch.float64, p)
+                else:
+                    tol = _tol(torch.float32, inputs[key], p)
+                    p = inputs[key]
+                err = np.abs(k - p)
+                if not np.all(err <= tol):
+                    bad = np.argwhere(err > tol)[:4].tolist()
+                    raise AssertionError(f"B4 {dt} C={width} {label} "
+                                         f"disagrees with its plain version "
+                                         f"at {bad}")
+                rep["max_abs_err"] = max(rep["max_abs_err"],
+                                         float(err.max()))
+                log(f"B4 chains {dt} C={width} {label}: max |d| "
+                    f"{err.max():.3e}, least tol/|d| "
+                    f"{np.min(tol / np.maximum(err, 1e-300)):.3g}")
+        if dt == "float32":
+            a = list(args)
+            a[9] = rows
+            ms = time_calls(lambda: pk.mol_pair_chains(*a), device)
+            dms = time_device(lambda: pk.mol_pair_chains(*a), device, n=100)
+            pms = time_calls(lambda: pk.mol_pair_chains_plain(*a), device,
+                             n=3)
+            # pairs this run's inputs need: each chain's molecule's rows
+            # (its sites, at most the A rows of mol_atoms: an empty pick's
+            # index 0 names the framework's molecule) against its alive
+            # columns outside the molecule
+            alive = args[5]
+            mol = args[8]
+            own = params.mol_id[None, :] == mol[:, None]
+            cols = (alive & ~own).sum(1)
+            sites = torch.clamp(params.mol_natoms[mol],
+                                max=params.mol_atoms.shape[1])
+            n_pairs = int((sites * cols).sum())
+            nbytes = _nbytes(*a[:9], rows) + 20 * 4 + C * 4 * 4
+            bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4, nbytes)
+            rep.update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bound,
+                       bound_by=by, pairs=n_pairs, bytes=nbytes)
+            log(f"B4 chains f32 C={C}: kernel {ms:.4f} ms per call, "
+                f"{dms:.4f} ms on the card alone; plain {pms:.3f} ms; bound "
+                f"{bound:.5f} ms ({by}; {n_pairs} pairs x {OPS_PAIR_B2B4}, "
+                f"{nbytes} bytes)")
+    return rep
+
+
+def _pt_recompute(rnd):
+    """(new ladder, accepted, margin) of a PT round recomputed on the host
+    in float64 from the round's record (run_mc_pt / run_mc_pt_fug):
+    temperatures and energies (and the µVT counts), or fugacity rows and
+    counts; ``margin`` the least |ln u - ln P| / (1 + |ln P|) over the
+    pairs (a float32 decision may differ from float64's below ~1e-6)."""
+    h = {k: (v.double().cpu().numpy() if torch.is_tensor(v) else v)
+         for k, v in rnd.items()}
+    par, u = h["parity"], np.asarray(h["u"], np.float64)
+    margins = [np.inf]
+    fug = "fugacity" in h
+    x = h["fugacity"] if fug else h["temps"]
+    new, acc = x.copy(), 0
+    for lo in range(par, x.shape[0] - 1, 2):
+        if fug and h["counts"].ndim == 1:
+            n = h["counts"]
+            ln_p = (n[lo] - n[lo + 1]) * np.log(x[lo + 1].sum()
+                                                / x[lo].sum())
+        elif fug:
+            lnf = np.log(x[:, list(h["sp_ids"])])
+            ln_p = np.sum((h["counts"][lo] - h["counts"][lo + 1])
+                          * (lnf[lo + 1] - lnf[lo]))
+        else:
+            t, e = x, h["energies"]
+            ln_p = (1 / t[lo] - 1 / t[lo + 1]) * (e[lo] - e[lo + 1])
+            if h["n_mols"] is not None:
+                n = h["n_mols"]
+                ln_p += (n[lo] - n[lo + 1]) * np.log(t[lo] / t[lo + 1])
+        margins.append(abs(np.log(u[lo]) - ln_p) / (1 + abs(ln_p)))
+        if np.log(u[lo]) < ln_p:
+            new[[lo, lo + 1]] = x[[lo + 1, lo]]
+            acc += 1
+    return new, acc, min(margins)
+
+
+def phase_batched(device, C=C_BATCHED, numsteps=200, chunk=100):
+    """The batched scan chains at the reference's headline width: DECK
+    with ``chains C`` and no fused_mc (corrtime 100), through run.run;
+    the aggregate rate, B4-over-chains and B2 launches; a further chunk of
+    every chain held against a fresh recompute by _check_bookkeeping's
+    rule; a profiled chunk for the device's busy share."""
+    from mpmc_tpu_torch.parallel import multichain
+    from mpmc_tpu_torch.state import slice_chain
+    su, avgs, text, ln = _run_deck(
+        device, f"chains {C}\ncorrtime 100\n", numsteps=numsteps)
+    if f"batched scan chains (C={C})" not in text or "fused_mc" in text:
+        raise AssertionError("the chains deck did not take the batched "
+                             "scan route")
+    if not (ln["mol_pair_chains"] > 0 and ln["pair_terms"] > 0):
+        raise AssertionError(f"a kernel was not launched: {ln}")
+    rate = float(text.split("steps/sec:")[1].split()[0])
+    log(f"GCMC 10.8k batched scan c{C}: {rate:.2f} steps/s aggregate, <N> "
+        f"{avgs.mean('N'):.3f}; B4 over chains {ln['mol_pair_chains']} "
+        f"launches ({ln['mol_pair_chains'] / numsteps:.3f} per step), B2 "
+        f"{ln['pair_terms']}, single-chain B4 {ln['mol_pair']}")
+    g = torch.Generator(device=device).manual_seed(23)
+    sts, stats = multichain.run_chunk_batched(su.states, su.params, su.cfg,
+                                              su.thermo, chunk, generator=g)
+    log(f"batched chunk accepts (all chains) "
+        f"{stats.host().accepts.sum(0).tolist()}")
+    for c in range(C):
+        _check_bookkeeping(f"batched c{C} chain {c}, {chunk} steps",
+                           slice_chain(sts, c), su)
+    prof = _profile(f"batched_c{C}", lambda: multichain.run_chunk_batched(
+        su.states, su.params, su.cfg, su.thermo, 50, generator=g), 50,
+        device, kernel="mol_pair")
+    # a batched step makes no host sync: torch raises on any
+    # synchronizing call
+    from mpmc_tpu_torch.mc import metropolis
+    u = torch.rand((C, 50, 16), generator=g, device=device)
+    step, carry, c, branch, stats = metropolis.batched_chunk_setup(
+        su.states, su.params, su.cfg, su.thermo, u)
+    torch.cuda.synchronize(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(50):
+            step(carry, carry["u"][:, k], int(branch[k]), su.thermo, c,
+                 stats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"no host sync in 50 batched steps (branches "
+        f"{np.bincount(branch, minlength=3).tolist()})")
+    return ln, {"steps_per_sec": rate,
+                "device_busy_share": prof["device_busy_share"],
+                "b4_share": prof["kernel_share"],
+                "ms_per_step": prof["ms_per_step"]}
+
+
+PT_DECKS = (
+    # label, deck kind, deck lines, numsteps, the kernel its route launches
+    ("pt_nvt_b3", "mof", "ensemble nvt\nfused_mc on\nparallel_tempering on"
+     f"\nn_replicas {PT_R}\nmax_temperature {PT_T_MAX}\nptemp_freq 500\n",
+     4000, "run_steps"),
+    ("pt_uvt_b1", "mof", "fused_mc on\nparallel_tempering on\n"
+     f"n_replicas {PT_R}\nmax_temperature {PT_T_MAX}\nptemp_freq 500\n",
+     4000, "run_steps_uvt"),
+    ("pt_uvt_batched", "mof", "parallel_tempering on\ncorrtime 200\n"
+     f"n_replicas {PT_R}\nmax_temperature {PT_T_MAX}\nptemp_freq 100\n",
+     400, "mol_pair_chains"),
+    ("pt_fugacity_b1", "mof", "fused_mc on\npt_fugacity on\n"
+     f"n_replicas {PT_R}\nptemp_freq 500\n", 4000, "run_steps_uvt"),
+)
+
+
+def phase_pt(device):
+    """The four PT decks (8 replicas; 77-250 K, or 1-10 atm at 77 K):
+    (i) fused NVT over B3, (ii) fused µVT over B1, (iii) batched scan
+    chains with host swaps, (iv) pt_fugacity fused over B1.  Each: its
+    route's kernel launched, the aggregate rate and swap acceptance, the
+    ladder a permutation of its rungs at the end, and the last swap
+    round's decisions recomputed on the host from its energies, counts
+    and uniforms."""
+    from mpmc_tpu_torch.parallel import replica
+    reps, launches = {}, {}
+    for label, kind, extra, numsteps, kernel in PT_DECKS:
+        su, avgs, text, ln = _run_deck(device, extra, numsteps=numsteps,
+                                       kind=kind)
+        fused = kernel != "mol_pair_chains"
+        if ("on-device swaps" in text) != fused or "WARNING" in text:
+            raise AssertionError(f"{label} did not take its route")
+        if not ln[kernel] > 0:
+            raise AssertionError(f"{label}: {kernel} was not launched: {ln}")
+        rate = float(text.split("steps/sec:")[1].split()[0])
+        acc, att = (int(x) for x in
+                    text.split("swap acceptance:")[1].split()[0].split("/"))
+        if "pt_fugacity" in extra:
+            rows = su.thermo.fugacity.double().cpu().numpy().sum(1)
+            want = rows.min() * np.geomspace(1.0, 10.0, PT_R)
+            got = np.sort(rows)
+        else:
+            want = replica.geometric_ladder(77.0, PT_T_MAX, PT_R)
+            got = np.sort(su.thermo.temperature.double().cpu().numpy())
+        if not np.allclose(got, want, rtol=1e-5):
+            raise AssertionError(f"{label}: the ladder is not a permutation "
+                                 f"of its rungs: {got} vs {want}")
+        rnd = su.pt_round
+        new, n_acc, margin = _pt_recompute(rnd)
+        dev_new = (rnd["new_fugacity"] if "fugacity" in rnd
+                   else rnd["new_temps"]).double().cpu().numpy()
+        same = (np.array_equal(new, dev_new)
+                and n_acc == int(rnd["accepted"]))
+        log(f"{label}: {rate:.2f} steps/s aggregate ({PT_R} replicas), swap "
+            f"acceptance {acc}/{att}, <N> {avgs.mean('N'):.3f}; last round "
+            f"(parity {rnd['parity']}): {n_acc} swaps, host recompute "
+            f"{'equal' if same else 'DIFFERS'} (margin {margin:.3g}); "
+            f"launches {ln}")
+        if not same and margin > 1e-5:
+            raise AssertionError(f"{label}: the host recomputation of the "
+                                 "last swap round differs")
+        reps[label] = {"steps_per_sec": rate, "swap_acceptance":
+                       acc / max(att, 1)}
+        launches[label] = ln
+    return launches, reps
+
+
+def phase_restart_write(device, n=20):
+    """The restart write on the 10.8k system in one call: the Python
+    writer (pqr.write of snapshot_atoms, the plain version) and the
+    native one (pqr.write_state), median ms of ``n`` each, wrapped
+    coordinates (wrapall) as _block_breakdown writes them; their bytes
+    must be equal."""
+    from mpmc_tpu_torch.io import pqr
+    params, state, _, _ = bench_system("float32", device)
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "native.pqr"), os.path.join(tmp, "py.pqr")
+
+        def native():
+            pqr.write_state(a, params, state, ["H2"], remark="restart",
+                            wrap=True)
+
+        def python():
+            pqr.write(b, pqr.snapshot_atoms(
+                params, state, ["H2"], pos=pqr.wrapped_positions(params,
+                                                                 state)),
+                remark="restart", box=pqr._host(state.box))
+        native()            # the first call builds the library (g++)
+        python()
+        times = {}
+        for name, fn in (("python", python), ("native", native),
+                         ("native2", native), ("python2", python)):
+            ts = []
+            for _ in range(n // 2):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            times.setdefault(name.rstrip("2"), []).extend(ts)
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            same = fa.read() == fb.read()
+        lines = sum(1 for _ in open(a))
+    rep = {k: statistics.median(v) for k, v in times.items()}
+    log(f"restart write, 10.8k system ({lines} lines): python "
+        f"{rep['python']:.2f} ms, native {rep['native']:.2f} ms per call "
+        f"(median of {n}, host clock, in turns p n n p); bytes "
+        f"{'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("the native restart file differs from the "
+                             "Python writer's")
+    return rep
+
+
 def main():
     dev, smi = phase_device()
     sys.path.insert(0, REPO)
@@ -1853,6 +2205,7 @@ def main():
     report["run_steps"] = phase_nvt_kernel(dev)
     report.update(phase_thole_kernel(dev))
     report["run_steps_uvt_pda"] = phase_pda_kernel(dev)
+    report["mol_pair_c128"] = phase_mol_pair_chains(dev)
     phase_energy(dev)
     scan_launches, rate, su = phase_main(dev)
     prof_scan = phase_profile(dev, su)
@@ -1867,6 +2220,11 @@ def main():
     prof_nvt16 = phase_profile_fused(dev, su16, states=su16.states)
     polar_launches, polar_reps = phase_polar(dev)
     pda_launches, pda_reps = phase_pda_decks(dev)
+    t_new = time.time()
+    batched_launches, batched_rep = phase_batched(dev)
+    pt_launches, pt_reps = phase_pt(dev)
+    restart = phase_restart_write(dev)
+    t_new = time.time() - t_new
     # each kernel's launches on its own main path: B2 and B4 on the scan
     # path, B1 on the fused single-chain µVT path, B3 on the single-chain
     # MOF NVT deck, B5 (both modes) on the polar scan-path deck, B6 on the
@@ -1877,9 +2235,11 @@ def main():
                 "run_steps": nvt_launches["mof_nvt"]["run_steps"],
                 "dipole_field": polar_launches["polar"]["dipole_field"],
                 "charge_field": polar_launches["polar"]["charge_field"],
-                "run_steps_uvt_pda": pda_launches["pda"]["run_steps_uvt_pda"]}
+                "run_steps_uvt_pda": pda_launches["pda"]["run_steps_uvt_pda"],
+                "mol_pair_c128": batched_launches["mol_pair_chains"]}
     names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps",
-             "dipole_field", "charge_field", "run_steps_uvt_pda")
+             "dipole_field", "charge_field", "run_steps_uvt_pda",
+             "mol_pair_c128")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -1932,6 +2292,18 @@ def main():
         + f"  b6_kernel_ms_per_launch {b6['launch_ms']:.4f}"
         + f"  pda_launches {pda_launches}"
         + f"  wall_seconds {time.time() - t0:.1f}")
+    b4c = report["mol_pair_c128"]
+    log(f"batched_c{C_BATCHED}_steps_per_sec "
+        f"{batched_rep['steps_per_sec']:.2f}  batched_device_busy "
+        f"{batched_rep['device_busy_share']:.4f}  batched_b4_share "
+        f"{batched_rep['b4_share']:.4f}  b4_c{C_BATCHED}_ms {b4c['ms']:.4f}  "
+        f"b4_c{C_BATCHED}_device_ms {b4c['device_ms']:.4f}  "
+        + "  ".join(f"{k}_steps_per_sec {r['steps_per_sec']:.2f}  {k}_swap_"
+                    f"acceptance {r['swap_acceptance']:.4f}"
+                    for k, r in pt_reps.items())
+        + f"  restart_write_ms python {restart['python']:.2f} native "
+        f"{restart['native']:.2f}  batched_launches {batched_launches}  "
+        f"pt_launches {pt_launches}  new_phases_seconds {t_new:.1f}")
     b2 = report["pair_terms"]
     log(f"b2_ms_row_start_F {b2['ms']:.4f}  b2_device_ms_row_start_F "
         f"{b2['device_ms']:.4f}  b2_ms_full {b2['full']['ms']:.4f}  "

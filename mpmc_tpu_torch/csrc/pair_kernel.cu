@@ -41,6 +41,14 @@
 //   memory), so the wrapper issues no copies and no host sync per move.
 //   One launch: the block that finishes last (an atomic ticket, after a
 //   __threadfence) reduces every block's partials itself.
+//   Over C chains (the batched scan chains; the reference vmaps
+//   _mol_kernel over them) the chain is the grid's y axis: chain c reads
+//   its own positions, aliveness, molecule index and trial rows (the
+//   parameter columns are shared), has its own partial slots and its own
+//   ticket, and its last block reduces them in the one-chain order - so
+//   C = 1 is the one-chain launch, bit for bit.  At C = 128 on the 10.8k
+//   system the pass is ~4.1e6 pairs: ~5 us of operations, ~5 us of
+//   position planes (16.6 MB) - both near the launch floor.
 //
 // Both: per-tile (B2) or per-block (B4) partials in double, reduced by the
 // last CTA in a fixed order - identical results run to run.  Templated on
@@ -444,9 +452,11 @@ __device__ __forceinline__ void reduce_body(
 }
 
 // ---------------------------------------------------------------- B4
-// 1-D grid over column chunks of MT; the molecule's rows are gathered into
-// shared memory once per block and read into registers.  ticket: zero
-// between launches (the last block puts it back).
+// Grid (column chunks of MT, chains); the molecule's rows are gathered into
+// shared memory once per block and read into registers.  Chain c = blockIdx.y
+// owns pos/alive/mol/rows/out at its stride, partial slots [c nb, (c+1) nb)
+// and ticket[c].  tickets: zero between launches (each chain's last block
+// puts its own back).
 static_assert(MT == RT, "B4's last block runs the reduction");
 template <typename T>
 __global__ void __launch_bounds__(MT) mol_pair_kernel(
@@ -464,7 +474,16 @@ __global__ void __launch_bounds__(MT) mol_pair_kernel(
   __shared__ T rmin[MT];
   __shared__ int last;
   const int t = threadIdx.x;
-  const int64_t m = *molp;
+  const int c = blockIdx.y;
+  const int nb = gridDim.x;
+  pos += size_t(c) * n * 3;
+  alive += size_t(c) * n;
+  if (rows) rows += size_t(c) * A * 3;
+  part += size_t(c) * nb * 3;
+  pmin += size_t(c) * nb;
+  ticket += c;
+  out += size_t(c) * 4;
+  const int64_t m = molp[c];
   const int na = int(mol_natoms[m]);
   if (t < A_PAD) {
     const int a = t < A ? t : 0;
@@ -500,12 +519,12 @@ __global__ void __launch_bounds__(MT) mol_pair_kernel(
   block_partials<T, MT, 3>(acc, mn, red, rmin, part, pmin, blockIdx.x);
   if (t == 0) {
     __threadfence();            // this block's partials before its ticket
-    last = atomicAdd(ticket, 1) == int(gridDim.x) - 1;
+    last = atomicAdd(ticket, 1) == nb - 1;
   }
   __syncthreads();
   if (last) {
     __threadfence();
-    reduce_body<T, 3>(part, pmin, gridDim.x, out, red, rmin);
+    reduce_body<T, 3>(part, pmin, nb, out, red, rmin);
     if (t == 0) *ticket = 0;    // ready for the next launch
   }
 }
@@ -543,10 +562,10 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
                     const int32_t* mol_id, const bool* alive,
                     const int64_t* mol_atoms, const int64_t* mol_natoms,
                     const int64_t* mol, const T* rows, int A, const T* sc,
-                    int n, Opts o, double* part, T* pmin, int32_t* ticket,
-                    T* out, cudaStream_t stream) {
+                    int n, int C, Opts o, double* part, T* pmin,
+                    int32_t* ticket, T* out, cudaStream_t stream) {
   const int nb = n > 0 ? (n + MT - 1) / MT : 1;
-  mol_pair_kernel<T><<<nb, MT, 0, stream>>>(
+  mol_pair_kernel<T><<<dim3(nb, C), MT, 0, stream>>>(
       pos, q, eps, sig, mol_id, alive, mol_atoms, mol_natoms, mol, rows, A,
       sc, n, o, part, pmin, ticket, out);
   return int(cudaGetLastError());
@@ -575,13 +594,13 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
       const void* pos, const void* q, const void* eps, const void* sig,     \
       const void* mol_id, const void* alive, const void* mol_atoms,         \
       const void* mol_natoms, const void* mol, const void* rows, int A,     \
-      const void* sc, int n, int rd, int mix, int es, int lrc, void* part,  \
-      void* pmin, void* ticket, void* out, void* stream) {                  \
+      const void* sc, int n, int C, int rd, int mix, int es, int lrc,       \
+      void* part, void* pmin, void* ticket, void* out, void* stream) {      \
     return launch_mol_pair<T>(                                              \
         (const T*)pos, (const T*)q, (const T*)eps, (const T*)sig,           \
         (const int32_t*)mol_id, (const bool*)alive,                         \
         (const int64_t*)mol_atoms, (const int64_t*)mol_natoms,              \
-        (const int64_t*)mol, (const T*)rows, A, (const T*)sc, n,            \
+        (const int64_t*)mol, (const T*)rows, A, (const T*)sc, n, C,         \
         Opts{rd, mix, es, lrc}, (double*)part, (T*)pmin, (int32_t*)ticket,  \
         (T*)out, (cudaStream_t)stream);                                     \
   }

@@ -215,12 +215,55 @@ def wrapped_positions(params, state):
 def write_state(path: str, params, state, species_names=None,
                 mode: str = "w", remark: str = "",
                 extended: bool = False, wrap: bool = False) -> None:
-    """Write the current (alive) system state as one PQR frame.
-    ``wrap``: write molecule-wise wrapped coordinates (wrapall)."""
-    pos = wrapped_positions(params, state) if wrap else None
-    write(path, snapshot_atoms(params, state, species_names, pos=pos),
-          mode=mode, remark=remark, extended=extended,
-          box=_host(state.box))
+    """Write the current (alive) system state as one PQR frame: the
+    REMARK and CRYST1 records here, then the atoms through the native
+    writer (io/native.py) from one host copy of the alive rows — no
+    per-atom Python object.  ``wrap``: write molecule-wise wrapped
+    coordinates (wrapall).  ``write(path, snapshot_atoms(...))`` is the
+    plain version (the same bytes)."""
+    import numpy as onp
+    import torch
+
+    from mpmc_tpu_torch.io import native
+    with open(path, mode) as fh:
+        if remark:
+            fh.write(f"REMARK {remark}\n")
+        fh.write(cryst_record(_host(state.box)) + "\n")
+    alive = state.atom_alive(params)
+    mid = params.mol_id
+    cols = [state.pos[:, 0], state.pos[:, 1], state.pos[:, 2], params.mass,
+            params.charge, params.polar, params.eps, params.sig,
+            params.omega, params.c6, params.c8, params.c10,
+            params.gwp_alpha, mid, params.mol_frozen[mid],
+            params.mol_species[mid]]
+    if wrap:
+        cols.append(torch.arange(len(mid), device=mid.device))
+    # the one host copy: the alive rows of every column
+    rows = torch.nonzero(alive).reshape(-1)
+    tab = torch.stack([c.double() for c in cols], 1).index_select(
+        0, rows).cpu().numpy()
+    n = tab.shape[0]
+    num = onp.ascontiguousarray(tab[:, :13])
+    if wrap:
+        num[:, :3] = wrapped_positions(params, state)[
+            tab[:, 16].astype(onp.int64)]
+    ids = onp.stack([onp.arange(1, n + 1, dtype=onp.int64),
+                     tab[:, 13].astype(onp.int64)], axis=1)
+    frozen = tab[:, 14] > 0.5
+    spec = tab[:, 15].astype(onp.int64)
+    flags = onp.where(frozen, ord("F"), ord("M")).astype(onp.uint8).tobytes()
+    n_spec = int(spec.max()) + 1 if n else 1
+    name_table = onp.array(
+        [(species_names[s] if species_names and 0 <= s < len(species_names)
+          else f"A{s}").encode()[:native.NAME_LEN - 1]
+         for s in range(max(n_spec, 1))], dtype=f"S{native.NAME_LEN}")
+    sp_names = name_table[onp.maximum(spec, 0)]
+    names = onp.where(frozen, b"FRM", sp_names).astype(f"S{native.NAME_LEN}")
+    mol_names = onp.where(frozen, b"FRZ", sp_names).astype(
+        f"S{native.NAME_LEN}")
+    native.write_frame_arrays(path, num, ids, flags, names.tobytes(),
+                              mol_names.tobytes(), mode="a",
+                              extended=extended)
 
 
 def snapshot_atoms(params, state, species_names=None,

@@ -56,8 +56,9 @@ from mpmc_tpu_torch.ops import energy as energy_mod
 from mpmc_tpu_torch.ops import ewald, pairs, thole
 from mpmc_tpu_torch.ops.cuda import mc_kernel
 from mpmc_tpu_torch.state import (EnergyBreakdown, Params, SimState,
-                                  mol_rows, mol_rows_update, row_valid,
-                                  slice_chain, stack_chains, take)
+                                  chain_rows, mol_rows, mol_rows_update,
+                                  row_valid, slice_chain, stack_chains,
+                                  take)
 
 # global move-type ids (stats indexing)
 DISPLACE, INSERT, DELETE, VOLUME, SPINFLIP = 0, 1, 2, 3, 4
@@ -121,7 +122,8 @@ def _overlap_r2(min_r2, cfg):
 
 
 def _mol_sf_rows(rows, params, mol, kv):
-    """Structure factor of one molecule from explicit rows."""
+    """Structure factor of one molecule from explicit rows (over chains:
+    ``rows`` [C, A, 3], ``mol`` [C])."""
     return ewald.mol_structure_factor(rows, mol_rows(params.charge, params,
                                                      mol),
                                       row_valid(params, mol), kv)
@@ -129,35 +131,42 @@ def _mol_sf_rows(rows, params, mol, kv):
 
 def _mol_sf_delta(pos, new_rows, params, mol, kv):
     """S(k) change of moving one molecule, in one evaluation: the trial
-    rows enter with +q and the current rows with -q."""
+    rows enter with +q and the current rows with -q (over chains: ``pos``
+    [C, N, 3], ``new_rows`` [C, A, 3], ``mol`` [C])."""
     ok = row_valid(params, mol)
     q = mol_rows(params.charge, params, mol)
+    cur = (chain_rows(pos, params, mol) if pos.ndim == 3
+           else mol_rows(pos, params, mol))
     return ewald.mol_structure_factor(
-        torch.cat([new_rows, mol_rows(pos, params, mol)]),
-        torch.cat([q, -q]), torch.cat([ok, ok]), kv)
+        torch.cat([new_rows, cur], -2), torch.cat([q, -q], -1),
+        torch.cat([ok, ok], -1), kv)
 
 
 def _mol_self_energy(params, cfg, rc, alpha, mol):
-    """Self energy of one molecule's charges (GCMC +/- delta)."""
+    """Self energy of one molecule's charges (GCMC +/- delta; [C] for
+    ``mol`` [C])."""
     if cfg.coulomb not in ("ewald", "wolf"):
-        return torch.zeros((), dtype=params.charge.dtype,
+        return torch.zeros(getattr(mol, "shape", ()),
+                           dtype=params.charge.dtype,
                            device=params.charge.device)
     q = mol_rows(params.charge, params, mol)
     q2 = torch.where(row_valid(params, mol), q * q, torch.zeros_like(q))
     coef = alpha / math.sqrt(math.pi)
     if cfg.coulomb == "wolf":
         coef = coef + torch.special.erfc(alpha * rc) / (2.0 * rc)
-    return -KE * coef * torch.sum(q2)
+    return -KE * coef * torch.sum(q2, dim=-1)
 
 
 def _background_delta(atom_alive, params, alpha, volume, mol, sign):
     """Jellium-background delta for inserting (sign=+1) / deleting
     (sign=-1) molecule ``mol``: c_bg [(Q + sign q_m)^2 - Q^2]; exact zero
-    for neutral templates."""
+    for neutral templates.  Over chains: ``atom_alive`` [C, N], ``mol``
+    [C] -> [C]."""
     q = mol_rows(params.charge, params, mol)
-    q_m = torch.sum(torch.where(row_valid(params, mol), q, torch.zeros_like(q)))
+    q_m = torch.sum(torch.where(row_valid(params, mol), q,
+                                torch.zeros_like(q)), dim=-1)
     q_tot = torch.sum(torch.where(atom_alive, params.charge,
-                                  torch.zeros_like(params.charge)))
+                                  torch.zeros_like(params.charge)), dim=-1)
     c_bg = ewald.background_coefficient(alpha, volume)
     return c_bg * (2.0 * sign * q_tot * q_m + q_m * q_m)
 
@@ -487,6 +496,224 @@ def run_chunk(state: SimState, params: Params, cfg: RunConfig,
 
 
 # ---------------------------------------------------------------------------
+# Batched scan chains: C chains, one step of each per row of a [C, K, 16]
+# table (parallel/multichain.run_chunk_batched)
+# ---------------------------------------------------------------------------
+
+def make_batched_step_fn(params: Params, cfg: RunConfig):
+    """The step of C stacked chains (the scan step of ``make_step_fn``
+    over a leading [C]; the reference vmaps its step over chains):
+    step(carry, u, t, thermo, c, stats, trace=None) with ``carry`` a dict
+    of [C]-stacked tensors (pos [C,N,3] and mol_alive [C,M] updated in
+    place), ``u`` the step's [C, 16] uniform rows, ``t`` the branch index
+    every chain shares, ``c`` the chunk's _Chunk (box shared; ``ln_fv``
+    [S] or [C, S]).  ``thermo.temperature`` may be [C] (one per chain).
+    Each chain picks its own target, trial and coin from its own row and
+    is accepted by its own mask; ``stats`` counts accepts per chain.  No
+    host sync.  Polarization is not batched (ROADMAP A7b)."""
+    if cfg.ensemble not in ("uvt", "nvt", "nve"):
+        raise NotImplementedError(
+            f"ensemble {cfg.ensemble} is not yet ported — ROADMAP "
+            + ("A8b" if cfg.ensemble == "npt" else "A12"))
+    if cfg.polarization:
+        raise NotImplementedError("batched chains with polarization are not "
+                                  "yet ported — ROADMAP A7b")
+    dtype = cfg.tdtype
+    nve = cfg.ensemble == "nve"
+    dev = params.device
+    species = (torch.as_tensor(cfg.insert_species, dtype=torch.int64,
+                               device=dev)
+               if cfg.insert_species else None)
+    n_sp = len(cfg.insert_species)
+
+    def recip(c, carry, d_re, d_im):
+        new_re = carry["sk_re"] + d_re
+        new_im = carry["sk_im"] + d_im
+        e_new = ewald.recip_energy_w(new_re, new_im, *c.recip_w)
+        return new_re, new_im, e_new - carry["energy"].es_recip
+
+    def pick_species(u):
+        if n_sp == 1:
+            return species[0].expand(u.shape[0])
+        j = torch.clamp((u[:, 9] * n_sp).to(torch.int64), max=n_sp - 1)
+        return species[j]
+
+    def ln_fv(c, si):
+        if c.ln_fv.ndim == 1:
+            return c.ln_fv[si]
+        return c.ln_fv[torch.arange(si.shape[0], device=dev), si]
+
+    def self_and_lrc(c, slot, lrc_coeff, zero):
+        d_lrc = zero
+        if c.lrc:
+            own = pairs.mol_lrc_self_coefficient(params, cfg, c.rc, slot)
+            d_lrc = (lrc_coeff + 0.5 * own) / c.volume
+        return _mol_self_energy(params, cfg, c.rc, c.alpha, slot), d_lrc
+
+    def eb(zero, rd=None, lrc=None, es_real=None, es_recip=None,
+           es_self=None, es_excl=None):
+        z = [zero if x is None else x
+             for x in (rd, lrc, es_real, es_recip, es_self, es_excl)]
+        return EnergyBreakdown(*z, zero, zero)
+
+    def b_displace(carry, u, thermo, c, zero):
+        pos = carry["pos"]
+        mol, cnt = moves.pick_by_rank(
+            _movable_mask(params, carry["mol_alive"]), u[:, 0])
+        alive = carry["alive"]
+        rows = moves.displace_rows(pos, params, mol, u, thermo.move_factor,
+                                   thermo.rot_factor)
+        old = pairs.mol_pair_pass(pos, c.box, alive, params, cfg,
+                                  thermo.temperature, mol, scal=c.scal)
+        new = pairs.mol_pair_pass(pos, c.box, alive, params, cfg,
+                                  thermo.temperature, mol, row_pos=rows,
+                                  scal=c.scal)
+        sk = (carry["sk_re"], carry["sk_im"], zero)
+        if c.ewald:
+            sk = recip(c, carry, *_mol_sf_delta(pos, rows, params, mol,
+                                                c.kv))
+        d = eb(zero, rd=new.rd - old.rd, es_real=new.es_real - old.es_real,
+               es_recip=sk[2])
+        reject = (cnt == 0) | _overlap_r2(new.min_r2, cfg)
+        return mol, rows, None, d, zero, reject, sk
+
+    def b_insert(carry, u, thermo, c, zero):
+        pos, mol_alive = carry["pos"], carry["mol_alive"]
+        si = pick_species(u)
+        same = params.mol_species[None, :] == si[:, None]
+        slot, free = moves.pick_by_rank(~mol_alive & same, u[:, 0])
+        rows = moves.place_rows(params, slot, si, u, c.box)
+        inter = pairs.mol_pair_pass(pos, c.box, carry["alive"], params, cfg,
+                                    thermo.temperature, slot, row_pos=rows,
+                                    scal=c.scal)
+        intra = pairs.intra_terms(pos, c.box, params, cfg, slot,
+                                  row_pos=rows, scal=c.scal)
+        d_self, d_lrc = self_and_lrc(c, slot, inter.lrc_coeff, zero)
+        sk = (carry["sk_re"], carry["sk_im"], zero)
+        if c.ewald:
+            sk = recip(c, carry, *_mol_sf_rows(rows, params, slot, c.kv))
+            d_self = d_self + _background_delta(
+                carry["alive"], params, c.alpha, c.volume, slot, 1.0)
+        d = eb(zero, rd=inter.rd, lrc=d_lrc, es_real=inter.es_real,
+               es_recip=sk[2], es_self=d_self, es_excl=intra)
+        n_s = torch.sum(mol_alive & same, dim=-1).to(dtype)
+        ln_bias = ln_fv(c, si) - torch.log(thermo.temperature * (n_s + 1.0))
+        reject = (free == 0) | _overlap_r2(inter.min_r2, cfg)
+        return slot, rows, True, d, ln_bias, reject, sk
+
+    def b_delete(carry, u, thermo, c, zero):
+        pos, mol_alive = carry["pos"], carry["mol_alive"]
+        si = pick_species(u)
+        same = params.mol_species[None, :] == si[:, None]
+        slot, cnt = moves.pick_by_rank(
+            _movable_mask(params, mol_alive) & same, u[:, 0])
+        inter = pairs.mol_pair_pass(pos, c.box, carry["alive"], params, cfg,
+                                    thermo.temperature, slot, scal=c.scal)
+        intra = pairs.intra_terms(pos, c.box, params, cfg, slot,
+                                  scal=c.scal)
+        d_self, d_lrc = self_and_lrc(c, slot, inter.lrc_coeff, zero)
+        sk = (carry["sk_re"], carry["sk_im"], zero)
+        d_bg = zero
+        if c.ewald:
+            o_re, o_im = _mol_sf_rows(chain_rows(pos, params, slot), params,
+                                      slot, c.kv)
+            sk = recip(c, carry, -o_re, -o_im)
+            d_bg = _background_delta(carry["alive"], params, c.alpha,
+                                     c.volume, slot, -1.0)
+        d = eb(zero, rd=-inter.rd, lrc=-d_lrc, es_real=-inter.es_real,
+               es_recip=sk[2], es_self=-d_self + d_bg, es_excl=-intra)
+        n_s = torch.sum(mol_alive & same, dim=-1).to(dtype)
+        ln_bias = (torch.log(torch.clamp(n_s, min=1e-30)
+                             * thermo.temperature) - ln_fv(c, si))
+        return slot, None, False, d, ln_bias, cnt == 0, sk
+
+    branches = ([b_displace, b_insert, b_delete]
+                if cfg.ensemble == "uvt" and cfg.insert_species
+                else [b_displace])
+    _, branch_ids = make_branch_picker(cfg)
+
+    def step(carry, u, t, thermo, c, stats, trace=None):
+        C = u.shape[0]
+        zero = torch.zeros(C, dtype=dtype, device=dev)
+        mol, rows, alive_new, d, ln_bias, reject, sk = branches[t](
+            carry, u, thermo, c, zero)
+        du = d.total
+        if nve:
+            # Ray's microcanonical rule per chain (make_step_fn's)
+            k_old = thermo.nve_energy - (carry["energy"].total
+                                         + carry["u_frozen"])
+            k_new = k_old - du
+            f_dof = torch.sum(torch.where(
+                _movable_mask(params, carry["mol_alive"]), params.mol_dof,
+                torch.zeros((), dtype=dtype, device=dev)), dim=-1)
+            live = (k_new > 0) & (k_old > 0)
+            one = torch.ones_like(k_new)
+            ln_acc = torch.where(
+                live, (0.5 * f_dof - 1.0)
+                * (torch.log(torch.where(live, k_new, one))
+                   - torch.log(torch.where(live, k_old, one))),
+                torch.full_like(k_new, -math.inf))
+        else:
+            ln_acc = ln_bias - du / thermo.temperature
+        accept = (~reject) & (torch.log(torch.clamp(u[:, 4], min=1e-38))
+                              < ln_acc)
+        ar = torch.arange(C, device=dev)
+        if rows is not None:
+            idx = params.mol_atoms[mol]                       # [C, A]
+            cur = carry["pos"][ar[:, None], idx]
+            carry["pos"].index_put_(
+                (ar[:, None].expand_as(idx), idx),
+                torch.where(accept[:, None, None], rows, cur))
+        if alive_new is not None:
+            ma = carry["mol_alive"]
+            ma[ar, mol] = torch.where(accept, alive_new, ma[ar, mol])
+            carry["alive"] = ma[:, params.mol_id] & params.atom_ok
+        carry["energy"] = carry["energy"].add(d).select(accept,
+                                                        carry["energy"])
+        if c.ewald:
+            carry["sk_re"] = torch.where(accept[:, None], sk[0],
+                                         carry["sk_re"])
+            carry["sk_im"] = torch.where(accept[:, None], sk[1],
+                                         carry["sk_im"])
+        gid = branch_ids[t]
+        stats.attempts[:, gid] += 1
+        stats.accepts[:, gid] += accept.to(torch.int64)
+        if trace is not None:
+            trace.append({"mol": mol, "rows": rows, "accept": accept,
+                          "reject": reject, "ln_bias": ln_bias, "d": d})
+
+    return step
+
+
+def batched_chunk_setup(states: SimState, params: Params, cfg: RunConfig,
+                        thermo: Thermo, uniforms):
+    """(step, carry, consts, branch ids [K] on the host, stats) for a
+    chunk of the stacked ``states`` over the [C, K, 16] table
+    ``uniforms``: ``chunk_setup`` over chains.  Every chain takes the
+    move type of chain 0's lane 8 (the reference's shared move-type draw:
+    a move type per step for the batch, targets and coins per chain),
+    read in the chunk's one host sync."""
+    u = uniforms.to(device=states.pos.device, dtype=cfg.tdtype)
+    C = states.pos.shape[0]
+    pick, _ = make_branch_picker(cfg)
+    branch = pick(u[0, :, 8].cpu().numpy(), thermo)
+    carry = {"pos": states.pos.clone(),
+             "mol_alive": states.mol_alive.clone(),
+             "energy": states.energy, "sk_re": states.sk_re,
+             "sk_im": states.sk_im, "u": u}
+    carry["alive"] = carry["mol_alive"][:, params.mol_id] & params.atom_ok
+    carry["u_frozen"] = (states.e_frozen.total if states.e_frozen is not None
+                         else torch.zeros(C, dtype=cfg.tdtype,
+                                          device=states.pos.device))
+    dev = states.pos.device
+    stats = MCStats(np.zeros((C, N_MOVE_TYPES), np.int64),
+                    torch.zeros((C, N_MOVE_TYPES), dtype=torch.int64,
+                                device=dev))
+    return (make_batched_step_fn(params, cfg), carry,
+            _Chunk(states.box[0], params, cfg, thermo), branch, stats)
+
+
+# ---------------------------------------------------------------------------
 # Fused paths: the k-table both kernels read
 # ---------------------------------------------------------------------------
 
@@ -662,7 +889,8 @@ def uvt_fused_tables(params: Params, cfg: RunConfig):
 
 def _uvt_chunk_consts(pos, box, params, thermo, cfg, A_list, rep_slots):
     """Per-chunk per-species constants of the fused µVT kernel: ([S]
-    d_self, [S] d_excl, [S] c1, [S,S] cx, [S] lnfv, kvecs, kcoef), from
+    d_self, [S] d_excl, [S] c1, [S,S] cx, [S] lnfv — [C, S] for a
+    per-chain ``thermo.fugacity`` [C, n_species] —, kvecs, kcoef), from
     the same helpers the scan path's insert and delete use, so both paths
     agree term by term.  The LRC coefficients pair a representative slot
     with the frozen atoms (c1) and with a slot of each species (cx); on
@@ -687,7 +915,7 @@ def _uvt_chunk_consts(pos, box, params, thermo, cfg, A_list, rep_slots):
         tmpl_rows = torch.cat([tp, tp[:1].expand(a_cap - A, 3)])
         d_excl.append(pairs.intra_terms(pos, box, params, cfg, s0,
                                         row_pos=tmpl_rows.to(dtype)))
-        f = thermo.fugacity[si] * ATM2K_A3
+        f = thermo.fugacity[..., si] * ATM2K_A3
         lnfv.append(torch.log(torch.clamp(f * volume, min=1e-300)))
         if lrc_on:
             own = pairs.mol_lrc_self_coefficient(params, cfg, rc, s0)
@@ -709,7 +937,7 @@ def _uvt_chunk_consts(pos, box, params, thermo, cfg, A_list, rep_slots):
             c1.append(zero)
             cx.append(torch.zeros(S, dtype=dtype, device=dev))
     return (torch.stack(d_self), torch.stack(d_excl), torch.stack(c1),
-            torch.stack(cx), torch.stack(lnfv), kv, kcoef)
+            torch.stack(cx), torch.stack(lnfv, -1), kv, kcoef)
 
 
 def _apply_fused(states, sums, slots, slot_alive, new_pos, sk_re, sk_im,
@@ -744,7 +972,10 @@ def fused_uvt_launch_args(states: SimState, params: Params,
     for a chunk of the stacked ``states`` over the [C, K, 16] table
     ``uniforms``, with the per-species constants of this chunk.  They
     come from chain 0: they depend only on the shared box, fugacities and
-    frozen framework, never on sorbate positions."""
+    frozen framework, never on sorbate positions.  ``thermo.temperature``
+    may be [C] (a temperature ladder: one beta per chain) and
+    ``thermo.fugacity`` [C, n_species] (a fugacity ladder: one ln(f V)
+    row per chain); otherwise every chain gets the same."""
     slots, slot_start, species_idx, tmpl, natoms, A_list, rep_slots = tables
     C = states.pos.shape[0]
     box = states.box[0]

@@ -22,25 +22,49 @@ import math
 import torch
 
 from mpmc_tpu_torch.ops import pbc as pbc_ops
-from mpmc_tpu_torch.state import (Params, molecule_com, mol_rows, row_valid,
-                                  take)
+from mpmc_tpu_torch.state import (Params, chain_rows, molecule_com,
+                                  mol_rows, row_valid, take)
 from mpmc_tpu_torch.utils import quaternion as quat
 
 
 def pick_by_rank(mask, u):
     """(index, count): the j-th True of ``mask`` (0-based, slot order) with
     j = min(floor(u * count), count - 1) — the kernel's rank pick.  With
-    count 0 the index is 0 and the caller rejects the move."""
-    cnt = torch.sum(mask)
+    count 0 the index is 0 and the caller rejects the move.  Over chains:
+    ``mask`` [C, M] and ``u`` [C] give [C] indices and counts."""
+    cnt = torch.sum(mask, dim=-1)
     j = torch.minimum(torch.floor(u * cnt.to(u.dtype)),
                       (cnt - 1).to(u.dtype))
-    cs = torch.cumsum(mask.to(torch.int64), 0)
-    return torch.argmax((cs > j).to(torch.int8)), cnt
+    cs = torch.cumsum(mask.to(torch.int64), -1)
+    return torch.argmax((cs > j[..., None]).to(torch.int8), dim=-1), cnt
+
+
+def _displace(rows, valid, com, u, move_factor, rot_factor):
+    """Trial rows of a translate+rotate move of ``rows`` [..., A, 3] about
+    ``com`` [..., 3] from uniform rows ``u`` [..., 16]."""
+    disp = (2.0 * u[..., 1:4] - 1.0) * move_factor
+    az = 2.0 * u[..., 5] - 1.0
+    aphi = 2.0 * math.pi * u[..., 6]
+    s = torch.sqrt(torch.clamp(1.0 - az * az, min=0.0))
+    axis = torch.stack([s * torch.cos(aphi), s * torch.sin(aphi), az], -1)
+    q = quat.from_axis_angle(axis, u[..., 7] * rot_factor)
+    c = com[..., None, :]
+    new = (c + disp[..., None, :]) + quat.rotate(rows - c, q[..., None, :])
+    return torch.where(valid[..., None], new, new[..., :1, :]).contiguous()
 
 
 def displace_rows(pos, params: Params, mol, u, move_factor, rot_factor):
     """[A,3] trial rows of a translate+rotate move of molecule ``mol``
-    from one uniform row ``u`` [16].  Padded rows duplicate the first."""
+    from one uniform row ``u`` [16].  Padded rows duplicate the first.
+    Over chains: ``pos`` [C, N, 3], ``mol`` [C], ``u`` [C, 16] ->
+    [C, A, 3], each chain's molecule moved by its own row."""
+    if pos.ndim == 3:
+        rows = chain_rows(pos, params, mol)
+        valid = row_valid(params, mol)
+        m = take(params.mass, take(params.mol_atoms, mol)) * valid
+        com = (torch.sum(m[..., None] * rows, dim=-2)
+               / torch.clamp(torch.sum(m, dim=-1), min=1e-30)[..., None])
+        return _displace(rows, valid, com, u, move_factor, rot_factor)
     rows = mol_rows(pos, params, mol)
     valid = row_valid(params, mol)
     com = molecule_com(pos, params, mol)
@@ -57,9 +81,11 @@ def displace_rows(pos, params: Params, mol, u, move_factor, rot_factor):
 def place_rows(params: Params, mol, species, u, box):
     """[A,3] trial rows: the species template at fractional COM u[1:4]
     and Shoemake orientation u[5:8] (GCMC insertion).  Rows beyond the
-    species' atom count duplicate the first row."""
-    com = pbc_ops._apply33(u[1:4], box)
-    q = quat.uniform_from(u[5], u[6], u[7])
-    new = com + quat.rotate(take(params.species_pos, species), q)
-    return torch.where(row_valid(params, mol)[:, None], new,
-                       new[0]).contiguous()
+    species' atom count duplicate the first row.  Over chains: ``mol``
+    and ``species`` [C], ``u`` [C, 16] -> [C, A, 3]."""
+    com = pbc_ops._apply33(u[..., 1:4], box)
+    q = quat.uniform_from(u[..., 5], u[..., 6], u[..., 7])
+    new = (com[..., None, :]
+           + quat.rotate(take(params.species_pos, species), q[..., None, :]))
+    return torch.where(row_valid(params, mol)[..., None], new,
+                       new[..., :1, :]).contiguous()

@@ -38,7 +38,7 @@ from mpmc_tpu_torch.ops import energy as energy_mod
 from mpmc_tpu_torch.ops import pairs as pairs_mod
 from mpmc_tpu_torch.ops import thole
 from mpmc_tpu_torch.ops.cuda import mc_kernel
-from mpmc_tpu_torch.parallel import multichain
+from mpmc_tpu_torch.parallel import multichain, replica
 from mpmc_tpu_torch.state import (Params, SimState, Species,
                                   all_molecule_coms, build_system,
                                   slice_chain)
@@ -57,6 +57,9 @@ class Setup:
     # the stacked chains at the end of a ``chains N`` run (``state`` is
     # chain 0)
     states: Optional[SimState] = None
+    # parallel tempering: the last swap round's inputs and decisions
+    # (run_mc_pt, run_mc_pt_fug)
+    pt_round: Optional[dict] = None
 
 
 def _species_from_atoms(atoms) -> Species:
@@ -107,15 +110,13 @@ def check_supported(job: input_script.Job):
                 "volume move)", "A8b")
     if cfg.ensemble not in ("uvt", "nvt", "nve", "te"):
         _refuse(f"ensemble {cfg.ensemble}", "A12")
+    pt = job.parallel_tempering or job.pt_fugacity
     for flag, what, item in (
-            (job.chains > 1 and not cfg.fused_mc,
-             "chains > 1 without fused_mc (batched scan chains)", "A7"),
-            (job.chains > 1 and cfg.ensemble == "nve",
-             "chains > 1 with ensemble nve (batched scan chains)", "A7"),
             (job.chains > 1 and cfg.polarization,
-             "chains > 1 with polarization (batched scan chains)", "A7"),
-            (job.parallel_tempering or job.pt_fugacity,
-             "parallel tempering", "A9"),
+             "chains > 1 with polarization (batched polar chains)", "A7b"),
+            (pt and cfg.polarization,
+             "parallel tempering with polarization (batched polar chains)",
+             "A7b"),
             (cfg.cavity_bias, "cavity_bias", "A11"),
             (cfg.tmmc, "tmmc", "A11"),
             (cfg.quantum_rotation, "quantum_rotation", "A11"),
@@ -339,7 +340,8 @@ def run_te(job: input_script.Job, log=None, device=None):
 def observables_batched(su: Setup, states: SimState,
                         n_chains: int) -> List[Dict[str, float]]:
     """Per-chain observables of a stacked state: the keys of
-    ``observables`` without the acceptance ratios, from one host copy."""
+    ``observables`` without the acceptance ratios (with each chain's
+    ``T_kinetic`` under nve), from one host copy."""
     params = su.params
     e = states.reported_energy()
     cols = [e.total, e.rd, e.lrc, e.es, e.es_real, e.es_recip, e.es_self,
@@ -348,6 +350,11 @@ def observables_batched(su: Setup, states: SimState,
              & (params.mol_species >= 0)).sum(1)]
     cols += [(states.mol_alive & (params.mol_species == i)).sum(1)
              for i in range(len(su.species_names))]
+    i_dof = len(cols)
+    # kinetic degrees of freedom of the alive movable molecules (nve)
+    cols.append(torch.sum(torch.where(
+        states.mol_alive & ~params.mol_frozen & (params.mol_species >= 0),
+        params.mol_dof.double(), 0.0), dim=1))
     if states.mu is not None:
         # mean squared induced dipole over the polarizable sites
         pol = ((params.polar > 0)[None, :] & states.mol_alive[:, params.mol_id]
@@ -365,6 +372,10 @@ def observables_batched(su: Setup, states: SimState,
         obs = {k: float(host[c, i]) for i, k in enumerate(names)}
         obs["N2"] = obs["N"] ** 2
         obs["UN"] = obs["energy_total"] * obs["N"]
+        if su.cfg.ensemble == "nve":
+            # the chain's kinetic temperature, 2 (E - U) / F (observables)
+            k = float(su.thermo.nve_energy) - obs["energy_total"]
+            obs["T_kinetic"] = 2.0 * k / max(float(host[c, i_dof]), 1.0)
         if states.mu is not None and host[c, -1] > 0:
             obs["polar_rrms_debye"] = float(np.sqrt(host[c, -2])
                                             * DEBYE_PER_EA)
@@ -424,6 +435,11 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     kernel (B1) or, with polarization and ``polar_delayed``, the fused
     polar delayed acceptance (B6); ``chains N`` goes to
     ``run_mc_chains``."""
+    if job.pt_fugacity:       # implies tempering, along the fugacity
+        return run_mc_pt_fug(job, log=log, jsonl_path=jsonl_path,
+                             device=device)
+    if job.parallel_tempering:
+        return run_mc_pt(job, log=log, jsonl_path=jsonl_path, device=device)
     if job.chains > 1:
         return run_mc_chains(job, log=log, jsonl_path=jsonl_path,
                              device=device)
@@ -522,29 +538,46 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     return dataclasses.replace(su, state=state, thermo=thermo), avgs
 
 
-def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
-                  device=None):
-    """``chains N``: N independent chains advanced together in one launch
-    per corrtime of the fused NVT kernel (B3) or the fused µVT kernel
-    (B1).  Observables are averaged over the chains each corrtime (the
-    reference's cross-rank observable reduce); restart and trajectory
-    follow chain 0, with one file per chain under ``parallel_restarts``.
-    The batched scan path the reference takes for what the fused gates
-    refuse is not ported."""
-    su = setup(job, device=device)
-    device = su.state.pos.device
-    cfg, params, thermo = su.cfg, su.params, su.thermo
-    if mc_kernel.supported_multi(cfg, params):
+def _chains_route(cfg, params, mol_alive, C, writer, what="multi-chain"):
+    """(chunk, fused) for C stacked chains: the fused NVT kernel (B3) or
+    the fused µVT kernel (B1) where their gates hold under ``fused_mc``,
+    else the batched scan chains (B4 over the chain axis) — and the log
+    line that says which."""
+    if cfg.fused_mc and mc_kernel.supported_multi(cfg, params):
         chunk = functools.partial(
             metropolis.run_chunk_fused_multi,
-            tables=metropolis.nvt_fused_tables(params, su.state.mol_alive))
-    elif mc_kernel.supported_uvt_multi(cfg, params):
+            tables=metropolis.nvt_fused_tables(params, mol_alive))
+    elif cfg.fused_mc and mc_kernel.supported_uvt_multi(cfg, params):
         chunk = functools.partial(
             metropolis.run_chunk_fused_uvt_multi,
             tables=metropolis.uvt_fused_tables(params, cfg))
     else:
-        _refuse("chains > 1 outside the fused NVT and µVT surfaces "
-                "(batched scan chains)", "A7")
+        if cfg.fused_mc:
+            print("WARNING: fused_mc requested but unsupported for this "
+                  "configuration (needs the fused NVT or µVT surface, no "
+                  "nve) — batched scan chains used", file=writer.log)
+        print(f"batched scan chains (C={C}): one step of every chain at "
+              "a time, each move's delta one B4 launch over the chains",
+              file=writer.log)
+        return multichain.run_chunk_batched, False
+    print(f"fused_mc: chain-interleaved {what} kernel (C={C})",
+          file=writer.log)
+    return chunk, True
+
+
+def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
+                  device=None):
+    """``chains N``: N independent chains advanced together, one launch
+    per corrtime of the fused NVT kernel (B3) or the fused µVT kernel (B1)
+    where their gates hold under ``fused_mc``, else as batched scan chains
+    (multichain.run_chunk_batched: every chain one step at a time, B4 over
+    the chain axis).  Observables are averaged over the chains each
+    corrtime (the reference's cross-rank observable reduce); restart and
+    trajectory follow chain 0, with one file per chain under
+    ``parallel_restarts``."""
+    su = setup(job, device=device)
+    device = su.state.pos.device
+    cfg, params, thermo = su.cfg, su.params, su.thermo
     C = job.chains
     writer = output_io.RunWriter(job, su.species_names, log=log,
                                  jsonl_path=jsonl_path)
@@ -556,9 +589,8 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
         print(f"WARNING: unknown options ignored: {job.unknown_options}",
               file=writer.log)
     print(f"batched chains: {C}", file=writer.log)
-    print(f"fused_mc: chain-interleaved multi-chain kernel (C={C})",
-          file=writer.log)
     state = metropolis.initialize(su.state, params, cfg, thermo)
+    chunk, _ = _chains_route(cfg, params, state.mol_alive, C, writer)
     states = multichain.stack_states(state, C)
     avgs = Averages()
     hist = _hist_make(job, state.box)
@@ -585,10 +617,7 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
         avgs.add(obs)
         st0 = slice_chain(states, 0)
         writer.log_block(int(st0.step), obs, None)
-        writer.write_restart(params, st0)
-        writer.write_parallel_restarts(params, states, C)
-        writer.append_trajectory(params, st0)
-        writer.append_parallel_trajectories(params, states, C)
+        _write_chains(writer, params, states, st0, C)
         if hist is not None:
             for c in range(C):
                 _hist_add(hist, slice_chain(states, c), params)
@@ -607,6 +636,265 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
     writer.close()
     return dataclasses.replace(su, state=st0, thermo=thermo,
                                states=states), avgs
+
+
+def _write_chains(writer, params, states, st0, n):
+    """The per-corrtime files of stacked chains: restart and trajectory of
+    ``st0``, and one of each per chain under ``parallel_restarts``."""
+    writer.write_restart(params, st0)
+    writer.write_parallel_restarts(params, states, n)
+    writer.append_trajectory(params, st0)
+    writer.append_parallel_trajectories(params, states, n)
+
+
+def _pt_block(su, writer, avgs, hist, states, k, swap_acc, swap_att, temps,
+              fugacities=None):
+    """The end of a PT block after the refresh: the ladder's observables
+    (the base rung ``k`` reported, with the swap acceptance so far), its
+    JSONL ladder record, the files and the histogram; returns rung k's
+    state."""
+    R = states.pos.shape[0]
+    st0 = slice_chain(states, k)
+    obs_all = observables_batched(su, states, R)
+    obs = obs_all[k]
+    obs["swap_acceptance"] = swap_acc / max(swap_att, 1)
+    avgs.add(obs)
+    writer.log_block(int(st0.step), obs, None)
+    writer.log_ladder(int(st0.step), temps, obs_all, fugacities=fugacities)
+    _write_chains(writer, su.params, states, st0, R)
+    if hist is not None:
+        for c in range(R):
+            _hist_add(hist, slice_chain(states, c), su.params)
+    return st0
+
+
+def _pt_finish(job, writer, avgs, hist, temperature, swap_acc, swap_att, R,
+               steps_done, wall):
+    """A PT run's closing lines: histogram, averages, swap acceptance and
+    the aggregate rate."""
+    _hist_finish(hist, job, writer, f" ({R} replicas reduced)")
+    writer.final_averages(avgs, temperature)
+    print(f"swap acceptance: {swap_acc}/{swap_att}", file=writer.log)
+    print(f"steps/sec: {steps_done * R / max(wall, 1e-9):.2f} aggregate "
+          f"({R} replicas x {steps_done} steps in {wall:.2f}s)",
+          file=writer.log)
+    writer.close()
+
+
+def _pt_pair_uniforms(rng, R, parity):
+    """[R] the uniforms ``host_swap*`` is about to draw from ``rng``, each
+    at its pair's low lane (NaN elsewhere), read from a copy of the
+    generator: the host route's round record."""
+    twin = np.random.default_rng()
+    twin.bit_generator.state = rng.bit_generator.state
+    u = np.full(R, np.nan)
+    for lo in range(parity, R - 1, 2):
+        u[lo] = twin.random()
+    return u
+
+
+def run_mc_pt(job: input_script.Job, log=None, jsonl_path=None,
+              device=None):
+    """Parallel tempering on one card: R replicas on a geometric
+    temperature ladder from ``temperature`` to ``max_temperature``
+    (default twice it), neighbour temperature swaps every ``ptemp_freq``
+    steps (at most corrtime).  ``n_replicas`` 0 means 4 (the reference
+    takes max(JAX device count, 4)).  The replicas run as the fused
+    multi-chain kernel (B3 for nvt, B1 for uvt, under ``fused_mc`` where
+    its gate holds) with on-device swaps (replica.ladder_swap_batched, an
+    explicit generator seeded seed + 101) and one host fetch per block;
+    otherwise as batched scan chains with host swaps
+    (replica.host_swap, numpy's default_rng(seed + 101)).  A µVT ladder
+    adds the (beta_j/beta_i)^dN factor.  Observables and the restart
+    follow the base-temperature replica, wherever it is.  Returns (Setup
+    with the stacked ``states``, the per-replica ``thermo`` and the last
+    round in ``pt_round``, averages)."""
+    su = setup(job, device=device)
+    device = su.state.pos.device
+    cfg, params, thermo = su.cfg, su.params, su.thermo
+    if cfg.ensemble == "nve":
+        # Ray's microcanonical acceptance never reads the temperature a
+        # ladder would swap
+        raise ValueError("parallel tempering is undefined for ensemble "
+                         "nve (the NVE acceptance does not read T)")
+    R = job.n_replicas or 4
+    t_max = job.max_temperature or 2.0 * job.temperature
+    temps = replica.geometric_ladder(job.temperature, t_max, R)
+    writer = output_io.RunWriter(job, su.species_names, log=log,
+                                 jsonl_path=jsonl_path)
+    writer.log_meta(ensemble=cfg.ensemble, temperature=job.temperature,
+                    pressure=job.pressure, fugacities=thermo.fugacity.cpu(),
+                    volume=float(torch.abs(torch.linalg.det(su.state.box))),
+                    n_chains=R)
+    print(f"parallel tempering: {R} replicas, T = "
+          + " ".join(f"{t:.2f}" for t in temps), file=writer.log)
+    state = metropolis.initialize(su.state, params, cfg, thermo)
+    chunk, fused = _chains_route(cfg, params, state.mol_alive, R, writer,
+                                 "PT")
+    if fused:
+        print(f"fused_mc: on-device swaps (R={R})", file=writer.log)
+    states = multichain.stack_states(state, R)
+    thermos = replica.stack_thermo(thermo, temps)
+    rng = np.random.default_rng(cfg.seed + 101)
+    swap_gen = torch.Generator(device=device).manual_seed(cfg.seed + 101)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    uvt = cfg.ensemble == "uvt"
+    avgs = Averages()
+    swap_acc, swap_att, swap_acc_dev = 0, 0, None
+    corr = max(cfg.corrtime, 1)
+    ptf = max(min(job.ptemp_freq, corr), 1)
+    n_blocks = max(cfg.numsteps // corr, 1)
+    refresh_rows = metropolis.frozen_refresh_rows(params, cfg)
+    hist = _hist_make(job, su.state.box)
+    parity, rnd = 0, None
+    t0 = time.time()
+    for _ in range(n_blocks):
+        for _ in range(max(corr // ptf, 1)):
+            states, _ = chunk(states, params, cfg, thermos, ptf,
+                              generator=generator)
+            n_mov = (replica.movable_counts(states.mol_alive,
+                                            params.mol_frozen,
+                                            params.mol_species)
+                     if uvt else None)
+            t_in = thermos.temperature
+            if fused:
+                u = replica.swap_uniforms(R, swap_gen, t_in.dtype)
+                new_t, acc = replica.ladder_swap_batched(
+                    t_in, states.energy, u, parity, n_mols=n_mov)
+                thermos = thermos.replace(temperature=new_t)
+                swap_acc_dev = acc if swap_acc_dev is None else \
+                    swap_acc_dev + acc
+            else:
+                energies = states.energy.total.double().cpu().numpy()
+                n_h = None if n_mov is None else n_mov.cpu().numpy()
+                u = _pt_pair_uniforms(rng, R, parity)
+                temps, acc = replica.host_swap(temps, energies, parity, rng,
+                                               n_mols=n_h)
+                swap_acc += acc
+                thermos = replica.stack_thermo(thermo, temps)
+            rnd = {"temps": t_in, "energies": states.energy.total,
+                   "n_mols": n_mov, "u": u, "parity": parity,
+                   "new_temps": thermos.temperature, "accepted": acc}
+            swap_att += max((R - parity) // 2, 0)
+            parity ^= 1
+        states = multichain.initialize_batched(states, params, cfg, thermos,
+                                               frozen_rows=refresh_rows)
+        if fused:
+            # the swaps ran on the card: one fetch per block
+            temps = thermos.temperature.double().cpu().numpy()
+            swap_acc = int(swap_acc_dev)
+        st0 = _pt_block(su, writer, avgs, hist, states,
+                        int(np.argmin(temps)), swap_acc, swap_att, temps)
+    _pt_finish(job, writer, avgs, hist, float(np.min(temps)), swap_acc,
+               swap_att, R, n_blocks * corr, time.time() - t0)
+    return dataclasses.replace(su, state=st0, thermo=thermos, states=states,
+                               pt_round=rnd), avgs
+
+
+def run_mc_pt_fug(job: input_script.Job, log=None, jsonl_path=None,
+                  device=None):
+    """Fugacity-ladder parallel tempering (``pt_fugacity on``): R µVT
+    replicas at one temperature, each at a rung of a geometric fugacity
+    ladder from ``pressure`` to ``max_pressure`` (default 10x); neighbour
+    swaps exchange whole fugacity rows with ln P = sum_s (N_si - N_sj)
+    ln(f_sj / f_si).  Under ``fused_mc`` where the µVT gate holds, the
+    ladder is one B1 launch per round with a ln(f V) row per chain and
+    on-device swaps (replica.ladder_swap_fugacity_batched, an explicit
+    generator seeded seed + 103); otherwise batched scan chains with host
+    swaps (replica.host_swap_fugacity, default_rng(seed + 103)).
+    ``n_replicas`` 0 means 4.  Observables and the restart follow the
+    base-pressure rung.  Returns (Setup with ``states``, ``thermo`` and
+    ``pt_round``, averages)."""
+    su = setup(job, device=device)
+    device = su.state.pos.device
+    cfg, params, thermo = su.cfg, su.params, su.thermo
+    if cfg.ensemble != "uvt" or not cfg.insert_species:
+        raise ValueError("pt_fugacity needs ensemble uvt with an "
+                         "insertable sorbate (the ladder axis is the "
+                         "grand-canonical fugacity)")
+    if job.pressure <= 0:
+        raise ValueError("pt_fugacity needs pressure > 0 (the ladder "
+                         "base rung)")
+    R = job.n_replicas or 4
+    p_max = job.max_pressure or 10.0 * job.pressure
+    if p_max <= job.pressure:
+        raise ValueError(f"max_pressure {p_max} must exceed the base "
+                         f"pressure {job.pressure}")
+    scales = np.geomspace(1.0, p_max / job.pressure, R)
+    base = thermo.fugacity.double().cpu().numpy()
+    fug_rows = scales[:, None] * base[None, :]
+    writer = output_io.RunWriter(job, su.species_names, log=log,
+                                 jsonl_path=jsonl_path)
+    writer.log_meta(ensemble=cfg.ensemble, temperature=job.temperature,
+                    pressure=job.pressure, fugacities=thermo.fugacity.cpu(),
+                    volume=float(torch.abs(torch.linalg.det(su.state.box))),
+                    n_chains=R)
+    print(f"fugacity-ladder PT: {R} replicas at T={job.temperature}, "
+          "F_total = " + " ".join(f"{v:.4g}" for v in fug_rows.sum(axis=1)),
+          file=writer.log)
+    state = metropolis.initialize(su.state, params, cfg, thermo)
+    chunk, fused = _chains_route(cfg, params, state.mol_alive, R, writer,
+                                 "fugacity-ladder")
+    if fused:
+        print(f"fused_mc: on-device swaps (R={R})", file=writer.log)
+    states = multichain.stack_states(state, R)
+    thermos = replica.stack_thermo_fugacity(thermo, fug_rows)
+    rng = np.random.default_rng(cfg.seed + 103)
+    swap_gen = torch.Generator(device=device).manual_seed(cfg.seed + 103)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    sp_ids = tuple(int(s) for s in cfg.insert_species)
+    avgs = Averages()
+    swap_acc, swap_att, swap_acc_dev = 0, 0, None
+    corr = max(cfg.corrtime, 1)
+    ptf = max(min(job.ptemp_freq, corr), 1)
+    n_blocks = max(cfg.numsteps // corr, 1)
+    refresh_rows = metropolis.frozen_refresh_rows(params, cfg)
+    hist = _hist_make(job, su.state.box)
+    parity, rnd = 0, None
+    t0 = time.time()
+    for _ in range(n_blocks):
+        for _ in range(max(corr // ptf, 1)):
+            states, _ = chunk(states, params, cfg, thermos, ptf,
+                              generator=generator)
+            f_in = thermos.fugacity
+            if fused:
+                counts = replica.movable_counts_per_species(
+                    states.mol_alive, params.mol_frozen, params.mol_species,
+                    sp_ids)
+                u = replica.swap_uniforms(R, swap_gen, f_in.dtype)
+                new_f, acc = replica.ladder_swap_fugacity_batched(
+                    f_in, counts, u, parity, sp_ids)
+                thermos = thermos.replace(fugacity=new_f)
+                swap_acc_dev = acc if swap_acc_dev is None else \
+                    swap_acc_dev + acc
+            else:
+                counts = replica.movable_counts(
+                    states.mol_alive, params.mol_frozen, params.mol_species)
+                u = _pt_pair_uniforms(rng, R, parity)
+                fug_rows, acc = replica.host_swap_fugacity(
+                    fug_rows, counts.cpu().numpy(), parity, rng)
+                swap_acc += acc
+                thermos = replica.stack_thermo_fugacity(thermo, fug_rows)
+            rnd = {"fugacity": f_in, "counts": counts, "u": u,
+                   "parity": parity, "sp_ids": sp_ids,
+                   "new_fugacity": thermos.fugacity, "accepted": acc}
+            swap_att += max((R - parity) // 2, 0)
+            parity ^= 1
+            # beta is shared: a fugacity swap changes only the acceptance
+            # rules, so the cached energies stay valid
+        states = multichain.initialize_batched(states, params, cfg, thermos,
+                                               frozen_rows=refresh_rows)
+        if fused:
+            fug_rows = thermos.fugacity.double().cpu().numpy()
+            swap_acc = int(swap_acc_dev)
+        f_tot = fug_rows.sum(axis=1)
+        st0 = _pt_block(su, writer, avgs, hist, states,
+                        int(np.argmin(f_tot)), swap_acc, swap_att,
+                        [float(job.temperature)] * R, fugacities=f_tot)
+    _pt_finish(job, writer, avgs, hist, float(job.temperature), swap_acc,
+               swap_att, R, n_blocks * corr, time.time() - t0)
+    return dataclasses.replace(su, state=st0, thermo=thermos, states=states,
+                               pt_round=rnd), avgs
 
 
 def run(job: input_script.Job, **kw):

@@ -10,7 +10,12 @@ with ctypes: every pointer and the stream are ``c_void_p``, every count a
 ``c_int``, a constant a ``c_double``, an output count a pointer to a
 ``c_int``, and every entry returns a CUDA error code (0: none).
 
-Nothing here runs at import: the first kernel launch calls ``library()``.
+The host library of ``csrc/pqr_io.cpp`` (the native PQR writer) builds the
+same way with ``g++ -O2 -shared -fPIC`` (``host_library``), keyed by a
+hash of its source.
+
+Nothing here runs at import: the first kernel launch calls ``library()``,
+the first native write ``host_library()``.
 """
 from __future__ import annotations
 
@@ -38,8 +43,8 @@ _SIGNATURES = {
         # [CTAs resident on the card] out
         "pair_config": [_PI],
         # pos q eps sig mol alive mol_atoms natoms mol rows | A | scal | n
-        # rd mix es lrc | part pmin ticket out | stream
-        "mol_pair": [_P] * 10 + [_I] + [_P] + [_I] * 5 + [_P] * 4 + [_P],
+        # C rd mix es lrc | part pmin ticket out | stream
+        "mol_pair": [_P] * 10 + [_I] + [_P] + [_I] * 6 + [_P] * 4 + [_P],
     },
     "uvt_kernel": {
         # pos alive eps sig q mass slot_start slot_species slot_alive tmpl
@@ -76,12 +81,23 @@ _SIGNATURES = {
     },
 }
 
+# host sources (csrc/<name>.cpp, built with g++) -> entry -> (argtypes,
+# restype)
+_HOST_SIGNATURES = {
+    "pqr_io": {
+        # path mode remark | n | num ids | flags names mol_names | extended
+        "pqr_write_frame": ([ctypes.c_char_p] * 3 + [ctypes.c_long]
+                            + [_P] * 2 + [ctypes.c_char_p] * 3
+                            + [ctypes.c_int], ctypes.c_long),
+    },
+}
+
 _libs: dict = {}
 
 
-def _digest(src: Path):
+def _digest(src: Path, headers=True):
     h = hashlib.sha256()
-    for p in [src] + sorted(CSRC.glob("*.cuh")):
+    for p in [src] + (sorted(CSRC.glob("*.cuh")) if headers else []):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH).encode())
@@ -164,3 +180,42 @@ def library(name: str):
             if nm not in _libs:
                 load(nm, path)
     return _libs[name]
+
+
+def gxx():
+    """Path of the host C++ compiler: g++ on PATH."""
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the native writer cannot be built")
+    return found
+
+
+def host_target(name: str) -> Path:
+    """Path of the shared library built from ``csrc/<name>.cpp``."""
+    src = CSRC / (name + ".cpp")
+    return BUILD_DIR / f"lib{name}_{_digest(src, headers=False)}.so"
+
+
+def host_library(name: str):
+    """The loaded library of ``csrc/<name>.cpp``, built with g++ on the
+    first call (``g++ -O2 -shared -fPIC``); raises if g++ fails."""
+    if name in _libs:
+        return _libs[name]
+    out = host_target(name)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [gxx(), "-O2", "-shared", "-fPIC", "-std=c++17", "-o", str(tmp),
+             str(CSRC / (name + ".cpp"))], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {name}.cpp "
+                               f"({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    for entry, (args, res) in _HOST_SIGNATURES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = args
+        fn.restype = res
+    _libs[name] = lib
+    return lib

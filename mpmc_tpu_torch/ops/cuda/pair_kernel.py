@@ -16,6 +16,9 @@ B4 ``mol_pair`` replaces ops/pallas/pair_kernel.py::_mol_kernel (through
 output [4]: [rd, es_real, lrc, min_r2].  One launch per call: its last
 block reduces the blocks' partials, held in scratch kept per device and
 type (``mol_pair_scratch``), so a move allocates only its output.
+``mol_pair_chains`` launches the same kernel over C chains (the batched
+scan chains): the chain is a grid axis, each chain with its own partial
+slots and ticket, raw output [C, 4].
 
 Each wrapper takes the plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor; anything else raises.  There is no
@@ -245,18 +248,57 @@ pair_terms.launches = 0
 _mol_scratch: dict = {}
 
 
-def mol_pair_scratch(device, dtype, nb):
-    """(part [>= nb, 3] double, pmin [>= nb], ticket [1] int32, zero
-    between launches): B4's block partials on ``device``, grown to the
-    largest call and kept.  Calls share them in stream order (the port
+def mol_pair_scratch(device, dtype, nb, C=1):
+    """(part [>= C nb, 3] double, pmin [>= C nb], tickets [>= C] int32,
+    zero between launches): B4's block partials on ``device``, grown to
+    the largest call and kept.  Calls share them in stream order (the port
     launches every kernel on one stream)."""
     have = _mol_scratch.get((device, dtype))
-    if have is None or have[1].numel() < nb:
-        have = (torch.empty((nb, 3), dtype=torch.float64, device=device),
-                torch.empty(nb, dtype=dtype, device=device),
-                torch.zeros(1, dtype=torch.int32, device=device))
+    if have is None or have[1].numel() < C * nb or have[2].numel() < C:
+        size = max(C * nb, 0 if have is None else have[1].numel())
+        have = (torch.empty((size, 3), dtype=torch.float64, device=device),
+                torch.empty(size, dtype=dtype, device=device),
+                torch.zeros(max(C, 0 if have is None else have[2].numel()),
+                            dtype=torch.int32, device=device))
         _mol_scratch[(device, dtype)] = have
     return have
+
+
+def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
+                     mol_natoms, mol, rows, scal, cfg):
+    """One B4 launch over C = pos.shape[0] chains (pos [C, N, 3], alive
+    [C, N], mol [C], rows [C, A, 3] or None): raw [C, 4]."""
+    C, n = pos.shape[0], pos.shape[1]
+    dt, dev = pos.dtype, pos.device
+    m, a = mol_atoms.shape
+    if a > A_PAD:
+        raise ValueError(f"mol_pair: molecules of {a} atoms > A_PAD={A_PAD}")
+    if C < 1 or C > 65535:
+        raise ValueError(f"mol_pair: {C} chains (1..65535: the grid's y)")
+    _check("pos", pos, dt, (C, n, 3))
+    for nm, t in (("charge", charge), ("eps", eps), ("sig", sig)):
+        _check(nm, t, dt, (n,), dev)
+    _check("mol_id", mol_id, torch.int32, (n,), dev)
+    _check("alive", alive, torch.bool, (C, n), dev)
+    _check("mol_atoms", mol_atoms, torch.int64, (m, a), dev)
+    _check("mol_natoms", mol_natoms, torch.int64, (m,), dev)
+    _check("mol", mol, torch.int64, (C,), dev)
+    if rows is not None:
+        _check("rows", rows, dt, (C, a, 3), dev)
+    _check("scal", scal, dt, (20,), dev)
+    rd, mix, es, lrc = _opts(cfg)
+    nb = max(-(-n // MT), 1)
+    part, pmin, ticket = mol_pair_scratch(dev, dt, nb, C)
+    out = torch.empty((C, 4), dtype=dt, device=dev)
+    from mpmc_tpu_torch.ops.cuda import _build
+    fn = getattr(_build.library("pair_kernel"), "mol_pair_" + _suffix(dt))
+    err = fn(_ptr(pos), _ptr(charge), _ptr(eps), _ptr(sig), _ptr(mol_id),
+             _ptr(alive), _ptr(mol_atoms), _ptr(mol_natoms), _ptr(mol),
+             ctypes.c_void_p(None if rows is None else rows.data_ptr()),
+             a, _ptr(scal), n, C, rd, mix, es, lrc, _ptr(part), _ptr(pmin),
+             _ptr(ticket), _ptr(out), _stream(dev))
+    _raise_on(err, "mol_pair")
+    return out
 
 
 def mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms, mol_natoms,
@@ -269,41 +311,50 @@ def mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms, mol_natoms,
                               mol_atoms, mol_natoms, mol, rows, scal, cfg)
     if pos.device.type != "cuda":
         raise ValueError(f"mol_pair: no kernel for {pos.device}")
-    n = pos.shape[0]
-    dt, dev = pos.dtype, pos.device
-    m, a = mol_atoms.shape
-    if a > A_PAD:
-        raise ValueError(f"mol_pair: molecules of {a} atoms > A_PAD={A_PAD}")
-    _check("pos", pos, dt, (n, 3))
-    for nm, t in (("charge", charge), ("eps", eps), ("sig", sig)):
-        _check(nm, t, dt, (n,), dev)
-    _check("mol_id", mol_id, torch.int32, (n,), dev)
-    _check("alive", alive, torch.bool, (n,), dev)
-    _check("mol_atoms", mol_atoms, torch.int64, (m, a), dev)
-    _check("mol_natoms", mol_natoms, torch.int64, (m,), dev)
-    _check("mol", mol, torch.int64, (), dev)
-    if rows is not None:
-        _check("rows", rows, dt, (a, 3), dev)
-    _check("scal", scal, dt, (20,), dev)
-    rd, mix, es, lrc = _opts(cfg)
-    part, pmin, ticket = mol_pair_scratch(dev, dt, max(-(-n // MT), 1))
-    out = torch.empty(4, dtype=dt, device=dev)
-    from mpmc_tpu_torch.ops.cuda import _build
-    fn = getattr(_build.library("pair_kernel"), "mol_pair_" + _suffix(dt))
-    err = fn(_ptr(pos), _ptr(charge), _ptr(eps), _ptr(sig), _ptr(mol_id),
-             _ptr(alive), _ptr(mol_atoms), _ptr(mol_natoms), _ptr(mol),
-             ctypes.c_void_p(None if rows is None else rows.data_ptr()),
-             a, _ptr(scal), n, rd, mix, es, lrc, _ptr(part), _ptr(pmin),
-             _ptr(ticket), _ptr(out), _stream(dev))
+    _check("mol", mol, torch.int64, (), pos.device)
+    out = _launch_mol_pair(pos[None], charge, eps, sig, mol_id, alive[None],
+                           mol_atoms, mol_natoms, mol.reshape(1),
+                           None if rows is None else rows[None], scal, cfg)
     mol_pair.launches += 1
-    _raise_on(err, "mol_pair")
-    return out
+    return out[0]
 
 
 mol_pair.launches = 0
 
 
+def mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
+                          mol_natoms, mol, rows, scal, cfg):
+    """Plain B4 over chains: ``mol_pair_plain`` of each chain, stacked."""
+    return torch.stack([
+        mol_pair_plain(pos[c], charge, eps, sig, mol_id, alive[c],
+                       mol_atoms, mol_natoms, mol[c],
+                       None if rows is None else rows[c], scal, cfg)
+        for c in range(pos.shape[0])])
+
+
+def mol_pair_chains(pos, charge, eps, sig, mol_id, alive, mol_atoms,
+                    mol_natoms, mol, rows, scal, cfg):
+    """B4 over C chains in one launch (the batched scan step's per-move
+    delta): pos [C, N, 3], alive [C, N], mol [C] int64, rows [C, A, 3] or
+    None; the parameter columns are shared.  Raw [C, 4]; chain c's row is
+    ``mol_pair`` of chain c, bit for bit."""
+    if pos.device.type == "cpu":
+        return mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive,
+                                     mol_atoms, mol_natoms, mol, rows, scal,
+                                     cfg)
+    if pos.device.type != "cuda":
+        raise ValueError(f"mol_pair_chains: no kernel for {pos.device}")
+    out = _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
+                           mol_natoms, mol, rows, scal, cfg)
+    mol_pair_chains.launches += 1
+    return out
+
+
+mol_pair_chains.launches = 0
+
+
 def reset_counts():
-    """Zero both kernels' launch counters."""
+    """Zero the kernels' launch counters."""
     pair_terms.launches = 0
     mol_pair.launches = 0
+    mol_pair_chains.launches = 0

@@ -43,10 +43,10 @@ def kvectors(box, kmax: int):
 
 
 def _phase(rows, kvecs):
-    """[R, Nk] k . r, elementwise (rows [R,3], kvecs [Nk,3])."""
-    return (rows[:, None, 0] * kvecs[None, :, 0]
-            + rows[:, None, 1] * kvecs[None, :, 1]
-            + rows[:, None, 2] * kvecs[None, :, 2])
+    """[..., R, Nk] k . r, elementwise (rows [..., R, 3], kvecs [Nk,3])."""
+    return (rows[..., :, None, 0] * kvecs[None, :, 0]
+            + rows[..., :, None, 1] * kvecs[None, :, 1]
+            + rows[..., :, None, 2] * kvecs[None, :, 2])
 
 
 def structure_factor(pos, charge, alive, kvecs, chunk=4096):
@@ -64,11 +64,13 @@ def structure_factor(pos, charge, alive, kvecs, chunk=4096):
 
 
 def mol_structure_factor(pos_rows, charge_rows, row_ok, kvecs):
-    """Partial S(k) from one molecule's atoms (for delta updates)."""
+    """Partial S(k) from one molecule's atoms (for delta updates); with a
+    leading chain dimension on every argument but ``kvecs``, one per
+    chain ([C, Nk])."""
     q = torch.where(row_ok, charge_rows, torch.zeros_like(charge_rows))
-    ph = _phase(pos_rows, kvecs)                 # [A, Nk]
-    return (torch.sum(q[:, None] * torch.cos(ph), dim=0),
-            torch.sum(q[:, None] * torch.sin(ph), dim=0))
+    ph = _phase(pos_rows, kvecs)                 # [..., A, Nk]
+    return (torch.sum(q[..., :, None] * torch.cos(ph), dim=-2),
+            torch.sum(q[..., :, None] * torch.sin(ph), dim=-2))
 
 
 def recip_weights(box, alpha, kvecs, pair_w=2.0):
@@ -83,8 +85,9 @@ def recip_weights(box, alpha, kvecs, pair_w=2.0):
 
 
 def recip_energy_w(sk_re, sk_im, pref, w):
-    """U_recip from a structure factor and recip_weights."""
-    return pref * torch.sum(w * (sk_re * sk_re + sk_im * sk_im))
+    """U_recip from a structure factor and recip_weights ([C] for
+    structure factors [C, Nk])."""
+    return pref * torch.sum(w * (sk_re * sk_re + sk_im * sk_im), dim=-1)
 
 
 def recip_energy_from_sk(sk_re, sk_im, box, alpha, kvecs, pair_w=2.0):

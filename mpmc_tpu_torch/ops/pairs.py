@@ -22,7 +22,7 @@ import torch
 from mpmc_tpu_torch.constants import KE
 from mpmc_tpu_torch.ops import lj as lj_ops
 from mpmc_tpu_torch.ops import pbc as pbc_ops
-from mpmc_tpu_torch.state import mol_rows, row_valid
+from mpmc_tpu_torch.state import chain_rows, mol_rows, row_valid
 
 # raw slot layout of a full pass: [rd, es_real, es_excl, lrc] for the
 # active part, the same four for the frozen-frozen part, then min_r2
@@ -189,42 +189,59 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
     ``row_pos``) and all OTHER molecules, each pair once — the O(A N)
     per-move delta.  ``mol`` may be a 0-d device tensor (no host sync).
     ``scal``: a precomputed pair_scalars(box, cfg), which the MC step
-    builds once per chunk."""
+    builds once per chunk.
+
+    Over C chains (the batched scan step): ``pos`` [C, N, 3],
+    ``atom_alive`` [C, N], ``mol`` [C], ``row_pos`` [C, A, 3] — one B4
+    launch for every chain, PairTerms of [C] tensors."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
 
     if scal is None:
         scal = pair_scalars(box, cfg)
-    raw = pair_kernel.mol_pair(
+    kernel = pair_kernel.mol_pair_chains if pos.ndim == 3 else \
+        pair_kernel.mol_pair
+    raw = kernel(
         pos, params.charge, params.eps, params.sig, params.mol_id32,
         atom_alive, params.mol_atoms, params.mol_natoms,
         torch.as_tensor(mol, device=pos.device), row_pos, scal, cfg)
-    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
-    return PairTerms(rd=raw[0], es_real=KE * raw[1], es_excl=zero,
-                     lrc_coeff=raw[2], min_r2=raw[3])
+    raw = raw.unbind(-1)
+    return PairTerms(rd=raw[0], es_real=KE * raw[1],
+                     es_excl=torch.zeros_like(raw[0]), lrc_coeff=raw[2],
+                     min_r2=raw[3])
 
 
 def intra_terms(pos, box, params, cfg, mol, row_pos=None, scal=None):
     """Ewald exclusion correction of one molecule's internal pairs
     (-ke q_i q_j erf(alpha r)/r), for GCMC insert/delete.  ``scal`` as
-    in mol_pair_pass (no cutoff, inverse or determinant per call)."""
+    in mol_pair_pass (no cutoff, inverse or determinant per call).  Over
+    C chains: ``pos`` [C, N, 3], ``mol`` [C], ``row_pos`` [C, A, 3] ->
+    [C]."""
+    batched = pos.ndim == 3
     if cfg.coulomb != "ewald":
-        return torch.zeros((), dtype=pos.dtype, device=pos.device)
+        return torch.zeros(pos.shape[:1] if batched else (),
+                           dtype=pos.dtype, device=pos.device)
     if scal is None:
         scal = pair_scalars(box, cfg)
     alpha = scal[1]
     valid = row_valid(params, mol)
-    A = valid.shape[0]
-    p = mol_rows(pos, params, mol) if row_pos is None else row_pos
-    dr = pbc_ops.min_image(p[:, None, :] - p[None, :, :], box,
+    A = valid.shape[-1]
+    if row_pos is not None:
+        p = row_pos
+    elif batched:
+        p = chain_rows(pos, params, mol)
+    else:
+        p = mol_rows(pos, params, mol)
+    dr = pbc_ops.min_image(p[..., :, None, :] - p[..., None, :, :], box,
                            scal[11:20].reshape(3, 3))
     r2 = torch.sum(dr * dr, -1)
     ar = torch.arange(A, device=pos.device)
-    ok = (ar[None, :] > ar[:, None]) & valid[:, None] & valid[None, :]
+    ok = ((ar[None, :] > ar[:, None]) & valid[..., :, None]
+          & valid[..., None, :])
     r = torch.sqrt(torch.where(r2 > 1e-12, r2, torch.ones_like(r2)))
     q = mol_rows(params.charge, params, mol)
-    qq = q[:, None] * q[None, :]
-    return -KE * torch.sum(torch.where(ok, qq * torch.erf(alpha * r) / r,
-                                       torch.zeros_like(r)))
+    qq = q[..., :, None] * q[..., None, :]
+    e = torch.where(ok, qq * torch.erf(alpha * r) / r, torch.zeros_like(r))
+    return -KE * (torch.sum(e, dim=(-2, -1)) if batched else torch.sum(e))
 
 
 def lrc_self_coefficient(atom_alive, params, cfg, rc):
@@ -238,12 +255,13 @@ def lrc_self_coefficient(atom_alive, params, cfg, rc):
 
 def mol_lrc_self_coefficient(params, cfg, rc, mol):
     """Sum of self tail coefficients T_ii over one molecule's atoms
-    (GCMC insert/delete LRC delta: dU = (lrc_coeff + 0.5 * this) / V)."""
+    (GCMC insert/delete LRC delta: dU = (lrc_coeff + 0.5 * this) / V);
+    [C] for ``mol`` [C]."""
     if not cfg.rd_lrc or cfg.rd_potential != "lj":
-        return torch.zeros((), dtype=params.eps.dtype,
+        return torch.zeros(getattr(mol, "shape", ()), dtype=params.eps.dtype,
                            device=params.eps.device)
     tc = lj_ops.tail_coefficient(mol_rows(params.eps, params, mol),
                                  mol_rows(params.sig, params, mol), rc)
     return torch.sum(torch.where(row_valid(params, mol), tc,
-                                 torch.zeros_like(tc)))
+                                 torch.zeros_like(tc)), dim=-1)
 

@@ -1,15 +1,28 @@
-"""Many independent MC chains on one card (port of the fused-path part of
-mpmc_tpu/parallel/multichain.py).
+"""Many independent MC chains on one card (port of
+mpmc_tpu/parallel/multichain.py, without the chain_devices sharding of
+ROADMAP A13).
 
 A stacked state is a ``SimState`` whose tensor fields carry a leading [C]
 (``state.stack_chains``); ``state.slice_chain`` takes one chain back out.
-The chains advance together in one launch of the fused µVT kernel
-(mc/metropolis.run_chunk_fused_uvt_multi), each with its own rows of one
-uniform table drawn from one torch.Generator, so every chain is a valid
-Metropolis chain of its own.  The batched scan path (``run_chunk_batched``)
-is ROADMAP A7.
+Two routes advance the chains together:
+
+- the fused kernels, one launch per chunk (mc/metropolis.
+  run_chunk_fused_uvt_multi over B1, run_chunk_fused_multi over B3);
+- ``run_chunk_batched``, the batched scan chains: one step of every chain
+  per row of a [C, K, 16] uniform table (metropolis.make_batched_step_fn),
+  each move's delta one launch of B4 over the chain axis.
+
+Statistical note (the reference's): the chains share the move *type* of
+each step — here chain 0's lane 8 — while every chain draws its own
+target, displacement and acceptance coin from its own row.  Each chain
+remains a valid Metropolis chain; only the move-type sequence is shared,
+which does not bias any chain's stationary distribution.
 """
 from __future__ import annotations
+
+import dataclasses
+
+import torch
 
 from mpmc_tpu_torch.config import RunConfig, Thermo
 from mpmc_tpu_torch.mc import metropolis
@@ -21,13 +34,56 @@ def stack_states(state: SimState, n: int) -> SimState:
     return stack_chains([state] * n)
 
 
+def chain_thermo(thermo: Thermo, c: int) -> Thermo:
+    """Chain ``c``'s Thermo of a per-chain one (a parallel-tempering
+    ladder: ``temperature`` [C], ``fugacity`` [C, S]); shared knobs stay
+    as they are."""
+    kw = {}
+    for f in dataclasses.fields(thermo):
+        v = getattr(thermo, f.name)
+        base = 1 if f.name == "fugacity" else 0
+        if isinstance(v, torch.Tensor) and v.ndim > base:
+            kw[f.name] = v[c]
+    return thermo.replace(**kw)
+
+
+def run_chunk_batched(states: SimState, params: Params, cfg: RunConfig,
+                      thermo: Thermo, n_steps: int, generator=None,
+                      uniforms=None, trace=None):
+    """Advance C stacked chains ``n_steps`` steps each, in lockstep;
+    returns (states, MCStats with [C, 5] counts).
+
+    The [C, n_steps, 16] uniform table is ``uniforms`` when given (tests
+    inject it), else drawn from ``generator`` (a torch.Generator on the
+    states' device).  ``thermo`` may be per chain (the reference's
+    ``thermo_batched``: ``temperature`` [C], ``fugacity`` [C, S]); the
+    move-type probabilities and move sizes are shared.  ``trace``: a list
+    that gets the step's record (make_batched_step_fn)."""
+    C = states.pos.shape[0]
+    if uniforms is None:
+        uniforms = torch.rand((C, n_steps, metropolis.N_LANES),
+                              generator=generator, dtype=cfg.tdtype,
+                              device=generator.device)
+    step, carry, c, branch, stats = metropolis.batched_chunk_setup(
+        states, params, cfg, thermo, uniforms)
+    u = carry["u"]
+    for k in range(n_steps):
+        step(carry, u[:, k], int(branch[k]), thermo, c, stats, trace)
+    return states.replace(pos=carry["pos"], mol_alive=carry["mol_alive"],
+                          energy=carry["energy"], sk_re=carry["sk_re"],
+                          sk_im=carry["sk_im"],
+                          step=states.step + n_steps), stats
+
+
 def initialize_batched(states: SimState, params: Params, cfg: RunConfig,
                        thermo: Thermo, frozen_rows: int = 0) -> SimState:
     """Full-energy refresh of every chain, one after the other (the
     reference maps the refresh over chains too: a batched O(N^2) pass
     would hold a [C, rows, N] tile, and it runs once per corrtime).
-    ``frozen_rows`` as in metropolis.initialize."""
+    ``thermo`` may be per chain (chain_thermo); ``frozen_rows`` as in
+    metropolis.initialize."""
     return stack_chains([
-        metropolis.initialize(slice_chain(states, c), params, cfg, thermo,
+        metropolis.initialize(slice_chain(states, c), params, cfg,
+                              chain_thermo(thermo, c),
                               frozen_rows=frozen_rows)
         for c in range(states.pos.shape[0])])

@@ -416,26 +416,38 @@ def _species_dof(sp) -> float:
 
 
 def take(arr, i):
-    """``arr[i]`` for an int or a 0-d index tensor, without a host sync:
-    indexing with a 0-d tensor reads it on the host, so a tensor index
-    goes through ``index_select`` instead."""
+    """``arr[i]`` for an int or an index tensor, without a host sync:
+    indexing with a 0-d tensor reads it on the host, so a 0-d index goes
+    through ``index_select`` instead; an index tensor of shape [C] (one
+    per chain) gathers [C, ...]."""
     if isinstance(i, torch.Tensor):
+        if i.ndim:
+            return arr[i]
         return arr.index_select(0, i.reshape(1))[0]
     return arr[i]
 
 
 def row_valid(params: Params, mol):
-    """[A] bool: which of molecule ``mol``'s padded rows are real atoms."""
+    """[A] bool: which of molecule ``mol``'s padded rows are real atoms
+    ([C, A] for one molecule per chain, ``mol`` [C])."""
     return (torch.arange(params.max_atoms_per_mol,
                          device=params.mol_natoms.device)
-            < take(params.mol_natoms, mol))
+            < take(params.mol_natoms, mol)[..., None])
 
 
 def mol_rows(arr, params: Params, mol):
     """[A, ...] rows of molecule ``mol`` (int or 0-d device tensor — no
-    host sync).  Padded entries duplicate the molecule's first atom row;
-    consumers mask rows by ``arange(A) < mol_natoms[mol]``."""
+    host sync; [C, A, ...] for ``mol`` [C], from a shared ``arr``).
+    Padded entries duplicate the molecule's first atom row; consumers
+    mask rows by ``arange(A) < mol_natoms[mol]``."""
     return arr[take(params.mol_atoms, mol)]
+
+
+def chain_rows(arr, params: Params, mol):
+    """[C, A, ...] rows of molecule ``mol[c]`` of each chain's own
+    ``arr[c]`` (``arr`` [C, N, ...], ``mol`` [C])."""
+    idx = take(params.mol_atoms, mol)
+    return arr[torch.arange(arr.shape[0], device=arr.device)[:, None], idx]
 
 
 def mol_rows_update(arr, params: Params, mol, rows_new):

@@ -80,10 +80,14 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
         port_main.main([str(deck)])
 
 
+# (test id, deck lines, ROADMAP item): batched chains and parallel
+# tempering run now; with polarization they are A7b
 REFUSED = [
-    ("chains 4", "A7"), ("ensemble npt", "A8b"),
-    ("parallel_tempering on", "A9"),
-    ("chains 2\nfused_mc on\npolarization on", "A7"),
+    ("chains 4", "chains 4\npolarization on", "A7b"),
+    ("ensemble npt", "A8b"),
+    ("parallel_tempering on", "parallel_tempering on\npolarization on",
+     "A7b"),
+    ("chains 2\nfused_mc on\npolarization on", "A7b"),
     ("cavity_bias on", "A11"),
     ("tmmc on", "A11"), ("quantum_rotation on", "A11"),
     ("cdvdw on", "A12"), ("feynman_hibbs on", "A12"),
@@ -96,10 +100,10 @@ REFUSED = [
 
 @pytest.mark.parametrize("case", REFUSED, ids=[r[0] for r in REFUSED])
 def test_options_outside_the_slice_are_refused(case):
-    """Each option outside the slice raises, naming its ROADMAP item; a
-    case's third field is its ensemble (default uvt)."""
-    line, item, ensemble = (case + ("uvt",))[:3]
-    job = input_script.parse(f"ensemble {ensemble}\n{line}\n")
+    """Each option outside the slice raises, naming its ROADMAP item (a
+    three-field case names its deck lines apart from its id)."""
+    line, item = case[-2:]
+    job = input_script.parse(f"ensemble uvt\n{line}\n")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
         trun.setup(job, device="cpu")
 

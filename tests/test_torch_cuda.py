@@ -773,3 +773,123 @@ def test_pair_terms_kernel_scratch_resizes(device):
     grown = pk.pair_terms_scratch(device, torch.float32, have + 1)
     assert grown[1].numel() == have + 1
     assert torch.equal(pk.pair_terms(*big), first)
+
+
+def _chains(device, dtype, C, steps=30, seed=3):
+    """C chains of the small system after ``steps`` batched scan steps
+    (each chain its own positions and loading), with a [C] molecule pick
+    of which the last chain's found nothing (count 0), and trial rows."""
+    params, state, cfg, thermo = _system(dtype, device)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    g = torch.Generator(device=device).manual_seed(seed)
+    states, _ = multichain.run_chunk_batched(
+        multichain.stack_states(state, C), params, cfg, thermo, steps,
+        generator=g)
+    mask = metropolis._movable_mask(params, states.mol_alive)
+    mask[-1] = False
+    u = torch.rand((C, 16), generator=g, device=device,
+                   dtype=states.pos.dtype)
+    from mpmc_tpu_torch.mc import moves
+    mol, cnt = moves.pick_by_rank(mask, u[:, 0])
+    assert int(cnt[-1]) == 0
+    rows = moves.displace_rows(states.pos, params, mol, u, 0.8, 1.0)
+    alive = states.mol_alive[:, params.mol_id] & params.atom_ok
+    return params, states, cfg, mol, rows, alive
+
+
+@pytest.mark.parametrize("C", [1, 2, 7, 128])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mol_pair_chains_kernel(device, dtype, C):
+    """B4 over a chain axis: one launch per call; C = 1 gives the
+    single-chain launch's bits; every C against the plain version (B4's
+    tolerance), current and trial rows, a chain with an empty pick
+    included; a repeat gives the same bits (each chain's ticket back at
+    0)."""
+    params, states, cfg, mol, rows, alive = _chains(device, dtype, C)
+    scal = pairs.pair_scalars(states.box[0], cfg)
+    for r in (None, rows):
+        args = (states.pos, params.charge, params.eps, params.sig,
+                params.mol_id32, alive, params.mol_atoms, params.mol_natoms,
+                mol, r, scal, cfg)
+        before = pk.mol_pair_chains.launches
+        k = pk.mol_pair_chains(*args)
+        torch.cuda.synchronize(device)
+        assert pk.mol_pair_chains.launches == before + 1
+        assert k.shape == (C, 4)
+        _close(k, pk.mol_pair_chains_plain(*args), dtype)
+        assert torch.equal(k, pk.mol_pair_chains(*args))
+        if C == 1:
+            one = pk.mol_pair(states.pos[0], params.charge, params.eps,
+                              params.sig, params.mol_id32, alive[0],
+                              params.mol_atoms, params.mol_natoms, mol[0],
+                              None if r is None else r[0], scal, cfg)
+            assert torch.equal(k[0], one)
+
+
+def test_batched_deck_bookkeeping(device):
+    """A short batched scan run on the card (4 chains, 200 steps): B4 over
+    the chains launched once or twice a step, every chain's carried
+    energy terms against a fresh recompute.  Float32: each term within
+    rel 2e-5 (200 deltas of float32 rounding each) or 1e-2 K — per term,
+    since es_self and es_excl here are ~5e5 K of opposite sign."""
+    params, state, cfg, thermo = _system("float32", device)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    g = torch.Generator(device=device).manual_seed(8)
+    before = pk.mol_pair_chains.launches
+    states, stats = multichain.run_chunk_batched(
+        multichain.stack_states(state, 4), params, cfg, thermo, 200,
+        generator=g)
+    torch.cuda.synchronize(device)
+    n = pk.mol_pair_chains.launches - before
+    assert 200 <= n <= 400
+    assert int(stats.accepts.sum()) > 0
+    from mpmc_tpu_torch.state import slice_chain
+    for c in range(4):
+        st = slice_chain(states, c)
+        fresh = metropolis.initialize(st, params, cfg, thermo)
+        for k in ("rd", "lrc", "es_real", "es_recip", "es_self", "es_excl"):
+            carried = float(getattr(st.energy, k))
+            full = float(getattr(fresh.energy, k))
+            assert abs(carried - full) <= max(2e-5 * abs(full), 1e-2), (c, k)
+
+
+@pytest.mark.parametrize("kernel", ["b3", "b1"])
+def test_pt_round_on_the_card(device, kernel):
+    """One PT round on the card: 8 replicas on a 77-250 K ladder, one
+    fused launch (B3 on the LJ fluid under nvt, B1 on the GCMC system),
+    the on-device swap, its decisions recomputed on the host from the
+    round's energies, counts and uniforms."""
+    from mpmc_tpu_torch.parallel import replica
+    from torch_pt import recompute_round
+    if kernel == "b3":
+        params, state, cfg, thermo = systems.lj_fluid(n=256, device=device)
+        cfg = dataclasses.replace(cfg, ensemble="nvt")
+        tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+        chunk = metropolis.run_chunk_fused_multi
+    else:
+        params, state, cfg, thermo = _system("float32", device)
+        tables = metropolis.uvt_fused_tables(params, cfg)
+        chunk = metropolis.run_chunk_fused_uvt_multi
+    state = metropolis.initialize(state, params, cfg, thermo)
+    temps = replica.geometric_ladder(77.0, 250.0, 8)
+    thermos = replica.stack_thermo(thermo, temps)
+    g = torch.Generator(device=device).manual_seed(9)
+    states, _ = chunk(multichain.stack_states(state, 8), params, cfg,
+                      thermos, 200, generator=g, tables=tables)
+    n = (replica.movable_counts(states.mol_alive, params.mol_frozen,
+                                params.mol_species)
+         if kernel == "b1" else None)
+    for parity in (0, 1):
+        u = replica.swap_uniforms(8, g, thermos.temperature.dtype)
+        new_t, acc = replica.ladder_swap_batched(
+            thermos.temperature, states.energy, u, parity, n_mols=n)
+        rnd = {"temps": thermos.temperature, "energies": states.energy.total,
+               "n_mols": n, "u": u, "parity": parity}
+        want, want_acc, margin = recompute_round(rnd)
+        if margin > 1e-5:
+            np.testing.assert_array_equal(new_t.double().cpu().numpy(),
+                                          want)
+            assert int(acc) == want_acc
+        np.testing.assert_allclose(np.sort(new_t.double().cpu().numpy()),
+                                   temps, rtol=1e-6)
+        thermos = thermos.replace(temperature=new_t)

@@ -360,7 +360,10 @@ def test_cli_fused_nve_deck_runs(tmp_path):
 
 @pytest.mark.parametrize("lines,item", [
     (("ensemble npt",), "A8b"),
-    (("ensemble nve", "fused_mc on", "chains 3", "total_energy 0"), "A7"),
+    # nve chains run as batched scan chains now; with polarization they
+    # are batched polar chains
+    (("ensemble nve", "fused_mc on", "chains 3", "total_energy 0",
+      "polarization on"), "A7b"),
 ], ids=["npt", "nve-chains"])
 def test_nvt_slice_refusals(tmp_path, lines, item):
     job = input_script.parse_file(str(_lj_deck(tmp_path, *lines)))

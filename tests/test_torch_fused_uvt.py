@@ -246,8 +246,10 @@ def test_cli_fused_decks_run(tmp_path, extra):
 
 
 @pytest.mark.parametrize("lines,item", [
-    (("chains 3",), "A7"),
-    (("fused_mc on", "ensemble nve", "chains 3"), "A7"),
+    # chains without fused_mc, and under nve, run as batched scan chains
+    # now; what stays refused is polar chains and npt chains
+    (("chains 3", "polarization on"), "A7b"),
+    (("fused_mc on", "ensemble npt", "chains 3"), "A8b"),
 ], ids=["chains-without-fused", "fused-nve-chains"])
 def test_fused_refusals(tmp_path, lines, item):
     job = input_script.parse_file(str(_deck(tmp_path, *lines)))
