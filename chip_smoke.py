@@ -62,10 +62,20 @@ Phases (any failure raises, so the exit code is non-zero):
    every chain's bookkeeping after a further chunk, the busy share);
 11. parallel tempering (phase_pt) — 8 replicas, 77-250 K or 1-10 atm:
    fused NVT over B3, fused µVT over B1, batched scan chains with host
-   swaps, and pt_fugacity over B1; each ladder a permutation of its rungs
-   and its last swap round recomputed on the host;
+   swaps, pt_fugacity over B1, and the polar deck as batched polar
+   chains; each ladder a permutation of its rungs and its last swap round
+   recomputed on the host;
 12. the restart write (phase_restart_write) — the Python writer and the
-   native one on the 10.8k system in turns, median ms, equal bytes.
+   native one on the 10.8k system in turns, median ms, equal bytes;
+13. batched polar chains — B5 over a chain axis (phase_thole_chains: 8
+   chains of the polar system moved apart by B1, both modes, dense and
+   rc 14 culled, float64 and float32: each chain its single-chain launch
+   bit for bit, C = 1 and an active subset too, within B5's tolerance of
+   the plain version; times and the bound), then the polar deck with
+   ``chains 8`` (phase_polar_chains: plain, ``polar_delayed on``,
+   ``cutoff 14``, 200 steps each: every chain's polar bookkeeping, B5
+   launches == CG rounds, host syncs, a profile); PT deck (v) of phase 11
+   is the polar deck as 8 replicas.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
@@ -105,7 +115,8 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "dipole_field": "mpmc_tpu_torch/csrc/thole_kernel.cu",
            "charge_field": "mpmc_tpu_torch/csrc/thole_kernel.cu",
            "run_steps_uvt_pda": "mpmc_tpu_torch/csrc/pda_kernel.cu",
-           "mol_pair_c128": "mpmc_tpu_torch/csrc/pair_kernel.cu"}
+           "mol_pair_c128": "mpmc_tpu_torch/csrc/pair_kernel.cu",
+           "dipole_field_c8": "mpmc_tpu_torch/csrc/thole_kernel.cu"}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
@@ -113,7 +124,8 @@ REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "dipole_field": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
             "charge_field": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
             "run_steps_uvt_pda": "mpmc_tpu/ops/pallas/mc_kernel.py:2089",
-            "mol_pair_c128": "mpmc_tpu/ops/pallas/pair_kernel.py:336"}
+            "mol_pair_c128": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
+            "dipole_field_c8": "mpmc_tpu/ops/pallas/thole_kernel.py:68"}
 # NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
 # tensor cores, and device memory
 PEAK_F32 = 67e12
@@ -1297,6 +1309,10 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof"):
                         "run_steps": mk.run_steps.launches,
                         "charge_field": tk.charge_field.launches,
                         "dipole_field": tk.dipole_field.launches,
+                        "charge_field_chains":
+                            tk.charge_field_chains.launches,
+                        "dipole_field_chains":
+                            tk.dipole_field_chains.launches,
                         "run_steps_uvt_pda": mk.run_steps_uvt_pda.launches}
         finally:
             os.chdir(old)
@@ -1533,7 +1549,9 @@ def phase_polar(device, numsteps=POLAR_STEPS):
     B5 modes; after a further 100-step chunk the carried energy and its
     polar term must match a fresh recompute.  On a 50-step chunk of each:
     B5 dipole launches against the CG iterations (equal: the move's
-    initial residual comes from move_deltas), host syncs per step, and a
+    initial residual comes from move_deltas; the CG launches B5 through
+    the chain wrapper at C = 1, thole.solve_scf being one chain of
+    solve_scf_chains), host syncs per step, and a
     profile with B5's share of the device time; for (a) the step's layers.
     Returns ({deck: launches}, {deck: report})."""
     from mpmc_tpu_torch.mc import metropolis
@@ -1548,14 +1566,17 @@ def phase_polar(device, numsteps=POLAR_STEPS):
         if "WARNING" in text:
             raise AssertionError(f"{label}: a WARNING in the run's log")
         if not all(ln[k] > 0 for k in ("pair_terms", "mol_pair",
-                                        "charge_field", "dipole_field")):
+                                        "charge_field", "dipole_field",
+                                        "dipole_field_chains")):
             raise AssertionError(f"{label}: a kernel was not launched: {ln}")
         if thole.cull_supported(su.cfg) != ("cutoff" in extra):
             raise AssertionError(f"{label}: the culled CG gate is wrong")
         rate = float(text.split("steps/sec:")[1].split()[0])
         rep = {"steps_per_sec": rate,
                "cg_iters_per_step": avgs.mean("polar_iters_per_step"),
-               "b5_launches_per_step": ln["dipole_field"] / numsteps,
+               "b5_launches_per_step": (ln["dipole_field"]
+                                        + ln["dipole_field_chains"])
+               / numsteps,
                "polar_K": avgs.mean("energy_polar"),
                "polar_rrms_debye": avgs.mean("polar_rrms_debye"),
                "N": avgs.mean("N")}
@@ -1569,10 +1590,10 @@ def phase_polar(device, numsteps=POLAR_STEPS):
         (_, stats), syncs = _count_syncs(lambda: metropolis.run_chunk(
             su.state, su.params, su.cfg, su.thermo, 50, uniforms=u))
         stats = stats.host()
-        if tk.dipole_field.launches != stats.polar_iters:
+        if tk.dipole_field_chains.launches != stats.polar_iters:
             raise AssertionError(
-                f"{label}: {tk.dipole_field.launches} B5 dipole launches "
-                f"for {stats.polar_iters} CG iterations")
+                f"{label}: {tk.dipole_field_chains.launches} B5 dipole "
+                f"launches for {stats.polar_iters} CG iterations")
         rep.update(chunk_cg_iters_per_step=stats.polar_iters / 50,
                    host_syncs_per_step=syncs / 50)
         prof = _profile(label, lambda: metropolis.run_chunk(
@@ -1648,10 +1669,10 @@ def phase_pda_decks(device, numsteps=POLAR_STEPS, chunk=100):
         (_, stats), syncs = _count_syncs(lambda: run_chunk(su.state))
         stats = stats.host()
         steps = int(stats.attempts.sum())
-        if tk.dipole_field.launches != stats.polar_iters:
+        if tk.dipole_field_chains.launches != stats.polar_iters:
             raise AssertionError(
-                f"{label}: {tk.dipole_field.launches} B5 dipole launches "
-                f"for {stats.polar_iters} CG iterations")
+                f"{label}: {tk.dipole_field_chains.launches} B5 dipole "
+                f"launches for {stats.polar_iters} CG iterations")
         rep.update(chunk_steps=steps,
                    chunk_cg_iters_per_step=stats.polar_iters / steps,
                    chunk_b6_launches_per_step=(mk.run_steps_uvt_pda.launches
@@ -2095,23 +2116,27 @@ PT_DECKS = (
      400, "mol_pair_chains"),
     ("pt_fugacity_b1", "mof", "fused_mc on\npt_fugacity on\n"
      f"n_replicas {PT_R}\nptemp_freq 500\n", 4000, "run_steps_uvt"),
+    ("pt_polar_batched", "polar", "parallel_tempering on\n"
+     f"n_replicas {PT_R}\nmax_temperature {PT_T_MAX}\nptemp_freq 100\n",
+     200, "dipole_field_chains"),
 )
 
 
 def phase_pt(device):
-    """The four PT decks (8 replicas; 77-250 K, or 1-10 atm at 77 K):
+    """The five PT decks (8 replicas; 77-250 K, or 1-10 atm at 77 K):
     (i) fused NVT over B3, (ii) fused µVT over B1, (iii) batched scan
-    chains with host swaps, (iv) pt_fugacity fused over B1.  Each: its
-    route's kernel launched, the aggregate rate and swap acceptance, the
-    ladder a permutation of its rungs at the end, and the last swap
-    round's decisions recomputed on the host from its energies, counts
-    and uniforms."""
+    chains with host swaps, (iv) pt_fugacity fused over B1, (v) the polar
+    deck (corrtime 100) as batched polar chains with host swaps, B5 over
+    the chains.  Each: its route's kernel launched, the aggregate rate
+    and swap acceptance, the ladder a permutation of its rungs at the
+    end, and the last swap round's decisions recomputed on the host from
+    its energies, counts and uniforms."""
     from mpmc_tpu_torch.parallel import replica
     reps, launches = {}, {}
     for label, kind, extra, numsteps, kernel in PT_DECKS:
         su, avgs, text, ln = _run_deck(device, extra, numsteps=numsteps,
                                        kind=kind)
-        fused = kernel != "mol_pair_chains"
+        fused = kernel not in ("mol_pair_chains", "dipole_field_chains")
         if ("on-device swaps" in text) != fused or "WARNING" in text:
             raise AssertionError(f"{label} did not take its route")
         if not ln[kernel] > 0:
@@ -2146,6 +2171,245 @@ def phase_pt(device):
         reps[label] = {"steps_per_sec": rate, "swap_acceptance":
                        acc / max(att, 1)}
         launches[label] = ln
+    return launches, reps
+
+
+# the batched polar chains' width (a PT ladder's, and the c8 decks')
+C_POLAR = 8
+
+
+def polar_chains(dtype, device, C=C_POLAR, steps=2000, seed=41):
+    """(params, C stacked states, cfg, thermo) of the polar bench system:
+    C copies of polar_system("float32") moved apart by ``steps`` fused
+    µVT steps each (B1, on the system without polarization: a few hundred
+    accepted moves a chain), then in ``dtype`` each chain initialized
+    under the polar cfg — its energies, static field and converged
+    dipoles."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.parallel import multichain
+    from mpmc_tpu_torch.state import slice_chain, stack_chains
+    params, state, cfg, thermo = polar_system("float32", device)
+    cfg_np = dataclasses.replace(cfg, polarization=False)
+    g = torch.Generator(device=device).manual_seed(seed)
+    sts, stats = metropolis.run_chunk_fused_uvt_multi(
+        multichain.stack_states(state, C), params, cfg_np, thermo, steps,
+        generator=g)
+    acc = stats.host().accepts.sum(1)
+    if dtype == "float64":
+        params, _, cfg, thermo = polar_system("float64", device)
+        sts = sts.replace(pos=sts.pos.double(), box=sts.box.double())
+    chains = [metropolis.initialize(
+        slice_chain(sts, c).replace(mu=None, e0=None, r_pol=None,
+                                    e_frozen=None),
+        params, cfg, thermo) for c in range(C)]
+    log(f"polar chains {dtype}: {C} chains, accepted moves "
+        f"{acc.tolist()}, N "
+        f"{[int(ch.n_molecules(params)) for ch in chains]}")
+    return params, stack_chains(chains), cfg, thermo
+
+
+def phase_thole_chains(device, C=C_POLAR):
+    """B5 over a chain axis on C chains of the polar bench system
+    (polar_chains), float64 and float32, both modes, dense at the derived
+    rc and culled at rc = RC_CULL (each chain sorted by its own cull_perm,
+    its own visit table).  Checks: against the plain version over [C]
+    with phase 4c's tolerance per chain (float64 1e-10 x max |E|; float32
+    the float64 plain on the same inputs as the reference, at most 4x
+    the float32 plain's distance or 2e-6 x max |E|); each chain bit for
+    bit its own single-chain launch; C = 1 the single-chain launch; an
+    active subset (chains 1, 4, 7) those chains' launches and zeros
+    elsewhere.  Float32 times: per call (the plan built once, as
+    solve_scf_chains builds it), on the card alone and plain, beside the
+    bound summed over the chains (OPS_B5_* per evaluated and inside-rc
+    pair, each chain's pairs counted).  Returns the dipole mode's dense
+    report (with a "culled" and a "charge" entry)."""
+    from mpmc_tpu_torch.ops import pairs, thole
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    rep = {"max_abs_err": 0.0, "tol_share": 0.0}
+    active = tuple(range(1, C, 3))
+    for dtype in ("float64", "float32"):
+        params, states, cfg, _ = polar_chains(dtype, device, C)
+        box, lam, kind = states.box[0], cfg.polar_damp, cfg.polar_damp_type
+        alive = states.mol_alive[:, params.mol_id] & params.atom_ok
+        pol_ok = alive & (params.polar > 0)
+        mu = torch.where(pol_ok[..., None], states.mu, 0.0)
+        rc = pairs.derived_cutoff(box, cfg)
+        rc14 = torch.as_tensor(RC_CULL, dtype=box.dtype, device=device)
+        mol = params.mol_id32.expand(C, -1).contiguous()
+        q = params.charge.expand(C, -1).contiguous()
+        for mode in ("dipole", "charge"):
+            kern, one_fn, plain = (
+                (tk.dipole_field_chains, tk.dipole_field,
+                 tk.dipole_field_chains_plain) if mode == "dipole" else
+                (tk.charge_field_chains, tk.charge_field,
+                 tk.charge_field_chains_plain))
+            ok, src = (pol_ok, mu) if mode == "dipole" else (alive, q)
+            perm, _ = thole.cull_perm(states.pos, box, ok, rc14)
+            sorted_ = [thole._gather_sites(x, perm).contiguous()
+                       for x in (states.pos, ok, src, mol)]
+            visit = thole.cull_visit(sorted_[0], sorted_[1], box, rc14)
+            cases = {"dense": ((states.pos, box, ok, src, mol, rc, lam,
+                                kind), None),
+                     f"rc{RC_CULL:g} culled": ((sorted_[0], box,
+                                                *sorted_[1:], rc14, lam,
+                                                kind), visit)}
+            for label, (args, vis) in cases.items():
+                fplan = tk.plan_chains(box, args[5], lam, args[0].shape[1],
+                                       C, vis)
+                k = kern(*args, ortho=True, visit=vis, plan=fplan)
+                sub = kern(*args, ortho=True, visit=vis, plan=fplan,
+                           active=active)
+                torch.cuda.synchronize(device)
+                for c in range(C):
+                    one = one_fn(args[0][c], box, args[2][c], args[3][c],
+                                 args[4][c], args[5], lam, kind, ortho=True,
+                                 visit=None if vis is None else vis[c])
+                    if not torch.equal(k[c], one):
+                        raise AssertionError(
+                            f"B5 x C {mode} {dtype} {label}: chain {c} is "
+                            "not its single-chain launch bit for bit")
+                    if not (torch.equal(sub[c], one) if c in active
+                            else not sub[c].any()):
+                        raise AssertionError(
+                            f"B5 x C {mode} {dtype} {label}: the active "
+                            f"subset's chain {c} is wrong")
+                one_c = kern(*(x[:1] if torch.is_tensor(x) and x.ndim >= 2
+                               and x is not box else x for x in args),
+                             ortho=True,
+                             visit=None if vis is None else vis[:1])
+                if not torch.equal(one_c[0], k[0]):
+                    raise AssertionError(f"B5 x C {mode} {dtype} {label}: "
+                                         "C = 1 is not the single-chain "
+                                         "launch")
+                a64 = tuple(x.double() if torch.is_tensor(x)
+                            and x.is_floating_point() else x for x in args)
+                p64 = plain(*a64, visit=vis).cpu()
+                p32 = (plain(*args, visit=vis).double().cpu()
+                       if dtype == "float32" else None)
+                err = share = 0.0
+                for c in range(C):
+                    scale = float(p64[c].abs().max())
+                    e = float((k[c].double().cpu() - p64[c]).abs().max())
+                    tol = (1e-10 * scale if dtype == "float64" else
+                           max(4.0 * float((p32[c] - p64[c]).abs().max()),
+                               2e-6 * scale))
+                    if not e <= tol:
+                        raise AssertionError(
+                            f"B5 x C {mode} {dtype} {label}: chain {c} "
+                            "disagrees with its plain version")
+                    err, share = max(err, e), max(share, e / tol)
+                log(f"B5 x C={C} {mode} {dtype} {label}: each chain its "
+                    "single-chain launch bit for bit, C = 1 and the active "
+                    f"subset {active} too; |kernel - plain| {err:.3e} "
+                    f"({share:.3f} of the tolerance)")
+                if mode == "dipole":
+                    rep["max_abs_err"] = max(rep["max_abs_err"], err)
+                    rep["tol_share"] = max(rep["tol_share"], share)
+                if dtype == "float64":
+                    continue
+
+                def call(p=fplan, a=args, v=vis):
+                    return kern(*a, ortho=True, visit=v, plan=p)
+
+                ms = time_calls(call, device)
+                dms = time_device(call, device, n=20)
+                pms = time_calls(lambda: plain(*args, visit=vis), device,
+                                 n=3)
+                n_eval = n_in = 0
+                for c in range(C):
+                    e_c, i_c = _b5_pairs(mode, args[0][c], box, args[2][c],
+                                         args[4][c], args[5],
+                                         None if vis is None else vis[c])
+                    n_eval, n_in = n_eval + e_c, n_in + i_c
+                ops = n_eval * OPS_B5_PAIR + n_in * OPS_B5_IN[mode]
+                nbytes = _nbytes(*args[:5], fplan.scal, vis, k)
+                bound, by = _bound_ms(ops, nbytes)
+                log(f"    f32 C={C}: kernel {ms:.4f} ms per call, {dms:.4f} "
+                    f"ms on the card alone; plain {pms:.3f} ms; bound "
+                    f"{bound:.5f} ms ({by}; {n_eval} pairs evaluated, "
+                    f"{n_in} inside rc, {nbytes} bytes)")
+                entry = {"ms": ms, "device_ms": dms, "plain_ms": pms,
+                         "bound_ms": bound, "bound_by": by,
+                         "pairs": n_eval, "pairs_in": n_in}
+                if mode == "charge":
+                    rep.setdefault("charge", {})[label] = entry
+                elif label == "dense":
+                    rep.update(entry)
+                else:
+                    rep["culled"] = entry
+    return rep
+
+
+def phase_polar_chains(device, C=C_POLAR, numsteps=200, chunk=100):
+    """The batched polar chains at full width through run.run: the polar
+    deck (phase_polar's DECK + ``polarization on``, corrtime 100) with
+    ``chains C``, 200 steps, (a') plain, (b') ``polar_delayed on``, (c')
+    ``cutoff 14`` (each chain's culled CG).  Each deck must take the
+    batched route with no WARNING and launch B2, B4 over chains and B5
+    over chains in both modes (charge: every chain's static field at each
+    refresh, multichain.initialize_batched); after a further ``chunk`` steps every chain's carried
+    energy and polar term must match a fresh recompute
+    (_check_bookkeeping(polar=True)); on a 50-step chunk B5-over-chains
+    launches must equal the CG rounds (a step's rounds: its longest
+    chain's iterations); host syncs per step and a profile with B5's
+    share.  Returns ({deck: launches}, {deck: report})."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops import thole
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    from mpmc_tpu_torch.parallel import multichain
+    from mpmc_tpu_torch.state import slice_chain
+    decks = (("polar_c8", ""), ("polar_da_c8", "polar_delayed on\n"),
+             (f"polar_rc{RC_CULL:g}_c8", f"cutoff {RC_CULL:g}\n"))
+    launches, reps = {}, {}
+    for i, (label, extra) in enumerate(decks):
+        su, avgs, text, ln = _run_deck(device, f"chains {C}\n" + extra,
+                                       numsteps=numsteps, kind="polar")
+        if f"batched scan chains (C={C})" not in text or "WARNING" in text:
+            raise AssertionError(f"{label} did not take the batched route "
+                                 "without a WARNING")
+        if not all(ln[k] > 0 for k in ("pair_terms", "mol_pair_chains",
+                                        "charge_field_chains",
+                                        "dipole_field_chains")):
+            raise AssertionError(f"{label}: a kernel was not launched: {ln}")
+        if thole.cull_supported(su.cfg) != ("cutoff" in extra):
+            raise AssertionError(f"{label}: the culled CG gate is wrong")
+        rate = float(text.split("steps/sec:")[1].split()[0])
+        rep = {"steps_per_sec": rate,
+               "cg_iters_per_chain_step": avgs.mean("polar_iters_per_step"),
+               "b5c_launches_per_step": ln["dipole_field_chains"] / numsteps,
+               "polar_K": avgs.mean("energy_polar"), "N": avgs.mean("N")}
+        g = torch.Generator(device=device).manual_seed(37 + i)
+        sts, _ = multichain.run_chunk_batched(su.states, su.params, su.cfg,
+                                              su.thermo, chunk, generator=g)
+        for c in range(C):
+            _check_bookkeeping(f"{label} chain {c}, {chunk} steps",
+                               slice_chain(sts, c), su, polar=True)
+        su = dataclasses.replace(su, states=sts)
+        u = torch.rand((C, 50, 16), generator=g, device=device,
+                       dtype=su.cfg.tdtype)
+        trace = []
+        tk.reset_counts()
+        (_, stats), syncs = _count_syncs(lambda: multichain.run_chunk_batched(
+            su.states, su.params, su.cfg, su.thermo, 50, uniforms=u,
+            trace=trace))
+        rounds = sum(int(np.max(r["iters"])) for r in trace)
+        del trace
+        if tk.dipole_field_chains.launches != rounds:
+            raise AssertionError(
+                f"{label}: {tk.dipole_field_chains.launches} B5-over-chains "
+                f"launches for {rounds} CG rounds")
+        iters = stats.host().polar_iters
+        rep.update(chunk_cg_rounds_per_step=rounds / 50,
+                   chunk_cg_iters_per_chain_step=float(iters.mean()) / 50,
+                   host_syncs_per_step=syncs / 50)
+        prof = _profile(label, lambda: multichain.run_chunk_batched(
+            su.states, su.params, su.cfg, su.thermo, 50, generator=g), 50,
+            device, kernel="thole_field")
+        rep.update(device_busy_share=prof["device_busy_share"],
+                   b5_share=prof.get("kernel_share"),
+                   ms_per_step=prof["ms_per_step"])
+        log(f"{label}: " + json.dumps(rep))
+        launches[label], reps[label] = ln, rep
     return launches, reps
 
 
@@ -2206,6 +2470,9 @@ def main():
     report.update(phase_thole_kernel(dev))
     report["run_steps_uvt_pda"] = phase_pda_kernel(dev)
     report["mol_pair_c128"] = phase_mol_pair_chains(dev)
+    t_c8 = time.time()
+    report["dipole_field_c8"] = phase_thole_chains(dev)
+    t_c8 = time.time() - t_c8
     phase_energy(dev)
     scan_launches, rate, su = phase_main(dev)
     prof_scan = phase_profile(dev, su)
@@ -2225,21 +2492,29 @@ def main():
     pt_launches, pt_reps = phase_pt(dev)
     restart = phase_restart_write(dev)
     t_new = time.time() - t_new
+    t_pc = time.time()
+    pc_launches, pc_reps = phase_polar_chains(dev)
+    t_c8 += time.time() - t_pc
     # each kernel's launches on its own main path: B2 and B4 on the scan
     # path, B1 on the fused single-chain µVT path, B3 on the single-chain
-    # MOF NVT deck, B5 (both modes) on the polar scan-path deck, B6 on the
-    # direct fused PDA deck
+    # MOF NVT deck, B5 (both modes) on the polar scan-path deck (dipole:
+    # the refresh's matvec through dipole_field and the CG's through the
+    # chain wrapper at C = 1, one kernel), B6 on the direct fused PDA deck
     launches = {"pair_terms": scan_launches["pair_terms"],
                 "mol_pair": scan_launches["mol_pair"],
                 "run_steps_uvt": fused_launches["run_steps_uvt"],
                 "run_steps": nvt_launches["mof_nvt"]["run_steps"],
-                "dipole_field": polar_launches["polar"]["dipole_field"],
+                "dipole_field": (polar_launches["polar"]["dipole_field"]
+                                 + polar_launches["polar"][
+                                     "dipole_field_chains"]),
                 "charge_field": polar_launches["polar"]["charge_field"],
                 "run_steps_uvt_pda": pda_launches["pda"]["run_steps_uvt_pda"],
-                "mol_pair_c128": batched_launches["mol_pair_chains"]}
+                "mol_pair_c128": batched_launches["mol_pair_chains"],
+                "dipole_field_c8":
+                    pc_launches["polar_c8"]["dipole_field_chains"]}
     names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps",
              "dipole_field", "charge_field", "run_steps_uvt_pda",
-             "mol_pair_c128")
+             "mol_pair_c128", "dipole_field_c8")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -2304,6 +2579,18 @@ def main():
         + f"  restart_write_ms python {restart['python']:.2f} native "
         f"{restart['native']:.2f}  batched_launches {batched_launches}  "
         f"pt_launches {pt_launches}  new_phases_seconds {t_new:.1f}")
+    b5c = report["dipole_field_c8"]
+    log("  ".join(f"{k}_steps_per_sec {r['steps_per_sec']:.2f}  {k}_cg_"
+                  f"iters_per_chain_step {r['cg_iters_per_chain_step']:.3f}  "
+                  f"{k}_cg_rounds_per_step {r['chunk_cg_rounds_per_step']:.3f}"
+                  f"  {k}_host_syncs_per_step {r['host_syncs_per_step']:.3f}"
+                  f"  {k}_device_busy {r['device_busy_share']:.4f}  {k}_b5_"
+                  f"share {r['b5_share']:.4f}" for k, r in pc_reps.items())
+        + f"  b5_c{C_POLAR}_dipole_ms {b5c['ms']:.4f}  b5_c{C_POLAR}_dipole_"
+        f"device_ms {b5c['device_ms']:.4f}  b5_c{C_POLAR}_dipole_culled_"
+        f"device_ms {b5c['culled']['device_ms']:.4f}  polar_chains_launches "
+        f"{pc_launches}  polar_chains_seconds {t_c8:.1f}"
+        f"  wall_seconds {time.time() - t0:.1f}")
     b2 = report["pair_terms"]
     log(f"b2_ms_row_start_F {b2['ms']:.4f}  b2_device_ms_row_start_F "
         f"{b2['device_ms']:.4f}  b2_ms_full {b2['full']['ms']:.4f}  "

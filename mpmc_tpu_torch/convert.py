@@ -41,7 +41,10 @@ def _energy(e, device):
 def from_jax(params, state, cfg, thermo, device="cpu"):
     """(Params, SimState, RunConfig, Thermo) of the port with the values
     of the reference's objects.  Fields the port's slice does not carry
-    (PRNG key, caches of options outside the slice) are dropped."""
+    (PRNG key, caches of options outside the slice) are dropped.  A
+    stacked state (the reference's multichain.stack_states) comes across
+    with its leading chain axis on every tensor; its step is chain 0's
+    (the chains advance in lockstep)."""
     p = Params(**{f.name: _tensor(getattr(params, f.name), device)
                   for f in dataclasses.fields(Params) if f.init})
     sk = (lambda x: None if x is None else _tensor(x, device))
@@ -49,7 +52,7 @@ def from_jax(params, state, cfg, thermo, device="cpu"):
         pos=_tensor(state.pos, device), box=_tensor(state.box, device),
         mol_alive=_tensor(state.mol_alive, device),
         energy=_energy(state.energy, device),
-        step=int(np.asarray(state.step)),
+        step=int(np.asarray(state.step).reshape(-1)[0]),
         sk_re=sk(state.sk_re), sk_im=sk(state.sk_im),
         e_frozen=_energy(state.e_frozen, device), mu=sk(state.mu),
         e0=sk(state.e0), r_pol=sk(state.r_pol))

@@ -31,18 +31,31 @@
 //   vote skips a column no lane of the warp has inside rc.
 // - One launch: each tile's double partials (splits added in order 0..S-1)
 //   go to their own slot; the CTA that completes the last tile of a row
-//   tile (an atomic ticket per row tile, after a __threadfence) adds that
-//   row tile's slots in column-tile order and writes the field.  The sums
+//   key (a chain's row tile: an atomic ticket per row key, after a
+//   __threadfence) adds that row key's slots in column-tile order and
+//   writes the field.  The sums
 //   are cut at tile boundaries whatever the table, and a skipped tile
 //   stands for exact zeros (every pair of a skipped tile lies outside rc),
 //   so the culled result equals the dense one bit for bit, and both are the
 //   same on every run.
 //
+// Over a chain axis (the reference vmaps this kernel over chains): the
+// sites of C chains, pos [C, n, 3], src [C, n] or [C, n, 3], ok and mol
+// [C, n], out [C, n, 3], with the box, rc and damping shared.  K of them
+// are listed (chains[k], or chain k when chains is nullptr); a list item
+// is (k, row tile I, column tile J) = (k NI + I) NJ + J, and a row key
+// k NI + I owns a ticket.  A chain's items are computed and summed as a
+// single-chain launch on that chain's tensors computes them, so each
+// chain's field is that launch's bits whatever C, K or the other chains
+// (the single-chain wrappers launch this kernel at C = K = 1).  Rows of
+// chains not listed are not written.
+//
 // Scalar header sc[20] in device memory: rc, lambda, box (3x3 row-major,
 // rows are cell vectors), box^-1 (3x3 row-major).
-// Work list wl (int32, nullptr = dense): [W, rowoff[0..NI], tiles[W...]]:
-// W visited tiles, row tile I's tiles at list positions rowoff[I] ..
-// rowoff[I + 1] - 1 in column order, tiles[q] = I * NJ + J.
+// Work list wl (int32, nullptr = dense: every item of the K listed
+// chains): [W, rowoff[0..K NI], items[W...]]: W visited items, row key
+// R's items at list positions rowoff[R] .. rowoff[R + 1] - 1 in column
+// order.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -124,13 +137,16 @@ struct alignas(16) Smem {
 
 template <typename T, bool DIPOLE, bool ORTHO>
 __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? MINB : 4)
-    thole_field_kernel(const T* __restrict__ pos, const T* __restrict__ src,
-                       const bool* __restrict__ ok,
-                       const int32_t* __restrict__ mol,
+    thole_field_kernel(const T* __restrict__ pos_all,
+                       const T* __restrict__ src_all,
+                       const bool* __restrict__ ok_all,
+                       const int32_t* __restrict__ mol_all,
                        const T* __restrict__ sc,
-                       const int32_t* __restrict__ wl, int n, int ni, int nj,
-                       int damp_kind, double* __restrict__ part,
-                       int32_t* __restrict__ ticket, T* __restrict__ out) {
+                       const int32_t* __restrict__ wl,
+                       const int32_t* __restrict__ chains, int nk, int n,
+                       int ni, int nj, int damp_kind,
+                       double* __restrict__ part,
+                       int32_t* __restrict__ ticket, T* __restrict__ out_all) {
   __shared__ Smem<T> sm;
   const int t = threadIdx.x;
   const int g = t % G;            // row group: rows g, g + G, ...
@@ -145,9 +161,10 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? MINB : 4)
     box[e] = ORTHO && e % 4 != 0 ? T(0) : sc[2 + e];
     bi[e] = ORTHO && e % 4 != 0 ? T(0) : sc[11 + e];
   }
-  const int W = wl != nullptr ? wl[0] : ni * nj;
+  const int nrk = nk * ni;               // row keys
+  const int W = wl != nullptr ? wl[0] : nrk * nj;
   const int* rowoff = wl != nullptr ? wl + 1 : nullptr;
-  const int* tiles = wl != nullptr ? wl + 2 + ni : nullptr;
+  const int* items = wl != nullptr ? wl + 2 + nrk : nullptr;
   const int q0 = int(int64_t(W) * blockIdx.x / gridDim.x);
   const int q1 = int(int64_t(W) * (blockIdx.x + 1) / gridDim.x);
 
@@ -155,37 +172,43 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? MINB : 4)
   int32_t ti[R];
   int ri[R];
   int cur = -1;
+  size_t cn = 0;                  // the chain's first site: chain index x n
   for (int q = q0; q < q1; ++q) {
-    const int tile = tiles != nullptr ? tiles[q] : q;
-    const int I = tile / nj;
-    const int J = tile - I * nj;
-    if (I != cur) {
-      cur = I;
+    const int item = items != nullptr ? items[q] : q;
+    const int rk = item / nj;            // row key k NI + I
+    const int J = item - rk * nj;
+    const int I = rk % ni;
+    if (rk != cur) {
+      cur = rk;
+      const int k = rk / ni;
+      cn = size_t(chains != nullptr ? chains[k] : k) * n;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int i = I * TI + g + r * G;
-        const bool iok = i < n && ok[i];
+        const size_t ci = cn + i;
+        const bool iok = i < n && ok_all[ci];
         ri[r] = i;
-        ti[r] = iok ? mol[i] : -1;
-        xi[r] = iok ? pos[3 * i] : T(0);
-        yi[r] = iok ? pos[3 * i + 1] : T(0);
-        zi[r] = iok ? pos[3 * i + 2] : T(0);
+        ti[r] = iok ? mol_all[ci] : -1;
+        xi[r] = iok ? pos_all[3 * ci] : T(0);
+        yi[r] = iok ? pos_all[3 * ci + 1] : T(0);
+        zi[r] = iok ? pos_all[3 * ci + 2] : T(0);
       }
     }
     __syncthreads();    // the previous tile's columns and sums are consumed
     for (int k = t; k < TJ; k += NT) {
       const int j = J * TJ + k;
       const bool in = j < n;
-      sm.tag[k] = in && ok[j] ? mol[j] : -1;
-      sm.x[k] = in ? pos[3 * j] : T(0);
-      sm.y[k] = in ? pos[3 * j + 1] : T(0);
-      sm.z[k] = in ? pos[3 * j + 2] : T(0);
+      const size_t cj = cn + (in ? j : 0);
+      sm.tag[k] = in && ok_all[cj] ? mol_all[cj] : -1;
+      sm.x[k] = in ? pos_all[3 * cj] : T(0);
+      sm.y[k] = in ? pos_all[3 * cj + 1] : T(0);
+      sm.z[k] = in ? pos_all[3 * cj + 2] : T(0);
       if (DIPOLE) {
-        sm.s0[k] = in ? src[3 * j] : T(0);
-        sm.s1[k] = in ? src[3 * j + 1] : T(0);
-        sm.s2[k] = in ? src[3 * j + 2] : T(0);
+        sm.s0[k] = in ? src_all[3 * cj] : T(0);
+        sm.s1[k] = in ? src_all[3 * cj + 1] : T(0);
+        sm.s2[k] = in ? src_all[3 * cj + 2] : T(0);
       } else {
-        sm.s0[k] = in ? src[j] : T(0);
+        sm.s0[k] = in ? src_all[cj] : T(0);
       }
     }
     __syncthreads();
@@ -253,9 +276,9 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? MINB : 4)
     }
     __threadfence();
     __syncthreads();
-    const int a0 = rowoff != nullptr ? rowoff[I] : I * nj;
-    const int a1 = rowoff != nullptr ? rowoff[I + 1] : (I + 1) * nj;
-    if (t == 0) sm.last = atomicAdd(ticket + I, 1) == a1 - a0 - 1;
+    const int a0 = rowoff != nullptr ? rowoff[rk] : rk * nj;
+    const int a1 = rowoff != nullptr ? rowoff[rk + 1] : (rk + 1) * nj;
+    if (t == 0) sm.last = atomicAdd(ticket + rk, 1) == a1 - a0 - 1;
     __syncthreads();
     if (sm.last) {
       // the row tile's last tile: add its slots in column-tile order
@@ -265,18 +288,20 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? MINB : 4)
         double s = 0.0;
         for (int a = a0; a < a1; ++a)
           s += __ldcg(part + size_t(a) * (TI * 3) + e);
-        out[size_t(I) * (TI * 3) + e] = T(s);
+        out_all[3 * cn + size_t(I) * (TI * 3) + e] = T(s);
       }
-      if (t == 0) ticket[I] = 0;      // ready for the next launch
+      if (t == 0) ticket[rk] = 0;     // ready for the next launch
     }
   }
-  // rows of a row tile with no visited tile: exact zeros, as in the dense
+  // rows of a row key with no visited tile: exact zeros, as in the dense
   // sum of skipped tiles
   if (rowoff != nullptr) {
-    for (int I = blockIdx.x; I < ni; I += gridDim.x) {
-      if (rowoff[I + 1] != rowoff[I]) continue;
+    for (int rk = blockIdx.x; rk < nrk; rk += gridDim.x) {
+      if (rowoff[rk + 1] != rowoff[rk]) continue;
+      const int k = rk / ni, I = rk % ni;
+      T* o = out_all + size_t(chains != nullptr ? chains[k] : k) * n * 3;
       for (int e = t; e < TI * 3 && I * TI + e / 3 < n; e += NT)
-        out[size_t(I) * (TI * 3) + e] = T(0);
+        o[size_t(I) * (TI * 3) + e] = T(0);
     }
   }
 }
@@ -307,15 +332,16 @@ int thole_config(int dipole, int* out) {
 template <typename T>
 int launch_thole_field(const T* pos, const T* src, const bool* ok,
                        const int32_t* mol, const T* sc, const int32_t* wl,
-                       int n, int ni, int nj, int dipole, int damp_kind,
-                       int ortho, int grid, double* part, int32_t* ticket,
-                       T* out, cudaStream_t stream) {
+                       const int32_t* chains, int nk, int n, int ni, int nj,
+                       int dipole, int damp_kind, int ortho, int grid,
+                       double* part, int32_t* ticket, T* out,
+                       cudaStream_t stream) {
   auto kern = dipole ? (ortho ? thole_field_kernel<T, true, true>
                               : thole_field_kernel<T, true, false>)
                      : (ortho ? thole_field_kernel<T, false, true>
                               : thole_field_kernel<T, false, false>);
-  kern<<<grid, NT, 0, stream>>>(pos, src, ok, mol, sc, wl, n, ni, nj,
-                                damp_kind, part, ticket, out);
+  kern<<<grid, NT, 0, stream>>>(pos, src, ok, mol, sc, wl, chains, nk, n, ni,
+                                nj, damp_kind, part, ticket, out);
   return int(cudaGetLastError());
 }
 
@@ -324,14 +350,14 @@ int launch_thole_field(const T* pos, const T* src, const bool* ok,
 #define THOLE_FIELD_ENTRY(SFX, T)                                           \
   extern "C" int thole_field_##SFX(                                        \
       const void* pos, const void* src, const void* ok, const void* mol,    \
-      const void* sc, const void* wl, int n, int ni, int nj, int dipole,    \
-      int damp_kind, int ortho, int grid, void* part, void* ticket,         \
-      void* out, void* stream) {                                            \
+      const void* sc, const void* wl, const void* chains, int nk, int n,    \
+      int ni, int nj, int dipole, int damp_kind, int ortho, int grid,       \
+      void* part, void* ticket, void* out, void* stream) {                  \
     return launch_thole_field<T>(                                           \
         (const T*)pos, (const T*)src, (const bool*)ok, (const int32_t*)mol, \
-        (const T*)sc, (const int32_t*)wl, n, ni, nj, dipole, damp_kind,     \
-        ortho, grid, (double*)part, (int32_t*)ticket, (T*)out,              \
-        (cudaStream_t)stream);                                              \
+        (const T*)sc, (const int32_t*)wl, (const int32_t*)chains, nk, n,    \
+        ni, nj, dipole, damp_kind, ortho, grid, (double*)part,              \
+        (int32_t*)ticket, (T*)out, (cudaStream_t)stream);                   \
   }                                                                         \
   extern "C" int thole_config_##SFX(int dipole, int* out) {                 \
     return thole_config<T>(dipole, out);                                    \

@@ -56,9 +56,9 @@ from mpmc_tpu_torch.ops import energy as energy_mod
 from mpmc_tpu_torch.ops import ewald, pairs, thole
 from mpmc_tpu_torch.ops.cuda import mc_kernel
 from mpmc_tpu_torch.state import (EnergyBreakdown, Params, SimState,
-                                  chain_rows, mol_rows, mol_rows_update,
-                                  row_valid, slice_chain, stack_chains,
-                                  take)
+                                  chain_rows, chain_rows_update, mol_rows,
+                                  mol_rows_update, row_valid, slice_chain,
+                                  stack_chains, take)
 
 # global move-type ids (stats indexing)
 DISPLACE, INSERT, DELETE, VOLUME, SPINFLIP = 0, 1, 2, 3, 4
@@ -70,7 +70,8 @@ N_LANES = 16
 class MCStats:
     attempts: np.ndarray    # [N_MOVE_TYPES] host counts
     accepts: torch.Tensor   # [N_MOVE_TYPES] int64 on the state's device
-    polar_iters: int = 0    # SCF iterations of the chunk (host count)
+    # SCF iterations of the chunk (host count; [C] for stacked chains)
+    polar_iters: int = 0
 
     @classmethod
     def zero(cls, device):
@@ -197,24 +198,104 @@ def polar_trial(carry, c: _Chunk, params: Params, cfg: RunConfig, mol,
     molecule ``mol`` to ``rows``, from ``carry``'s pos, alive, e0, mu,
     r_pol and S(k): the O(A N) move_deltas where the field is delta-able
     (with the CG's initial residual where thole.residual_supported), else
-    a rebuilt static field.  The carry's tensors are left as they are."""
+    a rebuilt static field.  The carry's tensors are left as they are.
+    Over chains: a carry of [C]-stacked tensors, ``mol`` [C] and ``rows``
+    [C, A, 3] (one molecule per chain)."""
     pos, alive = carry["pos"], carry["alive"]
     insert, delete = alive_new is True, alive_new is False
-    own = (params.mol_id == mol) & params.atom_ok
+    batched = pos.ndim == 3
+    own = ((params.mol_id[None, :] == mol[:, None]) if batched
+           else (params.mol_id == mol)) & params.atom_ok
     if delete:
         pos_c, alive_c = pos, alive & ~own
     else:
-        pos_c = mol_rows_update(pos.clone(), params, mol, rows)
+        update = chain_rows_update if batched else mol_rows_update
+        pos_c = update(pos.clone(), params, mol, rows)
         alive_c = alive | own if insert else alive
     if not thole.field_delta_supported(cfg):
-        return pos_c, alive_c, thole.static_field(
-            pos_c, c.box, alive_c, params, cfg), None
+        field = thole.static_field_chains if batched else thole.static_field
+        return pos_c, alive_c, field(pos_c, c.box, alive_c, params,
+                                     cfg), None
     e0_new, r0 = thole.move_deltas(
         pos, c.box, alive, params, cfg, mol, carry["e0"], carry["mu"],
         carry["r_pol"], new_rows=rows, insert=insert, delete=delete,
         with_residual=thole.residual_supported(cfg),
         sk=(carry["sk_re"], carry["sk_im"]) if c.ewald else None)
     return pos_c, alive_c, e0_new, r0
+
+
+def polar_stage(carry, c: _Chunk, params: Params, cfg: RunConfig, thermo,
+                u, mol, rows, alive_new, du, ln_bias, reject, stats):
+    """The polar part of a step (make_step_fn's, and over [C]
+    make_batched_step_fn's) for the trial of polar_trial, given its
+    non-polar ``du``, ``ln_bias`` and ``reject``: the SCF of the trial
+    (solve_scf, or solve_scf_chains over every chain's CG rounds at
+    once), its iterations added to ``stats.polar_iters``.  Under
+    ``polar_delayed`` (not nve: Ray's rule has no Boltzmann split) the
+    zodid surrogate filters the trial first and only stage-1 survivors
+    solve, after one host read of the stage-1 test (a bool, or a [C]
+    vector whose survivors are the solve's active chains); the others
+    keep mu and the residual and count no iteration, the numbers the
+    reference's per-chain select gives.  Returns a dict: the trial's
+    ``e0``, ``mu``, residual ``r``, polar energy ``polar`` and
+    ``d_polar``, and under polar_delayed ``acc1`` and ``d_surr``."""
+    pos_c, alive_c, e0_new, r0 = polar_trial(carry, c, params, cfg, mol,
+                                             rows, alive_new)
+    batched = pos_c.ndim == 3
+    mu_new = carry["mu"]
+    r_new = (carry["r_pol"] if thole.residual_supported(cfg)
+             else torch.zeros_like(mu_new))
+    out = {"e0": e0_new}
+    survivors = None
+    if cfg.polar_delayed and cfg.ensemble != "nve":
+        d_surr = (thole.zodid_energy(e0_new, alive_c, params)
+                  - thole.zodid_energy(carry["e0"], carry["alive"], params))
+        acc1 = (~reject) & (torch.log(torch.clamp(u[..., 4], min=1e-38))
+                            < ln_bias - (du + d_surr) / thermo.temperature)
+        out.update(acc1=acc1, d_surr=d_surr)
+        # the step's host read: which trials' SCF runs
+        survivors = tuple(np.flatnonzero(acc1.cpu().numpy()).tolist())
+    if survivors is None or survivors:
+        if batched:
+            mu_s, iters, r_s = thole.solve_scf_chains(
+                pos_c, c.box, alive_c, params, cfg, e0_new, mu0=mu_new,
+                r0=r0, active=survivors)
+        else:
+            mu_s, iters, r_s = thole.solve_scf(
+                pos_c, c.box, alive_c, params, cfg, e0_new, mu0=mu_new,
+                r0=r0)
+        stats.polar_iters = stats.polar_iters + iters
+        if r_s is None:              # jacobi / direct solvers
+            r_s = torch.zeros_like(mu_new)
+        if survivors is None:
+            mu_new, r_new = mu_s, r_s
+        else:
+            keep = acc1.reshape(acc1.shape + (1, 1))
+            mu_new = torch.where(keep, mu_s, mu_new)
+            r_new = torch.where(keep, r_s, r_new)
+    pol_new = thole.polar_energy(mu_new, e0_new)
+    out.update(mu=mu_new, r=r_new, polar=pol_new,
+               d_polar=pol_new - carry["energy"].polar)
+    return out
+
+
+def polar_accept(pol, u, thermo):
+    """Stage 2 of the delayed acceptance: only the exact-vs-surrogate
+    polar difference remains; stage-1 rejects carry acc1 = False."""
+    return pol["acc1"] & (torch.log(torch.clamp(u[..., 12], min=1e-38))
+                          < -(pol["d_polar"] - pol["d_surr"])
+                          / thermo.temperature)
+
+
+def polar_commit(carry, pol, accept, new_energy, cfg: RunConfig):
+    """Carry the accepted trials' e0, mu and residual; returns
+    ``new_energy`` with the trial's polar term."""
+    keep = accept.reshape(accept.shape + (1, 1))
+    carry["e0"] = torch.where(keep, pol["e0"], carry["e0"])
+    carry["mu"] = torch.where(keep, pol["mu"], carry["mu"])
+    if thole.residual_supported(cfg):
+        carry["r_pol"] = torch.where(keep, pol["r"], carry["r_pol"])
+    return dataclasses.replace(new_energy, polar=pol["polar"])
 
 
 def make_step_fn(params: Params, cfg: RunConfig):
@@ -233,12 +314,7 @@ def make_step_fn(params: Params, cfg: RunConfig):
     nve = cfg.ensemble == "nve"
     dev = params.device
     pol = cfg.polarization
-    # the analytic initial residual (polar_trial) that saves the solve's
-    # warm-up matvec
-    pol_resid = thole.residual_supported(cfg)
-    # delayed acceptance: the zodid surrogate filters the trial, the SCF
-    # runs only for stage-1 survivors (not under nve: Ray's rule has no
-    # Boltzmann split)
+    # delayed acceptance (polar_stage)
     pol_da = pol and cfg.polar_delayed and not nve
     zero = torch.zeros((), dtype=dtype, device=dev)
     species = (torch.as_tensor(cfg.insert_species, dtype=torch.int64,
@@ -350,43 +426,15 @@ def make_step_fn(params: Params, cfg: RunConfig):
                 else [b_displace])
     _, branch_ids = make_branch_picker(cfg)
 
-    def polar_solve(carry, c, pos_c, alive_c, e0_new, r0, stats):
-        mu_new, iters, r_new = thole.solve_scf(
-            pos_c, c.box, alive_c, params, cfg, e0_new, mu0=carry["mu"],
-            r0=r0)
-        stats.polar_iters += iters
-        if r_new is None:            # jacobi / direct solvers
-            r_new = torch.zeros_like(carry["mu"])
-        return mu_new, r_new
-
     def step(carry, u, t, thermo, c, stats, trace=None):
         mol, rows, alive_new, d, ln_bias, reject, sk = branches[t](
             carry, u, thermo, c)
         du = d.total
         iters0 = stats.polar_iters
         if pol:
-            pos_c, alive_c, e0_new, r0 = polar_trial(carry, c, params, cfg,
-                                                     mol, rows, alive_new)
-            if pol_da:
-                d_surr = (thole.zodid_energy(e0_new, alive_c, params)
-                          - thole.zodid_energy(carry["e0"], carry["alive"],
-                                               params))
-                acc1 = (~reject) & (
-                    torch.log(torch.clamp(u[4], min=1e-38))
-                    < ln_bias - (du + d_surr) / thermo.temperature)
-                if bool(acc1):       # host read: the SCF of a survivor
-                    mu_new, r_new = polar_solve(carry, c, pos_c, alive_c,
-                                                e0_new, r0, stats)
-                else:
-                    mu_new = carry["mu"]
-                    r_new = (carry["r_pol"] if pol_resid
-                             else torch.zeros_like(carry["mu"]))
-            else:
-                mu_new, r_new = polar_solve(carry, c, pos_c, alive_c, e0_new,
-                                            r0, stats)
-            pol_new = thole.polar_energy(mu_new, e0_new)
-            d_polar = pol_new - carry["energy"].polar
-            du = du + d_polar
+            pol_t = polar_stage(carry, c, params, cfg, thermo, u, mol, rows,
+                                alive_new, du, ln_bias, reject, stats)
+            du = du + pol_t["d_polar"]
         if nve:
             # Ray's microcanonical rule (reference metropolis.py:756-777):
             # the reservoir K = E_total - U (U with the frozen part, the
@@ -408,10 +456,7 @@ def make_step_fn(params: Params, cfg: RunConfig):
         else:
             ln_acc = ln_bias - du / thermo.temperature
         if pol_da:
-            # stage 2: only the exact-vs-surrogate polar difference
-            # remains; stage-1 rejects carry acc1 = False
-            accept = acc1 & (torch.log(torch.clamp(u[12], min=1e-38))
-                             < -(d_polar - d_surr) / thermo.temperature)
+            accept = polar_accept(pol_t, u, thermo)
         else:
             accept = (~reject) & (torch.log(torch.clamp(u[4], min=1e-38))
                                   < ln_acc)
@@ -426,11 +471,7 @@ def make_step_fn(params: Params, cfg: RunConfig):
             carry["alive"] = ma[params.mol_id] & params.atom_ok
         new_energy = carry["energy"].add(d)
         if pol:
-            new_energy = dataclasses.replace(new_energy, polar=pol_new)
-            carry["e0"] = torch.where(accept, e0_new, carry["e0"])
-            carry["mu"] = torch.where(accept, mu_new, carry["mu"])
-            if pol_resid:
-                carry["r_pol"] = torch.where(accept, r_new, carry["r_pol"])
+            new_energy = polar_commit(carry, pol_t, accept, new_energy, cfg)
         carry["energy"] = new_energy.select(accept, carry["energy"])
         if c.ewald:
             carry["sk_re"] = torch.where(accept, sk[0], carry["sk_re"])
@@ -442,10 +483,7 @@ def make_step_fn(params: Params, cfg: RunConfig):
             rec = {"mol": mol, "rows": rows, "accept": accept,
                    "reject": reject, "ln_bias": ln_bias, "d": d}
             if pol:
-                rec.update(d_polar=d_polar, e0=e0_new, mu=mu_new,
-                           iters=stats.polar_iters - iters0)
-                if pol_da:
-                    rec.update(acc1=acc1, d_surr=d_surr)
+                rec.update(pol_t, iters=stats.polar_iters - iters0)
             trace.append(rec)
 
     return step
@@ -510,17 +548,26 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
     [S] or [C, S]).  ``thermo.temperature`` may be [C] (one per chain).
     Each chain picks its own target, trial and coin from its own row and
     is accepted by its own mask; ``stats`` counts accepts per chain.  No
-    host sync.  Polarization is not batched (ROADMAP A7b)."""
+    host sync without polarization.
+
+    With polarization the step is ``make_step_fn``'s polar step over [C]
+    (the reference vmaps it): polar_trial over the chains (one batched
+    move_deltas), then thole.solve_scf_chains — every chain's CG rounds
+    together, each chain stopping at its own gate, one host read of the
+    [C] gate vector a round; ``stats.polar_iters`` counts per chain.
+    Under ``polar_delayed`` the stage-1 test of every chain is read once
+    (one [C] vector) and only its survivors solve: the others keep mu
+    and the residual and count no iteration, which are the numbers the
+    reference's per-chain select gives."""
     if cfg.ensemble not in ("uvt", "nvt", "nve"):
         raise NotImplementedError(
             f"ensemble {cfg.ensemble} is not yet ported — ROADMAP "
             + ("A8b" if cfg.ensemble == "npt" else "A12"))
-    if cfg.polarization:
-        raise NotImplementedError("batched chains with polarization are not "
-                                  "yet ported — ROADMAP A7b")
     dtype = cfg.tdtype
     nve = cfg.ensemble == "nve"
     dev = params.device
+    pol = cfg.polarization
+    pol_da = pol and cfg.polar_delayed and not nve
     species = (torch.as_tensor(cfg.insert_species, dtype=torch.int64,
                                device=dev)
                if cfg.insert_species else None)
@@ -638,6 +685,11 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         mol, rows, alive_new, d, ln_bias, reject, sk = branches[t](
             carry, u, thermo, c, zero)
         du = d.total
+        iters0 = stats.polar_iters
+        if pol:
+            pol_t = polar_stage(carry, c, params, cfg, thermo, u, mol, rows,
+                                alive_new, du, ln_bias, reject, stats)
+            du = du + pol_t["d_polar"]
         if nve:
             # Ray's microcanonical rule per chain (make_step_fn's)
             k_old = thermo.nve_energy - (carry["energy"].total
@@ -655,8 +707,12 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
                 torch.full_like(k_new, -math.inf))
         else:
             ln_acc = ln_bias - du / thermo.temperature
-        accept = (~reject) & (torch.log(torch.clamp(u[:, 4], min=1e-38))
-                              < ln_acc)
+        if pol_da:
+            accept = polar_accept(pol_t, u, thermo)
+        else:
+            accept = (~reject) & (torch.log(torch.clamp(u[:, 4],
+                                                        min=1e-38))
+                                  < ln_acc)
         ar = torch.arange(C, device=dev)
         if rows is not None:
             idx = params.mol_atoms[mol]                       # [C, A]
@@ -668,8 +724,10 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
             ma = carry["mol_alive"]
             ma[ar, mol] = torch.where(accept, alive_new, ma[ar, mol])
             carry["alive"] = ma[:, params.mol_id] & params.atom_ok
-        carry["energy"] = carry["energy"].add(d).select(accept,
-                                                        carry["energy"])
+        new_energy = carry["energy"].add(d)
+        if pol:
+            new_energy = polar_commit(carry, pol_t, accept, new_energy, cfg)
+        carry["energy"] = new_energy.select(accept, carry["energy"])
         if c.ewald:
             carry["sk_re"] = torch.where(accept[:, None], sk[0],
                                          carry["sk_re"])
@@ -679,8 +737,11 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         stats.attempts[:, gid] += 1
         stats.accepts[:, gid] += accept.to(torch.int64)
         if trace is not None:
-            trace.append({"mol": mol, "rows": rows, "accept": accept,
-                          "reject": reject, "ln_bias": ln_bias, "d": d})
+            rec = {"mol": mol, "rows": rows, "accept": accept,
+                   "reject": reject, "ln_bias": ln_bias, "d": d}
+            if pol:
+                rec.update(pol_t, iters=stats.polar_iters - iters0)
+            trace.append(rec)
 
     return step
 
@@ -692,7 +753,8 @@ def batched_chunk_setup(states: SimState, params: Params, cfg: RunConfig,
     ``uniforms``: ``chunk_setup`` over chains.  Every chain takes the
     move type of chain 0's lane 8 (the reference's shared move-type draw:
     a move type per step for the batch, targets and coins per chain),
-    read in the chunk's one host sync."""
+    read in the chunk's one host sync.  The carry holds the chains' mu,
+    e0 and r_pol (the polar step's); ``stats.polar_iters`` is [C]."""
     u = uniforms.to(device=states.pos.device, dtype=cfg.tdtype)
     C = states.pos.shape[0]
     pick, _ = make_branch_picker(cfg)
@@ -700,7 +762,8 @@ def batched_chunk_setup(states: SimState, params: Params, cfg: RunConfig,
     carry = {"pos": states.pos.clone(),
              "mol_alive": states.mol_alive.clone(),
              "energy": states.energy, "sk_re": states.sk_re,
-             "sk_im": states.sk_im, "u": u}
+             "sk_im": states.sk_im, "u": u, "mu": states.mu,
+             "e0": states.e0, "r_pol": states.r_pol}
     carry["alive"] = carry["mol_alive"][:, params.mol_id] & params.atom_ok
     carry["u_frozen"] = (states.e_frozen.total if states.e_frozen is not None
                          else torch.zeros(C, dtype=cfg.tdtype,
@@ -708,7 +771,7 @@ def batched_chunk_setup(states: SimState, params: Params, cfg: RunConfig,
     dev = states.pos.device
     stats = MCStats(np.zeros((C, N_MOVE_TYPES), np.int64),
                     torch.zeros((C, N_MOVE_TYPES), dtype=torch.int64,
-                                device=dev))
+                                device=dev), np.zeros(C, np.int64))
     return (make_batched_step_fn(params, cfg), carry,
             _Chunk(states.box[0], params, cfg, thermo), branch, stats)
 
@@ -1224,19 +1287,20 @@ def frozen_refresh_rows(params: Params, cfg: RunConfig) -> int:
 
 
 def initialize(state: SimState, params: Params, cfg: RunConfig,
-               thermo: Thermo, frozen_rows: int = 0) -> SimState:
+               thermo: Thermo, frozen_rows: int = 0, e0=None) -> SimState:
     """Full-energy refresh (at start and every corrtime — washes out
     delta-accumulation error).  ``state.energy`` holds the active part;
     the frozen-framework terms live in ``state.e_frozen``.
 
     ``frozen_rows`` (from ``frozen_refresh_rows``) reuses a valid
-    ``state.e_frozen`` and re-sums only rows >= frozen_rows."""
+    ``state.e_frozen`` and re-sums only rows >= frozen_rows.  ``e0``: the
+    static field of ``state`` when the caller has it (total_energy)."""
     reuse = frozen_rows > 0 and state.e_frozen is not None
     e, e_frozen, aux = energy_mod.total_energy(
         state.pos, state.box, state.mol_alive, params, cfg, thermo,
         mu0=state.mu, split_frozen=True,
         frozen_cached=state.e_frozen if reuse else None,
-        active_row_start=frozen_rows if reuse else 0)
+        active_row_start=frozen_rows if reuse else 0, e0=e0)
     # without polarization there are no dipoles to carry
     mu = aux.get("mu", state.mu) if cfg.polarization else None
     return state.replace(energy=e, e_frozen=e_frozen,

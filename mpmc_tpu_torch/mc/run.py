@@ -1,7 +1,8 @@
 """High-level run entry: input files -> system -> MC loop -> outputs
 (port of the single-chain scan path — with polarization and its delayed
-acceptance —, the fused NVT/NVE, µVT and polar delayed-acceptance paths
-and the fused multi-chain path of mpmc_tpu/mc/run.py).
+acceptance —, the fused NVT/NVE, µVT and polar delayed-acceptance paths,
+the fused multi-chain path, the batched scan chains — with polarization
+too — and single-card parallel tempering of mpmc_tpu/mc/run.py).
 
 The corrtime structure is the reference's: ``corrtime`` steps per chunk
 (mc/metropolis.run_chunk on the scan path; under ``fused_mc``
@@ -110,13 +111,7 @@ def check_supported(job: input_script.Job):
                 "volume move)", "A8b")
     if cfg.ensemble not in ("uvt", "nvt", "nve", "te"):
         _refuse(f"ensemble {cfg.ensemble}", "A12")
-    pt = job.parallel_tempering or job.pt_fugacity
     for flag, what, item in (
-            (job.chains > 1 and cfg.polarization,
-             "chains > 1 with polarization (batched polar chains)", "A7b"),
-            (pt and cfg.polarization,
-             "parallel tempering with polarization (batched polar chains)",
-             "A7b"),
             (cfg.cavity_bias, "cavity_bias", "A11"),
             (cfg.tmmc, "tmmc", "A11"),
             (cfg.quantum_rotation, "quantum_rotation", "A11"),
@@ -337,11 +332,15 @@ def run_te(job: input_script.Job, log=None, device=None):
     return e
 
 
-def observables_batched(su: Setup, states: SimState,
-                        n_chains: int) -> List[Dict[str, float]]:
+def observables_batched(su: Setup, states: SimState, n_chains: int,
+                        stats=None,
+                        n_steps: int = 1) -> List[Dict[str, float]]:
     """Per-chain observables of a stacked state: the keys of
     ``observables`` without the acceptance ratios (with each chain's
-    ``T_kinetic`` under nve), from one host copy."""
+    ``T_kinetic`` under nve), from one host copy; with polarization and
+    the chunk's ``stats`` (``polar_iters`` [C]) each chain's
+    ``polar_iters_per_step`` over ``n_steps``, as run_mc reports one
+    chain's."""
     params = su.params
     e = states.reported_energy()
     cols = [e.total, e.rd, e.lrc, e.es, e.es_real, e.es_recip, e.es_self,
@@ -379,6 +378,9 @@ def observables_batched(su: Setup, states: SimState,
         if states.mu is not None and host[c, -1] > 0:
             obs["polar_rrms_debye"] = float(np.sqrt(host[c, -2])
                                             * DEBYE_PER_EA)
+        if su.cfg.polarization and stats is not None:
+            obs["polar_iters_per_step"] = float(
+                np.asarray(stats.polar_iters)[c]) / n_steps
         total_amu = 0.0
         for i, nm in enumerate(su.species_names):
             obs[f"N_{nm}"] = float(host[c, len(names) + i])
@@ -541,8 +543,9 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
 def _chains_route(cfg, params, mol_alive, C, writer, what="multi-chain"):
     """(chunk, fused) for C stacked chains: the fused NVT kernel (B3) or
     the fused µVT kernel (B1) where their gates hold under ``fused_mc``,
-    else the batched scan chains (B4 over the chain axis) — and the log
-    line that says which."""
+    else the batched scan chains (B4 over the chain axis; with
+    polarization the SCF over the chains, B5 over the chain axis, which
+    the fused gates refuse) — and the log line that says which."""
     if cfg.fused_mc and mc_kernel.supported_multi(cfg, params):
         chunk = functools.partial(
             metropolis.run_chunk_fused_multi,
@@ -557,8 +560,9 @@ def _chains_route(cfg, params, mol_alive, C, writer, what="multi-chain"):
                   "configuration (needs the fused NVT or µVT surface, no "
                   "nve) — batched scan chains used", file=writer.log)
         print(f"batched scan chains (C={C}): one step of every chain at "
-              "a time, each move's delta one B4 launch over the chains",
-              file=writer.log)
+              "a time, each move's delta one B4 launch over the chains"
+              + (", the SCF's matvec one B5 launch over the chains"
+                 if cfg.polarization else ""), file=writer.log)
         return multichain.run_chunk_batched, False
     print(f"fused_mc: chain-interleaved {what} kernel (C={C})",
           file=writer.log)
@@ -604,7 +608,7 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
                               generator=generator)
         states = multichain.initialize_batched(states, params, cfg, thermo,
                                                frozen_rows=refresh_rows)
-        per_chain = observables_batched(su, states, C)
+        per_chain = observables_batched(su, states, C, stats, corr)
         obs = {k: float(np.mean([o[k] for o in per_chain]))
                for k in per_chain[0]}
         obs["N_sem_chains"] = float(np.std([o["N"] for o in per_chain])

@@ -73,9 +73,9 @@ _SIGNATURES = {
         "pda_occupancy": [_I] * 6 + [_PI],
     },
     "thole_kernel": {
-        # pos src ok mol scal wl | n ni nj dipole damp ortho grid | part
-        # ticket out | stream
-        "thole_field": [_P] * 6 + [_I] * 7 + [_P] * 3 + [_P],
+        # pos src ok mol scal wl chains | K n ni nj dipole damp ortho grid
+        # | part ticket out | stream
+        "thole_field": [_P] * 7 + [_I] * 8 + [_P] * 3 + [_P],
         # dipole | [CTAs resident on the card] out
         "thole_config": [_I, _PI],
     },

@@ -37,11 +37,27 @@ once; a plan serves only calls with the very tensors it was built from
 per device (``scratch``) and grow to the largest call.  Calls share them
 in stream order: the port launches every kernel on one stream.
 
+Over a chain axis (the reference vmaps B5 over the chains of its
+batched polar step): ``charge_field_chains`` / ``dipole_field_chains``
+take the sites of C chains, pos [C, N, 3], site_ok, mol_id [C, N] (each
+chain's own site order: the culled solve sorts each chain apart) and src
+[C, N] or [C, N, 3], with the box, rc and damping shared, an optional
+visit table per chain [C, NI, NJ] and an optional host list ``active`` of
+the chains to compute (the others come out as zeros: a chain whose CG has
+stopped costs nothing).  One launch walks the (chain, row tile, column
+tile) items of the listed chains; slots are kept per listed item and
+tickets per (chain, row tile), so each chain's field is bit for bit the
+single-chain launch on that chain's tensors.  The single-chain wrappers
+launch the same kernel at C = 1.  ``plan_chains`` reads each chain's
+visited-tile count once (one sync), so the plan of an active subset
+(``subplan``) needs none.
+
 Each wrapper takes the plain version for tensors on the CPU and launches
 the kernel for CUDA tensors; anything else raises.  There is no fallback
-from the kernel to the plain version.  ``charge_field.launches`` and
-``dipole_field.launches`` count the kernel launches of each mode, and
-nothing else.  The kernel is templated on float and double.
+from the kernel to the plain version.  ``charge_field.launches``,
+``dipole_field.launches``, ``charge_field_chains.launches`` and
+``dipole_field_chains.launches`` count the kernel launches of each
+wrapper, and nothing else.  The kernel is templated on float and double.
 """
 from __future__ import annotations
 
@@ -93,40 +109,42 @@ def damping(r, lam, kind):
 
 def _field_plain(mode, pos, box, src, site_ok, mol_id, rc, lam, damp_kind,
                  visit=None):
-    """Plain B5: row blocks of dense [B, N] masks; ``visit`` masks the
-    pairs of skipped tiles."""
-    n = pos.shape[0]
+    """Plain B5: row blocks of dense [..., B, N] masks (a leading chain
+    axis on every per-site tensor and on ``visit``, or none); ``visit``
+    masks the pairs of skipped tiles."""
+    n = pos.shape[-2]
     box_inv = torch.linalg.inv(box)
     cols = torch.arange(n, device=pos.device)
     out = []
     for i0 in range(0, n, PLAIN_ROWS):
         rows = cols[i0:i0 + PLAIN_ROWS]
-        dr = pbc_ops.min_image(pos[rows][:, None, :] - pos[None, :, :], box,
-                               box_inv)                 # r_i - r_j
-        r2 = torch.sum(dr * dr, -1)
-        ok = (site_ok[rows][:, None] & site_ok[None, :]
+        dr = pbc_ops.min_image(pos[..., rows, None, :]
+                               - pos[..., None, :, :], box, box_inv)
+        r2 = torch.sum(dr * dr, -1)                       # r_i - r_j
+        ok = (site_ok[..., rows, None] & site_ok[..., None, :]
               & (rows[:, None] != cols[None, :]) & (r2 < rc * rc))
         if mode == "charge":
-            ok = ok & (mol_id[rows][:, None] != mol_id[None, :])
+            ok = ok & (mol_id[..., rows, None] != mol_id[..., None, :])
         if visit is not None:
-            ok = ok & (visit[(rows // TI)[:, None], (cols // TJ)[None, :]]
-                       != 0)
+            ok = ok & (visit[..., (rows // TI)[:, None],
+                             (cols // TJ)[None, :]] != 0)
         r2s = torch.where(r2 > 1e-12, r2, torch.ones_like(r2))
         r = torch.sqrt(r2s)
         d1, d2 = damping(r, lam, damp_kind)
         zero = torch.zeros_like(r2)
         if mode == "charge":
-            coef = torch.where(ok, src[None, :] * d1 / (r2s * r), zero)
-            out.append(torch.einsum("bn,bnk->bk", coef, dr))
+            coef = torch.where(ok, src[..., None, :] * d1 / (r2s * r), zero)
+            out.append(torch.einsum("...bn,...bnk->...bk", coef, dr))
         else:
             inv_r3 = 1.0 / (r2s * r)
-            mdotr = torch.einsum("nk,bnk->bn", src, dr)
+            mdotr = torch.einsum("...nk,...bnk->...bn", src, dr)
             c1 = torch.where(ok, 3.0 * d2 * mdotr * inv_r3 / r2s, zero)
             c2 = torch.where(ok, d1 * inv_r3, zero)
-            out.append(torch.einsum("bn,bnk->bk", c1, dr) - c2 @ src)
+            out.append(torch.einsum("...bn,...bnk->...bk", c1, dr)
+                       - c2 @ src)
     if not out:
-        return torch.zeros((0, 3), dtype=pos.dtype, device=pos.device)
-    return torch.cat(out)
+        return torch.zeros(pos.shape, dtype=pos.dtype, device=pos.device)
+    return torch.cat(out, -2)
 
 
 def charge_field_plain(pos, box, site_ok, charge, mol_id, rc, lam,
@@ -143,6 +161,38 @@ def dipole_field_plain(pos, box, site_ok, mu, mol_id, rc, lam, damp_kind,
     """Plain B5, dipole mode (module docstring)."""
     return _field_plain("dipole", pos, box, mu, site_ok, mol_id, rc, lam,
                         damp_kind, visit)
+
+
+def _chains_plain(mode, pos, box, src, site_ok, mol_id, rc, lam, damp_kind,
+                  visit, active):
+    """Plain B5 over [C]: the listed chains' fields in one batched pass,
+    zeros for the others."""
+    if active is None:
+        return _field_plain(mode, pos, box, src, site_ok, mol_id, rc, lam,
+                            damp_kind, visit)
+    out = torch.zeros(pos.shape, dtype=pos.dtype, device=pos.device)
+    if len(active):
+        idx = torch.as_tensor(active, dtype=torch.int64, device=pos.device)
+        out[idx] = _field_plain(mode, pos[idx], box, src[idx], site_ok[idx],
+                                mol_id[idx], rc, lam, damp_kind,
+                                None if visit is None else visit[idx])
+    return out
+
+
+def charge_field_chains_plain(pos, box, site_ok, charge, mol_id, rc, lam,
+                              damp_kind, ortho=False, visit=None,
+                              active=None):
+    """Plain B5 over a chain axis, charge mode (module docstring)."""
+    return _chains_plain("charge", pos, box, charge, site_ok, mol_id, rc,
+                         lam, damp_kind, visit, active)
+
+
+def dipole_field_chains_plain(pos, box, site_ok, mu, mol_id, rc, lam,
+                              damp_kind, ortho=False, visit=None,
+                              active=None):
+    """Plain B5 over a chain axis, dipole mode (module docstring)."""
+    return _chains_plain("dipole", pos, box, mu, site_ok, mol_id, rc, lam,
+                         damp_kind, visit, active)
 
 
 # ---------------------------------------------------------------------------
@@ -177,9 +227,13 @@ def work_list(visit):
 
 class FieldPlan(NamedTuple):
     """What a B5 call needs besides the sites: ``n`` sites, the scalar
-    header ``scal``, the work list ``wl`` (None: every tile) and its
-    length ``slots``; and the box, rc, damping width and visit table it
-    was built from."""
+    header ``scal``, the work list ``wl`` of the listed chains (None:
+    every item) and its length ``slots``; the box, rc, damping width and
+    visit table it was built from; the chain count ``C`` (1 for a
+    single-chain plan, whose ``visit`` is [NI, NJ]), the listed chains
+    (``listed``: a host tuple, None for all; ``chains``: the same on the
+    device) and each chain's visited-tile count (``counts``, culled
+    plans)."""
     n: int
     scal: torch.Tensor
     wl: Optional[torch.Tensor]
@@ -188,22 +242,69 @@ class FieldPlan(NamedTuple):
     rc: object
     lam: object
     visit: Optional[torch.Tensor]
+    C: int = 1
+    listed: Optional[tuple] = None
+    chains: Optional[torch.Tensor] = None
+    counts: Optional[tuple] = None
 
 
 def plan(box, rc, lam, n, visit=None):
-    """The FieldPlan of calls on ``n`` sites with this box, rc, damping
-    width and visit table (module docstring).  A culled plan reads its
-    list's length W on the host: one sync."""
+    """The FieldPlan of single-chain calls on ``n`` sites with this box,
+    rc, damping width and [NI, NJ] visit table (module docstring).  A
+    culled plan reads its list's length W on the host: one sync."""
     _, ni, nj = grid_shape(n)
-    if visit is None:
-        return FieldPlan(n, scalars(box, rc, lam), None, ni * nj, box, rc,
-                         lam, None)
-    if tuple(visit.shape) != (ni, nj):
+    if visit is not None and tuple(visit.shape) != (ni, nj):
         raise ValueError(f"visit: shape {tuple(visit.shape)}, {n} sites "
                          f"take ({ni}, {nj})")
-    wl = work_list(visit)
-    return FieldPlan(n, scalars(box, rc, lam), wl, int(wl[0]), box, rc, lam,
-                     visit)
+    fplan = plan_chains(box, rc, lam, n, 1,
+                        None if visit is None else visit.reshape(1, ni, nj))
+    return fplan._replace(visit=visit)
+
+
+def plan_chains(box, rc, lam, n, C, visit=None):
+    """The FieldPlan of calls on C chains of ``n`` sites with this box,
+    rc, damping width and [C, NI, NJ] visit table, every chain listed.  A
+    culled plan reads each chain's visited-tile count on the host: one
+    sync."""
+    _, ni, nj = grid_shape(n)
+    scal = scalars(box, rc, lam)
+    if visit is None:
+        return FieldPlan(n, scal, None, C * ni * nj, box, rc, lam, None, C)
+    if tuple(visit.shape) != (C, ni, nj):
+        raise ValueError(f"visit: shape {tuple(visit.shape)}, {C} chains "
+                         f"of {n} sites take ({C}, {ni}, {nj})")
+    counts = tuple(int(x) for x in (visit != 0).sum((1, 2)).tolist())
+    return FieldPlan(n, scal, work_list(visit.reshape(C * ni, nj)),
+                     sum(counts), box, rc, lam, visit, C, counts=counts)
+
+
+def subplan(fplan, active, chains=None):
+    """The plan of ``fplan``'s calls restricted to the chains ``active``
+    (a sorted host sequence of chain indices; ``chains``: the same as an
+    int32 tensor on the plan's device, made by the caller, or copied
+    here): the listed chains' work list, built on the device with no host
+    sync."""
+    active = tuple(int(c) for c in active)
+    if fplan.listed is not None:
+        raise ValueError("subplan: the plan already lists a subset")
+    if active == tuple(range(fplan.C)):
+        return fplan
+    if any(not 0 <= c < fplan.C for c in active) or \
+            list(active) != sorted(set(active)):
+        raise ValueError(f"subplan: active {active} is not a sorted subset "
+                         f"of {fplan.C} chains")
+    _, ni, nj = grid_shape(fplan.n)
+    dev = fplan.scal.device
+    if chains is None:
+        chains = torch.as_tensor(active, dtype=torch.int32, device=dev)
+    if fplan.visit is None:
+        return fplan._replace(slots=len(active) * ni * nj, listed=active,
+                              chains=chains)
+    v = fplan.visit.reshape(fplan.C, ni, nj)
+    sel = v.index_select(0, chains.to(torch.int64))
+    return fplan._replace(wl=work_list(sel.reshape(-1, nj)),
+                          slots=sum(fplan.counts[c] for c in active),
+                          listed=active, chains=chains)
 
 
 def _same(a, b):
@@ -213,16 +314,17 @@ def _same(a, b):
     return a == b
 
 
-def check_plan(fplan, box, rc, lam, n, visit):
-    """Raise unless ``fplan`` was built by ``plan`` for this call: the
-    same box, rc and visit tensors (or equal numbers), damping width and
-    site count.  The kernel reads the header and the list from the plan
-    alone, so a plan of another table or cell would skip pairs inside
-    rc."""
-    if not (fplan.n == n and _same(fplan.box, box) and _same(fplan.rc, rc)
-            and _same(fplan.lam, lam) and _same(fplan.visit, visit)):
+def check_plan(fplan, box, rc, lam, n, visit, C=1):
+    """Raise unless ``fplan`` was built by ``plan`` (``plan_chains``) for
+    this call: the same box, rc and visit tensors (or equal numbers),
+    damping width, site count and chain count.  The kernel reads the
+    header and the list from the plan alone, so a plan of another table
+    or cell would skip pairs inside rc."""
+    if not (fplan.n == n and fplan.C == C and _same(fplan.box, box)
+            and _same(fplan.rc, rc) and _same(fplan.lam, lam)
+            and _same(fplan.visit, visit)):
         raise ValueError("plan: built for another call (box, rc, lam, "
-                         "site count or visit table)")
+                         "site count, chain count or visit table)")
 
 
 _config: dict = {}
@@ -263,37 +365,61 @@ def scratch(device, n_part, n_ticket):
 
 
 def _launch(mode, pos, box, src, site_ok, mol_id, rc, lam, damp_kind,
-            ortho, visit, fplan):
-    n = pos.shape[0]
+            ortho, visit, fplan, active=None):
+    """One launch of B5 over the chains of ``pos`` [C, N, 3] that
+    ``fplan`` (checked by the caller; built when None) and ``active``
+    list; (out, err), err None when nothing was launched."""
+    C, n = pos.shape[:2]
     dt, dev = pos.dtype, pos.device
-    _check("pos", pos, dt, (n, 3))
-    _check("src", src, dt, (n,) if mode == "charge" else (n, 3), dev)
-    _check("site_ok", site_ok, torch.bool, (n,), dev)
-    _check("mol_id", mol_id, torch.int32, (n,), dev)
+    _check("pos", pos, dt, (C, n, 3))
+    _check("src", src, dt, (C, n) if mode == "charge" else (C, n, 3), dev)
+    _check("site_ok", site_ok, torch.bool, (C, n), dev)
+    _check("mol_id", mol_id, torch.int32, (C, n), dev)
     _check("box", box, dt, (3, 3), dev)
     if damp_kind not in _DAMP:
         raise ValueError(f"polar_damp_type {damp_kind} not supported")
-    n_pad, ni, nj = grid_shape(n)
+    _, ni, nj = grid_shape(n)
     if visit is not None:
-        _check("visit", visit, torch.int32, (ni, nj), dev)
-    out = torch.empty((n, 3), dtype=dt, device=dev)
-    if n == 0:
-        return out, None
+        _check("visit", visit, torch.int32, (C, ni, nj), dev)
     if fplan is None:
-        fplan = plan(box, rc, lam, n, visit)
-    else:
-        check_plan(fplan, box, rc, lam, n, visit)
+        fplan = plan_chains(box, rc, lam, n, C, visit)
+    if active is not None and fplan.listed is None:
+        fplan = subplan(fplan, active)
+    elif active is not None and tuple(active) != fplan.listed:
+        raise ValueError("plan: lists other chains than active")
+    K = C if fplan.listed is None else len(fplan.listed)
+    out = (torch.empty if K == C else torch.zeros)((C, n, 3), dtype=dt,
+                                                   device=dev)
+    if n == 0 or K == 0:
+        return out, None
     blocks = card_config(dev, dt, mode)
-    part, ticket = scratch(dev, max(fplan.slots, 1) * TI * 3, ni)
+    part, ticket = scratch(dev, max(fplan.slots, 1) * TI * 3, K * ni)
     from mpmc_tpu_torch.ops.cuda import _build
     fn = getattr(_build.library("thole_kernel"), "thole_field_" + _suffix(dt))
     err = fn(_ptr(pos), _ptr(src), _ptr(site_ok), _ptr(mol_id),
              _ptr(fplan.scal),
-             _ptr(fplan.wl) if fplan.wl is not None else None, n, ni, nj,
-             int(mode == "dipole"), _DAMP[damp_kind], int(ortho),
-             min(blocks, ni * nj), _ptr(part), _ptr(ticket), _ptr(out),
+             _ptr(fplan.wl) if fplan.wl is not None else None,
+             _ptr(fplan.chains) if fplan.chains is not None else None, K, n,
+             ni, nj, int(mode == "dipole"), _DAMP[damp_kind], int(ortho),
+             min(blocks, K * ni * nj), _ptr(part), _ptr(ticket), _ptr(out),
              _stream(dev))
     return out, err
+
+
+def _launch_one(mode, pos, box, src, site_ok, mol_id, rc, lam, damp_kind,
+                ortho, visit, fplan):
+    """The single-chain call: the chain launch at C = 1."""
+    n = pos.shape[0]
+    _check("pos", pos, pos.dtype, (n, 3))
+    _, ni, nj = grid_shape(n)
+    if visit is not None:
+        _check("visit", visit, torch.int32, (ni, nj), pos.device)
+    if fplan is not None:
+        check_plan(fplan, box, rc, lam, n, visit)
+    out, err = _launch(mode, pos[None], box, src[None], site_ok[None],
+                       mol_id[None], rc, lam, damp_kind, ortho,
+                       None if visit is None else visit[None], fplan)
+    return out[0], err
 
 
 def charge_field(pos, box, site_ok, charge, mol_id, rc, lam, damp_kind,
@@ -308,8 +434,8 @@ def charge_field(pos, box, site_ok, charge, mol_id, rc, lam, damp_kind,
                                   damp_kind, ortho=ortho, visit=visit)
     if pos.device.type != "cuda":
         raise ValueError(f"charge_field: no kernel for {pos.device}")
-    out, err = _launch("charge", pos, box, charge, site_ok, mol_id, rc, lam,
-                       damp_kind, ortho, visit, plan)
+    out, err = _launch_one("charge", pos, box, charge, site_ok, mol_id, rc,
+                           lam, damp_kind, ortho, visit, plan)
     if err is not None:
         charge_field.launches += 1
         _raise_on(err, "charge_field")
@@ -329,8 +455,8 @@ def dipole_field(pos, box, site_ok, mu, mol_id, rc, lam, damp_kind,
                                   damp_kind, ortho=ortho, visit=visit)
     if pos.device.type != "cuda":
         raise ValueError(f"dipole_field: no kernel for {pos.device}")
-    out, err = _launch("dipole", pos, box, mu, site_ok, mol_id, rc, lam,
-                       damp_kind, ortho, visit, plan)
+    out, err = _launch_one("dipole", pos, box, mu, site_ok, mol_id, rc,
+                           lam, damp_kind, ortho, visit, plan)
     if err is not None:
         dipole_field.launches += 1
         _raise_on(err, "dipole_field")
@@ -340,7 +466,61 @@ def dipole_field(pos, box, site_ok, mu, mol_id, rc, lam, damp_kind,
 dipole_field.launches = 0
 
 
+def charge_field_chains(pos, box, site_ok, charge, mol_id, rc, lam,
+                        damp_kind, ortho=False, visit=None, plan=None,
+                        active=None):
+    """B5 charge mode over a chain axis: the damped intermolecular static
+    field [C, N, 3] of each chain (module docstring).  ``pos`` [C, N, 3],
+    ``site_ok`` bool, ``charge`` and ``mol_id`` (int32) [C, N]; ``visit``
+    [C, NI, NJ]; ``plan`` from ``plan_chains`` (or its ``subplan``) with
+    the same box, rc, lam, sizes and ``visit``; ``active`` a sorted host
+    sequence of the chains to compute (the others come out as zeros)."""
+    if pos.device.type == "cpu":
+        return charge_field_chains_plain(pos, box, site_ok, charge, mol_id,
+                                         rc, lam, damp_kind, ortho=ortho,
+                                         visit=visit, active=active)
+    if pos.device.type != "cuda":
+        raise ValueError(f"charge_field_chains: no kernel for {pos.device}")
+    if plan is not None:
+        check_plan(plan, box, rc, lam, pos.shape[1], visit, pos.shape[0])
+    out, err = _launch("charge", pos, box, charge, site_ok, mol_id, rc, lam,
+                       damp_kind, ortho, visit, plan, active)
+    if err is not None:
+        charge_field_chains.launches += 1
+        _raise_on(err, "charge_field_chains")
+    return out
+
+
+charge_field_chains.launches = 0
+
+
+def dipole_field_chains(pos, box, site_ok, mu, mol_id, rc, lam, damp_kind,
+                        ortho=False, visit=None, plan=None, active=None):
+    """B5 dipole mode over a chain axis: each chain's matvec (T mu)
+    [C, N, 3] (module docstring); ``mu`` [C, N, 3], zero where a site is
+    not ok; the other arguments as for ``charge_field_chains``."""
+    if pos.device.type == "cpu":
+        return dipole_field_chains_plain(pos, box, site_ok, mu, mol_id, rc,
+                                         lam, damp_kind, ortho=ortho,
+                                         visit=visit, active=active)
+    if pos.device.type != "cuda":
+        raise ValueError(f"dipole_field_chains: no kernel for {pos.device}")
+    if plan is not None:
+        check_plan(plan, box, rc, lam, pos.shape[1], visit, pos.shape[0])
+    out, err = _launch("dipole", pos, box, mu, site_ok, mol_id, rc, lam,
+                       damp_kind, ortho, visit, plan, active)
+    if err is not None:
+        dipole_field_chains.launches += 1
+        _raise_on(err, "dipole_field_chains")
+    return out
+
+
+dipole_field_chains.launches = 0
+
+
 def reset_counts():
-    """Zero both modes' launch counters."""
+    """Zero every wrapper's launch counter."""
     charge_field.launches = 0
     dipole_field.launches = 0
+    charge_field_chains.launches = 0
+    dipole_field_chains.launches = 0

@@ -13,7 +13,7 @@ from mpmc_tpu_torch.state import EnergyBreakdown
 
 def total_energy(pos, box, mol_alive, params, cfg, thermo, mu0=None,
                  split_frozen=False, frozen_cached=None,
-                 active_row_start=0):
+                 active_row_start=0, e0=None):
     """Full-system energy.
 
     Returns (EnergyBreakdown, aux) — or, with ``split_frozen``,
@@ -31,7 +31,9 @@ def total_energy(pos, box, mol_alive, params, cfg, thermo, mu0=None,
     polarization, the induced dipoles ``mu`` (the solve warm-starts from
     ``mu0``), the static field ``e0``, the SCF iterations
     ``polar_iters`` and — when thole.residual_supported — the re-grounded
-    CG residual ``r_pol`` = e0 - (mu/alpha - T mu).
+    CG residual ``r_pol`` = e0 - (mu/alpha - T mu).  ``e0``: the static
+    field when the caller has it (multichain.initialize_batched computes
+    every chain's in one launch), else computed here.
     """
     if cfg.cdvdw:
         raise NotImplementedError("cdvdw is not yet ported — ROADMAP A12")
@@ -102,7 +104,8 @@ def total_energy(pos, box, mol_alive, params, cfg, thermo, mu0=None,
 
     polar = zero
     if cfg.polarization:
-        e0 = thole.static_field(pos, box, alive, params, cfg)
+        if e0 is None:
+            e0 = thole.static_field(pos, box, alive, params, cfg)
         mu, n_iter, _ = thole.solve_scf(pos, box, alive, params, cfg, e0,
                                         mu0)
         polar = thole.polar_energy(mu, e0)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from mpmc_tpu_torch.constants import DEBYE_PER_EA, KE
@@ -35,7 +36,8 @@ from mpmc_tpu_torch.ops import ewald
 from mpmc_tpu_torch.ops import pbc as pbc_ops
 from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
 from mpmc_tpu_torch.ops.pairs import derived_alpha, derived_cutoff
-from mpmc_tpu_torch.state import mol_rows, mol_rows_update, row_valid
+from mpmc_tpu_torch.state import (chain_rows, chain_rows_update, mol_rows,
+                                  mol_rows_update, row_valid)
 
 _damping = tk.damping
 _SQRT_PI = math.sqrt(math.pi)
@@ -116,9 +118,9 @@ def _recip_field_w(box, alpha, kvecs, pair_w=2.0):
 def _recip_field(pos, kv, w, sk_re, sk_im):
     """k-space field at ``pos`` [R,3] of a structure factor with weights
     ``w``: sum_k w_k [sin(k.r) S_re - cos(k.r) S_im] k."""
-    phase = ewald._phase(pos, kv)                         # [R,K]
-    return ((torch.sin(phase) * (w * sk_re)[None, :]) @ kv
-            - (torch.cos(phase) * (w * sk_im)[None, :]) @ kv)
+    phase = ewald._phase(pos, kv)                         # [..., R, K]
+    return ((torch.sin(phase) * (w * sk_re)[..., None, :]) @ kv
+            - (torch.cos(phase) * (w * sk_im)[..., None, :]) @ kv)
 
 
 def _row_blocks(n, cfg):
@@ -158,6 +160,22 @@ def static_field_direct(pos, box, atom_alive, params, cfg):
                            params.mol_id32, derived_cutoff(box, cfg),
                            cfg.polar_damp, cfg.polar_damp_type,
                            ortho=cfg.ortho_box)
+
+
+def static_field_chains(pos, box, atom_alive, params, cfg):
+    """``static_field`` of every chain (``pos`` [C, N, 3], ``atom_alive``
+    [C, N]; [C, N, 3]): the direct field in one launch of B5 over the
+    chains (charge_field_chains), the Ewald and Wolf fields chain by
+    chain."""
+    if cfg.polar_ewald or cfg.polar_wolf:
+        return torch.stack([static_field(p, box, a, params, cfg)
+                            for p, a in zip(pos, atom_alive)])
+    C, n = atom_alive.shape
+    return tk.charge_field_chains(
+        pos.contiguous(), box, atom_alive,
+        params.charge.expand(C, n).contiguous(),
+        params.mol_id32.expand(C, n).contiguous(), derived_cutoff(box, cfg),
+        cfg.polar_damp, cfg.polar_damp_type, ortho=cfg.ortho_box)
 
 
 def static_field_ewald(pos, box, atom_alive, params, cfg):
@@ -225,6 +243,21 @@ def field_delta(pos, box, atom_alive, params, cfg, mol, e0, new_rows=None,
                        with_residual=False, sk=sk)[0]
 
 
+def _row_ops(params, mol, batched):
+    """(rows, update, not_mol) for molecule ``mol`` — one chain (``mol``
+    an int or 0-d tensor) or a leading chain axis (``mol`` [C]):
+    ``rows(x)`` the molecule's [..., A, ...] rows of a per-site tensor
+    (per chain when batched), ``update(x, r)`` writes them IN PLACE, and
+    ``not_mol`` the [..., N] mask of the sites of other molecules."""
+    if batched:
+        return (lambda x: chain_rows(x, params, mol),
+                lambda x, r: chain_rows_update(x, params, mol, r),
+                params.mol_id[None, :] != mol[:, None])
+    return (lambda x: mol_rows(x, params, mol),
+            lambda x, r: mol_rows_update(x, params, mol, r),
+            params.mol_id != mol)
+
+
 def move_deltas(pos, box, atom_alive, params, cfg, mol, e0, mu, r_old,
                 new_rows=None, insert=False, delete=False,
                 with_residual=True, sk=None):
@@ -241,19 +274,26 @@ def move_deltas(pos, box, atom_alive, params, cfg, mol, e0, mu, r_old,
     polar_ewald adds the k-space field, linear in S(k): its delta at the
     unmoved sites and the post-move S(k)'s field at the trial rows (``sk``:
     the pre-move (sk_re, sk_im), recomputed when None).  ``atom_alive`` is
-    the pre-move mask.  r0_new is None without ``with_residual``."""
+    the pre-move mask.  r0_new is None without ``with_residual``.
+
+    Over chains (the reference vmaps this function): ``pos``, ``e0``,
+    ``mu``, ``r_old`` [C, N, 3], ``atom_alive`` [C, N], ``mol`` [C],
+    ``new_rows`` [C, A, 3] and ``sk`` [C, Nk] — one molecule per chain,
+    every chain's deltas in the same few hundred launches."""
     dtype = pos.dtype
+    batched = pos.ndim == 3
+    rows_of, update, not_mol = _row_ops(params, mol, batched)
     box_inv = _inverse(box)
     rc = derived_cutoff(box, cfg)
     A = params.max_atoms_per_mol
-    valid = row_valid(params, mol)
+    valid = row_valid(params, mol)                        # [..., A]
     q_rows = torch.where(valid, mol_rows(params.charge, params, mol), 0.0)
-    old_rows = mol_rows(pos, params, mol)
-    mu_rows = (torch.where(valid[:, None], mol_rows(mu, params, mol), 0.0)
+    old_rows = rows_of(pos)
+    mu_rows = (torch.where(valid[..., None], rows_of(mu), 0.0)
                if with_residual else None)
     pol_site = params.polar > 0
     pol_rows = valid & (mol_rows(params.polar, params, mol) > 0)
-    other = atom_alive & (params.mol_id != mol)
+    other = atom_alive & not_mol
     other_pol = other & pol_site
     ew_f = cfg.polar_ewald
     alpha_f, k_rc = _field_variant_consts(box, cfg, dtype)
@@ -265,126 +305,141 @@ def move_deltas(pos, box, atom_alive, params, cfg, mol, e0, mu, r_old,
         src_pos, src_q, src_ok = new_rows, q_rows, valid
         src_mu = None               # inserted molecules carry mu = 0
     else:
-        src_pos = torch.cat([new_rows, old_rows])
-        src_q = torch.cat([q_rows, -q_rows])
-        src_ok = torch.cat([valid, valid])
-        src_mu = (torch.cat([mu_rows, -mu_rows]) if with_residual
+        src_pos = torch.cat([new_rows, old_rows], -2)
+        src_q = torch.cat([q_rows, -q_rows], -1)
+        src_ok = torch.cat([valid, valid], -1)
+        src_mu = (torch.cat([mu_rows, -mu_rows], -2) if with_residual
                   else None)
 
     # ---- tile (a): moved rows as sources vs every site --------------
-    dr = pbc_ops.min_image(pos[None, :, :] - src_pos[:, None, :], box,
-                           box_inv)                       # [S,N,3]
+    dr = pbc_ops.min_image(pos[..., None, :, :] - src_pos[..., :, None, :],
+                           box, box_inv)                  # [..., S, N, 3]
     r2 = torch.sum(dr * dr, -1)
     in_rc = r2 < rc * rc
     r2s = torch.where(r2 > 1e-12, r2, torch.ones_like(r2))
     r = torch.sqrt(r2s)
     d1, d2 = _damping(r, cfg.polar_damp, cfg.polar_damp_type)
-    ok_f = src_ok[:, None] & other[None, :] & in_rc
-    coef = torch.where(ok_f, src_q[:, None]
+    ok_f = src_ok[..., :, None] & other[..., None, :] & in_rc
+    coef = torch.where(ok_f, src_q[..., :, None]
                        * _field_coef(r, r2s, d1, alpha_f, k_rc), _zero(r))
-    e0_new = e0 + torch.einsum("sn,snk->nk", coef, dr)
+    e0_new = e0 + torch.einsum("...sn,...snk->...nk", coef, dr)
 
     if ew_f:
         kv = ewald.kvectors(box, cfg.ewald_kmax)
         if sk is None:
-            sk = ewald.structure_factor(pos, params.charge, atom_alive, kv)
+            sk = _structure_factor(pos, params, atom_alive, kv)
         sk_re_o, sk_im_o = sk
         d_re, d_im = ewald.mol_structure_factor(src_pos, src_q, src_ok, kv)
         w_k = _recip_field_w(box, alpha_f, kv)
         d_rec = _recip_field(pos, kv, w_k, d_re, d_im)
-        e0_new = e0_new + torch.where(other[:, None], d_rec, _zero(d_rec))
+        e0_new = e0_new + torch.where(other[..., None], d_rec, _zero(d_rec))
 
     # ---- tile (b): the field / dipole field at the trial rows -------
     if delete:
-        rows_field = torch.zeros((A, 3), dtype=dtype, device=pos.device)
+        rows_field = torch.zeros(valid.shape + (3,), dtype=dtype,
+                                 device=pos.device)
     else:
-        drr = pbc_ops.min_image(new_rows[:, None, :] - pos[None, :, :], box,
-                                box_inv)                  # [A,N,3]
+        drr = pbc_ops.min_image(new_rows[..., :, None, :]
+                                - pos[..., None, :, :], box,
+                                box_inv)                  # [..., A, N, 3]
         r2b = torch.sum(drr * drr, -1)
         in_rcb = r2b < rc * rc
         r2bs = torch.where(r2b > 1e-12, r2b, torch.ones_like(r2b))
         rb = torch.sqrt(r2bs)
         d1b, d2b = _damping(rb, cfg.polar_damp, cfg.polar_damp_type)
-        okb = valid[:, None] & other[None, :] & in_rcb
-        cb = torch.where(okb, params.charge[None, :]
+        okb = valid[..., :, None] & other[..., None, :] & in_rcb
+        cb = torch.where(okb, params.charge
                          * _field_coef(rb, r2bs, d1b, alpha_f, k_rc),
                          _zero(rb))
-        rows_field = torch.einsum("an,ank->ak", cb, drr)
+        rows_field = torch.einsum("...an,...ank->...ak", cb, drr)
         if ew_f:
             # same-molecule erf-complement block at the new geometry
             dra_f = pbc_ops.min_image(
-                new_rows[None, :, :] - new_rows[:, None, :], box, box_inv)
+                new_rows[..., None, :, :] - new_rows[..., :, None, :], box,
+                box_inv)
             r2i = torch.sum(dra_f * dra_f, -1)
             diag_a = torch.eye(A, dtype=torch.bool, device=pos.device)
-            oki = valid[:, None] & valid[None, :] & ~diag_a
+            oki = valid[..., :, None] & valid[..., None, :] & ~diag_a
             r2is = torch.where(r2i > 1e-12, r2i, torch.ones_like(r2i))
             ri = torch.sqrt(r2is)
-            ci = torch.where(oki, -q_rows[:, None]
+            ci = torch.where(oki, -q_rows[..., :, None]
                              * _intra_coef(ri, r2is, alpha_f), _zero(ri))
-            rows_field = rows_field + torch.einsum("st,stk->tk", ci, dra_f)
+            rows_field = rows_field + torch.einsum("...st,...stk->...tk",
+                                                   ci, dra_f)
             # k-space field at the trial rows with the post-move S(k)
             rows_field = rows_field + _recip_field(
                 new_rows, kv, w_k, sk_re_o + d_re, sk_im_o + d_im)
-    cur = mol_rows(e0_new, params, mol)
-    rows_field = torch.where(valid[:, None], rows_field.to(dtype), cur)
-    e0_out = mol_rows_update(e0_new, params, mol, rows_field)
+    cur = rows_of(e0_new)
+    rows_field = torch.where(valid[..., None], rows_field.to(dtype), cur)
+    e0_out = update(e0_new, rows_field)
     if not with_residual:
         return e0_out, None
 
     # ---- residual: r0' = r_old + (b' - b) + (T' - T) mu -------------
-    rr = r_old + torch.where(other_pol[:, None], e0_out - e0,
-                             _zero(e0))
+    rr = r_old + torch.where(other_pol[..., None], e0_out - e0, _zero(e0))
     if src_mu is not None:
-        okm = (src_ok[:, None] & other_pol[None, :] & in_rc
+        okm = (src_ok[..., :, None] & other_pol[..., None, :] & in_rc
                & (r2 > 1e-12))
         inv_r3 = 1.0 / (r2s * r)
-        mdotr = torch.einsum("sk,snk->sn", src_mu, dr)
+        mdotr = torch.einsum("...sk,...snk->...sn", src_mu, dr)
         c1 = torch.where(okm, 3.0 * d2 * mdotr * inv_r3 / r2s, _zero(r))
         c2 = torch.where(okm, d1 * inv_r3, _zero(r))
-        rr = rr + (torch.einsum("sn,snk->nk", c1, dr)
-                   - torch.einsum("sn,sk->nk", c2, src_mu))
+        rr = rr + (torch.einsum("...sn,...snk->...nk", c1, dr)
+                   - torch.einsum("...sn,...sk->...nk", c2, src_mu))
 
     if delete:
-        rows_r = torch.zeros((A, 3), dtype=dtype, device=pos.device)
+        rows_r = torch.zeros(valid.shape + (3,), dtype=dtype,
+                             device=pos.device)
     else:
         # dipole field at the trial rows from every other site
-        okbp = (valid[:, None] & other_pol[None, :] & in_rcb
+        okbp = (valid[..., :, None] & other_pol[..., None, :] & in_rcb
                 & (r2b > 1e-12))
         inv_r3b = 1.0 / (r2bs * rb)
-        mu_oth = torch.where(other_pol[:, None], mu, _zero(mu))
-        mdotr_b = torch.einsum("nk,ank->an", mu_oth, drr)
+        mu_oth = torch.where(other_pol[..., None], mu, _zero(mu))
+        mdotr_b = torch.einsum("...nk,...ank->...an", mu_oth, drr)
         c1b = torch.where(okbp, 3.0 * d2b * mdotr_b * inv_r3b / r2bs,
                           _zero(rb))
         c2b = torch.where(okbp, d1b * inv_r3b, _zero(rb))
-        e_rows = (torch.einsum("an,ank->ak", c1b, drr)
-                  - torch.einsum("an,nk->ak", c2b, mu_oth))
+        e_rows = (torch.einsum("...an,...ank->...ak", c1b, drr)
+                  - torch.einsum("...an,...nk->...ak", c2b, mu_oth))
         # the [A,A] self-block: the molecule's own trial rows as sources
         dra = pbc_ops.min_image(
-            new_rows[None, :, :] - new_rows[:, None, :], box, box_inv)
+            new_rows[..., None, :, :] - new_rows[..., :, None, :], box,
+            box_inv)
         r2a = torch.sum(dra * dra, -1)
         diag = torch.eye(A, dtype=torch.bool, device=pos.device)
-        oka = (pol_rows[:, None] & valid[None, :] & ~diag
+        oka = (pol_rows[..., :, None] & valid[..., None, :] & ~diag
                & (r2a < rc * rc) & (r2a > 1e-12))
         r2as = torch.where(r2a > 1e-12, r2a, torch.ones_like(r2a))
         ra = torch.sqrt(r2as)
         d1a, d2a = _damping(ra, cfg.polar_damp, cfg.polar_damp_type)
         inv_r3a = 1.0 / (r2as * ra)
-        mdotr_a = torch.einsum("sk,sak->sa", mu_rows, dra)
+        mdotr_a = torch.einsum("...sk,...sak->...sa", mu_rows, dra)
         c1a = torch.where(oka, 3.0 * d2a * mdotr_a * inv_r3a / r2as,
                           _zero(ra))
         c2a = torch.where(oka, d1a * inv_r3a, _zero(ra))
-        e_rows = e_rows + (torch.einsum("sa,sak->ak", c1a, dra)
-                           - torch.einsum("sa,sk->ak", c2a, mu_rows))
+        e_rows = e_rows + (torch.einsum("...sa,...sak->...ak", c1a, dra)
+                           - torch.einsum("...sa,...sk->...ak", c2a,
+                                          mu_rows))
         p_rows = mol_rows(params.polar, params, mol)
         inv_a = torch.where(pol_rows, 1.0 / torch.clamp(p_rows, min=1e-30),
                             _zero(p_rows))
-        rows_r = (torch.where(valid[:, None], mol_rows(e0_out, params, mol),
-                              0.0)
-                  - inv_a[:, None] * mu_rows + e_rows)
-        rows_r = torch.where(pol_rows[:, None], rows_r, _zero(rows_r))
-    cur_r = mol_rows(rr, params, mol)
-    rows_r = torch.where(valid[:, None], rows_r.to(dtype), cur_r)
-    return e0_out, mol_rows_update(rr, params, mol, rows_r)
+        rows_r = (torch.where(valid[..., None], rows_of(e0_out), 0.0)
+                  - inv_a[..., None] * mu_rows + e_rows)
+        rows_r = torch.where(pol_rows[..., None], rows_r, _zero(rows_r))
+    cur_r = rows_of(rr)
+    rows_r = torch.where(valid[..., None], rows_r.to(dtype), cur_r)
+    return e0_out, update(rr, rows_r)
+
+
+def _structure_factor(pos, params, atom_alive, kv):
+    """S(k) of one chain, or of each chain of a stacked [C, N, 3]."""
+    if pos.ndim == 2:
+        return ewald.structure_factor(pos, params.charge, atom_alive, kv)
+    parts = [ewald.structure_factor(p, params.charge, a, kv)
+             for p, a in zip(pos, atom_alive)]
+    return (torch.stack([p[0] for p in parts]),
+            torch.stack([p[1] for p in parts]))
 
 
 def residual_delta(pos, box, atom_alive, params, cfg, mol, mu, r_old,
@@ -395,68 +450,72 @@ def residual_delta(pos, box, atom_alive, params, cfg, mol, mu, r_old,
     (T' - T) mu, with (a) the moved dipoles as sources at every other
     polarizable site and (b) the moved rows' own entries recomputed.
     The sequential form of ``move_deltas``' residual (the tests hold the
-    fused form against it); ``atom_alive`` is the pre-move mask."""
+    fused form against it); ``atom_alive`` is the pre-move mask.  Over
+    chains as ``move_deltas``."""
     dtype = pos.dtype
+    batched = pos.ndim == 3
+    rows_of, update, not_mol = _row_ops(params, mol, batched)
     box_inv = _inverse(box)
     rc = derived_cutoff(box, cfg)
     A = params.max_atoms_per_mol
     valid = row_valid(params, mol)
     pol_rows = valid & (mol_rows(params.polar, params, mol) > 0)
-    old_rows = mol_rows(pos, params, mol)
-    mu_rows = torch.where(valid[:, None], mol_rows(mu, params, mol), 0.0)
-    other_pol = (atom_alive & (params.mol_id != mol)
-                 & (params.polar > 0))[:, None]
+    old_rows = rows_of(pos)
+    mu_rows = torch.where(valid[..., None], rows_of(mu), 0.0)
+    other_pol = (atom_alive & not_mol & (params.polar > 0))[..., None]
     r = r_old + torch.where(other_pol, e0_new - e0_old, _zero(e0_old))
 
     def dip_field(tgt_pos, src_pos, src_mu, ok):
-        dr = pbc_ops.min_image(tgt_pos[None, :, :] - src_pos[:, None, :],
-                               box, box_inv)              # [S,T,3]
+        dr = pbc_ops.min_image(tgt_pos[..., None, :, :]
+                               - src_pos[..., :, None, :],
+                               box, box_inv)              # [..., S, T, 3]
         r2 = torch.sum(dr * dr, -1)
         okm = ok & (r2 < rc * rc) & (r2 > 1e-12)
         r2s = torch.where(r2 > 1e-12, r2, torch.ones_like(r2))
         rr = torch.sqrt(r2s)
         d1, d2 = _damping(rr, cfg.polar_damp, cfg.polar_damp_type)
         inv_r3 = 1.0 / (r2s * rr)
-        mdotr = torch.einsum("sk,stk->st", src_mu, dr)
+        mdotr = torch.einsum("...sk,...stk->...st", src_mu, dr)
         c1 = torch.where(okm, 3.0 * d2 * mdotr * inv_r3 / r2s, _zero(rr))
         c2 = torch.where(okm, d1 * inv_r3, _zero(rr))
-        return (torch.einsum("st,stk->tk", c1, dr)
-                - torch.einsum("st,sk->tk", c2, src_mu))
+        return (torch.einsum("...st,...stk->...tk", c1, dr)
+                - torch.einsum("...st,...sk->...tk", c2, src_mu))
 
     if delete:
         src_pos, src_mu, src_ok = old_rows, -mu_rows, valid
     elif insert:
         src_pos = None
     else:
-        src_pos = torch.cat([new_rows, old_rows])
-        src_mu = torch.cat([mu_rows, -mu_rows])
-        src_ok = torch.cat([valid, valid])
+        src_pos = torch.cat([new_rows, old_rows], -2)
+        src_mu = torch.cat([mu_rows, -mu_rows], -2)
+        src_ok = torch.cat([valid, valid], -1)
     if src_pos is not None:
         r = r + dip_field(pos, src_pos, src_mu,
-                          src_ok[:, None] & other_pol[None, :, 0])
+                          src_ok[..., :, None] & other_pol[..., None, :, 0])
 
     if delete:
-        rows_r = torch.zeros((A, 3), dtype=dtype, device=pos.device)
+        rows_r = torch.zeros(valid.shape + (3,), dtype=dtype,
+                             device=pos.device)
     else:
-        src2_pos = torch.cat([pos, new_rows])
-        src2_mu = torch.cat([torch.where(other_pol, mu, _zero(mu)), mu_rows])
-        src2_ok = torch.cat([other_pol[:, 0], pol_rows])
+        src2_pos = torch.cat([pos, new_rows], -2)
+        src2_mu = torch.cat([torch.where(other_pol, mu, _zero(mu)), mu_rows],
+                            -2)
+        src2_ok = torch.cat([other_pol[..., 0], pol_rows], -1)
         self_m = torch.cat([
-            torch.zeros((pos.shape[0], A), dtype=torch.bool,
+            torch.zeros((pos.shape[-2], A), dtype=torch.bool,
                         device=pos.device),
             torch.eye(A, dtype=torch.bool, device=pos.device)])
-        ok_b = src2_ok[:, None] & valid[None, :] & ~self_m
+        ok_b = src2_ok[..., :, None] & valid[..., None, :] & ~self_m
         e_rows = dip_field(new_rows, src2_pos, src2_mu, ok_b)
         p_rows = mol_rows(params.polar, params, mol)
         inv_a = torch.where(pol_rows, 1.0 / torch.clamp(p_rows, min=1e-30),
                             _zero(p_rows))
-        rows_r = (torch.where(valid[:, None], mol_rows(e0_new, params, mol),
-                              0.0)
-                  - inv_a[:, None] * mu_rows + e_rows)
-        rows_r = torch.where(pol_rows[:, None], rows_r, _zero(rows_r))
-    cur = mol_rows(r, params, mol)
-    rows_r = torch.where(valid[:, None], rows_r.to(dtype), cur)
-    return mol_rows_update(r, params, mol, rows_r)
+        rows_r = (torch.where(valid[..., None], rows_of(e0_new), 0.0)
+                  - inv_a[..., None] * mu_rows + e_rows)
+        rows_r = torch.where(pol_rows[..., None], rows_r, _zero(rows_r))
+    cur = rows_of(r)
+    rows_r = torch.where(valid[..., None], rows_r.to(dtype), cur)
+    return update(r, rows_r)
 
 
 def dipole_matvec(pos, box, atom_alive, params, cfg, mu):
@@ -490,19 +549,21 @@ def cull_supported(cfg) -> bool:
 def cull_perm(pos, box, pol_ok, rc):
     """(perm, inv): x-major lexicographic order of the sites on rc/2
     cells, dead and non-polarizable sites last (a stable sort, so ties
-    keep the site order).  Recomputed per solve."""
-    n = pos.shape[0]
+    keep the site order).  Recomputed per solve.  Over chains (``pos``
+    [C, N, 3], ``pol_ok`` [C, N]): each chain's own order, [C, N]."""
+    n = pos.shape[-2]
     L = torch.diagonal(box)
     cell = rc / 2.0
-    frac = pos - L[None, :] * torch.floor(pos / L[None, :])
+    frac = pos - L * torch.floor(pos / L)
     c = torch.floor(frac / cell)
     ncy = torch.ceil(L[1] / cell)
     ncz = torch.ceil(L[2] / cell)
-    key = (c[:, 0] * ncy + c[:, 1]) * ncz + c[:, 2]
+    key = (c[..., 0] * ncy + c[..., 1]) * ncz + c[..., 2]
     key = torch.where(pol_ok, key, torch.full_like(key, math.inf))
-    perm = torch.argsort(key, stable=True)
+    perm = torch.argsort(key, dim=-1, stable=True)
     inv = torch.empty_like(perm)
-    inv[perm] = torch.arange(n, device=pos.device)
+    inv.scatter_(-1, perm, torch.arange(n, device=pos.device).expand_as(
+        perm))
     return perm, inv
 
 
@@ -514,40 +575,42 @@ def cull_visit(pos_s, ok_s, box, rc, ti=tk.TI, tj=tk.TJ, n_pad=None):
     site).  Computed in float64 against rc inflated by 64 units in the
     last place of the box length in the sites' precision: the kernel's
     rounded r^2 of a pair just outside rc may fall inside it, and such a
-    pair's tile must stay visited."""
-    n = pos_s.shape[0]
+    pair's tile must stay visited.  Over chains (``pos_s`` [C, N, 3],
+    ``ok_s`` [C, N]): each chain's table, [C, NI, NJ]."""
+    n = pos_s.shape[-2]
+    lead = pos_s.shape[:-2]
     if n_pad is None:
         n_pad = tk.grid_shape(n, ti, tj)[0]
     L = torch.diagonal(box).double()
     p = pos_s.double()
-    p = p - L[None, :] * torch.floor(p / L[None, :])       # wrap to [0, L)
+    p = p - L * torch.floor(p / L)                         # wrap to [0, L)
     pad = n_pad - n
-    p = torch.cat([p, torch.zeros((pad, 3), dtype=p.dtype,
-                                  device=p.device)])
-    ok = torch.cat([ok_s, torch.zeros(pad, dtype=torch.bool,
-                                      device=ok_s.device)])
-    lo = torch.where(ok[:, None], p, torch.full_like(p, 1e30))
-    hi = torch.where(ok[:, None], p, torch.full_like(p, -1e30))
+    p = torch.cat([p, torch.zeros(lead + (pad, 3), dtype=p.dtype,
+                                  device=p.device)], -2)
+    ok = torch.cat([ok_s, torch.zeros(lead + (pad,), dtype=torch.bool,
+                                      device=ok_s.device)], -1)
+    lo = torch.where(ok[..., None], p, torch.full_like(p, 1e30))
+    hi = torch.where(ok[..., None], p, torch.full_like(p, -1e30))
 
     def blocks(t):
         nb = n_pad // t
-        mn = lo.reshape(nb, t, 3).amin(1)
-        mx = hi.reshape(nb, t, 3).amax(1)
-        nonempty = ok.reshape(nb, t).any(1)
-        ctr = torch.where(nonempty[:, None], 0.5 * (mn + mx), _zero(mn))
-        hw = torch.where(nonempty[:, None], 0.5 * (mx - mn), _zero(mn))
+        mn = lo.reshape(lead + (nb, t, 3)).amin(-2)
+        mx = hi.reshape(lead + (nb, t, 3)).amax(-2)
+        nonempty = ok.reshape(lead + (nb, t)).any(-1)
+        ctr = torch.where(nonempty[..., None], 0.5 * (mn + mx), _zero(mn))
+        hw = torch.where(nonempty[..., None], 0.5 * (mx - mn), _zero(mn))
         return ctr, hw, nonempty
 
     ci, hwi, oki = blocks(ti)
     cj, hwj, okj = blocks(tj)
-    dc = ci[:, None, :] - cj[None, :, :]
-    dc = dc - L[None, None, :] * torch.round(dc / L[None, None, :])
-    gap = torch.clamp(torch.abs(dc) - hwi[:, None, :] - hwj[None, :, :],
-                      min=0.0)
+    dc = ci[..., :, None, :] - cj[..., None, :, :]
+    dc = dc - L * torch.round(dc / L)
+    gap = torch.clamp(torch.abs(dc) - hwi[..., :, None, :]
+                      - hwj[..., None, :, :], min=0.0)
     mind2 = torch.sum(gap * gap, -1)
     rc_v = (torch.as_tensor(rc, dtype=torch.float64, device=p.device)
             + 64.0 * torch.finfo(pos_s.dtype).eps * torch.max(L))
-    visit = oki[:, None] & okj[None, :] & (mind2 < rc_v * rc_v)
+    visit = oki[..., :, None] & okj[..., None, :] & (mind2 < rc_v * rc_v)
     return visit.to(torch.int32)
 
 
@@ -564,98 +627,187 @@ def solve_scf(pos, box, atom_alive, params, cfg, e0, mu0=None, r0=None):
     of the last iteration <= polar_precision Debye (dipole mode, at least
     one iteration), or after polar_max_iter iterations.  ``r0``: the
     initial residual b - A mu0 (move_deltas), which saves the warm
-    start's matvec."""
+    start's matvec.  One chain of ``solve_scf_chains``."""
+    lift = (lambda t: None if t is None else t[None])
+    mu, iters, r = solve_scf_chains(pos[None], box, atom_alive[None], params,
+                                    cfg, e0[None], lift(mu0), lift(r0))
+    return mu[0], int(iters[0]), None if r is None else r[0]
+
+
+def _on(x, device):
+    """A host array on ``device`` without a host sync (a pinned,
+    non-blocking copy on the card)."""
+    t = torch.as_tensor(np.asarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _gather_sites(x, perm):
+    """x[c, perm[c]] for every chain (x [C, N] or [C, N, 3])."""
+    if x.ndim == 3:
+        return torch.gather(x, 1, perm[..., None].expand(-1, -1, 3))
+    return torch.gather(x, 1, perm)
+
+
+def solve_scf_chains(pos, box, atom_alive, params, cfg, e0, mu0=None,
+                     r0=None, active=None):
+    """``solve_scf`` over a leading chain axis (``pos``, ``e0``, ``mu0``,
+    ``r0`` [C, N, 3], ``atom_alive`` [C, N]) with the semantics of the
+    reference's vmapped solve: each chain stops at its own gate, a closed
+    chain's carry stays frozen, and its iteration count is its own.
+    Returns (mu [C, N, 3], iterations (host int64 [C]), r [C, N, 3] or
+    None).
+
+    ``active`` (a sorted host sequence of chain indices, default all):
+    the chains to solve; the others return their masked mu0 (zeros
+    without one) and r0 with 0 iterations.  The active chains run their
+    CG rounds together: one B5 launch over the chains still open
+    (dipole_field_chains, the closed ones cost nothing) and one host read
+    of the [C] gate vector per round.  The culled CG sorts each chain
+    apart (its own cull_perm and visit table).  Jacobi runs
+    polar_max_iter rounds over the active chains; ``direct`` solves each
+    active chain in turn."""
+    C, n = pos.shape[:2]
+    dev, dtype = pos.device, pos.dtype
+    if active is None:
+        act = tuple(range(C))
+        act_d = torch.ones(C, dtype=torch.bool, device=dev)
+    else:
+        act = tuple(int(k) for k in active)
+        m = np.zeros(C, bool)
+        m[list(act)] = True
+        act_d = _on(m, dev)
     pol_ok = atom_alive & (params.polar > 0)
-    cull = cull_supported(cfg)
-    polar_vec = params.polar
     rc_c = derived_cutoff(box, cfg)
-    mol_s, visit = params.mol_id32, None
+    polar_vec = params.polar.expand(C, n)
+    mol_s, visit = params.mol_id32.expand(C, n).contiguous(), None
+    cull = cull_supported(cfg)
     if cull:
-        # the CG recurrence runs in cell-sorted space with the tile-visit
-        # table; the culled matvec equals the dense one, only the CG's
-        # reductions reassociate
+        # each chain's CG recurrence in its own cell-sorted space with its
+        # own tile-visit table; the culled matvec equals the dense one,
+        # only the CG's reductions reassociate
         perm, invp = cull_perm(pos, box, pol_ok, rc_c)
-        pos = pos[perm]
-        pol_ok = pol_ok[perm]
-        polar_vec = polar_vec[perm]
-        mol_s = mol_s[perm]
-        e0 = e0[perm]
-        mu0 = mu0[perm] if mu0 is not None else None
-        r0 = r0[perm] if r0 is not None else None
+        pos = _gather_sites(pos, perm)
+        pol_ok = _gather_sites(pol_ok, perm)
+        polar_vec = params.polar[perm]
+        mol_s = params.mol_id32[perm]
+        e0 = _gather_sites(e0, perm)
+        mu0 = _gather_sites(mu0, perm) if mu0 is not None else None
+        r0 = _gather_sites(r0, perm) if r0 is not None else None
         visit = cull_visit(pos, pol_ok, box, rc_c)
-    mask = pol_ok[:, None]
+    pos = pos.contiguous()
+    mask = pol_ok[..., None]
     inv_a = torch.where(pol_ok, 1.0 / torch.clamp(polar_vec, min=1e-30),
-                        _zero(polar_vec))[:, None]
+                        _zero(polar_vec))[..., None]
     b = torch.where(mask, e0, _zero(e0))
-    nsites = torch.clamp(torch.sum(pol_ok), min=1).to(pos.dtype)
+    nsites = torch.clamp(torch.sum(pol_ok, dim=-1), min=1).to(dtype)
     tol2 = (cfg.polar_precision ** 2) * nsites * 3
+    x = torch.where(mask, mu0, 0.0) if mu0 is not None else _zero(e0)
+    iters = np.zeros(C, np.int64)
     if cfg.polar_solver == "direct":
-        return _solve_direct(pos, box, params, cfg, b, pol_ok), 0, None
-    # B5's scalar header and work list, once for every matvec of the solve
-    fplan = tk.plan(box, rc_c, cfg.polar_damp, pos.shape[0], visit)
+        mu = x.clone()
+        for k in act:
+            mu[k] = _solve_direct(pos[k], box, params, cfg, b[k], pol_ok[k])
+        return mu, iters, None
+    # B5's scalar header and work lists, once for every matvec of the solve
+    fplan = tk.plan_chains(box, rc_c, cfg.polar_damp, n, C, visit)
+    sub = {}
 
-    def tmul(x):
-        """(T x) of an x that is zero off the polarizable sites
-        (dipole_matvec) through the solve's plan."""
-        return tk.dipole_field(pos, box, pol_ok, x, mol_s, rc_c,
-                               cfg.polar_damp, cfg.polar_damp_type,
-                               ortho=cfg.ortho_box, visit=visit, plan=fplan)
+    def tmul(v, open_h, open_d):
+        """(T v) of the open chains ``open_h`` (zeros for the others;
+        ``open_d`` their mask on the device) through the solve's plan:
+        one launch over the open chains."""
+        if open_h not in sub:
+            # the open chains' indices, built on the device (no sync);
+            # every chain's list is the plan's own
+            chains = (None if len(open_h) == C else torch.nonzero_static(
+                open_d, size=len(open_h)).reshape(-1).to(torch.int32))
+            sub[open_h] = tk.subplan(fplan, open_h, chains)
+        return tk.dipole_field_chains(pos, box, pol_ok, v, mol_s, rc_c,
+                                      cfg.polar_damp, cfg.polar_damp_type,
+                                      ortho=cfg.ortho_box, visit=visit,
+                                      plan=sub[open_h], active=open_h)
 
-    def amul(x):
-        x = torch.where(mask, x, _zero(x))
-        return torch.where(mask, inv_a * x - tmul(x), _zero(x))
+    def amul(v, open_h, open_d):
+        v = torch.where(mask, v, _zero(v))
+        return torch.where(mask, inv_a * v - tmul(v, open_h, open_d),
+                           _zero(v))
 
     if cfg.polar_solver == "jacobi":
         # mu <- (1-g) mu + g alpha (E0 + T mu): the reference's plain
         # iteration with relaxation polar_gamma
         g = cfg.polar_gamma
         alpha_site = torch.where(mask, params.polar[:, None], 0.0)
-        mu = mu0 if mu0 is not None else _zero(e0)
-        for _ in range(cfg.polar_max_iter):
-            t = tmul(torch.where(mask, mu, _zero(mu)))
-            mu = torch.where(mask, (1 - g) * mu + g * alpha_site * (b + t),
-                             _zero(mu))
-        return mu, cfg.polar_max_iter, None
+        mu = x
+        if act:
+            for _ in range(cfg.polar_max_iter):
+                t = tmul(torch.where(mask, mu, _zero(mu)), act, act_d)
+                mu = torch.where(act_d[:, None, None] & mask,
+                                 (1 - g) * mu + g * alpha_site * (b + t), mu)
+            iters[list(act)] = cfg.polar_max_iter
+        return mu, iters, None
 
-    # --- preconditioned conjugate gradient (M = diag(1/alpha)) ----------
+    # --- preconditioned conjugate gradient (M = diag(1/alpha)), per chain
     dip_mode = cfg.polar_precision_mode == "dipole"
     if dip_mode:
         tol2 = ((cfg.polar_precision / DEBYE_PER_EA) ** 2) * nsites * 3
-    alpha_site = torch.where(mask, polar_vec[:, None], 0.0)
-    x = torch.where(mask, mu0, 0.0) if mu0 is not None else _zero(e0)
-    r = torch.where(mask, r0, 0.0) if r0 is not None else b - amul(x)
+    alpha_site = torch.where(mask, polar_vec[..., None], 0.0)
+    if r0 is not None:
+        r = torch.where(mask, r0, 0.0)
+    else:
+        r = b - (amul(x, act, act_d) if act else _zero(x))
     z = alpha_site * r
     p = z
-    rs = torch.sum(r * r)
-    rz = torch.sum(r * z)
-    gate = rs
-    it = 0
+    rs = torch.sum(r * r, dim=(-2, -1))
+    rz = torch.sum(r * z, dim=(-2, -1))
+    ds = torch.full_like(rs, math.inf) if dip_mode else rs
 
     def safe(v):
         return torch.where(torch.abs(v) > 1e-300, v,
                            torch.full_like(v, 1e-300))
 
-    # dipole mode is a do-while (ds0 = inf): its first gate is known
-    while it < cfg.polar_max_iter and ((dip_mode and it == 0)
-                                       or bool(gate > tol2)):
-        ap = amul(p)
-        alpha = rz / safe(torch.sum(p * ap))
-        dx = alpha * p
-        x = x + dx
-        r = r - alpha * ap
-        z = alpha_site * r
-        rz_new = torch.sum(r * z)
+    def keep(sel, new, old):
+        """``new`` on the open chains, ``old`` on the closed ones (no
+        select while every chain is open)."""
+        return new if sel is None else torch.where(sel, new, old)
+
+    # every open chain has made the same number of rounds t, so the
+    # iteration cap is a host test; dipole mode is a do-while (ds0 = inf)
+    t = 0
+    open_h, open_d = act, act_d
+    while t < cfg.polar_max_iter:
+        if not (dip_mode and t == 0):
+            gate = (ds if dip_mode else rs) > tol2
+            open_d = gate if len(open_h) == C else open_d & gate
+            # the round's host read
+            open_h = tuple(np.flatnonzero(open_d.cpu().numpy()).tolist())
+        if not open_h:
+            break
+        ap = amul(p, open_h, open_d)
+        alpha = rz / safe(torch.sum(p * ap, dim=(-2, -1)))
+        dx = alpha[:, None, None] * p
+        r_n = r - alpha[:, None, None] * ap
+        z = alpha_site * r_n
+        rz_new = torch.sum(r_n * z, dim=(-2, -1))
         beta = rz_new / safe(rz)
-        p = z + beta * p
-        ds = torch.sum(dx * dx) if dip_mode else rs
-        rs, rz = torch.sum(r * r), rz_new
-        it += 1
-        gate = ds if dip_mode else rs
+        sel = None if len(open_h) == C else open_d
+        sel3 = None if sel is None else sel[:, None, None]
+        x = keep(sel3, x + dx, x)
+        p = keep(sel3, z + beta[:, None, None] * p, p)
+        ds = keep(sel, torch.sum(dx * dx, dim=(-2, -1)) if dip_mode else rs,
+                  ds)
+        rs = keep(sel, torch.sum(r_n * r_n, dim=(-2, -1)), rs)
+        rz = keep(sel, rz_new, rz)
+        r = keep(sel3, r_n, r)
+        iters[list(open_h)] += 1
+        t += 1
     x = torch.where(mask, x, _zero(x))
     r = torch.where(mask, r, _zero(r))
     if cull:
-        x, r = x[invp], r[invp]      # back to the caller's site order
-    return x, it, r
+        # back to the caller's site order
+        x, r = _gather_sites(x, invp), _gather_sites(r, invp)
+    return x, iters, r
 
 
 def dipole_tensor(pos, box, site_ok, cfg):
@@ -694,17 +846,17 @@ def _solve_direct(pos, box, params, cfg, b, pol_ok):
 
 
 def polar_energy(mu, e0):
-    """U_pol = -(ke/2) sum mu . E0   [K]."""
-    return -0.5 * KE * torch.sum(mu * e0)
+    """U_pol = -(ke/2) sum mu . E0   [K] ([C] over chains)."""
+    return -0.5 * KE * torch.sum(mu * e0, dim=(-2, -1))
 
 
 def zodid_energy(e0, atom_alive, params):
     """Zeroth-iteration polarization energy U* = -(ke/2) sum alpha |E0|^2
     (mu = alpha E0, no dipole coupling): the delayed-acceptance
-    surrogate, O(N) given the cached field."""
+    surrogate, O(N) given the cached field ([C] over chains)."""
     pol_ok = atom_alive & (params.polar > 0)
     a = torch.where(pol_ok, params.polar, _zero(params.polar))
-    return -0.5 * KE * torch.sum(a * torch.sum(e0 * e0, dim=1))
+    return -0.5 * KE * torch.sum(a * torch.sum(e0 * e0, dim=-1), dim=-1)
 
 
 def polarizability_tensor(pos, box, atom_alive, params, cfg):

@@ -10,7 +10,9 @@ Two routes advance the chains together:
   run_chunk_fused_uvt_multi over B1, run_chunk_fused_multi over B3);
 - ``run_chunk_batched``, the batched scan chains: one step of every chain
   per row of a [C, K, 16] uniform table (metropolis.make_batched_step_fn),
-  each move's delta one launch of B4 over the chain axis.
+  each move's delta one launch of B4 over the chain axis; with
+  polarization every chain's SCF in the same CG rounds, each round one
+  launch of B5 over the chains still open (thole.solve_scf_chains).
 
 Statistical note (the reference's): the chains share the move *type* of
 each step — here chain 0's lane 8 — while every chain draws its own
@@ -26,6 +28,7 @@ import torch
 
 from mpmc_tpu_torch.config import RunConfig, Thermo
 from mpmc_tpu_torch.mc import metropolis
+from mpmc_tpu_torch.ops import thole
 from mpmc_tpu_torch.state import Params, SimState, slice_chain, stack_chains
 
 
@@ -58,7 +61,8 @@ def run_chunk_batched(states: SimState, params: Params, cfg: RunConfig,
     states' device).  ``thermo`` may be per chain (the reference's
     ``thermo_batched``: ``temperature`` [C], ``fugacity`` [C, S]); the
     move-type probabilities and move sizes are shared.  ``trace``: a list
-    that gets the step's record (make_batched_step_fn)."""
+    that gets the step's record (make_batched_step_fn).  The chains' mu,
+    e0 and r_pol are carried (polarization)."""
     C = states.pos.shape[0]
     if uniforms is None:
         uniforms = torch.rand((C, n_steps, metropolis.N_LANES),
@@ -71,7 +75,8 @@ def run_chunk_batched(states: SimState, params: Params, cfg: RunConfig,
         step(carry, u[:, k], int(branch[k]), thermo, c, stats, trace)
     return states.replace(pos=carry["pos"], mol_alive=carry["mol_alive"],
                           energy=carry["energy"], sk_re=carry["sk_re"],
-                          sk_im=carry["sk_im"],
+                          sk_im=carry["sk_im"], mu=carry["mu"],
+                          e0=carry["e0"], r_pol=carry["r_pol"],
                           step=states.step + n_steps), stats
 
 
@@ -79,11 +84,19 @@ def initialize_batched(states: SimState, params: Params, cfg: RunConfig,
                        thermo: Thermo, frozen_rows: int = 0) -> SimState:
     """Full-energy refresh of every chain, one after the other (the
     reference maps the refresh over chains too: a batched O(N^2) pass
-    would hold a [C, rows, N] tile, and it runs once per corrtime).
+    would hold a [C, rows, N] tile, and it runs once per corrtime), with
+    every chain's static field taken first in one pass over the chains
+    (thole.static_field_chains: one launch of B5 over the chains).
     ``thermo`` may be per chain (chain_thermo); ``frozen_rows`` as in
     metropolis.initialize."""
+    e0 = None
+    if cfg.polarization:
+        alive = states.mol_alive[:, params.mol_id] & params.atom_ok
+        e0 = thole.static_field_chains(states.pos, states.box[0], alive,
+                                       params, cfg)
     return stack_chains([
         metropolis.initialize(slice_chain(states, c), params, cfg,
                               chain_thermo(thermo, c),
-                              frozen_rows=frozen_rows)
+                              frozen_rows=frozen_rows,
+                              e0=None if e0 is None else e0[c])
         for c in range(states.pos.shape[0])])

@@ -464,6 +464,19 @@ def mol_rows_update(arr, params: Params, mol, rows_new):
     return arr
 
 
+def chain_rows_update(arr, params: Params, mol, rows_new):
+    """``mol_rows_update`` over chains: write each chain's [A, ...] row
+    window ``rows_new[c]`` at molecule ``mol[c]``'s slots of its own
+    ``arr[c]``, IN PLACE (``arr`` [C, N, ...], ``mol`` [C])."""
+    idx = take(params.mol_atoms, mol)                     # [C, A]
+    valid = row_valid(params, mol)
+    valid = valid.reshape(valid.shape + (1,) * (rows_new.ndim - 2))
+    rows_new = torch.where(valid, rows_new, rows_new[:, :1])
+    ar = torch.arange(arr.shape[0], device=arr.device)[:, None]
+    arr.index_put_((ar.expand_as(idx), idx), rows_new)
+    return arr
+
+
 def molecule_com(pos, params: Params, mol):
     """Center of mass of one molecule slot."""
     idx = take(params.mol_atoms, mol)

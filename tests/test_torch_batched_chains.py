@@ -301,21 +301,39 @@ def test_nve_chains_deck(tmp_path):
 
 
 @pytest.mark.parametrize("lines,item", [
-    (("chains 3", "polarization on"), "A7b"),
+    # polar chains run now (item None), on the batched polar route
+    (("chains 3", "polarization on"), None),
     (("chains 3", "ensemble npt"), "A8b"),
 ], ids=["polar-chains", "npt-chains"])
 def test_batched_chain_refusals(tmp_path, lines, item):
+    """npt chains are refused (A8b); polar chains run as batched polar
+    chains, a few steps on the CPU, every chain with its dipoles."""
+    if item is None:
+        job = input_script.parse_file(str(_h2_deck(
+            tmp_path, *lines, "numsteps 6", "corrtime 3")))
+        buf = io.StringIO()
+        su, _ = _in(tmp_path, lambda: trun.run(job, log=buf, device="cpu"))
+        assert "batched scan chains (C=3)" in buf.getvalue()
+        assert su.states.mu.shape == su.states.pos.shape
+        return
     job = input_script.parse_file(str(_h2_deck(tmp_path, *lines)))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
         trun.run(job, device="cpu")
 
 
 def test_batched_step_refuses_polarization():
-    """The batched step itself refuses polarization (A7b)."""
+    """The batched step once refused polarization (A7b); now it runs the
+    polar step over the chains: two steps of three polar chains keep
+    their dipoles, fields and residuals per chain, with a [C] count of
+    CG iterations."""
     _, P, S, C, T = _port("uvt")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        tm.make_batched_step_fn(P, dataclasses.replace(C,
-                                                       polarization=True))
+    C = dataclasses.replace(C, polarization=True)
+    S = tm.initialize(S, P, C, T)
+    states, stats = multichain.run_chunk_batched(
+        multichain.stack_states(S, 3), P, C, T, 2, uniforms=_table(3, 2))
+    assert states.mu.shape == states.e0.shape == (3,) + S.pos.shape
+    assert states.r_pol.shape == states.mu.shape
+    assert stats.polar_iters.shape == (3,)
 
 
 @pytest.mark.parametrize("lines", [

@@ -3,6 +3,7 @@ per-term parity with ``python -m mpmc_tpu``, a short GCMC run of the
 example deck with its outputs, the refusals of options outside the
 port's slice, and the rule that the port imports nothing of JAX."""
 import ast
+import io
 import os
 import pathlib
 import subprocess
@@ -81,13 +82,14 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 
 
 # (test id, deck lines, ROADMAP item): batched chains and parallel
-# tempering run now; with polarization they are A7b
+# tempering run now, with polarization too (item None: the deck runs on
+# the batched polar route)
 REFUSED = [
-    ("chains 4", "chains 4\npolarization on", "A7b"),
+    ("chains 4", "chains 4\npolarization on", None),
     ("ensemble npt", "A8b"),
     ("parallel_tempering on", "parallel_tempering on\npolarization on",
-     "A7b"),
-    ("chains 2\nfused_mc on\npolarization on", "A7b"),
+     None),
+    ("chains 2\nfused_mc on\npolarization on", None),
     ("cavity_bias on", "A11"),
     ("tmmc on", "A11"), ("quantum_rotation on", "A11"),
     ("cdvdw on", "A12"), ("feynman_hibbs on", "A12"),
@@ -99,10 +101,22 @@ REFUSED = [
 
 
 @pytest.mark.parametrize("case", REFUSED, ids=[r[0] for r in REFUSED])
-def test_options_outside_the_slice_are_refused(case):
+def test_options_outside_the_slice_are_refused(case, tmp_path):
     """Each option outside the slice raises, naming its ROADMAP item (a
-    three-field case names its deck lines apart from its id)."""
+    three-field case names its deck lines apart from its id).  The
+    batched polar chains and PT with polarization, once refused, run: a
+    few steps of the small polar deck on the batched route."""
     line, item = case[-2:]
+    if item is None:
+        from torch_polar import polar_deck
+        job = polar_deck(tmp_path, line + "\nn_replicas 2\ncorrtime 3\n",
+                         numsteps=3)
+        buf = io.StringIO()
+        su, _ = trun.run(job, log=buf, device="cpu")
+        assert "batched scan chains" in buf.getvalue()
+        assert su.states.mu is not None
+        assert (su.states.energy.polar < 0).all()
+        return
     job = input_script.parse(f"ensemble uvt\n{line}\n")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
         trun.setup(job, device="cpu")

@@ -453,6 +453,111 @@ def test_thole_kernel_scratch_across_sizes(device):
         kept = ptrs
 
 
+@pytest.mark.parametrize("layout", ["dense", "culled", "tri"])
+@pytest.mark.parametrize("mode", ["charge", "dipole"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_thole_chains_kernel_is_each_chains_launch(device, dtype, mode,
+                                                   layout):
+    """B5 over a chain axis, one launch for C = 5 chains of 300 random
+    sites (dense in an orthorhombic and a triclinic cell; culled at rc 9
+    A, each chain in its own cell order with its own visit table): each
+    chain bit for bit the single-chain launch on its own tensors; C = 1
+    the single-chain launch; an active subset (chains 1 and 3) those
+    chains' own launches and zeros elsewhere, in one launch; a repeat the
+    same bits; each chain within test_thole_kernel_ragged's bound of the
+    plain version."""
+    dt = getattr(torch, dtype)
+    clouds = [_b5_cloud(300, dt, device, seed=s, skewed=layout == "tri")
+              for s in range(5)]
+    box = clouds[0][1]
+    pos, ok, q, mu, mol = (torch.stack([c[i] for c in clouds])
+                           for i in (0, 2, 3, 4, 5))
+    src = q if mode == "charge" else mu
+    rc = torch.tensor(9.0, dtype=dt, device=device)
+    visit = None
+    if layout == "culled":
+        perm, _ = thole.cull_perm(pos, box, ok, rc)
+        pos, ok, src, mol = (thole._gather_sites(x, perm).contiguous()
+                             for x in (pos, ok, src, mol))
+        visit = thole.cull_visit(pos, ok, box, rc)
+    chains_fn, one_fn, plain = (
+        (tk.charge_field_chains, tk.charge_field, tk.charge_field_plain)
+        if mode == "charge" else
+        (tk.dipole_field_chains, tk.dipole_field, tk.dipole_field_plain))
+    args = (pos, box, ok, src, mol, rc, 2.1304, "exponential")
+    ortho = layout != "tri"
+    before = chains_fn.launches
+    k = chains_fn(*args, ortho=ortho, visit=visit)
+    sub = chains_fn(*args, ortho=ortho, visit=visit, active=(1, 3))
+    torch.cuda.synchronize(device)
+    assert chains_fn.launches == before + 2
+    assert torch.equal(k, chains_fn(*args, ortho=ortho, visit=visit))
+    for c in range(5):
+        one = one_fn(pos[c], box, ok[c], src[c], mol[c], rc, 2.1304,
+                     "exponential", ortho=ortho,
+                     visit=None if visit is None else visit[c])
+        assert torch.equal(k[c], one), c
+        assert (torch.equal(sub[c], one) if c in (1, 3)
+                else not sub[c].any()), c
+        a = (pos[c], box, ok[c], src[c], mol[c], rc, 2.1304, "exponential")
+        a64 = tuple(x.double() if torch.is_tensor(x)
+                    and x.is_floating_point() else x for x in a)
+        vc = None if visit is None else visit[c]
+        p64 = plain(*a64, visit=vc)
+        scale = float(p64.abs().max())
+        tol = (1e-12 * scale if dtype == "float64" else
+               max(4.0 * float((plain(*a, visit=vc).double()
+                                - p64).abs().max()), 2e-6 * scale))
+        assert float((k[c].double() - p64).abs().max()) <= tol
+    one_c = chains_fn(*(x[:1] if torch.is_tensor(x) and x.ndim >= 2
+                        and x is not box else x for x in args),
+                      ortho=ortho, visit=None if visit is None
+                      else visit[:1])
+    assert torch.equal(one_c[0], k[0])
+
+
+def test_solve_scf_chains_on_the_card(device):
+    """solve_scf_chains on the card (float64, 4 chains of the polar MOF +
+    H2 system after a batched polar chunk, each trial a displaced
+    molecule): each chain's iteration count equals single-chain
+    solve_scf's on the card and its dipoles agree to 1e-9 of max |mu|;
+    B5 over chains launched once per CG round."""
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=6, n_h2=20, capacity=40, polarization=True, dtype="float64",
+        device=device)
+    state = metropolis.initialize(systems.jittered(params, state, 3),
+                                  params, cfg, thermo)
+    g = torch.Generator(device=device).manual_seed(4)
+    states, _ = multichain.run_chunk_batched(
+        multichain.stack_states(state, 4), params, cfg, thermo, 20,
+        generator=g)
+    alive = states.mol_alive[:, params.mol_id] & params.atom_ok
+    from mpmc_tpu_torch.mc import moves
+    from mpmc_tpu_torch.state import chain_rows
+    u = torch.rand((4, 16), generator=g, device=device, dtype=torch.float64)
+    mol, _ = moves.pick_by_rank(metropolis._movable_mask(
+        params, states.mol_alive), u[:, 0])
+    rows = moves.displace_rows(states.pos, params, mol, u, 1.0, 1.0)
+    e0n, r0 = thole.move_deltas(states.pos, states.box[0], alive, params,
+                                cfg, mol, states.e0, states.mu,
+                                states.r_pol, new_rows=rows)
+    pos_c = states.pos.clone()
+    for c in range(4):
+        pos_c[c, params.mol_atoms[mol[c]]] = rows[c]
+    before = tk.dipole_field_chains.launches
+    mu, it, _ = thole.solve_scf_chains(pos_c, states.box[0], alive, params,
+                                       cfg, e0n, mu0=states.mu, r0=r0)
+    torch.cuda.synchronize(device)
+    assert tk.dipole_field_chains.launches - before == int(it.max())
+    for c in range(4):
+        mu1, it1, _ = thole.solve_scf(pos_c[c], states.box[0], alive[c],
+                                      params, cfg, e0n[c], mu0=states.mu[c],
+                                      r0=r0[c])
+        assert it[c] == it1
+        scale = float(mu1.abs().max())
+        assert float((mu[c] - mu1).abs().max()) <= 1e-9 * scale
+
+
 PDA_FIELDS = {"direct": {}, "wolf": {"polar_wolf": True},
               "ewald": {"polar_ewald": True}}
 

@@ -360,12 +360,22 @@ def test_cli_fused_nve_deck_runs(tmp_path):
 
 @pytest.mark.parametrize("lines,item", [
     (("ensemble npt",), "A8b"),
-    # nve chains run as batched scan chains now; with polarization they
-    # are batched polar chains
+    # nve chains run as batched scan chains, with polarization too (item
+    # None: the deck runs, under nve with no delayed acceptance)
     (("ensemble nve", "fused_mc on", "chains 3", "total_energy 0",
-      "polarization on"), "A7b"),
+      "polarization on"), None),
 ], ids=["npt", "nve-chains"])
 def test_nvt_slice_refusals(tmp_path, lines, item):
+    """npt is refused (A8b); polar nve chains under fused_mc run as
+    batched polar chains (the fused gates refuse polarization: a
+    WARNING), a few steps on the CPU."""
+    if item is None:
+        deck = _lj_deck(tmp_path, *lines, numsteps=6, corrtime=3)
+        su, _, out = _run_deck(deck, tmp_path)
+        assert "batched scan chains (C=3)" in out
+        assert "WARNING: fused_mc requested but unsupported" in out
+        assert su.states.mu is not None and su.states.pos.shape[0] == 3
+        return
     job = input_script.parse_file(str(_lj_deck(tmp_path, *lines)))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
         trun.run(job, device="cpu")

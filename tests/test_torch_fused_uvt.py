@@ -246,12 +246,25 @@ def test_cli_fused_decks_run(tmp_path, extra):
 
 
 @pytest.mark.parametrize("lines,item", [
-    # chains without fused_mc, and under nve, run as batched scan chains
-    # now; what stays refused is polar chains and npt chains
-    (("chains 3", "polarization on"), "A7b"),
+    # chains without fused_mc, and under nve, run as batched scan chains,
+    # polar chains too (item None: the deck runs); npt chains stay
+    # refused
+    (("chains 3", "polarization on"), None),
     (("fused_mc on", "ensemble npt", "chains 3"), "A8b"),
 ], ids=["chains-without-fused", "fused-nve-chains"])
 def test_fused_refusals(tmp_path, lines, item):
+    """npt chains are refused (A8b); polar chains without fused_mc run on
+    the batched polar route, a few steps on the CPU."""
+    if item is None:
+        import io
+        job = input_script.parse_file(str(_deck(
+            tmp_path, *lines, "numsteps 6", "corrtime 3")))
+        buf = io.StringIO()
+        su, _ = trun.run(job, log=buf, device="cpu")
+        assert "batched scan chains (C=3)" in buf.getvalue()
+        assert "WARNING" not in buf.getvalue()
+        assert su.states.mu is not None and su.states.e0 is not None
+        return
     job = input_script.parse_file(str(_deck(tmp_path, *lines)))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
         trun.run(job, device="cpu")

@@ -168,7 +168,9 @@ def test_solve_scf_builds_one_plan_per_solve(monkeypatch, case):
     """solve_scf builds B5's plan (header and work list) once per solve
     and hands the same plan to every matvec; its dipoles and iteration
     count equal the JAX package's solve (float64, 1e-9), as
-    test_torch_thole_scf holds them."""
+    test_torch_thole_scf holds them.  solve_scf is one chain of
+    solve_scf_chains, so the plan is plan_chains' and the matvec
+    dipole_field_chains at C = 1."""
     kw = {"polar_solver": "cg", "polar_precision": 1e-9}
     sys_kw = {}
     if case == "cg-cull":
@@ -177,7 +179,7 @@ def test_solve_scf_builds_one_plan_per_solve(monkeypatch, case):
     (p, s, c, t), (P, S, C, T) = mof_polar(**sys_kw, **kw)
     assert tt.cull_supported(C) == (case == "cg-cull")
     plans, seen = [], []
-    make, field = tk.plan, tk.dipole_field
+    make, field = tk.plan_chains, tk.dipole_field_chains
 
     def counting_plan(*a, **k):
         plans.append(make(*a, **k))
@@ -187,8 +189,8 @@ def test_solve_scf_builds_one_plan_per_solve(monkeypatch, case):
         seen.append(k.get("plan"))
         return field(*a, **k)
 
-    monkeypatch.setattr(tk, "plan", counting_plan)
-    monkeypatch.setattr(tk, "dipole_field", recording_field)
+    monkeypatch.setattr(tk, "plan_chains", counting_plan)
+    monkeypatch.setattr(tk, "dipole_field_chains", recording_field)
     mu_t, it_t, r_t = tt.solve_scf(S.pos, S.box, S.atom_alive(P), P, C,
                                    S.e0)
     assert len(plans) == 1

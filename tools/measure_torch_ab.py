@@ -52,7 +52,7 @@ runs the checkout's ``phase_pda_kernel`` and keeps every output of B6
 bit.
 
     python tools/measure_torch_ab.py --kernels <checkout> <out.json> [--decks]
-        [--scan-decks]
+        [--scan-decks] [--polar-chains]
     python tools/measure_torch_ab.py --compare-kernels <a.json> [...]
 
 The sixth form times <checkout>'s B4 and B5 through its own wrappers on
@@ -65,17 +65,20 @@ does, and without) and on the card alone (n back-to-back calls between
 one pair of events, queued behind a spin kernel so that the card runs
 them with no host gap), beside an empty kernel timed the same way (the
 launch floor).  B4's outputs (float64 and float32) are kept in
-<out.json>.b4.pt.  With --decks it also runs the checkout's polar decks
+<out.json>.b4.pt, B5's (float32, both modes, dense and culled) in
+<out.json>.b5.pt.  With --decks it also runs the checkout's polar decks
 (phase_polar) and fused polar DA decks (phase_pda_decks) and keeps their
 steps/s, CG iterations per step and kernel shares; with --scan-decks it
 runs SCAN_DECKS (chip_smoke's scan-path GCMC deck, fused single-chain µVT
 deck and LJ NVT deck, through its _run_deck) and keeps their steps/s and
-launches.  Each call is also
+launches; with --polar-chains it runs the checkout's polar ``chains 8``
+decks (phase_polar_chains) and keeps their steps/s, CG rounds and
+iterations, host syncs and B5 share.  Each call is also
 timed on the host alone (n calls with no device sync between them), and
 one cold SCF solve (thole.solve_scf from zero, dense and with the culled
 CG at rc 14 A) on the host clock with a device sync.  The seventh form
-prints the files side by side and fails unless B4's outputs are equal
-bit for bit in all of them.
+prints the files side by side and fails unless B4's outputs, and B5's
+where every file has them, are equal bit for bit in all of them.
 
     python tools/measure_torch_ab.py --scan-decks <checkout> <out.json>
 
@@ -418,7 +421,7 @@ def measure_scan_decks(checkout, out):
         + " steps/s")
 
 
-def measure_kernels(checkout, out, decks, scan_decks):
+def measure_kernels(checkout, out, decks, scan_decks, polar_chains=False):
     import dataclasses
     import json
     import statistics
@@ -486,6 +489,7 @@ def measure_kernels(checkout, out, decks, scan_decks):
                 ("culled", (pos_s, box, ok[perm], src[perm].contiguous(),
                             params.mol_id32[perm], rc14, lam, kind), vis)):
             kw = {"ortho": True, "visit": v}
+            saved[f"b5/{mode}/{label}"] = kern(*args, **kw).cpu()
             e = {"ms_unplanned": cs.time_calls(lambda: kern(*args, **kw),
                                                dev)}
             if planned:
@@ -494,6 +498,8 @@ def measure_kernels(checkout, out, decks, scan_decks):
             e["device_ms"] = _time_device(lambda: kern(*args, **kw), dev, 50)
             e["host_ms"] = _host_ms(lambda: kern(*args, **kw), dev)
             r["b5"][f"{mode} {label}"] = e
+    torch.save({k: v for k, v in saved.items() if k.startswith("b5/")},
+               out + ".b5.pt")
     # one cold SCF solve (CG from zero to the deck's precision), host
     # clock around it with a device sync, median of 10: dense at the
     # derived rc, and the culled CG at rc 14 A
@@ -526,6 +532,14 @@ def measure_kernels(checkout, out, decks, scan_decks):
             r[what + "_launches"] = launches
     if scan_decks:
         r["decks"] = _scan_decks(cs, dev)
+    if polar_chains:
+        launches, reps = cs.phase_polar_chains(dev)
+        r["polar_chains"] = {k: {x: v.get(x) for x in (
+            "steps_per_sec", "cg_iters_per_chain_step",
+            "chunk_cg_rounds_per_step", "host_syncs_per_step",
+            "device_busy_share", "b5_share", "ms_per_step")}
+            for k, v in reps.items()}
+        r["polar_chains_launches"] = launches
     r["card_after"] = cs.phase_device()[1]
     with open(out, "w") as f:
         json.dump(r, f, indent=1)
@@ -655,6 +669,26 @@ def _report_b6_b2(label, r):
             print(f"    {name}: {ln}")
 
 
+def _compare_outputs(paths):
+    """Fail unless B4's kept outputs, and B5's where every file has
+    them, are equal bit for bit in all of ``paths``."""
+    import torch
+    ok = True
+    for name in ("b4", "b5"):
+        if name == "b5" and not all(os.path.exists(p + ".b5.pt")
+                                    for p in paths):
+            continue
+        outs = [torch.load(p + f".{name}.pt") for p in paths]
+        same = all(b.keys() == outs[0].keys()
+                   and all(torch.equal(b[k], outs[0][k]) for k in b)
+                   for b in outs)
+        print(f"{name.upper()}: {len(outs[0])} outputs per file, "
+              + ("equal bit for bit" if same else "DIFFER"))
+        ok = ok and same
+    if not ok:
+        raise SystemExit(1)
+
+
 def compare_b6_b2(paths):
     import json
 
@@ -662,13 +696,7 @@ def compare_b6_b2(paths):
     for p in paths:
         with open(p) as f:
             _report_b6_b2(p, json.load(f))
-    b4 = [torch.load(p + ".b4.pt") for p in paths]
-    same = all(b.keys() == b4[0].keys()
-               and all(torch.equal(b[k], b4[0][k]) for k in b) for b in b4)
-    print(f"B4: {len(b4[0])} outputs per file, "
-          + ("equal bit for bit" if same else "DIFFER"))
-    if not same:
-        raise SystemExit(1)
+    _compare_outputs(paths)
 
 def _drec_on_rows(sysd, rec, dt):
     """d_rec of the move in B6's record ``rec`` [8, 16] recomputed from
@@ -801,7 +829,7 @@ def _report_kernels(label, r):
               + " ms")
     for k, e in r.get("solve", {}).items():
         print(f"    solve {k}: {e['ms']:.3f} ms, {e['iters']} iterations")
-    for what in ("polar", "pda"):
+    for what in ("polar", "pda", "polar_chains"):
         for k, e in r.get(what, {}).items():
             print(f"    {k}: " + ", ".join(f"{x} {v:.4f}" for x, v in
                                            e.items() if v is not None))
@@ -819,13 +847,7 @@ def compare_kernels(paths):
         with open(p) as f:
             runs.append(json.load(f))
         _report_kernels(p, runs[-1])
-    b4 = [torch.load(p + ".b4.pt") for p in paths]
-    same = all(b.keys() == b4[0].keys()
-               and all(torch.equal(b[k], b4[0][k]) for k in b) for b in b4)
-    print(f"B4: {len(b4[0])} outputs per file, "
-          + ("equal bit for bit" if same else "DIFFER"))
-    if not same:
-        raise SystemExit(1)
+    _compare_outputs(paths)
 
 
 def same_sass(paths):
@@ -901,7 +923,8 @@ if __name__ == "__main__":
         measure_times(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "--kernels":
         measure_kernels(sys.argv[2], sys.argv[3], "--decks" in sys.argv[4:],
-                        "--scan-decks" in sys.argv[4:])
+                        "--scan-decks" in sys.argv[4:],
+                        "--polar-chains" in sys.argv[4:])
     elif sys.argv[1] == "--scan-decks":
         measure_scan_decks(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "--compare-kernels":
