@@ -75,7 +75,23 @@ Phases (any failure raises, so the exit code is non-zero):
    ``chains 8`` (phase_polar_chains: plain, ``polar_delayed on``,
    ``cutoff 14``, 200 steps each: every chain's polar bookkeeping, B5
    launches == CG rounds, host syncs, a profile); PT deck (v) of phase 11
-   is the polar deck as 8 replicas.
+   is the polar deck as 8 replicas;
+14. exact checkpoints (phase_checkpoint) — DECK on the scan path and with
+   ``fused_mc on``: two corrtime blocks twice, then one block with
+   ``checkpoint_output`` and one with ``checkpoint_input``; the resumed
+   state as close to the uninterrupted one as two uninterrupted runs are
+   to each other; save and load ms and bytes;
+15. replay (phase_replay) — ``ensemble replay`` over a 20-frame LJ
+   trajectory with ``calc_pressure on`` and a 20-frame GCMC one (N
+   changing), each written by a port run: B2 launches per frame, the
+   first and last frames' card terms against CPU float64, the pressure
+   within the bound of its energies' float32 rounding; frames/s and the
+   reader's ms per frame;
+16. isotherm campaign (phase_campaign) — ``python -m
+   mpmc_tpu_torch.campaign``'s main on DECK, 16 chains at 0.5, 1 and 2
+   atm, twice uninterrupted and once stopped after the first pressure and
+   resumed from its checkpoint directory: the rows against each other, B4
+   over chains and B2 on every point, chain-steps/s.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
@@ -236,6 +252,16 @@ def null_launch_ms(device, n=200):
     """The launch floor: time_device of an empty kernel (a spin of 0
     cycles)."""
     return time_device(lambda: torch.cuda._sleep(0), device, n)
+
+
+def _clock_host(fn, device):
+    """Seconds of one call of ``fn`` on the host clock, the card idle
+    before and after."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
 
 
 def phase_device():
@@ -1249,7 +1275,34 @@ pqr_restart restart.pqr
 """
 
 
-def _run_deck(device, extra="", numsteps=3000, kind="mof"):
+def _reset_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    pk.reset_counts()
+    mk.reset_counts()
+    tk.reset_counts()
+
+
+def _launch_counts():
+    """Every kernel wrapper's launch count."""
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    return {"pair_terms": pk.pair_terms.launches,
+            "mol_pair": pk.mol_pair.launches,
+            "mol_pair_chains": pk.mol_pair_chains.launches,
+            "run_steps_uvt": mk.run_steps_uvt.launches,
+            "run_steps": mk.run_steps.launches,
+            "charge_field": tk.charge_field.launches,
+            "dipole_field": tk.dipole_field.launches,
+            "charge_field_chains": tk.charge_field_chains.launches,
+            "dipole_field_chains": tk.dipole_field_chains.launches,
+            "run_steps_uvt_pda": mk.run_steps_uvt_pda.launches}
+
+
+def _run_deck(device, extra="", numsteps=3000, kind="mof", verbose=True):
     """A full-size system written to PQR and run as a deck through run.run,
     every launch count set to 0 just before and read just after: ``kind``
     "mof" — the 10.8k system as DECK (plus ``extra`` lines) —, "polar" —
@@ -1257,13 +1310,11 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof"):
     with ``polarization on`` and corrtime POLAR_CORRTIME — or "lj" — the
     10k LJ fluid as LJ_DECK.  An ``ensemble nve`` LJ deck gets
     total_energy = U0 + NVE_K_PER_ATOM x N, U0 from an ``ensemble te`` run
-    of the same deck.  Returns (Setup, averages, log text, launches)."""
+    of the same deck.  Without ``verbose`` only the run's last lines are
+    logged.  Returns (Setup, averages, log text, launches)."""
     from mpmc_tpu_torch.io import input_script, pqr
     from mpmc_tpu_torch.mc import run
     from mpmc_tpu_torch.models import systems
-    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
-    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
-    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
     if kind == "mof":
         params, state, cfg, _ = bench_system("float32", "cpu")
         name, template, species = "bench10k", DECK, ["H2"]
@@ -1297,27 +1348,14 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof"):
                 f.write(text + extra)
             job = input_script.parse_file(f"{name}.inp")
             buf = io.StringIO()
-            pk.reset_counts()
-            mk.reset_counts()
-            tk.reset_counts()
+            _reset_counts()
             su, avgs = run.run(job, log=buf, device=device)
             torch.cuda.synchronize(device)
-            launches = {"pair_terms": pk.pair_terms.launches,
-                        "mol_pair": pk.mol_pair.launches,
-                        "mol_pair_chains": pk.mol_pair_chains.launches,
-                        "run_steps_uvt": mk.run_steps_uvt.launches,
-                        "run_steps": mk.run_steps.launches,
-                        "charge_field": tk.charge_field.launches,
-                        "dipole_field": tk.dipole_field.launches,
-                        "charge_field_chains":
-                            tk.charge_field_chains.launches,
-                        "dipole_field_chains":
-                            tk.dipole_field_chains.launches,
-                        "run_steps_uvt_pda": mk.run_steps_uvt_pda.launches}
+            launches = _launch_counts()
         finally:
             os.chdir(old)
     text = buf.getvalue()
-    log(text.rstrip())
+    log(text.rstrip() if verbose else "\n".join(text.splitlines()[-3:]))
     log(f"launches: {launches}")
     for k in ("N", "energy_total"):
         if not np.isfinite(avgs.mean(k)):
@@ -1698,26 +1736,19 @@ def _block_breakdown(device, su, label, states=None):
     from mpmc_tpu_torch.parallel import multichain
     F = metropolis.frozen_refresh_rows(su.params, su.cfg)
 
-    def clock(fn):
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize(device)
-        return time.perf_counter() - t0
-
     if states is None:
-        refresh = clock(lambda: metropolis.initialize(
-            su.state, su.params, su.cfg, su.thermo, frozen_rows=F))
-        obs = clock(lambda: run.observables(su, su.state))
+        refresh = _clock_host(lambda: metropolis.initialize(
+            su.state, su.params, su.cfg, su.thermo, frozen_rows=F), device)
+        obs = _clock_host(lambda: run.observables(su, su.state), device)
     else:
-        refresh = clock(lambda: multichain.initialize_batched(
-            states, su.params, su.cfg, su.thermo, frozen_rows=F))
-        obs = clock(lambda: run.observables_batched(
-            su, states, states.pos.shape[0]))
+        refresh = _clock_host(lambda: multichain.initialize_batched(
+            states, su.params, su.cfg, su.thermo, frozen_rows=F), device)
+        obs = _clock_host(lambda: run.observables_batched(
+            su, states, states.pos.shape[0]), device)
     with tempfile.TemporaryDirectory() as tmp:
-        restart = clock(lambda: pqr.write_state(
+        restart = _clock_host(lambda: pqr.write_state(
             os.path.join(tmp, "r.pqr"), su.params, su.state,
-            su.species_names, wrap=True))
+            su.species_names, wrap=True), device)
     log(f"block breakdown {label}: refresh {refresh * 1e3:.2f} ms, "
         f"observables {obs * 1e3:.2f} ms, restart write "
         f"{restart * 1e3:.2f} ms (host clock)")
@@ -2459,6 +2490,308 @@ def phase_restart_write(device, n=20):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# Exact checkpoints, trajectory replay with the virial pressure, isotherm
+# campaigns
+# ---------------------------------------------------------------------------
+
+def _state_gap(a, b):
+    """How far two single-chain states lie apart: max |d pos| [A] over
+    every row, alive slots that differ, max |d E| [K] over the energy
+    terms (active and frozen), steps that differ."""
+    d_e = [abs(float(x) - float(y))
+           for e, f in ((a.energy, b.energy), (a.e_frozen, b.e_frozen))
+           for x, y in zip(e.as_dict().values(), f.as_dict().values())]
+    return {"pos": float(torch.max(torch.abs(a.pos - b.pos))),
+            "mol_alive": int(torch.sum(a.mol_alive != b.mol_alive)),
+            "energy": max(d_e), "step": abs(int(a.step) - int(b.step))}
+
+
+def _held_as_two_runs(label, gap_runs, gap_resumed):
+    """The resumed run must match the uninterrupted one as closely as two
+    uninterrupted runs match each other: bit for bit when they do, else no
+    gap larger than theirs."""
+    log(f"{label}: two uninterrupted runs differ by {gap_runs}; the "
+        f"resumed run differs by {gap_resumed}")
+    if not any(gap_runs.values()):
+        if any(gap_resumed.values()):
+            raise AssertionError(f"{label}: the uninterrupted runs agree bit "
+                                 "for bit and the resumed run does not")
+        return
+    if any(gap_resumed[k] > gap_runs[k] for k in gap_runs):
+        raise AssertionError(f"{label}: the resumed run lies further from "
+                             "the uninterrupted one than two uninterrupted "
+                             "runs lie apart")
+
+
+def phase_checkpoint(device, smi):
+    """Exact resume at full width: DECK on the scan path (B2 + B4, corrtime
+    500) and with ``fused_mc on`` (B1, corrtime 1000), each run for two
+    corrtime blocks twice, then for one block with ``checkpoint_output``
+    and one more with ``checkpoint_input``; the resumed run's positions,
+    alive mask, energy terms and step against the uninterrupted run's
+    (_held_as_two_runs), and the checkpoint's save and load ms and bytes."""
+    from mpmc_tpu_torch.io import checkpoint
+    rep = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, lines, corr in (("scan", "", 500),
+                                   ("fused", "fused_mc on\n", 1000)):
+            lines += f"corrtime {corr}\n"
+            ck = os.path.join(tmp, f"{label}.ck")
+            su_a, _, _, ln = _run_deck(device, lines, numsteps=2 * corr,
+                                       verbose=False)
+            su_b, _, _, _ = _run_deck(device, lines, numsteps=2 * corr,
+                                      verbose=False)
+            _run_deck(device, lines + f"checkpoint_output {ck}\n",
+                      numsteps=corr, verbose=False)
+            su_r, avgs_r, text, ln_r = _run_deck(
+                device, lines + f"checkpoint_input {ck}\n", numsteps=corr,
+                verbose=False)
+            if f"resumed exactly from {ck} at step {corr}" not in text:
+                raise AssertionError(f"{label}: the run did not resume")
+            kern = "run_steps_uvt" if "fused" in lines else "mol_pair"
+            if not (ln[kern] > 0 and ln["pair_terms"] > 0
+                    and ln_r[kern] > 0):
+                raise AssertionError(f"{label}: a kernel was not launched: "
+                                     f"{ln}, resumed {ln_r}")
+            _held_as_two_runs(f"checkpoint {label}",
+                              _state_gap(su_a.state, su_b.state),
+                              _state_gap(su_a.state, su_r.state))
+            g = torch.Generator(device=device).manual_seed(3)
+            path = os.path.join(tmp, f"{label}.timed")
+
+            def save():
+                checkpoint.save(path, su_r.state, avgs_r, generator=g)
+
+            def load():
+                checkpoint.load(path, su_r.state, generator=g)
+            save_ms = 1e3 * statistics.median(
+                _clock_host(save, device) for _ in range(5))
+            load_ms = 1e3 * statistics.median(
+                _clock_host(load, device) for _ in range(5))
+            rep[label] = {"save_ms": save_ms, "load_ms": load_ms,
+                          "bytes": os.path.getsize(path)}
+            log(f"checkpoint {label}: save {save_ms:.2f} ms, load "
+                f"{load_ms:.2f} ms, {rep[label]['bytes']} bytes (10.8k "
+                f"system, median of 5, host clock; {smi})")
+    return rep
+
+
+def _replay_frame_plain(job, frame, dtype, pressure):
+    """The plain version of one replayed frame on the CPU: a Setup of the
+    parsed frame in ``dtype``, its energy terms, and with ``pressure`` the
+    two energies of the virial pressure, with N and V — run.setup +
+    metropolis.initialize + the volume perturbations of
+    run._frame_pressure."""
+    from mpmc_tpu_torch.mc import metropolis, moves, run
+    from mpmc_tpu_torch.ops import energy
+    jb = dataclasses.replace(job, cfg=dataclasses.replace(job.cfg,
+                                                          dtype=dtype))
+    su = run.setup(jb, device="cpu", frame=frame)
+    st = metropolis.initialize(su.state, su.params, su.cfg, su.thermo)
+    obs = run.observables(su, st)
+    terms = {k: obs[f"energy_{k}"] for k in st.energy.as_dict()}
+    e_pm = []
+    if pressure:
+        for sgn in (1.0, -1.0):
+            p2, b2 = moves.scale_volume(st.pos, st.box, su.params,
+                                        sgn * job.calc_pressure_dv)
+            e2, _ = energy.total_energy(p2, b2, st.mol_alive, su.params,
+                                        su.cfg, su.thermo)
+            e_pm.append(float(e2.total))
+    return terms, e_pm, obs["N"], obs["volume"]
+
+
+def phase_replay(device, smi):
+    """``ensemble replay`` at full width over two trajectories written by
+    port runs: the 10k LJ fluid (fused NVT, 20 frames) with
+    ``calc_pressure on`` and the 10.8k GCMC fused µVT deck (20 frames, N
+    changing: frames laid out into the existing slots).  B2 launches must
+    be 1 per frame (3 with the pressure); the first and last frames' card
+    float32 terms are held against the plain float64 terms of the same
+    parsed frame on the CPU by phase_energy's rule, and the first LJ
+    frame's pressure against the float64 pressure within the bound of its
+    two energies' float32 rounding.  Frames/s, and the reader's ms per
+    frame."""
+    from mpmc_tpu_torch.constants import ATM2K_A3
+    from mpmc_tpu_torch.io import input_script, native, pqr
+    from mpmc_tpu_torch.mc import run
+    rep = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kind, deck, lines, steps in (
+                ("lj", "lj", LJ_DECK,
+                 "fused_mc on\ncorrtime 200\ncalc_pressure on\n", 4000),
+                ("gcmc", "mof", DECK, "fused_mc on\n", 20000)):
+            traj = os.path.join(tmp, f"{label}.traj.pqr")
+            t_phase = time.perf_counter()
+            su, _, _, _ = _run_deck(device, lines + f"traj_output {traj}\n",
+                                    numsteps=steps, kind=kind, verbose=False)
+            t_traj = time.perf_counter() - t_phase
+            text = (deck.format(numsteps=1, L=float(su.state.box[0, 0]))
+                    + lines + f"ensemble replay\npqr_input {traj}\n")
+            job = input_script.parse(text)
+            t0 = time.perf_counter()
+            n_frames = sum(1 for _ in native.stream_frames_arrays(traj))
+            read_ms = 1e3 * (time.perf_counter() - t0) / n_frames
+            buf = io.StringIO()
+            _reset_counts()
+            t0 = time.perf_counter()
+            avgs = run.run(job, log=buf, device=device)
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            ln = _launch_counts()
+            summary = [x for x in buf.getvalue().splitlines()
+                       if x.startswith("replay:")][0]
+            per = 3 if job.calc_pressure else 1
+            log(f"replay {label}: {summary}; {n_frames / wall:.2f} frames/s"
+                f", reader {read_ms:.2f} ms per frame, B2 launches "
+                f"{ln['pair_terms']} ({smi})")
+            if avgs.count() != n_frames or ln["pair_terms"] != per * n_frames:
+                raise AssertionError(f"replay {label}: {avgs.count()} frames"
+                                     f" of {n_frames}, B2 launches {ln}")
+            if label == "gcmc" and " 0 laid out" in summary:
+                raise AssertionError("replay gcmc: no frame was laid out "
+                                     "into the existing slots")
+            t_cpu = time.perf_counter()
+            frames = pqr.read_frames(traj)
+            for i in (0, n_frames - 1):
+                with_p = job.calc_pressure and i == 0
+                ref, e64, n, vol = _replay_frame_plain(job, frames[i],
+                                                       "float64", with_p)
+                p32, e32, _, _ = _replay_frame_plain(job, frames[i],
+                                                     "float32", with_p)
+                for k, r in ref.items():
+                    got = avgs.samples[f"energy_{k}"][i]
+                    tol = max(1e-5 * abs(r), 1e-2, 4.0 * abs(p32[k] - r))
+                    if not abs(got - r) <= tol:
+                        raise AssertionError(
+                            f"replay {label} frame {i}: {k} card {got!r} "
+                            f"cpu-f64 {r!r} tol {tol:.3e}")
+                if with_p:
+                    dlnv = job.calc_pressure_dv
+                    p_ref = ((n * job.temperature
+                              - (e64[0] - e64[1]) / (2.0 * dlnv))
+                             / vol / ATM2K_A3)
+                    # each card energy within 4x the plain f32 distance or
+                    # 2 ulps (float32) of its value: the difference over
+                    # 2 dlnV V bounds the pressure's error
+                    t_e = sum(max(4.0 * abs(a - b), 2.0 * EPS32 * abs(b))
+                              for a, b in zip(e32, e64))
+                    bound = t_e / (2.0 * dlnv) / vol / ATM2K_A3
+                    got = avgs.samples["pressure_atm"][i]
+                    log(f"    frame {i}: pressure card {got:.6f} atm, "
+                        f"cpu-f64 {p_ref:.6f}, |d| {abs(got - p_ref):.3e} "
+                        f"bound {bound:.3e} ({smi})")
+                    if not abs(got - p_ref) <= bound:
+                        raise AssertionError(f"replay {label} frame {i}: "
+                                             "pressure disagrees")
+            log(f"replay {label}: frames 0 and {n_frames - 1} held against "
+                f"cpu f64 term by term; seconds: trajectory run {t_traj:.1f}"
+                f", replay {wall:.1f}, cpu checks "
+                f"{time.perf_counter() - t_cpu:.1f}")
+            rep[label] = {"frames": n_frames,
+                          "frames_per_sec": n_frames / wall,
+                          "reader_ms_per_frame": read_ms,
+                          "pair_terms": ln["pair_terms"],
+                          "summary": summary}
+    return rep
+
+
+class _PointLog(io.StringIO):
+    """A campaign's log that keeps the launch counts at each finished
+    point (the ``point done`` line)."""
+
+    def __init__(self):
+        super().__init__()
+        self.points = []
+
+    def write(self, text):
+        if "point done:" in text:
+            self.points.append((text.strip(), _launch_counts()))
+        return super().write(text)
+
+
+def phase_campaign(device, smi, chains=16):
+    """``python -m mpmc_tpu_torch.campaign``'s main in process on DECK
+    (corrtime 100): 16 chains, pressures 0.5 1 2 atm, 200-400 steps a
+    point, one equilibration block, a checkpoint directory — twice
+    uninterrupted, then the first pressure alone and the full list resumed
+    in a fresh directory; the resumed rows against the uninterrupted ones
+    (as closely as the two uninterrupted campaigns agree), B4 over chains
+    and B2 launched on every point, and the aggregate chain-steps/s."""
+    import contextlib
+
+    from mpmc_tpu_torch import campaign
+    from mpmc_tpu_torch.io import pqr
+    params, state, _, _ = bench_system("float32", "cpu")
+    rep = {}
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            pqr.write_state("bench10k.pqr", params, state, ["H2"])
+            with open("deck.inp", "w") as f:
+                f.write(DECK.format(numsteps=400, L=float(state.box[0, 0]))
+                        + "corrtime 100\n")
+            args = ["deck.inp", "--chains", str(chains), "--min-steps",
+                    "200", "--max-steps", "400", "--equil-blocks", "1"]
+            runs = {}
+            for name, pressures, ck in (
+                    ("a", ["0.5", "1", "2"], "ck_a"),
+                    ("b", ["0.5", "1", "2"], "ck_b"),
+                    ("first", ["0.5"], "ck_r"),
+                    ("resumed", ["0.5", "1", "2"], "ck_r")):
+                out = _PointLog()
+                _reset_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rows = campaign.main(args + [
+                        "--pressures", *pressures, "--checkpoint-dir", ck,
+                        "-o", f"{name}.csv"])
+                torch.cuda.synchronize(device)
+                runs[name] = (rows, out, time.perf_counter() - t0)
+        finally:
+            os.chdir(old)
+    rows_a, out_a, wall_a = runs["a"]
+    prev = {"pair_terms": 0, "mol_pair_chains": 0}
+    steps_total = 0
+    for r, (line, ln) in zip(rows_a, out_a.points):
+        b4 = ln["mol_pair_chains"] - prev["mol_pair_chains"]
+        b2 = ln["pair_terms"] - prev["pair_terms"]
+        prev = ln
+        steps_total += r.steps
+        log(f"campaign point {r.pressure_atm} atm: {r.steps} steps, <N> "
+            f"{r.n_mean:.3f} +- {r.n_sem:.4f}, B4 over {chains} chains "
+            f"{b4} launches, B2 {b2}  ({line}; {smi})")
+        if not (r.steps <= b4 <= 2 * r.steps and b2 >= chains):
+            raise AssertionError(f"campaign point {r.pressure_atm}: B4 over "
+                                 f"chains {b4}, B2 {b2} for {r.steps} steps")
+    rate = chains * steps_total / wall_a
+    log(f"campaign: {len(rows_a)} points, {steps_total} steps, "
+        f"{rate:.2f} chain-steps/s aggregate ({wall_a:.2f} s, set-up "
+        f"included; {smi})")
+    if "resuming: 1 points done" not in runs["resumed"][1].getvalue():
+        raise AssertionError("the campaign did not resume")
+
+    def gap(x, y):
+        return {"rows": sum(1 for a, b in zip(x, y)
+                            if not _rows_equal(a.row(), b.row())),
+                "n_mean": max(abs(a.n_mean - b.n_mean)
+                              for a, b in zip(x, y))}
+    _held_as_two_runs("campaign", gap(rows_a, runs["b"][0]),
+                      gap(rows_a, runs["resumed"][0]))
+    rep.update(points=[(r.pressure_atm, r.steps, r.n_mean, r.n_sem)
+                       for r in rows_a],
+               chain_steps_per_sec=rate, wall_s=wall_a)
+    return rep
+
+
+def _rows_equal(a, b):
+    """Two campaign rows equal, NaN equal to NaN."""
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (a[k] != a[k] and b[k] != b[k]) for k in a)
+
+
 def main():
     dev, smi = phase_device()
     sys.path.insert(0, REPO)
@@ -2492,6 +2825,11 @@ def main():
     pt_launches, pt_reps = phase_pt(dev)
     restart = phase_restart_write(dev)
     t_new = time.time() - t_new
+    t_11 = time.time()
+    ckpt_rep = phase_checkpoint(dev, smi)
+    replay_rep = phase_replay(dev, smi)
+    campaign_rep = phase_campaign(dev, smi)
+    t_11 = time.time() - t_11
     t_pc = time.time()
     pc_launches, pc_reps = phase_polar_chains(dev)
     t_c8 += time.time() - t_pc
@@ -2528,6 +2866,9 @@ def main():
     for kern in kernels:       # B1 and B3: the cluster size of each timing
         if "cluster" in report[kern["name"]]:
             kern["cluster"] = report[kern["name"]]["cluster"]
+    # B2 on the replay path: one pass per frame, three with the pressure
+    kernels[0]["replay_launches"] = {k: r["pair_terms"]
+                                     for k, r in replay_rep.items()}
     log(f"launches per path: scan {scan_launches}, fused {fused_launches}, "
         f"fused chains {chain_launches}, fused nvt {nvt_launches}")
     log(f"build_seconds {build_s:.1f}  scan_steps_per_sec {rate:.2f}  "
@@ -2596,6 +2937,17 @@ def main():
         f"{b2['device_ms']:.4f}  b2_ms_full {b2['full']['ms']:.4f}  "
         f"b2_device_ms_full {b2['full']['device_ms']:.4f}  b2_tiles "
         f"{b2['tiles']} / {b2['full']['tiles']}")
+    log("  ".join(f"checkpoint_{k}_save_ms {r['save_ms']:.2f}  checkpoint_"
+                  f"{k}_load_ms {r['load_ms']:.2f}  checkpoint_{k}_bytes "
+                  f"{r['bytes']}" for k, r in ckpt_rep.items())
+        + "  " + "  ".join(
+            f"replay_{k}_frames_per_sec {r['frames_per_sec']:.2f}  replay_"
+            f"{k}_reader_ms_per_frame {r['reader_ms_per_frame']:.2f}"
+            for k, r in replay_rep.items())
+        + f"  campaign_c16_chain_steps_per_sec "
+        f"{campaign_rep['chain_steps_per_sec']:.2f}  campaign_points "
+        f"{campaign_rep['points']}  pr11_phases_seconds {t_11:.1f}"
+        f"  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

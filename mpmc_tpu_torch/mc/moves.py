@@ -22,8 +22,8 @@ import math
 import torch
 
 from mpmc_tpu_torch.ops import pbc as pbc_ops
-from mpmc_tpu_torch.state import (Params, chain_rows, molecule_com,
-                                  mol_rows, row_valid, take)
+from mpmc_tpu_torch.state import (Params, all_molecule_coms, chain_rows,
+                                  molecule_com, mol_rows, row_valid, take)
 from mpmc_tpu_torch.utils import quaternion as quat
 
 
@@ -89,3 +89,16 @@ def place_rows(params: Params, mol, species, u, box):
            + quat.rotate(take(params.species_pos, species), q[..., None, :]))
     return torch.where(row_valid(params, mol)[..., None], new,
                        new[..., :1, :]).contiguous()
+
+
+def scale_volume(pos, box, params: Params, d_lnv):
+    """Isotropic cell rescale by ln V -> ln V + ``d_lnv``, each atom
+    shifted by (s - 1) times its molecule's centre of mass, s = exp(d_lnv
+    / 3): rigid molecules keep their geometry (the NPT volume move, and
+    the virial pressure's volume perturbation).  Returns (new_pos,
+    new_box).  The frozen framework's COM moves too, so a volume move is
+    only valid without one; the caller decides."""
+    s = torch.exp(torch.as_tensor(d_lnv, dtype=pos.dtype,
+                                  device=pos.device) / 3.0)
+    coms = all_molecule_coms(pos, params)                # [M, 3]
+    return pos + (s - 1.0) * coms[params.mol_id], box * s

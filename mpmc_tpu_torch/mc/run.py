@@ -31,10 +31,12 @@ import numpy as np
 import torch
 
 from mpmc_tpu_torch.config import RunConfig, Thermo, resolve_device
-from mpmc_tpu_torch.constants import DEBYE_PER_EA
-from mpmc_tpu_torch.io import input_script, output as output_io, pqr as pqr_io
+from mpmc_tpu_torch.constants import ATM2K_A3, DEBYE_PER_EA
+from mpmc_tpu_torch.io import checkpoint, input_script
+from mpmc_tpu_torch.io import native as native_io
+from mpmc_tpu_torch.io import output as output_io, pqr as pqr_io
 from mpmc_tpu_torch.mc import fugacity as fug_mod
-from mpmc_tpu_torch.mc import metropolis
+from mpmc_tpu_torch.mc import metropolis, moves
 from mpmc_tpu_torch.ops import energy as energy_mod
 from mpmc_tpu_torch.ops import pairs as pairs_mod
 from mpmc_tpu_torch.ops import thole
@@ -109,7 +111,7 @@ def check_supported(job: input_script.Job):
     if cfg.ensemble == "npt":
         _refuse("ensemble npt (the hybrid fused NPT and the scan-path "
                 "volume move)", "A8b")
-    if cfg.ensemble not in ("uvt", "nvt", "nve", "te"):
+    if cfg.ensemble not in ("uvt", "nvt", "nve", "te", "replay"):
         _refuse(f"ensemble {cfg.ensemble}", "A12")
     for flag, what, item in (
             (cfg.cavity_bias, "cavity_bias", "A11"),
@@ -128,9 +130,7 @@ def check_supported(job: input_script.Job):
              f"rd_potential {cfg.rd_potential}", "A12"),
             (cfg.coulomb == "gwp", "coulomb gwp", "A12"),
             (job.spatial_devices > 1, "spatial_devices", "A13"),
-            (job.chain_devices > 1, "chain_devices", "A13"),
-            (bool(job.checkpoint_input or job.checkpoint_output),
-             "checkpoint_input/checkpoint_output", "A6")):
+            (job.chain_devices > 1, "chain_devices", "A13")):
         if flag:
             _refuse(what, item)
 
@@ -332,6 +332,134 @@ def run_te(job: input_script.Job, log=None, device=None):
     return e
 
 
+def _frame_pressure(su: Setup, state: SimState, job) -> float:
+    """Instantaneous pressure [atm] of one frame by the volume-perturbation
+    virial, P = (N kT - dU/dlnV) / V, dU/dlnV the central difference of
+    two full energies at ln V +- ``calc_pressure_dv`` (moves.scale_volume;
+    on the card each one pass of B2)."""
+    dlnv = job.calc_pressure_dv
+    es = []
+    for sgn in (1.0, -1.0):
+        p2, b2 = moves.scale_volume(state.pos, state.box, su.params,
+                                    sgn * dlnv)
+        e2, _ = energy_mod.total_energy(p2, b2, state.mol_alive, su.params,
+                                        su.cfg, su.thermo)
+        es.append(float(e2.total))
+    du_dlnv = (es[0] - es[1]) / (2.0 * dlnv)
+    v = float(torch.abs(torch.linalg.det(state.box.double())))
+    n = float(state.n_molecules(su.params))
+    return (n * job.temperature - du_dlnv) / v / ATM2K_A3
+
+
+class _ReplayLayout:
+    """Where each row of a trajectory frame goes in a Setup's padded
+    state: frozen rows, sorted by serial, fill the frozen prefix; movable
+    molecules, in ascending mol_id, claim their species' slots in order
+    (the reference's dest_map / layout_frame, mpmc_tpu/mc/run.py:631-700).
+    Host copies of the slot tables are taken once per Setup."""
+
+    def __init__(self, su: Setup):
+        self.su = su
+        params = su.params
+        self.spec = params.mol_species.cpu().numpy()
+        self.mol_atoms = params.mol_atoms.cpu().numpy()
+        self.frozen = params.mol_frozen.cpu().numpy()
+        self.n_frozen = int(params.mol_natoms.cpu().numpy()[
+            self.frozen].sum())
+        self.slots_of = [np.nonzero(self.spec == i)[0]
+                         for i in range(len(su.species_names))]
+
+    def fit(self, arr):
+        """(dest rows [n], mol_alive [M]) of frame ``arr`` in the existing
+        slots, or None when it does not fit: a changed frozen prefix, an
+        unknown species, a molecule of the wrong size, or more molecules
+        of a species than it has slots."""
+        flags = np.frombuffer(arr["flags"], np.uint8) == ord("F")
+        serials, mol_ids = arr["ids"][:, 0], arr["ids"][:, 1]
+        frozen_rows = np.nonzero(flags)[0]
+        if len(frozen_rows) != self.n_frozen:
+            return None
+        dest = np.empty(len(serials), np.int64)
+        dest[frozen_rows[np.argsort(serials[frozen_rows],
+                                    kind="stable")]] = np.arange(
+            len(frozen_rows))
+        alive = self.frozen.copy()
+        cursor = [0] * len(self.slots_of)
+        names = self.su.species_names
+        mov = np.nonzero(~flags)[0]
+        for mid in np.unique(mol_ids[mov]):
+            rows = mov[mol_ids[mov] == mid]
+            rows = rows[np.argsort(serials[rows], kind="stable")]
+            name = native_io.decode_name(arr["mol_names"], rows[0])
+            if name not in names:
+                return None
+            si = names.index(name)
+            if (cursor[si] >= len(self.slots_of[si])
+                    or len(rows) != self.su.species[si].natoms):
+                return None
+            slot = self.slots_of[si][cursor[si]]
+            cursor[si] += 1
+            dest[rows] = self.mol_atoms[slot][:len(rows)]
+            alive[slot] = True
+        return dest, alive
+
+
+def run_replay(job: input_script.Job, log=None, device=None) -> Averages:
+    """ensemble replay: the energies and observables of every frame of the
+    trajectory ``pqr_input`` (with ``calc_pressure``, the virial
+    pressure), averaged; returns the Averages (one sample per frame).
+
+    Frames are read by the native reader, one in memory at a time
+    (io/native.py::stream_frames_arrays).  A frame with the previous
+    frame's layout writes its positions straight into the padded state; a
+    frame whose molecules changed is laid out into the existing slots
+    (_ReplayLayout.fit), and only a frame that does not fit — one that
+    breaks the running molecule-count maximum — builds a new Setup.  Each
+    frame is then one full energy (metropolis.initialize: on the card one
+    pass of B2), and two more with the pressure."""
+    avgs = Averages()
+    su = layout = dest = prev_key = None
+    n_setups = n_relayouts = 0
+    for arr in native_io.stream_frames_arrays(job.pqr_input):
+        key = (arr["flags"], arr["ids"][:, 1].tobytes(), arr["mol_names"])
+        if su is None or key != prev_key:
+            fit = layout.fit(arr) if layout is not None else None
+            if fit is None:
+                su = setup(job, device=device,
+                           frame=native_io.frame_from_arrays(arr))
+                n_setups += 1
+                layout = _ReplayLayout(su)
+                fit = layout.fit(arr)
+            else:
+                n_relayouts += 1
+            dest, alive = fit
+            dest = torch.as_tensor(dest, device=su.state.pos.device)
+            su = dataclasses.replace(su, state=su.state.replace(
+                mol_alive=torch.as_tensor(alive,
+                                          device=su.state.pos.device)))
+        prev_key = key
+        pos = su.state.pos.clone()
+        pos.index_copy_(0, dest, torch.as_tensor(
+            arr["num"][:, :3], dtype=pos.dtype, device=pos.device))
+        st = su.state.replace(pos=pos)
+        if job.read_pqr_box and arr["box"] is not None:
+            st = st.replace(box=torch.as_tensor(arr["box"], dtype=pos.dtype,
+                                                device=pos.device))
+        su = dataclasses.replace(su, state=st)
+        state = metropolis.initialize(st, su.params, su.cfg, su.thermo)
+        obs = observables(su, state)
+        if job.calc_pressure:
+            obs["pressure_atm"] = _frame_pressure(su, state, job)
+        avgs.add(obs)
+    writer = output_io.RunWriter(job, su.species_names if su else [],
+                                 log=log)
+    print(f"replay: {avgs.count()} frames, {n_setups} setups, "
+          f"{n_relayouts} laid out into the existing slots", file=writer.log)
+    writer.final_averages(avgs, job.temperature)
+    writer.close()
+    return avgs
+
+
 def observables_batched(su: Setup, states: SimState, n_chains: int,
                         stats=None,
                         n_steps: int = 1) -> List[Dict[str, float]]:
@@ -389,6 +517,21 @@ def observables_batched(su: Setup, states: SimState, n_chains: int,
                                    su.frozen_mass))
         out.append(obs)
     return out
+
+
+def chains_mean(per_chain: List[Dict[str, float]]) -> Dict[str, float]:
+    """The cross-chain block line of ``chains N``: each key's mean over
+    the chains that report it, keys in first-seen order (a chain whose
+    polarizable sites all died reports no ``polar_rrms_debye``), and
+    ``N_sem_chains``, the chain spread's standard error of <N>."""
+    keys: List[str] = []
+    for o in per_chain:
+        keys.extend(k for k in o if k not in keys)
+    obs = {k: float(np.mean([o[k] for o in per_chain if k in o]))
+           for k in keys}
+    obs["N_sem_chains"] = float(np.std([o["N"] for o in per_chain])
+                                / np.sqrt(max(len(per_chain), 1)))
+    return obs
 
 
 def _hist_make(job, box):
@@ -497,8 +640,14 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
         pqr_io.write(job.frozen_output, frame.frozen,
                      remark="frozen framework")
     avgs = Averages()
-    hist = _hist_make(job, state.box)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    if job.checkpoint_input:
+        # the state, the averages and the random stream (exact resume)
+        state, avgs, _ = checkpoint.load(job.checkpoint_input, state,
+                                         generator=generator)
+        print(f"resumed exactly from {job.checkpoint_input} at step "
+              f"{state.step}", file=writer.log)
+    hist = _hist_make(job, state.box)
     corr = max(cfg.corrtime, 1)
     n_blocks = max(cfg.numsteps // corr, 1)
     refresh_rows = metropolis.frozen_refresh_rows(params, cfg)
@@ -522,6 +671,9 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
         writer.write_dipoles(params, state)
         if hist is not None:
             _hist_add(hist, state, params)
+        if job.checkpoint_output:
+            checkpoint.save(job.checkpoint_output, state, avgs,
+                            generator=generator)
         if job.adapt_moves:
             thermo = _adapted(thermo, obs.get("acc_displace", 0.5),
                               state.box, cfg)
@@ -609,10 +761,7 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
         states = multichain.initialize_batched(states, params, cfg, thermo,
                                                frozen_rows=refresh_rows)
         per_chain = observables_batched(su, states, C, stats, corr)
-        obs = {k: float(np.mean([o[k] for o in per_chain]))
-               for k in per_chain[0]}
-        obs["N_sem_chains"] = float(np.std([o["N"] for o in per_chain])
-                                    / np.sqrt(C))
+        obs = chains_mean(per_chain)
         stats = stats.host()
         acc = stats.accepts.sum(0) / np.maximum(stats.attempts.sum(0), 1)
         for i, nm in enumerate(("displace", "insert", "delete", "volume",
@@ -909,6 +1058,9 @@ def run(job: input_script.Job, **kw):
     if job.cfg.ensemble == "te":
         kw.pop("jsonl_path", None)
         return run_te(job, **kw)
+    if job.cfg.ensemble == "replay":
+        kw.pop("jsonl_path", None)
+        return run_replay(job, **kw)
     check_supported(job)
     raise NotImplementedError(
         f"ensemble {job.cfg.ensemble!r} not yet implemented")

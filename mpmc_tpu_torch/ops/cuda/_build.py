@@ -10,12 +10,13 @@ with ctypes: every pointer and the stream are ``c_void_p``, every count a
 ``c_int``, a constant a ``c_double``, an output count a pointer to a
 ``c_int``, and every entry returns a CUDA error code (0: none).
 
-The host library of ``csrc/pqr_io.cpp`` (the native PQR writer) builds the
+The host library of ``csrc/pqr_io.cpp`` (the native PQR codec: the
+trajectory reader and the frame writer) builds the
 same way with ``g++ -O2 -shared -fPIC`` (``host_library``), keyed by a
 hash of its source.
 
 Nothing here runs at import: the first kernel launch calls ``library()``,
-the first native write ``host_library()``.
+the first native read or write ``host_library()``.
 """
 from __future__ import annotations
 
@@ -89,6 +90,16 @@ _HOST_SIGNATURES = {
         "pqr_write_frame": ([ctypes.c_char_p] * 3 + [ctypes.c_long]
                             + [_P] * 2 + [ctypes.c_char_p] * 3
                             + [ctypes.c_int], ctypes.c_long),
+        # path -> stream handle
+        "pqr_open_stream": ([ctypes.c_char_p], _P),
+        # handle -> atoms of the next frame, 0 at EOF, -3 on a parse error
+        "pqr_stream_advance": ([_P], ctypes.c_long),
+        "pqr_error": ([_P], ctypes.c_char_p),
+        # handle, out[6] -> 1 if the frame has a cell
+        "pqr_frame_cell": ([_P, _P], ctypes.c_long),
+        # handle | num ids | flags names mol_names (caller's buffers)
+        "pqr_frame_data": ([_P] * 6, ctypes.c_long),
+        "pqr_close": ([_P], None),
     },
 }
 
@@ -186,7 +197,8 @@ def gxx():
     """Path of the host C++ compiler: g++ on PATH."""
     found = shutil.which("g++")
     if not found:
-        raise RuntimeError("g++ not found: the native writer cannot be built")
+        raise RuntimeError("g++ not found: the native PQR codec cannot be "
+                           "built")
     return found
 
 

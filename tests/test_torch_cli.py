@@ -83,7 +83,8 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 
 # (test id, deck lines, ROADMAP item): batched chains and parallel
 # tempering run now, with polarization too (item None: the deck runs on
-# the batched polar route)
+# the batched polar route), and so do exact checkpoints (item None: the
+# single-chain polar deck writes its checkpoint)
 REFUSED = [
     ("chains 4", "chains 4\npolarization on", None),
     ("ensemble npt", "A8b"),
@@ -96,7 +97,7 @@ REFUSED = [
     ("feynman_kleinert on", "A12"), ("cell_list on", "A12"),
     ("rd_crystal on", "A12"), ("spectre on", "A12"), ("sg on", "A12"),
     ("disp_expansion on", "A12"), ("gwp on", "A12"),
-    ("spatial_devices 2", "A13"), ("checkpoint_output ck.npz", "A6"),
+    ("spatial_devices 2", "A13"), ("checkpoint_output ck.npz", None),
 ]
 
 
@@ -105,14 +106,20 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
     """Each option outside the slice raises, naming its ROADMAP item (a
     three-field case names its deck lines apart from its id).  The
     batched polar chains and PT with polarization, once refused, run: a
-    few steps of the small polar deck on the batched route."""
+    few steps of the small polar deck on the batched route; a checkpoint,
+    once refused, is written by the single-chain polar deck."""
     line, item = case[-2:]
     if item is None:
         from torch_polar import polar_deck
+        line = line.replace("ck.npz", str(tmp_path / "ck.npz"))
         job = polar_deck(tmp_path, line + "\nn_replicas 2\ncorrtime 3\n",
                          numsteps=3)
         buf = io.StringIO()
         su, _ = trun.run(job, log=buf, device="cpu")
+        if line.startswith("checkpoint_output"):
+            assert (tmp_path / "ck.npz").exists()
+            assert float(su.state.energy.polar) < 0
+            return
         assert "batched scan chains" in buf.getvalue()
         assert su.states.mu is not None
         assert (su.states.energy.polar < 0).all()

@@ -1,7 +1,9 @@
 """The CUDA kernels (the pair kernels B2/B4, the fused µVT kernel B1, the
 fused NVT/NVE kernel B3 — both at every cluster size —, the Thole field
 kernel B5 and the polar delayed-acceptance stage-1 kernel B6) against
-their plain versions on the card.
+their plain versions on the card; the native trajectory reader on a
+10.8k-atom trajectory and checkpoints of card states with a CUDA
+generator.
 
 These need a CUDA device and ``nvcc``; they skip elsewhere.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -998,3 +1000,80 @@ def test_pt_round_on_the_card(device, kernel):
         np.testing.assert_allclose(np.sort(new_t.double().cpu().numpy()),
                                    temps, rtol=1e-6)
         thermos = thermos.replace(temperature=new_t)
+
+
+def test_native_reader_on_a_bench_trajectory(device, tmp_path):
+    """The native reader on a 10.8k-atom trajectory of three frames
+    written from card tensors by the native writer: every frame's arrays
+    equal io/pqr.py::read_frames field by field, and ``ensemble replay``
+    over it launches B2 once per frame."""
+    import io
+
+    from mpmc_tpu_torch.io import input_script, native, pqr
+    from mpmc_tpu_torch.mc import run
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=21, n_h2=256, capacity=512, device=device)
+    path = str(tmp_path / "traj.pqr")
+    alive = state.mol_alive.clone()
+    for k in range(3):
+        alive[1 + 7 * k] = False          # N changes between frames
+        st = state.replace(mol_alive=alive.clone(),
+                           pos=state.pos + 0.01 * k)
+        pqr.write_state(path, params, st, ["H2"], mode="w" if k == 0
+                        else "a", remark=f"frame {k}")
+    ref = pqr.read_frames(path)
+    got = list(native.stream_frames_arrays(path))
+    assert len(got) == len(ref) == 3
+    for arr, fr in zip(got, ref):
+        assert arr["num"].shape[0] == len(fr.atoms) > 10000
+        np.testing.assert_array_equal(arr["box"], fr.box)
+        np.testing.assert_array_equal(
+            arr["num"], [list(a.xyz) + [a.mass, a.charge, a.polar, a.eps,
+                                        a.sig, a.omega, a.c6, a.c8, a.c10,
+                                        a.gwp_alpha] for a in fr.atoms])
+        np.testing.assert_array_equal(
+            arr["ids"], [[a.serial, a.mol_id] for a in fr.atoms])
+        assert arr["flags"].decode() == "".join(a.flag for a in fr.atoms)
+        assert [native.decode_name(arr["mol_names"], k)
+                for k in range(len(fr.atoms))] == [a.mol_name
+                                                   for a in fr.atoms]
+    L = float(state.box[0, 0])
+    job = input_script.parse(
+        f"ensemble replay\ntemperature 77\nbasis1 {L} 0 0\n"
+        f"basis2 0 {L} 0\nbasis3 0 0 {L}\nallow_charged_cell on\n"
+        f"pqr_input {path}\n")
+    pk.reset_counts()
+    avgs = run.run(job, log=io.StringIO(), device=device)
+    torch.cuda.synchronize(device)
+    assert pk.pair_terms.launches == 3
+    assert avgs.samples["N"] == [255.0, 254.0, 253.0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_checkpoint_round_trip_of_card_tensors(device, dtype, tmp_path):
+    """A checkpoint of a card state and a CUDA generator loads back on the
+    card bit for bit, and the restored generator draws what the saved one
+    draws next; a resumed chunk equals the uninterrupted one."""
+    from mpmc_tpu_torch.io import checkpoint
+    params, state, cfg, thermo = _system(dtype, device)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    g = torch.Generator(device=device).manual_seed(5)
+    st1, _ = metropolis.run_chunk(state, params, cfg, thermo, 50,
+                                  generator=g)
+    path = str(tmp_path / "ck.pt")
+    checkpoint.save(path, st1, generator=g)
+    st2, _ = metropolis.run_chunk(st1, params, cfg, thermo, 50, generator=g)
+    g2 = torch.Generator(device=device).manual_seed(99)
+    back, _, _ = checkpoint.load(path, state, generator=g2)
+    assert back.pos.device == device and back.step == st1.step
+    assert torch.equal(back.pos, st1.pos)
+    assert torch.equal(back.sk_re, st1.sk_re)
+    for k, v in st1.energy.as_dict().items():
+        assert torch.equal(getattr(back.energy, k), v), k
+    st2b, _ = metropolis.run_chunk(back, params, cfg, thermo, 50,
+                                   generator=g2)
+    assert torch.equal(st2b.pos, st2.pos)
+    assert torch.equal(st2b.mol_alive, st2.mol_alive)
+    assert float(st2b.energy.total) == float(st2.energy.total)
+    assert torch.equal(torch.rand(8, generator=g, device=device),
+                       torch.rand(8, generator=g2, device=device))
