@@ -57,7 +57,10 @@ Phases (any failure raises, so the exit code is non-zero):
 10. batched scan chains — B4 over a chain axis (phase_mol_pair_chains:
    C = 1 against the single-chain launch bit for bit, C = 2 and 128
    against the plain version, chains with an empty pick included, times
-   and bound at C = 128), then DECK with ``chains 128`` and no fused_mc
+   and bound at C = 128; at C = 16 a [16, 20] header, each chain in its
+   own scaled box, against the plain version, a shared header equal to
+   its row repeated bit for bit, times and bound), then DECK with
+   ``chains 128`` and no fused_mc
    (phase_batched: 200 steps, the aggregate rate, B4 and B2 launches,
    every chain's bookkeeping after a further chunk, the busy share);
 11. parallel tempering (phase_pt) — 8 replicas, 77-250 K or 1-10 atm:
@@ -91,7 +94,20 @@ Phases (any failure raises, so the exit code is non-zero):
    mpmc_tpu_torch.campaign``'s main on DECK, 16 chains at 0.5, 1 and 2
    atm, twice uninterrupted and once stopped after the first pressure and
    resumed from its checkpoint directory: the rows against each other, B4
-   over chains and B2 on every point, chain-steps/s.
+   over chains and B2 on every point, chain-steps/s;
+17. NPT (phase_npt) — the 10k LJ fluid at its virial pressure on the scan
+   path (3000 steps), on the hybrid fused path (``fused_mc on``, 20,000
+   steps: B3 segments between scan-path volume attempts) and as 16
+   batched chains (200 steps, a B4 header per chain): steps/s, volume
+   attempts and acceptances, <V> and its drift, B2 launches == volume
+   attempts x chains + refreshes, B3 launches == segments, every chain's
+   bookkeeping after a further chunk, one chain against the chain run
+   alone over the same rows, the cost of a volume attempt;
+18. the library PT drivers (phase_pt_drivers) — 8 replicas, 1,024 steps a
+   round, 6 rounds, 77-250 K on the 10.8k GCMC system: NVT per replica
+   (B3) and in one launch (B3), µVT in one launch (B1): aggregate steps/s
+   with the swaps, the final ladder a permutation, launches per round,
+   B2 launches per refresh.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
@@ -132,7 +148,8 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "charge_field": "mpmc_tpu_torch/csrc/thole_kernel.cu",
            "run_steps_uvt_pda": "mpmc_tpu_torch/csrc/pda_kernel.cu",
            "mol_pair_c128": "mpmc_tpu_torch/csrc/pair_kernel.cu",
-           "dipole_field_c8": "mpmc_tpu_torch/csrc/thole_kernel.cu"}
+           "dipole_field_c8": "mpmc_tpu_torch/csrc/thole_kernel.cu",
+           "mol_pair_c16_header": "mpmc_tpu_torch/csrc/pair_kernel.cu"}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
@@ -141,7 +158,8 @@ REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "charge_field": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
             "run_steps_uvt_pda": "mpmc_tpu/ops/pallas/mc_kernel.py:2089",
             "mol_pair_c128": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
-            "dipole_field_c8": "mpmc_tpu/ops/pallas/thole_kernel.py:68"}
+            "dipole_field_c8": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
+            "mol_pair_c16_header": "mpmc_tpu/ops/pallas/pair_kernel.py:336"}
 # NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
 # tensor cores, and device memory
 PEAK_F32 = 67e12
@@ -2043,6 +2061,92 @@ def phase_mol_pair_chains(device, C=C_BATCHED):
                 f"{dms:.4f} ms on the card alone; plain {pms:.3f} ms; bound "
                 f"{bound:.5f} ms ({by}; {n_pairs} pairs x {OPS_PAIR_B2B4}, "
                 f"{nbytes} bytes)")
+    rep["header"] = _mol_pair_header(device, inputs, C_HEADER)
+    return rep
+
+
+# the NPT chains' width (phase_npt's n3 deck and B4's header per chain)
+C_HEADER = 16
+
+
+def _mol_pair_header(device, inputs, C):
+    """B4 over C chains with a [C, 20] header, a box per chain (the NPT
+    chains): the first C chains of ``inputs`` (_chain_inputs), each with
+    its positions and box scaled by its own exp(d ln V / 3), d ln V from
+    -0.06 to 0.06 (float64, then cast), current and trial rows, against
+    the plain version with each chain's own header row (B4's tolerance,
+    _tol); a shared [20] header gives the bits of the same row repeated
+    per chain; times at C per call, on the card alone and plain, and the
+    bound from this run's inputs."""
+    from mpmc_tpu_torch.mc import moves
+    from mpmc_tpu_torch.ops import pairs
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    rep = {"max_abs_err": 0.0}
+    args64, rows64, _, params64 = inputs["float64"]
+    box = args64[10][2:11].reshape(3, 3)
+    d_lnv = torch.linspace(-0.06, 0.06, C, dtype=torch.float64,
+                           device=device)
+    pos64, box64 = moves.scale_volume(args64[0][:C].contiguous(),
+                                      box.expand(C, 3, 3), params64, d_lnv)
+    ref = {}
+    for dt in ("float64", "float32"):
+        args, rows, _, params = inputs[dt]
+        cast = pos64.to(args[0].dtype)
+        scal = pairs.pair_scalars(box64.to(args[0].dtype), args[11])
+        shared = args[10]
+        for label, r in (("current", None), ("trial", rows[:C])):
+            a = [cast] + list(args[1:5]) + [args[5][:C].contiguous()] + list(
+                args[6:8]) + [args[8][:C].contiguous(), r]
+            k = pk.mol_pair_chains(*a, scal, args[11])
+            p = pk.mol_pair_chains_plain(*a, scal, args[11])
+            k0 = pk.mol_pair_chains(*a, shared, args[11])
+            k_rep = pk.mol_pair_chains(
+                *a, shared.expand(C, 20).contiguous(), args[11])
+            if not torch.equal(k0, k_rep):
+                raise AssertionError(f"B4 header {dt} {label}: a shared "
+                                     "header is not its row repeated per "
+                                     "chain, bit for bit")
+            k = k.double().cpu().numpy()
+            p = p.double().cpu().numpy()
+            if dt == "float64":
+                ref[label] = p
+                tol = _tol(torch.float64, p)
+            else:
+                tol = _tol(torch.float32, ref[label], p)
+                p = ref[label]
+            err = np.abs(k - p)
+            if not np.all(err <= tol):
+                bad = np.argwhere(err > tol)[:4].tolist()
+                raise AssertionError(f"B4 header {dt} C={C} {label} "
+                                     f"disagrees with its plain version at "
+                                     f"{bad}")
+            rep["max_abs_err"] = max(rep["max_abs_err"], float(err.max()))
+            log(f"B4 header per chain {dt} C={C} {label}: max |d| "
+                f"{err.max():.3e}, least tol/|d| "
+                f"{np.min(tol / np.maximum(err, 1e-300)):.3g}; shared "
+                "header == its row repeated, bit for bit")
+        if dt == "float32":
+            a = [cast] + list(args[1:5]) + [args[5][:C].contiguous()] + list(
+                args[6:8]) + [args[8][:C].contiguous(), rows[:C], scal,
+                              args[11]]
+            ms = time_calls(lambda: pk.mol_pair_chains(*a), device)
+            dms = time_device(lambda: pk.mol_pair_chains(*a), device, n=100)
+            pms = time_calls(lambda: pk.mol_pair_chains_plain(*a), device,
+                             n=3)
+            alive, mol = a[5], a[8]
+            own = params.mol_id[None, :] == mol[:, None]
+            cols = (alive & ~own).sum(1)
+            sites = torch.clamp(params.mol_natoms[mol],
+                                max=params.mol_atoms.shape[1])
+            n_pairs = int((sites * cols).sum())
+            nbytes = _nbytes(*a[:10], scal) + C * 4 * 4
+            bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4, nbytes)
+            rep.update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bound,
+                       bound_by=by, pairs=n_pairs, bytes=nbytes)
+            log(f"B4 header per chain f32 C={C}: kernel {ms:.4f} ms per "
+                f"call, {dms:.4f} ms on the card alone; plain {pms:.3f} ms; "
+                f"bound {bound:.5f} ms ({by}; {n_pairs} pairs x "
+                f"{OPS_PAIR_B2B4}, {nbytes} bytes)")
     return rep
 
 
@@ -2201,6 +2305,242 @@ def phase_pt(device):
                                  "last swap round differs")
         reps[label] = {"steps_per_sec": rate, "swap_acceptance":
                        acc / max(att, 1)}
+        launches[label] = ln
+    return launches, reps
+
+
+# NPT on the 10k LJ fluid (phase_npt): the virial pressure of LJ_DECK's
+# frame 0 (1,962.87 atm, phase_replay), so the volume drifts little; a volume
+# attempt every 100 steps, d ln V within +-0.004 (+-0.002 accepted 62-69 %
+# of the attempts)
+NPT_LINES = ("ensemble npt\npressure 1963\nvolume_probability 0.01\n"
+             "volume_change_factor 0.004\n")
+NPT_ROUTES = (
+    # label, deck lines, numsteps, chains, the route's log line
+    ("n1_scan", "", 3000, 1, None),
+    ("n2_hybrid", "fused_mc on\n", 20000, 1,
+     "fused_mc: hybrid fused NPT (B3 segments + scan-path volume moves)"),
+    ("n3_chains", f"chains {C_HEADER}\ncorrtime 100\n", 200, C_HEADER,
+     f"batched scan chains (C={C_HEADER})"),
+)
+
+
+class _VolumeCount:
+    """Counts NPT volume attempts (one per chain) and acceptances while a
+    deck runs, around metropolis._volume_step; the acceptances are summed
+    on the card and read once, at the end."""
+
+    def __enter__(self):
+        from mpmc_tpu_torch.mc import metropolis
+        self.mod, self.orig = metropolis, metropolis._volume_step
+        self.attempts, self.acc = 0, []
+
+        def counted(carry, u, thermo, c, params, cfg, stats, trace=None):
+            before = stats.accepts[..., metropolis.VOLUME].sum()
+            self.orig(carry, u, thermo, c, params, cfg, stats, trace)
+            self.attempts += 1 if u.ndim == 1 else u.shape[0]
+            self.acc.append(stats.accepts[..., metropolis.VOLUME].sum()
+                            - before)
+        metropolis._volume_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._volume_step = self.orig
+
+    def accepted(self):
+        return int(torch.stack(self.acc).sum()) if self.acc else 0
+
+
+def phase_npt(device):
+    """NPT on every route at full width: the 10k LJ fluid (LJ_DECK with
+    NPT_LINES) on the scan path (n1, 3000 steps), under fused_mc on the
+    hybrid path (n2, 20,000 steps: B3 segments between scan-path volume
+    attempts) and as 16 batched chains (n3, 200 steps, corrtime 100).
+    Each: its route, steps/s, volume attempts and acceptances, <V> and
+    the final volume's drift from the start, B2 launches == volume
+    attempts x chains + refreshes, B3 launches == segments (n2), B4 (n1)
+    or B4 over chains with a header per chain (n3) launched; then a
+    further chunk with volume moves and every chain's carried energy
+    against a fresh recompute (rel 1e-4); n2 also the cost of a volume
+    attempt (a hybrid chunk against a pure B3 one) and a profile; n3 one
+    chain beside the chain run alone over the same uniform rows."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.parallel import multichain
+    from mpmc_tpu_torch.state import slice_chain
+    v0 = N_LJ / 0.0212
+    launches, reps, sus = {}, {}, {}
+    for label, extra, numsteps, C, route in NPT_ROUTES:
+        with _VolumeCount() as vc:
+            su, avgs, text, ln = _run_deck(device, NPT_LINES + extra,
+                                           numsteps=numsteps, kind="lj",
+                                           verbose=False)
+            att, acc = vc.attempts, vc.accepted()
+        if (route is not None and route not in text) or (
+                route is None and ("fused_mc" in text or "batched" in text)):
+            raise AssertionError(f"npt {label} did not take its route")
+        if C == 1 and "WARNING" in text:
+            raise AssertionError(f"npt {label}: {text}")
+        rate = float(text.split("steps/sec:")[1].split()[0])
+        corr = 100 if C > 1 else 1000
+        blocks = max(numsteps // corr, 1)
+        refreshes = 1 + C * blocks
+        vols = torch.abs(torch.linalg.det(
+            (su.states if C > 1 else su.state).box.double()))
+        drift = float(vols.mean()) / v0 - 1.0
+        log(f"npt {label}: {rate:.2f} steps/s" + (" aggregate" if C > 1
+                                                  else "")
+            + f", volume attempts {att} accepted {acc} "
+            f"({acc / max(att, 1):.3f}), <V> {avgs.mean('volume'):.2f} A^3 "
+            f"(start {v0:.2f}), final volume drift {drift:+.3e}, "
+            f"displace acceptance {avgs.mean('acc_displace'):.4f}; "
+            f"launches {ln}")
+        if not 0 < acc < att:
+            raise AssertionError(f"npt {label}: {acc} of {att} volume "
+                                 "attempts accepted")
+        if ln["pair_terms"] != att + refreshes:
+            raise AssertionError(
+                f"npt {label}: B2 launched {ln['pair_terms']} times, not "
+                f"volume attempts x chains {att} + refreshes {refreshes}")
+        kern = {"n1_scan": "mol_pair", "n2_hybrid": "run_steps",
+                "n3_chains": "mol_pair_chains"}[label]
+        if label == "n2_hybrid":
+            n_v = round(0.01 * corr)
+            if ln["run_steps"] != blocks * n_v or att != blocks * n_v:
+                raise AssertionError(
+                    f"npt n2: B3 launched {ln['run_steps']} times and "
+                    f"{att} volume attempts, not {blocks * n_v} segments")
+        elif not ln[kern] > 0:
+            raise AssertionError(f"npt {label}: {kern} was not launched")
+        g = torch.Generator(device=device).manual_seed(61)
+        more = su.thermo.replace(volume_probability=torch.full_like(
+            su.thermo.volume_probability, 0.05))
+        if label == "n1_scan":
+            st, stats = metropolis.run_chunk(su.state, su.params, su.cfg,
+                                             more, 1000, generator=g)
+            chains = [st]
+        elif label == "n2_hybrid":
+            st, stats = metropolis.run_chunk_fused_npt(
+                su.state, su.params, su.cfg, more, 2000, generator=g)
+            chains = [st]
+        else:
+            u = torch.rand((C, 100, 16), generator=g, device=device)
+            sts, stats = multichain.run_chunk_batched(
+                su.states, su.params, su.cfg, more, 100, uniforms=u)
+            chains = [slice_chain(sts, c) for c in range(C)]
+            c = C // 2
+            uc = u[c].clone()
+            uc[:, 8] = u[0, :, 8]
+            one, st1 = metropolis.run_chunk(slice_chain(su.states, c),
+                                            su.params, su.cfg, more, 100,
+                                            uniforms=uc)
+            mine = stats.host().accepts[c].tolist()
+            alone = st1.host().accepts.tolist()
+            e_b, e_1 = float(chains[c].energy.total), float(one.energy.total)
+            dpos = float((chains[c].pos - one.pos).abs().max())
+            log(f"npt n3 chain {c} of {C} (100 steps at volume_probability "
+                f"0.05): accepts {mine}, energy {e_b:.6f} K, volume "
+                f"{float(torch.linalg.det(chains[c].box.double())):.4f}; "
+                f"run alone over the same rows: accepts {alone}, energy "
+                f"{e_1:.6f} K, volume "
+                f"{float(torch.linalg.det(one.box.double())):.4f}; max "
+                f"|d pos| {dpos:.3e} A")
+            if mine != alone or abs(e_b - e_1) > 1e-5 * abs(e_1):
+                raise AssertionError("npt n3: a chain differs from the "
+                                     "chain run alone")
+        acc_all = stats.host().accepts
+        log(f"npt {label} further chunk accepts "
+            f"{(acc_all.sum(0) if C > 1 else acc_all).tolist()}")
+        for c, st in enumerate(chains):
+            _check_bookkeeping(f"npt {label} chain {c}", st, su)
+        if label == "n2_hybrid":
+            # what a volume attempt costs: 1000 hybrid steps (10 attempts)
+            # against 1000 pure B3 steps
+            nvt = dataclasses.replace(su.cfg, ensemble="nvt")
+            tables = metropolis.nvt_fused_tables(su.params, su.state.mol_alive)
+            hyb = statistics.median(_clock_host(
+                lambda: metropolis.run_chunk_fused_npt(
+                    su.state, su.params, su.cfg, su.thermo, 1000,
+                    generator=g, tables=tables), device) for _ in range(5))
+            pure = statistics.median(_clock_host(
+                lambda: metropolis.run_chunk_fused(
+                    su.state, su.params, nvt, su.thermo, 1000, generator=g,
+                    tables=tables), device) for _ in range(5))
+            per_v = (hyb - pure * 0.99) / 10
+            log(f"npt n2: 1000 hybrid steps {hyb * 1e3:.2f} ms, 1000 pure "
+                f"B3 steps {pure * 1e3:.2f} ms: a volume attempt ~"
+                f"{per_v * 1e3:.3f} ms (host clock, median of 5)")
+            prof = _profile(
+                "npt_hybrid", lambda: metropolis.run_chunk_fused_npt(
+                    su.state, su.params, su.cfg, su.thermo, 1000,
+                    generator=g, tables=tables), 1000, device,
+                kernel="pair_terms")
+            reps[label] = {"volume_attempt_ms": per_v * 1e3,
+                           "b2_share": prof["kernel_share"],
+                           "device_busy_share": prof["device_busy_share"]}
+        reps.setdefault(label, {}).update(
+            steps_per_sec=rate, volume_attempts=att, volume_accepted=acc,
+            mean_volume=avgs.mean("volume"), volume_drift=drift)
+        launches[label], sus[label] = ln, su
+    return launches, reps
+
+
+def phase_pt_drivers(device, R=8, spr=1024, rounds=6):
+    """The library PT drivers on the reference's bench decks
+    (bench.py:733-797): 8 replicas on a 77-250 K ladder, 1,024 steps a
+    round, 6 rounds, on the 10.8k GCMC system — NVT through
+    run_parallel_tempering_fused (B3, R launches a round) and _multi (B3,
+    one launch a round), µVT through _multi (B1).  Each after a one-round
+    warm-up: the aggregate steps/s with the swaps, the accepted swaps,
+    the final temperatures a permutation of the ladder, the kernel's
+    launches per round, and B2 launches == 1 + R per refresh (every
+    corrtime, not after the last round)."""
+    from mpmc_tpu_torch.parallel import replica
+    params, state, cfg, thermo = bench_system("float32", device)
+    nvt = dataclasses.replace(cfg, ensemble="nvt", fused_mc=True)
+    uvt = dataclasses.replace(cfg, fused_mc=True)
+    temps = replica.geometric_ladder(77.0, 250.0, R)
+    reps, launches = {}, {}
+    for label, run, c, kernel, per_round in (
+            ("pt_fused_nvt", replica.run_parallel_tempering_fused, nvt,
+             "run_steps", R),
+            ("pt_fused_multi_nvt", replica.run_parallel_tempering_fused_multi,
+             nvt, "run_steps", 1),
+            ("pt_fused_multi_uvt", replica.run_parallel_tempering_fused_multi,
+             uvt, "run_steps_uvt", 1)):
+        run(params, state, c, thermo, temps, 1, spr, seed=4)
+        torch.cuda.synchronize(device)
+        _reset_counts()
+        t0 = time.perf_counter()
+        states, final, n_acc = run(params, state, c, thermo, temps, rounds,
+                                   spr, seed=5)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        ln = _launch_counts()
+        rate = rounds * spr * R / wall
+        attempted = sum((R - (r % 2)) // 2 for r in range(rounds))
+        log(f"{label}: {rate:.2f} steps/s aggregate with the swaps ({R} "
+            f"replicas x {rounds} rounds x {spr} steps in {wall:.3f} s), "
+            f"swaps accepted {n_acc}/{attempted}, final T "
+            + " ".join(f"{t:.2f}" for t in final)
+            + f"; {kernel} {ln[kernel] / rounds:.2f} launches a round, B2 "
+            f"{ln['pair_terms']}; launches {ln}")
+        if not np.allclose(np.sort(final), temps, rtol=1e-5):
+            raise AssertionError(f"{label}: the final temperatures are not "
+                                 "a permutation of the ladder")
+        if ln[kernel] != per_round * rounds:
+            raise AssertionError(f"{label}: {kernel} launched {ln[kernel]} "
+                                 f"times, not {per_round} a round")
+        since = n_ref = 0
+        for r in range(rounds):      # the drivers' per-corrtime refresh
+            since += spr
+            if since >= max(c.corrtime, 1) and r + 1 < rounds:
+                n_ref, since = n_ref + 1, 0
+        if ln["pair_terms"] != 1 + R * n_ref:
+            raise AssertionError(f"{label}: B2 launched {ln['pair_terms']} "
+                                 f"times, not 1 + R x {n_ref} refreshes")
+        reps[label] = {"steps_per_sec": rate, "swaps": n_acc,
+                       "attempted": attempted,
+                       "launches_per_round": ln[kernel] / rounds}
         launches[label] = ln
     return launches, reps
 
@@ -2833,6 +3173,10 @@ def main():
     t_pc = time.time()
     pc_launches, pc_reps = phase_polar_chains(dev)
     t_c8 += time.time() - t_pc
+    t_12 = time.time()
+    npt_launches, npt_reps = phase_npt(dev)
+    ptd_launches, ptd_reps = phase_pt_drivers(dev)
+    t_12 = time.time() - t_12
     # each kernel's launches on its own main path: B2 and B4 on the scan
     # path, B1 on the fused single-chain µVT path, B3 on the single-chain
     # MOF NVT deck, B5 (both modes) on the polar scan-path deck (dipole:
@@ -2849,10 +3193,14 @@ def main():
                 "run_steps_uvt_pda": pda_launches["pda"]["run_steps_uvt_pda"],
                 "mol_pair_c128": batched_launches["mol_pair_chains"],
                 "dipole_field_c8":
-                    pc_launches["polar_c8"]["dipole_field_chains"]}
+                    pc_launches["polar_c8"]["dipole_field_chains"],
+                # B4 over chains with a header per chain: the NPT chains
+                "mol_pair_c16_header":
+                    npt_launches["n3_chains"]["mol_pair_chains"]}
+    report["mol_pair_c16_header"] = report["mol_pair_c128"]["header"]
     names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps",
              "dipole_field", "charge_field", "run_steps_uvt_pda",
-             "mol_pair_c128", "dipole_field_c8")
+             "mol_pair_c128", "dipole_field_c8", "mol_pair_c16_header")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -2948,6 +3296,26 @@ def main():
         f"{campaign_rep['chain_steps_per_sec']:.2f}  campaign_points "
         f"{campaign_rep['points']}  pr11_phases_seconds {t_11:.1f}"
         f"  ({smi})")
+    b4h = report["mol_pair_c16_header"]
+    log("  ".join(f"npt_{k}_steps_per_sec {r['steps_per_sec']:.2f}  npt_{k}_"
+                  f"volume_acceptance {r['volume_accepted']}/"
+                  f"{r['volume_attempts']}  npt_{k}_mean_volume "
+                  f"{r['mean_volume']:.2f}  npt_{k}_volume_drift "
+                  f"{r['volume_drift']:+.3e}" for k, r in npt_reps.items())
+        + f"  npt_volume_attempt_ms "
+        f"{npt_reps['n2_hybrid']['volume_attempt_ms']:.3f}  npt_hybrid_b2_"
+        f"share {npt_reps['n2_hybrid']['b2_share']:.4f}  npt_hybrid_device_"
+        f"busy {npt_reps['n2_hybrid']['device_busy_share']:.4f}  "
+        f"b4_c{C_HEADER}_header_ms {b4h['ms']:.4f}  b4_c{C_HEADER}_header_"
+        f"device_ms {b4h['device_ms']:.4f}  b4_c{C_HEADER}_header_bound_ms "
+        f"{b4h['bound_ms']:.5f}  "
+        + "  ".join(f"{k}_steps_per_sec {r['steps_per_sec']:.2f}  {k}_swaps "
+                    f"{r['swaps']}/{r['attempted']}  {k}_launches_per_round "
+                    f"{r['launches_per_round']:.0f}"
+                    for k, r in ptd_reps.items())
+        + f"  npt_launches {npt_launches}  pt_driver_launches {ptd_launches}"
+        f"  pr12_phases_seconds {t_12:.1f}  wall_seconds "
+        f"{time.time() - t0:.1f}  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -456,7 +456,9 @@ __device__ __forceinline__ void reduce_body(
 // shared memory once per block and read into registers.  Chain c = blockIdx.y
 // owns pos/alive/mol/rows/out at its stride, partial slots [c nb, (c+1) nb)
 // and ticket[c].  tickets: zero between launches (each chain's last block
-// puts its own back).
+// puts its own back).  The scalar header sc is one [20] row for every chain
+// (sc_stride 0) or a row per chain (sc_stride 20: each chain its own box,
+// the NPT chains).
 static_assert(MT == RT, "B4's last block runs the reduction");
 template <typename T>
 __global__ void __launch_bounds__(MT) mol_pair_kernel(
@@ -465,9 +467,10 @@ __global__ void __launch_bounds__(MT) mol_pair_kernel(
     const int32_t* __restrict__ mol_id, const bool* __restrict__ alive,
     const int64_t* __restrict__ mol_atoms,
     const int64_t* __restrict__ mol_natoms, const int64_t* __restrict__ molp,
-    const T* __restrict__ rows, int A, const T* __restrict__ sc, int n,
-    Opts o, double* __restrict__ part, T* __restrict__ pmin,
-    int32_t* __restrict__ ticket, T* __restrict__ out) {
+    const T* __restrict__ rows, int A, const T* __restrict__ sc,
+    int sc_stride, int n, Opts o, double* __restrict__ part,
+    T* __restrict__ pmin, int32_t* __restrict__ ticket,
+    T* __restrict__ out) {
   __shared__ T rx[A_PAD], ry[A_PAD], rz[A_PAD], rq[A_PAD], re[A_PAD],
       rs[A_PAD];
   __shared__ double red[3][MT];
@@ -479,6 +482,7 @@ __global__ void __launch_bounds__(MT) mol_pair_kernel(
   pos += size_t(c) * n * 3;
   alive += size_t(c) * n;
   if (rows) rows += size_t(c) * A * 3;
+  sc += size_t(c) * sc_stride;
   part += size_t(c) * nb * 3;
   pmin += size_t(c) * nb;
   ticket += c;
@@ -562,12 +566,12 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
                     const int32_t* mol_id, const bool* alive,
                     const int64_t* mol_atoms, const int64_t* mol_natoms,
                     const int64_t* mol, const T* rows, int A, const T* sc,
-                    int n, int C, Opts o, double* part, T* pmin,
-                    int32_t* ticket, T* out, cudaStream_t stream) {
+                    int sc_stride, int n, int C, Opts o, double* part,
+                    T* pmin, int32_t* ticket, T* out, cudaStream_t stream) {
   const int nb = n > 0 ? (n + MT - 1) / MT : 1;
   mol_pair_kernel<T><<<dim3(nb, C), MT, 0, stream>>>(
       pos, q, eps, sig, mol_id, alive, mol_atoms, mol_natoms, mol, rows, A,
-      sc, n, o, part, pmin, ticket, out);
+      sc, sc_stride, n, o, part, pmin, ticket, out);
   return int(cudaGetLastError());
 }
 
@@ -594,13 +598,15 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
       const void* pos, const void* q, const void* eps, const void* sig,     \
       const void* mol_id, const void* alive, const void* mol_atoms,         \
       const void* mol_natoms, const void* mol, const void* rows, int A,     \
-      const void* sc, int n, int C, int rd, int mix, int es, int lrc,       \
-      void* part, void* pmin, void* ticket, void* out, void* stream) {      \
+      const void* sc, int sc_stride, int n, int C, int rd, int mix, int es, \
+      int lrc, void* part, void* pmin, void* ticket, void* out,             \
+      void* stream) {                                                       \
     return launch_mol_pair<T>(                                              \
         (const T*)pos, (const T*)q, (const T*)eps, (const T*)sig,           \
         (const int32_t*)mol_id, (const bool*)alive,                         \
         (const int64_t*)mol_atoms, (const int64_t*)mol_natoms,              \
-        (const int64_t*)mol, (const T*)rows, A, (const T*)sc, n, C,         \
+        (const int64_t*)mol, (const T*)rows, A, (const T*)sc, sc_stride, n, \
+        C,                                                                  \
         Opts{rd, mix, es, lrc}, (double*)part, (T*)pmin, (int32_t*)ticket,  \
         (T*)out, (cudaStream_t)stream);                                     \
   }

@@ -1,29 +1,40 @@
 """The Metropolis Monte Carlo engine (port of the non-cache scan path,
-with polarization and its delayed acceptance, and of the fused NVT/NVE,
-µVT and polar delayed-acceptance paths of mpmc_tpu/mc/metropolis.py).
+with polarization and its delayed acceptance and the NPT volume move, and
+of the fused NVT/NVE, µVT, hybrid NPT and polar delayed-acceptance paths
+of mpmc_tpu/mc/metropolis.py).
 
 The fused paths run a whole chunk in one kernel launch and apply its sums,
 positions and S(k) to the state: ``run_chunk_fused`` (one chain) and
 ``run_chunk_fused_multi`` (C stacked chains) through kernel B3
 (ops/cuda/mc_kernel.run_steps: NVT, or NVE for one chain), and
 ``run_chunk_fused_uvt`` / ``run_chunk_fused_uvt_multi`` through kernel B1
-(run_steps_uvt).  ``run_chunk_fused_uvt_polar_da`` alternates launches of
-kernel B6 (run_steps_uvt_pda: stage 1 of the polar delayed acceptance,
-up to PDA_SEG proposals frozen at the first survivor) with the exact SCF
-stage 2 of each survivor.  The rest of this docstring describes the scan
-path.
+(run_steps_uvt).  ``run_chunk_fused_npt`` interleaves B3 displacement
+segments with scan-path volume attempts.  ``run_chunk_fused_uvt_polar_da``
+alternates launches of kernel B6 (run_steps_uvt_pda: stage 1 of the polar
+delayed acceptance, up to PDA_SEG proposals frozen at the first survivor)
+with the exact SCF stage 2 of each survivor.  The rest of this docstring
+describes the scan path.
 
 One step = one row of a [K, 16] uniform table (lane layout of
 mc_kernel.draw_uniforms(lanes=16), consumed as mc_kernel._kernel_uvt does;
 see mc/moves.py for lanes 0-3 and 5-7):
 
 - lane 8 picks the move type: insert if u8 < p_ins/2, delete if
-  u8 < p_ins, else displace (µVT); always displace otherwise;
+  u8 < p_ins, else displace (µVT); a volume attempt if u8 <
+  volume_probability, else displace (NPT); always displace otherwise;
+- lane 1 gives a volume attempt's d ln V = (2 u1 - 1)
+  volume_change_factor (a volume attempt reads no displacement lane);
 - lane 9 picks the species of an insert/delete when there are several;
 - lane 4 is the acceptance coin: Metropolis at the temperature, or under
   ensemble nve Ray's rule against the kinetic reservoir E_total - U;
 - lane 12 is the stage-2 coin of the polar delayed acceptance, the lane
   the fused polar DA kernel reads (stage 1 takes lane 4).
+
+A volume attempt rescales every molecule's centre of mass and the cell
+(moves.scale_volume) and re-prices the whole system (energy.total_energy,
+on the card one B2 pass), then rebuilds the chunk's box constants (cutoff,
+alpha, the B4 header, k-vectors and weights) from the carried box, on the
+device.
 
 The move type is the only host decision of a step without polarization:
 it is read from a host copy of lane 8, made once per chunk.  Everything
@@ -94,8 +105,8 @@ def draw_uniforms(generator: torch.Generator, n_steps, dtype=torch.float32):
 def make_branch_picker(cfg: RunConfig):
     """(pick(u8_host [K], thermo) -> [K] branch ids, branch_ids): the
     ensemble's move table.  µVT: insert_probability split evenly between
-    insert and delete; every other ensemble of this slice (nvt, nve)
-    displaces."""
+    insert and delete; NPT: a volume attempt with volume_probability;
+    every other ensemble of this slice (nvt, nve) displaces."""
     if cfg.ensemble == "uvt" and cfg.insert_species:
         ids = [DISPLACE, INSERT, DELETE]
 
@@ -103,6 +114,11 @@ def make_branch_picker(cfg: RunConfig):
             p_ins = float(thermo.insert_probability)
             return np.where(u8 < 0.5 * p_ins, 1,
                             np.where(u8 < p_ins, 2, 0))
+    elif cfg.ensemble == "npt":
+        ids = [DISPLACE, VOLUME]
+
+        def pick(u8, thermo):
+            return np.where(u8 < float(thermo.volume_probability), 1, 0)
     else:
         ids = [DISPLACE]
 
@@ -172,23 +188,116 @@ def _background_delta(atom_alive, params, alpha, volume, mol, sign):
     return c_bg * (2.0 * sign * q_tot * q_m + q_m * q_m)
 
 
+NPT_FROZEN_TRAP = (
+    "ensemble npt with a frozen framework: a volume move rescales every "
+    "molecule's centre of mass, the framework's too, but it is priced "
+    "with split_frozen=True, so the frozen-frozen energy change never "
+    "enters the acceptance (the trap of mpmc_tpu/mc/metropolis.py:572-581)"
+    "; run NPT without frozen molecules")
+
+
+def check_npt(params: Params, cfg: RunConfig):
+    """Refuse what the NPT volume move cannot price: a frozen molecule
+    (NPT_FROZEN_TRAP, ValueError) and polarization (the full-system polar
+    candidate, ROADMAP A8c).  One host read of the frozen flags."""
+    if cfg.ensemble != "npt":
+        return
+    if cfg.polarization:
+        raise NotImplementedError(
+            "ensemble npt with polarization is not yet ported — ROADMAP "
+            "A8c")
+    if bool(params.mol_frozen.any()):
+        raise ValueError(NPT_FROZEN_TRAP)
+
+
 class _Chunk:
-    """Per-chunk constants of a fixed box: cutoff, Ewald tables, kernel
-    scalar header, volume."""
+    """Per-chunk constants of a box: cutoff, Ewald tables, kernel scalar
+    header, volume.  With stacked boxes [C, 3, 3] (the NPT chains) every
+    constant carries a leading [C].  A volume attempt ``rebuild``s them
+    from the carried box, on the device."""
 
     def __init__(self, box, params, cfg, thermo):
+        self.cfg, self.thermo = cfg, thermo
+        self.ewald = cfg.coulomb == "ewald"
+        self.lrc = cfg.rd_potential == "lj" and cfg.rd_lrc
+        self.rebuild(box)
+
+    def rebuild(self, box):
+        cfg = self.cfg
         self.rc = pairs.derived_cutoff(box, cfg)
         self.alpha = pairs.derived_alpha(self.rc, cfg)
         self.scal = pairs.pair_scalars(box, cfg)
         self.volume = torch.abs(torch.linalg.det(box))
-        self.ewald = cfg.coulomb == "ewald"
         if self.ewald:
             self.kv = ewald.kvectors(box, cfg.ewald_kmax)
             self.recip_w = ewald.recip_weights(box, self.alpha, self.kv)
         self.box = box
-        self.lrc = cfg.rd_potential == "lj" and cfg.rd_lrc
         self.ln_fv = torch.log(torch.clamp(
-            thermo.fugacity * ATM2K_A3 * self.volume, min=1e-300))
+            self.thermo.fugacity * ATM2K_A3 * self.volume[..., None],
+            min=1e-300))
+
+
+def _volume_trial(carry, u, thermo, c: _Chunk, params: Params,
+                  cfg: RunConfig):
+    """(new pos, new box, energy delta, ln_bias, (sk_re, sk_im)) of an NPT
+    volume attempt from ``carry`` (the reference's b_volume,
+    mpmc_tpu/mc/metropolis.py:566-595): d ln V = (2 u1 - 1)
+    volume_change_factor, the cell and every centre of mass rescaled, the
+    candidate's full energy (split_frozen, polarization and cdvdw off),
+    and ln_bias = (n + 1) d ln V - P (V_new - V_old) / T.  Over chains
+    (``u`` [C, 16], stacked carry) each chain's own d ln V and one
+    total_energy per chain (on the card C B2 launches)."""
+    dtype = carry["pos"].dtype
+    d_lnv = (2.0 * u[..., 1] - 1.0) * thermo.volume_change_factor
+    new_pos, new_box = moves.scale_volume(carry["pos"], carry["box"], params,
+                                          d_lnv)
+    cfg_np = dataclasses.replace(cfg, polarization=False, cdvdw=False)
+    ma = carry["mol_alive"]
+    if new_pos.ndim == 3:
+        per = [energy_mod.total_energy(new_pos[k], new_box[k], ma[k], params,
+                                       cfg_np, thermo, split_frozen=True)
+               for k in range(new_pos.shape[0])]
+        e_new = EnergyBreakdown.stack([e for e, _, _ in per])
+        sk = ((torch.stack([a["sk_re"] for _, _, a in per]),
+               torch.stack([a["sk_im"] for _, _, a in per]))
+              if c.ewald else None)
+    else:
+        e_new, _, aux = energy_mod.total_energy(
+            new_pos, new_box, ma, params, cfg_np, thermo, split_frozen=True)
+        sk = (aux["sk_re"], aux["sk_im"]) if c.ewald else None
+    zero = torch.zeros_like(carry["energy"].polar)
+    d = e_new.sub(dataclasses.replace(carry["energy"], polar=zero, vdw=zero))
+    n = torch.sum(_movable_mask(params, ma), dim=-1).to(dtype)
+    v_new = torch.abs(torch.linalg.det(new_box))
+    ln_bias = ((n + 1.0) * d_lnv - thermo.pressure * ATM2K_A3
+               * (v_new - c.volume) / thermo.temperature)
+    return new_pos, new_box, d, ln_bias, sk
+
+
+def _volume_step(carry, u, thermo, c: _Chunk, params: Params,
+                 cfg: RunConfig, stats, trace=None):
+    """One NPT volume attempt (``_volume_trial``), accepted on lane 4, its
+    positions, box, energy and S(k) committed per chain, then the chunk's
+    box constants rebuilt from the carried box (no host sync)."""
+    new_pos, new_box, d, ln_bias, sk = _volume_trial(carry, u, thermo, c,
+                                                     params, cfg)
+    accept = (torch.log(torch.clamp(u[..., 4], min=1e-38))
+              < ln_bias - d.total / thermo.temperature)
+    a3 = accept.reshape(accept.shape + (1, 1))
+    carry["pos"] = torch.where(a3, new_pos, carry["pos"])
+    carry["box"] = torch.where(a3, new_box, carry["box"])
+    carry["energy"] = carry["energy"].add(d).select(accept, carry["energy"])
+    if c.ewald:
+        a1 = accept.reshape(accept.shape + (1,))
+        carry["sk_re"] = torch.where(a1, sk[0], carry["sk_re"])
+        carry["sk_im"] = torch.where(a1, sk[1], carry["sk_im"])
+    c.rebuild(carry["box"])
+    stats.attempts[..., VOLUME] += 1
+    stats.accepts[..., VOLUME] += accept.to(torch.int64)
+    if trace is not None:
+        trace.append({"mol": None, "rows": None, "accept": accept,
+                      "reject": torch.zeros_like(accept), "ln_bias": ln_bias,
+                      "d": d, "box": new_box})
 
 
 def polar_trial(carry, c: _Chunk, params: Params, cfg: RunConfig, mol,
@@ -302,14 +411,16 @@ def make_step_fn(params: Params, cfg: RunConfig):
     """The single-step function of this (params, cfg):
     step(carry, u, t, thermo, c, stats, trace=None) with ``carry`` a dict
     of the mutable state (pos, mol_alive updated in place; energy, sk and
-    the polar tensors replaced), ``u`` the step's [16] uniform row, ``t``
-    the host-chosen branch index, ``c`` the chunk's _Chunk constants;
-    ``stats`` accumulates in place.  A ``trace`` list gets one dict per
-    step with the trial and its decision (the tests replay them)."""
-    if cfg.ensemble not in ("uvt", "nvt", "nve"):
+    the polar tensors replaced; under NPT box and pos replaced by a
+    volume attempt), ``u`` the step's [16] uniform row, ``t`` the
+    host-chosen branch index, ``c`` the chunk's _Chunk constants (rebuilt
+    in place by a volume attempt); ``stats`` accumulates in place.  A
+    ``trace`` list gets one dict per step with the trial and its decision
+    (the tests replay them)."""
+    if cfg.ensemble not in ("uvt", "nvt", "nve", "npt"):
         raise NotImplementedError(
-            f"ensemble {cfg.ensemble} is not yet ported — ROADMAP "
-            + ("A8b" if cfg.ensemble == "npt" else "A12"))
+            f"ensemble {cfg.ensemble} is not yet ported — ROADMAP A12")
+    check_npt(params, cfg)
     dtype = cfg.tdtype
     nve = cfg.ensemble == "nve"
     dev = params.device
@@ -427,6 +538,9 @@ def make_step_fn(params: Params, cfg: RunConfig):
     _, branch_ids = make_branch_picker(cfg)
 
     def step(carry, u, t, thermo, c, stats, trace=None):
+        if branch_ids[t] == VOLUME:
+            _volume_step(carry, u, thermo, c, params, cfg, stats, trace)
+            return
         mol, rows, alive_new, d, ln_bias, reject, sk = branches[t](
             carry, u, thermo, c)
         du = d.total
@@ -489,24 +603,44 @@ def make_step_fn(params: Params, cfg: RunConfig):
     return step
 
 
+def _carry(state: SimState, params: Params, cfg: RunConfig):
+    """The mutable state of a chunk (single chain, or [C]-stacked chains):
+    clones of ``pos`` and ``mol_alive``, the rest as it is."""
+    carry = {"pos": state.pos.clone(), "mol_alive": state.mol_alive.clone(),
+             "box": state.box, "energy": state.energy, "sk_re": state.sk_re,
+             "sk_im": state.sk_im, "mu": state.mu, "e0": state.e0,
+             "r_pol": state.r_pol}
+    carry["alive"] = (carry["mol_alive"][..., params.mol_id]
+                      & params.atom_ok)
+    carry["u_frozen"] = (state.e_frozen.total if state.e_frozen is not None
+                         else torch.zeros(state.pos.shape[:-2],
+                                          dtype=cfg.tdtype,
+                                          device=state.pos.device))
+    return carry
+
+
+def _from_carry(state: SimState, carry, n_steps: int) -> SimState:
+    """``state`` with a chunk's carry written back, ``n_steps`` on."""
+    return state.replace(pos=carry["pos"], box=carry["box"],
+                         mol_alive=carry["mol_alive"],
+                         energy=carry["energy"], sk_re=carry["sk_re"],
+                         sk_im=carry["sk_im"], mu=carry["mu"],
+                         e0=carry["e0"], r_pol=carry["r_pol"],
+                         step=state.step + n_steps)
+
+
 def chunk_setup(state: SimState, params: Params, cfg: RunConfig,
                 thermo: Thermo, uniforms):
     """(step, carry, consts, branch ids [K] on the host, stats) for a
     chunk over the uniform table ``uniforms`` — everything the step loop
     needs, after the chunk's one host sync (the copy of lane 8).  The
-    carry holds clones of ``pos`` and ``mol_alive`` and the table as
-    ``carry["u"]`` on the state's device."""
+    carry holds clones of ``pos`` and ``mol_alive``, the box, and the
+    table as ``carry["u"]`` on the state's device."""
     u = uniforms.to(device=state.pos.device, dtype=cfg.tdtype)
     pick, _ = make_branch_picker(cfg)
     branch = pick(u[:, 8].cpu().numpy(), thermo)
-    carry = {"pos": state.pos.clone(), "mol_alive": state.mol_alive.clone(),
-             "energy": state.energy, "sk_re": state.sk_re,
-             "sk_im": state.sk_im, "u": u, "mu": state.mu, "e0": state.e0,
-             "r_pol": state.r_pol}
-    carry["alive"] = carry["mol_alive"][params.mol_id] & params.atom_ok
-    carry["u_frozen"] = (state.e_frozen.total if state.e_frozen is not None
-                         else torch.zeros((), dtype=cfg.tdtype,
-                                          device=state.pos.device))
+    carry = _carry(state, params, cfg)
+    carry["u"] = u
     return (make_step_fn(params, cfg), carry,
             _Chunk(state.box, params, cfg, thermo), branch,
             MCStats.zero(state.pos.device))
@@ -526,11 +660,7 @@ def run_chunk(state: SimState, params: Params, cfg: RunConfig,
     uniforms = carry["u"]
     for k in range(n_steps):
         step(carry, uniforms[k], int(branch[k]), thermo, c, stats)
-    return state.replace(pos=carry["pos"], mol_alive=carry["mol_alive"],
-                         energy=carry["energy"], sk_re=carry["sk_re"],
-                         sk_im=carry["sk_im"], mu=carry["mu"],
-                         e0=carry["e0"], r_pol=carry["r_pol"],
-                         step=state.step + n_steps), stats
+    return _from_carry(state, carry, n_steps), stats
 
 
 # ---------------------------------------------------------------------------
@@ -558,11 +688,17 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
     Under ``polar_delayed`` the stage-1 test of every chain is read once
     (one [C] vector) and only its survivors solve: the others keep mu
     and the residual and count no iteration, which are the numbers the
-    reference's per-chain select gives."""
-    if cfg.ensemble not in ("uvt", "nvt", "nve"):
+    reference's per-chain select gives.
+
+    Under NPT every chain has its own box (``carry["box"]`` [C, 3, 3], a
+    ``c`` with [C] constants: the B4 header [C, 20], k-vectors [C, Nk,
+    3], recip weights per chain); a volume step is every chain's attempt
+    at once (the move type is shared), each with its own d ln V and
+    acceptance."""
+    if cfg.ensemble not in ("uvt", "nvt", "nve", "npt"):
         raise NotImplementedError(
-            f"ensemble {cfg.ensemble} is not yet ported — ROADMAP "
-            + ("A8b" if cfg.ensemble == "npt" else "A12"))
+            f"ensemble {cfg.ensemble} is not yet ported — ROADMAP A12")
+    check_npt(params, cfg)
     dtype = cfg.tdtype
     nve = cfg.ensemble == "nve"
     dev = params.device
@@ -680,6 +816,9 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
     _, branch_ids = make_branch_picker(cfg)
 
     def step(carry, u, t, thermo, c, stats, trace=None):
+        if branch_ids[t] == VOLUME:
+            _volume_step(carry, u, thermo, c, params, cfg, stats, trace)
+            return
         C = u.shape[0]
         zero = torch.zeros(C, dtype=dtype, device=dev)
         mol, rows, alive_new, d, ln_bias, reject, sk = branches[t](
@@ -754,26 +893,22 @@ def batched_chunk_setup(states: SimState, params: Params, cfg: RunConfig,
     move type of chain 0's lane 8 (the reference's shared move-type draw:
     a move type per step for the batch, targets and coins per chain),
     read in the chunk's one host sync.  The carry holds the chains' mu,
-    e0 and r_pol (the polar step's); ``stats.polar_iters`` is [C]."""
+    e0 and r_pol (the polar step's); ``stats.polar_iters`` is [C].  The
+    constants are chain 0's box's (every ensemble but NPT shares the box),
+    under NPT each chain's ([C] constants)."""
     u = uniforms.to(device=states.pos.device, dtype=cfg.tdtype)
     C = states.pos.shape[0]
     pick, _ = make_branch_picker(cfg)
     branch = pick(u[0, :, 8].cpu().numpy(), thermo)
-    carry = {"pos": states.pos.clone(),
-             "mol_alive": states.mol_alive.clone(),
-             "energy": states.energy, "sk_re": states.sk_re,
-             "sk_im": states.sk_im, "u": u, "mu": states.mu,
-             "e0": states.e0, "r_pol": states.r_pol}
-    carry["alive"] = carry["mol_alive"][:, params.mol_id] & params.atom_ok
-    carry["u_frozen"] = (states.e_frozen.total if states.e_frozen is not None
-                         else torch.zeros(C, dtype=cfg.tdtype,
-                                          device=states.pos.device))
+    carry = _carry(states, params, cfg)
+    carry["u"] = u
     dev = states.pos.device
     stats = MCStats(np.zeros((C, N_MOVE_TYPES), np.int64),
                     torch.zeros((C, N_MOVE_TYPES), dtype=torch.int64,
                                 device=dev), np.zeros(C, np.int64))
+    box = states.box if cfg.ensemble == "npt" else states.box[0]
     return (make_batched_step_fn(params, cfg), carry,
-            _Chunk(states.box[0], params, cfg, thermo), branch, stats)
+            _Chunk(box, params, cfg, thermo), branch, stats)
 
 
 # ---------------------------------------------------------------------------
@@ -916,6 +1051,61 @@ def run_chunk_fused(state: SimState, params: Params, cfg: RunConfig,
         generator=generator, uniforms=uniforms, tables=tables)
     return slice_chain(states, 0), MCStats(stats.attempts[0],
                                            stats.accepts[0])
+
+
+def run_chunk_fused_npt(state: SimState, params: Params, cfg: RunConfig,
+                        thermo: Thermo, n_steps: int, generator=None,
+                        uniforms=None, tables=None):
+    """K NPT steps as B3 displacement segments interleaved with scan-path
+    volume attempts — the hybrid fused NPT path (the reference's
+    run_chunk_fused_npt and _fused_npt_segment,
+    mpmc_tpu/mc/metropolis.py:1256-1336).  B3 cannot price a volume move
+    (it shifts every coordinate and re-prices every term), so the chunk
+    runs n_v = round(pv K) volume attempts (pv = volume_probability, read
+    once on the host) spaced evenly, divmod(K - n_v, n_v) displacement
+    steps before each; each part leaves the NPT distribution invariant,
+    so their fixed-order composition samples it too.  A segment's launch
+    takes rc, alpha and the k-table from the box it starts in
+    (fused_nvt_launch_args), so a volume attempt needs no cache rebuilt.
+    Returns (state, MCStats); ``state.step`` advances by exactly K.
+
+    The [K, 16] uniform table is ``uniforms`` when given (tests inject
+    it), else drawn from ``generator``: each segment takes its next rows,
+    each volume attempt the next one (lanes 1 and 4 as on the scan
+    path).  ``tables``: an ``nvt_fused_tables`` result to reuse across
+    chunks (NPT never changes aliveness).  The caller has checked
+    mc_kernel.supported_npt(cfg, params)."""
+    if uniforms is None:
+        uniforms = draw_uniforms(generator, n_steps, cfg.tdtype)
+    uniforms = uniforms.to(device=state.pos.device, dtype=cfg.tdtype)
+    if tables is None:
+        tables = nvt_fused_tables(params, state.mol_alive)
+    cfg_nvt = dataclasses.replace(cfg, ensemble="nvt")
+    pv = float(thermo.volume_probability)
+    n_v = int(round(pv * n_steps))
+    if n_v <= 0:
+        return run_chunk_fused(state, params, cfg_nvt, thermo, n_steps,
+                               uniforms=uniforms, tables=tables)
+    step = make_step_fn(params, cfg)
+    stats = MCStats.zero(state.pos.device)
+    base, rem = divmod(n_steps - n_v, n_v)
+    row = 0
+    for s in range(n_v):
+        n_disp = base + 1 if s < rem else base
+        if n_disp > 0:
+            state, s2 = run_chunk_fused(state, params, cfg_nvt, thermo,
+                                        n_disp,
+                                        uniforms=uniforms[row:row + n_disp],
+                                        tables=tables)
+            stats.attempts += s2.attempts
+            stats.accepts += s2.accepts
+            row += n_disp
+        carry = _carry(state, params, cfg)
+        step(carry, uniforms[row], 1, thermo,
+             _Chunk(state.box, params, cfg, thermo), stats)
+        state = _from_carry(state, carry, 1)
+        row += 1
+    return state, stats
 
 
 # ---------------------------------------------------------------------------

@@ -97,7 +97,14 @@ def scale_volume(pos, box, params: Params, d_lnv):
     / 3): rigid molecules keep their geometry (the NPT volume move, and
     the virial pressure's volume perturbation).  Returns (new_pos,
     new_box).  The frozen framework's COM moves too, so a volume move is
-    only valid without one; the caller decides."""
+    only valid without one; the caller decides.  Over chains (``pos``
+    [C, N, 3], ``box`` [C, 3, 3], ``d_lnv`` [C]) each chain is its
+    single-chain call, bit for bit."""
+    if pos.ndim == 3:
+        out = [scale_volume(pos[c], box[c], params, d_lnv[c])
+               for c in range(pos.shape[0])]
+        return (torch.stack([p for p, _ in out]),
+                torch.stack([b for _, b in out]))
     s = torch.exp(torch.as_tensor(d_lnv, dtype=pos.dtype,
                                   device=pos.device) / 3.0)
     coms = all_molecule_coms(pos, params)                # [M, 3]

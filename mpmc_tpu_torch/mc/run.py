@@ -104,14 +104,26 @@ def _refuse(what: str, item: str):
     raise NotImplementedError(f"{what} is not yet ported — ROADMAP {item}")
 
 
+NPT_PT_TRAP = (
+    "ensemble npt under parallel tempering: the swap rule (b_i - b_j)"
+    "(E_i - E_j) lacks the P (V_i - V_j) term of the isothermal-isobaric "
+    "weight, so the ladder would sample the wrong ensemble (the trap of "
+    "mpmc_tpu/parallel/replica.py:109-131, :370-398)")
+
+
 def check_supported(job: input_script.Job):
     """Refuse every option outside the port's slice (NotImplementedError
-    naming the ROADMAP item)."""
+    naming the ROADMAP item), and NPT under parallel tempering
+    (ValueError, NPT_PT_TRAP); NPT with a frozen molecule is refused by
+    make_step_fn / make_batched_step_fn (metropolis.check_npt)."""
     cfg = job.cfg
     if cfg.ensemble == "npt":
-        _refuse("ensemble npt (the hybrid fused NPT and the scan-path "
-                "volume move)", "A8b")
-    if cfg.ensemble not in ("uvt", "nvt", "nve", "te", "replay"):
+        if cfg.polarization:
+            _refuse("ensemble npt with polarization (the full-system polar "
+                    "candidate of a volume move)", "A8c")
+        if job.parallel_tempering or job.pt_fugacity:
+            raise ValueError(NPT_PT_TRAP)
+    if cfg.ensemble not in ("uvt", "nvt", "nve", "npt", "te", "replay"):
         _refuse(f"ensemble {cfg.ensemble}", "A12")
     for flag, what, item in (
             (cfg.cavity_bias, "cavity_bias", "A11"),
@@ -575,10 +587,11 @@ def _annealed(thermo, job):
 
 
 def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
-    """The main MC loop (ensemble uvt/nvt/nve): one chain on the scan path,
-    or under ``fused_mc`` on the fused NVT/NVE kernel (B3), the fused µVT
-    kernel (B1) or, with polarization and ``polar_delayed``, the fused
-    polar delayed acceptance (B6); ``chains N`` goes to
+    """The main MC loop (ensemble uvt/nvt/nve/npt): one chain on the scan
+    path, or under ``fused_mc`` on the fused NVT/NVE kernel (B3), the
+    fused µVT kernel (B1), with polarization and ``polar_delayed`` the
+    fused polar delayed acceptance (B6), or under NPT the hybrid path (B3
+    segments and scan-path volume attempts); ``chains N`` goes to
     ``run_mc_chains``."""
     if job.pt_fugacity:       # implies tempering, along the fugacity
         return run_mc_pt_fug(job, log=log, jsonl_path=jsonl_path,
@@ -621,6 +634,13 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
                     params, mc_kernel.pda_effective_cfg(cfg, params)))
             print("fused_mc: polar delayed-acceptance stage-1 kernel "
                   "(exact SCF stage 2 per survivor)", file=writer.log)
+        elif mc_kernel.supported_npt(cfg, params):
+            chunk = functools.partial(
+                metropolis.run_chunk_fused_npt,
+                tables=metropolis.nvt_fused_tables(params,
+                                                   su.state.mol_alive))
+            print("fused_mc: hybrid fused NPT (B3 segments + scan-path "
+                  "volume moves)", file=writer.log)
         elif cfg.polarization and cfg.polar_delayed:
             print("WARNING: polar_delayed requested but the fused "
                   "stage-1 kernel refuses this combination (it needs "
@@ -630,9 +650,10 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
                   "runs instead", file=writer.log)
         else:
             print("WARNING: fused_mc requested but unsupported for this "
-                  "configuration (needs rigid <=8-site NVT/NVE or "
-                  "<=8-species µVT, lj/none RD, none/cutoff/wolf/ewald ES, "
-                  "a neutral template under ewald, f32) — scan path used",
+                  "configuration (needs rigid <=8-site NVT/NVE / "
+                  "frameworkless NPT or <=8-species µVT, lj/none RD, "
+                  "none/cutoff/wolf/ewald ES, a neutral template under "
+                  "ewald, f32) — scan path used",
                   file=writer.log)
     state = metropolis.initialize(su.state, params, cfg, thermo)
     if job.frozen_output:
@@ -697,7 +718,8 @@ def _chains_route(cfg, params, mol_alive, C, writer, what="multi-chain"):
     the fused µVT kernel (B1) where their gates hold under ``fused_mc``,
     else the batched scan chains (B4 over the chain axis; with
     polarization the SCF over the chains, B5 over the chain axis, which
-    the fused gates refuse) — and the log line that says which."""
+    the fused gates refuse; under NPT a box per chain) — and the log line
+    that says which."""
     if cfg.fused_mc and mc_kernel.supported_multi(cfg, params):
         chunk = functools.partial(
             metropolis.run_chunk_fused_multi,
@@ -1053,7 +1075,7 @@ def run_mc_pt_fug(job: input_script.Job, log=None, jsonl_path=None,
 def run(job: input_script.Job, **kw):
     """Run a parsed job on ``device`` (keyword; default the current CUDA
     device, and an error without one)."""
-    if job.cfg.ensemble in ("nvt", "nve", "uvt"):
+    if job.cfg.ensemble in ("nvt", "nve", "uvt", "npt"):
         return run_mc(job, **kw)
     if job.cfg.ensemble == "te":
         kw.pop("jsonl_path", None)

@@ -43,9 +43,9 @@ _SIGNATURES = {
         "pair_terms": [_P] * 9 + [_I] * 9 + [_P] * 4 + [_P],
         # [CTAs resident on the card] out
         "pair_config": [_PI],
-        # pos q eps sig mol alive mol_atoms natoms mol rows | A | scal | n
-        # C rd mix es lrc | part pmin ticket out | stream
-        "mol_pair": [_P] * 10 + [_I] + [_P] + [_I] * 6 + [_P] * 4 + [_P],
+        # pos q eps sig mol alive mol_atoms natoms mol rows | A | scal |
+        # scal_stride n C rd mix es lrc | part pmin ticket out | stream
+        "mol_pair": [_P] * 10 + [_I] + [_P] + [_I] * 7 + [_P] * 4 + [_P],
     },
     "uvt_kernel": {
         # pos alive eps sig q mass slot_start slot_species slot_alive tmpl

@@ -189,6 +189,23 @@ def supported(cfg, params) -> bool:
     return bool(mov.any()) and bool((natoms[mov] <= MAX_SITES).all())
 
 
+def supported_npt(cfg, params) -> bool:
+    """Static gate for the hybrid fused NPT path (the reference's
+    supported_npt, mpmc_tpu/ops/pallas/mc_kernel.py:2957-2973;
+    metropolis.run_chunk_fused_npt): B3's physics surface for the
+    displacement segments, no spinflip or TMMC, no frozen molecule (a
+    volume move rescales every molecule's centre of mass), and rigid
+    molecules of at most MAX_SITES sites.  Host-side, once per run."""
+    if not (cfg.ensemble == "npt" and _supported_physics(cfg)
+            and not cfg.quantum_rotation and not cfg.tmmc):
+        return False
+    if bool(params.mol_frozen.any()):
+        return False
+    natoms = params.mol_natoms.cpu().numpy()
+    mov = params.mol_species.cpu().numpy() >= 0
+    return bool(mov.any()) and bool((natoms[mov] <= MAX_SITES).all())
+
+
 def supported_multi(cfg, params) -> bool:
     """Gate of the C-chain NVT launch: the single-chain surface without
     NVE (the reference keeps one kinetic reservoir per launch, and its

@@ -18,7 +18,8 @@ block reduces the blocks' partials, held in scratch kept per device and
 type (``mol_pair_scratch``), so a move allocates only its output.
 ``mol_pair_chains`` launches the same kernel over C chains (the batched
 scan chains): the chain is a grid axis, each chain with its own partial
-slots and ticket, raw output [C, 4].
+slots and ticket, raw output [C, 4].  Its scalar header is one [20] row
+for every chain or a [C, 20] row per chain (NPT chains, each its own box).
 
 Each wrapper takes the plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor; anything else raises.  There is no
@@ -267,7 +268,8 @@ def mol_pair_scratch(device, dtype, nb, C=1):
 def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
                      mol_natoms, mol, rows, scal, cfg):
     """One B4 launch over C = pos.shape[0] chains (pos [C, N, 3], alive
-    [C, N], mol [C], rows [C, A, 3] or None): raw [C, 4]."""
+    [C, N], mol [C], rows [C, A, 3] or None, scal [20] shared or [C, 20]
+    per chain): raw [C, 4]."""
     C, n = pos.shape[0], pos.shape[1]
     dt, dev = pos.dtype, pos.device
     m, a = mol_atoms.shape
@@ -285,7 +287,7 @@ def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     _check("mol", mol, torch.int64, (C,), dev)
     if rows is not None:
         _check("rows", rows, dt, (C, a, 3), dev)
-    _check("scal", scal, dt, (20,), dev)
+    _check("scal", scal, dt, (C, 20) if scal.ndim == 2 else (20,), dev)
     rd, mix, es, lrc = _opts(cfg)
     nb = max(-(-n // MT), 1)
     part, pmin, ticket = mol_pair_scratch(dev, dt, nb, C)
@@ -295,7 +297,8 @@ def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     err = fn(_ptr(pos), _ptr(charge), _ptr(eps), _ptr(sig), _ptr(mol_id),
              _ptr(alive), _ptr(mol_atoms), _ptr(mol_natoms), _ptr(mol),
              ctypes.c_void_p(None if rows is None else rows.data_ptr()),
-             a, _ptr(scal), n, C, rd, mix, es, lrc, _ptr(part), _ptr(pmin),
+             a, _ptr(scal), 20 if scal.ndim == 2 else 0, n, C, rd, mix, es,
+             lrc, _ptr(part), _ptr(pmin),
              _ptr(ticket), _ptr(out), _stream(dev))
     _raise_on(err, "mol_pair")
     return out
@@ -324,11 +327,13 @@ mol_pair.launches = 0
 
 def mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
                           mol_natoms, mol, rows, scal, cfg):
-    """Plain B4 over chains: ``mol_pair_plain`` of each chain, stacked."""
+    """Plain B4 over chains: ``mol_pair_plain`` of each chain with its
+    header row (``scal`` [C, 20]) or the shared one ([20]), stacked."""
     return torch.stack([
         mol_pair_plain(pos[c], charge, eps, sig, mol_id, alive[c],
                        mol_atoms, mol_natoms, mol[c],
-                       None if rows is None else rows[c], scal, cfg)
+                       None if rows is None else rows[c],
+                       scal[c] if scal.ndim == 2 else scal, cfg)
         for c in range(pos.shape[0])])
 
 
@@ -336,8 +341,9 @@ def mol_pair_chains(pos, charge, eps, sig, mol_id, alive, mol_atoms,
                     mol_natoms, mol, rows, scal, cfg):
     """B4 over C chains in one launch (the batched scan step's per-move
     delta): pos [C, N, 3], alive [C, N], mol [C] int64, rows [C, A, 3] or
-    None; the parameter columns are shared.  Raw [C, 4]; chain c's row is
-    ``mol_pair`` of chain c, bit for bit."""
+    None; the parameter columns are shared; ``scal`` a shared [20] header
+    or one [C, 20] row per chain.  Raw [C, 4]; chain c's row is
+    ``mol_pair`` of chain c with its header, bit for bit."""
     if pos.device.type == "cpu":
         return mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive,
                                      mol_atoms, mol_natoms, mol, rows, scal,

@@ -35,18 +35,23 @@ def half_space_ints(kmax: int):
 
 
 def kvectors(box, kmax: int):
-    """[Nk,3] reciprocal vectors for the current box."""
+    """[Nk,3] reciprocal vectors for the current box; [C, Nk, 3] for
+    stacked boxes [C, 3, 3] (the integer k-set depends on kmax alone, so
+    every chain has the same Nk and only the vectors differ).  The inverse
+    skips linalg.inv's singularity check, a host sync on the card."""
     ints = torch.as_tensor(half_space_ints(kmax), dtype=box.dtype,
                            device=box.device)
-    recip = 2.0 * math.pi * torch.linalg.inv(box).T
-    return _phase(ints, recip.T)
+    recip = 2.0 * math.pi * torch.linalg.inv_ex(box).inverse.transpose(-1,
+                                                                       -2)
+    return _phase(ints, recip.transpose(-1, -2))
 
 
 def _phase(rows, kvecs):
-    """[..., R, Nk] k . r, elementwise (rows [..., R, 3], kvecs [Nk,3])."""
-    return (rows[..., :, None, 0] * kvecs[None, :, 0]
-            + rows[..., :, None, 1] * kvecs[None, :, 1]
-            + rows[..., :, None, 2] * kvecs[None, :, 2])
+    """[..., R, Nk] k . r, elementwise (rows [..., R, 3], kvecs [Nk,3] or
+    one set per chain [C, Nk, 3] against rows [C, R, 3])."""
+    return (rows[..., :, None, 0] * kvecs[..., None, :, 0]
+            + rows[..., :, None, 1] * kvecs[..., None, :, 1]
+            + rows[..., :, None, 2] * kvecs[..., None, :, 2])
 
 
 def structure_factor(pos, charge, alive, kvecs, chunk=4096):
@@ -65,8 +70,8 @@ def structure_factor(pos, charge, alive, kvecs, chunk=4096):
 
 def mol_structure_factor(pos_rows, charge_rows, row_ok, kvecs):
     """Partial S(k) from one molecule's atoms (for delta updates); with a
-    leading chain dimension on every argument but ``kvecs``, one per
-    chain ([C, Nk])."""
+    leading chain dimension on every argument, ``kvecs`` shared [Nk, 3]
+    or per chain [C, Nk, 3], one per chain ([C, Nk])."""
     q = torch.where(row_ok, charge_rows, torch.zeros_like(charge_rows))
     ph = _phase(pos_rows, kvecs)                 # [..., A, Nk]
     return (torch.sum(q[..., :, None] * torch.cos(ph), dim=-2),
@@ -76,11 +81,13 @@ def mol_structure_factor(pos_rows, charge_rows, row_ok, kvecs):
 def recip_weights(box, alpha, kvecs, pair_w=2.0):
     """(prefactor, [Nk] weights) of U_recip = prefactor * sum w |S|^2 —
     fixed for a fixed box, so the MC step computes them once per chunk
-    (the determinant is a LAPACK call, not a per-move op)."""
+    (the determinant is a LAPACK call, not a per-move op) and after each
+    NPT volume attempt.  Stacked boxes [C, 3, 3], ``alpha`` [C] and
+    ``kvecs`` [C, Nk, 3] give ([C], [C, Nk])."""
     v = torch.abs(torch.linalg.det(box))
     k2 = torch.sum(kvecs * kvecs, dim=-1)
     k2s = torch.where(k2 > 1e-12, k2, torch.ones_like(k2))
-    w = pair_w * torch.exp(-k2 / (4.0 * alpha * alpha)) / k2s
+    w = pair_w * torch.exp(-k2 / (4.0 * alpha * alpha)[..., None]) / k2s
     return KE * (2.0 * math.pi / v), w
 
 

@@ -30,17 +30,19 @@ N_SLOTS = 9
 
 
 def derived_cutoff(box, cfg):
-    """Static cutoff if configured, else half min perpendicular width."""
+    """Static cutoff if configured, else half min perpendicular width
+    ([C] for stacked boxes [C, 3, 3])."""
     if cfg.cutoff is not None:
         # a fill on the device, not a host-to-device copy (a host sync)
-        return torch.full((), cfg.cutoff, dtype=box.dtype,
+        return torch.full(box.shape[:-2], cfg.cutoff, dtype=box.dtype,
                           device=box.device)
     return pbc_ops.default_cutoff(box)
 
 
 def derived_alpha(cutoff, cfg):
     """Ewald splitting / Wolf damping parameter: ewald 3.5/rc, wolf 2/rc,
-    unless ``ewald_alpha``/``wolf_alpha`` is given."""
+    unless ``ewald_alpha``/``wolf_alpha`` is given (elementwise: [C] for
+    a [C] cutoff)."""
     if cfg.coulomb == "wolf":
         if cfg.wolf_alpha is not None:
             return torch.full_like(cutoff, cfg.wolf_alpha)
@@ -53,11 +55,16 @@ def derived_alpha(cutoff, cfg):
 def pair_scalars(box, cfg):
     """The pair kernels' scalar header: [rc, alpha, box (9), box^-1 (9)],
     one small tensor on the box's device, read by the kernels from device
-    memory (no host round trip per launch)."""
+    memory (no host round trip per launch); [C, 20] for stacked boxes
+    [C, 3, 3] (B4 over chains reads a row per chain).  The inverse skips
+    linalg.inv's singularity check, a host sync on the card."""
+    lead = box.shape[:-2]
     rc = derived_cutoff(box, cfg)
     alpha = derived_alpha(rc, cfg)
-    return torch.cat([rc.reshape(1), alpha.reshape(1), box.reshape(-1),
-                      torch.linalg.inv(box).reshape(-1)]).contiguous()
+    inv = torch.linalg.inv_ex(box).inverse
+    return torch.cat([rc.reshape(lead + (1,)), alpha.reshape(lead + (1,)),
+                      box.reshape(lead + (9,)), inv.reshape(lead + (9,))],
+                     -1).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,11 +196,12 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
     ``row_pos``) and all OTHER molecules, each pair once — the O(A N)
     per-move delta.  ``mol`` may be a 0-d device tensor (no host sync).
     ``scal``: a precomputed pair_scalars(box, cfg), which the MC step
-    builds once per chunk.
+    builds once per chunk (and after each NPT volume attempt).
 
     Over C chains (the batched scan step): ``pos`` [C, N, 3],
-    ``atom_alive`` [C, N], ``mol`` [C], ``row_pos`` [C, A, 3] — one B4
-    launch for every chain, PairTerms of [C] tensors."""
+    ``atom_alive`` [C, N], ``mol`` [C], ``row_pos`` [C, A, 3], ``scal``
+    [20] shared or [C, 20] (a box per chain) — one B4 launch for every
+    chain, PairTerms of [C] tensors."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
 
     if scal is None:

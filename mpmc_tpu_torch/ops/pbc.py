@@ -11,21 +11,24 @@ import torch
 
 
 def cell_volume(box):
-    """Cell volume |det(box)| in A^3."""
+    """Cell volume |det(box)| in A^3 ([C] for stacked boxes [C, 3, 3])."""
     return torch.abs(torch.linalg.det(box))
 
 
 def min_perpendicular_width(box):
-    """Minimum distance between opposite cell faces."""
+    """Minimum distance between opposite cell faces ([C] for stacked
+    boxes [C, 3, 3])."""
     v = cell_volume(box)
-    c01 = torch.linalg.norm(torch.linalg.cross(box[0], box[1]))
-    c12 = torch.linalg.norm(torch.linalg.cross(box[1], box[2]))
-    c20 = torch.linalg.norm(torch.linalg.cross(box[2], box[0]))
-    return torch.min(torch.stack([v / c12, v / c20, v / c01]))
+    a, b, c = box[..., 0, :], box[..., 1, :], box[..., 2, :]
+    c01 = torch.linalg.norm(torch.linalg.cross(a, b, dim=-1), dim=-1)
+    c12 = torch.linalg.norm(torch.linalg.cross(b, c, dim=-1), dim=-1)
+    c20 = torch.linalg.norm(torch.linalg.cross(c, a, dim=-1), dim=-1)
+    return torch.min(torch.stack([v / c12, v / c20, v / c01], -1), -1).values
 
 
 def default_cutoff(box):
-    """Half the minimum perpendicular cell width (the reference's default)."""
+    """Half the minimum perpendicular cell width (the reference's default;
+    [C] for stacked boxes)."""
     return 0.5 * min_perpendicular_width(box)
 
 

@@ -62,7 +62,8 @@ def run_chunk_batched(states: SimState, params: Params, cfg: RunConfig,
     ``thermo_batched``: ``temperature`` [C], ``fugacity`` [C, S]); the
     move-type probabilities and move sizes are shared.  ``trace``: a list
     that gets the step's record (make_batched_step_fn).  The chains' mu,
-    e0 and r_pol are carried (polarization)."""
+    e0 and r_pol are carried (polarization), and under NPT each chain's
+    box."""
     C = states.pos.shape[0]
     if uniforms is None:
         uniforms = torch.rand((C, n_steps, metropolis.N_LANES),
@@ -73,20 +74,18 @@ def run_chunk_batched(states: SimState, params: Params, cfg: RunConfig,
     u = carry["u"]
     for k in range(n_steps):
         step(carry, u[:, k], int(branch[k]), thermo, c, stats, trace)
-    return states.replace(pos=carry["pos"], mol_alive=carry["mol_alive"],
-                          energy=carry["energy"], sk_re=carry["sk_re"],
-                          sk_im=carry["sk_im"], mu=carry["mu"],
-                          e0=carry["e0"], r_pol=carry["r_pol"],
-                          step=states.step + n_steps), stats
+    return metropolis._from_carry(states, carry, n_steps), stats
 
 
 def initialize_batched(states: SimState, params: Params, cfg: RunConfig,
                        thermo: Thermo, frozen_rows: int = 0) -> SimState:
     """Full-energy refresh of every chain, one after the other (the
     reference maps the refresh over chains too: a batched O(N^2) pass
-    would hold a [C, rows, N] tile, and it runs once per corrtime), with
-    every chain's static field taken first in one pass over the chains
-    (thole.static_field_chains: one launch of B5 over the chains).
+    would hold a [C, rows, N] tile, and it runs once per corrtime), each
+    in its own box (NPT chains), with every chain's static field taken
+    first in one pass over the chains (thole.static_field_chains: one
+    launch of B5 over the chains; the chains share the box, since polar
+    NPT is refused).
     ``thermo`` may be per chain (chain_thermo); ``frozen_rows`` as in
     metropolis.initialize."""
     e0 = None

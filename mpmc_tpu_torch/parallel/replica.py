@@ -1,7 +1,7 @@
 """Parallel tempering on one card (port of the single-device part of
-mpmc_tpu/parallel/replica.py; the library functions
-``run_parallel_tempering*`` are ROADMAP A9b and the mesh ``PTRunner``
-A13).
+mpmc_tpu/parallel/replica.py: the swap rules and the library drivers
+``run_parallel_tempering_fused`` and ``run_parallel_tempering_fused_multi``;
+the mesh ``run_parallel_tempering`` / ``PTRunner`` is ROADMAP A13).
 
 Replicas are the stacked chains of parallel/multichain.py, each at one
 rung of a ladder: a temperature ladder (``stack_thermo``) or, at one shared
@@ -18,6 +18,11 @@ both partners from the pair's low lane, so both take the same decision.
   device, for the fused routes (one host fetch per block), over the
   round's uniforms (``swap_uniforms``, from an explicit
   ``torch.Generator``; the tests feed the reference key's instead).
+
+The library drivers run R replicas for n rounds of fused steps, then a
+ladder swap on the device each round: ``run_parallel_tempering_fused``
+one single-chain launch of B3 (NVT) or B1 (µVT) per replica,
+``run_parallel_tempering_fused_multi`` one launch over every replica.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from mpmc_tpu_torch.config import Thermo
+from mpmc_tpu_torch.config import RunConfig, Thermo
 
 
 def geometric_ladder(t_min: float, t_max: float, n: int) -> np.ndarray:
@@ -176,3 +181,172 @@ def ladder_swap_fugacity_batched(fug, counts, u, parity: int, sp_ids):
     accept = in_pair & (torch.log(torch.clamp(uu, min=1e-300)) < ln_p)
     new_f = torch.where(accept[:, None], fug[partner], fug)
     return new_f, torch.sum(accept.to(torch.int32)) // 2
+
+
+def _pt_refusals(cfg: RunConfig):
+    """The refusals both library drivers share (the reference's): pair
+    energies that depend on T (a swap would leave the carried totals
+    stale), spinflip moves (per-replica rotor tables), and NVE (its
+    acceptance never reads T)."""
+    if cfg.feynman_hibbs or cfg.feynman_kleinert:
+        raise ValueError("fused PT does not support T-dependent pair "
+                         "energies (feynman_hibbs/kleinert)")
+    if cfg.quantum_rotation and cfg.ensemble != "nve":
+        raise ValueError("fused PT does not support quantum_rotation "
+                         "spinflip moves — use run_mc_pt")
+    if cfg.ensemble == "nve":
+        raise ValueError("fused PT is undefined for ensemble nve (the NVE "
+                         "acceptance does not read T)")
+
+
+def _round_uniforms(round_uniforms, r, R, gen, dtype):
+    """Round ``r``'s [R] swap uniforms: the injected row, or drawn."""
+    if round_uniforms is not None:
+        return torch.as_tensor(round_uniforms[r], dtype=dtype,
+                               device=gen.device)
+    return swap_uniforms(R, gen, dtype)
+
+
+def _finish(temps, n_acc):
+    """(temps ndarray, accepted swaps) in the drivers' one host fetch."""
+    host = torch.cat([temps.double(), n_acc.double().reshape(1)]).cpu()
+    return host[:-1].numpy(), int(host[-1])
+
+
+def run_parallel_tempering_fused(params, state, cfg: RunConfig,
+                                 thermo: Thermo, temps, n_rounds: int,
+                                 steps_per_round: int, seed: int = 0,
+                                 round_uniforms=None, trace=None):
+    """Single-card PT over the single-chain fused paths (the reference's
+    run_parallel_tempering_fused, mpmc_tpu/parallel/replica.py:400-496):
+    each round every replica runs ``steps_per_round`` steps in one launch
+    of B3 (NVT, mc_kernel.supported) or B1 (µVT, supported_uvt), a
+    refresh (metropolis.initialize) every corrtime but after the last
+    round, then one on-device ladder swap of neighbour temperatures
+    (_ladder_swap_core; with each replica's molecule count under µVT).
+    The replicas' uniform tables come from a torch.Generator seeded
+    ``seed``, the round uniforms from one seeded ``seed + 7`` (or the
+    injected [n_rounds, R] ``round_uniforms``); ``trace`` gets each
+    round's inputs and decisions.  Returns (list of R states, [R] final
+    temperatures ndarray, accepted swaps), after one host fetch."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel
+    _pt_refusals(cfg)
+    if mc_kernel.supported(cfg, params):
+        runner = metropolis.run_chunk_fused
+        tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+    elif mc_kernel.supported_uvt(cfg, params):
+        runner = metropolis.run_chunk_fused_uvt
+        tables = metropolis.uvt_fused_tables(params, cfg)
+    else:
+        raise ValueError("fused PT needs a fused-gate-supported config "
+                         "(mc_kernel.supported / supported_uvt)")
+    uvt = cfg.ensemble == "uvt"
+    R = len(temps)
+    dev = state.pos.device
+    dtype = thermo.temperature.dtype
+    state = metropolis.initialize(state, params, cfg, thermo)
+    states = [state] * R
+    temp_t = torch.as_tensor(np.asarray(temps, np.float64), dtype=dtype,
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    swap_gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
+    corr = max(int(cfg.corrtime), 1)
+    since_refresh = 0
+    fr = metropolis.frozen_refresh_rows(params, cfg)
+    for r in range(n_rounds):
+        thermos = [thermo.replace(temperature=temp_t[i]) for i in range(R)]
+        states = [runner(states[i], params, cfg, thermos[i],
+                         steps_per_round, generator=gen, tables=tables)[0]
+                  for i in range(R)]
+        since_refresh += steps_per_round
+        if since_refresh >= corr and r + 1 < n_rounds:
+            states = [metropolis.initialize(states[i], params, cfg,
+                                            thermos[i], frozen_rows=fr)
+                      for i in range(R)]
+            since_refresh = 0
+        energies = torch.stack([st.energy.total for st in states])
+        n_mols = (torch.stack([st.n_molecules(params) for st in states])
+                  if uvt else None)
+        u = _round_uniforms(round_uniforms, r, R, swap_gen, dtype)
+        new_t, acc = _ladder_swap_core(temp_t, energies.to(dtype), u, r % 2,
+                                       n_mols=n_mols)
+        if trace is not None:
+            trace.append({"temps": temp_t, "energies": energies,
+                          "n_mols": n_mols, "u": u, "parity": r % 2,
+                          "new_temps": new_t, "accepted": acc})
+        temp_t = new_t
+        n_acc = n_acc + acc
+    final, n = _finish(temp_t, n_acc)
+    return states, final, n
+
+
+def run_parallel_tempering_fused_multi(params, state, cfg: RunConfig,
+                                       thermo: Thermo, temps,
+                                       n_rounds: int, steps_per_round: int,
+                                       seed: int = 0, round_uniforms=None,
+                                       trace=None):
+    """Single-card PT with every replica in one launch a round (the
+    reference's run_parallel_tempering_fused_multi and its rounds,
+    mpmc_tpu/parallel/replica.py:499-644): B3 over the R chains (NVT,
+    mc_kernel.supported_multi) or B1 (µVT, supported_uvt_multi; the
+    fugacity shared, the swap with each replica's molecule count), one
+    beta per chain; a batched refresh (multichain.initialize_batched)
+    every corrtime but after the last round; then one on-device
+    ladder_swap over the replicas.  The chain width is bounded by the
+    card's cluster fitting (mc_kernel.cluster_size), not by a fixed cap.
+    Uniforms, ``trace`` and the host fetch as in
+    run_parallel_tempering_fused.  Returns (stacked states [R, ...], [R]
+    final temperatures ndarray, accepted swaps)."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel
+    from mpmc_tpu_torch.parallel import multichain
+    _pt_refusals(cfg)
+    uvt = cfg.ensemble == "uvt"
+    if uvt:
+        if not mc_kernel.supported_uvt_multi(cfg, params):
+            raise ValueError("multi-chain fused µVT PT needs "
+                             "mc_kernel.supported_uvt_multi(cfg, params)")
+        runner = metropolis.run_chunk_fused_uvt_multi
+        tables = metropolis.uvt_fused_tables(params, cfg)
+    elif mc_kernel.supported_multi(cfg, params):
+        runner = metropolis.run_chunk_fused_multi
+        tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+    else:
+        raise ValueError("multi-chain fused PT needs "
+                         "mc_kernel.supported_multi(cfg, params)")
+    R = len(temps)
+    dev = state.pos.device
+    state = metropolis.initialize(state, params, cfg, thermo)
+    states = multichain.stack_states(state, R)
+    thermos = stack_thermo(thermo, temps)
+    dtype = thermos.temperature.dtype
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    swap_gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
+    corr = max(int(cfg.corrtime), 1)
+    since_refresh = 0
+    fr = metropolis.frozen_refresh_rows(params, cfg)
+    for r in range(n_rounds):
+        since_refresh += steps_per_round
+        states, _ = runner(states, params, cfg, thermos, steps_per_round,
+                           generator=gen, tables=tables)
+        if since_refresh >= corr and r + 1 < n_rounds:
+            states = multichain.initialize_batched(states, params, cfg,
+                                                   thermos, frozen_rows=fr)
+            since_refresh = 0
+        n_mols = (movable_counts(states.mol_alive, params.mol_frozen,
+                                 params.mol_species) if uvt else None)
+        u = _round_uniforms(round_uniforms, r, R, swap_gen, dtype)
+        t_in = thermos.temperature
+        new_t, acc = _ladder_swap_core(t_in, states.energy.total.to(dtype),
+                                       u, r % 2, n_mols=n_mols)
+        if trace is not None:
+            trace.append({"temps": t_in, "energies": states.energy.total,
+                          "n_mols": n_mols, "u": u, "parity": r % 2,
+                          "new_temps": new_t, "accepted": acc})
+        thermos = thermos.replace(temperature=new_t)
+        n_acc = n_acc + acc
+    final, n = _finish(thermos.temperature, n_acc)
+    return states, final, n

@@ -164,6 +164,16 @@ class EnergyBreakdown:
         return EnergyBreakdown(*(getattr(self, k) + getattr(other, k)
                                  for k in _SLOTS))
 
+    @classmethod
+    def stack(cls, energies):
+        """One breakdown of [C] slots from C breakdowns."""
+        return cls(*(torch.stack([getattr(e, k) for e in energies])
+                     for k in _SLOTS))
+
+    def sub(self, other):
+        return EnergyBreakdown(*(getattr(self, k) - getattr(other, k)
+                                 for k in _SLOTS))
+
     def select(self, pred, other):
         """Field-wise ``pred ? self : other`` (pred a 0-d bool tensor)."""
         return EnergyBreakdown(*(torch.where(pred, getattr(self, k),

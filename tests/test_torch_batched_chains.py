@@ -301,24 +301,36 @@ def test_nve_chains_deck(tmp_path):
 
 
 @pytest.mark.parametrize("lines,item", [
-    # polar chains run now (item None), on the batched polar route
+    # polar chains and npt chains run now (item None), on the batched
+    # route: polar chains on the MOF deck, npt chains on the (frameless)
+    # LJ fluid deck
     (("chains 3", "polarization on"), None),
-    (("chains 3", "ensemble npt"), "A8b"),
+    (("chains 3", "ensemble npt", "pressure 200",
+      "volume_probability 0.2", "volume_change_factor 0.05"), None),
 ], ids=["polar-chains", "npt-chains"])
 def test_batched_chain_refusals(tmp_path, lines, item):
-    """npt chains are refused (A8b); polar chains run as batched polar
-    chains, a few steps on the CPU, every chain with its dipoles."""
-    if item is None:
-        job = input_script.parse_file(str(_h2_deck(
-            tmp_path, *lines, "numsteps 6", "corrtime 3")))
-        buf = io.StringIO()
-        su, _ = _in(tmp_path, lambda: trun.run(job, log=buf, device="cpu"))
-        assert "batched scan chains (C=3)" in buf.getvalue()
+    """Both once refused, now run: polar chains as batched polar chains,
+    a few steps on the CPU, every chain with its dipoles; npt chains as
+    batched scan chains with a box per chain, each chain's carried energy
+    equal to a fresh recompute (f64)."""
+    npt = "ensemble npt" in lines
+    deck = (_lj_deck(tmp_path, *lines) if npt else _h2_deck(
+        tmp_path, *lines, "numsteps 6", "corrtime 3"))
+    job = input_script.parse_file(str(deck))
+    buf = io.StringIO()
+    su, avgs = _in(tmp_path, lambda: trun.run(job, log=buf, device="cpu"))
+    assert "batched scan chains (C=3)" in buf.getvalue()
+    if not npt:
         assert su.states.mu.shape == su.states.pos.shape
         return
-    job = input_script.parse_file(str(_h2_deck(tmp_path, *lines)))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
-        trun.run(job, device="cpu")
+    assert su.states.box.shape == (3, 3, 3)
+    assert len({float(b[0, 0]) for b in su.states.box}) == 3
+    assert 0 < avgs.mean("acc_volume") < 1
+    for c in range(3):
+        sc = slice_chain(su.states, c)
+        fresh = tm.initialize(sc, su.params, su.cfg, su.thermo)
+        assert float(sc.energy.total) == pytest.approx(
+            float(fresh.energy.total), rel=1e-9)
 
 
 def test_batched_step_refuses_polarization():

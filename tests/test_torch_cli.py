@@ -84,10 +84,12 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 # (test id, deck lines, ROADMAP item): batched chains and parallel
 # tempering run now, with polarization too (item None: the deck runs on
 # the batched polar route), and so do exact checkpoints (item None: the
-# single-chain polar deck writes its checkpoint)
+# single-chain polar deck writes its checkpoint) and NPT (item None: a
+# frameless LJ deck on the scan path); polar NPT is A8c
 REFUSED = [
     ("chains 4", "chains 4\npolarization on", None),
-    ("ensemble npt", "A8b"),
+    ("ensemble npt", None),
+    ("ensemble npt\npolarization on", "A8c"),
     ("parallel_tempering on", "parallel_tempering on\npolarization on",
      None),
     ("chains 2\nfused_mc on\npolarization on", None),
@@ -107,8 +109,23 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
     three-field case names its deck lines apart from its id).  The
     batched polar chains and PT with polarization, once refused, run: a
     few steps of the small polar deck on the batched route; a checkpoint,
-    once refused, is written by the single-chain polar deck."""
+    once refused, is written by the single-chain polar deck; NPT, once
+    refused, runs a frameless LJ deck whose box moves."""
     line, item = case[-2:]
+    if item is None and line == "ensemble npt":
+        from torch_npt import lj_npt, write_deck
+        deck = write_deck(tmp_path, lj_npt(), "numsteps 60", "corrtime 30",
+                          "coulomb off")
+        old = os.getcwd()
+        os.chdir(tmp_path)
+        try:
+            su, avgs = trun.run(input_script.parse_file(str(deck)),
+                                log=io.StringIO(), device="cpu")
+        finally:
+            os.chdir(old)
+        assert su.state.step == 60 and avgs.mean("acc_volume") > 0
+        assert float(su.state.box[0, 0]) != pytest.approx(13.0, rel=1e-9)
+        return
     if item is None:
         from torch_polar import polar_deck
         line = line.replace("ck.npz", str(tmp_path / "ck.npz"))
@@ -127,6 +144,25 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
     job = input_script.parse(f"ensemble uvt\n{line}\n")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
         trun.setup(job, device="cpu")
+
+
+@pytest.mark.parametrize("trap", ["frozen-framework", "parallel-tempering",
+                                  "pt-fugacity"])
+def test_npt_traps_are_refused(trap, tmp_path):
+    """NPT with a frozen framework (the example deck's MOF) and NPT under
+    parallel tempering or pt_fugacity are refused with a ValueError that
+    names the trap (ROADMAP "Reference traps")."""
+    lines = {"frozen-framework": "", "parallel-tempering":
+             "parallel_tempering on\n", "pt-fugacity": "pt_fugacity on\n"}
+    deck = tmp_path / "npt.inp"
+    deck.write_text(
+        "ensemble npt\nbasis1 16 0 0\nbasis2 0 16 0\nbasis3 0 0 16\n"
+        f"pqr_input {REPO / 'examples' / 'framework_h2.pqr'}\n"
+        + lines[trap])
+    want = ("frozen framework.*572-581" if trap == "frozen-framework"
+            else "P \\(V_i - V_j\\).*replica.py")
+    with pytest.raises(ValueError, match=want):
+        trun.run(input_script.parse_file(str(deck)), device="cpu")
 
 
 def test_run_without_a_device_needs_cuda():

@@ -1,8 +1,9 @@
-"""The CUDA kernels (the pair kernels B2/B4, the fused µVT kernel B1, the
-fused NVT/NVE kernel B3 — both at every cluster size —, the Thole field
-kernel B5 and the polar delayed-acceptance stage-1 kernel B6) against
-their plain versions on the card; the native trajectory reader on a
-10.8k-atom trajectory and checkpoints of card states with a CUDA
+"""The CUDA kernels (the pair kernels B2/B4 — B4 over chains with a shared
+or a per-chain header —, the fused µVT kernel B1, the fused NVT/NVE kernel
+B3 — both at every cluster size, B3 after an NPT volume move too —, the
+Thole field kernel B5 and the polar delayed-acceptance stage-1 kernel B6)
+against their plain versions on the card; the native trajectory reader on
+a 10.8k-atom trajectory and checkpoints of card states with a CUDA
 generator.
 
 These need a CUDA device and ``nvcc``; they skip elsewhere.  The file
@@ -931,6 +932,108 @@ def test_mol_pair_chains_kernel(device, dtype, C):
                               params.mol_atoms, params.mol_natoms, mol[0],
                               None if r is None else r[0], scal, cfg)
             assert torch.equal(k[0], one)
+
+
+@pytest.mark.parametrize("C", [1, 16])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mol_pair_chains_header_per_chain(device, dtype, C):
+    """B4 over chains with a [C, 20] header (the NPT chains: chain c's
+    positions and box scaled by its own exp(d ln V / 3)) against the plain
+    version, each chain with its own header row (B4's tolerance); a
+    shared [20] header gives the bits of the same header repeated per
+    chain, and at C = 1 the single-chain launch's bits."""
+    from mpmc_tpu_torch.mc import moves
+    from mpmc_tpu_torch.state import slice_chain
+    params, states, cfg, mol, rows, alive = _chains(device, dtype, C)
+    # off the lattice first: a scaled lattice keeps its pairs at r = rc,
+    # where two correct evaluations may count a tie differently
+    jit = torch.stack([systems.jittered(params, slice_chain(states, c),
+                                        40 + c).pos for c in range(C)])
+    d_lnv = torch.linspace(-0.06, 0.06, C, dtype=states.pos.dtype,
+                           device=device)
+    pos, box = moves.scale_volume(jit, states.box, params, d_lnv)
+    scal = pairs.pair_scalars(box, cfg)
+    assert scal.shape == (C, 20)
+    shared = pairs.pair_scalars(states.box[0], cfg)
+    for r in (None, rows):
+        args = (pos, params.charge, params.eps, params.sig, params.mol_id32,
+                alive, params.mol_atoms, params.mol_natoms, mol, r)
+        before = pk.mol_pair_chains.launches
+        k = pk.mol_pair_chains(*args, scal, cfg)
+        torch.cuda.synchronize(device)
+        assert pk.mol_pair_chains.launches == before + 1
+        _close(k, pk.mol_pair_chains_plain(*args, scal, cfg), dtype)
+        k0 = pk.mol_pair_chains(*args, shared, cfg)
+        rep = pk.mol_pair_chains(*args, shared.expand(C, 20).contiguous(),
+                                 cfg)
+        assert torch.equal(k0, rep)
+        if C > 1:
+            assert not torch.equal(k0, k)
+        else:
+            one = pk.mol_pair(pos[0], params.charge, params.eps, params.sig,
+                              params.mol_id32, alive[0], params.mol_atoms,
+                              params.mol_natoms, mol[0],
+                              None if r is None else r[0], shared, cfg)
+            assert torch.equal(k0[0], one)
+
+
+def test_nvt_kernel_after_a_volume_move(device):
+    """A frameless H2 fluid under Ewald (f32): after a volume move the
+    next B3 launch takes the new box's rc, alpha and k-table
+    (fused_nvt_launch_args), and it matches its plain version on a
+    numpy-made [1, 200, 16] table (test_nvt_kernel_matches_plain's f32
+    tolerances); then a 300-step hybrid NPT chunk launches B3 once per
+    segment and keeps its carried energy within rel 1e-4 of a fresh
+    recompute."""
+    from mpmc_tpu_torch.config import RunConfig, Thermo
+    from mpmc_tpu_torch.mc import moves
+    from mpmc_tpu_torch.ops import ewald
+    from mpmc_tpu_torch.state import build_system
+    params, state = build_system(
+        24.0 * np.eye(3), species=(systems.h2_bss3(),), capacity=(60,),
+        initial_counts=(60,), dtype=torch.float32, seed=5, device=device)
+    cfg = RunConfig(ensemble="npt", coulomb="ewald", ewald_kmax=5,
+                    ortho_box=True, fused_mc=True)
+    thermo = Thermo.make(temperature=77.0, pressure=100.0,
+                         volume_probability=0.02, volume_change_factor=0.05,
+                         move_factor=1.0, rot_factor=1.0, n_species=1,
+                         dtype=torch.float32, device=device)
+    assert mk.supported_npt(cfg, params)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    pos, box = moves.scale_volume(state.pos, state.box, params, 0.05)
+    moved = metropolis.initialize(state.replace(pos=pos, box=box), params,
+                                  cfg, thermo)
+    tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+    u = torch.as_tensor(np.random.default_rng(4).random((1, 200, 16)),
+                        dtype=torch.float32, device=device)
+    nvt = dataclasses.replace(cfg, ensemble="nvt")
+    args, kw = metropolis.fused_nvt_launch_args(
+        multichain.stack_states(moved, 1), params, nvt, thermo, u, tables)
+    torch.testing.assert_close(kw["kvecs"], ewald.kvectors(box, 5))
+    assert not torch.allclose(kw["kvecs"], ewald.kvectors(state.box, 5))
+    k = mk.run_steps(*args, **kw)
+    p = mk.run_steps_plain(*args, **kw)
+    k_sums, p_sums = k[1].cpu().numpy(), p[1].cpu().numpy()
+    np.testing.assert_array_equal(k_sums[:, 3], p_sums[:, 3])
+    assert p_sums[0, 3] > 10
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                               rtol=0, atol=1e-4)
+    tol = 2e-5 * np.abs(p_sums[:, :3]) + 2e-3 * np.sqrt(p_sums[:, 3:4] + 1)
+    assert (np.abs(k_sums[:, :3] - p_sums[:, :3]) <= tol).all()
+    for a, b in zip(k[2:], p[2:]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    before = mk.run_steps.launches
+    g = torch.Generator(device=device).manual_seed(2)
+    st, stats = metropolis.run_chunk_fused_npt(moved, params, cfg, thermo,
+                                               300, generator=g,
+                                               tables=tables)
+    torch.cuda.synchronize(device)
+    assert stats.attempts[metropolis.VOLUME] == 6
+    assert mk.run_steps.launches - before == 6
+    fresh = metropolis.initialize(st, params, cfg, thermo)
+    assert float(st.energy.total) == pytest.approx(
+        float(fresh.energy.total), rel=1e-4)
 
 
 def test_batched_deck_bookkeeping(device):

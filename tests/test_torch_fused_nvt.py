@@ -359,26 +359,38 @@ def test_cli_fused_nve_deck_runs(tmp_path):
 
 
 @pytest.mark.parametrize("lines,item", [
-    (("ensemble npt",), "A8b"),
+    # npt runs now (item None), with fused_mc on the hybrid path: B3
+    # segments between scan-path volume attempts
+    (("ensemble npt", "fused_mc on", "pressure 200",
+      "volume_probability 0.05", "volume_change_factor 0.05"), None),
     # nve chains run as batched scan chains, with polarization too (item
     # None: the deck runs, under nve with no delayed acceptance)
     (("ensemble nve", "fused_mc on", "chains 3", "total_energy 0",
       "polarization on"), None),
 ], ids=["npt", "nve-chains"])
 def test_nvt_slice_refusals(tmp_path, lines, item):
-    """npt is refused (A8b); polar nve chains under fused_mc run as
-    batched polar chains (the fused gates refuse polarization: a
-    WARNING), a few steps on the CPU."""
-    if item is None:
-        deck = _lj_deck(tmp_path, *lines, numsteps=6, corrtime=3)
-        su, _, out = _run_deck(deck, tmp_path)
-        assert "batched scan chains (C=3)" in out
-        assert "WARNING: fused_mc requested but unsupported" in out
-        assert su.states.mu is not None and su.states.pos.shape[0] == 3
+    """Both once refused, now run: npt under fused_mc takes the hybrid
+    fused NPT path (B3's plain version here), the box moves and the
+    carried energy of the f32 fluid stays within rel 1e-4 of a fresh
+    recompute; polar nve chains under fused_mc run as batched polar
+    chains (the fused gates refuse polarization: a WARNING), a few steps
+    on the CPU."""
+    if "ensemble npt" in lines:
+        deck = _lj_deck(tmp_path, *lines)
+        su, avgs, out = _run_deck(deck, tmp_path)
+        assert "fused_mc: hybrid fused NPT (B3 segments + scan-path " \
+               "volume moves)" in out
+        assert "WARNING" not in out and su.state.step == 400
+        assert 0 < avgs.mean("acc_volume") < 1
+        fresh = tm.initialize(su.state, su.params, su.cfg, su.thermo)
+        assert float(su.state.energy.total) == pytest.approx(
+            float(fresh.energy.total), rel=1e-4)
         return
-    job = input_script.parse_file(str(_lj_deck(tmp_path, *lines)))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
-        trun.run(job, device="cpu")
+    deck = _lj_deck(tmp_path, *lines, numsteps=6, corrtime=3)
+    su, _, out = _run_deck(deck, tmp_path)
+    assert "batched scan chains (C=3)" in out
+    assert "WARNING: fused_mc requested but unsupported" in out
+    assert su.states.mu is not None and su.states.pos.shape[0] == 3
 
 
 def test_f64_fused_nvt_deck_takes_the_scan_path(tmp_path):

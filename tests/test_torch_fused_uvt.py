@@ -247,16 +247,20 @@ def test_cli_fused_decks_run(tmp_path, extra):
 
 @pytest.mark.parametrize("lines,item", [
     # chains without fused_mc, and under nve, run as batched scan chains,
-    # polar chains too (item None: the deck runs); npt chains stay
-    # refused
+    # polar chains too, and npt chains (item None: the deck runs; npt on
+    # the deck's H2 without its frozen framework)
     (("chains 3", "polarization on"), None),
-    (("fused_mc on", "ensemble npt", "chains 3"), "A8b"),
+    (("fused_mc on", "ensemble npt", "chains 3", "volume_probability 0.2",
+      "pressure 2000"), None),
 ], ids=["chains-without-fused", "fused-nve-chains"])
-def test_fused_refusals(tmp_path, lines, item):
-    """npt chains are refused (A8b); polar chains without fused_mc run on
-    the batched polar route, a few steps on the CPU."""
-    if item is None:
-        import io
+def test_fused_refusals(tmp_path, monkeypatch, lines, item):
+    """Both once refused, now run: polar chains without fused_mc on the
+    batched polar route, a few steps on the CPU; npt chains under
+    fused_mc on the batched scan chains (the fused gates take no chains
+    under NPT: a WARNING), each chain in its own box, the carried energy
+    of each equal to a fresh recompute within rel 1e-4 (f32)."""
+    import io
+    if "ensemble npt" not in lines:
         job = input_script.parse_file(str(_deck(
             tmp_path, *lines, "numsteps 6", "corrtime 3")))
         buf = io.StringIO()
@@ -265,9 +269,29 @@ def test_fused_refusals(tmp_path, lines, item):
         assert "WARNING" not in buf.getvalue()
         assert su.states.mu is not None and su.states.e0 is not None
         return
-    job = input_script.parse_file(str(_deck(tmp_path, *lines)))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
-        trun.run(job, device="cpu")
+    monkeypatch.chdir(tmp_path)
+    pqr = tmp_path / "h2_gas.pqr"
+    pqr.write_text("".join(
+        ln for ln in (REPO / "examples" / "framework_h2.pqr").open()
+        if " F " not in ln))
+    deck = _deck(tmp_path, *lines, "pop_histogram off")
+    deck.write_text(deck.read_text().replace(
+        str(REPO / "examples" / "framework_h2.pqr"), str(pqr)))
+    buf = io.StringIO()
+    su, avgs = trun.run(input_script.parse_file(str(deck)), log=buf,
+                        device="cpu")
+    out = buf.getvalue()
+    assert "batched scan chains (C=3)" in out
+    assert "WARNING: fused_mc requested but unsupported" in out
+    assert 0 < avgs.mean("acc_volume") < 1
+    assert len({float(b[0, 0]) for b in su.states.box}) == 3
+    from mpmc_tpu_torch.mc import metropolis as tm
+    from mpmc_tpu_torch.state import slice_chain
+    for c in range(3):
+        sc = slice_chain(su.states, c)
+        fresh = tm.initialize(sc, su.params, su.cfg, su.thermo)
+        assert float(sc.energy.total) == pytest.approx(
+            float(fresh.energy.total), rel=1e-4, abs=1e-3)
 
 
 def test_f64_fused_deck_takes_the_scan_path(tmp_path, monkeypatch):
