@@ -31,7 +31,7 @@ Phases (any failure raises, so the exit code is non-zero):
    through mpmc_tpu_torch.mc.run.run (3000 steps): B2 and B4 must have
    been launched by it, and the carried energy of a further chunk must
    match a fresh recompute; a profiled chunk shows where a step's time
-   goes; then examples/h2_sorption.inp (5000 steps);
+   goes; then examples/h2_sorption.inp (2000 steps);
 7. fused path — the same deck with ``fused_mc on`` (20,000 steps): B1 and
    B2 must have been launched, the carried energy of a further chunk
    must match a fresh recompute, the kernel alone is timed and a chunk
@@ -76,7 +76,7 @@ Phases (any failure raises, so the exit code is non-zero):
    bit for bit, C = 1 and an active subset too, within B5's tolerance of
    the plain version; times and the bound), then the polar deck with
    ``chains 8`` (phase_polar_chains: plain, ``polar_delayed on``,
-   ``cutoff 14``, 200 steps each: every chain's polar bookkeeping, B5
+   ``cutoff 14``, 100 steps each: every chain's polar bookkeeping, B5
    launches == CG rounds, host syncs, a profile); PT deck (v) of phase 11
    is the polar deck as 8 replicas;
 14. exact checkpoints (phase_checkpoint) — DECK on the scan path and with
@@ -84,8 +84,8 @@ Phases (any failure raises, so the exit code is non-zero):
    ``checkpoint_output`` and one with ``checkpoint_input``; the resumed
    state as close to the uninterrupted one as two uninterrupted runs are
    to each other; save and load ms and bytes;
-15. replay (phase_replay) — ``ensemble replay`` over a 20-frame LJ
-   trajectory with ``calc_pressure on`` and a 20-frame GCMC one (N
+15. replay (phase_replay) — ``ensemble replay`` over a 10-frame LJ
+   trajectory with ``calc_pressure on`` and a 10-frame GCMC one (N
    changing), each written by a port run: B2 launches per frame, the
    first and last frames' card terms against CPU float64, the pressure
    within the bound of its energies' float32 rounding; frames/s and the
@@ -107,7 +107,24 @@ Phases (any failure raises, so the exit code is non-zero):
    round, 6 rounds, 77-250 K on the 10.8k GCMC system: NVT per replica
    (B3) and in one launch (B3), µVT in one launch (B1): aggregate steps/s
    with the swaps, the final ladder a permutation, launches per round,
-   B2 launches per refresh.
+   B2 launches per refresh;
+19. Feynman-Hibbs / Feynman-Kleinert kernels (phase_fh_kernels) — B1 on
+   the 10.8k bench system with FH2, FH4 and FK at C = 2 (77 and 120 K, a
+   beta per chain) and C = 1 (chain 0's bits), B3 on the MOF + H2 NVT
+   system with FH2, FH4 and FK at C = 2, B6 on the polar system with FH2,
+   each against its plain version at G = 16 on one numpy-seeded table;
+   times per step beside the classical launch's in the same call, the
+   plain version's and the bound with the quantum operations counted;
+20. the FH/FK decks (phase_fh_decks) — DECK with ``feynman_hibbs on`` on
+   the scan path (300 steps) and on fused µVT (5,000), with
+   ``feynman_kleinert on`` on fused µVT (5,000), the MOF NVT deck with FH
+   order 4 (5,000), PDA (d) with FH (100), and examples/h2_quantum_fk.inp
+   through mpmc_tpu_torch's command-line main (10,000 steps): the pair
+   passes' route logged, B2/B4 never launched, the fused kernel launched,
+   the carried energy against a fresh recompute after a further chunk,
+   |rd(FH/FK) - rd(classical)| > 1 K on the final configuration.
+   Phase 5 (energy) also holds the card's FH2 and FK terms against CPU
+   float64.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
@@ -149,7 +166,11 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "run_steps_uvt_pda": "mpmc_tpu_torch/csrc/pda_kernel.cu",
            "mol_pair_c128": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "dipole_field_c8": "mpmc_tpu_torch/csrc/thole_kernel.cu",
-           "mol_pair_c16_header": "mpmc_tpu_torch/csrc/pair_kernel.cu"}
+           "mol_pair_c16_header": "mpmc_tpu_torch/csrc/pair_kernel.cu",
+           "run_steps_uvt_fh2": "mpmc_tpu_torch/csrc/uvt_kernel.cu",
+           "run_steps_uvt_fk": "mpmc_tpu_torch/csrc/uvt_kernel.cu",
+           "run_steps_fh4": "mpmc_tpu_torch/csrc/nvt_kernel.cu",
+           "run_steps_uvt_pda_fh2": "mpmc_tpu_torch/csrc/pda_kernel.cu"}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
@@ -159,7 +180,11 @@ REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "run_steps_uvt_pda": "mpmc_tpu/ops/pallas/mc_kernel.py:2089",
             "mol_pair_c128": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "dipole_field_c8": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
-            "mol_pair_c16_header": "mpmc_tpu/ops/pallas/pair_kernel.py:336"}
+            "mol_pair_c16_header": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
+            "run_steps_uvt_fh2": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
+            "run_steps_uvt_fk": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
+            "run_steps_fh4": "mpmc_tpu/ops/pallas/mc_kernel.py:220",
+            "run_steps_uvt_pda_fh2": "mpmc_tpu/ops/pallas/mc_kernel.py:2089"}
 # NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
 # tensor cores, and device memory
 PEAK_F32 = 67e12
@@ -191,6 +216,24 @@ OPS_B5_IN = {"dipole": 1 + 1 + 15 + 24, "charge": 1 + 1 + 15 + 9}
 # alpha_j (2 E0.dE + |dE|^2) 14
 OPS_B6_FIELD = {"direct": 1 + 1 + 8 + 2 + 7, "screened": 1 + 1 + 8 + 17 + 7}
 OPS_B6_ROW, OPS_B6_COL = 7, 14
+# B1, B3 and B6 under a quantum correction (csrc/mc_common.cuh
+# quantum_pair, quantum_column), keyed by mc_kernel.quantum_option: per
+# pair within rc, FH2 20 (r, 1/r, s12, 4 eps, V' 5, V'' 6, the term 4, the
+# sum 1), FH4 41 (+ r^-3 2, V''' 5, V'''' 6, the term 7, the sum 1), FK 228
+# (the derivatives 28, then the fixed point: 13 to start, 8 rounds of 20
+# - sqrt, x coth x - 1 with an exp and a division, a2, the new curvature
+# -, 26 to finish with ln(sinh x / x), the sum 1); per column the reduced
+# mass 4, with FH2's prefactor 7, FH4's 12
+OPS_QC_PAIR = {0: 0, 1: 20, 2: 41, 3: 228}
+OPS_QC_COL = {0: 0, 1: 7, 2: 12, 3: 4}
+# the corrections the FH phases run, as cfg fields, and the temperatures
+# of the two chains of a C = 2 launch
+FH_VARIANTS = {"classical": {"feynman_hibbs": False,
+                             "feynman_kleinert": False},
+               "fh2": {"feynman_hibbs": True},
+               "fh4": {"feynman_hibbs": True, "feynman_hibbs_order": 4},
+               "fk": {"feynman_kleinert": True}}
+FH_TEMPS = (77.0, 120.0)
 EPS32 = float(np.finfo(np.float32).eps)
 # the explicit cutoff of the culled polar cell (the reference's rc14 row)
 RC_CULL = 14.0
@@ -330,11 +373,15 @@ def _nbytes(*ts):
 def _fused_ops(trace, cfg, nk):
     """Floating-point operations of chain 0's steps in a plain B1 or B3
     trace: what this run's data needs (pairs beyond rc stop after the
-    cutoff test; no LJ or Coulomb operations where the term is off)."""
+    cutoff test; no LJ or Coulomb operations where the term is off; a
+    quantum correction's per pair within rc and per column)."""
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    qc = mk.quantum_option(cfg)
     in_rc = (OPS_GUARD + OPS_LJ * (cfg.rd_potential == "lj")
-             + OPS_COULOMB * (cfg.coulomb != "none"))
+             + OPS_COULOMB * (cfg.coulomb != "none") + OPS_QC_PAIR[qc])
     return sum(int(t["pairs"][0]) * OPS_PAIR_FUSED
                + int(t["pairs_in"][0]) * in_rc
+               + int(t["cols"][0]) * OPS_QC_COL[qc]
                + int(t["phases"][0]) * OPS_PHASE_FUSED
                + (int(t["phases"][0]) > 0) * nk * OPS_K_FUSED for t in trace)
 
@@ -686,13 +733,14 @@ def nvt_system(kind, dtype, device, seed=31, warm_steps=2000):
 
 
 def _nvt_check(label, system, u_np, device, rep, trace_out=None,
-               sizes=None):
+               sizes=None, rss=False):
     """B3 against its plain version on the table ``u_np`` [C, K, 16] for
     the stacked copies of ``system``'s state, at each cluster size G of
     ``sizes`` (None: every G whose slice fits); at each G every chain
     against a C = 1 launch on its own block at the same G, bit for bit.
-    Tolerances as for B1.  Returns {G: (the C = 1 launch arguments of
-    chain 0, its outputs)}."""
+    Tolerances as for B1 (with ``rss``: plus _rss_tol for rd and es, as
+    the FH/FK comparisons hold them).  Returns {G: (the C = 1 launch
+    arguments of chain 0, its outputs)}."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     from mpmc_tpu_torch.parallel import multichain
@@ -711,6 +759,8 @@ def _nvt_check(label, system, u_np, device, rep, trace_out=None,
     n_acc = ps[:, 3:4]
     tol = (np.maximum(1e-10 * np.abs(ps[:, :3]), 1e-8) if f64 else
            2e-5 * np.abs(ps[:, :3]) + 2e-3 * np.sqrt(n_acc + 1.0))
+    if rss:
+        tol[:, :2] += _rss_tol(trace)
     sk_tol = ((1e-9 if f64 else 1e-4 * (1.0 + float(p[2].abs().max())))
               if ew else 0.0)
     if sizes is None:
@@ -1047,15 +1097,17 @@ def _pda_survivor_free(launch, u, rng):
     raise AssertionError("B6: no survivor-free table found")
 
 
-def _pda_ops(trace, field, nk):
+def _pda_ops(trace, field, nk, qc=0):
     """Floating-point operations of the steps in a plain B6 trace: B1's
-    per-pair and per-phase counts plus the field and surrogate work."""
+    per-pair and per-phase counts plus the field and surrogate work, and
+    a quantum correction's (mc_kernel.quantum_option ``qc``)."""
     f = OPS_B6_FIELD["direct" if field == "direct" else "screened"]
-    in_rc = OPS_GUARD + OPS_LJ + OPS_COULOMB + f
+    in_rc = OPS_GUARD + OPS_LJ + OPS_COULOMB + f + OPS_QC_PAIR[qc]
     return sum(t["pairs"] * OPS_PAIR_FUSED
                + (t["in_old"] + t["in_new"]) * in_rc
                + (t["in_new"] + (field == "ewald") * t["in_old"]) * OPS_B6_ROW
-               + t["cols"] * OPS_B6_COL + t["phases"] * OPS_PHASE_FUSED
+               + t["cols"] * (OPS_B6_COL + OPS_QC_COL[qc])
+               + t["phases"] * OPS_PHASE_FUSED
                + (t["phases"] > 0) * nk * OPS_K_FUSED for t in trace)
 
 
@@ -1205,30 +1257,34 @@ def phase_pda_kernel(device, seed=43):
 
 
 def phase_energy(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
-    """Card float32 (kernels) against CPU float64 (plain), per term; then
-    the polar term of the polar bench system (B5 in both modes)."""
+    """Card float32 (kernels) against CPU float64 (plain), per term, on the
+    bench system classical and under FH2 and FK (whose pair terms take
+    the plain tile pass on the card: B2's gate refuses them); then the
+    polar term of the polar bench system (B5 in both modes)."""
     from mpmc_tpu_torch.ops import energy
     cpu = torch.device("cpu")
-    out = {}
-    for tag, dtype, dev in (("card f32", "float32", device),
-                            ("cpu f64", "float64", cpu),
-                            ("cpu f32", "float32", cpu)):
-        params, state, cfg, thermo = bench_system(dtype, dev, n_side, n_h2,
-                                                  capacity)
-        t0 = time.time()
-        e, _ = energy.total_energy(state.pos, state.box, state.mol_alive,
-                                   params, cfg, thermo)
-        out[tag] = {k: float(v) for k, v in e.as_dict().items()}
-        log(f"energy {tag}: {time.time() - t0:.2f} s")
-    for k in out["cpu f64"]:
-        ref, got, p32 = out["cpu f64"][k], out["card f32"][k], \
-            out["cpu f32"][k]
-        # rel 1e-5 or abs 1e-2 K, or 4x the plain f32 rounding distance
-        tol = max(1e-5 * abs(ref), 1e-2, 4.0 * abs(p32 - ref))
-        log(f"    {k:9s} card {got: .8e} cpu-f64 {ref: .8e} "
-            f"|d| {abs(got - ref):.3e} tol {tol:.3e}")
-        if not abs(got - ref) <= tol:
-            raise AssertionError(f"energy term {k} disagrees")
+    for q in ("classical", "fh2", "fk"):
+        out = {}
+        for tag, dtype, dev in (("card f32", "float32", device),
+                                ("cpu f64", "float64", cpu),
+                                ("cpu f32", "float32", cpu)):
+            params, state, cfg, thermo = bench_system(dtype, dev, n_side,
+                                                      n_h2, capacity)
+            cfg = dataclasses.replace(cfg, **FH_VARIANTS[q])
+            t0 = time.time()
+            e, _ = energy.total_energy(state.pos, state.box,
+                                       state.mol_alive, params, cfg, thermo)
+            out[tag] = {k: float(v) for k, v in e.as_dict().items()}
+            log(f"energy {q} {tag}: {time.time() - t0:.2f} s")
+        for k in out["cpu f64"]:
+            ref, got, p32 = out["cpu f64"][k], out["card f32"][k], \
+                out["cpu f32"][k]
+            # rel 1e-5 or abs 1e-2 K, or 4x the plain f32 rounding distance
+            tol = max(1e-5 * abs(ref), 1e-2, 4.0 * abs(p32 - ref))
+            log(f"    {q:9s} {k:9s} card {got: .8e} cpu-f64 {ref: .8e} "
+                f"|d| {abs(got - ref):.3e} tol {tol:.3e}")
+            if not abs(got - ref) <= tol:
+                raise AssertionError(f"energy term {k} ({q}) disagrees")
     # the polar term on the same system with polarizable framework sites:
     # every other term is the one above; the polar energies differ by the
     # two solves' stopping residuals (_polar_tol) and float32 rounding
@@ -1841,7 +1897,7 @@ def _profile(label, chunk, n_steps, device, kernel=None):
     return out
 
 
-def phase_profile(device, su, n_steps=500):
+def phase_profile(device, su, n_steps=200):
     """Where a scan-path GCMC step's time goes, and the check that a step
     makes no host sync."""
     from mpmc_tpu_torch.mc import metropolis
@@ -1901,7 +1957,7 @@ def phase_profile_fused(device, su, n_steps=1000, states=None):
                     kernel="nvt_kernel" if nvt else "uvt_kernel")
 
 
-def phase_example(device, numsteps=5000):
+def phase_example(device, numsteps=2000):
     """examples/h2_sorption.inp with numsteps overridden, in a temp dir."""
     from mpmc_tpu_torch.io import input_script
     from mpmc_tpu_torch.mc import run
@@ -2711,10 +2767,10 @@ def phase_thole_chains(device, C=C_POLAR):
     return rep
 
 
-def phase_polar_chains(device, C=C_POLAR, numsteps=200, chunk=100):
+def phase_polar_chains(device, C=C_POLAR, numsteps=100, chunk=100):
     """The batched polar chains at full width through run.run: the polar
     deck (phase_polar's DECK + ``polarization on``, corrtime 100) with
-    ``chains C``, 200 steps, (a') plain, (b') ``polar_delayed on``, (c')
+    ``chains C``, 100 steps, (a') plain, (b') ``polar_delayed on``, (c')
     ``cutoff 14`` (each chain's culled CG).  Each deck must take the
     batched route with no WARNING and launch B2, B4 over chains and B5
     over chains in both modes (charge: every chain's static field at each
@@ -2944,8 +3000,8 @@ def _replay_frame_plain(job, frame, dtype, pressure):
 
 def phase_replay(device, smi):
     """``ensemble replay`` at full width over two trajectories written by
-    port runs: the 10k LJ fluid (fused NVT, 20 frames) with
-    ``calc_pressure on`` and the 10.8k GCMC fused µVT deck (20 frames, N
+    port runs: the 10k LJ fluid (fused NVT, 10 frames) with
+    ``calc_pressure on`` and the 10.8k GCMC fused µVT deck (10 frames, N
     changing: frames laid out into the existing slots).  B2 launches must
     be 1 per frame (3 with the pressure); the first and last frames' card
     float32 terms are held against the plain float64 terms of the same
@@ -2960,8 +3016,8 @@ def phase_replay(device, smi):
     with tempfile.TemporaryDirectory() as tmp:
         for label, kind, deck, lines, steps in (
                 ("lj", "lj", LJ_DECK,
-                 "fused_mc on\ncorrtime 200\ncalc_pressure on\n", 4000),
-                ("gcmc", "mof", DECK, "fused_mc on\n", 20000)):
+                 "fused_mc on\ncorrtime 200\ncalc_pressure on\n", 2000),
+                ("gcmc", "mof", DECK, "fused_mc on\n", 10000)):
             traj = os.path.join(tmp, f"{label}.traj.pqr")
             t_phase = time.perf_counter()
             su, _, _, _ = _run_deck(device, lines + f"traj_output {traj}\n",
@@ -3126,6 +3182,400 @@ def phase_campaign(device, smi, chains=16):
     return rep
 
 
+# ---------------------------------------------------------------------------
+# The Feynman-Hibbs and Feynman-Kleinert corrections: B1, B3 and B6 with
+# them against their plain versions, and the decks that run them
+# ---------------------------------------------------------------------------
+
+def _rss_tol(trace):
+    """[C, 2]: 8 float32 epsilons x the root sum of squares of the rd and
+    es terms summed into the accepted steps' deltas (the plain trace's
+    rss) — each term is rounded to float32 once or twice in either
+    version, so the two sums drift apart as a random walk of that scale
+    (B6's rule, phase_pda_kernel)."""
+    sq = sum(torch.where(t["accept"][:, None], t["rss"] ** 2,
+                         torch.zeros_like(t["rss"])) for t in trace)
+    return 8 * EPS32 * np.sqrt(sq.cpu().numpy())
+
+
+def _uvt_fh_check(label, system, thermo_c, u, device, cluster=16):
+    """B1 at ``cluster`` against its plain version on the table ``u`` [C,
+    K, 16] for C stacked copies of ``system``'s state at ``thermo_c`` (a
+    temperature per chain, or one): equal decisions and slot aliveness,
+    the sums within phase_uvt_kernel's float32 tolerance plus, for rd and
+    es, _rss_tol; positions within 1e-4 A, S(k) within 1e-4 of its scale.
+    Returns (the kernel's outputs, the plain trace, the largest |d|, the
+    launch's arguments)."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    params, state, cfg, _ = system
+    C, K = u.shape[0], u.shape[1]
+    args, kw = metropolis.fused_uvt_launch_args(
+        multichain.stack_states(state, C), params, cfg, thermo_c, u,
+        metropolis.uvt_fused_tables(params, cfg))
+    trace = []
+    p = mk.run_steps_uvt_plain(*args, **kw, trace=trace)
+    k = mk.run_steps_uvt(*args, **kw, cluster=cluster)
+    torch.cuda.synchronize(device)
+    ps, ks = p[2].cpu().numpy(), k[2].cpu().numpy()
+    log(f"B1 {label} G={cluster} C={C} K={K}: kernel counts "
+        f"{ks[:, 6:12].tolist()} plain {ps[:, 6:12].tolist()}")
+    if not (np.array_equal(ks[:, 6:12], ps[:, 6:12])
+            and torch.equal(k[1], p[1])):
+        step, chain, margin = _first_divergence(
+            lambda n: mk.run_steps_uvt(
+                *args[:24], args[24][:, :n].contiguous(), args[25], **kw,
+                cluster=cluster)[2][:, 6:9].sum(1).long().cpu(), trace, K)
+        raise AssertionError(
+            f"B1 {label}: decisions differ from the plain version; first at "
+            f"step {step} of chain {chain}, |ln u - ln acc| = {margin:.3e}")
+    n_acc = ps[:, 6:9].sum(1, keepdims=True)
+    tol = 2e-5 * np.abs(ps[:, :6]) + 2e-3 * np.sqrt(n_acc + 1.0)
+    tol[:, :2] += _rss_tol(trace)
+    d_sums = np.abs(ks[:, :6] - ps[:, :6])
+    d_pos = float((k[0] - p[0]).abs().max())
+    d_sk = max(float((a - b).abs().max()) for a, b in zip(k[3:], p[3:]))
+    log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
+        f"{tol.max():.3e}), pos {d_pos:.3e} A, S(k) {d_sk:.3e}")
+    if not (np.all(d_sums <= tol) and d_pos <= 1e-4
+            and d_sk <= 1e-4 * (1.0 + float(p[3].abs().max()))):
+        raise AssertionError(f"B1 {label} disagrees with its plain version")
+    return k, trace, max(float(d_sums.max()), d_pos, d_sk), (args, kw)
+
+
+def phase_fh_kernels(device, K=64, seed=2026, k_time=1000):
+    """B1, B3 and B6 under the Feynman-Hibbs (order 2, 4) and
+    Feynman-Kleinert corrections against their plain versions, float32,
+    at G = 16, on numpy-seeded tables: B1 on the 10.8k bench system (77
+    K) with FH2, FH4 and FK, at C = 2 with the chains at 77 and 120 K (a
+    beta per chain) and at C = 1 (equal bit for bit to chain 0 of the C =
+    2 launch); B3 on the 10.0k MOF + H2 NVT system (nvt_system, after its
+    warm-up) with FH2, FH4 and FK at C = 2 (_nvt_check, each chain equal
+    to its C = 1 launch); B6 on the polar bench system with FH2 (direct
+    field): forced survivors of each move type, natural coins and a
+    survivor-free table (phase_pda_kernel's float32 tolerances).  B1's
+    and B3's sums are held to their classical float32 tolerance plus, for
+    rd and es, 8 float32 epsilons x the root sum of squares of their
+    terms (_rss_tol, B6's rule): the quantum terms make more of the large
+    core terms whose rounding the classical allowance does not cover.  Times
+    per step at G = 16 (B1, B3: 1000-step launches at C = 1; B6: the
+    survivor-free 16-step table), each beside the classical launch's in
+    this call, the plain version's time and the bound with the quantum
+    operations counted (_fused_ops, _pda_ops).  Returns {entry: report}
+    for run_steps_uvt_{fh2,fh4,fk}, run_steps_{fh2,fh4,fk} and
+    run_steps_uvt_pda_fh2."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    rng = np.random.default_rng(seed)
+    reps = {}
+    f32 = torch.float32
+
+    def timed(fn, n_steps):
+        return (_time_steps(fn, device, n_steps),
+                time_device(fn, device, n=5) / n_steps)
+
+    # ---- B1
+    params, state0, cfg0, thermo = bench_system("float32", device)
+    u2 = torch.as_tensor(rng.random((2, K, 16)), dtype=f32, device=device)
+    ut = torch.as_tensor(rng.random((1, k_time, 16)), dtype=f32,
+                         device=device)
+    two = thermo.replace(temperature=torch.tensor(FH_TEMPS, dtype=f32,
+                                                  device=device))
+    classical = None
+    for q in ("classical", "fh2", "fh4", "fk"):
+        cfg = dataclasses.replace(cfg0, **FH_VARIANTS[q])
+        state = metropolis.initialize(state0, params, cfg, thermo)
+        at, kwt = metropolis.fused_uvt_launch_args(
+            multichain.stack_states(state, 1), params, cfg, thermo, ut,
+            metropolis.uvt_fused_tables(params, cfg))
+        ms, dms = timed(lambda: mk.run_steps_uvt(*at, **kwt, cluster=16),
+                        k_time)
+        log(f"B1 f32 {q} C=1 G=16: {ms * 1e3:.3f} us per step ({k_time}-"
+            f"step launches; {dms * 1e3:.3f} back to back)")
+        if q == "classical":
+            classical = (ms, dms)
+            continue
+        system = (params, state, cfg, thermo)
+        k2, _, err2, _ = _uvt_fh_check(f"f32 {q} (77 / 120 K)", system, two,
+                                       u2, device)
+        k1, trace, err1, (a1, kw1) = _uvt_fh_check(f"f32 {q} (77 K)", system,
+                                                   thermo, u2[:1], device)
+        if not all(torch.equal(x[0], y[0]) for x, y in zip(k1, k2)):
+            raise AssertionError(f"B1 {q}: the C = 1 launch differs from "
+                                 "chain 0 of the C = 2 launch")
+        pms = time_calls(lambda: mk.run_steps_uvt_plain(*a1, **kw1), device,
+                         n=1) / K
+        ops = _fused_ops(trace, cfg, kw1["kvecs"].shape[0])
+        n_io = (_nbytes(*a1[:25], *kw1.values())
+                + _nbytes(k1[0], a1[1], k1[1], k1[2], *k1[3:]))
+        bound, by = _bound_ms(ops, n_io)
+        reps[f"run_steps_uvt_{q}"] = {
+            "max_abs_err": max(err1, err2), "ms": ms, "device_ms": dms,
+            "plain_ms": pms, "bound_ms": bound / K, "bound_by": by,
+            "classical_ms": classical[0],
+            "classical_device_ms": classical[1], "cluster": "G=16 (C=1)"}
+        log(f"B1 f32 {q}: kernel {ms * 1e3:.3f} us/step (classical "
+            f"{classical[0] * 1e3:.3f}), plain {pms * 1e3:.1f} us/step, "
+            f"bound {bound / K * 1e3:.4f} us/step ({by}; {ops / K:.3e} "
+            "ops/step)")
+    # ---- B3
+    params, state0, cfg0, thermo = nvt_system("mof", "float32", device)
+    u_np = rng.random((2, K, 16))
+    ut = torch.as_tensor(rng.random((1, k_time, 16)), dtype=f32,
+                         device=device)
+    tables = metropolis.nvt_fused_tables(params, state0.mol_alive)
+    for q in ("classical", "fh2", "fh4", "fk"):
+        cfg = dataclasses.replace(cfg0, **FH_VARIANTS[q])
+        state = metropolis.initialize(state0, params, cfg, thermo)
+        at, kwt = metropolis.fused_nvt_launch_args(
+            multichain.stack_states(state, 1), params, cfg, thermo, ut,
+            tables)
+        ms, dms = timed(lambda: mk.run_steps(*at, **kwt, cluster=16), k_time)
+        log(f"B3 f32 {q} C=1 G=16: {ms * 1e3:.3f} us per step ({k_time}-"
+            f"step launches; {dms * 1e3:.3f} back to back)")
+        if q == "classical":
+            classical = (ms, dms)
+            continue
+        rep, trace = {"max_abs_err": 0.0}, []
+        a1, kw1, one = _nvt_check(f"mof f32 {q}", (params, state, cfg,
+                                                    thermo), u_np, device,
+                                  rep, trace_out=trace, sizes=[16],
+                                  rss=True)[16]
+        pms = time_calls(lambda: mk.run_steps_plain(*a1, **kw1), device,
+                         n=1) / K
+        ops = _fused_ops(trace, cfg, kw1["kvecs"].shape[0])
+        bound, by = _bound_ms(ops, _nbytes(*a1[:16], *kw1.values())
+                              + _nbytes(*one))
+        rep.update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bound / K,
+                   bound_by=by, classical_ms=classical[0],
+                   classical_device_ms=classical[1], cluster="G=16 (C=1)")
+        reps[f"run_steps_{q}"] = rep
+        log(f"B3 f32 {q}: kernel {ms * 1e3:.3f} us/step (classical "
+            f"{classical[0] * 1e3:.3f}), plain {pms * 1e3:.1f} us/step, "
+            f"bound {bound / K * 1e3:.4f} us/step ({by}; {ops / K:.3e} "
+            "ops/step)")
+    # ---- B6 (direct field) with FH2
+    params, state0, cfg0, thermo = polar_system("float32", device)
+    Kp = mk.PDA_SEG
+    rep = {"max_abs_err": 0.0}
+    runs = {}
+    for q in ("fh2", "classical"):
+        cfg = dataclasses.replace(cfg0, polar_delayed=True, fused_mc=True,
+                                  **FH_VARIANTS[q])
+        state = metropolis.initialize(state0, params, cfg, thermo)
+        cfg_eff = mk.pda_effective_cfg(cfg, params)
+        tables = metropolis.uvt_fused_tables(params, cfg_eff)
+        consts = metropolis._uvt_chunk_consts(
+            state.pos, state.box, params, thermo, cfg_eff, tables[5],
+            tables[6])
+        runs[q] = (state, cfg_eff, tables, consts)
+
+    def pda_args(q, u):
+        state, cfg_eff, tables, consts = runs[q]
+        return metropolis.pda_launch_args(state, params, cfg_eff, thermo, u,
+                                          tables, consts)
+
+    def table(x):
+        return torch.as_tensor(x, dtype=f32, device=device)
+
+    us = {}
+    for mt, lane8 in ((0, 0.9), (1, 0.1), (2, 0.4)):
+        x = rng.random((Kp, 16))
+        x[0, 4], x[0, 8] = 1e-30, lane8
+        us[f"step 0 survives ({'disp ins del'.split()[mt]})"] = table(x)
+    us["natural"] = table(rng.random((Kp, 16)))
+    def launch_fh2(u):
+        a, kw = pda_args("fh2", u)
+        return mk.run_steps_uvt_pda(*a, **kw)
+
+    us["survivor-free"] = _pda_survivor_free(
+        launch_fh2, table(rng.random((Kp, 16))), rng)
+    hits = 0
+    for name, u in us.items():
+        a, kw = pda_args("fh2", u)
+        trace = []
+        p = mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace).cpu().numpy()
+        k = mk.run_steps_uvt_pda(*a, **kw, cluster=16).cpu().numpy()
+        rss = np.zeros(8)
+        if trace[-1].get("rss"):
+            rss[[0, 1, 2, 6]] = trace[-1]["rss"]
+        want = np.concatenate([p[1, :6], p[0, 9:11]])
+        tol = 2e-5 * np.abs(want) + 1e-3 + 8 * EPS32 * rss
+        d_vals = np.abs(np.concatenate([k[1, :6], k[0, 9:11]]) - want)
+        d_rows = float(np.abs(k[2:5] - p[2:5]).max())
+        log(f"B6 f32 fh2 {name} G=16: n_done {k[0, 0]:g} hit {k[0, 1]:g} "
+            f"mtype {k[0, 2]:g} (plain: {p[0, 0]:g} {p[0, 1]:g} "
+            f"{p[0, 2]:g}); |d| deltas/d*/lnb {d_vals.max():.3e} (worst "
+            f"|d|/tol {float(np.max(d_vals / tol)):.3f}), rows {d_rows:.3e}")
+        if not (np.array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8]],
+                               p[0, [0, 1, 2, 3, 4, 6, 7, 8]])
+                and np.all(d_vals <= tol) and d_rows <= 1e-4):
+            raise AssertionError(f"B6 fh2 {name} disagrees with its plain "
+                                 "version")
+        rep["max_abs_err"] = max(rep["max_abs_err"], float(d_vals.max()),
+                                 d_rows)
+        hits += int(k[0, 1])
+    if hits < 3:
+        raise AssertionError(f"B6 fh2: only {hits} survivors")
+    u = us["survivor-free"]
+    a, kw = pda_args("fh2", u)
+    trace = []
+    mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace)
+    ops = _pda_ops(trace, "direct", kw["kvecs"].shape[0],
+                   mk.quantum_option(a[-1]))
+    bound, by = _bound_ms(ops, _nbytes(*a, *kw.values()) + 8 * 16 * 8)
+    ac, kwc = pda_args("classical", u)
+    for tag, (aa, kk) in (("classical", (ac, kwc)), ("fh2", (a, kw))):
+        ms = time_calls(lambda: mk.run_steps_uvt_pda(*aa, **kk, cluster=16),
+                        device) / Kp
+        dms = time_device(lambda: mk.run_steps_uvt_pda(*aa, **kk,
+                                                       cluster=16),
+                          device, n=20) / Kp
+        rep.update({f"{tag}_ms": ms, f"{tag}_device_ms": dms})
+        log(f"B6 f32 {tag}, survivor-free table, G=16: {ms * 1e3:.2f} "
+            f"us/step per call, {dms * 1e3:.2f} on the card alone")
+    pms = time_calls(lambda: mk.run_steps_uvt_pda_plain(*a, **kw), device,
+                     n=3) / Kp
+    rep.update(ms=rep.pop("fh2_ms"), device_ms=rep.pop("fh2_device_ms"),
+               plain_ms=pms, bound_ms=bound / Kp, bound_by=by,
+               cluster="G=16")
+    reps["run_steps_uvt_pda_fh2"] = rep
+    log("fh kernels: " + json.dumps(reps))
+    return reps
+
+
+# the FH/FK decks: (label, system, deck lines, numsteps); DECK's corrtime
+# 1000 (100 on the scan deck, POLAR_CORRTIME on the polar one)
+FH_DECKS = (
+    ("fh2_scan", "mof", "feynman_hibbs on\ncorrtime 100\n", 300),
+    ("fh2_fused", "mof", "feynman_hibbs on\nfused_mc on\n", 5000),
+    ("fk_fused", "mof", "feynman_kleinert on\nfused_mc on\n", 5000),
+    ("fh4_nvt", "mof", "ensemble nvt\nfused_mc on\nfeynman_hibbs on\n"
+     "feynman_hibbs_order 4\n", 5000),
+    ("fh2_pda", "polar", "polar_delayed on\nfused_mc on\nfeynman_hibbs on\n",
+     100))
+FH_ROUTES = {"fh2_scan": (None, None),
+             "fh2_fused": ("single-chain fused µVT kernel", "run_steps_uvt"),
+             "fk_fused": ("single-chain fused µVT kernel", "run_steps_uvt"),
+             "fh4_nvt": ("single-chain fused NVT kernel", "run_steps"),
+             "fh2_pda": ("polar delayed-acceptance stage-1 kernel",
+                         "run_steps_uvt_pda")}
+
+
+def _fh_deck_checks(label, su, text, ln, device, seed):
+    """The checks of an FH/FK deck after its run: the pair passes' route
+    named in the log, B2 and B4 never launched, the fused route taken and
+    its kernel launched; after a further chunk the carried energy equals a
+    fresh recompute (the polar term within _polar_tol); the correction
+    moves rd by more than 1 K on the final configuration.  Returns the
+    deck's report."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    route, kernel = FH_ROUTES[label]
+    if ("pair passes: the plain tile pass on the device" not in text
+            or "WARNING" in text):
+        raise AssertionError(f"{label}: the pair passes' route is not "
+                             "logged, or a WARNING was")
+    b2b4 = ln["pair_terms"] + ln["mol_pair"] + ln["mol_pair_chains"]
+    if b2b4:
+        raise AssertionError(f"{label}: B2/B4 launched under FH/FK: {ln}")
+    if route and (f"fused_mc: {route}" not in text or not ln[kernel]):
+        raise AssertionError(f"{label}: did not run {route}: {ln}")
+    rate = float(text.split("steps/sec:")[1].split()[0])
+    g = torch.Generator(device=device).manual_seed(seed)
+    params, cfg, thermo = su.params, su.cfg, su.thermo
+    if kernel == "run_steps_uvt":
+        st, _ = metropolis.run_chunk_fused_uvt(su.state, params, cfg,
+                                               thermo, 1000, generator=g)
+    elif kernel == "run_steps":
+        st, _ = metropolis.run_chunk_fused(su.state, params, cfg, thermo,
+                                           1000, generator=g)
+    elif kernel == "run_steps_uvt_pda":
+        st, _ = metropolis.run_chunk_fused_uvt_polar_da(
+            su.state, params, cfg, thermo, 100, generator=g,
+            tables=metropolis.uvt_fused_tables(
+                params, mk.pda_effective_cfg(cfg, params)))
+    else:
+        st, _ = metropolis.run_chunk(su.state, params, cfg, thermo, 100,
+                                     generator=g)
+    _check_bookkeeping(f"{label}, a further chunk", st, su,
+                       polar=cfg.polarization)
+    fresh = metropolis.initialize(st, params, cfg, thermo)
+    plain = metropolis.initialize(st, params, dataclasses.replace(
+        cfg, **FH_VARIANTS["classical"]), thermo)
+    d_rd = float(fresh.energy.rd) - float(plain.energy.rd)
+    log(f"{label}: {rate:.2f} steps/s; rd {float(fresh.energy.rd):.4f} K, "
+        f"classical {float(plain.energy.rd):.4f} K (FH/FK - classical "
+        f"{d_rd:+.4f} K); B2/B4 launches {b2b4}; {kernel} launches "
+        f"{ln.get(kernel)}")
+    if not abs(d_rd) > 1.0:
+        raise AssertionError(f"{label}: |rd(FH) - rd(classical)| <= 1 K")
+    return {"steps_per_sec": rate, "d_rd_K": d_rd, "b2_b4_launches": b2b4,
+            "kernel_launches": ln.get(kernel), "N": float(
+                st.n_molecules(params))}
+
+
+def phase_fh_decks(device, example_steps=10000):
+    """The FH/FK decks through run.run (FH_DECKS: DECK with feynman_hibbs
+    on the scan path and on fused µVT, DECK with feynman_kleinert on fused
+    µVT, the MOF NVT deck with FH order 4, PDA (d) with FH), each checked
+    by _fh_deck_checks; then examples/h2_quantum_fk.inp through
+    mpmc_tpu_torch's command-line main (``example_steps`` steps), B1
+    launched once per corrtime.  Returns ({deck: launches}, {deck:
+    report})."""
+    import contextlib
+    from mpmc_tpu_torch import __main__ as port_main
+    from mpmc_tpu_torch.io import input_script
+    launches, reps = {}, {}
+    for i, (label, kind, extra, numsteps) in enumerate(FH_DECKS):
+        su, _, text, ln = _run_deck(device, extra, numsteps=numsteps,
+                                    kind=kind)
+        reps[label] = _fh_deck_checks(label, su, text, ln, device, 61 + i)
+        launches[label] = ln
+    deck = open(os.path.join(REPO, "examples", "h2_quantum_fk.inp")).read()
+    deck = deck.replace("numsteps         20000",
+                        f"numsteps {example_steps}")
+    deck = deck.replace("examples/framework_h2.pqr",
+                        os.path.join(REPO, "examples", "framework_h2.pqr"))
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with open("h2_quantum_fk.inp", "w") as f:
+                f.write(deck)
+            job = input_script.parse_file("h2_quantum_fk.inp")
+            out = io.StringIO()
+            _reset_counts()
+            with contextlib.redirect_stdout(out):
+                port_main.main(["h2_quantum_fk.inp"])
+            torch.cuda.synchronize(device)
+            ln = _launch_counts()
+        finally:
+            os.chdir(old)
+    text = out.getvalue()
+    log("\n".join(text.splitlines()[:6] + text.splitlines()[-3:]))
+    n_blocks = job.cfg.numsteps // job.cfg.corrtime
+    if not (job.cfg.feynman_kleinert and ln["run_steps_uvt"] == n_blocks):
+        raise AssertionError(f"h2_quantum_fk.inp: B1 launched "
+                             f"{ln['run_steps_uvt']} times for {n_blocks} "
+                             "blocks")
+    rate = float(text.split("steps/sec:")[1].split()[0])
+    if ("fused_mc: single-chain fused µVT kernel" not in text
+            or "pair passes: the plain tile pass" not in text
+            or ln["pair_terms"] + ln["mol_pair"]):
+        raise AssertionError(f"h2_quantum_fk.inp: not the FK fused route "
+                             f"({ln})")
+    log(f"h2_quantum_fk.inp: {example_steps} steps at "
+        f"{job.temperature:g} K, {rate:.2f} steps/s, B1 "
+        f"launches {ln['run_steps_uvt']}")
+    launches["example_fk"] = ln
+    reps["example_fk"] = {"steps_per_sec": rate,
+                          "kernel_launches": ln["run_steps_uvt"]}
+    return launches, reps
+
+
 def _rows_equal(a, b):
     """Two campaign rows equal, NaN equal to NaN."""
     return a.keys() == b.keys() and all(
@@ -3136,47 +3586,87 @@ def main():
     dev, smi = phase_device()
     sys.path.insert(0, REPO)
     t0 = time.time()
+
+    def mark(name):
+        # the wall seconds at which each phase starts: where a run's time goes
+        log(f"--- {name} at {time.time() - t0:.1f} s")
+
     build_s = phase_build()
+    mark("phase_kernels")
     report = phase_kernels(dev)
+    mark("phase_uvt_kernel")
     report["run_steps_uvt"] = phase_uvt_kernel(dev)
+    mark("phase_nvt_kernel")
     report["run_steps"] = phase_nvt_kernel(dev)
+    mark("phase_thole_kernel")
     report.update(phase_thole_kernel(dev))
+    mark("phase_pda_kernel")
     report["run_steps_uvt_pda"] = phase_pda_kernel(dev)
+    mark("phase_mol_pair_chains")
     report["mol_pair_c128"] = phase_mol_pair_chains(dev)
     t_c8 = time.time()
+    mark("phase_thole_chains")
     report["dipole_field_c8"] = phase_thole_chains(dev)
     t_c8 = time.time() - t_c8
+    mark("phase_energy")
     phase_energy(dev)
+    mark("phase_main")
     scan_launches, rate, su = phase_main(dev)
+    mark("phase_profile")
     prof_scan = phase_profile(dev, su)
+    mark("phase_example")
     phase_example(dev)
+    mark("phase_fused")
     fused_launches, fused_rate, su_f, kernel_us = phase_fused(dev)
+    mark("phase_profile_fused")
     prof_fused = phase_profile_fused(dev, su_f)
+    mark("phase_fused_chains")
     chain_launches, chains_rate, su_c = phase_fused_chains(dev)
+    mark("phase_profile_fused")
     prof_chains = phase_profile_fused(dev, su_c, states=su_c.states)
+    mark("phase_fused_nvt")
     nvt_launches, nvt_rates, nvt_sus = phase_fused_nvt(dev)
+    mark("phase_profile_fused")
     prof_nvt = phase_profile_fused(dev, nvt_sus["mof_nvt"])
     su16 = nvt_sus["mof_nvt_c16"]
+    mark("phase_profile_fused")
     prof_nvt16 = phase_profile_fused(dev, su16, states=su16.states)
+    mark("phase_polar")
     polar_launches, polar_reps = phase_polar(dev)
+    mark("phase_pda_decks")
     pda_launches, pda_reps = phase_pda_decks(dev)
     t_new = time.time()
+    mark("phase_batched")
     batched_launches, batched_rep = phase_batched(dev)
+    mark("phase_pt")
     pt_launches, pt_reps = phase_pt(dev)
+    mark("phase_restart_write")
     restart = phase_restart_write(dev)
     t_new = time.time() - t_new
     t_11 = time.time()
+    mark("phase_checkpoint")
     ckpt_rep = phase_checkpoint(dev, smi)
+    mark("phase_replay")
     replay_rep = phase_replay(dev, smi)
+    mark("phase_campaign")
     campaign_rep = phase_campaign(dev, smi)
     t_11 = time.time() - t_11
     t_pc = time.time()
+    mark("phase_polar_chains")
     pc_launches, pc_reps = phase_polar_chains(dev)
     t_c8 += time.time() - t_pc
     t_12 = time.time()
+    mark("phase_npt")
     npt_launches, npt_reps = phase_npt(dev)
+    mark("phase_pt_drivers")
     ptd_launches, ptd_reps = phase_pt_drivers(dev)
     t_12 = time.time() - t_12
+    t_13 = time.time()
+    mark("phase_fh_kernels")
+    report.update(phase_fh_kernels(dev))
+    mark("phase_fh_decks")
+    fh_launches, fh_reps = phase_fh_decks(dev)
+    t_13 = time.time() - t_13
     # each kernel's launches on its own main path: B2 and B4 on the scan
     # path, B1 on the fused single-chain µVT path, B3 on the single-chain
     # MOF NVT deck, B5 (both modes) on the polar scan-path deck (dipole:
@@ -3196,11 +3686,19 @@ def main():
                     pc_launches["polar_c8"]["dipole_field_chains"],
                 # B4 over chains with a header per chain: the NPT chains
                 "mol_pair_c16_header":
-                    npt_launches["n3_chains"]["mol_pair_chains"]}
+                    npt_launches["n3_chains"]["mol_pair_chains"],
+                # B1, B3 and B6 with a quantum correction: the FH/FK decks
+                "run_steps_uvt_fh2": fh_launches["fh2_fused"]["run_steps_uvt"],
+                "run_steps_uvt_fk": fh_launches["fk_fused"]["run_steps_uvt"],
+                "run_steps_fh4": fh_launches["fh4_nvt"]["run_steps"],
+                "run_steps_uvt_pda_fh2":
+                    fh_launches["fh2_pda"]["run_steps_uvt_pda"]}
     report["mol_pair_c16_header"] = report["mol_pair_c128"]["header"]
     names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps",
              "dipole_field", "charge_field", "run_steps_uvt_pda",
-             "mol_pair_c128", "dipole_field_c8", "mol_pair_c16_header")
+             "mol_pair_c128", "dipole_field_c8", "mol_pair_c16_header",
+             "run_steps_uvt_fh2", "run_steps_uvt_fk", "run_steps_fh4",
+             "run_steps_uvt_pda_fh2")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -3316,6 +3814,20 @@ def main():
         + f"  npt_launches {npt_launches}  pt_driver_launches {ptd_launches}"
         f"  pr12_phases_seconds {t_12:.1f}  wall_seconds "
         f"{time.time() - t0:.1f}  ({smi})")
+    log("  ".join(f"{k}_us_per_step {report[k]['ms'] * 1e3:.3f}  {k}_device_"
+                  f"us_per_step {report[k]['device_ms'] * 1e3:.3f}  {k}_"
+                  f"classical_device_us_per_step "
+                  f"{report[k]['classical_device_ms'] * 1e3:.3f}  {k}_"
+                  f"plain_us_per_step {report[k]['plain_ms'] * 1e3:.1f}  "
+                  f"{k}_bound_us_per_step {report[k]['bound_ms'] * 1e3:.4f}"
+                  for k in ("run_steps_uvt_fh2", "run_steps_uvt_fh4",
+                            "run_steps_uvt_fk", "run_steps_fh2",
+                            "run_steps_fh4", "run_steps_fk",
+                            "run_steps_uvt_pda_fh2"))
+        + "  " + "  ".join(f"{k}_steps_per_sec {r['steps_per_sec']:.2f}"
+                           for k, r in fh_reps.items())
+        + f"  fh_launches {fh_launches}  pr13_phases_seconds {t_13:.1f}  "
+        f"wall_seconds {time.time() - t0:.1f}  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,8 @@ __device__ __forceinline__ float x_max(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double x_max(double a, double b) { return fmax(a, b); }
 __device__ __forceinline__ float x_exp(float x) { return expf(x); }
 __device__ __forceinline__ double x_exp(double x) { return exp(x); }
+__device__ __forceinline__ float x_log(float x) { return logf(x); }
+__device__ __forceinline__ double x_log(double x) { return log(x); }
 __device__ __forceinline__ float x_sin(float x) { return sinf(x); }
 __device__ __forceinline__ double x_sin(double x) { return sin(x); }
 __device__ __forceinline__ float x_cos(float x) { return cosf(x); }

@@ -8,7 +8,9 @@
 //
 // Layout.  Rank r of a chain's cluster owns the columns [r nloc, (r + 1)
 //   nloc) with nloc = ceil(n / G), as structure-of-arrays planes x, y, z,
-//   q, eps, sig and alive, and the k-vectors [r kloc, (r + 1) kloc) with
+//   q, eps, sig and alive - and, under a Feynman-Hibbs/Kleinert
+//   correction (Opts.qc), a seventh plane, each column's molecular mass
+//   -, and the k-vectors [r kloc, (r + 1) kloc) with
 //   kloc = ceil(nk / G): kvec, kcoef, S(k) and the step's dS.  B1 adds a
 //   replica of the slot table (alive flags and species) in every CTA.
 //   slice_bytes() gives the dynamic shared memory of one CTA; the wrapper
@@ -85,12 +87,14 @@ __host__ __device__ inline size_t seg16(size_t b) {
   return (b + 15) & ~size_t(15);
 }
 
-// Dynamic shared memory of one CTA: six column planes and eight k-vector
+// Dynamic shared memory of one CTA: six column planes (seven with the
+// molecular-mass plane of a quantum correction, qc) and eight k-vector
 // planes of T, the replicated slot species (int32) and the alive flags of
 // the columns and of the slots (bool), each segment 16-byte aligned.
 template <typename T>
-__host__ __device__ inline size_t slice_bytes(int nloc, int kloc, int ms) {
-  return seg16(6 * size_t(nloc) * sizeof(T))
+__host__ __device__ inline size_t slice_bytes(int nloc, int kloc, int ms,
+                                              bool qc) {
+  return seg16((qc ? 7 : 6) * size_t(nloc) * sizeof(T))
          + seg16(8 * size_t(kloc) * sizeof(T)) + seg16(4 * size_t(ms))
          + seg16(size_t(nloc)) + seg16(size_t(ms));
 }
@@ -98,6 +102,7 @@ __host__ __device__ inline size_t slice_bytes(int nloc, int kloc, int ms) {
 template <typename T>
 struct Slice {
   T *x, *y, *z, *q, *e, *s;            // [nloc] column planes
+  T *m;                                // [nloc] molecular mass (qc), or null
   T *kv;                               // [kloc][3]
   T *kc, *skr, *ski, *dsr, *dsi;       // [kloc]
   int32_t* ssp;                        // [ms] slot species (B1)
@@ -106,7 +111,7 @@ struct Slice {
 };
 
 template <typename T>
-__device__ inline Slice<T> carve_slice(int nloc, int kloc, int ms) {
+__device__ inline Slice<T> carve_slice(int nloc, int kloc, int ms, bool qc) {
   Slice<T> sl;
   unsigned char* p = dyn_smem;
   T* f = reinterpret_cast<T*>(p);
@@ -116,7 +121,8 @@ __device__ inline Slice<T> carve_slice(int nloc, int kloc, int ms) {
   sl.q = f + 3 * nloc;
   sl.e = f + 4 * nloc;
   sl.s = f + 5 * nloc;
-  p += seg16(6 * size_t(nloc) * sizeof(T));
+  sl.m = qc ? f + 6 * nloc : nullptr;
+  p += seg16((qc ? 7 : 6) * size_t(nloc) * sizeof(T));
   f = reinterpret_cast<T*>(p);
   sl.kv = f;
   sl.kc = f + 3 * kloc;
@@ -145,13 +151,14 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // Load this CTA's slice: the cnt columns from base of a chain's pos [n,3]
-// (split into x/y/z planes), the per-atom planes and alive flags, and the
-// kcnt k-vectors from kbase with the chain's S(k) rows.  Once per launch.
+// (split into x/y/z planes), the per-atom planes (with the molecular mass
+// mm where the slice has its plane) and alive flags, and the kcnt
+// k-vectors from kbase with the chain's S(k) rows.  Once per launch.
 template <typename T>
 __device__ __forceinline__ void load_slice(
     const Slice<T>& sl, const T* P, const bool* AL,
     const T* __restrict__ q, const T* __restrict__ eps,
-    const T* __restrict__ sig, int base, int cnt,
+    const T* __restrict__ sig, const T* __restrict__ mm, int base, int cnt,
     const T* __restrict__ kvec, const T* __restrict__ kcoef, const T* SKr,
     const T* SKi, int kbase, int kcnt) {
   for (int jl = threadIdx.x; jl < cnt; jl += NT) {
@@ -162,6 +169,7 @@ __device__ __forceinline__ void load_slice(
     sl.q[jl] = q[j];
     sl.e[jl] = eps[j];
     sl.s[jl] = sig[j];
+    if (sl.m) sl.m[jl] = mm[j];
     sl.al[jl] = AL[j];
   }
   for (int kl = threadIdx.x; kl < kcnt; kl += NT) {
@@ -195,8 +203,8 @@ __device__ __forceinline__ void read_row(cg::cluster_group& cluster,
   row[2] = cluster.map_shared_rank(sl.z, owner)[rl];
 }
 
-// The mixed LJ parameters (eps, sig^2) of sites i and j (pair_energy's
-// mixing, the same arithmetic).
+// The mixed LJ parameters (eps, sig^2) of sites i and j (Lorentz-Berthelot
+// or Waldman-Hagler, lj.mix).
 template <typename T>
 __device__ __forceinline__ void mix_pair(T ei, T si, T ej, T sj,
                                          const Opts o, T& eps, T& sig2) {
@@ -214,14 +222,18 @@ __device__ __forceinline__ void mix_pair(T ei, T si, T ej, T sj,
   sig2 = sig * sig;
 }
 
-// pair_energy from the mixed (eps, sig^2) and qq = qi qj, without its
-// early return: every pair is evaluated, and the terms of a pair beyond rc
-// are replaced by 0 (selected, never multiplied), which gives pair_energy's
-// bits and keeps a warp's lanes together.
-template <typename T>
+// The (rd, es) of a pair at squared distance r2 from the mixed (eps,
+// sig^2) and qq = qi qj, the Coulomb constant left to the caller: every
+// pair is evaluated, and the terms of a pair beyond rc are replaced by 0
+// (selected, never multiplied), which keeps a warp's lanes together.  The
+// kernels' quantum instances (QC) add the correction o.qc with the
+// column's quantum_column qv, evaluated only for a pair within rc.
+template <typename T, bool QC>
 __device__ __forceinline__ void pair_energy_mixed(T r2, T eps, T sig2, T qq,
                                                   const Opts o, T rc, T rc2,
-                                                  T alpha, T& rd, T& es) {
+                                                  T alpha,
+                                                  const Quantum<T>& qv,
+                                                  double hb2, T& rd, T& es) {
   const bool in = r2 < rc2;
   rd = T(0);
   es = T(0);
@@ -230,6 +242,7 @@ __device__ __forceinline__ void pair_energy_mixed(T r2, T eps, T sig2, T qq,
     const T s2 = sig2 / r2s;
     const T s6 = s2 * s2 * s2;
     rd = T(4) * eps * s6 * (s6 - T(1));
+    if (QC && in) rd += quantum_pair<T>(r2s, eps, s6, qv, hb2, o);
   }
   if (o.es != 0) {
     const T r = x_sqrt(r2s);
@@ -262,20 +275,23 @@ __device__ __forceinline__ T row_r2(const T* p, T xj, T yj, T zj,
 // current rows s_old (has_old) and its trial rows s_new (has_new).  Adds
 // new - old to a_rd and a_es, and takes the closest approach of the trial
 // rows into mn.  The LJ mixing of site a with column j is computed once,
-// for both rows (mix_pair); the rest of the pair arithmetic is
-// pair_energy's (mc_common.cuh), so the sums are those of per-pair
-// pair_energy calls, bit for bit.
-template <typename T>
+// for both rows (mix_pair), and in a quantum instance (QC) the column's
+// reduced mass with the molecule (mass mm_i) and prefactors at beta
+// (temperature temp) once for every site (quantum_column).
+template <typename T, bool QC>
 __device__ __forceinline__ void slice_pass(
     const Slice<T>& sl, int base, int cnt, int start, int na, bool has_old,
     bool has_new, const T (*s_old)[3], const T (*s_new)[3], const T* s_ei,
     const T* s_si, const T* s_qi, const T* s_box, const T* s_bi,
-    const Opts o, T rc, T rc2, T alpha, double& a_rd, double& a_es, T& mn) {
+    const Opts o, T rc, T rc2, T alpha, T mm_i, T beta, T temp, double hb2,
+    double& a_rd, double& a_es, T& mn) {
   for (int jl = threadIdx.x; jl < cnt; jl += NT) {
     const int jc = base + jl;
     if (!sl.al[jl] || (jc >= start && jc < start + na)) continue;
     const T xj = sl.x[jl], yj = sl.y[jl], zj = sl.z[jl];
     const T qj = sl.q[jl], ej = sl.e[jl], sj = sl.s[jl];
+    Quantum<T> qv{};
+    if (QC) qv = quantum_column<T>(mm_i, sl.m[jl], beta, temp, hb2, o);
 #pragma unroll
     for (int a = 0; a < A_PAD; ++a) {
       if (a >= na) break;
@@ -284,15 +300,15 @@ __device__ __forceinline__ void slice_pass(
       const T qq = s_qi[a] * qj;
       if (has_old) {
         r2 = row_r2<T>(s_old[a], xj, yj, zj, s_box, s_bi, o);
-        pair_energy_mixed<T>(r2, eps_m, sig2_m, qq, o, rc, rc2, alpha, rd,
-                             es);
+        pair_energy_mixed<T, QC>(r2, eps_m, sig2_m, qq, o, rc, rc2, alpha,
+                                 qv, hb2, rd, es);
         a_rd -= double(rd);
         a_es -= double(es);
       }
       if (has_new) {
         r2 = row_r2<T>(s_new[a], xj, yj, zj, s_box, s_bi, o);
-        pair_energy_mixed<T>(r2, eps_m, sig2_m, qq, o, rc, rc2, alpha, rd,
-                             es);
+        pair_energy_mixed<T, QC>(r2, eps_m, sig2_m, qq, o, rc, rc2, alpha,
+                                 qv, hb2, rd, es);
         a_rd += double(rd);
         a_es += double(es);
         mn = x_min(mn, r2);
@@ -353,8 +369,9 @@ __device__ __forceinline__ void cluster_totals(const double (*xch)[N_PART],
 // column planes of T (polarizability and the static field e0 x/y/z).
 template <typename T>
 __host__ __device__ inline size_t polar_slice_bytes(int nloc, int kloc,
-                                                    int ms) {
-  return slice_bytes<T>(nloc, kloc, ms) + seg16(4 * size_t(nloc) * sizeof(T));
+                                                    int ms, bool qc) {
+  return slice_bytes<T>(nloc, kloc, ms, qc)
+         + seg16(4 * size_t(nloc) * sizeof(T));
 }
 
 template <typename T>
@@ -363,8 +380,9 @@ struct PolarPlanes {
 };
 
 template <typename T>
-__device__ inline PolarPlanes<T> carve_polar(int nloc, int kloc, int ms) {
-  T* f = reinterpret_cast<T*>(dyn_smem + slice_bytes<T>(nloc, kloc, ms));
+__device__ inline PolarPlanes<T> carve_polar(int nloc, int kloc, int ms,
+                                             bool qc) {
+  T* f = reinterpret_cast<T*>(dyn_smem + slice_bytes<T>(nloc, kloc, ms, qc));
   return PolarPlanes<T>{f, f + nloc, f + 2 * nloc, f + 3 * nloc};
 }
 

@@ -1,6 +1,7 @@
 // Device code shared by the fused Monte Carlo step loops, B1 (uvt_kernel.cu),
-// B3 (nvt_kernel.cu) and B6 (pda_kernel.cu): the minimum image and the
-// per-pair evaluation, the S(k) delta and its commit, the block reduction,
+// B3 (nvt_kernel.cu) and B6 (pda_kernel.cu): the minimum image, the
+// Feynman-Hibbs/Kleinert pair correction, the S(k) delta and its commit,
+// the block reduction,
 // the slot pick of a µVT move, and the trial rows of an insertion and of a
 // displacement (a translation plus an axis-angle rotation about the
 // mass-weighted COM).
@@ -29,6 +30,7 @@ struct Opts {
   int mix;    // 0 lorentz-berthelot, 1 waldman-hagler
   int es;     // 0 none, 1 ewald, 2 wolf, 3 cutoff
   int ortho;  // 1: diagonal box, the cross terms of the minimum image dropped
+  int qc;     // 0 none, 1 Feynman-Hibbs order 2, 2 order 4, 3 Feynman-Kleinert
 };
 
 // Minimum image (rx, ry, rz) of a displacement (dx, dy, dz).
@@ -58,45 +60,103 @@ __device__ __forceinline__ void min_image(T dx, T dy, T dz,
   }
 }
 
-// The unmasked (rd, es) of a pair at squared distance r2 when it lies
-// within rc (both 0 otherwise).  The Coulomb constant is applied by the
-// caller.
+// The Feynman-Hibbs (order 2 or 4) or Feynman-Kleinert correction of a
+// pair's LJ energy (ops/lj.py; the arithmetic of the reference kernel's
+// _pair_terms).  Per column of a molecule's pass, quantum_column gives
+// the molecule-pair reduced mass red = mm_i mm_j / max(mm_i + mm_j,
+// 1e-30) - a frozen framework's huge molecular mass degrades it to mm_i -
+// and the prefactors at the chain's beta; quantum_pair the correction of
+// one pair from the mixed eps, s6 = (sig^2 / r2s)^3 and r2s.  hb2 is
+// hbar^2 / (kB amu A^2) in K (constants.HBAR2_KB_AMU_A2).
 template <typename T>
-__device__ __forceinline__ void pair_energy(T r2, T ei, T si, T qi, T ej,
-                                            T sj, T qj, const Opts o, T rc,
-                                            T rc2, T alpha, T& rd, T& es) {
-  rd = T(0);
-  es = T(0);
-  if (!(r2 < rc2)) return;
-  const T r2s = r2 > T(1e-12) ? r2 : T(1);
-  if (o.rd == 1) {
-    T eps, sig;
-    if (o.mix == 0) {
-      eps = x_sqrt(ei * ej);
-      sig = T(0.5) * (si + sj);
-    } else {
-      const T s3i = si * si * si, s3j = sj * sj * sj;
-      T denom = s3i * s3i + s3j * s3j;
-      // max(x, 1e-300): the bound is 0 in float, as in the reference
-      denom = denom > T(1e-300) ? denom : T(1e-300);
-      sig = x_pow(T(0.5) * denom, T(1.0 / 6.0));
-      eps = x_sqrt(ei * ej) * (T(2) * s3i * s3j / denom);
-    }
-    const T s2 = sig * sig / r2s;
-    const T s6 = s2 * s2 * s2;
-    rd = T(4) * eps * s6 * (s6 - T(1));
+struct Quantum {
+  T red, c2, c4, t;
+};
+
+template <typename T>
+__device__ __forceinline__ Quantum<T> quantum_column(T mm_i, T mm_j, T beta,
+                                                     T temp, double hb2,
+                                                     const Opts o) {
+  Quantum<T> qv;
+  const T sm = mm_i + mm_j;
+  qv.red = mm_i * mm_j / (sm > T(1e-30) ? sm : T(1e-30));
+  qv.t = temp;
+  qv.c2 = T(0);
+  qv.c4 = T(0);
+  if (o.qc == 1 || o.qc == 2) {
+    qv.c2 = T(hb2 / 24.0) * beta / x_max(qv.red, T(1e-30));
+    if (o.qc == 2)
+      qv.c4 = T(hb2 * hb2 / 1152.0) * beta * beta
+              / x_max(qv.red * qv.red, T(1e-30));
   }
-  if (o.es != 0) {
-    const T r = x_sqrt(r2s);
-    const T qq = qi * qj;
-    if (o.es == 1) {
-      es = qq * x_erfc(alpha * r) / r;
-    } else if (o.es == 2) {
-      es = qq * (x_erfc(alpha * r) / r - x_erfc(alpha * rc) / rc);
-    } else {
-      es = qq / r;
-    }
+  return qv;
+}
+
+// ln(sinh x / x) and x coth x - 1 for x >= 0 in ops/lj.py's exp/log-only
+// forms, with its series below x = 0.1.
+template <typename T>
+__device__ __forceinline__ T ln_sinhc(T x) {
+  if (x < T(0.1)) return x * x / T(6) - x * x * x * x / T(180);
+  return x - x_log(T(2) * x_max(x, T(1e-30)))
+         + x_log(x_max(T(1) - x_exp(T(-2) * x), T(1e-30)));
+}
+
+template <typename T>
+__device__ __forceinline__ T xcothx_m1(T x) {
+  if (x < T(0.1)) return x * x / T(3) - x * x * x * x / T(45);
+  const T e = x_exp(T(-2) * x);
+  return (x * (T(1) + e) - (T(1) - e)) / (T(1) - e);
+}
+
+// The FK correction W - V from the LJ derivatives v1..v4 at r
+// (lj.feynman_kleinert_from_derivs): eight fixed-point rounds, unrolled.
+// Not inlined: the kernels evaluate a pair at up to 2 x 8 unrolled call
+// sites, and one body per kernel keeps the build short; its ~200
+// operations dwarf the call.
+template <typename T>
+__device__ __noinline__ T fk_correction(T r, T v1, T v2, T v3, T v4,
+                                           T red, T t, double hb2) {
+  const T m = x_max(red, T(1e-30));
+  const T d2 = v2 + T(2) * v1 / r;
+  const T d4 = v4 + T(4) * v3 / r;
+  const T c_x2 = T(hb2) / (T(4) * t * t);
+  const T y_min = T(1e-12);
+  T a2 = T(0);
+  T y = x_max(d2 / (T(3) * m), y_min);
+#pragma unroll
+  for (int it = 0; it < 8; ++it) {
+    const T x = x_sqrt(c_x2 * y);
+    a2 = y > y_min ? t / (m * y) * xcothx_m1(x) : T(hb2) / (T(12) * m * t);
+    y = x_max((d2 + T(0.5) * a2 * d4) / (T(3) * m), y_min);
   }
+  const T x = x_sqrt(c_x2 * y);
+  const T dva = T(0.5) * a2 * d2 + T(0.125) * a2 * a2 * d4;
+  return T(3) * t * ln_sinhc(x) + dva - T(1.5) * m * y * a2;
+}
+
+template <typename T>
+__device__ __forceinline__ T quantum_pair(T r2s, T eps, T s6,
+                                          const Quantum<T>& qv, double hb2,
+                                          const Opts o) {
+  const T r = x_sqrt(r2s);
+  const T inv_r = T(1) / r;
+  const T s12 = s6 * s6;
+  const T e4 = T(4) * eps;
+  const T v1 = e4 * (T(6) * s6 - T(12) * s12) * inv_r;
+  const T v2 = e4 * (T(156) * s12 - T(42) * s6) * (inv_r * inv_r);
+  const T inv3 = inv_r * inv_r * inv_r;
+  if (o.qc == 3) {
+    const T v3 = e4 * (T(336) * s6 - T(2184) * s12) * inv3;
+    const T v4 = e4 * (T(32760) * s12 - T(3024) * s6) * (inv3 * inv_r);
+    return fk_correction<T>(r, v1, v2, v3, v4, qv.red, qv.t, hb2);
+  }
+  T u = qv.c2 * (v2 + T(2) * v1 * inv_r);
+  if (o.qc == 2) {
+    const T v3 = e4 * (T(336) * s6 - T(2184) * s12) * inv3;
+    const T v4 = e4 * (T(32760) * s12 - T(3024) * s6) * (inv3 * inv_r);
+    u += qv.c4 * (T(15) * v1 * inv3 + T(4) * v3 * inv_r + v4);
+  }
+  return u;
 }
 
 // This thread's share of the S(k) delta over the k-vectors kk = t, t + NT,

@@ -9,7 +9,9 @@
 //   a cube of half-width move_factor and, for molecules of several sites, an
 //   axis-angle rotation from lanes 5-7 about the mass-weighted COM); ONE
 //   old+new pass over all N columns (LJ with Lorentz-Berthelot or
-//   Waldman-Hagler mixing, the real-space Ewald/Wolf/cutoff Coulomb term,
+//   Waldman-Hagler mixing and optionally its Feynman-Hibbs order 2/4 or
+//   Feynman-Kleinert correction at the chain's beta with the
+//   molecule-pair reduced mass, the real-space Ewald/Wolf/cutoff Coulomb term,
 //   the closest approach for autoreject; the molecule's own columns masked);
 //   the S(k) delta over the Nk k-vectors under Ewald; the acceptance test
 //   (Metropolis at the chain's beta, or Ray's microcanonical rule against a
@@ -18,18 +20,20 @@
 //
 // Design: B1's - one thread-block cluster of G CTAs per chain (grid C x G,
 //   NT threads each), each CTA holding its slice of the chain's columns
-//   (pos, alive, q, eps, sig) and k-vectors (kvec, kcoef, S(k), dS) in
+//   (pos, alive, q, eps, sig, and under a quantum correction the columns'
+//   molecular masses) and k-vectors (kvec, kcoef, S(k), dS) in
 //   shared memory for the K steps of the launch; the molecule's rows read
 //   from their owners' shared memory, the partials exchanged through
 //   distributed shared memory with one cluster barrier, a split second
 //   barrier after the commit (mc_cluster.cuh).  Every CTA carries the NVE
 //   reservoir in step with the others, as it makes the same decisions.
+//   As B1, a classical and a quantum (QC) instance.
 //
 // Bound: operations.  A step evaluates 2 x A x (alive columns) pairs - 2 x
 //   3 x 10,029 = 60.2k at the 10.0k MOF + H2 system - at 44 floating-point
 //   operations each (csrc/uvt_kernel.cu counts them), plus 2 x A x Nk phases
 //   of 13 and Nk reciprocal terms of 9: about 2.7 Mflop per step, 0.04 us at
-//   the card's 67 TFLOP/s f32 peak.  The cluster brings G SMs to a chain,
+//   the card's 67 TFLOP/s f32 peak; a quantum correction adds B1's counts.  The cluster brings G SMs to a chain,
 //   each over 1/G of the pairs, from shared memory.
 //
 // Reductions and numerics as in B1: per-thread pair sums in double, warp
@@ -57,17 +61,18 @@ struct DimsNvt {
   int C, n, mv, A, K, nk, G, nloc, kloc;
 };
 
-template <typename T>
+template <typename T, bool QC>
 __global__ void __launch_bounds__(NT, 1) nvt_kernel(
     T* pos, const bool* __restrict__ alive, const T* __restrict__ eps,
     const T* __restrict__ sig, const T* __restrict__ q,
-    const T* __restrict__ mass, const int32_t* __restrict__ mv_start,
+    const T* __restrict__ mass, const T* __restrict__ mmass,
+    const int32_t* __restrict__ mv_start,
     const int32_t* __restrict__ mv_natoms, const T* __restrict__ scal,
     const T* __restrict__ betas, const T* __restrict__ u,
     const T* __restrict__ kvec, const T* __restrict__ kcoef, T* sk,
     const double* __restrict__ nve_k0, double* __restrict__ sums,
     const DimsNvt d, const Opts o, const int nve, const double ke,
-    const double nve_g) {
+    const double nve_g, const double hb2) {
   __shared__ T s_box[9], s_bi[9];
   __shared__ T s_u[8];
   __shared__ T s_old[A_PAD][3], s_new[A_PAD][3];
@@ -88,14 +93,14 @@ __global__ void __launch_bounds__(NT, 1) nvt_kernel(
   const int base = rank * nloc, kbase = rank * kloc;
   const int cnt_j = max(0, min(nloc, n - base));
   const int cnt_k = max(0, min(kloc, nk - kbase));
-  const Slice<T> sl = carve_slice<T>(nloc, kloc, 0);
+  const Slice<T> sl = carve_slice<T>(nloc, kloc, 0, QC);
   T* P = pos + size_t(c) * n * 3;
   T* SKr = sk + size_t(c) * 2 * nk;
   T* SKi = SKr + nk;
   const T* U = u + size_t(c) * d.K * 16;
 
-  load_slice<T>(sl, P, alive, q, eps, sig, base, cnt_j, kvec, kcoef, SKr,
-                SKi, kbase, cnt_k);
+  load_slice<T>(sl, P, alive, q, eps, sig, mmass, base, cnt_j, kvec, kcoef,
+                SKr, SKi, kbase, cnt_k);
   if (t < 9) {
     s_box[t] = scal[5 + t];
     s_bi[t] = scal[14 + t];
@@ -109,6 +114,7 @@ __global__ void __launch_bounds__(NT, 1) nvt_kernel(
   const T rc2 = rc * rc;
   const T mvT = T(d.mv);
   const double beta = double(betas[c]);
+  const T beta_t = betas[c], temp = T(1) / beta_t;   // the quantum terms' beta
   double k_cur = nve ? nve_k0[c] : 0.0;   // thread 0's kinetic reservoir
   double acc[N_SUMS_NVT] = {0.0, 0.0, 0.0, 0.0};
 
@@ -147,9 +153,11 @@ __global__ void __launch_bounds__(NT, 1) nvt_kernel(
     // its k-vectors, and the partials of every rank
     double a_rd = 0.0, a_es = 0.0, a_rec = 0.0;
     T mn = T(INFINITY);
-    slice_pass<T>(sl, base, cnt_j, start, na, true, true, s_old, s_new,
-                  s_ei, s_si, s_qi, s_box, s_bi, o, rc, rc2, alpha, a_rd,
-                  a_es, mn);
+    T mm_i = T(0);           // the molecule's mass (its site masses)
+    for (int a = 0; a < na; ++a) mm_i += s_mi[a];
+    slice_pass<T, QC>(sl, base, cnt_j, start, na, true, true, s_old, s_new,
+                      s_ei, s_si, s_qi, s_box, s_bi, o, rc, rc2, alpha, mm_i,
+                      beta_t, temp, hb2, a_rd, a_es, mn);
     if (o.es == 1)
       sk_delta<T>(sl.kv, sl.kc, sl.skr, sl.ski, sl.dsr, sl.dsi, cnt_k, na,
                   true, true, s_old, s_new, s_qi, a_rec);
@@ -227,6 +235,13 @@ __global__ void __launch_bounds__(NT, 1) nvt_kernel(
   }
 }
 
+// The kernel instance of a launch: with the quantum terms or without (as
+// B1's uvt_instance).
+template <typename T>
+auto nvt_instance(bool qc) {
+  return qc ? nvt_kernel<T, true> : nvt_kernel<T, false>;
+}
+
 // Per-CTA slice sizes of a G-CTA cluster.
 inline DimsNvt nvt_dims(int C, int n, int mv, int A, int K, int nk, int G) {
   return DimsNvt{C, n, mv, A, K, nk, G, (n + G - 1) / G, (nk + G - 1) / G};
@@ -234,22 +249,23 @@ inline DimsNvt nvt_dims(int C, int n, int mv, int A, int K, int nk, int G) {
 
 template <typename T>
 int launch_nvt(T* pos, const bool* alive, const T* eps, const T* sig,
-               const T* q, const T* mass, const int32_t* mv_start,
+               const T* q, const T* mass, const T* mmass,
+               const int32_t* mv_start,
                const int32_t* mv_natoms, const T* scal, const T* betas,
                const T* u, const T* kvec, const T* kcoef, T* sk,
                const double* nve_k0, double* sums, const DimsNvt d,
-               const Opts o, int nve, double ke, double nve_g,
+               const Opts o, int nve, double ke, double nve_g, double hb2,
                cudaStream_t stream) {
   if (d.G < 1 || d.G > G_MAX) return int(cudaErrorInvalidValue);
-  const size_t smem = slice_bytes<T>(d.nloc, d.kloc, 0);
+  const size_t smem = slice_bytes<T>(d.nloc, d.kloc, 0, o.qc != 0);
+  const auto kern = nvt_instance<T>(o.qc != 0);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cudaError_t e = cluster_config(nvt_kernel<T>, d.C, d.G, smem, stream, attr,
-                                 &cfg);
+  cudaError_t e = cluster_config(kern, d.C, d.G, smem, stream, attr, &cfg);
   if (e != cudaSuccess) return int(e);
-  e = cudaLaunchKernelEx(&cfg, nvt_kernel<T>, pos, alive, eps, sig, q, mass,
-                         mv_start, mv_natoms, scal, betas, u, kvec, kcoef,
-                         sk, nve_k0, sums, d, o, nve, ke, nve_g);
+  e = cudaLaunchKernelEx(&cfg, kern, pos, alive, eps, sig, q, mass,
+                         mmass, mv_start, mv_natoms, scal, betas, u, kvec,
+                         kcoef, sk, nve_k0, sums, d, o, nve, ke, nve_g, hb2);
   if (e != cudaSuccess) return int(e);
   return int(cudaGetLastError());
 }
@@ -259,26 +275,30 @@ int launch_nvt(T* pos, const bool* alive, const T* eps, const T* sig,
 #define RUN_STEPS_NVT_ENTRY(SFX, T)                                          \
   extern "C" int run_steps_nvt_##SFX(                                       \
       void* pos, const void* alive, const void* eps, const void* sig,        \
-      const void* q, const void* mass, const void* mv_start,                 \
-      const void* mv_natoms, const void* scal, const void* betas,            \
+      const void* q, const void* mass, const void* mmass,                    \
+      const void* mv_start, const void* mv_natoms, const void* scal,         \
+      const void* betas,                                                     \
       const void* u, const void* kvec, const void* kcoef, void* sk,          \
       const void* nve_k0, void* sums, int C, int n, int mv, int A, int K,    \
-      int nk, int G, int rd, int mix, int es, int ortho, int nve, double ke, \
-      double nve_g, void* stream) {                                          \
+      int nk, int G, int rd, int mix, int es, int ortho, int nve, int qc,    \
+      double ke, double nve_g, double hb2, void* stream) {                   \
     if (C <= 0) return 0;                                                    \
     return launch_nvt<T>(                                                    \
         (T*)pos, (const bool*)alive, (const T*)eps, (const T*)sig,           \
-        (const T*)q, (const T*)mass, (const int32_t*)mv_start,               \
+        (const T*)q, (const T*)mass, (const T*)mmass,                        \
+        (const int32_t*)mv_start,                                            \
         (const int32_t*)mv_natoms, (const T*)scal, (const T*)betas,          \
         (const T*)u, (const T*)kvec, (const T*)kcoef, (T*)sk,                \
         (const double*)nve_k0, (double*)sums,                                \
-        nvt_dims(C, n, mv, A, K, nk, G), Opts{rd, mix, es, ortho}, nve, ke,  \
-        nve_g, (cudaStream_t)stream);                                        \
+        nvt_dims(C, n, mv, A, K, nk, G), Opts{rd, mix, es, ortho, qc}, nve,  \
+        ke, nve_g, hb2, (cudaStream_t)stream);                               \
   }                                                                          \
-  extern "C" int nvt_occupancy_##SFX(int n, int nk, int G, int* clusters) {  \
+  extern "C" int nvt_occupancy_##SFX(int n, int nk, int qc, int G,           \
+                                     int* clusters) {                        \
     const DimsNvt d = nvt_dims(1, n, 1, 1, 1, nk, G);                        \
-    return cluster_occupancy(nvt_kernel<T>, G,                               \
-                             slice_bytes<T>(d.nloc, d.kloc, 0), clusters);   \
+    return cluster_occupancy(nvt_instance<T>(qc != 0), G,                    \
+                             slice_bytes<T>(d.nloc, d.kloc, 0, qc != 0),     \
+                             clusters);                                      \
   }
 
 RUN_STEPS_NVT_ENTRY(f32, float)

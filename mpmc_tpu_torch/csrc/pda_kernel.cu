@@ -10,8 +10,10 @@
 //   j-th free/alive slot (lane 0, block prefix scan), the trial rows (lanes
 //   1-3 and 5-7, as B1), then ONE old+new pass over the N columns (the
 //   molecule's own columns masked) that computes, per column j:
-//   - the old and new pair terms (LJ with lb/waldman_hagler mixing, the
-//     real-space ewald/wolf/cutoff Coulomb term) and the closest approach;
+//   - the old and new pair terms (LJ with lb/waldman_hagler mixing and
+//     optionally its Feynman-Hibbs order 2/4 or Feynman-Kleinert correction
+//     at beta with the molecule-pair reduced mass, as B1, the real-space
+//     ewald/wolf/cutoff Coulomb term) and the closest approach;
 //   - the damped charge-field delta of the moved sites at j,
 //     dE_j = sum_a q_a [c(r_old) dr_old - c(r_new) dr_new] with dr = r_a -
 //     r_j, summed over the sites BEFORE it is squared into the surrogate
@@ -33,7 +35,8 @@
 //
 // Design: one thread-block cluster of G CTAs for the one chain
 //   (mc_cluster.cuh, B1's layer).  Rank r holds the columns [r nloc, (r +
-//   1) nloc) - x, y, z, q, eps, sig, alive, polar and e0 x/y/z - and the
+//   1) nloc) - x, y, z, q, eps, sig, alive, under a quantum correction the
+//   molecular mass, polar and e0 x/y/z - and the
 //   k-vectors [r kloc, (r + 1) kloc) - kvec, kcoef, S(k) and the step's dS
 //   scratch - in its shared memory for the whole launch, with a replica of
 //   the slot table; nothing is written back.  Every CTA derives the same
@@ -52,7 +55,8 @@
 //   none).  A final cluster barrier keeps every CTA resident until no
 //   other may write into its buffer.  The per-thread sums are sized by a
 //   template on the padded site count AP (4 covers H2's 3 sites, 8 the
-//   rest), not by A_PAD.
+//   rest), not by A_PAD; as B1, a classical and a quantum (QC) instance
+//   of each.
 //
 // Bound: operations.  A step evaluates (has_old + has_new) x A x (alive
 //   columns) pairs - up to 2 x 3 x 10,797 at the 10.8k polar system - and,
@@ -176,12 +180,13 @@ __device__ __forceinline__ void reduce_values(
   __syncthreads();
 }
 
-template <typename T, bool EWF, int AP>
+template <typename T, bool EWF, int AP, bool QC>
 __global__ void __launch_bounds__(NT, 1) pda_kernel(
     const T* __restrict__ pos, const bool* __restrict__ alive,
     const T* __restrict__ eps, const T* __restrict__ sig,
     const T* __restrict__ q, const T* __restrict__ mass,
-    const T* __restrict__ polar, const T* __restrict__ e0,
+    const T* __restrict__ mmass, const T* __restrict__ polar,
+    const T* __restrict__ e0,
     const int32_t* __restrict__ slot_start,
     const int32_t* __restrict__ slot_species,
     const bool* __restrict__ slot_alive, const T* __restrict__ tmpl,
@@ -191,7 +196,7 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
     const T* __restrict__ cx, const T* __restrict__ u,
     const T* __restrict__ kvec, const T* __restrict__ kcoef,
     const T* __restrict__ sk, double* __restrict__ rec, const Dims d,
-    const Opts o, const PolarOpts po, const double ke) {
+    const Opts o, const PolarOpts po, const double ke, const double hb2) {
   constexpr int EN = Lay<AP>::EN, EO = Lay<AP>::EO, NV = Lay<AP>::NV;
   constexpr int NX = Lay<AP>::NX;
   __shared__ T s_box[9], s_bi[9];
@@ -218,13 +223,13 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
   const int base = rank * nloc, kbase = rank * kloc;
   const int cnt_j = max(0, min(nloc, n - base));
   const int cnt_k = max(0, min(kloc, nk - kbase));
-  const Slice<T> sl = carve_slice<T>(nloc, kloc, ms);
-  const PolarPlanes<T> pl = carve_polar<T>(nloc, kloc, ms);
+  const Slice<T> sl = carve_slice<T>(nloc, kloc, ms, QC);
+  const PolarPlanes<T> pl = carve_polar<T>(nloc, kloc, ms, QC);
 
   // ---- per-launch tables: this CTA's slice and polar planes, the slot
   // table, box and species constants, slot counts
-  load_slice<T>(sl, pos, alive, q, eps, sig, base, cnt_j, kvec, kcoef, sk,
-                sk + nk, kbase, cnt_k);
+  load_slice<T>(sl, pos, alive, q, eps, sig, mmass, base, cnt_j, kvec, kcoef,
+                sk, sk + nk, kbase, cnt_k);
   load_polar<T>(pl, polar, e0, base, cnt_j);
   for (int i = t; i < ms; i += NT) {
     sl.sa[i] = slot_alive[i];
@@ -259,6 +264,7 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
   const T rc = scal[0], alpha = scal[1], mf = scal[2], rotf = scal[3];
   const T thr2 = scal[4], p_ins = scal[5];
   const double beta = double(scal[6]);
+  const T beta_t = scal[6], temp = T(1) / beta_t;   // the quantum terms' beta
   const T lam = scal[7], paf = scal[8], pkrc = scal[9];
   const T p_half = T(0.5) * p_ins;
   const T rc2 = rc * rc;
@@ -327,11 +333,15 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
 #pragma unroll
     for (int i = 0; i < NV; ++i) v[i] = 0.0;
     T mn = T(INFINITY);
+    T mm_i = T(0);           // the molecule's mass (the slot's site masses)
+    for (int a = 0; a < na; ++a) mm_i += s_mi[a];
     for (int jl = t; jl < cnt_j; jl += NT) {
       const int jc = base + jl;
       if (!sl.al[jl] || (jc >= start && jc < start + na)) continue;
       const T xj = sl.x[jl], yj = sl.y[jl], zj = sl.z[jl];
       const T qj = sl.q[jl], ej = sl.e[jl], sj = sl.s[jl];
+      Quantum<T> qv{};
+      if (QC) qv = quantum_column<T>(mm_i, sl.m[jl], beta_t, temp, hb2, o);
       T dEx = T(0), dEy = T(0), dEz = T(0);
 #pragma unroll
       for (int a = 0; a < AP; ++a) {
@@ -348,8 +358,8 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
           const T r2s = r2 > T(1e-12) ? r2 : T(1);
           const T r = x_sqrt(r2s);
           T rd, es;      // zero beyond rc
-          pair_energy_mixed<T>(r2, eps_m, sig2_m, qq, o, rc, rc2, alpha, rd,
-                               es);
+          pair_energy_mixed<T, QC>(r2, eps_m, sig2_m, qq, o, rc, rc2,
+                                   alpha, qv, hb2, rd, es);
           const T cf = field_coef<T>(r, r2s, lam, paf, pkrc, po);
           const T c = in ? cf : T(0);
           v[0] -= double(rd);
@@ -374,8 +384,8 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
           const T r2s = r2 > T(1e-12) ? r2 : T(1);
           const T r = x_sqrt(r2s);
           T rd, es;      // zero beyond rc
-          pair_energy_mixed<T>(r2, eps_m, sig2_m, qq, o, rc, rc2, alpha, rd,
-                               es);
+          pair_energy_mixed<T, QC>(r2, eps_m, sig2_m, qq, o, rc, rc2,
+                                   alpha, qv, hb2, rd, es);
           const T cf = field_coef<T>(r, r2s, lam, paf, pkrc, po);
           const T c = in ? cf : T(0);
           v[0] += double(rd);
@@ -501,22 +511,29 @@ inline Dims pda_dims(int n, int ms, int S, int A, int K, int nk, int G) {
   return Dims{n, ms, S, A, K, nk, G, (n + G - 1) / G, (nk + G - 1) / G};
 }
 
-// The kernel instance of a launch: polar_ewald's eo sums or not, and the
-// site count padded to 4 or 8.
+// The kernel instance of a launch: polar_ewald's eo sums or not, the site
+// count padded to 4 or 8, and the quantum terms or not.
 template <typename T>
 using PdaKern = void (*)(const T*, const bool*, const T*, const T*,
-                         const T*, const T*, const T*, const T*,
+                         const T*, const T*, const T*, const T*, const T*,
                          const int32_t*, const int32_t*, const bool*,
                          const T*, const int32_t*, const T*, const T*,
                          const T*, const T*, const T*, const T*, const T*,
                          const T*, const T*, const T*, double*, const Dims,
-                         const Opts, const PolarOpts, const double);
+                         const Opts, const PolarOpts, const double,
+                         const double);
+
+template <typename T, bool QC>
+PdaKern<T> pda_instance_qc(int A, int field) {
+  if (field == 2)
+    return A <= 4 ? pda_kernel<T, true, 4, QC> : pda_kernel<T, true, 8, QC>;
+  return A <= 4 ? pda_kernel<T, false, 4, QC> : pda_kernel<T, false, 8, QC>;
+}
 
 template <typename T>
-PdaKern<T> pda_instance(int A, int field) {
-  if (field == 2)
-    return A <= 4 ? pda_kernel<T, true, 4> : pda_kernel<T, true, 8>;
-  return A <= 4 ? pda_kernel<T, false, 4> : pda_kernel<T, false, 8>;
+PdaKern<T> pda_instance(int A, int field, bool qc) {
+  return qc ? pda_instance_qc<T, true>(A, field)
+            : pda_instance_qc<T, false>(A, field);
 }
 
 // cudaFuncSetAttribute costs host time on every call: each (device,
@@ -556,9 +573,9 @@ cudaError_t pda_attributes(PdaKern<T> kern, int G, size_t smem) {
 // launch).  The attributes go through pda_attributes, which only raises
 // them, so a query never lowers what an earlier launch needs.
 template <typename T>
-int pda_occupancy(const Dims d, int field, int* clusters) {
-  const size_t smem = polar_slice_bytes<T>(d.nloc, d.kloc, d.ms);
-  const PdaKern<T> kern = pda_instance<T>(d.A, field);
+int pda_occupancy(const Dims d, int field, bool qc, int* clusters) {
+  const size_t smem = polar_slice_bytes<T>(d.nloc, d.kloc, d.ms, qc);
+  const PdaKern<T> kern = pda_instance<T>(d.A, field, qc);
   cudaError_t e = pda_attributes<T>(kern, d.G, smem);
   if (e != cudaSuccess) return int(e);
   cudaLaunchAttribute attr[1];
@@ -569,26 +586,27 @@ int pda_occupancy(const Dims d, int field, int* clusters) {
 
 template <typename T>
 int launch_pda(const T* pos, const bool* alive, const T* eps, const T* sig,
-               const T* q, const T* mass, const T* polar, const T* e0,
+               const T* q, const T* mass, const T* mmass, const T* polar,
+               const T* e0,
                const int32_t* slot_start, const int32_t* slot_species,
                const bool* slot_alive, const T* tmpl, const int32_t* natoms,
                const T* scal, const T* lnfv, const T* d_self,
                const T* d_excl, const T* c1, const T* cx, const T* u,
                const T* kvec, const T* kcoef, const T* sk, double* rec,
                const Dims d, const Opts o, const PolarOpts po, double ke,
-               cudaStream_t stream) {
+               double hb2, cudaStream_t stream) {
   if (d.G < 1 || d.G > G_MAX || d.A > A_PAD) return int(cudaErrorInvalidValue);
-  const size_t smem = polar_slice_bytes<T>(d.nloc, d.kloc, d.ms);
-  const PdaKern<T> kern = pda_instance<T>(d.A, po.field);
+  const size_t smem = polar_slice_bytes<T>(d.nloc, d.kloc, d.ms, o.qc != 0);
+  const PdaKern<T> kern = pda_instance<T>(d.A, po.field, o.qc != 0);
   cudaError_t e = pda_attributes<T>(kern, d.G, smem);
   if (e != cudaSuccess) return int(e);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
   cluster_launch(1, d.G, smem, stream, attr, &cfg);
-  e = cudaLaunchKernelEx(&cfg, kern, pos, alive, eps, sig, q, mass, polar,
-                         e0, slot_start, slot_species, slot_alive, tmpl,
-                         natoms, scal, lnfv, d_self, d_excl, c1, cx, u, kvec,
-                         kcoef, sk, rec, d, o, po, ke);
+  e = cudaLaunchKernelEx(&cfg, kern, pos, alive, eps, sig, q, mass, mmass,
+                         polar, e0, slot_start, slot_species, slot_alive,
+                         tmpl, natoms, scal, lnfv, d_self, d_excl, c1, cx, u,
+                         kvec, kcoef, sk, rec, d, o, po, ke, hb2);
   if (e != cudaSuccess) return int(e);
   return int(cudaGetLastError());
 }
@@ -598,28 +616,32 @@ int launch_pda(const T* pos, const bool* alive, const T* eps, const T* sig,
 #define RUN_STEPS_UVT_PDA_ENTRY(SFX, T)                                       \
   extern "C" int run_steps_uvt_pda_##SFX(                                    \
       const void* pos, const void* alive, const void* eps, const void* sig,   \
-      const void* q, const void* mass, const void* polar, const void* e0,     \
+      const void* q, const void* mass, const void* mmass,                     \
+      const void* polar, const void* e0,                                      \
       const void* slot_start, const void* slot_species,                       \
       const void* slot_alive, const void* tmpl, const void* natoms,           \
       const void* scal, const void* lnfv, const void* d_self,                 \
       const void* d_excl, const void* c1, const void* cx, const void* u,      \
       const void* kvec, const void* kcoef, const void* sk, void* rec, int n,  \
       int ms, int S, int A, int K, int nk, int G, int rd, int mix, int es,    \
-      int ortho, int damp, int field, double ke, void* stream) {             \
+      int ortho, int damp, int field, int qc, double ke, double hb2,          \
+      void* stream) {                                                         \
     return launch_pda<T>(                                                     \
         (const T*)pos, (const bool*)alive, (const T*)eps, (const T*)sig,      \
-        (const T*)q, (const T*)mass, (const T*)polar, (const T*)e0,           \
+        (const T*)q, (const T*)mass, (const T*)mmass, (const T*)polar,        \
+        (const T*)e0,                                                         \
         (const int32_t*)slot_start, (const int32_t*)slot_species,             \
         (const bool*)slot_alive, (const T*)tmpl, (const int32_t*)natoms,      \
         (const T*)scal, (const T*)lnfv, (const T*)d_self, (const T*)d_excl,   \
         (const T*)c1, (const T*)cx, (const T*)u, (const T*)kvec,              \
         (const T*)kcoef, (const T*)sk, (double*)rec,                          \
-        pda_dims(n, ms, S, A, K, nk, G), Opts{rd, mix, es, ortho},            \
-        PolarOpts{damp, field}, ke, (cudaStream_t)stream);                    \
+        pda_dims(n, ms, S, A, K, nk, G), Opts{rd, mix, es, ortho, qc},        \
+        PolarOpts{damp, field}, ke, hb2, (cudaStream_t)stream);               \
   }                                                                           \
   extern "C" int pda_occupancy_##SFX(int n, int nk, int ms, int A,           \
-                                     int field, int G, int* clusters) {       \
-    return pda_occupancy<T>(pda_dims(n, ms, 1, A, 1, nk, G), field,          \
+                                     int field, int qc, int G,               \
+                                     int* clusters) {                         \
+    return pda_occupancy<T>(pda_dims(n, ms, 1, A, 1, nk, G), field, qc != 0, \
                             clusters);                                        \
   }
 

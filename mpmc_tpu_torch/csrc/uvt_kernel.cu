@@ -9,7 +9,9 @@
 //   rows (displace: translation from lanes 1-3 and an axis-angle rotation
 //   from lanes 5-7 about the COM; insert: fractional COM from lanes 1-3 and
 //   a Shoemake quaternion from lanes 5-7), ONE old+new pass over all N
-//   columns (LJ with Lorentz-Berthelot or Waldman-Hagler mixing, the
+//   columns (LJ with Lorentz-Berthelot or Waldman-Hagler mixing and
+//   optionally its Feynman-Hibbs order 2/4 or Feynman-Kleinert correction
+//   at the chain's beta with the molecule-pair reduced mass, the
 //   real-space Ewald/Wolf/cutoff Coulomb term, the closest approach for
 //   autoreject; the molecule's own columns masked), the S(k) delta over the
 //   Nk k-vectors, the acceptance test with the per-species self, exclusion
@@ -19,7 +21,8 @@
 // Design: one thread-block cluster of G CTAs (NT threads each) per chain,
 //   grid C x G, the K steps a loop inside every CTA (the TPU kernel's
 //   sequential fori_loop).  Each CTA keeps its slice of the chain's
-//   columns (pos, alive, q, eps, sig: n / G of each) and of its k-vectors
+//   columns (pos, alive, q, eps, sig, and under a quantum correction the
+//   columns' molecular masses: n / G of each) and of its k-vectors
 //   (kvec, kcoef, S(k), dS) in shared memory for the whole launch, and a
 //   replica of the slot table; the step's partial sums meet through
 //   distributed shared memory with one cluster barrier, and a second,
@@ -31,7 +34,10 @@
 //   slice fits in shared memory and of which the card holds all C
 //   clusters at once (cudaOccupancyMaxActiveClusters; a cluster lies
 //   within one GPC), so on an H100 one chain runs on 16 SMs, 16 chains on
-//   4 each and 32 chains on 2 each.
+//   4 each and 32 chains on 2 each.  The kernel has two instances (QC):
+//   the classical one, and one with the quantum terms and the slice's
+//   molecule-mass plane, picked per launch from Opts.qc, so a classical
+//   deck runs the code it ran before the corrections existed.
 //
 // Bound: operations.  A step evaluates (has_old + has_new) x A x (alive
 //   columns) pairs - up to 2 x 3 x 10,797 = 64.8k at the 10.8k bench
@@ -40,7 +46,10 @@
 //   minimum image 12, r^2 5, cutoff test and guard 2, LJ 13, Coulomb 6,
 //   sums 3), plus (has_old + has_new) x A x Nk phases of 13 and Nk
 //   reciprocal-energy terms of 9: about 2.7 Mflop per step, 0.04 us at the
-//   card's 67 TFLOP/s f32 peak.  A cluster of G CTAs brings G SMs to one
+//   card's 67 TFLOP/s f32 peak.  A quantum correction adds, per pair within
+//   rc, 20 operations (FH2), 41 (FH4) or 228 (FK: eight fixed-point
+//   rounds of a square root, an exponential and two divisions), and 4-12
+//   per column (chip_smoke.py's OPS_QC_PAIR, OPS_QC_COL).  A cluster of G CTAs brings G SMs to one
 //   chain: each evaluates 1/G of the pairs from shared memory, and the
 //   step pays the serial part (slot pick, trial rows, acceptance) and two
 //   cluster barriers once.
@@ -64,9 +73,10 @@
 // Scalar header scal[24]: rc, alpha, move_factor, rot_factor, thr2, p_ins,
 //   box (3x3 row-major, rows are cell vectors), box^-1 (3x3 row-major).
 //
-// The pair evaluation, the S(k) delta, the block reduction, the slot pick
-// and the trial rows are mc_common.cuh's (shared with B3 and B6), the
-// cluster layer mc_cluster.cuh's (shared with B3).
+// The quantum correction, the S(k) delta, the block reduction, the slot
+// pick and the trial rows are mc_common.cuh's (shared with B3 and B6), the
+// cluster layer and the pair evaluation mc_cluster.cuh's (shared with B3
+// and B6).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -82,11 +92,12 @@ struct Dims {
   int C, n, ms, S, A, K, nk, G, nloc, kloc;
 };
 
-template <typename T>
+template <typename T, bool QC>
 __global__ void __launch_bounds__(NT, 1) uvt_kernel(
     T* pos, bool* alive, const T* __restrict__ eps,
     const T* __restrict__ sig, const T* __restrict__ q,
-    const T* __restrict__ mass, const int32_t* __restrict__ slot_start,
+    const T* __restrict__ mass, const T* __restrict__ mmass,
+    const int32_t* __restrict__ slot_start,
     const int32_t* __restrict__ slot_species, bool* slot_alive,
     const T* __restrict__ tmpl, const int32_t* __restrict__ natoms,
     const T* __restrict__ scal, const T* __restrict__ betas,
@@ -95,7 +106,7 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
     const T* __restrict__ cx, const T* __restrict__ u,
     const T* __restrict__ kvec, const T* __restrict__ kcoef, T* sk,
     double* __restrict__ sums, const Dims d, const Opts o,
-    const double ke) {
+    const double ke, const double hb2) {
   __shared__ T s_box[9], s_bi[9];
   __shared__ T s_tmpl[S_MAX * A_PAD * 3];
   __shared__ double s_dself[S_MAX], s_dexcl[S_MAX], s_c1[S_MAX],
@@ -121,7 +132,7 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
   const int base = rank * nloc, kbase = rank * kloc;
   const int cnt_j = max(0, min(nloc, n - base));
   const int cnt_k = max(0, min(kloc, nk - kbase));
-  const Slice<T> sl = carve_slice<T>(nloc, kloc, ms);
+  const Slice<T> sl = carve_slice<T>(nloc, kloc, ms, QC);
   T* P = pos + size_t(c) * n * 3;
   bool* AL = alive + size_t(c) * n;
   bool* SA = slot_alive + size_t(c) * ms;
@@ -131,8 +142,8 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
 
   // ---- per-launch tables: this CTA's slice, the slot table, box and
   // species constants, slot counts
-  load_slice<T>(sl, P, AL, q, eps, sig, base, cnt_j, kvec, kcoef, SKr, SKi,
-                kbase, cnt_k);
+  load_slice<T>(sl, P, AL, q, eps, sig, mmass, base, cnt_j, kvec, kcoef, SKr,
+                SKi, kbase, cnt_k);
   for (int i = t; i < ms; i += NT) {
     sl.sa[i] = SA[i];
     sl.ssp[i] = slot_species[i];
@@ -167,6 +178,7 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
   const T p_half = T(0.5) * p_ins;
   const T rc2 = rc * rc;
   const double beta = double(betas[c]);
+  const T beta_t = betas[c], temp = T(1) / beta_t;   // the quantum terms' beta
   double acc[N_SUMS];
 #pragma unroll
   for (int i = 0; i < N_SUMS; ++i) acc[i] = 0.0;
@@ -240,9 +252,11 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
     const bool has_old = !ins, has_new = !del;
     double a_rd = 0.0, a_es = 0.0, a_rec = 0.0;
     T mn = T(INFINITY);
-    slice_pass<T>(sl, base, cnt_j, start, na, has_old, has_new, s_old, s_new,
-                  s_ei, s_si, s_qi, s_box, s_bi, o, rc, rc2, alpha, a_rd,
-                  a_es, mn);
+    T mm_i = T(0);           // the molecule's mass (the slot's site masses)
+    for (int a = 0; a < na; ++a) mm_i += s_mi[a];
+    slice_pass<T, QC>(sl, base, cnt_j, start, na, has_old, has_new, s_old,
+                      s_new, s_ei, s_si, s_qi, s_box, s_bi, o, rc, rc2,
+                      alpha, mm_i, beta_t, temp, hb2, a_rd, a_es, mn);
     if (o.es == 1)
       sk_delta<T>(sl.kv, sl.kc, sl.skr, sl.ski, sl.dsr, sl.dsi, cnt_k, na,
                   has_old, has_new, s_old, s_new, s_qi, a_rec);
@@ -342,6 +356,13 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
   }
 }
 
+// The kernel instance of a launch: with the quantum terms or without, so
+// that a classical deck runs the code it ran before they existed.
+template <typename T>
+auto uvt_instance(bool qc) {
+  return qc ? uvt_kernel<T, true> : uvt_kernel<T, false>;
+}
+
 // Per-CTA slice sizes of a G-CTA cluster.
 inline Dims uvt_dims(int C, int n, int ms, int S, int A, int K, int nk,
                      int G) {
@@ -350,24 +371,24 @@ inline Dims uvt_dims(int C, int n, int ms, int S, int A, int K, int nk,
 
 template <typename T>
 int launch_uvt(T* pos, bool* alive, const T* eps, const T* sig, const T* q,
-               const T* mass, const int32_t* slot_start,
+               const T* mass, const T* mmass, const int32_t* slot_start,
                const int32_t* slot_species, bool* slot_alive, const T* tmpl,
                const int32_t* natoms, const T* scal, const T* betas,
                const T* lnfvs, const T* d_self, const T* d_excl, const T* c1,
                const T* cx, const T* u, const T* kvec, const T* kcoef, T* sk,
                double* sums, const Dims d, const Opts o, double ke,
-               cudaStream_t stream) {
+               double hb2, cudaStream_t stream) {
   if (d.G < 1 || d.G > G_MAX) return int(cudaErrorInvalidValue);
-  const size_t smem = slice_bytes<T>(d.nloc, d.kloc, d.ms);
+  const size_t smem = slice_bytes<T>(d.nloc, d.kloc, d.ms, o.qc != 0);
+  const auto kern = uvt_instance<T>(o.qc != 0);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cudaError_t e = cluster_config(uvt_kernel<T>, d.C, d.G, smem, stream, attr,
-                                 &cfg);
+  cudaError_t e = cluster_config(kern, d.C, d.G, smem, stream, attr, &cfg);
   if (e != cudaSuccess) return int(e);
-  e = cudaLaunchKernelEx(&cfg, uvt_kernel<T>, pos, alive, eps, sig, q, mass,
-                         slot_start, slot_species, slot_alive, tmpl, natoms,
-                         scal, betas, lnfvs, d_self, d_excl, c1, cx, u, kvec,
-                         kcoef, sk, sums, d, o, ke);
+  e = cudaLaunchKernelEx(&cfg, kern, pos, alive, eps, sig, q, mass,
+                         mmass, slot_start, slot_species, slot_alive, tmpl,
+                         natoms, scal, betas, lnfvs, d_self, d_excl, c1, cx,
+                         u, kvec, kcoef, sk, sums, d, o, ke, hb2);
   if (e != cudaSuccess) return int(e);
   return int(cudaGetLastError());
 }
@@ -377,30 +398,32 @@ int launch_uvt(T* pos, bool* alive, const T* eps, const T* sig, const T* q,
 #define RUN_STEPS_UVT_ENTRY(SFX, T)                                          \
   extern "C" int run_steps_uvt_##SFX(                                       \
       void* pos, void* alive, const void* eps, const void* sig,              \
-      const void* q, const void* mass, const void* slot_start,               \
+      const void* q, const void* mass, const void* mmass,                    \
+      const void* slot_start,                                                \
       const void* slot_species, void* slot_alive, const void* tmpl,          \
       const void* natoms, const void* scal, const void* betas,               \
       const void* lnfvs, const void* d_self, const void* d_excl,             \
       const void* c1, const void* cx, const void* u, const void* kvec,       \
       const void* kcoef, void* sk, void* sums, int C, int n, int ms, int S,  \
       int A, int K, int nk, int G, int rd, int mix, int es, int ortho,       \
-      double ke, void* stream) {                                             \
+      int qc, double ke, double hb2, void* stream) {                         \
     if (C <= 0) return 0;                                                    \
     return launch_uvt<T>(                                                    \
         (T*)pos, (bool*)alive, (const T*)eps, (const T*)sig, (const T*)q,    \
-        (const T*)mass, (const int32_t*)slot_start,                          \
+        (const T*)mass, (const T*)mmass, (const int32_t*)slot_start,         \
         (const int32_t*)slot_species, (bool*)slot_alive, (const T*)tmpl,     \
         (const int32_t*)natoms, (const T*)scal, (const T*)betas,             \
         (const T*)lnfvs, (const T*)d_self, (const T*)d_excl, (const T*)c1,   \
         (const T*)cx, (const T*)u, (const T*)kvec, (const T*)kcoef, (T*)sk,  \
         (double*)sums, uvt_dims(C, n, ms, S, A, K, nk, G),                   \
-        Opts{rd, mix, es, ortho}, ke, (cudaStream_t)stream);                 \
+        Opts{rd, mix, es, ortho, qc}, ke, hb2, (cudaStream_t)stream);        \
   }                                                                          \
-  extern "C" int uvt_occupancy_##SFX(int n, int nk, int ms, int G,           \
+  extern "C" int uvt_occupancy_##SFX(int n, int nk, int ms, int qc, int G,   \
                                      int* clusters) {                        \
     const Dims d = uvt_dims(1, n, ms, 1, 1, 1, nk, G);                       \
-    return cluster_occupancy(uvt_kernel<T>, G,                               \
-                             slice_bytes<T>(d.nloc, d.kloc, ms), clusters);  \
+    return cluster_occupancy(uvt_instance<T>(qc != 0), G,                    \
+                             slice_bytes<T>(d.nloc, d.kloc, ms, qc != 0),    \
+                             clusters);                                      \
   }
 
 RUN_STEPS_UVT_ENTRY(f32, float)

@@ -419,7 +419,7 @@ def make_step_fn(params: Params, cfg: RunConfig):
     (the tests replay them)."""
     if cfg.ensemble not in ("uvt", "nvt", "nve", "npt"):
         raise NotImplementedError(
-            f"ensemble {cfg.ensemble} is not yet ported — ROADMAP A12")
+            f"ensemble {cfg.ensemble} is not yet ported — ROADMAP A12b")
     check_npt(params, cfg)
     dtype = cfg.tdtype
     nve = cfg.ensemble == "nve"
@@ -697,7 +697,7 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
     acceptance."""
     if cfg.ensemble not in ("uvt", "nvt", "nve", "npt"):
         raise NotImplementedError(
-            f"ensemble {cfg.ensemble} is not yet ported — ROADMAP A12")
+            f"ensemble {cfg.ensemble} is not yet ported — ROADMAP A12b")
     check_npt(params, cfg)
     dtype = cfg.tdtype
     nve = cfg.ensemble == "nve"
@@ -931,6 +931,13 @@ def _fused_ktable(box, cfg, alpha):
     return kv, torch.where(k2 > 1e-12, kcoef, torch.zeros_like(kcoef))
 
 
+def _mol_mass_plane(params: Params, cfg: RunConfig):
+    """The fused kernels' molecule-mass column plane (each atom's
+    molecular mass) under a Feynman-Hibbs/Kleinert correction, else
+    None."""
+    return params.mol_mass_atom if mc_kernel.quantum_option(cfg) else None
+
+
 # ---------------------------------------------------------------------------
 # Fused NVT/NVE path (kernel B3, ops/cuda/mc_kernel.run_steps)
 # ---------------------------------------------------------------------------
@@ -978,7 +985,8 @@ def fused_nvt_launch_args(states: SimState, params: Params, cfg: RunConfig,
                         dtype=cfg.tdtype).contiguous(), cfg)
     kw = dict(kvecs=kv, kcoef=kcoef,
               sk_re=states.sk_re.contiguous() if ew else None,
-              sk_im=states.sk_im.contiguous() if ew else None, a_max=a_max)
+              sk_im=states.sk_im.contiguous() if ew else None, a_max=a_max,
+              mol_mass=_mol_mass_plane(params, cfg))
     if cfg.ensemble == "nve":
         u = states.energy.total
         if states.e_frozen is not None:
@@ -1158,6 +1166,9 @@ def _uvt_chunk_consts(pos, box, params, thermo, cfg, A_list, rep_slots):
     a_cap = params.max_atoms_per_mol
     lrc_on = cfg.rd_potential == "lj" and cfg.rd_lrc
     frozen_atoms = params.mol_frozen[params.mol_id] & params.atom_ok
+    # the tail coefficients below do not depend on the temperature (a
+    # ladder's [C] would not fit one molecule's pass)
+    temp = thermo.temperature.reshape(-1)[0]
     d_self, d_excl, c1, lnfv, cx = [], [], [], [], []
     for s in range(S):
         si = cfg.insert_species[s]
@@ -1173,7 +1184,7 @@ def _uvt_chunk_consts(pos, box, params, thermo, cfg, A_list, rep_slots):
         if lrc_on:
             own = pairs.mol_lrc_self_coefficient(params, cfg, rc, s0)
             c_mf = pairs.mol_pair_pass(pos, box, frozen_atoms, params, cfg,
-                                       thermo.temperature, s0).lrc_coeff
+                                       temp, s0).lrc_coeff
             c1.append((c_mf + 0.5 * own) / volume)
             row = []
             for t in range(S):
@@ -1183,7 +1194,7 @@ def _uvt_chunk_consts(pos, box, params, thermo, cfg, A_list, rep_slots):
                     continue
                 other_atoms = (params.mol_id == other) & params.atom_ok
                 row.append(pairs.mol_pair_pass(
-                    pos, box, other_atoms, params, cfg, thermo.temperature,
+                    pos, box, other_atoms, params, cfg, temp,
                     s0).lrc_coeff / volume)
             cx.append(torch.stack(row))
         else:
@@ -1250,7 +1261,8 @@ def fused_uvt_launch_args(states: SimState, params: Params,
                         dtype=cfg.tdtype).contiguous(), cfg)
     kw = dict(kvecs=kv, kcoef=kcoef,
               sk_re=states.sk_re.contiguous() if ew else None,
-              sk_im=states.sk_im.contiguous() if ew else None)
+              sk_im=states.sk_im.contiguous() if ew else None,
+              mol_mass=_mol_mass_plane(params, cfg))
     return args, kw
 
 
@@ -1329,7 +1341,8 @@ def pda_launch_args(state: SimState, params: Params, cfg: RunConfig,
     kw = dict(kvecs=kv, kcoef=kcoef, sk_re=state.sk_re if ew else None,
               sk_im=state.sk_im if ew else None,
               field_alpha=0.0 if paf is None else paf,
-              field_krc=0.0 if pkrc is None else pkrc)
+              field_krc=0.0 if pkrc is None else pkrc,
+              mol_mass=_mol_mass_plane(params, cfg))
     return args, kw
 
 

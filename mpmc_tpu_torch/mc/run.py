@@ -111,11 +111,22 @@ NPT_PT_TRAP = (
     "mpmc_tpu/parallel/replica.py:109-131, :370-398)")
 
 
+FH_PT_TRAP = (
+    "feynman_hibbs / feynman_kleinert under parallel_tempering: the "
+    "corrected pair energy depends on T, and the swap rule (b_i - b_j)"
+    "(E_i - E_j) prices each configuration at its own rung's T only — the "
+    "isothermal weight needs beta_i U_{T_i}(x_j) + beta_j U_{T_j}(x_i) - "
+    "beta_i U_{T_i}(x_i) - beta_j U_{T_j}(x_j), so the ladder would sample "
+    "the wrong ensemble (the trap of mpmc_tpu/parallel/replica.py:109-131 "
+    "with mpmc_tpu/mc/run.py:963-973)")
+
+
 def check_supported(job: input_script.Job):
     """Refuse every option outside the port's slice (NotImplementedError
-    naming the ROADMAP item), and NPT under parallel tempering
-    (ValueError, NPT_PT_TRAP); NPT with a frozen molecule is refused by
-    make_step_fn / make_batched_step_fn (metropolis.check_npt)."""
+    naming the ROADMAP item), and NPT or Feynman-Hibbs/Kleinert under a
+    temperature ladder (ValueError, NPT_PT_TRAP and FH_PT_TRAP); NPT
+    with a frozen molecule is refused by make_step_fn /
+    make_batched_step_fn (metropolis.check_npt)."""
     cfg = job.cfg
     if cfg.ensemble == "npt":
         if cfg.polarization:
@@ -123,28 +134,42 @@ def check_supported(job: input_script.Job):
                     "candidate of a volume move)", "A8c")
         if job.parallel_tempering or job.pt_fugacity:
             raise ValueError(NPT_PT_TRAP)
+    if ((cfg.feynman_hibbs or cfg.feynman_kleinert)
+            and job.parallel_tempering and not job.pt_fugacity):
+        raise ValueError(FH_PT_TRAP)
     if cfg.ensemble not in ("uvt", "nvt", "nve", "npt", "te", "replay"):
-        _refuse(f"ensemble {cfg.ensemble}", "A12")
+        _refuse(f"ensemble {cfg.ensemble}", "A12b")
     for flag, what, item in (
             (cfg.cavity_bias, "cavity_bias", "A11"),
             (cfg.tmmc, "tmmc", "A11"),
             (cfg.quantum_rotation, "quantum_rotation", "A11"),
-            (cfg.cdvdw, "cdvdw", "A12"),
-            (cfg.cdvdw_repulsion != "none", "cdvdw repulsion", "A12"),
-            (cfg.feynman_hibbs or cfg.feynman_kleinert,
-             "feynman_hibbs / feynman_kleinert", "A12"),
-            (cfg.quantum_vibration, "quantum_vibration", "A12"),
-            (cfg.mol_cache, "mol_cache", "A12"),
-            (cfg.cell_list, "cell_list", "A12"),
-            (cfg.rd_crystal, "rd_crystal", "A12"),
-            (cfg.spectre, "spectre", "A12"),
+            (cfg.cdvdw, "cdvdw", "A12b"),
+            (cfg.cdvdw_repulsion != "none", "cdvdw repulsion", "A12b"),
+            (cfg.quantum_vibration, "quantum_vibration", "A12b"),
+            (cfg.mol_cache, "mol_cache", "A12b"),
+            (cfg.cell_list, "cell_list", "A12b"),
+            (cfg.rd_crystal, "rd_crystal", "A12b"),
+            (cfg.spectre, "spectre", "A12b"),
             (cfg.rd_potential not in ("lj", "none"),
-             f"rd_potential {cfg.rd_potential}", "A12"),
-            (cfg.coulomb == "gwp", "coulomb gwp", "A12"),
+             f"rd_potential {cfg.rd_potential}", "A12a-2"),
+            (cfg.coulomb == "gwp", "coulomb gwp", "A12a-2"),
             (job.spatial_devices > 1, "spatial_devices", "A13"),
             (job.chain_devices > 1, "chain_devices", "A13")):
         if flag:
             _refuse(what, item)
+
+
+def log_pair_route(cfg, log):
+    """Name the route of the pair passes in the run log where it is not
+    the kernels': B2 and B4's static gate (pair_kernel.supported, the
+    reference's) refuses Feynman-Hibbs/Kleinert, and the refresh and the
+    per-move deltas run the plain tile pass on the device, as the
+    reference's scan path runs its jnp tile pass for them."""
+    from mpmc_tpu_torch.ops.cuda import pair_kernel
+    if not pair_kernel.supported(cfg):
+        print("pair passes: the plain tile pass on the device (B2 and B4's "
+              "gate refuses feynman_hibbs / feynman_kleinert, as the "
+              "reference's does)", file=log)
 
 
 def _promote_polar_cull(cfg, n_atoms: int):
@@ -465,6 +490,8 @@ def run_replay(job: input_script.Job, log=None, device=None) -> Averages:
         avgs.add(obs)
     writer = output_io.RunWriter(job, su.species_names if su else [],
                                  log=log)
+    if su is not None:
+        log_pair_route(su.cfg, writer.log)
     print(f"replay: {avgs.count()} frames, {n_setups} setups, "
           f"{n_relayouts} laid out into the existing slots", file=writer.log)
     writer.final_averages(avgs, job.temperature)
@@ -612,6 +639,7 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     if job.unknown_options:
         print(f"WARNING: unknown options ignored: {job.unknown_options}",
               file=writer.log)
+    log_pair_route(cfg, writer.log)
     chunk = metropolis.run_chunk
     if cfg.fused_mc:
         # the reference's gate order: the NVT/NVE kernel, the µVT one (both
@@ -713,28 +741,39 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     return dataclasses.replace(su, state=state, thermo=thermo), avgs
 
 
-def _chains_route(cfg, params, mol_alive, C, writer, what="multi-chain"):
+def _chains_route(cfg, params, mol_alive, C, writer, what="multi-chain",
+                  fused_ok=True):
     """(chunk, fused) for C stacked chains: the fused NVT kernel (B3) or
-    the fused µVT kernel (B1) where their gates hold under ``fused_mc``,
-    else the batched scan chains (B4 over the chain axis; with
-    polarization the SCF over the chains, B5 over the chain axis, which
-    the fused gates refuse; under NPT a box per chain) — and the log line
-    that says which."""
-    if cfg.fused_mc and mc_kernel.supported_multi(cfg, params):
+    the fused µVT kernel (B1) where their gates hold under ``fused_mc``
+    (and ``fused_ok``), else the batched scan chains (B4 over the chain
+    axis; with polarization the SCF over the chains, B5 over the chain
+    axis, which the fused gates refuse; under NPT a box per chain) — and
+    the log lines that say which."""
+    from mpmc_tpu_torch.ops.cuda import pair_kernel
+    log_pair_route(cfg, writer.log)
+    fused = cfg.fused_mc and fused_ok
+    if cfg.fused_mc and not fused_ok:
+        print("fused_mc: feynman_hibbs / feynman_kleinert keep this "
+              f"{what} run on the batched scan chains, as the reference's "
+              "gate does", file=writer.log)
+    if fused and mc_kernel.supported_multi(cfg, params):
         chunk = functools.partial(
             metropolis.run_chunk_fused_multi,
             tables=metropolis.nvt_fused_tables(params, mol_alive))
-    elif cfg.fused_mc and mc_kernel.supported_uvt_multi(cfg, params):
+    elif fused and mc_kernel.supported_uvt_multi(cfg, params):
         chunk = functools.partial(
             metropolis.run_chunk_fused_uvt_multi,
             tables=metropolis.uvt_fused_tables(params, cfg))
     else:
-        if cfg.fused_mc:
+        if fused:
             print("WARNING: fused_mc requested but unsupported for this "
                   "configuration (needs the fused NVT or µVT surface, no "
                   "nve) — batched scan chains used", file=writer.log)
         print(f"batched scan chains (C={C}): one step of every chain at "
-              "a time, each move's delta one B4 launch over the chains"
+              "a time, each move's delta "
+              + ("one B4 launch over the chains"
+                 if pair_kernel.supported(cfg) else
+                 "the plain tile pass over the chains")
               + (", the SCF's matvec one B5 launch over the chains"
                  if cfg.polarization else ""), file=writer.log)
         return multichain.run_chunk_batched, False
@@ -1008,8 +1047,11 @@ def run_mc_pt_fug(job: input_script.Job, log=None, jsonl_path=None,
           "F_total = " + " ".join(f"{v:.4g}" for v in fug_rows.sum(axis=1)),
           file=writer.log)
     state = metropolis.initialize(su.state, params, cfg, thermo)
-    chunk, fused = _chains_route(cfg, params, state.mol_alive, R, writer,
-                                 "fugacity-ladder")
+    # FH/FK keep the ladder on the batched scan chains, as the reference's
+    # gate does (mpmc_tpu/mc/run.py:1105-1116)
+    chunk, fused = _chains_route(
+        cfg, params, state.mol_alive, R, writer, "fugacity-ladder",
+        fused_ok=not (cfg.feynman_hibbs or cfg.feynman_kleinert))
     if fused:
         print(f"fused_mc: on-device swaps (R={R})", file=writer.log)
     states = multichain.stack_states(state, R)

@@ -48,30 +48,32 @@ _SIGNATURES = {
         "mol_pair": [_P] * 10 + [_I] + [_P] + [_I] * 7 + [_P] * 4 + [_P],
     },
     "uvt_kernel": {
-        # pos alive eps sig q mass slot_start slot_species slot_alive tmpl
-        # natoms scal betas lnfvs d_self d_excl c1 cx u kvec kcoef sk sums |
-        # C n ms S A K nk G rd mix es ortho | ke | stream
-        "run_steps_uvt": [_P] * 23 + [_I] * 12 + [ctypes.c_double] + [_P],
-        # n nk ms G | clusters out
-        "uvt_occupancy": [_I] * 4 + [_PI],
+        # pos alive eps sig q mass mmass slot_start slot_species slot_alive
+        # tmpl natoms scal betas lnfvs d_self d_excl c1 cx u kvec kcoef sk
+        # sums | C n ms S A K nk G rd mix es ortho qc | ke hb2 | stream
+        "run_steps_uvt": [_P] * 24 + [_I] * 13 + [ctypes.c_double] * 2
+        + [_P],
+        # n nk ms qc G | clusters out
+        "uvt_occupancy": [_I] * 5 + [_PI],
     },
     "nvt_kernel": {
-        # pos alive eps sig q mass mv_start mv_natoms scal betas u kvec
-        # kcoef sk nve_k0 sums | C n mv A K nk G rd mix es ortho nve | ke
-        # nve_g | stream
-        "run_steps_nvt": [_P] * 16 + [_I] * 12 + [ctypes.c_double] * 2
+        # pos alive eps sig q mass mmass mv_start mv_natoms scal betas u
+        # kvec kcoef sk nve_k0 sums | C n mv A K nk G rd mix es ortho nve qc
+        # | ke nve_g hb2 | stream
+        "run_steps_nvt": [_P] * 17 + [_I] * 13 + [ctypes.c_double] * 3
         + [_P],
-        # n nk G | clusters out
-        "nvt_occupancy": [_I] * 3 + [_PI],
+        # n nk qc G | clusters out
+        "nvt_occupancy": [_I] * 4 + [_PI],
     },
     "pda_kernel": {
-        # pos alive eps sig q mass polar e0 slot_start slot_species
+        # pos alive eps sig q mass mmass polar e0 slot_start slot_species
         # slot_alive tmpl natoms scal lnfv d_self d_excl c1 cx u kvec kcoef
-        # sk rec | n ms S A K nk G rd mix es ortho damp field | ke | stream
-        "run_steps_uvt_pda": [_P] * 24 + [_I] * 13 + [ctypes.c_double]
+        # sk rec | n ms S A K nk G rd mix es ortho damp field qc | ke hb2 |
+        # stream
+        "run_steps_uvt_pda": [_P] * 25 + [_I] * 14 + [ctypes.c_double] * 2
         + [_P],
-        # n nk ms A field G | clusters out
-        "pda_occupancy": [_I] * 6 + [_PI],
+        # n nk ms A field qc G | clusters out
+        "pda_occupancy": [_I] * 7 + [_PI],
     },
     "thole_kernel": {
         # pos src ok mol scal wl chains | K n ni nj dipole damp ortho grid

@@ -46,13 +46,22 @@ from a kernel to its plain version.  ``run_steps_uvt.launches``,
 ``run_steps.launches`` and ``run_steps_uvt_pda.launches`` count the
 kernel launches, and nothing else.
 
+The pair terms of all three carry the Feynman-Hibbs (order 2 or 4) or
+Feynman-Kleinert correction under rd lj (``cfg.feynman_hibbs`` /
+``feynman_kleinert``, FK first when both are set): the wrappers then take
+``mol_mass``, each atom's molecular mass (Params.mol_mass_atom), which
+the kernels hold as a seventh column plane of the slice, the moved
+molecule's mass being the sum of its slot's site masses, at the chain's
+beta.
+
 The host helpers (``supported_uvt``, ``supported``, ``supported_multi``,
 ``movable_slots``, ``movable_mols``) are the gates and tables of the
 reference's fused paths, restricted to the surface the port has: rd
-lj/none, lb/waldman_hagler mixing, coulomb ewald/wolf/cutoff/none, f32,
-rigid molecules of up to MAX_SITES sites (B1: up to MAX_SPECIES insert
-species).  Cavity bias, TMMC, spinflip and the other RD forms are refused
-here (ROADMAP A11/A12).
+lj/none (FH and FK with lj), lb/waldman_hagler mixing, coulomb
+ewald/wolf/cutoff/none, f32, rigid molecules of up to MAX_SITES sites
+(B1: up to MAX_SPECIES insert species).  Cavity bias, TMMC and spinflip
+(ROADMAP A11) and the RD forms beyond lj/none and coulomb gwp (A12a-2)
+are refused here.
 """
 from __future__ import annotations
 
@@ -63,7 +72,8 @@ import math
 import numpy as np
 import torch
 
-from mpmc_tpu_torch.constants import KE
+from mpmc_tpu_torch.constants import HBAR2_KB_AMU_A2, KE
+from mpmc_tpu_torch.ops import lj as lj_ops
 from mpmc_tpu_torch.ops import pairs, thole
 from mpmc_tpu_torch.ops import pbc as pbc_ops
 from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
@@ -84,15 +94,29 @@ N_SUMS_NVT = 4     # d_rd d_es_real d_es_recip, accepted moves
 
 
 def _supported_physics(cfg) -> bool:
-    """The physics surface of the fused kernel in the port: the
+    """The physics surface of the fused kernels in the port: the
     reference's gate (mc_kernel._supported_physics) restricted to the RD
-    and Coulomb forms the port carries."""
+    and Coulomb forms the port carries.  Feynman-Hibbs and
+    Feynman-Kleinert are allowed, both on the LJ derivatives only."""
     return (cfg.rd_potential in _RD and cfg.coulomb in _ES
             and cfg.mixing_rule in _MIX
-            and not cfg.feynman_hibbs and not cfg.feynman_kleinert
+            and not ((cfg.feynman_hibbs or cfg.feynman_kleinert)
+                     and cfg.rd_potential != "lj")
             and not cfg.polarization and not cfg.cdvdw
             and cfg.cdvdw_repulsion == "none" and not cfg.rd_crystal
             and cfg.dtype == "float32")
+
+
+def quantum_option(cfg) -> int:
+    """The kernels' quantum correction (csrc/mc_common.cuh Opts.qc): 0
+    none (and without rd lj, pairs.quantum), 1 Feynman-Hibbs order 2, 2
+    order 4, 3 Feynman-Kleinert, which takes precedence when both are set
+    (as in the reference)."""
+    if not pairs.quantum(cfg):
+        return 0
+    if cfg.feynman_kleinert:
+        return 3
+    return 2 if cfg.feynman_hibbs_order >= 4 else 1
 
 
 def supported_uvt(cfg, params) -> bool:
@@ -253,47 +277,68 @@ def _refuse_cfg(cfg, what="run_steps_uvt"):
         raise NotImplementedError(
             f"{what}: rd {cfg.rd_potential!r} / coulomb "
             f"{cfg.coulomb!r} / mixing {cfg.mixing_rule!r} is not yet "
-            "ported — ROADMAP A12")
+            "ported — ROADMAP A12a-2")
+    if ((cfg.feynman_hibbs or cfg.feynman_kleinert)
+            and cfg.rd_potential != "lj"):
+        raise ValueError(f"{what}: feynman_hibbs / feynman_kleinert "
+                         "correct the LJ pair energy; rd_potential is "
+                         f"{cfg.rd_potential!r}")
     for flag, flag_name in ((cfg.cavity_bias, "cavity_bias"),
                             (cfg.tmmc, "tmmc"),
-                            (cfg.quantum_rotation, "quantum_rotation"),
-                            (cfg.feynman_hibbs or cfg.feynman_kleinert,
-                             "feynman_hibbs / feynman_kleinert")):
+                            (cfg.quantum_rotation, "quantum_rotation")):
         if flag:
             raise NotImplementedError(
-                f"{what}: {flag_name} is not yet ported — ROADMAP "
-                + ("A12" if flag_name.startswith("feynman") else "A11"))
+                f"{what}: {flag_name} is not yet ported — ROADMAP A11")
 
 
-def slice_bytes(n, dtype, G, nk=0, ms=0, polar=False):
+def _quantum_cols(mol_mass, cfg, n, dt, dev, what):
+    """(the kernels' qc, the molecule-mass plane's pointer): ``mol_mass``
+    [n] checked when a quantum correction is on, a null pointer
+    otherwise."""
+    qc = quantum_option(cfg)
+    if not qc:
+        return 0, ctypes.c_void_p(None)
+    if mol_mass is None:
+        raise ValueError(f"{what}: feynman_hibbs / feynman_kleinert need "
+                         "mol_mass, each atom's molecular mass")
+    _check("mol_mass", mol_mass, dt, (n,), dev)
+    return qc, _ptr(mol_mass)
+
+
+def slice_bytes(n, dtype, G, nk=0, ms=0, polar=False, quantum=False):
     """Dynamic shared memory of one CTA of a B1/B3 cluster of G CTAs over
     n columns, nk k-vectors and ms slots (csrc/mc_cluster.cuh
-    slice_bytes): six column planes and eight k-vector planes of
-    ``dtype``, the slot species (int32) and the column and slot alive
-    flags, each segment rounded up to 16 bytes.  ``polar``: B6's slice
-    (polar_slice_bytes), four more column planes (polar, e0 x/y/z)."""
+    slice_bytes): six column planes (``quantum``: seven, with the
+    molecular masses of a Feynman-Hibbs/Kleinert deck) and eight k-vector
+    planes of ``dtype``, the slot species (int32) and the column and slot
+    alive flags, each segment rounded up to 16 bytes.  ``polar``: B6's
+    slice (polar_slice_bytes), four more column planes (polar, e0
+    x/y/z)."""
     sz = torch.finfo(dtype).bits // 8
     nloc, kloc = -(-n // G), -(-nk // G)
 
     def seg(b):
         return (b + 15) // 16 * 16
 
-    return (seg(6 * nloc * sz) + seg(8 * kloc * sz) + seg(4 * ms)
-            + seg(nloc) + seg(ms) + (seg(4 * nloc * sz) if polar else 0))
+    return (seg((7 if quantum else 6) * nloc * sz) + seg(8 * kloc * sz)
+            + seg(4 * ms) + seg(nloc) + seg(ms)
+            + (seg(4 * nloc * sz) if polar else 0))
 
 
-def _fits(n, dtype, G, nk, ms, polar=False):
-    return slice_bytes(n, dtype, G, nk, ms, polar) <= SMEM_BYTES - (
+def _fits(n, dtype, G, nk, ms, polar=False, quantum=False):
+    return slice_bytes(n, dtype, G, nk, ms, polar, quantum) <= SMEM_BYTES - (
         SMEM_STATIC_PDA if polar else SMEM_STATIC)
 
 
-def fitting_cluster_sizes(n, dtype, nk=0, ms=0, polar=False):
+def fitting_cluster_sizes(n, dtype, nk=0, ms=0, polar=False, quantum=False):
     """The G of CLUSTER_SIZES, ascending, whose slice fits in shared
-    memory (``polar``: B6's)."""
-    return [G for G in CLUSTER_SIZES if _fits(n, dtype, G, nk, ms, polar)]
+    memory (``polar``: B6's; ``quantum``: with the molecule-mass plane)."""
+    return [G for G in CLUSTER_SIZES
+            if _fits(n, dtype, G, nk, ms, polar, quantum)]
 
 
-def cluster_size(C, n, dtype, resident, nk=0, ms=0, polar=False):
+def cluster_size(C, n, dtype, resident, nk=0, ms=0, polar=False,
+                 quantum=False):
     """CTAs per chain (G) of a B1/B3 launch of C chains over n columns (nk
     k-vectors, ms slots; ``polar``: of B6, C = 1): the largest G in
     CLUSTER_SIZES whose slice fits in shared memory and of which the card
@@ -302,7 +347,7 @@ def cluster_size(C, n, dtype, resident, nk=0, ms=0, polar=False):
     CTAs the card holds at once}, which the wrappers take from
     cudaOccupancyMaxActiveClusters (a cluster lies within one GPC, so an
     H100 holds fewer than 132 // G).  Raises when no G fits."""
-    fits = fitting_cluster_sizes(n, dtype, nk, ms, polar)
+    fits = fitting_cluster_sizes(n, dtype, nk, ms, polar, quantum)
     if not fits:
         raise ValueError(f"{n} columns of {dtype} do not fit in "
                          f"{max(CLUSTER_SIZES)} CTAs' shared memory")
@@ -310,17 +355,19 @@ def cluster_size(C, n, dtype, resident, nk=0, ms=0, polar=False):
     return max(within) if within else min(fits)
 
 
-def _check_cluster(cluster, n, dtype, nk, ms, what, polar=False):
+def _check_cluster(cluster, n, dtype, nk, ms, what, polar=False,
+                   quantum=False):
     """``cluster`` checked against CLUSTER_SIZES and shared memory."""
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"{what}: cluster={cluster!r}, the kernel takes "
                          f"one of {CLUSTER_SIZES}")
-    if not _fits(n, dtype, cluster, nk, ms, polar):
+    if not _fits(n, dtype, cluster, nk, ms, polar, quantum):
         static = SMEM_STATIC_PDA if polar else SMEM_STATIC
         raise ValueError(
             f"{what}: cluster={cluster} needs "
-            f"{slice_bytes(n, dtype, cluster, nk, ms, polar)} bytes of "
-            f"shared memory per CTA, more than {SMEM_BYTES - static}")
+            f"{slice_bytes(n, dtype, cluster, nk, ms, polar, quantum)} "
+            f"bytes of shared memory per CTA, more than "
+            f"{SMEM_BYTES - static}")
     return int(cluster)
 
 
@@ -359,17 +406,17 @@ def _resident(lib, entry, dt, shape, G, what):
 
 
 def _launch_cluster(lib, entry, cluster, C, n, dt, nk, ms, shape, what,
-                    polar=False):
+                    polar=False, quantum=False):
     """The G of a card launch (``cluster``, or ``cluster_size`` over the
     card's resident counts), after checking that at least one cluster of
     that shape can be resident; raises if none can."""
     if cluster is None:
         G = cluster_size(C, n, dt, {
             g: _resident(lib, entry, dt, shape, g, what)
-            for g in fitting_cluster_sizes(n, dt, nk, ms, polar)}, nk, ms,
-            polar)
+            for g in fitting_cluster_sizes(n, dt, nk, ms, polar, quantum)},
+            nk, ms, polar, quantum)
     else:
-        G = _check_cluster(cluster, n, dt, nk, ms, what, polar)
+        G = _check_cluster(cluster, n, dt, nk, ms, what, polar, quantum)
     if _resident(lib, entry, dt, shape, G, what) == 0:
         raise RuntimeError(f"{what}: no cluster of {G} CTAs of this shape "
                            "can be resident on the card")
@@ -433,35 +480,79 @@ def _trial_rows(old, mass, ins, u, tmpl, box, move_factor, rot_factor):
 
 
 def _column_pass(rows, use, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
-                 box, box_inv, rc, alpha, cfg):
+                 box, box_inv, rc, alpha, cfg, qc=None):
     """(rd [C] f64, es [C] f64 without the Coulomb constant, min r2 [C],
-    pairs within rc [C]) of each chain's rows [C,A,3] against its
-    columns: pairs within rc for the energies, every pair for the closest
-    approach; chains with ``use`` false give zeros, inf and 0."""
+    pairs within rc [C], the sums of the squares of the rd and es terms
+    [C, 2] f64) of each chain's rows [C,A,3] against its columns: pairs
+    within rc for the energies, every pair for the closest approach;
+    chains with ``use`` false give zeros, inf and 0.  ``qc``: (the
+    molecule's mass [C], the molecule-mass plane [N], beta [C]) under a
+    quantum correction."""
     dr = pbc_ops.min_image(rows[:, :, None, :] - pos[:, None, :, :], box,
                            box_inv)
     r2 = torch.sum(dr * dr, dim=-1)                                # [C,A,N]
     m = ok[:, None, :] & site_ok[:, :, None] & use[:, None, None]
-    return _pair_sums(r2, m, qi, ei, si, charge, eps, sig, rc, alpha, cfg)
+    return _pair_sums(r2, m, qi, ei, si, charge, eps, sig, rc, alpha, cfg,
+                      qc)
 
 
-def _pair_sums(r2, m, qi, ei, si, charge, eps, sig, rc, alpha, cfg):
+def quantum_pairs(r2s, eps, sig, mm_i, mm_j, beta, cfg):
+    """The Feynman-Hibbs or Feynman-Kleinert correction of each pair at the
+    guarded squared distance r2s, with the mixed (eps, sig), in the
+    kernels' arithmetic (csrc/mc_common.cuh quantum_pair; the reference
+    kernel's _pair_terms): the LJ derivatives from (sig^2/r2s)^3 and 1/r,
+    the molecule-pair reduced mass mm_i mm_j / max(mm_i + mm_j, 1e-30),
+    FH at ``beta``, FK at 1/beta."""
+    red = mm_i * mm_j / torch.clamp(mm_i + mm_j, min=1e-30)
+    r = torch.sqrt(r2s)
+    inv_r = 1.0 / r
+    s2 = sig * sig / r2s
+    s6 = s2 * s2 * s2
+    s12 = s6 * s6
+    e4 = 4.0 * eps
+    v1 = e4 * (6.0 * s6 - 12.0 * s12) * inv_r
+    v2 = e4 * (156.0 * s12 - 42.0 * s6) * (inv_r * inv_r)
+    inv3 = inv_r * inv_r * inv_r
+    v3 = e4 * (336.0 * s6 - 2184.0 * s12) * inv3
+    v4 = e4 * (32760.0 * s12 - 3024.0 * s6) * (inv3 * inv_r)
+    if cfg.feynman_kleinert:
+        return lj_ops.feynman_kleinert_from_derivs(r, v1, v2, v3, v4, red,
+                                                   1.0 / beta)
+    c2 = (HBAR2_KB_AMU_A2 / 24.0) * beta / torch.clamp(red, min=1e-30)
+    u = c2 * (v2 + 2.0 * v1 * inv_r)
+    if cfg.feynman_hibbs_order >= 4:
+        c4 = ((HBAR2_KB_AMU_A2 * HBAR2_KB_AMU_A2 / 1152.0) * beta * beta
+              / torch.clamp(red * red, min=1e-30))
+        u = u + c4 * (15.0 * v1 * inv3 + 4.0 * v3 * inv_r + v4)
+    return u
+
+
+def _pair_sums(r2, m, qi, ei, si, charge, eps, sig, rc, alpha, cfg,
+               qc=None):
     """The sums of ``_column_pass`` from the squared distances r2 [C,A,N]
-    and the pair mask m [C,A,N]."""
+    and the pair mask m [C,A,N]; ``qc`` as there."""
     act = m & (r2 < rc * rc)
     rd_u, es_u, _, _ = pairs._tile_values(
         r2, qi[..., None], ei[..., None], si[..., None], charge, eps, sig,
         cfg, rc, alpha)
+    if qc is not None and rd_u is not None:
+        mm_i, mm_j, beta = qc
+        e_m, s_m = lj_ops.mix(ei[..., None], eps, si[..., None], sig,
+                              cfg.mixing_rule)
+        rd_u = rd_u + quantum_pairs(
+            torch.where(r2 > 1e-12, r2, torch.ones_like(r2)), e_m, s_m,
+            mm_i[:, None, None], mm_j, beta[:, None, None], cfg)
     zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
 
-    def s(v):
+    def s(v, p=1):
         if v is None:
             return torch.zeros(r2.shape[0], dtype=torch.float64,
                                device=r2.device)
-        return torch.where(act, v, zero).double().sum(dim=(1, 2))
+        return (torch.where(act, v, zero).double() ** p).sum(dim=(1, 2))
 
     mn = torch.where(m, r2, torch.full_like(r2, math.inf)).amin(dim=(1, 2))
-    return s(rd_u), s(es_u), mn, act.sum(dim=(1, 2))
+    return (s(rd_u), s(es_u), mn, act.sum(dim=(1, 2)),
+            torch.stack([s(rd_u, 2), s(es_u, 2)], -1))
 
 
 def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
@@ -469,7 +560,7 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
                         alpha, betas, move_factor, rot_factor, thr2, p_ins,
                         lnfvs, d_self, d_excl, c1, cx, uniforms, cfg,
                         kvecs=None, kcoef=None, sk_re=None, sk_im=None,
-                        cluster=None, trace=None):
+                        cluster=None, mol_mass=None, trace=None):
     """Plain B1: a loop over the K steps of batched tensor ops over the C
     chains and the N columns, with the kernel's arithmetic (the same
     per-species constants, the pair sums and the acceptance in float64).
@@ -477,9 +568,14 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
     (the plain sums do not depend on it); the inputs are not
     modified.  ``trace``: a list that gets one dict per step — ``accept``
     [C], ``margin`` [C] = ln u - ln(acceptance), and the work the kernel
-    does for it, ``pairs``, ``pairs_in`` and ``phases`` [C] (pair
-    evaluations, those within rc, and k-vector phases)."""
+    does for it, ``pairs``, ``pairs_in``, ``cols`` and ``phases`` [C]
+    (pair evaluations, those within rc, columns passed and k-vector
+    phases), and ``rss`` [C, 2], the root sum of squares of the rd and es
+    terms summed into the step's deltas, in K (the scale of their
+    rounding)."""
     _refuse_cfg(cfg)
+    quantum = _quantum_cols(mol_mass, cfg, pos.shape[1], pos.dtype,
+                            pos.device, "run_steps_uvt")[0]
     dt, dev = pos.dtype, pos.device
     C, N = alive.shape
     K = uniforms.shape[1]
@@ -511,6 +607,7 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
     dself, dexcl = d_self.double(), d_excl.double()
     c1d, cxd = c1.double(), cx.double()
     sums = torch.zeros((C, N_SUMS), dtype=torch.float64, device=dev)
+    rss_units = torch.tensor([1.0, KE], dtype=torch.float64, device=dev)
     for k in range(K):
         u = uniforms[:, k]
         u8 = u[:, 8]
@@ -544,12 +641,14 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
                & (col[None, :] < (start + na)[:, None]))
         ok = alive & ~own
         has_old, has_new = ~ins, ~dele
-        rd_o, es_o, _, in_o = _column_pass(old, has_old, pos, ok, site_ok,
-                                           qi, ei, si, charge, eps, sig, box,
-                                           box_inv, rc, alpha, cfg)
-        rd_n, es_n, mr2, in_n = _column_pass(new, has_new, pos, ok, site_ok,
-                                             qi, ei, si, charge, eps, sig,
-                                             box, box_inv, rc, alpha, cfg)
+        # the molecule's mass: the sum of its slot's site masses
+        qc = (mi.sum(1), mol_mass, betas) if quantum else None
+        rd_o, es_o, _, in_o, sq_o = _column_pass(
+            old, has_old, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
+            box, box_inv, rc, alpha, cfg, qc)
+        rd_n, es_n, mr2, in_n, sq_n = _column_pass(
+            new, has_new, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
+            box, box_inv, rc, alpha, cfg, qc)
         drd = rd_n - rd_o
         des = KE * (es_n - es_o)
         if ew:
@@ -595,7 +694,9 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
             trace.append({"accept": accept, "margin": ln_u - ln_t,
                           "pairs": passes * ok.sum(1),
                           "pairs_in": torch.where(cnt > 0, in_o + in_n, 0),
-                          "phases": passes * (kvecs.shape[0] if ew else 0)})
+                          "cols": torch.where(cnt > 0, ok.sum(1), 0),
+                          "phases": passes * (kvecs.shape[0] if ew else 0),
+                          "rss": torch.sqrt(sq_o + sq_n) * rss_units})
         vals = torch.stack([drd, des, drec, dslf, dexc, dlrc], dim=1)
         sums[:, :6] += torch.where(accept[:, None], vals,
                                    torch.zeros_like(vals))
@@ -626,7 +727,7 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
                   slot_species, slot_alive, tmpl, natoms, box, rc, alpha,
                   betas, move_factor, rot_factor, thr2, p_ins, lnfvs, d_self,
                   d_excl, c1, cx, uniforms, cfg, kvecs=None, kcoef=None,
-                  sk_re=None, sk_im=None, cluster=None):
+                  sk_re=None, sk_im=None, cluster=None, mol_mass=None):
     """B1: K fused µVT steps for C chains, one cluster of G CTAs each.
 
     Per chain: ``pos`` [C,N,3], atom ``alive`` [C,N] bool, ``slot_alive``
@@ -642,7 +743,9 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     ``rot_factor``, ``thr2`` (autoreject radius squared, 0 = off) and
     ``p_ins``; ``kvecs`` [Nk,3] with ``kcoef`` [Nk] the folded reciprocal
     coefficients (ewald).  ``cluster``: G, one of CLUSTER_SIZES whose
-    slice fits in shared memory (None: ``cluster_size``).
+    slice fits in shared memory (None: ``cluster_size``).  ``mol_mass``
+    [N]: each atom's molecular mass, needed under feynman_hibbs /
+    feynman_kleinert (the terms at each chain's beta).
 
     Returns (pos [C,N,3], slot_alive [C,Ms] bool, sums [C,14] float64,
     sk_re [C,Nk], sk_im [C,Nk]), sums in the reference order (d_rd,
@@ -652,19 +755,22 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     ms = slot_start.shape[0]
     ew = cfg.coulomb == "ewald"
     nk = kvecs.shape[0] if ew else 0
+    quantum = quantum_option(cfg) > 0
     if pos.device.type == "cpu":
         if cluster is not None:      # checked, then ignored by the plain
-            _check_cluster(cluster, N, pos.dtype, nk, ms, "run_steps_uvt")
+            _check_cluster(cluster, N, pos.dtype, nk, ms, "run_steps_uvt",
+                           quantum=quantum)
         return run_steps_uvt_plain(
             pos, alive, eps, sig, charge, mass, slot_start, slot_species,
             slot_alive, tmpl, natoms, box, rc, alpha, betas, move_factor,
             rot_factor, thr2, p_ins, lnfvs, d_self, d_excl, c1, cx,
             uniforms, cfg, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re,
-            sk_im=sk_im, cluster=cluster)
+            sk_im=sk_im, cluster=cluster, mol_mass=mol_mass)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps_uvt: no kernel for {pos.device}")
     _refuse_cfg(cfg)
     dt, dev = pos.dtype, pos.device
+    qc, mm_ptr = _quantum_cols(mol_mass, cfg, N, dt, dev, "run_steps_uvt")
     S, A = tmpl.shape[0], tmpl.shape[1]
     K = uniforms.shape[1]
     if A > MAX_SITES or S > MAX_SPECIES:
@@ -707,18 +813,20 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     from mpmc_tpu_torch.ops.cuda import _build
     lib = _build.library("uvt_kernel")
     G = _launch_cluster(lib, "uvt_occupancy", cluster, C, N, dt, nk, ms,
-                        (N, nk, ms), "run_steps_uvt")
+                        (N, nk, ms, int(quantum)), "run_steps_uvt",
+                        quantum=quantum)
     fn = getattr(lib, "run_steps_uvt_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
     err = fn(_ptr(out_pos), _ptr(out_alive), _ptr(eps), _ptr(sig),
-             _ptr(charge), _ptr(mass), _ptr(slot_start), _ptr(slot_species),
-             _ptr(out_slot), _ptr(tmpl), _ptr(natoms), _ptr(scal),
-             _ptr(betas), _ptr(lnfvs), _ptr(d_self), _ptr(d_excl), _ptr(c1),
-             _ptr(cx), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
-             _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
-             _ptr(sums), C, N, ms, S, A, K, nk, G, _RD[cfg.rd_potential],
-             _MIX[cfg.mixing_rule], _ES[cfg.coulomb], ortho,
-             ctypes.c_double(KE), _stream(dev))
+             _ptr(charge), _ptr(mass), mm_ptr, _ptr(slot_start),
+             _ptr(slot_species), _ptr(out_slot), _ptr(tmpl), _ptr(natoms),
+             _ptr(scal), _ptr(betas), _ptr(lnfvs), _ptr(d_self),
+             _ptr(d_excl), _ptr(c1), _ptr(cx), _ptr(uniforms),
+             _ptr(kvecs) if ew else nullp, _ptr(kcoef) if ew else nullp,
+             _ptr(sk) if ew else nullp, _ptr(sums), C, N, ms, S, A, K, nk,
+             G, _RD[cfg.rd_potential], _MIX[cfg.mixing_rule],
+             _ES[cfg.coulomb], ortho, qc, ctypes.c_double(KE),
+             ctypes.c_double(HBAR2_KB_AMU_A2), _stream(dev))
     run_steps_uvt.launches += 1
     run_steps_uvt.last_cluster = G
     _raise_on(err, "run_steps_uvt")
@@ -747,7 +855,7 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
                     box, rc, alpha, betas, move_factor, rot_factor, thr2,
                     uniforms, cfg, kvecs=None, kcoef=None, sk_re=None,
                     sk_im=None, nve_k0=None, nve_g=0.0, a_max=None,
-                    cluster=None, trace=None):
+                    cluster=None, mol_mass=None, trace=None):
     """Plain B3: a loop over the K steps of batched tensor ops over the C
     chains and the N columns, with the kernel's arithmetic (the pair sums,
     the acceptance and the NVE reservoir in float64).  Arguments and
@@ -755,9 +863,12 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
     modified.  ``trace``: a
     list that gets one dict per step — ``accept`` [C], ``margin`` [C] = ln
     u - ln(acceptance), and the work the kernel does for it, ``pairs``,
-    ``pairs_in`` and ``phases`` [C] (pair evaluations, those within rc,
-    and k-vector phases)."""
+    ``pairs_in``, ``cols`` and ``phases`` [C] (pair evaluations, those
+    within rc, columns passed and k-vector phases), and ``rss`` [C, 2] as
+    for B1."""
     _refuse_cfg(cfg, "run_steps")
+    quantum = _quantum_cols(mol_mass, cfg, pos.shape[1], pos.dtype,
+                            pos.device, "run_steps")[0]
     dt, dev = pos.dtype, pos.device
     C, N = pos.shape[0], pos.shape[1]
     K = uniforms.shape[1]
@@ -785,6 +896,7 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
     no_ins = torch.zeros(C, dtype=torch.bool, device=dev)
     use = ~no_ins
     sums = torch.zeros((C, N_SUMS_NVT), dtype=torch.float64, device=dev)
+    rss_units = torch.tensor([1.0, KE], dtype=torch.float64, device=dev)
     for k in range(K):
         u = uniforms[:, k]
         m = torch.minimum(torch.floor(u[:, 0] * mv_t), mv_t - 1.0).long()
@@ -798,12 +910,13 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
         own = ((col[None, :] >= start[:, None])
                & (col[None, :] < (start + na)[:, None]))
         ok = alive[None, :] & ~own
-        rd_o, es_o, _, in_o = _column_pass(old, use, pos, ok, site_ok, qi,
-                                           ei, si, charge, eps, sig, box,
-                                           box_inv, rc, alpha, cfg)
-        rd_n, es_n, mr2, in_n = _column_pass(new, use, pos, ok, site_ok, qi,
-                                             ei, si, charge, eps, sig, box,
-                                             box_inv, rc, alpha, cfg)
+        qc = (mi.sum(1), mol_mass, betas) if quantum else None
+        rd_o, es_o, _, in_o, sq_o = _column_pass(
+            old, use, pos, ok, site_ok, qi, ei, si, charge, eps, sig, box,
+            box_inv, rc, alpha, cfg, qc)
+        rd_n, es_n, mr2, in_n, sq_n = _column_pass(
+            new, use, pos, ok, site_ok, qi, ei, si, charge, eps, sig, box,
+            box_inv, rc, alpha, cfg, qc)
         drd = rd_n - rd_o
         des = KE * (es_n - es_o)
         if ew:
@@ -843,8 +956,9 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
             passes = 2 * na
             trace.append({"accept": accept, "margin": ln_u - ln_t,
                           "pairs": passes * ok.sum(1),
-                          "pairs_in": in_o + in_n,
-                          "phases": passes * (kvecs.shape[0] if ew else 0)})
+                          "pairs_in": in_o + in_n, "cols": ok.sum(1),
+                          "phases": passes * (kvecs.shape[0] if ew else 0),
+                          "rss": torch.sqrt(sq_o + sq_n) * rss_units})
         vals = torch.stack([drd, des, drec], dim=1)
         sums[:, :3] += torch.where(accept[:, None], vals,
                                    torch.zeros_like(vals))
@@ -861,7 +975,7 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
 def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
               rc, alpha, betas, move_factor, rot_factor, thr2, uniforms, cfg,
               kvecs=None, kcoef=None, sk_re=None, sk_im=None, nve_k0=None,
-              nve_g=0.0, a_max=None, cluster=None):
+              nve_g=0.0, a_max=None, cluster=None, mol_mass=None):
     """B3: K fused NVT (or NVE) steps for C chains, one cluster of G CTAs
     each.
 
@@ -878,7 +992,8 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
     "nve"``: ``nve_k0`` the kinetic reservoir at entry ([C] or a scalar,
     E_total - U) and ``nve_g`` the exponent f_dof/2 - 1.  ``cluster``: G,
     one of CLUSTER_SIZES whose slice fits in shared memory (None:
-    ``cluster_size``).
+    ``cluster_size``).  ``mol_mass`` [N]: each atom's molecular mass,
+    needed under feynman_hibbs / feynman_kleinert (at each chain's beta).
 
     Returns (pos [C,N,3], sums [C,4] float64 = (d_rd, d_es_real,
     d_es_recip, accepted moves), sk_re [C,Nk], sk_im [C,Nk]).  The inputs
@@ -886,18 +1001,22 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
     C, N = pos.shape[0], pos.shape[1]
     ew = cfg.coulomb == "ewald"
     nk = kvecs.shape[0] if ew else 0
+    quantum = quantum_option(cfg) > 0
     if pos.device.type == "cpu":
         if cluster is not None:      # checked, then ignored by the plain
-            _check_cluster(cluster, N, pos.dtype, nk, 0, "run_steps")
+            _check_cluster(cluster, N, pos.dtype, nk, 0, "run_steps",
+                           quantum=quantum)
         return run_steps_plain(
             pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box, rc,
             alpha, betas, move_factor, rot_factor, thr2, uniforms, cfg,
             kvecs=kvecs, kcoef=kcoef, sk_re=sk_re, sk_im=sk_im,
-            nve_k0=nve_k0, nve_g=nve_g, a_max=a_max, cluster=cluster)
+            nve_k0=nve_k0, nve_g=nve_g, a_max=a_max, cluster=cluster,
+            mol_mass=mol_mass)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps: no kernel for {pos.device}")
     _refuse_cfg(cfg, "run_steps")
     dt, dev = pos.dtype, pos.device
+    qc, mm_ptr = _quantum_cols(mol_mass, cfg, N, dt, dev, "run_steps")
     n_mv = mv_start.shape[0]
     K = uniforms.shape[1]
     nve = cfg.ensemble == "nve"
@@ -934,18 +1053,19 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
     from mpmc_tpu_torch.ops.cuda import _build
     lib = _build.library("nvt_kernel")
     G = _launch_cluster(lib, "nvt_occupancy", cluster, C, N, dt, nk, 0,
-                        (N, nk), "run_steps")
+                        (N, nk, int(quantum)), "run_steps", quantum=quantum)
     fn = getattr(lib, "run_steps_nvt_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
     err = fn(_ptr(out_pos), _ptr(alive), _ptr(eps), _ptr(sig), _ptr(charge),
-             _ptr(mass), _ptr(mv_start), _ptr(mv_natoms), _ptr(scal),
+             _ptr(mass), mm_ptr, _ptr(mv_start), _ptr(mv_natoms), _ptr(scal),
              _ptr(betas), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
              _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
              _ptr(k0) if nve else nullp, _ptr(sums), C, N, n_mv, A, K, nk, G,
              _RD[cfg.rd_potential],
              _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
-             int(bool(cfg.ortho_box)), int(nve), ctypes.c_double(KE),
-             ctypes.c_double(float(nve_g)), _stream(dev))
+             int(bool(cfg.ortho_box)), int(nve), qc, ctypes.c_double(KE),
+             ctypes.c_double(float(nve_g)), ctypes.c_double(HBAR2_KB_AMU_A2),
+             _stream(dev))
     run_steps.launches += 1
     run_steps.last_cluster = G
     _raise_on(err, "run_steps")
@@ -1003,7 +1123,8 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
                             rot_factor, thr2, p_ins, lnfv, d_self, d_excl, c1,
                             cx, uniforms, cfg, kvecs=None, kcoef=None,
                             sk_re=None, sk_im=None, field_alpha=0.0,
-                            field_krc=0.0, cluster=None, trace=None):
+                            field_krc=0.0, cluster=None, mol_mass=None,
+                            trace=None):
     """Plain B6: a loop over the K rows of tensor ops over the N columns
     that stops at the freeze, with the kernel's arithmetic (the pair,
     surrogate and field sums, the constants and the stage-1 test in
@@ -1022,9 +1143,13 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
     S, A = tmpl.shape[0], tmpl.shape[1]
     ew = cfg.coulomb == "ewald"
     field = _pda_field(cfg)
+    quantum = _quantum_cols(mol_mass, cfg, N, dt, dev,
+                            "run_steps_uvt_pda")[0]
 
     def t(x):
         return torch.as_tensor(x, dtype=dt, device=dev)
+
+    beta_t = t(beta).reshape(1)              # the quantum terms' beta
 
     rc, alpha, mf, rotf, thr2 = (t(rc), t(alpha), t(move_factor),
                                  t(rot_factor), t(thr2))
@@ -1098,8 +1223,9 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
         r2_o = torch.sum(dr_o * dr_o, -1)
         r2_n = torch.sum(dr_n * dr_n, -1)
         m_o, m_n = m & has_old, m & has_new
+        qc = ((mi.sum().reshape(1), mol_mass, beta_t) if quantum else None)
         sums = [_pair_sums(r2[None], mm[None], qi[None], ei[None], si[None],
-                           charge, eps, sig, rc, alpha, cfg)
+                           charge, eps, sig, rc, alpha, cfg, qc)
                 for r2, mm in ((r2_o, m_o), (r2_n, m_n))]
         drd = float(sums[1][0] - sums[0][0])
         des = KE * float(sums[1][1] - sums[0][1])
@@ -1163,6 +1289,13 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
                 pairs._tile_values(r2, qi[:, None], ei[:, None], si[:, None],
                                    charge, eps, sig, cfg, rc, alpha)
                 for r2 in (r2_o, r2_n)]
+            if quantum and rd_o is not None:
+                e_m, s_m = lj_ops.mix(ei[:, None], eps, si[:, None], sig,
+                                      cfg.mixing_rule)
+                rd_o, rd_n = [rd + quantum_pairs(
+                    torch.where(r2 > 1e-12, r2, torch.ones_like(r2)), e_m,
+                    s_m, mi.sum(), mol_mass, beta_t, cfg)
+                    for rd, r2 in ((rd_o, r2_o), (rd_n, r2_n))]
             passes = (has_old + has_new) * na
             trace.append({"hit": hit, "margin": margin,
                           "pairs": passes * int(ok.sum()),
@@ -1190,7 +1323,8 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
                       box, rc, alpha, beta, move_factor, rot_factor, thr2,
                       p_ins, lnfv, d_self, d_excl, c1, cx, uniforms, cfg,
                       kvecs=None, kcoef=None, sk_re=None, sk_im=None,
-                      field_alpha=0.0, field_krc=0.0, cluster=None):
+                      field_alpha=0.0, field_krc=0.0, cluster=None,
+                      mol_mass=None):
     """B6: up to K propose-and-filter µVT steps of one chain from a fixed
     state, frozen at the first stage-1 survivor of the polar delayed
     acceptance (csrc/pda_kernel.cu), on one cluster of G CTAs.
@@ -1210,7 +1344,9 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
     the physics (rd, coulomb, mixing, the Thole damping, polar_wolf /
     polar_ewald, ortho_box).  ``cluster``: G, one of CLUSTER_SIZES whose
     slice (with the polar planes) fits in shared memory (None:
-    ``cluster_size`` for one chain).
+    ``cluster_size`` for one chain).  ``mol_mass`` [N]: each atom's
+    molecular mass, needed under feynman_hibbs / feynman_kleinert (at
+    ``beta``).
 
     Returns the [8,16] float64 record in the reference's field order: row
     0 n_done, hit, mtype (0/1/2 displace/insert/delete), slot_idx,
@@ -1226,17 +1362,20 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
     ms = slot_start.shape[0]
     ew = cfg.coulomb == "ewald"
     nk = kvecs.shape[0] if ew else 0
+    quantum = quantum_option(cfg) > 0
     if pos.device.type == "cpu":
         if cluster is not None:      # checked, then ignored by the plain
             _check_cluster(cluster, N, pos.dtype, nk, ms,
-                           "run_steps_uvt_pda", polar=True)
+                           "run_steps_uvt_pda", polar=True, quantum=quantum)
         return run_steps_uvt_pda_plain(
             *args, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re, sk_im=sk_im,
-            field_alpha=field_alpha, field_krc=field_krc, cluster=cluster)
+            field_alpha=field_alpha, field_krc=field_krc, cluster=cluster,
+            mol_mass=mol_mass)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps_uvt_pda: no kernel for {pos.device}")
     _refuse_pda(cfg)
     dt, dev = pos.dtype, pos.device
+    qc, mm_ptr = _quantum_cols(mol_mass, cfg, N, dt, dev, "run_steps_uvt_pda")
     S, A = tmpl.shape[0], tmpl.shape[1]
     K = uniforms.shape[0]
     if A > MAX_SITES or S > MAX_SPECIES:
@@ -1274,12 +1413,12 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
     from mpmc_tpu_torch.ops.cuda import _build
     lib = _build.library("pda_kernel")
     G = _launch_cluster(lib, "pda_occupancy", cluster, 1, N, dt, nk, ms,
-                        (N, nk, ms, A, field), "run_steps_uvt_pda",
-                        polar=True)
+                        (N, nk, ms, A, field, int(quantum)),
+                        "run_steps_uvt_pda", polar=True, quantum=quantum)
     fn = getattr(lib, "run_steps_uvt_pda_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
     err = fn(_ptr(pos), _ptr(alive), _ptr(eps), _ptr(sig), _ptr(charge),
-             _ptr(mass), _ptr(polar), _ptr(e0), _ptr(slot_start),
+             _ptr(mass), mm_ptr, _ptr(polar), _ptr(e0), _ptr(slot_start),
              _ptr(slot_species), _ptr(slot_alive), _ptr(tmpl), _ptr(natoms),
              _ptr(scal), _ptr(lnfv), _ptr(d_self), _ptr(d_excl), _ptr(c1),
              _ptr(cx), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
@@ -1287,7 +1426,8 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
              _ptr(rec), N, ms, S, A, K, nk, G, _RD[cfg.rd_potential],
              _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
              int(bool(cfg.ortho_box)), tk._DAMP[cfg.polar_damp_type], field,
-             ctypes.c_double(KE), _stream(dev))
+             qc, ctypes.c_double(KE), ctypes.c_double(HBAR2_KB_AMU_A2),
+             _stream(dev))
     run_steps_uvt_pda.launches += 1
     run_steps_uvt_pda.last_cluster = G
     _raise_on(err, "run_steps_uvt_pda")

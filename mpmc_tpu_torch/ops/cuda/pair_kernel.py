@@ -26,6 +26,13 @@ launches its kernel for a CUDA tensor; anything else raises.  There is no
 fallback from the kernel to the plain version.  ``launches`` on each
 wrapper counts the kernel launches, and nothing else.
 
+``supported(cfg)`` is the reference's static gate of both kernels
+(ops/pallas/pair_kernel.py::supported without its float32 clause: these
+kernels are templated on double too).  It refuses Feynman-Hibbs and
+Feynman-Kleinert, so the reference's scan path runs its jnp tile pass for
+them; ops/pairs.py then calls the plain versions here, on the tensors'
+device, with ``qc`` — the atoms' molecular masses and the temperature.
+
 Both kernels are templated on float and double, so float64 decks run
 through them too.  They use the exact erfc/erf (the Pallas kernels use a
 polynomial; the plain versions and the jnp reference use the exact one).
@@ -50,13 +57,30 @@ _MIX = {"lb": 0, "waldman_hagler": 1}
 _ES = {"none": 0, "ewald": 1, "wolf": 2, "cutoff": 3}
 
 
+def supported(cfg) -> bool:
+    """Static gate: the configurations B2 and B4 cover — the reference's
+    (mpmc_tpu/ops/pallas/pair_kernel.py:313-321) but for its float32
+    clause.  The RD forms beyond lj/none are the reference's surface and
+    not yet the port's (_opts raises, ROADMAP A12a-2)."""
+    return (cfg.rd_potential in ("lj", "none", "sg", "dreiding", "b14_7",
+                                 "disp_expansion")
+            and cfg.coulomb in ("ewald", "wolf", "cutoff", "none")
+            and not cfg.feynman_hibbs
+            and not cfg.feynman_kleinert
+            and cfg.cdvdw_repulsion == "none")
+
+
 def _opts(cfg):
     """Kernel option ints (rd, mix, es, lrc); raises on what the kernels
     do not implement."""
     if cfg.rd_potential not in _RD or cfg.coulomb not in _ES:
         raise NotImplementedError(
             f"pair kernels: rd {cfg.rd_potential!r} / coulomb "
-            f"{cfg.coulomb!r} not ported")
+            f"{cfg.coulomb!r} not ported — ROADMAP A12a-2")
+    if not supported(cfg):
+        raise ValueError("pair kernels: refused by their gate (supported); "
+                         "feynman_hibbs / feynman_kleinert run the plain "
+                         "pass")
     return (_RD[cfg.rd_potential], _MIX[cfg.mixing_rule],
             _ES[cfg.coulomb], int(cfg.rd_lrc and cfg.rd_potential == "lj"))
 
@@ -66,8 +90,10 @@ def _opts(cfg):
 # ---------------------------------------------------------------------------
 
 def pair_terms_plain(pos, charge, eps, sig, mol_id, alive, frozen, scal,
-                     cfg, row_start=0):
-    """Plain B2: row blocks of dense [B, N] masks (pairs._block_terms)."""
+                     cfg, row_start=0, qc=None):
+    """Plain B2: row blocks of dense [B, N] masks (pairs._block_terms).
+    ``qc``: (the atoms' molecular masses [N], the temperature) for a
+    Feynman-Hibbs/Kleinert cfg."""
     n = pos.shape[0]
     out = torch.zeros(pairs.N_SLOTS, dtype=pos.dtype, device=pos.device)
     out[8] = float("inf")
@@ -77,14 +103,17 @@ def pair_terms_plain(pos, charge, eps, sig, mol_id, alive, frozen, scal,
             pos[rows], rows, alive[rows], mol_id[rows], frozen[rows],
             charge[rows], eps[rows], sig[rows], pos, alive, mol_id, frozen,
             charge, eps, sig, scal, cfg, triangular=True,
-            row_start=row_start)
+            row_start=row_start,
+            qc=None if qc is None else (qc[0][rows], qc[0], qc[1]))
         out = torch.cat([out[:8] + t[:8], torch.minimum(out[8:], t[8:])])
     return out
 
 
 def mol_pair_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
-                   mol_natoms, mol, rows, scal, cfg):
-    """Plain B4: the molecule's [A, N] block (pairs._block_terms)."""
+                   mol_natoms, mol, rows, scal, cfg, qc=None):
+    """Plain B4: the molecule's [A, N] block (pairs._block_terms).
+    ``qc``: (the atoms' molecular masses [N], the temperature) for a
+    Feynman-Hibbs/Kleinert cfg."""
     idx = take(mol_atoms, mol)
     a = idx.shape[0]
     valid = torch.arange(a, device=pos.device) < take(mol_natoms, mol)
@@ -94,7 +123,8 @@ def mol_pair_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     t = pairs._block_terms(
         row_pos, None, valid, mol_id[idx], no, charge[idx], eps[idx],
         sig[idx], pos, col_ok, mol_id, torch.zeros_like(alive), charge, eps,
-        sig, scal, cfg, triangular=False)
+        sig, scal, cfg, triangular=False,
+        qc=None if qc is None else (qc[0][idx], qc[0], qc[1]))
     return t[[0, 1, 3, 8]]
 
 
@@ -326,14 +356,22 @@ mol_pair.launches = 0
 
 
 def mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
-                          mol_natoms, mol, rows, scal, cfg):
+                          mol_natoms, mol, rows, scal, cfg, qc=None):
     """Plain B4 over chains: ``mol_pair_plain`` of each chain with its
-    header row (``scal`` [C, 20]) or the shared one ([20]), stacked."""
+    header row (``scal`` [C, 20]) or the shared one ([20]), stacked;
+    ``qc``'s temperature 0-d or one per chain [C]."""
+    def chain_qc(c):
+        if qc is None:
+            return None
+        t = qc[1]
+        return qc[0], (t[c] if torch.is_tensor(t) and t.ndim else t)
+
     return torch.stack([
         mol_pair_plain(pos[c], charge, eps, sig, mol_id, alive[c],
                        mol_atoms, mol_natoms, mol[c],
                        None if rows is None else rows[c],
-                       scal[c] if scal.ndim == 2 else scal, cfg)
+                       scal[c] if scal.ndim == 2 else scal, cfg,
+                       qc=chain_qc(c))
         for c in range(pos.shape[0])])
 
 

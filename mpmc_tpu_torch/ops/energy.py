@@ -36,7 +36,7 @@ def total_energy(pos, box, mol_alive, params, cfg, thermo, mu0=None,
     every chain's in one launch), else computed here.
     """
     if cfg.cdvdw:
-        raise NotImplementedError("cdvdw is not yet ported — ROADMAP A12")
+        raise NotImplementedError("cdvdw is not yet ported — ROADMAP A12b")
     dtype, dev = pos.dtype, pos.device
     alive = mol_alive[params.mol_id] & params.atom_ok
     atom_frozen = params.mol_frozen[params.mol_id]

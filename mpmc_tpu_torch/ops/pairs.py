@@ -8,7 +8,10 @@ mpmc_tpu/ops/pairs.py).
 Both go through ops/cuda/pair_kernel.py: on a CUDA tensor they launch the
 hand-written kernels (B2 and B4), on a CPU tensor they run the kernels'
 plain versions, which are built from ``_tile_values``/``_block_terms``
-below — the dense [rows, cols] reference math.
+below — the dense [rows, cols] reference math.  Under Feynman-Hibbs or
+Feynman-Kleinert the kernels' static gate (pair_kernel.supported, the
+reference's) refuses, as the reference's does, and both passes run that
+tile math on any device: the reference's own route for these options.
 
 Raw pass outputs leave the Coulomb constant out; this module applies it.
 """
@@ -84,17 +87,30 @@ class PairTerms:
                          torch.minimum(self.min_r2, o.min_r2))
 
 
-def _tile_values(r2, qi, ei, si, qj, ej, sj, cfg, rc, alpha):
+def _tile_values(r2, qi, ei, si, qj, ej, sj, cfg, rc, alpha, qc=None):
     """Per-pair values (no masks, no Coulomb constant) for broadcastable
     row/column parameter tensors: (rd_u, es_u, ex_u, tc), each None when
     its term is off.  The semantics of pairs._tile_values in the JAX
-    package for rd lj/none and coulomb ewald/wolf/cutoff/none."""
+    package for rd lj/none and coulomb ewald/wolf/cutoff/none.  ``qc``:
+    (the rows' molecular masses, the columns', the temperature),
+    broadcastable, which adds the Feynman-Kleinert or (without it)
+    Feynman-Hibbs correction to the LJ values."""
     r2s = torch.where(r2 > 1e-12, r2, torch.ones_like(r2))  # guard i == j
     r = torch.sqrt(r2s)
     rd_u = tc = es_u = ex_u = None
     if cfg.rd_potential == "lj":
         eps, sig = lj_ops.mix(ei, ej, si, sj, cfg.mixing_rule)
         rd_u = lj_ops.energy(r2s, eps, sig)
+        if qc is not None:
+            mm_i, mm_j, temp = qc
+            # the reduced mass of the two molecules: a frozen framework's
+            # huge molecular mass degrades it to mm_i
+            red = mm_i * mm_j / torch.clamp(mm_i + mm_j, min=1e-30)
+            if cfg.feynman_kleinert:
+                rd_u = rd_u + lj_ops.feynman_kleinert(r, eps, sig, red, temp)
+            else:
+                rd_u = rd_u + lj_ops.feynman_hibbs(
+                    r, eps, sig, red, temp, cfg.feynman_hibbs_order)
         if cfg.rd_lrc:
             tc = lj_ops.tail_coefficient(eps, sig, rc)
     qq = qi * qj
@@ -111,8 +127,10 @@ def _tile_values(r2, qi, ei, si, qj, ej, sj, cfg, rc, alpha):
 
 def _block_terms(pos_i, row_idx, row_ok, row_mol, row_frozen, qi, ei, si,
                  pos, col_ok, mol_id, col_frozen, charge, eps, sig, scal,
-                 cfg, triangular, row_start=0):
+                 cfg, triangular, row_start=0, qc=None):
     """Raw [9] sums of one row block [B] against every column [N].
+    ``qc``: (the rows' molecular masses [B], the columns' [N], the
+    temperature), which a Feynman-Hibbs/Kleinert cfg needs.
 
     ``triangular``: count only cols > row (plus, with ``row_start``, every
     col < row_start — the skipped frozen-prefix rows reappear as columns).
@@ -137,9 +155,16 @@ def _block_terms(pos_i, row_idx, row_ok, row_mol, row_frozen, qi, ei, si,
     intra = pair_ok & same
     act = inter & (r2 < rc * rc)
     ff = row_frozen[:, None] & col_frozen[None, :]
+    if quantum(cfg):
+        if qc is None:
+            raise ValueError("feynman_hibbs / feynman_kleinert pair terms "
+                             "need the molecular masses and the temperature")
+        qc = (qc[0][:, None], qc[1][None, :], qc[2])
+    else:
+        qc = None
     rd_u, es_u, ex_u, tc = _tile_values(
         r2, qi[:, None], ei[:, None], si[:, None], charge[None, :],
-        eps[None, :], sig[None, :], cfg, rc, alpha)
+        eps[None, :], sig[None, :], cfg, rc, alpha, qc)
     zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
 
     def s(values, mask):
@@ -168,6 +193,13 @@ def _pair_terms(raw):
     return act, ff
 
 
+def quantum(cfg) -> bool:
+    """Whether the LJ pair terms carry a Feynman-Hibbs/Kleinert correction
+    (rd lj only, as in the reference)."""
+    return (cfg.rd_potential == "lj"
+            and bool(cfg.feynman_hibbs or cfg.feynman_kleinert))
+
+
 def pair_pass(pos, box, atom_alive, params, cfg, temperature,
               split_frozen=False, row_start=0):
     """Full-system pair terms: each (i<j) pair once.  With
@@ -177,14 +209,20 @@ def pair_pass(pos, box, atom_alive, params, cfg, temperature,
     triangularly against ALL columns plus every column < row_start: with
     the frozen-prefix layout (metropolis.frozen_refresh_rows) that is
     exactly the ACTIVE part of the split pass, at (N-F)/N of the cost —
-    the per-corrtime fast refresh.  ``temperature`` is unused (it feeds
-    the Feynman-Hibbs terms, outside this slice)."""
+    the per-corrtime fast refresh.  ``temperature`` (0-d) feeds the
+    Feynman-Hibbs/Kleinert terms; where the gate pair_kernel.supported
+    refuses them, the pass is B2's plain version on the tensors' device."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
 
     frozen = params.mol_frozen[params.mol_id]
-    raw = pair_kernel.pair_terms(
-        pos, params.charge, params.eps, params.sig, params.mol_id32,
-        atom_alive, frozen, pair_scalars(box, cfg), cfg, row_start=row_start)
+    args = (pos, params.charge, params.eps, params.sig, params.mol_id32,
+            atom_alive, frozen, pair_scalars(box, cfg), cfg)
+    if pair_kernel.supported(cfg):
+        raw = pair_kernel.pair_terms(*args, row_start=row_start)
+    else:
+        raw = pair_kernel.pair_terms_plain(
+            *args, row_start=row_start,
+            qc=(params.mol_mass_atom, temperature))
     act, ff = _pair_terms(raw)
     # row-restricted: ff slots are exact zeros (no frozen row)
     return (act, ff) if split_frozen else act.combine(ff)
@@ -200,18 +238,26 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
 
     Over C chains (the batched scan step): ``pos`` [C, N, 3],
     ``atom_alive`` [C, N], ``mol`` [C], ``row_pos`` [C, A, 3], ``scal``
-    [20] shared or [C, 20] (a box per chain) — one B4 launch for every
-    chain, PairTerms of [C] tensors."""
+    [20] shared or [C, 20] (a box per chain), ``temperature`` 0-d or [C]
+    — one B4 launch for every chain, PairTerms of [C] tensors.  Where the
+    gate pair_kernel.supported refuses the cfg (Feynman-Hibbs/Kleinert),
+    the pass is B4's plain version on the tensors' device."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
 
     if scal is None:
         scal = pair_scalars(box, cfg)
-    kernel = pair_kernel.mol_pair_chains if pos.ndim == 3 else \
-        pair_kernel.mol_pair
-    raw = kernel(
-        pos, params.charge, params.eps, params.sig, params.mol_id32,
-        atom_alive, params.mol_atoms, params.mol_natoms,
-        torch.as_tensor(mol, device=pos.device), row_pos, scal, cfg)
+    args = (pos, params.charge, params.eps, params.sig, params.mol_id32,
+            atom_alive, params.mol_atoms, params.mol_natoms,
+            torch.as_tensor(mol, device=pos.device), row_pos, scal, cfg)
+    batched = pos.ndim == 3
+    if pair_kernel.supported(cfg):
+        kernel = pair_kernel.mol_pair_chains if batched else \
+            pair_kernel.mol_pair
+        raw = kernel(*args)
+    else:
+        plain = pair_kernel.mol_pair_chains_plain if batched else \
+            pair_kernel.mol_pair_plain
+        raw = plain(*args, qc=(params.mol_mass_atom, temperature))
     raw = raw.unbind(-1)
     return PairTerms(rd=raw[0], es_real=KE * raw[1],
                      es_excl=torch.zeros_like(raw[0]), lrc_coeff=raw[2],

@@ -98,9 +98,13 @@ class Params:
     species_natoms: torch.Tensor  # [S] int64
     # int32 copy of mol_id, the type the CUDA pair kernels read (derived)
     mol_id32: torch.Tensor = dataclasses.field(init=False, repr=False)
+    # [N] each atom's molecular mass mol_mass[mol_id]: the molecule-pair
+    # reduced mass of the Feynman-Hibbs/Kleinert terms (derived)
+    mol_mass_atom: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         object.__setattr__(self, "mol_id32", self.mol_id.to(torch.int32))
+        object.__setattr__(self, "mol_mass_atom", self.mol_mass[self.mol_id])
 
     @property
     def n_atoms_max(self):

@@ -84,8 +84,10 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 # (test id, deck lines, ROADMAP item): batched chains and parallel
 # tempering run now, with polarization too (item None: the deck runs on
 # the batched polar route), and so do exact checkpoints (item None: the
-# single-chain polar deck writes its checkpoint) and NPT (item None: a
-# frameless LJ deck on the scan path); polar NPT is A8c
+# single-chain polar deck writes its checkpoint), NPT (item None: a
+# frameless LJ deck on the scan path) and the Feynman-Hibbs/Kleinert
+# corrections (item None: the single-chain polar deck with the line);
+# polar NPT is A8c, the other RD forms and gwp A12a-2
 REFUSED = [
     ("chains 4", "chains 4\npolarization on", None),
     ("ensemble npt", None),
@@ -95,10 +97,10 @@ REFUSED = [
     ("chains 2\nfused_mc on\npolarization on", None),
     ("cavity_bias on", "A11"),
     ("tmmc on", "A11"), ("quantum_rotation on", "A11"),
-    ("cdvdw on", "A12"), ("feynman_hibbs on", "A12"),
-    ("feynman_kleinert on", "A12"), ("cell_list on", "A12"),
-    ("rd_crystal on", "A12"), ("spectre on", "A12"), ("sg on", "A12"),
-    ("disp_expansion on", "A12"), ("gwp on", "A12"),
+    ("cdvdw on", "A12b"), ("feynman_hibbs on", None),
+    ("feynman_kleinert on", None), ("cell_list on", "A12b"),
+    ("rd_crystal on", "A12b"), ("spectre on", "A12b"), ("sg on", "A12a-2"),
+    ("disp_expansion on", "A12a-2"), ("gwp on", "A12a-2"),
     ("spatial_devices 2", "A13"), ("checkpoint_output ck.npz", None),
 ]
 
@@ -110,7 +112,9 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
     batched polar chains and PT with polarization, once refused, run: a
     few steps of the small polar deck on the batched route; a checkpoint,
     once refused, is written by the single-chain polar deck; NPT, once
-    refused, runs a frameless LJ deck whose box moves."""
+    refused, runs a frameless LJ deck whose box moves; Feynman-Hibbs and
+    Feynman-Kleinert, once refused, run the single-chain polar deck with
+    the pair passes' plain route named in the log."""
     line, item = case[-2:]
     if item is None and line == "ensemble npt":
         from torch_npt import lj_npt, write_deck
@@ -136,6 +140,10 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
         if line.startswith("checkpoint_output"):
             assert (tmp_path / "ck.npz").exists()
             assert float(su.state.energy.polar) < 0
+            return
+        if line.startswith("feynman"):
+            assert "pair passes: the plain tile pass" in buf.getvalue()
+            assert su.state.step == 3 and float(su.state.energy.polar) < 0
             return
         assert "batched scan chains" in buf.getvalue()
         assert su.states.mu is not None

@@ -1,10 +1,11 @@
 """The CUDA kernels (the pair kernels B2/B4 — B4 over chains with a shared
 or a per-chain header —, the fused µVT kernel B1, the fused NVT/NVE kernel
 B3 — both at every cluster size, B3 after an NPT volume move too —, the
-Thole field kernel B5 and the polar delayed-acceptance stage-1 kernel B6)
-against their plain versions on the card; the native trajectory reader on
-a 10.8k-atom trajectory and checkpoints of card states with a CUDA
-generator.
+Thole field kernel B5 and the polar delayed-acceptance stage-1 kernel B6;
+B1, B3 and B6 with the Feynman-Hibbs/Kleinert corrections too) against
+their plain versions on the card; B2 and B4 never launched under those
+corrections; the native trajectory reader on a 10.8k-atom trajectory and
+checkpoints of card states with a CUDA generator.
 
 These need a CUDA device and ``nvcc``; they skip elsewhere.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -1180,3 +1181,148 @@ def test_checkpoint_round_trip_of_card_tensors(device, dtype, tmp_path):
     assert float(st2b.energy.total) == float(st2.energy.total)
     assert torch.equal(torch.rand(8, generator=g, device=device),
                        torch.rand(8, generator=g2, device=device))
+
+
+# the Feynman-Hibbs (order 2, 4) and Feynman-Kleinert corrections, as cfg
+# fields; two chains of one launch at two temperatures
+QUANTUM = {"fh2": {"feynman_hibbs": True},
+           "fh4": {"feynman_hibbs": True, "feynman_hibbs_order": 4},
+           "fk": {"feynman_kleinert": True}}
+QUANTUM_TEMPS = (77.0, 120.0)
+
+
+def _quantum_system(dtype, device, q, ensemble="uvt", capacity=40, **kw):
+    """The MOF + H2 system (n_side 6) at 77 K under the correction ``q``,
+    jittered and initialized, with a thermo of two chains at
+    QUANTUM_TEMPS."""
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=6, n_h2=20, capacity=capacity, dtype=dtype, device=device,
+        **kw)
+    cfg = dataclasses.replace(cfg, ensemble=ensemble, fused_mc=True,
+                              **QUANTUM[q])
+    state = metropolis.initialize(systems.jittered(params, state, 7),
+                                  params, cfg, thermo)
+    two = thermo.replace(temperature=torch.tensor(
+        QUANTUM_TEMPS, dtype=cfg.tdtype, device=device))
+    return params, state, cfg, thermo, two
+
+
+@pytest.mark.parametrize("q", list(QUANTUM))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_uvt_kernel_quantum_matches_plain(device, dtype, q):
+    """B1 with FH2, FH4 or FK, two chains at 77 and 120 K (the terms at each
+    chain's beta), against its plain version on one [2, 200, 16] table:
+    test_uvt_kernel_matches_plain's checks; the molecule-mass plane is
+    passed and the launch counted."""
+    params, state, cfg, _, two = _quantum_system(dtype, device, q)
+    u = torch.as_tensor(np.random.default_rng(5).random((2, 200, 16)),
+                        dtype=cfg.tdtype, device=device)
+    args, kw = metropolis.fused_uvt_launch_args(
+        multichain.stack_states(state, 2), params, cfg, two, u,
+        metropolis.uvt_fused_tables(params, cfg))
+    assert kw["mol_mass"] is params.mol_mass_atom
+    before = mk.run_steps_uvt.launches
+    k = mk.run_steps_uvt(*args, **kw)
+    torch.cuda.synchronize(device)
+    assert mk.run_steps_uvt.launches == before + 1
+    p = mk.run_steps_uvt_plain(*args, **kw)
+    k_sums, p_sums = k[2].cpu().numpy(), p[2].cpu().numpy()
+    np.testing.assert_array_equal(k_sums[:, 6:12], p_sums[:, 6:12])
+    assert p_sums[:, 6:9].sum() > 20
+    assert torch.equal(k[1], p[1])
+    f64 = dtype == "float64"
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                               rtol=0, atol=1e-9 if f64 else 1e-4)
+    tol = (np.maximum(1e-10 * np.abs(p_sums[:, :6]), 1e-8) if f64 else
+           2e-5 * np.abs(p_sums[:, :6])
+           + 2e-3 * np.sqrt(p_sums[:, 6:9].sum(1, keepdims=True) + 1.0))
+    assert (np.abs(k_sums[:, :6] - p_sums[:, :6]) <= tol).all()
+
+
+@pytest.mark.parametrize("q", list(QUANTUM))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_nvt_kernel_quantum_matches_plain(device, dtype, q):
+    """B3 with FH2, FH4 or FK, two chains at 77 and 120 K, against its
+    plain version on one [2, 200, 16] table: test_nvt_kernel_matches_
+    plain's checks."""
+    params, state, cfg, _, two = _quantum_system(dtype, device, q, "nvt",
+                                                 capacity=20)
+    u = torch.as_tensor(np.random.default_rng(3).random((2, 200, 16)),
+                        dtype=cfg.tdtype, device=device)
+    args, kw = metropolis.fused_nvt_launch_args(
+        multichain.stack_states(state, 2), params, cfg, two, u,
+        metropolis.nvt_fused_tables(params, state.mol_alive))
+    k = mk.run_steps(*args, **kw)
+    torch.cuda.synchronize(device)
+    p = mk.run_steps_plain(*args, **kw)
+    k_sums, p_sums = k[1].cpu().numpy(), p[1].cpu().numpy()
+    np.testing.assert_array_equal(k_sums[:, 3], p_sums[:, 3])
+    assert (p_sums[:, 3] > 10).all()
+    f64 = dtype == "float64"
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                               rtol=0, atol=1e-9 if f64 else 1e-4)
+    tol = (np.maximum(1e-10 * np.abs(p_sums[:, :3]), 1e-8) if f64 else
+           2e-5 * np.abs(p_sums[:, :3])
+           + 2e-3 * np.sqrt(p_sums[:, 3:4] + 1.0))
+    assert (np.abs(k_sums[:, :3] - p_sums[:, :3]) <= tol).all()
+
+
+@pytest.mark.parametrize("q", list(QUANTUM))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pda_kernel_quantum_matches_plain(device, dtype, q):
+    """B6 with FH2, FH4 or FK on the polar MOF + H2 system: a forced
+    survivor of each move type, a natural table and a survivor-free one,
+    held to _pda_agree's rules."""
+    params, state, cfg, thermo, _ = _quantum_system(
+        dtype, device, q, polarization=True)
+    cfg = dataclasses.replace(cfg, polar_delayed=True)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    rng = np.random.default_rng(13)
+
+    def table(u):
+        return torch.as_tensor(u, dtype=cfg.tdtype, device=device)
+
+    def launch(u):
+        args, kw = metropolis.pda_launch_args(state, params, cfg, thermo, u,
+                                              tables)
+        return mk.run_steps_uvt_pda(*args, **kw).cpu().numpy(), args, kw
+
+    us = []
+    for lane8 in (0.9, 0.1, 0.4):
+        u = rng.random((mk.PDA_SEG, 16))
+        u[0, 4], u[0, 8] = 1e-30, lane8
+        us.append(table(u))
+    us.append(table(rng.random((mk.PDA_SEG, 16))))
+    us.append(pda_survivor_free(lambda u: launch(u)[0],
+                                table(rng.random((mk.PDA_SEG, 16))), rng))
+    hits = 0
+    for u in us:
+        k, args, kw = launch(u)
+        torch.cuda.synchronize(device)
+        trace = []
+        _pda_agree(k, mk.run_steps_uvt_pda_plain(*args, **kw, trace=trace),
+                   trace, dtype == "float64")
+        hits += int(k[0, 1])
+    assert hits >= 3
+
+
+@pytest.mark.parametrize("q", [None, "fh2", "fk"])
+def test_pair_kernels_not_launched_under_quantum(device, q):
+    """The refresh and the scan path's per-move deltas launch B2 and B4
+    without a quantum correction and never under FH or FK (their gate
+    refuses; the plain tile pass runs on the card), and the energies stay
+    on the card."""
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=6, n_h2=20, capacity=40, device=device)
+    if q:
+        cfg = dataclasses.replace(cfg, **QUANTUM[q])
+    pk.reset_counts()
+    st = metropolis.initialize(state, params, cfg, thermo)
+    st, _ = metropolis.run_chunk(
+        st, params, cfg, thermo, 50,
+        generator=torch.Generator(device=device).manual_seed(1))
+    torch.cuda.synchronize(device)
+    launched = pk.pair_terms.launches + pk.mol_pair.launches
+    assert st.energy.rd.device.type == "cuda"
+    assert (launched > 0) if q is None else launched == 0

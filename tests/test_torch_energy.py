@@ -20,12 +20,18 @@ torch.set_num_threads(1)
 
 TERMS = ("rd", "lrc", "es_real", "es_recip", "es_self", "es_excl", "polar",
          "vdw")
-GOLDEN_IN_SLICE = ("lj_fluid", "mof_h2_ewald", "mof_h2_wolf_wh")
+GOLDEN_IN_SLICE = ("lj_fluid", "mof_h2_ewald", "mof_h2_wolf_wh",
+                   "mof_h2_polar_fh")
 
 
 def _build(name):
     if name == "lj_fluid":
         return jsystems.lj_fluid(n=32, dtype="float64", seed=3)
+    if name == "mof_h2_polar_fh":
+        p, s, c, t = jsystems.mof_h2_gcmc(n_side=3, n_h2=6, capacity=8,
+                                          polarization=True, dtype="float64")
+        return p, s, dataclasses.replace(c, feynman_hibbs=True,
+                                         polar_solver="direct"), t
     p, s, c, t = jsystems.mof_h2_gcmc(n_side=4, n_h2=8, capacity=16,
                                       dtype="float64")
     if name == "mof_h2_wolf_wh":
@@ -40,10 +46,12 @@ def _close(got, want):
         assert g == pytest.approx(w, rel=1e-10, abs=1e-8), (k, g, w)
 
 
-# the frozen-reuse refresh needs a frozen framework (not in lj_fluid)
+# the frozen-reuse refresh needs a frozen framework (not in lj_fluid) and
+# a temperature-independent frozen part (not under Feynman-Hibbs)
 ENERGY_CASES = [(n, m) for n in GOLDEN_IN_SLICE
                 for m in ("plain", "split_frozen", "frozen_cached")
-                if not (n == "lj_fluid" and m == "frozen_cached")]
+                if not (n in ("lj_fluid", "mof_h2_polar_fh")
+                        and m == "frozen_cached")]
 
 
 @pytest.mark.parametrize("name,mode", ENERGY_CASES)

@@ -254,8 +254,8 @@ def test_fused_bookkeeping_matches_full_recompute_f64(ensemble):
 
 def test_gates_agree_with_the_reference():
     """supported / supported_multi against mc_kernel.supported /
-    supported_multi on the port's surface, and False on what the port
-    refuses (spinflip, the other RD forms, polarization, f64, µVT)."""
+    supported_multi on the port's surface (Feynman-Hibbs included), and
+    False on what the port refuses (spinflip, the other RD forms)."""
     cases = []
     p, s, c, t = _lj()
     pm, sm, cm, tmo = _mof()
@@ -264,10 +264,9 @@ def test_gates_agree_with_the_reference():
                    {"coulomb": "cutoff"}, {"coulomb": "none"},
                    {"mixing_rule": "waldman_hagler"}, {"ensemble": "uvt"},
                    {"ensemble": "npt"}, {"dtype": "float64"},
-                   {"polarization": True}):
+                   {"polarization": True}, {"feynman_hibbs": True}):
             cases.append((params, dataclasses.replace(cfg, **kw), True))
-        for kw in ({"quantum_rotation": True}, {"rd_potential": "sg"},
-                   {"feynman_hibbs": True}):
+        for kw in ({"quantum_rotation": True}, {"rd_potential": "sg"}):
             cases.append((params, dataclasses.replace(cfg, **kw), False))
     P, PM = convert.from_jax(p, s, c, t)[0], convert.from_jax(
         pm, sm, cm, tmo)[0]

@@ -186,16 +186,17 @@ def test_run_mc_routes_polar_delayed_to_b6(tmp_path, monkeypatch):
 REFUSED = {"cavity_bias": ({"cavity_bias": True}, "A11"),
            "tmmc": ({"tmmc": True}, "A11"),
            "quantum_rotation": ({"quantum_rotation": True}, "A11"),
-           "feynman_hibbs": ({"feynman_hibbs": True}, "A12"),
-           "rd_sg": ({"rd_potential": "sg"}, "A12")}
+           "feynman_hibbs": ({"feynman_hibbs": True}, None),
+           "rd_sg": ({"rd_potential": "sg"}, "A12a-2")}
 
 
 @pytest.mark.parametrize("flag", list(REFUSED))
 def test_b6_refuses_a11_features(flag):
     """What B6 does not carry raises NotImplementedError naming the
     ROADMAP item, in the plain version too: cavity bias, TMMC and
-    spinflip (A11), Feynman-Hibbs and the RD forms beyond lj/none
-    (A12)."""
+    spinflip (A11) and the RD forms beyond lj/none (A12a-2).
+    Feynman-Hibbs, once refused, runs (item None): with the molecule-mass
+    plane B6's plain version gives a record; without it, it raises."""
     P, S, C, T = convert.from_jax(*jax_system("direct"))
     cfg = tmk.pda_effective_cfg(C, P)
     u = torch.as_tensor(np.random.default_rng(0).random((SEG, 16)),
@@ -204,5 +205,12 @@ def test_b6_refuses_a11_features(flag):
                                   tm.uvt_fused_tables(P, cfg))
     extra, item = REFUSED[flag]
     args = args[:-1] + (dataclasses.replace(cfg, **extra),)
+    if item is None:
+        with pytest.raises(ValueError, match="need mol_mass"):
+            tmk.run_steps_uvt_pda(*args, **kw)
+        rec = tmk.run_steps_uvt_pda(*args, **dict(kw,
+                                                  mol_mass=P.mol_mass_atom))
+        assert rec.shape == (8, 16) and 1 <= float(rec[0, 0]) <= SEG
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
         tmk.run_steps_uvt_pda(*args, **kw)

@@ -70,7 +70,8 @@ def jax_rec(p, s, c, t, u):
         polar_damp=cfg.polar_damp, interpret=True, kvecs=k[5], kcoef=k[6],
         sk_re=s.sk_re, sk_im=s.sk_im,
         polar_field_alpha=0.0 if paf is None else paf,
-        polar_field_krc=0.0 if pkrc is None else pkrc), np.float64)
+        polar_field_krc=0.0 if pkrc is None else pkrc,
+        mol_mass_atom=jm._fh_mol_mass_atom(p, cfg)), np.float64)
 
 
 def port_rec(P, S, C, T, u):
