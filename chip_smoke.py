@@ -124,7 +124,22 @@ Phases (any failure raises, so the exit code is non-zero):
    the carried energy against a fresh recompute after a further chunk,
    |rd(FH/FK) - rd(classical)| > 1 K on the final configuration.
    Phase 5 (energy) also holds the card's FH2 and FK terms against CPU
-   float64.
+   float64;
+21. cavity bias and TMMC kernels (phase_xt_kernels) — B1's and B6's XT
+   instances (cavity_grid 10, cavity_radius 2.5, tmmc, tmmc_bias with a
+   seeded random eta) against their plain versions: B1 on the 10.8k bench
+   system at C = 1 (G = 16) and C = 32, equal decisions, slot aliveness
+   and TMMC attempt counts, the Sigma a columns within _sum_a_tol; B6 on
+   the polar system with forced survivors, natural coins and a
+   survivor-free table; times per step beside the classical instance's;
+22. the cavity / TMMC decks (phase_xt_decks) — DECK with cavity_bias on
+   the scan path (300 steps), with cavity_bias and tmmc_bias on fused µVT
+   (5,000), with tmmc and chains 32 (5,000), PDA (d) with tmmc and
+   cavity_bias (100), and examples/h2_polar_tmmc.inp through the
+   command-line main (2,000 of its 6,000 steps) with ``analyze tmmc`` on
+   its matrix: the route and kernel launches, n_open at every refresh,
+   TMMC attempts == insert + delete attempts, the carried energy against
+   a fresh recompute.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
@@ -170,7 +185,10 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "run_steps_uvt_fh2": "mpmc_tpu_torch/csrc/uvt_kernel.cu",
            "run_steps_uvt_fk": "mpmc_tpu_torch/csrc/uvt_kernel.cu",
            "run_steps_fh4": "mpmc_tpu_torch/csrc/nvt_kernel.cu",
-           "run_steps_uvt_pda_fh2": "mpmc_tpu_torch/csrc/pda_kernel.cu"}
+           "run_steps_uvt_pda_fh2": "mpmc_tpu_torch/csrc/pda_kernel.cu",
+           "run_steps_uvt_xt": "mpmc_tpu_torch/csrc/uvt_xt_kernel.cu",
+           "run_steps_uvt_xt_c32": "mpmc_tpu_torch/csrc/uvt_xt_kernel.cu",
+           "run_steps_uvt_pda_xt": "mpmc_tpu_torch/csrc/pda_xt_kernel.cu"}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
@@ -184,7 +202,10 @@ REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "run_steps_uvt_fh2": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
             "run_steps_uvt_fk": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
             "run_steps_fh4": "mpmc_tpu/ops/pallas/mc_kernel.py:220",
-            "run_steps_uvt_pda_fh2": "mpmc_tpu/ops/pallas/mc_kernel.py:2089"}
+            "run_steps_uvt_pda_fh2": "mpmc_tpu/ops/pallas/mc_kernel.py:2089",
+            "run_steps_uvt_xt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
+            "run_steps_uvt_xt_c32": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
+            "run_steps_uvt_pda_xt": "mpmc_tpu/ops/pallas/mc_kernel.py:2089"}
 # NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
 # tensor cores, and device memory
 PEAK_F32 = 67e12
@@ -3576,6 +3597,407 @@ def phase_fh_decks(device, example_steps=10000):
     return launches, reps
 
 
+# the µVT extras (cavity bias, TMMC and its flat-histogram bias) at the
+# reference's default grid: on the 84 A lattice of the bench system
+# (framework atoms at (i + 0.5) 4 A) 128 of the 1,000 cell centres are
+# open before any H2 closes one, the nearest 2.553 A from an atom
+XT_CFG = {"cavity_bias": True, "cavity_grid": 10, "cavity_radius": 2.5,
+          "tmmc": True, "tmmc_bias": True}
+
+
+def _xt_system(device, seed, polar=False):
+    """(params, state, cfg, thermo) of the bench system (``polar``: the
+    polar one, jittered, with polar_delayed and fused_mc, the PDA (d)
+    setting) under XT_CFG, initialized on the card (its cavity grid and
+    TMMC matrix), with a numpy-seeded eta in [-1, 1) per macrostate (a
+    random table, so that a wrong row of it changes decisions)."""
+    from mpmc_tpu_torch.mc import metropolis
+    if polar:
+        params, state, cfg, thermo = polar_system("float32", device)
+        cfg = dataclasses.replace(cfg, polar_delayed=True, fused_mc=True)
+    else:
+        params, state, cfg, thermo = bench_system("float32", device)
+    cfg = dataclasses.replace(cfg, **XT_CFG)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    eta = np.random.default_rng(seed).uniform(
+        -1.0, 1.0, params.n_mols_max + 1)
+    thermo = thermo.replace(tmmc_eta=torch.as_tensor(
+        eta, dtype=torch.float32, device=device))
+    return params, state, cfg, thermo
+
+
+def _sum_a_tol(tm_plain, beta):
+    """The rule for a TMMC matrix's Sigma a columns, kernel against plain:
+    each attempt's a = min(1, e^{ln t}) moves by at most beta |d du| with
+    |d du| <= 2e-3 K, the float32 rule of one move's energy delta
+    (phase_uvt_kernel), plus 1e-5 for the 2e-5 relative part at a du
+    where a e^{...} peaks; so |d Sigma a[N]| <= n[N] (beta 2e-3 K +
+    1e-5)."""
+    n = tm_plain[..., [0, 2]]
+    return n * (beta * 2e-3 + 1e-5)
+
+
+def _uvt_xt_check(label, system, u, device, cluster=None):
+    """B1's XT instance against its plain version on ``u`` [C, K, 16]:
+    equal move counts, slot aliveness and TMMC counts; the sums within
+    phase_uvt_kernel's float32 rule, the Sigma a columns within
+    _sum_a_tol, positions within 1e-4 A.  Returns (kernel outputs, plain
+    trace, largest |d|, (args, kw), TMMC matrices (kernel, plain))."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    params, state, cfg, thermo = system
+    C, K = u.shape[0], u.shape[1]
+    args, kw = metropolis.fused_uvt_launch_args(
+        multichain.stack_states(state, C), params, cfg, thermo, u,
+        metropolis.uvt_fused_tables(params, cfg))
+    trace = []
+    tm_p = kw["tmmc_out"]
+    p = mk.run_steps_uvt_plain(*args, **kw, trace=trace)
+    kw_k = dict(kw, tmmc_out=torch.zeros_like(tm_p))
+    k = mk.run_steps_uvt(*args, **kw_k, cluster=cluster)
+    torch.cuda.synchronize(device)
+    tm_k = kw_k["tmmc_out"].cpu().numpy()
+    tm_pn = tm_p.cpu().numpy()
+    ps, ks = p[2].cpu().numpy(), k[2].cpu().numpy()
+    log(f"B1 XT {label} C={C} K={K} G={mk.run_steps_uvt.last_cluster}: "
+        f"kernel counts {ks[:, 6:12].sum(0).tolist()} plain "
+        f"{ps[:, 6:12].sum(0).tolist()}; TMMC attempts kernel "
+        f"{tm_k[..., [0, 2]].sum():.0f} plain {tm_pn[..., [0, 2]].sum():.0f}")
+    if not (np.array_equal(ks[:, 6:12], ps[:, 6:12])
+            and torch.equal(k[1], p[1])
+            and np.array_equal(tm_k[..., [0, 2]], tm_pn[..., [0, 2]])):
+        raise AssertionError(f"B1 XT {label}: decisions differ from the "
+                             "plain version")
+    if tm_k[..., [0, 2]].sum() != ks[:, 10:12].sum():
+        raise AssertionError(f"B1 XT {label}: TMMC attempts != insert + "
+                             "delete attempts")
+    n_acc = ps[:, 6:9].sum(1, keepdims=True)
+    tol = 2e-5 * np.abs(ps[:, :6]) + 2e-3 * np.sqrt(n_acc + 1.0)
+    d_sums = np.abs(ks[:, :6] - ps[:, :6])
+    d_pos = float((k[0] - p[0]).abs().max())
+    beta = float(args[14].reshape(-1)[0])
+    d_a = np.abs(tm_k[..., [1, 3]] - tm_pn[..., [1, 3]])
+    tol_a = _sum_a_tol(tm_pn, beta)
+    worst = float(np.max(d_a / np.maximum(tol_a, 1e-30)))
+    log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
+        f"{tol.max():.3e}), pos {d_pos:.3e} A, Sigma a {d_a.max():.3e} "
+        f"(worst |d|/tol {worst:.3f}), Sigma a total "
+        f"{tm_pn[..., [1, 3]].sum():.6f}")
+    if not (np.all(d_sums <= tol) and d_pos <= 1e-4
+            and np.all(d_a <= tol_a)):
+        raise AssertionError(f"B1 XT {label} disagrees with its plain "
+                             "version")
+    return (k, trace, max(float(d_sums.max()), d_pos, float(d_a.max())),
+            (args, kw_k), (tm_k, tm_pn))
+
+
+def phase_xt_kernels(device, K=128, K32=48, seed=2027, k_time=1000):
+    """B1 and B6 with cavity bias, TMMC and tmmc_bias (their XT instances,
+    XT_CFG) against their plain versions, float32, on numpy-seeded tables:
+    B1 on the 10.8k bench system at C = 1 (G = 16) and C = 32 (the
+    wrapper's G) — equal decisions, slot aliveness and TMMC attempt
+    counts, the sums in phase_uvt_kernel's rule, the Sigma a columns in
+    _sum_a_tol's —; B6 on the polar system (PDA (d)) with forced
+    survivors of each move type, natural coins and a survivor-free table,
+    in phase_pda_kernel's float32 tolerances.  Times per step beside the
+    classical instance's in the same call (B1 1000-step launches at C = 1
+    and 32, on the card alone too; B6 the survivor-free 16-step table), the
+    plain version's and the bound.  Returns {entry: report} for
+    run_steps_uvt_xt, run_steps_uvt_xt_c32 and run_steps_uvt_pda_xt."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    rng = np.random.default_rng(seed)
+    f32 = torch.float32
+    reps = {}
+    system = _xt_system(device, seed)
+    params, state, cfg, thermo = system
+    n_open = int(state.cavity_open.sum())
+    log(f"B1 XT: the bench system's grid has {n_open} open cells of "
+        f"{cfg.cavity_grid ** 3}")
+    if not 0 < n_open < cfg.cavity_grid ** 3:
+        raise AssertionError(f"cavity grid: {n_open} open cells")
+    cls = dataclasses.replace(cfg, **{k: False for k in
+                                      ("cavity_bias", "tmmc", "tmmc_bias")})
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    for C, Kc, G in ((1, K, 16), (32, K32, None)):
+        u = torch.as_tensor(rng.random((C, Kc, 16)), dtype=f32,
+                            device=device)
+        k, trace, err, (a1, kw1), _ = _uvt_xt_check(
+            "f32 (77 K)", system, u, device, cluster=G)
+        name = "run_steps_uvt_xt" + ("" if C == 1 else f"_c{C}")
+        pms = time_calls(lambda: mk.run_steps_uvt_plain(*a1, **kw1), device,
+                         n=1) / Kc
+        ops = _fused_ops(trace, cfg, kw1["kvecs"].shape[0])
+        n_io = (_nbytes(*a1[:25], *kw1.values())
+                + _nbytes(k[0], a1[1], k[1], k[2], *k[3:]))
+        bound, by = _bound_ms(ops, n_io)
+        ut = torch.as_tensor(rng.random((C, k_time, 16)), dtype=f32,
+                             device=device)
+        times = {}
+        for tag, c in (("classical", cls), ("xt", cfg)):
+            at, kwt = metropolis.fused_uvt_launch_args(
+                multichain.stack_states(state, C), params, c, thermo, ut,
+                tables)
+
+            def launch():
+                if "tmmc_out" in kwt:
+                    kwt["tmmc_out"].zero_()
+                return mk.run_steps_uvt(*at, **kwt, cluster=G)
+
+            times[tag] = (_time_steps(launch, device, k_time),
+                          time_device(launch, device, n=5) / k_time)
+            log(f"B1 f32 {tag} C={C} G={mk.run_steps_uvt.last_cluster}: "
+                f"{times[tag][0] * 1e3:.3f} us per step ({k_time}-step "
+                f"launches; {times[tag][1] * 1e3:.3f} back to back)")
+        reps[name] = {
+            "max_abs_err": err, "ms": times["xt"][0],
+            "device_ms": times["xt"][1], "plain_ms": pms,
+            "bound_ms": bound / Kc, "bound_by": by,
+            "classical_ms": times["classical"][0],
+            "classical_device_ms": times["classical"][1],
+            "cluster": f"G={mk.run_steps_uvt.last_cluster} (C={C})",
+            "per": "step" if C == 1 else f"step of {C} chains"}
+        log(f"B1 XT C={C}: kernel {times['xt'][0] * 1e3:.3f} us/step "
+            f"(classical {times['classical'][0] * 1e3:.3f}), plain "
+            f"{pms * 1e3:.1f} us/step, bound {bound / Kc * 1e3:.4f} us/step "
+            f"({by}; {ops / Kc:.3e} ops/step of chain 0)")
+    # ---- B6 (direct field), PDA (d) with cavity bias and the TMMC tilt
+    params, state, cfg, thermo = _xt_system(device, seed + 1, polar=True)
+    cfg_eff = mk.pda_effective_cfg(cfg, params)
+    tables = metropolis.uvt_fused_tables(params, cfg_eff)
+    consts = metropolis._uvt_chunk_consts(state.pos, state.box, params,
+                                          thermo, cfg_eff, tables[5],
+                                          tables[6])
+    cls_eff = dataclasses.replace(cfg_eff, cavity_bias=False, tmmc=False,
+                                  tmmc_bias=False)
+    Kp = mk.PDA_SEG
+
+    def pda_args(c, u):
+        return metropolis.pda_launch_args(state, params, c, thermo, u,
+                                          tables, consts)
+
+    def table(x):
+        return torch.as_tensor(x, dtype=f32, device=device)
+
+    us = {}
+    for mt, lane8 in ((0, 0.9), (1, 0.1), (2, 0.4)):
+        x = rng.random((Kp, 16))
+        x[0, 4], x[0, 8] = 1e-30, lane8
+        us[f"step 0 survives ({'disp ins del'.split()[mt]})"] = table(x)
+    us["natural"] = table(rng.random((Kp, 16)))
+
+    def launch_xt(u):
+        a, kw = pda_args(cfg_eff, u)
+        return mk.run_steps_uvt_pda(*a, **kw)
+
+    us["survivor-free"] = _pda_survivor_free(
+        launch_xt, table(rng.random((Kp, 16))), rng)
+    rep = {"max_abs_err": 0.0}
+    hits = 0
+    for name, u in us.items():
+        a, kw = pda_args(cfg_eff, u)
+        trace = []
+        p = mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace).cpu().numpy()
+        k = mk.run_steps_uvt_pda(*a, **kw, cluster=16).cpu().numpy()
+        rss = np.zeros(8)
+        if trace[-1].get("rss"):
+            rss[[0, 1, 2, 6]] = trace[-1]["rss"]
+        want = np.concatenate([p[1, :6], p[0, 9:11]])
+        tol = 2e-5 * np.abs(want) + 1e-3 + 8 * EPS32 * rss
+        d_vals = np.abs(np.concatenate([k[1, :6], k[0, 9:11]]) - want)
+        d_rows = float(np.abs(k[2:5] - p[2:5]).max())
+        log(f"B6 XT f32 {name} G=16: n_done {k[0, 0]:g} hit {k[0, 1]:g} "
+            f"mtype {k[0, 2]:g} (plain: {p[0, 0]:g} {p[0, 1]:g} "
+            f"{p[0, 2]:g}); |d| deltas/d*/lnb {d_vals.max():.3e} (worst "
+            f"|d|/tol {float(np.max(d_vals / tol)):.3f}), rows {d_rows:.3e}")
+        if not (np.array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8]],
+                               p[0, [0, 1, 2, 3, 4, 6, 7, 8]])
+                and np.all(d_vals <= tol) and d_rows <= 1e-4):
+            raise AssertionError(f"B6 XT {name} disagrees with its plain "
+                                 "version")
+        rep["max_abs_err"] = max(rep["max_abs_err"], float(d_vals.max()),
+                                 d_rows)
+        hits += int(k[0, 1])
+    if hits < 3:
+        raise AssertionError(f"B6 XT: only {hits} survivors")
+    u = us["survivor-free"]
+    a, kw = pda_args(cfg_eff, u)
+    trace = []
+    mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace)
+    ops = _pda_ops(trace, "direct", kw["kvecs"].shape[0])
+    bound, by = _bound_ms(ops, _nbytes(*a, *kw.values()) + 8 * 16 * 8)
+    ac, kwc = pda_args(cls_eff, u)
+    for tag, (aa, kk) in (("classical", (ac, kwc)), ("xt", (a, kw))):
+        ms = time_calls(lambda: mk.run_steps_uvt_pda(*aa, **kk, cluster=16),
+                        device) / Kp
+        dms = time_device(lambda: mk.run_steps_uvt_pda(*aa, **kk,
+                                                       cluster=16),
+                          device, n=20) / Kp
+        rep.update({f"{tag}_ms": ms, f"{tag}_device_ms": dms})
+        log(f"B6 f32 {tag}, survivor-free table, G=16: {ms * 1e3:.2f} "
+            f"us/step per call, {dms * 1e3:.2f} on the card alone")
+    pms = time_calls(lambda: mk.run_steps_uvt_pda_plain(*a, **kw), device,
+                     n=3) / Kp
+    rep.update(ms=rep.pop("xt_ms"), device_ms=rep.pop("xt_device_ms"),
+               plain_ms=pms, bound_ms=bound / Kp, bound_by=by,
+               cluster="G=16")
+    reps["run_steps_uvt_pda_xt"] = rep
+    log("xt kernels: " + json.dumps(reps))
+    return reps
+
+
+# the cavity / TMMC decks: (label, system, deck lines, numsteps, route line
+# or None for the scan path, the kernel the route launches); DECK's corrtime
+# 1000 (100 on the scan deck, POLAR_CORRTIME on the polar one)
+XT_DECKS = (
+    ("cav_scan", "mof", "cavity_bias on\ncorrtime 100\n", 300, None, None),
+    ("cav_bias_fused", "mof", "cavity_bias on\ntmmc_bias on\nfused_mc on\n",
+     5000, "single-chain fused µVT kernel", "run_steps_uvt"),
+    ("tmmc_c32", "mof", "tmmc on\nfused_mc on\nchains 32\n", 5000,
+     "chain-interleaved multi-chain kernel (C=32)", "run_steps_uvt"),
+    ("pda_tmmc_cav", "polar", "polar_delayed on\nfused_mc on\ntmmc on\n"
+     "cavity_bias on\n", 100, "polar delayed-acceptance stage-1 kernel",
+     "run_steps_uvt_pda"))
+
+
+def _tmmc_attempts(label, text):
+    """(collected, insert + delete attempts) from a run's TMMC log line;
+    raises unless they are equal."""
+    line = [ln for ln in text.splitlines() if "attempts collected" in ln]
+    if not line:
+        raise AssertionError(f"{label}: no TMMC matrix written")
+    w = line[-1].split()
+    got = (int(w[w.index("attempts") - 1]), int(w[w.index("insert") - 1]))
+    if got[0] != got[1] or got[0] == 0:
+        raise AssertionError(f"{label}: TMMC collected {got[0]} of "
+                             f"{got[1]} insert + delete attempts")
+    return got[0]
+
+
+def phase_xt_decks(device, example_steps=2000):
+    """The cavity / TMMC decks (XT_DECKS) through run.run: DECK with
+    ``cavity_bias on`` on the scan path (300 steps, corrtime 100), with
+    cavity_bias and tmmc_bias on fused µVT (5,000), with tmmc and
+    ``chains 32`` (5,000), and PDA (d) with tmmc and cavity_bias (100),
+    the default grid (cavity_grid 10, cavity_radius 2.5).  Each deck logs
+    its route and no WARNING, launches its kernel (B1 once per corrtime),
+    reports n_open at each refresh (no grid may be empty) and, under tmmc,
+    a matrix holding every insert and delete attempt; after a further
+    chunk the carried energy matches a fresh recompute.  Then
+    examples/h2_polar_tmmc.inp through ``python -m mpmc_tpu_torch``'s main
+    (``example_steps`` of its 6,000 steps) and ``python -m
+    mpmc_tpu_torch.analyze tmmc`` on its matrix.  Returns ({deck:
+    launches}, {deck: report})."""
+    import contextlib
+    from mpmc_tpu_torch import __main__ as port_main
+    from mpmc_tpu_torch import analyze
+    from mpmc_tpu_torch.io import input_script
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.state import slice_chain
+    launches, reps = {}, {}
+    for i, (label, kind, extra, numsteps, route, kernel) in enumerate(
+            XT_DECKS):
+        su, avgs, text, ln = _run_deck(device, extra, numsteps=numsteps,
+                                       kind=kind, verbose=False)
+        if "WARNING" in text or (route and f"fused_mc: {route}" not in text):
+            raise AssertionError(f"{label}: not the route {route!r}")
+        if kernel and not ln[kernel]:
+            raise AssertionError(f"{label}: {kernel} not launched: {ln}")
+        corr = su.cfg.corrtime
+        if kernel == "run_steps_uvt" and ln[kernel] != numsteps // corr:
+            raise AssertionError(f"{label}: B1 launched {ln[kernel]} times "
+                                 f"for {numsteps // corr} blocks")
+        if route is None and not ln["mol_pair"]:
+            raise AssertionError(f"{label}: the scan path launched no B4")
+        n_open = avgs.samples.get("cavity_open", [])
+        if su.cfg.cavity_bias and (not n_open or min(n_open) < 1):
+            raise AssertionError(f"{label}: n_open per refresh {n_open}")
+        rate = float(text.split("steps/sec:")[1].split()[0])
+        rep = {"steps_per_sec": rate, "n_open": n_open,
+               "N": avgs.mean("N"), "acc_insert": avgs.mean("acc_insert"),
+               "acc_delete": avgs.mean("acc_delete"),
+               "kernel_launches": ln.get(kernel),
+               "b4_launches": ln["mol_pair"] + ln["mol_pair_chains"],
+               "b1_launches": ln["run_steps_uvt"],
+               "b6_launches": ln["run_steps_uvt_pda"]}
+        if su.cfg.tmmc:
+            rep["tmmc_attempts"] = _tmmc_attempts(label, text)
+        g = torch.Generator(device=device).manual_seed(71 + i)
+        params, cfg, thermo = su.params, su.cfg, su.thermo
+        if su.states is not None:
+            sts, _ = metropolis.run_chunk_fused_uvt_multi(
+                su.states, params, cfg, thermo, 1000, generator=g)
+            for c in (0, sts.pos.shape[0] - 1):
+                _check_bookkeeping(f"{label} chain {c}, 1000 steps",
+                                   slice_chain(sts, c), su)
+        else:
+            if kernel == "run_steps_uvt":
+                st, _ = metropolis.run_chunk_fused_uvt(
+                    su.state, params, cfg, thermo, 1000, generator=g)
+            elif kernel == "run_steps_uvt_pda":
+                st, _ = metropolis.run_chunk_fused_uvt_polar_da(
+                    su.state, params, cfg, thermo, 100, generator=g,
+                    tables=metropolis.uvt_fused_tables(
+                        params, mk.pda_effective_cfg(cfg, params)))
+            else:
+                st, _ = metropolis.run_chunk(su.state, params, cfg, thermo,
+                                             100, generator=g)
+            _check_bookkeeping(f"{label}, a further chunk", st, su,
+                               polar=cfg.polarization)
+        log(f"{label}: " + json.dumps(rep))
+        launches[label], reps[label] = ln, rep
+    # examples/h2_polar_tmmc.inp through the command-line main, then the
+    # analysis of its matrix
+    deck = open(os.path.join(REPO, "examples", "h2_polar_tmmc.inp")).read()
+    deck = deck.replace("numsteps         6000", f"numsteps {example_steps}")
+    deck = deck.replace("examples/framework_h2_polar.pqr", os.path.join(
+        REPO, "examples", "framework_h2_polar.pqr"))
+    if f"numsteps {example_steps}" not in deck:
+        raise AssertionError("h2_polar_tmmc.inp: numsteps not found")
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with open("h2_polar_tmmc.inp", "w") as f:
+                f.write(deck)
+            job = input_script.parse_file("h2_polar_tmmc.inp")
+            out, iso = io.StringIO(), io.StringIO()
+            _reset_counts()
+            with contextlib.redirect_stdout(out):
+                port_main.main(["h2_polar_tmmc.inp"])
+            torch.cuda.synchronize(device)
+            ln = _launch_counts()
+            with contextlib.redirect_stdout(iso):
+                analyze.main(["tmmc", "tmmc_polar.json", "--out",
+                              "iso.csv"])
+            rows = open("iso.csv").read().strip().splitlines()
+            c, _ = analyze.tmmc_load(["tmmc_polar.json"])
+        finally:
+            os.chdir(old)
+    text = out.getvalue()
+    log("\n".join(text.splitlines()[:6] + text.splitlines()[-4:]))
+    log(iso.getvalue().rstrip())
+    if not (job.cfg.tmmc and "polar delayed-acceptance stage-1 kernel" in
+            text and ln["run_steps_uvt_pda"] > 0):
+        raise AssertionError(f"h2_polar_tmmc.inp: not B6's route ({ln})")
+    n_att = _tmmc_attempts("h2_polar_tmmc.inp", text)
+    means = [float(r.split(",")[1]) for r in rows[1:]]
+    if not (len(rows) == 22 and np.all(np.isfinite(means))
+            and int(c[:, 0].sum() + c[:, 2].sum()) == n_att):
+        raise AssertionError("analyze tmmc: bad isotherm or matrix")
+    rate = float(text.split("steps/sec:")[1].split()[0])
+    log(f"h2_polar_tmmc.inp: {example_steps} steps, {rate:.2f} steps/s, B6 "
+        f"launches {ln['run_steps_uvt_pda']}, TMMC attempts {n_att}; "
+        f"analyze tmmc: <N> {means[0]:.4f} .. {means[-1]:.4f} over 0.1-10 f")
+    launches["example_tmmc"] = ln
+    reps["example_tmmc"] = {"steps_per_sec": rate, "tmmc_attempts": n_att,
+                            "kernel_launches": ln["run_steps_uvt_pda"]}
+    return launches, reps
+
+
 def _rows_equal(a, b):
     """Two campaign rows equal, NaN equal to NaN."""
     return a.keys() == b.keys() and all(
@@ -3667,6 +4089,12 @@ def main():
     mark("phase_fh_decks")
     fh_launches, fh_reps = phase_fh_decks(dev)
     t_13 = time.time() - t_13
+    t_14 = time.time()
+    mark("phase_xt_kernels")
+    report.update(phase_xt_kernels(dev))
+    mark("phase_xt_decks")
+    xt_launches, xt_reps = phase_xt_decks(dev)
+    t_14 = time.time() - t_14
     # each kernel's launches on its own main path: B2 and B4 on the scan
     # path, B1 on the fused single-chain µVT path, B3 on the single-chain
     # MOF NVT deck, B5 (both modes) on the polar scan-path deck (dipole:
@@ -3692,13 +4120,21 @@ def main():
                 "run_steps_uvt_fk": fh_launches["fk_fused"]["run_steps_uvt"],
                 "run_steps_fh4": fh_launches["fh4_nvt"]["run_steps"],
                 "run_steps_uvt_pda_fh2":
-                    fh_launches["fh2_pda"]["run_steps_uvt_pda"]}
+                    fh_launches["fh2_pda"]["run_steps_uvt_pda"],
+                # B1 and B6 with cavity bias and TMMC: their decks
+                "run_steps_uvt_xt":
+                    xt_launches["cav_bias_fused"]["run_steps_uvt"],
+                "run_steps_uvt_xt_c32":
+                    xt_launches["tmmc_c32"]["run_steps_uvt"],
+                "run_steps_uvt_pda_xt":
+                    xt_launches["pda_tmmc_cav"]["run_steps_uvt_pda"]}
     report["mol_pair_c16_header"] = report["mol_pair_c128"]["header"]
     names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps",
              "dipole_field", "charge_field", "run_steps_uvt_pda",
              "mol_pair_c128", "dipole_field_c8", "mol_pair_c16_header",
              "run_steps_uvt_fh2", "run_steps_uvt_fk", "run_steps_fh4",
-             "run_steps_uvt_pda_fh2")
+             "run_steps_uvt_pda_fh2", "run_steps_uvt_xt",
+             "run_steps_uvt_xt_c32", "run_steps_uvt_pda_xt")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -3828,6 +4264,21 @@ def main():
                            for k, r in fh_reps.items())
         + f"  fh_launches {fh_launches}  pr13_phases_seconds {t_13:.1f}  "
         f"wall_seconds {time.time() - t0:.1f}  ({smi})")
+    log("  ".join(f"{k}_us_per_step {report[k]['ms'] * 1e3:.3f}  {k}_device_"
+                  f"us_per_step {report[k]['device_ms'] * 1e3:.3f}  {k}_"
+                  f"classical_us_per_step "
+                  f"{report[k]['classical_ms'] * 1e3:.3f}  {k}_classical_"
+                  f"device_us_per_step "
+                  f"{report[k]['classical_device_ms'] * 1e3:.3f}  {k}_plain_"
+                  f"us_per_step {report[k]['plain_ms'] * 1e3:.1f}  {k}_bound_"
+                  f"us_per_step {report[k]['bound_ms'] * 1e3:.4f}"
+                  for k in ("run_steps_uvt_xt", "run_steps_uvt_xt_c32",
+                            "run_steps_uvt_pda_xt"))
+        + "  " + "  ".join(f"{k}_steps_per_sec {r['steps_per_sec']:.2f}"
+                           for k, r in xt_reps.items())
+        + f"  xt_launches {xt_launches}  build_seconds {build_s:.1f}  "
+        f"pr14_phases_seconds {t_14:.1f}  wall_seconds "
+        f"{time.time() - t0:.1f}  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

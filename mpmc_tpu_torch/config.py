@@ -137,6 +137,9 @@ class Thermo:
     volume_change_factor: torch.Tensor
     spinflip_probability: torch.Tensor
     nve_energy: torch.Tensor = None
+    # flat-histogram TMMC bias eta(N) [n_mols_max + 1] (cfg.tmmc_bias),
+    # shared by every chain; None = no bias yet
+    tmmc_eta: torch.Tensor = None
 
     @classmethod
     def make(cls, temperature=298.0, pressure=1.0, fugacity=(),

@@ -55,7 +55,9 @@ def from_jax(params, state, cfg, thermo, device="cpu"):
         step=int(np.asarray(state.step).reshape(-1)[0]),
         sk_re=sk(state.sk_re), sk_im=sk(state.sk_im),
         e_frozen=_energy(state.e_frozen, device), mu=sk(state.mu),
-        e0=sk(state.e0), r_pol=sk(state.r_pol))
+        e0=sk(state.e0), r_pol=sk(state.r_pol),
+        cavity_open=sk(getattr(state, "cavity_open", None)),
+        tmmc_c=sk(getattr(state, "tmmc_c", None)))
     t = Thermo(**{f.name: (None if getattr(thermo, f.name, None) is None
                            else _tensor(getattr(thermo, f.name), device))
                   for f in dataclasses.fields(Thermo)})

@@ -291,18 +291,19 @@ __device__ __forceinline__ void place_row(const T (&tr)[3],
 }
 
 // Thread 0: the trial rows of an insertion from the step's uniforms u: the
-// COM-centred template rows tmpl [na][3] at fractional COM lanes 1-3 with a
+// COM-centred template rows tmpl [na][3] at the fractional COM fr[3] (lanes
+// 1-3, or under cavity bias a point of the picked cell: cavity_frac) with a
 // uniform (Shoemake) orientation from lanes 5-7; one site (A == 1) only
 // translates.
 template <typename T>
-__device__ __forceinline__ void insert_trial(const T* u, const T* box,
-                                             const T* tmpl, int A, int na,
-                                             T (*s_new)[3]) {
+__device__ __forceinline__ void insert_trial(const T* fr, const T* u,
+                                             const T* box, const T* tmpl,
+                                             int A, int na, T (*s_new)[3]) {
   const T two_pi = T(6.283185307179586476925);
   T cnew[3];
 #pragma unroll
   for (int e = 0; e < 3; ++e)
-    cnew[e] = u[1] * box[e] + u[2] * box[3 + e] + u[3] * box[6 + e];
+    cnew[e] = fr[0] * box[e] + fr[1] * box[3 + e] + fr[2] * box[6 + e];
   if (A == 1) {
 #pragma unroll
     for (int e = 0; e < 3; ++e) s_new[0][e] = cnew[e];
@@ -329,6 +330,48 @@ __device__ __forceinline__ void insert_trial(const T* u, const T* box,
     for (int e = 0; e < 3; ++e) rel[e] = tmpl[a * 3 + e];
     place_row<T>(cnew, R, rel, s_new[a]);
   }
+}
+
+// The µVT extras of B1 and B6 (their XT instances): cavity-biased insertion
+// and, in B1, the TMMC collection with its flat-histogram bias.
+//   cavity bias (cav): an insert's COM lies in an open cell of the g^3 grid
+//   of the last refresh, cav_list [C, g3] holding each chain's open cell ids
+//   in rank order and cav_n [C] their count; the acceptance gains
+//   +-ln(n_open / g3), and an insert with no open cell is rejected;
+//   TMMC (tm, B1): every insert or delete attempt adds (1, a) to row N (the
+//   insert species' alive count before the move) of the chain's [rows, 4]
+//   block of tmmc (n_ins, sum a_ins, n_del, sum a_del), a the unbiased
+//   min(1, e^{ln_t}), 0 on a reject; under tmmc_bias (bias) the acceptance,
+//   never the collection, adds eta(N') - eta(N) of the shared eta [ke].
+template <typename T>
+struct XtArgs {
+  const int32_t* cav_list;
+  const int32_t* cav_n;
+  const T* eta;
+  double* tmmc;
+  int g, g3, ke, rows;
+  int cav, tm, bias;
+};
+
+// Thread 0: the fractional COM of a cavity-biased insert: the open cell of
+// rank j = min(floor(u10 n_open), n_open - 1) of the chain's list (n_open >
+// 0), then the point (ijk + lanes 1-3) / g inside it — the reference
+// kernel's arithmetic (mpmc_tpu/ops/pallas/mc_kernel.py:1166-1190).
+template <typename T>
+__device__ __forceinline__ void cavity_frac(const T* u, const int32_t* list,
+                                            int n_open, int g, T (&fr)[3]) {
+  const T nT = T(n_open);
+  const int j = int(x_min(x_floor(u[10] * nT), nT - T(1)));
+  const int cell = list[j];
+  const int ijk[3] = {cell / (g * g), (cell / g) % g, cell % g};
+#pragma unroll
+  for (int e = 0; e < 3; ++e) fr[e] = (T(ijk[e]) + u[1 + e]) / T(g);
+}
+
+// ln(n_open / g3), the cavity-bias term of an insert (minus: of a delete);
+// n_open = 0 gives ln(1e-30 / g3), as the reference.
+__device__ __forceinline__ double cavity_lnf(int n_open, int g3) {
+  return log(fmax(double(n_open), 1e-30)) - log(double(g3));
 }
 
 // Block-wide (every thread calls it, with block-uniform arguments): the

@@ -28,7 +28,17 @@ see mc/moves.py for lanes 0-3 and 5-7):
 - lane 4 is the acceptance coin: Metropolis at the temperature, or under
   ensemble nve Ray's rule against the kinetic reservoir E_total - U;
 - lane 12 is the stage-2 coin of the polar delayed acceptance, the lane
-  the fused polar DA kernel reads (stage 1 takes lane 4).
+  the fused polar DA kernel reads (stage 1 takes lane 4);
+- lane 10, under ``cavity_bias``, picks an insert's open cell of the
+  grid of the last refresh (``cavity_frac``; lanes 1-3 then place the COM
+  inside it), and the acceptance gains +-ln(n_open / G^3), as B1 does.
+
+Under ``tmmc`` (µVT, one insert species) every insert or delete attempt
+adds (1, a) to row N, the species' alive count before the move, of
+``state.tmmc_c``, a the unbiased acceptance probability (0 on a hard
+reject; under ``polar_delayed`` the reference's estimator, ``_tmmc_a``);
+``tmmc_bias`` adds eta(N') - eta(N) of ``thermo.tmmc_eta`` to the
+acceptance only.
 
 A volume attempt rescales every molecule's centre of mass and the cell
 (moves.scale_volume) and re-prices the whole system (energy.total_energy,
@@ -407,6 +417,77 @@ def polar_commit(carry, pol, accept, new_energy, cfg: RunConfig):
     return dataclasses.replace(new_energy, polar=pol["polar"])
 
 
+def cavity_frac(carry, u):
+    """Fractional COM of a cavity-biased insert, or None without cavity
+    bias: the open cell of rank j among the chunk's open cells (lane 10,
+    j = min(floor(u n_open), n_open - 1)), then a uniform point inside it
+    (lanes 1-3, moves.cell_frac).  With no open cell the pick is cell 0
+    and the insert is rejected.  Over chains each chain picks in its own
+    grid."""
+    if "cav" not in carry:
+        return None
+    cell, _ = moves.pick_by_rank(carry["cav"], u[..., 10])
+    return moves.cell_frac(cell, u, carry["cav_g"])
+
+
+def tmmc_on(cfg: RunConfig) -> bool:
+    """Whether the step collects the TMMC matrix: µVT with one insert
+    species (the macrostate N is that species' alive count)."""
+    return (cfg.tmmc and cfg.ensemble == "uvt"
+            and len(cfg.insert_species) == 1)
+
+
+def _tmmc_state(carry, params, cfg, thermo, t):
+    """(N before the move [...], the flat-histogram tilt eta(N') - eta(N)
+    of the acceptance or 0) of an insert (t = 1) or delete (t = 2): N' =
+    N +- 1 clipped to eta's rows; the tilt only under tmmc_bias with a
+    bias table."""
+    n_cur = torch.sum(carry["mol_alive"]
+                      & (params.mol_species == cfg.insert_species[0]),
+                      dim=-1)
+    eta = thermo.tmmc_eta
+    if not (cfg.tmmc_bias and eta is not None):
+        return n_cur, torch.zeros((), dtype=cfg.tdtype, device=n_cur.device)
+    n_to = torch.clamp(n_cur + (1 if t == 1 else -1), 0, eta.shape[0] - 1)
+    return n_cur, (eta[n_to] - eta[n_cur]).to(cfg.tdtype)
+
+
+def _tmmc_a(pol_t, reject, ln_acc, ln_bias, du, d_eta, pol_da, thermo):
+    """The probability the TMMC matrix collects for one attempt: the
+    unbiased min(1, e^{ln_acc}), 0 on a hard reject; under the delayed
+    acceptance the reference's estimator 1{stage-1 accept} min(1, a1) /
+    min(1, a1 e^{d_eta}) min(1, a2) (mpmc_tpu/mc/metropolis.py:805-821),
+    a1 from the non-polar ``du`` and the surrogate, a2 the exact
+    stage-2 factor."""
+    zero = torch.zeros_like(ln_acc)
+    if not pol_da:
+        return torch.where(reject, zero, torch.exp(torch.clamp(ln_acc,
+                                                               max=0.0)))
+    ln1 = ln_bias - (du + pol_t["d_surr"]) / thermo.temperature
+    ln2 = -(pol_t["d_polar"] - pol_t["d_surr"]) / thermo.temperature
+    x = torch.exp(torch.clamp(ln1, max=0.0) - torch.clamp(ln1 + d_eta,
+                                                          max=0.0)
+                  + torch.clamp(ln2, max=0.0))
+    return torch.where(pol_t["acc1"], x, zero)
+
+
+def _tmmc_add(tm, n_cur, t, a):
+    """Add (1, a) to row ``n_cur`` of the insert (t = 1) or delete (t = 2)
+    columns of the TMMC matrix ``tm`` [K, 4] (over chains [C, K, 4] with
+    [C] rows and probabilities), on the device."""
+    col = 0 if t == 1 else 2
+    n = n_cur.reshape(-1)
+    cols = torch.cat([torch.full_like(n, col), torch.full_like(n, col + 1)])
+    vals = torch.cat([torch.ones_like(a.reshape(-1)), a.reshape(-1)]).to(
+        tm.dtype)
+    if tm.ndim == 3:
+        ar = torch.arange(tm.shape[0], device=tm.device)
+        tm.index_put_((torch.cat([ar, ar]), torch.cat([n, n]), cols), vals,
+                      accumulate=True)
+    else:
+        tm.index_put_((torch.cat([n, n]), cols), vals, accumulate=True)
+
+
 def make_step_fn(params: Params, cfg: RunConfig):
     """The single-step function of this (params, cfg):
     step(carry, u, t, thermo, c, stats, trace=None) with ``carry`` a dict
@@ -432,6 +513,8 @@ def make_step_fn(params: Params, cfg: RunConfig):
                                device=dev)
                if cfg.insert_species else None)
     n_sp = len(cfg.insert_species)
+    cav = cfg.cavity_bias
+    tm_on = tmmc_on(cfg)
 
     def eb(rd=zero, lrc=zero, es_real=zero, es_recip=zero, es_self=zero,
            es_excl=zero):
@@ -485,7 +568,8 @@ def make_step_fn(params: Params, cfg: RunConfig):
         si = pick_species(u)
         slot, free = moves.pick_by_rank(
             ~mol_alive & (params.mol_species == si), u[0])
-        rows = moves.place_rows(params, slot, si, u, c.box)
+        frac = cavity_frac(carry, u)
+        rows = moves.place_rows(params, slot, si, u, c.box, frac=frac)
         inter = pairs.mol_pair_pass(pos, c.box, carry["alive"], params, cfg,
                                     thermo.temperature, slot, row_pos=rows,
                                     scal=c.scal)
@@ -503,6 +587,9 @@ def make_step_fn(params: Params, cfg: RunConfig):
         ln_bias = (take(c.ln_fv, si)
                    - torch.log(thermo.temperature * (n_s + 1.0)))
         reject = (free == 0) | _overlap_r2(inter.min_r2, cfg)
+        if cav:
+            ln_bias = ln_bias + carry["cav_lnf"]
+            reject = reject | (carry["cav_n"] == 0)
         return slot, rows, True, d, ln_bias, reject, sk
 
     def b_delete(carry, u, thermo, c):
@@ -530,6 +617,8 @@ def make_step_fn(params: Params, cfg: RunConfig):
         n_s = torch.sum(mol_alive & (params.mol_species == si)).to(dtype)
         ln_bias = (torch.log(torch.clamp(n_s, min=1e-30)
                              * thermo.temperature) - take(c.ln_fv, si))
+        if cav:
+            ln_bias = ln_bias - carry["cav_lnf"]
         return slot, None, False, d, ln_bias, cnt == 0, sk
 
     branches = ([b_displace, b_insert, b_delete]
@@ -545,9 +634,18 @@ def make_step_fn(params: Params, cfg: RunConfig):
             carry, u, thermo, c)
         du = d.total
         iters0 = stats.polar_iters
+        # TMMC: N before the move and the flat-histogram tilt, which
+        # enters the acceptance (stage 1 under the delayed acceptance),
+        # never the collection
+        tm = tm_on and t in (1, 2)
+        d_eta = zero
+        if tm:
+            n_cur, d_eta = _tmmc_state(carry, params, cfg, thermo, t)
         if pol:
             pol_t = polar_stage(carry, c, params, cfg, thermo, u, mol, rows,
-                                alive_new, du, ln_bias, reject, stats)
+                                alive_new, du,
+                                ln_bias + d_eta if tm else ln_bias, reject,
+                                stats)
             du = du + pol_t["d_polar"]
         if nve:
             # Ray's microcanonical rule (reference metropolis.py:756-777):
@@ -573,7 +671,11 @@ def make_step_fn(params: Params, cfg: RunConfig):
             accept = polar_accept(pol_t, u, thermo)
         else:
             accept = (~reject) & (torch.log(torch.clamp(u[4], min=1e-38))
-                                  < ln_acc)
+                                  < (ln_acc + d_eta if tm else ln_acc))
+        if tm:
+            _tmmc_add(carry["tmmc_c"], n_cur, t, _tmmc_a(
+                pol_t if pol else None, reject, ln_acc, ln_bias, d.total,
+                d_eta, pol_da, thermo))
         if rows is not None:
             cur = mol_rows(carry["pos"], params, mol)
             mol_rows_update(carry["pos"], params, mol,
@@ -616,6 +718,21 @@ def _carry(state: SimState, params: Params, cfg: RunConfig):
                          else torch.zeros(state.pos.shape[:-2],
                                           dtype=cfg.tdtype,
                                           device=state.pos.device))
+    if (cfg.cavity_bias and state.cavity_open is None) or (
+            tmmc_on(cfg) and state.tmmc_c is None):
+        raise ValueError("cavity_bias / tmmc: the state has no cavity grid "
+                         "or TMMC matrix — initialize it first")
+    if cfg.cavity_bias:
+        # the grid of the last refresh, and its n_open and
+        # ln(n_open / G^3) for every insert and delete of the chunk
+        carry["cav"] = state.cavity_open
+        carry["cav_g"] = cfg.cavity_grid
+        carry["cav_n"] = torch.sum(state.cavity_open, dim=-1)
+        carry["cav_lnf"] = (torch.log(torch.clamp(
+            carry["cav_n"].to(cfg.tdtype), min=1e-30))
+            - math.log(float(cfg.cavity_grid) ** 3))
+    if tmmc_on(cfg):
+        carry["tmmc_c"] = state.tmmc_c.clone()
     return carry
 
 
@@ -626,6 +743,7 @@ def _from_carry(state: SimState, carry, n_steps: int) -> SimState:
                          energy=carry["energy"], sk_re=carry["sk_re"],
                          sk_im=carry["sk_im"], mu=carry["mu"],
                          e0=carry["e0"], r_pol=carry["r_pol"],
+                         tmmc_c=carry.get("tmmc_c", state.tmmc_c),
                          step=state.step + n_steps)
 
 
@@ -708,6 +826,8 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
                                device=dev)
                if cfg.insert_species else None)
     n_sp = len(cfg.insert_species)
+    cav = cfg.cavity_bias
+    tm_on = tmmc_on(cfg)
 
     def recip(c, carry, d_re, d_im):
         new_re = carry["sk_re"] + d_re
@@ -765,7 +885,8 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         si = pick_species(u)
         same = params.mol_species[None, :] == si[:, None]
         slot, free = moves.pick_by_rank(~mol_alive & same, u[:, 0])
-        rows = moves.place_rows(params, slot, si, u, c.box)
+        frac = cavity_frac(carry, u)
+        rows = moves.place_rows(params, slot, si, u, c.box, frac=frac)
         inter = pairs.mol_pair_pass(pos, c.box, carry["alive"], params, cfg,
                                     thermo.temperature, slot, row_pos=rows,
                                     scal=c.scal)
@@ -782,6 +903,9 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         n_s = torch.sum(mol_alive & same, dim=-1).to(dtype)
         ln_bias = ln_fv(c, si) - torch.log(thermo.temperature * (n_s + 1.0))
         reject = (free == 0) | _overlap_r2(inter.min_r2, cfg)
+        if cav:
+            ln_bias = ln_bias + carry["cav_lnf"]
+            reject = reject | (carry["cav_n"] == 0)
         return slot, rows, True, d, ln_bias, reject, sk
 
     def b_delete(carry, u, thermo, c, zero):
@@ -808,6 +932,8 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         n_s = torch.sum(mol_alive & same, dim=-1).to(dtype)
         ln_bias = (torch.log(torch.clamp(n_s, min=1e-30)
                              * thermo.temperature) - ln_fv(c, si))
+        if cav:
+            ln_bias = ln_bias - carry["cav_lnf"]
         return slot, None, False, d, ln_bias, cnt == 0, sk
 
     branches = ([b_displace, b_insert, b_delete]
@@ -825,9 +951,15 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
             carry, u, thermo, c, zero)
         du = d.total
         iters0 = stats.polar_iters
+        tm = tm_on and t in (1, 2)     # make_step_fn's TMMC, per chain
+        d_eta = zero
+        if tm:
+            n_cur, d_eta = _tmmc_state(carry, params, cfg, thermo, t)
         if pol:
             pol_t = polar_stage(carry, c, params, cfg, thermo, u, mol, rows,
-                                alive_new, du, ln_bias, reject, stats)
+                                alive_new, du,
+                                ln_bias + d_eta if tm else ln_bias, reject,
+                                stats)
             du = du + pol_t["d_polar"]
         if nve:
             # Ray's microcanonical rule per chain (make_step_fn's)
@@ -851,7 +983,11 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         else:
             accept = (~reject) & (torch.log(torch.clamp(u[:, 4],
                                                         min=1e-38))
-                                  < ln_acc)
+                                  < (ln_acc + d_eta if tm else ln_acc))
+        if tm:
+            _tmmc_add(carry["tmmc_c"], n_cur, t, _tmmc_a(
+                pol_t if pol else None, reject, ln_acc, ln_bias, d.total,
+                d_eta, pol_da, thermo))
         ar = torch.arange(C, device=dev)
         if rows is not None:
             idx = params.mol_atoms[mol]                       # [C, A]
@@ -1263,7 +1399,32 @@ def fused_uvt_launch_args(states: SimState, params: Params,
               sk_re=states.sk_re.contiguous() if ew else None,
               sk_im=states.sk_im.contiguous() if ew else None,
               mol_mass=_mol_mass_plane(params, cfg))
+    kw.update(_fused_extras(states, cfg, thermo))
     return args, kw
+
+
+def _fused_extras(states, cfg, thermo):
+    """B1's cavity and TMMC keywords for a chunk of the stacked ``states``
+    (run_steps_uvt): each chain's open-cell list from the grid of its last
+    refresh, a zeroed [C, K, 4] delta of the TMMC matrix, and under
+    tmmc_bias the shared eta (None: no tilt yet)."""
+    kw = {}
+    if cfg.cavity_bias:
+        if states.cavity_open is None:
+            raise ValueError("cavity_bias: the state has no cavity grid — "
+                             "initialize it first")
+        kw["cav_list"], kw["cav_n"] = mc_kernel.pack_cavity(
+            states.cavity_open)
+    if cfg.tmmc:
+        if states.tmmc_c is None:
+            raise ValueError("tmmc: the state has no TMMC matrix — "
+                             "initialize it first")
+        kw["tmmc_out"] = torch.zeros(states.tmmc_c.shape, dtype=torch.float64,
+                                     device=states.pos.device)
+        if cfg.tmmc_bias and thermo.tmmc_eta is not None:
+            kw["eta"] = thermo.tmmc_eta.to(states.pos.device,
+                                           cfg.tdtype).contiguous()
+    return kw
 
 
 def run_chunk_fused_uvt_multi(states: SimState, params: Params,
@@ -1288,8 +1449,12 @@ def run_chunk_fused_uvt_multi(states: SimState, params: Params,
                                      tables)
     new_pos, slot_alive, sums, sk_re, sk_im = mc_kernel.run_steps_uvt(
         *args, **kw)
-    return _apply_fused(states, sums, tables[0], slot_alive, new_pos, sk_re,
-                        sk_im, cfg, n_steps)
+    new, stats = _apply_fused(states, sums, tables[0], slot_alive, new_pos,
+                              sk_re, sk_im, cfg, n_steps)
+    if cfg.tmmc:       # the chunk's collection, added to each chain's
+        new = new.replace(tmmc_c=states.tmmc_c + kw["tmmc_out"].to(
+            states.tmmc_c.dtype))
+    return new, stats
 
 
 def run_chunk_fused_uvt(state: SimState, params: Params, cfg: RunConfig,
@@ -1312,14 +1477,37 @@ def run_chunk_fused_uvt(state: SimState, params: Params, cfg: RunConfig,
 # Fused polar delayed acceptance (kernel B6, mc_kernel.run_steps_uvt_pda)
 # ---------------------------------------------------------------------------
 
+def _pda_tilt(state: SimState, params: Params, cfg: RunConfig,
+              thermo: Thermo):
+    """(N, eta(N + 1) - eta(N), eta(N - 1) - eta(N)) at the state's count N
+    of the TMMC species, on the device — the tilts of B6's stage-1 test
+    under tmmc_bias (0 without a bias table), N clipped to eta's rows as
+    the reference does (mpmc_tpu/mc/metropolis.py:1643-1653)."""
+    n_c = torch.sum(state.mol_alive
+                    & (params.mol_species == cfg.insert_species[0]))
+    eta = thermo.tmmc_eta
+    if not (cfg.tmmc_bias and eta is not None):
+        z = torch.zeros((), dtype=cfg.tdtype, device=n_c.device)
+        return n_c, z, z
+    k_e = eta.shape[0]
+    up = torch.clamp(n_c + 1, 0, k_e - 1)
+    dn = torch.clamp(n_c - 1, 0, k_e - 1)
+    return (n_c, (eta[up] - eta[n_c]).to(cfg.tdtype),
+            (eta[dn] - eta[n_c]).to(cfg.tdtype))
+
+
 def pda_launch_args(state: SimState, params: Params, cfg: RunConfig,
-                    thermo: Thermo, uniforms, tables, consts=None):
+                    thermo: Thermo, uniforms, tables, consts=None,
+                    cav=None, tilt=None):
     """(args, kwargs) of mc_kernel.run_steps_uvt_pda (or its plain
     version) for one segment of ``state`` over the [K, 16] table
     ``uniforms`` — the launch of the reference's _fused_chunk_uvt_pda.
     ``cfg`` is the µVT cfg the path runs (mc_kernel.pda_effective_cfg),
     ``tables`` a ``uvt_fused_tables`` result for it, ``consts`` the
-    chunk's ``_uvt_chunk_consts`` (computed when None)."""
+    chunk's ``_uvt_chunk_consts`` (computed when None), ``cav`` the
+    chunk's ``mc_kernel.pack_cavity`` of the state's grid (computed when
+    None under cavity bias); under tmmc_bias the tilts at the state's N,
+    ``tilt`` (``_pda_tilt``, computed when None)."""
     slots, slot_start, species_idx, tmpl, natoms, A_list, rep_slots = tables
     box = state.box
     rc = pairs.derived_cutoff(box, cfg)
@@ -1343,14 +1531,25 @@ def pda_launch_args(state: SimState, params: Params, cfg: RunConfig,
               field_alpha=0.0 if paf is None else paf,
               field_krc=0.0 if pkrc is None else pkrc,
               mol_mass=_mol_mass_plane(params, cfg))
+    if cfg.cavity_bias:
+        if cav is None:
+            if state.cavity_open is None:
+                raise ValueError("cavity_bias: the state has no cavity "
+                                 "grid — initialize it first")
+            cav = mc_kernel.pack_cavity(state.cavity_open)
+        kw.update(cav_list=cav[0], cav_n=cav[1].reshape(1))
+    if mc_kernel._pda_bias(cfg):
+        if tilt is None:
+            tilt = _pda_tilt(state, params, cfg, thermo)
+        _, kw["d_eta_ins"], kw["d_eta_del"] = tilt
     return args, kw
 
 
 def _pda_stage2(state: SimState, params: Params, cfg: RunConfig,
                 thermo: Thermo, c: _Chunk, rec, mt, mol, natoms):
-    """(state, accept, CG iterations) after the exact SCF stage 2 of B6's
-    survivor — move type ``mt``, molecule ``mol`` with ``natoms`` sites,
-    record ``rec`` [8,16] on the device (reference _fused_chunk_uvt_pda's
+    """(state, accept, CG iterations, ln a2) after the exact SCF stage 2
+    of B6's survivor — move type ``mt``, molecule ``mol`` with ``natoms``
+    sites, record ``rec`` [8,16] on the device (reference _fused_chunk_uvt_pda's
     stage2_full): the scan path's polar_trial gives the trial geometry,
     field and residual, then the warm-started solve and its polar energy;
     the survivor is accepted with ln u2 < -(d_polar - d*) / T,
@@ -1377,9 +1576,8 @@ def _pda_stage2(state: SimState, params: Params, cfg: RunConfig,
                                            cfg, e0_new, mu0=state.mu, r0=r0)
     pol_new = thole.polar_energy(mu_new, e0_new)
     d_surr, u2 = rec[0, 9].to(dtype), rec[0, 5].to(dtype)
-    accept = (torch.log(torch.clamp(u2, min=1e-38))
-              < -(pol_new - state.energy.polar - d_surr)
-              / thermo.temperature)
+    ln2 = -(pol_new - state.energy.polar - d_surr) / thermo.temperature
+    accept = torch.log(torch.clamp(u2, min=1e-38)) < ln2
     deltas = rec[1, :6].to(dtype)
     zero = torch.zeros((), dtype=dtype, device=dev)
     # record row 1: rd, es_real, es_recip, es_self, es_excl, lrc
@@ -1405,7 +1603,7 @@ def _pda_stage2(state: SimState, params: Params, cfg: RunConfig,
         new = new.replace(
             sk_re=torch.where(accept, state.sk_re + d_re, state.sk_re),
             sk_im=torch.where(accept, state.sk_im + d_im, state.sk_im))
-    return new, accept, iters
+    return new, accept, iters, ln2
 
 
 def run_chunk_fused_uvt_polar_da(state: SimState, params: Params,
@@ -1441,6 +1639,14 @@ def run_chunk_fused_uvt_polar_da(state: SimState, params: Params,
     natoms_h = params.mol_natoms.cpu().numpy()
     consts = _uvt_chunk_consts(state.pos, state.box, params, thermo, cfg,
                                tables[5], tables[6])
+    cav = (mc_kernel.pack_cavity(state.cavity_open) if cfg.cavity_bias
+           else None)
+    tm = tmmc_on(cfg)
+    if tm:
+        if state.tmmc_c is None:
+            raise ValueError("tmmc: the state has no TMMC matrix — "
+                             "initialize it first")
+        state = state.replace(tmmc_c=state.tmmc_c.clone())
     c = _Chunk(state.box, params, cfg, thermo)
     dev = state.pos.device
     stats = MCStats.zero(dev)
@@ -1455,22 +1661,58 @@ def run_chunk_fused_uvt_polar_da(state: SimState, params: Params,
             raise ValueError(f"uniforms: {uniforms.shape[0]} segments used "
                              f"up after {done} of {n_steps} steps")
         n_seg += 1
+        # TMMC: the segment's N (its state is fixed) and the bias tilts
+        tilt = _pda_tilt(state, params, cfg, thermo) if tm else None
         args, kw = pda_launch_args(state, params, cfg, thermo, u, tables,
-                                   consts)
+                                   consts, cav=cav, tilt=tilt)
         rec = mc_kernel.run_steps_uvt_pda(*args, **kw)
         head = rec[0, :9].cpu().numpy()      # the segment's one host read
         done += int(head[0])
         stats.attempts[[DISPLACE, INSERT, DELETE]] += head[6:9].astype(
             np.int64)
+        tmmc_c = state.tmmc_c
         if head[1] > 0.5:
             mt, mol = int(head[2]), int(slots_h[int(head[3])])
-            state, accept, iters = _pda_stage2(state, params, cfg, thermo, c,
-                                               rec, mt, mol,
-                                               int(natoms_h[mol]))
+            state, accept, iters, ln2 = _pda_stage2(
+                state, params, cfg, thermo, c, rec, mt, mol,
+                int(natoms_h[mol]))
             stats.accepts[(DISPLACE, INSERT, DELETE)[mt]] += accept.to(
                 torch.int64)
             stats.polar_iters += iters
+            if tm and mt in (1, 2):     # the survivor's estimator
+                tmmc_c.index_put_(
+                    (tilt[0].reshape(1),
+                     torch.tensor([2 * mt - 1], device=dev)),
+                    _pda_tmmc_x(rec, mt, ln2, tilt, cfg, thermo).reshape(
+                        1).to(tmmc_c.dtype), accumulate=True)
+        if tm:
+            # every insert and delete attempt of the segment, at its N
+            # (the reference's :1746-1760)
+            tmmc_c.index_put_(
+                (tilt[0].reshape(1).expand(2),
+                 torch.tensor([0, 2], device=dev)),
+                torch.tensor(head[7:9], dtype=tmmc_c.dtype, device=dev),
+                accumulate=True)
+            state = state.replace(tmmc_c=tmmc_c)
     return state.replace(step=state.step + done), stats
+
+
+def _pda_tmmc_x(rec, mt, ln2, tilt, cfg, thermo):
+    """The TMMC estimator of B6's survivor, an insert (mt 1) or delete
+    (2): min(1, a2), under tmmc_bias times the importance weight min(1,
+    a1) / min(1, a1 e^{d_eta}), ln a1 = lnb - (du + d*) / T from the
+    record's unbiased lnb, six deltas and d* (the reference's
+    _fused_chunk_uvt_pda, mpmc_tpu/mc/metropolis.py:1719-1735)."""
+    dtype = cfg.tdtype
+    x = torch.exp(torch.clamp(ln2, max=0.0))
+    if not (cfg.tmmc_bias and thermo.tmmc_eta is not None):
+        return x
+    du1 = (rec[1, :6].sum() + rec[0, 9]).to(dtype)
+    ln1 = rec[0, 10].to(dtype) - du1 / thermo.temperature
+    d_eta = tilt[1] if mt == 1 else tilt[2]
+    return x * torch.exp(torch.clamp(ln1, max=0.0)
+                         - torch.clamp(ln1 + d_eta, max=0.0))
+
 
 
 def frozen_refresh_rows(params: Params, cfg: RunConfig) -> int:
@@ -1506,6 +1748,19 @@ def initialize(state: SimState, params: Params, cfg: RunConfig,
         active_row_start=frozen_rows if reuse else 0, e0=e0)
     # without polarization there are no dipoles to carry
     mu = aux.get("mu", state.mu) if cfg.polarization else None
+    # the cavity grid follows the refreshed positions (a stale grid between
+    # refreshes is the reference's rule); the TMMC matrix is a statistic,
+    # allocated once and never reset here
+    cavity_open = state.cavity_open
+    if cfg.cavity_bias:
+        cavity_open = moves.cavity_open_grid(
+            state.pos, state.box, state.atom_alive(params), cfg.cavity_grid,
+            cfg.cavity_radius)
+    tmmc_c = state.tmmc_c
+    if cfg.tmmc and tmmc_c is None:
+        tmmc_c = torch.zeros((params.n_mols_max + 1, 4), dtype=cfg.tdtype,
+                             device=state.pos.device)
     return state.replace(energy=e, e_frozen=e_frozen,
                          sk_re=aux.get("sk_re"), sk_im=aux.get("sk_im"),
-                         mu=mu, e0=aux.get("e0"), r_pol=aux.get("r_pol"))
+                         mu=mu, e0=aux.get("e0"), r_pol=aux.get("r_pol"),
+                         cavity_open=cavity_open, tmmc_c=tmmc_c)

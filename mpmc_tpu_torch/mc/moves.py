@@ -5,9 +5,12 @@ the lane layout of the fused µVT kernel (mc_kernel.draw_uniforms(lanes=16),
 consumed as in mc_kernel._kernel_uvt):
 
 - lane 0: the slot, by rank among the eligible slots;
-- lanes 1-3: the displacement, or the inserted molecule's fractional COM;
+- lanes 1-3: the displacement, or the inserted molecule's fractional COM
+  (under cavity bias its fractional position inside the picked cell);
 - lanes 5-7: displace rotation (axis z, axis azimuth, angle / rot_factor),
-  or the inserted molecule's Shoemake quaternion.
+  or the inserted molecule's Shoemake quaternion;
+- lane 10: under cavity bias the open cell of an insert, by rank among the
+  open cells of the grid.
 
 Move semantics follow the reference: displace = uniform translation in a
 cube of half-width ``move_factor`` plus a rotation about the mass-weighted
@@ -78,17 +81,51 @@ def displace_rows(pos, params: Params, mol, u, move_factor, rot_factor):
     return torch.where(valid[:, None], new, new[0]).contiguous()
 
 
-def place_rows(params: Params, mol, species, u, box):
+def place_rows(params: Params, mol, species, u, box, frac=None):
     """[A,3] trial rows: the species template at fractional COM u[1:4]
-    and Shoemake orientation u[5:8] (GCMC insertion).  Rows beyond the
+    (``frac`` when given: the cavity-biased COM of ``cell_frac``) and
+    Shoemake orientation u[5:8] (GCMC insertion).  Rows beyond the
     species' atom count duplicate the first row.  Over chains: ``mol``
     and ``species`` [C], ``u`` [C, 16] -> [C, A, 3]."""
-    com = pbc_ops._apply33(u[..., 1:4], box)
+    com = pbc_ops._apply33(u[..., 1:4] if frac is None else frac, box)
     q = quat.uniform_from(u[..., 5], u[..., 6], u[..., 7])
     new = (com[..., None, :]
            + quat.rotate(take(params.species_pos, species), q[..., None, :]))
     return torch.where(row_valid(params, mol)[..., None], new,
                        new[..., :1, :]).contiguous()
+
+
+def cavity_open_grid(pos, box, atom_alive, g: int, radius, block=256):
+    """[g^3] bool: the cells of a g x g x g grid over the cell whose centre
+    has no alive atom within ``radius`` under the minimum image — the
+    reference's cavity grid (mpmc_tpu/mc/moves.py:73-96), cell (i, j, k)
+    at flat index (i g + j) g + k, in row blocks of ``block`` cells.  On
+    the device, no host sync."""
+    dt, dev = pos.dtype, pos.device
+    ii = torch.arange(g, device=dev)
+    frac = (torch.stack(torch.meshgrid(ii, ii, ii, indexing="ij"),
+                        -1).reshape(-1, 3).to(dt) + 0.5) / g
+    centers = pbc_ops._apply33(frac, box)
+    box_inv = torch.linalg.inv(box)
+    r = torch.as_tensor(radius, dtype=dt, device=dev)
+    r2max = r * r
+    out = []
+    for b in range(0, centers.shape[0], block):
+        dr = pbc_ops.min_image(centers[b:b + block, None, :] - pos[None],
+                               box, box_inv)
+        near = (torch.sum(dr * dr, -1) < r2max) & atom_alive[None, :]
+        out.append(~torch.any(near, dim=1))
+    return torch.cat(out)
+
+
+def cell_frac(cell, u, g: int):
+    """[..., 3] fractional position of a point inside grid cell ``cell``
+    (flat index, [...] int), placed by lanes 1-3 of the uniform rows ``u``
+    [..., 16]: (ijk + u) / g — the cavity-biased insert COM, in the
+    arithmetic of the fused µVT kernel (mpmc_tpu/ops/pallas/
+    mc_kernel.py:1166-1190)."""
+    ijk = torch.stack([cell // (g * g), (cell // g) % g, cell % g], -1)
+    return (ijk.to(u.dtype) + u[..., 1:4]) / g
 
 
 def scale_volume(pos, box, params: Params, d_lnv):

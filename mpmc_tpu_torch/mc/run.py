@@ -11,8 +11,12 @@ NVT and NVE, run_chunk_fused_uvt / run_chunk_fused_uvt_multi in one launch
 of kernel B1 for µVT, and with polarization and ``polar_delayed``
 run_chunk_fused_uvt_polar_da — kernel B6 per segment, the exact SCF per
 survivor), then a refresh of the cached energies (full recompute on the
-frozen-reuse fast path — B2 restricted to the sorbate rows), observables,
-restart/trajectory output, and annealing/adaptation.
+frozen-reuse fast path — B2 restricted to the sorbate rows; under
+``cavity_bias`` the open-cell grid rebuilt), observables,
+restart/trajectory output, under ``tmmc`` the collection matrix flushed
+into float64 on the host (and under ``tmmc_bias`` eta rebuilt from it),
+and annealing/adaptation; a tmmc run ends by writing the matrix for
+``python -m mpmc_tpu_torch.analyze tmmc``.
 
 The entry points run on the current CUDA device unless the caller names
 another (``device="cpu"``), and raise when there is none.  Options outside
@@ -140,9 +144,7 @@ def check_supported(job: input_script.Job):
     if cfg.ensemble not in ("uvt", "nvt", "nve", "npt", "te", "replay"):
         _refuse(f"ensemble {cfg.ensemble}", "A12b")
     for flag, what, item in (
-            (cfg.cavity_bias, "cavity_bias", "A11"),
-            (cfg.tmmc, "tmmc", "A11"),
-            (cfg.quantum_rotation, "quantum_rotation", "A11"),
+            (cfg.quantum_rotation, "quantum_rotation", "A11b"),
             (cfg.cdvdw, "cdvdw", "A12b"),
             (cfg.cdvdw_repulsion != "none", "cdvdw repulsion", "A12b"),
             (cfg.quantum_vibration, "quantum_vibration", "A12b"),
@@ -242,6 +244,10 @@ def setup(job: input_script.Job, device=None,
         insert_names = list(names)    # clone existing sorbates
 
     insert_species = tuple(names.index(n) for n in insert_names)
+    if job.cfg.tmmc and len(insert_species) != 1:
+        raise ValueError(
+            "tmmc requires exactly one insert species (the collection "
+            f"matrix is over a scalar macrostate N); got {insert_names}")
     counts = [len(instances[n]) for n in names]
     capacity = [c + (job.max_molecules if i in insert_species else 0)
                 for i, c in enumerate(counts)]
@@ -343,6 +349,9 @@ def observables(su: Setup, state: SimState, stats=None) -> Dict[str, float]:
         total_sorb_amu += n_i * su.species[i].total_mass
     obs.update(sorbed_mass_obs(total_sorb_amu, obs["volume"],
                                su.frozen_mass))
+    if su.cfg.cavity_bias and state.cavity_open is not None:
+        # open cells of the grid this refresh built
+        obs["cavity_open"] = float(state.cavity_open.sum())
     if stats is not None:
         acc = np.asarray(stats.accepts) / np.maximum(stats.attempts, 1)
         for i, nm in enumerate(("displace", "insert", "delete", "volume",
@@ -529,6 +538,10 @@ def observables_batched(su: Setup, states: SimState, n_chains: int,
         n_pol = pol.sum(1)
         cols += [torch.sum(torch.where(pol, mu2, 0.0), dim=1)
                  / torch.clamp(n_pol, min=1), n_pol]
+    i_cav = len(cols)
+    cav = su.cfg.cavity_bias and states.cavity_open is not None
+    if cav:
+        cols.append(states.cavity_open.sum(1))
     host = torch.stack([x.double() for x in cols], 1).cpu().numpy()
     names = ("energy_total", "energy_rd", "energy_lrc", "energy_es",
              "energy_es_real", "energy_es_recip", "energy_es_self",
@@ -542,9 +555,11 @@ def observables_batched(su: Setup, states: SimState, n_chains: int,
             # the chain's kinetic temperature, 2 (E - U) / F (observables)
             k = float(su.thermo.nve_energy) - obs["energy_total"]
             obs["T_kinetic"] = 2.0 * k / max(float(host[c, i_dof]), 1.0)
-        if states.mu is not None and host[c, -1] > 0:
-            obs["polar_rrms_debye"] = float(np.sqrt(host[c, -2])
+        if states.mu is not None and host[c, i_cav - 1] > 0:
+            obs["polar_rrms_debye"] = float(np.sqrt(host[c, i_cav - 2])
                                             * DEBYE_PER_EA)
+        if cav:
+            obs["cavity_open"] = float(host[c, i_cav])
         if su.cfg.polarization and stats is not None:
             obs["polar_iters_per_step"] = float(
                 np.asarray(stats.polar_iters)[c]) / n_steps
@@ -613,6 +628,85 @@ def _annealed(thermo, job):
         min=job.simulated_annealing_target))
 
 
+class _TmmcHost:
+    """The run's TMMC matrix in float64 on the host (cfg.tmmc; the
+    reference's tmmc_host, mpmc_tpu/mc/run.py:1435-1471, :1630-1683):
+    after every block the device matrix (summed over chains) is added in
+    and zeroed, so its float32 sums stay far below 2^24; under tmmc_bias
+    eta = analyze.tmmc_eta of the total is rebuilt and shared by every
+    chain; at the end io/output.write_tmmc writes the total."""
+
+    def __init__(self, cfg: RunConfig):
+        self.cfg = cfg
+        self.c = None
+        self.attempts = 0      # the run's insert + delete attempts
+
+    def flush(self, state: SimState, thermo: Thermo, stats=None):
+        """(state with a zeroed matrix, thermo with the rebuilt eta);
+        ``stats``: the block's MCStats (host attempts), counted."""
+        if not self.cfg.tmmc:
+            return state, thermo
+        if stats is not None:
+            att = np.asarray(stats.attempts)
+            self.attempts += int(att[..., metropolis.INSERT].sum()
+                                 + att[..., metropolis.DELETE].sum())
+        c = state.tmmc_c.double().cpu().numpy()
+        if c.ndim == 3:                     # stacked chains pool
+            c = c.sum(axis=0)
+        self.c = c if self.c is None else self.c + c
+        state = state.replace(tmmc_c=torch.zeros_like(state.tmmc_c))
+        if self.cfg.tmmc_bias:
+            from mpmc_tpu_torch import analyze
+            eta = analyze.tmmc_eta(self.c)
+            if eta is not None:
+                thermo = thermo.replace(tmmc_eta=torch.as_tensor(
+                    eta, dtype=self.cfg.tdtype,
+                    device=state.tmmc_c.device))
+        return state, thermo
+
+    def extra(self, thermo: Thermo):
+        """The checkpoint's plain values: the host matrix and eta."""
+        if not self.cfg.tmmc:
+            return None
+        eta = thermo.tmmc_eta
+        return {"tmmc_host": None if self.c is None else self.c.tolist(),
+                "tmmc_eta": None if eta is None
+                else eta.double().cpu().tolist()}
+
+    def resume(self, extra, thermo: Thermo, device):
+        """thermo with the checkpoint's eta; the host matrix restored."""
+        if not self.cfg.tmmc or not extra:
+            return thermo
+        if extra.get("tmmc_host") is not None:
+            self.c = np.asarray(extra["tmmc_host"], np.float64)
+        if extra.get("tmmc_eta") is not None:
+            thermo = thermo.replace(tmmc_eta=torch.as_tensor(
+                extra["tmmc_eta"], dtype=self.cfg.tdtype, device=device))
+        return thermo
+
+    def write(self, job, su: Setup, thermo: Thermo, box, writer, what=""):
+        if self.c is None:
+            return
+        path = output_io.write_tmmc(
+            job.tmmc_output or "tmmc.json", self.c,
+            temperature=float(thermo.temperature.reshape(-1)[0]),
+            fugacities=[float(f) for f in thermo.fugacity.reshape(-1)],
+            volume=float(torch.abs(torch.linalg.det(box.double()))),
+            species=su.species_names,
+            insert_species=self.cfg.insert_species[0])
+        n = int(self.c[:, 0].sum() + self.c[:, 2].sum())
+        print(f"tmmc collection matrix{what} written to {path}: {n} "
+              f"attempts collected, of {self.attempts} insert + delete "
+              "attempts", file=writer.log)
+
+
+def _log_tmmc_bias(cfg, writer):
+    if cfg.tmmc_bias:
+        print("tmmc_bias: flat-histogram sampling — raw block averages are "
+              "bias-weighted; read the isotherm from 'analyze tmmc' on the "
+              "collection matrix", file=writer.log)
+
+
 def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     """The main MC loop (ensemble uvt/nvt/nve/npt): one chain on the scan
     path, or under ``fused_mc`` on the fused NVT/NVE kernel (B3), the
@@ -640,6 +734,7 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
         print(f"WARNING: unknown options ignored: {job.unknown_options}",
               file=writer.log)
     log_pair_route(cfg, writer.log)
+    _log_tmmc_bias(cfg, writer)
     chunk = metropolis.run_chunk
     if cfg.fused_mc:
         # the reference's gate order: the NVT/NVE kernel, the µVT one (both
@@ -689,11 +784,14 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
         pqr_io.write(job.frozen_output, frame.frozen,
                      remark="frozen framework")
     avgs = Averages()
+    tmmc = _TmmcHost(cfg)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     if job.checkpoint_input:
-        # the state, the averages and the random stream (exact resume)
-        state, avgs, _ = checkpoint.load(job.checkpoint_input, state,
-                                         generator=generator)
+        # the state, the averages, the random stream and the TMMC matrix
+        # and bias (exact resume)
+        state, avgs, extra = checkpoint.load(job.checkpoint_input, state,
+                                             generator=generator)
+        thermo = tmmc.resume(extra, thermo, device)
         print(f"resumed exactly from {job.checkpoint_input} at step "
               f"{state.step}", file=writer.log)
     hist = _hist_make(job, state.box)
@@ -720,9 +818,10 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
         writer.write_dipoles(params, state)
         if hist is not None:
             _hist_add(hist, state, params)
+        state, thermo = tmmc.flush(state, thermo, stats)
         if job.checkpoint_output:
             checkpoint.save(job.checkpoint_output, state, avgs,
-                            generator=generator)
+                            extra=tmmc.extra(thermo), generator=generator)
         if job.adapt_moves:
             thermo = _adapted(thermo, obs.get("acc_displace", 0.5),
                               state.box, cfg)
@@ -730,6 +829,7 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
             thermo = _annealed(thermo, job)
     wall = time.time() - t0
     _hist_finish(hist, job, writer)
+    tmmc.write(job, su, thermo, state.box, writer)
     if job.pqr_output:
         pqr_io.write_state(job.pqr_output, params, state, su.species_names,
                            remark=f"final step {state.step}")
@@ -806,10 +906,12 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
         print(f"WARNING: unknown options ignored: {job.unknown_options}",
               file=writer.log)
     print(f"batched chains: {C}", file=writer.log)
+    _log_tmmc_bias(cfg, writer)
     state = metropolis.initialize(su.state, params, cfg, thermo)
     chunk, _ = _chains_route(cfg, params, state.mol_alive, C, writer)
     states = multichain.stack_states(state, C)
     avgs = Averages()
+    tmmc = _TmmcHost(cfg)
     hist = _hist_make(job, state.box)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     corr = max(cfg.corrtime, 1)
@@ -835,6 +937,8 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
         if hist is not None:
             for c in range(C):
                 _hist_add(hist, slice_chain(states, c), params)
+        # the chains sample one state point: their matrices pool
+        states, thermo = tmmc.flush(states, thermo, stats)
         if job.adapt_moves:
             thermo = _adapted(thermo, obs["acc_displace"], st0.box, cfg)
         if job.simulated_annealing:
@@ -842,6 +946,7 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
     wall = time.time() - t0
     steps_done = n_blocks * corr
     _hist_finish(hist, job, writer, f" ({C} chains reduced)")
+    tmmc.write(job, su, thermo, st0.box, writer, f" ({C} chains summed)")
     writer.final_averages(avgs, float(thermo.temperature),
                           fugacities=thermo.fugacity.cpu().numpy())
     print(f"steps/sec: {steps_done * C / max(wall, 1e-9):.2f} aggregate "

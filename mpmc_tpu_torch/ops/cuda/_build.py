@@ -50,11 +50,12 @@ _SIGNATURES = {
     "uvt_kernel": {
         # pos alive eps sig q mass mmass slot_start slot_species slot_alive
         # tmpl natoms scal betas lnfvs d_self d_excl c1 cx u kvec kcoef sk
-        # sums | C n ms S A K nk G rd mix es ortho qc | ke hb2 | stream
-        "run_steps_uvt": [_P] * 24 + [_I] * 13 + [ctypes.c_double] * 2
+        # sums cav_list cav_n eta tmmc | C n ms S A K nk G rd mix es ortho
+        # qc g g3 ke_eta rows cav tm bias | ke hb2 | stream
+        "run_steps_uvt": [_P] * 28 + [_I] * 20 + [ctypes.c_double] * 2
         + [_P],
-        # n nk ms qc G | clusters out
-        "uvt_occupancy": [_I] * 5 + [_PI],
+        # n nk ms qc xt G | clusters out
+        "uvt_occupancy": [_I] * 6 + [_PI],
     },
     "nvt_kernel": {
         # pos alive eps sig q mass mmass mv_start mv_natoms scal betas u
@@ -68,13 +69,17 @@ _SIGNATURES = {
     "pda_kernel": {
         # pos alive eps sig q mass mmass polar e0 slot_start slot_species
         # slot_alive tmpl natoms scal lnfv d_self d_excl c1 cx u kvec kcoef
-        # sk rec | n ms S A K nk G rd mix es ortho damp field qc | ke hb2 |
-        # stream
-        "run_steps_uvt_pda": [_P] * 25 + [_I] * 14 + [ctypes.c_double] * 2
+        # sk rec cav_list cav_n | n ms S A K nk G rd mix es ortho damp field
+        # qc g g3 cav bias | ke hb2 | stream
+        "run_steps_uvt_pda": [_P] * 27 + [_I] * 18 + [ctypes.c_double] * 2
         + [_P],
-        # n nk ms A field qc G | clusters out
-        "pda_occupancy": [_I] * 7 + [_PI],
+        # n nk ms A field qc xt G | clusters out
+        "pda_occupancy": [_I] * 8 + [_PI],
     },
+    # B1 and B6 with the µVT extras (cavity bias, TMMC): the same entries
+    # from their own sources, so that they compile beside the others
+    "uvt_xt_kernel": {},
+    "pda_xt_kernel": {},
     "thole_kernel": {
         # pos src ok mol scal wl chains | K n ni nj dipole damp ortho grid
         # | part ticket out | stream
@@ -104,6 +109,9 @@ _HOST_SIGNATURES = {
         "pqr_close": ([_P], None),
     },
 }
+
+_SIGNATURES["uvt_xt_kernel"] = _SIGNATURES["uvt_kernel"]
+_SIGNATURES["pda_xt_kernel"] = _SIGNATURES["pda_kernel"]
 
 _libs: dict = {}
 

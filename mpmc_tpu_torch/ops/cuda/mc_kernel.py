@@ -37,8 +37,20 @@ mc_kernel.draw_uniforms(lanes=16) (chain c's step k reads row [c, k]):
 lane 8 the move type, 9 the species of an insert/delete, 0 the slot rank
 (B3: the molecule), 1-3 the translation or the inserted COM, 4 the
 acceptance coin (B6: of stage 1), 5-7 the rotation or the inserted
-orientation, 12 B6's stage-2 coin.  B3 reads lanes 0-7; B6 takes one
-chain's [K, 16].
+orientation, 10 under cavity bias the open cell of an insert (by rank
+among the grid's open cells, lanes 1-3 then the point inside it), 12 B6's
+stage-2 coin.  B3 reads lanes 0-7; B6 takes one chain's [K, 16].
+
+B1 and B6 have the µVT extras of the reference (mpmc_tpu/ops/pallas/
+mc_kernel.py:941-976, :2118-2124) behind a compile-time flag, an instance
+of its own (csrc/mc_common.cuh XtArgs): cavity-biased insertion (the
+chunk's open-cell list from ``pack_cavity``, +-ln(n_open/G^3) in the
+acceptance, an insert into an empty grid rejected) and, in B1, the TMMC
+collection (every insert or delete attempt adds (1, a) to row N of the
+chain's ``tmmc_out`` block, a the unbiased acceptance probability) with
+the ``tmmc_bias`` tilt eta(N') - eta(N) in the acceptance; B6 takes the
+tilt of an insert and of a delete as two scalars (its state is fixed for
+the launch) and keeps the record's lnb unbiased.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for CUDA tensors; anything else raises.  There is no fallback
@@ -59,8 +71,8 @@ The host helpers (``supported_uvt``, ``supported``, ``supported_multi``,
 reference's fused paths, restricted to the surface the port has: rd
 lj/none (FH and FK with lj), lb/waldman_hagler mixing, coulomb
 ewald/wolf/cutoff/none, f32, rigid molecules of up to MAX_SITES sites
-(B1: up to MAX_SPECIES insert species).  Cavity bias, TMMC and spinflip
-(ROADMAP A11) and the RD forms beyond lj/none and coulomb gwp (A12a-2)
+(B1: up to MAX_SPECIES insert species; TMMC with exactly one).  Spinflip
+(ROADMAP A11b) and the RD forms beyond lj/none and coulomb gwp (A12a-2)
 are refused here.
 """
 from __future__ import annotations
@@ -77,6 +89,7 @@ from mpmc_tpu_torch.ops import lj as lj_ops
 from mpmc_tpu_torch.ops import pairs, thole
 from mpmc_tpu_torch.ops import pbc as pbc_ops
 from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+from mpmc_tpu_torch.mc.moves import cell_frac
 from mpmc_tpu_torch.ops.cuda.pair_kernel import (_ES, _MIX, _RD, _check,
                                                  _ptr, _raise_on, _stream,
                                                  _suffix)
@@ -120,16 +133,18 @@ def quantum_option(cfg) -> int:
 
 
 def supported_uvt(cfg, params) -> bool:
-    """Static gate for the fused µVT path (the reference's supported_uvt):
-    GCMC over 1..MAX_SPECIES insert species, every movable slot of one of
-    them, uniform rigid slots of <= MAX_SITES sites per species, and no
-    charged template under Ewald (its jellium delta is quadratic in the
-    cell charge, which per-species constants cannot carry).  Host-side,
-    once per run."""
+    """Static gate for the fused µVT path (the reference's supported_uvt,
+    mpmc_tpu/ops/pallas/mc_kernel.py:2979-3030): GCMC over 1..MAX_SPECIES
+    insert species (TMMC: exactly one), every movable slot of one of them,
+    uniform rigid slots of <= MAX_SITES sites per species, and no charged
+    template under Ewald (its jellium delta is quadratic in the cell
+    charge, which per-species constants cannot carry); cavity bias and
+    TMMC ride along, spinflip does not.  Host-side, once per run."""
     if not (cfg.ensemble == "uvt"
             and 1 <= len(cfg.insert_species) <= MAX_SPECIES
-            and _supported_physics(cfg)
-            and not (cfg.cavity_bias or cfg.tmmc or cfg.quantum_rotation)):
+            and _supported_physics(cfg) and not cfg.quantum_rotation):
+        return False
+    if cfg.tmmc and len(cfg.insert_species) != 1:
         return False
     frozen = params.mol_frozen.cpu().numpy()
     spec = params.mol_species.cpu().numpy()
@@ -174,11 +189,13 @@ def pda_effective_cfg(cfg, params):
 
 
 def supported_uvt_polar_da(cfg, params) -> bool:
-    """The reference's gate of the fused polar delayed-acceptance path:
-    polarization + polar_delayed with the CG solver, a supported damping,
-    a delta-able static field (thole.field_delta_supported) and no cdvdw,
-    over the fused µVT surface (pda_effective_cfg, without
-    polarization).  Where it holds, ``fused_mc`` runs
+    """The reference's gate of the fused polar delayed-acceptance path
+    (mpmc_tpu/ops/pallas/mc_kernel.py:2841-2897): polarization +
+    polar_delayed with the CG solver, a supported damping, a delta-able
+    static field (thole.field_delta_supported) and no cdvdw, over the
+    fused µVT surface (pda_effective_cfg, without polarization; cavity
+    bias, TMMC and its bias compose, the collection on the host).  Where
+    it holds, ``fused_mc`` runs
     metropolis.run_chunk_fused_uvt_polar_da: B6 proposes and filters, the
     exact SCF decides each survivor."""
     if not (cfg.polarization and cfg.polar_delayed
@@ -283,12 +300,9 @@ def _refuse_cfg(cfg, what="run_steps_uvt"):
         raise ValueError(f"{what}: feynman_hibbs / feynman_kleinert "
                          "correct the LJ pair energy; rd_potential is "
                          f"{cfg.rd_potential!r}")
-    for flag, flag_name in ((cfg.cavity_bias, "cavity_bias"),
-                            (cfg.tmmc, "tmmc"),
-                            (cfg.quantum_rotation, "quantum_rotation")):
-        if flag:
-            raise NotImplementedError(
-                f"{what}: {flag_name} is not yet ported — ROADMAP A11")
+    if cfg.quantum_rotation:
+        raise NotImplementedError(
+            f"{what}: quantum_rotation is not yet ported — ROADMAP A11b")
 
 
 def _quantum_cols(mol_mass, cfg, n, dt, dev, what):
@@ -423,19 +437,71 @@ def _launch_cluster(lib, entry, cluster, C, n, dt, nk, ms, shape, what,
     return G
 
 
+def pack_cavity(cavity_open):
+    """(open-cell list, n_open) of the kernels' cavity bias from a grid
+    ``cavity_open`` [..., G^3] bool: each grid's open cell ids in rank
+    order, padded with 0, int32 [..., G^3], and their count int32 [...]
+    (the reference's _pack_cav without its (R, 128) planes).  On the
+    device, no host sync."""
+    m = cavity_open.to(torch.int64)
+    g3 = m.shape[-1]
+    rank = torch.cumsum(m, -1) - 1
+    tgt = torch.where(cavity_open, rank, torch.full_like(rank, g3))
+    lst = torch.zeros(m.shape[:-1] + (g3 + 1,), dtype=torch.int32,
+                      device=m.device)
+    ids = torch.arange(g3, dtype=torch.int32, device=m.device).expand_as(m)
+    lst.scatter_(-1, tgt, ids.contiguous())
+    return lst[..., :g3].contiguous(), m.sum(-1).to(torch.int32)
+
+
+def _xt_check(cfg, what, C, cav_list, cav_n, eta, tmmc_out, ms, dev,
+              tmmc=True):
+    """The cavity and TMMC inputs of a B1 (C chains) or B6 (C = None, one
+    chain) launch checked against ``cfg``; returns (g, g3, eta length,
+    TMMC rows, cav, tm, bias) for the kernel."""
+    lead = () if C is None else (C,)
+    g = g3 = ke = rows = 0
+    if cfg.cavity_bias:
+        g = int(cfg.cavity_grid)
+        g3 = g ** 3
+        if cav_list is None or cav_n is None:
+            raise ValueError(f"{what}: cavity_bias needs cav_list and cav_n "
+                             "(pack_cavity)")
+        _check("cav_list", cav_list, torch.int32, lead + (g3,), dev)
+        _check("cav_n", cav_n, torch.int32, lead if lead else (1,), dev)
+    tm = bool(cfg.tmmc) and tmmc
+    if tm:
+        if tmmc_out is None:
+            raise ValueError(f"{what}: tmmc needs tmmc_out")
+        rows = tmmc_out.shape[1]
+        if rows < ms + 1:
+            raise ValueError(f"{what}: tmmc_out has {rows} rows for {ms} "
+                             "slots")
+        _check("tmmc_out", tmmc_out, torch.float64, (C, rows, 4), dev)
+    bias = tm and bool(cfg.tmmc_bias) and eta is not None
+    if bias:
+        ke = eta.shape[0]
+        if ke < 1:
+            raise ValueError(f"{what}: empty eta")
+    return g, g3, ke, rows, int(bool(cfg.cavity_bias)), int(tm), int(bias)
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
 
-def _trial_rows(old, mass, ins, u, tmpl, box, move_factor, rot_factor):
+def _trial_rows(old, mass, ins, u, tmpl, box, move_factor, rot_factor,
+                frac=None):
     """[C,A,3] trial rows from each chain's uniform row u [C,16]:
     displace = translation (lanes 1-3) + axis-angle rotation (lanes 5-7)
     about the mass-weighted COM; insert = the template ``tmpl`` [C,A,3]
-    at fractional COM lanes 1-3 with a Shoemake orientation from lanes
-    5-7.  ``mass`` [C,A] is 0 on sites beyond the molecule's count."""
+    at fractional COM lanes 1-3 (``frac`` [C,3] when given: the
+    cavity-biased COM) with a Shoemake orientation from lanes 5-7.
+    ``mass`` [C,A] is 0 on sites beyond the molecule's count."""
     disp = (2.0 * u[:, 1:4] - 1.0) * move_factor                  # [C,3]
-    com_new = (u[:, 1:2] * box[0] + u[:, 2:3] * box[1]
-               + u[:, 3:4] * box[2])                                # [C,3]
+    fr = u[:, 1:4] if frac is None else frac
+    com_new = (fr[:, 0:1] * box[0] + fr[:, 1:2] * box[1]
+               + fr[:, 2:3] * box[2])                               # [C,3]
     isel = ins[:, None, None]
     if old.shape[1] == 1:
         return torch.where(isel, com_new[:, None, :],
@@ -560,19 +626,20 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
                         alpha, betas, move_factor, rot_factor, thr2, p_ins,
                         lnfvs, d_self, d_excl, c1, cx, uniforms, cfg,
                         kvecs=None, kcoef=None, sk_re=None, sk_im=None,
-                        cluster=None, mol_mass=None, trace=None):
+                        cluster=None, mol_mass=None, cav_list=None,
+                        cav_n=None, eta=None, tmmc_out=None, trace=None):
     """Plain B1: a loop over the K steps of batched tensor ops over the C
     chains and the N columns, with the kernel's arithmetic (the same
     per-species constants, the pair sums and the acceptance in float64).
     Arguments and results as ``run_steps_uvt``; ``cluster`` is ignored
-    (the plain sums do not depend on it); the inputs are not
-    modified.  ``trace``: a list that gets one dict per step — ``accept``
-    [C], ``margin`` [C] = ln u - ln(acceptance), and the work the kernel
-    does for it, ``pairs``, ``pairs_in``, ``cols`` and ``phases`` [C]
-    (pair evaluations, those within rc, columns passed and k-vector
-    phases), and ``rss`` [C, 2], the root sum of squares of the rd and es
-    terms summed into the step's deltas, in K (the scale of their
-    rounding)."""
+    (the plain sums do not depend on it); the inputs but ``tmmc_out`` are
+    not modified.  ``trace``: a list that gets one dict per step —
+    ``accept`` [C], ``margin`` [C] = ln u - ln(acceptance), and the work
+    the kernel does for it, ``pairs``, ``pairs_in``, ``cols`` and
+    ``phases`` [C] (pair evaluations, those within rc, columns passed and
+    k-vector phases), and ``rss`` [C, 2], the root sum of squares of the
+    rd and es terms summed into the step's deltas, in K (the scale of
+    their rounding)."""
     _refuse_cfg(cfg)
     quantum = _quantum_cols(mol_mass, cfg, pos.shape[1], pos.dtype,
                             pos.device, "run_steps_uvt")[0]
@@ -608,6 +675,14 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
     c1d, cxd = c1.double(), cx.double()
     sums = torch.zeros((C, N_SUMS), dtype=torch.float64, device=dev)
     rss_units = torch.tensor([1.0, KE], dtype=torch.float64, device=dev)
+    g, g3, _, _, cav, tm, bias = _xt_check(cfg, "run_steps_uvt_plain", C,
+                                           cav_list, cav_n, eta, tmmc_out,
+                                           slot_start.shape[0], dev)
+    if cav:
+        n_open = cav_n.long()
+        n_open_t = n_open.to(dt)
+        cav_lnf = (torch.log(torch.clamp(n_open.double(), min=1e-30))
+                   - math.log(float(g3)))
     for k in range(K):
         u = uniforms[:, k]
         u8 = u[:, 8]
@@ -636,7 +711,12 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
         old = pos[ar[:, None], rows]                               # [C,A,3]
         qi, ei, si = charge[rows], eps[rows], sig[rows]
         mi = torch.where(site_ok, mass[rows], torch.zeros_like(qi))
-        new = _trial_rows(old, mi, ins, u, tmpl[spf], box, mf, rotf)
+        frac = None
+        if cav:          # the open cell of rank j, a point inside it
+            jc = torch.minimum(torch.floor(u[:, 10] * n_open_t),
+                               n_open_t - 1.0).long().clamp(min=0)
+            frac = cell_frac(cav_list.long()[ar, jc], u, g)
+        new = _trial_rows(old, mi, ins, u, tmpl[spf], box, mf, rotf, frac)
         own = ((col[None, :] >= start[:, None])
                & (col[None, :] < (start + na)[:, None]))
         ok = alive & ~own
@@ -685,13 +765,30 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
                         - torch.log(beta) - lnfv[ar, spf],
                         torch.zeros_like(n_s)))
         reject = (cnt == 0) | ((thr2 > 0) & has_new & (mr2 < thr2))
-        ln_t = lnb - beta * du
+        if cav:
+            lnb = lnb + (fins - fdel) * cav_lnf
+            reject = reject | (ins & (n_open == 0))
+        ln_t = lnb - beta * du                                # unbiased
+        ln_eff = ln_t
+        if bias:          # the flat-histogram tilt eta(N') - eta(N)
+            ke = eta.shape[0]
+            n0 = torch.clamp(n_su, max=ke - 1)
+            n1 = torch.clamp(n0 + ins.long() - dele.long(), 0, ke - 1)
+            ln_eff = torch.where(disp, ln_t, ln_t + (eta[n1].double()
+                                                     - eta[n0].double()))
         ln_u = torch.log(torch.clamp(u[:, 4].double(), min=1e-38))
-        accept = ~reject & (ln_u < ln_t)
+        accept = ~reject & (ln_u < ln_eff)
+        if tm:            # (1, a) at row N of the insert / delete columns
+            a_pr = torch.where(reject, torch.zeros_like(ln_t),
+                               torch.exp(torch.clamp(ln_t, max=0.0)))
+            xd = ~disp
+            c0 = torch.where(ins, 0, 2)
+            tmmc_out[ar[xd], n_su[xd], c0[xd]] += 1.0
+            tmmc_out[ar[xd], n_su[xd], c0[xd] + 1] += a_pr[xd]
         if trace is not None:
             passes = torch.where(cnt > 0, (has_old.long() + has_new.long())
                                  * na, 0)
-            trace.append({"accept": accept, "margin": ln_u - ln_t,
+            trace.append({"accept": accept, "margin": ln_u - ln_eff,
                           "pairs": passes * ok.sum(1),
                           "pairs_in": torch.where(cnt > 0, in_o + in_n, 0),
                           "cols": torch.where(cnt > 0, ok.sum(1), 0),
@@ -727,7 +824,8 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
                   slot_species, slot_alive, tmpl, natoms, box, rc, alpha,
                   betas, move_factor, rot_factor, thr2, p_ins, lnfvs, d_self,
                   d_excl, c1, cx, uniforms, cfg, kvecs=None, kcoef=None,
-                  sk_re=None, sk_im=None, cluster=None, mol_mass=None):
+                  sk_re=None, sk_im=None, cluster=None, mol_mass=None,
+                  cav_list=None, cav_n=None, eta=None, tmmc_out=None):
     """B1: K fused µVT steps for C chains, one cluster of G CTAs each.
 
     Per chain: ``pos`` [C,N,3], atom ``alive`` [C,N] bool, ``slot_alive``
@@ -747,6 +845,16 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     [N]: each atom's molecular mass, needed under feynman_hibbs /
     feynman_kleinert (the terms at each chain's beta).
 
+    Under ``cfg.cavity_bias``: ``cav_list`` [C, G^3] int32 and ``cav_n``
+    [C] int32, each chain's open cells (``pack_cavity`` of its grid, G =
+    cfg.cavity_grid).  Under ``cfg.tmmc`` (one species): ``tmmc_out`` [C,
+    R, 4] float64, R > Ms, to which each insert or delete attempt adds
+    (1, a) at row N, its chain's alive count before the move, in columns
+    (0, 1) for an insert and (2, 3) for a delete, a the unbiased
+    acceptance probability (0 on a reject); under ``cfg.tmmc_bias``
+    ``eta`` [K'] (shared; None: no tilt) adds eta(N') - eta(N) to the
+    acceptance.  These run the kernel's XT instance.
+
     Returns (pos [C,N,3], slot_alive [C,Ms] bool, sums [C,14] float64,
     sk_re [C,Nk], sk_im [C,Nk]), sums in the reference order (d_rd,
     d_es_real, d_es_recip, d_es_self, d_es_excl, d_lrc, acc disp/ins/del,
@@ -765,7 +873,8 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
             slot_alive, tmpl, natoms, box, rc, alpha, betas, move_factor,
             rot_factor, thr2, p_ins, lnfvs, d_self, d_excl, c1, cx,
             uniforms, cfg, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re,
-            sk_im=sk_im, cluster=cluster, mol_mass=mol_mass)
+            sk_im=sk_im, cluster=cluster, mol_mass=mol_mass,
+            cav_list=cav_list, cav_n=cav_n, eta=eta, tmmc_out=tmmc_out)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps_uvt: no kernel for {pos.device}")
     _refuse_cfg(cfg)
@@ -806,14 +915,19 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
                                                      rot_factor, thr2, p_ins)]
                      + [box.reshape(-1),
                         torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
+    g, g3, ke_eta, rows, cav, tm, bias = _xt_check(
+        cfg, "run_steps_uvt", C, cav_list, cav_n, eta, tmmc_out, ms, dev)
+    if bias:
+        _check("eta", eta, dt, (ke_eta,), dev)
+    xt = int(bool(cav or tm))
     out_pos, out_alive = pos.clone(), alive.clone()
     out_slot = slot_alive.clone()
     sums = torch.empty((C, N_SUMS), dtype=torch.float64, device=dev)
     ortho = int(bool(cfg.ortho_box))
     from mpmc_tpu_torch.ops.cuda import _build
-    lib = _build.library("uvt_kernel")
+    lib = _build.library("uvt_xt_kernel" if xt else "uvt_kernel")
     G = _launch_cluster(lib, "uvt_occupancy", cluster, C, N, dt, nk, ms,
-                        (N, nk, ms, int(quantum)), "run_steps_uvt",
+                        (N, nk, ms, int(quantum), xt), "run_steps_uvt",
                         quantum=quantum)
     fn = getattr(lib, "run_steps_uvt_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
@@ -823,9 +937,12 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
              _ptr(scal), _ptr(betas), _ptr(lnfvs), _ptr(d_self),
              _ptr(d_excl), _ptr(c1), _ptr(cx), _ptr(uniforms),
              _ptr(kvecs) if ew else nullp, _ptr(kcoef) if ew else nullp,
-             _ptr(sk) if ew else nullp, _ptr(sums), C, N, ms, S, A, K, nk,
-             G, _RD[cfg.rd_potential], _MIX[cfg.mixing_rule],
-             _ES[cfg.coulomb], ortho, qc, ctypes.c_double(KE),
+             _ptr(sk) if ew else nullp, _ptr(sums),
+             _ptr(cav_list) if cav else nullp, _ptr(cav_n) if cav else nullp,
+             _ptr(eta) if bias else nullp, _ptr(tmmc_out) if tm else nullp,
+             C, N, ms, S, A, K, nk, G, _RD[cfg.rd_potential],
+             _MIX[cfg.mixing_rule], _ES[cfg.coulomb], ortho, qc, g, g3,
+             ke_eta, rows, cav, tm, bias, ctypes.c_double(KE),
              ctypes.c_double(HBAR2_KB_AMU_A2), _stream(dev))
     run_steps_uvt.launches += 1
     run_steps_uvt.last_cluster = G
@@ -1087,6 +1204,11 @@ def _pda_field(cfg):
     return 2 if cfg.polar_ewald else (1 if cfg.polar_wolf else 0)
 
 
+def _pda_bias(cfg) -> bool:
+    """Whether B6's stage-1 test takes the tmmc_bias tilt."""
+    return bool(cfg.tmmc and cfg.tmmc_bias)
+
+
 def _refuse_pda(cfg):
     """Raise on what neither B6 nor its plain version implements."""
     _refuse_cfg(cfg, "run_steps_uvt_pda")
@@ -1124,7 +1246,8 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
                             cx, uniforms, cfg, kvecs=None, kcoef=None,
                             sk_re=None, sk_im=None, field_alpha=0.0,
                             field_krc=0.0, cluster=None, mol_mass=None,
-                            trace=None):
+                            cav_list=None, cav_n=None, d_eta_ins=0.0,
+                            d_eta_del=0.0, trace=None):
     """Plain B6: a loop over the K rows of tensor ops over the N columns
     that stops at the freeze, with the kernel's arithmetic (the pair,
     surrogate and field sums, the constants and the stage-1 test in
@@ -1175,6 +1298,15 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
     rec = torch.zeros((8, 16), dtype=torch.float64, device=dev)
     att = [0, 0, 0]
     n_done = 0
+    g, g3, _, _, cav, _, _ = _xt_check(cfg, "run_steps_uvt_pda_plain", None,
+                                       cav_list, cav_n, None, None,
+                                       slot_start.shape[0], dev, tmmc=False)
+    xt = cav or _pda_bias(cfg)
+    de = (float(t(d_eta_ins)), float(t(d_eta_del))) if xt else (0.0, 0.0)
+    if cav:
+        n_open = int(cav_n.reshape(-1)[0])
+        cav_lnf = math.log(max(float(n_open), 1e-30)) - math.log(float(g3))
+        cav_l = cav_list.long().cpu()
 
     def coef(r2):
         r2s = torch.where(r2 > 1e-12, r2, torch.ones_like(r2))
@@ -1192,7 +1324,8 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
         att[mt] += 1
         cnt = int(n_valid[su] - n_alive[su] if ins
                   else (n_alive[su] if dele else n_alive.sum()))
-        if cnt == 0:                 # nothing to move: a stage-1 rejection
+        if cnt == 0 or (cav and ins and n_open == 0):
+            # nothing to move, or no open cell: a stage-1 rejection
             if trace is not None:
                 trace.append({"hit": False, "margin": math.inf, "pairs": 0,
                               "in_old": 0, "in_new": 0, "phases": 0,
@@ -1211,9 +1344,15 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
         old = pos[rows]                                            # [A,3]
         qi, ei, si = charge[rows], eps[rows], sig[rows]
         mi = torch.where(site_ok, mass[rows], zero)
+        frac = None
+        if cav and ins:      # the open cell of rank j, a point inside it
+            n_t = torch.tensor(float(n_open), dtype=dt)
+            jc = int(torch.minimum(torch.floor(uk[10] * n_t), n_t - 1.0))
+            frac = cell_frac(cav_l[jc].to(dev), uniforms[k:k + 1],
+                             g).reshape(1, 3)
         new = _trial_rows(old[None], mi[None],
                           torch.tensor([ins], device=dev), uniforms[k:k + 1],
-                          tmpl[spf][None], box, mf, rotf)[0]
+                          tmpl[spf][None], box, mf, rotf, frac)[0]
         has_old, has_new = not ins, not dele
         own = (col >= start) & (col < start + na)
         ok = alive & ~own
@@ -1276,7 +1415,11 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
             lnb = (math.log(max(n_s, 1e-30)) - math.log(beta)
                    - float(lnfv[spf]))
         reject = float(thr2) > 0.0 and has_new and mr2 < float(thr2)
+        if cav:
+            lnb = lnb + (fins - fdel) * cav_lnf
         ln1 = lnb - beta * (du + d_surr)
+        if xt:               # the tmmc_bias tilt; the record keeps lnb
+            ln1 = ln1 + (fins * de[0] + fdel * de[1])
         margin = math.log(max(float(uk[4]), 1e-38)) - ln1
         hit = not reject and margin < 0.0
         if trace is not None:
@@ -1324,7 +1467,8 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
                       p_ins, lnfv, d_self, d_excl, c1, cx, uniforms, cfg,
                       kvecs=None, kcoef=None, sk_re=None, sk_im=None,
                       field_alpha=0.0, field_krc=0.0, cluster=None,
-                      mol_mass=None):
+                      mol_mass=None, cav_list=None, cav_n=None, d_eta_ins=0.0,
+                      d_eta_del=0.0):
     """B6: up to K propose-and-filter µVT steps of one chain from a fixed
     state, frozen at the first stage-1 survivor of the polar delayed
     acceptance (csrc/pda_kernel.cu), on one cluster of G CTAs.
@@ -1346,7 +1490,13 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
     slice (with the polar planes) fits in shared memory (None:
     ``cluster_size`` for one chain).  ``mol_mass`` [N]: each atom's
     molecular mass, needed under feynman_hibbs / feynman_kleinert (at
-    ``beta``).
+    ``beta``).  Under ``cfg.cavity_bias``: ``cav_list`` [G^3] and
+    ``cav_n`` [1] int32, the open cells (``pack_cavity``); under
+    ``cfg.tmmc_bias``: ``d_eta_ins`` / ``d_eta_del``, eta(N + 1) - eta(N)
+    and eta(N - 1) - eta(N) at the state's N (numbers or device scalars),
+    added to the stage-1 test of an insert / a delete.  These run the
+    kernel's XT instance; the record's lnb stays unbiased (with the
+    cavity term).
 
     Returns the [8,16] float64 record in the reference's field order: row
     0 n_done, hit, mtype (0/1/2 displace/insert/delete), slot_idx,
@@ -1370,7 +1520,8 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
         return run_steps_uvt_pda_plain(
             *args, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re, sk_im=sk_im,
             field_alpha=field_alpha, field_krc=field_krc, cluster=cluster,
-            mol_mass=mol_mass)
+            mol_mass=mol_mass, cav_list=cav_list, cav_n=cav_n,
+            d_eta_ins=d_eta_ins, d_eta_del=d_eta_del)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps_uvt_pda: no kernel for {pos.device}")
     _refuse_pda(cfg)
@@ -1403,17 +1554,24 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
         _check("kcoef", kcoef, dt, (nk,), dev)
         sk = torch.stack([sk_re, sk_im]).to(dt).contiguous()       # [2,Nk]
 
+    g, g3, _, _, cav, _, _ = _xt_check(cfg, "run_steps_uvt_pda", None,
+                                       cav_list, cav_n, None, None, ms, dev,
+                                       tmmc=False)
+    bias = int(_pda_bias(cfg))
+    xt = int(bool(cav or bias))
+    # the XT instance reads the two tilts at scal[28], scal[29]
     scal = torch.cat([_scalar(x, dt, dev) for x in (
         rc, alpha, move_factor, rot_factor, thr2, p_ins, beta,
         cfg.polar_damp, field_alpha, field_krc)]
-        + [box.reshape(-1),
-           torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
+        + [box.reshape(-1), torch.linalg.inv_ex(box)[0].reshape(-1)]
+        + ([_scalar(d_eta_ins, dt, dev), _scalar(d_eta_del, dt, dev)]
+           if xt else [])).contiguous()
     rec = torch.zeros((8, 16), dtype=torch.float64, device=dev)
     field = _pda_field(cfg)
     from mpmc_tpu_torch.ops.cuda import _build
-    lib = _build.library("pda_kernel")
+    lib = _build.library("pda_xt_kernel" if xt else "pda_kernel")
     G = _launch_cluster(lib, "pda_occupancy", cluster, 1, N, dt, nk, ms,
-                        (N, nk, ms, A, field, int(quantum)),
+                        (N, nk, ms, A, field, int(quantum), xt),
                         "run_steps_uvt_pda", polar=True, quantum=quantum)
     fn = getattr(lib, "run_steps_uvt_pda_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
@@ -1423,11 +1581,12 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
              _ptr(scal), _ptr(lnfv), _ptr(d_self), _ptr(d_excl), _ptr(c1),
              _ptr(cx), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
              _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
-             _ptr(rec), N, ms, S, A, K, nk, G, _RD[cfg.rd_potential],
-             _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
+             _ptr(rec), _ptr(cav_list) if cav else nullp,
+             _ptr(cav_n) if cav else nullp, N, ms, S, A, K, nk, G,
+             _RD[cfg.rd_potential], _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
              int(bool(cfg.ortho_box)), tk._DAMP[cfg.polar_damp_type], field,
-             qc, ctypes.c_double(KE), ctypes.c_double(HBAR2_KB_AMU_A2),
-             _stream(dev))
+             qc, g, g3, cav, bias, ctypes.c_double(KE),
+             ctypes.c_double(HBAR2_KB_AMU_A2), _stream(dev))
     run_steps_uvt_pda.launches += 1
     run_steps_uvt_pda.last_cluster = G
     _raise_on(err, "run_steps_uvt_pda")

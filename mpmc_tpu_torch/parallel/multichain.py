@@ -40,10 +40,13 @@ def stack_states(state: SimState, n: int) -> SimState:
 def chain_thermo(thermo: Thermo, c: int) -> Thermo:
     """Chain ``c``'s Thermo of a per-chain one (a parallel-tempering
     ladder: ``temperature`` [C], ``fugacity`` [C, S]); shared knobs stay
-    as they are."""
+    as they are (the TMMC bias ``tmmc_eta`` is one table for every
+    chain)."""
     kw = {}
     for f in dataclasses.fields(thermo):
         v = getattr(thermo, f.name)
+        if f.name == "tmmc_eta":
+            continue
         base = 1 if f.name == "fugacity" else 0
         if isinstance(v, torch.Tensor) and v.ndim > base:
             kw[f.name] = v[c]

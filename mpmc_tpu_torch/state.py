@@ -208,6 +208,14 @@ class SimState:
     mu: Optional[torch.Tensor] = None
     e0: Optional[torch.Tensor] = None
     r_pol: Optional[torch.Tensor] = None
+    # cavity bias: the open cells of the G^3 grid [G^3] bool, rebuilt at
+    # every refresh (None unless cfg.cavity_bias)
+    cavity_open: Optional[torch.Tensor] = None
+    # TMMC collection matrix [n_mols_max + 1, 4]: per macrostate N (the
+    # insert species' alive count before the move) n_ins, sum a_ins,
+    # n_del, sum a_del; allocated by the first refresh and never reset by
+    # a later one (None unless cfg.tmmc)
+    tmmc_c: Optional[torch.Tensor] = None
 
     def atom_alive(self, params: Params):
         return self.mol_alive[params.mol_id] & params.atom_ok

@@ -69,6 +69,37 @@ def test_h2_sorption_deck_runs_and_writes_outputs(tmp_path):
     assert (tmp_path / "traj.pqr").read_text().count("REMARK") == 2
 
 
+def test_polar_tmmc_example_deck_and_analysis(tmp_path):
+    """examples/h2_polar_tmmc.inp as shipped (float32), shrunk to 600
+    steps at corrtime 200 (the reference's tests/test_examples.py:81),
+    through the CLI with --cpu: the fused polar delayed acceptance (B6's
+    plain version, the exact SCF per survivor) with the TMMC matrix, then
+    ``python -m mpmc_tpu_torch.analyze tmmc`` on it."""
+    import json
+    text = (REPO / "examples" / "h2_polar_tmmc.inp").read_text()
+    text = text.replace("numsteps         6000", "numsteps 600").replace(
+        "corrtime         500", "corrtime 200").replace(
+        "examples/framework_h2_polar.pqr",
+        str(REPO / "examples" / "framework_h2_polar.pqr"))
+    assert "numsteps 600" in text and "corrtime 200" in text
+    (tmp_path / "deck.inp").write_text(text)
+    out = _port_cli(["deck.inp"], tmp_path)
+    assert "polar delayed-acceptance stage-1 kernel" in out
+    assert out.count("\nstep ") == 3 and "WARNING" not in out
+    c = json.loads((tmp_path / "tmmc_polar.json").read_text())["c"]
+    n = int(sum(r[0] + r[2] for r in c))
+    assert n > 50 and f"{n} attempts collected, of {n} insert" in out
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-m", "mpmc_tpu_torch.analyze",
+                        "tmmc", "tmmc_polar.json", "--nf", "5", "--out",
+                        "iso.csv"], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "resolved window" in r.stdout
+    rows = (tmp_path / "iso.csv").read_text().strip().splitlines()
+    assert rows[0] == "f_atm,n_mean,var_n,edge_mass" and len(rows) == 6
+
+
 def test_cli_needs_cuda_without_cpu_flag(tmp_path):
     """Without --cpu the CLI runs on the CUDA device or fails: there is no
     silent fallback to the CPU."""
@@ -85,9 +116,10 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 # tempering run now, with polarization too (item None: the deck runs on
 # the batched polar route), and so do exact checkpoints (item None: the
 # single-chain polar deck writes its checkpoint), NPT (item None: a
-# frameless LJ deck on the scan path) and the Feynman-Hibbs/Kleinert
-# corrections (item None: the single-chain polar deck with the line);
-# polar NPT is A8c, the other RD forms and gwp A12a-2
+# frameless LJ deck on the scan path), the Feynman-Hibbs/Kleinert
+# corrections, cavity bias and TMMC (item None: the single-chain polar
+# deck with the line); polar NPT is A8c, spinflip A11b, the other RD forms
+# and gwp A12a-2
 REFUSED = [
     ("chains 4", "chains 4\npolarization on", None),
     ("ensemble npt", None),
@@ -95,8 +127,8 @@ REFUSED = [
     ("parallel_tempering on", "parallel_tempering on\npolarization on",
      None),
     ("chains 2\nfused_mc on\npolarization on", None),
-    ("cavity_bias on", "A11"),
-    ("tmmc on", "A11"), ("quantum_rotation on", "A11"),
+    ("cavity_bias on", None),
+    ("tmmc on", None), ("quantum_rotation on", "A11b"),
     ("cdvdw on", "A12b"), ("feynman_hibbs on", None),
     ("feynman_kleinert on", None), ("cell_list on", "A12b"),
     ("rd_crystal on", "A12b"), ("spectre on", "A12b"), ("sg on", "A12a-2"),
@@ -114,7 +146,10 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
     once refused, is written by the single-chain polar deck; NPT, once
     refused, runs a frameless LJ deck whose box moves; Feynman-Hibbs and
     Feynman-Kleinert, once refused, run the single-chain polar deck with
-    the pair passes' plain route named in the log."""
+    the pair passes' plain route named in the log; cavity bias and TMMC,
+    once refused, run it with the grid's open cells logged, or a
+    collection matrix written that holds every insert and delete
+    attempt."""
     line, item = case[-2:]
     if item is None and line == "ensemble npt":
         from torch_npt import lj_npt, write_deck
@@ -133,6 +168,8 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
     if item is None:
         from torch_polar import polar_deck
         line = line.replace("ck.npz", str(tmp_path / "ck.npz"))
+        if line == "tmmc on":
+            line += f"\ntmmc_output {tmp_path / 'tmmc.json'}"
         job = polar_deck(tmp_path, line + "\nn_replicas 2\ncorrtime 3\n",
                          numsteps=3)
         buf = io.StringIO()
@@ -144,6 +181,19 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
         if line.startswith("feynman"):
             assert "pair passes: the plain tile pass" in buf.getvalue()
             assert su.state.step == 3 and float(su.state.energy.polar) < 0
+            return
+        if line.startswith("cavity_bias"):
+            n_open = int(su.state.cavity_open.sum())
+            assert 0 < n_open < 10 ** 3 and su.state.step == 3
+            return
+        if line.startswith("tmmc"):
+            import json
+            import re
+            c = json.loads((tmp_path / "tmmc.json").read_text())["c"]
+            n = int(sum(r[0] + r[2] for r in c))
+            got = re.search(r"(\d+) attempts collected, of (\d+) insert",
+                            buf.getvalue())
+            assert got and int(got[1]) == int(got[2]) == n
             return
         assert "batched scan chains" in buf.getvalue()
         assert su.states.mu is not None

@@ -2,7 +2,8 @@
 or a per-chain header —, the fused µVT kernel B1, the fused NVT/NVE kernel
 B3 — both at every cluster size, B3 after an NPT volume move too —, the
 Thole field kernel B5 and the polar delayed-acceptance stage-1 kernel B6;
-B1, B3 and B6 with the Feynman-Hibbs/Kleinert corrections too) against
+B1, B3 and B6 with the Feynman-Hibbs/Kleinert corrections too, B1 and B6
+with cavity bias and TMMC, their XT instances) against
 their plain versions on the card; B2 and B4 never launched under those
 corrections; the native trajectory reader on a 10.8k-atom trajectory and
 checkpoints of card states with a CUDA generator.
@@ -1326,3 +1327,129 @@ def test_pair_kernels_not_launched_under_quantum(device, q):
     launched = pk.pair_terms.launches + pk.mol_pair.launches
     assert st.energy.rd.device.type == "cuda"
     assert (launched > 0) if q is None else launched == 0
+
+
+# cavity bias, TMMC and its flat-histogram bias (the XT instances of B1
+# and B6): 5^3 cells of 4.8 A over the 24 A box, radius 2 A (the cells at
+# the framework closed, the pores open)
+XT = dict(cavity_bias=True, cavity_grid=5, cavity_radius=2.0, tmmc=True,
+          tmmc_bias=True)
+
+
+def _xt_system(dtype, device, q=None, **kw):
+    """The MOF + H2 system (n_side 6) at 77 K and 20 atm under XT (and the
+    correction ``q``), jittered and initialized, with a seeded random eta;
+    and a thermo of two chains at QUANTUM_TEMPS."""
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=6, n_h2=20, capacity=40, dtype=dtype, device=device,
+        pressure=20.0, **kw)
+    cfg = dataclasses.replace(cfg, fused_mc=True, **XT,
+                              **(QUANTUM[q] if q else {}))
+    state = metropolis.initialize(systems.jittered(params, state, 7),
+                                  params, cfg, thermo)
+    assert 0 < int(state.cavity_open.sum()) < 5 ** 3
+    eta = np.random.default_rng(3).uniform(-1, 1, params.n_mols_max + 1)
+    thermo = thermo.replace(tmmc_eta=torch.as_tensor(
+        eta, dtype=cfg.tdtype, device=device))
+    two = thermo.replace(temperature=torch.tensor(
+        QUANTUM_TEMPS, dtype=cfg.tdtype, device=device))
+    return params, state, cfg, thermo, two
+
+
+@pytest.mark.parametrize("q", [None, "fh2"])
+@pytest.mark.parametrize("chains", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_uvt_kernel_xt_matches_plain(device, dtype, chains, q):
+    """B1's XT instance (cavity bias, TMMC, tmmc_bias; with FH2 too)
+    against its plain version on one [C, 200, 16] table: equal decisions,
+    slot aliveness and TMMC attempt counts, the sums and positions as
+    test_uvt_kernel_quantum_matches_plain, the Sigma a columns within
+    C x 1e-9 (float64) or the attempts x (beta 2e-3 K + 1e-5) (float32,
+    chip_smoke._sum_a_tol); launched once."""
+    params, state, cfg, thermo, two = _xt_system(dtype, device, q)
+    th = two if chains == 2 else thermo
+    u = torch.as_tensor(np.random.default_rng(9).random((chains, 200, 16)),
+                        dtype=cfg.tdtype, device=device)
+    args, kw = metropolis.fused_uvt_launch_args(
+        multichain.stack_states(state, chains), params, cfg, th, u,
+        metropolis.uvt_fused_tables(params, cfg))
+    tm_p = kw["tmmc_out"]
+    p = mk.run_steps_uvt_plain(*args, **kw)
+    kw_k = dict(kw, tmmc_out=torch.zeros_like(tm_p))
+    before = mk.run_steps_uvt.launches
+    k = mk.run_steps_uvt(*args, **kw_k)
+    torch.cuda.synchronize(device)
+    assert mk.run_steps_uvt.launches == before + 1
+    k_sums, p_sums = k[2].cpu().numpy(), p[2].cpu().numpy()
+    np.testing.assert_array_equal(k_sums[:, 6:12], p_sums[:, 6:12])
+    assert p_sums[:, 10:12].sum() > 50 and p_sums[:, 7:9].sum() > 0
+    assert torch.equal(k[1], p[1])
+    f64 = dtype == "float64"
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                               rtol=0, atol=1e-9 if f64 else 1e-4)
+    tol = (np.maximum(1e-10 * np.abs(p_sums[:, :6]), 1e-8) if f64 else
+           2e-5 * np.abs(p_sums[:, :6])
+           + 2e-3 * np.sqrt(p_sums[:, 6:9].sum(1, keepdims=True) + 1.0))
+    assert (np.abs(k_sums[:, :6] - p_sums[:, :6]) <= tol).all()
+    tk_, tp = kw_k["tmmc_out"].cpu().numpy(), tm_p.cpu().numpy()
+    np.testing.assert_array_equal(tk_[..., [0, 2]], tp[..., [0, 2]])
+    assert tk_[..., [0, 2]].sum() == k_sums[:, 10:12].sum()
+    beta = 1.0 / float(thermo.temperature)
+    a_tol = (1e-9 if f64 else
+             tp[..., [0, 2]] * (beta * 2e-3 + 1e-5))
+    assert (np.abs(tk_[..., [1, 3]] - tp[..., [1, 3]]) <= a_tol).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pda_kernel_xt_matches_plain(device, dtype):
+    """B6's XT instance (cavity bias and the tmmc_bias tilt) on the polar
+    MOF + H2 system: a forced survivor of each move type, a natural table
+    and a survivor-free one, held to _pda_agree's rules."""
+    params, state, cfg, thermo, _ = _xt_system(dtype, device,
+                                               polarization=True)
+    cfg = dataclasses.replace(cfg, polar_delayed=True)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    rng = np.random.default_rng(17)
+
+    def table(u):
+        return torch.as_tensor(u, dtype=cfg.tdtype, device=device)
+
+    def launch(u):
+        args, kw = metropolis.pda_launch_args(state, params, cfg, thermo, u,
+                                              tables)
+        assert "cav_list" in kw and "d_eta_ins" in kw
+        return mk.run_steps_uvt_pda(*args, **kw).cpu().numpy(), args, kw
+
+    us = []
+    for lane8 in (0.9, 0.1, 0.4):
+        u = rng.random((mk.PDA_SEG, 16))
+        u[0, 4], u[0, 8] = 1e-30, lane8
+        us.append(table(u))
+    us.append(table(rng.random((mk.PDA_SEG, 16))))
+    us.append(pda_survivor_free(lambda u: launch(u)[0],
+                                table(rng.random((mk.PDA_SEG, 16))), rng))
+    hits = 0
+    for u in us:
+        k, args, kw = launch(u)
+        torch.cuda.synchronize(device)
+        trace = []
+        _pda_agree(k, mk.run_steps_uvt_pda_plain(*args, **kw, trace=trace),
+                   trace, dtype == "float64")
+        hits += int(k[0, 1])
+    assert hits >= 3
+
+
+def test_xt_decks_on_the_card(device, tmp_path):
+    """A fused µVT chunk with cavity bias and TMMC on the card: the
+    collection holds every insert and delete attempt and the carried
+    energy equals a fresh recompute (rel 1e-4)."""
+    params, state, cfg, thermo, _ = _xt_system("float32", device)
+    g = torch.Generator(device=device).manual_seed(5)
+    st, stats = metropolis.run_chunk_fused_uvt(state, params, cfg, thermo,
+                                               2000, generator=g)
+    att = stats.attempts
+    assert float(st.tmmc_c[:, [0, 2]].sum()) == att[1] + att[2] > 100
+    fresh = metropolis.initialize(st, params, cfg, thermo)
+    assert float(st.energy.total) == pytest.approx(
+        float(fresh.energy.total), rel=1e-4)

@@ -109,6 +109,9 @@ def test_convert_round_trips_every_field(name):
     for f in dataclasses.fields(C):
         assert getattr(C, f.name) == getattr(c, f.name), f.name
     for f in dataclasses.fields(T):
+        if getattr(t, f.name) is None:      # tmmc_eta before any bias
+            assert getattr(T, f.name) is None, f.name
+            continue
         np.testing.assert_array_equal(getattr(T, f.name).numpy(),
                                       np.asarray(getattr(t, f.name)))
 
@@ -133,4 +136,7 @@ def test_port_builder_matches_jax_builder(dtype):
                                    getattr(b, f.name)), f.name
     assert C == ref[2]
     for f in dataclasses.fields(T):
+        if getattr(T, f.name) is None:      # tmmc_eta before any bias
+            assert getattr(ref[3], f.name) is None, f.name
+            continue
         assert torch.equal(getattr(T, f.name), getattr(ref[3], f.name))

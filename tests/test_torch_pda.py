@@ -183,9 +183,11 @@ def test_run_mc_routes_polar_delayed_to_b6(tmp_path, monkeypatch):
     assert len(called) == 2
 
 
-REFUSED = {"cavity_bias": ({"cavity_bias": True}, "A11"),
-           "tmmc": ({"tmmc": True}, "A11"),
-           "quantum_rotation": ({"quantum_rotation": True}, "A11"),
+# (cfg fields, the ROADMAP item B6 refuses them with; None: B6 runs them,
+# given the input they need)
+REFUSED = {"cavity_bias": ({"cavity_bias": True}, None),
+           "tmmc": ({"tmmc": True, "tmmc_bias": True}, None),
+           "quantum_rotation": ({"quantum_rotation": True}, "A11b"),
            "feynman_hibbs": ({"feynman_hibbs": True}, None),
            "rd_sg": ({"rd_potential": "sg"}, "A12a-2")}
 
@@ -193,10 +195,12 @@ REFUSED = {"cavity_bias": ({"cavity_bias": True}, "A11"),
 @pytest.mark.parametrize("flag", list(REFUSED))
 def test_b6_refuses_a11_features(flag):
     """What B6 does not carry raises NotImplementedError naming the
-    ROADMAP item, in the plain version too: cavity bias, TMMC and
-    spinflip (A11) and the RD forms beyond lj/none (A12a-2).
-    Feynman-Hibbs, once refused, runs (item None): with the molecule-mass
-    plane B6's plain version gives a record; without it, it raises."""
+    ROADMAP item, in the plain version too: spinflip (A11b) and the RD
+    forms beyond lj/none (A12a-2).  Feynman-Hibbs, cavity bias and TMMC,
+    once refused, run (item None): with the molecule-mass plane, the
+    open-cell list or the tmmc_bias tilts B6's plain version gives a
+    record; without the plane or the list it raises (TMMC is collected
+    by the driver, and its tilts default to 0)."""
     P, S, C, T = convert.from_jax(*jax_system("direct"))
     cfg = tmk.pda_effective_cfg(C, P)
     u = torch.as_tensor(np.random.default_rng(0).random((SEG, 16)),
@@ -206,10 +210,18 @@ def test_b6_refuses_a11_features(flag):
     extra, item = REFUSED[flag]
     args = args[:-1] + (dataclasses.replace(cfg, **extra),)
     if item is None:
-        with pytest.raises(ValueError, match="need mol_mass"):
-            tmk.run_steps_uvt_pda(*args, **kw)
-        rec = tmk.run_steps_uvt_pda(*args, **dict(kw,
-                                                  mol_mass=P.mol_mass_atom))
+        need = {"feynman_hibbs": ("need mol_mass",
+                                  dict(mol_mass=P.mol_mass_atom)),
+                "cavity_bias": ("needs cav_list", dict(zip(
+                    ("cav_list", "cav_n"), tmk.pack_cavity(torch.ones(
+                        C.cavity_grid ** 3, dtype=torch.bool))))),
+                "tmmc": (None, dict(d_eta_ins=0.5, d_eta_del=-0.5))}[flag]
+        if need[0] is not None:
+            with pytest.raises(ValueError, match=need[0]):
+                tmk.run_steps_uvt_pda(*args, **kw)
+        if flag == "cavity_bias":
+            need[1]["cav_n"] = need[1]["cav_n"].reshape(1)
+        rec = tmk.run_steps_uvt_pda(*args, **dict(kw, **need[1]))
         assert rec.shape == (8, 16) and 1 <= float(rec[0, 0]) <= SEG
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}$"):
