@@ -86,8 +86,9 @@ Phases (any failure raises, so the exit code is non-zero):
    to each other; save and load ms and bytes;
 15. replay (phase_replay) — ``ensemble replay`` over a 10-frame LJ
    trajectory with ``calc_pressure on`` and a 10-frame GCMC one (N
-   changing), each written by a port run: B2 launches per frame, the
-   first and last frames' card terms against CPU float64, the pressure
+   changing), each written by a port run: B2 launches per frame, the LJ
+   run's first frame's and the GCMC run's last frame's card terms against
+   CPU float64, the pressure
    within the bound of its energies' float32 rounding; frames/s and the
    reader's ms per frame;
 16. isotherm campaign (phase_campaign) — ``python -m
@@ -139,7 +140,25 @@ Phases (any failure raises, so the exit code is non-zero):
    command-line main (2,000 of its 6,000 steps) with ``analyze tmmc`` on
    its matrix: the route and kernel launches, n_open at every refresh,
    TMMC attempts == insert + delete attempts, the carried energy against
-   a fresh recompute.
+   a fresh recompute;
+23. the rotor table (phase_qrot_table) — B4 at position stride 0 over the
+   512 orientations of 4 rotors of the bench system against its plain
+   version and bit for bit against the same launch over an expanded,
+   copied pos; one 64-rotor launch timed; a refresh of DECK's 256 rotors
+   timed (B4 and the host eigensolves apart); 8 rotors' F_para, F_ortho
+   against CPU float64 within the Weyl bound of their grids' |dV|;
+24. spinflip kernels (phase_sf_kernels) — B1's XT instance with spinflip
+   at C = 1 (G = 16) and at C = 32 with cavity bias and TMMC too, B3's SF
+   instance on the MOF + H2 NVT system at C = 1 and 16, B6's XT instance
+   on PDA (d) with a forced spinflip survivor, against their plain
+   versions with each state's real rotor table: equal decisions and
+   spins; times beside the instance without spinflip in the same call;
+25. the spinflip decks (phase_sf_decks) — DECK with quantum_rotation on
+   the scan path (300 steps), fused µVT (5,000), ``chains 32`` (400),
+   fused MOF NVT (5,000), PDA (d) (100) and the 8-replica B1 ladder (400),
+   each at corrtime <= 200: the route, the kernel and the rotor grid
+   launched, the ortho fraction, spinflip acceptance, ms per refresh, and
+   the carried energy against a fresh recompute after a further chunk.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
@@ -188,7 +207,12 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "run_steps_uvt_pda_fh2": "mpmc_tpu_torch/csrc/pda_kernel.cu",
            "run_steps_uvt_xt": "mpmc_tpu_torch/csrc/uvt_xt_kernel.cu",
            "run_steps_uvt_xt_c32": "mpmc_tpu_torch/csrc/uvt_xt_kernel.cu",
-           "run_steps_uvt_pda_xt": "mpmc_tpu_torch/csrc/pda_xt_kernel.cu"}
+           "run_steps_uvt_pda_xt": "mpmc_tpu_torch/csrc/pda_xt_kernel.cu",
+           "mol_pair_grid": "mpmc_tpu_torch/csrc/pair_kernel.cu",
+           "run_steps_uvt_sf": "mpmc_tpu_torch/csrc/uvt_xt_kernel.cu",
+           "run_steps_uvt_sf_c32": "mpmc_tpu_torch/csrc/uvt_xt_kernel.cu",
+           "run_steps_sf": "mpmc_tpu_torch/csrc/nvt_sf_kernel.cu",
+           "run_steps_uvt_pda_sf": "mpmc_tpu_torch/csrc/pda_xt_kernel.cu"}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
@@ -205,7 +229,12 @@ REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "run_steps_uvt_pda_fh2": "mpmc_tpu/ops/pallas/mc_kernel.py:2089",
             "run_steps_uvt_xt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
             "run_steps_uvt_xt_c32": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
-            "run_steps_uvt_pda_xt": "mpmc_tpu/ops/pallas/mc_kernel.py:2089"}
+            "run_steps_uvt_pda_xt": "mpmc_tpu/ops/pallas/mc_kernel.py:2089",
+            "mol_pair_grid": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
+            "run_steps_uvt_sf": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
+            "run_steps_uvt_sf_c32": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
+            "run_steps_sf": "mpmc_tpu/ops/pallas/mc_kernel.py:220",
+            "run_steps_uvt_pda_sf": "mpmc_tpu/ops/pallas/mc_kernel.py:2089"}
 # NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
 # tensor cores, and device memory
 PEAK_F32 = 67e12
@@ -3024,11 +3053,12 @@ def phase_replay(device, smi):
     port runs: the 10k LJ fluid (fused NVT, 10 frames) with
     ``calc_pressure on`` and the 10.8k GCMC fused µVT deck (10 frames, N
     changing: frames laid out into the existing slots).  B2 launches must
-    be 1 per frame (3 with the pressure); the first and last frames' card
-    float32 terms are held against the plain float64 terms of the same
-    parsed frame on the CPU by phase_energy's rule, and the first LJ
-    frame's pressure against the float64 pressure within the bound of its
-    two energies' float32 rounding.  Frames/s, and the reader's ms per
+    be 1 per frame (3 with the pressure); the card float32 terms of the
+    LJ trajectory's first frame and of the GCMC one's last are held
+    against the plain float64 terms of the same parsed frame on the CPU by
+    phase_energy's rule, and the first LJ frame's pressure against the
+    float64 pressure within the bound of its two energies' float32
+    rounding.  Frames/s, and the reader's ms per
     frame."""
     from mpmc_tpu_torch.constants import ATM2K_A3
     from mpmc_tpu_torch.io import input_script, native, pqr
@@ -3071,7 +3101,9 @@ def phase_replay(device, smi):
                                      "into the existing slots")
             t_cpu = time.perf_counter()
             frames = pqr.read_frames(traj)
-            for i in (0, n_frames - 1):
+            # the LJ trajectory's first frame (with its pressure), the
+            # GCMC one's last (laid out into the existing slots)
+            for i in ((0,) if job.calc_pressure else (n_frames - 1,)):
                 with_p = job.calc_pressure and i == 0
                 ref, e64, n, vol = _replay_frame_plain(job, frames[i],
                                                        "float64", with_p)
@@ -3102,8 +3134,8 @@ def phase_replay(device, smi):
                     if not abs(got - p_ref) <= bound:
                         raise AssertionError(f"replay {label} frame {i}: "
                                              "pressure disagrees")
-            log(f"replay {label}: frames 0 and {n_frames - 1} held against "
-                f"cpu f64 term by term; seconds: trajectory run {t_traj:.1f}"
+            log(f"replay {label}: frame {i} held against cpu f64 term by "
+                f"term; seconds: trajectory run {t_traj:.1f}"
                 f", replay {wall:.1f}, cpu checks "
                 f"{time.perf_counter() - t_cpu:.1f}")
             rep[label] = {"frames": n_frames,
@@ -3998,6 +4030,623 @@ def phase_xt_decks(device, example_steps=2000):
     return launches, reps
 
 
+# ---------------------------------------------------------------------------
+# quantum rotation: the rotor tables (B4 at position stride 0) and the
+# spinflip move in B1, B3 and B6
+# ---------------------------------------------------------------------------
+
+# the spinflip probability of the kernel phase and the decks, and the
+# float32 rule of a rotor table against CPU float64: a rotor's Hamiltonian
+# moves by dH = sum_g w_g dV_g |Y(g)><Y(g)|, whose norm is at most max_g
+# |dV_g| (the quadrature integrates |Y|^2 to 1), so by Weyl's inequality
+# each level - and each free energy, a smooth mean of levels - moves by
+# at most the grid's largest |dV| (card float32 against CPU float64),
+# plus 1e-4 K for the float32 table; and |dV| itself stays within
+# F32_V_ABS K, the float32 rounding of Coulomb pair terms of up to 10^4 K
+# (eps32 10^4 K ~ 1e-3 K each, a random walk over the near pairs)
+P_SPIN = 0.1
+F32_V_ABS = 0.1
+
+
+def _rotor_table(system, device, times=None):
+    """(state with the initial spins and the rotor table at its positions,
+    eigensolves) of ``system`` on the card (run.qrot_init's work, with
+    ``times`` as qrot.eigen_tables)."""
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.ops import qrot
+    params, state, cfg, thermo = system
+    eigs = qrot.eigen_tables(state.pos, state.box, state.atom_alive(params),
+                             state.mol_alive, params, cfg, thermo,
+                             [systems.h2_bss3()], times=times)
+    table = qrot.table_from_eigs(eigs, params.n_mols_max,
+                                 float(thermo.temperature))
+    spins = qrot.initial_spins(cfg.seed, None, params.n_mols_max)
+    return state.replace(
+        spin=torch.as_tensor(spins, device=device),
+        rot_f=torch.as_tensor(table, dtype=cfg.tdtype, device=device)), eigs
+
+
+def _with_sf(system):
+    """``system`` with quantum_rotation on and spinflip_probability
+    P_SPIN."""
+    params, state, cfg, thermo = system
+    return (params, state, dataclasses.replace(cfg, quantum_rotation=True),
+            thermo.replace(spinflip_probability=torch.tensor(
+                P_SPIN, dtype=cfg.tdtype, device=state.pos.device)))
+
+
+def phase_qrot_table(device, n_check=8, n_grid=4):
+    """The rotor table of DECK's system (256 H2 rotors, float32 on the
+    card): B4 at position stride 0 over n_grid rotors' 512 orientations
+    against its plain version (the F32 rule of phase_kernels) and bit for
+    bit the same launch over an expanded, copied pos; then one full
+    refresh, timed (B4's potentials and the host eigensolves apart, the
+    card synchronized), repeated for the median; the F_para and F_ortho of
+    n_check rotors against the CPU float64 tables of the same positions,
+    within the rotor's max |dV| + 1e-4 K (dV: its grid potentials on the
+    card against CPU float64, each within F32_V_ABS).  B4's time per
+    launch of ROTORS_PER_LAUNCH rotors (per call, on the card alone), its
+    plain version's (in chunks of n_grid rotors) and the bound.  Returns
+    (report of mol_pair_grid, the table state)."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.ops import pairs, qrot
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    params, state, cfg, thermo = bench_system("float32", device)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    system = (params, state, cfg, thermo)
+    sp = [systems.h2_bss3()]
+    mols, _ = qrot.rotor_slots(state.mol_alive, params, sp)
+    log(f"rotor table: {len(mols)} rotors of the bench system")
+    axes = torch.as_tensor(qrot._basis(4, qrot.N_THETA, qrot.N_PHI)[3],
+                           dtype=torch.float32, device=device)
+    G = axes.shape[0]
+    scal = pairs.pair_scalars(state.box, cfg)
+    alive = state.atom_alive(params)
+    common = (params.charge, params.eps, params.sig, params.mol_id32)
+
+    def grid_args(ms):
+        mt = torch.as_tensor(ms, device=device)
+        rows = qrot.grid_rows(state.pos, params, mt, axes)
+        return (params.mol_atoms, params.mol_natoms,
+                mt.repeat_interleave(G),
+                rows.reshape(-1, rows.shape[2], 3).contiguous(), scal, cfg)
+
+    tail = grid_args(mols[:n_grid])
+    k = pk.mol_pair_chains(state.pos, *common, alive, *tail)
+    p = pk.mol_pair_chains_plain(state.pos, *common, alive, *tail)
+    C = tail[2].shape[0]
+    wide = pk.mol_pair_chains(state.pos.expand(C, -1, -1).contiguous(),
+                              *common, alive.expand(C, -1).contiguous(),
+                              *tail)
+    torch.cuda.synchronize(device)
+    p64 = pk.mol_pair_chains_plain(
+        state.pos.double(), *(x.double() for x in common[:3]), common[3],
+        alive, *tail[:3], tail[3].double(), scal.double(), cfg)
+    kd, pd = k.double().cpu().numpy(), p.double().cpu().numpy()
+    ref = p64.cpu().numpy()
+    err = np.abs(kd - pd)
+    tol = _tol(torch.float32, ref, pd)
+    log(f"B4 stride 0, {n_grid} rotors x {G} orientations (C={C}): |d| "
+        f"{err[:, :3].max():.3e} (worst |d|/tol "
+        f"{float(np.max(err / tol)):.3f}); equal to the expanded-pos launch: "
+        f"{torch.equal(k, wide)}")
+    if not (np.all(err <= tol) and torch.equal(k, wide)):
+        raise AssertionError("B4 at position stride 0 disagrees with its "
+                             "plain version or the expanded launch")
+    # one launch of ROTORS_PER_LAUNCH rotors: times and bound
+    full = grid_args(mols[:qrot.ROTORS_PER_LAUNCH])
+    Cf = full[2].shape[0]
+
+    def launch():
+        return pk.mol_pair_chains(state.pos, *common, alive, *full)
+
+    ms = time_calls(launch, device)
+    dms = time_device(launch, device, n=10)
+
+    def plain_chunks():
+        for r0 in range(0, Cf, n_grid * G):
+            sl = slice(r0, r0 + n_grid * G)
+            pk.mol_pair_chains_plain(state.pos, *common, alive, *full[:2],
+                                     full[2][sl], full[3][sl], scal, cfg)
+
+    pms = time_calls(plain_chunks, device, n=1)
+    n_cols = int(alive.sum())
+    pairs_n = Cf * 3 * n_cols
+    bound, by = _bound_ms(pairs_n * OPS_PAIR_B2B4,
+                          _nbytes(state.pos, *common, alive, *full[:5])
+                          + Cf * 4 * 4)
+    log(f"B4 stride 0, {qrot.ROTORS_PER_LAUNCH} rotors (C={Cf}): "
+        f"{ms:.3f} ms per call, {dms:.3f} on the card alone, plain {pms:.1f}"
+        f" ms, bound {bound:.4f} ms ({by}; {pairs_n:.3e} pairs)")
+    # the refresh, timed, and eight rotors against CPU float64
+    runs = []
+    for _ in range(3):
+        times = {}
+        t0 = time.perf_counter()
+        st, eigs = _rotor_table(system, device, times)
+        runs.append(((time.perf_counter() - t0) * 1e3, times))
+    total = statistics.median(r[0] for r in runs)
+    b4 = statistics.median(r[1]["b4_s"] * 1e3 for r in runs)
+    eig = statistics.median(r[1]["eigh_s"] * 1e3 for r in runs)
+    log(f"rotor table refresh ({len(mols)} rotors): {total:.1f} ms (B4 grid "
+        f"{b4:.1f} ms in {-(-len(mols) // qrot.ROTORS_PER_LAUNCH)} "
+        f"launches, eigensolves {eig:.1f} ms), median of 3")
+    pick = mols[::max(len(mols) // n_check, 1)][:n_check]
+    p64, _, c64, _ = bench_system("float64", "cpu")
+    pos64, box64 = state.pos.double().cpu(), state.box.double().cpu()
+    alive64 = state.atom_alive(params).cpu()
+    t64 = thermo.temperature.double().cpu()
+    ax64 = axes.double().cpu()
+    v64 = np.concatenate([qrot.potentials_on_grid(
+        pos64, box64, alive64, p64, c64, t64, [m], ax64).numpy()
+        for m in pick])
+    ev64, lo64 = qrot.levels_from_potentials(
+        v64, [qrot.rotational_constant(sp[0])] * len(pick), 4)
+    v32 = qrot.potentials_on_grid(state.pos, state.box, alive, params, cfg,
+                                  thermo.temperature, pick, axes
+                                  ).double().cpu().numpy()
+    worst, worst_v = 0.0, 0.0
+    for i, m in enumerate(pick):
+        f64 = qrot.symmetry_free_energies(ev64[i], lo64[i],
+                                          float(thermo.temperature))
+        f32 = st.rot_f[m].double().cpu().numpy()
+        d_v = float(np.abs(v32[i] - v64[i]).max())
+        tol_f = d_v + 1e-4
+        d = float(np.abs(f32 - np.asarray(f64)).max())
+        worst, worst_v = max(worst, d / tol_f), max(worst_v, d_v)
+        if not (np.array_equal(eigs[m][1], lo64[i]) and d <= tol_f
+                and d_v <= F32_V_ABS):
+            raise AssertionError(f"rotor {m}: F {f32} against CPU float64 "
+                                 f"{f64} (tol {tol_f:.3e}, max |dV| "
+                                 f"{d_v:.3e}), labels equal "
+                                 f"{np.array_equal(eigs[m][1], lo64[i])}")
+    gap = st.rot_f[mols, 1] - st.rot_f[mols, 0]
+    log(f"rotor table: {len(pick)} rotors' F_para, F_ortho within the f32 "
+        f"rule of CPU float64 (worst |dF|/(max |dV| + 1e-4 K) {worst:.3f};"
+        f" max |dV| {worst_v:.3e} K, max |V| {float(np.abs(v64).max()):.1f}"
+        " K); "
+        f"ortho - para {float(gap.min()):.2f} .. {float(gap.max()):.2f} K")
+    rep = {"max_abs_err": float(err[:, :3].max()), "ms": ms, "device_ms": dms,
+           "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+           "per": f"launch of {qrot.ROTORS_PER_LAUNCH} rotors x {G} "
+                  "orientations",
+           "refresh_ms": total, "refresh_b4_ms": b4,
+           "refresh_eigh_ms": eig, "table_max_dv": worst_v}
+    return rep, st
+
+
+def _spin_counts(k_spin, p_spin, label):
+    """Raise unless the kernel's and the plain version's spins agree."""
+    if not torch.equal(k_spin, p_spin):
+        raise AssertionError(f"{label}: spins differ from the plain version")
+
+
+def _uvt_sf_check(label, system, u, device, cluster=None):
+    """B1's XT instance with spinflip against its plain version on ``u``
+    [C, K, 16] (stacked copies of the state, its spins and table): equal
+    move counts (spinflip's too), slot aliveness and spins, under tmmc the
+    TMMC attempts; sums within _uvt_fh_check's float32 rule (with
+    _rss_tol for rd and es), positions within 1e-4 A.  Returns (kernel
+    outputs, plain trace, max |d|, (args, kw))."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    params, state, cfg, thermo = system
+    C, K = u.shape[0], u.shape[1]
+    args, kw = metropolis.fused_uvt_launch_args(
+        multichain.stack_states(state, C), params, cfg, thermo, u,
+        metropolis.uvt_fused_tables(params, cfg))
+    trace = []
+    p = mk.run_steps_uvt_plain(*args, **kw, trace=trace)
+    kw_k = dict(kw)
+    if "tmmc_out" in kw:
+        kw_k["tmmc_out"] = torch.zeros_like(kw["tmmc_out"])
+    k = mk.run_steps_uvt(*args, **kw_k, cluster=cluster)
+    torch.cuda.synchronize(device)
+    ps, ks = p[2].cpu().numpy(), k[2].cpu().numpy()
+    log(f"B1 {label} C={C} K={K} G={mk.run_steps_uvt.last_cluster}: kernel "
+        f"counts {ks[:, 6:14].sum(0).tolist()} plain "
+        f"{ps[:, 6:14].sum(0).tolist()}")
+    if not (np.array_equal(ks[:, 6:14], ps[:, 6:14])
+            and torch.equal(k[1], p[1])):
+        raise AssertionError(f"B1 {label}: decisions differ from the "
+                             "plain version")
+    _spin_counts(k[5], p[5], f"B1 {label}")
+    if "tmmc_out" in kw:
+        tk_, tp = kw_k["tmmc_out"].cpu().numpy(), kw["tmmc_out"].cpu().numpy()
+        if not np.array_equal(tk_[..., [0, 2]], tp[..., [0, 2]]):
+            raise AssertionError(f"B1 {label}: TMMC attempts differ")
+    if ps[:, 13].sum() < 1 or ps[:, 12].sum() < 1:
+        raise AssertionError(f"B1 {label}: no spinflip attempted/accepted")
+    n_acc = ps[:, 6:9].sum(1, keepdims=True)
+    tol = 2e-5 * np.abs(ps[:, :6]) + 2e-3 * np.sqrt(n_acc + 1.0)
+    tol[:, :2] += _rss_tol(trace)
+    d_sums = np.abs(ks[:, :6] - ps[:, :6])
+    d_pos = float((k[0] - p[0]).abs().max())
+    worst = np.unravel_index(np.argmax(d_sums / tol), d_sums.shape)
+    log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
+        f"{tol.max():.3e}; worst |d|/tol {float(np.max(d_sums / tol)):.3f} "
+        f"at chain {worst[0]} term {worst[1]}), pos {d_pos:.3e} A; spins "
+        f"equal, {int((k[5] != kw['spin']).sum())} flipped")
+    if not (np.all(d_sums <= tol) and d_pos <= 1e-4):
+        raise AssertionError(f"B1 {label} disagrees with its plain version")
+    return k, trace, max(float(d_sums.max()), d_pos), (args, kw_k)
+
+
+def _nvt_sf_check(label, system, u, device):
+    """B3's SF instance against its plain version on ``u`` [C, K, 16]:
+    equal accept and spinflip counts and spins, sums within
+    phase_nvt_kernel's float32 rule with _rss_tol for rd and es,
+    positions within 1e-4 A.  Returns
+    (kernel outputs, plain trace, max |d|, (args, kw))."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    params, state, cfg, thermo = system
+    C, K = u.shape[0], u.shape[1]
+    args, kw = metropolis.fused_nvt_launch_args(
+        multichain.stack_states(state, C), params, cfg, thermo, u,
+        metropolis.nvt_fused_tables(params, state.mol_alive))
+    trace = []
+    p = mk.run_steps_plain(*args, **kw, trace=trace)
+    k = mk.run_steps(*args, **kw)
+    torch.cuda.synchronize(device)
+    ps, ks = p[1].cpu().numpy(), k[1].cpu().numpy()
+    log(f"B3 {label} C={C} K={K} G={mk.run_steps.last_cluster}: kernel "
+        f"accepts/spin acc/spin att {ks[:, 3:6].sum(0).tolist()} plain "
+        f"{ps[:, 3:6].sum(0).tolist()}")
+    if not np.array_equal(ks[:, 3:6], ps[:, 3:6]):
+        raise AssertionError(f"B3 {label}: decisions differ from the plain "
+                             "version")
+    _spin_counts(k[4], p[4], f"B3 {label}")
+    if ps[:, 5].sum() < 1 or ps[:, 4].sum() < 1:
+        raise AssertionError(f"B3 {label}: no spinflip attempted/accepted")
+    tol = 2e-5 * np.abs(ps[:, :3]) + 2e-3 * np.sqrt(ps[:, 3:4] + 1.0)
+    tol[:, :2] += _rss_tol(trace)
+    d_sums = np.abs(ks[:, :3] - ps[:, :3])
+    d_pos = float((k[0] - p[0]).abs().max())
+    log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
+        f"{tol.max():.3e}; worst |d|/tol "
+        f"{float(np.max(d_sums / tol)):.3f}), pos {d_pos:.3e} A; spins "
+        "equal")
+    if not (np.all(d_sums <= tol) and d_pos <= 1e-4):
+        raise AssertionError(f"B3 {label} disagrees with its plain version")
+    return k, trace, max(float(d_sums.max()), d_pos), (args, kw)
+
+
+def phase_sf_kernels(device, K=128, K32=48, seed=2028, k_time=1000):
+    """B1, B3 and B6 with spinflip (p_spin P_SPIN, each state's real rotor
+    table and the initial spins) against their plain versions, float32,
+    on numpy-seeded tables: B1 (XT) on the 10.8k bench system at C = 1 (G
+    = 16) and at C = 32 with cavity bias, TMMC and tmmc_bias too (XT_CFG);
+    B3 (SF) on the 10.0k MOF + H2 NVT system at C = 1 and 16; B6 (XT) on
+    PDA (d) with a forced spinflip survivor, forced survivors of the other
+    move types, natural coins and a survivor-free table.  Equal decisions
+    and spins; sums, positions and B6's records within their phases'
+    rules.  Times per step on the card alone (and per call) beside the
+    instance without spinflip in the same call, the plain version's and
+    the bound.  Returns {entry: report}."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    rng = np.random.default_rng(seed)
+    f32 = torch.float32
+    reps = {}
+    # ---- B1 at C = 1 (spinflip) and C = 32 (spinflip + XT_CFG)
+    params, state, cfg, thermo = bench_system("float32", device)
+    base = (params, metropolis.initialize(state, params, cfg, thermo), cfg,
+            thermo)
+    st, _ = _rotor_table(base, device)
+    sys1 = _with_sf((base[0], st, base[2], base[3]))
+    xt = _xt_system(device, seed)
+    st_x, _ = _rotor_table(xt, device)
+    sys32 = _with_sf((xt[0], st_x, xt[2], xt[3]))
+    for C, Kc, G, system, name in ((1, K, 16, sys1, "run_steps_uvt_sf"),
+                                   (32, K32, None, sys32,
+                                    "run_steps_uvt_sf_c32")):
+        params, state, cfg, thermo = system
+        u = torch.as_tensor(rng.random((C, Kc, 16)), dtype=f32,
+                            device=device)
+        k, trace, err, (a1, kw1) = _uvt_sf_check(
+            f"spinflip{'' if C == 1 else ' + XT'} f32", system, u, device,
+            cluster=G)
+        pms = time_calls(lambda: mk.run_steps_uvt_plain(*a1, **kw1), device,
+                         n=1) / Kc
+        ops = _fused_ops(trace, cfg, kw1["kvecs"].shape[0])
+        n_io = (_nbytes(*a1[:25], *kw1.values())
+                + _nbytes(k[0], a1[1], *k[1:]))
+        bound, by = _bound_ms(ops, n_io)
+        ut = torch.as_tensor(rng.random((C, k_time, 16)), dtype=f32,
+                             device=device)
+        no_sf = dataclasses.replace(cfg, quantum_rotation=False)
+        tables = metropolis.uvt_fused_tables(params, cfg)
+        times = {}
+        for tag, c in (("without", no_sf), ("sf", cfg)):
+            at, kwt = metropolis.fused_uvt_launch_args(
+                multichain.stack_states(state, C), params, c, thermo, ut,
+                tables)
+
+            def launch():
+                if "tmmc_out" in kwt:
+                    kwt["tmmc_out"].zero_()
+                return mk.run_steps_uvt(*at, **kwt, cluster=G)
+
+            times[tag] = (_time_steps(launch, device, k_time),
+                          time_device(launch, device, n=5) / k_time)
+            log(f"B1 f32 {tag} spinflip C={C} G="
+                f"{mk.run_steps_uvt.last_cluster}: {times[tag][0] * 1e3:.3f}"
+                f" us per step ({k_time}-step launches; "
+                f"{times[tag][1] * 1e3:.3f} back to back)")
+        reps[name] = {
+            "max_abs_err": err, "ms": times["sf"][0],
+            "device_ms": times["sf"][1], "plain_ms": pms,
+            "bound_ms": bound / Kc, "bound_by": by,
+            "without_ms": times["without"][0],
+            "without_device_ms": times["without"][1],
+            "cluster": f"G={mk.run_steps_uvt.last_cluster} (C={C})",
+            "per": "step" if C == 1 else f"step of {C} chains"}
+    # ---- B3 at C = 1 and 16 on the MOF + H2 NVT system
+    nsys = nvt_system("mof", "float32", device)
+    st_n, _ = _rotor_table(nsys, device)
+    nsys = _with_sf((nsys[0], st_n, nsys[2], nsys[3]))
+    params, state, cfg, thermo = nsys
+    rep3 = {}
+    for C, Kc in ((1, K), (16, K32)):
+        u = torch.as_tensor(rng.random((C, Kc, 16)), dtype=f32,
+                            device=device)
+        k, trace, err, (a1, kw1) = _nvt_sf_check("spinflip f32", nsys, u,
+                                                 device)
+        pms = time_calls(lambda: mk.run_steps_plain(*a1, **kw1), device,
+                         n=1) / Kc
+        ops = _fused_ops(trace, cfg, kw1["kvecs"].shape[0])
+        bound, by = _bound_ms(ops, _nbytes(*a1[:16], *kw1.values())
+                              + _nbytes(*k))
+        ut = torch.as_tensor(rng.random((C, k_time, 16)), dtype=f32,
+                             device=device)
+        tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+        times = {}
+        for tag, c in (("without", dataclasses.replace(
+                cfg, quantum_rotation=False)), ("sf", cfg)):
+            at, kwt = metropolis.fused_nvt_launch_args(
+                multichain.stack_states(state, C), params, c, thermo, ut,
+                tables)
+            times[tag] = (
+                _time_steps(lambda: mk.run_steps(*at, **kwt), device,
+                            k_time),
+                time_device(lambda: mk.run_steps(*at, **kwt), device,
+                            n=5) / k_time)
+            log(f"B3 f32 {tag} spinflip C={C} G={mk.run_steps.last_cluster}"
+                f": {times[tag][0] * 1e3:.3f} us per step "
+                f"({times[tag][1] * 1e3:.3f} back to back)")
+        rep3[C] = {"max_abs_err": err, "ms": times["sf"][0],
+                   "device_ms": times["sf"][1], "plain_ms": pms,
+                   "bound_ms": bound / Kc, "bound_by": by,
+                   "without_ms": times["without"][0],
+                   "without_device_ms": times["without"][1],
+                   "cluster": f"G={mk.run_steps.last_cluster} (C={C})",
+                   "per": "step" if C == 1 else f"step of {C} chains"}
+    reps["run_steps_sf"] = dict(rep3[1], c16=rep3[16])
+    # ---- B6 on PDA (d) with spinflip
+    psys = polar_system("float32", device)
+    cfg_p = dataclasses.replace(psys[2], polar_delayed=True, fused_mc=True)
+    st_p, _ = _rotor_table((psys[0], psys[1], cfg_p, psys[3]), device)
+    params, state, cfg, thermo = _with_sf((psys[0], st_p, cfg_p, psys[3]))
+    cfg_eff = mk.pda_effective_cfg(cfg, params)
+    tables = metropolis.uvt_fused_tables(params, cfg_eff)
+    consts = metropolis._uvt_chunk_consts(state.pos, state.box, params,
+                                          thermo, cfg_eff, tables[5],
+                                          tables[6])
+    Kp = mk.PDA_SEG
+
+    def pda_args(c, u):
+        return metropolis.pda_launch_args(state, params, c, thermo, u,
+                                          tables, consts)
+
+    def table(x):
+        return torch.as_tensor(x, dtype=f32, device=device)
+
+    us = {}
+    for name, l11, lane8 in (("spinflip", 1e-30, 0.9), ("disp", 0.9, 0.9),
+                             ("ins", 0.9, 0.1), ("del", 0.9, 0.4)):
+        x = rng.random((Kp, 16))
+        x[0, 4], x[0, 8], x[0, 11] = 1e-30, lane8, l11
+        us[f"step 0 survives ({name})"] = table(x)
+    for i in range(3):
+        us[f"natural {i}"] = table(rng.random((Kp, 16)))
+
+    def launch_sf(u):
+        a, kw = pda_args(cfg_eff, u)
+        return mk.run_steps_uvt_pda(*a, **kw)
+
+    us["survivor-free"] = _pda_survivor_free(
+        launch_sf, table(rng.random((Kp, 16))), rng)
+    rep = {"max_abs_err": 0.0}
+    spins = 0
+    for name, u in us.items():
+        a, kw = pda_args(cfg_eff, u)
+        trace = []
+        p = mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace).cpu().numpy()
+        k = mk.run_steps_uvt_pda(*a, **kw, cluster=16).cpu().numpy()
+        rss = np.zeros(8)
+        if trace[-1].get("rss"):
+            rss[[0, 1, 2, 6]] = trace[-1]["rss"]
+        want = np.concatenate([p[1, :6], p[0, 9:11]])
+        tol = 2e-5 * np.abs(want) + 1e-3 + 8 * EPS32 * rss
+        d_vals = np.abs(np.concatenate([k[1, :6], k[0, 9:11]]) - want)
+        d_rows = float(np.abs(k[2:5] - p[2:5]).max())
+        log(f"B6 spinflip f32 {name} G=16: n_done {k[0, 0]:g} hit "
+            f"{k[0, 1]:g} mtype {k[0, 2]:g} spin att {k[0, 11]:g} (plain: "
+            f"{p[0, 0]:g} {p[0, 1]:g} {p[0, 2]:g} {p[0, 11]:g}); |d| "
+            f"{d_vals.max():.3e}, rows {d_rows:.3e}")
+        if not (np.array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8, 11]],
+                               p[0, [0, 1, 2, 3, 4, 6, 7, 8, 11]])
+                and np.all(d_vals <= tol) and d_rows <= 1e-4):
+            raise AssertionError(f"B6 spinflip {name} disagrees with its "
+                                 "plain version")
+        rep["max_abs_err"] = max(rep["max_abs_err"], float(d_vals.max()),
+                                 d_rows)
+        spins += int(k[0, 1] > 0.5 and k[0, 2] == 3)
+    if spins < 1:
+        raise AssertionError("B6 spinflip: no spinflip survivor")
+    u = us["survivor-free"]
+    a, kw = pda_args(cfg_eff, u)
+    trace = []
+    mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace)
+    ops = _pda_ops(trace, "direct", kw["kvecs"].shape[0])
+    bound, by = _bound_ms(ops, _nbytes(*a, *kw.values()) + 8 * 16 * 8)
+    ac, kwc = pda_args(dataclasses.replace(cfg_eff, quantum_rotation=False),
+                       u)
+    for tag, (aa, kk) in (("without", (ac, kwc)), ("sf", (a, kw))):
+        ms = time_calls(lambda: mk.run_steps_uvt_pda(*aa, **kk, cluster=16),
+                        device) / Kp
+        dms = time_device(lambda: mk.run_steps_uvt_pda(*aa, **kk,
+                                                       cluster=16),
+                          device, n=20) / Kp
+        rep.update({f"{tag}_ms": ms, f"{tag}_device_ms": dms})
+        log(f"B6 f32 {tag} spinflip, survivor-free table, G=16: "
+            f"{ms * 1e3:.2f} us/step per call, {dms * 1e3:.2f} on the card "
+            "alone")
+    pms = time_calls(lambda: mk.run_steps_uvt_pda_plain(*a, **kw), device,
+                     n=3) / Kp
+    rep.update(ms=rep.pop("sf_ms"), device_ms=rep.pop("sf_device_ms"),
+               plain_ms=pms, bound_ms=bound / Kp, bound_by=by,
+               cluster="G=16")
+    reps["run_steps_uvt_pda_sf"] = rep
+    log("spinflip kernels: " + json.dumps(reps))
+    return reps
+
+
+class _RefreshClock:
+    """Counts the rotor-table refreshes of a run and their B4 and
+    eigensolve seconds (qrot.eigen_tables given a ``times`` dict while the
+    clock is on)."""
+
+    def __enter__(self):
+        from mpmc_tpu_torch.ops import qrot
+        self.qrot, self.orig = qrot, qrot.eigen_tables
+        self.times, self.calls = {}, 0
+
+        def timed(*a, **kw):
+            self.calls += 1
+            kw["times"] = self.times
+            return self.orig(*a, **kw)
+
+        qrot.eigen_tables = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.qrot.eigen_tables = self.orig
+
+    def ms(self):
+        """(ms per refresh, of them B4, of them eigensolves)."""
+        n = max(self.calls, 1)
+        b4 = self.times.get("b4_s", 0.0) * 1e3 / n
+        eig = self.times.get("eigh_s", 0.0) * 1e3 / n
+        return b4 + eig, b4, eig
+
+
+SF_LINES = (f"quantum_rotation on\nspinflip_probability {P_SPIN}\n")
+# the spinflip decks: (label, system, deck lines, numsteps, route line or
+# None for the scan path, the kernel the route launches), each at corrtime
+# <= 200, the parser's staleness bound
+SF_DECKS = (
+    ("sf_scan", "mof", SF_LINES + "corrtime 100\n", 300, None, None),
+    ("sf_fused", "mof", SF_LINES + "fused_mc on\ncorrtime 200\n", 5000,
+     "single-chain fused µVT kernel", "run_steps_uvt"),
+    ("sf_c32", "mof", SF_LINES + "fused_mc on\nchains 32\ncorrtime 200\n",
+     400, "chain-interleaved multi-chain kernel (C=32)", "run_steps_uvt"),
+    ("sf_nvt", "mof", SF_LINES + "ensemble nvt\nfused_mc on\ncorrtime 200\n",
+     5000, "single-chain fused NVT kernel", "run_steps"),
+    ("sf_pda", "polar", SF_LINES + "polar_delayed on\nfused_mc on\n", 100,
+     "polar delayed-acceptance stage-1 kernel", "run_steps_uvt_pda"),
+    ("sf_pt", "mof", SF_LINES + "fused_mc on\nparallel_tempering on\n"
+     f"n_replicas {PT_R}\nmax_temperature {PT_T_MAX}\nptemp_freq 100\n"
+     "corrtime 200\n", 400, "chain-interleaved PT kernel", "run_steps_uvt"))
+
+
+def phase_sf_decks(device):
+    """The spinflip decks (SF_DECKS) through run.run: DECK with
+    quantum_rotation on the scan path (300 steps), fused µVT (5,000),
+    ``chains 32`` (400: each refresh rebuilds 32 tables), fused MOF NVT
+    (5,000), PDA (d) (100) and PT
+    (ii), the B1 ladder of 8 replicas (400 steps).  Each deck logs its
+    route and no WARNING, launches its kernel (B1 and B3 once per corrtime
+    on one chain) and the rotor grid (B4 at stride 0) at each refresh,
+    reports the ortho fraction and the spinflip acceptance; after a
+    further chunk the carried energy matches a fresh recompute.  Logs
+    steps/s and ms per refresh (B4 and eigensolves apart).  Returns
+    ({deck: launches}, {deck: report})."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    from mpmc_tpu_torch.state import slice_chain
+    launches, reps = {}, {}
+    for i, (label, kind, extra, numsteps, route, kernel) in enumerate(
+            SF_DECKS):
+        with _RefreshClock() as clock:
+            su, avgs, text, ln = _run_deck(device, extra, numsteps=numsteps,
+                                           kind=kind, verbose=False)
+        ln["mol_pair_grid"] = pk.mol_pair_chains.shared_launches
+        if "WARNING" in text or (route and f"fused_mc: {route}" not in text):
+            raise AssertionError(f"{label}: not the route {route!r}")
+        if kernel and not ln[kernel]:
+            raise AssertionError(f"{label}: {kernel} not launched: {ln}")
+        corr = su.cfg.corrtime
+        if (kernel in ("run_steps_uvt", "run_steps") and "chains" not in
+                extra and "parallel" not in extra
+                and ln[kernel] != numsteps // corr):
+            raise AssertionError(f"{label}: {kernel} launched {ln[kernel]} "
+                                 f"times for {numsteps // corr} blocks")
+        if not ln["mol_pair_grid"]:
+            raise AssertionError(f"{label}: the rotor grid launched no B4")
+        ortho = avgs.samples.get("ortho_fraction", [])
+        acc_sp = avgs.mean("acc_spinflip") if "acc_spinflip" in \
+            avgs.samples else float("nan")
+        if not ortho or not 0.0 <= min(ortho) <= max(ortho) <= 1.0:
+            raise AssertionError(f"{label}: ortho fractions {ortho}")
+        rate = float(text.split("steps/sec:")[1].split()[0])
+        ref_ms, b4_ms, eig_ms = clock.ms()
+        rep = {"steps_per_sec": rate, "ortho_fraction": ortho,
+               "acc_spinflip": acc_sp, "N": avgs.mean("N"),
+               "refreshes": clock.calls, "refresh_ms": ref_ms,
+               "refresh_b4_ms": b4_ms, "refresh_eigh_ms": eig_ms,
+               "kernel_launches": ln.get(kernel),
+               "b4_grid_launches": ln["mol_pair_grid"],
+               "b4_launches": ln["mol_pair"] + ln["mol_pair_chains"],
+               "b1_launches": ln["run_steps_uvt"],
+               "b3_launches": ln["run_steps"],
+               "b6_launches": ln["run_steps_uvt_pda"]}
+        g = torch.Generator(device=device).manual_seed(91 + i)
+        params, cfg, thermo = su.params, su.cfg, su.thermo
+        if su.states is not None:       # chains 32, and the PT ladder
+            sts, _ = metropolis.run_chunk_fused_uvt_multi(
+                su.states, params, cfg, thermo, 1000, generator=g)
+            for c in (0, sts.pos.shape[0] - 1):
+                _check_bookkeeping(f"{label} chain {c}, 1000 steps",
+                                   slice_chain(sts, c), su)
+        else:
+            if kernel == "run_steps_uvt":
+                st, _ = metropolis.run_chunk_fused_uvt(
+                    su.state, params, cfg, thermo, 1000, generator=g)
+            elif kernel == "run_steps":
+                st, _ = metropolis.run_chunk_fused(
+                    su.state, params, cfg, thermo, 1000, generator=g)
+            elif kernel == "run_steps_uvt_pda":
+                st, _ = metropolis.run_chunk_fused_uvt_polar_da(
+                    su.state, params, cfg, thermo, 100, generator=g,
+                    tables=metropolis.uvt_fused_tables(
+                        params, mk.pda_effective_cfg(cfg, params)))
+            else:
+                st, _ = metropolis.run_chunk(su.state, params, cfg, thermo,
+                                             100, generator=g)
+            _check_bookkeeping(f"{label}, a further chunk", st, su,
+                               polar=cfg.polarization)
+        log(f"{label}: " + json.dumps(rep))
+        launches[label], reps[label] = ln, rep
+    return launches, reps
+
+
 def _rows_equal(a, b):
     """Two campaign rows equal, NaN equal to NaN."""
     return a.keys() == b.keys() and all(
@@ -4095,6 +4744,14 @@ def main():
     mark("phase_xt_decks")
     xt_launches, xt_reps = phase_xt_decks(dev)
     t_14 = time.time() - t_14
+    t_sf = time.time()
+    mark("phase_qrot_table")
+    report["mol_pair_grid"] = phase_qrot_table(dev)[0]
+    mark("phase_sf_kernels")
+    report.update(phase_sf_kernels(dev))
+    mark("phase_sf_decks")
+    sf_launches, sf_reps = phase_sf_decks(dev)
+    t_sf = time.time() - t_sf
     # each kernel's launches on its own main path: B2 and B4 on the scan
     # path, B1 on the fused single-chain µVT path, B3 on the single-chain
     # MOF NVT deck, B5 (both modes) on the polar scan-path deck (dipole:
@@ -4127,14 +4784,25 @@ def main():
                 "run_steps_uvt_xt_c32":
                     xt_launches["tmmc_c32"]["run_steps_uvt"],
                 "run_steps_uvt_pda_xt":
-                    xt_launches["pda_tmmc_cav"]["run_steps_uvt_pda"]}
+                    xt_launches["pda_tmmc_cav"]["run_steps_uvt_pda"],
+                # B4 at position stride 0 (the rotor grid of every refresh)
+                # and B1, B3 and B6 with spinflip: the spinflip decks
+                "mol_pair_grid": sf_launches["sf_fused"]["mol_pair_grid"],
+                "run_steps_uvt_sf": sf_launches["sf_fused"]["run_steps_uvt"],
+                "run_steps_uvt_sf_c32":
+                    sf_launches["sf_c32"]["run_steps_uvt"],
+                "run_steps_sf": sf_launches["sf_nvt"]["run_steps"],
+                "run_steps_uvt_pda_sf":
+                    sf_launches["sf_pda"]["run_steps_uvt_pda"]}
     report["mol_pair_c16_header"] = report["mol_pair_c128"]["header"]
     names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps",
              "dipole_field", "charge_field", "run_steps_uvt_pda",
              "mol_pair_c128", "dipole_field_c8", "mol_pair_c16_header",
              "run_steps_uvt_fh2", "run_steps_uvt_fk", "run_steps_fh4",
              "run_steps_uvt_pda_fh2", "run_steps_uvt_xt",
-             "run_steps_uvt_xt_c32", "run_steps_uvt_pda_xt")
+             "run_steps_uvt_xt_c32", "run_steps_uvt_pda_xt",
+             "mol_pair_grid", "run_steps_uvt_sf", "run_steps_uvt_sf_c32",
+             "run_steps_sf", "run_steps_uvt_pda_sf")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -4279,6 +4947,32 @@ def main():
         + f"  xt_launches {xt_launches}  build_seconds {build_s:.1f}  "
         f"pr14_phases_seconds {t_14:.1f}  wall_seconds "
         f"{time.time() - t0:.1f}  ({smi})")
+    b4g = report["mol_pair_grid"]
+    log(f"b4_grid_ms {b4g['ms']:.4f}  b4_grid_device_ms "
+        f"{b4g['device_ms']:.4f}  b4_grid_bound_ms {b4g['bound_ms']:.4f}  "
+        f"qrot_refresh_ms {b4g['refresh_ms']:.1f} (b4 "
+        f"{b4g['refresh_b4_ms']:.1f}, eigh {b4g['refresh_eigh_ms']:.1f})  "
+        + "  ".join(f"{k}_us_per_step {r['ms'] * 1e3:.3f}  {k}_device_us_"
+                    f"per_step {r['device_ms'] * 1e3:.3f}  {k}_without_"
+                    f"device_us_per_step {r['without_device_ms'] * 1e3:.3f}"
+                    f"  {k}_plain_us_per_step {r['plain_ms'] * 1e3:.1f}  "
+                    f"{k}_bound_us_per_step {r['bound_ms'] * 1e3:.4f}"
+                    for k, r in (("run_steps_uvt_sf",
+                                  report["run_steps_uvt_sf"]),
+                                 ("run_steps_uvt_sf_c32",
+                                  report["run_steps_uvt_sf_c32"]),
+                                 ("run_steps_sf", report["run_steps_sf"]),
+                                 ("run_steps_sf_c16",
+                                  report["run_steps_sf"]["c16"]),
+                                 ("run_steps_uvt_pda_sf",
+                                  report["run_steps_uvt_pda_sf"])))
+        + "  " + "  ".join(
+            f"{k}_steps_per_sec {r['steps_per_sec']:.2f}  {k}_acc_spinflip "
+            f"{r['acc_spinflip']:.4f}  {k}_ortho_fraction "
+            f"{np.mean(r['ortho_fraction']):.4f}  {k}_refresh_ms "
+            f"{r['refresh_ms']:.1f}" for k, r in sf_reps.items())
+        + f"  sf_launches {sf_launches}  spinflip_phases_seconds {t_sf:.1f}  "
+        f"wall_seconds {time.time() - t0:.1f}  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

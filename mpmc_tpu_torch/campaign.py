@@ -166,6 +166,15 @@ def run_point(su, states, thermo, chains, corrtime, min_steps, max_steps,
             }
 
 
+CAMPAIGN_SPIN_TRAP = (
+    "quantum_rotation in an isotherm campaign: the reference's campaign "
+    "(mpmc_tpu/campaign.py:169-266) stacks its chains with no spins or "
+    "rotor table, and its batched step's spinflip reads them "
+    "(mpmc_tpu/mc/metropolis.py:608: TypeError on a small deck), so "
+    "there is no campaign with spinflip to port; run the points as "
+    "'chains N' decks")
+
+
 def run_isotherm(job, pressures, chains=16, target_rel_sem=0.02,
                  min_steps=2000, max_steps=50000, equil_blocks=2,
                  checkpoint_dir: Optional[str] = None, log=None,
@@ -183,7 +192,13 @@ def run_isotherm(job, pressures, chains=16, target_rel_sem=0.02,
     With ``samples_dir``, every point writes ``point_NNN.jsonl`` — a
     run_meta header and one record per (block, chain) sample — for
     ``analyze.py gcmc-mbar`` to reweight the whole campaign into a
-    continuous-fugacity isotherm."""
+    continuous-fugacity isotherm.
+
+    ``quantum_rotation`` (outside nve) is refused with a ValueError
+    (CAMPAIGN_SPIN_TRAP): the reference's campaign sets no spins or rotor
+    table, so its spinflip move fails there."""
+    if job.cfg.quantum_rotation and job.cfg.ensemble != "nve":
+        raise ValueError(CAMPAIGN_SPIN_TRAP)
     su = run_mod.setup(job, device=device)
     device = su.state.pos.device
     state = metropolis.initialize(su.state, su.params, su.cfg, su.thermo)

@@ -57,7 +57,10 @@ def from_jax(params, state, cfg, thermo, device="cpu"):
         e_frozen=_energy(state.e_frozen, device), mu=sk(state.mu),
         e0=sk(state.e0), r_pol=sk(state.r_pol),
         cavity_open=sk(getattr(state, "cavity_open", None)),
-        tmmc_c=sk(getattr(state, "tmmc_c", None)))
+        tmmc_c=sk(getattr(state, "tmmc_c", None)),
+        spin=(None if getattr(state, "spin", None) is None
+              else sk(state.spin).to(torch.int32)),
+        rot_f=sk(getattr(state, "rot_f", None)))
     t = Thermo(**{f.name: (None if getattr(thermo, f.name, None) is None
                            else _tensor(getattr(thermo, f.name), device))
                   for f in dataclasses.fields(Thermo)})

@@ -332,8 +332,9 @@ __device__ __forceinline__ void insert_trial(const T* fr, const T* u,
   }
 }
 
-// The µVT extras of B1 and B6 (their XT instances): cavity-biased insertion
-// and, in B1, the TMMC collection with its flat-histogram bias.
+// The µVT extras of B1 and B6 (their XT instances): cavity-biased insertion,
+// in B1 the TMMC collection with its flat-histogram bias, and the spinflip
+// move.
 //   cavity bias (cav): an insert's COM lies in an open cell of the g^3 grid
 //   of the last refresh, cav_list [C, g3] holding each chain's open cell ids
 //   in rank order and cav_n [C] their count; the acceptance gains
@@ -342,7 +343,15 @@ __device__ __forceinline__ void insert_trial(const T* fr, const T* u,
 //   insert species' alive count before the move) of the chain's [rows, 4]
 //   block of tmmc (n_ins, sum a_ins, n_del, sum a_del), a the unbiased
 //   min(1, e^{ln_t}), 0 on a reject; under tmmc_bias (bias) the acceptance,
-//   never the collection, adds eta(N') - eta(N) of the shared eta [ke].
+//   never the collection, adds eta(N') - eta(N) of the shared eta [ke];
+//   spinflip (sf): lane 11 < p_spin (the scalar header's) carves the move
+//   out before the move type; the rotor is the displacement's pick, d_f =
+//   F[1 - s] - F[s] from rot [C, ms, 2] (F_para, F_ortho) at its spin s,
+//   accepted with ln u4 < -beta d_f; an accept flips the spin only.  B1
+//   keeps a replica of its chain's spins per CTA, spin [C, G, ms] (every
+//   CTA flips alike, each its own row); B6, whose state is fixed, reads
+//   spin [ms].  Every CTA of a chain reads the same lane, so a spinflip
+//   step skips the pass, the exchange and the barriers in every CTA.
 template <typename T>
 struct XtArgs {
   const int32_t* cav_list;
@@ -351,7 +360,20 @@ struct XtArgs {
   double* tmmc;
   int g, g3, ke, rows;
   int cav, tm, bias;
+  const T* rot;
+  int32_t* spin;
+  int sf;
 };
+
+// Thread 0: whether a spinflip of the rotor with spin s_cur and free
+// energies (fp, fo) = (F_para, F_ortho) is accepted at beta on the coin
+// u4 (ln u4 < -beta d_f, d_f in T, as the reference's float32 table).
+template <typename T>
+__device__ __forceinline__ bool spinflip_accept(int s_cur, T fp, T fo,
+                                                double beta, T u4) {
+  const T d_f = s_cur ? fp - fo : fo - fp;
+  return log(fmax(double(u4), 1e-38)) < -beta * double(d_f);
+}
 
 // Thread 0: the fractional COM of a cavity-biased insert: the open cell of
 // rank j = min(floor(u10 n_open), n_open - 1) of the chain's list (n_open >

@@ -454,9 +454,12 @@ __device__ __forceinline__ void reduce_body(
 // ---------------------------------------------------------------- B4
 // Grid (column chunks of MT, chains); the molecule's rows are gathered into
 // shared memory once per block and read into registers.  Chain c = blockIdx.y
-// owns pos/alive/mol/rows/out at its stride, partial slots [c nb, (c+1) nb)
-// and ticket[c].  tickets: zero between launches (each chain's last block
-// puts its own back).  The scalar header sc is one [20] row for every chain
+// owns mol/rows/out at its stride, partial slots [c nb, (c+1) nb) and
+// ticket[c]; its pos and alive lie pos_stride (n 3: each chain its own
+// system) or 0 (every chain the same system: one molecule's orientations,
+// the rotor grid of ops/qrot.py) elements apart.  tickets: zero between
+// launches (each chain's last block puts its own back).  The scalar
+// header sc is one [20] row for every chain
 // (sc_stride 0) or a row per chain (sc_stride 20: each chain its own box,
 // the NPT chains).
 static_assert(MT == RT, "B4's last block runs the reduction");
@@ -465,7 +468,7 @@ __global__ void __launch_bounds__(MT) mol_pair_kernel(
     const T* __restrict__ pos, const T* __restrict__ q,
     const T* __restrict__ eps, const T* __restrict__ sig,
     const int32_t* __restrict__ mol_id, const bool* __restrict__ alive,
-    const int64_t* __restrict__ mol_atoms,
+    int pos_stride, const int64_t* __restrict__ mol_atoms,
     const int64_t* __restrict__ mol_natoms, const int64_t* __restrict__ molp,
     const T* __restrict__ rows, int A, const T* __restrict__ sc,
     int sc_stride, int n, Opts o, double* __restrict__ part,
@@ -479,8 +482,8 @@ __global__ void __launch_bounds__(MT) mol_pair_kernel(
   const int t = threadIdx.x;
   const int c = blockIdx.y;
   const int nb = gridDim.x;
-  pos += size_t(c) * n * 3;
-  alive += size_t(c) * n;
+  pos += size_t(c) * pos_stride;
+  alive += size_t(c) * (pos_stride / 3);
   if (rows) rows += size_t(c) * A * 3;
   sc += size_t(c) * sc_stride;
   part += size_t(c) * nb * 3;
@@ -564,14 +567,15 @@ int launch_pair_terms(const T* pos, const T* q, const T* eps, const T* sig,
 template <typename T>
 int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
                     const int32_t* mol_id, const bool* alive,
-                    const int64_t* mol_atoms, const int64_t* mol_natoms,
+                    int pos_stride, const int64_t* mol_atoms,
+                    const int64_t* mol_natoms,
                     const int64_t* mol, const T* rows, int A, const T* sc,
                     int sc_stride, int n, int C, Opts o, double* part,
                     T* pmin, int32_t* ticket, T* out, cudaStream_t stream) {
   const int nb = n > 0 ? (n + MT - 1) / MT : 1;
   mol_pair_kernel<T><<<dim3(nb, C), MT, 0, stream>>>(
-      pos, q, eps, sig, mol_id, alive, mol_atoms, mol_natoms, mol, rows, A,
-      sc, sc_stride, n, o, part, pmin, ticket, out);
+      pos, q, eps, sig, mol_id, alive, pos_stride, mol_atoms, mol_natoms,
+      mol, rows, A, sc, sc_stride, n, o, part, pmin, ticket, out);
   return int(cudaGetLastError());
 }
 
@@ -596,14 +600,15 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
 #define MOL_PAIR_ENTRY(SFX, T)                                              \
   extern "C" int mol_pair_##SFX(                                           \
       const void* pos, const void* q, const void* eps, const void* sig,     \
-      const void* mol_id, const void* alive, const void* mol_atoms,         \
+      const void* mol_id, const void* alive, int pos_stride,                \
+      const void* mol_atoms,                                                \
       const void* mol_natoms, const void* mol, const void* rows, int A,     \
       const void* sc, int sc_stride, int n, int C, int rd, int mix, int es, \
       int lrc, void* part, void* pmin, void* ticket, void* out,             \
       void* stream) {                                                       \
     return launch_mol_pair<T>(                                              \
         (const T*)pos, (const T*)q, (const T*)eps, (const T*)sig,           \
-        (const int32_t*)mol_id, (const bool*)alive,                         \
+        (const int32_t*)mol_id, (const bool*)alive, pos_stride,             \
         (const int64_t*)mol_atoms, (const int64_t*)mol_natoms,              \
         (const int64_t*)mol, (const T*)rows, A, (const T*)sc, sc_stride, n, \
         C,                                                                  \

@@ -57,8 +57,12 @@
 //   template on the padded site count AP (4 covers H2's 3 sites, 8 the
 //   rest), not by A_PAD; as B1, a classical and a quantum (QC) instance
 //   of each, and (XT, pda_xt_kernel.cu) those with cavity-biased
-//   insertion and the tmmc_bias tilt of an insert / a delete (scal[28],
-//   scal[29]) on the stage-1 test; the record's lnb stays unbiased.
+//   insertion, the tmmc_bias tilt of an insert / a delete (scal[28],
+//   scal[29]) on the stage-1 test, the record's lnb staying unbiased, and
+//   the spinflip move (lane 11 < p_spin = scal[30], before the move type:
+//   the displacement's slot pick, its full acceptance ln u4 < -beta d_f
+//   with no pass or exchange; a survivor is recorded as move type 3 with
+//   zero deltas and rows, and the chunk function flips its spin).
 //
 // Bound: operations.  A step evaluates (has_old + has_new) x A x (alive
 //   columns) pairs - up to 2 x 3 x 10,797 at the 10.8k polar system - and,
@@ -76,7 +80,7 @@
 // Record [8,16] float64 in the reference's field order (rank 0 writes it):
 //   row 0: n_done, hit, mtype (0/1/2 disp/ins/del), slot_idx (slot table
 //          order), species, u2 (lane 12 of the survivor's row), att_disp,
-//          att_ins, att_del, d_surr, lnb, att_spin (0: not in this kernel);
+//          att_ins, att_del, d_surr, lnb, att_spin (0 outside spinflip);
 //   row 1: d_rd, d_es_real, d_es_recip, d_es_self, d_es_excl, d_lrc;
 //   rows 2-4: the survivor's trial rows x / y / z in lanes 0..na-1.
 //   Zero where no step survived.  Energy deltas enter by selection, never
@@ -277,7 +281,11 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
   const int n_open = XT && x.cav ? x.cav_n[0] : 0;
   const double de_ins = XT ? double(scal[28]) : 0.0;
   const double de_del = XT ? double(scal[29]) : 0.0;
+  // spinflip (XT): p_spin and the fixed state's table and spins
+  const bool sf = XT && x.sf;
+  const T p_spin = sf ? scal[30] : T(0);
   double n_done = 0.0, att[3] = {0.0, 0.0, 0.0};   // thread 0's counts
+  double att_sp = 0.0;
   int half = 0;                                      // exchange half
 
   for (int k = 0; k < d.K; ++k) {
@@ -285,9 +293,10 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
     __syncthreads();
     // ---- move type, species, eligible count (uniform over the cluster)
     const T u8 = s_u[8];
-    const bool ins = u8 < p_half;
-    const bool del = !ins && u8 < p_ins;
-    const bool disp = !ins && !del;
+    const bool spin = sf && s_u[11] < p_spin;   // XT: before the move type
+    const bool ins = !spin && u8 < p_half;
+    const bool del = !spin && !ins && u8 < p_ins;
+    const bool disp = !spin && !ins && !del;
     const int mt = disp ? 0 : (ins ? 1 : 2);
     const int su = S == 1 ? 0 : min(int(s_u[9] * T(S)), S - 1);
     int n_all = 0;
@@ -299,6 +308,7 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
       att[0] += disp ? 1.0 : 0.0;
       att[1] += ins ? 1.0 : 0.0;
       att[2] += del ? 1.0 : 0.0;
+      if (sf) att_sp += spin ? 1.0 : 0.0;
     }
     // nothing to move, or (cavity bias) no open cell to insert into: a
     // stage-1 rejection
@@ -310,6 +320,24 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
     const int j = int(x_min(x_floor(s_u[0] * cntT), cntT - T(1)));
     const int slot = pick_slot(sl.sa, sl.ssp, ms, ins, del, su, j, s_scan,
                                &s_slot);
+    if (spin) {
+      // ---- spinflip (XT): the full acceptance here (du = d_f, d* = 0, no
+      // pass or exchange); every CTA decides alike
+      if (t == 0 && spinflip_accept<T>(x.spin[slot], x.rot[2 * slot],
+                                       x.rot[2 * slot + 1], beta, s_u[4])) {
+        if (rank == 0) {
+          rec[1] = 1.0;
+          rec[2] = 3.0;
+          rec[3] = double(slot);
+          rec[4] = double(sl.ssp[slot]);
+          rec[5] = double(s_u[12]);
+        }
+        s_live = 0;
+      }
+      __syncthreads();
+      if (!s_live) break;      // the freeze
+      continue;
+    }
     const int start = slot_start[slot];
     const int spf = disp ? sl.ssp[slot] : su;
     const int na = s_na[spf];
@@ -518,6 +546,7 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
     rec[6] = att[0];
     rec[7] = att[1];
     rec[8] = att[2];
+    if (sf) rec[11] = att_sp;
   }
   // no CTA leaves while another may still write into its buffer
   cluster_arrive();
@@ -648,11 +677,12 @@ int launch_pda(const T* pos, const bool* alive, const T* eps, const T* sig,
       const void* scal, const void* lnfv, const void* d_self,                 \
       const void* d_excl, const void* c1, const void* cx, const void* u,      \
       const void* kvec, const void* kcoef, const void* sk, void* rec,         \
-      const void* cav_list, const void* cav_n, int n, int ms, int S, int A,   \
+      const void* cav_list, const void* cav_n, const void* rot,              \
+      const void* spin, int n, int ms, int S, int A,                          \
       int K, int nk, int G, int rd, int mix, int es, int ortho, int damp,     \
-      int field, int qc, int g, int g3, int cav, int bias, double ke,         \
+      int field, int qc, int g, int g3, int cav, int bias, int sf, double ke, \
       double hb2, void* stream) {                                             \
-    if ((cav || bias) != XT) return int(cudaErrorInvalidValue);               \
+    if ((cav || bias || sf) != XT) return int(cudaErrorInvalidValue);         \
     return launch_pda<T, XT>(                                                 \
         (const T*)pos, (const bool*)alive, (const T*)eps, (const T*)sig,      \
         (const T*)q, (const T*)mass, (const T*)mmass, (const T*)polar,        \
@@ -665,7 +695,8 @@ int launch_pda(const T* pos, const bool* alive, const T* eps, const T* sig,
         pda_dims(n, ms, S, A, K, nk, G), Opts{rd, mix, es, ortho, qc},        \
         PolarOpts{damp, field},                                               \
         XtArgs<T>{(const int32_t*)cav_list, (const int32_t*)cav_n, nullptr,   \
-                  nullptr, g, g3, 0, 0, cav, 0, bias},                        \
+                  nullptr, g, g3, 0, 0, cav, 0, bias, (const T*)rot,          \
+                  (int32_t*)spin, sf},                                        \
         ke, hb2, (cudaStream_t)stream);                                       \
   }                                                                           \
   extern "C" int pda_occupancy_##SFX(int n, int nk, int ms, int A,           \

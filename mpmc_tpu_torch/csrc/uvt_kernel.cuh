@@ -42,7 +42,10 @@
 //   COM in an open cell of the refresh's grid (lane 10 picks the cell by
 //   rank), +-ln(n_open / g^3) in the acceptance, and the TMMC rows (thread
 //   0 of rank 0 adds each insert or delete attempt's (1, a) to its chain's
-//   block, so no atomics) with the eta tilt; uvt_kernel.cu builds the
+//   block, so no atomics) with the eta tilt, and the spinflip move (lane
+//   11 < p_spin before the move type: the displacement's slot pick, the
+//   rotor's d_f in the acceptance, an accept flipping its spin; the step
+//   makes no pass, exchange or barrier); uvt_kernel.cu builds the
 //   instances without it and uvt_xt_kernel.cu those with it.
 //
 // Bound: operations.  A step evaluates (has_old + has_new) x A x (alive
@@ -73,11 +76,12 @@
 //
 // Sums [C,14] in the reference order: d_rd, d_es_real, d_es_recip,
 //   d_es_self, d_es_excl, d_lrc, acc_disp, acc_ins, acc_del, att_disp,
-//   att_ins, att_del, acc_spin, att_spin (the last two stay 0: spinflip is
-//   not in this kernel).
+//   att_ins, att_del, acc_spin, att_spin (the last two 0 outside the XT
+//   instances' spinflip).
 //
 // Scalar header scal[24]: rc, alpha, move_factor, rot_factor, thr2, p_ins,
-//   box (3x3 row-major, rows are cell vectors), box^-1 (3x3 row-major).
+//   box (3x3 row-major, rows are cell vectors), box^-1 (3x3 row-major);
+//   the XT instances read p_spin at scal[24].
 //
 // The quantum correction, the S(k) delta, the block reduction, the slot
 // pick and the trial rows are mc_common.cuh's (shared with B3 and B6), the
@@ -189,6 +193,11 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
   // the chain's open cells (cavity bias) and its block of the TMMC matrix
   const int n_open = XT && x.cav ? x.cav_n[c] : 0;
   double* TM = XT && x.tm ? x.tmmc + size_t(c) * x.rows * 4 : nullptr;
+  // spinflip: p_spin, the chain's table and this CTA's replica of its spins
+  const bool sf = XT && x.sf;
+  const T p_spin = sf ? scal[24] : T(0);
+  const T* ROT = sf ? x.rot + size_t(c) * ms * 2 : nullptr;
+  int32_t* SPN = sf ? x.spin + (size_t(c) * G + rank) * ms : nullptr;
   double acc[N_SUMS];
 #pragma unroll
   for (int i = 0; i < N_SUMS; ++i) acc[i] = 0.0;
@@ -201,21 +210,22 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
     MC_MARK(0)
     // ---- move type, species, eligible count (uniform over the cluster)
     const T u8 = s_u[8];
-    const bool ins = u8 < p_half;
-    const bool del = !ins && u8 < p_ins;
-    const bool disp = !ins && !del;
+    const bool spin = sf && s_u[11] < p_spin;   // XT: before the move type
+    const bool ins = !spin && u8 < p_half;
+    const bool del = !spin && !ins && u8 < p_ins;
+    const bool disp = !spin && !ins && !del;
     const int mt = disp ? 0 : (ins ? 1 : 2);
     const int su = S == 1 ? 0 : min(int(s_u[9] * T(S)), S - 1);
     int n_all = 0;
     for (int s = 0; s < S; ++s) n_all += s_nalive[s];
     const int cnt = ins ? s_nvalid[su] - s_nalive[su]
                         : (del ? s_nalive[su] : n_all);
-    if (t == 0) acc[9 + mt] += 1.0;
+    if (t == 0) acc[spin ? 13 : 9 + mt] += 1.0;
     // nothing to move, or (cavity bias) no open cell to insert into:
     // rejected with no pass; TMMC collects the attempt with a = 0
     const bool cav_rej = XT && x.cav && ins && n_open == 0;
     if (cnt == 0 || cav_rej) {
-      if (XT && TM != nullptr && !disp && t == 0 && rank == 0)
+      if (XT && TM != nullptr && (ins || del) && t == 0 && rank == 0)
         TM[size_t(s_nalive[su]) * 4 + (ins ? 0 : 2)] += 1.0;
       __syncthreads();
       continue;
@@ -227,6 +237,20 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
     // CTA's replica of the slot table
     const int slot = pick_slot(sl.sa, sl.ssp, ms, ins, del, su, j, s_scan,
                                &s_slot);
+    if (spin) {
+      // ---- spinflip (XT): the rotor's d_f, its spin row only; every CTA
+      // decides alike and flips its own replica, with no pass or barrier
+      if (t == 0) {
+        const int s_cur = SPN[slot];
+        if (spinflip_accept<T>(s_cur, ROT[2 * slot], ROT[2 * slot + 1],
+                               beta, s_u[4])) {
+          SPN[slot] = 1 - s_cur;
+          acc[12] += 1.0;
+        }
+      }
+      __syncthreads();
+      continue;
+    }
     const int start = slot_start[slot];
     const int spf = disp ? sl.ssp[slot] : su;
     const int na = s_na[spf];
@@ -442,12 +466,13 @@ int launch_uvt(T* pos, bool* alive, const T* eps, const T* sig, const T* q,
       const void* lnfvs, const void* d_self, const void* d_excl,             \
       const void* c1, const void* cx, const void* u, const void* kvec,       \
       const void* kcoef, void* sk, void* sums, const void* cav_list,         \
-      const void* cav_n, const void* eta, void* tmmc, int C, int n, int ms,  \
+      const void* cav_n, const void* eta, void* tmmc, const void* rot,       \
+      void* spin, int C, int n, int ms,                                      \
       int S, int A, int K, int nk, int G, int rd, int mix, int es,           \
       int ortho, int qc, int g, int g3, int ke_eta, int rows, int cav,       \
-      int tm, int bias, double ke, double hb2, void* stream) {               \
+      int tm, int bias, int sf, double ke, double hb2, void* stream) {       \
     if (C <= 0) return 0;                                                    \
-    if ((cav || tm) != XT) return int(cudaErrorInvalidValue);                \
+    if ((cav || tm || sf) != XT) return int(cudaErrorInvalidValue);          \
     return launch_uvt<T, XT>(                                                \
         (T*)pos, (bool*)alive, (const T*)eps, (const T*)sig, (const T*)q,    \
         (const T*)mass, (const T*)mmass, (const int32_t*)slot_start,         \
@@ -459,7 +484,7 @@ int launch_uvt(T* pos, bool* alive, const T* eps, const T* sig, const T* q,
         Opts{rd, mix, es, ortho, qc},                                        \
         XtArgs<T>{(const int32_t*)cav_list, (const int32_t*)cav_n,           \
                   (const T*)eta, (double*)tmmc, g, g3, ke_eta, rows, cav,    \
-                  tm, bias},                                                 \
+                  tm, bias, (const T*)rot, (int32_t*)spin, sf},              \
         ke, hb2, (cudaStream_t)stream);                                      \
   }                                                                          \
   extern "C" int uvt_occupancy_##SFX(int n, int nk, int ms, int qc, int xt,  \

@@ -31,7 +31,16 @@ see mc/moves.py for lanes 0-3 and 5-7):
   the fused polar DA kernel reads (stage 1 takes lane 4);
 - lane 10, under ``cavity_bias``, picks an insert's open cell of the
   grid of the last refresh (``cavity_frac``; lanes 1-3 then place the COM
-  inside it), and the acceptance gains +-ln(n_open / G^3), as B1 does.
+  inside it), and the acceptance gains +-ln(n_open / G^3), as B1 does;
+- under ``quantum_rotation`` (not nve, ``spinflip_active``) the spinflip
+  move is carved out before the move types above: lane 8 < p_spin under
+  nvt (as B3), lane 11 < p_spin under uvt and npt (as B1 and B6).  It
+  picks a rotor (lane 0, by rank among the alive movable molecules of two
+  or more sites; none is a rejection), moves nothing, and is accepted on
+  lane 4 with ln_bias = -(F[1 - s] - F[s]) / T from the refresh's table
+  ``rot_f``; an accept flips ``spin`` only.  With polarization the trial
+  keeps the rows, field and residual, and the SCF (or under
+  ``polar_delayed`` the surrogate, then the SCF) runs as for any trial.
 
 Under ``tmmc`` (µVT, one insert species) every insert or delete attempt
 adds (1, a) to row N, the species' alive count before the move, of
@@ -47,7 +56,7 @@ alpha, the B4 header, k-vectors and weights) from the carried box, on the
 device.
 
 The move type is the only host decision of a step without polarization:
-it is read from a host copy of lane 8, made once per chunk.  Everything
+it is read from a host copy of lanes 8 and 11, made once per chunk.  Everything
 else — slot pick, trial rows, the B4 delta passes, the S(k) delta,
 acceptance and the commit — stays on the device with no sync.  The commit
 updates ``pos`` and ``mol_alive`` in place (one clone per chunk keeps the
@@ -112,11 +121,22 @@ def draw_uniforms(generator: torch.Generator, n_steps, dtype=torch.float32):
                       device=generator.device)
 
 
+def spinflip_active(cfg: RunConfig) -> bool:
+    """Whether the spinflip move runs: quantum_rotation outside nve (Ray's
+    acceptance has no term for the rotor free-energy change, the
+    reference's spinflip_active, mpmc_tpu/mc/metropolis.py:118-124)."""
+    return cfg.quantum_rotation and cfg.ensemble != "nve"
+
+
 def make_branch_picker(cfg: RunConfig):
-    """(pick(u8_host [K], thermo) -> [K] branch ids, branch_ids): the
-    ensemble's move table.  µVT: insert_probability split evenly between
-    insert and delete; NPT: a volume attempt with volume_probability;
-    every other ensemble of this slice (nvt, nve) displaces."""
+    """(pick(u8_host [K], u11_host [K], thermo) -> [K] branch ids,
+    branch_ids): the ensemble's move table.  µVT: insert_probability split
+    evenly between insert and delete; NPT: a volume attempt with
+    volume_probability; every other ensemble of this slice (nvt, nve)
+    displaces.  Under spinflip_active the spinflip move comes first, on
+    lane 8 < p_spin under nvt (B3's carve) and on lane 11 < p_spin
+    otherwise (B1's and B6's), the last branch id; quantum_rotation under
+    nve warns, as the reference does, and runs without it."""
     if cfg.ensemble == "uvt" and cfg.insert_species:
         ids = [DISPLACE, INSERT, DELETE]
 
@@ -134,7 +154,28 @@ def make_branch_picker(cfg: RunConfig):
 
         def pick(u8, thermo):
             return np.zeros(len(u8), np.int64)
-    return pick, ids
+    if not spinflip_active(cfg):
+        if cfg.quantum_rotation:
+            import warnings
+            warnings.warn("quantum_rotation spinflip moves are disabled "
+                          "under ensemble nve (the rotor free-energy "
+                          "change has no kinetic-reservoir counterpart)")
+        return (lambda u8, u11, thermo: pick(u8, thermo)), ids
+    n_base = len(ids)
+    nvt = cfg.ensemble == "nvt"
+
+    def pick_spin(u8, u11, thermo):
+        p_spin = float(thermo.spinflip_probability)
+        return np.where((u8 if nvt else u11) < p_spin, n_base,
+                        pick(u8, thermo))
+    return pick_spin, ids + [SPINFLIP]
+
+
+def _host_lanes(u):
+    """(lane 8, lane 11) of a [.., K, 16] table's rows as host arrays: the
+    chunk's one host read."""
+    h = u[..., (8, 11)].cpu().numpy()
+    return h[..., 0], h[..., 1]
 
 
 def _movable_mask(params: Params, mol_alive):
@@ -311,7 +352,7 @@ def _volume_step(carry, u, thermo, c: _Chunk, params: Params,
 
 
 def polar_trial(carry, c: _Chunk, params: Params, cfg: RunConfig, mol,
-                rows, alive_new):
+                rows, alive_new, spin=False):
     """(trial pos, trial alive, trial e0, initial residual or None) of
     moving (``alive_new`` None), inserting (True) or deleting (False)
     molecule ``mol`` to ``rows``, from ``carry``'s pos, alive, e0, mu,
@@ -319,8 +360,19 @@ def polar_trial(carry, c: _Chunk, params: Params, cfg: RunConfig, mol,
     (with the CG's initial residual where thole.residual_supported), else
     a rebuilt static field.  The carry's tensors are left as they are.
     Over chains: a carry of [C]-stacked tensors, ``mol`` [C] and ``rows``
-    [C, A, 3] (one molecule per chain)."""
+    [C, A, 3] (one molecule per chain).  ``spin``: a spinflip's trial,
+    which moves nothing: the carry's positions, field and residual (the
+    reference's b_spinflip candidate), the field rebuilt where it is not
+    delta-able."""
     pos, alive = carry["pos"], carry["alive"]
+    if spin:
+        if not thole.field_delta_supported(cfg):
+            field = (thole.static_field_chains if pos.ndim == 3
+                     else thole.static_field)
+            return pos, alive, field(pos, c.box, alive, params, cfg), None
+        return pos, alive, carry["e0"], (carry["r_pol"]
+                                         if thole.residual_supported(cfg)
+                                         else None)
     insert, delete = alive_new is True, alive_new is False
     batched = pos.ndim == 3
     own = ((params.mol_id[None, :] == mol[:, None]) if batched
@@ -344,7 +396,8 @@ def polar_trial(carry, c: _Chunk, params: Params, cfg: RunConfig, mol,
 
 
 def polar_stage(carry, c: _Chunk, params: Params, cfg: RunConfig, thermo,
-                u, mol, rows, alive_new, du, ln_bias, reject, stats):
+                u, mol, rows, alive_new, du, ln_bias, reject, stats,
+                spin=False):
     """The polar part of a step (make_step_fn's, and over [C]
     make_batched_step_fn's) for the trial of polar_trial, given its
     non-polar ``du``, ``ln_bias`` and ``reject``: the SCF of the trial
@@ -357,9 +410,10 @@ def polar_stage(carry, c: _Chunk, params: Params, cfg: RunConfig, thermo,
     keep mu and the residual and count no iteration, the numbers the
     reference's per-chain select gives.  Returns a dict: the trial's
     ``e0``, ``mu``, residual ``r``, polar energy ``polar`` and
-    ``d_polar``, and under polar_delayed ``acc1`` and ``d_surr``."""
+    ``d_polar``, and under polar_delayed ``acc1`` and ``d_surr``.
+    ``spin``: a spinflip's trial (polar_trial)."""
     pos_c, alive_c, e0_new, r0 = polar_trial(carry, c, params, cfg, mol,
-                                             rows, alive_new)
+                                             rows, alive_new, spin)
     batched = pos_c.ndim == 3
     mu_new = carry["mu"]
     r_new = (carry["r_pol"] if thole.residual_supported(cfg)
@@ -621,15 +675,33 @@ def make_step_fn(params: Params, cfg: RunConfig):
             ln_bias = ln_bias - carry["cav_lnf"]
         return slot, None, False, d, ln_bias, cnt == 0, sk
 
+    def b_spinflip(carry, u, thermo, c):
+        """The reference's b_spinflip (mpmc_tpu/mc/metropolis.py:599-627):
+        a rotor by rank (lane 0), d_f = F[1 - s] - F[s] of the refresh's
+        table, no pair pass and no S(k) delta."""
+        mol, cnt = moves.pick_by_rank(
+            _movable_mask(params, carry["mol_alive"])
+            & (params.mol_natoms >= 2), u[0])
+        s_cur = take(carry["spin"], mol).to(torch.int64)
+        f = take(carry["rot_f"], mol)
+        d_f = take(f, 1 - s_cur) - take(f, s_cur)
+        sk = (carry["sk_re"], carry["sk_im"], zero)
+        return mol, None, None, eb(), -d_f / thermo.temperature, cnt == 0, sk
+
     branches = ([b_displace, b_insert, b_delete]
                 if cfg.ensemble == "uvt" and cfg.insert_species
                 else [b_displace])
+    if cfg.ensemble == "npt":
+        branches = [b_displace, None]          # the volume move (_volume_step)
     _, branch_ids = make_branch_picker(cfg)
+    if branch_ids[-1] == SPINFLIP:
+        branches = branches + [b_spinflip]
 
     def step(carry, u, t, thermo, c, stats, trace=None):
         if branch_ids[t] == VOLUME:
             _volume_step(carry, u, thermo, c, params, cfg, stats, trace)
             return
+        spin = branch_ids[t] == SPINFLIP
         mol, rows, alive_new, d, ln_bias, reject, sk = branches[t](
             carry, u, thermo, c)
         du = d.total
@@ -645,7 +717,7 @@ def make_step_fn(params: Params, cfg: RunConfig):
             pol_t = polar_stage(carry, c, params, cfg, thermo, u, mol, rows,
                                 alive_new, du,
                                 ln_bias + d_eta if tm else ln_bias, reject,
-                                stats)
+                                stats, spin)
             du = du + pol_t["d_polar"]
         if nve:
             # Ray's microcanonical rule (reference metropolis.py:756-777):
@@ -692,6 +764,10 @@ def make_step_fn(params: Params, cfg: RunConfig):
         if c.ewald:
             carry["sk_re"] = torch.where(accept, sk[0], carry["sk_re"])
             carry["sk_im"] = torch.where(accept, sk[1], carry["sk_im"])
+        if spin:
+            cur = take(carry["spin"], mol)
+            carry["spin"].index_put_((mol.reshape(1),), torch.where(
+                accept, 1 - cur, cur).reshape(1))
         gid = branch_ids[t]
         stats.attempts[gid] += 1
         stats.accepts[gid] += accept.to(torch.int64)
@@ -733,6 +809,13 @@ def _carry(state: SimState, params: Params, cfg: RunConfig):
             - math.log(float(cfg.cavity_grid) ** 3))
     if tmmc_on(cfg):
         carry["tmmc_c"] = state.tmmc_c.clone()
+    if spinflip_active(cfg):
+        if state.spin is None or state.rot_f is None:
+            raise ValueError("quantum_rotation: the state has no spins or "
+                             "rotor table — build them first "
+                             "(run.qrot_init)")
+        carry["spin"] = state.spin.clone()
+        carry["rot_f"] = state.rot_f
     return carry
 
 
@@ -744,6 +827,7 @@ def _from_carry(state: SimState, carry, n_steps: int) -> SimState:
                          sk_im=carry["sk_im"], mu=carry["mu"],
                          e0=carry["e0"], r_pol=carry["r_pol"],
                          tmmc_c=carry.get("tmmc_c", state.tmmc_c),
+                         spin=carry.get("spin", state.spin),
                          step=state.step + n_steps)
 
 
@@ -751,12 +835,12 @@ def chunk_setup(state: SimState, params: Params, cfg: RunConfig,
                 thermo: Thermo, uniforms):
     """(step, carry, consts, branch ids [K] on the host, stats) for a
     chunk over the uniform table ``uniforms`` — everything the step loop
-    needs, after the chunk's one host sync (the copy of lane 8).  The
+    needs, after the chunk's one host sync (the copy of lanes 8 and 11).  The
     carry holds clones of ``pos`` and ``mol_alive``, the box, and the
     table as ``carry["u"]`` on the state's device."""
     u = uniforms.to(device=state.pos.device, dtype=cfg.tdtype)
     pick, _ = make_branch_picker(cfg)
-    branch = pick(u[:, 8].cpu().numpy(), thermo)
+    branch = pick(*_host_lanes(u), thermo)
     carry = _carry(state, params, cfg)
     carry["u"] = u
     return (make_step_fn(params, cfg), carry,
@@ -936,15 +1020,33 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
             ln_bias = ln_bias - carry["cav_lnf"]
         return slot, None, False, d, ln_bias, cnt == 0, sk
 
+    def b_spinflip(carry, u, thermo, c, zero):
+        """make_step_fn's b_spinflip per chain."""
+        mol, cnt = moves.pick_by_rank(
+            _movable_mask(params, carry["mol_alive"])
+            & (params.mol_natoms >= 2), u[:, 0])
+        ar = torch.arange(mol.shape[0], device=dev)
+        s_cur = carry["spin"][ar, mol].to(torch.int64)
+        f = carry["rot_f"][ar, mol]                                  # [C,2]
+        d_f = f[ar, 1 - s_cur] - f[ar, s_cur]
+        sk = (carry["sk_re"], carry["sk_im"], zero)
+        return (mol, None, None, eb(zero), -d_f / thermo.temperature,
+                cnt == 0, sk)
+
     branches = ([b_displace, b_insert, b_delete]
                 if cfg.ensemble == "uvt" and cfg.insert_species
                 else [b_displace])
+    if cfg.ensemble == "npt":
+        branches = [b_displace, None]          # the volume move (_volume_step)
     _, branch_ids = make_branch_picker(cfg)
+    if branch_ids[-1] == SPINFLIP:
+        branches = branches + [b_spinflip]
 
     def step(carry, u, t, thermo, c, stats, trace=None):
         if branch_ids[t] == VOLUME:
             _volume_step(carry, u, thermo, c, params, cfg, stats, trace)
             return
+        spin = branch_ids[t] == SPINFLIP
         C = u.shape[0]
         zero = torch.zeros(C, dtype=dtype, device=dev)
         mol, rows, alive_new, d, ln_bias, reject, sk = branches[t](
@@ -959,7 +1061,7 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
             pol_t = polar_stage(carry, c, params, cfg, thermo, u, mol, rows,
                                 alive_new, du,
                                 ln_bias + d_eta if tm else ln_bias, reject,
-                                stats)
+                                stats, spin)
             du = du + pol_t["d_polar"]
         if nve:
             # Ray's microcanonical rule per chain (make_step_fn's)
@@ -1008,6 +1110,9 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
                                          carry["sk_re"])
             carry["sk_im"] = torch.where(accept[:, None], sk[1],
                                          carry["sk_im"])
+        if spin:
+            cur = carry["spin"][ar, mol]
+            carry["spin"][ar, mol] = torch.where(accept, 1 - cur, cur)
         gid = branch_ids[t]
         stats.attempts[:, gid] += 1
         stats.accepts[:, gid] += accept.to(torch.int64)
@@ -1026,16 +1131,17 @@ def batched_chunk_setup(states: SimState, params: Params, cfg: RunConfig,
     """(step, carry, consts, branch ids [K] on the host, stats) for a
     chunk of the stacked ``states`` over the [C, K, 16] table
     ``uniforms``: ``chunk_setup`` over chains.  Every chain takes the
-    move type of chain 0's lane 8 (the reference's shared move-type draw:
-    a move type per step for the batch, targets and coins per chain),
-    read in the chunk's one host sync.  The carry holds the chains' mu,
-    e0 and r_pol (the polar step's); ``stats.polar_iters`` is [C].  The
+    move type of chain 0's lanes 8 and 11 (the reference's shared
+    move-type draw: a move type per step for the batch, targets and coins
+    per chain), read in the chunk's one host sync.  The carry holds the
+    chains' mu, e0 and r_pol (the polar step's); ``stats.polar_iters`` is
+    [C].  The
     constants are chain 0's box's (every ensemble but NPT shares the box),
     under NPT each chain's ([C] constants)."""
     u = uniforms.to(device=states.pos.device, dtype=cfg.tdtype)
     C = states.pos.shape[0]
     pick, _ = make_branch_picker(cfg)
-    branch = pick(u[0, :, 8].cpu().numpy(), thermo)
+    branch = pick(*_host_lanes(u[0]), thermo)
     carry = _carry(states, params, cfg)
     carry["u"] = u
     dev = states.pos.device
@@ -1129,14 +1235,35 @@ def fused_nvt_launch_args(states: SimState, params: Params, cfg: RunConfig,
             u = u + states.e_frozen.total
         kw.update(nve_k0=(thermo.nve_energy - u).double(),
                   nve_g=0.5 * f_dof - 1.0)
+    if spinflip_active(cfg):
+        kw.update(_spin_kw(states, tables[3], cfg, thermo))
     return args, kw
+
+
+def _spin_kw(states, order, cfg, thermo):
+    """The fused kernels' spinflip keywords for the stacked ``states``:
+    each chain's rotor table in the kernels' dtype and its spins, in the
+    kernel's molecule (B3) or slot (B1) order ``order``, and p_spin (a
+    device scalar: no host sync)."""
+    return dict(rot_f=states.rot_f[:, order].to(cfg.tdtype).contiguous(),
+                spin=states.spin[:, order].contiguous(),
+                p_spin=thermo.spinflip_probability)
+
+
+def _spin_back(states, order, spin_out):
+    """``states`` with the kernel's spins [C, len(order)] written back."""
+    spin = states.spin.clone()
+    spin[:, order] = spin_out
+    return states.replace(spin=spin)
 
 
 def _apply_fused_nvt(states, sums, new_pos, sk_re, sk_im, cfg, n_steps):
     """(stacked state, MCStats with [C,5] counts) after a B3 launch: the
     sums' energy deltas (rd, es_real, es_recip; the self, exclusion and
     tail terms do not change under rigid moves), positions and S(k).  The
-    attempts are known on the host: no sync."""
+    attempts are known on the host (no sync) but under spinflip, whose
+    carve moves attempts from DISPLACE to SPINFLIP: one host copy of the
+    chains' spinflip attempts."""
     d = sums.to(states.pos.dtype)
     e = states.energy
     energy = dataclasses.replace(
@@ -1148,6 +1275,11 @@ def _apply_fused_nvt(states, sums, new_pos, sk_re, sk_im, cfg, n_steps):
     accepts = torch.zeros((C, N_MOVE_TYPES), dtype=torch.int64,
                           device=sums.device)
     accepts[:, DISPLACE] = sums[:, 3].to(torch.int64)
+    if spinflip_active(cfg):
+        att_sp = sums[:, 5].cpu().numpy().astype(np.int64)
+        attempts[:, DISPLACE] -= att_sp
+        attempts[:, SPINFLIP] = att_sp
+        accepts[:, SPINFLIP] = sums[:, 4].to(torch.int64)
     new = states.replace(pos=new_pos, energy=energy,
                          step=states.step + n_steps)
     if cfg.coulomb == "ewald":
@@ -1177,9 +1309,12 @@ def run_chunk_fused_multi(states: SimState, params: Params, cfg: RunConfig,
                               device=generator.device)
     args, kw = fused_nvt_launch_args(states, params, cfg, thermo, uniforms,
                                      tables)
-    new_pos, sums, sk_re, sk_im = mc_kernel.run_steps(*args, **kw)
-    return _apply_fused_nvt(states, sums, new_pos, sk_re, sk_im, cfg,
-                            n_steps)
+    out = mc_kernel.run_steps(*args, **kw)
+    new, stats = _apply_fused_nvt(states, out[1], out[0], out[2], out[3],
+                                  cfg, n_steps)
+    if spinflip_active(cfg):
+        new = _spin_back(new, tables[3], out[4])
+    return new, stats
 
 
 def run_chunk_fused(state: SimState, params: Params, cfg: RunConfig,
@@ -1344,7 +1479,7 @@ def _apply_fused(states, sums, slots, slot_alive, new_pos, sk_re, sk_im,
                  cfg, n_steps):
     """(stacked state, MCStats with [C,5] counts) after a fused launch:
     the sums' energy deltas, the slot table's alive row, positions and
-    S(k).  One host copy of the attempt counts."""
+    S(k).  One host copy of the attempt counts (spinflip's among them)."""
     d = sums.to(states.pos.dtype)
     e = states.energy
     energy = dataclasses.replace(
@@ -1355,10 +1490,13 @@ def _apply_fused(states, sums, slots, slot_alive, new_pos, sk_re, sk_im,
     mol_alive[:, slots] = slot_alive
     C = sums.shape[0]
     attempts = np.zeros((C, N_MOVE_TYPES), np.int64)
-    attempts[:, :3] = sums[:, 9:12].cpu().numpy().astype(np.int64)
+    att = sums[:, 9:14].cpu().numpy().astype(np.int64)
+    attempts[:, :3] = att[:, :3]
+    attempts[:, SPINFLIP] = att[:, 4]
     accepts = torch.zeros((C, N_MOVE_TYPES), dtype=torch.int64,
                           device=sums.device)
     accepts[:, :3] = sums[:, 6:9].to(torch.int64)
+    accepts[:, SPINFLIP] = sums[:, 12].to(torch.int64)
     new = states.replace(pos=new_pos, mol_alive=mol_alive, energy=energy,
                          step=states.step + n_steps)
     if cfg.coulomb == "ewald":
@@ -1400,6 +1538,8 @@ def fused_uvt_launch_args(states: SimState, params: Params,
               sk_im=states.sk_im.contiguous() if ew else None,
               mol_mass=_mol_mass_plane(params, cfg))
     kw.update(_fused_extras(states, cfg, thermo))
+    if spinflip_active(cfg):
+        kw.update(_spin_kw(states, slots, cfg, thermo))
     return args, kw
 
 
@@ -1447,10 +1587,12 @@ def run_chunk_fused_uvt_multi(states: SimState, params: Params,
                               device=generator.device)
     args, kw = fused_uvt_launch_args(states, params, cfg, thermo, uniforms,
                                      tables)
-    new_pos, slot_alive, sums, sk_re, sk_im = mc_kernel.run_steps_uvt(
-        *args, **kw)
+    out = mc_kernel.run_steps_uvt(*args, **kw)
+    new_pos, slot_alive, sums, sk_re, sk_im = out[:5]
     new, stats = _apply_fused(states, sums, tables[0], slot_alive, new_pos,
                               sk_re, sk_im, cfg, n_steps)
+    if spinflip_active(cfg):
+        new = _spin_back(new, tables[0], out[5])
     if cfg.tmmc:       # the chunk's collection, added to each chain's
         new = new.replace(tmmc_c=states.tmmc_c + kw["tmmc_out"].to(
             states.tmmc_c.dtype))
@@ -1542,6 +1684,10 @@ def pda_launch_args(state: SimState, params: Params, cfg: RunConfig,
         if tilt is None:
             tilt = _pda_tilt(state, params, cfg, thermo)
         _, kw["d_eta_ins"], kw["d_eta_del"] = tilt
+    if spinflip_active(cfg):
+        kw.update(rot_f=state.rot_f[slots].to(cfg.tdtype).contiguous(),
+                  spin=state.spin[slots].contiguous(),
+                  p_spin=thermo.spinflip_probability)
     return args, kw
 
 
@@ -1555,8 +1701,17 @@ def _pda_stage2(state: SimState, params: Params, cfg: RunConfig,
     the survivor is accepted with ln u2 < -(d_polar - d*) / T,
     and on accept the positions, aliveness, e0, mu, the CG residual and
     S(k) are committed, with the energy plus the record's six deltas and
-    the new polar term.  The accept stays on the device."""
+    the new polar term.  The accept stays on the device.  A spinflip
+    survivor (``mt`` 3) ran its whole acceptance in stage 1 and moved
+    nothing: its spin flips, with no SCF (the reference's spin_path,
+    mpmc_tpu/mc/metropolis.py:1647-1668), accepted in 0 iterations."""
     dtype, dev = state.pos.dtype, state.pos.device
+    if mt == 3:
+        spin = state.spin.clone()
+        spin[mol] = 1 - spin[mol]
+        return (state.replace(spin=spin),
+                torch.ones((), dtype=torch.bool, device=dev), 0,
+                torch.zeros((), dtype=dtype, device=dev))
     insert, delete = mt == 1, mt == 2
     rows = rec[2:5, :natoms].T.to(dtype)
     rows = torch.cat([rows, rows[:1].expand(
@@ -1666,18 +1821,18 @@ def run_chunk_fused_uvt_polar_da(state: SimState, params: Params,
         args, kw = pda_launch_args(state, params, cfg, thermo, u, tables,
                                    consts, cav=cav, tilt=tilt)
         rec = mc_kernel.run_steps_uvt_pda(*args, **kw)
-        head = rec[0, :9].cpu().numpy()      # the segment's one host read
+        head = rec[0, :12].cpu().numpy()     # the segment's one host read
         done += int(head[0])
-        stats.attempts[[DISPLACE, INSERT, DELETE]] += head[6:9].astype(
-            np.int64)
+        stats.attempts[[DISPLACE, INSERT, DELETE, SPINFLIP]] += head[
+            [6, 7, 8, 11]].astype(np.int64)
         tmmc_c = state.tmmc_c
         if head[1] > 0.5:
             mt, mol = int(head[2]), int(slots_h[int(head[3])])
             state, accept, iters, ln2 = _pda_stage2(
                 state, params, cfg, thermo, c, rec, mt, mol,
                 int(natoms_h[mol]))
-            stats.accepts[(DISPLACE, INSERT, DELETE)[mt]] += accept.to(
-                torch.int64)
+            stats.accepts[(DISPLACE, INSERT, DELETE, SPINFLIP)[mt]] += (
+                accept.to(torch.int64))
             stats.polar_iters += iters
             if tm and mt in (1, 2):     # the survivor's estimator
                 tmmc_c.index_put_(

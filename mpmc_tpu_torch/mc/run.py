@@ -15,6 +15,8 @@ frozen-reuse fast path — B2 restricted to the sorbate rows; under
 ``cavity_bias`` the open-cell grid rebuilt), observables,
 restart/trajectory output, under ``tmmc`` the collection matrix flushed
 into float64 on the host (and under ``tmmc_bias`` eta rebuilt from it),
+under ``quantum_rotation`` the rotor free-energy table rebuilt
+(ops/qrot.py; the spins are drawn once, before a checkpoint is read),
 and annealing/adaptation; a tmmc run ends by writing the matrix for
 ``python -m mpmc_tpu_torch.analyze tmmc``.
 
@@ -43,7 +45,7 @@ from mpmc_tpu_torch.mc import fugacity as fug_mod
 from mpmc_tpu_torch.mc import metropolis, moves
 from mpmc_tpu_torch.ops import energy as energy_mod
 from mpmc_tpu_torch.ops import pairs as pairs_mod
-from mpmc_tpu_torch.ops import thole
+from mpmc_tpu_torch.ops import qrot, thole
 from mpmc_tpu_torch.ops.cuda import mc_kernel
 from mpmc_tpu_torch.parallel import multichain, replica
 from mpmc_tpu_torch.state import (Params, SimState, Species,
@@ -67,6 +69,8 @@ class Setup:
     # parallel tempering: the last swap round's inputs and decisions
     # (run_mc_pt, run_mc_pt_fug)
     pt_round: Optional[dict] = None
+    # quantum rotation: the rotor basis' largest l
+    lmax: int = 4
 
 
 def _species_from_atoms(atoms) -> Species:
@@ -144,7 +148,6 @@ def check_supported(job: input_script.Job):
     if cfg.ensemble not in ("uvt", "nvt", "nve", "npt", "te", "replay"):
         _refuse(f"ensemble {cfg.ensemble}", "A12b")
     for flag, what, item in (
-            (cfg.quantum_rotation, "quantum_rotation", "A11b"),
             (cfg.cdvdw, "cdvdw", "A12b"),
             (cfg.cdvdw_repulsion != "none", "cdvdw repulsion", "A12b"),
             (cfg.quantum_vibration, "quantum_vibration", "A12b"),
@@ -309,7 +312,8 @@ def setup(job: input_script.Job, device=None,
         spinflip_probability=job.spinflip_probability,
         n_species=nsp, dtype=cfg.tdtype, device=device)
     return Setup(params, state, cfg, thermo, tuple(species), names,
-                 float(sum(a.mass for a in frozen)))
+                 float(sum(a.mass for a in frozen)),
+                 lmax=int(job.quantum_rotation_level_max))
 
 
 def observables(su: Setup, state: SimState, stats=None) -> Dict[str, float]:
@@ -352,12 +356,115 @@ def observables(su: Setup, state: SimState, stats=None) -> Dict[str, float]:
     if su.cfg.cavity_bias and state.cavity_open is not None:
         # open cells of the grid this refresh built
         obs["cavity_open"] = float(state.cavity_open.sum())
+    if state.spin is not None and state.rot_f is not None:
+        obs.update(_qrot_obs(su, state.spin[None], state.rot_f[None],
+                             state.mol_alive[None])[0])
     if stats is not None:
         acc = np.asarray(stats.accepts) / np.maximum(stats.attempts, 1)
         for i, nm in enumerate(("displace", "insert", "delete", "volume",
                                 "spinflip")):
             obs[f"acc_{nm}"] = float(acc[i])
     return obs
+
+
+def _qrot_obs(su: Setup, spin, rot_f, mol_alive) -> List[Dict[str, float]]:
+    """Per chain of [C]-stacked spins, tables and aliveness: the ortho
+    fraction of the alive movable rotors (two or more sites) and the mean
+    free energy of their spin species, ``energy_qrot`` (the reference's
+    keys, mpmc_tpu/mc/run.py:452-466, :506-516); {} where a chain has no
+    rotor.  One host copy."""
+    params = su.params
+    mask = ((mol_alive & ~params.mol_frozen & (params.mol_species >= 0)
+             & (params.mol_natoms >= 2)))
+    f = torch.gather(rot_f, 2, spin.long()[..., None])[..., 0]
+    host = torch.stack([mask.sum(1).double(),
+                        torch.where(mask, spin, 0).sum(1).double(),
+                        torch.where(mask, f.double(), 0.0).sum(1)],
+                       1).cpu().numpy()
+    return [{} if n == 0 else {"ortho_fraction": float(o / n),
+                               "energy_qrot": float(e / n)}
+            for n, o, e in host]
+
+
+def qrot_init(su: Setup, state: SimState, thermo: Thermo, times=None):
+    """``state`` with the run's initial spins (qrot.initial_spins: the
+    reference's draw) and the rotor table at its positions — the
+    reference's run_mc set-up under quantum_rotation
+    (mpmc_tpu/mc/run.py:1451-1466), made before a checkpoint is read."""
+    params, cfg = su.params, su.cfg
+    dev = state.pos.device
+    spins = qrot.initial_spins(cfg.seed, None, params.n_mols_max)
+    state = state.replace(spin=torch.as_tensor(spins, device=dev))
+    return qrot_refresh(su, state, thermo, times)
+
+
+def qrot_refresh(su: Setup, state: SimState, thermo: Thermo, times=None,
+                 eigs=None):
+    """``state`` with its rotor table rebuilt at its positions (every
+    refresh; ``times`` as qrot.eigen_tables); ``eigs``: a list that gets
+    the eigensolves."""
+    cfg = su.cfg
+    e = qrot.eigen_tables(state.pos, state.box, state.atom_alive(su.params),
+                          state.mol_alive, su.params, cfg, thermo,
+                          su.species, lmax=su.lmax, times=times)
+    if eigs is not None:
+        eigs.append(e)
+    table = qrot.table_from_eigs(e, su.params.n_mols_max,
+                                 float(thermo.temperature.reshape(-1)[0]))
+    return state.replace(rot_f=torch.as_tensor(table, dtype=cfg.tdtype,
+                                               device=state.pos.device))
+
+
+def _qrot_init_batched(su: Setup, states: SimState, temps, times=None):
+    """(stacked states with each chain's spins and table, [eigs] per
+    chain) for the batched runs (the reference's _qrot_init_batched,
+    mpmc_tpu/mc/run.py:341-363): the chains start from one configuration,
+    so one eigensolve set serves every chain, its table at each chain's
+    temperature ``temps``; the spins of each chain from one [C, M] draw."""
+    params, cfg = su.params, su.cfg
+    C, dev = states.pos.shape[0], states.pos.device
+    st0 = slice_chain(states, 0)
+    eigs0 = qrot.eigen_tables(st0.pos, st0.box, st0.atom_alive(params),
+                              st0.mol_alive, params, cfg, su.thermo,
+                              su.species, lmax=su.lmax, times=times)
+    tables = np.stack([qrot.table_from_eigs(eigs0, params.n_mols_max, t)
+                       for t in temps])
+    spins = qrot.initial_spins(cfg.seed, C, params.n_mols_max)
+    return states.replace(spin=torch.as_tensor(spins, device=dev),
+                          rot_f=torch.as_tensor(tables, dtype=cfg.tdtype,
+                                                device=dev)), [eigs0] * C
+
+
+def _qrot_refresh_batched(su: Setup, states: SimState, temps, times=None):
+    """(stacked states with each chain's table rebuilt at its positions
+    and temperature ``temps``, [eigs] per chain): the reference's
+    _qrot_refresh_batched (mpmc_tpu/mc/run.py:386-408), each refresh."""
+    params, cfg = su.params, su.cfg
+    tables, eigs_all = [], []
+    for c in range(states.pos.shape[0]):
+        st = slice_chain(states, c)
+        th = su.thermo.replace(temperature=torch.as_tensor(
+            float(temps[c]), dtype=cfg.tdtype, device=st.pos.device))
+        eigs = qrot.eigen_tables(st.pos, st.box, st.atom_alive(params),
+                                 st.mol_alive, params, cfg, th, su.species,
+                                 lmax=su.lmax, times=times)
+        eigs_all.append(eigs)
+        tables.append(qrot.table_from_eigs(eigs, params.n_mols_max,
+                                           float(temps[c])))
+    return states.replace(rot_f=torch.as_tensor(
+        np.stack(tables), dtype=cfg.tdtype,
+        device=states.pos.device)), eigs_all
+
+
+def _qrot_levels(su: Setup, eigs_all, device):
+    """The chains' eigensolves as stacked level arrays on ``device``
+    ([R, M, L] levels, parity, valid) for the on-device per-swap table
+    rebuild (qrot.free_energies_from_levels)."""
+    lv, pr, va = zip(*(qrot.level_arrays(e, su.params.n_mols_max, su.lmax)
+                       for e in eigs_all))
+    return (torch.as_tensor(np.stack(lv), device=device),
+            torch.as_tensor(np.stack(pr), device=device),
+            torch.as_tensor(np.stack(va), device=device))
 
 
 def run_te(job: input_script.Job, log=None, device=None):
@@ -570,6 +677,10 @@ def observables_batched(su: Setup, states: SimState, n_chains: int,
         obs.update(sorbed_mass_obs(total_amu, obs["volume"],
                                    su.frozen_mass))
         out.append(obs)
+    if states.spin is not None and states.rot_f is not None:
+        for obs, q in zip(out, _qrot_obs(su, states.spin, states.rot_f,
+                                         states.mol_alive)):
+            obs.update(q)
     return out
 
 
@@ -779,6 +890,10 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
                   "ewald, f32) — scan path used",
                   file=writer.log)
     state = metropolis.initialize(su.state, params, cfg, thermo)
+    if cfg.quantum_rotation:
+        # the spins and the rotor table, before a checkpoint is read (it
+        # carries both)
+        state = qrot_init(su, state, thermo)
     if job.frozen_output:
         frame = pqr_io.read(job.pqr_input)
         pqr_io.write(job.frozen_output, frame.frozen,
@@ -807,6 +922,8 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
         # per-corrtime refresh on the frozen-reuse fast path
         state = metropolis.initialize(state, params, cfg, thermo,
                                       frozen_rows=refresh_rows)
+        if cfg.quantum_rotation:
+            state = qrot_refresh(su, state, thermo)
         stats = stats.host()
         obs = observables(su, state, stats)
         if cfg.polarization:
@@ -910,6 +1027,10 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
     state = metropolis.initialize(su.state, params, cfg, thermo)
     chunk, _ = _chains_route(cfg, params, state.mol_alive, C, writer)
     states = multichain.stack_states(state, C)
+    qrot_on = metropolis.spinflip_active(cfg)
+    if qrot_on:
+        states, _ = _qrot_init_batched(su, states,
+                                       [float(thermo.temperature)] * C)
     avgs = Averages()
     tmmc = _TmmcHost(cfg)
     hist = _hist_make(job, state.box)
@@ -923,6 +1044,9 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
                               generator=generator)
         states = multichain.initialize_batched(states, params, cfg, thermo,
                                                frozen_rows=refresh_rows)
+        if qrot_on:       # each chain's table (tracks annealing T)
+            states, _ = _qrot_refresh_batched(
+                su, states, [float(thermo.temperature)] * C)
         per_chain = observables_batched(su, states, C, stats, corr)
         obs = chains_mean(per_chain)
         stats = stats.host()
@@ -1054,6 +1178,15 @@ def run_mc_pt(job: input_script.Job, log=None, jsonl_path=None,
         print(f"fused_mc: on-device swaps (R={R})", file=writer.log)
     states = multichain.stack_states(state, R)
     thermos = replica.stack_thermo(thermo, temps)
+    # spinflip: each replica's eigensolves are kept, so a swap rebuilds its
+    # table at its new temperature with no eigensolve (on the device from
+    # level arrays under fused swaps, on the host otherwise); every block
+    # refreshes them (the reference's :826-1014)
+    qrot_eigs = qrot_lv = None
+    if metropolis.spinflip_active(cfg):
+        states, qrot_eigs = _qrot_init_batched(su, states, temps)
+        if fused:
+            qrot_lv = _qrot_levels(su, qrot_eigs, device)
     rng = np.random.default_rng(cfg.seed + 101)
     swap_gen = torch.Generator(device=device).manual_seed(cfg.seed + 101)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -1083,6 +1216,10 @@ def run_mc_pt(job: input_script.Job, log=None, jsonl_path=None,
                 thermos = thermos.replace(temperature=new_t)
                 swap_acc_dev = acc if swap_acc_dev is None else \
                     swap_acc_dev + acc
+                if qrot_lv is not None:
+                    states = states.replace(
+                        rot_f=qrot.free_energies_from_levels(
+                            *qrot_lv, new_t.double()).to(cfg.tdtype))
             else:
                 energies = states.energy.total.double().cpu().numpy()
                 n_h = None if n_mov is None else n_mov.cpu().numpy()
@@ -1091,6 +1228,12 @@ def run_mc_pt(job: input_script.Job, log=None, jsonl_path=None,
                                                n_mols=n_h)
                 swap_acc += acc
                 thermos = replica.stack_thermo(thermo, temps)
+                if qrot_eigs is not None:
+                    states = states.replace(rot_f=torch.as_tensor(
+                        np.stack([qrot.table_from_eigs(
+                            qrot_eigs[r], params.n_mols_max, temps[r])
+                            for r in range(R)]), dtype=cfg.tdtype,
+                        device=device))
             rnd = {"temps": t_in, "energies": states.energy.total,
                    "n_mols": n_mov, "u": u, "parity": parity,
                    "new_temps": thermos.temperature, "accepted": acc}
@@ -1102,6 +1245,10 @@ def run_mc_pt(job: input_script.Job, log=None, jsonl_path=None,
             # the swaps ran on the card: one fetch per block
             temps = thermos.temperature.double().cpu().numpy()
             swap_acc = int(swap_acc_dev)
+        if qrot_eigs is not None:
+            states, qrot_eigs = _qrot_refresh_batched(su, states, temps)
+            if fused:
+                qrot_lv = _qrot_levels(su, qrot_eigs, device)
         st0 = _pt_block(su, writer, avgs, hist, states,
                         int(np.argmin(temps)), swap_acc, swap_att, temps)
     _pt_finish(job, writer, avgs, hist, float(np.min(temps)), swap_acc,
@@ -1161,6 +1308,12 @@ def run_mc_pt_fug(job: input_script.Job, log=None, jsonl_path=None,
         print(f"fused_mc: on-device swaps (R={R})", file=writer.log)
     states = multichain.stack_states(state, R)
     thermos = replica.stack_thermo_fugacity(thermo, fug_rows)
+    # spinflip: the table depends on T alone, which every rung shares, so
+    # a swap keeps it; every block refreshes it
+    temps_r = [float(job.temperature)] * R
+    qrot_on = metropolis.spinflip_active(cfg)
+    if qrot_on:
+        states, _ = _qrot_init_batched(su, states, temps_r)
     rng = np.random.default_rng(cfg.seed + 103)
     swap_gen = torch.Generator(device=device).manual_seed(cfg.seed + 103)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -1206,6 +1359,8 @@ def run_mc_pt_fug(job: input_script.Job, log=None, jsonl_path=None,
             # rules, so the cached energies stay valid
         states = multichain.initialize_batched(states, params, cfg, thermos,
                                                frozen_rows=refresh_rows)
+        if qrot_on:
+            states, _ = _qrot_refresh_batched(su, states, temps_r)
         if fused:
             fug_rows = thermos.fugacity.double().cpu().numpy()
             swap_acc = int(swap_acc_dev)

@@ -43,25 +43,27 @@ _SIGNATURES = {
         "pair_terms": [_P] * 9 + [_I] * 9 + [_P] * 4 + [_P],
         # [CTAs resident on the card] out
         "pair_config": [_PI],
-        # pos q eps sig mol alive mol_atoms natoms mol rows | A | scal |
-        # scal_stride n C rd mix es lrc | part pmin ticket out | stream
-        "mol_pair": [_P] * 10 + [_I] + [_P] + [_I] * 7 + [_P] * 4 + [_P],
+        # pos q eps sig mol alive | pos_stride | mol_atoms natoms mol rows
+        # | A | scal | scal_stride n C rd mix es lrc | part pmin ticket out
+        # | stream
+        "mol_pair": [_P] * 6 + [_I] + [_P] * 4 + [_I] + [_P] + [_I] * 7
+        + [_P] * 4 + [_P],
     },
     "uvt_kernel": {
         # pos alive eps sig q mass mmass slot_start slot_species slot_alive
         # tmpl natoms scal betas lnfvs d_self d_excl c1 cx u kvec kcoef sk
-        # sums cav_list cav_n eta tmmc | C n ms S A K nk G rd mix es ortho
-        # qc g g3 ke_eta rows cav tm bias | ke hb2 | stream
-        "run_steps_uvt": [_P] * 28 + [_I] * 20 + [ctypes.c_double] * 2
+        # sums cav_list cav_n eta tmmc rot spin | C n ms S A K nk G rd mix
+        # es ortho qc g g3 ke_eta rows cav tm bias sf | ke hb2 | stream
+        "run_steps_uvt": [_P] * 30 + [_I] * 21 + [ctypes.c_double] * 2
         + [_P],
         # n nk ms qc xt G | clusters out
         "uvt_occupancy": [_I] * 6 + [_PI],
     },
     "nvt_kernel": {
         # pos alive eps sig q mass mmass mv_start mv_natoms scal betas u
-        # kvec kcoef sk nve_k0 sums | C n mv A K nk G rd mix es ortho nve qc
-        # | ke nve_g hb2 | stream
-        "run_steps_nvt": [_P] * 17 + [_I] * 13 + [ctypes.c_double] * 3
+        # kvec kcoef sk nve_k0 sums rot spin | C n mv A K nk G rd mix es
+        # ortho nve qc sf | ke nve_g hb2 | stream
+        "run_steps_nvt": [_P] * 19 + [_I] * 14 + [ctypes.c_double] * 3
         + [_P],
         # n nk qc G | clusters out
         "nvt_occupancy": [_I] * 4 + [_PI],
@@ -69,17 +71,19 @@ _SIGNATURES = {
     "pda_kernel": {
         # pos alive eps sig q mass mmass polar e0 slot_start slot_species
         # slot_alive tmpl natoms scal lnfv d_self d_excl c1 cx u kvec kcoef
-        # sk rec cav_list cav_n | n ms S A K nk G rd mix es ortho damp field
-        # qc g g3 cav bias | ke hb2 | stream
-        "run_steps_uvt_pda": [_P] * 27 + [_I] * 18 + [ctypes.c_double] * 2
+        # sk rec cav_list cav_n rot spin | n ms S A K nk G rd mix es ortho
+        # damp field qc g g3 cav bias sf | ke hb2 | stream
+        "run_steps_uvt_pda": [_P] * 29 + [_I] * 19 + [ctypes.c_double] * 2
         + [_P],
         # n nk ms A field qc xt G | clusters out
         "pda_occupancy": [_I] * 8 + [_PI],
     },
-    # B1 and B6 with the µVT extras (cavity bias, TMMC): the same entries
-    # from their own sources, so that they compile beside the others
+    # B1 and B6 with the µVT extras (cavity bias, TMMC, spinflip), B3 with
+    # spinflip: the same entries from their own sources, so that they
+    # compile beside the others
     "uvt_xt_kernel": {},
     "pda_xt_kernel": {},
+    "nvt_sf_kernel": {},
     "thole_kernel": {
         # pos src ok mol scal wl chains | K n ni nj dipole damp ortho grid
         # | part ticket out | stream
@@ -112,6 +116,7 @@ _HOST_SIGNATURES = {
 
 _SIGNATURES["uvt_xt_kernel"] = _SIGNATURES["uvt_kernel"]
 _SIGNATURES["pda_xt_kernel"] = _SIGNATURES["pda_kernel"]
+_SIGNATURES["nvt_sf_kernel"] = _SIGNATURES["nvt_kernel"]
 
 _libs: dict = {}
 

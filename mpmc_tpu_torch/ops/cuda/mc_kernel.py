@@ -39,7 +39,22 @@ lane 8 the move type, 9 the species of an insert/delete, 0 the slot rank
 acceptance coin (B6: of stage 1), 5-7 the rotation or the inserted
 orientation, 10 under cavity bias the open cell of an insert (by rank
 among the grid's open cells, lanes 1-3 then the point inside it), 12 B6's
-stage-2 coin.  B3 reads lanes 0-7; B6 takes one chain's [K, 16].
+stage-2 coin, 11 under quantum_rotation B1's and B6's spinflip carve
+(lane 11 < p_spin, before the move type; B3 carves on lane 8 < p_spin).
+B3 reads lanes 0-8; B6 takes one chain's [K, 16].
+
+Spinflip (``cfg.quantum_rotation``, not nve): the move picks a rotor (B3:
+lane 0's molecule; B1 and B6: lane 0's slot among the alive ones, the
+displacement's pick), moves nothing, and is accepted with ln u4 < -beta
+d_f, d_f = F[1 - s] - F[s] from ``rot_f`` (the refresh's (F_para,
+F_ortho) of each molecule, in the kernels' dtype) at the rotor's spin
+``spin``; an accept flips the spin only.  The kernels skip the step's
+pass, exchange and barriers (every CTA of the chain reads the same lane,
+so all skip alike), keep a replica of the chain's spins per CTA (B1, B3:
+a [C, G, M] scratch row each; B6 reads them, its state being fixed) and
+return rank 0's.  B3 builds the move into its own instances
+(nvt_sf_kernel.cu, an SF flag crossed with QC); B1 and B6 into their XT
+instances.
 
 B1 and B6 have the µVT extras of the reference (mpmc_tpu/ops/pallas/
 mc_kernel.py:941-976, :2118-2124) behind a compile-time flag, an instance
@@ -71,9 +86,10 @@ The host helpers (``supported_uvt``, ``supported``, ``supported_multi``,
 reference's fused paths, restricted to the surface the port has: rd
 lj/none (FH and FK with lj), lb/waldman_hagler mixing, coulomb
 ewald/wolf/cutoff/none, f32, rigid molecules of up to MAX_SITES sites
-(B1: up to MAX_SPECIES insert species; TMMC with exactly one).  Spinflip
-(ROADMAP A11b) and the RD forms beyond lj/none and coulomb gwp (A12a-2)
-are refused here.
+(B1: up to MAX_SPECIES insert species; TMMC with exactly one; spinflip
+where every movable molecule, or insert species, is a rotor of two or
+more sites).  The RD forms beyond lj/none and coulomb gwp (A12a-2) are
+refused here.
 """
 from __future__ import annotations
 
@@ -103,7 +119,8 @@ SMEM_STATIC = 8192    # held back for B1/B3's static tables (< 6 KB)
 SMEM_STATIC_PDA = 28672   # for B6's (< 25 KB: the exchange rows of 8 sites)
 N_SUMS = 14        # d_rd d_es_real d_es_recip d_es_self d_es_excl d_lrc,
 #                    acc disp/ins/del, att disp/ins/del, acc/att spinflip
-N_SUMS_NVT = 4     # d_rd d_es_real d_es_recip, accepted moves
+N_SUMS_NVT = 6     # d_rd d_es_real d_es_recip, accepted moves,
+#                    acc/att spinflip
 
 
 def _supported_physics(cfg) -> bool:
@@ -138,11 +155,12 @@ def supported_uvt(cfg, params) -> bool:
     insert species (TMMC: exactly one), every movable slot of one of them,
     uniform rigid slots of <= MAX_SITES sites per species, and no charged
     template under Ewald (its jellium delta is quadratic in the cell
-    charge, which per-species constants cannot carry); cavity bias and
-    TMMC ride along, spinflip does not.  Host-side, once per run."""
+    charge, which per-species constants cannot carry); cavity bias, TMMC
+    and spinflip ride along (spinflip where every insert species is a
+    rotor, natoms >= 2).  Host-side, once per run."""
     if not (cfg.ensemble == "uvt"
             and 1 <= len(cfg.insert_species) <= MAX_SPECIES
-            and _supported_physics(cfg) and not cfg.quantum_rotation):
+            and _supported_physics(cfg)):
         return False
     if cfg.tmmc and len(cfg.insert_species) != 1:
         return False
@@ -162,6 +180,8 @@ def supported_uvt(cfg, params) -> bool:
             return False
         if not (a == a[0]).all() or int(a[0]) > MAX_SITES:
             return False
+        if cfg.quantum_rotation and int(a[0]) < 2:
+            return False        # a monatomic species is not a rotor
         if cfg.coulomb == "ewald":
             m0 = int(np.flatnonzero(mov & (spec == si))[0])
             qnet = float(np.where((mol_id == m0) & atom_ok, charge,
@@ -218,16 +238,22 @@ def supported_uvt_multi(cfg, params) -> bool:
 
 def supported(cfg, params) -> bool:
     """Static gate for the fused NVT/NVE path (the reference's
-    ``supported``): ensemble nvt or nve, the port's physics surface, no
-    spinflip, and every movable molecule rigid with <= MAX_SITES sites.
-    Host-side, once per run."""
+    ``supported``, mpmc_tpu/ops/pallas/mc_kernel.py:2922-2946): ensemble
+    nvt or nve, the port's physics surface, and every movable molecule
+    rigid with <= MAX_SITES sites; spinflip under nvt where every movable
+    molecule is a rotor (natoms >= 2, so the displacement's pick and the
+    rotor pick agree), never under nve.  Host-side, once per run."""
     if not (cfg.ensemble in ("nvt", "nve") and _supported_physics(cfg)
-            and not (cfg.tmmc or cfg.quantum_rotation)):
+            and not cfg.tmmc):
+        return False
+    if cfg.ensemble == "nve" and cfg.quantum_rotation:
         return False
     natoms = params.mol_natoms.cpu().numpy()
     mov = (~params.mol_frozen.cpu().numpy()
            & (params.mol_species.cpu().numpy() >= 0))
-    return bool(mov.any()) and bool((natoms[mov] <= MAX_SITES).all())
+    if not mov.any() or not bool((natoms[mov] <= MAX_SITES).all()):
+        return False
+    return not (cfg.quantum_rotation and int(natoms[mov].min()) < 2)
 
 
 def supported_npt(cfg, params) -> bool:
@@ -300,9 +326,28 @@ def _refuse_cfg(cfg, what="run_steps_uvt"):
         raise ValueError(f"{what}: feynman_hibbs / feynman_kleinert "
                          "correct the LJ pair energy; rd_potential is "
                          f"{cfg.rd_potential!r}")
-    if cfg.quantum_rotation:
-        raise NotImplementedError(
-            f"{what}: quantum_rotation is not yet ported — ROADMAP A11b")
+
+
+def _spin_inputs(cfg, rot_f, spin, lead, m, dt, dev, what):
+    """Whether a launch carries the spinflip move: ``rot_f`` [*lead, m, 2]
+    of the kernel's dtype and ``spin`` [*lead, m] int32 given (checked)
+    under quantum_rotation; refused under nve and without the tables."""
+    if not cfg.quantum_rotation:
+        return False
+    if cfg.ensemble == "nve":
+        raise ValueError(f"{what}: no spinflip under ensemble nve")
+    if rot_f is None or spin is None:
+        raise ValueError(f"{what}: quantum_rotation needs rot_f and spin")
+    _check("rot_f", rot_f, dt, tuple(lead) + (m, 2), dev)
+    _check("spin", spin, torch.int32, tuple(lead) + (m,), dev)
+    return True
+
+
+def _spin_flip(spin, sel, accept, spin_step):
+    """The spins of ``sel``'s entries flipped where a spinflip step was
+    accepted (plain versions)."""
+    cur = spin[sel]
+    spin[sel] = torch.where(accept & spin_step, 1 - cur, cur)
 
 
 def _quantum_cols(mol_mass, cfg, n, dt, dev, what):
@@ -627,13 +672,15 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
                         lnfvs, d_self, d_excl, c1, cx, uniforms, cfg,
                         kvecs=None, kcoef=None, sk_re=None, sk_im=None,
                         cluster=None, mol_mass=None, cav_list=None,
-                        cav_n=None, eta=None, tmmc_out=None, trace=None):
+                        cav_n=None, eta=None, tmmc_out=None, rot_f=None,
+                        spin=None, p_spin=0.0, trace=None):
     """Plain B1: a loop over the K steps of batched tensor ops over the C
     chains and the N columns, with the kernel's arithmetic (the same
     per-species constants, the pair sums and the acceptance in float64).
     Arguments and results as ``run_steps_uvt``; ``cluster`` is ignored
     (the plain sums do not depend on it); the inputs but ``tmmc_out`` are
-    not modified.  ``trace``: a list that gets one dict per step —
+    not modified; a spinflip step's pass runs masked (the kernel skips
+    it).  ``trace``: a list that gets one dict per step —
     ``accept`` [C], ``margin`` [C] = ln u - ln(acceptance), and the work
     the kernel does for it, ``pairs``, ``pairs_in``, ``cols`` and
     ``phases`` [C] (pair evaluations, those within rc, columns passed and
@@ -678,6 +725,11 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
     g, g3, _, _, cav, tm, bias = _xt_check(cfg, "run_steps_uvt_plain", C,
                                            cav_list, cav_n, eta, tmmc_out,
                                            slot_start.shape[0], dev)
+    sf = _spin_inputs(cfg, rot_f, spin, (C,), slot_start.shape[0], dt, dev,
+                      "run_steps_uvt_plain")
+    no_spin = torch.zeros(C, dtype=torch.bool, device=dev)
+    if sf:
+        spin, p_sp = spin.clone(), t(p_spin)
     if cav:
         n_open = cav_n.long()
         n_open_t = n_open.to(dt)
@@ -686,9 +738,10 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
     for k in range(K):
         u = uniforms[:, k]
         u8 = u[:, 8]
-        ins = u8 < p_half
-        dele = ~ins & (u8 < p_ins)
-        disp = ~ins & ~dele
+        sp_k = (u[:, 11] < p_sp) if sf else no_spin   # before the move type
+        ins = ~sp_k & (u8 < p_half)
+        dele = ~sp_k & ~ins & (u8 < p_ins)
+        disp = ~sp_k & ~ins & ~dele
         su = (torch.clamp((u[:, 9] * S).long(), max=S - 1) if S > 1
               else torch.zeros(C, dtype=torch.int64, device=dev))
         n_su = n_alive[ar, su]
@@ -704,7 +757,7 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
         slot = torch.argmax((elig & (rank == (j + 1)[:, None])).to(
             torch.int8), dim=1)           # 0 where cnt == 0 (rejected)
         start = sl_start[slot]
-        spf = torch.where(disp, sl_sp[slot], su)
+        spf = torch.where(disp | sp_k, sl_sp[slot], su)
         na = na_s[spf]
         site_ok = site[None, :] < na[:, None]                      # [C,A]
         rows = torch.clamp(start[:, None] + site[None, :], max=N - 1)
@@ -720,7 +773,7 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
         own = ((col[None, :] >= start[:, None])
                & (col[None, :] < (start + na)[:, None]))
         ok = alive & ~own
-        has_old, has_new = ~ins, ~dele
+        has_old, has_new = ~ins & ~sp_k, ~dele & ~sp_k
         # the molecule's mass: the sum of its slot's site masses
         qc = (mi.sum(1), mol_mass, betas) if quantum else None
         rd_o, es_o, _, in_o, sq_o = _column_pass(
@@ -758,6 +811,12 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
         dlrc = (fins * (c1d[spf] + cx_dot)
                 - fdel * (c1d[spf] + cx_dot - cxd[spf, spf]))
         du = drd + des + drec + dslf + dexc + dlrc
+        if sf:            # the rotor's d_f, in the kernel's dtype
+            s_cur = spin[ar, slot]
+            f = rot_f[ar, slot]
+            d_f = torch.where(s_cur > 0, f[:, 0] - f[:, 1],
+                              f[:, 1] - f[:, 0]).double()
+            du = torch.where(sp_k, d_f, du)
         n_s = n_su.double()
         lnb = torch.where(
             ins, lnfv[ar, spf] + torch.log(beta) - torch.log(n_s + 1.0),
@@ -774,45 +833,54 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
             ke = eta.shape[0]
             n0 = torch.clamp(n_su, max=ke - 1)
             n1 = torch.clamp(n0 + ins.long() - dele.long(), 0, ke - 1)
-            ln_eff = torch.where(disp, ln_t, ln_t + (eta[n1].double()
-                                                     - eta[n0].double()))
+            ln_eff = torch.where(ins | dele, ln_t + (eta[n1].double()
+                                                     - eta[n0].double()),
+                                 ln_t)
         ln_u = torch.log(torch.clamp(u[:, 4].double(), min=1e-38))
         accept = ~reject & (ln_u < ln_eff)
         if tm:            # (1, a) at row N of the insert / delete columns
             a_pr = torch.where(reject, torch.zeros_like(ln_t),
                                torch.exp(torch.clamp(ln_t, max=0.0)))
-            xd = ~disp
+            xd = ins | dele
             c0 = torch.where(ins, 0, 2)
             tmmc_out[ar[xd], n_su[xd], c0[xd]] += 1.0
             tmmc_out[ar[xd], n_su[xd], c0[xd] + 1] += a_pr[xd]
         if trace is not None:
-            passes = torch.where(cnt > 0, (has_old.long() + has_new.long())
+            run = (cnt > 0) & ~sp_k          # the steps that make a pass
+            passes = torch.where(run, (has_old.long() + has_new.long())
                                  * na, 0)
             trace.append({"accept": accept, "margin": ln_u - ln_eff,
                           "pairs": passes * ok.sum(1),
-                          "pairs_in": torch.where(cnt > 0, in_o + in_n, 0),
-                          "cols": torch.where(cnt > 0, ok.sum(1), 0),
+                          "pairs_in": torch.where(run, in_o + in_n, 0),
+                          "cols": torch.where(run, ok.sum(1), 0),
                           "phases": passes * (kvecs.shape[0] if ew else 0),
                           "rss": torch.sqrt(sq_o + sq_n) * rss_units})
+        acc_pos = accept & ~sp_k         # a spinflip moves nothing
         vals = torch.stack([drd, des, drec, dslf, dexc, dlrc], dim=1)
-        sums[:, :6] += torch.where(accept[:, None], vals,
+        sums[:, :6] += torch.where(acc_pos[:, None], vals,
                                    torch.zeros_like(vals))
-        mt = torch.where(disp, 0, torch.where(ins, 1, 2))
-        sums[ar, 9 + mt] += 1.0
-        sums[ar, 6 + mt] += accept.double()
+        mt = torch.where(sp_k, 3, torch.where(disp, 0,
+                                              torch.where(ins, 1, 2)))
+        att_col = torch.where(sp_k, 13, 9 + mt)
+        sums[ar, att_col] += 1.0
+        sums[ar, att_col - 1 - 2 * (~sp_k).long()] += accept.double()
         # commit
-        wr = (accept & ~dele)[:, None] & site_ok
+        wr = (acc_pos & ~dele)[:, None] & site_ok
         pos[ar[:, None], rows] = torch.where(wr[..., None], new, old)
         alive[ar[:, None], rows] = torch.where(
-            accept[:, None] & site_ok, ~dele[:, None],
+            acc_pos[:, None] & site_ok, ~dele[:, None],
             alive[ar[:, None], rows])
-        flip = accept & ~disp
+        flip = acc_pos & ~disp & ~sp_k
         slot_alive[ar, slot] = torch.where(flip, ins, slot_alive[ar, slot])
         n_alive[ar, su] += (flip & ins).long() - (flip & dele).long()
         if ew:
-            keep = accept[:, None]
+            keep = acc_pos[:, None]
             sk_re = torch.where(keep, sk_re + dsr, sk_re)
             sk_im = torch.where(keep, sk_im + dsi, sk_im)
+        if sf:
+            _spin_flip(spin, (ar, slot), accept, sp_k)
+    if sf:
+        return pos, slot_alive, sums, sk_re, sk_im, spin
     return pos, slot_alive, sums, sk_re, sk_im
 
 
@@ -825,7 +893,8 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
                   betas, move_factor, rot_factor, thr2, p_ins, lnfvs, d_self,
                   d_excl, c1, cx, uniforms, cfg, kvecs=None, kcoef=None,
                   sk_re=None, sk_im=None, cluster=None, mol_mass=None,
-                  cav_list=None, cav_n=None, eta=None, tmmc_out=None):
+                  cav_list=None, cav_n=None, eta=None, tmmc_out=None,
+                  rot_f=None, spin=None, p_spin=0.0):
     """B1: K fused µVT steps for C chains, one cluster of G CTAs each.
 
     Per chain: ``pos`` [C,N,3], atom ``alive`` [C,N] bool, ``slot_alive``
@@ -853,12 +922,17 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     (0, 1) for an insert and (2, 3) for a delete, a the unbiased
     acceptance probability (0 on a reject); under ``cfg.tmmc_bias``
     ``eta`` [K'] (shared; None: no tilt) adds eta(N') - eta(N) to the
-    acceptance.  These run the kernel's XT instance.
+    acceptance.  Under ``cfg.quantum_rotation`` (spinflip): ``rot_f`` [C,
+    Ms, 2] each slot's (F_para, F_ortho) in the kernel's dtype, ``spin``
+    [C, Ms] int32 and the probability ``p_spin`` (a number or a device
+    scalar), lane 11 < p_spin carving the move out before the move type.
+    These run the kernel's XT instance.
 
     Returns (pos [C,N,3], slot_alive [C,Ms] bool, sums [C,14] float64,
-    sk_re [C,Nk], sk_im [C,Nk]), sums in the reference order (d_rd,
-    d_es_real, d_es_recip, d_es_self, d_es_excl, d_lrc, acc disp/ins/del,
-    att disp/ins/del, acc/att spinflip).  The inputs are not modified."""
+    sk_re [C,Nk], sk_im [C,Nk]), and under spinflip spin [C,Ms] int32 as
+    a sixth, sums in the reference order (d_rd, d_es_real, d_es_recip,
+    d_es_self, d_es_excl, d_lrc, acc disp/ins/del, att disp/ins/del,
+    acc/att spinflip).  The inputs are not modified."""
     C, N = alive.shape
     ms = slot_start.shape[0]
     ew = cfg.coulomb == "ewald"
@@ -874,7 +948,8 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
             rot_factor, thr2, p_ins, lnfvs, d_self, d_excl, c1, cx,
             uniforms, cfg, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re,
             sk_im=sk_im, cluster=cluster, mol_mass=mol_mass,
-            cav_list=cav_list, cav_n=cav_n, eta=eta, tmmc_out=tmmc_out)
+            cav_list=cav_list, cav_n=cav_n, eta=eta, tmmc_out=tmmc_out,
+            rot_f=rot_f, spin=spin, p_spin=p_spin)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps_uvt: no kernel for {pos.device}")
     _refuse_cfg(cfg)
@@ -911,15 +986,20 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     else:
         sk = torch.empty((C, 2, 0), dtype=dt, device=dev)
 
-    scal = torch.cat([_scalar(x, dt, dev) for x in (rc, alpha, move_factor,
-                                                     rot_factor, thr2, p_ins)]
-                     + [box.reshape(-1),
-                        torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
     g, g3, ke_eta, rows, cav, tm, bias = _xt_check(
         cfg, "run_steps_uvt", C, cav_list, cav_n, eta, tmmc_out, ms, dev)
     if bias:
         _check("eta", eta, dt, (ke_eta,), dev)
-    xt = int(bool(cav or tm))
+    sf = int(_spin_inputs(cfg, rot_f, spin, (C,), ms, dt, dev,
+                          "run_steps_uvt"))
+    xt = int(bool(cav or tm or sf))
+    # the XT instance reads p_spin at scal[24]
+    scal = torch.cat([_scalar(x, dt, dev) for x in (rc, alpha, move_factor,
+                                                     rot_factor, thr2, p_ins)]
+                     + [box.reshape(-1),
+                        torch.linalg.inv_ex(box)[0].reshape(-1)]
+                     + ([_scalar(p_spin if sf else 0.0, dt, dev)]
+                        if xt else [])).contiguous()
     out_pos, out_alive = pos.clone(), alive.clone()
     out_slot = slot_alive.clone()
     sums = torch.empty((C, N_SUMS), dtype=torch.float64, device=dev)
@@ -931,6 +1011,9 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
                         quantum=quantum)
     fn = getattr(lib, "run_steps_uvt_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
+    # each CTA's replica of its chain's spins; rank 0's is the result
+    spins = (spin[:, None, :].expand(C, G, ms).contiguous() if sf
+             else None)
     err = fn(_ptr(out_pos), _ptr(out_alive), _ptr(eps), _ptr(sig),
              _ptr(charge), _ptr(mass), mm_ptr, _ptr(slot_start),
              _ptr(slot_species), _ptr(out_slot), _ptr(tmpl), _ptr(natoms),
@@ -940,16 +1023,17 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
              _ptr(sk) if ew else nullp, _ptr(sums),
              _ptr(cav_list) if cav else nullp, _ptr(cav_n) if cav else nullp,
              _ptr(eta) if bias else nullp, _ptr(tmmc_out) if tm else nullp,
+             _ptr(rot_f) if sf else nullp, _ptr(spins) if sf else nullp,
              C, N, ms, S, A, K, nk, G, _RD[cfg.rd_potential],
              _MIX[cfg.mixing_rule], _ES[cfg.coulomb], ortho, qc, g, g3,
-             ke_eta, rows, cav, tm, bias, ctypes.c_double(KE),
+             ke_eta, rows, cav, tm, bias, sf, ctypes.c_double(KE),
              ctypes.c_double(HBAR2_KB_AMU_A2), _stream(dev))
     run_steps_uvt.launches += 1
     run_steps_uvt.last_cluster = G
     _raise_on(err, "run_steps_uvt")
-    if ew:
-        return out_pos, out_slot, sums, sk[:, 0], sk[:, 1]
-    return out_pos, out_slot, sums, sk_re, sk_im
+    out = (out_pos, out_slot, sums) + ((sk[:, 0], sk[:, 1]) if ew
+                                       else (sk_re, sk_im))
+    return out + (spins[:, 0].contiguous(),) if sf else out
 
 
 run_steps_uvt.launches = 0
@@ -972,12 +1056,14 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
                     box, rc, alpha, betas, move_factor, rot_factor, thr2,
                     uniforms, cfg, kvecs=None, kcoef=None, sk_re=None,
                     sk_im=None, nve_k0=None, nve_g=0.0, a_max=None,
-                    cluster=None, mol_mass=None, trace=None):
+                    cluster=None, mol_mass=None, rot_f=None, spin=None,
+                    p_spin=0.0, trace=None):
     """Plain B3: a loop over the K steps of batched tensor ops over the C
     chains and the N columns, with the kernel's arithmetic (the pair sums,
     the acceptance and the NVE reservoir in float64).  Arguments and
     results as ``run_steps``; ``cluster`` is ignored; the inputs are not
-    modified.  ``trace``: a
+    modified; a spinflip step's pass runs and is masked (the kernel skips
+    it).  ``trace``: a
     list that gets one dict per step — ``accept`` [C], ``margin`` [C] = ln
     u - ln(acceptance), and the work the kernel does for it, ``pairs``,
     ``pairs_in``, ``cols`` and ``phases`` [C] (pair evaluations, those
@@ -1014,8 +1100,12 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
     use = ~no_ins
     sums = torch.zeros((C, N_SUMS_NVT), dtype=torch.float64, device=dev)
     rss_units = torch.tensor([1.0, KE], dtype=torch.float64, device=dev)
+    sf = _spin_inputs(cfg, rot_f, spin, (C,), n_mv, dt, dev, "run_steps")
+    if sf:
+        spin, p_sp = spin.clone(), t(p_spin)
     for k in range(K):
         u = uniforms[:, k]
+        sp_k = (u[:, 8] < p_sp) if sf else no_ins     # the spinflip carve
         m = torch.minimum(torch.floor(u[:, 0] * mv_t), mv_t - 1.0).long()
         start, na = st[m], nat[m]
         site_ok = site[None, :] < na[:, None]                      # [C,A]
@@ -1053,7 +1143,13 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
         else:
             drec = torch.zeros(C, dtype=torch.float64, device=dev)
         du = drd + des + drec
-        reject = (thr2 > 0) & (mr2 < thr2)
+        reject = (thr2 > 0) & (mr2 < thr2) & ~sp_k
+        if sf:            # the rotor's d_f, in the kernel's dtype
+            s_cur = spin[ar, m]
+            f = rot_f[ar, m]
+            du = torch.where(sp_k, torch.where(
+                s_cur > 0, f[:, 0] - f[:, 1], f[:, 1] - f[:, 0]).double(),
+                du)
         ln_u = torch.log(torch.clamp(u[:, 4].double(), min=1e-38))
         if nve:
             # Ray: P = min(1, (K_new / K_old)^g), K_new > 0
@@ -1070,29 +1166,38 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
             ln_t = -beta * du
             accept = ~reject & (ln_u < ln_t)
         if trace is not None:
-            passes = 2 * na
+            passes = torch.where(sp_k, 0, 2 * na)
             trace.append({"accept": accept, "margin": ln_u - ln_t,
                           "pairs": passes * ok.sum(1),
-                          "pairs_in": in_o + in_n, "cols": ok.sum(1),
+                          "pairs_in": torch.where(sp_k, 0, in_o + in_n),
+                          "cols": torch.where(sp_k, 0, ok.sum(1)),
                           "phases": passes * (kvecs.shape[0] if ew else 0),
                           "rss": torch.sqrt(sq_o + sq_n) * rss_units})
+        acc_pair = accept & ~sp_k        # a spinflip moves nothing
         vals = torch.stack([drd, des, drec], dim=1)
-        sums[:, :3] += torch.where(accept[:, None], vals,
+        sums[:, :3] += torch.where(acc_pair[:, None], vals,
                                    torch.zeros_like(vals))
-        sums[:, 3] += accept.double()
-        wr = accept[:, None] & site_ok
+        sums[:, 3] += acc_pair.double()
+        sums[:, 4] += (accept & sp_k).double()
+        sums[:, 5] += sp_k.double()
+        wr = acc_pair[:, None] & site_ok
         pos[ar[:, None], rows] = torch.where(wr[..., None], new, old)
         if ew:
-            keep = accept[:, None]
+            keep = acc_pair[:, None]
             sk_re = torch.where(keep, sk_re + dsr, sk_re)
             sk_im = torch.where(keep, sk_im + dsi, sk_im)
+        if sf:
+            _spin_flip(spin, (ar, m), accept, sp_k)
+    if sf:
+        return pos, sums, sk_re, sk_im, spin
     return pos, sums, sk_re, sk_im
 
 
 def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
               rc, alpha, betas, move_factor, rot_factor, thr2, uniforms, cfg,
               kvecs=None, kcoef=None, sk_re=None, sk_im=None, nve_k0=None,
-              nve_g=0.0, a_max=None, cluster=None, mol_mass=None):
+              nve_g=0.0, a_max=None, cluster=None, mol_mass=None,
+              rot_f=None, spin=None, p_spin=0.0):
     """B3: K fused NVT (or NVE) steps for C chains, one cluster of G CTAs
     each.
 
@@ -1111,10 +1216,15 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
     one of CLUSTER_SIZES whose slice fits in shared memory (None:
     ``cluster_size``).  ``mol_mass`` [N]: each atom's molecular mass,
     needed under feynman_hibbs / feynman_kleinert (at each chain's beta).
+    Under ``cfg.quantum_rotation`` (spinflip, nvt): ``rot_f`` [C, Mv, 2]
+    each table molecule's (F_para, F_ortho) in the kernel's dtype,
+    ``spin`` [C, Mv] int32 and ``p_spin``, lane 8 < p_spin carving the
+    move out (the kernel's SF instance).
 
-    Returns (pos [C,N,3], sums [C,4] float64 = (d_rd, d_es_real,
-    d_es_recip, accepted moves), sk_re [C,Nk], sk_im [C,Nk]).  The inputs
-    are not modified."""
+    Returns (pos [C,N,3], sums [C,6] float64 = (d_rd, d_es_real,
+    d_es_recip, accepted moves, accepted and attempted spinflips), sk_re
+    [C,Nk], sk_im [C,Nk]), and under spinflip spin [C,Mv] int32 as a
+    fifth.  The inputs are not modified."""
     C, N = pos.shape[0], pos.shape[1]
     ew = cfg.coulomb == "ewald"
     nk = kvecs.shape[0] if ew else 0
@@ -1128,7 +1238,7 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
             alpha, betas, move_factor, rot_factor, thr2, uniforms, cfg,
             kvecs=kvecs, kcoef=kcoef, sk_re=sk_re, sk_im=sk_im,
             nve_k0=nve_k0, nve_g=nve_g, a_max=a_max, cluster=cluster,
-            mol_mass=mol_mass)
+            mol_mass=mol_mass, rot_f=rot_f, spin=spin, p_spin=p_spin)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps: no kernel for {pos.device}")
     _refuse_cfg(cfg, "run_steps")
@@ -1160,35 +1270,42 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
     else:
         sk = torch.empty((C, 2, 0), dtype=dt, device=dev)
     k0 = _k0_rows(nve_k0, C, dev) if nve else None
-
+    sf = int(_spin_inputs(cfg, rot_f, spin, (C,), n_mv, dt, dev,
+                          "run_steps"))
+    # the SF instance reads p_spin at scal[23]
     scal = torch.cat([_scalar(x, dt, dev) for x in (rc, alpha, move_factor,
                                                      rot_factor, thr2)]
                      + [box.reshape(-1),
-                        torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
+                        torch.linalg.inv_ex(box)[0].reshape(-1)]
+                     + ([_scalar(p_spin, dt, dev)] if sf else [])
+                     ).contiguous()
     out_pos = pos.clone()
     sums = torch.empty((C, N_SUMS_NVT), dtype=torch.float64, device=dev)
     from mpmc_tpu_torch.ops.cuda import _build
-    lib = _build.library("nvt_kernel")
+    lib = _build.library("nvt_sf_kernel" if sf else "nvt_kernel")
     G = _launch_cluster(lib, "nvt_occupancy", cluster, C, N, dt, nk, 0,
                         (N, nk, int(quantum)), "run_steps", quantum=quantum)
     fn = getattr(lib, "run_steps_nvt_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
+    # each CTA's replica of its chain's spins; rank 0's is the result
+    spins = (spin[:, None, :].expand(C, G, n_mv).contiguous() if sf
+             else None)
     err = fn(_ptr(out_pos), _ptr(alive), _ptr(eps), _ptr(sig), _ptr(charge),
              _ptr(mass), mm_ptr, _ptr(mv_start), _ptr(mv_natoms), _ptr(scal),
              _ptr(betas), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
              _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
-             _ptr(k0) if nve else nullp, _ptr(sums), C, N, n_mv, A, K, nk, G,
-             _RD[cfg.rd_potential],
+             _ptr(k0) if nve else nullp, _ptr(sums),
+             _ptr(rot_f) if sf else nullp, _ptr(spins) if sf else nullp,
+             C, N, n_mv, A, K, nk, G, _RD[cfg.rd_potential],
              _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
-             int(bool(cfg.ortho_box)), int(nve), qc, ctypes.c_double(KE),
+             int(bool(cfg.ortho_box)), int(nve), qc, sf, ctypes.c_double(KE),
              ctypes.c_double(float(nve_g)), ctypes.c_double(HBAR2_KB_AMU_A2),
              _stream(dev))
     run_steps.launches += 1
     run_steps.last_cluster = G
     _raise_on(err, "run_steps")
-    if ew:
-        return out_pos, sums, sk[:, 0], sk[:, 1]
-    return out_pos, sums, sk_re, sk_im
+    out = (out_pos, sums) + ((sk[:, 0], sk[:, 1]) if ew else (sk_re, sk_im))
+    return out + (spins[:, 0].contiguous(),) if sf else out
 
 
 run_steps.launches = 0
@@ -1247,7 +1364,8 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
                             sk_re=None, sk_im=None, field_alpha=0.0,
                             field_krc=0.0, cluster=None, mol_mass=None,
                             cav_list=None, cav_n=None, d_eta_ins=0.0,
-                            d_eta_del=0.0, trace=None):
+                            d_eta_del=0.0, rot_f=None, spin=None,
+                            p_spin=0.0, trace=None):
     """Plain B6: a loop over the K rows of tensor ops over the N columns
     that stops at the freeze, with the kernel's arithmetic (the pair,
     surrogate and field sums, the constants and the stage-1 test in
@@ -1296,11 +1414,14 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
     site = torch.arange(A, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
     rec = torch.zeros((8, 16), dtype=torch.float64, device=dev)
-    att = [0, 0, 0]
+    att = [0, 0, 0, 0]
     n_done = 0
     g, g3, _, _, cav, _, _ = _xt_check(cfg, "run_steps_uvt_pda_plain", None,
                                        cav_list, cav_n, None, None,
                                        slot_start.shape[0], dev, tmmc=False)
+    sf = _spin_inputs(cfg, rot_f, spin, (), slot_start.shape[0], dt, dev,
+                      "run_steps_uvt_pda_plain")
+    p_sp = float(t(p_spin)) if sf else 0.0
     xt = cav or _pda_bias(cfg)
     de = (float(t(d_eta_ins)), float(t(d_eta_del))) if xt else (0.0, 0.0)
     if cav:
@@ -1316,14 +1437,34 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
 
     for k in range(uniforms.shape[0]):
         uk = u_h[k]
-        ins = float(uk[8]) < p_half_h
-        dele = not ins and float(uk[8]) < p_ins_h
-        mt = 1 if ins else (2 if dele else 0)
+        spin_k = sf and float(uk[11]) < p_sp      # before the move type
+        ins = not spin_k and float(uk[8]) < p_half_h
+        dele = not spin_k and not ins and float(uk[8]) < p_ins_h
+        mt = 3 if spin_k else (1 if ins else (2 if dele else 0))
         su = min(int(uk[9] * S), S - 1) if S > 1 else 0
         n_done += 1
         att[mt] += 1
         cnt = int(n_valid[su] - n_alive[su] if ins
                   else (n_alive[su] if dele else n_alive.sum()))
+        if spin_k and cnt > 0:
+            # the rotor of the displacement's pick; no pass (d* = 0, du =
+            # d_f, lnb = 0): the full spinflip acceptance
+            cnt_t = torch.tensor(float(cnt), dtype=dt)
+            j = int(torch.minimum(torch.floor(uk[0] * cnt_t), cnt_t - 1.0))
+            slot = int(torch.nonzero(sa)[j, 0])
+            f = rot_f[slot]
+            d_f = float(f[0] - f[1] if int(spin[slot]) > 0 else f[1] - f[0])
+            margin = math.log(max(float(uk[4]), 1e-38)) + beta * d_f
+            if trace is not None:
+                trace.append({"hit": margin < 0.0, "margin": margin,
+                              "pairs": 0, "in_old": 0, "in_new": 0,
+                              "phases": 0, "cols": 0})
+            if margin < 0.0:
+                rec[0, 1:6] = torch.tensor(
+                    [1.0, 3.0, slot, float(sl_sp[slot]), float(uk[12])],
+                    dtype=torch.float64)
+                break
+            continue
         if cnt == 0 or (cav and ins and n_open == 0):
             # nothing to move, or no open cell: a stage-1 rejection
             if trace is not None:
@@ -1457,7 +1598,8 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
             rec[2:5, :na] = new[:na].T.double()
             break
     rec[0, 0] = float(n_done)
-    rec[0, 6:9] = torch.tensor(att, dtype=torch.float64)
+    rec[0, 6:9] = torch.tensor(att[:3], dtype=torch.float64)
+    rec[0, 11] = float(att[3])
     return rec
 
 
@@ -1468,7 +1610,7 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
                       kvecs=None, kcoef=None, sk_re=None, sk_im=None,
                       field_alpha=0.0, field_krc=0.0, cluster=None,
                       mol_mass=None, cav_list=None, cav_n=None, d_eta_ins=0.0,
-                      d_eta_del=0.0):
+                      d_eta_del=0.0, rot_f=None, spin=None, p_spin=0.0):
     """B6: up to K propose-and-filter µVT steps of one chain from a fixed
     state, frozen at the first stage-1 survivor of the polar delayed
     acceptance (csrc/pda_kernel.cu), on one cluster of G CTAs.
@@ -1496,14 +1638,18 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
     and eta(N - 1) - eta(N) at the state's N (numbers or device scalars),
     added to the stage-1 test of an insert / a delete.  These run the
     kernel's XT instance; the record's lnb stays unbiased (with the
-    cavity term).
+    cavity term).  Under ``cfg.quantum_rotation``: ``rot_f`` [Ms, 2]
+    each slot's (F_para, F_ortho) in the kernel's dtype, ``spin`` [Ms]
+    int32 and ``p_spin``: lane 11 < p_spin is a spinflip, which runs its
+    full acceptance here (du = d_f, d* = 0, no pass); a surviving flip is
+    recorded as move type 3 with zero deltas and rows (the XT instance).
 
     Returns the [8,16] float64 record in the reference's field order: row
-    0 n_done, hit, mtype (0/1/2 displace/insert/delete), slot_idx,
-    species, u2, the attempts of displace/insert/delete, d_surr, lnb, the
-    spinflip attempts (0); row 1 the deltas of rd, es_real, es_recip,
-    es_self, es_excl and lrc; rows 2-4 the survivor's trial rows x/y/z in
-    lanes 0..natoms-1.  Zero where no step survived."""
+    0 n_done, hit, mtype (0/1/2/3 displace/insert/delete/spinflip),
+    slot_idx, species, u2, the attempts of displace/insert/delete, d_surr,
+    lnb, the spinflip attempts; row 1 the deltas of rd, es_real,
+    es_recip, es_self, es_excl and lrc; rows 2-4 the survivor's trial rows
+    x/y/z in lanes 0..natoms-1.  Zero where no step survived."""
     args = (pos, alive, eps, sig, charge, mass, polar, e0, slot_start,
             slot_species, slot_alive, tmpl, natoms, box, rc, alpha, beta,
             move_factor, rot_factor, thr2, p_ins, lnfv, d_self, d_excl, c1,
@@ -1521,7 +1667,8 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
             *args, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re, sk_im=sk_im,
             field_alpha=field_alpha, field_krc=field_krc, cluster=cluster,
             mol_mass=mol_mass, cav_list=cav_list, cav_n=cav_n,
-            d_eta_ins=d_eta_ins, d_eta_del=d_eta_del)
+            d_eta_ins=d_eta_ins, d_eta_del=d_eta_del, rot_f=rot_f,
+            spin=spin, p_spin=p_spin)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps_uvt_pda: no kernel for {pos.device}")
     _refuse_pda(cfg)
@@ -1558,13 +1705,17 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
                                        cav_list, cav_n, None, None, ms, dev,
                                        tmmc=False)
     bias = int(_pda_bias(cfg))
-    xt = int(bool(cav or bias))
-    # the XT instance reads the two tilts at scal[28], scal[29]
+    sf = int(_spin_inputs(cfg, rot_f, spin, (), ms, dt, dev,
+                          "run_steps_uvt_pda"))
+    xt = int(bool(cav or bias or sf))
+    # the XT instance reads the two tilts at scal[28], scal[29] and p_spin
+    # at scal[30]
     scal = torch.cat([_scalar(x, dt, dev) for x in (
         rc, alpha, move_factor, rot_factor, thr2, p_ins, beta,
         cfg.polar_damp, field_alpha, field_krc)]
         + [box.reshape(-1), torch.linalg.inv_ex(box)[0].reshape(-1)]
-        + ([_scalar(d_eta_ins, dt, dev), _scalar(d_eta_del, dt, dev)]
+        + ([_scalar(d_eta_ins, dt, dev), _scalar(d_eta_del, dt, dev),
+            _scalar(p_spin if sf else 0.0, dt, dev)]
            if xt else [])).contiguous()
     rec = torch.zeros((8, 16), dtype=torch.float64, device=dev)
     field = _pda_field(cfg)
@@ -1582,10 +1733,11 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
              _ptr(cx), _ptr(uniforms), _ptr(kvecs) if ew else nullp,
              _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
              _ptr(rec), _ptr(cav_list) if cav else nullp,
-             _ptr(cav_n) if cav else nullp, N, ms, S, A, K, nk, G,
+             _ptr(cav_n) if cav else nullp, _ptr(rot_f) if sf else nullp,
+             _ptr(spin) if sf else nullp, N, ms, S, A, K, nk, G,
              _RD[cfg.rd_potential], _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
              int(bool(cfg.ortho_box)), tk._DAMP[cfg.polar_damp_type], field,
-             qc, g, g3, cav, bias, ctypes.c_double(KE),
+             qc, g, g3, cav, bias, sf, ctypes.c_double(KE),
              ctypes.c_double(HBAR2_KB_AMU_A2), _stream(dev))
     run_steps_uvt_pda.launches += 1
     run_steps_uvt_pda.last_cluster = G

@@ -20,6 +20,9 @@ type (``mol_pair_scratch``), so a move allocates only its output.
 scan chains): the chain is a grid axis, each chain with its own partial
 slots and ticket, raw output [C, 4].  Its scalar header is one [20] row
 for every chain or a [C, 20] row per chain (NPT chains, each its own box).
+Its positions are each chain's own, or (position stride 0) one system's
+that every chain reads: the C placements of one molecule that
+ops/qrot.py prices over its orientation grid.
 
 Each wrapper takes the plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor; anything else raises.  There is no
@@ -40,6 +43,7 @@ polynomial; the plain versions and the jnp reference use the exact one).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -297,21 +301,25 @@ def mol_pair_scratch(device, dtype, nb, C=1):
 
 def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
                      mol_natoms, mol, rows, scal, cfg):
-    """One B4 launch over C = pos.shape[0] chains (pos [C, N, 3], alive
-    [C, N], mol [C], rows [C, A, 3] or None, scal [20] shared or [C, 20]
-    per chain): raw [C, 4]."""
-    C, n = pos.shape[0], pos.shape[1]
+    """One B4 launch over C = mol.shape[0] chains (mol [C], rows [C, A, 3]
+    or None, scal [20] shared or [C, 20] per chain): raw [C, 4].  ``pos``
+    [C, N, 3] with ``alive`` [C, N] gives each chain its own (position
+    stride N 3); ``pos`` [N, 3] with ``alive`` [N] is read by every chain
+    (stride 0: one molecule's orientations, qrot.potentials_on_grid)."""
+    C = mol.shape[0]
+    shared = pos.ndim == 2
+    n = pos.shape[-2]
     dt, dev = pos.dtype, pos.device
     m, a = mol_atoms.shape
     if a > A_PAD:
         raise ValueError(f"mol_pair: molecules of {a} atoms > A_PAD={A_PAD}")
     if C < 1 or C > 65535:
         raise ValueError(f"mol_pair: {C} chains (1..65535: the grid's y)")
-    _check("pos", pos, dt, (C, n, 3))
+    _check("pos", pos, dt, (n, 3) if shared else (C, n, 3))
     for nm, t in (("charge", charge), ("eps", eps), ("sig", sig)):
         _check(nm, t, dt, (n,), dev)
     _check("mol_id", mol_id, torch.int32, (n,), dev)
-    _check("alive", alive, torch.bool, (C, n), dev)
+    _check("alive", alive, torch.bool, (n,) if shared else (C, n), dev)
     _check("mol_atoms", mol_atoms, torch.int64, (m, a), dev)
     _check("mol_natoms", mol_natoms, torch.int64, (m,), dev)
     _check("mol", mol, torch.int64, (C,), dev)
@@ -325,7 +333,8 @@ def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     from mpmc_tpu_torch.ops.cuda import _build
     fn = getattr(_build.library("pair_kernel"), "mol_pair_" + _suffix(dt))
     err = fn(_ptr(pos), _ptr(charge), _ptr(eps), _ptr(sig), _ptr(mol_id),
-             _ptr(alive), _ptr(mol_atoms), _ptr(mol_natoms), _ptr(mol),
+             _ptr(alive), 0 if shared else 3 * n, _ptr(mol_atoms),
+             _ptr(mol_natoms), _ptr(mol),
              ctypes.c_void_p(None if rows is None else rows.data_ptr()),
              a, _ptr(scal), 20 if scal.ndim == 2 else 0, n, C, rd, mix, es,
              lrc, _ptr(part), _ptr(pmin),
@@ -359,7 +368,15 @@ def mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
                           mol_natoms, mol, rows, scal, cfg, qc=None):
     """Plain B4 over chains: ``mol_pair_plain`` of each chain with its
     header row (``scal`` [C, 20]) or the shared one ([20]), stacked;
-    ``qc``'s temperature 0-d or one per chain [C]."""
+    ``qc``'s temperature 0-d or one per chain [C].  With ``pos`` [N, 3]
+    and ``alive`` [N] shared by every chain (position stride 0) and trial
+    ``rows`` [C, A, 3], one batched [C, A, N] block
+    (``_mol_pair_shared_plain``)."""
+    if pos.ndim == 2:
+        return _mol_pair_shared_plain(pos, charge, eps, sig, mol_id, alive,
+                                      mol_atoms, mol_natoms, mol, rows,
+                                      scal, cfg, qc)
+
     def chain_qc(c):
         if qc is None:
             return None
@@ -372,7 +389,50 @@ def mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
                        None if rows is None else rows[c],
                        scal[c] if scal.ndim == 2 else scal, cfg,
                        qc=chain_qc(c))
-        for c in range(pos.shape[0])])
+        for c in range(mol.shape[0])])
+
+
+def _mol_pair_shared_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
+                           mol_natoms, mol, rows, scal, cfg, qc=None):
+    """Plain B4 at position stride 0: each chain's rows [C, A, 3] against
+    the one ``pos`` [N, 3] and ``alive`` [N], the masks and sums of
+    ``pairs._block_terms`` (rd, es within rc; the tail coefficient and
+    the closest approach over every inter pair), raw [C, 4]; a shared
+    [20] header.  Under a Feynman-Hibbs/Kleinert cfg ``qc`` = (the atoms'
+    molecular masses [N], the temperature)."""
+    from mpmc_tpu_torch.ops import pbc
+    idx = mol_atoms[mol]                                           # [C,A]
+    a = idx.shape[1]
+    valid = (torch.arange(a, device=pos.device)[None, :]
+             < mol_natoms[mol][:, None])
+    row_pos = pos[idx] if rows is None else rows
+    rc, alpha = scal[0], scal[1]
+    dr = pbc.min_image(row_pos[:, :, None, :] - pos[None, None, :, :],
+                       scal[2:11].reshape(3, 3), scal[11:20].reshape(3, 3))
+    r2 = torch.sum(dr * dr, dim=-1)                                # [C,A,N]
+    col_ok = alive[None, :] & (mol_id[None, :] != mol[:, None])     # [C,N]
+    inter = valid[:, :, None] & col_ok[:, None, :]
+    act = inter & (r2 < rc * rc)
+    q3 = None
+    if pairs.quantum(cfg):
+        if qc is None:
+            raise ValueError("feynman_hibbs / feynman_kleinert pair terms "
+                             "need the molecular masses and the temperature")
+        q3 = (qc[0][idx][..., None], qc[0], qc[1])
+    rd_u, es_u, _, tc = pairs._tile_values(
+        r2, charge[idx][..., None], eps[idx][..., None], sig[idx][..., None],
+        charge, eps, sig, cfg, rc, alpha, q3)
+    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+
+    def s(values, mask):
+        if values is None:
+            return torch.zeros(mol.shape[0], dtype=pos.dtype,
+                               device=pos.device)
+        return torch.sum(torch.where(mask, values, zero), dim=(1, 2))
+
+    mn = torch.where(inter, r2, torch.full_like(r2, math.inf)).amin(
+        dim=(1, 2))
+    return torch.stack([s(rd_u, act), s(es_u, act), s(tc, inter), mn], -1)
 
 
 def mol_pair_chains(pos, charge, eps, sig, mol_id, alive, mol_atoms,
@@ -381,7 +441,11 @@ def mol_pair_chains(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     delta): pos [C, N, 3], alive [C, N], mol [C] int64, rows [C, A, 3] or
     None; the parameter columns are shared; ``scal`` a shared [20] header
     or one [C, 20] row per chain.  Raw [C, 4]; chain c's row is
-    ``mol_pair`` of chain c with its header, bit for bit."""
+    ``mol_pair`` of chain c with its header, bit for bit.  With ``pos``
+    [N, 3] and ``alive`` [N] every chain reads the same positions
+    (position stride 0; the rotor grid of qrot.potentials_on_grid): C =
+    mol.shape[0] rows of trial coordinates against one system, each
+    chain's row ``mol_pair`` of its rows bit for bit."""
     if pos.device.type == "cpu":
         return mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive,
                                      mol_atoms, mol_natoms, mol, rows, scal,
@@ -391,10 +455,12 @@ def mol_pair_chains(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     out = _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
                            mol_natoms, mol, rows, scal, cfg)
     mol_pair_chains.launches += 1
+    mol_pair_chains.shared_launches += int(pos.ndim == 2)
     return out
 
 
 mol_pair_chains.launches = 0
+mol_pair_chains.shared_launches = 0     # of them at position stride 0
 
 
 def reset_counts():
@@ -402,3 +468,4 @@ def reset_counts():
     pair_terms.launches = 0
     mol_pair.launches = 0
     mol_pair_chains.launches = 0
+    mol_pair_chains.shared_launches = 0

@@ -229,7 +229,7 @@ def pair_pass(pos, box, atom_alive, params, cfg, temperature,
 
 
 def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
-                  row_pos=None, scal=None):
+                  row_pos=None, scal=None, shared=False):
     """Pair terms between molecule ``mol``'s atoms (or its trial rows
     ``row_pos``) and all OTHER molecules, each pair once — the O(A N)
     per-move delta.  ``mol`` may be a 0-d device tensor (no host sync).
@@ -239,9 +239,13 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
     Over C chains (the batched scan step): ``pos`` [C, N, 3],
     ``atom_alive`` [C, N], ``mol`` [C], ``row_pos`` [C, A, 3], ``scal``
     [20] shared or [C, 20] (a box per chain), ``temperature`` 0-d or [C]
-    — one B4 launch for every chain, PairTerms of [C] tensors.  Where the
-    gate pair_kernel.supported refuses the cfg (Feynman-Hibbs/Kleinert),
-    the pass is B4's plain version on the tensors' device."""
+    — one B4 launch for every chain, PairTerms of [C] tensors.
+    ``shared``: ``pos`` [N, 3] and ``atom_alive`` [N] are every chain's,
+    ``mol`` [C] and ``row_pos`` [C, A, 3] the chains' own (B4 at position
+    stride 0: one system, C trial placements; ops/qrot.py's rotor grid).
+    Where the gate pair_kernel.supported refuses the cfg
+    (Feynman-Hibbs/Kleinert), the pass is B4's plain version on the
+    tensors' device."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
 
     if scal is None:
@@ -249,7 +253,7 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
     args = (pos, params.charge, params.eps, params.sig, params.mol_id32,
             atom_alive, params.mol_atoms, params.mol_natoms,
             torch.as_tensor(mol, device=pos.device), row_pos, scal, cfg)
-    batched = pos.ndim == 3
+    batched = pos.ndim == 3 or shared
     if pair_kernel.supported(cfg):
         kernel = pair_kernel.mol_pair_chains if batched else \
             pair_kernel.mol_pair

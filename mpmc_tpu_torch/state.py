@@ -216,6 +216,13 @@ class SimState:
     # n_del, sum a_del; allocated by the first refresh and never reset by
     # a later one (None unless cfg.tmmc)
     tmmc_c: Optional[torch.Tensor] = None
+    # quantum rotation (the spinflip move): each molecule's nuclear-spin
+    # species [M] int32 (1 ortho, 0 para) and its rotor's free energies
+    # [M, 2] (F_para, F_ortho) in the state's dtype, rebuilt at every
+    # refresh (ops/qrot.py; zeros for a slot that is not an alive rotor);
+    # None unless cfg.quantum_rotation
+    spin: Optional[torch.Tensor] = None
+    rot_f: Optional[torch.Tensor] = None
 
     def atom_alive(self, params: Params):
         return self.mol_alive[params.mol_id] & params.atom_ok

@@ -117,9 +117,9 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 # the batched polar route), and so do exact checkpoints (item None: the
 # single-chain polar deck writes its checkpoint), NPT (item None: a
 # frameless LJ deck on the scan path), the Feynman-Hibbs/Kleinert
-# corrections, cavity bias and TMMC (item None: the single-chain polar
-# deck with the line); polar NPT is A8c, spinflip A11b, the other RD forms
-# and gwp A12a-2
+# corrections, cavity bias, TMMC and spinflip (item None: the single-chain
+# polar deck with the line); polar NPT is A8c, the other RD forms and gwp
+# A12a-2
 REFUSED = [
     ("chains 4", "chains 4\npolarization on", None),
     ("ensemble npt", None),
@@ -128,7 +128,7 @@ REFUSED = [
      None),
     ("chains 2\nfused_mc on\npolarization on", None),
     ("cavity_bias on", None),
-    ("tmmc on", None), ("quantum_rotation on", "A11b"),
+    ("tmmc on", None), ("quantum_rotation on", None),
     ("cdvdw on", "A12b"), ("feynman_hibbs on", None),
     ("feynman_kleinert on", None), ("cell_list on", "A12b"),
     ("rd_crystal on", "A12b"), ("spectre on", "A12b"), ("sg on", "A12a-2"),
@@ -149,7 +149,8 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
     the pair passes' plain route named in the log; cavity bias and TMMC,
     once refused, run it with the grid's open cells logged, or a
     collection matrix written that holds every insert and delete
-    attempt."""
+    attempt; quantum_rotation, once refused, runs it with spins and a
+    rotor table carried."""
     line, item = case[-2:]
     if item is None and line == "ensemble npt":
         from torch_npt import lj_npt, write_deck
@@ -185,6 +186,11 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
         if line.startswith("cavity_bias"):
             n_open = int(su.state.cavity_open.sum())
             assert 0 < n_open < 10 ** 3 and su.state.step == 3
+            return
+        if line.startswith("quantum_rotation"):
+            assert su.state.spin is not None and su.state.step == 3
+            assert su.state.rot_f.shape == (su.params.n_mols_max, 2)
+            assert float(su.state.rot_f.abs().max()) > 0
             return
         if line.startswith("tmmc"):
             import json

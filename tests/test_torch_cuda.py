@@ -1,9 +1,10 @@
 """The CUDA kernels (the pair kernels B2/B4 — B4 over chains with a shared
-or a per-chain header —, the fused µVT kernel B1, the fused NVT/NVE kernel
-B3 — both at every cluster size, B3 after an NPT volume move too —, the
-Thole field kernel B5 and the polar delayed-acceptance stage-1 kernel B6;
-B1, B3 and B6 with the Feynman-Hibbs/Kleinert corrections too, B1 and B6
-with cavity bias and TMMC, their XT instances) against
+or a per-chain header, and at position stride 0 —, the fused µVT kernel
+B1, the fused NVT/NVE kernel B3 — both at every cluster size, B3 after an
+NPT volume move too —, the Thole field kernel B5 and the polar
+delayed-acceptance stage-1 kernel B6; B1, B3 and B6 with the
+Feynman-Hibbs/Kleinert corrections too, B1 and B6 with cavity bias and
+TMMC, their XT instances, and all three with spinflip) against
 their plain versions on the card; B2 and B4 never launched under those
 corrections; the native trajectory reader on a 10.8k-atom trajectory and
 checkpoints of card states with a CUDA generator.
@@ -1453,3 +1454,199 @@ def test_xt_decks_on_the_card(device, tmp_path):
     fresh = metropolis.initialize(st, params, cfg, thermo)
     assert float(st.energy.total) == pytest.approx(
         float(fresh.energy.total), rel=1e-4)
+
+
+# spinflip (quantum_rotation): B4 at position stride 0 (the rotor grid of
+# ops/qrot.py), and B1 (XT), B3 (SF) and B6 (XT) with the move, against
+# their plain versions on random rotor tables and spins
+
+
+def _with_spins(state, params, cfg, seed, chains=None):
+    """``state`` with random spins and a random rotor table of +-150 K
+    (float64 on the state's device), so flips are both accepted and
+    rejected at 77 K."""
+    rng = np.random.default_rng(seed)
+    lead = () if chains is None else (chains,)
+    M = params.n_mols_max
+    dev = state.pos.device
+    return state.replace(
+        spin=torch.as_tensor(rng.integers(0, 2, lead + (M,)),
+                             dtype=torch.int32, device=dev),
+        rot_f=torch.as_tensor(rng.uniform(-150.0, 150.0, lead + (M, 2)),
+                              dtype=cfg.tdtype, device=dev))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mol_pair_stride0_matches_plain(device, dtype):
+    """B4 over the 512 grid orientations of three rotors with the
+    positions shared (stride 0): within _close of the plain version, and
+    bit for bit the launch over an expanded, copied pos and alive."""
+    from mpmc_tpu_torch.ops import qrot
+    params, state, cfg, thermo = _system(dtype, device)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    mols = qrot.rotor_slots(state.mol_alive, params,
+                            [systems.h2_bss3()])[0][:3]
+    axes = torch.as_tensor(qrot._basis(4, 16, 32)[3], dtype=state.pos.dtype,
+                           device=device)
+    mt = torch.as_tensor(mols, device=device)
+    rows = qrot.grid_rows(state.pos, params, mt, axes)
+    G = axes.shape[0]
+    rows = rows.reshape(len(mols) * G, -1, 3).contiguous()
+    mol = mt.repeat_interleave(G)
+    alive = state.atom_alive(params)
+    C = mol.shape[0]
+    scal = pairs.pair_scalars(state.box, cfg)
+    common = (params.charge, params.eps, params.sig, params.mol_id32)
+    tail = (params.mol_atoms, params.mol_natoms, mol, rows, scal, cfg)
+    before = pk.mol_pair_chains.launches
+    k = pk.mol_pair_chains(state.pos, *common, alive, *tail)
+    torch.cuda.synchronize(device)
+    assert pk.mol_pair_chains.launches == before + 1
+    _close(k, pk.mol_pair_chains_plain(state.pos, *common, alive, *tail),
+           dtype)
+    wide = pk.mol_pair_chains(
+        state.pos.expand(C, -1, -1).contiguous(), *common,
+        alive.expand(C, -1).contiguous(), *tail)
+    assert torch.equal(k, wide)
+
+
+@pytest.mark.parametrize("xt", [False, True], ids=["sf", "sf+cav+tmmc"])
+@pytest.mark.parametrize("chains", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_uvt_kernel_spinflip_matches_plain(device, dtype, chains, xt):
+    """B1's XT instance with spinflip (p_spin 0.3; with cavity bias, TMMC
+    and tmmc_bias too) against its plain version on one [C, 300, 16]
+    table: equal move counts (spinflip's too), slot aliveness and spins;
+    positions and sums within test_uvt_kernel_matches_plain's rules."""
+    if xt:
+        params, state, cfg, thermo, _ = _xt_system(dtype, device)
+    else:
+        params, state, cfg, thermo = systems.mof_h2_gcmc(
+            n_side=6, n_h2=20, capacity=40, dtype=dtype, device=device)
+        cfg = dataclasses.replace(cfg, fused_mc=True)
+        state = metropolis.initialize(state, params, cfg, thermo)
+    cfg = dataclasses.replace(cfg, quantum_rotation=True)
+    thermo = thermo.replace(spinflip_probability=torch.tensor(
+        0.3, dtype=cfg.tdtype, device=device))
+    assert mk.supported_uvt(cfg, params) or dtype == "float64"
+    states = _with_spins(multichain.stack_states(state, chains), params,
+                         cfg, 11, chains)
+    u = torch.as_tensor(np.random.default_rng(4).random((chains, 300, 16)),
+                        dtype=cfg.tdtype, device=device)
+    args, kw = metropolis.fused_uvt_launch_args(
+        states, params, cfg, thermo, u,
+        metropolis.uvt_fused_tables(params, cfg))
+    p = mk.run_steps_uvt_plain(*args, **kw)
+    if xt:
+        kw = dict(kw, tmmc_out=torch.zeros_like(kw["tmmc_out"]))
+    before = mk.run_steps_uvt.launches
+    k = mk.run_steps_uvt(*args, **kw)
+    torch.cuda.synchronize(device)
+    assert mk.run_steps_uvt.launches == before + 1
+    k_sums, p_sums = k[2].cpu().numpy(), p[2].cpu().numpy()
+    np.testing.assert_array_equal(k_sums[:, 6:14], p_sums[:, 6:14])
+    assert (p_sums[:, 13] > 50).all()
+    assert (0 < p_sums[:, 12]).all() and (p_sums[:, 12] < p_sums[:, 13]).all()
+    assert torch.equal(k[5], p[5]) and torch.equal(k[1], p[1])
+    assert not torch.equal(p[5], kw["spin"])          # spins flipped
+    f64 = dtype == "float64"
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                               rtol=0, atol=1e-9 if f64 else 1e-4)
+    tol = (np.maximum(1e-10 * np.abs(p_sums[:, :6]), 1e-8) if f64 else
+           2e-5 * np.abs(p_sums[:, :6])
+           + 2e-3 * np.sqrt(p_sums[:, 6:9].sum(1, keepdims=True) + 1.0))
+    assert (np.abs(k_sums[:, :6] - p_sums[:, :6]) <= tol).all()
+
+
+@pytest.mark.parametrize("q", [None, "fh4"])
+@pytest.mark.parametrize("chains", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_nvt_kernel_spinflip_matches_plain(device, dtype, chains, q):
+    """B3's SF instance (with FH4 too) against its plain version on the
+    MOF + H2 system with one [C, 300, 16] table, p_spin 0.3: equal accept
+    counts (spinflip's too) and spins; positions and sums within
+    test_nvt_kernel_matches_plain's rules."""
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=6, n_h2=20, capacity=20, dtype=dtype, device=device)
+    cfg = dataclasses.replace(cfg, ensemble="nvt", fused_mc=True,
+                              quantum_rotation=True,
+                              **(QUANTUM[q] if q else {}))
+    thermo = thermo.replace(spinflip_probability=torch.tensor(
+        0.3, dtype=cfg.tdtype, device=device))
+    assert (mk.supported(cfg, params) and mk.supported_multi(cfg, params)
+            or dtype == "float64")
+    state = metropolis.initialize(systems.jittered(params, state, 7),
+                                  params, cfg, thermo)
+    tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+    states = _with_spins(multichain.stack_states(state, chains), params,
+                         cfg, 12, chains)
+    u = torch.as_tensor(np.random.default_rng(6).random((chains, 300, 16)),
+                        dtype=cfg.tdtype, device=device)
+    args, kw = metropolis.fused_nvt_launch_args(states, params, cfg, thermo,
+                                                u, tables)
+    before = mk.run_steps.launches
+    k = mk.run_steps(*args, **kw)
+    torch.cuda.synchronize(device)
+    assert mk.run_steps.launches == before + 1
+    p = mk.run_steps_plain(*args, **kw)
+    k_sums, p_sums = k[1].cpu().numpy(), p[1].cpu().numpy()
+    np.testing.assert_array_equal(k_sums[:, 3:6], p_sums[:, 3:6])
+    assert (p_sums[:, 5] > 50).all() and (p_sums[:, 3] > 10).all()
+    assert (0 < p_sums[:, 4]).all() and (p_sums[:, 4] < p_sums[:, 5]).all()
+    assert torch.equal(k[4], p[4])
+    f64 = dtype == "float64"
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                               rtol=0, atol=1e-9 if f64 else 1e-4)
+    tol = (np.maximum(1e-10 * np.abs(p_sums[:, :3]), 1e-8) if f64 else
+           2e-5 * np.abs(p_sums[:, :3])
+           + 2e-3 * np.sqrt(p_sums[:, 3:4] + 1.0))
+    assert (np.abs(k_sums[:, :3] - p_sums[:, :3]) <= tol).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pda_kernel_spinflip_matches_plain(device, dtype):
+    """B6's XT instance with spinflip (p_spin 0.3) on the polar MOF + H2
+    system: a forced spinflip survivor at step 0, a forced one of each
+    other move type, natural tables and a survivor-free one, held to
+    _pda_agree's rules, with equal spinflip attempts."""
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=6, n_h2=20, capacity=40, polarization=True, dtype=dtype,
+        device=device)
+    cfg = dataclasses.replace(cfg, polar_delayed=True, fused_mc=True,
+                              quantum_rotation=True)
+    thermo = thermo.replace(spinflip_probability=torch.tensor(
+        0.3, dtype=cfg.tdtype, device=device))
+    assert mk.supported_uvt_polar_da(cfg, params) or dtype == "float64"
+    state = _with_spins(metropolis.initialize(
+        systems.jittered(params, state, 5), params, cfg, thermo), params,
+        cfg, 13)
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    rng = np.random.default_rng(21)
+
+    def table(u):
+        return torch.as_tensor(u, dtype=cfg.tdtype, device=device)
+
+    def launch(u):
+        args, kw = metropolis.pda_launch_args(state, params, cfg, thermo, u,
+                                              tables)
+        assert "rot_f" in kw
+        return mk.run_steps_uvt_pda(*args, **kw).cpu().numpy(), args, kw
+
+    us = []
+    for lane11, lane8 in ((1e-30, 0.9), (0.9, 0.9), (0.9, 0.1), (0.9, 0.4)):
+        u = rng.random((mk.PDA_SEG, 16))
+        u[0, 4], u[0, 8], u[0, 11] = 1e-30, lane8, lane11
+        us.append(table(u))
+    us += [table(rng.random((mk.PDA_SEG, 16))) for _ in range(4)]
+    us.append(pda_survivor_free(lambda u: launch(u)[0],
+                                table(rng.random((mk.PDA_SEG, 16))), rng))
+    spins = 0
+    for u in us:
+        k, args, kw = launch(u)
+        torch.cuda.synchronize(device)
+        trace = []
+        p = mk.run_steps_uvt_pda_plain(*args, **kw, trace=trace).cpu().numpy()
+        _pda_agree(k, p, trace, dtype == "float64")
+        assert k[0, 11] == p[0, 11]
+        spins += int(k[0, 2] == 3 and k[0, 1] > 0.5)
+    assert spins >= 1

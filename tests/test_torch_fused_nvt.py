@@ -254,8 +254,10 @@ def test_fused_bookkeeping_matches_full_recompute_f64(ensemble):
 
 def test_gates_agree_with_the_reference():
     """supported / supported_multi against mc_kernel.supported /
-    supported_multi on the port's surface (Feynman-Hibbs included), and
-    False on what the port refuses (spinflip, the other RD forms)."""
+    supported_multi on the port's surface (Feynman-Hibbs and spinflip
+    included: refused on the monatomic fluid and under nve, taken on the
+    MOF + H2 rotors), and False on what the port refuses (the other RD
+    forms)."""
     cases = []
     p, s, c, t = _lj()
     pm, sm, cm, tmo = _mof()
@@ -264,9 +266,11 @@ def test_gates_agree_with_the_reference():
                    {"coulomb": "cutoff"}, {"coulomb": "none"},
                    {"mixing_rule": "waldman_hagler"}, {"ensemble": "uvt"},
                    {"ensemble": "npt"}, {"dtype": "float64"},
-                   {"polarization": True}, {"feynman_hibbs": True}):
+                   {"polarization": True}, {"feynman_hibbs": True},
+                   {"quantum_rotation": True},
+                   {"quantum_rotation": True, "ensemble": "nve"}):
             cases.append((params, dataclasses.replace(cfg, **kw), True))
-        for kw in ({"quantum_rotation": True}, {"rd_potential": "sg"}):
+        for kw in ({"rd_potential": "sg"},):
             cases.append((params, dataclasses.replace(cfg, **kw), False))
     P, PM = convert.from_jax(p, s, c, t)[0], convert.from_jax(
         pm, sm, cm, tmo)[0]

@@ -52,7 +52,8 @@ def _b3(p, s, c, t, u, temps=None):
                                         torch.as_tensor(u),
                                         tm.nvt_fused_tables(P, S.mol_alive))
     pos, sums, _, _ = tmk.run_steps(*args, **kw)
-    return (pos.numpy(), sums.numpy()), (np.asarray(w_pos),
+    assert not sums[:, 4:].any()            # no spinflip without the move
+    return (pos.numpy(), sums.numpy()[:, :4]), (np.asarray(w_pos),
                                          np.asarray(w_sums)[:, :4])
 
 

@@ -187,7 +187,7 @@ def test_run_mc_routes_polar_delayed_to_b6(tmp_path, monkeypatch):
 # given the input they need)
 REFUSED = {"cavity_bias": ({"cavity_bias": True}, None),
            "tmmc": ({"tmmc": True, "tmmc_bias": True}, None),
-           "quantum_rotation": ({"quantum_rotation": True}, "A11b"),
+           "quantum_rotation": ({"quantum_rotation": True}, None),
            "feynman_hibbs": ({"feynman_hibbs": True}, None),
            "rd_sg": ({"rd_potential": "sg"}, "A12a-2")}
 
@@ -195,12 +195,13 @@ REFUSED = {"cavity_bias": ({"cavity_bias": True}, None),
 @pytest.mark.parametrize("flag", list(REFUSED))
 def test_b6_refuses_a11_features(flag):
     """What B6 does not carry raises NotImplementedError naming the
-    ROADMAP item, in the plain version too: spinflip (A11b) and the RD
-    forms beyond lj/none (A12a-2).  Feynman-Hibbs, cavity bias and TMMC,
-    once refused, run (item None): with the molecule-mass plane, the
-    open-cell list or the tmmc_bias tilts B6's plain version gives a
-    record; without the plane or the list it raises (TMMC is collected
-    by the driver, and its tilts default to 0)."""
+    ROADMAP item, in the plain version too: the RD forms beyond lj/none
+    (A12a-2).  Feynman-Hibbs, cavity bias, TMMC and spinflip, once
+    refused, run (item None): with the molecule-mass plane, the open-cell
+    list, the tmmc_bias tilts or the rotor table and spins B6's plain
+    version gives a record; without the plane, the list or the table it
+    raises (TMMC is collected by the chunk function, and its tilts default to
+    0)."""
     P, S, C, T = convert.from_jax(*jax_system("direct"))
     cfg = tmk.pda_effective_cfg(C, P)
     u = torch.as_tensor(np.random.default_rng(0).random((SEG, 16)),
@@ -215,7 +216,11 @@ def test_b6_refuses_a11_features(flag):
                 "cavity_bias": ("needs cav_list", dict(zip(
                     ("cav_list", "cav_n"), tmk.pack_cavity(torch.ones(
                         C.cavity_grid ** 3, dtype=torch.bool))))),
-                "tmmc": (None, dict(d_eta_ins=0.5, d_eta_del=-0.5))}[flag]
+                "tmmc": (None, dict(d_eta_ins=0.5, d_eta_del=-0.5)),
+                "quantum_rotation": ("needs rot_f and spin", dict(
+                    rot_f=torch.zeros((len(args[8]), 2)),
+                    spin=torch.zeros(len(args[8]), dtype=torch.int32),
+                    p_spin=0.5))}[flag]
         if need[0] is not None:
             with pytest.raises(ValueError, match=need[0]):
                 tmk.run_steps_uvt_pda(*args, **kw)

@@ -153,7 +153,9 @@ def test_tmmc_gates():
     takes single-species TMMC in float32 (float64 fails on the physics
     surface, not on tmmc) and refuses it with two insert species; the
     parser refuses tmmc outside µVT, under parallel tempering and under
-    simulated annealing; spinflip stays refused (A11b)."""
+    simulated annealing; spinflip rides along where every insert species
+    is a rotor (refused on the monatomic ideal gas, taken beside TMMC on
+    the MOF + H2 system)."""
     params, state, cfg, _, _ = ideal_gas()
     cfg_f = dataclasses.replace(cfg, fused_mc=True)
     assert not tmk.supported_uvt(cfg_f, params)
@@ -175,8 +177,13 @@ def test_tmmc_gates():
                            "numsteps 100\ncorrtime 10\ntmmc on\n"
                            "simulated_annealing on\n"
                            "simulated_annealing_schedule 0.99\n")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tmk._refuse_cfg(dataclasses.replace(cfg, quantum_rotation=True))
+    tmk._refuse_cfg(dataclasses.replace(cfg, quantum_rotation=True))
+    assert not tmk.supported_uvt(dataclasses.replace(
+        cfg_f, dtype="float32", quantum_rotation=True), params)
+    P1, _, C1, _ = convert.from_jax(*jsystems.mof_h2_gcmc(
+        n_side=3, n_h2=2, capacity=4))
+    assert tmk.supported_uvt(dataclasses.replace(
+        C1, fused_mc=True, tmmc=True, quantum_rotation=True), P1)
 
 
 def test_tmmc_needs_one_insert_species(tmp_path):

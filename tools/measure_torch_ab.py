@@ -44,7 +44,11 @@ through its own wrappers at their default launch shape (CUDA events,
 median of 5 launches of 1000 steps, float32, per step): B1 on the 10.8k
 bench system at C = 1 and 32 chains, B3 on the 10.0k MOF + H2 system at
 C = 1 and 16 chains and on the 10k LJ fluid at C = 1 (the systems of its
-chip_smoke.py); ``--compare-phases`` prints these files too.  It then
+chip_smoke.py), keeping each launch's outputs in <out.json>.b13.pt and
+the classical B1, B3 and B6 libraries' ptxas lines in <out.json>;
+``--compare-phases`` prints these files too and fails unless the B1 and
+B3 outputs are equal bit for bit (B3's sums on the columns both
+checkouts return).  It then
 runs the checkout's ``phase_pda_kernel`` and keeps every output of B6
 (run_steps_uvt_pda) in launch order, but for its timing launches, in
 <out.json>.b6.pt;
@@ -288,8 +292,13 @@ def measure_times(checkout, out):
     rng = np.random.default_rng
     r = {"card": smi, "us": {}}
 
+    outs = {}
+
     def time(label, launch, args, kw):
-        # ms per 1000-step launch = us per step
+        # the launch's outputs (the classical instances' bits), then ms per
+        # 1000-step launch = us per step
+        outs[label] = [x.cpu() for x in launch(*args, **kw)
+                       if x is not None]
         r["us"][label] = cs.time_calls(lambda: launch(*args, **kw), dev,
                                        n=5)
         print(f"{label}: {r['us'][label]:.3f} us per step", flush=True)
@@ -314,8 +323,15 @@ def measure_times(checkout, out):
                 multichain.stack_states(state, C), params, cfg, thermo, u,
                 tables)
             time(f"B3 {kind} C={C}", mk.run_steps, args, kw)
+    from mpmc_tpu_torch.ops.cuda import _build
+    r["ptxas"] = {}
+    for name in ("uvt_kernel", "nvt_kernel", "pda_kernel"):
+        text = _build.target(name).with_suffix(".ptxas.txt").read_text()
+        r["ptxas"][name] = [ln.strip() for ln in text.splitlines()
+                            if "registers" in ln or "spill" in ln]
     with open(out, "w") as f:
         json.dump(r, f, indent=1)
+    torch.save(outs, out + ".b13.pt")
     # B6's outputs on phase 4d's tables, in launch order, leaving out the
     # launches its timings make (their number differs between checkouts,
     # and a back-to-back timing must not wait for a copy to the host)
@@ -880,6 +896,9 @@ def _report_phases(label, r):
     if "us" in r:
         print(f"{label} ({r['card']}): " + ", ".join(
             f"{k} {v:.3f}" for k, v in r["us"].items()) + " us/step")
+        for name, lines in r.get("ptxas", {}).items():
+            for ln in lines:
+                print(f"    {name}: {ln}")
         return
     print(f"{label} ({r['card']}): B1 {r['b1_us']:.3f} us/step, B3 MOF "
           f"{r['b3_mof_us']:.3f}, LJ {r['b3_lj_us']:.3f}")
@@ -949,6 +968,28 @@ if __name__ == "__main__":
         for p in sys.argv[2:]:
             with open(p) as f:
                 _report_phases(p, json.load(f))
+        b13 = {p: torch.load(p + ".b13.pt") for p in sys.argv[2:]
+               if os.path.exists(p + ".b13.pt")}
+        if b13:
+            # B1's and B3's outputs on the timing tables; a checkout whose
+            # B3 returns more sums columns is held on the columns both have
+            first = next(iter(b13.values()))
+
+            def same_out(a, b):
+                if a.shape != b.shape and a.ndim == 2 and a.shape[0] == \
+                        b.shape[0]:
+                    n = min(a.shape[1], b.shape[1])
+                    return torch.equal(a[:, :n], b[:, :n])
+                return torch.equal(a, b)
+
+            same = all(r.keys() == first.keys() and all(
+                len(r[k]) == len(first[k]) and all(
+                    same_out(a, b) for a, b in zip(r[k], first[k]))
+                for k in first) for r in b13.values())
+            print(f"B1 and B3: {len(first)} launches' outputs per file, "
+                  + ("equal bit for bit" if same else "DIFFER"))
+            if not same:
+                raise SystemExit(1)
         if b6:
             first = next(iter(b6.values()))
             same = all(len(r) == len(first)
