@@ -28,29 +28,29 @@ Phases (any failure raises, so the exit code is non-zero):
 5. energy — total_energy on the card (float32, kernels) against the port
    on the CPU (float64, plain), term by term;
 6. scan path — the 10.8k system written to PQR and run as a GCMC deck
-   through mpmc_tpu_torch.mc.run.run (3000 steps): B2 and B4 must have
+   through mpmc_tpu_torch.mc.run.run (2000 steps): B2 and B4 must have
    been launched by it, and the carried energy of a further chunk must
    match a fresh recompute; a profiled chunk shows where a step's time
-   goes; then examples/h2_sorption.inp (2000 steps);
+   goes; then examples/h2_sorption.inp (1000 steps);
 7. fused path — the same deck with ``fused_mc on`` (20,000 steps): B1 and
    B2 must have been launched, the carried energy of a further chunk
    must match a fresh recompute, the kernel alone is timed and a chunk
    profiled; then ``chains 32`` (the reference's headline width), with
    the bookkeeping of chain 0 and of the last chain and a profiled chunk;
 8. fused NVT — the MOF + H2 deck under ``ensemble nvt`` with ``fused_mc
-   on`` (20,000 steps, one chain and ``chains 16``), the LJ fluid deck
-   under nvt (20,000 steps) and nve (5,000 steps, total_energy from an
+   on`` (10,000 steps, one chain and ``chains 16``), the LJ fluid deck
+   under nvt (10,000 steps) and nve (5,000 steps, total_energy from an
    ``ensemble te`` run): B3 launched once per corrtime, bookkeeping after
    a further chunk, the NVE reservoir positive; profiled MOF chunks at
    C = 1 and 16 with B3's share of the device time;
 9. polar — the 10.8k system with polarizable framework sites through
    run.run (phase_polar): plain Metropolis, the scan-path delayed
-   acceptance and the rc 14 A tile-culled CG, 300 steps each, B5 in
+   acceptance and the rc 14 A tile-culled CG, 200 steps each, B5 in
    every CG iteration, with bookkeeping of the polar term, B5 launches
    against CG iterations, host syncs and a profile per step;
 9b. fused polar DA — the same system with ``polar_delayed on`` and
    ``fused_mc on`` (phase_pda_decks): the direct field, ``polar_wolf on``
-   and ``cutoff 14``, 300 steps each through run.run — B6 per segment,
+   and ``cutoff 14``, 200 steps each through run.run — B6 per segment,
    the exact SCF per survivor — with the same checks, B6 launches per
    step and B6's share of a profiled chunk.
 
@@ -154,11 +154,24 @@ Phases (any failure raises, so the exit code is non-zero):
    versions with each state's real rotor table: equal decisions and
    spins; times beside the instance without spinflip in the same call;
 25. the spinflip decks (phase_sf_decks) — DECK with quantum_rotation on
-   the scan path (300 steps), fused µVT (5,000), ``chains 32`` (400),
-   fused MOF NVT (5,000), PDA (d) (100) and the 8-replica B1 ladder (400),
+   the scan path (300 steps), fused µVT (2,000), ``chains 32`` (200),
+   fused MOF NVT (2,000), PDA (d) (100) and the 8-replica B1 ladder (400),
    each at corrtime <= 200: the route, the kernel and the rotor grid
    launched, the ortho fraction, spinflip acceptance, ms per refresh, and
-   the carried energy against a fresh recompute after a further chunk.
+   the carried energy against a fresh recompute after a further chunk;
+26. RD form kernels (phase_rd_kernels) — B2 and B4's instance of each RD
+   form (sg, dreiding, b14_7, disp_expansion damped with its tail) on the
+   bench system with its LJ wells mapped to the form
+   (systems.rd_form_columns): B2 at row_start F and 0, B4 on an H2's rows
+   and a trial, over 128 chains and at position stride 0 (4 rotors' 512
+   orientations; one 64-rotor launch timed), each against its plain
+   version in float64 and float32; times and bounds (OPS_RD_*);
+27. the RD decks (phase_rd_decks) — the disp_expansion µVT scan deck
+   (1,000 steps, C10 from extrapolate_disp_coeffs), its ``chains 16``
+   deck (200), its Thole-polar scan deck (100), a ``gwp on`` deck (200,
+   the plain pass: B2 and B4 never launched), and the sg, dreiding and
+   b14_7 scan decks (300 each): the pair route, steps/s, and the carried
+   energy against a fresh recompute after a further chunk.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
@@ -212,7 +225,11 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "run_steps_uvt_sf": "mpmc_tpu_torch/csrc/uvt_xt_kernel.cu",
            "run_steps_uvt_sf_c32": "mpmc_tpu_torch/csrc/uvt_xt_kernel.cu",
            "run_steps_sf": "mpmc_tpu_torch/csrc/nvt_sf_kernel.cu",
-           "run_steps_uvt_pda_sf": "mpmc_tpu_torch/csrc/pda_xt_kernel.cu"}
+           "run_steps_uvt_pda_sf": "mpmc_tpu_torch/csrc/pda_xt_kernel.cu",
+           **{f"{k}_{f}": f"mpmc_tpu_torch/csrc/pair_{f}_kernel.cu"
+              for k in ("pair_terms", "mol_pair")
+              for f in ("sg", "dreiding", "b14_7", "disp")},
+           "mol_pair_chains_disp": "mpmc_tpu_torch/csrc/pair_disp_kernel.cu"}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
@@ -234,7 +251,12 @@ REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "run_steps_uvt_sf": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
             "run_steps_uvt_sf_c32": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
             "run_steps_sf": "mpmc_tpu/ops/pallas/mc_kernel.py:220",
-            "run_steps_uvt_pda_sf": "mpmc_tpu/ops/pallas/mc_kernel.py:2089"}
+            "run_steps_uvt_pda_sf": "mpmc_tpu/ops/pallas/mc_kernel.py:2089",
+            **{f"pair_terms_{f}": "mpmc_tpu/ops/pallas/pair_kernel.py:79"
+               for f in ("sg", "dreiding", "b14_7", "disp")},
+            **{f"mol_pair_{f}": "mpmc_tpu/ops/pallas/pair_kernel.py:336"
+               for f in ("sg", "dreiding", "b14_7", "disp")},
+            "mol_pair_chains_disp": "mpmc_tpu/ops/pallas/pair_kernel.py:336"}
 # NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
 # tensor cores, and device memory
 PEAK_F32 = 67e12
@@ -248,6 +270,20 @@ PEAK_BYTES = 3.35e12
 # within rc only: the r^2 guard 1, LJ 13 (rd lj), the real-space Ewald
 # term 6 (coulomb on); per k-vector phase 13, per reciprocal term 9
 OPS_PAIR_B2B4 = 79
+# operations of a form's RD energy for a pair within rc (csrc/
+# pair_kernel.cuh rd_form; a square root, division, exp or pow counted as
+# one): sg 30 (r 1, the floor 2, exp(a - b r - g r^2) 5, r^2 and r^6 3,
+# the four dispersion terms 10, the damping 6, the sum 3); dreiding 15 (r
+# 1, D0 2, r0 3, p 1, the exponential 4, p^-6 2, the sum 2); b14_7 36 (r
+# 1, r0 11, the mixed eps 8, p 1, the buffered term 6, p^7 and its factor
+# 7, 2); disp_expansion 67 (r 1, A 3, B 5, the Born-Mayer term 4, r^2 and
+# r^6 3, the damping 39: x, one exp, ten terms of 3, three factors of 2,
+# the three dispersion terms 12); disp_expansion's C mixing 9 and tail 6
+# for every counted pair; beside them a pair of the RD form instances
+# costs OPS_PAIR_B2B4 less LJ (13) and the LJ tail (11)
+OPS_RD_IN = {"sg": 30, "dreiding": 15, "b14_7": 36, "disp_expansion": 67}
+OPS_RD_ANY = {"sg": 0, "dreiding": 0, "b14_7": 0, "disp_expansion": 15}
+OPS_PAIR_RD_BASE = OPS_PAIR_B2B4 - 13 - 11
 OPS_PAIR_FUSED, OPS_GUARD, OPS_LJ, OPS_COULOMB = 24, 1, 13, 6
 OPS_PHASE_FUSED, OPS_K_FUSED = 13, 9
 # B5 (csrc/thole_kernel.cu), for every pair it evaluates: displacement 3,
@@ -289,7 +325,7 @@ EPS32 = float(np.finfo(np.float32).eps)
 RC_CULL = 14.0
 # the polar decks: steps each, and a corrtime short enough that a deck
 # makes several per-corrtime refreshes (a full SCF solve each)
-POLAR_STEPS, POLAR_CORRTIME = 300, 100
+POLAR_STEPS, POLAR_CORRTIME = 200, 100
 # the bench system: mof_h2_gcmc(n_side=21, spacing=4.0, n_h2=256,
 # capacity=512) -> 9,261 framework atoms + 512 x 3 H2 sites
 N_SIDE, N_H2, CAPACITY = 21, 256, 512
@@ -1308,10 +1344,16 @@ def phase_pda_kernel(device, seed=43):
 
 def phase_energy(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
     """Card float32 (kernels) against CPU float64 (plain), per term, on the
-    bench system classical and under FH2 and FK (whose pair terms take
-    the plain tile pass on the card: B2's gate refuses them); then the
-    polar term of the polar bench system (B5 in both modes)."""
+    bench system classical (the whole system) and under FH2 and FK (whose
+    pair terms take the plain tile pass on the card: B2's gate refuses
+    them) on its active part — every pair with a sorbate site, the rows
+    from the frozen prefix's end on, as the refresh's frozen reuse
+    computes it (the framework's own pairs, a constant of the run, are
+    the classical case's); then the polar term of the polar bench system
+    (B5 in both modes)."""
+    from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops import energy
+    from mpmc_tpu_torch.state import EnergyBreakdown
     cpu = torch.device("cpu")
     for q in ("classical", "fh2", "fk"):
         out = {}
@@ -1320,10 +1362,19 @@ def phase_energy(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
                                 ("cpu f32", "float32", cpu)):
             params, state, cfg, thermo = bench_system(dtype, dev, n_side,
                                                       n_h2, capacity)
+            F = metropolis.frozen_refresh_rows(params, cfg)
             cfg = dataclasses.replace(cfg, **FH_VARIANTS[q])
             t0 = time.time()
-            e, _ = energy.total_energy(state.pos, state.box,
-                                       state.mol_alive, params, cfg, thermo)
+            if q == "classical":
+                e, _ = energy.total_energy(state.pos, state.box,
+                                           state.mol_alive, params, cfg,
+                                           thermo)
+            else:
+                e, _, _ = energy.total_energy(
+                    state.pos, state.box, state.mol_alive, params, cfg,
+                    thermo, split_frozen=True,
+                    frozen_cached=EnergyBreakdown.zero(cfg.tdtype, dev),
+                    active_row_start=F)
             out[tag] = {k: float(v) for k, v in e.as_dict().items()}
             log(f"energy {q} {tag}: {time.time() - t0:.2f} s")
         for k in out["cpu f64"]:
@@ -1426,7 +1477,8 @@ def _launch_counts():
             "run_steps_uvt_pda": mk.run_steps_uvt_pda.launches}
 
 
-def _run_deck(device, extra="", numsteps=3000, kind="mof", verbose=True):
+def _run_deck(device, extra="", numsteps=3000, kind="mof", verbose=True,
+              form=None):
     """A full-size system written to PQR and run as a deck through run.run,
     every launch count set to 0 just before and read just after: ``kind``
     "mof" — the 10.8k system as DECK (plus ``extra`` lines) —, "polar" —
@@ -1434,8 +1486,11 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof", verbose=True):
     with ``polarization on`` and corrtime POLAR_CORRTIME — or "lj" — the
     10k LJ fluid as LJ_DECK.  An ``ensemble nve`` LJ deck gets
     total_energy = U0 + NVE_K_PER_ATOM x N, U0 from an ``ensemble te`` run
-    of the same deck.  Without ``verbose`` only the run's last lines are
-    logged.  Returns (Setup, averages, log text, launches)."""
+    of the same deck.  ``form`` (an RD form or "gwp"): the system's
+    columns as _rd_params makes them, written with the PQR's extended
+    columns (C10 left 0 under disp_expansion, for extrapolate_disp_coeffs
+    to fill).  Without ``verbose`` only the run's last lines are logged.
+    Returns (Setup, averages, log text, launches)."""
     from mpmc_tpu_torch.io import input_script, pqr
     from mpmc_tpu_torch.mc import run
     from mpmc_tpu_torch.models import systems
@@ -1452,11 +1507,16 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof", verbose=True):
     else:
         params, state, cfg, _ = systems.lj_fluid(n=N_LJ, device="cpu")
         name, template, species = "lj10k", LJ_DECK, ["AR"]
+    if form is not None:
+        params, _ = _rd_params(params, cfg, form)
+        if form == "disp_expansion":
+            params = params.replace(c10=torch.zeros_like(params.c10))
     old = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            pqr.write_state(f"{name}.pqr", params, state, species)
+            pqr.write_state(f"{name}.pqr", params, state, species,
+                            extended=form is not None)
             text = template.format(numsteps=numsteps,
                                    L=float(state.box[0, 0]))
             if "ensemble nve" in extra:
@@ -1524,7 +1584,7 @@ def _polar_tol(state, params, cfg):
             + 1e-4 * abs(float(state.energy.polar)))
 
 
-def phase_main(device, numsteps=3000):
+def phase_main(device, numsteps=2000):
     """The port's scan path at full size through run.run."""
     from mpmc_tpu_torch.mc import metropolis
     su, avgs, text, launches = _run_deck(device, numsteps=numsteps)
@@ -1578,7 +1638,7 @@ def phase_fused(device, numsteps=20000):
     return launches, rate, dataclasses.replace(su, state=st), ms / 1000
 
 
-def phase_fused_nvt(device, chains=16, nvt_steps=20000, nve_steps=5000):
+def phase_fused_nvt(device, chains=16, nvt_steps=10000, nve_steps=5000):
     """The fused NVT/NVE path (B3) at full width through run_mc and
     run_mc_chains: the MOF + H2 deck under nvt, one chain and ``chains``
     chains (``nvt_steps`` each), the 10k LJ fluid under nvt (``nvt_steps``)
@@ -1880,7 +1940,7 @@ def _block_breakdown(device, su, label, states=None):
             "restart_ms": restart * 1e3}
 
 
-def phase_fused_chains(device, chains=32, numsteps=20000):
+def phase_fused_chains(device, chains=32, numsteps=10000):
     """The fused µVT path at the reference's headline width: the bench
     deck with fused_mc on and chains 32; bookkeeping of chain 0 and of
     the last chain after a further chunk."""
@@ -2007,7 +2067,7 @@ def phase_profile_fused(device, su, n_steps=1000, states=None):
                     kernel="nvt_kernel" if nvt else "uvt_kernel")
 
 
-def phase_example(device, numsteps=2000):
+def phase_example(device, numsteps=1000):
     """examples/h2_sorption.inp with numsteps overridden, in a temp dir."""
     from mpmc_tpu_torch.io import input_script
     from mpmc_tpu_torch.mc import run
@@ -2817,7 +2877,7 @@ def phase_thole_chains(device, C=C_POLAR):
     return rep
 
 
-def phase_polar_chains(device, C=C_POLAR, numsteps=100, chunk=100):
+def phase_polar_chains(device, C=C_POLAR, numsteps=100, chunk=50):
     """The batched polar chains at full width through run.run: the polar
     deck (phase_polar's DECK + ``polarization on``, corrtime 100) with
     ``chains C``, 100 steps, (a') plain, (b') ``polar_delayed on``, (c')
@@ -4552,12 +4612,12 @@ SF_LINES = (f"quantum_rotation on\nspinflip_probability {P_SPIN}\n")
 # <= 200, the parser's staleness bound
 SF_DECKS = (
     ("sf_scan", "mof", SF_LINES + "corrtime 100\n", 300, None, None),
-    ("sf_fused", "mof", SF_LINES + "fused_mc on\ncorrtime 200\n", 5000,
+    ("sf_fused", "mof", SF_LINES + "fused_mc on\ncorrtime 200\n", 2000,
      "single-chain fused µVT kernel", "run_steps_uvt"),
     ("sf_c32", "mof", SF_LINES + "fused_mc on\nchains 32\ncorrtime 200\n",
-     400, "chain-interleaved multi-chain kernel (C=32)", "run_steps_uvt"),
+     200, "chain-interleaved multi-chain kernel (C=32)", "run_steps_uvt"),
     ("sf_nvt", "mof", SF_LINES + "ensemble nvt\nfused_mc on\ncorrtime 200\n",
-     5000, "single-chain fused NVT kernel", "run_steps"),
+     2000, "single-chain fused NVT kernel", "run_steps"),
     ("sf_pda", "polar", SF_LINES + "polar_delayed on\nfused_mc on\n", 100,
      "polar delayed-acceptance stage-1 kernel", "run_steps_uvt_pda"),
     ("sf_pt", "mof", SF_LINES + "fused_mc on\nparallel_tempering on\n"
@@ -4567,9 +4627,9 @@ SF_DECKS = (
 
 def phase_sf_decks(device):
     """The spinflip decks (SF_DECKS) through run.run: DECK with
-    quantum_rotation on the scan path (300 steps), fused µVT (5,000),
-    ``chains 32`` (400: each refresh rebuilds 32 tables), fused MOF NVT
-    (5,000), PDA (d) (100) and PT
+    quantum_rotation on the scan path (300 steps), fused µVT (2,000),
+    ``chains 32`` (200: each refresh rebuilds 32 tables), fused MOF NVT
+    (2,000), PDA (d) (100) and PT
     (ii), the B1 ladder of 8 replicas (400 steps).  Each deck logs its
     route and no WARNING, launches its kernel (B1 and B3 once per corrtime
     on one chain) and the rotor grid (B4 at stride 0) at each refresh,
@@ -4643,6 +4703,393 @@ def phase_sf_decks(device):
             _check_bookkeeping(f"{label}, a further chunk", st, su,
                                polar=cfg.polarization)
         log(f"{label}: " + json.dumps(rep))
+        launches[label], reps[label] = ln, rep
+    return launches, reps
+
+
+# ---------------------------------------------------------------- RD forms
+# the RD forms of B2 and B4's form instances, the name of each one's report
+# entries (pair_terms_<key>, mol_pair_<key>) and its source
+RD_FORMS = ("sg", "dreiding", "b14_7", "disp_expansion")
+RD_KEY = {"sg": "sg", "dreiding": "dreiding", "b14_7": "b14_7",
+          "disp_expansion": "disp"}
+RD_LINES = {"sg": "sg on\n", "dreiding": "dreiding on\n",
+            "b14_7": "lj_buffered_14_7 on\n",
+            "disp_expansion": "disp_expansion on\ndamp_dispersion on\n"
+            "extrapolate_disp_coeffs on\nrd_lrc on\n",
+            "gwp": "gwp on\n"}
+C_RD_CHAINS = 128
+
+
+def _rd_ops(form, n_pairs, n_in):
+    """Operations of a B2/B4 pass under ``form``: every counted pair's,
+    and the RD energy of the inter pairs within rc."""
+    return (n_pairs * (OPS_PAIR_RD_BASE + OPS_RD_ANY[form])
+            + n_in * OPS_RD_IN[form])
+
+
+def _rd_params(params, cfg, form):
+    """The bench system's (params, cfg) under ``form``: its LJ wells mapped
+    (systems.rd_form_columns; disp_expansion with rd_lrc and damping on),
+    or, for "gwp", GWP widths 0.2-0.6 A (numpy seed 17) on every charged
+    site under coulomb gwp."""
+    from mpmc_tpu_torch.models import systems
+    if form == "gwp":
+        q = params.charge.cpu().numpy()
+        w = np.random.default_rng(17).uniform(0.2, 0.6, q.shape)
+        return (params.replace(gwp_alpha=torch.as_tensor(
+            np.where(q != 0, w, 0.0), dtype=params.eps.dtype,
+            device=params.device)),
+                dataclasses.replace(cfg, coulomb="gwp"))
+    return systems.with_rd_form(params, cfg, form, rd_lrc=True,
+                                damp_dispersion=True)
+
+
+def _rd_bench(form, dtype, device):
+    params, state, cfg, thermo = bench_system(dtype, device)
+    params, cfg = _rd_params(params, cfg, form)
+    return params, state, cfg, thermo
+
+
+def _within_rc(rows, row_ok, pos, col_ok, scal, block=1024):
+    """Pairs of trial rows [C, A, 3] (row_ok [C, A]) with the columns pos
+    [N, 3] or [C, N, 3] (col_ok [C, N]) inside rc, on the card in blocks
+    of chains: what a form's RD energy is computed for."""
+    from mpmc_tpu_torch.ops import pbc
+    rc = float(scal[0])
+    box, inv = scal[2:11].reshape(3, 3), scal[11:20].reshape(3, 3)
+    n_in = 0
+    for c0 in range(0, rows.shape[0], block):
+        sl = slice(c0, c0 + block)
+        p = pos if pos.ndim == 2 else pos[sl]
+        pc = p[None, None] if pos.ndim == 2 else p[:, None]
+        dr = pbc.min_image(rows[sl][:, :, None, :] - pc, box, inv)
+        r2 = torch.sum(dr * dr, -1)
+        ok = row_ok[sl][:, :, None] & col_ok[sl][:, None, :]
+        n_in += int((ok & (r2 < rc * rc)).sum())
+    return n_in
+
+
+def _b2_counts(state, params, cfg, rs, block=512):
+    """(pairs B2 evaluates at row_start rs, of them the inter pairs within
+    rc): every alive row >= rs against the alive columns above it and
+    below rs."""
+    from mpmc_tpu_torch.ops import pairs, pbc
+    scal = pairs.pair_scalars(state.box, cfg)
+    rc = float(scal[0])
+    box, inv = scal[2:11].reshape(3, 3), scal[11:20].reshape(3, 3)
+    alive = state.atom_alive(params)
+    n = alive.shape[0]
+    cols = torch.arange(n, device=alive.device)
+    n_all = n_in = 0
+    for i0 in range(rs, n, block):
+        rows = cols[i0:i0 + block]
+        ok = (alive[rows][:, None] & alive[None, :]
+              & ((cols[None, :] > rows[:, None]) | (cols[None, :] < rs)))
+        dr = pbc.min_image(state.pos[rows][:, None, :] - state.pos[None],
+                           box, inv)
+        r2 = torch.sum(dr * dr, -1)
+        inter = ok & (params.mol_id[rows][:, None] != params.mol_id[None, :])
+        n_all += int(ok.sum())
+        n_in += int((inter & (r2 < rc * rc)).sum())
+    return n_all, n_in
+
+
+def _agree(label, k, p, ref64, dtype, slots):
+    """k against the plain p (float64) or the float64 plain ref64 within
+    _tol (float32); logged per slot; returns max |d|."""
+    k = k.double().cpu().numpy()
+    p = p.double().cpu().numpy()
+    if dtype == "float64":
+        ref, tol = p, _tol(torch.float64, p)
+    else:
+        ref, tol = ref64, _tol(torch.float32, ref64, p)
+    err = np.abs(k - ref)
+    fin = np.isfinite(ref)
+    for s, name in enumerate(slots):
+        e, t = err.reshape(-1, len(slots))[:, s], tol.reshape(
+            -1, len(slots))[:, s]
+        log(f"    {name:11s} |d| {e.max():.3e} tol {t.min():.3e} (worst "
+            f"|d|/tol {float(np.max(e / t)):.3f})")
+    if not (np.all(err[fin] <= tol[fin])
+            and np.array_equal(np.isfinite(k), fin)):
+        raise AssertionError(f"{label} {dtype} disagrees with its plain "
+                             "version")
+    return float(err[fin].max())
+
+
+def phase_rd_kernels(device, n_grid=4):
+    """B2 and B4's instance of each RD form (sg, dreiding, b14_7,
+    disp_expansion damped with its tail) on the 10.8k bench system with
+    its LJ wells mapped to the form (systems.rd_form_columns), each
+    against its plain version in float64 (rel 1e-12) and float32 (_tol):
+    B2 at row_start F and 0; B4 on an H2's rows and a trial beside the
+    framework; B4 over C_RD_CHAINS chains (positions per chain, the trial
+    moved per chain); B4 at position stride 0 over n_grid rotors' 512
+    orientations.  Times (float32) per call, on the card alone and of the
+    plain version; bounds from OPS_RD_* and this run's pairs within rc.
+    Returns the report entries pair_terms_<key> and mol_pair_<key>."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.ops import pairs, qrot
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    report = {}
+    for form in RD_FORMS:
+        key = RD_KEY[form]
+        b2 = report[f"pair_terms_{key}"] = {"max_abs_err": 0.0}
+        b4 = report[f"mol_pair_{key}"] = {"max_abs_err": 0.0}
+        ref64, errs = {}, {"c128": 0.0, "grid": 0.0}
+        for dtype in ("float64", "float32"):
+            params, state, cfg, thermo = _rd_bench(form, dtype, device)
+            disp = pairs.site_columns(params, cfg)[0]
+            F = metropolis.frozen_refresh_rows(params, cfg)
+            alive = state.atom_alive(params)
+            scal = pairs.pair_scalars(state.box, cfg)
+            args = (state.pos, params.charge, params.eps, params.sig,
+                    params.mol_id32, alive, params.mol_frozen[params.mol_id],
+                    scal, cfg)
+            f32 = dtype == "float32"
+            for rs in (F, 0):
+                k = pk.pair_terms(*args, row_start=rs, disp=disp)
+                p = pk.pair_terms_plain(*args, row_start=rs, disp=disp)
+                if not f32:
+                    ref64[("b2", rs)] = p.double().cpu().numpy()
+                log(f"B2 {form} {dtype} row_start={rs}:")
+                b2["max_abs_err"] = max(b2["max_abs_err"], _agree(
+                    f"B2 {form}", k, p, ref64[("b2", rs)], dtype, SLOTS))
+                if f32:
+                    ms = time_calls(lambda: pk.pair_terms(
+                        *args, row_start=rs, disp=disp), device)
+                    dms = time_device(lambda: pk.pair_terms(
+                        *args, row_start=rs, disp=disp), device, n=20)
+                    pms = time_calls(lambda: pk.pair_terms_plain(
+                        *args, row_start=rs, disp=disp), device, n=3)
+                    n_pairs, n_in = _b2_counts(state, params, cfg, rs)
+                    bound, by = _bound_ms(_rd_ops(form, n_pairs, n_in),
+                                          _nbytes(*args[:8], *(disp or ()))
+                                          + 9 * 4)
+                    e = dict(ms=ms, device_ms=dms, plain_ms=pms,
+                             bound_ms=bound, bound_by=by, pairs=n_pairs,
+                             pairs_in_rc=n_in)
+                    if rs == F:
+                        b2.update(e)
+                    else:
+                        b2["full"] = e
+                    log(f"    {ms:.4f} ms per call, {dms:.4f} on the card "
+                        f"alone, plain {pms:.3f}; bound {bound:.5f} ms ({by};"
+                        f" {n_pairs} pairs, {n_in} within rc)")
+            # B4: an H2's rows and a trial beside the framework
+            h2 = int(np.flatnonzero((params.mol_species >= 0).cpu().numpy()
+                                    & state.mol_alive.cpu().numpy())[0])
+            trial = (state.pos[0] + params.species_pos[0]
+                     + torch.tensor([2.0, 0.31, 0.17], dtype=cfg.tdtype,
+                                    device=device))
+            m = torch.tensor(h2, device=device)
+            for label, rows in (("H2", None), ("trial", trial)):
+                margs = (state.pos, params.charge, params.eps, params.sig,
+                         params.mol_id32, alive, params.mol_atoms,
+                         params.mol_natoms, m, rows, scal, cfg)
+                k = pk.mol_pair(*margs, disp=disp)
+                p = pk.mol_pair_plain(*margs, disp=disp)
+                if not f32:
+                    ref64[("b4", label)] = p.double().cpu().numpy()
+                log(f"B4 {form} {dtype} {label}:")
+                b4["max_abs_err"] = max(b4["max_abs_err"], _agree(
+                    f"B4 {form}", k, p, ref64[("b4", label)], dtype,
+                    MOL_SLOTS))
+                if f32 and label == "H2":
+                    ms = time_calls(lambda: pk.mol_pair(*margs, disp=disp),
+                                    device)
+                    dms = time_device(lambda: pk.mol_pair(*margs, disp=disp),
+                                      device, n=200)
+                    pms = time_calls(lambda: pk.mol_pair_plain(
+                        *margs, disp=disp), device)
+                    own = params.mol_id == h2
+                    na = int(params.mol_natoms[h2])
+                    n_pairs = na * int((alive & ~own).sum())
+                    rows_h2 = state.pos[params.mol_atoms[h2]][None]
+                    n_in = _within_rc(rows_h2, torch.arange(
+                        rows_h2.shape[1], device=device)[None] < na,
+                        state.pos, (alive & ~own)[None], scal)
+                    bound, by = _bound_ms(_rd_ops(form, n_pairs, n_in),
+                                          _nbytes(*margs[:11], *(disp or ()))
+                                          + 4 * 4)
+                    b4.update(ms=ms, device_ms=dms, plain_ms=pms,
+                              bound_ms=bound, bound_by=by, pairs=n_pairs,
+                              pairs_in_rc=n_in)
+                    log(f"    {ms:.4f} ms per call, {dms:.4f} on the card "
+                        f"alone, plain {pms:.4f}; bound {bound:.6f} ms ({by};"
+                        f" {n_pairs} pairs, {n_in} within rc)")
+            # B4 over chains: every chain the system, the trial moved
+            C = C_RD_CHAINS
+            g = np.random.default_rng(31)
+            shift = torch.as_tensor(g.uniform(-1.5, 1.5, (C, 1, 3)),
+                                    dtype=cfg.tdtype, device=device)
+            crows = (trial[None] + shift).contiguous()
+            mols = torch.full((C,), h2, dtype=torch.int64, device=device)
+            cpos = state.pos.expand(C, -1, -1).contiguous()
+            calive = alive.expand(C, -1).contiguous()
+            cargs = (cpos, params.charge, params.eps, params.sig,
+                     params.mol_id32, calive, params.mol_atoms,
+                     params.mol_natoms, mols, crows, scal, cfg)
+            k = pk.mol_pair_chains(*cargs, disp=disp)
+            p = pk.mol_pair_chains_plain(*cargs, disp=disp)
+            if not f32:
+                ref64["c128"] = p.double().cpu().numpy()
+            log(f"B4 {form} {dtype} over {C} chains:")
+            errs["c128"] = max(errs["c128"], _agree(
+                f"B4 {form} c{C}", k, p, ref64["c128"], dtype, MOL_SLOTS))
+            if f32:
+                ms = time_calls(lambda: pk.mol_pair_chains(*cargs, disp=disp),
+                                device)
+                dms = time_device(lambda: pk.mol_pair_chains(
+                    *cargs, disp=disp), device, n=100)
+                pms = time_calls(lambda: pk.mol_pair_chains_plain(
+                    *cargs, disp=disp), device, n=1)
+                own = params.mol_id == h2
+                na = int(params.mol_natoms[h2])
+                n_pairs = C * na * int((alive & ~own).sum())
+                n_in = _within_rc(crows, torch.arange(
+                    crows.shape[1], device=device)[None].expand(C, -1) < na,
+                    state.pos, (alive & ~own)[None].expand(C, -1), scal)
+                bound, by = _bound_ms(_rd_ops(form, n_pairs, n_in),
+                                      _nbytes(*cargs[:11], *(disp or ()))
+                                      + C * 4 * 4)
+                b4["c128"] = dict(ms=ms, device_ms=dms, plain_ms=pms,
+                                  bound_ms=bound, bound_by=by, pairs=n_pairs,
+                                  pairs_in_rc=n_in,
+                                  max_abs_err=errs["c128"])
+                log(f"    {ms:.4f} ms per call, {dms:.4f} on the card alone,"
+                    f" plain {pms:.2f}; bound {bound:.5f} ms ({by})")
+            # B4 at position stride 0: n_grid rotors' orientations
+            state0 = metropolis.initialize(state, params, cfg, thermo)
+            mols_r, _ = qrot.rotor_slots(state0.mol_alive, params,
+                                         [systems.h2_bss3()])
+            axes = torch.as_tensor(qrot._basis(4, qrot.N_THETA,
+                                               qrot.N_PHI)[3],
+                                   dtype=cfg.tdtype, device=device)
+            G = axes.shape[0]
+
+            def grid(ms_):
+                mt = torch.as_tensor(ms_, device=device)
+                rows = qrot.grid_rows(state.pos, params, mt, axes)
+                return (params.mol_atoms, params.mol_natoms,
+                        mt.repeat_interleave(G),
+                        rows.reshape(-1, rows.shape[2], 3).contiguous(),
+                        scal, cfg)
+
+            common = (params.charge, params.eps, params.sig, params.mol_id32)
+            tail = grid(mols_r[:n_grid])
+            k = pk.mol_pair_chains(state.pos, *common, alive, *tail,
+                                   disp=disp)
+            p = pk.mol_pair_chains_plain(state.pos, *common, alive, *tail,
+                                         disp=disp)
+            if not f32:
+                ref64["grid"] = p.double().cpu().numpy()
+            log(f"B4 {form} {dtype} at stride 0, {n_grid} rotors x {G}:")
+            errs["grid"] = max(errs["grid"], _agree(
+                f"B4 {form} stride 0", k, p, ref64["grid"], dtype,
+                MOL_SLOTS))
+            if f32:
+                full = grid(mols_r[:qrot.ROTORS_PER_LAUNCH])
+                Cf = full[2].shape[0]
+
+                def launch():
+                    return pk.mol_pair_chains(state.pos, *common, alive,
+                                              *full, disp=disp)
+
+                ms = time_calls(launch, device)
+                dms = time_device(launch, device, n=10)
+
+                def plain_chunks():
+                    for r0 in range(0, Cf, n_grid * G):
+                        sl = slice(r0, r0 + n_grid * G)
+                        pk.mol_pair_chains_plain(
+                            state.pos, *common, alive, *full[:2],
+                            full[2][sl], full[3][sl], scal, cfg, disp=disp)
+
+                pms = time_calls(plain_chunks, device, n=1)
+                col_ok = alive[None] & (params.mol_id[None, :]
+                                        != full[2][:, None])
+                n_pairs = Cf * 3 * int(alive.sum())
+                n_in = _within_rc(full[3], torch.ones(
+                    full[3].shape[:2], dtype=torch.bool, device=device),
+                    state.pos, col_ok, scal)
+                bound, by = _bound_ms(_rd_ops(form, n_pairs, n_in),
+                                      _nbytes(state.pos, *common, alive,
+                                              *full[:5], *(disp or ()))
+                                      + Cf * 4 * 4)
+                b4["grid"] = dict(ms=ms, device_ms=dms, plain_ms=pms,
+                                  bound_ms=bound, bound_by=by, chains=Cf,
+                                  pairs=n_pairs, pairs_in_rc=n_in,
+                                  max_abs_err=errs["grid"])
+                log(f"    a {qrot.ROTORS_PER_LAUNCH}-rotor launch (C={Cf}):"
+                    f" {ms:.3f} ms per call, {dms:.3f} on the card alone, "
+                    f"plain {pms:.1f}; bound {bound:.4f} ms ({by})")
+    return report
+
+
+# (label, form, extra deck lines, numsteps, deck kind, the pair route)
+RD_DECKS = (
+    ("disp", "disp_expansion", "", 1000, "mof", "kernels"),
+    ("disp_c16", "disp_expansion", "chains 16\ncorrtime 100\n", 200, "mof",
+     "kernels"),
+    ("disp_polar", "disp_expansion", "", 100, "polar", "kernels"),
+    ("gwp", "gwp", "corrtime 100\n", 200, "mof", "plain"),
+    ("sg", "sg", "corrtime 100\n", 300, "mof", "kernels"),
+    ("dreiding", "dreiding", "corrtime 100\n", 300, "mof", "kernels"),
+    ("b14_7", "b14_7", "corrtime 100\n", 300, "mof", "kernels"))
+
+
+def phase_rd_decks(device, chunk=100):
+    """The RD forms and coulomb gwp on the 10.8k bench system (77 K, 1
+    atm) through run.run: the disp_expansion µVT scan deck (damped, its
+    tail on, C10 from extrapolate_disp_coeffs), its ``chains 16`` batched
+    deck, its Thole-polar scan deck (PHAHST's shape, polar (a)), a
+    coulomb gwp deck (the plain pass: B2 and B4 launch 0 times), and the
+    sg, dreiding and b14_7 scan decks.  Each deck's steps/s and launches,
+    and its carried energy after a further chunk against a fresh
+    recompute (rel 1e-4; polar: _polar_tol)."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.parallel import multichain
+    from mpmc_tpu_torch.state import slice_chain
+    launches, reps = {}, {}
+    for i, (label, form, extra, numsteps, kind, route) in enumerate(
+            RD_DECKS):
+        su, avgs, text, ln = _run_deck(device, RD_LINES[form] + extra,
+                                       numsteps=numsteps, kind=kind,
+                                       verbose=False, form=form)
+        plain = "pair passes: the plain tile pass" in text
+        b2b4 = ln["pair_terms"] + ln["mol_pair"] + ln["mol_pair_chains"]
+        if plain != (route == "plain") or (b2b4 > 0) != (route != "plain"):
+            raise AssertionError(f"{label}: not the {route} pair route: "
+                                 f"{ln}")
+        if su.cfg.rd_potential != (form if form != "gwp" else "lj") or (
+                (form == "gwp") != (su.cfg.coulomb == "gwp")):
+            raise AssertionError(f"{label}: the deck ran {su.cfg.rd_potential}"
+                                 f" / {su.cfg.coulomb}")
+        if form == "disp_expansion" and not float(su.params.c10.max()) > 0:
+            raise AssertionError(f"{label}: extrapolate_disp_coeffs left C10 "
+                                 "0")
+        rate = float(text.split("steps/sec:")[1].split()[0])
+        g = torch.Generator(device=device).manual_seed(61 + i)
+        params, cfg, thermo = su.params, su.cfg, su.thermo
+        if su.states is not None:
+            sts, _ = multichain.run_chunk_batched(su.states, params, cfg,
+                                                  thermo, chunk, generator=g)
+            for c in (0, sts.pos.shape[0] - 1):
+                _check_bookkeeping(f"{label} chain {c}, {chunk} steps",
+                                   slice_chain(sts, c), su)
+        else:
+            st, _ = metropolis.run_chunk(su.state, params, cfg, thermo,
+                                         chunk, generator=g)
+            _check_bookkeeping(f"{label}, {chunk} steps", st, su,
+                               polar=cfg.polarization)
+        rep = {"steps_per_sec": rate, "N": avgs.mean("N"),
+               "acc_insert": avgs.mean("acc_insert"),
+               "energy_rd": avgs.mean("energy_rd"),
+               "energy_lrc": avgs.mean("energy_lrc")}
+        log(f"{label}: " + json.dumps(rep) + f"  launches {ln}")
         launches[label], reps[label] = ln, rep
     return launches, reps
 
@@ -4752,6 +5199,12 @@ def main():
     mark("phase_sf_decks")
     sf_launches, sf_reps = phase_sf_decks(dev)
     t_sf = time.time() - t_sf
+    t_rd = time.time()
+    mark("phase_rd_kernels")
+    report.update(phase_rd_kernels(dev))
+    mark("phase_rd_decks")
+    rd_launches, rd_reps = phase_rd_decks(dev)
+    t_rd = time.time() - t_rd
     # each kernel's launches on its own main path: B2 and B4 on the scan
     # path, B1 on the fused single-chain µVT path, B3 on the single-chain
     # MOF NVT deck, B5 (both modes) on the polar scan-path deck (dipole:
@@ -4793,8 +5246,17 @@ def main():
                     sf_launches["sf_c32"]["run_steps_uvt"],
                 "run_steps_sf": sf_launches["sf_nvt"]["run_steps"],
                 "run_steps_uvt_pda_sf":
-                    sf_launches["sf_pda"]["run_steps_uvt_pda"]}
+                    sf_launches["sf_pda"]["run_steps_uvt_pda"],
+                # B2 and B4's RD form instances: each form's scan deck (the
+                # disp_expansion µVT deck), B4 over chains its chains 16 deck
+                **{f"pair_terms_{k}": rd_launches[k]["pair_terms"]
+                   for k in RD_KEY.values()},
+                **{f"mol_pair_{k}": rd_launches[k]["mol_pair"]
+                   for k in RD_KEY.values()},
+                "mol_pair_chains_disp":
+                    rd_launches["disp_c16"]["mol_pair_chains"]}
     report["mol_pair_c16_header"] = report["mol_pair_c128"]["header"]
+    report["mol_pair_chains_disp"] = report["mol_pair_disp"]["c128"]
     names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps",
              "dipole_field", "charge_field", "run_steps_uvt_pda",
              "mol_pair_c128", "dipole_field_c8", "mol_pair_c16_header",
@@ -4802,7 +5264,10 @@ def main():
              "run_steps_uvt_pda_fh2", "run_steps_uvt_xt",
              "run_steps_uvt_xt_c32", "run_steps_uvt_pda_xt",
              "mol_pair_grid", "run_steps_uvt_sf", "run_steps_uvt_sf_c32",
-             "run_steps_sf", "run_steps_uvt_pda_sf")
+             "run_steps_sf", "run_steps_uvt_pda_sf",
+             *(f"pair_terms_{RD_KEY[f]}" for f in RD_FORMS),
+             *(f"mol_pair_{RD_KEY[f]}" for f in RD_FORMS),
+             "mol_pair_chains_disp")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -4973,6 +5438,25 @@ def main():
             f"{r['refresh_ms']:.1f}" for k, r in sf_reps.items())
         + f"  sf_launches {sf_launches}  spinflip_phases_seconds {t_sf:.1f}  "
         f"wall_seconds {time.time() - t0:.1f}  ({smi})")
+    log("  ".join(
+        f"{k}_ms {r['ms']:.4f}  {k}_device_ms {r['device_ms']:.4f}  {k}_"
+        f"plain_ms {r['plain_ms']:.3f}  {k}_bound_ms {r['bound_ms']:.5f}"
+        for k, r in [(f"b2_{RD_KEY[f]}", report[f"pair_terms_{RD_KEY[f]}"])
+                     for f in RD_FORMS]
+        + [(f"b2_{RD_KEY[f]}_full",
+            report[f"pair_terms_{RD_KEY[f]}"]["full"]) for f in RD_FORMS]
+        + [(f"b4_{RD_KEY[f]}", report[f"mol_pair_{RD_KEY[f]}"])
+           for f in RD_FORMS]
+        + [(f"b4_{RD_KEY[f]}_c{C_RD_CHAINS}",
+            report[f"mol_pair_{RD_KEY[f]}"]["c128"]) for f in RD_FORMS]
+        + [(f"b4_{RD_KEY[f]}_grid", report[f"mol_pair_{RD_KEY[f]}"]["grid"])
+           for f in RD_FORMS])
+        + "  " + "  ".join(f"rd_{k}_steps_per_sec {r['steps_per_sec']:.2f}  "
+                           f"rd_{k}_N {r['N']:.3f}"
+                           for k, r in rd_reps.items())
+        + f"  rd_launches {rd_launches}  build_seconds {build_s:.1f}  "
+        f"rd_phases_seconds {t_rd:.1f}  wall_seconds {time.time() - t0:.1f}"
+        f"  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

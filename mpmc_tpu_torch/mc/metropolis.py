@@ -270,7 +270,7 @@ class _Chunk:
     def __init__(self, box, params, cfg, thermo):
         self.cfg, self.thermo = cfg, thermo
         self.ewald = cfg.coulomb == "ewald"
-        self.lrc = cfg.rd_potential == "lj" and cfg.rd_lrc
+        self.lrc = pairs.lrc_on(cfg)
         self.rebuild(box)
 
     def rebuild(self, box):
@@ -1435,7 +1435,7 @@ def _uvt_chunk_consts(pos, box, params, thermo, cfg, A_list, rep_slots):
     dtype, dev = pos.dtype, pos.device
     zero = torch.zeros((), dtype=dtype, device=dev)
     a_cap = params.max_atoms_per_mol
-    lrc_on = cfg.rd_potential == "lj" and cfg.rd_lrc
+    lrc_on = pairs.lrc_on(cfg)
     frozen_atoms = params.mol_frozen[params.mol_id] & params.atom_ok
     # the tail coefficients below do not depend on the temperature (a
     # ladder's [C] would not fit one molecule's pass)

@@ -134,7 +134,10 @@ def check_supported(job: input_script.Job):
     naming the ROADMAP item), and NPT or Feynman-Hibbs/Kleinert under a
     temperature ladder (ValueError, NPT_PT_TRAP and FH_PT_TRAP); NPT
     with a frozen molecule is refused by make_step_fn /
-    make_batched_step_fn (metropolis.check_npt)."""
+    make_batched_step_fn (metropolis.check_npt).  The RD forms sg,
+    dreiding, b14_7, disp_expansion and coulomb gwp run on every route but
+    the fused kernels, which refuse them where the reference's gate would
+    take them (mc_kernel.refuse_fused_forms, ROADMAP A12a-2b)."""
     cfg = job.cfg
     if cfg.ensemble == "npt":
         if cfg.polarization:
@@ -155,9 +158,6 @@ def check_supported(job: input_script.Job):
             (cfg.cell_list, "cell_list", "A12b"),
             (cfg.rd_crystal, "rd_crystal", "A12b"),
             (cfg.spectre, "spectre", "A12b"),
-            (cfg.rd_potential not in ("lj", "none"),
-             f"rd_potential {cfg.rd_potential}", "A12a-2"),
-            (cfg.coulomb == "gwp", "coulomb gwp", "A12a-2"),
             (job.spatial_devices > 1, "spatial_devices", "A13"),
             (job.chain_devices > 1, "chain_devices", "A13")):
         if flag:
@@ -167,14 +167,14 @@ def check_supported(job: input_script.Job):
 def log_pair_route(cfg, log):
     """Name the route of the pair passes in the run log where it is not
     the kernels': B2 and B4's static gate (pair_kernel.supported, the
-    reference's) refuses Feynman-Hibbs/Kleinert, and the refresh and the
-    per-move deltas run the plain tile pass on the device, as the
-    reference's scan path runs its jnp tile pass for them."""
+    reference's) refuses Feynman-Hibbs/Kleinert and coulomb gwp, and the
+    refresh and the per-move deltas run the plain tile pass on the device,
+    as the reference's scan path runs its jnp tile pass for them."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
     if not pair_kernel.supported(cfg):
         print("pair passes: the plain tile pass on the device (B2 and B4's "
-              "gate refuses feynman_hibbs / feynman_kleinert, as the "
-              "reference's does)", file=log)
+              "gate refuses feynman_hibbs / feynman_kleinert / coulomb gwp, "
+              "as the reference's does)", file=log)
 
 
 def _promote_polar_cull(cfg, n_atoms: int):
@@ -850,6 +850,9 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     if cfg.fused_mc:
         # the reference's gate order: the NVT/NVE kernel, the µVT one (both
         # refuse polarization), then the polar delayed-acceptance kernel
+        mc_kernel.refuse_fused_forms(cfg, params, (
+            mc_kernel.supported, mc_kernel.supported_uvt,
+            mc_kernel.supported_uvt_polar_da, mc_kernel.supported_npt))
         if mc_kernel.supported(cfg, params):
             chunk = functools.partial(
                 metropolis.run_chunk_fused,
@@ -969,6 +972,9 @@ def _chains_route(cfg, params, mol_alive, C, writer, what="multi-chain",
     from mpmc_tpu_torch.ops.cuda import pair_kernel
     log_pair_route(cfg, writer.log)
     fused = cfg.fused_mc and fused_ok
+    if fused:
+        mc_kernel.refuse_fused_forms(cfg, params, (
+            mc_kernel.supported_multi, mc_kernel.supported_uvt_multi))
     if cfg.fused_mc and not fused_ok:
         print("fused_mc: feynman_hibbs / feynman_kleinert keep this "
               f"{what} run on the batched scan chains, as the reference's "

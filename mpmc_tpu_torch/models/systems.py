@@ -123,3 +123,51 @@ def jittered(params, state, seed, amplitude=0.3):
     shift = torch.as_tensor(shift, dtype=state.pos.dtype,
                             device=state.pos.device)
     return state.replace(pos=state.pos + shift[params.mol_id])
+
+
+# Dreiding's zeta, and the share of the C6 term the C8 term takes at the
+# LJ well of rd_form_columns' dispersion expansion
+EXP6_ZETA = 13.772
+C8_SHARE = 0.1
+
+
+def rd_form_columns(eps, sig, form):
+    """(eps, sig, c6, c8, c10) columns (float64 numpy) of the RD ``form``
+    that hold each site's LJ well (eps [K], sig [A]) where it is: r_m =
+    2^(1/6) sig.  dreiding and b14_7: well depth eps at r0 = r_m; sg: the
+    columns as they are (it reads none); disp_expansion: the exp-6 of the
+    same well and curvature, A = 6 eps e^z / (z - 6), B = z / r_m (0
+    where sig = 0), C6 = z eps r_m^6 / (z - 6) with z = EXP6_ZETA, then
+    C8 = C8_SHARE C6 r_m^2 (a tenth of the C6 term at r_m) and C10 by
+    extrapolate_disp_coeffs' rule 49/40 C8^2 / C6."""
+    eps = np.asarray(eps, np.float64)
+    sig = np.asarray(sig, np.float64)
+    zero = np.zeros_like(eps)
+    rm = 2.0 ** (1.0 / 6.0) * sig
+    if form == "sg":
+        return eps, sig, zero, zero, zero
+    if form in ("dreiding", "b14_7"):
+        return eps, rm, zero, zero, zero
+    if form != "disp_expansion":
+        raise ValueError(f"rd_form_columns: no map to {form!r}")
+    z = EXP6_ZETA
+    a = 6.0 * eps * np.exp(z) / (z - 6.0)
+    b = np.where(sig > 0, z / np.where(sig > 0, rm, 1.0), 0.0)
+    c6 = z * eps * rm ** 6 / (z - 6.0)
+    c8 = C8_SHARE * c6 * rm ** 2
+    c10 = np.where(c6 > 0, 49.0 / 40.0 * c8 ** 2 / np.where(c6 > 0, c6, 1.0),
+                   0.0)
+    return a, b, c6, c8, c10
+
+
+def with_rd_form(params, cfg, form, **cfg_kw):
+    """(params, cfg) of a system with its LJ sites mapped to ``form``
+    (rd_form_columns), on the params' device and type; ``cfg_kw`` sets
+    further cfg fields (rd_lrc, damp_dispersion, coulomb ...)."""
+    import dataclasses
+    cols = rd_form_columns(params.eps.cpu().numpy(),
+                           params.sig.cpu().numpy(), form)
+    t = [torch.as_tensor(c, dtype=params.eps.dtype, device=params.device)
+         for c in cols]
+    params = params.replace(eps=t[0], sig=t[1], c6=t[2], c8=t[3], c10=t[4])
+    return params, dataclasses.replace(cfg, rd_potential=form, **cfg_kw)

@@ -78,6 +78,19 @@ _SIGNATURES = {
         # n nk ms A field qc xt G | clusters out
         "pda_occupancy": [_I] * 8 + [_PI],
     },
+    # B2 and B4 with the RD forms sg, dreiding, b14_7, disp_expansion: one
+    # instance each (csrc/pair_kernel.cuh), the classical entries'
+    # arguments (rd: the damping flag) and the C6, C8, C10 columns before
+    # the stream
+    "pair_sg_kernel": {
+        "pair_terms_rd": [_P] * 9 + [_I] * 9 + [_P] * 7 + [_P],
+        "pair_config_rd": [_PI],
+        "mol_pair_rd": [_P] * 6 + [_I] + [_P] * 4 + [_I] + [_P] + [_I] * 7
+        + [_P] * 7 + [_P],
+    },
+    "pair_dreiding_kernel": {},
+    "pair_b14_7_kernel": {},
+    "pair_disp_kernel": {},
     # B1 and B6 with the µVT extras (cavity bias, TMMC, spinflip), B3 with
     # spinflip: the same entries from their own sources, so that they
     # compile beside the others
@@ -114,6 +127,8 @@ _HOST_SIGNATURES = {
     },
 }
 
+_SIGNATURES.update({f"pair_{form}_kernel": _SIGNATURES["pair_sg_kernel"]
+                    for form in ("dreiding", "b14_7", "disp")})
 _SIGNATURES["uvt_xt_kernel"] = _SIGNATURES["uvt_kernel"]
 _SIGNATURES["pda_xt_kernel"] = _SIGNATURES["pda_kernel"]
 _SIGNATURES["nvt_sf_kernel"] = _SIGNATURES["nvt_kernel"]

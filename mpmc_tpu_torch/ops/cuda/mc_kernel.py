@@ -88,8 +88,10 @@ lj/none (FH and FK with lj), lb/waldman_hagler mixing, coulomb
 ewald/wolf/cutoff/none, f32, rigid molecules of up to MAX_SITES sites
 (B1: up to MAX_SPECIES insert species; TMMC with exactly one; spinflip
 where every movable molecule, or insert species, is a rotor of two or
-more sites).  The RD forms beyond lj/none and coulomb gwp (A12a-2) are
-refused here.
+more sites).  The RD forms beyond lj/none and coulomb gwp are the
+reference's fused surface but not yet these kernels' (ROADMAP A12a-2b):
+the gates stay closed to them, and ``refuse_fused_forms`` raises where the
+reference's gate would have taken a fused path with them.
 """
 from __future__ import annotations
 
@@ -102,13 +104,12 @@ import torch
 
 from mpmc_tpu_torch.constants import HBAR2_KB_AMU_A2, KE
 from mpmc_tpu_torch.ops import lj as lj_ops
-from mpmc_tpu_torch.ops import pairs, thole
+from mpmc_tpu_torch.ops import pairs, potentials, thole
 from mpmc_tpu_torch.ops import pbc as pbc_ops
 from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
 from mpmc_tpu_torch.mc.moves import cell_frac
-from mpmc_tpu_torch.ops.cuda.pair_kernel import (_ES, _MIX, _RD, _check,
-                                                 _ptr, _raise_on, _stream,
-                                                 _suffix)
+from mpmc_tpu_torch.ops.cuda.pair_kernel import (_MIX, _check, _ptr,
+                                                 _raise_on, _stream, _suffix)
 
 MAX_SITES = 8      # most sites of a movable molecule (kernel row registers)
 MAX_SPECIES = 8    # most insert species (kernel shared-memory tables)
@@ -121,6 +122,38 @@ N_SUMS = 14        # d_rd d_es_real d_es_recip d_es_self d_es_excl d_lrc,
 #                    acc disp/ins/del, att disp/ins/del, acc/att spinflip
 N_SUMS_NVT = 6     # d_rd d_es_real d_es_recip, accepted moves,
 #                    acc/att spinflip
+# the RD and Coulomb forms of B1, B3 and B6 (their option ints); the
+# reference's fused gate (mpmc_tpu/ops/pallas/mc_kernel.py:2898-2921) also
+# admits the RD forms of ops/potentials.py and coulomb gwp, which these
+# kernels do not carry yet (ROADMAP A12a-2b)
+_RD = {"none": 0, "lj": 1}
+_ES = {"none": 0, "ewald": 1, "wolf": 2, "cutoff": 3}
+
+
+def refuse_fused_forms(cfg, params, gates, what="fused_mc"):
+    """Raise NotImplementedError (ROADMAP A12a-2b) where ``cfg`` carries
+    an RD form or coulomb gwp that B1, B3 and B6 lack and one of
+    ``gates`` (this module's gate functions, in the caller's order) would
+    hold with it: the reference's fused gate admits these forms, so its
+    run would take a fused kernel where the port's would silently take
+    the scan path.  The gates read the RD form only as lj or not lj and
+    the Coulomb form only as ewald or not, so each gate is evaluated on a
+    copy of ``cfg`` with the form replaced by one they treat alike: rd
+    none, coulomb none."""
+    rd_new = cfg.rd_potential in potentials.FORMS
+    es_new = cfg.coulomb == "gwp"
+    if not (rd_new or es_new):
+        return
+    stand_in = dataclasses.replace(
+        cfg, rd_potential="none" if rd_new else cfg.rd_potential,
+        coulomb="none" if es_new else cfg.coulomb)
+    for gate in gates:
+        if gate(stand_in, params):
+            forms = [f"rd_potential {cfg.rd_potential}"] * rd_new + \
+                [f"coulomb {cfg.coulomb}"] * es_new
+            raise NotImplementedError(
+                f"{what}: {' and '.join(forms)} in the fused kernels "
+                f"({gate.__name__}) is not yet ported — ROADMAP A12a-2b")
 
 
 def _supported_physics(cfg) -> bool:
@@ -320,7 +353,7 @@ def _refuse_cfg(cfg, what="run_steps_uvt"):
         raise NotImplementedError(
             f"{what}: rd {cfg.rd_potential!r} / coulomb "
             f"{cfg.coulomb!r} / mixing {cfg.mixing_rule!r} is not yet "
-            "ported — ROADMAP A12a-2")
+            "ported — ROADMAP A12a-2b")
     if ((cfg.feynman_hibbs or cfg.feynman_kleinert)
             and cfg.rd_potential != "lj"):
         raise ValueError(f"{what}: feynman_hibbs / feynman_kleinert "

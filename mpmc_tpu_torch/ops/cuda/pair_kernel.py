@@ -1,4 +1,4 @@
-"""Wrappers and plain versions of the two pair kernels (csrc/pair_kernel.cu).
+"""Wrappers and plain versions of the two pair kernels (csrc/pair_kernel.cuh).
 
 B2 ``pair_terms`` replaces ops/pallas/pair_kernel.py::_kernel (through
 ``pair_terms_tiles``/``pair_pass_pallas``): the triangular i<j pass over
@@ -31,14 +31,24 @@ wrapper counts the kernel launches, and nothing else.
 
 ``supported(cfg)`` is the reference's static gate of both kernels
 (ops/pallas/pair_kernel.py::supported without its float32 clause: these
-kernels are templated on double too).  It refuses Feynman-Hibbs and
-Feynman-Kleinert, so the reference's scan path runs its jnp tile pass for
-them; ops/pairs.py then calls the plain versions here, on the tensors'
-device, with ``qc`` — the atoms' molecular masses and the temperature.
+kernels are templated on double too).  It refuses Feynman-Hibbs,
+Feynman-Kleinert and coulomb gwp, so the reference's scan path runs its
+jnp tile pass for them; ops/pairs.py then calls the plain versions here,
+on the tensors' device, with ``qc`` — the atoms' molecular masses and the
+temperature — or ``gwp``, the GWP widths.
+
+The RD form is a compile-time parameter of both kernel bodies
+(csrc/pair_kernel.cuh): ``pair_kernel.cu`` builds the classical instance
+(rd none or lj, read at run time), ``pair_sg_kernel.cu``,
+``pair_dreiding_kernel.cu``, ``pair_b14_7_kernel.cu`` and
+``pair_disp_kernel.cu`` one form each (``FORM_LIBRARY``), whose entries
+take the C6/C8/C10 columns (``disp``; disp_expansion reads them) and the
+damping flag.
 
 Both kernels are templated on float and double, so float64 decks run
-through them too.  They use the exact erfc/erf (the Pallas kernels use a
-polynomial; the plain versions and the jnp reference use the exact one).
+through them too.  They use the exact erfc/erf, exp, pow and sqrt (the
+Pallas kernels use a polynomial erfc; the plain versions and the jnp
+reference use the exact one).
 """
 from __future__ import annotations
 
@@ -56,16 +66,19 @@ PT = 128         # B2 tile edge: rows = columns per tile (TI = TJ)
 MT = 256         # B4 columns per block
 PLAIN_ROWS = 256  # row chunk of the plain full pass ([256, N] temporaries)
 
-_RD = {"none": 0, "lj": 1}
+_RD = {"none": 0, "lj": 1}       # the classical instance's run-time forms
 _MIX = {"lb": 0, "waldman_hagler": 1}
 _ES = {"none": 0, "ewald": 1, "wolf": 2, "cutoff": 3}
+# the other RD forms, each the library of its own instance
+FORM_LIBRARY = {"sg": "pair_sg_kernel", "dreiding": "pair_dreiding_kernel",
+                "b14_7": "pair_b14_7_kernel",
+                "disp_expansion": "pair_disp_kernel"}
 
 
 def supported(cfg) -> bool:
     """Static gate: the configurations B2 and B4 cover — the reference's
     (mpmc_tpu/ops/pallas/pair_kernel.py:313-321) but for its float32
-    clause.  The RD forms beyond lj/none are the reference's surface and
-    not yet the port's (_opts raises, ROADMAP A12a-2)."""
+    clause."""
     return (cfg.rd_potential in ("lj", "none", "sg", "dreiding", "b14_7",
                                  "disp_expansion")
             and cfg.coulomb in ("ewald", "wolf", "cutoff", "none")
@@ -75,60 +88,91 @@ def supported(cfg) -> bool:
 
 
 def _opts(cfg):
-    """Kernel option ints (rd, mix, es, lrc); raises on what the kernels
-    do not implement."""
-    if cfg.rd_potential not in _RD or cfg.coulomb not in _ES:
-        raise NotImplementedError(
-            f"pair kernels: rd {cfg.rd_potential!r} / coulomb "
-            f"{cfg.coulomb!r} not ported — ROADMAP A12a-2")
-    if not supported(cfg):
+    """(library, entry suffix, option ints) of a cfg's instance: the
+    classical library's (rd, mix, es, lrc), or a form library's (damp,
+    mix, es, lrc) — its form is its own, its first option the damping of
+    disp_expansion.  Raises where the gate refuses."""
+    if not supported(cfg) or cfg.mixing_rule not in _MIX:
         raise ValueError("pair kernels: refused by their gate (supported); "
-                         "feynman_hibbs / feynman_kleinert run the plain "
-                         "pass")
-    return (_RD[cfg.rd_potential], _MIX[cfg.mixing_rule],
-            _ES[cfg.coulomb], int(cfg.rd_lrc and cfg.rd_potential == "lj"))
+                         "feynman_hibbs / feynman_kleinert / coulomb gwp "
+                         "run the plain pass")
+    tail = (_MIX[cfg.mixing_rule], _ES[cfg.coulomb],
+            int(pairs.lrc_on(cfg)))
+    if cfg.rd_potential in _RD:
+        return "pair_kernel", "", (_RD[cfg.rd_potential],) + tail
+    return (FORM_LIBRARY[cfg.rd_potential], "_rd",
+            (int(bool(cfg.damp_dispersion)),) + tail)
+
+
+def _disp_args(cfg, disp, n, dt, dev):
+    """The C6/C8/C10 column pointers of a form library's launch: ``disp``
+    (checked) or, for a form that reads none, null pointers;
+    disp_expansion needs them."""
+    if disp is None:
+        if cfg.rd_potential == "disp_expansion":
+            raise ValueError("pair kernels: disp_expansion needs the "
+                             "C6/C8/C10 columns (disp=)")
+        return [ctypes.c_void_p(None)] * 3
+    for nm, t in zip(("c6", "c8", "c10"), disp):
+        _check(nm, t, dt, (n,), dev)
+    return [_ptr(t) for t in disp]
 
 
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _rows_of(idx, disp, gwp):
+    """(disp, gwp) of pairs._block_terms for the rows ``idx`` against
+    every column, from the per-atom columns (each None where off)."""
+    return (None if disp is None
+            else (tuple(c[idx] for c in disp), tuple(disp)),
+            None if gwp is None else (gwp[idx], gwp))
+
+
 def pair_terms_plain(pos, charge, eps, sig, mol_id, alive, frozen, scal,
-                     cfg, row_start=0, qc=None):
+                     cfg, row_start=0, qc=None, disp=None, gwp=None):
     """Plain B2: row blocks of dense [B, N] masks (pairs._block_terms).
     ``qc``: (the atoms' molecular masses [N], the temperature) for a
-    Feynman-Hibbs/Kleinert cfg."""
+    Feynman-Hibbs/Kleinert cfg; ``disp``: the (c6, c8, c10) columns [N]
+    for disp_expansion; ``gwp``: the GWP widths [N] for coulomb gwp."""
     n = pos.shape[0]
     out = torch.zeros(pairs.N_SLOTS, dtype=pos.dtype, device=pos.device)
     out[8] = float("inf")
     for i0 in range(row_start, n, PLAIN_ROWS):
         rows = torch.arange(i0, min(i0 + PLAIN_ROWS, n), device=pos.device)
+        d, g = _rows_of(rows, disp, gwp)
         t = pairs._block_terms(
             pos[rows], rows, alive[rows], mol_id[rows], frozen[rows],
             charge[rows], eps[rows], sig[rows], pos, alive, mol_id, frozen,
             charge, eps, sig, scal, cfg, triangular=True,
             row_start=row_start,
-            qc=None if qc is None else (qc[0][rows], qc[0], qc[1]))
+            qc=None if qc is None else (qc[0][rows], qc[0], qc[1]),
+            disp=d, gwp=g)
         out = torch.cat([out[:8] + t[:8], torch.minimum(out[8:], t[8:])])
     return out
 
 
 def mol_pair_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
-                   mol_natoms, mol, rows, scal, cfg, qc=None):
+                   mol_natoms, mol, rows, scal, cfg, qc=None, disp=None,
+                   gwp=None):
     """Plain B4: the molecule's [A, N] block (pairs._block_terms).
     ``qc``: (the atoms' molecular masses [N], the temperature) for a
-    Feynman-Hibbs/Kleinert cfg."""
+    Feynman-Hibbs/Kleinert cfg; ``disp``, ``gwp`` as in
+    pair_terms_plain."""
     idx = take(mol_atoms, mol)
     a = idx.shape[0]
     valid = torch.arange(a, device=pos.device) < take(mol_natoms, mol)
     row_pos = pos[idx] if rows is None else rows
     col_ok = alive & (mol_id != mol)
     no = torch.zeros(a, dtype=torch.bool, device=pos.device)
+    d, g = _rows_of(idx, disp, gwp)
     t = pairs._block_terms(
         row_pos, None, valid, mol_id[idx], no, charge[idx], eps[idx],
         sig[idx], pos, col_ok, mol_id, torch.zeros_like(alive), charge, eps,
         sig, scal, cfg, triangular=False,
-        qc=None if qc is None else (qc[0][idx], qc[0], qc[1]))
+        qc=None if qc is None else (qc[0][idx], qc[0], qc[1]), disp=d,
+        gwp=g)
     return t[[0, 1, 3, 8]]
 
 
@@ -221,16 +265,17 @@ def pair_terms_scratch(device, dtype, w):
     return have
 
 
-def card_ctas(device, dtype):
-    """The B2 CTAs the card holds at once, queried once per device and
-    type."""
-    key = (device, dtype)
+def card_ctas(device, dtype, library="pair_kernel", sfx=""):
+    """The B2 CTAs the card holds at once, queried once per device, type
+    and instance (``library``: pair_kernel or a FORM_LIBRARY one, whose
+    entries end in ``sfx`` "_rd")."""
+    key = (device, dtype, library)
     if key not in _pair_config:
         from mpmc_tpu_torch.ops.cuda import _build
         out = (ctypes.c_int * 1)()
         with torch.cuda.device(device):
-            err = getattr(_build.library("pair_kernel"),
-                          "pair_config_" + _suffix(dtype))(out)
+            err = getattr(_build.library(library),
+                          f"pair_config{sfx}_" + _suffix(dtype))(out)
         _raise_on(err, "pair_config")
         if out[0] <= 0:
             raise RuntimeError("pair_terms: no CTA fits on the card")
@@ -239,12 +284,14 @@ def card_ctas(device, dtype):
 
 
 def pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal, cfg,
-               row_start=0):
+               row_start=0, disp=None):
     """B2: raw [9] full-pass sums (module docstring).  ``mol_id`` int32,
-    ``alive``/``frozen`` bool, ``scal`` = pairs.pair_scalars."""
+    ``alive``/``frozen`` bool, ``scal`` = pairs.pair_scalars, ``disp``
+    the (c6, c8, c10) columns [N] (disp_expansion needs them)."""
     if pos.device.type == "cpu":
         return pair_terms_plain(pos, charge, eps, sig, mol_id, alive,
-                                frozen, scal, cfg, row_start=row_start)
+                                frozen, scal, cfg, row_start=row_start,
+                                disp=disp)
     if pos.device.type != "cuda":
         raise ValueError(f"pair_terms: no kernel for {pos.device}")
     n = pos.shape[0]
@@ -256,7 +303,8 @@ def pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal, cfg,
     _check("alive", alive, torch.bool, (n,), dev)
     _check("frozen", frozen, torch.bool, (n,), dev)
     _check("scal", scal, dt, (20,), dev)
-    rd, mix, es, lrc = _opts(cfg)
+    lib, sfx, opts = _opts(cfg)
+    extra = _disp_args(cfg, disp, n, dt, dev) if sfx else []
     out = torch.empty(pairs.N_SLOTS, dtype=dt, device=dev)
     wl = work_list(n, row_start, dev)
     w = wl.numel()
@@ -265,13 +313,13 @@ def pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal, cfg,
         out[8] = float("inf")
         return out
     part, pmin, ticket = pair_terms_scratch(dev, dt, w)
-    grid = min(card_ctas(dev, dt), w)
+    grid = min(card_ctas(dev, dt, lib, sfx), w)
     from mpmc_tpu_torch.ops.cuda import _build
-    fn = getattr(_build.library("pair_kernel"), "pair_terms_" + _suffix(dt))
+    fn = getattr(_build.library(lib), f"pair_terms{sfx}_" + _suffix(dt))
     err = fn(_ptr(pos), _ptr(charge), _ptr(eps), _ptr(sig), _ptr(mol_id),
              _ptr(alive), _ptr(frozen), _ptr(scal), _ptr(wl), w, -(-n // PT),
-             n, int(row_start), rd, mix, es, lrc, grid, _ptr(part),
-             _ptr(pmin), _ptr(ticket), _ptr(out), _stream(dev))
+             n, int(row_start), *opts, grid, _ptr(part), _ptr(pmin),
+             _ptr(ticket), _ptr(out), *extra, _stream(dev))
     pair_terms.launches += 1
     _raise_on(err, "pair_terms")
     return out
@@ -300,7 +348,7 @@ def mol_pair_scratch(device, dtype, nb, C=1):
 
 
 def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
-                     mol_natoms, mol, rows, scal, cfg):
+                     mol_natoms, mol, rows, scal, cfg, disp=None):
     """One B4 launch over C = mol.shape[0] chains (mol [C], rows [C, A, 3]
     or None, scal [20] shared or [C, 20] per chain): raw [C, 4].  ``pos``
     [C, N, 3] with ``alive`` [C, N] gives each chain its own (position
@@ -326,37 +374,41 @@ def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     if rows is not None:
         _check("rows", rows, dt, (C, a, 3), dev)
     _check("scal", scal, dt, (C, 20) if scal.ndim == 2 else (20,), dev)
-    rd, mix, es, lrc = _opts(cfg)
+    lib, sfx, opts = _opts(cfg)
+    extra = _disp_args(cfg, disp, n, dt, dev) if sfx else []
     nb = max(-(-n // MT), 1)
     part, pmin, ticket = mol_pair_scratch(dev, dt, nb, C)
     out = torch.empty((C, 4), dtype=dt, device=dev)
     from mpmc_tpu_torch.ops.cuda import _build
-    fn = getattr(_build.library("pair_kernel"), "mol_pair_" + _suffix(dt))
+    fn = getattr(_build.library(lib), f"mol_pair{sfx}_" + _suffix(dt))
     err = fn(_ptr(pos), _ptr(charge), _ptr(eps), _ptr(sig), _ptr(mol_id),
              _ptr(alive), 0 if shared else 3 * n, _ptr(mol_atoms),
              _ptr(mol_natoms), _ptr(mol),
              ctypes.c_void_p(None if rows is None else rows.data_ptr()),
-             a, _ptr(scal), 20 if scal.ndim == 2 else 0, n, C, rd, mix, es,
-             lrc, _ptr(part), _ptr(pmin),
-             _ptr(ticket), _ptr(out), _stream(dev))
+             a, _ptr(scal), 20 if scal.ndim == 2 else 0, n, C, *opts,
+             _ptr(part), _ptr(pmin), _ptr(ticket), _ptr(out), *extra,
+             _stream(dev))
     _raise_on(err, "mol_pair")
     return out
 
 
 def mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms, mol_natoms,
-             mol, rows, scal, cfg):
+             mol, rows, scal, cfg, disp=None):
     """B4: raw [4] one-molecule sums (module docstring).  ``mol`` is a
     0-d int64 tensor (read on the device — no host sync); ``rows`` are
-    trial coordinates [A, 3] or None for the molecule's current rows."""
+    trial coordinates [A, 3] or None for the molecule's current rows;
+    ``disp`` the (c6, c8, c10) columns [N] (disp_expansion needs them)."""
     if pos.device.type == "cpu":
         return mol_pair_plain(pos, charge, eps, sig, mol_id, alive,
-                              mol_atoms, mol_natoms, mol, rows, scal, cfg)
+                              mol_atoms, mol_natoms, mol, rows, scal, cfg,
+                              disp=disp)
     if pos.device.type != "cuda":
         raise ValueError(f"mol_pair: no kernel for {pos.device}")
     _check("mol", mol, torch.int64, (), pos.device)
     out = _launch_mol_pair(pos[None], charge, eps, sig, mol_id, alive[None],
                            mol_atoms, mol_natoms, mol.reshape(1),
-                           None if rows is None else rows[None], scal, cfg)
+                           None if rows is None else rows[None], scal, cfg,
+                           disp)
     mol_pair.launches += 1
     return out[0]
 
@@ -365,17 +417,18 @@ mol_pair.launches = 0
 
 
 def mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
-                          mol_natoms, mol, rows, scal, cfg, qc=None):
+                          mol_natoms, mol, rows, scal, cfg, qc=None,
+                          disp=None, gwp=None):
     """Plain B4 over chains: ``mol_pair_plain`` of each chain with its
     header row (``scal`` [C, 20]) or the shared one ([20]), stacked;
-    ``qc``'s temperature 0-d or one per chain [C].  With ``pos`` [N, 3]
-    and ``alive`` [N] shared by every chain (position stride 0) and trial
-    ``rows`` [C, A, 3], one batched [C, A, N] block
-    (``_mol_pair_shared_plain``)."""
+    ``qc``'s temperature 0-d or one per chain [C]; ``disp``, ``gwp`` as
+    in pair_terms_plain.  With ``pos`` [N, 3] and ``alive`` [N] shared by
+    every chain (position stride 0) and trial ``rows`` [C, A, 3], one
+    batched [C, A, N] block (``_mol_pair_shared_plain``)."""
     if pos.ndim == 2:
         return _mol_pair_shared_plain(pos, charge, eps, sig, mol_id, alive,
                                       mol_atoms, mol_natoms, mol, rows,
-                                      scal, cfg, qc)
+                                      scal, cfg, qc, disp, gwp)
 
     def chain_qc(c):
         if qc is None:
@@ -388,12 +441,13 @@ def mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
                        mol_atoms, mol_natoms, mol[c],
                        None if rows is None else rows[c],
                        scal[c] if scal.ndim == 2 else scal, cfg,
-                       qc=chain_qc(c))
+                       qc=chain_qc(c), disp=disp, gwp=gwp)
         for c in range(mol.shape[0])])
 
 
 def _mol_pair_shared_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
-                           mol_natoms, mol, rows, scal, cfg, qc=None):
+                           mol_natoms, mol, rows, scal, cfg, qc=None,
+                           disp=None, gwp=None):
     """Plain B4 at position stride 0: each chain's rows [C, A, 3] against
     the one ``pos`` [N, 3] and ``alive`` [N], the masks and sums of
     ``pairs._block_terms`` (rd, es within rc; the tail coefficient and
@@ -419,9 +473,14 @@ def _mol_pair_shared_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
             raise ValueError("feynman_hibbs / feynman_kleinert pair terms "
                              "need the molecular masses and the temperature")
         q3 = (qc[0][idx][..., None], qc[0], qc[1])
+    d, g = _rows_of(idx, disp, gwp)
+    if d is not None:
+        d = (tuple(c[..., None] for c in d[0]), d[1])
+    if g is not None:
+        g = (g[0][..., None], g[1])
     rd_u, es_u, _, tc = pairs._tile_values(
         r2, charge[idx][..., None], eps[idx][..., None], sig[idx][..., None],
-        charge, eps, sig, cfg, rc, alpha, q3)
+        charge, eps, sig, cfg, rc, alpha, q3, d, g)
     zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
 
     def s(values, mask):
@@ -436,7 +495,7 @@ def _mol_pair_shared_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
 
 
 def mol_pair_chains(pos, charge, eps, sig, mol_id, alive, mol_atoms,
-                    mol_natoms, mol, rows, scal, cfg):
+                    mol_natoms, mol, rows, scal, cfg, disp=None):
     """B4 over C chains in one launch (the batched scan step's per-move
     delta): pos [C, N, 3], alive [C, N], mol [C] int64, rows [C, A, 3] or
     None; the parameter columns are shared; ``scal`` a shared [20] header
@@ -445,15 +504,16 @@ def mol_pair_chains(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     [N, 3] and ``alive`` [N] every chain reads the same positions
     (position stride 0; the rotor grid of qrot.potentials_on_grid): C =
     mol.shape[0] rows of trial coordinates against one system, each
-    chain's row ``mol_pair`` of its rows bit for bit."""
+    chain's row ``mol_pair`` of its rows bit for bit.  ``disp`` as in
+    mol_pair."""
     if pos.device.type == "cpu":
         return mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive,
                                      mol_atoms, mol_natoms, mol, rows, scal,
-                                     cfg)
+                                     cfg, disp=disp)
     if pos.device.type != "cuda":
         raise ValueError(f"mol_pair_chains: no kernel for {pos.device}")
     out = _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
-                           mol_natoms, mol, rows, scal, cfg)
+                           mol_natoms, mol, rows, scal, cfg, disp)
     mol_pair_chains.launches += 1
     mol_pair_chains.shared_launches += int(pos.ndim == 2)
     return out

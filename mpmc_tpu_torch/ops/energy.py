@@ -59,9 +59,10 @@ def total_energy(pos, box, mol_alive, params, cfg, thermo, mu0=None,
     rc = pairs.derived_cutoff(box, cfg)
     volume = torch.abs(torch.linalg.det(box))
 
-    # LJ long-range tail: U = (1/2V) * [ 2 * (i<j inter sum) + self images ]
+    # RD long-range tail (LJ or the dispersion expansion): U = (1/2V) *
+    # [ 2 * (i<j inter sum) + self images ]
     lrc = lrc_ff = zero
-    if cfg.rd_potential == "lj" and cfg.rd_lrc:
+    if pairs.lrc_on(cfg):
         if split_frozen:
             sc_act = pairs.lrc_self_coefficient(alive & ~atom_frozen,
                                                 params, cfg, rc)

@@ -8,10 +8,12 @@ mpmc_tpu/ops/pairs.py).
 Both go through ops/cuda/pair_kernel.py: on a CUDA tensor they launch the
 hand-written kernels (B2 and B4), on a CPU tensor they run the kernels'
 plain versions, which are built from ``_tile_values``/``_block_terms``
-below — the dense [rows, cols] reference math.  Under Feynman-Hibbs or
-Feynman-Kleinert the kernels' static gate (pair_kernel.supported, the
-reference's) refuses, as the reference's does, and both passes run that
-tile math on any device: the reference's own route for these options.
+below — the dense [rows, cols] reference math.  Under Feynman-Hibbs,
+Feynman-Kleinert or coulomb gwp the kernels' static gate
+(pair_kernel.supported, the reference's) refuses, as the reference's
+does, and both passes run that tile math on any device: the reference's
+own route for these options.  The RD forms sg, dreiding, b14_7 and
+disp_expansion (ops/potentials.py) run through the kernels.
 
 Raw pass outputs leave the Coulomb constant out; this module applies it.
 """
@@ -25,6 +27,7 @@ import torch
 from mpmc_tpu_torch.constants import KE
 from mpmc_tpu_torch.ops import lj as lj_ops
 from mpmc_tpu_torch.ops import pbc as pbc_ops
+from mpmc_tpu_torch.ops import potentials
 from mpmc_tpu_torch.state import chain_rows, mol_rows, row_valid
 
 # raw slot layout of a full pass: [rd, es_real, es_excl, lrc] for the
@@ -87,14 +90,34 @@ class PairTerms:
                          torch.minimum(self.min_r2, o.min_r2))
 
 
-def _tile_values(r2, qi, ei, si, qj, ej, sj, cfg, rc, alpha, qc=None):
+def lrc_on(cfg) -> bool:
+    """Whether the RD terms carry a long-range tail: rd_lrc under lj or
+    disp_expansion (the other forms have none, as in the reference)."""
+    return bool(cfg.rd_lrc) and cfg.rd_potential in ("lj", "disp_expansion")
+
+
+def site_columns(params, cfg):
+    """(disp, gwp) per-atom columns a cfg's pair terms read beyond charge,
+    eps and sig: (c6, c8, c10) under disp_expansion and the GWP widths
+    under coulomb gwp, else None."""
+    disp = ((params.c6, params.c8, params.c10)
+            if cfg.rd_potential == "disp_expansion" else None)
+    gwp = params.gwp_alpha if cfg.coulomb == "gwp" else None
+    return disp, gwp
+
+
+def _tile_values(r2, qi, ei, si, qj, ej, sj, cfg, rc, alpha, qc=None,
+                 disp=None, gwp=None):
     """Per-pair values (no masks, no Coulomb constant) for broadcastable
     row/column parameter tensors: (rd_u, es_u, ex_u, tc), each None when
     its term is off.  The semantics of pairs._tile_values in the JAX
-    package for rd lj/none and coulomb ewald/wolf/cutoff/none.  ``qc``:
-    (the rows' molecular masses, the columns', the temperature),
-    broadcastable, which adds the Feynman-Kleinert or (without it)
-    Feynman-Hibbs correction to the LJ values."""
+    package for rd lj/none/sg/dreiding/b14_7/disp_expansion and coulomb
+    ewald/wolf/cutoff/gwp/none.  ``qc``: (the rows' molecular masses, the
+    columns', the temperature), broadcastable, which adds the
+    Feynman-Kleinert or (without it) Feynman-Hibbs correction to the LJ
+    values.  ``disp``: ((c6, c8, c10) of the rows, of the columns), which
+    disp_expansion needs; ``gwp``: (the rows' GWP widths, the columns'),
+    which coulomb gwp needs."""
     r2s = torch.where(r2 > 1e-12, r2, torch.ones_like(r2))  # guard i == j
     r = torch.sqrt(r2s)
     rd_u = tc = es_u = ex_u = None
@@ -113,6 +136,19 @@ def _tile_values(r2, qi, ei, si, qj, ej, sj, cfg, rc, alpha, qc=None):
                     r, eps, sig, red, temp, cfg.feynman_hibbs_order)
         if cfg.rd_lrc:
             tc = lj_ops.tail_coefficient(eps, sig, rc)
+    elif cfg.rd_potential in potentials.FORMS:
+        if cfg.rd_potential == "disp_expansion" and disp is None:
+            raise ValueError("disp_expansion pair terms need the C6/C8/C10 "
+                             "columns")
+        (c6i, c8i, c10i), (c6j, c8j, c10j) = disp or ((None,) * 3,) * 2
+        rd_u = potentials.rd_pair_energy_generic(
+            r, ei, ej, si, sj, c6i, c6j, c8i, c8j, c10i, c10j, cfg)
+        if cfg.rd_potential == "disp_expansion" and cfg.rd_lrc:
+            tc = potentials.disp_tail_coefficient(
+                potentials.disp_mix(c6i, c6j), potentials.disp_mix(c8i, c8j),
+                potentials.disp_mix(c10i, c10j), rc)
+    elif cfg.rd_potential != "none":
+        raise ValueError(f"unknown rd_potential {cfg.rd_potential}")
     qq = qi * qj
     if cfg.coulomb == "ewald":
         es_u = qq * torch.special.erfc(alpha * r) / r
@@ -122,15 +158,30 @@ def _tile_values(r2, qi, ei, si, qj, ej, sj, cfg, rc, alpha, qc=None):
                      - torch.special.erfc(alpha * rc) / rc)
     elif cfg.coulomb == "cutoff":
         es_u = qq / r
+    elif cfg.coulomb == "gwp":
+        if gwp is None:
+            raise ValueError("coulomb gwp pair terms need the GWP widths")
+        # two normalized Gaussians of widths s_i, s_j: erf(r / sqrt(2 (s_i^2
+        # + s_j^2))) / r, point charges where both widths are 0
+        s2 = gwp[0] * gwp[0] + gwp[1] * gwp[1]
+        smear = torch.where(
+            s2 > 1e-12,
+            torch.erf(r / torch.sqrt(2.0 * torch.clamp(s2, min=1e-12))),
+            torch.ones_like(s2))
+        es_u = qq * smear / r
     return rd_u, es_u, ex_u, tc
 
 
 def _block_terms(pos_i, row_idx, row_ok, row_mol, row_frozen, qi, ei, si,
                  pos, col_ok, mol_id, col_frozen, charge, eps, sig, scal,
-                 cfg, triangular, row_start=0, qc=None):
+                 cfg, triangular, row_start=0, qc=None, disp=None,
+                 gwp=None):
     """Raw [9] sums of one row block [B] against every column [N].
     ``qc``: (the rows' molecular masses [B], the columns' [N], the
-    temperature), which a Feynman-Hibbs/Kleinert cfg needs.
+    temperature), which a Feynman-Hibbs/Kleinert cfg needs; ``disp``:
+    ((c6, c8, c10) of the rows [B], of the columns [N]) for
+    disp_expansion; ``gwp``: (the rows' GWP widths [B], the columns' [N])
+    for coulomb gwp.
 
     ``triangular``: count only cols > row (plus, with ``row_start``, every
     col < row_start — the skipped frozen-prefix rows reappear as columns).
@@ -162,9 +213,14 @@ def _block_terms(pos_i, row_idx, row_ok, row_mol, row_frozen, qi, ei, si,
         qc = (qc[0][:, None], qc[1][None, :], qc[2])
     else:
         qc = None
+    if disp is not None:
+        disp = (tuple(c[:, None] for c in disp[0]),
+                tuple(c[None, :] for c in disp[1]))
+    if gwp is not None:
+        gwp = (gwp[0][:, None], gwp[1][None, :])
     rd_u, es_u, ex_u, tc = _tile_values(
         r2, qi[:, None], ei[:, None], si[:, None], charge[None, :],
-        eps[None, :], sig[None, :], cfg, rc, alpha, qc)
+        eps[None, :], sig[None, :], cfg, rc, alpha, qc, disp, gwp)
     zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
 
     def s(values, mask):
@@ -211,18 +267,20 @@ def pair_pass(pos, box, atom_alive, params, cfg, temperature,
     exactly the ACTIVE part of the split pass, at (N-F)/N of the cost —
     the per-corrtime fast refresh.  ``temperature`` (0-d) feeds the
     Feynman-Hibbs/Kleinert terms; where the gate pair_kernel.supported
-    refuses them, the pass is B2's plain version on the tensors' device."""
+    refuses them (and coulomb gwp), the pass is B2's plain version on the
+    tensors' device."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
 
     frozen = params.mol_frozen[params.mol_id]
     args = (pos, params.charge, params.eps, params.sig, params.mol_id32,
             atom_alive, frozen, pair_scalars(box, cfg), cfg)
+    disp, gwp = site_columns(params, cfg)
     if pair_kernel.supported(cfg):
-        raw = pair_kernel.pair_terms(*args, row_start=row_start)
+        raw = pair_kernel.pair_terms(*args, row_start=row_start, disp=disp)
     else:
         raw = pair_kernel.pair_terms_plain(
             *args, row_start=row_start,
-            qc=(params.mol_mass_atom, temperature))
+            qc=(params.mol_mass_atom, temperature), disp=disp, gwp=gwp)
     act, ff = _pair_terms(raw)
     # row-restricted: ff slots are exact zeros (no frozen row)
     return (act, ff) if split_frozen else act.combine(ff)
@@ -244,8 +302,8 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
     ``mol`` [C] and ``row_pos`` [C, A, 3] the chains' own (B4 at position
     stride 0: one system, C trial placements; ops/qrot.py's rotor grid).
     Where the gate pair_kernel.supported refuses the cfg
-    (Feynman-Hibbs/Kleinert), the pass is B4's plain version on the
-    tensors' device."""
+    (Feynman-Hibbs/Kleinert, coulomb gwp), the pass is B4's plain version
+    on the tensors' device."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
 
     if scal is None:
@@ -254,14 +312,16 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
             atom_alive, params.mol_atoms, params.mol_natoms,
             torch.as_tensor(mol, device=pos.device), row_pos, scal, cfg)
     batched = pos.ndim == 3 or shared
+    disp, gwp = site_columns(params, cfg)
     if pair_kernel.supported(cfg):
         kernel = pair_kernel.mol_pair_chains if batched else \
             pair_kernel.mol_pair
-        raw = kernel(*args)
+        raw = kernel(*args, disp=disp)
     else:
         plain = pair_kernel.mol_pair_chains_plain if batched else \
             pair_kernel.mol_pair_plain
-        raw = plain(*args, qc=(params.mol_mass_atom, temperature))
+        raw = plain(*args, qc=(params.mol_mass_atom, temperature),
+                    disp=disp, gwp=gwp)
     raw = raw.unbind(-1)
     return PairTerms(rd=raw[0], es_real=KE * raw[1],
                      es_excl=torch.zeros_like(raw[0]), lrc_coeff=raw[2],
@@ -302,12 +362,21 @@ def intra_terms(pos, box, params, cfg, mol, row_pos=None, scal=None):
     return -KE * (torch.sum(e, dim=(-2, -1)) if batched else torch.sum(e))
 
 
+def _self_tail(eps, sig, c6, c8, c10, cfg, rc):
+    """Each site's tail coefficient with itself, T_ii: the LJ one of its
+    eps and sig, or the dispersion expansion's of its own C6, C8, C10."""
+    if cfg.rd_potential == "lj":
+        return lj_ops.tail_coefficient(eps, sig, rc)
+    return potentials.disp_tail_coefficient(c6, c8, c10, rc)
+
+
 def lrc_self_coefficient(atom_alive, params, cfg, rc):
     """Self (i==i periodic images) tail term: sum_i T_ii over alive atoms."""
-    if not cfg.rd_lrc or cfg.rd_potential != "lj":
+    if not lrc_on(cfg):
         return torch.zeros((), dtype=params.eps.dtype,
                            device=params.eps.device)
-    tc = lj_ops.tail_coefficient(params.eps, params.sig, rc)
+    tc = _self_tail(params.eps, params.sig, params.c6, params.c8,
+                    params.c10, cfg, rc)
     return torch.sum(torch.where(atom_alive, tc, torch.zeros_like(tc)))
 
 
@@ -315,11 +384,11 @@ def mol_lrc_self_coefficient(params, cfg, rc, mol):
     """Sum of self tail coefficients T_ii over one molecule's atoms
     (GCMC insert/delete LRC delta: dU = (lrc_coeff + 0.5 * this) / V);
     [C] for ``mol`` [C]."""
-    if not cfg.rd_lrc or cfg.rd_potential != "lj":
+    if not lrc_on(cfg):
         return torch.zeros(getattr(mol, "shape", ()), dtype=params.eps.dtype,
                            device=params.eps.device)
-    tc = lj_ops.tail_coefficient(mol_rows(params.eps, params, mol),
-                                 mol_rows(params.sig, params, mol), rc)
+    tc = _self_tail(*(mol_rows(getattr(params, k), params, mol)
+                      for k in ("eps", "sig", "c6", "c8", "c10")), cfg, rc)
     return torch.sum(torch.where(row_valid(params, mol), tc,
                                  torch.zeros_like(tc)), dim=-1)
 

@@ -232,6 +232,9 @@ def run_parallel_tempering_fused(params, state, cfg: RunConfig,
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel
     _pt_refusals(cfg)
+    mc_kernel.refuse_fused_forms(
+        cfg, params, (mc_kernel.supported, mc_kernel.supported_uvt),
+        "run_parallel_tempering_fused")
     if mc_kernel.supported(cfg, params):
         runner = metropolis.run_chunk_fused
         tables = metropolis.nvt_fused_tables(params, state.mol_alive)
@@ -303,6 +306,10 @@ def run_parallel_tempering_fused_multi(params, state, cfg: RunConfig,
     from mpmc_tpu_torch.ops.cuda import mc_kernel
     from mpmc_tpu_torch.parallel import multichain
     _pt_refusals(cfg)
+    mc_kernel.refuse_fused_forms(
+        cfg, params, (mc_kernel.supported_multi,
+                      mc_kernel.supported_uvt_multi),
+        "run_parallel_tempering_fused_multi")
     uvt = cfg.ensemble == "uvt"
     if uvt:
         if not mc_kernel.supported_uvt_multi(cfg, params):

@@ -117,9 +117,9 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 # the batched polar route), and so do exact checkpoints (item None: the
 # single-chain polar deck writes its checkpoint), NPT (item None: a
 # frameless LJ deck on the scan path), the Feynman-Hibbs/Kleinert
-# corrections, cavity bias, TMMC and spinflip (item None: the single-chain
-# polar deck with the line); polar NPT is A8c, the other RD forms and gwp
-# A12a-2
+# corrections, cavity bias, TMMC, spinflip, the other RD forms and coulomb
+# gwp (item None: the single-chain polar deck with the line); polar NPT is
+# A8c
 REFUSED = [
     ("chains 4", "chains 4\npolarization on", None),
     ("ensemble npt", None),
@@ -131,8 +131,8 @@ REFUSED = [
     ("tmmc on", None), ("quantum_rotation on", None),
     ("cdvdw on", "A12b"), ("feynman_hibbs on", None),
     ("feynman_kleinert on", None), ("cell_list on", "A12b"),
-    ("rd_crystal on", "A12b"), ("spectre on", "A12b"), ("sg on", "A12a-2"),
-    ("disp_expansion on", "A12a-2"), ("gwp on", "A12a-2"),
+    ("rd_crystal on", "A12b"), ("spectre on", "A12b"), ("sg on", None),
+    ("disp_expansion on", None), ("gwp on", None),
     ("spatial_devices 2", "A13"), ("checkpoint_output ck.npz", None),
 ]
 
@@ -150,7 +150,9 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
     once refused, run it with the grid's open cells logged, or a
     collection matrix written that holds every insert and delete
     attempt; quantum_rotation, once refused, runs it with spins and a
-    rotor table carried."""
+    rotor table carried; the RD forms sg and disp_expansion and coulomb
+    gwp, once refused, run it with a polar term (gwp through the plain
+    pass, named in the log)."""
     line, item = case[-2:]
     if item is None and line == "ensemble npt":
         from torch_npt import lj_npt, write_deck
@@ -186,6 +188,11 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
         if line.startswith("cavity_bias"):
             n_open = int(su.state.cavity_open.sum())
             assert 0 < n_open < 10 ** 3 and su.state.step == 3
+            return
+        if line in ("sg on", "disp_expansion on", "gwp on"):
+            assert su.state.step == 3 and float(su.state.energy.polar) < 0
+            assert (("pair passes: the plain tile pass" in buf.getvalue())
+                    == (line == "gwp on"))
             return
         if line.startswith("quantum_rotation"):
             assert su.state.spin is not None and su.state.step == 3

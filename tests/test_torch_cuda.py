@@ -1,5 +1,6 @@
 """The CUDA kernels (the pair kernels B2/B4 — B4 over chains with a shared
-or a per-chain header, and at position stride 0 —, the fused µVT kernel
+or a per-chain header, and at position stride 0; each RD form's instance
+of both, and a short run of each form and of coulomb gwp —, the fused µVT kernel
 B1, the fused NVT/NVE kernel B3 — both at every cluster size, B3 after an
 NPT volume move too —, the Thole field kernel B5 and the polar
 delayed-acceptance stage-1 kernel B6; B1, B3 and B6 with the
@@ -1650,3 +1651,113 @@ def test_pda_kernel_spinflip_matches_plain(device, dtype):
         assert k[0, 11] == p[0, 11]
         spins += int(k[0, 2] == 3 and k[0, 1] > 0.5)
     assert spins >= 1
+
+
+RD_FORMS = ("sg", "dreiding", "b14_7", "disp_expansion")
+
+
+def _rd_system(dtype, device, form, **kw):
+    """The small MOF + H2 system with its LJ wells mapped to ``form``
+    (systems.rd_form_columns; disp_expansion damped, with its tail)."""
+    params, state, cfg, thermo = _system(dtype, device)
+    params, cfg = systems.with_rd_form(params, cfg, form, rd_lrc=True,
+                                       damp_dispersion=True, **kw)
+    return params, state, cfg, thermo
+
+
+@pytest.mark.parametrize("form", RD_FORMS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pair_terms_kernel_rd_forms_match_plain(device, dtype, form):
+    """B2's instance of each RD form (its own library) at row_start 0 and
+    F against its plain version, one launch a call, the same bits on a
+    repeat; disp_expansion's tail negative."""
+    params, state, cfg, _ = _rd_system(dtype, device, form)
+    disp, _ = pairs.site_columns(params, cfg)
+    args = (state.pos, params.charge, params.eps, params.sig,
+            params.mol_id32, state.atom_alive(params),
+            params.mol_frozen[params.mol_id],
+            pairs.pair_scalars(state.box, cfg), cfg)
+    for rs in (0, metropolis.frozen_refresh_rows(params, cfg)):
+        before = pk.pair_terms.launches
+        k = pk.pair_terms(*args, row_start=rs, disp=disp)
+        torch.cuda.synchronize(device)
+        assert pk.pair_terms.launches == before + 1
+        _close(k, pk.pair_terms_plain(*args, row_start=rs, disp=disp), dtype)
+        assert torch.equal(k, pk.pair_terms(*args, row_start=rs, disp=disp))
+        assert float(k[0]) != 0.0
+        assert (float(k[3]) < 0) == (form == "disp_expansion")
+
+
+@pytest.mark.parametrize("form", RD_FORMS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mol_pair_kernel_rd_forms_match_plain(device, dtype, form):
+    """B4's instance of each RD form against its plain version: one
+    molecule's current and trial rows, over 3 chains (a [3, 20] header
+    per chain), and at position stride 0 (the same trial in 4 placements
+    against one system, bit for bit the launch over an expanded pos)."""
+    params, state, cfg, _ = _rd_system(dtype, device, form)
+    disp, _ = pairs.site_columns(params, cfg)
+    alive = state.atom_alive(params)
+    mol = int(np.flatnonzero(state.mol_alive.cpu().numpy()
+                             & (params.mol_species >= 0).cpu().numpy())[0])
+    trial = (state.pos[0] + params.species_pos[0]
+             + torch.tensor([2.2, 0.31, 0.17], dtype=state.pos.dtype,
+                            device=device))
+    scal = pairs.pair_scalars(state.box, cfg)
+    common = (params.charge, params.eps, params.sig, params.mol_id32)
+    for rows in (None, trial):
+        args = (state.pos, *common, alive, params.mol_atoms,
+                params.mol_natoms, torch.tensor(mol, device=device), rows,
+                scal, cfg)
+        before = pk.mol_pair.launches
+        k = pk.mol_pair(*args, disp=disp)
+        torch.cuda.synchronize(device)
+        assert pk.mol_pair.launches == before + 1
+        _close(k, pk.mol_pair_plain(*args, disp=disp), dtype)
+        assert float(k[0]) != 0.0
+    C = 4
+    shift = torch.tensor([[0.0, 0.0, 0.0], [0.3, -0.2, 0.1],
+                          [-0.8, 0.5, 0.4], [1.1, 0.9, -0.6]],
+                         dtype=state.pos.dtype, device=device)
+    rows = (trial[None] + shift[:, None, :]).contiguous()
+    mols = torch.full((C,), mol, dtype=torch.int64, device=device)
+    box3 = state.box[None] * torch.tensor(
+        [1.0, 1.01, 0.99, 1.02], dtype=state.pos.dtype,
+        device=device)[:, None, None]
+    pos_c = state.pos.expand(C, -1, -1).contiguous()
+    alive_c = alive.expand(C, -1).contiguous()
+    for pos, al, sc in ((pos_c, alive_c, pairs.pair_scalars(box3, cfg)),
+                        (state.pos, alive, scal)):
+        args = (pos, *common, al, params.mol_atoms, params.mol_natoms, mols,
+                rows, sc, cfg)
+        k = pk.mol_pair_chains(*args, disp=disp)
+        _close(k, pk.mol_pair_chains_plain(*args, disp=disp), dtype)
+    assert torch.equal(k, pk.mol_pair_chains(pos_c, *args[1:5], alive_c,
+                                             *args[6:], disp=disp))
+
+
+def test_pair_kernels_rd_form_decks(device):
+    """Each RD form (and coulomb gwp) through run_chunk on the card in
+    float64: the forms launch B2 and B4, gwp neither (the plain pass); the
+    carried energy equals a fresh recompute to rel 1e-9 (the small
+    system's total nets terms of ~1e5 K: float64 keeps the check
+    tight)."""
+    for form in RD_FORMS + ("gwp",):
+        if form == "gwp":
+            params, state, cfg, thermo = _system("float64", device)
+            params = params.replace(gwp_alpha=torch.where(
+                params.charge != 0, 0.3, 0.0).to(params.eps.dtype))
+            cfg = dataclasses.replace(cfg, coulomb="gwp")
+        else:
+            params, state, cfg, thermo = _rd_system("float64", device, form)
+        pk.reset_counts()
+        state = metropolis.initialize(state, params, cfg, thermo)
+        g = torch.Generator(device=device).manual_seed(5)
+        st, _ = metropolis.run_chunk(state, params, cfg, thermo, 60,
+                                     generator=g)
+        launched = pk.pair_terms.launches + pk.mol_pair.launches
+        assert (launched > 0) == (form != "gwp"), form
+        fresh = metropolis.initialize(st, params, cfg, thermo)
+        np.testing.assert_allclose(float(st.energy.total),
+                                   float(fresh.energy.total), rtol=1e-9,
+                                   atol=1e-6)

@@ -21,10 +21,13 @@ torch.set_num_threads(1)
 TERMS = ("rd", "lrc", "es_real", "es_recip", "es_self", "es_excl", "polar",
          "vdw")
 GOLDEN_IN_SLICE = ("lj_fluid", "mof_h2_ewald", "mof_h2_wolf_wh",
-                   "mof_h2_polar_fh")
+                   "mof_h2_polar_fh", "h2_dispexp_gwp")
 
 
 def _build(name):
+    if name == "h2_dispexp_gwp":
+        from test_golden import _build as golden_build
+        return golden_build(name)
     if name == "lj_fluid":
         return jsystems.lj_fluid(n=32, dtype="float64", seed=3)
     if name == "mof_h2_polar_fh":
@@ -46,11 +49,13 @@ def _close(got, want):
         assert g == pytest.approx(w, rel=1e-10, abs=1e-8), (k, g, w)
 
 
-# the frozen-reuse refresh needs a frozen framework (not in lj_fluid) and
-# a temperature-independent frozen part (not under Feynman-Hibbs)
+# the frozen-reuse refresh needs a frozen framework (not in lj_fluid or
+# h2_dispexp_gwp: tests/test_torch_rd_runs.py runs it under
+# disp_expansion and gwp on the MOF) and a temperature-independent frozen
+# part (not under Feynman-Hibbs)
 ENERGY_CASES = [(n, m) for n in GOLDEN_IN_SLICE
                 for m in ("plain", "split_frozen", "frozen_cached")
-                if not (n in ("lj_fluid", "mof_h2_polar_fh")
+                if not (n in ("lj_fluid", "mof_h2_polar_fh", "h2_dispexp_gwp")
                         and m == "frozen_cached")]
 
 

@@ -190,7 +190,7 @@ def test_gate_matrix_matches_the_reference():
     """Over every combination of FH, FK, FH order and RD form (float32):
     pair_kernel.supported equals the reference's B2/B4 gate; the fused
     kernels' _supported_physics equals the reference's on the port's RD
-    forms (lj, none) and refuses the others (ROADMAP A12a-2)."""
+    forms (lj, none) and refuses the others (ROADMAP A12a-2b)."""
     base = jsystems.mof_h2_gcmc(n_side=3, n_h2=2, capacity=4)[2]
     n_fused = 0
     for rd in RD_FORMS:

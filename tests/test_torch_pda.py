@@ -189,14 +189,14 @@ REFUSED = {"cavity_bias": ({"cavity_bias": True}, None),
            "tmmc": ({"tmmc": True, "tmmc_bias": True}, None),
            "quantum_rotation": ({"quantum_rotation": True}, None),
            "feynman_hibbs": ({"feynman_hibbs": True}, None),
-           "rd_sg": ({"rd_potential": "sg"}, "A12a-2")}
+           "rd_sg": ({"rd_potential": "sg"}, "A12a-2b")}
 
 
 @pytest.mark.parametrize("flag", list(REFUSED))
 def test_b6_refuses_a11_features(flag):
     """What B6 does not carry raises NotImplementedError naming the
     ROADMAP item, in the plain version too: the RD forms beyond lj/none
-    (A12a-2).  Feynman-Hibbs, cavity bias, TMMC and spinflip, once
+    (A12a-2b).  Feynman-Hibbs, cavity bias, TMMC and spinflip, once
     refused, run (item None): with the molecule-mass plane, the open-cell
     list, the tmmc_bias tilts or the rotor table and spins B6's plain
     version gives a record; without the plane, the list or the table it

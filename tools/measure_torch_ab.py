@@ -45,10 +45,13 @@ median of 5 launches of 1000 steps, float32, per step): B1 on the 10.8k
 bench system at C = 1 and 32 chains, B3 on the 10.0k MOF + H2 system at
 C = 1 and 16 chains and on the 10k LJ fluid at C = 1 (the systems of its
 chip_smoke.py), keeping each launch's outputs in <out.json>.b13.pt and
-the classical B1, B3 and B6 libraries' ptxas lines in <out.json>;
-``--compare-phases`` prints these files too and fails unless the B1 and
-B3 outputs are equal bit for bit (B3's sums on the columns both
-checkouts return).  It then
+the classical B1, B3, B6 and pair libraries' ptxas lines in <out.json>;
+the classical B2's outputs (row_start F and 0) and B4's (phase 3's rows),
+float64 and float32, in <out.json>.b24.pt, with B2's ms per call and on
+the card alone; ``--compare-phases`` prints these files too and fails
+unless the B1 and B3 outputs are equal bit for bit (B3's sums on the
+columns both checkouts return), B2's and B4's too, and the ptxas lines of
+every library all the files keep are identical.  It then
 runs the checkout's ``phase_pda_kernel`` and keeps every output of B6
 (run_steps_uvt_pda) in launch order, but for its timing launches, in
 <out.json>.b6.pt;
@@ -323,15 +326,38 @@ def measure_times(checkout, out):
                 multichain.stack_states(state, C), params, cfg, thermo, u,
                 tables)
             time(f"B3 {kind} C={C}", mk.run_steps, args, kw)
+    # the classical B2 (row_start F and 0) and B4 (phase 3's rows): outputs
+    # in float64 and float32, B2's ms per call and on the card alone
+    from mpmc_tpu_torch.ops import pairs
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    b24 = _b4_outputs(cs, dev)
+    r["b2_ms"] = {}
+    for dtype in ("float64", "float32"):
+        params, state, cfg, _ = cs.bench_system(dtype, dev)
+        args = (state.pos, params.charge, params.eps, params.sig,
+                params.mol_id32, state.atom_alive(params),
+                params.mol_frozen[params.mol_id],
+                pairs.pair_scalars(state.box, cfg), cfg)
+        F = metropolis.frozen_refresh_rows(params, cfg)
+        for label, rs in (("row_start F", F), ("full", 0)):
+            b24[f"b2/{dtype}/{label}"] = pk.pair_terms(
+                *args, row_start=rs).cpu()
+            if dtype == "float32":
+                r["b2_ms"][label] = {
+                    "ms": cs.time_calls(lambda: pk.pair_terms(
+                        *args, row_start=rs), dev),
+                    "device_ms": _time_device(lambda: pk.pair_terms(
+                        *args, row_start=rs), dev, 50)}
     from mpmc_tpu_torch.ops.cuda import _build
     r["ptxas"] = {}
-    for name in ("uvt_kernel", "nvt_kernel", "pda_kernel"):
+    for name in ("uvt_kernel", "nvt_kernel", "pda_kernel", "pair_kernel"):
         text = _build.target(name).with_suffix(".ptxas.txt").read_text()
         r["ptxas"][name] = [ln.strip() for ln in text.splitlines()
                             if "registers" in ln or "spill" in ln]
     with open(out, "w") as f:
         json.dump(r, f, indent=1)
     torch.save(outs, out + ".b13.pt")
+    torch.save(b24, out + ".b24.pt")
     # B6's outputs on phase 4d's tables, in launch order, leaving out the
     # launches its timings make (their number differs between checkouts,
     # and a back-to-back timing must not wait for a copy to the host)
@@ -895,7 +921,9 @@ def same_sass(paths):
 def _report_phases(label, r):
     if "us" in r:
         print(f"{label} ({r['card']}): " + ", ".join(
-            f"{k} {v:.3f}" for k, v in r["us"].items()) + " us/step")
+            f"{k} {v:.3f}" for k, v in r["us"].items()) + " us/step"
+            + "".join(f"; B2 {k} {e['ms']:.4f} / {e['device_ms']:.4f} ms"
+                      for k, e in r.get("b2_ms", {}).items()))
         for name, lines in r.get("ptxas", {}).items():
             for ln in lines:
                 print(f"    {name}: {ln}")
@@ -999,5 +1027,24 @@ if __name__ == "__main__":
                   + ("equal bit for bit" if same else "DIFFER"))
             if not same:
                 raise SystemExit(1)
+        b24 = [torch.load(p + ".b24.pt") for p in sys.argv[2:]
+               if os.path.exists(p + ".b24.pt")]
+        if b24:
+            same = all(r.keys() == b24[0].keys() and all(
+                torch.equal(r[k], b24[0][k]) for k in r) for r in b24)
+            print(f"B2 and B4: {len(b24[0])} outputs per file, "
+                  + ("equal bit for bit" if same else "DIFFER"))
+            if not same:
+                raise SystemExit(1)
+        ptx = []
+        for p in sys.argv[2:]:
+            with open(p) as f:
+                ptx.append(json.load(f).get("ptxas", {}))
+        names = set.intersection(*(set(x) for x in ptx))
+        same = all(x[n] == ptx[0][n] for x in ptx for n in names)
+        print(f"ptxas lines of {sorted(names)}: "
+              + ("identical in every file" if same else "DIFFER"))
+        if not same:
+            raise SystemExit(1)
     else:
         measure(sys.argv[1], sys.argv[2])
