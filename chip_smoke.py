@@ -26,7 +26,10 @@ Phases (any failure raises, so the exit code is non-zero):
    and CUDA-event timings of 1000-step launches (MOF at C = 1 and 16, LJ
    at C = 1) beside the bound;
 5. energy — total_energy on the card (float32, kernels) against the port
-   on the CPU (float64, plain), term by term;
+   on the CPU (float64, plain), term by term; the CPU references run in a
+   process of their own (``chip_smoke.py --cpu-references``, 4 threads)
+   from the build's end, beside the card's phases, and the comparison
+   runs last;
 6. scan path — the 10.8k system written to PQR and run as a GCMC deck
    through mpmc_tpu_torch.mc.run.run (2000 steps): B2 and B4 must have
    been launched by it, and the carried energy of a further chunk must
@@ -171,7 +174,26 @@ Phases (any failure raises, so the exit code is non-zero):
    deck (200), its Thole-polar scan deck (100), a ``gwp on`` deck (200,
    the plain pass: B2 and B4 never launched), and the sg, dreiding and
    b14_7 scan decks (300 each): the pair route, steps/s, and the carried
-   energy against a fresh recompute after a further chunk.
+   energy against a fresh recompute after a further chunk;
+28. the fused kernels' form instances (phase_rd_fused_kernels) — B1, B3
+   and B6's instance of each RD form and of coulomb gwp (LJ; widths
+   0.2-0.6 A, numpy seed 17) against its plain version in float64 and
+   float32: B1 on the bench system under the form at C = 1 (G = 16) and
+   C = 32, and B1's gwp instance with the Feynman-Hibbs terms (lj, FH2)
+   at C = 1, B3 on the MOF + H2 NVT system at C = 2 (G = 16) and C = 16,
+   B6 on the polar system with forced survivors, natural coins and a
+   survivor-free table; times per step beside the classical instance's
+   in the same call, the plain version's and the bound with the form's
+   operations (OPS_RD_IN, OPS_RD_MIX_FUSED, OPS_GWP_SMEAR);
+29. the fused form decks (phase_rd_fused_decks) — RD_FUSED_DECKS: fused
+   µVT with disp_expansion (damped, its tail on) on one chain (2,000
+   steps) and ``chains 32`` (1,000), the MOF NVT deck (2,000) and PDA (d)
+   (100, PHAHST's shape with Thole) with it, fused µVT with gwp (also
+   under ``feynman_hibbs on``), sg, dreiding and b14_7 (2,000 each), and
+   the other forms' NVT (1,000) and
+   PDA (100) decks: the fused route and the form instances logged, the
+   kernel launched, steps/s, and the carried energy against a fresh
+   recompute after a further chunk.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
@@ -229,7 +251,16 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            **{f"{k}_{f}": f"mpmc_tpu_torch/csrc/pair_{f}_kernel.cu"
               for k in ("pair_terms", "mol_pair")
               for f in ("sg", "dreiding", "b14_7", "disp")},
-           "mol_pair_chains_disp": "mpmc_tpu_torch/csrc/pair_disp_kernel.cu"}
+           "mol_pair_chains_disp": "mpmc_tpu_torch/csrc/pair_disp_kernel.cu",
+           **{f"run_steps_uvt_{f}": f"mpmc_tpu_torch/csrc/uvt_{f}_kernel.cu"
+              for f in ("sg", "dreiding", "b14_7", "disp", "gwp")},
+           "run_steps_uvt_disp_c32": "mpmc_tpu_torch/csrc/uvt_disp_kernel.cu",
+           "run_steps_uvt_gwp_fh2": "mpmc_tpu_torch/csrc/uvt_gwp_kernel.cu",
+           **{f"run_steps_{f}": f"mpmc_tpu_torch/csrc/nvt_{f}_kernel.cu"
+              for f in ("sg", "dreiding", "b14_7", "disp", "gwp")},
+           **{f"run_steps_uvt_pda_{f}":
+              f"mpmc_tpu_torch/csrc/pda_{f}_kernel.cu"
+              for f in ("sg", "dreiding", "b14_7", "disp", "gwp")}}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
@@ -256,7 +287,15 @@ REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
                for f in ("sg", "dreiding", "b14_7", "disp")},
             **{f"mol_pair_{f}": "mpmc_tpu/ops/pallas/pair_kernel.py:336"
                for f in ("sg", "dreiding", "b14_7", "disp")},
-            "mol_pair_chains_disp": "mpmc_tpu/ops/pallas/pair_kernel.py:336"}
+            "mol_pair_chains_disp": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
+            **{f"run_steps_uvt_{f}": "mpmc_tpu/ops/pallas/mc_kernel.py:910"
+               for f in ("sg", "dreiding", "b14_7", "disp", "gwp",
+                         "disp_c32", "gwp_fh2")},
+            **{f"run_steps_{f}": "mpmc_tpu/ops/pallas/mc_kernel.py:220"
+               for f in ("sg", "dreiding", "b14_7", "disp", "gwp")},
+            **{f"run_steps_uvt_pda_{f}":
+               "mpmc_tpu/ops/pallas/mc_kernel.py:2089"
+               for f in ("sg", "dreiding", "b14_7", "disp", "gwp")}}
 # NVIDIA H100 SXM peaks (data sheet, at the 700 W limit): f32 outside the
 # tensor cores, and device memory
 PEAK_F32 = 67e12
@@ -285,6 +324,14 @@ OPS_RD_IN = {"sg": 30, "dreiding": 15, "b14_7": 36, "disp_expansion": 67}
 OPS_RD_ANY = {"sg": 0, "dreiding": 0, "b14_7": 0, "disp_expansion": 15}
 OPS_PAIR_RD_BASE = OPS_PAIR_B2B4 - 13 - 11
 OPS_PAIR_FUSED, OPS_GUARD, OPS_LJ, OPS_COULOMB = 24, 1, 13, 6
+# B1, B3 and B6's form instances (csrc/mc_cluster.cuh pair_energy_form),
+# per pair within rc, beside the guard: the form's energy (OPS_RD_IN, r
+# included), disp_expansion's three geometric means of its C's (3 each:
+# the product, the floor, the square root), and under coulomb gwp the
+# smear beside the Coulomb term (s^2 3, the floor 1, 2 s^2 1, the square
+# root 1, the division 1, erf 1, the product 1)
+OPS_RD_MIX_FUSED = {"disp_expansion": 9}
+OPS_GWP_SMEAR = 9
 OPS_PHASE_FUSED, OPS_K_FUSED = 13, 9
 # B5 (csrc/thole_kernel.cu), for every pair it evaluates: displacement 3,
 # orthorhombic minimum image 12, r^2 5, cutoff test 1; for a pair inside
@@ -456,6 +503,19 @@ def _nbytes(*ts):
                if isinstance(t, torch.Tensor))
 
 
+def _in_rc_ops(cfg):
+    """Operations of a B1/B3/B6 pair within rc: the guard, the RD term (LJ,
+    or a form's energy with disp_expansion's C mixing), the Coulomb term
+    (gwp: with its smear) and a quantum correction's."""
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    rd = cfg.rd_potential
+    return (OPS_GUARD + (OPS_LJ if rd == "lj" else OPS_RD_IN.get(rd, 0)
+                         + OPS_RD_MIX_FUSED.get(rd, 0))
+            + (OPS_COULOMB + OPS_GWP_SMEAR * (cfg.coulomb == "gwp"))
+            * (cfg.coulomb != "none")
+            + OPS_QC_PAIR[mk.quantum_option(cfg)])
+
+
 def _fused_ops(trace, cfg, nk):
     """Floating-point operations of chain 0's steps in a plain B1 or B3
     trace: what this run's data needs (pairs beyond rc stop after the
@@ -463,8 +523,7 @@ def _fused_ops(trace, cfg, nk):
     quantum correction's per pair within rc and per column)."""
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     qc = mk.quantum_option(cfg)
-    in_rc = (OPS_GUARD + OPS_LJ * (cfg.rd_potential == "lj")
-             + OPS_COULOMB * (cfg.coulomb != "none") + OPS_QC_PAIR[qc])
+    in_rc = _in_rc_ops(cfg)
     return sum(int(t["pairs"][0]) * OPS_PAIR_FUSED
                + int(t["pairs_in"][0]) * in_rc
                + int(t["cols"][0]) * OPS_QC_COL[qc]
@@ -819,14 +878,15 @@ def nvt_system(kind, dtype, device, seed=31, warm_steps=2000):
 
 
 def _nvt_check(label, system, u_np, device, rep, trace_out=None,
-               sizes=None, rss=False):
+               sizes=None, rss=False, slopes=False):
     """B3 against its plain version on the table ``u_np`` [C, K, 16] for
     the stacked copies of ``system``'s state, at each cluster size G of
     ``sizes`` (None: every G whose slice fits); at each G every chain
     against a C = 1 launch on its own block at the same G, bit for bit.
     Tolerances as for B1 (with ``rss``: plus _rss_tol for rd and es, as
-    the FH/FK comparisons hold them).  Returns {G: (the C = 1 launch
-    arguments of chain 0, its outputs)}."""
+    the FH/FK comparisons hold them; with ``slopes`` in float32 also
+    _slope_tol, the plain version run with its slopes).  Returns {G: (the
+    C = 1 launch arguments of chain 0, its outputs)}."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     from mpmc_tpu_torch.parallel import multichain
@@ -838,7 +898,7 @@ def _nvt_check(label, system, u_np, device, rep, trace_out=None,
     args, kw = metropolis.fused_nvt_launch_args(
         multichain.stack_states(state, C), params, cfg, thermo, u, tables)
     trace = [] if trace_out is None else trace_out
-    p = mk.run_steps_plain(*args, **kw, trace=trace)
+    p = mk.run_steps_plain(*args, **kw, trace=trace, slopes=slopes)
     ps = p[1].cpu().numpy()
     ew = cfg.coulomb == "ewald"
     nk = kw["kvecs"].shape[0] if ew else 0
@@ -847,6 +907,8 @@ def _nvt_check(label, system, u_np, device, rep, trace_out=None,
            2e-5 * np.abs(ps[:, :3]) + 2e-3 * np.sqrt(n_acc + 1.0))
     if rss:
         tol[:, :2] += _rss_tol(trace)
+    if slopes and not f64:
+        tol += _slope_tol(trace, state.box, 3)
     sk_tol = ((1e-9 if f64 else 1e-4 * (1.0 + float(p[2].abs().max())))
               if ew else 0.0)
     if sizes is None:
@@ -878,7 +940,8 @@ def _nvt_check(label, system, u_np, device, rep, trace_out=None,
                 + " ".join(f"{x: .8e}" for x in ps[c, :3]))
         log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
             f"{tol.max():.3e}), pos {d_pos:.3e} A, S(k) {d_sk:.3e}")
-        if not (np.all(d_sums <= tol) and d_pos <= (1e-9 if f64 else 1e-4)
+        if not (np.all(d_sums <= tol)
+                and d_pos <= (1e-9 if f64 else 1e-4)
                 and d_sk <= sk_tol):
             raise AssertionError(f"B3 {label} G={G} disagrees with its "
                                  "plain version")
@@ -1183,12 +1246,14 @@ def _pda_survivor_free(launch, u, rng):
     raise AssertionError("B6: no survivor-free table found")
 
 
-def _pda_ops(trace, field, nk, qc=0):
+def _pda_ops(trace, field, nk, qc=0, cfg=None):
     """Floating-point operations of the steps in a plain B6 trace: B1's
     per-pair and per-phase counts plus the field and surrogate work, and
-    a quantum correction's (mc_kernel.quantum_option ``qc``)."""
+    a quantum correction's (mc_kernel.quantum_option ``qc``); with
+    ``cfg``, a pair within rc as _in_rc_ops counts it (an RD form)."""
     f = OPS_B6_FIELD["direct" if field == "direct" else "screened"]
-    in_rc = OPS_GUARD + OPS_LJ + OPS_COULOMB + f + OPS_QC_PAIR[qc]
+    in_rc = (OPS_GUARD + OPS_LJ + OPS_COULOMB + f + OPS_QC_PAIR[qc]
+             if cfg is None else _in_rc_ops(cfg) + f)
     return sum(t["pairs"] * OPS_PAIR_FUSED
                + (t["in_old"] + t["in_new"]) * in_rc
                + (t["in_new"] + (field == "ewald") * t["in_old"]) * OPS_B6_ROW
@@ -1342,41 +1407,120 @@ def phase_pda_kernel(device, seed=43):
     return rep
 
 
-def phase_energy(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
-    """Card float32 (kernels) against CPU float64 (plain), per term, on the
-    bench system classical (the whole system) and under FH2 and FK (whose
-    pair terms take the plain tile pass on the card: B2's gate refuses
-    them) on its active part — every pair with a sorbate site, the rows
-    from the frozen prefix's end on, as the refresh's frozen reuse
-    computes it (the framework's own pairs, a constant of the run, are
-    the classical case's); then the polar term of the polar bench system
-    (B5 in both modes)."""
+def _energy_terms(q, dtype, dev, n_side=N_SIDE, n_h2=N_H2,
+                  capacity=CAPACITY):
+    """{term: K} of the bench system's total energy on ``dev`` in
+    ``dtype`` under the correction ``q`` (FH_VARIANTS): classical on the
+    whole system, FH2 and FK on its active part (every pair with a
+    sorbate site, the rows from the frozen prefix's end on, as the
+    refresh's frozen reuse computes it)."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops import energy
     from mpmc_tpu_torch.state import EnergyBreakdown
+    params, state, cfg, thermo = bench_system(dtype, dev, n_side, n_h2,
+                                              capacity)
+    F = metropolis.frozen_refresh_rows(params, cfg)
+    cfg = dataclasses.replace(cfg, **FH_VARIANTS[q])
+    if q == "classical":
+        e, _ = energy.total_energy(state.pos, state.box, state.mol_alive,
+                                   params, cfg, thermo)
+    else:
+        e, _, _ = energy.total_energy(
+            state.pos, state.box, state.mol_alive, params, cfg, thermo,
+            split_frozen=True,
+            frozen_cached=EnergyBreakdown.zero(cfg.tdtype, dev),
+            active_row_start=F)
+    return {k: float(v) for k, v in e.as_dict().items()}
+
+
+def _polar_energy(dtype, dev, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
+    """(polar term K, CG iterations from mu = 0, _polar_tol) of the polar
+    bench system on ``dev`` in ``dtype``."""
+    from mpmc_tpu_torch.ops import energy
+    params, state, cfg, thermo = bench_system(dtype, dev, n_side, n_h2,
+                                              capacity, polarization=True)
+    e, aux = energy.total_energy(state.pos, state.box, state.mol_alive,
+                                 params, cfg, thermo)
+    return (float(e.polar), int(aux["polar_iters"]),
+            _polar_tol(state.replace(mu=aux["mu"], energy=e), params, cfg))
+
+
+# phase_energy's references on the CPU (float64, and float32 for the
+# rounding distance of _tol's rule): (correction or "polar", dtype)
+CPU_REFERENCES = (("classical", "float64"), ("classical", "float32"),
+                  ("fh2", "float64"), ("fh2", "float32"),
+                  ("fk", "float64"), ("fk", "float32"), ("polar", "float64"))
+# CPU threads of the process that computes them beside the card's phases
+CPU_REFERENCE_THREADS = 4
+
+
+def cpu_references(path):
+    """Compute CPU_REFERENCES on the CPU and write them to ``path`` as JSON
+    ({"<q> <dtype>": terms or [polar, iters, tol], "seconds": {...}}):
+    the work of ``python3 chip_smoke.py --cpu-references <path>``, which
+    main starts in a process of its own after the build, so that these
+    minutes of CPU float64 run while the card's phases do."""
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
     cpu = torch.device("cpu")
+    out, secs = {}, {}
+    for q, dtype in CPU_REFERENCES:
+        t0 = time.time()
+        out[f"{q} {dtype}"] = (_polar_energy(dtype, cpu) if q == "polar"
+                               else _energy_terms(q, dtype, cpu))
+        secs[f"{q} {dtype}"] = time.time() - t0
+    out["seconds"] = secs
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+class _CpuReferences:
+    """The process computing phase_energy's CPU references (cpu_references)
+    while the card's phases run: started after the build; ``result()``
+    waits for it and reads its file; ``stop()`` ends it if it still runs."""
+
+    def __init__(self):
+        fd, self.path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        os.unlink(self.path)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS=str(CPU_REFERENCE_THREADS))
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-references",
+             self.path], env=env, cwd=REPO)
+
+    def result(self):
+        rc = self.proc.wait()
+        if rc != 0 or not os.path.exists(self.path):
+            raise AssertionError(f"the CPU references' process failed ({rc})")
+        with open(self.path) as f:
+            out = json.load(f)
+        os.unlink(self.path)
+        return out
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if os.path.exists(self.path):
+            os.unlink(self.path)
+
+
+def phase_energy(device, refs):
+    """Card float32 (kernels) against CPU float64 (plain), per term, on the
+    bench system classical (the whole system) and under FH2 and FK (whose
+    pair terms take the plain tile pass on the card: B2's gate refuses
+    them) on its active part (_energy_terms; the framework's own pairs, a
+    constant of the run, are the classical case's); then the polar term
+    of the polar bench system (B5 in both modes).  The CPU references
+    come from ``refs`` (_CpuReferences), computed beside the card's
+    phases."""
+    cpu_refs = refs.result()
+    log(f"CPU references: {json.dumps(cpu_refs.pop('seconds'))} s")
     for q in ("classical", "fh2", "fk"):
-        out = {}
-        for tag, dtype, dev in (("card f32", "float32", device),
-                                ("cpu f64", "float64", cpu),
-                                ("cpu f32", "float32", cpu)):
-            params, state, cfg, thermo = bench_system(dtype, dev, n_side,
-                                                      n_h2, capacity)
-            F = metropolis.frozen_refresh_rows(params, cfg)
-            cfg = dataclasses.replace(cfg, **FH_VARIANTS[q])
-            t0 = time.time()
-            if q == "classical":
-                e, _ = energy.total_energy(state.pos, state.box,
-                                           state.mol_alive, params, cfg,
-                                           thermo)
-            else:
-                e, _, _ = energy.total_energy(
-                    state.pos, state.box, state.mol_alive, params, cfg,
-                    thermo, split_frozen=True,
-                    frozen_cached=EnergyBreakdown.zero(cfg.tdtype, dev),
-                    active_row_start=F)
-            out[tag] = {k: float(v) for k, v in e.as_dict().items()}
-            log(f"energy {q} {tag}: {time.time() - t0:.2f} s")
+        out = {"card f32": _energy_terms(q, "float32", device),
+               "cpu f64": cpu_refs[f"{q} float64"],
+               "cpu f32": cpu_refs[f"{q} float32"]}
         for k in out["cpu f64"]:
             ref, got, p32 = out["cpu f64"][k], out["card f32"][k], \
                 out["cpu f32"][k]
@@ -1389,19 +1533,11 @@ def phase_energy(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
     # the polar term on the same system with polarizable framework sites:
     # every other term is the one above; the polar energies differ by the
     # two solves' stopping residuals (_polar_tol) and float32 rounding
-    pol = {}
-    for tag, dtype, dev in (("card f32", "float32", device),
-                            ("cpu f64", "float64", cpu)):
-        params, state, cfg, thermo = bench_system(dtype, dev, n_side, n_h2,
-                                                  capacity, polarization=True)
-        t0 = time.time()
-        e, aux = energy.total_energy(state.pos, state.box, state.mol_alive,
-                                     params, cfg, thermo)
-        pol[tag] = (float(e.polar), aux["polar_iters"],
-                    _polar_tol(state.replace(mu=aux["mu"], energy=e), params,
-                               cfg))
-        log(f"energy polar {tag}: {pol[tag][0]:.8e} K, {pol[tag][1]} CG "
-            f"iterations from mu = 0, {time.time() - t0:.2f} s")
+    pol = {"card f32": _polar_energy("float32", device),
+           "cpu f64": tuple(cpu_refs["polar float64"])}
+    for tag, (val, iters, _) in pol.items():
+        log(f"energy polar {tag}: {val:.8e} K, {iters} CG iterations from "
+            "mu = 0")
     # each _polar_tol covers two solves of its own |mu|: average them
     (got, _, tol_a), (ref, _, tol_b) = pol["card f32"], pol["cpu f64"]
     tol = 0.5 * (tol_a + tol_b)
@@ -2007,9 +2143,9 @@ def _profile(label, chunk, n_steps, device, kernel=None):
     return out
 
 
-def phase_profile(device, su, n_steps=200):
+def phase_profile(device, su, n_steps=100):
     """Where a scan-path GCMC step's time goes, and the check that a step
-    makes no host sync."""
+    makes no host sync (over ``n_steps`` steps each)."""
     from mpmc_tpu_torch.mc import metropolis
     g = torch.Generator(device=device).manual_seed(5)
     out = _profile("scan", lambda: metropolis.run_chunk(
@@ -2018,15 +2154,15 @@ def phase_profile(device, su, n_steps=200):
     # a step makes no host sync: torch raises on any synchronizing call
     step, carry, c, branch, stats = metropolis.chunk_setup(
         su.state, su.params, su.cfg, su.thermo,
-        metropolis.draw_uniforms(g, 200, su.cfg.tdtype))
+        metropolis.draw_uniforms(g, n_steps, su.cfg.tdtype))
     torch.cuda.synchronize(device)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for k in range(200):
+        for k in range(n_steps):
             step(carry, carry["u"][k], int(branch[k]), su.thermo, c, stats)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    log(f"no host sync in 200 steps (branches {np.bincount(branch)})")
+    log(f"no host sync in {n_steps} steps (branches {np.bincount(branch)})")
     return out
 
 
@@ -2884,9 +3020,10 @@ def phase_polar_chains(device, C=C_POLAR, numsteps=100, chunk=50):
     ``cutoff 14`` (each chain's culled CG).  Each deck must take the
     batched route with no WARNING and launch B2, B4 over chains and B5
     over chains in both modes (charge: every chain's static field at each
-    refresh, multichain.initialize_batched); after a further ``chunk`` steps every chain's carried
-    energy and polar term must match a fresh recompute
-    (_check_bookkeeping(polar=True)); on a 50-step chunk B5-over-chains
+    refresh, multichain.initialize_batched); after a further ``chunk``
+    steps every chain's carried energy and polar term must match a fresh
+    recompute (_check_bookkeeping(polar=True)); on a 50-step chunk
+    B5-over-chains
     launches must equal the CG rounds (a step's rounds: its longest
     chain's iterations); host syncs per step and a profile with B5's
     share.  Returns ({deck: launches}, {deck: report})."""
@@ -3311,14 +3448,48 @@ def _rss_tol(trace):
     return 8 * EPS32 * np.sqrt(sq.cpu().numpy())
 
 
-def _uvt_fh_check(label, system, thermo_c, u, device, cluster=16):
+# The float32 rows of a kernel and of its plain version may differ in
+# their last places (the kernels contract multiply-adds into FMAs in the
+# trial rows, the plain version rounds each product): bounded in advance
+# by ROW_ULPS float32 ulps of the cell's longest edge.  On the 84 A bench
+# cell (ulp 7.6e-6 A) the largest difference in five H100 runs of
+# phase_rd_fused_kernels was 1.526e-5 A, 2 ulps.
+ROW_ULPS = 8
+
+
+def _row_bound(box):
+    """ROW_ULPS float32 ulps of the longest edge of ``box`` [3, 3], in A."""
+    b = box.double().cpu()
+    edge = max(float(torch.linalg.norm(b, dim=0).max()),
+               float(torch.linalg.norm(b, dim=1).max()))
+    return ROW_ULPS * float(np.spacing(np.float32(edge)))
+
+
+def _slope_tol(trace, box, n_sums):
+    """[C, n_sums]: the first-order move of the rd and es sums (the first
+    two columns) when the two versions' rows differ by _row_bound(box):
+    the plain trace's slope (run with ``slopes``) summed over the accepted
+    steps x that bound.  Near a close contact (a form softer than LJ lets
+    an H2 reach a charged framework site) one last-place rounding of a row
+    moves a step's sums beyond the per-term rule of _rss_tol."""
+    sl = sum(torch.where(t["accept"][:, None], t["slope"],
+                         torch.zeros_like(t["slope"])) for t in trace)
+    tol = np.zeros((sl.shape[0], n_sums))
+    tol[:, :2] = sl.cpu().numpy() * _row_bound(box)
+    return tol
+
+
+def _uvt_fh_check(label, system, thermo_c, u, device, cluster=16,
+                  slopes=False):
     """B1 at ``cluster`` against its plain version on the table ``u`` [C,
     K, 16] for C stacked copies of ``system``'s state at ``thermo_c`` (a
     temperature per chain, or one): equal decisions and slot aliveness,
     the sums within phase_uvt_kernel's float32 tolerance plus, for rd and
-    es, _rss_tol; positions within 1e-4 A, S(k) within 1e-4 of its scale.
-    Returns (the kernel's outputs, the plain trace, the largest |d|, the
-    launch's arguments)."""
+    es, _rss_tol; positions within 1e-4 A, S(k) within 1e-4 of its scale
+    (float64: phase_uvt_kernel's rule, rel 1e-10; S(k) only under ewald).
+    With ``slopes`` the float32 rd and es sums also get _slope_tol, the
+    plain version run with its slopes.  Returns (the kernel's outputs, the
+    plain trace, the largest |d|, the launch's arguments)."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     from mpmc_tpu_torch.parallel import multichain
@@ -3328,7 +3499,7 @@ def _uvt_fh_check(label, system, thermo_c, u, device, cluster=16):
         multichain.stack_states(state, C), params, cfg, thermo_c, u,
         metropolis.uvt_fused_tables(params, cfg))
     trace = []
-    p = mk.run_steps_uvt_plain(*args, **kw, trace=trace)
+    p = mk.run_steps_uvt_plain(*args, **kw, trace=trace, slopes=slopes)
     k = mk.run_steps_uvt(*args, **kw, cluster=cluster)
     torch.cuda.synchronize(device)
     ps, ks = p[2].cpu().numpy(), k[2].cpu().numpy()
@@ -3344,15 +3515,25 @@ def _uvt_fh_check(label, system, thermo_c, u, device, cluster=16):
             f"B1 {label}: decisions differ from the plain version; first at "
             f"step {step} of chain {chain}, |ln u - ln acc| = {margin:.3e}")
     n_acc = ps[:, 6:9].sum(1, keepdims=True)
-    tol = 2e-5 * np.abs(ps[:, :6]) + 2e-3 * np.sqrt(n_acc + 1.0)
-    tol[:, :2] += _rss_tol(trace)
+    f64 = cfg.tdtype == torch.float64
+    ew = cfg.coulomb == "ewald"
+    if f64:             # phase_uvt_kernel's float64 rule
+        tol = np.maximum(1e-10 * np.abs(ps[:, :6]), 1e-8)
+    else:
+        tol = 2e-5 * np.abs(ps[:, :6]) + 2e-3 * np.sqrt(n_acc + 1.0)
+        tol[:, :2] += _rss_tol(trace)
     d_sums = np.abs(ks[:, :6] - ps[:, :6])
     d_pos = float((k[0] - p[0]).abs().max())
-    d_sk = max(float((a - b).abs().max()) for a, b in zip(k[3:], p[3:]))
+    if slopes and not f64:
+        tol += _slope_tol(trace, state.box, 6)
+    d_sk = (max(float((a - b).abs().max()) for a, b in zip(k[3:5], p[3:5]))
+            if ew else 0.0)
+    sk_tol = (1e-9 if f64 else 1e-4 * (1.0 + float(p[3].abs().max()))
+              ) if ew else 0.0
     log(f"    |d| sums {d_sums.max():.3e} (tol {tol.min():.3e}.."
         f"{tol.max():.3e}), pos {d_pos:.3e} A, S(k) {d_sk:.3e}")
-    if not (np.all(d_sums <= tol) and d_pos <= 1e-4
-            and d_sk <= 1e-4 * (1.0 + float(p[3].abs().max()))):
+    if not (np.all(d_sums <= tol) and d_pos <= (1e-9 if f64 else 1e-4)
+            and d_sk <= sk_tol):
         raise AssertionError(f"B1 {label} disagrees with its plain version")
     return k, trace, max(float(d_sums.max()), d_pos, d_sk), (args, kw)
 
@@ -5094,6 +5275,464 @@ def phase_rd_decks(device, chunk=100):
     return launches, reps
 
 
+# the fused kernels' forms (B1, B3 and B6's form libraries): the RD forms
+# and coulomb gwp, and their entries' keys
+FUSED_FORMS = RD_FORMS + ("gwp",)
+FUSED_KEY = {**RD_KEY, "gwp": "gwp"}
+
+
+def _form_system(system, form):
+    """``system`` (params, state, cfg, thermo) with its columns under
+    ``form`` (_rd_params) and its state initialized under it."""
+    from mpmc_tpu_torch.mc import metropolis
+    params, state, cfg, thermo = system
+    params, cfg = _rd_params(params, cfg, form)
+    return (params, metropolis.initialize(state, params, cfg, thermo), cfg,
+            thermo)
+
+
+def phase_rd_fused_kernels(device, K=32, K32=16, seed=2029, k_time=1000):
+    """B1, B3 and B6's instance of each form (sg, dreiding, b14_7,
+    disp_expansion damped with its tail, and coulomb gwp with LJ: widths
+    0.2-0.6 A, numpy seed 17) against its plain version on numpy-seeded
+    tables, float64 (phase_uvt_kernel's rule) and float32 (its rule plus,
+    for rd and es, _rss_tol, as the FH/FK phase holds them, and
+    _slope_tol): B1 on the 10.8k bench system at C = 1 (G = 16) and, in
+    float32, at C = 32 (the wrapper's G), and gwp's instance with FH2
+    (lj) at C = 1; B3 on the 10.0k MOF + H2 NVT system (nvt_system, after
+    its warm-up) at C = 2 (G = 16, each chain equal to its C = 1 launch)
+    and, in float32, at C = 16 (the wrapper's G); B6 on the polar bench
+    system (direct field) as one 16-step segment: forced survivors of
+    each move type, natural coins and a survivor-free table (phase_pda_
+    kernel's rules, G = 16).  Times per step (float32; B1 and B3:
+    1000-step launches, C = 1 at G = 16 and C = 32 / 16 at the wrapper's
+    G; B6: the survivor-free table), each beside the classical
+    instance's from this call, the plain version's, and the bound with
+    the form's operations (_in_rc_ops).  Returns {entry: report} for
+    run_steps_uvt_<k>, run_steps_<k> and run_steps_uvt_pda_<k>, k the
+    forms' keys (FUSED_KEY), and run_steps_uvt_gwp_fh2."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    rng = np.random.default_rng(seed)
+    reps = {}
+    f32 = torch.float32
+
+    def timed(fn, n_steps):
+        return (_time_steps(fn, device, n_steps),
+                time_device(fn, device, n=5) / n_steps)
+
+    def tab(x, dt=f32):
+        return torch.as_tensor(x, dtype=dt, device=device)
+
+    # ---- B1
+    u1, u32 = rng.random((1, K, 16)), rng.random((32, K32, 16))
+    ut1, ut32 = rng.random((1, k_time, 16)), rng.random((32, k_time, 16))
+    base = {dt: bench_system(dt, device) for dt in ("float64", "float32")}
+    params, state, cfg, thermo = base["float32"]
+    state = metropolis.initialize(state, params, cfg, thermo)
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    classical = {}
+    for C, ut in ((1, ut1), (32, ut32)):
+        at, kwt = metropolis.fused_uvt_launch_args(
+            multichain.stack_states(state, C), params, cfg, thermo, tab(ut),
+            tables)
+        G = 16 if C == 1 else None
+        classical[C] = timed(lambda: mk.run_steps_uvt(*at, **kwt, cluster=G),
+                             k_time)
+    log(f"B1 f32 classical: C=1 G=16 {classical[1][0] * 1e3:.3f} us/step "
+        f"({classical[1][1] * 1e3:.3f} back to back), C=32 "
+        f"{classical[32][0] * 1e3:.3f} ({classical[32][1] * 1e3:.3f})")
+    for form in FUSED_FORMS:
+        key = FUSED_KEY[form]
+        rep = {"max_abs_err": 0.0}
+        for dtype in ("float64", "float32"):
+            system = _form_system(base[dtype], form)
+            params, state, cfg, thermo = system
+            k1, trace, err, (a1, kw1) = _uvt_fh_check(
+                f"{dtype} {form}", system, thermo, tab(u1, cfg.tdtype),
+                device, slopes=True)
+            rep["max_abs_err"] = max(rep["max_abs_err"], err)
+            if dtype == "float64":
+                continue
+            _, _, err32, _ = _uvt_fh_check(f"{dtype} {form}", system, thermo,
+                                           tab(u32), device, cluster=None,
+                                           slopes=True)
+            G32 = mk.run_steps_uvt.last_cluster
+            rep["max_abs_err"] = max(rep["max_abs_err"], err32)
+            tables = metropolis.uvt_fused_tables(params, cfg)
+            times = {}
+            for C, ut in ((1, ut1), (32, ut32)):
+                at, kwt = metropolis.fused_uvt_launch_args(
+                    multichain.stack_states(state, C), params, cfg, thermo,
+                    tab(ut), tables)
+                G = 16 if C == 1 else None
+                times[C] = timed(lambda: mk.run_steps_uvt(*at, **kwt,
+                                                          cluster=G), k_time)
+            pms = time_calls(lambda: mk.run_steps_uvt_plain(*a1, **kw1),
+                             device, n=1) / K
+            nk = kw1["kvecs"].shape[0] if kw1["kvecs"] is not None else 0
+            ops = _fused_ops(trace, cfg, nk)
+            n_io = (_nbytes(*a1[:25], *[v for v in kw1.values()
+                                        if torch.is_tensor(v)],
+                            *(kw1["disp"] or ()))
+                    + _nbytes(k1[0], a1[1], k1[1], k1[2]))
+            bound, by = _bound_ms(ops, n_io)
+            rep.update(ms=times[1][0], device_ms=times[1][1], plain_ms=pms,
+                       bound_ms=bound / K, bound_by=by,
+                       classical_ms=classical[1][0],
+                       classical_device_ms=classical[1][1],
+                       cluster=f"G=16 (C=1), G={G32} (C=32)",
+                       c32={"ms": times[32][0], "device_ms": times[32][1],
+                            "classical_ms": classical[32][0],
+                            "classical_device_ms": classical[32][1],
+                            "G": G32})
+            log(f"B1 f32 {form}: kernel {times[1][0] * 1e3:.3f} us/step "
+                f"({times[1][1] * 1e3:.3f} on the card alone; classical "
+                f"{classical[1][0] * 1e3:.3f} / {classical[1][1] * 1e3:.3f}),"
+                f" C=32 G={G32} {times[32][0] * 1e3:.3f} / "
+                f"{times[32][1] * 1e3:.3f} (classical "
+                f"{classical[32][0] * 1e3:.3f} / "
+                f"{classical[32][1] * 1e3:.3f}); plain {pms * 1e3:.1f} "
+                f"us/step; bound {bound / K * 1e3:.4f} us/step ({by}; "
+                f"{ops / K:.3e} ops/step)")
+        reps[f"run_steps_uvt_{key}"] = rep
+    # gwp with lj under FH2: the quantum instance of gwp's library
+    rep = {"max_abs_err": 0.0}
+    for dtype in ("float64", "float32"):
+        params, state, cfg, thermo = base[dtype]
+        params, cfg = _rd_params(params, cfg, "gwp")
+        cfg = dataclasses.replace(cfg, feynman_hibbs=True)
+        system = (params, metropolis.initialize(state, params, cfg, thermo),
+                  cfg, thermo)
+        k1, trace, err, (a1, kw1) = _uvt_fh_check(
+            f"{dtype} gwp fh2", system, thermo, tab(u1, cfg.tdtype), device,
+            slopes=True)
+        rep["max_abs_err"] = max(rep["max_abs_err"], err)
+    params, state, cfg, thermo = system
+    at, kwt = metropolis.fused_uvt_launch_args(
+        multichain.stack_states(state, 1), params, cfg, thermo, tab(ut1),
+        metropolis.uvt_fused_tables(params, cfg))
+    t1 = timed(lambda: mk.run_steps_uvt(*at, **kwt, cluster=16), k_time)
+    pms = time_calls(lambda: mk.run_steps_uvt_plain(*a1, **kw1), device,
+                     n=1) / K
+    nk = kw1["kvecs"].shape[0] if kw1["kvecs"] is not None else 0
+    ops = _fused_ops(trace, cfg, nk)
+    bound, by = _bound_ms(ops, _nbytes(*a1[:25], *[
+        v for v in kw1.values() if torch.is_tensor(v)])
+        + _nbytes(k1[0], a1[1], k1[1], k1[2]))
+    rep.update(ms=t1[0], device_ms=t1[1], plain_ms=pms, bound_ms=bound / K,
+               bound_by=by, classical_ms=classical[1][0],
+               classical_device_ms=classical[1][1], cluster="G=16 (C=1)")
+    log(f"B1 f32 gwp fh2: kernel {t1[0] * 1e3:.3f} us/step ({t1[1] * 1e3:.3f}"
+        f" on the card alone; classical {classical[1][0] * 1e3:.3f} / "
+        f"{classical[1][1] * 1e3:.3f}); plain {pms * 1e3:.1f} us/step; bound "
+        f"{bound / K * 1e3:.4f} us/step ({by}; {ops / K:.3e} ops/step)")
+    reps["run_steps_uvt_gwp_fh2"] = rep
+    # ---- B3
+    u2, u16 = rng.random((2, K, 16)), rng.random((16, K32, 16))
+    ut16 = rng.random((16, k_time, 16))
+    base = {dt: nvt_system("mof", dt, device)
+            for dt in ("float64", "float32")}
+    params, state, cfg, thermo = base["float32"]
+    tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+    for C, ut in ((1, ut1), (16, ut16)):
+        at, kwt = metropolis.fused_nvt_launch_args(
+            multichain.stack_states(state, C), params, cfg, thermo, tab(ut),
+            tables)
+        G = 16 if C == 1 else None
+        classical[C] = timed(lambda: mk.run_steps(*at, **kwt, cluster=G),
+                             k_time)
+    log(f"B3 f32 classical: C=1 G=16 {classical[1][0] * 1e3:.3f} us/step "
+        f"({classical[1][1] * 1e3:.3f} back to back), C=16 "
+        f"{classical[16][0] * 1e3:.3f} ({classical[16][1] * 1e3:.3f})")
+    for form in FUSED_FORMS:
+        key = FUSED_KEY[form]
+        rep = {"max_abs_err": 0.0}
+        for dtype in ("float64", "float32"):
+            system = _form_system(base[dtype], form)
+            params, state, cfg, thermo = system
+            trace = []
+            a1, kw1, one = _nvt_check(f"mof {dtype} {form}", system, u2,
+                                      device, rep, trace_out=trace,
+                                      sizes=[16], rss=True, slopes=True)[16]
+            if dtype == "float64":
+                continue
+            tables = metropolis.nvt_fused_tables(params, state.mol_alive)
+            a16, kw16 = metropolis.fused_nvt_launch_args(
+                multichain.stack_states(state, 16), params, cfg, thermo,
+                tab(u16), tables)
+            mk.run_steps(*a16, **kw16)
+            G16 = mk.run_steps.last_cluster
+            _nvt_check(f"mof {dtype} {form} C=16", system, u16, device, rep,
+                       sizes=[G16], rss=True, slopes=True)
+            times = {}
+            for C, ut in ((1, ut1), (16, ut16)):
+                at, kwt = metropolis.fused_nvt_launch_args(
+                    multichain.stack_states(state, C), params, cfg, thermo,
+                    tab(ut), tables)
+                G = 16 if C == 1 else None
+                times[C] = timed(lambda: mk.run_steps(*at, **kwt, cluster=G),
+                                 k_time)
+            pms = time_calls(lambda: mk.run_steps_plain(*a1, **kw1), device,
+                             n=1) / K
+            nk = kw1["kvecs"].shape[0] if kw1["kvecs"] is not None else 0
+            ops = _fused_ops(trace, cfg, nk)
+            bound, by = _bound_ms(ops, _nbytes(*a1[:16], *[
+                v for v in kw1.values() if torch.is_tensor(v)],
+                *(kw1["disp"] or ())) + _nbytes(*one))
+            rep.update(ms=times[1][0], device_ms=times[1][1], plain_ms=pms,
+                       bound_ms=bound / K, bound_by=by,
+                       classical_ms=classical[1][0],
+                       classical_device_ms=classical[1][1],
+                       cluster=f"G=16 (C=1), G={G16} (C=16)",
+                       c16={"ms": times[16][0], "device_ms": times[16][1],
+                            "classical_ms": classical[16][0],
+                            "classical_device_ms": classical[16][1],
+                            "G": G16})
+            log(f"B3 f32 {form}: kernel {times[1][0] * 1e3:.3f} us/step "
+                f"({times[1][1] * 1e3:.3f} on the card alone; classical "
+                f"{classical[1][0] * 1e3:.3f} / {classical[1][1] * 1e3:.3f}),"
+                f" C=16 G={G16} {times[16][0] * 1e3:.3f} / "
+                f"{times[16][1] * 1e3:.3f} (classical "
+                f"{classical[16][0] * 1e3:.3f} / "
+                f"{classical[16][1] * 1e3:.3f}); plain {pms * 1e3:.1f} "
+                f"us/step; bound {bound / K * 1e3:.4f} us/step ({by}; "
+                f"{ops / K:.3e} ops/step)")
+        reps[f"run_steps_{key}"] = rep
+    # ---- B6 (direct field), one 16-step segment
+    Kp = mk.PDA_SEG
+    base = {dt: polar_system(dt, device) for dt in ("float64", "float32")}
+
+    def pda_setup(system):
+        params, state, cfg, thermo = system
+        cfg = dataclasses.replace(cfg, polar_delayed=True, fused_mc=True)
+        state = metropolis.initialize(state, params, cfg, thermo)
+        cfg_eff = mk.pda_effective_cfg(cfg, params)
+        tables = metropolis.uvt_fused_tables(params, cfg_eff)
+        consts = metropolis._uvt_chunk_consts(
+            state.pos, state.box, params, thermo, cfg_eff, tables[5],
+            tables[6])
+
+        def args_of(u):
+            return metropolis.pda_launch_args(state, params, cfg_eff, thermo,
+                                              u, tables, consts)
+        return args_of, cfg_eff
+
+    classical_args, _ = pda_setup(base["float32"])
+
+    def classical_launch(u):
+        a, kw = classical_args(u)
+        return mk.run_steps_uvt_pda(*a, **kw)
+
+    # the classical instance's own survivor-free table: all 16 steps run
+    u_classical = _pda_survivor_free(
+        classical_launch, tab(rng.random((Kp, 16))), rng)
+    for form in FUSED_FORMS:
+        key = FUSED_KEY[form]
+        rep = {"max_abs_err": 0.0}
+        for dtype in ("float64", "float32"):
+            f64 = dtype == "float64"
+            params, state, cfg, thermo = base[dtype]
+            params, cfg = _rd_params(params, cfg, form)
+            args_of, cfg_eff = pda_setup((params, state, cfg, thermo))
+
+            def launch(u):
+                a, kw = args_of(u)
+                return mk.run_steps_uvt_pda(*a, **kw)
+
+            # per move type a table whose step 0 survives (a forced coin can
+            # still meet an overlap: such tables are drawn again, up to 8
+            # times, by the kernel itself)
+            us = {}
+            for mt, lane8 in ((0, 0.9), (1, 0.1), (2, 0.4)):
+                for _ in range(8):
+                    x = rng.random((Kp, 16))
+                    x[0, 4], x[0, 8] = 1e-30, lane8
+                    x = tab(x, cfg.tdtype)
+                    if float(launch(x)[0, 1]) > 0.5:
+                        break
+                us[f"step 0 survives ({'disp ins del'.split()[mt]})"] = x
+            us["natural"] = tab(rng.random((Kp, 16)), cfg.tdtype)
+            us["survivor-free"] = _pda_survivor_free(
+                launch, tab(rng.random((Kp, 16)), cfg.tdtype), rng)
+            hits = 0
+            for name, u in us.items():
+                a, kw = args_of(u)
+                trace = []
+                p = mk.run_steps_uvt_pda_plain(
+                    *a, **kw, trace=trace, slopes=not f64).cpu().numpy()
+                k = mk.run_steps_uvt_pda(*a, **kw,
+                                         cluster=16).cpu().numpy()
+                rss = np.zeros(8)
+                if trace[-1].get("rss"):
+                    rss[[0, 1, 2, 6]] = trace[-1]["rss"]
+                want = np.concatenate([p[1, :6], p[0, 9:11]])
+                tol = (1e-10 * np.abs(want) + 1e-8 if f64
+                       else 2e-5 * np.abs(want) + 1e-3 + 8 * EPS32 * rss)
+                d_vals = np.abs(np.concatenate([k[1, :6], k[0, 9:11]])
+                                - want)
+                d_rows = float(np.abs(k[2:5] - p[2:5]).max())
+                if not f64 and trace[-1].get("slope"):   # _slope_tol's rule
+                    tol[:2] += (np.asarray(trace[-1]["slope"])
+                                * _row_bound(state.box))
+                log(f"B6 {dtype} {form} {name} G=16: n_done {k[0, 0]:g} hit "
+                    f"{k[0, 1]:g} mtype {k[0, 2]:g} (plain: {p[0, 0]:g} "
+                    f"{p[0, 1]:g} {p[0, 2]:g}); |d| deltas/d*/lnb "
+                    f"{d_vals.max():.3e} (worst |d|/tol "
+                    f"{float(np.max(d_vals / tol)):.3f}), rows {d_rows:.3e}")
+                if not (np.array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8]],
+                                       p[0, [0, 1, 2, 3, 4, 6, 7, 8]])
+                        and np.all(d_vals <= tol)
+                        and d_rows <= (1e-9 if f64 else 1e-4)):
+                    raise AssertionError(f"B6 {dtype} {form} {name} "
+                                         "disagrees with its plain version")
+                rep["max_abs_err"] = max(rep["max_abs_err"],
+                                         float(d_vals.max()), d_rows)
+                hits += int(k[0, 1])
+            if hits < 3:
+                raise AssertionError(f"B6 {dtype} {form}: only {hits} "
+                                     "survivors")
+            if f64:
+                continue
+            u = us["survivor-free"]
+            a, kw = args_of(u)
+            trace = []
+            mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace)
+            nk = kw["kvecs"].shape[0] if kw["kvecs"] is not None else 0
+            ops = _pda_ops(trace, "direct", nk, cfg=a[-1])
+            bound, by = _bound_ms(ops, _nbytes(*a, *[
+                v for v in kw.values() if torch.is_tensor(v)],
+                *(kw["disp"] or ())) + 8 * 16 * 8)
+            ac, kwc = classical_args(u_classical)
+            for tag, (aa, kk) in (("classical", (ac, kwc)), ("form", (a, kw))):
+                ms = time_calls(lambda: mk.run_steps_uvt_pda(*aa, **kk,
+                                                             cluster=16),
+                                device) / Kp
+                dms = time_device(lambda: mk.run_steps_uvt_pda(
+                    *aa, **kk, cluster=16), device, n=20) / Kp
+                rep.update({f"{tag}_ms": ms, f"{tag}_device_ms": dms})
+            pms = time_calls(lambda: mk.run_steps_uvt_pda_plain(*a, **kw),
+                             device, n=3) / Kp
+            rep.update(ms=rep.pop("form_ms"),
+                       device_ms=rep.pop("form_device_ms"), plain_ms=pms,
+                       bound_ms=bound / Kp, bound_by=by, cluster="G=16")
+            log(f"B6 f32 {form}, survivor-free table, G=16: "
+                f"{rep['ms'] * 1e3:.2f} us/step per call, "
+                f"{rep['device_ms'] * 1e3:.2f} on the card alone (classical "
+                f"{rep['classical_ms'] * 1e3:.2f} / "
+                f"{rep['classical_device_ms'] * 1e3:.2f}); plain "
+                f"{pms * 1e3:.1f} us/step; bound {bound / Kp * 1e3:.4f} "
+                f"us/step ({by}; {ops / Kp:.3e} ops/step)")
+        reps[f"run_steps_uvt_pda_{key}"] = rep
+    log("rd fused kernels: " + json.dumps(reps))
+    return reps
+
+
+# the decks of the fused kernels' form instances on the 10.8k system (77 K,
+# 1 atm): (label, form, deck kind, extra lines, numsteps, the kernel and
+# the route's log line); PHAHST's shape is disp_pda (disp_expansion,
+# Thole, delayed acceptance); each other form's B3 and B6 instance runs a
+# short deck of its own
+_NVT = "ensemble nvt\nfused_mc on\n"
+_PDA = "polar_delayed on\nfused_mc on\n"
+RD_FUSED_DECKS = (
+    ("disp_uvt", "disp_expansion", "mof", "fused_mc on\n", 2000,
+     "run_steps_uvt", "single-chain fused µVT kernel"),
+    ("disp_c32", "disp_expansion", "mof", "fused_mc on\nchains 32\n", 1000,
+     "run_steps_uvt", "chain-interleaved"),
+    ("disp_nvt", "disp_expansion", "mof", _NVT, 2000, "run_steps",
+     "single-chain fused NVT kernel"),
+    ("disp_pda", "disp_expansion", "polar", _PDA, 100, "run_steps_uvt_pda",
+     "polar delayed-acceptance stage-1 kernel"),
+    ("gwp_uvt", "gwp", "mof", "fused_mc on\n", 2000, "run_steps_uvt",
+     "single-chain fused µVT kernel"),
+    ("gwp_fh2_uvt", "gwp", "mof", "fused_mc on\nfeynman_hibbs on\n", 2000,
+     "run_steps_uvt", "single-chain fused µVT kernel"),
+    *((f"{RD_KEY.get(f, f)}_uvt", f, "mof", "fused_mc on\n", 2000,
+       "run_steps_uvt", "single-chain fused µVT kernel")
+      for f in ("sg", "dreiding", "b14_7")),
+    *((f"{f}_nvt", f, "mof", _NVT, 1000, "run_steps",
+       "single-chain fused NVT kernel")
+      for f in ("sg", "dreiding", "b14_7", "gwp")),
+    *((f"{f}_pda", f, "polar", _PDA, 100, "run_steps_uvt_pda",
+       "polar delayed-acceptance stage-1 kernel")
+      for f in ("sg", "dreiding", "b14_7", "gwp")))
+
+
+def phase_rd_fused_decks(device, chunk=200):
+    """The fused kernels' form instances at full width through run.run
+    (RD_FUSED_DECKS): fused µVT with disp_expansion (damped, its tail on,
+    C10 from extrapolate_disp_coeffs) on one chain and ``chains 32``, the
+    MOF NVT deck and the PDA (d) deck with Thole (PHAHST's shape) with it,
+    fused µVT with gwp (and with gwp under feynman_hibbs, lj), sg,
+    dreiding and b14_7, and short NVT and PDA decks
+    of the other forms.  Each deck: the route's log line and the form
+    instances' line, its kernel launched (B1 and B3 once per corrtime),
+    no plain pair pass (B2 and B4's form instances price the refresh, the
+    chunk's tail constants and B6's survivors; under gwp, whose pair
+    passes B2 and B4's gate refuses as the reference's does, the plain
+    pass and its log line), steps/s, and the carried energy after a
+    further ``chunk`` (PDA: 100) steps against a fresh recompute (rel
+    1e-4; polar: _polar_tol).
+    Returns ({deck: launches}, {deck: report})."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.state import slice_chain
+    launches, reps = {}, {}
+    for i, (label, form, kind, extra, numsteps, kernel, route) in enumerate(
+            RD_FUSED_DECKS):
+        su, avgs, text, ln = _run_deck(device, RD_LINES[form] + extra,
+                                       numsteps=numsteps, kind=kind,
+                                       verbose=False, form=form)
+        stem = FUSED_KEY[form]
+        if (f"fused_mc: {route}" not in text or "WARNING" in text
+                or f"form instances (uvt_{stem}_kernel" not in text):
+            raise AssertionError(f"{label}: not the fused {route} route of "
+                                 f"the form instances")
+        want = (-(-numsteps // 1000) if kernel != "run_steps_uvt_pda" else 1)
+        if ln[kernel] < want:
+            raise AssertionError(f"{label}: {kernel} launched {ln[kernel]} "
+                                 f"times (>= {want})")
+        if kernel != "run_steps_uvt_pda" and ln[kernel] != want:
+            raise AssertionError(f"{label}: {kernel} launched {ln[kernel]} "
+                                 f"times, not numsteps / corrtime = {want}")
+        plain = "pair passes: the plain tile pass" in text
+        if plain != (form == "gwp") or (ln["pair_terms"] > 0) == plain:
+            raise AssertionError(f"{label}: the refresh's pair pass is not "
+                                 f"{'plain' if form == 'gwp' else 'B2'}")
+        rate = float(text.split("steps/sec:")[1].split()[0])
+        g = torch.Generator(device=device).manual_seed(71 + i)
+        params, cfg, thermo = su.params, su.cfg, su.thermo
+        if su.states is not None:
+            sts, _ = metropolis.run_chunk_fused_uvt_multi(
+                su.states, params, cfg, thermo, chunk, generator=g)
+            for c in (0, sts.pos.shape[0] - 1):
+                _check_bookkeeping(f"{label} chain {c}, {chunk} steps",
+                                   slice_chain(sts, c), su)
+        elif kernel == "run_steps_uvt":
+            st, _ = metropolis.run_chunk_fused_uvt(su.state, params, cfg,
+                                                   thermo, chunk, generator=g)
+            _check_bookkeeping(f"{label}, {chunk} steps", st, su)
+        elif kernel == "run_steps":
+            st, _ = metropolis.run_chunk_fused(su.state, params, cfg, thermo,
+                                               chunk, generator=g)
+            _check_bookkeeping(f"{label}, {chunk} steps", st, su)
+        else:
+            st, _ = metropolis.run_chunk_fused_uvt_polar_da(
+                su.state, params, cfg, thermo, 100, generator=g,
+                tables=metropolis.uvt_fused_tables(
+                    params, mk.pda_effective_cfg(cfg, params)))
+            _check_bookkeeping(f"{label}, 100 steps", st, su, polar=True)
+        rep = {"steps_per_sec": rate, "N": avgs.mean("N"),
+               "energy_rd": avgs.mean("energy_rd"),
+               "energy_lrc": avgs.mean("energy_lrc"),
+               "kernel_launches": ln[kernel], "b2_launches": ln["pair_terms"]}
+        log(f"{label}: " + json.dumps(rep) + f"  launches {ln}")
+        launches[label], reps[label] = ln, rep
+    return launches, reps
+
+
 def _rows_equal(a, b):
     """Two campaign rows equal, NaN equal to NaN."""
     return a.keys() == b.keys() and all(
@@ -5104,12 +5743,22 @@ def main():
     dev, smi = phase_device()
     sys.path.insert(0, REPO)
     t0 = time.time()
+    build_s = phase_build()
+    # phase_energy's CPU references, computed beside the card's phases
+    refs = _CpuReferences()
+    try:
+        _phases(dev, smi, t0, build_s, refs)
+    finally:
+        refs.stop()
+
+
+def _phases(dev, smi, t0, build_s, refs):
+    """Every phase after the build (main), then the JSON lines."""
 
     def mark(name):
         # the wall seconds at which each phase starts: where a run's time goes
         log(f"--- {name} at {time.time() - t0:.1f} s")
 
-    build_s = phase_build()
     mark("phase_kernels")
     report = phase_kernels(dev)
     mark("phase_uvt_kernel")
@@ -5126,8 +5775,6 @@ def main():
     mark("phase_thole_chains")
     report["dipole_field_c8"] = phase_thole_chains(dev)
     t_c8 = time.time() - t_c8
-    mark("phase_energy")
-    phase_energy(dev)
     mark("phase_main")
     scan_launches, rate, su = phase_main(dev)
     mark("phase_profile")
@@ -5205,6 +5852,15 @@ def main():
     mark("phase_rd_decks")
     rd_launches, rd_reps = phase_rd_decks(dev)
     t_rd = time.time() - t_rd
+    t_rdf = time.time()
+    mark("phase_rd_fused_kernels")
+    report.update(phase_rd_fused_kernels(dev))
+    mark("phase_rd_fused_decks")
+    rdf_launches, rdf_reps = phase_rd_fused_decks(dev)
+    t_rdf = time.time() - t_rdf
+    # last: its CPU references have had the card's phases to finish in
+    mark("phase_energy")
+    phase_energy(dev, refs)
     # each kernel's launches on its own main path: B2 and B4 on the scan
     # path, B1 on the fused single-chain µVT path, B3 on the single-chain
     # MOF NVT deck, B5 (both modes) on the polar scan-path deck (dipole:
@@ -5254,9 +5910,25 @@ def main():
                 **{f"mol_pair_{k}": rd_launches[k]["mol_pair"]
                    for k in RD_KEY.values()},
                 "mol_pair_chains_disp":
-                    rd_launches["disp_c16"]["mol_pair_chains"]}
+                    rd_launches["disp_c16"]["mol_pair_chains"],
+                # B1, B3 and B6's form instances: the fused decks of each
+                # form (B1 over 32 chains: the disp_expansion chains 32 deck)
+                **{f"run_steps_uvt_{k}": rdf_launches[f"{k}_uvt"][
+                    "run_steps_uvt"] for k in FUSED_KEY.values()},
+                "run_steps_uvt_disp_c32":
+                    rdf_launches["disp_c32"]["run_steps_uvt"],
+                "run_steps_uvt_gwp_fh2":
+                    rdf_launches["gwp_fh2_uvt"]["run_steps_uvt"],
+                **{f"run_steps_{k}": rdf_launches[f"{k}_nvt"]["run_steps"]
+                   for k in FUSED_KEY.values()},
+                **{f"run_steps_uvt_pda_{k}": rdf_launches[f"{k}_pda"][
+                    "run_steps_uvt_pda"] for k in FUSED_KEY.values()}}
     report["mol_pair_c16_header"] = report["mol_pair_c128"]["header"]
     report["mol_pair_chains_disp"] = report["mol_pair_disp"]["c128"]
+    report["run_steps_uvt_disp_c32"] = dict(
+        report["run_steps_uvt_disp"],
+        **report["run_steps_uvt_disp"]["c32"],
+        cluster=f"G={report['run_steps_uvt_disp']['c32']['G']} (C=32)")
     names = ("pair_terms", "mol_pair", "run_steps_uvt", "run_steps",
              "dipole_field", "charge_field", "run_steps_uvt_pda",
              "mol_pair_c128", "dipole_field_c8", "mol_pair_c16_header",
@@ -5267,7 +5939,11 @@ def main():
              "run_steps_sf", "run_steps_uvt_pda_sf",
              *(f"pair_terms_{RD_KEY[f]}" for f in RD_FORMS),
              *(f"mol_pair_{RD_KEY[f]}" for f in RD_FORMS),
-             "mol_pair_chains_disp")
+             "mol_pair_chains_disp",
+             *(f"run_steps_uvt_{k}" for k in FUSED_KEY.values()),
+             "run_steps_uvt_disp_c32", "run_steps_uvt_gwp_fh2",
+             *(f"run_steps_{k}" for k in FUSED_KEY.values()),
+             *(f"run_steps_uvt_pda_{k}" for k in FUSED_KEY.values()))
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -5457,6 +6133,27 @@ def main():
         + f"  rd_launches {rd_launches}  build_seconds {build_s:.1f}  "
         f"rd_phases_seconds {t_rd:.1f}  wall_seconds {time.time() - t0:.1f}"
         f"  ({smi})")
+    fused_rows = [(f"{n}_{k}", report[f"{n}_{k}"])
+                  for n in ("run_steps_uvt", "run_steps", "run_steps_uvt_pda")
+                  for k in FUSED_KEY.values()]
+    wide_rows = ([(f"run_steps_uvt_{k}_c32", report[f"run_steps_uvt_{k}"][
+        "c32"]) for k in FUSED_KEY.values()]
+        + [(f"run_steps_{k}_c16", report[f"run_steps_{k}"]["c16"])
+           for k in FUSED_KEY.values()])
+    log("  ".join(
+        f"{k}_us_per_step {r['ms'] * 1e3:.3f}  {k}_device_us_per_step "
+        f"{r['device_ms'] * 1e3:.3f}  {k}_classical_us_per_step "
+        f"{r['classical_ms'] * 1e3:.3f}  {k}_classical_device_us_per_step "
+        f"{r['classical_device_ms'] * 1e3:.3f}"
+        + (f"  {k}_plain_us_per_step {r['plain_ms'] * 1e3:.1f}  {k}_bound_"
+           f"us_per_step {r['bound_ms'] * 1e3:.4f}" if "plain_ms" in r
+           else f"  {k}_G {r['G']}")
+        for k, r in fused_rows + wide_rows)
+        + "  " + "  ".join(f"rdf_{k}_steps_per_sec {r['steps_per_sec']:.2f}"
+                           for k, r in rdf_reps.items())
+        + f"  rdf_launches {rdf_launches}  build_seconds {build_s:.1f}  "
+        f"rd_fused_phases_seconds {t_rdf:.1f}  wall_seconds "
+        f"{time.time() - t0:.1f}  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5465,4 +6162,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cpu-references"]:
+        cpu_references(sys.argv[2])
+    else:
+        main()

@@ -1,16 +1,19 @@
 // The thread-block-cluster layer of the fused step loops B1 (uvt_kernel.cu)
 // and B3 (nvt_kernel.cu), and of B6 (pda_kernel.cu): one cluster of G CTAs
 // per chain, each CTA holding a contiguous slice of the chain's columns and
-// k-vectors in its shared memory for the K steps of a launch.  B6 reads a
-// fixed state: it adds the polar planes to the slice (polar_slice_bytes),
-// commits nothing, and meets through one barrier per step
-// (exchange_vector); the rest of this note is B1's and B3's step.
+// k-vectors in its shared memory for the K steps of a launch.  A form
+// instance (F, rd_forms.cuh) adds its column planes (form_planes) and
+// evaluates its pair terms only under a warp vote (slice_pass_form).  B6
+// reads a fixed state: it adds the polar planes to the slice
+// (polar_slice_bytes), commits nothing, and meets through one barrier per
+// step (exchange_vector); the rest of this note is B1's and B3's step.
 //
 // Layout.  Rank r of a chain's cluster owns the columns [r nloc, (r + 1)
 //   nloc) with nloc = ceil(n / G), as structure-of-arrays planes x, y, z,
 //   q, eps, sig and alive - and, under a Feynman-Hibbs/Kleinert
-//   correction (Opts.qc), a seventh plane, each column's molecular mass
-//   -, and the k-vectors [r kloc, (r + 1) kloc) with
+//   correction (Opts.qc), a seventh plane, each column's molecular mass;
+//   in a form instance (F, rd_forms.cuh) disp_expansion's C6, C8, C10
+//   and gwp's width after them -, and the k-vectors [r kloc, (r + 1) kloc) with
 //   kloc = ceil(nk / G): kvec, kcoef, S(k) and the step's dS.  B1 adds a
 //   replica of the slot table (alive flags and species) in every CTA.
 //   slice_bytes() gives the dynamic shared memory of one CTA; the wrapper
@@ -39,6 +42,7 @@
 #include <stdint.h>
 
 #include "mc_common.cuh"
+#include "rd_forms.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -88,21 +92,30 @@ __host__ __device__ inline size_t seg16(size_t b) {
 }
 
 // Dynamic shared memory of one CTA: six column planes (seven with the
-// molecular-mass plane of a quantum correction, qc) and eight k-vector
-// planes of T, the replicated slot species (int32) and the alive flags of
-// the columns and of the slots (bool), each segment 16-byte aligned.
+// molecular-mass plane of a quantum correction, qc; xp more in a form
+// instance, form_planes) and eight k-vector planes of T, the replicated
+// slot species (int32) and the alive flags of the columns and of the
+// slots (bool), each segment 16-byte aligned.
 template <typename T>
 __host__ __device__ inline size_t slice_bytes(int nloc, int kloc, int ms,
-                                              bool qc) {
-  return seg16((qc ? 7 : 6) * size_t(nloc) * sizeof(T))
+                                              bool qc, int xp = 0) {
+  return seg16(((qc ? 7 : 6) + xp) * size_t(nloc) * sizeof(T))
          + seg16(8 * size_t(kloc) * sizeof(T)) + seg16(4 * size_t(ms))
          + seg16(size_t(nloc)) + seg16(size_t(ms));
+}
+
+// The column planes a form instance adds: C6, C8, C10 under
+// disp_expansion, and the GWP width under coulomb gwp (gw).
+template <int F>
+__host__ __device__ inline int form_planes(bool gw) {
+  return (F == RD_DISP ? 3 : 0) + (F != RD_CLASSIC && gw ? 1 : 0);
 }
 
 template <typename T>
 struct Slice {
   T *x, *y, *z, *q, *e, *s;            // [nloc] column planes
   T *m;                                // [nloc] molecular mass (qc), or null
+  T *c6, *c8, *c10, *w;                // [nloc] a form's planes, or null
   T *kv;                               // [kloc][3]
   T *kc, *skr, *ski, *dsr, *dsi;       // [kloc]
   int32_t* ssp;                        // [ms] slot species (B1)
@@ -110,8 +123,9 @@ struct Slice {
   bool* sa;                            // [ms] slot alive (B1)
 };
 
-template <typename T>
-__device__ inline Slice<T> carve_slice(int nloc, int kloc, int ms, bool qc) {
+template <typename T, int F = RD_CLASSIC>
+__device__ inline Slice<T> carve_slice(int nloc, int kloc, int ms, bool qc,
+                                       bool gw = false) {
   Slice<T> sl;
   unsigned char* p = dyn_smem;
   T* f = reinterpret_cast<T*>(p);
@@ -122,7 +136,18 @@ __device__ inline Slice<T> carve_slice(int nloc, int kloc, int ms, bool qc) {
   sl.e = f + 4 * nloc;
   sl.s = f + 5 * nloc;
   sl.m = qc ? f + 6 * nloc : nullptr;
-  p += seg16((qc ? 7 : 6) * size_t(nloc) * sizeof(T));
+  if constexpr (F != RD_CLASSIC) {
+    T* fx = f + (qc ? 7 : 6) * nloc;
+    sl.c6 = sl.c8 = sl.c10 = sl.w = nullptr;
+    if constexpr (F == RD_DISP) {
+      sl.c6 = fx;
+      sl.c8 = fx + nloc;
+      sl.c10 = fx + 2 * nloc;
+      fx += 3 * nloc;
+    }
+    if (gw) sl.w = fx;
+  }
+  p += seg16(((qc ? 7 : 6) + form_planes<F>(gw)) * size_t(nloc) * sizeof(T));
   f = reinterpret_cast<T*>(p);
   sl.kv = f;
   sl.kc = f + 3 * kloc;
@@ -150,17 +175,58 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// A form instance's per-atom columns in device memory: C6, C8, C10
+// (disp_expansion) and the GWP widths (gwp), each [n] or null.
+template <typename T>
+struct FormCols {
+  const T *c6, *c8, *c10, *w;
+};
+
+// The moved molecule's sites' form values, read with its rows each step.
+template <typename T>
+struct FormRow {
+  T c6, c8, c10, w;
+};
+
+// The shared-memory rows of the moved molecule's form values: declared
+// here, so that only a form instance has them (a classical one: null).
+template <typename T, int F>
+__device__ __forceinline__ FormRow<T>* form_rows() {
+  if constexpr (F == RD_CLASSIC) {
+    return nullptr;
+  } else {
+    __shared__ FormRow<T> rows[A_PAD];
+    return rows;
+  }
+}
+
+// Thread t < na of a form instance: site row r's form values into fr[t].
+template <typename T, int F>
+__device__ __forceinline__ void load_form_row(FormRow<T>* fr, int t, int r,
+                                              const FormCols<T>& fc) {
+  FormRow<T> v{T(0), T(0), T(0), T(0)};
+  if constexpr (F == RD_DISP) {
+    v.c6 = fc.c6[r];
+    v.c8 = fc.c8[r];
+    v.c10 = fc.c10[r];
+  }
+  if (fc.w) v.w = fc.w[r];
+  fr[t] = v;
+}
+
 // Load this CTA's slice: the cnt columns from base of a chain's pos [n,3]
 // (split into x/y/z planes), the per-atom planes (with the molecular mass
-// mm where the slice has its plane) and alive flags, and the kcnt
-// k-vectors from kbase with the chain's S(k) rows.  Once per launch.
-template <typename T>
+// mm where the slice has its plane, and a form instance's columns fc)
+// and alive flags, and the kcnt k-vectors from kbase with the chain's
+// S(k) rows.  Once per launch.
+template <typename T, int F = RD_CLASSIC>
 __device__ __forceinline__ void load_slice(
     const Slice<T>& sl, const T* P, const bool* AL,
     const T* __restrict__ q, const T* __restrict__ eps,
     const T* __restrict__ sig, const T* __restrict__ mm, int base, int cnt,
     const T* __restrict__ kvec, const T* __restrict__ kcoef, const T* SKr,
-    const T* SKi, int kbase, int kcnt) {
+    const T* SKi, int kbase, int kcnt,
+    const FormCols<T> fc = FormCols<T>{}) {
   for (int jl = threadIdx.x; jl < cnt; jl += NT) {
     const int j = base + jl;
     sl.x[jl] = P[3 * j];
@@ -170,6 +236,14 @@ __device__ __forceinline__ void load_slice(
     sl.e[jl] = eps[j];
     sl.s[jl] = sig[j];
     if (sl.m) sl.m[jl] = mm[j];
+    if constexpr (F == RD_DISP) {
+      sl.c6[jl] = fc.c6[j];
+      sl.c8[jl] = fc.c8[j];
+      sl.c10[jl] = fc.c10[j];
+    }
+    if constexpr (F != RD_CLASSIC) {
+      if (sl.w) sl.w[jl] = fc.w[j];
+    }
     sl.al[jl] = AL[j];
   }
   for (int kl = threadIdx.x; kl < kcnt; kl += NT) {
@@ -258,6 +332,58 @@ __device__ __forceinline__ void pair_energy_mixed(T r2, T eps, T sig2, T qq,
   es = in ? es : T(0);
 }
 
+// The (rd, es) of a pair of a form instance (F != RD_CLASSIC) at squared
+// distance r2, evaluated by every lane of a warp where some lane's pair
+// lies within rc: rd the form's energy (rd_forms.cuh, which mixes the
+// sites' eps and sig itself; FORM_GWP the LJ of the classical instances,
+// under o.rd 1) from site i's (ei, si, fi) and column j's (ej, sj, c6j,
+// c8j, c10j, wj), o.rd disp_expansion's damping flag; es the Coulomb term
+// of o.es (4: the GWP smear of the widths), qq = qi qj, the constant left
+// to the caller.  The caller selects both where the pair is within rc
+// (never a multiply: Dreiding's p^-6, b14_7's p^7 and sg's floored r
+// must not reach a sum from outside rc).  FORM_GWP's quantum instance
+// (QC) adds the correction o.qc to its LJ with the column's
+// quantum_column qv, as pair_energy_mixed does.
+template <typename T, int F, bool QC = false>
+__device__ __forceinline__ void pair_energy_form(
+    T r2, T ei, T si, const FormRow<T>& fi, T ej, T sj, T c6j, T c8j,
+    T c10j, T wj, T qq, const Opts o, T rc, T alpha, const Quantum<T>& qv,
+    double hb2, T& rd, T& es) {
+  static_assert(!QC || F == FORM_GWP,
+                "only FORM_GWP's LJ carries a quantum correction");
+  const T r2s = r2 > T(1e-12) ? r2 : T(1);
+  const T r = x_sqrt(r2s);
+  rd = T(0);
+  es = T(0);
+  if constexpr (F == FORM_GWP) {
+    if (o.rd == 1) {
+      T eps, sig2;
+      mix_pair<T>(ei, si, ej, sj, o, eps, sig2);
+      const T s2 = sig2 / r2s;
+      const T s6 = s2 * s2 * s2;
+      rd = T(4) * eps * s6 * (s6 - T(1));
+      if constexpr (QC) rd += quantum_pair<T>(r2s, eps, s6, qv, hb2, o);
+    }
+  } else {
+    T c6 = T(0), c8 = T(0), c10 = T(0);
+    if constexpr (F == RD_DISP) {
+      c6 = disp_mix(fi.c6, c6j);
+      c8 = disp_mix(fi.c8, c8j);
+      c10 = disp_mix(fi.c10, c10j);
+    }
+    rd = rd_form<T, F>(r, ei, ej, si, sj, c6, c8, c10, o.rd != 0);
+  }
+  if (o.es == 1) {
+    es = qq * x_erfc(alpha * r) / r;
+  } else if (o.es == 2) {
+    es = qq * (x_erfc(alpha * r) / r - x_erfc(alpha * rc) / rc);
+  } else if (o.es == 3) {
+    es = qq / r;
+  } else if (o.es == 4) {
+    es = qq * gwp_smear(r, fi.w, wj) / r;
+  }
+}
+
 // The minimum-image r^2 of row p against column (xj, yj, zj).
 template <typename T>
 __device__ __forceinline__ T row_r2(const T* p, T xj, T yj, T zj,
@@ -269,6 +395,69 @@ __device__ __forceinline__ T row_r2(const T* p, T xj, T yj, T zj,
   return rx * rx + ry * ry + rz * rz;
 }
 
+// slice_pass of a form instance: the same sums, with the pair terms of
+// pair_energy_form evaluated only where some lane of the warp has a pair
+// within rc (a warp vote), so the block walks its columns in uniform
+// rounds of NT (a lane past cnt, on a dead column or on one of the
+// molecule's own rows takes part in the votes and adds nothing).  FORM_GWP's
+// quantum instance (QC) takes each column's quantum_column once, as
+// slice_pass does.
+template <typename T, int F, bool QC = false>
+__device__ __forceinline__ void slice_pass_form(
+    const Slice<T>& sl, int base, int cnt, int start, int na, bool has_old,
+    bool has_new, const T (*s_old)[3], const T (*s_new)[3], const T* s_ei,
+    const T* s_si, const T* s_qi, const FormRow<T>* s_fi, const T* s_box,
+    const T* s_bi, const Opts o, T rc, T rc2, T alpha, T mm_i, T beta,
+    T temp, double hb2, double& a_rd, double& a_es, T& mn) {
+  for (int j0 = 0; j0 < cnt; j0 += NT) {
+    const int jl = j0 + int(threadIdx.x);
+    const int jc = base + jl;
+    const bool ok = jl < cnt && sl.al[jl] && !(jc >= start && jc < start + na);
+    if (!__any_sync(FULL, ok)) continue;   // warp-uniform
+    const int jr = jl < cnt ? jl : 0;
+    const T xj = sl.x[jr], yj = sl.y[jr], zj = sl.z[jr];
+    const T qj = sl.q[jr], ej = sl.e[jr], sj = sl.s[jr];
+    T c6j = T(0), c8j = T(0), c10j = T(0);
+    if constexpr (F == RD_DISP) {
+      c6j = sl.c6[jr];
+      c8j = sl.c8[jr];
+      c10j = sl.c10[jr];
+    }
+    const T wj = sl.w ? sl.w[jr] : T(0);
+    Quantum<T> qv{};
+    if constexpr (QC)
+      qv = quantum_column<T>(mm_i, sl.m[jr], beta, temp, hb2, o);
+#pragma unroll
+    for (int a = 0; a < A_PAD; ++a) {
+      if (a >= na) break;
+      const T qq = s_qi[a] * qj;
+      if (has_old) {
+        const T r2 = row_r2<T>(s_old[a], xj, yj, zj, s_box, s_bi, o);
+        const bool in = ok && r2 < rc2;
+        T rd = T(0), es = T(0);
+        if (__any_sync(FULL, in))
+          pair_energy_form<T, F, QC>(r2, s_ei[a], s_si[a], s_fi[a], ej, sj,
+                                     c6j, c8j, c10j, wj, qq, o, rc, alpha,
+                                     qv, hb2, rd, es);
+        a_rd -= in ? double(rd) : 0.0;
+        a_es -= in ? double(es) : 0.0;
+      }
+      if (has_new) {
+        const T r2 = row_r2<T>(s_new[a], xj, yj, zj, s_box, s_bi, o);
+        const bool in = ok && r2 < rc2;
+        T rd = T(0), es = T(0);
+        if (__any_sync(FULL, in))
+          pair_energy_form<T, F, QC>(r2, s_ei[a], s_si[a], s_fi[a], ej, sj,
+                                     c6j, c8j, c10j, wj, qq, o, rc, alpha,
+                                     qv, hb2, rd, es);
+        a_rd += in ? double(rd) : 0.0;
+        a_es += in ? double(es) : 0.0;
+        mn = ok ? x_min(mn, r2) : mn;
+      }
+    }
+  }
+}
+
 // This thread's share of one molecule's old+new pass over the CTA's slice:
 // the local columns jl = t, t + NT, ... < cnt (global base + jl) that are
 // alive and not the molecule's own rows [start, start + na), against its
@@ -277,14 +466,23 @@ __device__ __forceinline__ T row_r2(const T* p, T xj, T yj, T zj,
 // rows into mn.  The LJ mixing of site a with column j is computed once,
 // for both rows (mix_pair), and in a quantum instance (QC) the column's
 // reduced mass with the molecule (mass mm_i) and prefactors at beta
-// (temperature temp) once for every site (quantum_column).
-template <typename T, bool QC>
+// (temperature temp) once for every site (quantum_column).  A form
+// instance (F, slice_pass_form) takes the site rows' form values s_fi;
+// of the forms only FORM_GWP (rd lj) has a quantum instance.
+template <typename T, bool QC, int F = RD_CLASSIC>
 __device__ __forceinline__ void slice_pass(
     const Slice<T>& sl, int base, int cnt, int start, int na, bool has_old,
     bool has_new, const T (*s_old)[3], const T (*s_new)[3], const T* s_ei,
     const T* s_si, const T* s_qi, const T* s_box, const T* s_bi,
     const Opts o, T rc, T rc2, T alpha, T mm_i, T beta, T temp, double hb2,
-    double& a_rd, double& a_es, T& mn) {
+    double& a_rd, double& a_es, T& mn, const FormRow<T>* s_fi = nullptr) {
+  if constexpr (F != RD_CLASSIC) {
+    slice_pass_form<T, F, QC>(sl, base, cnt, start, na, has_old, has_new,
+                              s_old, s_new, s_ei, s_si, s_qi, s_fi, s_box,
+                              s_bi, o, rc, rc2, alpha, mm_i, beta, temp, hb2,
+                              a_rd, a_es, mn);
+    return;
+  }
   for (int jl = threadIdx.x; jl < cnt; jl += NT) {
     const int jc = base + jl;
     if (!sl.al[jl] || (jc >= start && jc < start + na)) continue;
@@ -365,12 +563,14 @@ __device__ __forceinline__ void cluster_totals(const double (*xch)[N_PART],
 // ---- B6 (pda_kernel.cu): the same slice with the polar planes, and an
 // exchange of a wider partial vector.  B1 and B3 use neither.
 
-// Dynamic shared memory of one B6 CTA: slice_bytes' layout, then four more
-// column planes of T (polarizability and the static field e0 x/y/z).
+// Dynamic shared memory of one B6 CTA: slice_bytes' layout (xp: a form
+// instance's planes), then four more column planes of T (polarizability
+// and the static field e0 x/y/z).
 template <typename T>
 __host__ __device__ inline size_t polar_slice_bytes(int nloc, int kloc,
-                                                    int ms, bool qc) {
-  return slice_bytes<T>(nloc, kloc, ms, qc)
+                                                    int ms, bool qc,
+                                                    int xp = 0) {
+  return slice_bytes<T>(nloc, kloc, ms, qc, xp)
          + seg16(4 * size_t(nloc) * sizeof(T));
 }
 
@@ -381,8 +581,9 @@ struct PolarPlanes {
 
 template <typename T>
 __device__ inline PolarPlanes<T> carve_polar(int nloc, int kloc, int ms,
-                                             bool qc) {
-  T* f = reinterpret_cast<T*>(dyn_smem + slice_bytes<T>(nloc, kloc, ms, qc));
+                                             bool qc, int xp = 0) {
+  T* f = reinterpret_cast<T*>(dyn_smem
+                              + slice_bytes<T>(nloc, kloc, ms, qc, xp));
   return PolarPlanes<T>{f, f + nloc, f + 2 * nloc, f + 3 * nloc};
 }
 
@@ -462,6 +663,20 @@ inline cudaError_t cluster_config(Kern kern, int C, int G, size_t smem,
   if (e != cudaSuccess) return e;
   cluster_launch(C, G, smem, stream, attr, cfg);
   return cudaSuccess;
+}
+
+// Host side: launch kern on C clusters of G CTAs with smem bytes of dynamic
+// shared memory each (cluster_config), with the kernel's arguments.
+template <typename Kern, typename... Args>
+inline int cluster_run(Kern kern, int C, int G, size_t smem,
+                       cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = cluster_config(kern, C, G, smem, stream, attr, &cfg);
+  if (e != cudaSuccess) return int(e);
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return int(e);
+  return int(cudaGetLastError());
 }
 
 // Host side: how many clusters of G CTAs with smem bytes each can be

@@ -26,9 +26,9 @@ constexpr int A_PAD = 8;         // most sites per molecule
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Opts {
-  int rd;     // 0 none, 1 lj
+  int rd;     // 0 none, 1 lj; an RD form instance: 1 damps disp_expansion
   int mix;    // 0 lorentz-berthelot, 1 waldman-hagler
-  int es;     // 0 none, 1 ewald, 2 wolf, 3 cutoff
+  int es;     // 0 none, 1 ewald, 2 wolf, 3 cutoff, 4 gwp (form instances)
   int ortho;  // 1: diagonal box, the cross terms of the minimum image dropped
   int qc;     // 0 none, 1 Feynman-Hibbs order 2, 2 order 4, 3 Feynman-Kleinert
 };

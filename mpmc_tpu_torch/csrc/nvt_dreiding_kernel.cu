@@ -1,0 +1,7 @@
+// B3, the fused NVT/NVE step loop (nvt_kernel.cuh), with rd dreiding, the
+// Dreiding exponential-6 (rd_forms.cuh; mpmc_tpu/ops/pallas/mc_kernel.py:
+// 173-187): its SF instance, an instance of its own.
+#include "nvt_kernel.cuh"
+
+RUN_STEPS_NVT_FORM_ENTRY(RD_DREIDING, f32, float)
+RUN_STEPS_NVT_FORM_ENTRY(RD_DREIDING, f64, double)

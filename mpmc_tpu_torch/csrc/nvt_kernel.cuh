@@ -35,7 +35,13 @@
 //   exchange and the barriers in every CTA (all read the same lane); each
 //   CTA flips its own replica of the chain's spins, spin [C, G, mv].
 //   nvt_kernel.cu builds the instances without SF, nvt_sf_kernel.cu those
-//   with it, each with its own nvcc.
+//   with it, each with its own nvcc.  Each RD form and coulomb gwp (F,
+//   rd_forms.cuh) has an SF instance of its own (GWP, whose rd is lj, a
+//   second with the quantum terms; nvt_<form>_kernel.cu, entry
+//   run_steps_nvt_rd; p_spin 0 runs it
+//   without spinflip, NVE and the hybrid NPT's segments among them), with
+//   B1's form pass (mc_cluster.cuh slice_pass_form; the reference's
+//   :260-261, :344-347, :398-400, :437-444).
 //
 // Bound: operations.  A step evaluates 2 x A x (alive columns) pairs - 2 x
 //   3 x 10,029 = 60.2k at the 10.0k MOF + H2 system - at 44 floating-point
@@ -80,7 +86,7 @@ struct SpinArgs {
   int32_t* spin;
 };
 
-template <typename T, bool QC, bool SF>
+template <typename T, bool QC, bool SF, int F = RD_CLASSIC>
 __global__ void __launch_bounds__(NT, 1) nvt_kernel(
     T* pos, const bool* __restrict__ alive, const T* __restrict__ eps,
     const T* __restrict__ sig, const T* __restrict__ q,
@@ -91,7 +97,8 @@ __global__ void __launch_bounds__(NT, 1) nvt_kernel(
     const T* __restrict__ kvec, const T* __restrict__ kcoef, T* sk,
     const double* __restrict__ nve_k0, double* __restrict__ sums,
     const SpinArgs<T> sp, const DimsNvt d, const Opts o, const int nve,
-    const double ke, const double nve_g, const double hb2) {
+    const double ke, const double nve_g, const double hb2,
+    const FormCols<T> fcol) {
   constexpr int NU = SF ? 9 : 8;     // the lanes a step reads
   __shared__ T s_box[9], s_bi[9];
   __shared__ T s_u[NU];
@@ -113,14 +120,18 @@ __global__ void __launch_bounds__(NT, 1) nvt_kernel(
   const int base = rank * nloc, kbase = rank * kloc;
   const int cnt_j = max(0, min(nloc, n - base));
   const int cnt_k = max(0, min(kloc, nk - kbase));
-  const Slice<T> sl = carve_slice<T>(nloc, kloc, 0, QC);
+  // a form instance: its Coulomb form gwp (o.es 4) or not, and the moved
+  // sites' form values (a classical instance reads neither, nor fcol)
+  const bool gw = F != RD_CLASSIC && o.es == 4;
+  FormRow<T>* const s_fi = form_rows<T, F>();
+  const Slice<T> sl = carve_slice<T, F>(nloc, kloc, 0, QC, gw);
   T* P = pos + size_t(c) * n * 3;
   T* SKr = sk + size_t(c) * 2 * nk;
   T* SKi = SKr + nk;
   const T* U = u + size_t(c) * d.K * 16;
 
-  load_slice<T>(sl, P, alive, q, eps, sig, mmass, base, cnt_j, kvec, kcoef,
-                SKr, SKi, kbase, cnt_k);
+  load_slice<T, F>(sl, P, alive, q, eps, sig, mmass, base, cnt_j, kvec,
+                   kcoef, SKr, SKi, kbase, cnt_k, fcol);
   if (t < 9) {
     s_box[t] = scal[5 + t];
     s_bi[t] = scal[14 + t];
@@ -188,6 +199,7 @@ __global__ void __launch_bounds__(NT, 1) nvt_kernel(
       s_ei[t] = eps[r];
       s_si[t] = sig[r];
       s_mi[t] = mass[r];
+      if constexpr (F != RD_CLASSIC) load_form_row<T, F>(s_fi, t, r, fcol);
     }
     __syncthreads();
     MC_MARK(3)
@@ -201,9 +213,10 @@ __global__ void __launch_bounds__(NT, 1) nvt_kernel(
     T mn = T(INFINITY);
     T mm_i = T(0);           // the molecule's mass (its site masses)
     for (int a = 0; a < na; ++a) mm_i += s_mi[a];
-    slice_pass<T, QC>(sl, base, cnt_j, start, na, true, true, s_old, s_new,
-                      s_ei, s_si, s_qi, s_box, s_bi, o, rc, rc2, alpha, mm_i,
-                      beta_t, temp, hb2, a_rd, a_es, mn);
+    slice_pass<T, QC, F>(sl, base, cnt_j, start, na, true, true, s_old,
+                         s_new, s_ei, s_si, s_qi, s_box, s_bi, o, rc, rc2,
+                         alpha, mm_i, beta_t, temp, hb2, a_rd, a_es, mn,
+                         s_fi);
     if (o.es == 1)
       sk_delta<T>(sl.kv, sl.kc, sl.skr, sl.ski, sl.dsr, sl.dsi, cnt_k, na,
                   true, true, s_old, s_new, s_qi, a_rec);
@@ -295,6 +308,18 @@ auto nvt_instance(bool qc) {
   return qc ? nvt_kernel<T, true, SF> : nvt_kernel<T, false, SF>;
 }
 
+// A form instance (F, rd_forms.cuh): the SF instance, for FORM_GWP (rd
+// lj) with the quantum terms or without (FH and FK need rd lj, so the RD
+// forms have none), its columns the kernel's last argument; p_spin 0
+// (scal[23]) runs it without spinflip, NVE among them.
+template <typename T, int F>
+auto nvt_form_instance(bool qc) {
+  if constexpr (F == FORM_GWP) {
+    if (qc) return nvt_kernel<T, true, true, F>;
+  }
+  return nvt_kernel<T, false, true, F>;
+}
+
 // Per-CTA slice sizes of a G-CTA cluster.
 inline DimsNvt nvt_dims(int C, int n, int mv, int A, int K, int nk, int G) {
   return DimsNvt{C, n, mv, A, K, nk, G, (n + G - 1) / G, (nk + G - 1) / G};
@@ -311,17 +336,31 @@ int launch_nvt(T* pos, const bool* alive, const T* eps, const T* sig,
                double nve_g, double hb2, cudaStream_t stream) {
   if (d.G < 1 || d.G > G_MAX) return int(cudaErrorInvalidValue);
   const size_t smem = slice_bytes<T>(d.nloc, d.kloc, 0, o.qc != 0);
-  const auto kern = nvt_instance<T, SF>(o.qc != 0);
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg;
-  cudaError_t e = cluster_config(kern, d.C, d.G, smem, stream, attr, &cfg);
-  if (e != cudaSuccess) return int(e);
-  e = cudaLaunchKernelEx(&cfg, kern, pos, alive, eps, sig, q, mass,
-                         mmass, mv_start, mv_natoms, scal, betas, u, kvec,
-                         kcoef, sk, nve_k0, sums, sp, d, o, nve, ke, nve_g,
-                         hb2);
-  if (e != cudaSuccess) return int(e);
-  return int(cudaGetLastError());
+  return cluster_run(nvt_instance<T, SF>(o.qc != 0), d.C, d.G, smem, stream,
+                     pos, alive, eps, sig, q, mass, mmass, mv_start,
+                     mv_natoms, scal, betas, u, kvec, kcoef, sk, nve_k0, sums,
+                     sp, d, o, nve, ke, nve_g, hb2,
+                     FormCols<T>{nullptr, nullptr, nullptr, nullptr});
+}
+
+template <typename T, int F>
+int launch_nvt_form(T* pos, const bool* alive, const T* eps, const T* sig,
+                    const T* q, const T* mass, const T* mmass,
+                    const int32_t* mv_start,
+                    const int32_t* mv_natoms, const T* scal, const T* betas,
+                    const T* u, const T* kvec, const T* kcoef, T* sk,
+                    const double* nve_k0, double* sums, const SpinArgs<T> sp,
+                    const DimsNvt d, const Opts o, int nve, double ke,
+                    double nve_g, double hb2, const FormCols<T> fc,
+                    cudaStream_t stream) {
+  if (d.G < 1 || d.G > G_MAX || (o.qc != 0 && F != FORM_GWP))
+    return int(cudaErrorInvalidValue);
+  const size_t smem = slice_bytes<T>(d.nloc, d.kloc, 0, o.qc != 0,
+                                     form_planes<F>(o.es == 4));
+  return cluster_run(nvt_form_instance<T, F>(o.qc != 0), d.C, d.G, smem,
+                     stream, pos, alive, eps, sig, q, mass, mmass, mv_start,
+                     mv_natoms, scal, betas, u, kvec, kcoef, sk, nve_k0, sums,
+                     sp, d, o, nve, ke, nve_g, hb2, fc);
 }
 
 }  // namespace
@@ -357,4 +396,49 @@ int launch_nvt(T* pos, const bool* alive, const T* eps, const T* sig,
     return cluster_occupancy(nvt_instance<T, SF>(qc != 0), G,                \
                              slice_bytes<T>(d.nloc, d.kloc, 0, qc != 0),     \
                              clusters);                                      \
+  }
+
+// The C entries of one dtype of a form library (F, rd_forms.cuh; the SF
+// instance, spinflip on (sf, not under nve) or off): the classical
+// entries' arguments (rd: disp_expansion's damping flag, or FORM_GWP's rd
+// none/lj; qc 0, or FORM_GWP's quantum correction with the molecule-mass
+// plane mmass) and the C6, C8, C10 and GWP width columns before the
+// stream (null where the form reads none); the occupancy query's gw says
+// whether the slice holds the width plane, its qc whether it holds the
+// mass plane.
+#define RUN_STEPS_NVT_FORM_ENTRY(F, SFX, T)                                  \
+  extern "C" int run_steps_nvt_rd_##SFX(                                    \
+      void* pos, const void* alive, const void* eps, const void* sig,        \
+      const void* q, const void* mass, const void* mmass,                    \
+      const void* mv_start, const void* mv_natoms, const void* scal,         \
+      const void* betas,                                                     \
+      const void* u, const void* kvec, const void* kcoef, void* sk,          \
+      const void* nve_k0, void* sums, const void* rot, void* spin, int C,    \
+      int n, int mv, int A, int K, int nk, int G, int rd, int mix, int es,   \
+      int ortho, int nve, int qc, int sf, double ke, double nve_g,           \
+      double hb2, const void* c6, const void* c8, const void* c10,           \
+      const void* w, void* stream) {                                         \
+    if (C <= 0) return 0;                                                    \
+    if (sf && nve) return int(cudaErrorInvalidValue);                        \
+    return launch_nvt_form<T, F>(                                            \
+        (T*)pos, (const bool*)alive, (const T*)eps, (const T*)sig,           \
+        (const T*)q, (const T*)mass, (const T*)mmass,                        \
+        (const int32_t*)mv_start,                                            \
+        (const int32_t*)mv_natoms, (const T*)scal, (const T*)betas,          \
+        (const T*)u, (const T*)kvec, (const T*)kcoef, (T*)sk,                \
+        (const double*)nve_k0, (double*)sums,                                \
+        SpinArgs<T>{(const T*)rot, (int32_t*)spin},                          \
+        nvt_dims(C, n, mv, A, K, nk, G), Opts{rd, mix, es, ortho, qc}, nve,  \
+        ke, nve_g, hb2,                                                      \
+        FormCols<T>{(const T*)c6, (const T*)c8, (const T*)c10, (const T*)w}, \
+        (cudaStream_t)stream);                                               \
+  }                                                                          \
+  extern "C" int nvt_occupancy_rd_##SFX(int n, int nk, int gw, int qc,     \
+                                        int G, int* clusters) {              \
+    if (qc && F != FORM_GWP) return int(cudaErrorInvalidValue);              \
+    const DimsNvt d = nvt_dims(1, n, 1, 1, 1, nk, G);                        \
+    return cluster_occupancy(                                                \
+        nvt_form_instance<T, F>(qc != 0), G,                                 \
+        slice_bytes<T>(d.nloc, d.kloc, 0, qc != 0, form_planes<F>(gw != 0)), \
+        clusters);                                                           \
   }

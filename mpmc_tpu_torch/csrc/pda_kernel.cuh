@@ -62,7 +62,16 @@
 //   the spinflip move (lane 11 < p_spin = scal[30], before the move type:
 //   the displacement's slot pick, its full acceptance ln u4 < -beta d_f
 //   with no pass or exchange; a survivor is recorded as move type 3 with
-//   zero deltas and rows, and the chunk function flips its spin).
+//   zero deltas and rows, and the chunk function flips its spin).  Each
+//   RD form and coulomb gwp (F, rd_forms.cuh) has XT instances of its own,
+//   the sites padded to 8 (GWP, whose rd is lj, also with the quantum
+//   terms)
+//   (pda_<form>_kernel.cu, entry run_steps_uvt_pda_rd): a column pass of
+//   their own (pda_pass_form) evaluates the form's pair terms only where a
+//   warp vote finds a pair within rc, the field and surrogate as the
+//   classical pass (the reference's :2168-2169, :2305-2308, :2416-2418,
+//   :2451-2458); PHAHST's shape (disp_expansion, Thole, delayed
+//   acceptance) holds all of the slice's planes.
 //
 // Bound: operations.  A step evaluates (has_old + has_new) x A x (alive
 //   columns) pairs - up to 2 x 3 x 10,797 at the 10.8k polar system - and,
@@ -187,7 +196,110 @@ __device__ __forceinline__ void reduce_values(
   __syncthreads();
 }
 
-template <typename T, bool EWF, int AP, bool QC, bool XT>
+// The column pass of a form instance (F, rd_forms.cuh): the classical
+// pass's sums into v and mn, with the pair terms of pair_energy_form
+// evaluated only where some lane of the warp has a pair within rc (a warp
+// vote), so the block walks its columns in uniform rounds of NT; a lane
+// past cnt, on a dead column or on one of the molecule's own rows takes
+// part in the votes and adds nothing.  FORM_GWP's quantum instance (QC)
+// takes each column's quantum_column once, as the classical pass does.
+template <typename T, bool EWF, int AP, int F, bool QC>
+__device__ __forceinline__ void pda_pass_form(
+    const Slice<T>& sl, const PolarPlanes<T>& pl, int base, int cnt,
+    int start, int na, bool has_old, bool has_new, const T (*s_old)[3],
+    const T (*s_new)[3], const T* s_ei, const T* s_si, const T* s_qi,
+    const FormRow<T>* s_fi, const T* s_box, const T* s_bi, const Opts o,
+    const PolarOpts po, T rc, T rc2, T alpha, T lam, T paf, T pkrc,
+    T mm_i, T beta, T temp, double hb2, double (&v)[Lay<AP>::NV], T& mn) {
+  constexpr int EN = Lay<AP>::EN, EO = Lay<AP>::EO;
+  for (int j0 = 0; j0 < cnt; j0 += NT) {
+    const int jl = j0 + int(threadIdx.x);
+    const int jc = base + jl;
+    const bool ok = jl < cnt && sl.al[jl] && !(jc >= start && jc < start + na);
+    if (!__any_sync(FULL, ok)) continue;   // warp-uniform
+    const int jr = jl < cnt ? jl : 0;
+    const T xj = sl.x[jr], yj = sl.y[jr], zj = sl.z[jr];
+    const T qj = sl.q[jr], ej = sl.e[jr], sj = sl.s[jr];
+    T c6j = T(0), c8j = T(0), c10j = T(0);
+    if constexpr (F == RD_DISP) {
+      c6j = sl.c6[jr];
+      c8j = sl.c8[jr];
+      c10j = sl.c10[jr];
+    }
+    const T wj = sl.w ? sl.w[jr] : T(0);
+    Quantum<T> qv{};
+    if constexpr (QC)
+      qv = quantum_column<T>(mm_i, sl.m[jr], beta, temp, hb2, o);
+    T dEx = T(0), dEy = T(0), dEz = T(0);
+#pragma unroll
+    for (int a = 0; a < AP; ++a) {
+      if (a >= na) break;
+      const T qq = s_qi[a] * qj;
+      if (has_old) {
+        T rx, ry, rz;
+        min_image<T>(s_old[a][0] - xj, s_old[a][1] - yj, s_old[a][2] - zj,
+                     s_box, s_bi, o.ortho, rx, ry, rz);
+        const T r2 = rx * rx + ry * ry + rz * rz;
+        const bool in = ok && r2 < rc2;
+        const T r2s = r2 > T(1e-12) ? r2 : T(1);
+        const T r = x_sqrt(r2s);
+        T rd = T(0), es = T(0);
+        if (__any_sync(FULL, in))
+          pair_energy_form<T, F, QC>(r2, s_ei[a], s_si[a], s_fi[a], ej, sj,
+                                     c6j, c8j, c10j, wj, qq, o, rc, alpha,
+                                     qv, hb2, rd, es);
+        const T cf = field_coef<T>(r, r2s, lam, paf, pkrc, po);
+        const T c = in ? cf : T(0);
+        v[0] -= in ? double(rd) : 0.0;
+        v[1] -= in ? double(es) : 0.0;
+        const T cq = s_qi[a] * c;
+        dEx += cq * rx;
+        dEy += cq * ry;
+        dEz += cq * rz;
+        if (EWF) {
+          const T cj = qj * c;
+          v[EO + 3 * a] += double(cj * rx);
+          v[EO + 3 * a + 1] += double(cj * ry);
+          v[EO + 3 * a + 2] += double(cj * rz);
+        }
+      }
+      if (has_new) {
+        T rx, ry, rz;
+        min_image<T>(s_new[a][0] - xj, s_new[a][1] - yj, s_new[a][2] - zj,
+                     s_box, s_bi, o.ortho, rx, ry, rz);
+        const T r2 = rx * rx + ry * ry + rz * rz;
+        const bool in = ok && r2 < rc2;
+        const T r2s = r2 > T(1e-12) ? r2 : T(1);
+        const T r = x_sqrt(r2s);
+        T rd = T(0), es = T(0);
+        if (__any_sync(FULL, in))
+          pair_energy_form<T, F, QC>(r2, s_ei[a], s_si[a], s_fi[a], ej, sj,
+                                     c6j, c8j, c10j, wj, qq, o, rc, alpha,
+                                     qv, hb2, rd, es);
+        const T cf = field_coef<T>(r, r2s, lam, paf, pkrc, po);
+        const T c = in ? cf : T(0);
+        v[0] += in ? double(rd) : 0.0;
+        v[1] += in ? double(es) : 0.0;
+        mn = ok ? x_min(mn, r2) : mn;
+        const T cq = s_qi[a] * c;
+        dEx -= cq * rx;
+        dEy -= cq * ry;
+        dEz -= cq * rz;
+        const T cj = qj * c;
+        v[EN + 3 * a] += double(cj * rx);
+        v[EN + 3 * a + 1] += double(cj * ry);
+        v[EN + 3 * a + 2] += double(cj * rz);
+      }
+    }
+    // the column's surrogate term (alpha 0 on non-polarizable sites)
+    const T e0x = pl.ex[jr], e0y = pl.ey[jr], e0z = pl.ez[jr];
+    const T z = pl.p[jr] * (T(2) * (e0x * dEx + e0y * dEy + e0z * dEz)
+                            + dEx * dEx + dEy * dEy + dEz * dEz);
+    v[2] += ok ? double(z) : 0.0;
+  }
+}
+
+template <typename T, bool EWF, int AP, bool QC, bool XT, int F = RD_CLASSIC>
 __global__ void __launch_bounds__(NT, 1) pda_kernel(
     const T* __restrict__ pos, const bool* __restrict__ alive,
     const T* __restrict__ eps, const T* __restrict__ sig,
@@ -204,7 +316,7 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
     const T* __restrict__ kvec, const T* __restrict__ kcoef,
     const T* __restrict__ sk, double* __restrict__ rec, const Dims d,
     const Opts o, const PolarOpts po, const XtArgs<T> x, const double ke,
-    const double hb2) {
+    const double hb2, const FormCols<T> fcol) {
   constexpr int EN = Lay<AP>::EN, EO = Lay<AP>::EO, NV = Lay<AP>::NV;
   constexpr int NX = Lay<AP>::NX;
   __shared__ T s_box[9], s_bi[9];
@@ -231,13 +343,18 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
   const int base = rank * nloc, kbase = rank * kloc;
   const int cnt_j = max(0, min(nloc, n - base));
   const int cnt_k = max(0, min(kloc, nk - kbase));
-  const Slice<T> sl = carve_slice<T>(nloc, kloc, ms, QC);
-  const PolarPlanes<T> pl = carve_polar<T>(nloc, kloc, ms, QC);
+  // a form instance: its Coulomb form gwp (o.es 4) or not, and the moved
+  // sites' form values (a classical instance reads neither, nor fcol)
+  const bool gw = F != RD_CLASSIC && o.es == 4;
+  FormRow<T>* const s_fi = form_rows<T, F>();
+  const Slice<T> sl = carve_slice<T, F>(nloc, kloc, ms, QC, gw);
+  const PolarPlanes<T> pl = carve_polar<T>(nloc, kloc, ms, QC,
+                                           form_planes<F>(gw));
 
   // ---- per-launch tables: this CTA's slice and polar planes, the slot
   // table, box and species constants, slot counts
-  load_slice<T>(sl, pos, alive, q, eps, sig, mmass, base, cnt_j, kvec, kcoef,
-                sk, sk + nk, kbase, cnt_k);
+  load_slice<T, F>(sl, pos, alive, q, eps, sig, mmass, base, cnt_j, kvec,
+                   kcoef, sk, sk + nk, kbase, cnt_k, fcol);
   load_polar<T>(pl, polar, e0, base, cnt_j);
   for (int i = t; i < ms; i += NT) {
     sl.sa[i] = slot_alive[i];
@@ -355,6 +472,7 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
       s_si[t] = sig[r];
       s_mi[t] = mass[r];
       s_pi[t] = polar[r];
+      if constexpr (F != RD_CLASSIC) load_form_row<T, F>(s_fi, t, r, fcol);
     }
     __syncthreads();
     if (t == 0) {
@@ -379,76 +497,84 @@ __global__ void __launch_bounds__(NT, 1) pda_kernel(
     T mn = T(INFINITY);
     T mm_i = T(0);           // the molecule's mass (the slot's site masses)
     for (int a = 0; a < na; ++a) mm_i += s_mi[a];
-    for (int jl = t; jl < cnt_j; jl += NT) {
-      const int jc = base + jl;
-      if (!sl.al[jl] || (jc >= start && jc < start + na)) continue;
-      const T xj = sl.x[jl], yj = sl.y[jl], zj = sl.z[jl];
-      const T qj = sl.q[jl], ej = sl.e[jl], sj = sl.s[jl];
-      Quantum<T> qv{};
-      if (QC) qv = quantum_column<T>(mm_i, sl.m[jl], beta_t, temp, hb2, o);
-      T dEx = T(0), dEy = T(0), dEz = T(0);
-#pragma unroll
-      for (int a = 0; a < AP; ++a) {
-        if (a >= na) break;
-        T eps_m, sig2_m;
-        mix_pair<T>(s_ei[a], s_si[a], ej, sj, o, eps_m, sig2_m);
-        const T qq = s_qi[a] * qj;
-        if (has_old) {
-          T rx, ry, rz;
-          min_image<T>(s_old[a][0] - xj, s_old[a][1] - yj, s_old[a][2] - zj,
-                       s_box, s_bi, o.ortho, rx, ry, rz);
-          const T r2 = rx * rx + ry * ry + rz * rz;
-          const bool in = r2 < rc2;
-          const T r2s = r2 > T(1e-12) ? r2 : T(1);
-          const T r = x_sqrt(r2s);
-          T rd, es;      // zero beyond rc
-          pair_energy_mixed<T, QC>(r2, eps_m, sig2_m, qq, o, rc, rc2,
-                                   alpha, qv, hb2, rd, es);
-          const T cf = field_coef<T>(r, r2s, lam, paf, pkrc, po);
-          const T c = in ? cf : T(0);
-          v[0] -= double(rd);
-          v[1] -= double(es);
-          const T cq = s_qi[a] * c;
-          dEx += cq * rx;
-          dEy += cq * ry;
-          dEz += cq * rz;
-          if (EWF) {
+    if constexpr (F != RD_CLASSIC) {
+      pda_pass_form<T, EWF, AP, F, QC>(sl, pl, base, cnt_j, start, na,
+                                       has_old, has_new, s_old, s_new, s_ei,
+                                       s_si, s_qi, s_fi, s_box, s_bi, o, po,
+                                       rc, rc2, alpha, lam, paf, pkrc, mm_i,
+                                       beta_t, temp, hb2, v, mn);
+    } else {
+      for (int jl = t; jl < cnt_j; jl += NT) {
+        const int jc = base + jl;
+        if (!sl.al[jl] || (jc >= start && jc < start + na)) continue;
+        const T xj = sl.x[jl], yj = sl.y[jl], zj = sl.z[jl];
+        const T qj = sl.q[jl], ej = sl.e[jl], sj = sl.s[jl];
+        Quantum<T> qv{};
+        if (QC) qv = quantum_column<T>(mm_i, sl.m[jl], beta_t, temp, hb2, o);
+        T dEx = T(0), dEy = T(0), dEz = T(0);
+  #pragma unroll
+        for (int a = 0; a < AP; ++a) {
+          if (a >= na) break;
+          T eps_m, sig2_m;
+          mix_pair<T>(s_ei[a], s_si[a], ej, sj, o, eps_m, sig2_m);
+          const T qq = s_qi[a] * qj;
+          if (has_old) {
+            T rx, ry, rz;
+            min_image<T>(s_old[a][0] - xj, s_old[a][1] - yj, s_old[a][2] - zj,
+                         s_box, s_bi, o.ortho, rx, ry, rz);
+            const T r2 = rx * rx + ry * ry + rz * rz;
+            const bool in = r2 < rc2;
+            const T r2s = r2 > T(1e-12) ? r2 : T(1);
+            const T r = x_sqrt(r2s);
+            T rd, es;      // zero beyond rc
+            pair_energy_mixed<T, QC>(r2, eps_m, sig2_m, qq, o, rc, rc2,
+                                     alpha, qv, hb2, rd, es);
+            const T cf = field_coef<T>(r, r2s, lam, paf, pkrc, po);
+            const T c = in ? cf : T(0);
+            v[0] -= double(rd);
+            v[1] -= double(es);
+            const T cq = s_qi[a] * c;
+            dEx += cq * rx;
+            dEy += cq * ry;
+            dEz += cq * rz;
+            if (EWF) {
+              const T cj = qj * c;
+              v[EO + 3 * a] += double(cj * rx);
+              v[EO + 3 * a + 1] += double(cj * ry);
+              v[EO + 3 * a + 2] += double(cj * rz);
+            }
+          }
+          if (has_new) {
+            T rx, ry, rz;
+            min_image<T>(s_new[a][0] - xj, s_new[a][1] - yj, s_new[a][2] - zj,
+                         s_box, s_bi, o.ortho, rx, ry, rz);
+            const T r2 = rx * rx + ry * ry + rz * rz;
+            const bool in = r2 < rc2;
+            const T r2s = r2 > T(1e-12) ? r2 : T(1);
+            const T r = x_sqrt(r2s);
+            T rd, es;      // zero beyond rc
+            pair_energy_mixed<T, QC>(r2, eps_m, sig2_m, qq, o, rc, rc2,
+                                     alpha, qv, hb2, rd, es);
+            const T cf = field_coef<T>(r, r2s, lam, paf, pkrc, po);
+            const T c = in ? cf : T(0);
+            v[0] += double(rd);
+            v[1] += double(es);
+            mn = x_min(mn, r2);
+            const T cq = s_qi[a] * c;
+            dEx -= cq * rx;
+            dEy -= cq * ry;
+            dEz -= cq * rz;
             const T cj = qj * c;
-            v[EO + 3 * a] += double(cj * rx);
-            v[EO + 3 * a + 1] += double(cj * ry);
-            v[EO + 3 * a + 2] += double(cj * rz);
+            v[EN + 3 * a] += double(cj * rx);
+            v[EN + 3 * a + 1] += double(cj * ry);
+            v[EN + 3 * a + 2] += double(cj * rz);
           }
         }
-        if (has_new) {
-          T rx, ry, rz;
-          min_image<T>(s_new[a][0] - xj, s_new[a][1] - yj, s_new[a][2] - zj,
-                       s_box, s_bi, o.ortho, rx, ry, rz);
-          const T r2 = rx * rx + ry * ry + rz * rz;
-          const bool in = r2 < rc2;
-          const T r2s = r2 > T(1e-12) ? r2 : T(1);
-          const T r = x_sqrt(r2s);
-          T rd, es;      // zero beyond rc
-          pair_energy_mixed<T, QC>(r2, eps_m, sig2_m, qq, o, rc, rc2,
-                                   alpha, qv, hb2, rd, es);
-          const T cf = field_coef<T>(r, r2s, lam, paf, pkrc, po);
-          const T c = in ? cf : T(0);
-          v[0] += double(rd);
-          v[1] += double(es);
-          mn = x_min(mn, r2);
-          const T cq = s_qi[a] * c;
-          dEx -= cq * rx;
-          dEy -= cq * ry;
-          dEz -= cq * rz;
-          const T cj = qj * c;
-          v[EN + 3 * a] += double(cj * rx);
-          v[EN + 3 * a + 1] += double(cj * ry);
-          v[EN + 3 * a + 2] += double(cj * rz);
-        }
+        // the column's surrogate term (alpha 0 on non-polarizable sites)
+        const T e0x = pl.ex[jl], e0y = pl.ey[jl], e0z = pl.ez[jl];
+        v[2] += double(pl.p[jl] * (T(2) * (e0x * dEx + e0y * dEy + e0z * dEz)
+                                   + dEx * dEx + dEy * dEy + dEz * dEz));
       }
-      // the column's surrogate term (alpha 0 on non-polarizable sites)
-      const T e0x = pl.ex[jl], e0y = pl.ey[jl], e0z = pl.ez[jl];
-      v[2] += double(pl.p[jl] * (T(2) * (e0x * dEx + e0y * dEy + e0z * dEz)
-                                 + dEx * dEx + dEy * dEy + dEz * dEz));
     }
     if (o.es == 1) {     // dS is scratch: the state's S(k) is not changed
       double a_rec = 0.0;
@@ -566,7 +692,7 @@ using PdaKern = void (*)(const T*, const bool*, const T*, const T*,
                          const T*, const T*, const T*, const T*, const T*,
                          const T*, const T*, const T*, double*, const Dims,
                          const Opts, const PolarOpts, const XtArgs<T>,
-                         const double, const double);
+                         const double, const double, const FormCols<T>);
 
 template <typename T, bool QC, bool XT>
 PdaKern<T> pda_instance_qc(int A, int field) {
@@ -587,15 +713,33 @@ PdaKern<T> pda_instance(int A, int field, bool qc) {
             : pda_instance_qc<T, false, XT>(A, field);
 }
 
+// A form instance (F, rd_forms.cuh): the XT instance, the site count
+// padded to 8, polar_ewald's eo sums or not, and for FORM_GWP (rd lj) the
+// quantum terms or not (FH and FK need rd lj, so the RD forms have none);
+// its columns the kernel's last argument.
+template <typename T, int F, bool QC>
+PdaKern<T> pda_form_instance_qc(int field) {
+  return field == 2 ? pda_kernel<T, true, 8, QC, true, F>
+                    : pda_kernel<T, false, 8, QC, true, F>;
+}
+
+template <typename T, int F>
+PdaKern<T> pda_form_instance(int field, bool qc) {
+  if constexpr (F == FORM_GWP) {
+    if (qc) return pda_form_instance_qc<T, F, true>(field);
+  }
+  return pda_form_instance_qc<T, F, false>(field);
+}
+
 // cudaFuncSetAttribute costs host time on every call: each (device,
 // instance) gets its attributes once, and again only for a larger slice
 // or G > 8 where it had G <= 8 - never lowered, so every shape queried or
 // launched before still fits.
-template <typename T>
-cudaError_t pda_attributes(PdaKern<T> kern, int G, size_t smem) {
+template <typename Kern>
+cudaError_t pda_attributes(Kern kern, int G, size_t smem) {
   struct Set {
     int dev;
-    PdaKern<T> kern;
+    Kern kern;
     size_t smem;
     bool wide;
   };
@@ -620,6 +764,21 @@ cudaError_t pda_attributes(PdaKern<T> kern, int G, size_t smem) {
   return e;
 }
 
+// Launch kern as one cluster of G CTAs with smem bytes each, its
+// attributes through pda_attributes, with the kernel's arguments.
+template <typename Kern, typename... Args>
+int pda_run(Kern kern, int G, size_t smem, cudaStream_t stream,
+            Args... args) {
+  cudaError_t e = pda_attributes(kern, G, smem);
+  if (e != cudaSuccess) return int(e);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  cluster_launch(1, G, smem, stream, attr, &cfg);
+  e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return int(e);
+  return int(cudaGetLastError());
+}
+
 // How many clusters of this shape the card holds at once (0: it cannot
 // launch).  The attributes go through pda_attributes, which only raises
 // them, so a query never lowers what an earlier launch needs.
@@ -627,7 +786,7 @@ template <typename T, bool XT>
 int pda_occupancy(const Dims d, int field, bool qc, int* clusters) {
   const size_t smem = polar_slice_bytes<T>(d.nloc, d.kloc, d.ms, qc);
   const PdaKern<T> kern = pda_instance<T, XT>(d.A, field, qc);
-  cudaError_t e = pda_attributes<T>(kern, d.G, smem);
+  cudaError_t e = pda_attributes(kern, d.G, smem);
   if (e != cudaSuccess) return int(e);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
@@ -650,17 +809,51 @@ int launch_pda(const T* pos, const bool* alive, const T* eps, const T* sig,
   if (d.G < 1 || d.G > G_MAX || d.A > A_PAD) return int(cudaErrorInvalidValue);
   const size_t smem = polar_slice_bytes<T>(d.nloc, d.kloc, d.ms, o.qc != 0);
   const PdaKern<T> kern = pda_instance<T, XT>(d.A, po.field, o.qc != 0);
-  cudaError_t e = pda_attributes<T>(kern, d.G, smem);
+  return pda_run(kern, d.G, smem, stream, pos, alive, eps, sig, q, mass,
+                 mmass, polar, e0, slot_start, slot_species, slot_alive, tmpl,
+                 natoms, scal, lnfv, d_self, d_excl, c1, cx, u, kvec, kcoef,
+                 sk, rec, d, o, po, x, ke, hb2,
+                 FormCols<T>{nullptr, nullptr, nullptr, nullptr});
+}
+
+template <typename T, int F>
+int pda_form_occupancy(const Dims d, int field, bool gw, bool qc,
+                       int* clusters) {
+  if (qc && F != FORM_GWP) return int(cudaErrorInvalidValue);
+  const size_t smem = polar_slice_bytes<T>(d.nloc, d.kloc, d.ms, qc,
+                                           form_planes<F>(gw));
+  const PdaKern<T> kern = pda_form_instance<T, F>(field, qc);
+  cudaError_t e = pda_attributes(kern, d.G, smem);
   if (e != cudaSuccess) return int(e);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg;
-  cluster_launch(1, d.G, smem, stream, attr, &cfg);
-  e = cudaLaunchKernelEx(&cfg, kern, pos, alive, eps, sig, q, mass, mmass,
-                         polar, e0, slot_start, slot_species, slot_alive,
-                         tmpl, natoms, scal, lnfv, d_self, d_excl, c1, cx, u,
-                         kvec, kcoef, sk, rec, d, o, po, x, ke, hb2);
-  if (e != cudaSuccess) return int(e);
-  return int(cudaGetLastError());
+  cluster_launch(1, d.G, smem, 0, attr, &cfg);
+  return int(cudaOccupancyMaxActiveClusters(clusters, kern, &cfg));
+}
+
+template <typename T, int F>
+int launch_pda_form(const T* pos, const bool* alive, const T* eps,
+                    const T* sig, const T* q, const T* mass,
+                    const T* mmass, const T* polar, const T* e0,
+                    const int32_t* slot_start,
+                    const int32_t* slot_species, const bool* slot_alive,
+                    const T* tmpl, const int32_t* natoms, const T* scal,
+                    const T* lnfv, const T* d_self, const T* d_excl,
+                    const T* c1, const T* cx, const T* u, const T* kvec,
+                    const T* kcoef, const T* sk, double* rec, const Dims d,
+                    const Opts o, const PolarOpts po, const XtArgs<T> x,
+                    double ke, double hb2, const FormCols<T> fc,
+                    cudaStream_t stream) {
+  if (d.G < 1 || d.G > G_MAX || d.A > A_PAD
+      || (o.qc != 0 && F != FORM_GWP))
+    return int(cudaErrorInvalidValue);
+  const size_t smem = polar_slice_bytes<T>(d.nloc, d.kloc, d.ms, o.qc != 0,
+                                           form_planes<F>(o.es == 4));
+  const PdaKern<T> kern = pda_form_instance<T, F>(po.field, o.qc != 0);
+  return pda_run(kern, d.G, smem, stream, pos, alive, eps, sig, q, mass,
+                 mmass, polar, e0, slot_start, slot_species, slot_alive, tmpl,
+                 natoms, scal, lnfv, d_self, d_excl, c1, cx, u, kvec, kcoef,
+                 sk, rec, d, o, po, x, ke, hb2, fc);
 }
 
 }  // namespace
@@ -707,3 +900,51 @@ int launch_pda(const T* pos, const bool* alive, const T* eps, const T* sig,
                                 qc != 0, clusters);                           \
   }
 
+
+// The C entries of one dtype of a form library (F, rd_forms.cuh; the XT
+// instance, any of its extras on or off): the classical entries' arguments
+// (rd: disp_expansion's damping flag, or FORM_GWP's rd none/lj; qc 0, or
+// FORM_GWP's quantum correction with the molecule-mass plane mmass) and
+// the C6, C8, C10 and GWP width columns before the stream (null where the
+// form reads none); the occupancy query's gw says whether the slice holds
+// the width plane, its qc whether it holds the mass plane.
+#define RUN_STEPS_UVT_PDA_FORM_ENTRY(F, SFX, T)                               \
+  extern "C" int run_steps_uvt_pda_rd_##SFX(                                 \
+      const void* pos, const void* alive, const void* eps, const void* sig,   \
+      const void* q, const void* mass, const void* mmass,                     \
+      const void* polar, const void* e0,                                      \
+      const void* slot_start, const void* slot_species,                       \
+      const void* slot_alive, const void* tmpl, const void* natoms,           \
+      const void* scal, const void* lnfv, const void* d_self,                 \
+      const void* d_excl, const void* c1, const void* cx, const void* u,      \
+      const void* kvec, const void* kcoef, const void* sk, void* rec,         \
+      const void* cav_list, const void* cav_n, const void* rot,              \
+      const void* spin, int n, int ms, int S, int A,                          \
+      int K, int nk, int G, int rd, int mix, int es, int ortho, int damp,     \
+      int field, int qc, int g, int g3, int cav, int bias, int sf, double ke, \
+      double hb2, const void* c6, const void* c8, const void* c10,            \
+      const void* w, void* stream) {                                          \
+    return launch_pda_form<T, F>(                                             \
+        (const T*)pos, (const bool*)alive, (const T*)eps, (const T*)sig,      \
+        (const T*)q, (const T*)mass, (const T*)mmass, (const T*)polar,        \
+        (const T*)e0,                                                         \
+        (const int32_t*)slot_start, (const int32_t*)slot_species,             \
+        (const bool*)slot_alive, (const T*)tmpl, (const int32_t*)natoms,      \
+        (const T*)scal, (const T*)lnfv, (const T*)d_self, (const T*)d_excl,   \
+        (const T*)c1, (const T*)cx, (const T*)u, (const T*)kvec,              \
+        (const T*)kcoef, (const T*)sk, (double*)rec,                          \
+        pda_dims(n, ms, S, A, K, nk, G), Opts{rd, mix, es, ortho, qc},        \
+        PolarOpts{damp, field},                                               \
+        XtArgs<T>{(const int32_t*)cav_list, (const int32_t*)cav_n, nullptr,   \
+                  nullptr, g, g3, 0, 0, cav, 0, bias, (const T*)rot,          \
+                  (int32_t*)spin, sf},                                        \
+        ke, hb2,                                                              \
+        FormCols<T>{(const T*)c6, (const T*)c8, (const T*)c10, (const T*)w},  \
+        (cudaStream_t)stream);                                                \
+  }                                                                           \
+  extern "C" int pda_occupancy_rd_##SFX(int n, int nk, int ms, int A,        \
+                                        int field, int gw, int qc, int G,     \
+                                        int* clusters) {                      \
+    return pda_form_occupancy<T, F>(pda_dims(n, ms, 1, A, 1, nk, G), field,   \
+                                    gw != 0, qc != 0, clusters);              \
+  }

@@ -46,7 +46,19 @@
 //   11 < p_spin before the move type: the displacement's slot pick, the
 //   rotor's d_f in the acceptance, an accept flipping its spin; the step
 //   makes no pass, exchange or barrier); uvt_kernel.cu builds the
-//   instances without it and uvt_xt_kernel.cu those with it.
+//   instances without it and uvt_xt_kernel.cu those with it.  A third
+//   parameter (F, rd_forms.cuh) gives the RD forms sg, dreiding, b14_7 and
+//   disp_expansion and the GWP Coulomb form their own XT instances
+//   (uvt_<form>_kernel.cu, entry run_steps_uvt_rd; GWP, whose rd is lj,
+//   also with the quantum terms and the mass plane, FH and FK needing rd
+//   lj): the
+//   form's energy (the reference's _pair_terms RD branch,
+//   mpmc_tpu/ops/pallas/mc_kernel.py:173-187) and the GWP smear (:201-210)
+//   evaluated only where a warp vote finds a pair within rc
+//   (mc_cluster.cuh slice_pass_form), the slice holding disp_expansion's
+//   C6, C8, C10 and gwp's widths as column planes (the reference's rows,
+//   :1154-1157, :1302-1304); the count-dependent tail is the host's c1 /
+//   cx, as for LJ.  The classical instances compile the code they had.
 //
 // Bound: operations.  A step evaluates (has_old + has_new) x A x (alive
 //   columns) pairs - up to 2 x 3 x 10,797 = 64.8k at the 10.8k bench
@@ -103,7 +115,7 @@ struct Dims {
   int C, n, ms, S, A, K, nk, G, nloc, kloc;
 };
 
-template <typename T, bool QC, bool XT>
+template <typename T, bool QC, bool XT, int F = RD_CLASSIC>
 __global__ void __launch_bounds__(NT, 1) uvt_kernel(
     T* pos, bool* alive, const T* __restrict__ eps,
     const T* __restrict__ sig, const T* __restrict__ q,
@@ -117,7 +129,8 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
     const T* __restrict__ cx, const T* __restrict__ u,
     const T* __restrict__ kvec, const T* __restrict__ kcoef, T* sk,
     double* __restrict__ sums, const Dims d, const Opts o,
-    const XtArgs<T> x, const double ke, const double hb2) {
+    const XtArgs<T> x, const double ke, const double hb2,
+    const FormCols<T> fcol) {
   __shared__ T s_box[9], s_bi[9];
   __shared__ T s_tmpl[S_MAX * A_PAD * 3];
   __shared__ double s_dself[S_MAX], s_dexcl[S_MAX], s_c1[S_MAX],
@@ -143,7 +156,11 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
   const int base = rank * nloc, kbase = rank * kloc;
   const int cnt_j = max(0, min(nloc, n - base));
   const int cnt_k = max(0, min(kloc, nk - kbase));
-  const Slice<T> sl = carve_slice<T>(nloc, kloc, ms, QC);
+  // a form instance: its Coulomb form gwp (o.es 4) or not, and the moved
+  // sites' form values (a classical instance reads neither, nor fcol)
+  const bool gw = F != RD_CLASSIC && o.es == 4;
+  FormRow<T>* const s_fi = form_rows<T, F>();
+  const Slice<T> sl = carve_slice<T, F>(nloc, kloc, ms, QC, gw);
   T* P = pos + size_t(c) * n * 3;
   bool* AL = alive + size_t(c) * n;
   bool* SA = slot_alive + size_t(c) * ms;
@@ -153,8 +170,8 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
 
   // ---- per-launch tables: this CTA's slice, the slot table, box and
   // species constants, slot counts
-  load_slice<T>(sl, P, AL, q, eps, sig, mmass, base, cnt_j, kvec, kcoef, SKr,
-                SKi, kbase, cnt_k);
+  load_slice<T, F>(sl, P, AL, q, eps, sig, mmass, base, cnt_j, kvec, kcoef,
+                   SKr, SKi, kbase, cnt_k, fcol);
   for (int i = t; i < ms; i += NT) {
     sl.sa[i] = SA[i];
     sl.ssp[i] = slot_species[i];
@@ -274,6 +291,7 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
       s_ei[t] = eps[r];
       s_si[t] = sig[r];
       s_mi[t] = mass[r];
+      if constexpr (F != RD_CLASSIC) load_form_row<T, F>(s_fi, t, r, fcol);
     }
     __syncthreads();
     MC_MARK(3)
@@ -298,9 +316,10 @@ __global__ void __launch_bounds__(NT, 1) uvt_kernel(
     T mn = T(INFINITY);
     T mm_i = T(0);           // the molecule's mass (the slot's site masses)
     for (int a = 0; a < na; ++a) mm_i += s_mi[a];
-    slice_pass<T, QC>(sl, base, cnt_j, start, na, has_old, has_new, s_old,
-                      s_new, s_ei, s_si, s_qi, s_box, s_bi, o, rc, rc2,
-                      alpha, mm_i, beta_t, temp, hb2, a_rd, a_es, mn);
+    slice_pass<T, QC, F>(sl, base, cnt_j, start, na, has_old, has_new, s_old,
+                         s_new, s_ei, s_si, s_qi, s_box, s_bi, o, rc, rc2,
+                         alpha, mm_i, beta_t, temp, hb2, a_rd, a_es, mn,
+                         s_fi);
     if (o.es == 1)
       sk_delta<T>(sl.kv, sl.kc, sl.skr, sl.ski, sl.dsr, sl.dsi, cnt_k, na,
                   has_old, has_new, s_old, s_new, s_qi, a_rec);
@@ -422,6 +441,17 @@ auto uvt_instance(bool qc) {
   return qc ? uvt_kernel<T, true, XT> : uvt_kernel<T, false, XT>;
 }
 
+// A form instance (F, rd_forms.cuh): the XT instance, for FORM_GWP (rd
+// lj) with the quantum terms or without (FH and FK need rd lj, so the RD
+// forms have none), its columns the kernel's last argument.
+template <typename T, int F>
+auto uvt_form_instance(bool qc) {
+  if constexpr (F == FORM_GWP) {
+    if (qc) return uvt_kernel<T, true, true, F>;
+  }
+  return uvt_kernel<T, false, true, F>;
+}
+
 // Per-CTA slice sizes of a G-CTA cluster.
 inline Dims uvt_dims(int C, int n, int ms, int S, int A, int K, int nk,
                      int G) {
@@ -439,17 +469,34 @@ int launch_uvt(T* pos, bool* alive, const T* eps, const T* sig, const T* q,
                double ke, double hb2, cudaStream_t stream) {
   if (d.G < 1 || d.G > G_MAX) return int(cudaErrorInvalidValue);
   const size_t smem = slice_bytes<T>(d.nloc, d.kloc, d.ms, o.qc != 0);
-  const auto kern = uvt_instance<T, XT>(o.qc != 0);
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg;
-  cudaError_t e = cluster_config(kern, d.C, d.G, smem, stream, attr, &cfg);
-  if (e != cudaSuccess) return int(e);
-  e = cudaLaunchKernelEx(&cfg, kern, pos, alive, eps, sig, q, mass,
-                         mmass, slot_start, slot_species, slot_alive, tmpl,
-                         natoms, scal, betas, lnfvs, d_self, d_excl, c1, cx,
-                         u, kvec, kcoef, sk, sums, d, o, x, ke, hb2);
-  if (e != cudaSuccess) return int(e);
-  return int(cudaGetLastError());
+  return cluster_run(uvt_instance<T, XT>(o.qc != 0), d.C, d.G, smem, stream,
+                     pos, alive, eps, sig, q, mass, mmass, slot_start,
+                     slot_species, slot_alive, tmpl, natoms, scal, betas,
+                     lnfvs, d_self, d_excl, c1, cx, u, kvec, kcoef, sk, sums,
+                     d, o, x, ke, hb2,
+                     FormCols<T>{nullptr, nullptr, nullptr, nullptr});
+}
+
+template <typename T, int F>
+int launch_uvt_form(T* pos, bool* alive, const T* eps, const T* sig,
+                    const T* q, const T* mass, const T* mmass,
+                    const int32_t* slot_start,
+                    const int32_t* slot_species, bool* slot_alive,
+                    const T* tmpl, const int32_t* natoms, const T* scal,
+                    const T* betas, const T* lnfvs, const T* d_self,
+                    const T* d_excl, const T* c1, const T* cx, const T* u,
+                    const T* kvec, const T* kcoef, T* sk, double* sums,
+                    const Dims d, const Opts o, const XtArgs<T> x, double ke,
+                    double hb2, const FormCols<T> fc, cudaStream_t stream) {
+  if (d.G < 1 || d.G > G_MAX || (o.qc != 0 && F != FORM_GWP))
+    return int(cudaErrorInvalidValue);
+  const size_t smem = slice_bytes<T>(d.nloc, d.kloc, d.ms, o.qc != 0,
+                                     form_planes<F>(o.es == 4));
+  return cluster_run(uvt_form_instance<T, F>(o.qc != 0), d.C, d.G, smem,
+                     stream, pos, alive, eps, sig, q, mass, mmass, slot_start,
+                     slot_species, slot_alive, tmpl, natoms, scal, betas,
+                     lnfvs, d_self, d_excl, c1, cx, u, kvec, kcoef, sk, sums,
+                     d, o, x, ke, hb2, fc);
 }
 
 }  // namespace
@@ -496,3 +543,54 @@ int launch_uvt(T* pos, bool* alive, const T* eps, const T* sig, const T* q,
                              clusters);                                      \
   }
 
+
+// The C entries of one dtype of a form library (F, rd_forms.cuh; the XT
+// instance, any of its extras on or off): the classical entries' arguments
+// (rd: disp_expansion's damping flag, or FORM_GWP's rd none/lj; qc 0, or
+// FORM_GWP's quantum correction with the molecule-mass plane mmass) and
+// the C6, C8, C10 and GWP width columns before the stream (null where the
+// form reads none); the occupancy query's gw says whether the slice holds
+// the width plane, its qc whether it holds the mass plane.
+#define RUN_STEPS_UVT_FORM_ENTRY(F, SFX, T)                                  \
+  extern "C" int run_steps_uvt_rd_##SFX(                                    \
+      void* pos, void* alive, const void* eps, const void* sig,              \
+      const void* q, const void* mass, const void* mmass,                    \
+      const void* slot_start,                                                \
+      const void* slot_species, void* slot_alive, const void* tmpl,          \
+      const void* natoms, const void* scal, const void* betas,               \
+      const void* lnfvs, const void* d_self, const void* d_excl,             \
+      const void* c1, const void* cx, const void* u, const void* kvec,       \
+      const void* kcoef, void* sk, void* sums, const void* cav_list,         \
+      const void* cav_n, const void* eta, void* tmmc, const void* rot,       \
+      void* spin, int C, int n, int ms,                                      \
+      int S, int A, int K, int nk, int G, int rd, int mix, int es,           \
+      int ortho, int qc, int g, int g3, int ke_eta, int rows, int cav,       \
+      int tm, int bias, int sf, double ke, double hb2, const void* c6,       \
+      const void* c8, const void* c10, const void* w, void* stream) {        \
+    if (C <= 0) return 0;                                                    \
+    return launch_uvt_form<T, F>(                                            \
+        (T*)pos, (bool*)alive, (const T*)eps, (const T*)sig, (const T*)q,    \
+        (const T*)mass, (const T*)mmass, (const int32_t*)slot_start,         \
+        (const int32_t*)slot_species, (bool*)slot_alive, (const T*)tmpl,     \
+        (const int32_t*)natoms, (const T*)scal, (const T*)betas,             \
+        (const T*)lnfvs, (const T*)d_self, (const T*)d_excl, (const T*)c1,   \
+        (const T*)cx, (const T*)u, (const T*)kvec, (const T*)kcoef, (T*)sk,  \
+        (double*)sums, uvt_dims(C, n, ms, S, A, K, nk, G),                   \
+        Opts{rd, mix, es, ortho, qc},                                        \
+        XtArgs<T>{(const int32_t*)cav_list, (const int32_t*)cav_n,           \
+                  (const T*)eta, (double*)tmmc, g, g3, ke_eta, rows, cav,    \
+                  tm, bias, (const T*)rot, (int32_t*)spin, sf},              \
+        ke, hb2,                                                             \
+        FormCols<T>{(const T*)c6, (const T*)c8, (const T*)c10, (const T*)w}, \
+        (cudaStream_t)stream);                                               \
+  }                                                                          \
+  extern "C" int uvt_occupancy_rd_##SFX(int n, int nk, int ms, int gw,      \
+                                        int qc, int G, int* clusters) {      \
+    if (qc && F != FORM_GWP) return int(cudaErrorInvalidValue);              \
+    const Dims d = uvt_dims(1, n, ms, 1, 1, 1, nk, G);                       \
+    return cluster_occupancy(                                                \
+        uvt_form_instance<T, F>(qc != 0), G,                                 \
+        slice_bytes<T>(d.nloc, d.kloc, ms, qc != 0,                          \
+                       form_planes<F>(gw != 0)),                             \
+        clusters);                                                           \
+  }

@@ -1180,6 +1180,14 @@ def _mol_mass_plane(params: Params, cfg: RunConfig):
     return params.mol_mass_atom if mc_kernel.quantum_option(cfg) else None
 
 
+def _form_kw(params: Params, cfg: RunConfig):
+    """The fused kernels' form columns (pairs.site_columns): ``disp``, the
+    (c6, c8, c10) columns under disp_expansion, and ``gwp``, the GWP
+    widths under coulomb gwp, each None where off."""
+    disp, gwp = pairs.site_columns(params, cfg)
+    return dict(disp=disp, gwp=gwp)
+
+
 # ---------------------------------------------------------------------------
 # Fused NVT/NVE path (kernel B3, ops/cuda/mc_kernel.run_steps)
 # ---------------------------------------------------------------------------
@@ -1228,7 +1236,7 @@ def fused_nvt_launch_args(states: SimState, params: Params, cfg: RunConfig,
     kw = dict(kvecs=kv, kcoef=kcoef,
               sk_re=states.sk_re.contiguous() if ew else None,
               sk_im=states.sk_im.contiguous() if ew else None, a_max=a_max,
-              mol_mass=_mol_mass_plane(params, cfg))
+              mol_mass=_mol_mass_plane(params, cfg), **_form_kw(params, cfg))
     if cfg.ensemble == "nve":
         u = states.energy.total
         if states.e_frozen is not None:
@@ -1536,7 +1544,7 @@ def fused_uvt_launch_args(states: SimState, params: Params,
     kw = dict(kvecs=kv, kcoef=kcoef,
               sk_re=states.sk_re.contiguous() if ew else None,
               sk_im=states.sk_im.contiguous() if ew else None,
-              mol_mass=_mol_mass_plane(params, cfg))
+              mol_mass=_mol_mass_plane(params, cfg), **_form_kw(params, cfg))
     kw.update(_fused_extras(states, cfg, thermo))
     if spinflip_active(cfg):
         kw.update(_spin_kw(states, slots, cfg, thermo))
@@ -1672,7 +1680,7 @@ def pda_launch_args(state: SimState, params: Params, cfg: RunConfig,
               sk_im=state.sk_im if ew else None,
               field_alpha=0.0 if paf is None else paf,
               field_krc=0.0 if pkrc is None else pkrc,
-              mol_mass=_mol_mass_plane(params, cfg))
+              mol_mass=_mol_mass_plane(params, cfg), **_form_kw(params, cfg))
     if cfg.cavity_bias:
         if cav is None:
             if state.cavity_open is None:

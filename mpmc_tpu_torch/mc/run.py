@@ -135,9 +135,11 @@ def check_supported(job: input_script.Job):
     temperature ladder (ValueError, NPT_PT_TRAP and FH_PT_TRAP); NPT
     with a frozen molecule is refused by make_step_fn /
     make_batched_step_fn (metropolis.check_npt).  The RD forms sg,
-    dreiding, b14_7, disp_expansion and coulomb gwp run on every route but
-    the fused kernels, which refuse them where the reference's gate would
-    take them (mc_kernel.refuse_fused_forms, ROADMAP A12a-2b)."""
+    dreiding, b14_7, disp_expansion and coulomb gwp run on every route:
+    under fused_mc in the fused kernels' form instances (B1, B3 and B6,
+    mc_kernel.FORM_STEM) wherever the reference's gate takes them,
+    else on the scan path and batched chains (B2 and B4's form instances,
+    or for gwp the plain pass; log_pair_route)."""
     cfg = job.cfg
     if cfg.ensemble == "npt":
         if cfg.polarization:
@@ -169,12 +171,20 @@ def log_pair_route(cfg, log):
     the kernels': B2 and B4's static gate (pair_kernel.supported, the
     reference's) refuses Feynman-Hibbs/Kleinert and coulomb gwp, and the
     refresh and the per-move deltas run the plain tile pass on the device,
-    as the reference's scan path runs its jnp tile pass for them."""
+    as the reference's scan path runs its jnp tile pass for them.  Under
+    fused_mc with an RD form or coulomb gwp, name the fused kernels' form
+    instances, which take them wherever a fused gate holds."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
     if not pair_kernel.supported(cfg):
         print("pair passes: the plain tile pass on the device (B2 and B4's "
               "gate refuses feynman_hibbs / feynman_kleinert / coulomb gwp, "
               "as the reference's does)", file=log)
+    stem = mc_kernel.form_stem(cfg)
+    if cfg.fused_mc and stem:
+        print(f"fused_mc: rd {cfg.rd_potential} / coulomb {cfg.coulomb} "
+              f"run in the fused kernels' form instances (uvt_{stem}_kernel, "
+              f"nvt_{stem}_kernel, pda_{stem}_kernel) where a fused gate "
+              "takes this deck", file=log)
 
 
 def _promote_polar_cull(cfg, n_atoms: int):
@@ -850,9 +860,6 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     if cfg.fused_mc:
         # the reference's gate order: the NVT/NVE kernel, the µVT one (both
         # refuse polarization), then the polar delayed-acceptance kernel
-        mc_kernel.refuse_fused_forms(cfg, params, (
-            mc_kernel.supported, mc_kernel.supported_uvt,
-            mc_kernel.supported_uvt_polar_da, mc_kernel.supported_npt))
         if mc_kernel.supported(cfg, params):
             chunk = functools.partial(
                 metropolis.run_chunk_fused,
@@ -972,9 +979,6 @@ def _chains_route(cfg, params, mol_alive, C, writer, what="multi-chain",
     from mpmc_tpu_torch.ops.cuda import pair_kernel
     log_pair_route(cfg, writer.log)
     fused = cfg.fused_mc and fused_ok
-    if fused:
-        mc_kernel.refuse_fused_forms(cfg, params, (
-            mc_kernel.supported_multi, mc_kernel.supported_uvt_multi))
     if cfg.fused_mc and not fused_ok:
         print("fused_mc: feynman_hibbs / feynman_kleinert keep this "
               f"{what} run on the batched scan chains, as the reference's "

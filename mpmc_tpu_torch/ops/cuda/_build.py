@@ -97,6 +97,29 @@ _SIGNATURES = {
     "uvt_xt_kernel": {},
     "pda_xt_kernel": {},
     "nvt_sf_kernel": {},
+    # B1, B3 and B6 with an RD form (sg, dreiding, b14_7, disp_expansion)
+    # or coulomb gwp (csrc/rd_forms.cuh): an instance each, the classical
+    # entries' arguments and the C6, C8, C10 and GWP width columns before
+    # the stream; the occupancy queries take gw (the width plane) and qc
+    # (the mass plane: FORM_GWP's quantum instance) for xt
+    "uvt_sg_kernel": {
+        "run_steps_uvt_rd": [_P] * 30 + [_I] * 21 + [ctypes.c_double] * 2
+        + [_P] * 4 + [_P],
+        # n nk ms gw qc G | clusters out
+        "uvt_occupancy_rd": [_I] * 6 + [_PI],
+    },
+    "nvt_sg_kernel": {
+        "run_steps_nvt_rd": [_P] * 19 + [_I] * 14 + [ctypes.c_double] * 3
+        + [_P] * 4 + [_P],
+        # n nk gw qc G | clusters out
+        "nvt_occupancy_rd": [_I] * 5 + [_PI],
+    },
+    "pda_sg_kernel": {
+        "run_steps_uvt_pda_rd": [_P] * 29 + [_I] * 19
+        + [ctypes.c_double] * 2 + [_P] * 4 + [_P],
+        # n nk ms A field gw qc G | clusters out
+        "pda_occupancy_rd": [_I] * 8 + [_PI],
+    },
     "thole_kernel": {
         # pos src ok mol scal wl chains | K n ni nj dipole damp ortho grid
         # | part ticket out | stream
@@ -132,6 +155,10 @@ _SIGNATURES.update({f"pair_{form}_kernel": _SIGNATURES["pair_sg_kernel"]
 _SIGNATURES["uvt_xt_kernel"] = _SIGNATURES["uvt_kernel"]
 _SIGNATURES["pda_xt_kernel"] = _SIGNATURES["pda_kernel"]
 _SIGNATURES["nvt_sf_kernel"] = _SIGNATURES["nvt_kernel"]
+for _body in ("uvt", "nvt", "pda"):
+    _SIGNATURES.update({
+        f"{_body}_{form}_kernel": _SIGNATURES[f"{_body}_sg_kernel"]
+        for form in ("dreiding", "b14_7", "disp", "gwp")})
 
 _libs: dict = {}
 

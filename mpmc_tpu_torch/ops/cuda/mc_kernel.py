@@ -81,17 +81,28 @@ the kernels hold as a seventh column plane of the slice, the moved
 molecule's mass being the sum of its slot's site masses, at the chain's
 beta.
 
+The RD forms of ops/potentials.py (sg, dreiding, b14_7, disp_expansion)
+and coulomb gwp run in instances of their own (``FORM_STEM``: B1's and
+B6's XT instance and B3's SF instance, from ``<body>_<form>_kernel.cu``;
+FH and FK need rd lj, so of these only gwp's library has a second
+instance with the quantum terms and the molecule-mass plane;
+csrc/rd_forms.cuh holds the formulas
+B2 and B4 use too): the wrappers then take ``disp``, the (c6, c8, c10)
+columns that disp_expansion reads, and ``gwp``, the GWP widths, which the
+kernels hold as column planes of the slice beside the others
+(pairs.site_columns gives both).  A form instance evaluates its pair
+terms only where a warp's vote finds a pair within rc, and reads its
+Coulomb form at run time (gwp among them); the classical instances
+compile the code they had.
+
 The host helpers (``supported_uvt``, ``supported``, ``supported_multi``,
 ``movable_slots``, ``movable_mols``) are the gates and tables of the
-reference's fused paths, restricted to the surface the port has: rd
-lj/none (FH and FK with lj), lb/waldman_hagler mixing, coulomb
-ewald/wolf/cutoff/none, f32, rigid molecules of up to MAX_SITES sites
+reference's fused paths: rd lj/none/sg/dreiding/b14_7/disp_expansion (FH
+and FK with lj), lb/waldman_hagler mixing, coulomb
+ewald/wolf/cutoff/gwp/none, f32, rigid molecules of up to MAX_SITES sites
 (B1: up to MAX_SPECIES insert species; TMMC with exactly one; spinflip
 where every movable molecule, or insert species, is a rotor of two or
-more sites).  The RD forms beyond lj/none and coulomb gwp are the
-reference's fused surface but not yet these kernels' (ROADMAP A12a-2b):
-the gates stay closed to them, and ``refuse_fused_forms`` raises where the
-reference's gate would have taken a fused path with them.
+more sites).
 """
 from __future__ import annotations
 
@@ -122,45 +133,49 @@ N_SUMS = 14        # d_rd d_es_real d_es_recip d_es_self d_es_excl d_lrc,
 #                    acc disp/ins/del, att disp/ins/del, acc/att spinflip
 N_SUMS_NVT = 6     # d_rd d_es_real d_es_recip, accepted moves,
 #                    acc/att spinflip
-# the RD and Coulomb forms of B1, B3 and B6 (their option ints); the
-# reference's fused gate (mpmc_tpu/ops/pallas/mc_kernel.py:2898-2921) also
-# admits the RD forms of ops/potentials.py and coulomb gwp, which these
-# kernels do not carry yet (ROADMAP A12a-2b)
-_RD = {"none": 0, "lj": 1}
-_ES = {"none": 0, "ewald": 1, "wolf": 2, "cutoff": 3}
+# the RD and Coulomb forms of B1, B3 and B6, those of the reference's
+# fused gate (mpmc_tpu/ops/pallas/mc_kernel.py:2898-2921), and their option
+# ints: rd none/lj and coulomb none/ewald/wolf/cutoff in the classical
+# instances; an RD form's option is disp_expansion's damping flag
+# (_rd_option), and coulomb gwp (4) runs in a form library
+_RD = {"none": 0, "lj": 1, "sg": 0, "dreiding": 0, "b14_7": 0,
+       "disp_expansion": 0}
+_ES = {"none": 0, "ewald": 1, "wolf": 2, "cutoff": 3, "gwp": 4}
+# the library stem of each form's instances (<body>_<stem>_kernel.cu), rd
+# none/lj with coulomb gwp being "gwp"
+FORM_STEM = {"sg": "sg", "dreiding": "dreiding", "b14_7": "b14_7",
+                "disp_expansion": "disp", "gwp": "gwp"}
 
 
-def refuse_fused_forms(cfg, params, gates, what="fused_mc"):
-    """Raise NotImplementedError (ROADMAP A12a-2b) where ``cfg`` carries
-    an RD form or coulomb gwp that B1, B3 and B6 lack and one of
-    ``gates`` (this module's gate functions, in the caller's order) would
-    hold with it: the reference's fused gate admits these forms, so its
-    run would take a fused kernel where the port's would silently take
-    the scan path.  The gates read the RD form only as lj or not lj and
-    the Coulomb form only as ewald or not, so each gate is evaluated on a
-    copy of ``cfg`` with the form replaced by one they treat alike: rd
-    none, coulomb none."""
-    rd_new = cfg.rd_potential in potentials.FORMS
-    es_new = cfg.coulomb == "gwp"
-    if not (rd_new or es_new):
-        return
-    stand_in = dataclasses.replace(
-        cfg, rd_potential="none" if rd_new else cfg.rd_potential,
-        coulomb="none" if es_new else cfg.coulomb)
-    for gate in gates:
-        if gate(stand_in, params):
-            forms = [f"rd_potential {cfg.rd_potential}"] * rd_new + \
-                [f"coulomb {cfg.coulomb}"] * es_new
-            raise NotImplementedError(
-                f"{what}: {' and '.join(forms)} in the fused kernels "
-                f"({gate.__name__}) is not yet ported — ROADMAP A12a-2b")
+def form_stem(cfg):
+    """The form library stem of a cfg (FORM_STEM), or None for the
+    classical instances: an RD form of ops/potentials.py, else coulomb
+    gwp."""
+    if cfg.rd_potential in potentials.FORMS:
+        return FORM_STEM[cfg.rd_potential]
+    return "gwp" if cfg.coulomb == "gwp" else None
+
+
+def _rd_option(cfg) -> int:
+    """The kernels' Opts.rd: 0 none / 1 lj, or an RD form's
+    disp_expansion damping flag."""
+    if cfg.rd_potential in potentials.FORMS:
+        return int(bool(cfg.damp_dispersion))
+    return _RD[cfg.rd_potential]
+
+
+def form_planes(cfg) -> int:
+    """The column planes a form instance adds to the slice: C6, C8, C10
+    under disp_expansion, the GWP width under coulomb gwp
+    (csrc/mc_cluster.cuh form_planes)."""
+    return (3 * (cfg.rd_potential == "disp_expansion")
+            + (cfg.coulomb == "gwp"))
 
 
 def _supported_physics(cfg) -> bool:
-    """The physics surface of the fused kernels in the port: the
-    reference's gate (mc_kernel._supported_physics) restricted to the RD
-    and Coulomb forms the port carries.  Feynman-Hibbs and
-    Feynman-Kleinert are allowed, both on the LJ derivatives only."""
+    """The physics surface of the fused kernels: the reference's gate
+    (mc_kernel._supported_physics).  Feynman-Hibbs and Feynman-Kleinert
+    are allowed, both on the LJ derivatives only."""
     return (cfg.rd_potential in _RD and cfg.coulomb in _ES
             and cfg.mixing_rule in _MIX
             and not ((cfg.feynman_hibbs or cfg.feynman_kleinert)
@@ -348,12 +363,6 @@ def movable_mols(params, mol_alive):
 
 def _refuse_cfg(cfg, what="run_steps_uvt"):
     """Raise on what neither kernel nor its plain version implements."""
-    if not (cfg.rd_potential in _RD and cfg.coulomb in _ES
-            and cfg.mixing_rule in _MIX):
-        raise NotImplementedError(
-            f"{what}: rd {cfg.rd_potential!r} / coulomb "
-            f"{cfg.coulomb!r} / mixing {cfg.mixing_rule!r} is not yet "
-            "ported — ROADMAP A12a-2b")
     if ((cfg.feynman_hibbs or cfg.feynman_kleinert)
             and cfg.rd_potential != "lj"):
         raise ValueError(f"{what}: feynman_hibbs / feynman_kleinert "
@@ -383,6 +392,39 @@ def _spin_flip(spin, sel, accept, spin_step):
     spin[sel] = torch.where(accept & spin_step, 1 - cur, cur)
 
 
+def _form_cols(cfg, disp, gwp, n, dt, dev, what):
+    """(the form library's stem or None, the C6, C8, C10 and GWP width
+    column pointers of a form library's launch): ``disp`` (c6, c8, c10)
+    [n] each, checked under disp_expansion, and ``gwp`` [n], checked
+    under coulomb gwp; null pointers for what the form does not read."""
+    null = ctypes.c_void_p(None)
+    ptrs = [null] * 4
+    if cfg.rd_potential == "disp_expansion":
+        if disp is None:
+            raise ValueError(f"{what}: disp_expansion needs the C6/C8/C10 "
+                             "columns (disp=)")
+        for i, (nm, t) in enumerate(zip(("c6", "c8", "c10"), disp)):
+            _check(nm, t, dt, (n,), dev)
+            ptrs[i] = _ptr(t)
+    if cfg.coulomb == "gwp":
+        if gwp is None:
+            raise ValueError(f"{what}: coulomb gwp needs the GWP widths "
+                             "(gwp=)")
+        _check("gwp", gwp, dt, (n,), dev)
+        ptrs[3] = _ptr(gwp)
+    return form_stem(cfg), ptrs
+
+
+def _form_pairs(disp, gwp, idx):
+    """(disp, gwp) of pairs._tile_values for the rows ``idx`` (an index
+    tensor of any shape) against every column [N]: each row value with a
+    trailing column axis; None where off (plain versions)."""
+    d = None if disp is None else (
+        tuple(c[idx][..., None] for c in disp), tuple(disp))
+    g = None if gwp is None else (gwp[idx][..., None], gwp)
+    return d, g
+
+
 def _quantum_cols(mol_mass, cfg, n, dt, dev, what):
     """(the kernels' qc, the molecule-mass plane's pointer): ``mol_mass``
     [n] checked when a quantum correction is on, a null pointer
@@ -397,49 +439,57 @@ def _quantum_cols(mol_mass, cfg, n, dt, dev, what):
     return qc, _ptr(mol_mass)
 
 
-def slice_bytes(n, dtype, G, nk=0, ms=0, polar=False, quantum=False):
+def slice_planes(cfg) -> int:
+    """The column planes of a cfg's slice (csrc/mc_cluster.cuh): x, y, z,
+    q, eps, sig, then the molecular masses of a Feynman-Hibbs/Kleinert
+    deck, disp_expansion's C6, C8, C10 and gwp's widths."""
+    return 6 + (quantum_option(cfg) > 0) + form_planes(cfg)
+
+
+def slice_bytes(n, dtype, G, nk=0, ms=0, polar=False, planes=6):
     """Dynamic shared memory of one CTA of a B1/B3 cluster of G CTAs over
     n columns, nk k-vectors and ms slots (csrc/mc_cluster.cuh
-    slice_bytes): six column planes (``quantum``: seven, with the
-    molecular masses of a Feynman-Hibbs/Kleinert deck) and eight k-vector
-    planes of ``dtype``, the slot species (int32) and the column and slot
-    alive flags, each segment rounded up to 16 bytes.  ``polar``: B6's
-    slice (polar_slice_bytes), four more column planes (polar, e0
-    x/y/z)."""
+    slice_bytes): ``planes`` column planes (``slice_planes``: six, and
+    the molecular masses, the C columns and the GWP widths a deck adds)
+    and eight k-vector planes of ``dtype``, the slot species (int32) and
+    the column and slot alive flags, each segment rounded up to 16 bytes.
+    ``polar``: B6's slice (polar_slice_bytes), four more column planes
+    (polar, e0 x/y/z)."""
     sz = torch.finfo(dtype).bits // 8
     nloc, kloc = -(-n // G), -(-nk // G)
 
     def seg(b):
         return (b + 15) // 16 * 16
 
-    return (seg((7 if quantum else 6) * nloc * sz) + seg(8 * kloc * sz)
+    return (seg(planes * nloc * sz) + seg(8 * kloc * sz)
             + seg(4 * ms) + seg(nloc) + seg(ms)
             + (seg(4 * nloc * sz) if polar else 0))
 
 
-def _fits(n, dtype, G, nk, ms, polar=False, quantum=False):
-    return slice_bytes(n, dtype, G, nk, ms, polar, quantum) <= SMEM_BYTES - (
+def _fits(n, dtype, G, nk, ms, polar=False, planes=6):
+    return slice_bytes(n, dtype, G, nk, ms, polar, planes) <= SMEM_BYTES - (
         SMEM_STATIC_PDA if polar else SMEM_STATIC)
 
 
-def fitting_cluster_sizes(n, dtype, nk=0, ms=0, polar=False, quantum=False):
+def fitting_cluster_sizes(n, dtype, nk=0, ms=0, polar=False, planes=6):
     """The G of CLUSTER_SIZES, ascending, whose slice fits in shared
-    memory (``polar``: B6's; ``quantum``: with the molecule-mass plane)."""
+    memory (``polar``: B6's; ``planes``: its column planes,
+    ``slice_planes``)."""
     return [G for G in CLUSTER_SIZES
-            if _fits(n, dtype, G, nk, ms, polar, quantum)]
+            if _fits(n, dtype, G, nk, ms, polar, planes)]
 
 
-def cluster_size(C, n, dtype, resident, nk=0, ms=0, polar=False,
-                 quantum=False):
+def cluster_size(C, n, dtype, resident, nk=0, ms=0, polar=False, planes=6):
     """CTAs per chain (G) of a B1/B3 launch of C chains over n columns (nk
-    k-vectors, ms slots; ``polar``: of B6, C = 1): the largest G in
-    CLUSTER_SIZES whose slice fits in shared memory and of which the card
-    holds C clusters at once; when none holds C, the smallest G that fits
-    (the clusters then run in waves).  ``resident``: {G: clusters of G
-    CTAs the card holds at once}, which the wrappers take from
-    cudaOccupancyMaxActiveClusters (a cluster lies within one GPC, so an
-    H100 holds fewer than 132 // G).  Raises when no G fits."""
-    fits = fitting_cluster_sizes(n, dtype, nk, ms, polar, quantum)
+    k-vectors, ms slots, ``planes`` column planes; ``polar``: of B6, C =
+    1): the largest G in CLUSTER_SIZES whose slice fits in shared memory
+    and of which the card holds C clusters at once; when none holds C,
+    the smallest G that fits (the clusters then run in waves).
+    ``resident``: {G: clusters of G CTAs the card holds at once}, which
+    the wrappers take from cudaOccupancyMaxActiveClusters (a cluster lies
+    within one GPC, so an H100 holds fewer than 132 // G).  Raises when
+    no G fits."""
+    fits = fitting_cluster_sizes(n, dtype, nk, ms, polar, planes)
     if not fits:
         raise ValueError(f"{n} columns of {dtype} do not fit in "
                          f"{max(CLUSTER_SIZES)} CTAs' shared memory")
@@ -447,17 +497,16 @@ def cluster_size(C, n, dtype, resident, nk=0, ms=0, polar=False,
     return max(within) if within else min(fits)
 
 
-def _check_cluster(cluster, n, dtype, nk, ms, what, polar=False,
-                   quantum=False):
+def _check_cluster(cluster, n, dtype, nk, ms, what, polar=False, planes=6):
     """``cluster`` checked against CLUSTER_SIZES and shared memory."""
     if cluster not in CLUSTER_SIZES:
         raise ValueError(f"{what}: cluster={cluster!r}, the kernel takes "
                          f"one of {CLUSTER_SIZES}")
-    if not _fits(n, dtype, cluster, nk, ms, polar, quantum):
+    if not _fits(n, dtype, cluster, nk, ms, polar, planes):
         static = SMEM_STATIC_PDA if polar else SMEM_STATIC
         raise ValueError(
             f"{what}: cluster={cluster} needs "
-            f"{slice_bytes(n, dtype, cluster, nk, ms, polar, quantum)} "
+            f"{slice_bytes(n, dtype, cluster, nk, ms, polar, planes)} "
             f"bytes of shared memory per CTA, more than "
             f"{SMEM_BYTES - static}")
     return int(cluster)
@@ -498,17 +547,17 @@ def _resident(lib, entry, dt, shape, G, what):
 
 
 def _launch_cluster(lib, entry, cluster, C, n, dt, nk, ms, shape, what,
-                    polar=False, quantum=False):
+                    polar=False, planes=6):
     """The G of a card launch (``cluster``, or ``cluster_size`` over the
     card's resident counts), after checking that at least one cluster of
     that shape can be resident; raises if none can."""
     if cluster is None:
         G = cluster_size(C, n, dt, {
             g: _resident(lib, entry, dt, shape, g, what)
-            for g in fitting_cluster_sizes(n, dt, nk, ms, polar, quantum)},
-            nk, ms, polar, quantum)
+            for g in fitting_cluster_sizes(n, dt, nk, ms, polar, planes)},
+            nk, ms, polar, planes)
     else:
-        G = _check_cluster(cluster, n, dt, nk, ms, what, polar, quantum)
+        G = _check_cluster(cluster, n, dt, nk, ms, what, polar, planes)
     if _resident(lib, entry, dt, shape, G, what) == 0:
         raise RuntimeError(f"{what}: no cluster of {G} CTAs of this shape "
                            "can be resident on the card")
@@ -624,20 +673,59 @@ def _trial_rows(old, mass, ins, u, tmpl, box, move_factor, rot_factor,
 
 
 def _column_pass(rows, use, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
-                 box, box_inv, rc, alpha, cfg, qc=None):
+                 box, box_inv, rc, alpha, cfg, qc=None, form=(None, None)):
     """(rd [C] f64, es [C] f64 without the Coulomb constant, min r2 [C],
     pairs within rc [C], the sums of the squares of the rd and es terms
     [C, 2] f64) of each chain's rows [C,A,3] against its columns: pairs
     within rc for the energies, every pair for the closest approach;
     chains with ``use`` false give zeros, inf and 0.  ``qc``: (the
     molecule's mass [C], the molecule-mass plane [N], beta [C]) under a
-    quantum correction."""
+    quantum correction; ``form``: the (disp, gwp) of ``_form_pairs``."""
     dr = pbc_ops.min_image(rows[:, :, None, :] - pos[:, None, :, :], box,
                            box_inv)
     r2 = torch.sum(dr * dr, dim=-1)                                # [C,A,N]
     m = ok[:, None, :] & site_ok[:, :, None] & use[:, None, None]
     return _pair_sums(r2, m, qi, ei, si, charge, eps, sig, rc, alpha, cfg,
-                      qc)
+                      qc, form)
+
+
+def _pair_slopes(r2, act, qi, ei, si, charge, eps, sig, rc, alpha, cfg,
+                 form=(None, None), h=1e-5):
+    """[C, 2] float64: the sums over each chain's pairs ``act`` [C,A,N]
+    (squared distances r2) of |d rd / d r| and |d es / d r| (es without
+    the Coulomb constant; the quantum correction left out), by a central
+    difference of +-h A in float64: how far the pair sums move when the
+    rows move by a small |dr|, the scale at which two versions whose rows
+    differ in their last place disagree (the kernels' traces)."""
+    r = torch.sqrt(torch.where(r2 > 1e-12, r2, torch.ones_like(r2))).double()
+    d = None if form[0] is None else tuple(
+        tuple(c.double() for c in side) for side in form[0])
+    g = None if form[1] is None else tuple(w.double() for w in form[1])
+    cols = [x.double() for x in (charge, eps, sig)]
+    vals = [pairs._tile_values(
+        (r + sg * h) ** 2, qi.double()[..., None], ei.double()[..., None],
+        si.double()[..., None], *cols, cfg, torch.as_tensor(rc).double(),
+        torch.as_tensor(alpha).double(), disp=d, gwp=g)[:2]
+        for sg in (1.0, -1.0)]
+    zero = torch.zeros((), dtype=torch.float64, device=r2.device)
+    return torch.stack([
+        torch.zeros(r2.shape[0], dtype=torch.float64, device=r2.device)
+        if vals[0][k] is None else torch.where(
+            act, (vals[0][k] - vals[1][k]).abs() / (2.0 * h),
+            zero).sum(dim=(1, 2)) for k in (0, 1)], -1)
+
+
+def _column_slopes(rows, use, pos, ok, site_ok, qi, ei, si, charge, eps,
+                   sig, box, box_inv, rc, alpha, cfg, form=(None, None)):
+    """_pair_slopes of each chain's rows [C,A,3] against its columns, the
+    pairs ``_column_pass`` sums (within rc)."""
+    dr = pbc_ops.min_image(rows[:, :, None, :] - pos[:, None, :, :], box,
+                           box_inv)
+    r2 = torch.sum(dr * dr, dim=-1)
+    act = (ok[:, None, :] & site_ok[:, :, None] & use[:, None, None]
+           & (r2 < rc * rc))
+    return _pair_slopes(r2, act, qi, ei, si, charge, eps, sig, rc, alpha,
+                        cfg, form)
 
 
 def quantum_pairs(r2s, eps, sig, mm_i, mm_j, beta, cfg):
@@ -672,13 +760,13 @@ def quantum_pairs(r2s, eps, sig, mm_i, mm_j, beta, cfg):
 
 
 def _pair_sums(r2, m, qi, ei, si, charge, eps, sig, rc, alpha, cfg,
-               qc=None):
+               qc=None, form=(None, None)):
     """The sums of ``_column_pass`` from the squared distances r2 [C,A,N]
-    and the pair mask m [C,A,N]; ``qc`` as there."""
+    and the pair mask m [C,A,N]; ``qc`` and ``form`` as there."""
     act = m & (r2 < rc * rc)
     rd_u, es_u, _, _ = pairs._tile_values(
         r2, qi[..., None], ei[..., None], si[..., None], charge, eps, sig,
-        cfg, rc, alpha)
+        cfg, rc, alpha, disp=form[0], gwp=form[1])
     if qc is not None and rd_u is not None:
         mm_i, mm_j, beta = qc
         e_m, s_m = lj_ops.mix(ei[..., None], eps, si[..., None], sig,
@@ -706,7 +794,8 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
                         kvecs=None, kcoef=None, sk_re=None, sk_im=None,
                         cluster=None, mol_mass=None, cav_list=None,
                         cav_n=None, eta=None, tmmc_out=None, rot_f=None,
-                        spin=None, p_spin=0.0, trace=None):
+                        spin=None, p_spin=0.0, disp=None, gwp=None,
+                        trace=None, slopes=False):
     """Plain B1: a loop over the K steps of batched tensor ops over the C
     chains and the N columns, with the kernel's arithmetic (the same
     per-species constants, the pair sums and the acceptance in float64).
@@ -717,12 +806,18 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
     ``accept`` [C], ``margin`` [C] = ln u - ln(acceptance), and the work
     the kernel does for it, ``pairs``, ``pairs_in``, ``cols`` and
     ``phases`` [C] (pair evaluations, those within rc, columns passed and
-    k-vector phases), and ``rss`` [C, 2], the root sum of squares of the
-    rd and es terms summed into the step's deltas, in K (the scale of
-    their rounding)."""
+    k-vector phases), ``rss`` [C, 2], the root sum of squares of the rd
+    and es terms summed into the step's deltas, in K (the scale of their
+    rounding), and with ``slopes`` also ``slope`` [C, 2], the sums of
+    their |d/dr| over the same pairs, in K/A (_pair_slopes: the scale at
+    which rows differing in their last place move them; two more float64
+    passes a step)."""
     _refuse_cfg(cfg)
     quantum = _quantum_cols(mol_mass, cfg, pos.shape[1], pos.dtype,
                             pos.device, "run_steps_uvt")[0]
+    _form_cols(cfg, disp, gwp, pos.shape[1], pos.dtype, pos.device,
+               "run_steps_uvt")
+    cols = (disp, gwp)           # the loop's ``disp`` is the move type
     dt, dev = pos.dtype, pos.device
     C, N = alive.shape
     K = uniforms.shape[1]
@@ -809,12 +904,13 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
         has_old, has_new = ~ins & ~sp_k, ~dele & ~sp_k
         # the molecule's mass: the sum of its slot's site masses
         qc = (mi.sum(1), mol_mass, betas) if quantum else None
+        form = _form_pairs(*cols, rows)
         rd_o, es_o, _, in_o, sq_o = _column_pass(
             old, has_old, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
-            box, box_inv, rc, alpha, cfg, qc)
+            box, box_inv, rc, alpha, cfg, qc, form)
         rd_n, es_n, mr2, in_n, sq_n = _column_pass(
             new, has_new, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
-            box, box_inv, rc, alpha, cfg, qc)
+            box, box_inv, rc, alpha, cfg, qc, form)
         drd = rd_n - rd_o
         des = KE * (es_n - es_o)
         if ew:
@@ -888,6 +984,11 @@ def run_steps_uvt_plain(pos, alive, eps, sig, charge, mass, slot_start,
                           "cols": torch.where(run, ok.sum(1), 0),
                           "phases": passes * (kvecs.shape[0] if ew else 0),
                           "rss": torch.sqrt(sq_o + sq_n) * rss_units})
+            if slopes:
+                trace[-1]["slope"] = rss_units * sum(_column_slopes(
+                    rw, u_, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
+                    box, box_inv, rc, alpha, cfg, form)
+                    for rw, u_ in ((old, has_old), (new, has_new)))
         acc_pos = accept & ~sp_k         # a spinflip moves nothing
         vals = torch.stack([drd, des, drec, dslf, dexc, dlrc], dim=1)
         sums[:, :6] += torch.where(acc_pos[:, None], vals,
@@ -927,7 +1028,7 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
                   d_excl, c1, cx, uniforms, cfg, kvecs=None, kcoef=None,
                   sk_re=None, sk_im=None, cluster=None, mol_mass=None,
                   cav_list=None, cav_n=None, eta=None, tmmc_out=None,
-                  rot_f=None, spin=None, p_spin=0.0):
+                  rot_f=None, spin=None, p_spin=0.0, disp=None, gwp=None):
     """B1: K fused µVT steps for C chains, one cluster of G CTAs each.
 
     Per chain: ``pos`` [C,N,3], atom ``alive`` [C,N] bool, ``slot_alive``
@@ -965,16 +1066,21 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     sk_re [C,Nk], sk_im [C,Nk]), and under spinflip spin [C,Ms] int32 as
     a sixth, sums in the reference order (d_rd, d_es_real, d_es_recip,
     d_es_self, d_es_excl, d_lrc, acc disp/ins/del, att disp/ins/del,
-    acc/att spinflip).  The inputs are not modified."""
+    acc/att spinflip).  The inputs are not modified.
+
+    Under an RD form of ops/potentials.py or coulomb gwp: ``disp``, the
+    (c6, c8, c10) columns [N] (disp_expansion), and ``gwp``, the widths
+    [N] (gwp), from pairs.site_columns; the form's library
+    (FORM_STEM, the XT instance) runs the launch."""
     C, N = alive.shape
     ms = slot_start.shape[0]
     ew = cfg.coulomb == "ewald"
     nk = kvecs.shape[0] if ew else 0
-    quantum = quantum_option(cfg) > 0
+    planes = slice_planes(cfg)
     if pos.device.type == "cpu":
         if cluster is not None:      # checked, then ignored by the plain
             _check_cluster(cluster, N, pos.dtype, nk, ms, "run_steps_uvt",
-                           quantum=quantum)
+                           planes=planes)
         return run_steps_uvt_plain(
             pos, alive, eps, sig, charge, mass, slot_start, slot_species,
             slot_alive, tmpl, natoms, box, rc, alpha, betas, move_factor,
@@ -982,12 +1088,13 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
             uniforms, cfg, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re,
             sk_im=sk_im, cluster=cluster, mol_mass=mol_mass,
             cav_list=cav_list, cav_n=cav_n, eta=eta, tmmc_out=tmmc_out,
-            rot_f=rot_f, spin=spin, p_spin=p_spin)
+            rot_f=rot_f, spin=spin, p_spin=p_spin, disp=disp, gwp=gwp)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps_uvt: no kernel for {pos.device}")
     _refuse_cfg(cfg)
     dt, dev = pos.dtype, pos.device
     qc, mm_ptr = _quantum_cols(mol_mass, cfg, N, dt, dev, "run_steps_uvt")
+    stem, form_ptrs = _form_cols(cfg, disp, gwp, N, dt, dev, "run_steps_uvt")
     S, A = tmpl.shape[0], tmpl.shape[1]
     K = uniforms.shape[1]
     if A > MAX_SITES or S > MAX_SPECIES:
@@ -1025,7 +1132,8 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
         _check("eta", eta, dt, (ke_eta,), dev)
     sf = int(_spin_inputs(cfg, rot_f, spin, (C,), ms, dt, dev,
                           "run_steps_uvt"))
-    xt = int(bool(cav or tm or sf))
+    # a form library runs the XT instance, extras on or off
+    xt = int(bool(cav or tm or sf or stem))
     # the XT instance reads p_spin at scal[24]
     scal = torch.cat([_scalar(x, dt, dev) for x in (rc, alpha, move_factor,
                                                      rot_factor, thr2, p_ins)]
@@ -1038,11 +1146,18 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
     sums = torch.empty((C, N_SUMS), dtype=torch.float64, device=dev)
     ortho = int(bool(cfg.ortho_box))
     from mpmc_tpu_torch.ops.cuda import _build
-    lib = _build.library("uvt_xt_kernel" if xt else "uvt_kernel")
-    G = _launch_cluster(lib, "uvt_occupancy", cluster, C, N, dt, nk, ms,
-                        (N, nk, ms, int(quantum), xt), "run_steps_uvt",
-                        quantum=quantum)
-    fn = getattr(lib, "run_steps_uvt_" + _suffix(dt))
+    if stem:
+        lib = _build.library(f"uvt_{stem}_kernel")
+        occ, shape, sfx = ("uvt_occupancy_rd",
+                           (N, nk, ms, int(cfg.coulomb == "gwp"),
+                            int(qc > 0)), "_rd")
+    else:
+        lib = _build.library("uvt_xt_kernel" if xt else "uvt_kernel")
+        occ, shape, sfx = ("uvt_occupancy", (N, nk, ms, int(qc > 0), xt),
+                           "")
+    G = _launch_cluster(lib, occ, cluster, C, N, dt, nk, ms, shape,
+                        "run_steps_uvt", planes=planes)
+    fn = getattr(lib, f"run_steps_uvt{sfx}_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
     # each CTA's replica of its chain's spins; rank 0's is the result
     spins = (spin[:, None, :].expand(C, G, ms).contiguous() if sf
@@ -1057,10 +1172,11 @@ def run_steps_uvt(pos, alive, eps, sig, charge, mass, slot_start,
              _ptr(cav_list) if cav else nullp, _ptr(cav_n) if cav else nullp,
              _ptr(eta) if bias else nullp, _ptr(tmmc_out) if tm else nullp,
              _ptr(rot_f) if sf else nullp, _ptr(spins) if sf else nullp,
-             C, N, ms, S, A, K, nk, G, _RD[cfg.rd_potential],
+             C, N, ms, S, A, K, nk, G, _rd_option(cfg),
              _MIX[cfg.mixing_rule], _ES[cfg.coulomb], ortho, qc, g, g3,
              ke_eta, rows, cav, tm, bias, sf, ctypes.c_double(KE),
-             ctypes.c_double(HBAR2_KB_AMU_A2), _stream(dev))
+             ctypes.c_double(HBAR2_KB_AMU_A2),
+             *(form_ptrs if stem else []), _stream(dev))
     run_steps_uvt.launches += 1
     run_steps_uvt.last_cluster = G
     _raise_on(err, "run_steps_uvt")
@@ -1090,7 +1206,8 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
                     uniforms, cfg, kvecs=None, kcoef=None, sk_re=None,
                     sk_im=None, nve_k0=None, nve_g=0.0, a_max=None,
                     cluster=None, mol_mass=None, rot_f=None, spin=None,
-                    p_spin=0.0, trace=None):
+                    p_spin=0.0, disp=None, gwp=None, trace=None,
+                    slopes=False):
     """Plain B3: a loop over the K steps of batched tensor ops over the C
     chains and the N columns, with the kernel's arithmetic (the pair sums,
     the acceptance and the NVE reservoir in float64).  Arguments and
@@ -1100,11 +1217,13 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
     list that gets one dict per step — ``accept`` [C], ``margin`` [C] = ln
     u - ln(acceptance), and the work the kernel does for it, ``pairs``,
     ``pairs_in``, ``cols`` and ``phases`` [C] (pair evaluations, those
-    within rc, columns passed and k-vector phases), and ``rss`` [C, 2] as
-    for B1."""
+    within rc, columns passed and k-vector phases), and ``rss`` (and with
+    ``slopes`` ``slope``) [C, 2] as for B1."""
     _refuse_cfg(cfg, "run_steps")
     quantum = _quantum_cols(mol_mass, cfg, pos.shape[1], pos.dtype,
                             pos.device, "run_steps")[0]
+    _form_cols(cfg, disp, gwp, pos.shape[1], pos.dtype, pos.device,
+               "run_steps")
     dt, dev = pos.dtype, pos.device
     C, N = pos.shape[0], pos.shape[1]
     K = uniforms.shape[1]
@@ -1151,12 +1270,13 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
                & (col[None, :] < (start + na)[:, None]))
         ok = alive[None, :] & ~own
         qc = (mi.sum(1), mol_mass, betas) if quantum else None
+        form = _form_pairs(disp, gwp, rows)
         rd_o, es_o, _, in_o, sq_o = _column_pass(
             old, use, pos, ok, site_ok, qi, ei, si, charge, eps, sig, box,
-            box_inv, rc, alpha, cfg, qc)
+            box_inv, rc, alpha, cfg, qc, form)
         rd_n, es_n, mr2, in_n, sq_n = _column_pass(
             new, use, pos, ok, site_ok, qi, ei, si, charge, eps, sig, box,
-            box_inv, rc, alpha, cfg, qc)
+            box_inv, rc, alpha, cfg, qc, form)
         drd = rd_n - rd_o
         des = KE * (es_n - es_o)
         if ew:
@@ -1206,6 +1326,10 @@ def run_steps_plain(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms,
                           "cols": torch.where(sp_k, 0, ok.sum(1)),
                           "phases": passes * (kvecs.shape[0] if ew else 0),
                           "rss": torch.sqrt(sq_o + sq_n) * rss_units})
+            if slopes:
+                trace[-1]["slope"] = rss_units * sum(_column_slopes(
+                    rw, use, pos, ok, site_ok, qi, ei, si, charge, eps, sig,
+                    box, box_inv, rc, alpha, cfg, form) for rw in (old, new))
         acc_pair = accept & ~sp_k        # a spinflip moves nothing
         vals = torch.stack([drd, des, drec], dim=1)
         sums[:, :3] += torch.where(acc_pair[:, None], vals,
@@ -1230,7 +1354,7 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
               rc, alpha, betas, move_factor, rot_factor, thr2, uniforms, cfg,
               kvecs=None, kcoef=None, sk_re=None, sk_im=None, nve_k0=None,
               nve_g=0.0, a_max=None, cluster=None, mol_mass=None,
-              rot_f=None, spin=None, p_spin=0.0):
+              rot_f=None, spin=None, p_spin=0.0, disp=None, gwp=None):
     """B3: K fused NVT (or NVE) steps for C chains, one cluster of G CTAs
     each.
 
@@ -1252,7 +1376,9 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
     Under ``cfg.quantum_rotation`` (spinflip, nvt): ``rot_f`` [C, Mv, 2]
     each table molecule's (F_para, F_ortho) in the kernel's dtype,
     ``spin`` [C, Mv] int32 and ``p_spin``, lane 8 < p_spin carving the
-    move out (the kernel's SF instance).
+    move out (the kernel's SF instance).  Under an RD form or coulomb gwp:
+    ``disp`` and ``gwp`` as for ``run_steps_uvt``; the form's library
+    (its SF instance, p_spin 0 without spinflip) runs the launch.
 
     Returns (pos [C,N,3], sums [C,6] float64 = (d_rd, d_es_real,
     d_es_recip, accepted moves, accepted and attempted spinflips), sk_re
@@ -1261,22 +1387,24 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
     C, N = pos.shape[0], pos.shape[1]
     ew = cfg.coulomb == "ewald"
     nk = kvecs.shape[0] if ew else 0
-    quantum = quantum_option(cfg) > 0
+    planes = slice_planes(cfg)
     if pos.device.type == "cpu":
         if cluster is not None:      # checked, then ignored by the plain
             _check_cluster(cluster, N, pos.dtype, nk, 0, "run_steps",
-                           quantum=quantum)
+                           planes=planes)
         return run_steps_plain(
             pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box, rc,
             alpha, betas, move_factor, rot_factor, thr2, uniforms, cfg,
             kvecs=kvecs, kcoef=kcoef, sk_re=sk_re, sk_im=sk_im,
             nve_k0=nve_k0, nve_g=nve_g, a_max=a_max, cluster=cluster,
-            mol_mass=mol_mass, rot_f=rot_f, spin=spin, p_spin=p_spin)
+            mol_mass=mol_mass, rot_f=rot_f, spin=spin, p_spin=p_spin,
+            disp=disp, gwp=gwp)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps: no kernel for {pos.device}")
     _refuse_cfg(cfg, "run_steps")
     dt, dev = pos.dtype, pos.device
     qc, mm_ptr = _quantum_cols(mol_mass, cfg, N, dt, dev, "run_steps")
+    stem, form_ptrs = _form_cols(cfg, disp, gwp, N, dt, dev, "run_steps")
     n_mv = mv_start.shape[0]
     K = uniforms.shape[1]
     nve = cfg.ensemble == "nve"
@@ -1305,20 +1433,29 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
     k0 = _k0_rows(nve_k0, C, dev) if nve else None
     sf = int(_spin_inputs(cfg, rot_f, spin, (C,), n_mv, dt, dev,
                           "run_steps"))
-    # the SF instance reads p_spin at scal[23]
+    # the SF instance reads p_spin at scal[23] (a form library's: 0
+    # without spinflip)
     scal = torch.cat([_scalar(x, dt, dev) for x in (rc, alpha, move_factor,
                                                      rot_factor, thr2)]
                      + [box.reshape(-1),
                         torch.linalg.inv_ex(box)[0].reshape(-1)]
-                     + ([_scalar(p_spin, dt, dev)] if sf else [])
+                     + ([_scalar(p_spin if sf else 0.0, dt, dev)]
+                        if sf or stem else [])
                      ).contiguous()
     out_pos = pos.clone()
     sums = torch.empty((C, N_SUMS_NVT), dtype=torch.float64, device=dev)
     from mpmc_tpu_torch.ops.cuda import _build
-    lib = _build.library("nvt_sf_kernel" if sf else "nvt_kernel")
-    G = _launch_cluster(lib, "nvt_occupancy", cluster, C, N, dt, nk, 0,
-                        (N, nk, int(quantum)), "run_steps", quantum=quantum)
-    fn = getattr(lib, "run_steps_nvt_" + _suffix(dt))
+    if stem:
+        lib = _build.library(f"nvt_{stem}_kernel")
+        occ, shape, sfx = ("nvt_occupancy_rd",
+                           (N, nk, int(cfg.coulomb == "gwp"), int(qc > 0)),
+                           "_rd")
+    else:
+        lib = _build.library("nvt_sf_kernel" if sf else "nvt_kernel")
+        occ, shape, sfx = "nvt_occupancy", (N, nk, int(qc > 0)), ""
+    G = _launch_cluster(lib, occ, cluster, C, N, dt, nk, 0, shape,
+                        "run_steps", planes=planes)
+    fn = getattr(lib, f"run_steps_nvt{sfx}_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
     # each CTA's replica of its chain's spins; rank 0's is the result
     spins = (spin[:, None, :].expand(C, G, n_mv).contiguous() if sf
@@ -1329,11 +1466,11 @@ def run_steps(pos, alive, eps, sig, charge, mass, mv_start, mv_natoms, box,
              _ptr(kcoef) if ew else nullp, _ptr(sk) if ew else nullp,
              _ptr(k0) if nve else nullp, _ptr(sums),
              _ptr(rot_f) if sf else nullp, _ptr(spins) if sf else nullp,
-             C, N, n_mv, A, K, nk, G, _RD[cfg.rd_potential],
+             C, N, n_mv, A, K, nk, G, _rd_option(cfg),
              _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
              int(bool(cfg.ortho_box)), int(nve), qc, sf, ctypes.c_double(KE),
              ctypes.c_double(float(nve_g)), ctypes.c_double(HBAR2_KB_AMU_A2),
-             _stream(dev))
+             *(form_ptrs if stem else []), _stream(dev))
     run_steps.launches += 1
     run_steps.last_cluster = G
     _raise_on(err, "run_steps")
@@ -1398,7 +1535,8 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
                             field_krc=0.0, cluster=None, mol_mass=None,
                             cav_list=None, cav_n=None, d_eta_ins=0.0,
                             d_eta_del=0.0, rot_f=None, spin=None,
-                            p_spin=0.0, trace=None):
+                            p_spin=0.0, disp=None, gwp=None, trace=None,
+                            slopes=False):
     """Plain B6: a loop over the K rows of tensor ops over the N columns
     that stops at the freeze, with the kernel's arithmetic (the pair,
     surrogate and field sums, the constants and the stage-1 test in
@@ -1409,8 +1547,10 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
     the work the kernel does for it, ``pairs``, ``in_old``, ``in_new``,
     ``phases`` and ``cols`` (pair evaluations, those of the current and
     of the trial rows within rc, k-vector phases and surrogate columns),
-    and ``rss``, the root sum of squares of the terms summed into d_rd,
-    d_es_real, d_es_recip and d* (the scale of their rounding)."""
+    ``rss``, the root sum of squares of the terms summed into d_rd,
+    d_es_real, d_es_recip and d* (the scale of their rounding), and with
+    ``slopes`` ``slope``, the sums of |d/dr| of the rd and es terms
+    (_pair_slopes)."""
     _refuse_pda(cfg)
     dt, dev = pos.dtype, pos.device
     N = pos.shape[0]
@@ -1419,6 +1559,7 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
     field = _pda_field(cfg)
     quantum = _quantum_cols(mol_mass, cfg, N, dt, dev,
                             "run_steps_uvt_pda")[0]
+    _form_cols(cfg, disp, gwp, N, dt, dev, "run_steps_uvt_pda")
 
     def t(x):
         return torch.as_tensor(x, dtype=dt, device=dev)
@@ -1537,8 +1678,9 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
         r2_n = torch.sum(dr_n * dr_n, -1)
         m_o, m_n = m & has_old, m & has_new
         qc = ((mi.sum().reshape(1), mol_mass, beta_t) if quantum else None)
+        form = _form_pairs(disp, gwp, rows[None])
         sums = [_pair_sums(r2[None], mm[None], qi[None], ei[None], si[None],
-                           charge, eps, sig, rc, alpha, cfg, qc)
+                           charge, eps, sig, rc, alpha, cfg, qc, form)
                 for r2, mm in ((r2_o, m_o), (r2_n, m_n))]
         drd = float(sums[1][0] - sums[0][0])
         des = KE * float(sums[1][1] - sums[0][1])
@@ -1602,9 +1744,11 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
                     a, v, zero).double() ** 2)) for a, v in terms
                     if v is not None))
 
+            d_a, g_a = _form_pairs(disp, gwp, rows)
             (rd_o, es_o, _, _), (rd_n, es_n, _, _) = [
                 pairs._tile_values(r2, qi[:, None], ei[:, None], si[:, None],
-                                   charge, eps, sig, cfg, rc, alpha)
+                                   charge, eps, sig, cfg, rc, alpha,
+                                   disp=d_a, gwp=g_a)
                 for r2 in (r2_o, r2_n)]
             if quantum and rd_o is not None:
                 e_m, s_m = lj_ops.mix(ei[:, None], eps, si[:, None], sig,
@@ -1622,6 +1766,12 @@ def run_steps_uvt_pda_plain(pos, alive, eps, sig, charge, mass, polar, e0,
                                   KE * rss((in_o, es_o), (in_n, es_n)),
                                   rss((rec_t == rec_t, rec_t)),
                                   0.5 * KE * rss((ok, z_cols))]})
+            if slopes:
+                trace[-1]["slope"] = [float(x) * u for x, u in zip(sum(
+                    _pair_slopes(r2[None], a_[None], qi[None], ei[None],
+                                 si[None], charge, eps, sig, rc, alpha, cfg,
+                                 form)[0]
+                    for r2, a_ in ((r2_o, in_o), (r2_n, in_n))), (1.0, KE))]
         if hit:
             rec[0, 1:6] = torch.tensor([1.0, mt, slot, spf, float(uk[12])],
                                        dtype=torch.float64)
@@ -1643,7 +1793,8 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
                       kvecs=None, kcoef=None, sk_re=None, sk_im=None,
                       field_alpha=0.0, field_krc=0.0, cluster=None,
                       mol_mass=None, cav_list=None, cav_n=None, d_eta_ins=0.0,
-                      d_eta_del=0.0, rot_f=None, spin=None, p_spin=0.0):
+                      d_eta_del=0.0, rot_f=None, spin=None, p_spin=0.0,
+                      disp=None, gwp=None):
     """B6: up to K propose-and-filter µVT steps of one chain from a fixed
     state, frozen at the first stage-1 survivor of the polar delayed
     acceptance (csrc/pda_kernel.cu), on one cluster of G CTAs.
@@ -1676,6 +1827,9 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
     int32 and ``p_spin``: lane 11 < p_spin is a spinflip, which runs its
     full acceptance here (du = d_f, d* = 0, no pass); a surviving flip is
     recorded as move type 3 with zero deltas and rows (the XT instance).
+    Under an RD form or coulomb gwp: ``disp`` and ``gwp`` as for
+    ``run_steps_uvt``; the form's library (its XT instances, the sites
+    padded to 8) runs the launch.
 
     Returns the [8,16] float64 record in the reference's field order: row
     0 n_done, hit, mtype (0/1/2/3 displace/insert/delete/spinflip),
@@ -1691,22 +1845,24 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
     ms = slot_start.shape[0]
     ew = cfg.coulomb == "ewald"
     nk = kvecs.shape[0] if ew else 0
-    quantum = quantum_option(cfg) > 0
+    planes = slice_planes(cfg)
     if pos.device.type == "cpu":
         if cluster is not None:      # checked, then ignored by the plain
             _check_cluster(cluster, N, pos.dtype, nk, ms,
-                           "run_steps_uvt_pda", polar=True, quantum=quantum)
+                           "run_steps_uvt_pda", polar=True, planes=planes)
         return run_steps_uvt_pda_plain(
             *args, kvecs=kvecs, kcoef=kcoef, sk_re=sk_re, sk_im=sk_im,
             field_alpha=field_alpha, field_krc=field_krc, cluster=cluster,
             mol_mass=mol_mass, cav_list=cav_list, cav_n=cav_n,
             d_eta_ins=d_eta_ins, d_eta_del=d_eta_del, rot_f=rot_f,
-            spin=spin, p_spin=p_spin)
+            spin=spin, p_spin=p_spin, disp=disp, gwp=gwp)
     if pos.device.type != "cuda":
         raise ValueError(f"run_steps_uvt_pda: no kernel for {pos.device}")
     _refuse_pda(cfg)
     dt, dev = pos.dtype, pos.device
     qc, mm_ptr = _quantum_cols(mol_mass, cfg, N, dt, dev, "run_steps_uvt_pda")
+    stem, form_ptrs = _form_cols(cfg, disp, gwp, N, dt, dev,
+                                 "run_steps_uvt_pda")
     S, A = tmpl.shape[0], tmpl.shape[1]
     K = uniforms.shape[0]
     if A > MAX_SITES or S > MAX_SPECIES:
@@ -1740,7 +1896,8 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
     bias = int(_pda_bias(cfg))
     sf = int(_spin_inputs(cfg, rot_f, spin, (), ms, dt, dev,
                           "run_steps_uvt_pda"))
-    xt = int(bool(cav or bias or sf))
+    # a form library runs the XT instances, extras on or off
+    xt = int(bool(cav or bias or sf or stem))
     # the XT instance reads the two tilts at scal[28], scal[29] and p_spin
     # at scal[30]
     scal = torch.cat([_scalar(x, dt, dev) for x in (
@@ -1753,11 +1910,18 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
     rec = torch.zeros((8, 16), dtype=torch.float64, device=dev)
     field = _pda_field(cfg)
     from mpmc_tpu_torch.ops.cuda import _build
-    lib = _build.library("pda_xt_kernel" if xt else "pda_kernel")
-    G = _launch_cluster(lib, "pda_occupancy", cluster, 1, N, dt, nk, ms,
-                        (N, nk, ms, A, field, int(quantum), xt),
-                        "run_steps_uvt_pda", polar=True, quantum=quantum)
-    fn = getattr(lib, "run_steps_uvt_pda_" + _suffix(dt))
+    if stem:
+        lib = _build.library(f"pda_{stem}_kernel")
+        occ, shape, sfx = ("pda_occupancy_rd",
+                           (N, nk, ms, A, field, int(cfg.coulomb == "gwp"),
+                            int(qc > 0)), "_rd")
+    else:
+        lib = _build.library("pda_xt_kernel" if xt else "pda_kernel")
+        occ, shape, sfx = ("pda_occupancy",
+                           (N, nk, ms, A, field, int(qc > 0), xt), "")
+    G = _launch_cluster(lib, occ, cluster, 1, N, dt, nk, ms, shape,
+                        "run_steps_uvt_pda", polar=True, planes=planes)
+    fn = getattr(lib, f"run_steps_uvt_pda{sfx}_" + _suffix(dt))
     nullp = ctypes.c_void_p(None)
     err = fn(_ptr(pos), _ptr(alive), _ptr(eps), _ptr(sig), _ptr(charge),
              _ptr(mass), mm_ptr, _ptr(polar), _ptr(e0), _ptr(slot_start),
@@ -1768,10 +1932,11 @@ def run_steps_uvt_pda(pos, alive, eps, sig, charge, mass, polar, e0,
              _ptr(rec), _ptr(cav_list) if cav else nullp,
              _ptr(cav_n) if cav else nullp, _ptr(rot_f) if sf else nullp,
              _ptr(spin) if sf else nullp, N, ms, S, A, K, nk, G,
-             _RD[cfg.rd_potential], _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
+             _rd_option(cfg), _MIX[cfg.mixing_rule], _ES[cfg.coulomb],
              int(bool(cfg.ortho_box)), tk._DAMP[cfg.polar_damp_type], field,
              qc, g, g3, cav, bias, sf, ctypes.c_double(KE),
-             ctypes.c_double(HBAR2_KB_AMU_A2), _stream(dev))
+             ctypes.c_double(HBAR2_KB_AMU_A2), *(form_ptrs if stem else []),
+             _stream(dev))
     run_steps_uvt_pda.launches += 1
     run_steps_uvt_pda.last_cluster = G
     _raise_on(err, "run_steps_uvt_pda")

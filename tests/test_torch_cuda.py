@@ -5,7 +5,8 @@ B1, the fused NVT/NVE kernel B3 — both at every cluster size, B3 after an
 NPT volume move too —, the Thole field kernel B5 and the polar
 delayed-acceptance stage-1 kernel B6; B1, B3 and B6 with the
 Feynman-Hibbs/Kleinert corrections too, B1 and B6 with cavity bias and
-TMMC, their XT instances, and all three with spinflip) against
+TMMC, their XT instances, all three with spinflip, and all three's
+instance of each RD form and of coulomb gwp) against
 their plain versions on the card; B2 and B4 never launched under those
 corrections; the native trajectory reader on a 10.8k-atom trajectory and
 checkpoints of card states with a CUDA generator.
@@ -1761,3 +1762,158 @@ def test_pair_kernels_rd_form_decks(device):
         np.testing.assert_allclose(float(st.energy.total),
                                    float(fresh.energy.total), rtol=1e-9,
                                    atol=1e-6)
+
+
+# the fused kernels' forms: each RD form (disp_expansion damped, with its
+# tail), coulomb gwp with LJ, and disp_expansion with gwp (ten column
+# planes); B1, B3 and B6 run each in its form library
+# gwp with lj under FH2 / FK: the quantum instance of gwp's library
+FUSED_FORMS = RD_FORMS + ("gwp", "disp_expansion+gwp", "gwp+fh2", "gwp+fk")
+
+
+def _fused_form_system(dtype, device, form, ensemble="uvt", capacity=40,
+                       **kw):
+    """The small MOF + H2 system under ``form`` (systems.rd_form_columns;
+    gwp: widths 0.2-0.6 A, numpy seed 17, on every charged site; a
+    QUANTUM key after the "+": that correction too) for the fused path of
+    ``ensemble``, jittered and initialized."""
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=6, n_h2=20, capacity=capacity, dtype=dtype, device=device,
+        **kw)
+    parts = form.split("+")
+    if parts[0] in RD_FORMS:
+        params, cfg = systems.with_rd_form(params, cfg, parts[0], rd_lrc=True,
+                                           damp_dispersion=True)
+    for q in parts[1:]:
+        if q in QUANTUM:
+            cfg = dataclasses.replace(cfg, **QUANTUM[q])
+    if "gwp" in parts:
+        q = params.charge.cpu().numpy()
+        w = np.random.default_rng(17).uniform(0.2, 0.6, q.shape)
+        params = params.replace(gwp_alpha=torch.as_tensor(
+            np.where(q != 0, w, 0.0), dtype=params.eps.dtype, device=device))
+        cfg = dataclasses.replace(cfg, coulomb="gwp")
+    cfg = dataclasses.replace(cfg, ensemble=ensemble, fused_mc=True)
+    state = metropolis.initialize(systems.jittered(params, state, 7),
+                                  params, cfg, thermo)
+    return params, state, cfg, thermo
+
+
+def _rss_tol(trace, n_sums):
+    """[C, n_sums]: 8 float32 epsilons x the root sum of squares of the rd
+    and es terms of the accepted steps (the plain trace's rss) in the
+    first two columns — the scale at which the two versions' per-term
+    roundings drift apart (chip_smoke._rss_tol)."""
+    sq = sum(torch.where(t["accept"][:, None], t["rss"] ** 2,
+                         torch.zeros_like(t["rss"])) for t in trace)
+    tol = np.zeros((sq.shape[0], n_sums))
+    tol[:, :2] = 8 * np.finfo(np.float32).eps * np.sqrt(sq.cpu().numpy())
+    return tol
+
+
+@pytest.mark.parametrize("form", FUSED_FORMS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_uvt_kernel_rd_forms_match_plain(device, dtype, form):
+    """B1's form instance (uvt_<form>_kernel) on two chains against its
+    plain version on one [2, 200, 16] table: equal decisions and slot
+    aliveness, positions within 1e-9 / 1e-4 A, the sums within rel 1e-10
+    (f64) or the classical float32 rule plus _rss_tol; the C columns and
+    the widths passed, the launch counted."""
+    params, state, cfg, thermo = _fused_form_system(dtype, device, form)
+    u = torch.as_tensor(np.random.default_rng(5).random((2, 200, 16)),
+                        dtype=cfg.tdtype, device=device)
+    args, kw = metropolis.fused_uvt_launch_args(
+        multichain.stack_states(state, 2), params, cfg, thermo, u,
+        metropolis.uvt_fused_tables(params, cfg))
+    assert (kw["disp"] is not None) == form.startswith("disp")
+    assert (kw["gwp"] is not None) == ("gwp" in form.split("+"))
+    assert (kw["mol_mass"] is not None) == (form.split("+")[-1] in QUANTUM)
+    before = mk.run_steps_uvt.launches
+    k = mk.run_steps_uvt(*args, **kw)
+    torch.cuda.synchronize(device)
+    assert mk.run_steps_uvt.launches == before + 1
+    trace = []
+    p = mk.run_steps_uvt_plain(*args, **kw, trace=trace)
+    k_sums, p_sums = k[2].cpu().numpy(), p[2].cpu().numpy()
+    np.testing.assert_array_equal(k_sums[:, 6:12], p_sums[:, 6:12])
+    assert p_sums[:, 6:9].sum() > 20 and p_sums[:, 7:9].sum() > 0
+    assert torch.equal(k[1], p[1])
+    f64 = dtype == "float64"
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                               rtol=0, atol=1e-9 if f64 else 1e-4)
+    tol = (np.maximum(1e-10 * np.abs(p_sums[:, :6]), 1e-8) if f64 else
+           2e-5 * np.abs(p_sums[:, :6])
+           + 2e-3 * np.sqrt(p_sums[:, 6:9].sum(1, keepdims=True) + 1.0)
+           + _rss_tol(trace, 6))
+    assert (np.abs(k_sums[:, :6] - p_sums[:, :6]) <= tol).all()
+
+
+@pytest.mark.parametrize("form", FUSED_FORMS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_nvt_kernel_rd_forms_match_plain(device, dtype, form):
+    """B3's form instance (nvt_<form>_kernel) on two chains against its
+    plain version on one [2, 200, 16] table: test_nvt_kernel_quantum_
+    matches_plain's checks, plus _rss_tol in float32."""
+    params, state, cfg, thermo = _fused_form_system(dtype, device, form,
+                                                    "nvt", capacity=20)
+    u = torch.as_tensor(np.random.default_rng(3).random((2, 200, 16)),
+                        dtype=cfg.tdtype, device=device)
+    args, kw = metropolis.fused_nvt_launch_args(
+        multichain.stack_states(state, 2), params, cfg, thermo, u,
+        metropolis.nvt_fused_tables(params, state.mol_alive))
+    before = mk.run_steps.launches
+    k = mk.run_steps(*args, **kw)
+    torch.cuda.synchronize(device)
+    assert mk.run_steps.launches == before + 1
+    trace = []
+    p = mk.run_steps_plain(*args, **kw, trace=trace)
+    k_sums, p_sums = k[1].cpu().numpy(), p[1].cpu().numpy()
+    np.testing.assert_array_equal(k_sums[:, 3:], p_sums[:, 3:])
+    assert (p_sums[:, 3] > 10).all()
+    f64 = dtype == "float64"
+    np.testing.assert_allclose(k[0].cpu().numpy(), p[0].cpu().numpy(),
+                               rtol=0, atol=1e-9 if f64 else 1e-4)
+    tol = (np.maximum(1e-10 * np.abs(p_sums[:, :3]), 1e-8) if f64 else
+           2e-5 * np.abs(p_sums[:, :3])
+           + 2e-3 * np.sqrt(p_sums[:, 3:4] + 1.0) + _rss_tol(trace, 3))
+    assert (np.abs(k_sums[:, :3] - p_sums[:, :3]) <= tol).all()
+
+
+@pytest.mark.parametrize("form", FUSED_FORMS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pda_kernel_rd_forms_match_plain(device, dtype, form):
+    """B6's form instance (pda_<form>_kernel) on the polar MOF + H2
+    system: a forced survivor of each move type, a natural table and a
+    survivor-free one, held to _pda_agree's rules."""
+    params, state, cfg, thermo = _fused_form_system(dtype, device, form,
+                                                    polarization=True)
+    cfg = dataclasses.replace(cfg, polar_delayed=True)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    rng = np.random.default_rng(13)
+
+    def table(u):
+        return torch.as_tensor(u, dtype=cfg.tdtype, device=device)
+
+    def launch(u):
+        args, kw = metropolis.pda_launch_args(state, params, cfg, thermo, u,
+                                              tables)
+        return mk.run_steps_uvt_pda(*args, **kw).cpu().numpy(), args, kw
+
+    us = []
+    for lane8 in (0.9, 0.1, 0.4):
+        u = rng.random((mk.PDA_SEG, 16))
+        u[0, 4], u[0, 8] = 1e-30, lane8
+        us.append(table(u))
+    us.append(table(rng.random((mk.PDA_SEG, 16))))
+    us.append(pda_survivor_free(lambda u: launch(u)[0],
+                                table(rng.random((mk.PDA_SEG, 16))), rng))
+    hits = 0
+    for u in us:
+        k, args, kw = launch(u)
+        torch.cuda.synchronize(device)
+        trace = []
+        _pda_agree(k, mk.run_steps_uvt_pda_plain(*args, **kw, trace=trace),
+                   trace, dtype == "float64")
+        hits += int(k[0, 1])
+    assert hits >= 3

@@ -189,8 +189,8 @@ RD_FORMS = ("lj", "none", "sg", "dreiding", "b14_7", "disp_expansion")
 def test_gate_matrix_matches_the_reference():
     """Over every combination of FH, FK, FH order and RD form (float32):
     pair_kernel.supported equals the reference's B2/B4 gate; the fused
-    kernels' _supported_physics equals the reference's on the port's RD
-    forms (lj, none) and refuses the others (ROADMAP A12a-2b)."""
+    kernels' _supported_physics equals the reference's on every RD form
+    (the fused kernels carry them all)."""
     base = jsystems.mof_h2_gcmc(n_side=3, n_h2=2, capacity=4)[2]
     n_fused = 0
     for rd in RD_FORMS:
@@ -204,11 +204,8 @@ def test_gate_matrix_matches_the_reference():
                     assert tpk.supported(tc) == jpk.supported(c), c
                     want = jmk._supported_physics(c)
                     got = tmk._supported_physics(tc)
-                    if rd in ("lj", "none"):
-                        assert got == want, (rd, fh, fk, order)
-                        n_fused += got and (fh or fk)
-                    else:
-                        assert not got
+                    assert got == want, (rd, fh, fk, order)
+                    n_fused += got and (fh or fk)
     assert n_fused == 6          # lj with FH and/or FK, either order
 
 
@@ -335,9 +332,9 @@ def test_molecule_mass_plane_fits_the_bench_system(polar):
     for G in tmk.CLUSTER_SIZES:
         nloc = -(-n // G)
         extra = -(-(7 * nloc * 4) // 16) * 16 - -(-(6 * nloc * 4) // 16) * 16
-        assert (tmk.slice_bytes(n, torch.float32, G, nk, ms, polar, True)
+        assert (tmk.slice_bytes(n, torch.float32, G, nk, ms, polar, 7)
                 - tmk.slice_bytes(n, torch.float32, G, nk, ms, polar)
                 == extra)
-    fits = tmk.fitting_cluster_sizes(n, torch.float32, nk, ms, polar, True)
+    fits = tmk.fitting_cluster_sizes(n, torch.float32, nk, ms, polar, 7)
     assert 16 in fits
     assert fits == tmk.fitting_cluster_sizes(n, torch.float32, nk, ms, polar)

@@ -256,8 +256,8 @@ def test_gates_agree_with_the_reference():
     """supported / supported_multi against mc_kernel.supported /
     supported_multi on the port's surface (Feynman-Hibbs and spinflip
     included: refused on the monatomic fluid and under nve, taken on the
-    MOF + H2 rotors), and False on what the port refuses (the other RD
-    forms)."""
+    MOF + H2 rotors; the RD forms, sg here, taken as the reference
+    takes them)."""
     cases = []
     p, s, c, t = _lj()
     pm, sm, cm, tmo = _mof()
@@ -268,23 +268,19 @@ def test_gates_agree_with_the_reference():
                    {"ensemble": "npt"}, {"dtype": "float64"},
                    {"polarization": True}, {"feynman_hibbs": True},
                    {"quantum_rotation": True},
-                   {"quantum_rotation": True, "ensemble": "nve"}):
+                   {"quantum_rotation": True, "ensemble": "nve"},
+                   {"rd_potential": "sg"}):
             cases.append((params, dataclasses.replace(cfg, **kw), True))
-        for kw in ({"rd_potential": "sg"},):
-            cases.append((params, dataclasses.replace(cfg, **kw), False))
     P, PM = convert.from_jax(p, s, c, t)[0], convert.from_jax(
         pm, sm, cm, tmo)[0]
     n_true = 0
-    for params, cfg, same in cases:
+    for params, cfg, _ in cases:
         tp = P if params is p else PM
         tc = convert.config_from(cfg)
         for jgate, tgate in ((jmk.supported, tmk.supported),
                              (jmk.supported_multi, tmk.supported_multi)):
             got = tgate(tc, tp)
-            if same:
-                assert got == jgate(cfg, params), (cfg, tgate)
-            else:
-                assert not got, (cfg, tgate)
+            assert got == jgate(cfg, params), (cfg, tgate)
             n_true += got
     assert n_true >= 8
 

@@ -189,19 +189,19 @@ REFUSED = {"cavity_bias": ({"cavity_bias": True}, None),
            "tmmc": ({"tmmc": True, "tmmc_bias": True}, None),
            "quantum_rotation": ({"quantum_rotation": True}, None),
            "feynman_hibbs": ({"feynman_hibbs": True}, None),
-           "rd_sg": ({"rd_potential": "sg"}, "A12a-2b")}
+           "rd_sg": ({"rd_potential": "sg"}, None)}
 
 
 @pytest.mark.parametrize("flag", list(REFUSED))
 def test_b6_refuses_a11_features(flag):
     """What B6 does not carry raises NotImplementedError naming the
-    ROADMAP item, in the plain version too: the RD forms beyond lj/none
-    (A12a-2b).  Feynman-Hibbs, cavity bias, TMMC and spinflip, once
-    refused, run (item None): with the molecule-mass plane, the open-cell
-    list, the tmmc_bias tilts or the rotor table and spins B6's plain
-    version gives a record; without the plane, the list or the table it
-    raises (TMMC is collected by the chunk function, and its tilts default to
-    0)."""
+    ROADMAP item, in the plain version too.  Feynman-Hibbs, cavity bias,
+    TMMC, spinflip and the RD forms (sg here), once refused, run (item
+    None): with the molecule-mass plane, the open-cell list, the
+    tmmc_bias tilts or the rotor table and spins B6's plain version gives
+    a record; without the plane, the list or the table it raises (TMMC is
+    collected by the chunk function, and its tilts default to 0; sg reads
+    no column)."""
     P, S, C, T = convert.from_jax(*jax_system("direct"))
     cfg = tmk.pda_effective_cfg(C, P)
     u = torch.as_tensor(np.random.default_rng(0).random((SEG, 16)),
@@ -220,7 +220,8 @@ def test_b6_refuses_a11_features(flag):
                 "quantum_rotation": ("needs rot_f and spin", dict(
                     rot_f=torch.zeros((len(args[8]), 2)),
                     spin=torch.zeros(len(args[8]), dtype=torch.int32),
-                    p_spin=0.5))}[flag]
+                    p_spin=0.5)),
+                "rd_sg": (None, {})}[flag]
         if need[0] is not None:
             with pytest.raises(ValueError, match=need[0]):
                 tmk.run_steps_uvt_pda(*args, **kw)

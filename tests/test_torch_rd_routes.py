@@ -2,11 +2,12 @@
 trajectory of the port (float32) against the reference's fused µVT kernel
 in interpret mode on one numpy-made uniform table (the same accepts and
 the same molecule-count path, the disp_expansion tail's count-dependent
-delta included), the fused gates of B1, B3 and B6 closed to each form,
-and every fused route raising NotImplementedError (ROADMAP A12a-2b) where
-the reference's gate would take a fused kernel — but where the reference
-too takes the scan path (float64, polarization without delayed
-acceptance), which runs with its WARNING."""
+delta included), the fused gates of B1, B3 and B6 equal to the
+reference's for each form, every fused route running the form's plain
+B1, B3 or B6 with its log line where the reference's gate would take a
+fused kernel, the scan path where the reference too takes it (float64,
+polarization without delayed acceptance, with its WARNING), and the
+library PT drivers over B1 and B3 under disp_expansion."""
 import dataclasses
 import io
 
@@ -26,6 +27,7 @@ from mpmc_tpu_torch.mc import metropolis as tm  # noqa: E402
 from mpmc_tpu_torch.mc import run as trun  # noqa: E402
 from mpmc_tpu_torch.ops.cuda import mc_kernel as tmk  # noqa: E402
 from mpmc_tpu_torch.parallel import replica  # noqa: E402
+from mpmc_tpu_torch.state import slice_chain  # noqa: E402
 from torch_rd import FORMS, mof  # noqa: E402
 
 torch.set_num_threads(1)
@@ -98,10 +100,10 @@ GATES = ("supported_uvt", "supported", "supported_npt", "supported_multi",
 @pytest.mark.parametrize("rd,coulomb", [(f, "ewald") for f in FORMS]
                          + [("lj", "gwp")])
 def test_fused_gates_stay_closed(rd, coulomb):
-    """Each fused gate of the port is false for every new form, on the
-    configuration (µVT, NVT, NVE, NPT, polar delayed acceptance) where it
-    holds with LJ under Ewald — and the reference's holds with the
-    form."""
+    """Each fused gate of the port equals the reference's for every form:
+    on the configuration (µVT, NVT, NVE, NPT, polar delayed acceptance)
+    where it holds with LJ under Ewald, the port's gate and the
+    reference's hold with the form too."""
     p, s, c, t = mof(None, "float32")
     P = convert.from_jax(p, s, c, t)[0]
     lj_frameless = mof(None, "float32", n_h2=8)
@@ -122,10 +124,13 @@ def test_fused_gates_stay_closed(rd, coulomb):
         fn = getattr(tmk, gate)
         assert fn(convert.config_from(base), tparams), gate
         new = dataclasses.replace(base, rd_potential=rd, coulomb=coulomb)
-        assert not fn(convert.config_from(new), tparams), (gate, rd)
+        assert fn(convert.config_from(new), tparams), (gate, rd)
         if gate != "supported_uvt_polar_da":
             ref = getattr(jmk, gate)
             assert ref(new, params), (gate, rd)
+        # the physics surface itself, form by form
+        assert (tmk._supported_physics(convert.config_from(new))
+                == jmk._supported_physics(new)), (gate, rd)
 
 
 def _no_framework(params):
@@ -155,20 +160,47 @@ def _deck(tmp_path, *lines, n_h2=4):
     return deck
 
 
+# each route's log line and the plain kernel it runs
+ROUTES = {"uvt": ("single-chain fused µVT kernel", "run_steps_uvt_plain"),
+          "nvt": ("single-chain fused NVT kernel", "run_steps_plain"),
+          "chains": ("chain-interleaved", "run_steps_uvt_plain"),
+          "nvt-chains": ("chain-interleaved", "run_steps_plain"),
+          "pt": ("on-device swaps (R=2)", "run_steps_uvt_plain"),
+          "pt-fugacity": ("on-device swaps (R=2)", "run_steps_uvt_plain"),
+          "pda": ("polar delayed-acceptance stage-1 kernel",
+                  "run_steps_uvt_pda_plain")}
+
+
 @pytest.mark.parametrize("lines", [
     ("fused_mc on",), ("fused_mc on", "ensemble nvt"),
     ("fused_mc on", "chains 2"), ("fused_mc on", "ensemble nvt", "chains 2"),
     ("fused_mc on", "parallel_tempering on", "n_replicas 2"),
     ("fused_mc on", "pt_fugacity on", "n_replicas 2"),
     ("fused_mc on", "polarization on", "polar_delayed on")],
-    ids=["uvt", "nvt", "chains", "nvt-chains", "pt", "pt-fugacity", "pda"])
-def test_fused_routes_refuse_naming_a12a2b(tmp_path, lines):
+    ids=list(ROUTES))
+def test_fused_routes_refuse_naming_a12a2b(tmp_path, lines, monkeypatch,
+                                          request):
     """Under fused_mc every route the reference would fuse with
-    disp_expansion raises NotImplementedError naming ROADMAP A12a-2b."""
+    disp_expansion runs with --cpu on the plain B1, B3 or B6 of the form,
+    the C6/C8/C10 columns passed, and logs its fused route and the form
+    instances."""
+    route = request.node.callspec.id
+    want, plain = ROUTES[route]
+    calls = []
+    orig = getattr(tmk, plain)
+
+    def counted(*a, **k):
+        calls.append(k.get("disp") is not None)
+        return orig(*a, **k)
+    monkeypatch.setattr(tmk, plain, counted)
     deck = _deck(tmp_path, *lines)
-    with pytest.raises(NotImplementedError, match="A12a-2b"):
-        trun.run(input_script.parse_file(str(deck)), log=io.StringIO(),
-                 device="cpu")
+    log = io.StringIO()
+    trun.run(input_script.parse_file(str(deck)), log=log, device="cpu")
+    text = log.getvalue()
+    assert want in text and "WARNING" not in text, text
+    assert "fused_mc: rd disp_expansion / coulomb ewald run in the fused " \
+        "kernels' form instances (uvt_disp_kernel" in text
+    assert calls and all(calls)
 
 
 @pytest.mark.parametrize("lines,warning", [
@@ -190,11 +222,22 @@ def test_scan_routes_run(tmp_path, lines, warning):
 
 
 def test_library_pt_drivers_refuse_naming_a12a2b():
-    """run_parallel_tempering_fused and _fused_multi raise naming A12a-2b
-    on a disp_expansion µVT system the reference's drivers would run."""
+    """run_parallel_tempering_fused and _fused_multi run a disp_expansion
+    µVT system as the reference's drivers would: two rounds of 4 steps
+    over a 2-rung ladder on the plain B1 of the form, each replica's
+    carried energy equal to a fresh initialize (rel 1e-4 in float32), the
+    ladder kept."""
     p, s, c, t = mof("disp_expansion", "float32", initialize=True, **DISP)
     P, S, C, T = convert.from_jax(p, s, c, t)
     for fn in (replica.run_parallel_tempering_fused,
                replica.run_parallel_tempering_fused_multi):
-        with pytest.raises(NotImplementedError, match="A12a-2b"):
-            fn(P, S, C, T, [77.0, 90.0], 1, 4)
+        states, temps, _ = fn(P, S, C, T, [77.0, 90.0], 2, 4)
+        assert sorted(np.asarray(temps).tolist()) == [77.0, 90.0]
+        if fn is replica.run_parallel_tempering_fused_multi:
+            states = [slice_chain(states, i) for i in range(2)]
+        for st in states:
+            assert int(st.step) == 8
+            fresh = tm.initialize(st, P, C, T)
+            for k in ("rd", "lrc", "es_real", "es_recip"):
+                assert float(getattr(st.energy, k)) == pytest.approx(
+                    float(getattr(fresh.energy, k)), rel=1e-4, abs=1e-3), k

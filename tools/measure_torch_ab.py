@@ -44,9 +44,14 @@ through its own wrappers at their default launch shape (CUDA events,
 median of 5 launches of 1000 steps, float32, per step): B1 on the 10.8k
 bench system at C = 1 and 32 chains, B3 on the 10.0k MOF + H2 system at
 C = 1 and 16 chains and on the 10k LJ fluid at C = 1 (the systems of its
-chip_smoke.py), keeping each launch's outputs in <out.json>.b13.pt and
-the classical B1, B3, B6 and pair libraries' ptxas lines in <out.json>;
-the classical B2's outputs (row_start F and 0) and B4's (phase 3's rows),
+chip_smoke.py), keeping each launch's outputs in <out.json>.b13.pt, with
+one float32 launch's outputs of each other instance of B1, B3 and B6 (QC:
+FH2 / FH4 / FH2; XT: B1 and B6 with cavity bias and TMMC; spinflip: B1's
+XT and B3's SF instance); the ptxas lines of PTXAS_LIBRARIES (the
+classical, QC, XT and SF libraries of B1, B3 and B6, and the pair
+libraries of every RD form) in <out.json>; the classical B2's outputs
+(row_start F and 0) and B4's (phase 3's rows), and each RD form's B2 and
+B4 outputs on the bench system under the form (its chip_smoke._rd_bench),
 float64 and float32, in <out.json>.b24.pt, with B2's ms per call and on
 the card alone; ``--compare-phases`` prints these files too and fails
 unless the B1 and B3 outputs are equal bit for bit (B3's sums on the
@@ -326,6 +331,7 @@ def measure_times(checkout, out):
                 multichain.stack_states(state, C), params, cfg, thermo, u,
                 tables)
             time(f"B3 {kind} C={C}", mk.run_steps, args, kw)
+    _instances(cs, dev, outs)
     # the classical B2 (row_start F and 0) and B4 (phase 3's rows): outputs
     # in float64 and float32, B2's ms per call and on the card alone
     from mpmc_tpu_torch.ops import pairs
@@ -348,9 +354,10 @@ def measure_times(checkout, out):
                         *args, row_start=rs), dev),
                     "device_ms": _time_device(lambda: pk.pair_terms(
                         *args, row_start=rs), dev, 50)}
+    b24.update(_form_pair_outputs(cs, dev))
     from mpmc_tpu_torch.ops.cuda import _build
     r["ptxas"] = {}
-    for name in ("uvt_kernel", "nvt_kernel", "pda_kernel", "pair_kernel"):
+    for name in PTXAS_LIBRARIES:
         text = _build.target(name).with_suffix(".ptxas.txt").read_text()
         r["ptxas"][name] = [ln.strip() for ln in text.splitlines()
                             if "registers" in ln or "spill" in ln]
@@ -586,6 +593,125 @@ def measure_kernels(checkout, out, decks, scan_decks, polar_chains=False):
     with open(out, "w") as f:
         json.dump(r, f, indent=1)
     _report_kernels(checkout, r)
+
+
+# the libraries whose ptxas lines --times keeps: the classical, QC, XT and
+# SF instances of B1, B3 and B6 and B2 and B4 of every RD form
+PTXAS_LIBRARIES = ("uvt_kernel", "uvt_xt_kernel", "nvt_kernel",
+                   "nvt_sf_kernel", "pda_kernel", "pda_xt_kernel",
+                   "pair_kernel", "pair_sg_kernel", "pair_dreiding_kernel",
+                   "pair_b14_7_kernel", "pair_disp_kernel")
+
+
+def _instances(cs, dev, outs):
+    """The outputs, kept in ``outs``, of one float32 launch of each other
+    instance of B1, B3 and B6 through the checkout's own wrappers (the
+    checkout's chip_smoke.py systems, numpy-seeded tables): the QC
+    instances (B1 FH2, B3 FH4, B6 FH2), the XT instances (B1 and B6 with
+    cavity bias and TMMC) and the spinflip ones (B1's XT, B3's SF)."""
+    import dataclasses
+
+    import torch
+
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    f32 = torch.float32
+
+    def table(shape, seed):
+        return torch.as_tensor(np.random.default_rng(seed).random(shape),
+                               dtype=f32, device=dev)
+
+    def keep(label, launch, args, kw):
+        outs[label] = [x.cpu() for x in launch(*args, **kw)
+                       if x is not None]
+
+    def uvt(label, system, seed):
+        params, state, cfg, thermo = system
+        args, kw = metropolis.fused_uvt_launch_args(
+            multichain.stack_states(state, 1), params, cfg, thermo,
+            table((1, 1000, 16), seed), metropolis.uvt_fused_tables(params,
+                                                                    cfg))
+        keep(label, mk.run_steps_uvt, args, kw)
+
+    def nvt(label, system, seed):
+        params, state, cfg, thermo = system
+        args, kw = metropolis.fused_nvt_launch_args(
+            multichain.stack_states(state, 1), params, cfg, thermo,
+            table((1, 1000, 16), seed),
+            metropolis.nvt_fused_tables(params, state.mol_alive))
+        keep(label, mk.run_steps, args, kw)
+
+    def pda(label, system, seed):
+        params, state, cfg, thermo = system
+        cfg_eff = mk.pda_effective_cfg(cfg, params)
+        args, kw = metropolis.pda_launch_args(
+            state, params, cfg_eff, thermo, table((mk.PDA_SEG, 16), seed),
+            metropolis.uvt_fused_tables(params, cfg_eff))
+        outs[label] = [mk.run_steps_uvt_pda(*args, **kw).cpu()]
+
+    def init(system, **extra):
+        params, state, cfg, thermo = system
+        cfg = dataclasses.replace(cfg, **extra)
+        return (params, metropolis.initialize(state, params, cfg, thermo),
+                cfg, thermo)
+
+    fh2 = {"feynman_hibbs": True}
+    mof = cs.bench_system("float32", dev)
+    uvt("B1 qc fh2", init(mof, **fh2), 11)
+    uvt("B1 xt", cs._xt_system(dev, 5), 12)
+    sf = cs._with_sf(init(mof))
+    sf = (sf[0], cs._rotor_table(sf, dev)[0], sf[2], sf[3])
+    uvt("B1 xt spinflip", sf, 13)
+    nvt_mof = cs.nvt_system("mof", "float32", dev)
+    nvt("B3 qc fh4", init(nvt_mof, feynman_hibbs=True,
+                          feynman_hibbs_order=4), 14)
+    sf = cs._with_sf(nvt_mof)
+    sf = (sf[0], cs._rotor_table(sf, dev)[0], sf[2], sf[3])
+    nvt("B3 sf", sf, 15)
+    polar = init(cs.polar_system("float32", dev), polar_delayed=True,
+                 fused_mc=True)
+    pda("B6 qc fh2", init(polar, **fh2), 16)
+    pda("B6 xt", cs._xt_system(dev, 6, polar=True), 17)
+    print(f"other instances: {len(outs)} launches' outputs kept",
+          flush=True)
+
+
+def _form_pair_outputs(cs, dev):
+    """B2 (row_start F and 0) and B4 (an H2's current rows and a trial
+    beside the framework) of each RD form on the checkout's bench system
+    under the form (its chip_smoke._rd_bench), float64 and float32."""
+    import torch
+
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops import pairs
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    saved = {}
+    for form in cs.RD_FORMS:
+        for dtype in ("float64", "float32"):
+            params, state, cfg, _ = cs._rd_bench(form, dtype, dev)
+            disp, _ = pairs.site_columns(params, cfg)
+            alive = state.atom_alive(params)
+            scal = pairs.pair_scalars(state.box, cfg)
+            args = (state.pos, params.charge, params.eps, params.sig,
+                    params.mol_id32, alive,
+                    params.mol_frozen[params.mol_id], scal, cfg)
+            for rs in (metropolis.frozen_refresh_rows(params, cfg), 0):
+                saved[f"b2/{form}/{dtype}/{rs}"] = pk.pair_terms(
+                    *args, row_start=rs, disp=disp).cpu()
+            h2 = int(np.flatnonzero(
+                (params.mol_species >= 0).cpu().numpy()
+                & state.mol_alive.cpu().numpy())[0])
+            near = state.pos[0] + torch.tensor([2.0, 0.31, 0.17],
+                                               dtype=cfg.tdtype, device=dev)
+            for label, rows in (("H2", None),
+                                ("trial", near + params.species_pos[0])):
+                saved[f"b4/{form}/{dtype}/{label}"] = pk.mol_pair(
+                    state.pos, params.charge, params.eps, params.sig,
+                    params.mol_id32, alive, params.mol_atoms,
+                    params.mol_natoms, torch.tensor(h2, device=dev), rows,
+                    scal, cfg, disp=disp).cpu()
+    return saved
 
 
 def _b4_outputs(cs, dev):
