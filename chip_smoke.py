@@ -10,7 +10,9 @@ Phases (any failure raises, so the exit code is non-zero):
    versions on the 10.8k-atom bench system (MOF lattice n_side=21 + 512
    H2 slots), float32 and float64, with CUDA-event timings per call and
    on the card alone (time_device), and the launch floor (an empty kernel
-   timed the same way);
+   timed the same way); B4's launch shape (mol_pair_plan) and ptxas's
+   registers, spills and shared memory of its two kernels in f32 and
+   f64;
 4. B1 — the fused µVT kernel (run_steps_uvt, one thread-block cluster of
    G CTAs per chain) against its plain version on the same system, at
    every cluster size G whose slice fits: one numpy-seeded [C=2, K=256,
@@ -145,11 +147,15 @@ Phases (any failure raises, so the exit code is non-zero):
    TMMC attempts == insert + delete attempts, the carried energy against
    a fresh recompute;
 23. the rotor table (phase_qrot_table) — B4 at position stride 0 over the
-   512 orientations of 4 rotors of the bench system against its plain
-   version and bit for bit against the same launch over an expanded,
-   copied pos; one 64-rotor launch timed; a refresh of DECK's 256 rotors
-   timed (B4 and the host eigensolves apart); 8 rotors' F_para, F_ortho
-   against CPU float64 within the Weyl bound of their grids' |dV|;
+   512 orientations of the first rotors of the bench system past the
+   card's grid_min (B4's regime 1) against its plain version and bit for
+   bit against the same launch over an expanded, copied pos (regime 2);
+   the refresh's one launch over all 256 rotors (C = 131,072) bit for bit
+   its four 64-rotor launches and the expanded launch on its first and
+   last 8,192 chains; both launches timed beside the bound; a refresh of
+   DECK's 256 rotors timed (B4 and the host eigensolves apart, one B4
+   launch); 8 rotors' F_para, F_ortho against CPU float64 within the Weyl
+   bound of their grids' |dV|;
 24. spinflip kernels (phase_sf_kernels) — B1's XT instance with spinflip
    at C = 1 (G = 16) and at C = 32 with cavity bias and TMMC too, B3's SF
    instance on the MOF + H2 NVT system at C = 1 and 16, B6's XT instance
@@ -166,9 +172,11 @@ Phases (any failure raises, so the exit code is non-zero):
    form (sg, dreiding, b14_7, disp_expansion damped with its tail) on the
    bench system with its LJ wells mapped to the form
    (systems.rd_form_columns): B2 at row_start F and 0, B4 on an H2's rows
-   and a trial, over 128 chains and at position stride 0 (4 rotors' 512
-   orientations; one 64-rotor launch timed), each against its plain
-   version in float64 and float32; times and bounds (OPS_RD_*);
+   and a trial, over 128 chains and at position stride 0 (the rotors'
+   512 orientations past grid_min, regime 1, and bit for bit the
+   expanded launch; one 64-rotor launch timed), each against its plain
+   version in float64 and float32; times and bounds (OPS_RD_*), B4's
+   launch shapes and ptxas lines;
 27. the RD decks (phase_rd_decks) — the disp_expansion µVT scan deck
    (1,000 steps, C10 from extrapolate_disp_coeffs), its ``chains 16``
    deck (200), its Thole-polar scan deck (100), a ``gwp on`` deck (200,
@@ -490,6 +498,24 @@ def phase_build():
     return secs
 
 
+def _b4_ptxas(lib):
+    """ptxas's lines of B4's two kernels in library ``lib`` (a pair
+    library): {"grid f32": "registers ..., spills ...", ...}."""
+    import re
+    from mpmc_tpu_torch.ops.cuda import _build
+    out, cur = {}, None
+    for ln in _build.target(lib).with_suffix(
+            ".ptxas.txt").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"mol_pair_(grid|cluster)_kernelI([fd])", ln)
+            cur = (f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'f64'}"
+                   if m else None)
+        elif cur and ("registers" in ln or "spill" in ln):
+            out[cur] = (out.get(cur, "") + "; "
+                        + ln.split(":", 1)[-1].strip()).strip("; ")
+    return out
+
+
 def _bound_ms(ops, nbytes):
     """(bound ms, bound_by): the larger of ops at the f32 peak and bytes
     at the memory rate."""
@@ -665,12 +691,18 @@ def phase_kernels(device, n_side=N_SIDE, n_h2=N_H2, capacity=CAPACITY):
                 bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4,
                                       _nbytes(*margs[:11]) + 4 * 4)
                 null = null_launch_ms(device)
+                plan = pk.mol_pair_plan(len(alive), 1, False,
+                                        torch.float32, cfg)
+                ptx = _b4_ptxas("pair_kernel")
                 report["mol_pair"].update(ms=ms, device_ms=dms, plain_ms=pms,
                                           bound_ms=bound, bound_by=by,
-                                          null_device_ms=null)
+                                          null_device_ms=null, plan=plan,
+                                          ptxas=ptx)
                 log(f"    bound {bound:.5f} ms ({by}; {n_pairs} pairs); the "
                     f"launch floor (an empty kernel, back to back) {null:.4f}"
-                    " ms")
+                    f" ms; launch shape {plan}")
+                for k, v in ptx.items():
+                    log(f"    B4 {k} ptxas: {v}")
     return report
 
 
@@ -2357,12 +2389,14 @@ def phase_mol_pair_chains(device, C=C_BATCHED):
             n_pairs = int((sites * cols).sum())
             nbytes = _nbytes(*a[:9], rows) + 20 * 4 + C * 4 * 4
             bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4, nbytes)
+            plan = pk.mol_pair_plan(alive.shape[1], C, False, torch.float32,
+                                    args[11])
             rep.update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bound,
-                       bound_by=by, pairs=n_pairs, bytes=nbytes)
+                       bound_by=by, pairs=n_pairs, bytes=nbytes, plan=plan)
             log(f"B4 chains f32 C={C}: kernel {ms:.4f} ms per call, "
                 f"{dms:.4f} ms on the card alone; plain {pms:.3f} ms; bound "
                 f"{bound:.5f} ms ({by}; {n_pairs} pairs x {OPS_PAIR_B2B4}, "
-                f"{nbytes} bytes)")
+                f"{nbytes} bytes); launch shape {plan}")
     rep["header"] = _mol_pair_header(device, inputs, C_HEADER)
     return rep
 
@@ -2443,12 +2477,14 @@ def _mol_pair_header(device, inputs, C):
             n_pairs = int((sites * cols).sum())
             nbytes = _nbytes(*a[:10], scal) + C * 4 * 4
             bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4, nbytes)
+            plan = pk.mol_pair_plan(alive.shape[1], C, False, torch.float32,
+                                    args[11])
             rep.update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bound,
-                       bound_by=by, pairs=n_pairs, bytes=nbytes)
+                       bound_by=by, pairs=n_pairs, bytes=nbytes, plan=plan)
             log(f"B4 header per chain f32 C={C}: kernel {ms:.4f} ms per "
                 f"call, {dms:.4f} ms on the card alone; plain {pms:.3f} ms; "
                 f"bound {bound:.5f} ms ({by}; {n_pairs} pairs x "
-                f"{OPS_PAIR_B2B4}, {nbytes} bytes)")
+                f"{OPS_PAIR_B2B4}, {nbytes} bytes); launch shape {plan}")
     return rep
 
 
@@ -4316,19 +4352,35 @@ def _with_sf(system):
                 P_SPIN, dtype=cfg.tdtype, device=state.pos.device)))
 
 
-def phase_qrot_table(device, n_check=8, n_grid=4):
+# B4's rotor-grid launch of 64 rotors (the launch a refresh once made
+# four of), timed beside the refresh's one launch
+GRID_ROTORS = 64
+
+
+def _grid_rotors_past(cfg, n, G):
+    """The fewest rotors whose G orientations reach past B4's grid_min on
+    this card: a stride-0 launch of that many takes B4's regime 1."""
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    return pk.mol_pair_plan(n, 1, True, torch.float32,
+                            cfg)["grid_min"] // G + 1
+
+
+def phase_qrot_table(device, n_check=8):
     """The rotor table of DECK's system (256 H2 rotors, float32 on the
-    card): B4 at position stride 0 over n_grid rotors' 512 orientations
-    against its plain version (the F32 rule of phase_kernels) and bit for
-    bit the same launch over an expanded, copied pos; then one full
-    refresh, timed (B4's potentials and the host eigensolves apart, the
-    card synchronized), repeated for the median; the F_para and F_ortho of
-    n_check rotors against the CPU float64 tables of the same positions,
-    within the rotor's max |dV| + 1e-4 K (dV: its grid potentials on the
-    card against CPU float64, each within F32_V_ABS).  B4's time per
-    launch of ROTORS_PER_LAUNCH rotors (per call, on the card alone), its
-    plain version's (in chunks of n_grid rotors) and the bound.  Returns
-    (report of mol_pair_grid, the table state)."""
+    card): B4 at position stride 0 over the 512 orientations of the
+    fewest rotors past grid_min (regime 1) against its plain version (the
+    F32 rule of phase_kernels) and bit for bit the same launch over an
+    expanded, copied pos (regime 2); the refresh's one launch over every
+    rotor bit for bit its GRID_ROTORS-rotor launches and the expanded
+    launch on its first and last 8,192 chains; then one full refresh,
+    timed (B4's potentials and the host eigensolves apart, the card
+    synchronized, one B4 launch), repeated for the median; the F_para and
+    F_ortho of n_check rotors against the CPU float64 tables of the same
+    positions, within the rotor's max |dV| + 1e-4 K (dV: its grid
+    potentials on the card against CPU float64, each within F32_V_ABS).
+    B4's time per refresh launch and per GRID_ROTORS-rotor launch (per
+    call, on the card alone), its plain version's, the bounds and the
+    launch shapes.  Returns (report of mol_pair_grid, the table state)."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.models import systems
     from mpmc_tpu_torch.ops import pairs, qrot
@@ -4342,6 +4394,7 @@ def phase_qrot_table(device, n_check=8, n_grid=4):
     axes = torch.as_tensor(qrot._basis(4, qrot.N_THETA, qrot.N_PHI)[3],
                            dtype=torch.float32, device=device)
     G = axes.shape[0]
+    n = state.pos.shape[0]
     scal = pairs.pair_scalars(state.box, cfg)
     alive = state.atom_alive(params)
     common = (params.charge, params.eps, params.sig, params.mol_id32)
@@ -4353,13 +4406,20 @@ def phase_qrot_table(device, n_check=8, n_grid=4):
                 mt.repeat_interleave(G),
                 rows.reshape(-1, rows.shape[2], 3).contiguous(), scal, cfg)
 
+    def expanded(tail, sl):
+        k = tail[2][sl].shape[0]
+        return pk.mol_pair_chains(
+            state.pos.expand(k, -1, -1).contiguous(), *common,
+            alive.expand(k, -1).contiguous(), *tail[:2], tail[2][sl],
+            tail[3][sl], scal, cfg)
+
+    n_grid = _grid_rotors_past(cfg, n, G)
     tail = grid_args(mols[:n_grid])
+    C = tail[2].shape[0]
+    plan = pk.mol_pair_plan(n, C, True, torch.float32, cfg)
     k = pk.mol_pair_chains(state.pos, *common, alive, *tail)
     p = pk.mol_pair_chains_plain(state.pos, *common, alive, *tail)
-    C = tail[2].shape[0]
-    wide = pk.mol_pair_chains(state.pos.expand(C, -1, -1).contiguous(),
-                              *common, alive.expand(C, -1).contiguous(),
-                              *tail)
+    wide = expanded(tail, slice(None))
     torch.cuda.synchronize(device)
     p64 = pk.mol_pair_chains_plain(
         state.pos.double(), *(x.double() for x in common[:3]), common[3],
@@ -4368,51 +4428,84 @@ def phase_qrot_table(device, n_check=8, n_grid=4):
     ref = p64.cpu().numpy()
     err = np.abs(kd - pd)
     tol = _tol(torch.float32, ref, pd)
-    log(f"B4 stride 0, {n_grid} rotors x {G} orientations (C={C}): |d| "
-        f"{err[:, :3].max():.3e} (worst |d|/tol "
-        f"{float(np.max(err / tol)):.3f}); equal to the expanded-pos launch: "
-        f"{torch.equal(k, wide)}")
-    if not (np.all(err <= tol) and torch.equal(k, wide)):
+    log(f"B4 stride 0, {n_grid} rotors x {G} orientations (C={C}, launch "
+        f"shape {plan}): |d| {err[:, :3].max():.3e} (worst |d|/tol "
+        f"{float(np.max(err / tol)):.3f}); equal to the expanded-pos launch "
+        f"(regime 2): {torch.equal(k, wide)}")
+    if not (plan["regime"] == 1 and np.all(err <= tol)
+            and torch.equal(k, wide)):
         raise AssertionError("B4 at position stride 0 disagrees with its "
                              "plain version or the expanded launch")
-    # one launch of ROTORS_PER_LAUNCH rotors: times and bound
-    full = grid_args(mols[:qrot.ROTORS_PER_LAUNCH])
+    # the refresh's one launch over every rotor, and a 64-rotor launch
+    full = grid_args(mols)
     Cf = full[2].shape[0]
+    plan_f = pk.mol_pair_plan(n, Cf, True, torch.float32, cfg)
 
     def launch():
         return pk.mol_pair_chains(state.pos, *common, alive, *full)
 
-    ms = time_calls(launch, device)
-    dms = time_device(launch, device, n=10)
-
-    def plain_chunks():
-        for r0 in range(0, Cf, n_grid * G):
-            sl = slice(r0, r0 + n_grid * G)
-            pk.mol_pair_chains_plain(state.pos, *common, alive, *full[:2],
-                                     full[2][sl], full[3][sl], scal, cfg)
-
-    pms = time_calls(plain_chunks, device, n=1)
+    k_all = launch()
+    parts = torch.cat([pk.mol_pair_chains(
+        state.pos, *common, alive, *grid_args(mols[r0:r0 + GRID_ROTORS]))
+        for r0 in range(0, len(mols), GRID_ROTORS)])
+    step = min(8192, Cf)
+    ends = all(torch.equal(k_all[sl], expanded(full, sl))
+               for sl in (slice(0, step), slice(Cf - step, Cf)))
+    log(f"B4 refresh launch, {len(mols)} rotors (C={Cf}, launch shape "
+        f"{plan_f}): equal to its {GRID_ROTORS}-rotor launches "
+        f"{torch.equal(k_all, parts)}, to the expanded launch on its first "
+        f"and last {step} chains {ends}")
+    if not (torch.equal(k_all, parts) and ends
+            and torch.isfinite(k_all[:, :3]).all()):
+        raise AssertionError("B4's one launch over every rotor disagrees "
+                             "with its 64-rotor launches or the expanded "
+                             "launch")
+    ms = time_calls(launch, device, n=5)
+    dms = time_device(launch, device, n=5)
+    pms = time_calls(lambda: pk.mol_pair_chains_plain(
+        state.pos, *common, alive, *full), device, n=1)
     n_cols = int(alive.sum())
     pairs_n = Cf * 3 * n_cols
     bound, by = _bound_ms(pairs_n * OPS_PAIR_B2B4,
                           _nbytes(state.pos, *common, alive, *full[:5])
                           + Cf * 4 * 4)
-    log(f"B4 stride 0, {qrot.ROTORS_PER_LAUNCH} rotors (C={Cf}): "
-        f"{ms:.3f} ms per call, {dms:.3f} on the card alone, plain {pms:.1f}"
-        f" ms, bound {bound:.4f} ms ({by}; {pairs_n:.3e} pairs)")
+    part = grid_args(mols[:GRID_ROTORS])
+    C64 = part[2].shape[0]
+
+    def launch64():
+        return pk.mol_pair_chains(state.pos, *common, alive, *part)
+
+    ms64 = time_calls(launch64, device)
+    dms64 = time_device(launch64, device, n=10)
+    bound64, by64 = _bound_ms(C64 * 3 * n_cols * OPS_PAIR_B2B4,
+                              _nbytes(state.pos, *common, alive, *part[:5])
+                              + C64 * 4 * 4)
+    log(f"B4 stride 0, the refresh's launch of {len(mols)} rotors "
+        f"(C={Cf}): {ms:.3f} ms per call, {dms:.3f} on the card alone, "
+        f"plain {pms:.1f} ms, bound {bound:.4f} ms ({by}; {pairs_n:.3e} "
+        f"pairs); a {GRID_ROTORS}-rotor launch (C={C64}): {ms64:.3f} ms per"
+        f" call, {dms64:.3f} on the card alone, bound {bound64:.4f} ms")
+    for key, v in _b4_ptxas("pair_kernel").items():
+        log(f"    B4 {key} ptxas: {v}")
     # the refresh, timed, and eight rotors against CPU float64
     runs = []
     for _ in range(3):
         times = {}
+        before = pk.mol_pair_chains.shared_launches
         t0 = time.perf_counter()
         st, eigs = _rotor_table(system, device, times)
-        runs.append(((time.perf_counter() - t0) * 1e3, times))
+        runs.append(((time.perf_counter() - t0) * 1e3, times,
+                     pk.mol_pair_chains.shared_launches - before))
     total = statistics.median(r[0] for r in runs)
     b4 = statistics.median(r[1]["b4_s"] * 1e3 for r in runs)
     eig = statistics.median(r[1]["eigh_s"] * 1e3 for r in runs)
+    per_refresh = {r[2] for r in runs}
     log(f"rotor table refresh ({len(mols)} rotors): {total:.1f} ms (B4 grid "
-        f"{b4:.1f} ms in {-(-len(mols) // qrot.ROTORS_PER_LAUNCH)} "
-        f"launches, eigensolves {eig:.1f} ms), median of 3")
+        f"{b4:.1f} ms in {per_refresh} launches, eigensolves {eig:.1f} ms), "
+        "median of 3")
+    if per_refresh != {1}:
+        raise AssertionError(f"a refresh made {per_refresh} B4 launches, "
+                             "not one")
     pick = mols[::max(len(mols) // n_check, 1)][:n_check]
     p64, _, c64, _ = bench_system("float64", "cpu")
     pos64, box64 = state.pos.double().cpu(), state.box.double().cpu()
@@ -4450,10 +4543,14 @@ def phase_qrot_table(device, n_check=8, n_grid=4):
         f"ortho - para {float(gap.min()):.2f} .. {float(gap.max()):.2f} K")
     rep = {"max_abs_err": float(err[:, :3].max()), "ms": ms, "device_ms": dms,
            "plain_ms": pms, "bound_ms": bound, "bound_by": by,
-           "per": f"launch of {qrot.ROTORS_PER_LAUNCH} rotors x {G} "
+           "per": f"the refresh's launch of {len(mols)} rotors x {G} "
                   "orientations",
+           "chains": Cf, "plan": plan_f, "launches_per_refresh": 1,
+           "per64": {"ms": ms64, "device_ms": dms64, "bound_ms": bound64,
+                     "bound_by": by64, "chains": C64},
            "refresh_ms": total, "refresh_b4_ms": b4,
-           "refresh_eigh_ms": eig, "table_max_dv": worst_v}
+           "refresh_eigh_ms": eig, "table_max_dv": worst_v,
+           "ptxas": _b4_ptxas("pair_kernel")}
     return rep, st
 
 
@@ -4999,17 +5096,20 @@ def _agree(label, k, p, ref64, dtype, slots):
     return float(err[fin].max())
 
 
-def phase_rd_kernels(device, n_grid=4):
+def phase_rd_kernels(device):
     """B2 and B4's instance of each RD form (sg, dreiding, b14_7,
     disp_expansion damped with its tail) on the 10.8k bench system with
     its LJ wells mapped to the form (systems.rd_form_columns), each
     against its plain version in float64 (rel 1e-12) and float32 (_tol):
     B2 at row_start F and 0; B4 on an H2's rows and a trial beside the
     framework; B4 over C_RD_CHAINS chains (positions per chain, the trial
-    moved per chain); B4 at position stride 0 over n_grid rotors' 512
-    orientations.  Times (float32) per call, on the card alone and of the
-    plain version; bounds from OPS_RD_* and this run's pairs within rc.
-    Returns the report entries pair_terms_<key> and mol_pair_<key>."""
+    moved per chain); B4 at position stride 0 over the 512 orientations
+    of the fewest rotors past grid_min (regime 1), bit for bit the launch
+    over an expanded, copied pos (regime 2).  Times (float32) per call, on
+    the card alone and of the plain version (a GRID_ROTORS-rotor launch at
+    stride 0); bounds from OPS_RD_* and this run's pairs within rc; B4's
+    launch shapes and each form's ptxas lines of B4.  Returns the report
+    entries pair_terms_<key> and mol_pair_<key>."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.models import systems
     from mpmc_tpu_torch.ops import pairs, qrot
@@ -5142,7 +5242,8 @@ def phase_rd_kernels(device, n_grid=4):
                                   max_abs_err=errs["c128"])
                 log(f"    {ms:.4f} ms per call, {dms:.4f} on the card alone,"
                     f" plain {pms:.2f}; bound {bound:.5f} ms ({by})")
-            # B4 at position stride 0: n_grid rotors' orientations
+            # B4 at position stride 0: the orientations of the fewest
+            # rotors past grid_min (regime 1)
             state0 = metropolis.initialize(state, params, cfg, thermo)
             mols_r, _ = qrot.rotor_slots(state0.mol_alive, params,
                                          [systems.h2_bss3()])
@@ -5160,19 +5261,34 @@ def phase_rd_kernels(device, n_grid=4):
                         scal, cfg)
 
             common = (params.charge, params.eps, params.sig, params.mol_id32)
+            n_grid = _grid_rotors_past(cfg, state.pos.shape[0], G)
             tail = grid(mols_r[:n_grid])
+            Cg = tail[2].shape[0]
+            plan = pk.mol_pair_plan(state.pos.shape[0], Cg, True,
+                                    state.pos.dtype, cfg)
             k = pk.mol_pair_chains(state.pos, *common, alive, *tail,
                                    disp=disp)
             p = pk.mol_pair_chains_plain(state.pos, *common, alive, *tail,
                                          disp=disp)
+            wide = pk.mol_pair_chains(
+                state.pos.expand(Cg, -1, -1).contiguous(), *common,
+                alive.expand(Cg, -1).contiguous(), *tail, disp=disp)
             if not f32:
                 ref64["grid"] = p.double().cpu().numpy()
-            log(f"B4 {form} {dtype} at stride 0, {n_grid} rotors x {G}:")
+            log(f"B4 {form} {dtype} at stride 0, {n_grid} rotors x {G} "
+                f"(launch shape {plan}; equal to the expanded-pos launch: "
+                f"{torch.equal(k, wide)}):")
+            if not (plan["regime"] == 1 and torch.equal(k, wide)):
+                raise AssertionError(f"B4 {form} {dtype}: the stride-0 "
+                                     "launch (regime 1) is not the expanded "
+                                     "launch bit for bit")
             errs["grid"] = max(errs["grid"], _agree(
                 f"B4 {form} stride 0", k, p, ref64["grid"], dtype,
                 MOL_SLOTS))
             if f32:
-                full = grid(mols_r[:qrot.ROTORS_PER_LAUNCH])
+                for kk, v in _b4_ptxas(pk.FORM_LIBRARY[form]).items():
+                    log(f"    B4 {form} {kk} ptxas: {v}")
+                full = grid(mols_r[:GRID_ROTORS])
                 Cf = full[2].shape[0]
 
                 def launch():
@@ -5182,14 +5298,9 @@ def phase_rd_kernels(device, n_grid=4):
                 ms = time_calls(launch, device)
                 dms = time_device(launch, device, n=10)
 
-                def plain_chunks():
-                    for r0 in range(0, Cf, n_grid * G):
-                        sl = slice(r0, r0 + n_grid * G)
-                        pk.mol_pair_chains_plain(
-                            state.pos, *common, alive, *full[:2],
-                            full[2][sl], full[3][sl], scal, cfg, disp=disp)
-
-                pms = time_calls(plain_chunks, device, n=1)
+                pms = time_calls(lambda: pk.mol_pair_chains_plain(
+                    state.pos, *common, alive, *full, disp=disp), device,
+                    n=1)
                 col_ok = alive[None] & (params.mol_id[None, :]
                                         != full[2][:, None])
                 n_pairs = Cf * 3 * int(alive.sum())
@@ -5203,8 +5314,11 @@ def phase_rd_kernels(device, n_grid=4):
                 b4["grid"] = dict(ms=ms, device_ms=dms, plain_ms=pms,
                                   bound_ms=bound, bound_by=by, chains=Cf,
                                   pairs=n_pairs, pairs_in_rc=n_in,
-                                  max_abs_err=errs["grid"])
-                log(f"    a {qrot.ROTORS_PER_LAUNCH}-rotor launch (C={Cf}):"
+                                  max_abs_err=errs["grid"],
+                                  plan=pk.mol_pair_plan(
+                                      state.pos.shape[0], Cf, True,
+                                      state.pos.dtype, cfg))
+                log(f"    a {GRID_ROTORS}-rotor launch (C={Cf}):"
                     f" {ms:.3f} ms per call, {dms:.3f} on the card alone, "
                     f"plain {pms:.1f}; bound {bound:.4f} ms ({by})")
     return report

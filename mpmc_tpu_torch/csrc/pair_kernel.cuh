@@ -40,23 +40,39 @@
 //
 // B4 mol_pair    replaces mpmc_tpu/ops/pallas/pair_kernel.py::_mol_kernel
 //   (mol_pair_tiles / mol_pair_pass_pallas): one molecule's <= 8 rows
-//   against every column.  Bound: launch latency - at A = 3 and N = 10.8k
-//   the whole pass is ~32k pairs, 43 blocks of 256 threads.  The rows are
-//   gathered by the kernel itself (mol_atoms[mol], mol read from device
-//   memory), so the wrapper issues no copies and no host sync per move.
-//   One launch: the block that finishes last (an atomic ticket, after a
-//   __threadfence) reduces every block's partials itself.
-//   Over C chains (the batched scan chains; the reference vmaps
-//   _mol_kernel over them) the chain is the grid's y axis: chain c reads
-//   its own positions, aliveness, molecule index and trial rows (the
-//   parameter columns are shared), has its own partial slots and its own
-//   ticket, and its last block reduces them in the one-chain order - so
-//   C = 1 is the one-chain launch, bit for bit.  At C = 128 on the 10.8k
-//   system the pass is ~4.1e6 pairs: ~5 us of operations, ~5 us of
-//   position planes (16.6 MB) - both near the launch floor.
+//   against every column, over C chains (each its own positions, or one
+//   system read by every chain: position stride 0, the rotor grid of
+//   ops/qrot.py).  The rows are gathered by the kernel itself (mol read
+//   from device memory), so the wrapper issues no copies and no host sync
+//   per move.  Bound: at C = 1 the launch (~32k pairs at A = 3 and N =
+//   10.8k); over chains the pairs' operations (stride 0, 256 rotors x 512
+//   orientations: ~4.3e9 pairs) or, at C = 128 with positions per chain,
+//   the position planes.  Design, for that bound: one summation order for
+//   every chain (the B4 section below), kept by two regimes that share
+//   the pair code and the trees and need no partials outside the kernel.
+//   - Regime 1 (mol_pair_grid_kernel; stride 0 and C >= grid_min, enough
+//     CTAs for one on every SM): a CTA holds 8 cpw chains (cpw <= 4) and
+//     streams the columns through shared memory a 256-column chunk at a
+//     time, double-buffered with cp.async; each chunk serves every chain
+//     of the CTA (a warp a chain, 8 columns a lane), whose chunk sums stay
+//     in shared memory until the CTA's last chunk.  In the classical
+//     instance the rows' LJ mixing with a chunk's columns (sqrt, the
+//     tail's two divisions) is computed once for all the CTA's chains of
+//     one species.  Chains lie on grid x: no cap at 65,535, one launch per
+//     rotor-table refresh.
+//   - Regime 2 (mol_pair_cluster_kernel; every other launch): a cluster of
+//     G <= 16 CTAs of 512 threads per chain, a team of 4 warps per chunk
+//     (2 columns a lane, the 3 rows of an H2 unrolled); teams meet on a
+//     named barrier, chunk sums go to rank 0's shared memory (distributed
+//     shared memory) and one cluster barrier precedes rank 0's tree - no
+//     ticket, __threadfence or device-memory slot.  Its bound at C = 1 is
+//     the 16 SMs a cluster may hold (tools/measure_b4_variants.py).
+//   Chain c of any launch has the bits of chain c launched alone, and of
+//   the single-launch kernel this design replaced.
 //
-// Both: per-tile (B2) or per-block (B4) partials in double, reduced by the
-// last CTA in a fixed order - identical results run to run.  Templated on
+// Both: partials in double (B2 per tile, reduced by its last CTA; B4 per
+// chunk, inside the kernel) in a fixed order - identical results run to
+// run.  Templated on
 // float and double.  Semantics follow the reference
 // (ops/pairs.py jnp path): exact erfc/erf, half-to-even rint in the
 // minimum image, the r2 > 1e-12 guard, and per-term masks (rd/es over
@@ -74,9 +90,12 @@
 // Scalar header scal[20] in device memory: rc, alpha, box (3x3 row-major,
 // rows are cell vectors), box^-1 (3x3 row-major).
 #pragma once
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "device_math.cuh"
 #include "rd_forms.cuh"
@@ -96,9 +115,22 @@ constexpr int MINB2 = 4;
 static_assert(GR % 32 == 0, "a warp must lie in one column split");
 static_assert(NT2 % GR == 0 && TJ % (NT2 / GR) == 0, "bad column split");
 static_assert(NT2 >= 9 && NT2 <= 1024, "bad CTA");
-constexpr int MT = 256;    // B4: columns per block
+constexpr int MT = 256;    // B4: columns per chunk of its summation order
 constexpr int A_PAD = 8;   // B4: most rows per molecule
-constexpr int RT = 256;    // B4: threads of the partial reduction
+constexpr int NT4 = 256;   // B4 regime 1: threads per CTA
+constexpr int NW4 = NT4 / 32;
+constexpr int KC = MT / 32;        // B4: a chunk's columns per lane of a warp
+constexpr int NT2C = 512;          // B4 regime 2: threads per CTA
+constexpr int P2 = 4;              // B4 regime 2: warps per chunk (a team)
+constexpr int TM2 = NT2C / 32 / P2;  // B4 regime 2: teams per CTA
+constexpr int G4_MAX = 16;         // B4 regime 2: most CTAs per chain
+constexpr int CPW_MAX = 4;         // B4 regime 1: most chains per warp
+constexpr int NRF = 9;             // B4: row fields x y z q eps sig c6 c8 c10
+constexpr int SMEM1_MAX = 113 * 1024;  // B4 regime 1: most dynamic smem
+static_assert(NT4 == MT, "B4 regime 1 stages a chunk's alive flags, one a "
+              "thread");
+static_assert(KC % P2 == 0 && TM2 * P2 * 32 == NT2C && TM2 < 16,
+              "bad B4 team");
 
 // The RD form, a template parameter of both kernels (RD_* of rd_forms.cuh,
 // which holds the forms' formulas): the classical instance reads rd none or
@@ -112,14 +144,10 @@ struct Opts {
   int lrc;   // 1: the tail coefficient (LJ, or RD_DISP's)
 };
 
-// One pair: minimum-image r2 and the unmasked term values (a form's RD
-// energy only within rc; c6i..c10j its C columns, RD_DISP only).
-template <typename T, int RD>
-__device__ __forceinline__ void pair_eval(
-    T xi, T yi, T zi, T qi, T ei, T si, T xj, T yj, T zj, T qj, T ej, T sj,
-    const T* __restrict__ sc, const Opts o,
-    T& r2, T& rd, T& es, T& ex, T& tc, T c6i, T c8i, T c10i, T c6j, T c8j,
-    T c10j) {
+// The minimum-image r2 of a pair (sc: rc, alpha, box, box^-1).
+template <typename T>
+__device__ __forceinline__ T pair_r2(T xi, T yi, T zi, T xj, T yj, T zj,
+                                     const T* __restrict__ sc) {
   const T* box = sc + 2;
   const T* bi = sc + 11;
   const T dx = xi - xj, dy = yi - yj, dz = zi - zj;
@@ -132,35 +160,85 @@ __device__ __forceinline__ void pair_eval(
   const T rx = f0 * box[0] + f1 * box[3] + f2 * box[6];
   const T ry = f0 * box[1] + f1 * box[4] + f2 * box[7];
   const T rz = f0 * box[2] + f1 * box[5] + f2 * box[8];
-  r2 = rx * rx + ry * ry + rz * rz;
+  return rx * rx + ry * ry + rz * rz;
+}
+
+// The classical LJ mixing of sites i and j, which needs no position: 4
+// eps, sig^2, and the tail coefficient's two factors (its value ta tb;
+// o.lrc 0: both 0).
+template <typename T>
+__device__ __forceinline__ void lj_mix(T ei, T ej, T si, T sj, T rc,
+                                       const Opts o, T& e4, T& sig2, T& ta,
+                                       T& tb) {
+  T eps, sig;
+  if (o.mix == 0) {
+    eps = x_sqrt(ei * ej);
+    sig = T(0.5) * (si + sj);
+  } else {
+    const T s3i = si * si * si, s3j = sj * sj * sj;
+    T denom = s3i * s3i + s3j * s3j;
+    // jnp.maximum(x, 1e-300): the bound is 0 in float, as in the reference
+    denom = denom > T(1e-300) ? denom : T(1e-300);
+    sig = x_pow(T(0.5) * denom, T(1.0 / 6.0));
+    eps = x_sqrt(ei * ej) * (T(2) * s3i * s3j / denom);
+  }
+  e4 = T(4) * eps;
+  sig2 = sig * sig;
+  ta = tb = T(0);
+  if (o.lrc) {
+    const T src = sig / rc;
+    const T s3 = src * src * src;
+    const T s9 = s3 * s3 * s3;
+    ta = T(16.0 * 3.14159265358979323846 / 3.0) * eps * (sig * sig * sig);
+    tb = s9 / T(3) - s3;
+  }
+}
+
+// The classical pair's LJ energy and tail coefficient from its mixing
+// (lj_mix) at r2s (r2, or 1 at r2 <= 1e-12).
+template <typename T>
+__device__ __forceinline__ void lj_terms(T e4, T sig2, T ta, T tb, T r2s,
+                                         const Opts o, T& rd, T& tc) {
+  const T s2 = sig2 / r2s;
+  const T s6 = s2 * s2 * s2;
+  rd = e4 * s6 * (s6 - T(1));
+  if (o.lrc) tc = ta * tb;
+}
+
+// The real-space Coulomb terms (es, and ewald's intra-molecular ex) of
+// charges qq at distance r.
+template <typename T>
+__device__ __forceinline__ void coulomb_terms(T qq, T r, const T* sc,
+                                              const Opts o, T& es, T& ex) {
+  const T rc = sc[0], alpha = sc[1];
+  if (o.es == 1) {
+    es = qq * x_erfc(alpha * r) / r;
+    ex = -qq * x_erf(alpha * r) / r;
+  } else if (o.es == 2) {
+    es = qq * (x_erfc(alpha * r) / r - x_erfc(alpha * rc) / rc);
+  } else if (o.es == 3) {
+    es = qq / r;
+  }
+}
+
+// One pair: minimum-image r2 and the unmasked term values (a form's RD
+// energy only within rc; c6i..c10j its C columns, RD_DISP only).
+template <typename T, int RD>
+__device__ __forceinline__ void pair_eval(
+    T xi, T yi, T zi, T qi, T ei, T si, T xj, T yj, T zj, T qj, T ej, T sj,
+    const T* __restrict__ sc, const Opts o,
+    T& r2, T& rd, T& es, T& ex, T& tc, T c6i, T c8i, T c10i, T c6j, T c8j,
+    T c10j) {
+  r2 = pair_r2(xi, yi, zi, xj, yj, zj, sc);
   const T r2s = r2 > T(1e-12) ? r2 : T(1);
   const T r = x_sqrt(r2s);
-  const T rc = sc[0], alpha = sc[1];
+  const T rc = sc[0];
   rd = T(0); tc = T(0); es = T(0); ex = T(0);
   if constexpr (RD == RD_CLASSIC) {
     if (o.rd == 1) {
-      T eps, sig;
-      if (o.mix == 0) {
-        eps = x_sqrt(ei * ej);
-        sig = T(0.5) * (si + sj);
-      } else {
-        const T s3i = si * si * si, s3j = sj * sj * sj;
-        T denom = s3i * s3i + s3j * s3j;
-        // jnp.maximum(x, 1e-300): the bound is 0 in float, as in the reference
-        denom = denom > T(1e-300) ? denom : T(1e-300);
-        sig = x_pow(T(0.5) * denom, T(1.0 / 6.0));
-        eps = x_sqrt(ei * ej) * (T(2) * s3i * s3j / denom);
-      }
-      const T s2 = sig * sig / r2s;
-      const T s6 = s2 * s2 * s2;
-      rd = T(4) * eps * s6 * (s6 - T(1));
-      if (o.lrc) {
-        const T src = sig / rc;
-        const T s3 = src * src * src;
-        const T s9 = s3 * s3 * s3;
-        tc = T(16.0 * 3.14159265358979323846 / 3.0) * eps * (sig * sig * sig)
-             * (s9 / T(3) - s3);
-      }
+      T e4, sig2, ta, tb;
+      lj_mix(ei, ej, si, sj, rc, o, e4, sig2, ta, tb);
+      lj_terms(e4, sig2, ta, tb, r2s, o, rd, tc);
     }
   } else {
     T c6 = T(0), c8 = T(0), c10 = T(0);
@@ -173,41 +251,22 @@ __device__ __forceinline__ void pair_eval(
     if (r2 < rc * rc) rd = rd_form<T, RD>(r, ei, ej, si, sj, c6, c8, c10,
                                           o.rd != 0);
   }
-  const T qq = qi * qj;
-  if (o.es == 1) {
-    es = qq * x_erfc(alpha * r) / r;
-    ex = -qq * x_erf(alpha * r) / r;
-  } else if (o.es == 2) {
-    es = qq * (x_erfc(alpha * r) / r - x_erfc(alpha * rc) / rc);
-  } else if (o.es == 3) {
-    es = qq / r;
-  }
+  coulomb_terms(qi * qj, r, sc, o, es, ex);
 }
 
-// Tree-reduce K per-thread sums (in double) and a min over NT threads,
-// then thread 0 writes the block's partials.
-template <typename T, int NT, int K>
-__device__ __forceinline__ void block_partials(
-    const T (&acc)[K], T mn, double (*red)[NT], T* rmin,
-    double* __restrict__ part, T* __restrict__ pmin, int bid) {
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int s = 0; s < K; ++s) red[s][t] = double(acc[s]);
-  rmin[t] = mn;
-  __syncthreads();
-  for (int w = NT / 2; w > 0; w >>= 1) {
-    if (t < w) {
-#pragma unroll
-      for (int s = 0; s < K; ++s) red[s][t] += red[s][t + w];
-      rmin[t] = x_min(rmin[t], rmin[t + w]);
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) part[size_t(bid) * K + s] = red[s][0];
-    pmin[bid] = rmin[0];
-  }
+// The classical pair with its LJ mixing given (lj_mix of the two sites,
+// computed once for many chains): pair_eval's values, bit for bit.
+template <typename T>
+__device__ __forceinline__ void pair_eval_mixed(
+    T xi, T yi, T zi, T qi, T xj, T yj, T zj, T qj, T e4, T sig2, T ta,
+    T tb, const T* __restrict__ sc, const Opts o, T& r2, T& rd, T& es,
+    T& ex, T& tc) {
+  r2 = pair_r2(xi, yi, zi, xj, yj, zj, sc);
+  const T r2s = r2 > T(1e-12) ? r2 : T(1);
+  const T r = x_sqrt(r2s);
+  rd = T(0); tc = T(0); es = T(0); ex = T(0);
+  if (o.rd == 1) lj_terms(e4, sig2, ta, tb, r2s, o, rd, tc);
+  coulomb_terms(qi * qj, r, sc, o, es, ex);
 }
 
 // ---------------------------------------------------------------- B2
@@ -491,140 +550,584 @@ __global__ void __launch_bounds__(NT2, sizeof(T) == 4 ? MINB2 : MINB2 / 2)
   if (t == 0) *ticket = 0;        // ready for the next launch
 }
 
-// ---------------------------------------------------------------- reduce
-// B4's last block, RT threads: thread t sums partials t, t+RT, ... in order,
-// then a fixed tree - the same order every run.  out[0..K) sums (cast to
-// T), out[K] min.  The partials are read from L2 (other blocks wrote them).
-template <typename T, int K>
-__device__ __forceinline__ void reduce_body(
-    const double* __restrict__ part, const T* __restrict__ pmin, int nb,
-    T* __restrict__ out, double (*red)[RT], T* rmin) {
-  const int t = threadIdx.x;
-  double acc[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) acc[s] = 0.0;
-  T mn = T(INFINITY);
-  for (int b = t; b < nb; b += RT) {
-#pragma unroll
-    for (int s = 0; s < K; ++s) acc[s] += __ldcg(part + size_t(b) * K + s);
-    mn = x_min(mn, __ldcg(pmin + b));
+// ---------------------------------------------------------------- B4
+// The summation order, one for every chain whatever the regime, C or
+// stride (the order of the one-launch kernel this design replaced, so that
+// its outputs keep their bits): (1) each column's rows summed in T, in row
+// order; (2) per chunk of MT = 256 columns, a tree in double with partner
+// offsets 128, 64, ..., 1, the lower index's value first; (3) the chunk
+// sums S_b combined by the same tree over u_t = S_t + S_(t+256) + ... (in
+// chunk order, t < 256).  Column t of a chunk lies in lane t % 32 and slot
+// kk = t / 32 = k P + p: register slot k of warp p of a team of P warps.
+// So offsets 128 .. 32 (kk's bits, high first) are adds of registers
+// (reg_tree over k) and then of the team's warps (reg_tree over p), and
+// offsets 16 .. 1 are shuffles (lane_tree): the same pairs, the same bits.
+// IEEE addition commutes, so a shuffle's partner may come first.
+
+// The tree of NK values, k < NK, with offsets NK / 2 .. 1, evaluated
+// depth first so that few values are live at once; its last level pairs
+// slots k and k + NK / 2, which leaf2(k, k + NK / 2, a, b) fills together
+// (two columns' work in flight at once).
+template <int K0, int S, int NK, typename Leaf2>
+__device__ __forceinline__ void reg_tree(const Leaf2& leaf2,
+                                         double (&s)[3]) {
+  double a[3], b[3];
+  if constexpr (2 * S >= NK) {
+    leaf2(K0, K0 + S, a, b);
+  } else {
+    reg_tree<K0, 2 * S, NK>(leaf2, a);
+    reg_tree<K0 + S, 2 * S, NK>(leaf2, b);
   }
 #pragma unroll
-  for (int s = 0; s < K; ++s) red[s][t] = acc[s];
-  rmin[t] = mn;
-  __syncthreads();
-  for (int w = RT / 2; w > 0; w >>= 1) {
-    if (t < w) {
+  for (int i = 0; i < 3; ++i) s[i] = a[i] + b[i];
+}
+
+// Offsets 16 .. 1 over a warp's lanes; every lane ends with the root.
+__device__ __forceinline__ void lane_tree(double (&s)[3]) {
 #pragma unroll
-      for (int s = 0; s < K; ++s) red[s][t] += red[s][t + w];
-      rmin[t] = x_min(rmin[t], rmin[t + w]);
-    }
-    __syncthreads();
-  }
-  if (t == 0) {
+  for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-    for (int s = 0; s < K; ++s) out[s] = T(red[s][0]);
-    out[K] = rmin[0];
+    for (int i = 0; i < 3; ++i)
+      s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
   }
 }
 
-// ---------------------------------------------------------------- B4
-// Grid (column chunks of MT, chains); the molecule's rows are gathered into
-// shared memory once per block and read into registers.  Chain c = blockIdx.y
-// owns mol/rows/out at its stride, partial slots [c nb, (c+1) nb) and
-// ticket[c]; its pos and alive lie pos_stride (n 3: each chain its own
-// system) or 0 (every chain the same system: one molecule's orientations,
-// the rotor grid of ops/qrot.py) elements apart.  tickets: zero between
-// launches (each chain's last block puts its own back).  The scalar
-// header sc is one [20] row for every chain
-// (sc_stride 0) or a row per chain (sc_stride 20: each chain its own box,
-// the NPT chains).
-static_assert(MT == RT, "B4's last block runs the reduction");
+template <typename T>
+__device__ __forceinline__ T lane_min(T m) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = x_min(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
+}
+
+// Row slot a of a chain into rw [NRF][A_PAD] (a >= A repeats row 0; the
+// rows past the molecule's atom count are never read):
+// positions from the trial rows or the molecule's own atoms, the
+// parameters (RD_DISP: and its C columns) from its atoms.
 template <typename T, int RD>
-__global__ void __launch_bounds__(MT) mol_pair_kernel(
+__device__ __forceinline__ void gather_row(
+    T* rw, int slot, int A, int64_t m, const T* __restrict__ pos,
+    const T* __restrict__ rows, const int64_t* __restrict__ mol_atoms,
+    const T* __restrict__ q, const T* __restrict__ eps,
+    const T* __restrict__ sig, const T* __restrict__ c6,
+    const T* __restrict__ c8, const T* __restrict__ c10) {
+  const int a = slot < A ? slot : 0;
+  const int64_t idx = mol_atoms[m * A + a];
+  rw[slot] = rows ? rows[3 * a] : pos[3 * idx];
+  rw[A_PAD + slot] = rows ? rows[3 * a + 1] : pos[3 * idx + 1];
+  rw[2 * A_PAD + slot] = rows ? rows[3 * a + 2] : pos[3 * idx + 2];
+  rw[3 * A_PAD + slot] = q[idx];
+  rw[4 * A_PAD + slot] = eps[idx];
+  rw[5 * A_PAD + slot] = sig[idx];
+  if constexpr (RD == RD_DISP) {
+    rw[6 * A_PAD + slot] = c6[idx];
+    rw[7 * A_PAD + slot] = c8[idx];
+    rw[8 * A_PAD + slot] = c10[idx];
+  }
+}
+
+// One column's planes (RD_DISP: and its C columns); ok: the column is
+// alive, below n and not the chain's molecule's (the planes of a column
+// that is not are any real column's, and count nowhere).
+template <typename T>
+struct Col {
+  T x, y, z, q, e, s, c6, c8, c10;
+  int jj;     // regime 1: the column's place in its chunk
+  bool ok;
+};
+
+// Two columns u and w against the chain's nr = min(A, atom count) rows:
+// each column's rd and es within rc and tail coefficient summed in T in
+// row order, as doubles in su / sw (+0 for a column that is not ok); mn
+// takes every counted pair's r2.  The rows run in the outer loop, so a
+// row's two pair evaluations are independent; NR > 0 is nr known at
+// compile time (the rows unrolled: every pair of the two columns in
+// flight at once), NR = 0 a loop over nr.  MIXED (the classical instance
+// in regime 1): the rows' LJ mixing with the chunk's columns is read from
+// mix [4][NR][MT] (lj_mix: 4 eps, sig^2, the tail's two factors).
+template <typename T, int RD, int NR, bool MIXED = false>
+__device__ __forceinline__ void column_pair(
+    const T* rw, int nr, const Col<T>& u, const Col<T>& w,
+    const T* __restrict__ sc, const Opts o, double (&su)[3],
+    double (&sw)[3], T& mn, const T* mix = nullptr) {
+  T au[3] = {T(0), T(0), T(0)}, aw[3] = {T(0), T(0), T(0)};
+  const T rc2 = sc[0] * sc[0];
+  auto row = [&](int a) {
+    const T xi = rw[a], yi = rw[A_PAD + a], zi = rw[2 * A_PAD + a];
+    const T qi = rw[3 * A_PAD + a], ei = rw[4 * A_PAD + a],
+            si = rw[5 * A_PAD + a];
+    T c6i = T(0), c8i = T(0), c10i = T(0);
+    if constexpr (RD == RD_DISP) {
+      c6i = rw[6 * A_PAD + a];
+      c8i = rw[7 * A_PAD + a];
+      c10i = rw[8 * A_PAD + a];
+    }
+    T r2u, rdu, esu, exu, tcu, r2w, rdw, esw, exw, tcw;
+    if constexpr (MIXED) {
+      static_assert(RD == RD_CLASSIC && NR > 0, "mixing of classical rows");
+      const T* m = mix + a * MT;
+      pair_eval_mixed(xi, yi, zi, qi, u.x, u.y, u.z, u.q, m[u.jj],
+                      m[NR * MT + u.jj], m[2 * NR * MT + u.jj],
+                      m[3 * NR * MT + u.jj], sc, o, r2u, rdu, esu, exu, tcu);
+      pair_eval_mixed(xi, yi, zi, qi, w.x, w.y, w.z, w.q, m[w.jj],
+                      m[NR * MT + w.jj], m[2 * NR * MT + w.jj],
+                      m[3 * NR * MT + w.jj], sc, o, r2w, rdw, esw, exw, tcw);
+    } else {
+      pair_eval<T, RD>(xi, yi, zi, qi, ei, si, u.x, u.y, u.z, u.q, u.e, u.s,
+                       sc, o, r2u, rdu, esu, exu, tcu, c6i, c8i, c10i, u.c6,
+                       u.c8, u.c10);
+      pair_eval<T, RD>(xi, yi, zi, qi, ei, si, w.x, w.y, w.z, w.q, w.e, w.s,
+                       sc, o, r2w, rdw, esw, exw, tcw, c6i, c8i, c10i, w.c6,
+                       w.c8, w.c10);
+    }
+    if (u.ok) {
+      if (r2u < rc2) {
+        au[0] += rdu;
+        au[1] += esu;
+      }
+      au[2] += tcu;
+      mn = x_min(mn, r2u);
+    }
+    if (w.ok) {
+      if (r2w < rc2) {
+        aw[0] += rdw;
+        aw[1] += esw;
+      }
+      aw[2] += tcw;
+      mn = x_min(mn, r2w);
+    }
+  };
+  if constexpr (NR > 0) {
+#pragma unroll
+    for (int a = 0; a < NR; ++a) row(a);
+  } else {
+    for (int a = 0; a < nr; ++a) row(a);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    su[i] = double(au[i]);
+    sw[i] = double(aw[i]);
+  }
+}
+
+// The molecules' row count that B4 unrolls (the 3-site H2 of the repo's
+// sorbates): a chain of nr == NR_FIXED rows takes column_pair<.., NR_FIXED>,
+// any other the loop.  Both give the same bits.
+constexpr int NR_FIXED = 3;
+// Regime 1, classical instance: the LJ mixing of the rows with each chunk's
+// columns computed once for the CTA's chains (lj_mix), where they share
+// their rows' parameters and header.
+constexpr bool B4_LJ_MIX = true;
+
+// One warp: step (3) of the order over the chunk sums sl [ns][3] (and the
+// chunks' minima smin [ns]); lane 0 writes out [4] (the sums cast to T,
+// then the minimum).
+template <typename T>
+__device__ __forceinline__ void chunk_tree(const double* sl, const T* smin,
+                                           int ns, T* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  T mn = T(INFINITY);
+  auto leaf = [&](int k, double (&v)[3]) {
+    v[0] = v[1] = v[2] = 0.0;
+    for (int b = lane + 32 * k; b < ns; b += MT) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) v[i] += sl[3 * b + i];
+      mn = x_min(mn, smin[b]);
+    }
+  };
+  auto leaf2 = [&](int k0, int k1, double (&a)[3], double (&b)[3]) {
+    leaf(k0, a);
+    leaf(k1, b);
+  };
+  double s[3];
+  reg_tree<0, 1, KC>(leaf2, s);
+  lane_tree(s);
+  mn = lane_min(mn);
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) out[i] = T(s[i]);
+    out[3] = mn;
+  }
+}
+
+// A 4- or 8-byte copy from device to shared memory that does not hold the
+// thread (cp.async; completes at cp_wait).
+template <typename V>
+__device__ __forceinline__ void cp_async(V* dst, const V* src) {
+  static_assert(sizeof(V) == 4 || sizeof(V) == 8, "cp.async of 4 or 8 B");
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(int(sizeof(V)))
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most one group of this thread's copies is in flight.
+__device__ __forceinline__ void cp_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// A barrier of the nt threads of one team (named barrier id >= 1).
+__device__ __forceinline__ void team_sync(int id, int nt) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nt) : "memory");
+}
+
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) / 16 * 16;
+}
+
+// Regime 1's dynamic shared memory at cpw chains a warp and ns chunk slots
+// a chain: two chunk buffers (the T planes x y z interleaved, q, eps, sig
+// and RD_DISP's C6 C8 C10; mol_id; alive), then per chain its rows
+// [NRF][A_PAD], its molecule, atom count and whether it reads the mixing,
+// the mixing [4][NR_FIXED][MT] (classical instance), then per chain its
+// slots [ns][3] in double and its chunks' minima [ns].
+template <typename T, int RD>
+struct GridSmem {
+  static constexpr int NFT = RD == RD_DISP ? 9 : 6;
+  static constexpr size_t TPL = size_t(NFT) * MT * sizeof(T);
+  static constexpr size_t TILE = align16(TPL + size_t(MT) * 5);
+  static constexpr size_t MIX =
+      RD == RD_CLASSIC && B4_LJ_MIX ? 4 * NR_FIXED * MT * sizeof(T) : 0;
+  size_t rows, info, mix, slots, mins, total;
+  __host__ __device__ GridSmem(int cpw, int ns) {
+    const size_t cg = size_t(NW4) * cpw;
+    rows = 2 * TILE;
+    info = rows + align16(cg * NRF * A_PAD * sizeof(T));
+    mix = info + align16(cg * 3 * sizeof(int));
+    slots = mix + MIX;
+    mins = slots + cg * ns * 3 * sizeof(double);
+    total = mins + align16(cg * ns * sizeof(T));
+  }
+};
+
+// Regime 1: position stride 0 and C >= grid_min (the rotor grid: one
+// system, C placements of its molecules).  CTA blockIdx.x owns chains
+// [CG blockIdx.x, CG (blockIdx.x + 1)), CG = NW4 cpw; warp w the cpw from
+// CG blockIdx.x + w cpw.  The columns stream through shared memory a
+// chunk at a time, double-buffered (cp.async for the T and int32 planes;
+// the alive flags staged in a register across the chunk's work).  Each
+// chunk serves every chain of the CTA: warp w takes it for each of its
+// chains, KC columns a lane (P = 1), and keeps the chunk's sums in the
+// chain's slot b mod MT (added in chunk order past MT chunks).  Then warp
+// w takes step (3) over each of its chains' slots.  Nothing but the
+// outputs leaves the CTA.
+template <typename T, int RD>
+__global__ void __launch_bounds__(NT4, sizeof(T) == 4 && RD != RD_DISP ? 3
+                                                                     : 2)
+    mol_pair_grid_kernel(
+    const T* __restrict__ pos, const T* __restrict__ q,
+    const T* __restrict__ eps, const T* __restrict__ sig,
+    const int32_t* __restrict__ mol_id, const bool* __restrict__ alive,
+    const int64_t* __restrict__ mol_atoms,
+    const int64_t* __restrict__ mol_natoms, const int64_t* __restrict__ molp,
+    const T* __restrict__ rows, int A, const T* __restrict__ sc,
+    int sc_stride, int n, int C, int cpw, Opts o, T* __restrict__ out,
+    const T* __restrict__ c6, const T* __restrict__ c8,
+    const T* __restrict__ c10) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using L = GridSmem<T, RD>;
+  const int nb = (n + MT - 1) / MT;
+  const int ns = nb < MT ? nb : MT;
+  const L lay(cpw, ns);
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int CG = NW4 * cpw;
+  const int c0 = blockIdx.x * CG;
+  T* rw_all = reinterpret_cast<T*>(smem + lay.rows);
+  int* cm = reinterpret_cast<int*>(smem + lay.info);
+  int* cna = cm + CG;
+  int* cmix = cna + CG;
+  T* mix = reinterpret_cast<T*>(smem + lay.mix);
+  double* slots = reinterpret_cast<double*>(smem + lay.slots);
+  T* smins = reinterpret_cast<T*>(smem + lay.mins);
+  for (int e = t; e < CG * A_PAD; e += NT4) {
+    const int cl = e / A_PAD, a = e - cl * A_PAD;
+    const int c = c0 + cl;
+    if (c < C && n > 0) {
+      const int64_t m = molp[c];
+      gather_row<T, RD>(rw_all + cl * NRF * A_PAD, a, A, m, pos,
+                        rows ? rows + size_t(c) * A * 3 : nullptr,
+                        mol_atoms, q, eps, sig, c6, c8, c10);
+      if (a == 0) {
+        cm[cl] = int(m);
+        cna[cl] = int(mol_natoms[m]);
+      }
+    }
+  }
+  // the mixing serves the chains whose NR_FIXED rows have chain 0's eps
+  // and sig (the same species), under a shared header
+  bool mixing = false;
+  if constexpr (L::MIX > 0) {
+    __syncthreads();
+    const int nr0 = cna[0] < A ? cna[0] : A;
+    mixing = o.rd == 1 && sc_stride == 0 && n > 0 && nr0 == NR_FIXED;
+    for (int cl = t; cl < CG; cl += NT4) {
+      bool same = mixing && c0 + cl < C
+                  && (cna[cl] < A ? cna[cl] : A) == NR_FIXED;
+      for (int a = 0; a < NR_FIXED && same; ++a) {
+        const T* r0 = rw_all;
+        const T* r1 = rw_all + cl * NRF * A_PAD;
+        same = r1[4 * A_PAD + a] == r0[4 * A_PAD + a]
+               && r1[5 * A_PAD + a] == r0[5 * A_PAD + a];
+      }
+      cmix[cl] = same;
+    }
+  }
+  auto planes = [&](int buf) {
+    return reinterpret_cast<T*>(smem + size_t(buf) * L::TILE);
+  };
+  auto mols = [&](int buf) {
+    return reinterpret_cast<int32_t*>(smem + size_t(buf) * L::TILE + L::TPL);
+  };
+  auto alv = [&](int buf) {
+    return reinterpret_cast<bool*>(smem + size_t(buf) * L::TILE + L::TPL
+                                   + 4 * MT);
+  };
+  auto load = [&](int b, int buf) {
+    const int j0 = b * MT;
+    const int cnt = n - j0 < MT ? n - j0 : MT;
+    T* tp = planes(buf);
+    for (int e = t; e < 3 * cnt; e += NT4)
+      cp_async(tp + e, pos + size_t(3) * j0 + e);
+    if (t < cnt) {
+      cp_async(tp + 3 * MT + t, q + j0 + t);
+      cp_async(tp + 4 * MT + t, eps + j0 + t);
+      cp_async(tp + 5 * MT + t, sig + j0 + t);
+      if constexpr (RD == RD_DISP) {
+        cp_async(tp + 6 * MT + t, c6 + j0 + t);
+        cp_async(tp + 7 * MT + t, c8 + j0 + t);
+        cp_async(tp + 8 * MT + t, c10 + j0 + t);
+      }
+      cp_async(mols(buf) + t, mol_id + j0 + t);
+    }
+  };
+  if (nb > 0) {
+    load(0, 0);
+    if (t < n) alv(0)[t] = alive[t];
+  }
+  cp_commit();
+  for (int b = 0; b < nb; ++b) {
+    const int cur = b & 1;
+    bool al_next = false;
+    if (b + 1 < nb) {
+      load(b + 1, cur ^ 1);
+      const int jn = (b + 1) * MT + t;
+      if (jn < n) al_next = alive[jn];
+    }
+    cp_commit();
+    cp_wait_prior();     // chunk b's copies (this thread's) have landed
+    __syncthreads();     // ... and every thread's
+    const T* tp = planes(cur);
+    const int32_t* tm = mols(cur);
+    const bool* ta = alv(cur);
+    const int j0 = b * MT;
+    if (mixing) {        // CTA-uniform
+      for (int e = t; e < NR_FIXED * MT; e += NT4) {
+        const int a = e / MT, jj = e - a * MT;
+        T* m = mix + a * MT + jj;
+        lj_mix(rw_all[4 * A_PAD + a], tp[4 * MT + jj],
+               rw_all[5 * A_PAD + a], tp[5 * MT + jj], sc[0], o, m[0],
+               m[NR_FIXED * MT], m[2 * NR_FIXED * MT], m[3 * NR_FIXED * MT]);
+      }
+      __syncthreads();
+    }
+    for (int i = 0; i < cpw; ++i) {
+      const int cl = w * cpw + i;
+      const int c = c0 + cl;
+      if (c >= C) break;
+      const T* rw = rw_all + cl * NRF * A_PAD;
+      const int m = cm[cl];
+      const int nr = cna[cl] < A ? cna[cl] : A;
+      const T* scc = sc + size_t(c) * sc_stride;
+      T mn = T(INFINITY);
+      auto col = [&](int jj) {
+        Col<T> v;
+        v.x = tp[3 * jj];
+        v.y = tp[3 * jj + 1];
+        v.z = tp[3 * jj + 2];
+        v.q = tp[3 * MT + jj];
+        v.e = tp[4 * MT + jj];
+        v.s = tp[5 * MT + jj];
+        v.c6 = v.c8 = v.c10 = T(0);
+        if constexpr (RD == RD_DISP) {
+          v.c6 = tp[6 * MT + jj];
+          v.c8 = tp[7 * MT + jj];
+          v.c10 = tp[8 * MT + jj];
+        }
+        v.jj = jj;
+        v.ok = j0 + jj < n && ta[jj] && tm[jj] != m;
+        return v;
+      };
+      double s[3];
+      auto chunk = [&](auto nrc, auto mixed) {
+        auto leaf2 = [&](int k0, int k1, double (&a)[3], double (&b)[3]) {
+          column_pair<T, RD, decltype(nrc)::value, decltype(mixed)::value>(
+              rw, nr, col(lane + 32 * k0), col(lane + 32 * k1), scc, o, a,
+              b, mn, mix);
+        };
+        reg_tree<0, 1, KC>(leaf2, s);
+      };
+      if constexpr (L::MIX > 0) {
+        if (cmix[cl]) {
+          chunk(std::integral_constant<int, NR_FIXED>{}, std::true_type{});
+        } else if (nr == NR_FIXED) {
+          chunk(std::integral_constant<int, NR_FIXED>{}, std::false_type{});
+        } else {
+          chunk(std::integral_constant<int, 0>{}, std::false_type{});
+        }
+      } else if (nr == NR_FIXED) {
+        chunk(std::integral_constant<int, NR_FIXED>{}, std::false_type{});
+      } else {
+        chunk(std::integral_constant<int, 0>{}, std::false_type{});
+      }
+      lane_tree(s);
+      mn = lane_min(mn);
+      if (lane == 0) {
+        const int slot = b & (MT - 1);
+        double* sl = slots + (size_t(cl) * ns + slot) * 3;
+        T* smn = smins + size_t(cl) * ns + slot;
+        if (b < MT) {
+#pragma unroll
+          for (int e = 0; e < 3; ++e) sl[e] = s[e];
+          *smn = mn;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 3; ++e) sl[e] += s[e];
+          *smn = x_min(*smn, mn);
+        }
+      }
+    }
+    if (b + 1 < nb) alv(cur ^ 1)[t] = al_next;
+    __syncthreads();     // chunk b read by every warp: its buffer is free
+  }
+  __syncwarp();
+  for (int i = 0; i < cpw; ++i) {
+    const int cl = w * cpw + i;
+    const int c = c0 + cl;
+    if (c >= C) break;
+    chunk_tree<T>(slots + size_t(cl) * ns * 3, smins + size_t(cl) * ns, ns,
+                  out + size_t(c) * 4);
+  }
+}
+
+// Regime 2: every other launch (each chain its own positions, pos_stride
+// n 3; or stride 0 below grid_min).  Chain c = blockIdx.x / G has a
+// cluster of G CTAs (G = 1: one CTA), each of TM2 teams of P2 warps; team
+// g = rank TM2 + team of the cluster takes chunks g, g + G TM2, ..., KC /
+// P2 columns a lane, read from device memory.  A chunk's team meets once
+// (a named barrier: offsets 64 and 32 over its warps), then its first
+// warp shuffles and lane 0 writes the chunk's sums into rank 0's slots
+// [nb][3] and minima [nb] (distributed shared memory).  One cluster
+// barrier, and rank 0's first warp takes step (3).  No ticket, fence or
+// device-memory partial.
+template <typename T, int RD>
+__global__ void __launch_bounds__(NT2C, 2) mol_pair_cluster_kernel(
     const T* __restrict__ pos, const T* __restrict__ q,
     const T* __restrict__ eps, const T* __restrict__ sig,
     const int32_t* __restrict__ mol_id, const bool* __restrict__ alive,
     int pos_stride, const int64_t* __restrict__ mol_atoms,
     const int64_t* __restrict__ mol_natoms, const int64_t* __restrict__ molp,
     const T* __restrict__ rows, int A, const T* __restrict__ sc,
-    int sc_stride, int n, Opts o, double* __restrict__ part,
-    T* __restrict__ pmin, int32_t* __restrict__ ticket,
-    T* __restrict__ out, const T* __restrict__ c6,
-    const T* __restrict__ c8, const T* __restrict__ c10) {
-  __shared__ T rx[A_PAD], ry[A_PAD], rz[A_PAD], rq[A_PAD], re[A_PAD],
-      rs[A_PAD];
-  __shared__ T d6[A_PAD], d8[A_PAD], d10[A_PAD];   // RD_DISP's rows
-  __shared__ double red[3][MT];
-  __shared__ T rmin[MT];
-  __shared__ int last;
-  const int t = threadIdx.x;
-  const int c = blockIdx.y;
-  const int nb = gridDim.x;
+    int sc_stride, int n, int G, Opts o, T* __restrict__ out,
+    const T* __restrict__ c6, const T* __restrict__ c8,
+    const T* __restrict__ c10) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T rw[NRF * A_PAD];
+  __shared__ double xs[TM2][2][P2][3][32];    // a team's warps, by parity
+  __shared__ T xm[TM2][2][P2][32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());
+  const int c = blockIdx.x / G;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int team = w / P2, p = w % P2;
+  const int nb = (n + MT - 1) / MT;
   pos += size_t(c) * pos_stride;
   alive += size_t(c) * (pos_stride / 3);
-  if (rows) rows += size_t(c) * A * 3;
   sc += size_t(c) * sc_stride;
-  part += size_t(c) * nb * 3;
-  pmin += size_t(c) * nb;
-  ticket += c;
-  out += size_t(c) * 4;
   const int64_t m = molp[c];
   const int na = int(mol_natoms[m]);
-  if (t < A_PAD) {
-    const int a = t < A ? t : 0;
-    const int64_t idx = mol_atoms[m * A + a];
-    rx[t] = rows ? rows[3 * a] : pos[3 * idx];
-    ry[t] = rows ? rows[3 * a + 1] : pos[3 * idx + 1];
-    rz[t] = rows ? rows[3 * a + 2] : pos[3 * idx + 2];
-    rq[t] = q[idx]; re[t] = eps[idx]; rs[t] = sig[idx];
-    if constexpr (RD == RD_DISP) {
-      d6[t] = c6[idx]; d8[t] = c8[idx]; d10[t] = c10[idx];
-    }
-  }
+  const int nr = na < A ? na : A;
+  if (t < A_PAD && n > 0)
+    gather_row<T, RD>(rw, t, A, m, pos,
+                      rows ? rows + size_t(c) * A * 3 : nullptr, mol_atoms,
+                      q, eps, sig, c6, c8, c10);
   __syncthreads();
-  T acc[3] = {T(0), T(0), T(0)};
-  T mn = T(INFINITY);
-  const int j = blockIdx.x * MT + t;
-  if (j < n && alive[j] && mol_id[j] != int32_t(m)) {
-    const T xj = pos[3 * j], yj = pos[3 * j + 1], zj = pos[3 * j + 2];
-    const T qj = q[j], ej = eps[j], sj = sig[j];
-    T c6j = T(0), c8j = T(0), c10j = T(0);
-    if constexpr (RD == RD_DISP) {
-      c6j = c6[j]; c8j = c8[j]; c10j = c10[j];
-    }
-    const T rc2 = sc[0] * sc[0];
+  double* slots = cluster.map_shared_rank(
+      reinterpret_cast<double*>(smem), 0);
+  T* smins = cluster.map_shared_rank(
+      reinterpret_cast<T*>(smem + align16(size_t(nb) * 3 * sizeof(double))),
+      0);
+  const int NTM = G * TM2;
+  int par = 0;
+  for (int b = rank * TM2 + team; b < nb; b += NTM, par ^= 1) {
+    T mn = T(INFINITY);
+    // a column of the chain, read whatever its flags (the index held
+    // below n): every load of the chunk in flight at once
+    auto col = [&](int j) {
+      const int i = j < n ? j : n - 1;
+      Col<T> v;
+      v.x = pos[3 * i];
+      v.y = pos[3 * i + 1];
+      v.z = pos[3 * i + 2];
+      v.q = q[i];
+      v.e = eps[i];
+      v.s = sig[i];
+      v.c6 = v.c8 = v.c10 = T(0);
+      if constexpr (RD == RD_DISP) {
+        v.c6 = c6[i];
+        v.c8 = c8[i];
+        v.c10 = c10[i];
+      }
+      v.jj = 0;
+      v.ok = j < n && alive[i] && mol_id[i] != int32_t(m);
+      return v;
+    };
+    double s[3];
+    auto chunk = [&](auto nrc) {
+      auto leaf2 = [&](int k0, int k1, double (&a)[3], double (&b2)[3]) {
+        const int j0 = b * MT + lane + 32 * p;
+        column_pair<T, RD, decltype(nrc)::value>(
+            rw, nr, col(j0 + 32 * P2 * k0), col(j0 + 32 * P2 * k1), sc, o,
+            a, b2, mn);
+      };
+      reg_tree<0, 1, KC / P2>(leaf2, s);
+    };
+    if (nr == NR_FIXED)
+      chunk(std::integral_constant<int, NR_FIXED>{});
+    else
+      chunk(std::integral_constant<int, 0>{});
 #pragma unroll
-    for (int a = 0; a < A_PAD; ++a) {
-      if (a < A && a < na) {
-        T r2, rd, es, ex, tc;
-        T c6i = T(0), c8i = T(0), c10i = T(0);
-        if constexpr (RD == RD_DISP) {
-          c6i = d6[a]; c8i = d8[a]; c10i = d10[a];
-        }
-        pair_eval<T, RD>(rx[a], ry[a], rz[a], rq[a], re[a], rs[a], xj, yj,
-                         zj, qj, ej, sj, sc, o, r2, rd, es, ex, tc, c6i,
-                         c8i, c10i, c6j, c8j, c10j);
-        if (r2 < rc2) {
-          acc[0] += rd;
-          acc[1] += es;
-        }
-        acc[2] += tc;
-        mn = x_min(mn, r2);
+    for (int i = 0; i < 3; ++i) xs[team][par][p][i][lane] = s[i];
+    xm[team][par][p][lane] = mn;
+    team_sync(1 + team, 32 * P2);
+    if (p == 0) {
+      auto leafp = [&](int k, double (&v)[3]) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) v[i] = xs[team][par][k][i][lane];
+        mn = x_min(mn, xm[team][par][k][lane]);
+      };
+      auto leafp2 = [&](int k0, int k1, double (&a)[3], double (&b2)[3]) {
+        leafp(k0, a);
+        leafp(k1, b2);
+      };
+      reg_tree<0, 1, P2>(leafp2, s);
+      lane_tree(s);
+      mn = lane_min(mn);
+      if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) slots[3 * b + i] = s[i];
+        smins[b] = mn;
       }
     }
   }
-  block_partials<T, MT, 3>(acc, mn, red, rmin, part, pmin, blockIdx.x);
-  if (t == 0) {
-    __threadfence();            // this block's partials before its ticket
-    last = atomicAdd(ticket, 1) == nb - 1;
-  }
-  __syncthreads();
-  if (last) {
-    __threadfence();
-    reduce_body<T, 3>(part, pmin, nb, out, red, rmin);
-    if (t == 0) *ticket = 0;    // ready for the next launch
-  }
+  cluster.sync();        // every chunk's sums are in rank 0's slots
+  if (rank == 0 && w == 0)
+    chunk_tree<T>(reinterpret_cast<const double*>(smem),
+                  reinterpret_cast<const T*>(
+                      smem + align16(size_t(nb) * 3 * sizeof(double))),
+                  nb, out + size_t(c) * 4);
 }
 
 // The CTAs the card holds at once of B2.
@@ -656,23 +1159,122 @@ int launch_pair_terms(const T* pos, const T* q, const T* eps, const T* sig,
   return int(cudaGetLastError());
 }
 
+// The card's SM count (0 on an error).
+inline int b4_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess
+        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+               != cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+// B4's launch shape for n columns and C chains (stride0: position stride
+// 0): out[0] the regime (1 or 2), out[1] chains a warp (regime 1) or CTAs
+// a chain (regime 2), out[2] the grid's CTAs, out[3] dynamic shared
+// memory bytes, out[4] grid_min, the fewest stride-0 chains that take
+// regime 1 (enough CTAs of NW4 CPW_MAX chains for one on every SM).
+template <typename T, int RD>
+int mol_pair_plan(int n, int C, int stride0, int* out) {
+  const int sms = b4_sms();
+  if (sms == 0) return int(cudaErrorInvalidDevice);
+  const int nb = n > 0 ? (n + MT - 1) / MT : 0;
+  const int grid_min = NW4 * CPW_MAX * sms;
+  out[4] = grid_min;
+  if (stride0 && C >= grid_min) {
+    const int ns = nb < MT ? nb : MT;
+    int cpw = CPW_MAX;
+    while (cpw > 1 && GridSmem<T, RD>(cpw, ns).total > size_t(SMEM1_MAX))
+      cpw >>= 1;
+    const size_t smem = GridSmem<T, RD>(cpw, ns).total;
+    if (smem > size_t(SMEM1_MAX)) return int(cudaErrorInvalidValue);
+    out[0] = 1;
+    out[1] = cpw;
+    out[2] = (C + NW4 * cpw - 1) / (NW4 * cpw);
+    out[3] = int(smem);
+    return 0;
+  }
+  // enough teams for a chunk each, but no more CTAs than the card holds
+  // a few times over when C alone fills it
+  int G = (nb + TM2 - 1) / TM2;
+  G = G < 1 ? 1 : (G > G4_MAX ? G4_MAX : G);
+  const int fill = (4 * sms + C - 1) / C;
+  if (G > fill) G = fill;
+  const size_t smem = align16(size_t(nb) * 3 * sizeof(double))
+                      + align16(size_t(nb) * sizeof(T) + 1);
+  if (smem > size_t(200 * 1024) || int64_t(C) * G > 0x7fffffff)
+    return int(cudaErrorInvalidValue);
+  out[0] = 2;
+  out[1] = G;
+  out[2] = C * G;
+  out[3] = int(smem);
+  return 0;
+}
+
+// Raise a kernel's dynamic shared memory limit to bytes, once per size.
+template <typename Kern>
+inline cudaError_t b4_smem(Kern kern, size_t bytes, size_t* have) {
+  if (bytes <= *have) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (e == cudaSuccess) *have = bytes;
+  return e;
+}
+
 template <typename T, int RD>
 int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
                     const int32_t* mol_id, const bool* alive,
                     int pos_stride, const int64_t* mol_atoms,
                     const int64_t* mol_natoms,
                     const int64_t* mol, const T* rows, int A, const T* sc,
-                    int sc_stride, int n, int C, Opts o, double* part,
-                    T* pmin, int32_t* ticket, T* out, const T* c6,
+                    int sc_stride, int n, int C, Opts o, T* out, const T* c6,
                     const T* c8, const T* c10, cudaStream_t stream) {
-  const int nb = n > 0 ? (n + MT - 1) / MT : 1;
-  mol_pair_kernel<T, RD><<<dim3(nb, C), MT, 0, stream>>>(
-      pos, q, eps, sig, mol_id, alive, pos_stride, mol_atoms, mol_natoms,
-      mol, rows, A, sc, sc_stride, n, o, part, pmin, ticket, out, c6, c8,
-      c10);
+  if (A < 1 || A > A_PAD || C < 1 || n < 0) return int(cudaErrorInvalidValue);
+  int plan[5];
+  int e = mol_pair_plan<T, RD>(n, C, pos_stride == 0, plan);
+  if (e) return e;
+  if (plan[0] == 1) {
+    static size_t have1 = 48 * 1024;
+    cudaError_t r = b4_smem(mol_pair_grid_kernel<T, RD>, size_t(plan[3]),
+                            &have1);
+    if (r != cudaSuccess) return int(r);
+    mol_pair_grid_kernel<T, RD><<<plan[2], NT4, plan[3], stream>>>(
+        pos, q, eps, sig, mol_id, alive, mol_atoms, mol_natoms, mol, rows,
+        A, sc, sc_stride, n, C, plan[1], o, out, c6, c8, c10);
+    return int(cudaGetLastError());
+  }
+  static size_t have2 = 48 * 1024;
+  cudaError_t r = b4_smem(mol_pair_cluster_kernel<T, RD>, size_t(plan[3]),
+                          &have2);
+  if (r != cudaSuccess) return int(r);
+  if (plan[1] > 8) {
+    r = cudaFuncSetAttribute(mol_pair_cluster_kernel<T, RD>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (r != cudaSuccess) return int(r);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = unsigned(plan[1]);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(plan[2]));
+  cfg.blockDim = dim3(NT2C);
+  cfg.dynamicSmemBytes = size_t(plan[3]);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  r = cudaLaunchKernelEx(&cfg, mol_pair_cluster_kernel<T, RD>, pos, q, eps,
+                         sig, mol_id, alive, pos_stride, mol_atoms,
+                         mol_natoms, mol, rows, A, sc, sc_stride, n, plan[1],
+                         o, out, c6, c8, c10);
+  if (r != cudaSuccess) return int(r);
   return int(cudaGetLastError());
 }
-
 }  // namespace
 
 // The classical instance's entries (rd none or lj at run time): pair_terms,
@@ -703,16 +1305,17 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
       const void* mol_atoms,                                                \
       const void* mol_natoms, const void* mol, const void* rows, int A,     \
       const void* sc, int sc_stride, int n, int C, int rd, int mix, int es, \
-      int lrc, void* part, void* pmin, void* ticket, void* out,             \
-      void* stream) {                                                       \
+      int lrc, void* out, void* stream) {                                   \
     return launch_mol_pair<T, RD_CLASSIC>(                                  \
         (const T*)pos, (const T*)q, (const T*)eps, (const T*)sig,           \
         (const int32_t*)mol_id, (const bool*)alive, pos_stride,             \
         (const int64_t*)mol_atoms, (const int64_t*)mol_natoms,              \
         (const int64_t*)mol, (const T*)rows, A, (const T*)sc, sc_stride, n, \
-        C,                                                                  \
-        Opts{rd, mix, es, lrc}, (double*)part, (T*)pmin, (int32_t*)ticket,  \
-        (T*)out, nullptr, nullptr, nullptr, (cudaStream_t)stream);          \
+        C, Opts{rd, mix, es, lrc}, (T*)out, nullptr, nullptr, nullptr,      \
+        (cudaStream_t)stream);                                              \
+  }                                                                         \
+  extern "C" int mol_pair_plan_##SFX(int n, int C, int stride0, int* out) { \
+    return mol_pair_plan<T, RD_CLASSIC>(n, C, stride0, out);                \
   }
 
 // A form's instance (RD one of RD_SG .. RD_DISP): pair_terms_rd,
@@ -743,15 +1346,17 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
       const void* mol_id, const void* alive, int pos_stride,                \
       const void* mol_atoms, const void* mol_natoms, const void* mol,       \
       const void* rows, int A, const void* sc, int sc_stride, int n, int C, \
-      int damp, int mix, int es, int lrc, void* part, void* pmin,           \
-      void* ticket, void* out, const void* c6, const void* c8,              \
-      const void* c10, void* stream) {                                      \
+      int damp, int mix, int es, int lrc, void* out, const void* c6,        \
+      const void* c8, const void* c10, void* stream) {                      \
     return launch_mol_pair<T, RD>(                                          \
         (const T*)pos, (const T*)q, (const T*)eps, (const T*)sig,           \
         (const int32_t*)mol_id, (const bool*)alive, pos_stride,             \
         (const int64_t*)mol_atoms, (const int64_t*)mol_natoms,              \
         (const int64_t*)mol, (const T*)rows, A, (const T*)sc, sc_stride, n, \
-        C, Opts{damp, mix, es, lrc}, (double*)part, (T*)pmin,               \
-        (int32_t*)ticket, (T*)out, (const T*)c6, (const T*)c8,              \
+        C, Opts{damp, mix, es, lrc}, (T*)out, (const T*)c6, (const T*)c8,   \
         (const T*)c10, (cudaStream_t)stream);                               \
+  }                                                                         \
+  extern "C" int mol_pair_plan_rd_##SFX(int n, int C, int stride0,         \
+                                        int* out) {                         \
+    return mol_pair_plan<T, RD>(n, C, stride0, out);                        \
   }

@@ -44,10 +44,11 @@ _SIGNATURES = {
         # [CTAs resident on the card] out
         "pair_config": [_PI],
         # pos q eps sig mol alive | pos_stride | mol_atoms natoms mol rows
-        # | A | scal | scal_stride n C rd mix es lrc | part pmin ticket out
-        # | stream
+        # | A | scal | scal_stride n C rd mix es lrc | out | stream
         "mol_pair": [_P] * 6 + [_I] + [_P] * 4 + [_I] + [_P] + [_I] * 7
-        + [_P] * 4 + [_P],
+        + [_P] + [_P],
+        # n C stride0 | [regime per ctas smem grid_min] out
+        "mol_pair_plan": [_I] * 3 + [_PI],
     },
     "uvt_kernel": {
         # pos alive eps sig q mass mmass slot_start slot_species slot_alive
@@ -86,7 +87,8 @@ _SIGNATURES = {
         "pair_terms_rd": [_P] * 9 + [_I] * 9 + [_P] * 7 + [_P],
         "pair_config_rd": [_PI],
         "mol_pair_rd": [_P] * 6 + [_I] + [_P] * 4 + [_I] + [_P] + [_I] * 7
-        + [_P] * 7 + [_P],
+        + [_P] * 4 + [_P],
+        "mol_pair_plan_rd": [_I] * 3 + [_PI],
     },
     "pair_dreiding_kernel": {},
     "pair_b14_7_kernel": {},

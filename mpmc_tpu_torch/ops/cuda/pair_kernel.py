@@ -13,16 +13,20 @@ CTA adds them.
 B4 ``mol_pair`` replaces ops/pallas/pair_kernel.py::_mol_kernel (through
 ``mol_pair_tiles``/``mol_pair_pass_pallas``): one molecule's <= 8 rows
 (current or trial) against every column, its own columns masked.  Raw
-output [4]: [rd, es_real, lrc, min_r2].  One launch per call: its last
-block reduces the blocks' partials, held in scratch kept per device and
-type (``mol_pair_scratch``), so a move allocates only its output.
-``mol_pair_chains`` launches the same kernel over C chains (the batched
-scan chains): the chain is a grid axis, each chain with its own partial
-slots and ticket, raw output [C, 4].  Its scalar header is one [20] row
-for every chain or a [C, 20] row per chain (NPT chains, each its own box).
-Its positions are each chain's own, or (position stride 0) one system's
-that every chain reads: the C placements of one molecule that
-ops/qrot.py prices over its orientation grid.
+output [4]: [rd, es_real, lrc, min_r2].  One launch per call, and it
+allocates only its output: no partials leave the kernel.
+``mol_pair_chains`` launches it over C chains (the batched scan chains,
+the NPT chains, the rotor grid), raw output [C, 4].  Its scalar header is
+one [20] row for every chain or a [C, 20] row per chain (NPT chains, each
+its own box).  Its positions are each chain's own, or (position stride 0)
+one system's that every chain reads: the C placements of one molecule
+that ops/qrot.py prices over its orientation grid.  Two regimes
+(``mol_pair_plan`` says which a launch takes): at stride 0 with C at or
+above the card's ``grid_min`` a CTA holds 32 chains and streams the
+columns through shared memory, each chunk serving all of them; every
+other launch gives each chain a cluster of CTAs that meet in distributed
+shared memory.  Both sum in one order, so chain c of any launch has the
+bits of chain c launched alone.
 
 Each wrapper takes the plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor; anything else raises.  There is no
@@ -63,8 +67,8 @@ from mpmc_tpu_torch.state import take
 
 A_PAD = 8        # most rows a molecule may have (B4 row registers)
 PT = 128         # B2 tile edge: rows = columns per tile (TI = TJ)
-MT = 256         # B4 columns per block
 PLAIN_ROWS = 256  # row chunk of the plain full pass ([256, N] temporaries)
+PLAIN_PAIRS = 1 << 23   # pairs of a block of B4's plain version at stride 0
 
 _RD = {"none": 0, "lj": 1}       # the classical instance's run-time forms
 _MIX = {"lb": 0, "waldman_hagler": 1}
@@ -328,25 +332,6 @@ def pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal, cfg,
 pair_terms.launches = 0
 
 
-_mol_scratch: dict = {}
-
-
-def mol_pair_scratch(device, dtype, nb, C=1):
-    """(part [>= C nb, 3] double, pmin [>= C nb], tickets [>= C] int32,
-    zero between launches): B4's block partials on ``device``, grown to
-    the largest call and kept.  Calls share them in stream order (the port
-    launches every kernel on one stream)."""
-    have = _mol_scratch.get((device, dtype))
-    if have is None or have[1].numel() < C * nb or have[2].numel() < C:
-        size = max(C * nb, 0 if have is None else have[1].numel())
-        have = (torch.empty((size, 3), dtype=torch.float64, device=device),
-                torch.empty(size, dtype=dtype, device=device),
-                torch.zeros(max(C, 0 if have is None else have[2].numel()),
-                            dtype=torch.int32, device=device))
-        _mol_scratch[(device, dtype)] = have
-    return have
-
-
 def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
                      mol_natoms, mol, rows, scal, cfg, disp=None):
     """One B4 launch over C = mol.shape[0] chains (mol [C], rows [C, A, 3]
@@ -361,8 +346,8 @@ def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     m, a = mol_atoms.shape
     if a > A_PAD:
         raise ValueError(f"mol_pair: molecules of {a} atoms > A_PAD={A_PAD}")
-    if C < 1 or C > 65535:
-        raise ValueError(f"mol_pair: {C} chains (1..65535: the grid's y)")
+    if C < 1:
+        raise ValueError(f"mol_pair: {C} chains")
     _check("pos", pos, dt, (n, 3) if shared else (C, n, 3))
     for nm, t in (("charge", charge), ("eps", eps), ("sig", sig)):
         _check(nm, t, dt, (n,), dev)
@@ -376,8 +361,6 @@ def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     _check("scal", scal, dt, (C, 20) if scal.ndim == 2 else (20,), dev)
     lib, sfx, opts = _opts(cfg)
     extra = _disp_args(cfg, disp, n, dt, dev) if sfx else []
-    nb = max(-(-n // MT), 1)
-    part, pmin, ticket = mol_pair_scratch(dev, dt, nb, C)
     out = torch.empty((C, 4), dtype=dt, device=dev)
     from mpmc_tpu_torch.ops.cuda import _build
     fn = getattr(_build.library(lib), f"mol_pair{sfx}_" + _suffix(dt))
@@ -386,10 +369,25 @@ def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
              _ptr(mol_natoms), _ptr(mol),
              ctypes.c_void_p(None if rows is None else rows.data_ptr()),
              a, _ptr(scal), 20 if scal.ndim == 2 else 0, n, C, *opts,
-             _ptr(part), _ptr(pmin), _ptr(ticket), _ptr(out), *extra,
-             _stream(dev))
+             _ptr(out), *extra, _stream(dev))
     _raise_on(err, "mol_pair")
     return out
+
+
+def mol_pair_plan(n, C, shared, dtype, cfg):
+    """B4's launch shape on the card for n columns and C chains
+    (``shared``: position stride 0), from the kernel library of ``cfg``'s
+    form: {"regime": 1 or 2, "per": chains a warp (regime 1) or CTAs a
+    chain (regime 2), "ctas", "smem" (dynamic shared memory bytes),
+    "grid_min" (the fewest stride-0 chains that take regime 1)}."""
+    from mpmc_tpu_torch.ops.cuda import _build
+    lib, sfx, _ = _opts(cfg)
+    out = (ctypes.c_int * 5)()
+    err = getattr(_build.library(lib), f"mol_pair_plan{sfx}_"
+                  + _suffix(dtype))(int(n), int(C), int(bool(shared)), out)
+    _raise_on(err, "mol_pair_plan")
+    return dict(zip(("regime", "per", "ctas", "smem", "grid_min"),
+                    list(out)))
 
 
 def mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms, mol_natoms,
@@ -453,7 +451,26 @@ def _mol_pair_shared_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     ``pairs._block_terms`` (rd, es within rc; the tail coefficient and
     the closest approach over every inter pair), raw [C, 4]; a shared
     [20] header.  Under a Feynman-Hibbs/Kleinert cfg ``qc`` = (the atoms'
-    molecular masses [N], the temperature)."""
+    molecular masses [N], the temperature).  The chains go in blocks of
+    [c, A, N] <= PLAIN_PAIRS pairs, each chain's row the same in any
+    block."""
+    a = mol_atoms.shape[1]
+    step = max(1, PLAIN_PAIRS // max(a * pos.shape[0], 1))
+    if mol.shape[0] <= step:
+        return _mol_pair_block_plain(pos, charge, eps, sig, mol_id, alive,
+                                     mol_atoms, mol_natoms, mol, rows, scal,
+                                     cfg, qc, disp, gwp)
+    return torch.cat([
+        _mol_pair_block_plain(pos, charge, eps, sig, mol_id, alive,
+                              mol_atoms, mol_natoms, mol[c0:c0 + step],
+                              None if rows is None else rows[c0:c0 + step],
+                              scal, cfg, qc, disp, gwp)
+        for c0 in range(0, mol.shape[0], step)])
+
+
+def _mol_pair_block_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
+                          mol_natoms, mol, rows, scal, cfg, qc, disp, gwp):
+    """_mol_pair_shared_plain of one block of chains."""
     from mpmc_tpu_torch.ops import pbc
     idx = mol_atoms[mol]                                           # [C,A]
     a = idx.shape[1]

@@ -16,7 +16,7 @@ exp(-(F_new - F_old) / T) (mc/metropolis.py).
 
 Where the work runs:
 - ``potentials_on_grid`` builds every orientation's rows [R G, A, 3] on
-  the device and prices them in one B4 launch per 64 rotors
+  the device and prices them in one B4 launch per refresh
   (pair_kernel.mol_pair_chains with the positions shared, stride 0);
   under Feynman-Hibbs/Kleinert B4's gate refuses and its plain version
   runs on the device, as every pair pass of the port does;
@@ -45,7 +45,6 @@ import torch
 from mpmc_tpu_torch.constants import HBAR2_KB_AMU_A2
 
 N_THETA, N_PHI = 16, 32
-ROTORS_PER_LAUNCH = 64     # x 512 orientations: B4's grid y stays < 65,536
 # a site this close to its molecule's COM (A) sits at it: far above the
 # float32 rounding of a COM at ~100 A (1e-5 A), far below a bond
 AXIAL_EPS = 1e-3
@@ -164,29 +163,23 @@ def potentials_on_grid(pos, box, atom_alive, params, cfg, temperature,
     """V(Omega_g) [R, G] in K on the device: rotor ``mols[r]``'s RD + real
     ES energy with every other molecule when its axis points along
     ``axes[g]`` (the reference's potential_on_grid, whose reciprocal-space
-    change is second order at fixed COM and omitted).  One B4 launch per
-    ROTORS_PER_LAUNCH rotors, over their R G orientations with the
-    positions shared."""
+    change is second order at fixed COM and omitted).  One B4 launch over
+    every rotor's G orientations, the positions shared."""
     from mpmc_tpu_torch.ops import pairs
     dev, dt = pos.device, pos.dtype
     ax = torch.as_tensor(axes, dtype=dt, device=dev)               # [G,3]
     G = ax.shape[0]
-    scal = pairs.pair_scalars(box, cfg)
-    out = []
-    for r0 in range(0, len(mols), ROTORS_PER_LAUNCH):
-        chunk = torch.as_tensor([int(m) for m in
-                                 mols[r0:r0 + ROTORS_PER_LAUNCH]],
-                                dtype=torch.int64, device=dev)
-        rows = grid_rows(pos, params, chunk, ax)
-        t = pairs.mol_pair_pass(
-            pos, box, atom_alive, params, cfg, temperature,
-            chunk.repeat_interleave(G),
-            row_pos=rows.reshape(-1, rows.shape[2], 3).contiguous(),
-            scal=scal, shared=True)
-        out.append((t.rd + t.es_real).reshape(len(chunk), G))
-    if not out:
+    if not len(mols):
         return torch.zeros((0, G), dtype=dt, device=dev)
-    return torch.cat(out)
+    mt = torch.as_tensor([int(m) for m in mols], dtype=torch.int64,
+                         device=dev)
+    rows = grid_rows(pos, params, mt, ax)
+    t = pairs.mol_pair_pass(
+        pos, box, atom_alive, params, cfg, temperature,
+        mt.repeat_interleave(G),
+        row_pos=rows.reshape(-1, rows.shape[2], 3).contiguous(),
+        scal=pairs.pair_scalars(box, cfg), shared=True)
+    return (t.rd + t.es_real).reshape(len(mt), G)
 
 
 def potential_on_grid(pos, box, atom_alive, params, cfg, temperature,

@@ -71,9 +71,10 @@ def test_pair_terms_kernel_matches_plain(device, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_mol_pair_kernel_matches_plain(device, dtype):
-    """B4 (one launch: its last block reduces the partials) against its
-    plain version, current rows and a trial; one launch counted per call,
-    and the scratch kept across calls (no allocation per move)."""
+    """B4 (one launch: a chain's cluster meets in distributed shared
+    memory, no partial leaves the kernel) against its plain version,
+    current rows and a trial; one launch counted per call; a repeat gives
+    the same bits."""
     params, state, cfg, _ = _system(dtype, device)
     mol = torch.tensor(int(np.flatnonzero(
         state.mol_alive.cpu().numpy()
@@ -81,7 +82,6 @@ def test_mol_pair_kernel_matches_plain(device, dtype):
     trial = (state.pos[0] + params.species_pos[0]
              + torch.tensor([2.2, 0.31, 0.17], dtype=state.pos.dtype,
                             device=device))
-    kept = None
     for rows in (None, trial, None):
         args = (state.pos, params.charge, params.eps, params.sig,
                 params.mol_id32, state.atom_alive(params), params.mol_atoms,
@@ -92,13 +92,8 @@ def test_mol_pair_kernel_matches_plain(device, dtype):
         torch.cuda.synchronize(device)
         assert pk.mol_pair.launches == before + 1
         _close(k, pk.mol_pair_plain(*args), dtype)
-        # the same bits on a repeat: the ticket is back at 0 and the
-        # reduction order fixed
+        # the same bits on a repeat: the reduction order is fixed
         assert torch.equal(k, pk.mol_pair(*args))
-        ptrs = [t.data_ptr() for t in pk.mol_pair_scratch(
-            device, state.pos.dtype, 1)]
-        assert kept is None or ptrs == kept
-        kept = ptrs
 
 
 @pytest.mark.parametrize("chains,capacity", [(1, 40), (3, 40), (1, 700)],
@@ -1512,6 +1507,228 @@ def test_mol_pair_stride0_matches_plain(device, dtype):
     assert torch.equal(k, wide)
 
 
+def _ragged_system(n, dtype, device, seed=3):
+    """A system of exactly n B4 columns: 1-3 frozen charged LJ sites and
+    (n - 2) // 3 H2 slots (about half alive), random in a cube, and the
+    two pad rows build_system adds after the last molecule."""
+    from mpmc_tpu_torch.config import RunConfig
+    from mpmc_tpu_torch.state import build_system
+    cap = (n - 3) // 3
+    F = n - 2 - 3 * cap
+    rng = np.random.default_rng(seed)
+    L = max(24.0, 3.0 * n ** (1 / 3))
+    h2 = systems.h2_bss3()
+    alive = cap // 2 + 1
+    com = rng.uniform(0, L, (alive, 3))
+    params, state = build_system(
+        np.eye(3) * L, frozen_pos=rng.uniform(0, L, (F, 3)),
+        frozen_params={"charge": rng.uniform(-0.5, 0.5, F),
+                       "mass": np.full(F, 12.0),
+                       "eps": rng.uniform(20, 80, F),
+                       "sig": rng.uniform(2.8, 3.6, F),
+                       "polar": np.zeros(F)},
+        species=(h2,), capacity=(cap,), initial_counts=(alive,),
+        initial_pos={0: com[:, None, :] + h2.pos[None]},
+        dtype=getattr(torch, dtype), pad_atoms_to=1, seed=seed,
+        device=device)
+    cfg = RunConfig(ensemble="uvt", rd_potential="lj", coulomb="ewald",
+                    ewald_kmax=5, insert_species=(0,), dtype=dtype)
+    assert state.pos.shape[0] == n
+    return params, state, cfg
+
+
+@pytest.mark.parametrize("n", [37, 300, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mol_pair_ragged_columns(device, dtype, n):
+    """B4 at column counts that end inside a chunk (37 and 300: one and
+    two chunks, 1000: four): C = 1 (the single-chain launch's bits), 5
+    chains each with its own positions and a trial, and 5 placements at
+    stride 0 (the expanded launch's bits), each within _close of the plain
+    version."""
+    params, state, cfg = _ragged_system(n, dtype, device)
+    mol = int(np.flatnonzero(state.mol_alive.cpu().numpy()
+                             & (params.mol_species >= 0).cpu().numpy())[0])
+    alive = state.atom_alive(params)
+    scal = pairs.pair_scalars(state.box, cfg)
+    common = (params.charge, params.eps, params.sig, params.mol_id32)
+    C = 5
+    g = np.random.default_rng(n)
+    shift = torch.as_tensor(g.uniform(-2, 2, (C, 1, 3)),
+                            dtype=state.pos.dtype, device=device)
+    rows = (state.pos[params.mol_atoms[mol]][None] + shift).contiguous()
+    mols = torch.full((C,), mol, dtype=torch.int64, device=device)
+    pos_c = (state.pos[None] + 0.05 * shift).contiguous()
+    alive_c = alive.expand(C, -1).contiguous()
+    for r in (None, rows):
+        args = (pos_c, *common, alive_c, params.mol_atoms, params.mol_natoms,
+                mols, r, scal, cfg)
+        k = pk.mol_pair_chains(*args)
+        torch.cuda.synchronize(device)
+        _close(k, pk.mol_pair_chains_plain(*args), dtype)
+        one = pk.mol_pair(pos_c[0], *common, alive_c[0], params.mol_atoms,
+                          params.mol_natoms, mols[0],
+                          None if r is None else r[0], scal, cfg)
+        assert torch.equal(k[0], one)
+    tail = (params.mol_atoms, params.mol_natoms, mols, rows, scal, cfg)
+    k = pk.mol_pair_chains(state.pos, *common, alive, *tail)
+    _close(k, pk.mol_pair_chains_plain(state.pos, *common, alive, *tail),
+           dtype)
+    wide = pk.mol_pair_chains(state.pos.expand(C, -1, -1).contiguous(),
+                              *common, alive_c, *tail)
+    assert torch.equal(k, wide)
+    assert torch.isfinite(k).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mol_pair_no_columns(device, dtype):
+    """B4 over 0 columns (an empty system; 3 chains, trial rows): nothing
+    is read past the empty planes, and every chain's sums are 0 with a
+    closest approach of +inf."""
+    params, state, cfg, _ = _system(dtype, device)
+    dt = state.pos.dtype
+    C = 3
+    empty = torch.zeros(0, dtype=dt, device=device)
+    mol = int(np.flatnonzero(state.mol_alive.cpu().numpy()
+                             & (params.mol_species >= 0).cpu().numpy())[0])
+    rows = state.pos[params.mol_atoms[mol]][None].expand(C, -1, -1)
+    k = pk.mol_pair_chains(
+        torch.zeros((C, 0, 3), dtype=dt, device=device), empty, empty,
+        empty, torch.zeros(0, dtype=torch.int32, device=device),
+        torch.zeros((C, 0), dtype=torch.bool, device=device),
+        params.mol_atoms, params.mol_natoms,
+        torch.full((C,), mol, dtype=torch.int64, device=device),
+        rows.contiguous(), pairs.pair_scalars(state.box, cfg), cfg)
+    torch.cuda.synchronize(device)
+    want = torch.tensor([0.0, 0.0, 0.0, float("inf")], dtype=dt,
+                        device=device).expand(C, 4)
+    assert torch.equal(k, want)
+
+
+def _orientations(state, params, mol, C, device, seed=11):
+    """Trial rows [C, A, 3] of molecule ``mol`` turned about its COM to C
+    random axes (qrot.grid_rows), and mol [C]."""
+    from mpmc_tpu_torch.ops import qrot
+    g = np.random.default_rng(seed)
+    ax = g.standard_normal((C, 3))
+    ax /= np.linalg.norm(ax, axis=1, keepdims=True)
+    mt = torch.tensor([mol], device=device)
+    rows = qrot.grid_rows(state.pos, params, mt,
+                          torch.as_tensor(ax, dtype=state.pos.dtype,
+                                          device=device))
+    return (rows.reshape(C, -1, 3).contiguous(),
+            torch.full((C,), mol, dtype=torch.int64, device=device))
+
+
+@pytest.mark.parametrize("side", [-1, 1], ids=["below", "above"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mol_pair_regime_switch(device, dtype, side):
+    """B4 at position stride 0 with an odd chain count just below
+    (regime 2: a cluster per chain) and just above (regime 1: a CTA of
+    chains streaming the column chunks) the card's grid_min: within
+    _close of the plain version, and bit for bit the launch over an
+    expanded, copied pos and alive (regime 2)."""
+    params, state, cfg, _ = _system(dtype, device)
+    n = state.pos.shape[0]
+    gmin = pk.mol_pair_plan(n, 1, True, state.pos.dtype, cfg)["grid_min"]
+    C = gmin + side
+    assert C % 2 == 1
+    plan = pk.mol_pair_plan(n, C, True, state.pos.dtype, cfg)
+    assert plan["regime"] == (1 if side > 0 else 2)
+    mol = int(np.flatnonzero(state.mol_alive.cpu().numpy()
+                             & (params.mol_species >= 0).cpu().numpy())[0])
+    rows, mols = _orientations(state, params, mol, C, device)
+    alive = state.atom_alive(params)
+    common = (params.charge, params.eps, params.sig, params.mol_id32)
+    tail = (params.mol_atoms, params.mol_natoms, mols, rows,
+            pairs.pair_scalars(state.box, cfg), cfg)
+    before = pk.mol_pair_chains.shared_launches
+    k = pk.mol_pair_chains(state.pos, *common, alive, *tail)
+    torch.cuda.synchronize(device)
+    assert pk.mol_pair_chains.shared_launches == before + 1
+    _close(k, pk.mol_pair_chains_plain(state.pos, *common, alive, *tail),
+           dtype)
+    wide = pk.mol_pair_chains(state.pos.expand(C, -1, -1).contiguous(),
+                              *common, alive.expand(C, -1).contiguous(),
+                              *tail)
+    assert torch.equal(k, wide)
+    assert torch.equal(k, pk.mol_pair_chains(state.pos, *common, alive,
+                                             *tail))
+
+
+def test_mol_pair_grid_all_rotors_bench(device):
+    """The rotor grid of the 10.8k bench system (chip_smoke's: 256 H2
+    rotors x 512 orientations, float32) in one B4 launch, C = 131,072 >
+    65,535 (regime 1): bit for bit its four 64-rotor launches and the
+    launches over expanded, copied positions (regime 2, 8,192 chains a
+    launch); the first 2,048 chains within _close of the plain version;
+    and qrot.potentials_on_grid over all 256 rotors is that one launch."""
+    from mpmc_tpu_torch.ops import qrot
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=21, n_h2=256, capacity=512, dtype="float32", device=device)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    mols = qrot.rotor_slots(state.mol_alive, params, [systems.h2_bss3()])[0]
+    assert len(mols) == 256
+    axes = torch.as_tensor(qrot._basis(4, 16, 32)[3], dtype=torch.float32,
+                           device=device)
+    G = axes.shape[0]
+    alive = state.atom_alive(params)
+    scal = pairs.pair_scalars(state.box, cfg)
+    common = (params.charge, params.eps, params.sig, params.mol_id32)
+
+    def tail(ms):
+        mt = torch.as_tensor(ms, device=device)
+        rows = qrot.grid_rows(state.pos, params, mt, axes)
+        return (params.mol_atoms, params.mol_natoms, mt.repeat_interleave(G),
+                rows.reshape(-1, rows.shape[2], 3).contiguous(), scal, cfg)
+
+    full = tail(mols)
+    C = full[2].shape[0]
+    assert C == 131072
+    assert pk.mol_pair_plan(state.pos.shape[0], C, True, torch.float32,
+                            cfg)["regime"] == 1
+    k = pk.mol_pair_chains(state.pos, *common, alive, *full)
+    torch.cuda.synchronize(device)
+    parts = torch.cat([pk.mol_pair_chains(state.pos, *common, alive,
+                                          *tail(mols[r0:r0 + 64]))
+                       for r0 in range(0, 256, 64)])
+    assert torch.equal(k, parts)
+    step = 8192
+    for c0 in range(0, C, step):
+        sl = slice(c0, c0 + step)
+        wide = pk.mol_pair_chains(
+            state.pos.expand(step, -1, -1).contiguous(), *common,
+            alive.expand(step, -1).contiguous(), *full[:2], full[2][sl],
+            full[3][sl], scal, cfg)
+        assert torch.equal(k[sl], wide), c0
+    sl = slice(0, 2048)
+    _close(k[sl], pk.mol_pair_chains_plain(
+        state.pos, *common, alive, *full[:2], full[2][sl], full[3][sl],
+        scal, cfg), "float32")
+    before = pk.mol_pair_chains.launches
+    v = qrot.potentials_on_grid(state.pos, state.box, alive, params, cfg,
+                                thermo.temperature, mols, axes)
+    assert pk.mol_pair_chains.launches == before + 1
+    torch.testing.assert_close(
+        v, (k[:, 0] + pairs.KE * k[:, 1]).reshape(256, G), rtol=0, atol=0)
+
+
+def test_qrot_refresh_one_launch(device):
+    """A rotor-table refresh (qrot.eigen_tables over every rotor of the
+    small system) makes one B4 launch, at position stride 0."""
+    from mpmc_tpu_torch.ops import qrot
+    params, state, cfg, thermo = _system("float32", device)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    before = (pk.mol_pair_chains.launches,
+              pk.mol_pair_chains.shared_launches)
+    eigs = qrot.eigen_tables(state.pos, state.box, state.atom_alive(params),
+                             state.mol_alive, params, cfg, thermo,
+                             [systems.h2_bss3()])
+    assert len(eigs) > 1
+    assert (pk.mol_pair_chains.launches,
+            pk.mol_pair_chains.shared_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+
+
 @pytest.mark.parametrize("xt", [False, True], ids=["sf", "sf+cav+tmmc"])
 @pytest.mark.parametrize("chains", [1, 3])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -1735,6 +1952,43 @@ def test_mol_pair_kernel_rd_forms_match_plain(device, dtype, form):
         _close(k, pk.mol_pair_chains_plain(*args, disp=disp), dtype)
     assert torch.equal(k, pk.mol_pair_chains(pos_c, *args[1:5], alive_c,
                                              *args[6:], disp=disp))
+
+
+@pytest.mark.parametrize("form", RD_FORMS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mol_pair_rd_forms_both_regimes(device, dtype, form):
+    """B4's instance of each RD form at position stride 0 with grid_min +
+    1 placements (regime 1) against its plain version and bit for bit
+    the expanded launch (regime 2), and over 5 chains with their own
+    positions within _close of the plain version."""
+    params, state, cfg, _ = _rd_system(dtype, device, form)
+    disp, _ = pairs.site_columns(params, cfg)
+    n = state.pos.shape[0]
+    C = pk.mol_pair_plan(n, 1, True, state.pos.dtype, cfg)["grid_min"] + 1
+    assert pk.mol_pair_plan(n, C, True, state.pos.dtype, cfg)["regime"] == 1
+    mol = int(np.flatnonzero(state.mol_alive.cpu().numpy()
+                             & (params.mol_species >= 0).cpu().numpy())[0])
+    rows, mols = _orientations(state, params, mol, C, device)
+    alive = state.atom_alive(params)
+    scal = pairs.pair_scalars(state.box, cfg)
+    common = (params.charge, params.eps, params.sig, params.mol_id32)
+    tail = (params.mol_atoms, params.mol_natoms, mols, rows, scal, cfg)
+    k = pk.mol_pair_chains(state.pos, *common, alive, *tail, disp=disp)
+    torch.cuda.synchronize(device)
+    _close(k, pk.mol_pair_chains_plain(state.pos, *common, alive, *tail,
+                                       disp=disp), dtype)
+    wide = pk.mol_pair_chains(state.pos.expand(C, -1, -1).contiguous(),
+                              *common, alive.expand(C, -1).contiguous(),
+                              *tail, disp=disp)
+    assert torch.equal(k, wide)
+    c5 = 5
+    pos_c = (state.pos[None] + 0.03 * torch.arange(
+        c5, dtype=state.pos.dtype, device=device)[:, None, None]).contiguous()
+    args = (pos_c, *common, alive.expand(c5, -1).contiguous(),
+            params.mol_atoms, params.mol_natoms, mols[:c5], rows[:c5], scal,
+            cfg)
+    _close(pk.mol_pair_chains(*args, disp=disp),
+           pk.mol_pair_chains_plain(*args, disp=disp), dtype)
 
 
 def test_pair_kernels_rd_form_decks(device):

@@ -141,6 +141,26 @@ tests/test_torch_cuda.py), the largest difference of their trial rows
 in float32 ulps, and d_rec recomputed from each record's own trial rows
 (the plain version's reciprocal term, in float32 and in float64); and
 says which records equal the first file's bit for bit.
+
+    python tools/measure_torch_ab.py --b4 <checkout> <out.json>
+    python tools/measure_torch_ab.py --compare-b4 <a.json> [...]
+
+The fourteenth form runs <checkout>'s B4 through its own wrappers in
+every instance (classical and each RD form of its chip_smoke.RD_FORMS,
+on the bench system, the form's under chip_smoke._rd_bench), float64 and
+float32, at every shape the main paths launch: an H2's current rows and a
+trial beside the framework (C = 1), 128 chains with their own positions
+(chip_smoke._chain_inputs), 16 chains with a [16, 20] header (their
+positions and boxes scaled as chip_smoke._mol_pair_header does), and the
+rotor grid at position stride 0 (64 rotors x 512 orientations, C =
+32,768; and all 256 rotors in one launch, C = 131,072, where the checkout
+takes more than 65,535 chains).  It keeps every output in
+<out.json>.b4all.pt and, in float32, each shape's ms per call
+(chip_smoke.time_calls) and on the card alone (back-to-back calls behind
+a spin kernel), with ptxas's lines of the five pair libraries; a
+launch of more than 10,000 values is kept as its SHA-256 digest.  The
+fifteenth form prints the files side by side and fails unless every
+output that all the files keep is equal bit for bit in all of them.
 """
 from __future__ import annotations
 
@@ -1087,6 +1107,166 @@ def compare(paths):
         _report(p, r)
 
 
+def _b4_cases(cs, dev, form, dtype, inputs):
+    """{label: (launch, float32 timing n or 0)} of B4 in the checkout's
+    ``form`` instance ("classic": the classical one) on the bench system:
+    see the fourteenth form."""
+    import torch
+
+    from mpmc_tpu_torch.mc import moves
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.ops import pairs, qrot
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    if form == "classic":
+        params, state, cfg, _ = cs.bench_system(dtype, dev)
+        disp = None
+    else:
+        params, state, cfg, _ = cs._rd_bench(form, dtype, dev)
+        disp = pairs.site_columns(params, cfg)[0]
+    kw = {} if disp is None else {"disp": disp}
+    alive = state.atom_alive(params)
+    scal = pairs.pair_scalars(state.box, cfg)
+    common = (params.charge, params.eps, params.sig, params.mol_id32)
+    h2 = int(np.flatnonzero((params.mol_species >= 0).cpu().numpy()
+                            & state.mol_alive.cpu().numpy())[0])
+    near = state.pos[0] + torch.tensor([2.0, 0.31, 0.17], dtype=cfg.tdtype,
+                                       device=dev)
+    m = torch.tensor(h2, device=dev)
+    cases = {}
+    for label, rows in (("one_H2", None),
+                        ("one_trial", near + params.species_pos[0])):
+        a = (state.pos, *common, alive, params.mol_atoms, params.mol_natoms,
+             m, rows, scal, cfg)
+        cases[label] = (lambda a=a: pk.mol_pair(*a, **kw), 200)
+    args, rows, _, _ = inputs[dtype]
+    a = (args[0], *common, args[5], params.mol_atoms, params.mol_natoms,
+         args[8], rows, scal, cfg)
+    cases["c128"] = (lambda a=a: pk.mol_pair_chains(*a, **kw), 100)
+    C = 16
+    a64, _, _, p64 = inputs["float64"]
+    d_lnv = torch.linspace(-0.06, 0.06, C, dtype=torch.float64, device=dev)
+    box = a64[10][2:11].reshape(3, 3)
+    pos16, box16 = moves.scale_volume(a64[0][:C].contiguous(),
+                                      box.expand(C, 3, 3), p64, d_lnv)
+    a = (pos16.to(state.pos.dtype), *common, args[5][:C].contiguous(),
+         params.mol_atoms, params.mol_natoms, args[8][:C].contiguous(),
+         rows[:C], pairs.pair_scalars(box16.to(state.pos.dtype), cfg), cfg)
+    cases["c16_header"] = (lambda a=a: pk.mol_pair_chains(*a, **kw), 100)
+    mols = qrot.rotor_slots(state.mol_alive, params,
+                            [systems.h2_bss3()])[0]
+    axes = torch.as_tensor(qrot._basis(4, qrot.N_THETA, qrot.N_PHI)[3],
+                           dtype=state.pos.dtype, device=dev)
+    G = axes.shape[0]
+    for label, ms in (("grid64", mols[:64]), ("grid256", mols[:256])):
+        mt = torch.as_tensor(ms, device=dev)
+        gr = qrot.grid_rows(state.pos, params, mt, axes)
+        a = (state.pos, *common, alive, params.mol_atoms, params.mol_natoms,
+             mt.repeat_interleave(G),
+             gr.reshape(-1, gr.shape[2], 3).contiguous(), scal, cfg)
+        cases[label] = (lambda a=a: pk.mol_pair_chains(*a, **kw), 5)
+    return cases
+
+
+def measure_b4(checkout, out):
+    import hashlib
+    import json
+
+    import torch
+    sys.path.insert(0, checkout)
+    import chip_smoke as cs
+    from mpmc_tpu_torch.ops.cuda import _build
+    dev, smi = cs.phase_device()
+    for name in _build.build():
+        _build.library(name)
+    forms = ("classic",) + tuple(cs.RD_FORMS)
+    r = {"card": smi, "times": {}, "ptxas": {}}
+    for name in ("pair_kernel", "pair_sg_kernel", "pair_dreiding_kernel",
+                 "pair_b14_7_kernel", "pair_disp_kernel"):
+        text = _build.target(name).with_suffix(".ptxas.txt").read_text()
+        r["ptxas"][name] = [ln.strip() for ln in text.splitlines()
+                            if "registers" in ln or "spill" in ln]
+    inputs = cs._chain_inputs(dev, 128)
+    saved = {}
+    for form in forms:
+        for dtype in ("float64", "float32"):
+            for label, (launch, n) in _b4_cases(cs, dev, form, dtype,
+                                                inputs).items():
+                key = f"{form}/{dtype}/{label}"
+                try:
+                    out_k = launch().cpu()
+                except ValueError as e:        # more chains than it takes
+                    print(f"{key}: {e}")
+                    continue
+                # the grid launches by digest (tens of MB as tensors)
+                saved[key] = (out_k if out_k.numel() <= 10000 else
+                              hashlib.sha256(out_k.numpy().tobytes())
+                              .hexdigest())
+                if dtype == "float32":
+                    r["times"][f"{form}/{label}"] = {
+                        "ms": cs.time_calls(launch, dev),
+                        "device_ms": _time_device(launch, dev, n)}
+                torch.cuda.synchronize(dev)
+    torch.save(saved, out + ".b4all.pt")
+    with open(out, "w") as f:
+        json.dump(r, f, indent=1)
+    _report_b4(checkout, r)
+
+
+def _report_b4(label, r):
+    print(f"{label} ({r['card']}):")
+    for k, e in r["times"].items():
+        print(f"    {k}: {e['ms']:.4f} ms per call, {e['device_ms']:.4f} "
+              "on the card alone")
+
+
+def compare_b4(paths):
+    import json
+
+    import torch
+    runs = []
+    for p in paths:
+        with open(p) as f:
+            runs.append(json.load(f))
+    keys = sorted(set.intersection(*(set(r["times"]) for r in runs)))
+    print("B4 (ms on the card alone; per call) in " + ", ".join(paths))
+    for k in keys:
+        print(f"    {k:28s} " + "  ".join(
+            f"{r['times'][k]['device_ms']:9.4f} ({r['times'][k]['ms']:.4f})"
+            for r in runs))
+    for r in runs[1:]:
+        if r["card"] != runs[0]["card"]:
+            print(f"cards differ: {r['card']} / {runs[0]['card']}")
+    for name in runs[0]["ptxas"]:
+        print(f"  ptxas {name}:")
+        for p, r in zip(paths, runs):
+            print(f"    {p}: " + "; ".join(
+                ln for ln in r["ptxas"].get(name, [])
+                if "registers" in ln)[:600])
+    outs = [torch.load(p + ".b4all.pt") for p in paths]
+    common = sorted(set.intersection(*(set(o) for o in outs)))
+
+    def same(a, b):
+        return a == b if isinstance(a, str) else torch.equal(a, b)
+
+    diff = [k for k in common if not all(same(o[k], outs[0][k])
+                                         for o in outs)]
+    only = sorted(set.union(*(set(o) for o in outs)) - set(common))
+    print(f"B4: {len(common)} outputs in every file, "
+          + ("equal bit for bit" if not diff else f"DIFFER: {diff}")
+          + (f"; kept by some files only: {only}" if only else ""))
+    if diff:
+        for k in diff:
+            if isinstance(outs[0][k], str):
+                print(f"    {k}: digests differ")
+                continue
+            a, b = outs[0][k].double(), outs[1][k].double()
+            d = (a - b).abs()
+            print(f"    {k}: {int((d > 0).sum())} of {d.numel()} values "
+                  f"differ, max |d| {float(d.max()):.3e}, max rel "
+                  f"{float((d / b.abs().clamp_min(1e-300)).max()):.3e}")
+        raise SystemExit(1)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--compare":
         compare(sys.argv[2:])
@@ -1110,6 +1290,10 @@ if __name__ == "__main__":
         measure_pda_small(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "--compare-pda-small":
         compare_pda_small(sys.argv[2:])
+    elif sys.argv[1] == "--b4":
+        measure_b4(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "--compare-b4":
+        compare_b4(sys.argv[2:])
     elif sys.argv[1] == "--same-sass":
         same_sass(sys.argv[2:])
     elif sys.argv[1] == "--compare-phases":
