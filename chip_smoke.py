@@ -201,7 +201,26 @@ Phases (any failure raises, so the exit code is non-zero):
    the other forms' NVT (1,000) and
    PDA (100) decks: the fused route and the form instances logged, the
    kernel launched, steps/s, and the carried energy against a fresh
-   recompute after a further chunk.
+   recompute after a further chunk;
+30. B5 with a header per chain (phase_thole_header) — the polar NPT
+   fluid (3,456 polarizable H2) rescaled into 8 cells (edges -5 % .. +5
+   %): a [8, 20] header in one launch, a shared header equal to the same
+   header repeated and each chain equal to its lone launch in its own
+   cell bit for bit, culled equal to dense, each chain within
+   phase_thole_chains' tolerance of the plain version; times beside the
+   shared-header launch;
+31. polar NPT (phase_polar_npt) — that fluid (77 K, 200 atm) on the scan
+   path (300 steps) and as 8 batched chains (100): volume attempts and
+   acceptances, <V>, CG iterations per volume attempt, B2 == attempts x
+   chains + refreshes, B5 launched, polar bookkeeping;
+32. A12b's energy terms — cdvdw on a 512-site Drude fluid with and
+   without cdvdw_sig_repulsion (phase_cdvdw: the eigensolve's share,
+   float64 bookkeeping at 1e-9, vdw against the CPU), rd_crystal on fcc
+   argon at order 3 (phase_rd_crystal: the fcc lattice sum, card against
+   CPU), SPECTRE with 32 S-flagged charges in the bench system
+   (phase_spectre: the clamp and target every block, bookkeeping) and
+   quantum_vibration in DECK (phase_qvib: one stride-0 B4 launch per
+   refresh, the grid against plain, levels against CPU float64).
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
@@ -260,6 +279,7 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
               for k in ("pair_terms", "mol_pair")
               for f in ("sg", "dreiding", "b14_7", "disp")},
            "mol_pair_chains_disp": "mpmc_tpu_torch/csrc/pair_disp_kernel.cu",
+           "dipole_field_c8_header": "mpmc_tpu_torch/csrc/thole_kernel.cu",
            **{f"run_steps_uvt_{f}": f"mpmc_tpu_torch/csrc/uvt_{f}_kernel.cu"
               for f in ("sg", "dreiding", "b14_7", "disp", "gwp")},
            "run_steps_uvt_disp_c32": "mpmc_tpu_torch/csrc/uvt_disp_kernel.cu",
@@ -296,6 +316,7 @@ REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             **{f"mol_pair_{f}": "mpmc_tpu/ops/pallas/pair_kernel.py:336"
                for f in ("sg", "dreiding", "b14_7", "disp")},
             "mol_pair_chains_disp": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
+            "dipole_field_c8_header": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
             **{f"run_steps_uvt_{f}": "mpmc_tpu/ops/pallas/mc_kernel.py:910"
                for f in ("sg", "dreiding", "b14_7", "disp", "gwp",
                          "disp_c32", "gwp_fh2")},
@@ -5847,6 +5868,681 @@ def phase_rd_fused_decks(device, chunk=200):
     return launches, reps
 
 
+# ---------------------------------------------------------------------------
+# polar NPT with B5 over a box per chain, then A12b's energy terms: cdvdw
+# and its repulsions, rd_crystal, SPECTRE, quantum vibration
+# ---------------------------------------------------------------------------
+
+# the frameless polarizable H2 fluid of the polar NPT decks: the polar
+# bench sorbate (h2_bss3: alpha 0.6938 A^3 on the centre, the bench's
+# Thole damping) at 77 K and 200 atm, 3,456 molecules (10,368 sites), its
+# box started at the ideal-gas volume (N + 1) kT / P
+N_FLUID, FLUID_T, FLUID_P = 3456, 77.0, 200.0
+POLAR_NPT_LINES = ("ensemble npt\npressure 200\nvolume_probability 0.05\n"
+                   "volume_change_factor 0.008\ncorrtime 100\n"
+                   "polarization on\newald_kmax 5\n")
+# the Drude fluid of the cdvdw decks: 512 H2 with alpha and omega on the
+# centre (P = 512, a 1,536 x 1,536 eigensolve per trial), float64
+N_DRUDE, DRUDE_OMEGA = 512, 0.6
+# B5 over chains with a header per chain: the cells' edge factors
+HEADER_SCALE = (0.95, 1.05)
+# quantum vibration: H2's fundamental [cm^-1]
+H2_VIB = 4161.0
+# the spectre sites added to the bench system: count, |q|, the clamp and
+# the target of the renormalization
+N_SPECTRE, SPECTRE_Q, SPECTRE_MAX, SPECTRE_TARGET = 32, 0.9, 0.5, 8.0
+
+
+def _fluid_state(sp, n_mol, L, dtype, device, seed):
+    """(params, state) of ``n_mol`` rigid ``sp`` molecules on a jittered
+    cubic lattice in a cubic box of edge L (no framework)."""
+    from mpmc_tpu_torch.state import build_system
+    m = int(np.ceil(n_mol ** (1.0 / 3.0)))
+    rng = np.random.default_rng(seed)
+    ijk = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                   -1).reshape(-1, 3)
+    ijk = ijk[rng.permutation(len(ijk))[:n_mol]]
+    coms = (ijk + 0.5) * (L / m) + rng.uniform(-0.2, 0.2, (n_mol, 3))
+    return build_system(
+        np.eye(3) * L, species=(sp,), capacity=(n_mol,),
+        initial_counts=(n_mol,),
+        initial_pos={0: coms[:, None, :] + sp.pos[None]},
+        dtype=getattr(torch, dtype), seed=seed, device=device)
+
+
+def polar_fluid(dtype, device, seed=47):
+    """(params, state, cfg, thermo) of the polar NPT fluid (N_FLUID polar
+    H2 at FLUID_T and FLUID_P, Ewald, Thole on the centres)."""
+    from mpmc_tpu_torch.config import RunConfig, Thermo
+    from mpmc_tpu_torch.constants import ATM2K_A3
+    from mpmc_tpu_torch.models import systems
+    L = ((N_FLUID + 1) * FLUID_T / (FLUID_P * ATM2K_A3)) ** (1.0 / 3.0)
+    params, state = _fluid_state(systems.h2_bss3(), N_FLUID, L, dtype,
+                                 device, seed)
+    cfg = RunConfig(ensemble="npt", rd_potential="lj", coulomb="ewald",
+                    ewald_kmax=5, polarization=True, ortho_box=True,
+                    dtype=dtype, seed=seed)
+    thermo = Thermo.make(temperature=FLUID_T, pressure=FLUID_P,
+                         volume_probability=0.05, volume_change_factor=0.008,
+                         move_factor=1.0, rot_factor=np.pi, n_species=1,
+                         dtype=cfg.tdtype, device=device)
+    return params, state, cfg, thermo
+
+
+def drude_fluid(device, seed=53):
+    """(params, state) of the cdvdw fluid: N_DRUDE H2 (h2_bss3) with
+    omega DRUDE_OMEGA a.u. on the polarizable centre, at the polar NPT
+    fluid's density, float64."""
+    from mpmc_tpu_torch.constants import ATM2K_A3
+    from mpmc_tpu_torch.models import systems
+    sp = dataclasses.replace(systems.h2_bss3(),
+                             omega=np.array([DRUDE_OMEGA, 0.0, 0.0]))
+    L = ((N_DRUDE + 1) * FLUID_T / (FLUID_P * ATM2K_A3)) ** (1.0 / 3.0)
+    return _fluid_state(sp, N_DRUDE, L, "float64", device, seed)
+
+
+def _run_text_deck(device, name, params, state, species, text,
+                   extended=False, flags=None):
+    """``state`` written to ``name``.pqr (``flags``: {mol_name: flag}
+    rewritten on its atom lines) and ``text`` run as a deck through
+    run.run in a temporary directory, every launch count set to 0 just
+    before and read just after.  Returns (Setup, averages, log text,
+    launches)."""
+    from mpmc_tpu_torch.io import input_script, pqr
+    from mpmc_tpu_torch.mc import run
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            pqr.write_state(f"{name}.pqr", params, state, species,
+                            extended=extended)
+            if flags:
+                with open(f"{name}.pqr") as f:
+                    lines = f.read().splitlines()
+                for i, line in enumerate(lines):
+                    t = line.split()
+                    if t and t[0] == "ATOM" and t[3] in flags:
+                        t[5] = flags[t[3]]
+                        lines[i] = " ".join(t)
+                with open(f"{name}.pqr", "w") as f:
+                    f.write("\n".join(lines) + "\n")
+            with open(f"{name}.inp", "w") as f:
+                f.write(text + f"pqr_input {name}.pqr\n"
+                        "pqr_restart restart.pqr\n")
+            job = input_script.parse_file(f"{name}.inp")
+            buf = io.StringIO()
+            _reset_counts()
+            su, avgs = run.run(job, log=buf, device=device)
+            torch.cuda.synchronize(device)
+            launches = _launch_counts()
+            launches["mol_pair_grid"] = pk.mol_pair_chains.shared_launches
+        finally:
+            os.chdir(old)
+    out = buf.getvalue()
+    log("\n".join(out.splitlines()[-4:]))
+    log(f"launches: {launches}")
+    return su, avgs, out, launches
+
+
+def _fluid_text(L, *lines):
+    return "\n".join([f"basis1 {L!r} 0 0", f"basis2 0 {L!r} 0",
+                      f"basis3 0 0 {L!r}", "seed 7", *lines]) + "\n"
+
+
+def phase_thole_header(device, C=C_POLAR):
+    """B5 over C chains with a header per chain: the polar NPT fluid's
+    state rescaled into C cells (edges HEADER_SCALE[0] .. [1] of the box,
+    each chain's centres of mass with it, as a volume move does), float64
+    and float32, both modes, dense at each chain's derived rc and culled
+    at rc = RC_CULL (each chain its own cell order and visit table).
+    Checks: the launch with a [C, 20] header; a shared header equals that
+    header repeated per chain bit for bit; each chain equals its lone
+    launch in its own cell bit for bit; culled equals dense bit for bit;
+    each chain within phase_thole_chains' tolerance of the plain version
+    with a box per chain.  Float32 dipole times, per call and on the card
+    alone, beside the same launch with one shared header, the plain
+    version and the bound.  Returns the dipole mode's dense report."""
+    from mpmc_tpu_torch.mc import metropolis, moves
+    from mpmc_tpu_torch.ops import pairs, thole
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    rep = {"max_abs_err": 0.0, "tol_share": 0.0}
+    f = torch.linspace(*HEADER_SCALE, C, dtype=torch.float64)
+    for dtype in ("float64", "float32"):
+        params, state, cfg, thermo = polar_fluid(dtype, device)
+        state = metropolis.initialize(state, params, cfg, thermo)
+        d_lnv = (3.0 * torch.log(f)).to(device=device, dtype=state.pos.dtype)
+        pos, box = moves.scale_volume(state.pos.expand(C, -1, -1),
+                                      state.box.expand(C, 3, 3), params,
+                                      d_lnv)
+        pos, box = pos.contiguous(), box.contiguous()
+        lam, kind = cfg.polar_damp, cfg.polar_damp_type
+        alive = state.atom_alive(params).expand(C, -1).contiguous()
+        pol_ok = alive & (params.polar > 0)
+        mu = torch.where(pol_ok[..., None], state.mu, 0.0).expand(
+            C, -1, -1).contiguous()
+        rc = pairs.derived_cutoff(box, cfg)
+        rc14 = torch.full((C,), RC_CULL, dtype=box.dtype, device=device)
+        mol = params.mol_id32.expand(C, -1).contiguous()
+        q = params.charge.expand(C, -1).contiguous()
+        for mode in ("dipole", "charge"):
+            kern, one_fn, plain = (
+                (tk.dipole_field_chains, tk.dipole_field,
+                 tk.dipole_field_chains_plain) if mode == "dipole" else
+                (tk.charge_field_chains, tk.charge_field,
+                 tk.charge_field_chains_plain))
+            ok, src = (pol_ok, mu) if mode == "dipole" else (alive, q)
+            perm, _ = thole.cull_perm(pos, box, ok, rc14)
+            srt = [thole._gather_sites(x, perm).contiguous()
+                   for x in (pos, ok, src, mol)]
+            visit = thole.cull_visit(srt[0], srt[1], box, rc14)
+            cases = {"dense": ((pos, box, ok, src, mol, rc, lam, kind),
+                               None),
+                     f"rc{RC_CULL:g} culled": ((srt[0], box, *srt[1:], rc14,
+                                                lam, kind), visit)}
+            for label, (args, vis) in cases.items():
+                before = kern.launches
+                k = kern(*args, ortho=True, visit=vis)
+                torch.cuda.synchronize(device)
+                if kern.launches != before + 1:
+                    raise AssertionError(f"B5 header {mode}: not one launch")
+                if vis is not None and not torch.equal(
+                        k, kern(*args, ortho=True)):
+                    raise AssertionError(f"B5 header {mode} {dtype}: culled "
+                                         "!= dense bit for bit")
+                a = list(args)
+                shared = kern(*(a[:1] + [a[1][0]] + a[2:5] + [a[5][0]]
+                                + a[6:]), ortho=True, visit=vis)
+                rept = kern(*(a[:1] + [a[1][0].expand(C, 3, 3).contiguous()]
+                              + a[2:5] + [a[5][0].expand(C).contiguous()]
+                              + a[6:]), ortho=True, visit=vis)
+                if not torch.equal(shared, rept):
+                    raise AssertionError(f"B5 header {mode} {dtype} {label}:"
+                                         " a shared header is not the same "
+                                         "header repeated, bit for bit")
+                for c in range(C):
+                    one = one_fn(args[0][c], box[c], args[2][c], args[3][c],
+                                 args[4][c], args[5][c], lam, kind,
+                                 ortho=True,
+                                 visit=None if vis is None else vis[c])
+                    if not torch.equal(k[c], one):
+                        raise AssertionError(
+                            f"B5 header {mode} {dtype} {label}: chain {c} is "
+                            "not its lone launch in its own cell")
+                a64 = tuple(x.double() if torch.is_tensor(x)
+                            and x.is_floating_point() else x for x in args)
+                p64 = plain(*a64, visit=vis).cpu()
+                p32 = (plain(*args, visit=vis).double().cpu()
+                       if dtype == "float32" else None)
+                err = share = 0.0
+                for c in range(C):
+                    scale = float(p64[c].abs().max())
+                    e = float((k[c].double().cpu() - p64[c]).abs().max())
+                    tol = (1e-10 * scale if dtype == "float64" else
+                           max(4.0 * float((p32[c] - p64[c]).abs().max()),
+                               2e-6 * scale))
+                    if not e <= tol:
+                        raise AssertionError(
+                            f"B5 header {mode} {dtype} {label}: chain {c} "
+                            "disagrees with its plain version")
+                    err, share = max(err, e), max(share, e / tol)
+                log(f"B5 x C={C}, a header per chain ({mode} {dtype} "
+                    f"{label}; cells {float(box[0, 0, 0]):.3f} .. "
+                    f"{float(box[-1, 0, 0]):.3f} A): each chain its lone "
+                    "launch bit for bit, a shared header its repeat bit for "
+                    f"bit; |kernel - plain| {err:.3e} ({share:.3f} of the "
+                    "tolerance)")
+                if mode == "dipole":
+                    rep["max_abs_err"] = max(rep["max_abs_err"], err)
+                    rep["tol_share"] = max(rep["tol_share"], share)
+                if dtype == "float64" or mode != "dipole" or vis is not None:
+                    continue
+                fplan = tk.plan_chains(box, args[5], lam, args[0].shape[1], C)
+                b0, r0 = box[0], args[5][0]
+                splan = tk.plan_chains(b0, r0, lam, args[0].shape[1], C)
+
+                def call(p=fplan, a=args):
+                    return kern(*a, ortho=True, plan=p)
+
+                def call_shared(p=splan, a=args):
+                    return kern(a[0], b0, *a[2:5], r0, *a[6:], ortho=True,
+                                plan=p)
+
+                ms, ms_s = time_calls(call, device), time_calls(call_shared,
+                                                                device)
+                dms = time_device(call, device, n=20)
+                dms_s = time_device(call_shared, device, n=20)
+                dms2 = time_device(call, device, n=20)
+                pms = time_calls(lambda: plain(*args), device, n=3)
+                n_eval = n_in = 0
+                for c in range(C):
+                    e_c, i_c = _b5_pairs(mode, args[0][c], box[c],
+                                         args[2][c], args[4][c], args[5][c])
+                    n_eval, n_in = n_eval + e_c, n_in + i_c
+                ops = n_eval * OPS_B5_PAIR + n_in * OPS_B5_IN[mode]
+                nbytes = _nbytes(*args[:5], fplan.scal, k)
+                bound, by = _bound_ms(ops, nbytes)
+                log(f"    f32 C={C} dipole dense, a header per chain: "
+                    f"{ms:.4f} ms per call, {dms:.4f} / {dms2:.4f} ms on the "
+                    f"card alone; one shared header (box of chain 0): "
+                    f"{ms_s:.4f} ms per call, {dms_s:.4f} ms on the card "
+                    f"alone; plain {pms:.3f} ms; bound {bound:.5f} ms ({by}; "
+                    f"{n_eval} pairs evaluated, {n_in} inside rc)")
+                rep.update(ms=ms, device_ms=dms, device_ms_repeat=dms2,
+                           shared_ms=ms_s, shared_device_ms=dms_s,
+                           plain_ms=pms, bound_ms=bound, bound_by=by,
+                           pairs=n_eval, pairs_in=n_in)
+    return rep
+
+
+def phase_polar_npt(device, numsteps=300, c_steps=100):
+    """Polar NPT at full width through run.run: the polar fluid (N_FLUID
+    polarizable H2, 10,368 sites, 77 K, 200 atm) on the scan path (300
+    steps) and as C_POLAR batched chains (100 steps), corrtime 100,
+    volume_probability 0.05.  Each: the route (no fused kernel; the
+    batched deck's B5 over the chains), steps/s, volume attempts and
+    acceptances, <V> and its drift from the start, B2 == volume attempts
+    x chains + refreshes, B5 launched in both modes; then a further chunk
+    with volume moves at 0.25 (40 steps; chains 20) whose trace gives the
+    CG iterations per volume attempt, and every chain's carried energy
+    and polar term against a fresh recompute."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.parallel import multichain
+    from mpmc_tpu_torch.state import slice_chain
+    params, state, _, _ = polar_fluid("float32", "cpu")
+    L = float(state.box[0, 0])
+    v0 = L ** 3
+    launches, reps = {}, {}
+    for label, extra, steps, C in (("npt_polar", "", numsteps, 1),
+                                   (f"npt_polar_c{C_POLAR}",
+                                    f"chains {C_POLAR}\n", c_steps,
+                                    C_POLAR)):
+        text = _fluid_text(L, f"numsteps {steps}", "temperature 77",
+                           "move_factor 1.0", "rot_factor 3.14159") \
+            + POLAR_NPT_LINES + extra
+        with _VolumeCount() as vc:
+            su, avgs, out, ln = _run_text_deck(device, "h2polar", params,
+                                               state, ["H2"], text)
+            att, acc = vc.attempts, vc.accepted()
+        if "fused_mc" in out or (C > 1) != ("batched scan chains" in out):
+            raise AssertionError(f"{label} did not take its route")
+        rate = float(out.split("steps/sec:")[1].split()[0])
+        refreshes = 1 + C * max(steps // 100, 1)
+        vols = torch.abs(torch.linalg.det(
+            (su.states if C > 1 else su.state).box.double()))
+        drift = float(vols.mean()) / v0 - 1.0
+        b5 = {m: ln[f"{m}_field"] + ln[f"{m}_field_chains"]
+              for m in ("charge", "dipole")}
+        log(f"{label}: {rate:.2f} steps/s" + (" aggregate" if C > 1 else "")
+            + f", volume attempts {att} accepted {acc}, <V> "
+            f"{avgs.mean('volume'):.1f} A^3 (start {v0:.1f}), final drift "
+            f"{drift:+.3e}, displace acceptance "
+            f"{avgs.mean('acc_displace'):.4f}, <polar> "
+            f"{avgs.mean('energy_polar'):.2f} K, CG iterations per step "
+            f"{avgs.mean('polar_iters_per_step'):.3f}; B5 launches {b5}")
+        if not (att > 0 and acc > 0):
+            raise AssertionError(f"{label}: {acc} of {att} volume attempts "
+                                 "accepted")
+        if ln["pair_terms"] != att + refreshes:
+            raise AssertionError(f"{label}: B2 launched {ln['pair_terms']} "
+                                 f"times, not {att} + {refreshes}")
+        if not (b5["charge"] > 0 and b5["dipole"] > 0):
+            raise AssertionError(f"{label}: B5 was not launched: {ln}")
+        more = su.thermo.replace(volume_probability=torch.full_like(
+            su.thermo.volume_probability, 0.25))
+        g = torch.Generator(device=device).manual_seed(71)
+        trace = []
+        if C == 1:
+            st, stats = metropolis.run_chunk(su.state, su.params, su.cfg,
+                                             more, 40, generator=g)
+            step, carry, cc, branch, stats = metropolis.chunk_setup(
+                st, su.params, su.cfg, more, torch.rand(
+                    (40, 16), generator=g, device=device))
+            for k in range(40):
+                step(carry, carry["u"][k], int(branch[k]), more, cc, stats,
+                     trace)
+            chains = [metropolis._from_carry(st, carry, 40)]
+        else:
+            sts, _ = multichain.run_chunk_batched(
+                su.states, su.params, su.cfg, more, 20, generator=g,
+                trace=trace)
+            chains = [slice_chain(sts, c) for c in (0, C - 1)]
+        vol = [r for r in trace if "box" in r]
+        iters = [float(np.mean(r["iters"])) for r in vol]
+        acc_v = [float(r["accept"].float().mean()) for r in vol]
+        for i, st in enumerate(chains):
+            _check_bookkeeping(f"{label} chain {i}", st, su, polar=True)
+        rep = {"steps_per_sec": rate, "volume_attempts": att,
+               "volume_accepted": acc, "mean_volume": avgs.mean("volume"),
+               "volume_drift": drift,
+               "cg_iters_per_step": avgs.mean("polar_iters_per_step"),
+               "cg_iters_per_volume_attempt": float(np.mean(iters)),
+               "trace_volume_acceptance": float(np.mean(acc_v)),
+               "b5_launches": b5, "polar_K": avgs.mean("energy_polar")}
+        log(f"{label}: " + json.dumps(rep))
+        launches[label], reps[label] = ln, rep
+    return launches, reps
+
+
+def phase_cdvdw(device, numsteps=100):
+    """Coupled-dipole vdW at the size users run: the Drude fluid (N_DRUDE
+    sites with alpha and omega, a 1,536 x 1,536 eigensolve per trial),
+    NVT at 77 K in float64, through run.run with cdvdw (cdvdw) and with
+    cdvdw_sig_repulsion (cdvdw_sig: the plain tile pass, B2 and B4 refuse
+    it).  Each: steps/s, the eigensolve's share of a step (vdw_energy
+    timed alone on the host clock against the deck's ms per step), the
+    carried energy after a further 20 steps against a fresh recompute
+    (rel 1e-9, float64), and the card's vdw energy of the final state
+    against the CPU's (rel 1e-9)."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops import vdw
+    params, state = drude_fluid("cpu")
+    L = float(state.box[0, 0])
+    launches, reps = {}, {}
+    for label, extra in (("cdvdw", ""),
+                         ("cdvdw_sig", "cdvdw_sig_repulsion on\n")):
+        text = _fluid_text(L, f"numsteps {numsteps}", "corrtime 50",
+                           "ensemble nvt", "temperature 77",
+                           "move_factor 1.0", "rot_factor 3.14159",
+                           "precision float64", "ewald_kmax 5", "rd_lrc off",
+                           "cdvdw on") + extra
+        su, avgs, out, ln = _run_text_deck(device, "drude", params, state,
+                                           ["H2"], text, extended=True)
+        plain = "the plain tile pass" in out
+        if plain != (label == "cdvdw_sig") or (
+                (ln["pair_terms"] + ln["mol_pair"] > 0) == plain):
+            raise AssertionError(f"{label}: not its pair route: {ln}")
+        rate = float(out.split("steps/sec:")[1].split()[0])
+        st = su.state
+        alive = st.atom_alive(su.params)
+        ms_vdw = statistics.median(1e3 * _clock_host(
+            lambda: vdw.vdw_energy(st.pos, st.box, alive, su.params, su.cfg),
+            device) for _ in range(5))
+        g = torch.Generator(device=device).manual_seed(73)
+        st2, stats = metropolis.run_chunk(st, su.params, su.cfg, su.thermo,
+                                          20, generator=g)
+        fresh = metropolis.initialize(st2, su.params, su.cfg, su.thermo)
+        carried, full = float(st2.energy.total), float(fresh.energy.total)
+        if not abs(carried - full) <= 1e-9 * max(abs(full), 1.0):
+            raise AssertionError(f"{label}: carried {carried!r} fresh "
+                                 f"{full!r}")
+        cpu = su.params.__class__(**{
+            f.name: getattr(su.params, f.name).cpu()
+            for f in dataclasses.fields(su.params) if f.init})
+        e_cpu = float(vdw.vdw_energy(st2.pos.cpu(), st2.box.cpu(),
+                                     st2.atom_alive(su.params).cpu(), cpu,
+                                     su.cfg))
+        e_card = float(st2.energy.vdw)
+        if not abs(e_card - e_cpu) <= 1e-9 * abs(e_cpu):
+            raise AssertionError(f"{label}: vdw card {e_card!r} cpu "
+                                 f"{e_cpu!r}")
+        share = ms_vdw / (1e3 / rate)
+        rep = {"steps_per_sec": rate, "vdw_ms": ms_vdw,
+               "vdw_share_of_step": share, "vdw_K": avgs.mean("energy_vdw"),
+               "rd_K": avgs.mean("energy_rd"),
+               "acc_displace": avgs.mean("acc_displace"),
+               "sites": int(su.params.vdw_sites.shape[0])}
+        log(f"{label}: " + json.dumps(rep) + f"; bookkeeping carried "
+            f"{carried:.9f} fresh {full:.9f}; vdw card {e_card:.9f} cpu "
+            f"{e_cpu:.9f}")
+        launches[label], reps[label] = ln, rep
+    return launches, reps
+
+
+# the fcc lattice sums of the LJ crystal (nearest-neighbour units)
+A12_FCC, A6_FCC = 12.13188, 14.45392
+
+
+def phase_rd_crystal(device, cells=4, order=3, numsteps=300):
+    """rd_crystal on a small crystal cell, the case the option exists for:
+    fcc argon, cells^3 unit cells (256 atoms, a = 5.26 A, a 21 A box
+    where no legal cutoff holds the RD tail), order 3 (343 image shifts),
+    NVT at 40 K in float64 through run.run.  Checks: the first block's
+    energy per atom against the fcc lattice sum 2 eps [A12 (sig/r)^12 -
+    A6 (sig/r)^6] (rel 2e-3: the perfect lattice at the start, one
+    corrtime in), the card's image sum of the final state against the
+    CPU's (rel 1e-10), the carried RD against a fresh recompute (rel
+    1e-9) and the route's log line."""
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.ops import crystal
+    from mpmc_tpu_torch.state import build_system
+    a = 5.26
+    basis = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5],
+                      [0, 0.5, 0.5]])
+    ijk = np.stack(np.meshgrid(*[np.arange(cells)] * 3, indexing="ij"),
+                   -1).reshape(-1, 3)
+    sites = ((ijk[:, None, :] + basis[None]) * a).reshape(-1, 3)
+    sp = systems.lj_atom(name="AR")
+    L = cells * a
+    params, state = build_system(
+        np.eye(3) * L, species=(sp,), capacity=(len(sites),),
+        initial_counts=(len(sites),), initial_pos={0: sites[:, None, :]},
+        dtype=torch.float64, device="cpu")
+    text = _fluid_text(L, f"numsteps {numsteps}", "corrtime 100",
+                       "ensemble nvt", "temperature 40", "move_factor 0.1",
+                       "rot_factor 0", "coulomb off", "precision float64",
+                       "rd_crystal on", f"rd_crystal_order {order}")
+    t0 = time.time()
+    su, avgs, out, ln = _run_text_deck(device, "ar_fcc", params, state,
+                                       ["AR"], text)
+    wall = time.time() - t0
+    if f"lattice sum (order {order}" not in out or su.cfg.rd_lrc:
+        raise AssertionError("rd_crystal: not the image-sum route")
+    rate = float(out.split("steps/sec:")[1].split()[0])
+    from mpmc_tpu_torch.ops import energy as energy_mod
+    x = (sp.sig[0] / (a / np.sqrt(2.0))) ** 6
+    per_atom = 2.0 * sp.eps[0] * (A12_FCC * x * x - A6_FCC * x)
+    e0, _ = energy_mod.total_energy(
+        state.pos.to(device), state.box.to(device),
+        state.mol_alive.to(device), su.params, su.cfg, su.thermo)
+    first = float(e0.rd) / len(sites)
+    st = su.state
+    card = float(crystal.rd_crystal_full(st.pos, st.box,
+                                         st.atom_alive(su.params), su.params,
+                                         su.cfg, su.thermo.temperature))
+    cpu_p = su.params.__class__(**{
+        f.name: getattr(su.params, f.name).cpu()
+        for f in dataclasses.fields(su.params) if f.init})
+    cpu = float(crystal.rd_crystal_full(st.pos.cpu(), st.box.cpu(),
+                                        st.atom_alive(su.params).cpu(),
+                                        cpu_p, su.cfg,
+                                        su.thermo.temperature.cpu()))
+    log(f"rd_crystal: {rate:.2f} steps/s, the perfect lattice {first:.4f} "
+        "K/atom "
+        f"(fcc lattice sum {per_atom:.4f}), final image sum card "
+        f"{card:.9f} cpu {cpu:.9f}, deck {wall:.1f} s; launches {ln}")
+    if not abs(first / per_atom - 1.0) <= 2e-3:
+        raise AssertionError("rd_crystal: the fcc energy is off the lattice "
+                             "sum")
+    if not abs(card - cpu) <= 1e-10 * abs(cpu):
+        raise AssertionError("rd_crystal: card and CPU image sums differ")
+    from mpmc_tpu_torch.mc import metropolis
+    fresh = metropolis.initialize(st, su.params, su.cfg, su.thermo)
+    if not abs(float(st.energy.rd) - float(fresh.energy.rd)) <= 1e-9 * abs(
+            float(fresh.energy.rd)):
+        raise AssertionError("rd_crystal: carried RD drifted")
+    return ln, {"steps_per_sec": rate, "energy_per_atom": first,
+                "lattice_sum_per_atom": per_atom,
+                "acc_displace": avgs.mean("acc_displace")}
+
+
+def phase_spectre(device, numsteps=300):
+    """SPECTRE with S-flagged sites in the bench system: the 10.8k
+    system plus N_SPECTRE free charges (+-SPECTRE_Q e on free interstitial
+    sites, PQR flag S), NVT through run.run (DECK, corrtime 100) with
+    spectre_max_charge SPECTRE_MAX and spectre_max_target SPECTRE_TARGET.
+    Checks: the log names the sites, every block's max |q| <= the clamp
+    and sum |q| = the target, B2 and B4 launched, the carried energy after
+    a further chunk against a fresh recompute (the renormalized charges'
+    S(k), self and frozen terms rebuilt by the refresh)."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.state import Species, build_system
+    params, state, cfg, _ = bench_system("float32", "cpu")
+    h2 = systems.h2_bss3()
+    sp = Species(name="SPC", atom_names=("SP",), pos=np.zeros((1, 3)),
+                 mass=np.array([10.0]), charge=np.array([SPECTRE_Q]),
+                 polar=np.zeros(1), eps=np.array([20.0]),
+                 sig=np.array([3.0]))
+    spacing = 4.0
+    frozen = (params.mol_frozen[params.mol_id] & params.atom_ok).numpy()
+    mov = (state.atom_alive(params).numpy() & ~frozen)
+    fpos = state.pos.numpy()[frozen]
+    ijk = np.stack(np.meshgrid(*[np.arange(N_SIDE)] * 3, indexing="ij"),
+                   -1).reshape(-1, 3)
+    taken = {tuple(np.round(c / spacing - 1.0).astype(int))
+             for c in state.pos.numpy()[mov][0::3]}
+    free = [s for s in ijk if tuple(s) not in taken]
+    rng = np.random.default_rng(5)
+    pick = np.asarray(free)[rng.permutation(len(free))[:N_SPECTRE]]
+    sp_pos = (pick + 1.0) * spacing
+    h2_pos = state.pos.numpy()[mov].reshape(-1, 3, 3)
+    signs = np.where(np.arange(N_SPECTRE) % 2 == 0, 1.0, -1.0)
+    fp = {k: getattr(params, k).numpy()[frozen].astype(np.float64)
+          for k in ("charge", "mass", "polar", "eps", "sig")}
+    p2, s2 = build_system(
+        state.box.numpy(), frozen_pos=fpos, frozen_params=fp,
+        species=(h2, sp), capacity=(len(h2_pos), N_SPECTRE),
+        initial_counts=(len(h2_pos), N_SPECTRE),
+        initial_pos={0: h2_pos, 1: sp_pos[:, None, :]},
+        dtype=torch.float32, device="cpu")
+    q = p2.charge.numpy().copy()
+    sp_rows = np.nonzero((p2.mol_species[p2.mol_id] == 1).numpy()
+                         & p2.atom_ok.numpy())[0]
+    q[sp_rows] = SPECTRE_Q * signs
+    p2 = p2.replace(charge=torch.as_tensor(q))
+    L = float(state.box[0, 0])
+    text = (DECK.format(numsteps=numsteps, L=L).replace(
+        "pqr_input bench10k.pqr\npqr_restart restart.pqr\n", "")
+        + "ensemble nvt\ncorrtime 100\nspectre on\n"
+        f"spectre_max_charge {SPECTRE_MAX}\n"
+        f"spectre_max_target {SPECTRE_TARGET}\n")
+    su, avgs, out, ln = _run_text_deck(device, "bench_spectre", p2, s2,
+                                       ["H2", "SPC"], text,
+                                       flags={"SPC": "S"})
+    if f"spectre: {N_SPECTRE} free-charge sites" not in out:
+        raise AssertionError("spectre: the sites were not found")
+    if not (ln["pair_terms"] > 0 and ln["mol_pair"] > 0):
+        raise AssertionError(f"spectre: a kernel was not launched: {ln}")
+    mx = max(avgs.samples["spectre_max_abs_charge"])
+    tot = avgs.samples["spectre_total_charge"]
+    if not (mx <= SPECTRE_MAX + 1e-6
+            and np.allclose(tot, SPECTRE_TARGET, rtol=1e-5)):
+        raise AssertionError(f"spectre: max |q| {mx}, sum |q| {tot}")
+    rate = float(out.split("steps/sec:")[1].split()[0])
+    g = torch.Generator(device=device).manual_seed(79)
+    st, _ = metropolis.run_chunk(su.state, su.params, su.cfg, su.thermo,
+                                 200, generator=g)
+    _check_bookkeeping("spectre, 200 steps", st, su)
+    rep = {"steps_per_sec": rate, "max_abs_charge": mx,
+           "total_charge": float(np.mean(tot)),
+           "acc_displace": avgs.mean("acc_displace")}
+    log("spectre: " + json.dumps(rep))
+    return ln, rep
+
+
+def phase_qvib(device, numsteps=200):
+    """quantum_vibration in the 10.8k H2 sorption deck (DECK, corrtime
+    100, vib_omega H2_VIB): B4 at position stride 0 launched once per
+    refresh for every H2's 225-point grid (the block keys qvib_zpe and
+    qvib_fundamental_shift); the grid launch against its plain version on
+    the same rows (f32 tolerance of _close); 4 molecules' levels on the
+    card against the CPU float64 ones (rel 1e-4); the refresh's time with
+    its B4 launch and host eigensolves apart; the ZPE within 5 % of hbar
+    w / 2."""
+    from mpmc_tpu_torch.ops import pairs, qvib
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    params, state, _, _ = bench_system("float32", "cpu")
+    L = float(state.box[0, 0])
+    text = (DECK.format(numsteps=numsteps, L=L).replace(
+        "pqr_input bench10k.pqr\npqr_restart restart.pqr\n", "")
+        + f"corrtime 100\nquantum_vibration on\nvib_omega {H2_VIB}\n")
+    su, avgs, out, ln = _run_text_deck(device, "bench_qvib", params, state,
+                                       ["H2"], text)
+    blocks = numsteps // 100
+    if ln["mol_pair_grid"] != blocks:
+        raise AssertionError(f"qvib: {ln['mol_pair_grid']} stride-0 B4 "
+                             f"launches for {blocks} refreshes")
+    zpe = avgs.samples["qvib_zpe"]
+    shift = avgs.samples["qvib_fundamental_shift"]
+    hw = H2_VIB * qvib.CM1_K
+    if not (len(zpe) == blocks and all(abs(z / (0.5 * hw) - 1.0) < 0.05
+                                       for z in zpe)):
+        raise AssertionError(f"qvib: ZPE {zpe} against hbar w / 2 "
+                             f"{0.5 * hw}")
+    st = su.state
+    sp = su.species[0]
+    s, b0, mu = qvib.stretch_geometry(sp)
+    grid = np.concatenate([qvib.stretch_grid(b0, mu, hw), [b0]])
+    mols = np.flatnonzero(st.mol_alive.cpu().numpy()
+                          & (su.params.mol_species >= 0).cpu().numpy())
+    alive = st.atom_alive(su.params)
+    t = su.thermo.temperature
+    v = qvib.external_potentials_on_grid(
+        st.pos, st.box, alive, su.params, su.cfg, t, mols[:4], [s] * 4,
+        [b0] * 4, [grid] * 4)
+    rows = qvib.stretch_rows(st.pos, su.params, mols[:4], [s] * 4, [b0] * 4,
+                             [grid] * 4).reshape(-1, su.params.mol_atoms
+                                                 .shape[1], 3).contiguous()
+    mt = torch.as_tensor(mols[:4], device=device).repeat_interleave(
+        grid.shape[0])
+    scal = pairs.pair_scalars(st.box, su.cfg)
+    common = (su.params.charge, su.params.eps, su.params.sig,
+              su.params.mol_id32)
+    tail = (su.params.mol_atoms, su.params.mol_natoms, mt, rows, scal,
+            su.cfg)
+    k = pk.mol_pair_chains(st.pos, *common, alive, *tail)
+    p = pk.mol_pair_chains_plain(st.pos, *common, alive, *tail)
+    p64 = pk.mol_pair_chains_plain(
+        st.pos.double(), *(x.double() for x in common[:3]), common[3],
+        alive, *tail[:3], rows.double(), scal.double(), su.cfg)
+    if not torch.equal(v.reshape(-1), k[:, 0] + pairs.KE * k[:, 1]):
+        raise AssertionError("qvib: the grid is not the raw launch's")
+    kd, pd = k.double().cpu().numpy(), p.double().cpu().numpy()
+    gerr = np.abs(kd - pd)
+    tol = _tol(torch.float32, p64.cpu().numpy(), pd)
+    log(f"qvib grid, 4 molecules x {grid.shape[0]} bond lengths at stride 0:"
+        f" |kernel - plain| {gerr[:, :3].max():.3e} (worst |d|/tol "
+        f"{float(np.max(gerr / tol)):.3f})")
+    if not np.all(gerr <= tol):
+        raise AssertionError("qvib: the grid launch disagrees with plain")
+    gerr = float(gerr[:, :3].max())
+    cpu_p = su.params.__class__(**{
+        f.name: getattr(su.params, f.name).double().cpu()
+        if getattr(su.params, f.name).is_floating_point()
+        else getattr(su.params, f.name).cpu()
+        for f in dataclasses.fields(su.params) if f.init})
+    cfg64 = dataclasses.replace(su.cfg, dtype="float64")
+    err = 0.0
+    for m in mols[:4]:
+        lv, _ = qvib.vibrational_levels(st.pos, st.box, alive, su.params,
+                                        su.cfg, t, int(m), sp)
+        lc, _ = qvib.vibrational_levels(
+            st.pos.double().cpu(), st.box.double().cpu(), alive.cpu(),
+            cpu_p, cfg64, t.double().cpu(), int(m), sp)
+        err = max(err, float(np.max(np.abs(lv / lc - 1.0))))
+    if not err <= 1e-4:
+        raise AssertionError(f"qvib: card levels off the CPU f64 ({err})")
+    tb = statistics.median(1e3 * _clock_host(
+        lambda: qvib.external_potentials_on_grid(
+            st.pos, st.box, alive, su.params, su.cfg, t, mols,
+            [s] * len(mols), [b0] * len(mols), [grid] * len(mols)), device)
+        for _ in range(3))
+    tr = statistics.median(1e3 * _clock_host(
+        lambda: qvib.vibration_table(st.pos, st.box, alive, st.mol_alive,
+                                     su.params, su.cfg, su.thermo,
+                                     list(su.species)), device)
+        for _ in range(3))
+    rate = float(out.split("steps/sec:")[1].split()[0])
+    rep = {"steps_per_sec": rate, "zpe_K": float(np.mean(zpe)),
+           "fundamental_shift_K": float(np.mean(shift)),
+           "molecules": int(len(mols)), "grid_launch_ms": tb,
+           "refresh_ms": tr, "grid_max_abs_err": gerr,
+           "levels_rel_err": err}
+    log("qvib: " + json.dumps(rep))
+    return ln, rep
+
+
 def _rows_equal(a, b):
     """Two campaign rows equal, NaN equal to NaN."""
     return a.keys() == b.keys() and all(
@@ -5972,6 +6668,20 @@ def _phases(dev, smi, t0, build_s, refs):
     mark("phase_rd_fused_decks")
     rdf_launches, rdf_reps = phase_rd_fused_decks(dev)
     t_rdf = time.time() - t_rdf
+    t_19 = time.time()
+    mark("phase_thole_header")
+    report["dipole_field_c8_header"] = phase_thole_header(dev)
+    mark("phase_polar_npt")
+    pnpt_launches, pnpt_reps = phase_polar_npt(dev)
+    mark("phase_cdvdw")
+    vdw_launches, vdw_reps = phase_cdvdw(dev)
+    mark("phase_rd_crystal")
+    cry_launches, cry_rep = phase_rd_crystal(dev)
+    mark("phase_spectre")
+    spc_launches, spc_rep = phase_spectre(dev)
+    mark("phase_qvib")
+    qv_launches, qv_rep = phase_qvib(dev)
+    t_19 = time.time() - t_19
     # last: its CPU references have had the card's phases to finish in
     mark("phase_energy")
     phase_energy(dev, refs)
@@ -6036,7 +6746,11 @@ def _phases(dev, smi, t0, build_s, refs):
                 **{f"run_steps_{k}": rdf_launches[f"{k}_nvt"]["run_steps"]
                    for k in FUSED_KEY.values()},
                 **{f"run_steps_uvt_pda_{k}": rdf_launches[f"{k}_pda"][
-                    "run_steps_uvt_pda"] for k in FUSED_KEY.values()}}
+                    "run_steps_uvt_pda"] for k in FUSED_KEY.values()},
+                # B5 over chains with a header per chain: the polar NPT
+                # chains deck, every chain in its own cell
+                "dipole_field_c8_header": pnpt_launches[
+                    f"npt_polar_c{C_POLAR}"]["dipole_field_chains"]}
     report["mol_pair_c16_header"] = report["mol_pair_c128"]["header"]
     report["mol_pair_chains_disp"] = report["mol_pair_disp"]["c128"]
     report["run_steps_uvt_disp_c32"] = dict(
@@ -6057,7 +6771,8 @@ def _phases(dev, smi, t0, build_s, refs):
              *(f"run_steps_uvt_{k}" for k in FUSED_KEY.values()),
              "run_steps_uvt_disp_c32", "run_steps_uvt_gwp_fh2",
              *(f"run_steps_{k}" for k in FUSED_KEY.values()),
-             *(f"run_steps_uvt_pda_{k}" for k in FUSED_KEY.values()))
+             *(f"run_steps_uvt_pda_{k}" for k in FUSED_KEY.values()),
+             "dipole_field_c8_header")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -6267,6 +6982,33 @@ def _phases(dev, smi, t0, build_s, refs):
                            for k, r in rdf_reps.items())
         + f"  rdf_launches {rdf_launches}  build_seconds {build_s:.1f}  "
         f"rd_fused_phases_seconds {t_rdf:.1f}  wall_seconds "
+        f"{time.time() - t0:.1f}  ({smi})")
+    b5h = report["dipole_field_c8_header"]
+    log(f"b5_c{C_POLAR}_header_ms {b5h['ms']:.4f}  b5_c{C_POLAR}_header_"
+        f"device_ms {b5h['device_ms']:.4f} / {b5h['device_ms_repeat']:.4f}  "
+        f"b5_c{C_POLAR}_shared_ms {b5h['shared_ms']:.4f}  b5_c{C_POLAR}_"
+        f"shared_device_ms {b5h['shared_device_ms']:.4f}  b5_c{C_POLAR}_"
+        f"header_plain_ms {b5h['plain_ms']:.3f}  b5_c{C_POLAR}_header_bound_"
+        f"ms {b5h['bound_ms']:.5f}  "
+        + "  ".join(f"{k}_steps_per_sec {r['steps_per_sec']:.2f}  {k}_volume_"
+                    f"acceptance {r['volume_accepted']}/{r['volume_attempts']}"
+                    f"  {k}_mean_volume {r['mean_volume']:.1f}  {k}_volume_"
+                    f"drift {r['volume_drift']:+.3e}  {k}_cg_iters_per_step "
+                    f"{r['cg_iters_per_step']:.3f}  {k}_cg_iters_per_volume_"
+                    f"attempt {r['cg_iters_per_volume_attempt']:.2f}  {k}_b5_"
+                    f"launches {r['b5_launches']}"
+                    for k, r in pnpt_reps.items())
+        + "  " + "  ".join(f"{k}_steps_per_sec {r['steps_per_sec']:.2f}  {k}_"
+                           f"eigensolve_ms {r['vdw_ms']:.2f}  {k}_eigensolve_"
+                           f"share {r['vdw_share_of_step']:.4f}"
+                           for k, r in vdw_reps.items())
+        + f"  rd_crystal_steps_per_sec {cry_rep['steps_per_sec']:.2f}  "
+        f"spectre_steps_per_sec {spc_rep['steps_per_sec']:.2f}  "
+        f"qvib_steps_per_sec {qv_rep['steps_per_sec']:.2f}  qvib_refresh_ms "
+        f"{qv_rep['refresh_ms']:.1f} (b4 grid {qv_rep['grid_launch_ms']:.1f})"
+        f"  launches polar_npt {pnpt_launches} cdvdw {vdw_launches} "
+        f"rd_crystal {cry_launches} spectre {spc_launches} qvib "
+        f"{qv_launches}  slice19_phases_seconds {t_19:.1f}  wall_seconds "
         f"{time.time() - t0:.1f}  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))

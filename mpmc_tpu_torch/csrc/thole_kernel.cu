@@ -41,7 +41,8 @@
 //
 // Over a chain axis (the reference vmaps this kernel over chains): the
 // sites of C chains, pos [C, n, 3], src [C, n] or [C, n, 3], ok and mol
-// [C, n], out [C, n, 3], with the box, rc and damping shared.  K of them
+// [C, n], out [C, n, 3], with one header for every chain or a header per
+// chain (the NPT chains, each in its own box).  K of them
 // are listed (chains[k], or chain k when chains is nullptr); a list item
 // is (k, row tile I, column tile J) = (k NI + I) NJ + J, and a row key
 // k NI + I owns a ticket.  A chain's items are computed and summed as a
@@ -51,7 +52,11 @@
 // chains not listed are not written.
 //
 // Scalar header sc[20] in device memory: rc, lambda, box (3x3 row-major,
-// rows are cell vectors), box^-1 (3x3 row-major).
+// rows are cell vectors), box^-1 (3x3 row-major); chain c reads the one
+// at sc + c sc_stride (sc_stride 0: one header shared by every chain, 20:
+// a [C, 20] header per chain).  A CTA loads a header when its work moves
+// to another chain, so a chain's pairs see the same numbers whatever the
+// stride, and a shared header gives the bits of the same header repeated.
 // Work list wl (int32, nullptr = dense: every item of the K listed
 // chains): [W, rowoff[0..K NI], items[W...]]: W visited items, row key
 // R's items at list positions rowoff[R] .. rowoff[R + 1] - 1 in column
@@ -141,7 +146,7 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? MINB : 4)
                        const T* __restrict__ src_all,
                        const bool* __restrict__ ok_all,
                        const int32_t* __restrict__ mol_all,
-                       const T* __restrict__ sc,
+                       const T* __restrict__ sc, int sc_stride,
                        const int32_t* __restrict__ wl,
                        const int32_t* __restrict__ chains, int nk, int n,
                        int ni, int nj, int damp_kind,
@@ -151,16 +156,10 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? MINB : 4)
   const int t = threadIdx.x;
   const int g = t % G;            // row group: rows g, g + G, ...
   const int h = t / G;            // column split
-  const T rc = sc[0], lam = sc[1];
-  const T rc2 = rc * rc;
-  const T inv_lam = T(1) / lam;
-  // a diagonal cell keeps 6 of the 18 cell numbers in registers
+  // the header of the chain in hand (hc: its chain, -1 before the first)
+  T lam = T(0), rc2 = T(0), inv_lam = T(0);
   T box[9], bi[9];
-#pragma unroll
-  for (int e = 0; e < 9; ++e) {
-    box[e] = ORTHO && e % 4 != 0 ? T(0) : sc[2 + e];
-    bi[e] = ORTHO && e % 4 != 0 ? T(0) : sc[11 + e];
-  }
+  int64_t hc = -1;
   const int nrk = nk * ni;               // row keys
   const int W = wl != nullptr ? wl[0] : nrk * nj;
   const int* rowoff = wl != nullptr ? wl + 1 : nullptr;
@@ -181,7 +180,22 @@ __global__ void __launch_bounds__(NT, sizeof(T) == 4 ? MINB : 4)
     if (rk != cur) {
       cur = rk;
       const int k = rk / ni;
-      cn = size_t(chains != nullptr ? chains[k] : k) * n;
+      const int64_t c = chains != nullptr ? chains[k] : k;
+      cn = size_t(c) * n;
+      if (hc < 0 || (sc_stride != 0 && c != hc)) {
+        hc = c;
+        const T* h = sc + size_t(c) * sc_stride;
+        const T rc = h[0];
+        lam = h[1];
+        rc2 = rc * rc;
+        inv_lam = T(1) / lam;
+        // a diagonal cell keeps 6 of the 18 cell numbers in registers
+#pragma unroll
+        for (int e = 0; e < 9; ++e) {
+          box[e] = ORTHO && e % 4 != 0 ? T(0) : h[2 + e];
+          bi[e] = ORTHO && e % 4 != 0 ? T(0) : h[11 + e];
+        }
+      }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int i = I * TI + g + r * G;
@@ -331,7 +345,8 @@ int thole_config(int dipole, int* out) {
 
 template <typename T>
 int launch_thole_field(const T* pos, const T* src, const bool* ok,
-                       const int32_t* mol, const T* sc, const int32_t* wl,
+                       const int32_t* mol, const T* sc, int sc_stride,
+                       const int32_t* wl,
                        const int32_t* chains, int nk, int n, int ni, int nj,
                        int dipole, int damp_kind, int ortho, int grid,
                        double* part, int32_t* ticket, T* out,
@@ -340,8 +355,8 @@ int launch_thole_field(const T* pos, const T* src, const bool* ok,
                               : thole_field_kernel<T, true, false>)
                      : (ortho ? thole_field_kernel<T, false, true>
                               : thole_field_kernel<T, false, false>);
-  kern<<<grid, NT, 0, stream>>>(pos, src, ok, mol, sc, wl, chains, nk, n, ni,
-                                nj, damp_kind, part, ticket, out);
+  kern<<<grid, NT, 0, stream>>>(pos, src, ok, mol, sc, sc_stride, wl, chains,
+                                nk, n, ni, nj, damp_kind, part, ticket, out);
   return int(cudaGetLastError());
 }
 
@@ -350,13 +365,13 @@ int launch_thole_field(const T* pos, const T* src, const bool* ok,
 #define THOLE_FIELD_ENTRY(SFX, T)                                           \
   extern "C" int thole_field_##SFX(                                        \
       const void* pos, const void* src, const void* ok, const void* mol,    \
-      const void* sc, const void* wl, const void* chains, int nk, int n,    \
-      int ni, int nj, int dipole, int damp_kind, int ortho, int grid,       \
-      void* part, void* ticket, void* out, void* stream) {                  \
+      const void* sc, int sc_stride, const void* wl, const void* chains,   \
+      int nk, int n, int ni, int nj, int dipole, int damp_kind, int ortho,  \
+      int grid, void* part, void* ticket, void* out, void* stream) {        \
     return launch_thole_field<T>(                                           \
         (const T*)pos, (const T*)src, (const bool*)ok, (const int32_t*)mol, \
-        (const T*)sc, (const int32_t*)wl, (const int32_t*)chains, nk, n,    \
-        ni, nj, dipole, damp_kind, ortho, grid, (double*)part,              \
+        (const T*)sc, sc_stride, (const int32_t*)wl, (const int32_t*)chains,\
+        nk, n, ni, nj, dipole, damp_kind, ortho, grid, (double*)part,       \
         (int32_t*)ticket, (T*)out, (cudaStream_t)stream);                   \
   }                                                                         \
   extern "C" int thole_config_##SFX(int dipole, int* out) {                 \

@@ -53,7 +53,17 @@ A volume attempt rescales every molecule's centre of mass and the cell
 (moves.scale_volume) and re-prices the whole system (energy.total_energy,
 on the card one B2 pass), then rebuilds the chunk's box constants (cutoff,
 alpha, the B4 header, k-vectors and weights) from the carried box, on the
-device.
+device.  With polarization its candidate takes the static field of the
+new positions in the new cell (B5) and the SCF warm-started from ``mu``
+with no initial residual (the reference's b_volume: under NPT the CG's
+O(A N) residual is off for every move, ``_pol_resid``); under
+``polar_delayed`` the surrogate filters it first, as any trial.
+
+Under ``cdvdw`` every trial — a volume attempt too — recomputes the
+many-body dispersion of its configuration (ops/vdw.py: the 3P x 3P
+eigensolve, as the reference reruns it per candidate); its change enters
+the acceptance (stage 1 under the delayed acceptance) and its value the
+``vdw`` slot of an accepted trial.
 
 The move type is the only host decision of a step without polarization:
 it is read from a host copy of lanes 8 and 11, made once per chunk.  Everything
@@ -83,7 +93,7 @@ from mpmc_tpu_torch.config import RunConfig, Thermo
 from mpmc_tpu_torch.constants import ATM2K_A3, KE
 from mpmc_tpu_torch.mc import moves
 from mpmc_tpu_torch.ops import energy as energy_mod
-from mpmc_tpu_torch.ops import ewald, pairs, thole
+from mpmc_tpu_torch.ops import ewald, pairs, thole, vdw as vdw_mod
 from mpmc_tpu_torch.ops.cuda import mc_kernel
 from mpmc_tpu_torch.state import (EnergyBreakdown, Params, SimState,
                                   chain_rows, chain_rows_update, mol_rows,
@@ -247,18 +257,59 @@ NPT_FROZEN_TRAP = (
     "; run NPT without frozen molecules")
 
 
+CDVDW_LRC_TRAP = (
+    "ensemble uvt with cdvdw_sig_repulsion or cdvdw_9th_repulsion and "
+    "rd_lrc: the full-system tail adds each site's self term T_ii of the "
+    "RD form (mpmc_tpu/ops/pairs.py:569-580) while an insert or delete "
+    "adds the repulsion's (mpmc_tpu/ops/pairs.py:689-695, "
+    "mpmc_tpu/mc/metropolis.py:458-460), so the carried energy leaves the "
+    "refreshed one at every accepted insert or delete; run it with rd_lrc "
+    "off")
+
+
+def check_cdvdw(cfg: RunConfig):
+    """Refuse the reference's µVT cdvdw-repulsion tail trap
+    (CDVDW_LRC_TRAP, ValueError)."""
+    if (cfg.ensemble == "uvt" and cfg.cdvdw_repulsion in ("sig", "9th")
+            and pairs.lrc_on(cfg)):
+        raise ValueError(CDVDW_LRC_TRAP)
+
+
 def check_npt(params: Params, cfg: RunConfig):
     """Refuse what the NPT volume move cannot price: a frozen molecule
-    (NPT_FROZEN_TRAP, ValueError) and polarization (the full-system polar
-    candidate, ROADMAP A8c).  One host read of the frozen flags."""
+    (NPT_FROZEN_TRAP, ValueError).  One host read of the frozen flags."""
     if cfg.ensemble != "npt":
         return
-    if cfg.polarization:
-        raise NotImplementedError(
-            "ensemble npt with polarization is not yet ported — ROADMAP "
-            "A8c")
     if bool(params.mol_frozen.any()):
         raise ValueError(NPT_FROZEN_TRAP)
+
+
+def _pol_resid(cfg: RunConfig) -> bool:
+    """Whether a polar trial carries the CG's O(A N) initial residual
+    (thole.residual_supported), but never under NPT: a volume attempt
+    rescales every site, so no residual update exists for it, and the
+    reference turns the residual off for every move of the ensemble
+    (mpmc_tpu/mc/metropolis.py:306-312)."""
+    return thole.residual_supported(cfg) and cfg.ensemble != "npt"
+
+
+def _trial_config(carry, params: Params, mol, rows, alive_new):
+    """(positions, atom alive mask) of a trial from ``carry``: molecule
+    ``mol``'s rows replaced by ``rows`` (a clone of the carried
+    positions), and inserted (``alive_new`` True) or deleted (False); the
+    carried ones for a trial that moves nothing (``rows`` and
+    ``alive_new`` None).  Over chains: [C] ``mol`` and [C, A, 3] rows."""
+    pos, alive = carry["pos"], carry["alive"]
+    if rows is None and alive_new is None:
+        return pos, alive
+    batched = pos.ndim == 3
+    own = ((params.mol_id[None, :] == mol[:, None]) if batched
+           else (params.mol_id == mol)) & params.atom_ok
+    if alive_new is False:
+        return pos, alive & ~own
+    update = chain_rows_update if batched else mol_rows_update
+    pos_c = update(pos.clone(), params, mol, rows)
+    return pos_c, (alive | own) if alive_new is True else alive
 
 
 class _Chunk:
@@ -329,15 +380,44 @@ def _volume_step(carry, u, thermo, c: _Chunk, params: Params,
                  cfg: RunConfig, stats, trace=None):
     """One NPT volume attempt (``_volume_trial``), accepted on lane 4, its
     positions, box, energy and S(k) committed per chain, then the chunk's
-    box constants rebuilt from the carried box (no host sync)."""
+    box constants rebuilt from the carried box (no host sync without
+    polarization).  Under ``cdvdw`` the candidate's dispersion is
+    recomputed in the new cell; with polarization its static field (B5
+    over the chains, a header per chain) and SCF (solve_scf_chains over a
+    box per chain) are the new cell's, through ``polar_stage``, and
+    ``polar_delayed`` filters it with the surrogate first."""
     new_pos, new_box, d, ln_bias, sk = _volume_trial(carry, u, thermo, c,
                                                      params, cfg)
-    accept = (torch.log(torch.clamp(u[..., 4], min=1e-38))
-              < ln_bias - d.total / thermo.temperature)
+    alive = carry["alive"]
+    du = d.total
+    iters0 = stats.polar_iters
+    if cfg.cdvdw:
+        vdw_new = vdw_mod.vdw_energy(new_pos, new_box, alive, params, cfg)
+        du = du + (vdw_new - carry["energy"].vdw)
+    pol = cfg.polarization
+    if pol:
+        field = (thole.static_field_chains if new_pos.ndim == 3
+                 else thole.static_field)
+        pol_t = polar_stage(
+            carry, c, params, cfg, thermo, u, None, None, None, du, ln_bias,
+            torch.zeros_like(ln_bias, dtype=torch.bool), stats,
+            trial=(new_pos, alive,
+                   field(new_pos, new_box, alive, params, cfg), new_box))
+        du = du + pol_t["d_polar"]
+    if pol and cfg.polar_delayed:
+        accept = polar_accept(pol_t, u, thermo)
+    else:
+        accept = (torch.log(torch.clamp(u[..., 4], min=1e-38))
+                  < ln_bias - du / thermo.temperature)
     a3 = accept.reshape(accept.shape + (1, 1))
     carry["pos"] = torch.where(a3, new_pos, carry["pos"])
     carry["box"] = torch.where(a3, new_box, carry["box"])
-    carry["energy"] = carry["energy"].add(d).select(accept, carry["energy"])
+    new_energy = carry["energy"].add(d)
+    if cfg.cdvdw:
+        new_energy = dataclasses.replace(new_energy, vdw=vdw_new)
+    if pol:
+        new_energy = polar_commit(carry, pol_t, accept, new_energy, cfg)
+    carry["energy"] = new_energy.select(accept, carry["energy"])
     if c.ewald:
         a1 = accept.reshape(accept.shape + (1,))
         carry["sk_re"] = torch.where(a1, sk[0], carry["sk_re"])
@@ -346,9 +426,14 @@ def _volume_step(carry, u, thermo, c: _Chunk, params: Params,
     stats.attempts[..., VOLUME] += 1
     stats.accepts[..., VOLUME] += accept.to(torch.int64)
     if trace is not None:
-        trace.append({"mol": None, "rows": None, "accept": accept,
-                      "reject": torch.zeros_like(accept), "ln_bias": ln_bias,
-                      "d": d, "box": new_box})
+        rec = {"mol": None, "rows": None, "accept": accept,
+               "reject": torch.zeros_like(accept), "ln_bias": ln_bias,
+               "d": d, "box": new_box}
+        if cfg.cdvdw:
+            rec["vdw"] = vdw_new
+        if pol:
+            rec.update(pol_t, iters=stats.polar_iters - iters0)
+        trace.append(rec)
 
 
 def polar_trial(carry, c: _Chunk, params: Params, cfg: RunConfig, mol,
@@ -357,47 +442,36 @@ def polar_trial(carry, c: _Chunk, params: Params, cfg: RunConfig, mol,
     moving (``alive_new`` None), inserting (True) or deleting (False)
     molecule ``mol`` to ``rows``, from ``carry``'s pos, alive, e0, mu,
     r_pol and S(k): the O(A N) move_deltas where the field is delta-able
-    (with the CG's initial residual where thole.residual_supported), else
-    a rebuilt static field.  The carry's tensors are left as they are.
+    (with the CG's initial residual where ``_pol_resid``), else a rebuilt
+    static field.  The carry's tensors are left as they are.
     Over chains: a carry of [C]-stacked tensors, ``mol`` [C] and ``rows``
     [C, A, 3] (one molecule per chain).  ``spin``: a spinflip's trial,
     which moves nothing: the carry's positions, field and residual (the
     reference's b_spinflip candidate), the field rebuilt where it is not
     delta-able."""
     pos, alive = carry["pos"], carry["alive"]
+    field = (thole.static_field_chains if pos.ndim == 3
+             else thole.static_field)
+    resid = _pol_resid(cfg)
     if spin:
         if not thole.field_delta_supported(cfg):
-            field = (thole.static_field_chains if pos.ndim == 3
-                     else thole.static_field)
             return pos, alive, field(pos, c.box, alive, params, cfg), None
-        return pos, alive, carry["e0"], (carry["r_pol"]
-                                         if thole.residual_supported(cfg)
-                                         else None)
-    insert, delete = alive_new is True, alive_new is False
-    batched = pos.ndim == 3
-    own = ((params.mol_id[None, :] == mol[:, None]) if batched
-           else (params.mol_id == mol)) & params.atom_ok
-    if delete:
-        pos_c, alive_c = pos, alive & ~own
-    else:
-        update = chain_rows_update if batched else mol_rows_update
-        pos_c = update(pos.clone(), params, mol, rows)
-        alive_c = alive | own if insert else alive
+        return pos, alive, carry["e0"], carry["r_pol"] if resid else None
+    pos_c, alive_c = _trial_config(carry, params, mol, rows, alive_new)
     if not thole.field_delta_supported(cfg):
-        field = thole.static_field_chains if batched else thole.static_field
         return pos_c, alive_c, field(pos_c, c.box, alive_c, params,
                                      cfg), None
     e0_new, r0 = thole.move_deltas(
         pos, c.box, alive, params, cfg, mol, carry["e0"], carry["mu"],
-        carry["r_pol"], new_rows=rows, insert=insert, delete=delete,
-        with_residual=thole.residual_supported(cfg),
+        carry["r_pol"], new_rows=rows, insert=alive_new is True,
+        delete=alive_new is False, with_residual=resid,
         sk=(carry["sk_re"], carry["sk_im"]) if c.ewald else None)
     return pos_c, alive_c, e0_new, r0
 
 
 def polar_stage(carry, c: _Chunk, params: Params, cfg: RunConfig, thermo,
                 u, mol, rows, alive_new, du, ln_bias, reject, stats,
-                spin=False):
+                spin=False, trial=None):
     """The polar part of a step (make_step_fn's, and over [C]
     make_batched_step_fn's) for the trial of polar_trial, given its
     non-polar ``du``, ``ln_bias`` and ``reject``: the SCF of the trial
@@ -411,12 +485,19 @@ def polar_stage(carry, c: _Chunk, params: Params, cfg: RunConfig, thermo,
     reference's per-chain select gives.  Returns a dict: the trial's
     ``e0``, ``mu``, residual ``r``, polar energy ``polar`` and
     ``d_polar``, and under polar_delayed ``acc1`` and ``d_surr``.
-    ``spin``: a spinflip's trial (polar_trial)."""
-    pos_c, alive_c, e0_new, r0 = polar_trial(carry, c, params, cfg, mol,
-                                             rows, alive_new, spin)
+    ``spin``: a spinflip's trial (polar_trial).  ``trial``: a volume
+    attempt's (positions, atom alive, static field, cell) instead — the
+    rescaled configuration, solved in its own cell from ``mu`` with no
+    initial residual (the reference's b_volume)."""
+    if trial is None:
+        pos_c, alive_c, e0_new, r0 = polar_trial(carry, c, params, cfg, mol,
+                                                 rows, alive_new, spin)
+        box_t = c.box
+    else:
+        (pos_c, alive_c, e0_new, box_t), r0 = trial, None
     batched = pos_c.ndim == 3
     mu_new = carry["mu"]
-    r_new = (carry["r_pol"] if thole.residual_supported(cfg)
+    r_new = (carry["r_pol"] if _pol_resid(cfg)
              else torch.zeros_like(mu_new))
     out = {"e0": e0_new}
     survivors = None
@@ -431,11 +512,11 @@ def polar_stage(carry, c: _Chunk, params: Params, cfg: RunConfig, thermo,
     if survivors is None or survivors:
         if batched:
             mu_s, iters, r_s = thole.solve_scf_chains(
-                pos_c, c.box, alive_c, params, cfg, e0_new, mu0=mu_new,
+                pos_c, box_t, alive_c, params, cfg, e0_new, mu0=mu_new,
                 r0=r0, active=survivors)
         else:
             mu_s, iters, r_s = thole.solve_scf(
-                pos_c, c.box, alive_c, params, cfg, e0_new, mu0=mu_new,
+                pos_c, box_t, alive_c, params, cfg, e0_new, mu0=mu_new,
                 r0=r0)
         stats.polar_iters = stats.polar_iters + iters
         if r_s is None:              # jacobi / direct solvers
@@ -466,7 +547,7 @@ def polar_commit(carry, pol, accept, new_energy, cfg: RunConfig):
     keep = accept.reshape(accept.shape + (1, 1))
     carry["e0"] = torch.where(keep, pol["e0"], carry["e0"])
     carry["mu"] = torch.where(keep, pol["mu"], carry["mu"])
-    if thole.residual_supported(cfg):
+    if _pol_resid(cfg):
         carry["r_pol"] = torch.where(keep, pol["r"], carry["r_pol"])
     return dataclasses.replace(new_energy, polar=pol["polar"])
 
@@ -556,10 +637,12 @@ def make_step_fn(params: Params, cfg: RunConfig):
         raise NotImplementedError(
             f"ensemble {cfg.ensemble} is not yet ported — ROADMAP A12b")
     check_npt(params, cfg)
+    check_cdvdw(cfg)
     dtype = cfg.tdtype
     nve = cfg.ensemble == "nve"
     dev = params.device
     pol = cfg.polarization
+    cdvdw = cfg.cdvdw
     # delayed acceptance (polar_stage)
     pol_da = pol and cfg.polar_delayed and not nve
     zero = torch.zeros((), dtype=dtype, device=dev)
@@ -705,6 +788,13 @@ def make_step_fn(params: Params, cfg: RunConfig):
         mol, rows, alive_new, d, ln_bias, reject, sk = branches[t](
             carry, u, thermo, c)
         du = d.total
+        if cdvdw:
+            # the trial's many-body dispersion, recomputed in full
+            pos_v, alive_v = _trial_config(carry, params, mol, rows,
+                                           alive_new)
+            vdw_new = vdw_mod.vdw_energy(pos_v, c.box, alive_v, params, cfg)
+            du = du + (vdw_new - carry["energy"].vdw)
+        du_np = du
         iters0 = stats.polar_iters
         # TMMC: N before the move and the flat-histogram tilt, which
         # enters the acceptance (stage 1 under the delayed acceptance),
@@ -746,7 +836,7 @@ def make_step_fn(params: Params, cfg: RunConfig):
                                   < (ln_acc + d_eta if tm else ln_acc))
         if tm:
             _tmmc_add(carry["tmmc_c"], n_cur, t, _tmmc_a(
-                pol_t if pol else None, reject, ln_acc, ln_bias, d.total,
+                pol_t if pol else None, reject, ln_acc, ln_bias, du_np,
                 d_eta, pol_da, thermo))
         if rows is not None:
             cur = mol_rows(carry["pos"], params, mol)
@@ -758,6 +848,8 @@ def make_step_fn(params: Params, cfg: RunConfig):
                 accept, alive_new, take(ma, mol)).reshape(1))
             carry["alive"] = ma[params.mol_id] & params.atom_ok
         new_energy = carry["energy"].add(d)
+        if cdvdw:
+            new_energy = dataclasses.replace(new_energy, vdw=vdw_new)
         if pol:
             new_energy = polar_commit(carry, pol_t, accept, new_energy, cfg)
         carry["energy"] = new_energy.select(accept, carry["energy"])
@@ -774,6 +866,8 @@ def make_step_fn(params: Params, cfg: RunConfig):
         if trace is not None:
             rec = {"mol": mol, "rows": rows, "accept": accept,
                    "reject": reject, "ln_bias": ln_bias, "d": d}
+            if cdvdw:
+                rec["vdw"] = vdw_new
             if pol:
                 rec.update(pol_t, iters=stats.polar_iters - iters0)
             trace.append(rec)
@@ -896,15 +990,20 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
     ``c`` with [C] constants: the B4 header [C, 20], k-vectors [C, Nk,
     3], recip weights per chain); a volume step is every chain's attempt
     at once (the move type is shared), each with its own d ln V and
-    acceptance."""
+    acceptance, and with polarization each chain's static field and SCF
+    in its own new cell (B5 over the chains with a header per chain).
+    Under ``cdvdw`` each chain's trial dispersion is one batched
+    eigensolve over the chains."""
     if cfg.ensemble not in ("uvt", "nvt", "nve", "npt"):
         raise NotImplementedError(
             f"ensemble {cfg.ensemble} is not yet ported — ROADMAP A12b")
     check_npt(params, cfg)
+    check_cdvdw(cfg)
     dtype = cfg.tdtype
     nve = cfg.ensemble == "nve"
     dev = params.device
     pol = cfg.polarization
+    cdvdw = cfg.cdvdw
     pol_da = pol and cfg.polar_delayed and not nve
     species = (torch.as_tensor(cfg.insert_species, dtype=torch.int64,
                                device=dev)
@@ -1052,6 +1151,13 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         mol, rows, alive_new, d, ln_bias, reject, sk = branches[t](
             carry, u, thermo, c, zero)
         du = d.total
+        if cdvdw:
+            # the trial's many-body dispersion, recomputed in full
+            pos_v, alive_v = _trial_config(carry, params, mol, rows,
+                                           alive_new)
+            vdw_new = vdw_mod.vdw_energy(pos_v, c.box, alive_v, params, cfg)
+            du = du + (vdw_new - carry["energy"].vdw)
+        du_np = du
         iters0 = stats.polar_iters
         tm = tm_on and t in (1, 2)     # make_step_fn's TMMC, per chain
         d_eta = zero
@@ -1088,7 +1194,7 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
                                   < (ln_acc + d_eta if tm else ln_acc))
         if tm:
             _tmmc_add(carry["tmmc_c"], n_cur, t, _tmmc_a(
-                pol_t if pol else None, reject, ln_acc, ln_bias, d.total,
+                pol_t if pol else None, reject, ln_acc, ln_bias, du_np,
                 d_eta, pol_da, thermo))
         ar = torch.arange(C, device=dev)
         if rows is not None:
@@ -1102,6 +1208,8 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
             ma[ar, mol] = torch.where(accept, alive_new, ma[ar, mol])
             carry["alive"] = ma[:, params.mol_id] & params.atom_ok
         new_energy = carry["energy"].add(d)
+        if cdvdw:
+            new_energy = dataclasses.replace(new_energy, vdw=vdw_new)
         if pol:
             new_energy = polar_commit(carry, pol_t, accept, new_energy, cfg)
         carry["energy"] = new_energy.select(accept, carry["energy"])
@@ -1119,6 +1227,8 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         if trace is not None:
             rec = {"mol": mol, "rows": rows, "accept": accept,
                    "reject": reject, "ln_bias": ln_bias, "d": d}
+            if cdvdw:
+                rec["vdw"] = vdw_new
             if pol:
                 rec.update(pol_t, iters=stats.polar_iters - iters0)
             trace.append(rec)

@@ -18,7 +18,11 @@ into float64 on the host (and under ``tmmc_bias`` eta rebuilt from it),
 under ``quantum_rotation`` the rotor free-energy table rebuilt
 (ops/qrot.py; the spins are drawn once, before a checkpoint is read),
 and annealing/adaptation; a tmmc run ends by writing the matrix for
-``python -m mpmc_tpu_torch.analyze tmmc``.
+``python -m mpmc_tpu_torch.analyze tmmc``.  Under ``spectre`` (one chain)
+the S-flagged sites' charges are renormalized between each chunk and its
+refresh (mc/spectre.py); under ``quantum_vibration`` each block adds the
+stretch levels' ``qvib_zpe`` and ``qvib_fundamental_shift``
+(ops/qvib.py, one B4 launch per refresh).
 
 The entry points run on the current CUDA device unless the caller names
 another (``device="cpu"``), and raise when there is none.  Options outside
@@ -43,9 +47,10 @@ from mpmc_tpu_torch.io import native as native_io
 from mpmc_tpu_torch.io import output as output_io, pqr as pqr_io
 from mpmc_tpu_torch.mc import fugacity as fug_mod
 from mpmc_tpu_torch.mc import metropolis, moves
+from mpmc_tpu_torch.mc import spectre as spectre_mod
 from mpmc_tpu_torch.ops import energy as energy_mod
 from mpmc_tpu_torch.ops import pairs as pairs_mod
-from mpmc_tpu_torch.ops import qrot, thole
+from mpmc_tpu_torch.ops import qrot, qvib, thole
 from mpmc_tpu_torch.ops.cuda import mc_kernel
 from mpmc_tpu_torch.parallel import multichain, replica
 from mpmc_tpu_torch.state import (Params, SimState, Species,
@@ -71,6 +76,8 @@ class Setup:
     pt_round: Optional[dict] = None
     # quantum rotation: the rotor basis' largest l
     lmax: int = 4
+    # species whose PQR atoms carry the S flag (mc/spectre.py)
+    spectre_species: Tuple[int, ...] = ()
 
 
 def _species_from_atoms(atoms) -> Species:
@@ -139,27 +146,23 @@ def check_supported(job: input_script.Job):
     under fused_mc in the fused kernels' form instances (B1, B3 and B6,
     mc_kernel.FORM_STEM) wherever the reference's gate takes them,
     else on the scan path and batched chains (B2 and B4's form instances,
-    or for gwp the plain pass; log_pair_route)."""
+    or for gwp the plain pass; log_pair_route).  Polar NPT, cdvdw and its
+    repulsions, rd_crystal, spectre and quantum_vibration run where the
+    reference runs them: the scan path and the batched chains (the fused
+    gates refuse them, as the reference's do)."""
     cfg = job.cfg
     if cfg.ensemble == "npt":
-        if cfg.polarization:
-            _refuse("ensemble npt with polarization (the full-system polar "
-                    "candidate of a volume move)", "A8c")
         if job.parallel_tempering or job.pt_fugacity:
             raise ValueError(NPT_PT_TRAP)
     if ((cfg.feynman_hibbs or cfg.feynman_kleinert)
             and job.parallel_tempering and not job.pt_fugacity):
         raise ValueError(FH_PT_TRAP)
+    metropolis.check_cdvdw(cfg)
     if cfg.ensemble not in ("uvt", "nvt", "nve", "npt", "te", "replay"):
         _refuse(f"ensemble {cfg.ensemble}", "A12b")
     for flag, what, item in (
-            (cfg.cdvdw, "cdvdw", "A12b"),
-            (cfg.cdvdw_repulsion != "none", "cdvdw repulsion", "A12b"),
-            (cfg.quantum_vibration, "quantum_vibration", "A12b"),
             (cfg.mol_cache, "mol_cache", "A12b"),
             (cfg.cell_list, "cell_list", "A12b"),
-            (cfg.rd_crystal, "rd_crystal", "A12b"),
-            (cfg.spectre, "spectre", "A12b"),
             (job.spatial_devices > 1, "spatial_devices", "A13"),
             (job.chain_devices > 1, "chain_devices", "A13")):
         if flag:
@@ -169,16 +172,25 @@ def check_supported(job: input_script.Job):
 def log_pair_route(cfg, log):
     """Name the route of the pair passes in the run log where it is not
     the kernels': B2 and B4's static gate (pair_kernel.supported, the
-    reference's) refuses Feynman-Hibbs/Kleinert and coulomb gwp, and the
-    refresh and the per-move deltas run the plain tile pass on the device,
-    as the reference's scan path runs its jnp tile pass for them.  Under
-    fused_mc with an RD form or coulomb gwp, name the fused kernels' form
-    instances, which take them wherever a fused gate holds."""
+    reference's) refuses Feynman-Hibbs/Kleinert, coulomb gwp and the
+    cdvdw repulsions, and the refresh and the per-move deltas run the
+    plain tile pass on the device, as the reference's scan path runs its
+    jnp tile pass for them; under rd_crystal, RD is the plain image sum
+    and the rest the kernels' pass with rd none.  Under fused_mc with an
+    RD form or coulomb gwp, name the fused kernels' form instances, which
+    take them wherever a fused gate holds."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
+    if cfg.rd_crystal:
+        print(f"pair passes: rd {cfg.rd_potential} from the periodic-image "
+              f"lattice sum (order {cfg.rd_crystal_order}, plain, on the "
+              "device), ES and the overlap test from the cutoff pass with "
+              "rd none", file=log)
+        cfg = dataclasses.replace(cfg, rd_potential="none", rd_crystal=False,
+                                  cdvdw_repulsion="none")
     if not pair_kernel.supported(cfg):
         print("pair passes: the plain tile pass on the device (B2 and B4's "
-              "gate refuses feynman_hibbs / feynman_kleinert / coulomb gwp, "
-              "as the reference's does)", file=log)
+              "gate refuses feynman_hibbs / feynman_kleinert / coulomb gwp "
+              "/ the cdvdw repulsions, as the reference's does)", file=log)
     stem = mc_kernel.form_stem(cfg)
     if cfg.fused_mc and stem:
         print(f"fused_mc: rd {cfg.rd_potential} / coulomb {cfg.coulomb} "
@@ -256,6 +268,13 @@ def setup(job: input_script.Job, device=None,
     elif job.cfg.ensemble == "uvt":
         insert_names = list(names)    # clone existing sorbates
 
+    if job.vib_omega > 0.0:
+        # quantum_vibration: the stretch fundamental of the sorbate
+        # species (the PQR has no column for it); qvib.vibration_table
+        # skips the non-linear ones
+        species = [dataclasses.replace(sp, vib_omega=job.vib_omega)
+                   for sp in species]
+
     insert_species = tuple(names.index(n) for n in insert_names)
     if job.cfg.tmmc and len(insert_species) != 1:
         raise ValueError(
@@ -289,9 +308,11 @@ def setup(job: input_script.Job, device=None,
         params = params.replace(c10=torch.as_tensor(
             c10, dtype=cfg.tdtype, device=device))
 
-    if cfg.coulomb == "ewald":
+    if cfg.coulomb == "ewald" and not cfg.spectre:
         # non-neutral cells carry the jellium correction, but only on
-        # explicit request (a net charge is usually an input mistake)
+        # explicit request (a net charge is usually an input mistake);
+        # spectre's free charges are non-neutral by construction and its
+        # renormalization governs their total
         q = params.charge.cpu().numpy().astype(np.float64)
         alive = state.atom_alive(params).cpu().numpy()
         nets = [float(np.sum(np.where(alive, q, 0.0)))] + [
@@ -310,6 +331,11 @@ def setup(job: input_script.Job, device=None,
                     "(cell or insertable species). Set allow_charged_cell "
                     "to compute it in the jellium convention.")
 
+    # the species whose source atoms carry the PQR 'S' flag
+    spectre_flags: Dict[str, bool] = {}
+    for _, atoms in sorted(frame.movable_molecules().items()):
+        spectre_flags.setdefault(atoms[0].mol_name,
+                                 atoms[0].flag.upper().startswith("S"))
     nsp = max(len(species), 1)
     thermo = Thermo.make(
         temperature=job.temperature, pressure=job.pressure,
@@ -323,7 +349,9 @@ def setup(job: input_script.Job, device=None,
         n_species=nsp, dtype=cfg.tdtype, device=device)
     return Setup(params, state, cfg, thermo, tuple(species), names,
                  float(sum(a.mass for a in frozen)),
-                 lmax=int(job.quantum_rotation_level_max))
+                 lmax=int(job.quantum_rotation_level_max),
+                 spectre_species=tuple(i for i, n in enumerate(names)
+                                       if spectre_flags.get(n, False)))
 
 
 def observables(su: Setup, state: SimState, stats=None) -> Dict[str, float]:
@@ -375,6 +403,28 @@ def observables(su: Setup, state: SimState, stats=None) -> Dict[str, float]:
                                 "spinflip")):
             obs[f"acc_{nm}"] = float(acc[i])
     return obs
+
+
+def qvib_obs(su: Setup, state: SimState, thermo: Thermo) -> Dict[str, float]:
+    """The quantum-vibration block observables (the reference's keys,
+    mpmc_tpu/mc/run.py:1604-1617): the mean zero-point level and the mean
+    shift of the fundamental, (E1 - E0) - hbar w_e, over the molecules
+    with stretch levels (qvib.vibration_table: one B4 launch); {} where
+    there is none."""
+    params = su.params
+    vt = qvib.vibration_table(state.pos, state.box, state.atom_alive(params),
+                              state.mol_alive, params, su.cfg, thermo,
+                              list(su.species))
+    ok = ~np.isnan(vt[:, 0])
+    if not ok.any():
+        return {}
+    hw = {i: float(sp.vib_omega) * qvib.CM1_K
+          for i, sp in enumerate(su.species)}
+    sidx = params.mol_species.cpu().numpy()[ok]
+    free = np.array([hw.get(int(s), 0.0) for s in sidx])
+    return {"qvib_zpe": float(vt[ok, 0].mean()),
+            "qvib_fundamental_shift": float(
+                ((vt[ok, 1] - vt[ok, 0]) - free).mean())}
 
 
 def _qrot_obs(su: Setup, spin, rot_f, mol_alive) -> List[Dict[str, float]]:
@@ -923,12 +973,23 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     corr = max(cfg.corrtime, 1)
     n_blocks = max(cfg.numsteps // corr, 1)
     refresh_rows = metropolis.frozen_refresh_rows(params, cfg)
+    spectre_idx = None
+    if cfg.spectre:
+        spectre_idx = spectre_mod.spectre_atom_indices(params,
+                                                       su.spectre_species)
+        print(f"spectre: {len(spectre_idx)} free-charge sites",
+              file=writer.log)
     steps_done = 0
     t0 = time.time()
     for _ in range(n_blocks):
         state, stats = chunk(state, params, cfg, thermo, corr,
                              generator=generator)
         steps_done += corr
+        if spectre_idx is not None and len(spectre_idx):
+            # renormalize the free charges; the refresh below rebuilds
+            # every charge-dependent cache (its frozen reuse is off)
+            params = spectre_mod.apply(params, spectre_idx, cfg)
+            su = dataclasses.replace(su, params=params)
         # per-corrtime refresh on the frozen-reuse fast path
         state = metropolis.initialize(state, params, cfg, thermo,
                                       frozen_rows=refresh_rows)
@@ -936,6 +997,9 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
             state = qrot_refresh(su, state, thermo)
         stats = stats.host()
         obs = observables(su, state, stats)
+        obs.update(spectre_mod.observables(params, spectre_idx))
+        if cfg.quantum_vibration:
+            obs.update(qvib_obs(su, state, thermo))
         if cfg.polarization:
             obs["polar_iters_per_step"] = stats.polar_iters / corr
         avgs.add(obs)
@@ -1033,6 +1097,9 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
         print(f"WARNING: unknown options ignored: {job.unknown_options}",
               file=writer.log)
     print(f"batched chains: {C}", file=writer.log)
+    if cfg.spectre:
+        print("WARNING: spectre charge renormalization runs only in the "
+              "single-chain driver (chains 1)", file=writer.log)
     _log_tmmc_bias(cfg, writer)
     state = metropolis.initialize(su.state, params, cfg, thermo)
     chunk, _ = _chains_route(cfg, params, state.mol_alive, C, writer)

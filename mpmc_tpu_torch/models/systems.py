@@ -30,6 +30,43 @@ def h2_bss3() -> Species:
     )
 
 
+def co2_3site() -> Species:
+    """Rigid 3-site CO2 (EPM2-style: Harris & Yung 1995 parameters)."""
+    d = 1.149
+    return Species(
+        name="CO2",
+        atom_names=("C", "O", "O"),
+        pos=np.array([[0.0, 0.0, 0.0], [0.0, 0.0, d], [0.0, 0.0, -d]]),
+        mass=np.array([12.011, 15.999, 15.999]),
+        charge=np.array([0.6512, -0.3256, -0.3256]),
+        polar=np.zeros(3),
+        eps=np.array([28.129, 80.507, 80.507]),
+        sig=np.array([2.757, 3.033, 3.033]))
+
+
+def n2_3site() -> Species:
+    """Rigid N2 with a COM charge site (TraPPE-style: Potoff & Siepmann
+    2001)."""
+    d = 0.55
+    return Species(
+        name="N2",
+        atom_names=("NCOM", "N", "N"),
+        pos=np.array([[0.0, 0.0, 0.0], [0.0, 0.0, d], [0.0, 0.0, -d]]),
+        mass=np.array([0.0, 14.007, 14.007]),
+        charge=np.array([0.964, -0.482, -0.482]),
+        polar=np.zeros(3),
+        eps=np.array([0.0, 36.0, 36.0]),
+        sig=np.array([0.0, 3.31, 3.31]))
+
+
+def ch4_united_atom() -> Species:
+    """United-atom CH4 (TraPPE-UA: Martin & Siepmann 1998)."""
+    return Species(
+        name="CH4", atom_names=("CH4",), pos=np.zeros((1, 3)),
+        mass=np.array([16.043]), charge=np.zeros(1), polar=np.zeros(1),
+        eps=np.array([148.0]), sig=np.array([3.73]))
+
+
 def lj_atom(name="AR", eps=119.8, sig=3.405, mass=39.948) -> Species:
     """Monatomic LJ species (argon-like)."""
     return Species(
@@ -70,6 +107,45 @@ def lj_fluid(n: int = 256, density: float = 0.0212, temperature=120.0,
     thermo = Thermo.make(temperature=temperature, move_factor=0.5,
                          rot_factor=0.0, n_species=1, dtype=cfg.tdtype,
                          device=device)
+    return params, state, cfg, thermo
+
+
+def mof_h2_ch4_gcmc(n_side: int = 6, spacing: float = 4.0,
+                    n_h2: int = 16, n_ch4: int = 16, capacity: int = 64,
+                    temperature=150.0, pressures=(1.0, 1.0),
+                    dtype="float32", seed=0, ewald_kmax=5, corrtime=1000,
+                    device=None):
+    """Two-sorbate MOF GCMC (rigid 3-site H2 + united-atom CH4): the
+    multi-sorbate µVT shape, per-species fugacities ``pressures`` and
+    mixed per-species site counts (3 and 1)."""
+    device = resolve_device(device)
+    fpos, fp, box_len = _framework_lattice(n_side, spacing)
+    h2, ch4 = h2_bss3(), ch4_united_atom()
+    if n_h2 + n_ch4 > n_side ** 3:
+        raise ValueError("initial loading exceeds interstitial sites")
+    ijk = np.stack(np.meshgrid(*[np.arange(n_side)] * 3,
+                               indexing="ij"), -1).reshape(-1, 3)
+    rng = np.random.default_rng(seed)
+    sites = (ijk[rng.permutation(len(ijk))[:n_h2 + n_ch4]] + 1.0) * spacing
+    initial_pos = {
+        0: sites[:n_h2, None, :] + h2.pos[None, :, :],
+        1: sites[n_h2:, None, :] + ch4.pos[None, :, :],
+    }
+    cfg = RunConfig(
+        ensemble="uvt", rd_potential="lj", coulomb="ewald",
+        ewald_kmax=ewald_kmax, insert_species=(0, 1), ortho_box=True,
+        cavity_autoreject_absolute=1.0, corrtime=corrtime, dtype=dtype,
+        seed=seed)
+    params, state = build_system(
+        np.eye(3) * box_len, frozen_pos=fpos, frozen_params=fp,
+        species=(h2, ch4), capacity=(capacity, capacity),
+        initial_counts=(n_h2, n_ch4), initial_pos=initial_pos,
+        dtype=cfg.tdtype, seed=seed, device=device)
+    thermo = Thermo.make(
+        temperature=temperature, pressure=pressures[0],
+        fugacity=list(pressures), move_factor=1.0, rot_factor=np.pi,
+        insert_probability=0.5, n_species=2, dtype=cfg.tdtype,
+        device=device)
     return params, state, cfg, thermo
 
 

@@ -123,9 +123,10 @@ _SIGNATURES = {
         "pda_occupancy_rd": [_I] * 8 + [_PI],
     },
     "thole_kernel": {
-        # pos src ok mol scal wl chains | K n ni nj dipole damp ortho grid
-        # | part ticket out | stream
-        "thole_field": [_P] * 7 + [_I] * 8 + [_P] * 3 + [_P],
+        # pos src ok mol scal | scal_stride | wl chains | K n ni nj dipole
+        # damp ortho grid | part ticket out | stream
+        "thole_field": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 8 + [_P] * 3
+        + [_P],
         # dipole | [CTAs resident on the card] out
         "thole_config": [_I, _PI],
     },

@@ -41,14 +41,17 @@ Over a chain axis (the reference vmaps B5 over the chains of its
 batched polar step): ``charge_field_chains`` / ``dipole_field_chains``
 take the sites of C chains, pos [C, N, 3], site_ok, mol_id [C, N] (each
 chain's own site order: the culled solve sorts each chain apart) and src
-[C, N] or [C, N, 3], with the box, rc and damping shared, an optional
-visit table per chain [C, NI, NJ] and an optional host list ``active`` of
-the chains to compute (the others come out as zeros: a chain whose CG has
-stopped costs nothing).  One launch walks the (chain, row tile, column
-tile) items of the listed chains; slots are kept per listed item and
-tickets per (chain, row tile), so each chain's field is bit for bit the
-single-chain launch on that chain's tensors.  The single-chain wrappers
-launch the same kernel at C = 1.  ``plan_chains`` reads each chain's
+[C, N] or [C, N, 3], with the damping shared and the box and rc shared
+([3, 3], 0-d) or one per chain ([C, 3, 3], [C]: the NPT chains, each in
+its own box; the kernel then reads a [C, 20] scalar header, a row per
+chain), an optional visit table per chain [C, NI, NJ] and an optional host
+list ``active`` of the chains to compute (the others come out as zeros: a
+chain whose CG has stopped costs nothing).  One launch walks the (chain,
+row tile, column tile) items of the listed chains; slots are kept per
+listed item and tickets per (chain, row tile), so each chain's field is
+bit for bit the single-chain launch on that chain's tensors (in that
+chain's box, with a header per chain).  The single-chain wrappers launch
+the same kernel at C = 1.  ``plan_chains`` reads each chain's
 visited-tile count once (one sync), so the plan of an active subset
 (``subplan``) needs none.
 
@@ -110,10 +113,14 @@ def damping(r, lam, kind):
 def _field_plain(mode, pos, box, src, site_ok, mol_id, rc, lam, damp_kind,
                  visit=None):
     """Plain B5: row blocks of dense [..., B, N] masks (a leading chain
-    axis on every per-site tensor and on ``visit``, or none); ``visit``
-    masks the pairs of skipped tiles."""
+    axis on every per-site tensor and on ``visit``, or none; ``box``
+    [3, 3] and ``rc`` 0-d shared, or [C, 3, 3] and [C] per chain);
+    ``visit`` masks the pairs of skipped tiles."""
     n = pos.shape[-2]
     box_inv = torch.linalg.inv(box)
+    rc = torch.as_tensor(rc)
+    if rc.ndim:
+        rc = rc.reshape(rc.shape + (1, 1))
     cols = torch.arange(n, device=pos.device)
     out = []
     for i0 in range(0, n, PLAIN_ROWS):
@@ -166,15 +173,18 @@ def dipole_field_plain(pos, box, site_ok, mu, mol_id, rc, lam, damp_kind,
 def _chains_plain(mode, pos, box, src, site_ok, mol_id, rc, lam, damp_kind,
                   visit, active):
     """Plain B5 over [C]: the listed chains' fields in one batched pass,
-    zeros for the others."""
+    zeros for the others; ``box`` and ``rc`` shared or per chain."""
     if active is None:
         return _field_plain(mode, pos, box, src, site_ok, mol_id, rc, lam,
                             damp_kind, visit)
     out = torch.zeros(pos.shape, dtype=pos.dtype, device=pos.device)
     if len(active):
         idx = torch.as_tensor(active, dtype=torch.int64, device=pos.device)
-        out[idx] = _field_plain(mode, pos[idx], box, src[idx], site_ok[idx],
-                                mol_id[idx], rc, lam, damp_kind,
+        rc = torch.as_tensor(rc)
+        out[idx] = _field_plain(mode, pos[idx],
+                                box[idx] if box.ndim == 3 else box,
+                                src[idx], site_ok[idx], mol_id[idx],
+                                rc[idx] if rc.ndim else rc, lam, damp_kind,
                                 None if visit is None else visit[idx])
     return out
 
@@ -202,11 +212,16 @@ def dipole_field_chains_plain(pos, box, site_ok, mu, mol_id, rc, lam,
 def scalars(box, rc, lam):
     """The kernel's scalar header [rc, lam, box (9), box^-1 (9)] on the
     box's device (no host round trip: inv_ex skips inv's error check, a
-    host sync)."""
+    host sync); [C, 20], a row per chain, for stacked boxes [C, 3, 3] and
+    a [C] rc."""
+    lead = box.shape[:-2]
     rc = torch.as_tensor(rc, dtype=box.dtype, device=box.device)
-    lam = torch.full((1,), float(lam), dtype=box.dtype, device=box.device)
-    return torch.cat([rc.reshape(1), lam, box.reshape(-1),
-                      torch.linalg.inv_ex(box)[0].reshape(-1)]).contiguous()
+    lam = torch.full(lead + (1,), float(lam), dtype=box.dtype,
+                     device=box.device)
+    return torch.cat([rc.expand(lead).reshape(lead + (1,)), lam,
+                      box.reshape(lead + (9,)),
+                      torch.linalg.inv_ex(box)[0].reshape(lead + (9,))],
+                     -1).contiguous()
 
 
 def work_list(visit):
@@ -263,9 +278,10 @@ def plan(box, rc, lam, n, visit=None):
 
 def plan_chains(box, rc, lam, n, C, visit=None):
     """The FieldPlan of calls on C chains of ``n`` sites with this box,
-    rc, damping width and [C, NI, NJ] visit table, every chain listed.  A
-    culled plan reads each chain's visited-tile count on the host: one
-    sync."""
+    rc, damping width and [C, NI, NJ] visit table, every chain listed.
+    ``box`` [3, 3] and ``rc`` 0-d shared by the chains (a [20] header),
+    or [C, 3, 3] and [C], one per chain (a [C, 20] header).  A culled
+    plan reads each chain's visited-tile count on the host: one sync."""
     _, ni, nj = grid_shape(n)
     scal = scalars(box, rc, lam)
     if visit is None:
@@ -375,7 +391,10 @@ def _launch(mode, pos, box, src, site_ok, mol_id, rc, lam, damp_kind,
     _check("src", src, dt, (C, n) if mode == "charge" else (C, n, 3), dev)
     _check("site_ok", site_ok, torch.bool, (C, n), dev)
     _check("mol_id", mol_id, torch.int32, (C, n), dev)
-    _check("box", box, dt, (3, 3), dev)
+    if box.ndim == 3:
+        _check("box", box, dt, (C, 3, 3), dev)
+    else:
+        _check("box", box, dt, (3, 3), dev)
     if damp_kind not in _DAMP:
         raise ValueError(f"polar_damp_type {damp_kind} not supported")
     _, ni, nj = grid_shape(n)
@@ -397,7 +416,7 @@ def _launch(mode, pos, box, src, site_ok, mol_id, rc, lam, damp_kind,
     from mpmc_tpu_torch.ops.cuda import _build
     fn = getattr(_build.library("thole_kernel"), "thole_field_" + _suffix(dt))
     err = fn(_ptr(pos), _ptr(src), _ptr(site_ok), _ptr(mol_id),
-             _ptr(fplan.scal),
+             _ptr(fplan.scal), 20 if fplan.scal.ndim == 2 else 0,
              _ptr(fplan.wl) if fplan.wl is not None else None,
              _ptr(fplan.chains) if fplan.chains is not None else None, K, n,
              ni, nj, int(mode == "dipole"), _DAMP[damp_kind], int(ortho),
@@ -472,9 +491,11 @@ def charge_field_chains(pos, box, site_ok, charge, mol_id, rc, lam,
     """B5 charge mode over a chain axis: the damped intermolecular static
     field [C, N, 3] of each chain (module docstring).  ``pos`` [C, N, 3],
     ``site_ok`` bool, ``charge`` and ``mol_id`` (int32) [C, N]; ``visit``
-    [C, NI, NJ]; ``plan`` from ``plan_chains`` (or its ``subplan``) with
-    the same box, rc, lam, sizes and ``visit``; ``active`` a sorted host
-    sequence of the chains to compute (the others come out as zeros)."""
+    [C, NI, NJ]; ``box`` and ``rc`` shared ([3, 3], 0-d) or one per chain
+    ([C, 3, 3], [C]); ``plan`` from ``plan_chains`` (or its ``subplan``)
+    with the same box, rc, lam, sizes and ``visit``; ``active`` a sorted
+    host sequence of the chains to compute (the others come out as
+    zeros)."""
     if pos.device.type == "cpu":
         return charge_field_chains_plain(pos, box, site_ok, charge, mol_id,
                                          rc, lam, damp_kind, ortho=ortho,

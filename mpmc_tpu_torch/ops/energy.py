@@ -1,13 +1,13 @@
-"""Total-energy dispatcher (port of mpmc_tpu/ops/energy.py, without cdvdw,
-which the port refuses at setup): pair pass -> reciprocal/self
-electrostatics -> long-range tail -> polarization SCF, summed into
-per-term EnergyBreakdown slots.
+"""Total-energy dispatcher (port of mpmc_tpu/ops/energy.py): pair pass ->
+reciprocal/self electrostatics -> long-range tail -> polarization SCF ->
+coupled-dipole vdW (``cdvdw``, ops/vdw.py), summed into per-term
+EnergyBreakdown slots.
 """
 from __future__ import annotations
 
 import torch
 
-from mpmc_tpu_torch.ops import ewald, pairs, thole
+from mpmc_tpu_torch.ops import ewald, pairs, thole, vdw as vdw_mod
 from mpmc_tpu_torch.state import EnergyBreakdown
 
 
@@ -35,8 +35,6 @@ def total_energy(pos, box, mol_alive, params, cfg, thermo, mu0=None,
     field when the caller has it (multichain.initialize_batched computes
     every chain's in one launch), else computed here.
     """
-    if cfg.cdvdw:
-        raise NotImplementedError("cdvdw is not yet ported — ROADMAP A12b")
     dtype, dev = pos.dtype, pos.device
     alive = mol_alive[params.mol_id] & params.atom_ok
     atom_frozen = params.mol_frozen[params.mol_id]
@@ -123,9 +121,13 @@ def total_energy(pos, box, mol_alive, params, cfg, thermo, mu0=None,
             aux["r_pol"] = torch.where(pol_ok[:, None], r_pol,
                                        torch.zeros_like(r_pol))
 
+    vdw = zero
+    if cfg.cdvdw:
+        vdw = vdw_mod.vdw_energy(pos, box, alive, params, cfg)
+
     e = EnergyBreakdown(
         rd=pt.rd, lrc=lrc, es_real=pt.es_real, es_recip=es_recip,
-        es_self=es_self, es_excl=pt.es_excl, polar=polar, vdw=zero)
+        es_self=es_self, es_excl=pt.es_excl, polar=polar, vdw=vdw)
     if not split_frozen:
         return e, aux
     if reuse_ff:

@@ -9,11 +9,15 @@ Both go through ops/cuda/pair_kernel.py: on a CUDA tensor they launch the
 hand-written kernels (B2 and B4), on a CPU tensor they run the kernels'
 plain versions, which are built from ``_tile_values``/``_block_terms``
 below — the dense [rows, cols] reference math.  Under Feynman-Hibbs,
-Feynman-Kleinert or coulomb gwp the kernels' static gate
-(pair_kernel.supported, the reference's) refuses, as the reference's
+Feynman-Kleinert, coulomb gwp or a cdvdw repulsion the kernels' static
+gate (pair_kernel.supported, the reference's) refuses, as the reference's
 does, and both passes run that tile math on any device: the reference's
 own route for these options.  The RD forms sg, dreiding, b14_7 and
-disp_expansion (ops/potentials.py) run through the kernels.
+disp_expansion (ops/potentials.py) run through the kernels.  Under
+``rd_crystal`` the passes take ES and the closest approach from the
+cutoff pass with rd none (the kernels' classical instance) and RD from
+the periodic-image lattice sum of ops/crystal.py, as the reference's
+pair_pass and mol_pair_pass route it.
 
 Raw pass outputs leave the Coulomb constant out; this module applies it.
 """
@@ -98,10 +102,15 @@ def lrc_on(cfg) -> bool:
 
 def site_columns(params, cfg):
     """(disp, gwp) per-atom columns a cfg's pair terms read beyond charge,
-    eps and sig: (c6, c8, c10) under disp_expansion and the GWP widths
-    under coulomb gwp, else None."""
-    disp = ((params.c6, params.c8, params.c10)
-            if cfg.rd_potential == "disp_expansion" else None)
+    eps and sig: ``disp`` (c6, c8, c10) under disp_expansion, or (polar,
+    omega) — the Drude parameters — under a cdvdw repulsion, and the GWP
+    widths under coulomb gwp, else None."""
+    if cfg.cdvdw_repulsion != "none":
+        disp = (params.polar, params.omega)
+    elif cfg.rd_potential == "disp_expansion":
+        disp = (params.c6, params.c8, params.c10)
+    else:
+        disp = None
     gwp = params.gwp_alpha if cfg.coulomb == "gwp" else None
     return disp, gwp
 
@@ -116,12 +125,24 @@ def _tile_values(r2, qi, ei, si, qj, ej, sj, cfg, rc, alpha, qc=None,
     columns', the temperature), broadcastable, which adds the
     Feynman-Kleinert or (without it) Feynman-Hibbs correction to the LJ
     values.  ``disp``: ((c6, c8, c10) of the rows, of the columns), which
-    disp_expansion needs; ``gwp``: (the rows' GWP widths, the columns'),
-    which coulomb gwp needs."""
+    disp_expansion needs, or under a cdvdw repulsion ((polar, omega) of
+    the rows, of the columns), which replaces the RD form wholesale;
+    ``gwp``: (the rows' GWP widths, the columns'), which coulomb gwp
+    needs."""
     r2s = torch.where(r2 > 1e-12, r2, torch.ones_like(r2))  # guard i == j
     r = torch.sqrt(r2s)
     rd_u = tc = es_u = ex_u = None
-    if cfg.rd_potential == "lj":
+    if cfg.cdvdw_repulsion != "none":
+        if disp is None:
+            raise ValueError("cdvdw repulsion pair terms need the polar and "
+                             "omega columns")
+        (ai, wi), (aj, wj) = disp
+        rd_u = potentials.cdvdw_repulsion_energy(r, ei, ej, si, sj, ai, aj,
+                                                 wi, wj, cfg)
+        if cfg.rd_lrc:
+            tc = potentials.cdvdw_repulsion_tail_coefficient(
+                si, sj, ai, aj, wi, wj, rc, cfg) + torch.zeros_like(r2s)
+    elif cfg.rd_potential == "lj":
         eps, sig = lj_ops.mix(ei, ej, si, sj, cfg.mixing_rule)
         rd_u = lj_ops.energy(r2s, eps, sig)
         if qc is not None:
@@ -267,10 +288,28 @@ def pair_pass(pos, box, atom_alive, params, cfg, temperature,
     exactly the ACTIVE part of the split pass, at (N-F)/N of the cost —
     the per-corrtime fast refresh.  ``temperature`` (0-d) feeds the
     Feynman-Hibbs/Kleinert terms; where the gate pair_kernel.supported
-    refuses them (and coulomb gwp), the pass is B2's plain version on the
-    tensors' device."""
+    refuses them (and coulomb gwp and the cdvdw repulsions), the pass is
+    B2's plain version on the tensors' device.  Under ``rd_crystal`` RD is
+    the image sum (crystal.rd_crystal_full) and the rest the pass with rd
+    none; it takes no ``row_start`` and no rd_lrc, as the reference's."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
 
+    if cfg.rd_crystal:
+        from mpmc_tpu_torch.ops import crystal
+        if cfg.rd_lrc:
+            raise ValueError("rd_crystal implies rd_lrc off (the image "
+                             "shells are the tail)")
+        if row_start:
+            raise ValueError("row-restricted pair_pass does not support "
+                             "rd_crystal (image-sum split differs)")
+        base = pair_pass(pos, box, atom_alive, params, _crystal_es(cfg),
+                         temperature, split_frozen=split_frozen)
+        cry = crystal.rd_crystal_full(pos, box, atom_alive, params, cfg,
+                                      temperature, split_frozen=split_frozen)
+        if split_frozen:
+            return (dataclasses.replace(base[0], rd=base[0].rd + cry[0]),
+                    dataclasses.replace(base[1], rd=base[1].rd + cry[1]))
+        return dataclasses.replace(base, rd=base.rd + cry)
     frozen = params.mol_frozen[params.mol_id]
     args = (pos, params.charge, params.eps, params.sig, params.mol_id32,
             atom_alive, frozen, pair_scalars(box, cfg), cfg)
@@ -302,10 +341,21 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
     ``mol`` [C] and ``row_pos`` [C, A, 3] the chains' own (B4 at position
     stride 0: one system, C trial placements; ops/qrot.py's rotor grid).
     Where the gate pair_kernel.supported refuses the cfg
-    (Feynman-Hibbs/Kleinert, coulomb gwp), the pass is B4's plain version
-    on the tensors' device."""
+    (Feynman-Hibbs/Kleinert, coulomb gwp, the cdvdw repulsions), the pass
+    is B4's plain version on the tensors' device.  Under ``rd_crystal``
+    RD is the molecule's image sum (crystal.mol_rd_crystal, per chain
+    over chains) and the rest the pass with rd none."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
 
+    if cfg.rd_crystal:
+        from mpmc_tpu_torch.ops import crystal
+        base = mol_pair_pass(pos, box, atom_alive, params, _crystal_es(cfg),
+                             temperature, mol, row_pos=row_pos, scal=scal,
+                             shared=shared)
+        cry = crystal.mol_rd_crystal_any(pos, box, atom_alive, params, cfg,
+                                         temperature, mol, row_pos=row_pos,
+                                         shared=shared)
+        return dataclasses.replace(base, rd=base.rd + cry)
     if scal is None:
         scal = pair_scalars(box, cfg)
     args = (pos, params.charge, params.eps, params.sig, params.mol_id32,
@@ -326,6 +376,13 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
     return PairTerms(rd=raw[0], es_real=KE * raw[1],
                      es_excl=torch.zeros_like(raw[0]), lrc_coeff=raw[2],
                      min_r2=raw[3])
+
+
+def _crystal_es(cfg):
+    """The cutoff pass of an rd_crystal cfg: ES and the closest approach,
+    rd none (the pair kernels' classical instance)."""
+    return dataclasses.replace(cfg, rd_potential="none", rd_crystal=False,
+                               cdvdw_repulsion="none")
 
 
 def intra_terms(pos, box, params, cfg, mol, row_pos=None, scal=None):
@@ -371,7 +428,10 @@ def _self_tail(eps, sig, c6, c8, c10, cfg, rc):
 
 
 def lrc_self_coefficient(atom_alive, params, cfg, rc):
-    """Self (i==i periodic images) tail term: sum_i T_ii over alive atoms."""
+    """Self (i==i periodic images) tail term: sum_i T_ii over alive atoms
+    — the RD form's T_ii also under a cdvdw repulsion, as the reference's
+    (mpmc_tpu/ops/pairs.py:569-580; the per-molecule term below takes
+    the repulsion's: CDVDW_LRC_TRAP in mc/metropolis.py)."""
     if not lrc_on(cfg):
         return torch.zeros((), dtype=params.eps.dtype,
                            device=params.eps.device)
@@ -383,12 +443,20 @@ def lrc_self_coefficient(atom_alive, params, cfg, rc):
 def mol_lrc_self_coefficient(params, cfg, rc, mol):
     """Sum of self tail coefficients T_ii over one molecule's atoms
     (GCMC insert/delete LRC delta: dU = (lrc_coeff + 0.5 * this) / V);
-    [C] for ``mol`` [C]."""
+    [C] for ``mol`` [C].  Under a cdvdw repulsion the repulsion's T_ii,
+    as the reference's (mpmc_tpu/ops/pairs.py:689-695)."""
     if not lrc_on(cfg):
         return torch.zeros(getattr(mol, "shape", ()), dtype=params.eps.dtype,
                            device=params.eps.device)
-    tc = _self_tail(*(mol_rows(getattr(params, k), params, mol)
-                      for k in ("eps", "sig", "c6", "c8", "c10")), cfg, rc)
+    rows = {k: mol_rows(getattr(params, k), params, mol)
+            for k in ("eps", "sig", "c6", "c8", "c10", "polar", "omega")}
+    if cfg.cdvdw_repulsion != "none":
+        s, a, w = rows["sig"], rows["polar"], rows["omega"]
+        tc = potentials.cdvdw_repulsion_tail_coefficient(s, s, a, a, w, w,
+                                                         rc, cfg)
+    else:
+        tc = _self_tail(rows["eps"], rows["sig"], rows["c6"], rows["c8"],
+                        rows["c10"], cfg, rc)
     return torch.sum(torch.where(row_valid(params, mol), tc,
                                  torch.zeros_like(tc)), dim=-1)
 

@@ -35,17 +35,22 @@ def default_cutoff(box):
 def _apply33(v, m):
     """v @ m for last-axis-3 tensors, unrolled into component arithmetic
     (same association order as the reference, and no matmul for TF32 to
-    touch)."""
+    touch); ``m`` [3, 3], or [C, 1, ..., 3, 3] against ``v`` [C, ..., 3]."""
     return torch.stack(
-        [v[..., 0] * m[0, a] + v[..., 1] * m[1, a] + v[..., 2] * m[2, a]
-         for a in range(3)], dim=-1)
+        [v[..., 0] * m[..., 0, a] + v[..., 1] * m[..., 1, a]
+         + v[..., 2] * m[..., 2, a] for a in range(3)], dim=-1)
 
 
 def min_image(dr, box, box_inv=None):
     """Minimum-image displacement(s) for raw displacement(s) ``dr``.
-    ``torch.round`` rounds half to even, like ``jnp.round``."""
+    ``torch.round`` rounds half to even, like ``jnp.round``.  Stacked
+    cells ``box`` [C, 3, 3] (the NPT chains) apply to displacements
+    ``dr`` [C, ..., 3], chain c's in its own cell."""
     if box_inv is None:
         box_inv = torch.linalg.inv(box)
+    if box.ndim > 2:
+        shape = box.shape[:-2] + (1,) * (dr.ndim - box.ndim + 1) + (3, 3)
+        box, box_inv = box.reshape(shape), box_inv.reshape(shape)
     frac = _apply33(dr, box_inv)
     frac = frac - torch.round(frac)
     return _apply33(frac, box)

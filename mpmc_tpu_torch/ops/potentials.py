@@ -1,8 +1,10 @@
-"""Repulsion-dispersion forms beyond LJ (port of mpmc_tpu/ops/potentials.py
-without london_c6 and the cdvdw repulsions): Silvera-Goldman ``sg``,
-Dreiding exp-6 ``dreiding``, Halgren's buffered 14-7 ``b14_7`` and the
-Born-Mayer + damped C6/C8/C10 dispersion expansion ``disp_expansion``
-(the PHAHST family), with the expansion's long-range tail.
+"""Repulsion-dispersion forms beyond LJ (port of mpmc_tpu/ops/potentials.py):
+Silvera-Goldman ``sg``, Dreiding exp-6 ``dreiding``, Halgren's buffered
+14-7 ``b14_7`` and the Born-Mayer + damped C6/C8/C10 dispersion expansion
+``disp_expansion`` (the PHAHST family), with the expansion's long-range
+tail; and the repulsions that pair with the coupled-dipole vdW eigensolve
+(``cdvdw_sig_repulsion`` / ``_9th_`` / ``_exp_``, ops/vdw.py), with the
+London C6 of two Drude oscillators they are scaled by.
 
 Parameter columns, as the reference documents them:
 
@@ -155,3 +157,46 @@ def rd_pair_energy_generic(r, ei, ej, si, sj, c6i, c6j, c8i, c8j, c10i,
             r, a_ij, b_ij, disp_mix(c6i, c6j), disp_mix(c8i, c8j),
             disp_mix(c10i, c10j), cfg.damp_dispersion)
     raise ValueError(cfg.rd_potential)
+
+
+def london_c6(alpha_i, alpha_j, omega_i, omega_j):
+    """Mixed London dispersion coefficient of two Drude oscillators
+    [K A^6]: C6_ij = (3/2) hbar (w_i w_j / (w_i + w_j)) a_i a_j, w in
+    atomic units (the PQR omega column), a in A^3; (3/4) hbar w a^2 for
+    identical sites, the r -> inf limit of the cdvdw eigensolve."""
+    wsum = torch.clamp(omega_i + omega_j, min=1e-30)
+    return (1.5 * HARTREE_K * omega_i * omega_j / wsum
+            * alpha_i * alpha_j)
+
+
+def cdvdw_repulsion_energy(r, ei, ej, si, sj, ai, aj, wi, wj, cfg):
+    """The pair repulsion paired with coupled-dipole vdW (the eigensolve
+    supplies all dispersion): ``sig`` C6_ij sig_ij^6 / r^12, ``9th``
+    C6_ij sig_ij^3 / r^9 (sig_ij the arithmetic mean, C6 london_c6 of the
+    same Drude parameters, so sites without them add none), ``exp``
+    Born-Mayer A_ij e^{-B_ij r} with disp_expansion's columns and mixing
+    (eps = A geometric, sig = B harmonic)."""
+    if cfg.cdvdw_repulsion == "exp":
+        a_ij = torch.sqrt(torch.clamp(ei * ej, min=0.0))
+        b_ij = 2.0 * si * sj / torch.clamp(si + sj, min=1e-12)
+        return a_ij * torch.exp(-b_ij * r)
+    c6 = london_c6(ai, aj, wi, wj)
+    sig = 0.5 * (si + sj)
+    if cfg.cdvdw_repulsion == "sig":
+        return c6 * _ipow(sig, 6) / _ipow(r, 12)
+    if cfg.cdvdw_repulsion == "9th":
+        return c6 * _ipow(sig, 3) / _ipow(r, 9)
+    raise ValueError(cfg.cdvdw_repulsion)
+
+
+def cdvdw_repulsion_tail_coefficient(si, sj, ai, aj, wi, wj, rc, cfg):
+    """Ordered-pair long-range tail T_ij = 4 pi Int_rc^inf U r^2 dr of the
+    sig and 9th walls: 4 pi C6 sig^6 / (9 rc^9) and 4 pi C6 sig^3 /
+    (6 rc^6); exp decays below any tail (zeros)."""
+    c6 = london_c6(ai, aj, wi, wj)
+    sig = 0.5 * (si + sj)
+    if cfg.cdvdw_repulsion == "sig":
+        return 4.0 * math.pi * c6 * _ipow(sig, 6) / (9.0 * _ipow(rc, 9))
+    if cfg.cdvdw_repulsion == "9th":
+        return 4.0 * math.pi * c6 * _ipow(sig, 3) / (6.0 * _ipow(rc, 6))
+    return torch.zeros_like(rc) * (si + sj)

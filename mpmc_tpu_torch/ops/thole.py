@@ -105,12 +105,27 @@ def _intra_coef(r, r2s, alpha):
             - two_a_pi * torch.exp(-alpha * alpha * r2s)) / r2s
 
 
+def _per_chain(box):
+    """x -> x shaped to broadcast over a chain's [C, rows, cols] tiles:
+    a [C] tensor of per-chain cells (``box`` [C, 3, 3]) becomes [C, 1,
+    1]; anything else (a shared cell's 0-d constants, None) passes."""
+    def lead(x):
+        if box.ndim == 3 and torch.is_tensor(x) and x.ndim == 1:
+            return x[:, None, None]
+        return x
+    return lead
+
+
 def _recip_field_w(box, alpha, kvecs, pair_w=2.0):
     """Per-k weight of the reciprocal-space field sum:
-    (4 pi / V) pair_w exp(-k^2/4a^2) / k^2 (half-space table: pair_w 2)."""
+    (4 pi / V) pair_w exp(-k^2/4a^2) / k^2 (half-space table: pair_w 2);
+    [C, Nk] for per-chain cells ``box`` [C, 3, 3] and ``kvecs``."""
     k2 = torch.sum(kvecs * kvecs, dim=-1)
     k2s = torch.where(k2 > 1e-12, k2, torch.ones_like(k2))
     volume = torch.abs(torch.linalg.det(box))
+    if box.ndim == 3:
+        volume = volume[:, None]
+        alpha = alpha[:, None] if torch.as_tensor(alpha).ndim else alpha
     return ((4.0 * math.pi / volume) * pair_w
             * torch.exp(-k2 / (4.0 * alpha * alpha)) / k2s)
 
@@ -162,14 +177,22 @@ def static_field_direct(pos, box, atom_alive, params, cfg):
                            ortho=cfg.ortho_box)
 
 
+def _chain_box(box, c):
+    """Chain ``c``'s cell of a shared [3, 3] or per-chain [C, 3, 3] box."""
+    return box[c] if box.ndim == 3 else box
+
+
 def static_field_chains(pos, box, atom_alive, params, cfg):
     """``static_field`` of every chain (``pos`` [C, N, 3], ``atom_alive``
-    [C, N]; [C, N, 3]): the direct field in one launch of B5 over the
-    chains (charge_field_chains), the Ewald and Wolf fields chain by
-    chain."""
+    [C, N]; [C, N, 3]) in a shared ``box`` [3, 3] or each in its own
+    ([C, 3, 3]: the NPT chains): the direct field in one launch of B5
+    over the chains (charge_field_chains, a header per chain with a box
+    per chain), the Ewald and Wolf fields chain by chain."""
     if cfg.polar_ewald or cfg.polar_wolf:
-        return torch.stack([static_field(p, box, a, params, cfg)
-                            for p, a in zip(pos, atom_alive)])
+        return torch.stack([static_field(p, _chain_box(box, c), a, params,
+                                         cfg)
+                            for c, (p, a) in enumerate(zip(pos,
+                                                           atom_alive))])
     C, n = atom_alive.shape
     return tk.charge_field_chains(
         pos.contiguous(), box, atom_alive,
@@ -279,12 +302,16 @@ def move_deltas(pos, box, atom_alive, params, cfg, mol, e0, mu, r_old,
     Over chains (the reference vmaps this function): ``pos``, ``e0``,
     ``mu``, ``r_old`` [C, N, 3], ``atom_alive`` [C, N], ``mol`` [C],
     ``new_rows`` [C, A, 3] and ``sk`` [C, Nk] — one molecule per chain,
-    every chain's deltas in the same few hundred launches."""
+    every chain's deltas in the same few hundred launches.  ``box`` is
+    the chains' shared cell, or one per chain [C, 3, 3] (the NPT chains:
+    each chain's cutoff, field constants and k-vectors its own)."""
     dtype = pos.dtype
     batched = pos.ndim == 3
     rows_of, update, not_mol = _row_ops(params, mol, batched)
     box_inv = _inverse(box)
     rc = derived_cutoff(box, cfg)
+    lead = _per_chain(box)
+    rc2 = lead(rc * rc)
     A = params.max_atoms_per_mol
     valid = row_valid(params, mol)                        # [..., A]
     q_rows = torch.where(valid, mol_rows(params.charge, params, mol), 0.0)
@@ -297,6 +324,7 @@ def move_deltas(pos, box, atom_alive, params, cfg, mol, e0, mu, r_old,
     other_pol = other & pol_site
     ew_f = cfg.polar_ewald
     alpha_f, k_rc = _field_variant_consts(box, cfg, dtype)
+    alpha_b, k_rc_b = lead(alpha_f), lead(k_rc)
 
     if delete:
         src_pos, src_q, src_ok = old_rows, -q_rows, valid
@@ -315,13 +343,13 @@ def move_deltas(pos, box, atom_alive, params, cfg, mol, e0, mu, r_old,
     dr = pbc_ops.min_image(pos[..., None, :, :] - src_pos[..., :, None, :],
                            box, box_inv)                  # [..., S, N, 3]
     r2 = torch.sum(dr * dr, -1)
-    in_rc = r2 < rc * rc
+    in_rc = r2 < rc2
     r2s = torch.where(r2 > 1e-12, r2, torch.ones_like(r2))
     r = torch.sqrt(r2s)
     d1, d2 = _damping(r, cfg.polar_damp, cfg.polar_damp_type)
     ok_f = src_ok[..., :, None] & other[..., None, :] & in_rc
     coef = torch.where(ok_f, src_q[..., :, None]
-                       * _field_coef(r, r2s, d1, alpha_f, k_rc), _zero(r))
+                       * _field_coef(r, r2s, d1, alpha_b, k_rc_b), _zero(r))
     e0_new = e0 + torch.einsum("...sn,...snk->...nk", coef, dr)
 
     if ew_f:
@@ -343,13 +371,13 @@ def move_deltas(pos, box, atom_alive, params, cfg, mol, e0, mu, r_old,
                                 - pos[..., None, :, :], box,
                                 box_inv)                  # [..., A, N, 3]
         r2b = torch.sum(drr * drr, -1)
-        in_rcb = r2b < rc * rc
+        in_rcb = r2b < rc2
         r2bs = torch.where(r2b > 1e-12, r2b, torch.ones_like(r2b))
         rb = torch.sqrt(r2bs)
         d1b, d2b = _damping(rb, cfg.polar_damp, cfg.polar_damp_type)
         okb = valid[..., :, None] & other[..., None, :] & in_rcb
         cb = torch.where(okb, params.charge
-                         * _field_coef(rb, r2bs, d1b, alpha_f, k_rc),
+                         * _field_coef(rb, r2bs, d1b, alpha_b, k_rc_b),
                          _zero(rb))
         rows_field = torch.einsum("...an,...ank->...ak", cb, drr)
         if ew_f:
@@ -363,7 +391,7 @@ def move_deltas(pos, box, atom_alive, params, cfg, mol, e0, mu, r_old,
             r2is = torch.where(r2i > 1e-12, r2i, torch.ones_like(r2i))
             ri = torch.sqrt(r2is)
             ci = torch.where(oki, -q_rows[..., :, None]
-                             * _intra_coef(ri, r2is, alpha_f), _zero(ri))
+                             * _intra_coef(ri, r2is, alpha_b), _zero(ri))
             rows_field = rows_field + torch.einsum("...st,...stk->...tk",
                                                    ci, dra_f)
             # k-space field at the trial rows with the post-move S(k)
@@ -409,7 +437,7 @@ def move_deltas(pos, box, atom_alive, params, cfg, mol, e0, mu, r_old,
         r2a = torch.sum(dra * dra, -1)
         diag = torch.eye(A, dtype=torch.bool, device=pos.device)
         oka = (pol_rows[..., :, None] & valid[..., None, :] & ~diag
-               & (r2a < rc * rc) & (r2a > 1e-12))
+               & (r2a < rc2) & (r2a > 1e-12))
         r2as = torch.where(r2a > 1e-12, r2a, torch.ones_like(r2a))
         ra = torch.sqrt(r2as)
         d1a, d2a = _damping(ra, cfg.polar_damp, cfg.polar_damp_type)
@@ -433,11 +461,13 @@ def move_deltas(pos, box, atom_alive, params, cfg, mol, e0, mu, r_old,
 
 
 def _structure_factor(pos, params, atom_alive, kv):
-    """S(k) of one chain, or of each chain of a stacked [C, N, 3]."""
+    """S(k) of one chain, or of each chain of a stacked [C, N, 3] (``kv``
+    shared or per chain)."""
     if pos.ndim == 2:
         return ewald.structure_factor(pos, params.charge, atom_alive, kv)
-    parts = [ewald.structure_factor(p, params.charge, a, kv)
-             for p, a in zip(pos, atom_alive)]
+    parts = [ewald.structure_factor(p, params.charge, a,
+                                    kv[c] if kv.ndim == 3 else kv)
+             for c, (p, a) in enumerate(zip(pos, atom_alive))]
     return (torch.stack([p[0] for p in parts]),
             torch.stack([p[1] for p in parts]))
 
@@ -451,7 +481,7 @@ def residual_delta(pos, box, atom_alive, params, cfg, mol, mu, r_old,
     polarizable site and (b) the moved rows' own entries recomputed.
     The sequential form of ``move_deltas``' residual (the tests hold the
     fused form against it); ``atom_alive`` is the pre-move mask.  Over
-    chains as ``move_deltas``."""
+    chains as ``move_deltas`` with a shared box."""
     dtype = pos.dtype
     batched = pos.ndim == 3
     rows_of, update, not_mol = _row_ops(params, mol, batched)
@@ -550,15 +580,17 @@ def cull_perm(pos, box, pol_ok, rc):
     """(perm, inv): x-major lexicographic order of the sites on rc/2
     cells, dead and non-polarizable sites last (a stable sort, so ties
     keep the site order).  Recomputed per solve.  Over chains (``pos``
-    [C, N, 3], ``pol_ok`` [C, N]): each chain's own order, [C, N]."""
+    [C, N, 3], ``pol_ok`` [C, N]): each chain's own order, [C, N], in the
+    shared box or each in its own (``box`` [C, 3, 3], ``rc`` [C])."""
     n = pos.shape[-2]
-    L = torch.diagonal(box)
-    cell = rc / 2.0
+    L = torch.diagonal(box, dim1=-2, dim2=-1)
+    cell = torch.as_tensor(rc) / 2.0
+    if box.ndim == 3:
+        L, cell = L[:, None, :], cell.reshape(-1, 1, 1)
     frac = pos - L * torch.floor(pos / L)
     c = torch.floor(frac / cell)
-    ncy = torch.ceil(L[1] / cell)
-    ncz = torch.ceil(L[2] / cell)
-    key = (c[..., 0] * ncy + c[..., 1]) * ncz + c[..., 2]
+    nc = torch.ceil(L / cell)
+    key = (c[..., 0] * nc[..., 1] + c[..., 1]) * nc[..., 2] + c[..., 2]
     key = torch.where(pol_ok, key, torch.full_like(key, math.inf))
     perm = torch.argsort(key, dim=-1, stable=True)
     inv = torch.empty_like(perm)
@@ -576,14 +608,16 @@ def cull_visit(pos_s, ok_s, box, rc, ti=tk.TI, tj=tk.TJ, n_pad=None):
     last place of the box length in the sites' precision: the kernel's
     rounded r^2 of a pair just outside rc may fall inside it, and such a
     pair's tile must stay visited.  Over chains (``pos_s`` [C, N, 3],
-    ``ok_s`` [C, N]): each chain's table, [C, NI, NJ]."""
+    ``ok_s`` [C, N]): each chain's table, [C, NI, NJ], in the shared box
+    or each in its own (``box`` [C, 3, 3], ``rc`` [C])."""
     n = pos_s.shape[-2]
     lead = pos_s.shape[:-2]
     if n_pad is None:
         n_pad = tk.grid_shape(n, ti, tj)[0]
-    L = torch.diagonal(box).double()
+    L = torch.diagonal(box, dim1=-2, dim2=-1).double()     # [3] or [C, 3]
+    Lp = L[..., None, :]
     p = pos_s.double()
-    p = p - L * torch.floor(p / L)                         # wrap to [0, L)
+    p = p - Lp * torch.floor(p / Lp)                       # wrap to [0, L)
     pad = n_pad - n
     p = torch.cat([p, torch.zeros(lead + (pad, 3), dtype=p.dtype,
                                   device=p.device)], -2)
@@ -604,12 +638,15 @@ def cull_visit(pos_s, ok_s, box, rc, ti=tk.TI, tj=tk.TJ, n_pad=None):
     ci, hwi, oki = blocks(ti)
     cj, hwj, okj = blocks(tj)
     dc = ci[..., :, None, :] - cj[..., None, :, :]
-    dc = dc - L * torch.round(dc / L)
+    Ld = L[..., None, None, :]
+    dc = dc - Ld * torch.round(dc / Ld)
     gap = torch.clamp(torch.abs(dc) - hwi[..., :, None, :]
                       - hwj[..., None, :, :], min=0.0)
     mind2 = torch.sum(gap * gap, -1)
     rc_v = (torch.as_tensor(rc, dtype=torch.float64, device=p.device)
-            + 64.0 * torch.finfo(pos_s.dtype).eps * torch.max(L))
+            + 64.0 * torch.finfo(pos_s.dtype).eps * L.amax(-1))
+    if rc_v.ndim:
+        rc_v = rc_v[:, None, None]
     visit = oki[..., :, None] & okj[..., None, :] & (mind2 < rc_v * rc_v)
     return visit.to(torch.int32)
 
@@ -667,7 +704,9 @@ def solve_scf_chains(pos, box, atom_alive, params, cfg, e0, mu0=None,
     of the [C] gate vector per round.  The culled CG sorts each chain
     apart (its own cull_perm and visit table).  Jacobi runs
     polar_max_iter rounds over the active chains; ``direct`` solves each
-    active chain in turn."""
+    active chain in turn.  ``box``: the chains' shared cell [3, 3], or a
+    cell per chain [C, 3, 3] (the NPT chains: each chain's rc, header
+    row, cell order and visit table its own)."""
     C, n = pos.shape[:2]
     dev, dtype = pos.device, pos.dtype
     if active is None:
@@ -708,7 +747,8 @@ def solve_scf_chains(pos, box, atom_alive, params, cfg, e0, mu0=None,
     if cfg.polar_solver == "direct":
         mu = x.clone()
         for k in act:
-            mu[k] = _solve_direct(pos[k], box, params, cfg, b[k], pol_ok[k])
+            mu[k] = _solve_direct(pos[k], _chain_box(box, k), params, cfg,
+                                  b[k], pol_ok[k])
         return mu, iters, None
     # B5's scalar header and work lists, once for every matvec of the solve
     fplan = tk.plan_chains(box, rc_c, cfg.polar_damp, n, C, visit)
@@ -813,14 +853,19 @@ def solve_scf_chains(pos, box, atom_alive, params, cfg, e0, mu0=None,
 def dipole_tensor(pos, box, site_ok, cfg):
     """Damped dipole-dipole tensor T [N,N,3,3] over the given sites (pair
     cutoff, Thole damping; zero blocks on the diagonal and where either
-    site is masked)."""
-    n = pos.shape[0]
+    site is masked).  Over chains: ``pos`` [C, N, 3], ``site_ok`` [C, N]
+    and a shared ``box`` or one per chain [C, 3, 3] give [C, N, N, 3, 3]."""
+    n = pos.shape[-2]
     box_inv = _inverse(box)
     rc = derived_cutoff(box, cfg)
-    dr = pbc_ops.min_image(pos[:, None, :] - pos[None, :, :], box, box_inv)
+    if rc.ndim:
+        rc = rc[:, None, None]
+    dr = pbc_ops.min_image(pos[..., :, None, :] - pos[..., None, :, :], box,
+                           box_inv)
     r2 = torch.sum(dr * dr, -1)
     diag = torch.eye(n, dtype=torch.bool, device=pos.device)
-    ok = site_ok[:, None] & site_ok[None, :] & ~diag & (r2 < rc * rc)
+    ok = (site_ok[..., :, None] & site_ok[..., None, :] & ~diag
+          & (r2 < rc * rc))
     r2s = torch.where(r2 > 1e-12, r2, torch.ones_like(r2))
     r = torch.sqrt(r2s)
     d1, d2 = _damping(r, cfg.polar_damp, cfg.polar_damp_type)

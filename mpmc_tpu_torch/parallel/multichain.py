@@ -87,14 +87,14 @@ def initialize_batched(states: SimState, params: Params, cfg: RunConfig,
     would hold a [C, rows, N] tile, and it runs once per corrtime), each
     in its own box (NPT chains), with every chain's static field taken
     first in one pass over the chains (thole.static_field_chains: one
-    launch of B5 over the chains; the chains share the box, since polar
-    NPT is refused).
+    launch of B5 over the chains, each in its own box, a header per
+    chain).
     ``thermo`` may be per chain (chain_thermo); ``frozen_rows`` as in
     metropolis.initialize."""
     e0 = None
     if cfg.polarization:
         alive = states.mol_alive[:, params.mol_id] & params.atom_ok
-        e0 = thole.static_field_chains(states.pos, states.box[0], alive,
+        e0 = thole.static_field_chains(states.pos, states.box, alive,
                                        params, cfg)
     return stack_chains([
         metropolis.initialize(slice_chain(states, c), params, cfg,

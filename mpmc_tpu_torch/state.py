@@ -96,6 +96,9 @@ class Params:
     mol_mass: torch.Tensor     # [M] total mass
     species_pos: torch.Tensor  # [S, A, 3] COM-centered templates
     species_natoms: torch.Tensor  # [S] int64
+    # [P] int64 rows of the coupled-dipole vdW sites (alpha > 0 and
+    # omega > 0), fixed at build: ops/vdw.py's 3P x 3P eigensolve
+    vdw_sites: Optional[torch.Tensor] = None
     # int32 copy of mol_id, the type the CUDA pair kernels read (derived)
     mol_id32: torch.Tensor = dataclasses.field(init=False, repr=False)
     # [N] each atom's molecular mass mol_mass[mol_id]: the molecule-pair
@@ -420,7 +423,8 @@ def build_system(box, frozen_pos=None, frozen_params: Optional[dict] = None,
         mol_species=t(mol_species), mol_frozen=t(mol_frozen),
         mol_atoms=t(mol_atoms), mol_natoms=t(mol_natoms),
         mol_start=t(mol_start), mol_dof=f(mol_dof), mol_mass=f(mol_mass),
-        species_pos=f(species_pos), species_natoms=t(species_natoms))
+        species_pos=f(species_pos), species_natoms=t(species_natoms),
+        vdw_sites=t(np.nonzero((polar > 0) & (omega > 0))[0]))
     state = SimState(pos=f(pos), box=f(box), mol_alive=t(mol_alive),
                      energy=EnergyBreakdown.zero(dtype, device),
                      mu=torch.zeros((N, 3), dtype=dtype, device=device))

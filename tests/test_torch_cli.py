@@ -117,21 +117,22 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 # the batched polar route), and so do exact checkpoints (item None: the
 # single-chain polar deck writes its checkpoint), NPT (item None: a
 # frameless LJ deck on the scan path), the Feynman-Hibbs/Kleinert
-# corrections, cavity bias, TMMC, spinflip, the other RD forms and coulomb
-# gwp (item None: the single-chain polar deck with the line); polar NPT is
-# A8c
+# corrections, cavity bias, TMMC, spinflip, the other RD forms, coulomb
+# gwp, cdvdw, rd_crystal and spectre (item None: the single-chain polar
+# deck with the line), and polar NPT (item None: a frameless polar H2
+# deck on the scan path)
 REFUSED = [
     ("chains 4", "chains 4\npolarization on", None),
     ("ensemble npt", None),
-    ("ensemble npt\npolarization on", "A8c"),
+    ("ensemble npt\npolarization on", None),
     ("parallel_tempering on", "parallel_tempering on\npolarization on",
      None),
     ("chains 2\nfused_mc on\npolarization on", None),
     ("cavity_bias on", None),
     ("tmmc on", None), ("quantum_rotation on", None),
-    ("cdvdw on", "A12b"), ("feynman_hibbs on", None),
+    ("cdvdw on", None), ("feynman_hibbs on", None),
     ("feynman_kleinert on", None), ("cell_list on", "A12b"),
-    ("rd_crystal on", "A12b"), ("spectre on", "A12b"), ("sg on", None),
+    ("rd_crystal on", None), ("spectre on", None), ("sg on", None),
     ("disp_expansion on", None), ("gwp on", None),
     ("spatial_devices 2", "A13"), ("checkpoint_output ck.npz", None),
 ]
@@ -152,8 +153,18 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
     attempt; quantum_rotation, once refused, runs it with spins and a
     rotor table carried; the RD forms sg and disp_expansion and coulomb
     gwp, once refused, run it with a polar term (gwp through the plain
-    pass, named in the log)."""
+    pass, named in the log); cdvdw, rd_crystal and spectre, once refused,
+    run it too (no site has a Drude omega, so vdw is 0; the image-sum
+    route and the spectre sites named in the log); polar NPT, once
+    refused, runs a frameless polar H2 deck whose box moves."""
     line, item = case[-2:]
+    if item is None and line == "ensemble npt\npolarization on":
+        from test_torch_polar_npt import _deck
+        su, avgs = trun.run(_deck(tmp_path), log=io.StringIO(),
+                            device="cpu")
+        assert su.state.step == 60 and avgs.mean("acc_volume") > 0
+        assert float(su.state.energy.polar) < 0
+        return
     if item is None and line == "ensemble npt":
         from torch_npt import lj_npt, write_deck
         deck = write_deck(tmp_path, lj_npt(), "numsteps 60", "corrtime 30",
@@ -188,6 +199,15 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
         if line.startswith("cavity_bias"):
             n_open = int(su.state.cavity_open.sum())
             assert 0 < n_open < 10 ** 3 and su.state.step == 3
+            return
+        if line in ("cdvdw on", "rd_crystal on", "spectre on"):
+            assert su.state.step == 3 and float(su.state.energy.polar) < 0
+            assert float(su.state.energy.vdw) == 0.0
+            out = buf.getvalue()
+            assert (("periodic-image lattice sum" in out)
+                    == (line == "rd_crystal on"))
+            assert (("spectre: 0 free-charge sites" in out)
+                    == (line == "spectre on"))
             return
         if line in ("sg on", "disp_expansion on", "gwp on"):
             assert su.state.step == 3 and float(su.state.energy.polar) < 0

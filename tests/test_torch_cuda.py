@@ -2171,3 +2171,104 @@ def test_pda_kernel_rd_forms_match_plain(device, dtype, form):
                    trace, dtype == "float64")
         hits += int(k[0, 1])
     assert hits >= 3
+
+
+B5_HEADER = [(C, layout) for C in (1, 3, 8) for layout in ("dense",
+                                                          "culled")]
+
+
+@pytest.mark.parametrize("C,layout", B5_HEADER,
+                         ids=[f"c{C}-{lay}" for C, lay in B5_HEADER])
+@pytest.mark.parametrize("mode", ["charge", "dipole"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_thole_chains_header_per_chain(device, dtype, mode, C, layout):
+    """B5 over C chains of 300 sites, each in its own cell (edges scaled
+    -5 % .. +5 %, rc = L/2 - 1 per chain): a [C, 20] header, one launch;
+    a shared header equals the same header repeated per chain bit for
+    bit; chain c equals chain c launched alone in its own cell bit for
+    bit; the culled launch (each chain's own cell order and visit table)
+    equals the dense one bit for bit; each chain within
+    test_thole_kernel_ragged's bound of the plain version with a box per
+    chain."""
+    dt = getattr(torch, dtype)
+    scale = np.linspace(0.95, 1.05, C) if C > 1 else np.array([1.05])
+    clouds = [_b5_cloud(300, dt, device, seed=s, L=20.0 * float(f))
+              for s, f in enumerate(scale)]
+    box = torch.stack([c[1] for c in clouds])
+    pos, ok, q, mu, mol = (torch.stack([c[i] for c in clouds])
+                           for i in (0, 2, 3, 4, 5))
+    src = q if mode == "charge" else mu
+    rc = 0.5 * torch.diagonal(box, dim1=-2, dim2=-1)[:, 0] - 1.0
+    chains_fn, one_fn, plain = (
+        (tk.charge_field_chains, tk.charge_field,
+         tk.charge_field_chains_plain)
+        if mode == "charge" else
+        (tk.dipole_field_chains, tk.dipole_field,
+         tk.dipole_field_chains_plain))
+    visit = None
+    if layout == "culled":
+        perm, _ = thole.cull_perm(pos, box, ok, rc)
+        pos, ok, src, mol = (thole._gather_sites(x, perm).contiguous()
+                             for x in (pos, ok, src, mol))
+        visit = thole.cull_visit(pos, ok, box, rc)
+    args = (pos, box, ok, src, mol, rc, 2.1304, "exponential")
+    before = chains_fn.launches
+    k = chains_fn(*args, ortho=True, visit=visit)
+    torch.cuda.synchronize(device)
+    assert chains_fn.launches == before + 1
+    if visit is not None:
+        assert torch.equal(k, chains_fn(*args, ortho=True))
+    shared = chains_fn(pos, box[0], ok, src, mol, rc[0], 2.1304,
+                       "exponential", ortho=True)
+    repeated = chains_fn(pos, box[0].expand(C, 3, 3).contiguous(), ok, src,
+                         mol, rc[0].expand(C).contiguous(), 2.1304,
+                         "exponential", ortho=True)
+    assert torch.equal(shared, repeated)
+    p64 = plain(*(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                  else x for x in args), visit=visit)
+    p_dt = plain(*args, visit=visit)
+    for c in range(C):
+        one = one_fn(pos[c], box[c], ok[c], src[c], mol[c], rc[c], 2.1304,
+                     "exponential", ortho=True,
+                     visit=None if visit is None else visit[c])
+        assert torch.equal(k[c], one), c
+        scale_c = float(p64[c].abs().max())
+        tol = (1e-12 * scale_c if dtype == "float64" else
+               max(4.0 * float((p_dt[c].double() - p64[c]).abs().max()),
+                   2e-6 * scale_c))
+        assert float((k[c].double() - p64[c]).abs().max()) <= tol, c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_qvib_grid_is_one_stride0_launch(device, dtype):
+    """The stretch grid of every H2 (qvib.external_potentials_on_grid:
+    224 bond lengths and b0 each) in one B4 launch at position stride 0,
+    within _close of the plain version on the same rows."""
+    from mpmc_tpu_torch.ops import qvib
+    params, state, cfg, thermo = _system(dtype, device)
+    state = metropolis.initialize(state, params, cfg, thermo)
+    sp = dataclasses.replace(systems.h2_bss3(), vib_omega=4161.0)
+    mols = np.flatnonzero(state.mol_alive.cpu().numpy()
+                          & (params.mol_species >= 0).cpu().numpy())[:6]
+    s, b0, mu = qvib.stretch_geometry(sp)
+    grid = np.concatenate([qvib.stretch_grid(b0, mu, 4161.0 * qvib.CM1_K),
+                           [b0]])
+    before = (pk.mol_pair_chains.launches, pk.mol_pair_chains.shared_launches)
+    k = qvib.external_potentials_on_grid(
+        state.pos, state.box, state.atom_alive(params), params, cfg,
+        thermo.temperature, mols, [s] * len(mols), [b0] * len(mols),
+        [grid] * len(mols))
+    torch.cuda.synchronize(device)
+    assert (pk.mol_pair_chains.launches,
+            pk.mol_pair_chains.shared_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    rows = qvib.stretch_rows(state.pos, params, mols, [s] * len(mols),
+                             [b0] * len(mols), [grid] * len(mols))
+    G = grid.shape[0]
+    mt = torch.as_tensor(mols, device=device).repeat_interleave(G)
+    p = pk.mol_pair_chains_plain(
+        state.pos, params.charge, params.eps, params.sig, params.mol_id32,
+        state.atom_alive(params), params.mol_atoms, params.mol_natoms, mt,
+        rows.reshape(-1, rows.shape[2], 3).contiguous(),
+        pairs.pair_scalars(state.box, cfg), cfg)
+    _close(k.reshape(-1), (p[:, 0] + pairs.KE * p[:, 1]), dtype)

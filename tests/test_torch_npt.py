@@ -281,14 +281,21 @@ def test_parallel_tempering_trap_and_refusal():
 
 
 def test_npt_with_polarization_is_refused():
-    """Polar NPT (the full-system polar candidate, B5 over chains with a
-    box per chain) is ROADMAP A8c: refused by the run and by the step."""
+    """Polar NPT runs (tests/test_torch_polar_npt.py), but not where the
+    reference's traps are: under a temperature ladder the run refuses it
+    (NPT_PT_TRAP), and with a frozen framework the step (NPT_FROZEN_TRAP);
+    without either both take it."""
     job = input_script.parse("ensemble npt\npolarization on\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8c$"):
-        trun.check_supported(job)
+    trun.check_supported(job)
+    for line in ("parallel_tempering on", "pt_fugacity on"):
+        with pytest.raises(ValueError, match="P \\(V_i - V_j\\)"):
+            trun.check_supported(input_script.parse(
+                f"ensemble npt\npolarization on\n{line}\n"))
     _, P, S, C, T = port(lj_npt())
-    with pytest.raises(NotImplementedError, match="ROADMAP A8c$"):
-        tm.make_step_fn(P, dataclasses.replace(C, polarization=True))
+    tm.make_step_fn(P, dataclasses.replace(C, polarization=True))
+    P_f = P.replace(mol_frozen=torch.ones_like(P.mol_frozen))
+    with pytest.raises(ValueError, match="frozen framework"):
+        tm.make_step_fn(P_f, dataclasses.replace(C, polarization=True))
 
 
 def test_npt_deck_runs_on_the_scan_path(tmp_path, monkeypatch):
