@@ -154,7 +154,7 @@ Phases (any failure raises, so the exit code is non-zero):
    its four 64-rotor launches and the expanded launch on its first and
    last 8,192 chains; both launches timed beside the bound; a refresh of
    DECK's 256 rotors timed (B4 and the host eigensolves apart, one B4
-   launch); 8 rotors' F_para, F_ortho against CPU float64 within the Weyl
+   launch); 4 rotors' F_para, F_ortho against CPU float64 within the Weyl
    bound of their grids' |dV|;
 24. spinflip kernels (phase_sf_kernels) — B1's XT instance with spinflip
    at C = 1 (G = 16) and at C = 32 with cavity bias and TMMC too, B3's SF
@@ -220,7 +220,28 @@ Phases (any failure raises, so the exit code is non-zero):
    CPU), SPECTRE with 32 S-flagged charges in the bench system
    (phase_spectre: the clamp and target every block, bookkeeping) and
    quantum_vibration in DECK (phase_qvib: one stride-0 B4 launch per
-   refresh, the grid against plain, levels against CPU float64).
+   refresh, the grid against plain, levels against CPU float64);
+33. B2 over a batch of geometries (phase_b2_chains) — pair_terms_chains
+   on 512 BSS H2 dimers (float64 and float32: every entry its lone launch
+   bit for bit, C = 1 pair_terms, within _tol of the plain version) and
+   on two geometries of the 10.8k system at row_start F; times at C =
+   512 beside a lone dimer launch, the bound;
+34. cell_list (phase_cell_list) — DECK with cutoff 12 and ``cell_list
+   on``: the scan path (1,000 steps; B4 never launched), ``chains 16``
+   (200), fused µVT (1,000, rd_lrc off) bit for bit against the same
+   deck without the option, and with rd_lrc the reference's tail trap
+   refused; bookkeeping; the culled pass beside B4's dense delta and
+   the share of framework columns the cells cover;
+35. mol_cache (phase_mol_cache) — DECK with RunConfig(mol_cache=True)
+   (a 513 x 513 cache): the scan path (1,000 steps) and ``chains 16``
+   (200), the carried cache against a fresh pair_matrix after each run
+   and a further chunk, bookkeeping;
+36. the surf drivers (phase_surf) — the BSS H2 dimer scan (surf_ang 45:
+   102,400 orientation pairs a separation, 2.5-8.0 A by 0.25, one B2 x
+   512 launch a batch), the polar scan (surf_ang 90; B5 over the batch),
+   an argon surf_fit (60 points, 2,000 SA steps) and a surf_multi_fit
+   (256 four-H2 configurations): launches per batch or evaluation,
+   surf_output's lines, parameters recovered.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
@@ -243,6 +264,7 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -254,6 +276,7 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
+           "pair_terms_chains": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "mol_pair": "mpmc_tpu_torch/csrc/pair_kernel.cu",
            "run_steps_uvt": "mpmc_tpu_torch/csrc/uvt_kernel.cu",
            "run_steps": "mpmc_tpu_torch/csrc/nvt_kernel.cu",
@@ -290,6 +313,7 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
               f"mpmc_tpu_torch/csrc/pda_{f}_kernel.cu"
               for f in ("sg", "dreiding", "b14_7", "disp", "gwp")}}
 REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
+            "pair_terms_chains": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
             "mol_pair": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "run_steps_uvt": "mpmc_tpu/ops/pallas/mc_kernel.py:910",
             "run_steps": "mpmc_tpu/ops/pallas/mc_kernel.py:220",
@@ -1639,6 +1663,19 @@ pqr_restart restart.pqr
 """
 
 
+def _params_on(params, device="cpu", float64=False):
+    """``params`` on ``device`` (its floating columns in float64 with
+    ``float64``), the derived columns rebuilt; a field that is None (no
+    cell index) stays None."""
+    def move(t):
+        if t is None:
+            return None
+        t = t.to(device)
+        return t.double() if float64 and t.is_floating_point() else t
+    return params.__class__(**{f.name: move(getattr(params, f.name))
+                               for f in dataclasses.fields(params) if f.init})
+
+
 def _reset_counts():
     """Every kernel wrapper's launch count set to 0."""
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
@@ -1655,6 +1692,7 @@ def _launch_counts():
     from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
     from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
     return {"pair_terms": pk.pair_terms.launches,
+            "pair_terms_chains": pk.pair_terms_chains.launches,
             "mol_pair": pk.mol_pair.launches,
             "mol_pair_chains": pk.mol_pair_chains.launches,
             "run_steps_uvt": mk.run_steps_uvt.launches,
@@ -1667,7 +1705,7 @@ def _launch_counts():
 
 
 def _run_deck(device, extra="", numsteps=3000, kind="mof", verbose=True,
-              form=None):
+              form=None, cfg_kw=None):
     """A full-size system written to PQR and run as a deck through run.run,
     every launch count set to 0 just before and read just after: ``kind``
     "mof" — the 10.8k system as DECK (plus ``extra`` lines) —, "polar" —
@@ -1679,7 +1717,9 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof", verbose=True,
     columns as _rd_params makes them, written with the PQR's extended
     columns (C10 left 0 under disp_expansion, for extrapolate_disp_coeffs
     to fill).  Without ``verbose`` only the run's last lines are logged.
-    Returns (Setup, averages, log text, launches)."""
+    ``cfg_kw``: RunConfig fields set on the parsed job (a library option
+    with no deck keyword: mol_cache).  Returns (Setup, averages, log text,
+    launches)."""
     from mpmc_tpu_torch.io import input_script, pqr
     from mpmc_tpu_torch.mc import run
     from mpmc_tpu_torch.models import systems
@@ -1720,6 +1760,9 @@ def _run_deck(device, extra="", numsteps=3000, kind="mof", verbose=True,
             with open(f"{name}.inp", "w") as f:
                 f.write(text + extra)
             job = input_script.parse_file(f"{name}.inp")
+            if cfg_kw:
+                job = dataclasses.replace(job, cfg=dataclasses.replace(
+                    job.cfg, **cfg_kw))
             buf = io.StringIO()
             _reset_counts()
             su, avgs = run.run(job, log=buf, device=device)
@@ -1885,6 +1928,14 @@ def phase_fused_nvt(device, chains=16, nvt_steps=10000, nve_steps=5000):
     return launches, rates, sus
 
 
+# steps of a chunk run in torch's sync debug mode (each synchronizing call
+# warns, with a backtrace, at a cost far above the step's own), and of a
+# profiled chunk of the polar decks (~700 device ops a step: the trace's
+# post-processing, not the steps, sets the phase's time)
+SYNC_STEPS = 10
+PROFILE_STEPS = 10
+
+
 def _count_syncs(fn):
     """(fn's result, host syncs it made): torch's sync debug mode warns
     once per synchronizing call."""
@@ -1958,8 +2009,8 @@ def phase_polar(device, numsteps=POLAR_STEPS):
     ``cutoff 14`` — the tile-culled CG through B5's visit table.  Each
     deck must take the scan path (no WARNING) and launch B2, B4 and both
     B5 modes; after a further 100-step chunk the carried energy and its
-    polar term must match a fresh recompute.  On a 50-step chunk of each:
-    B5 dipole launches against the CG iterations (equal: the move's
+    polar term must match a fresh recompute.  On a SYNC_STEPS-step chunk
+    of each: B5 dipole launches against the CG iterations (equal: the move's
     initial residual comes from move_deltas; the CG launches B5 through
     the chain wrapper at C = 1, thole.solve_scf being one chain of
     solve_scf_chains), host syncs per step, and a
@@ -1996,20 +2047,20 @@ def phase_polar(device, numsteps=POLAR_STEPS):
                                          su.thermo, 100, generator=g)
         _check_bookkeeping(f"{label}, 100 steps", st, su, polar=True)
         su = dataclasses.replace(su, state=st)
-        u = metropolis.draw_uniforms(g, 50, su.cfg.tdtype)
+        u = metropolis.draw_uniforms(g, SYNC_STEPS, su.cfg.tdtype)
         tk.reset_counts()
         (_, stats), syncs = _count_syncs(lambda: metropolis.run_chunk(
-            su.state, su.params, su.cfg, su.thermo, 50, uniforms=u))
+            su.state, su.params, su.cfg, su.thermo, SYNC_STEPS, uniforms=u))
         stats = stats.host()
         if tk.dipole_field_chains.launches != stats.polar_iters:
             raise AssertionError(
                 f"{label}: {tk.dipole_field_chains.launches} B5 dipole "
                 f"launches for {stats.polar_iters} CG iterations")
-        rep.update(chunk_cg_iters_per_step=stats.polar_iters / 50,
-                   host_syncs_per_step=syncs / 50)
+        rep.update(chunk_cg_iters_per_step=stats.polar_iters / SYNC_STEPS,
+                   host_syncs_per_step=syncs / SYNC_STEPS)
         prof = _profile(label, lambda: metropolis.run_chunk(
-            su.state, su.params, su.cfg, su.thermo, 50, generator=g),
-            50, device, kernel="thole_field")
+            su.state, su.params, su.cfg, su.thermo, PROFILE_STEPS,
+            generator=g), PROFILE_STEPS, device, kernel="thole_field")
         rep.update(device_busy_share=prof["device_busy_share"],
                    b5_share=prof.get("kernel_share"),
                    ms_per_step=prof["ms_per_step"])
@@ -2077,7 +2128,8 @@ def phase_pda_decks(device, numsteps=POLAR_STEPS, chunk=100):
         su = dataclasses.replace(su, state=st)
         mk.reset_counts()
         tk.reset_counts()
-        (_, stats), syncs = _count_syncs(lambda: run_chunk(su.state))
+        (_, stats), syncs = _count_syncs(lambda: run_chunk(su.state,
+                                                           2 * SYNC_STEPS))
         stats = stats.host()
         steps = int(stats.attempts.sum())
         if tk.dipole_field_chains.launches != stats.polar_iters:
@@ -2090,8 +2142,9 @@ def phase_pda_decks(device, numsteps=POLAR_STEPS, chunk=100):
                                                / steps),
                    chunk_accepts_per_step=int(stats.accepts.sum()) / steps,
                    host_syncs_per_step=syncs / steps)
-        prof = _profile(label, lambda: run_chunk(su.state), chunk, device,
-                        kernel="pda_kernel")
+        prof = _profile(label, lambda: run_chunk(su.state,
+                                                 2 * PROFILE_STEPS),
+                        2 * PROFILE_STEPS, device, kernel="pda_kernel")
         rep.update(device_busy_share=prof["device_busy_share"],
                    b6_share=prof.get("kernel_share"),
                    ms_per_step=prof["ms_per_step"])
@@ -2196,7 +2249,7 @@ def _profile(label, chunk, n_steps, device, kernel=None):
     return out
 
 
-def phase_profile(device, su, n_steps=100):
+def phase_profile(device, su, n_steps=50):
     """Where a scan-path GCMC step's time goes, and the check that a step
     makes no host sync (over ``n_steps`` steps each)."""
     from mpmc_tpu_torch.mc import metropolis
@@ -3079,9 +3132,8 @@ def phase_polar_chains(device, C=C_POLAR, numsteps=100, chunk=50):
     over chains in both modes (charge: every chain's static field at each
     refresh, multichain.initialize_batched); after a further ``chunk``
     steps every chain's carried energy and polar term must match a fresh
-    recompute (_check_bookkeeping(polar=True)); on a 50-step chunk
-    B5-over-chains
-    launches must equal the CG rounds (a step's rounds: its longest
+    recompute (_check_bookkeeping(polar=True)); on a SYNC_STEPS-step
+    chunk B5-over-chains launches must equal the CG rounds (a step's rounds: its longest
     chain's iterations); host syncs per step and a profile with B5's
     share.  Returns ({deck: launches}, {deck: report})."""
     from mpmc_tpu_torch.mc import metropolis
@@ -3116,12 +3168,12 @@ def phase_polar_chains(device, C=C_POLAR, numsteps=100, chunk=50):
             _check_bookkeeping(f"{label} chain {c}, {chunk} steps",
                                slice_chain(sts, c), su, polar=True)
         su = dataclasses.replace(su, states=sts)
-        u = torch.rand((C, 50, 16), generator=g, device=device,
+        u = torch.rand((C, SYNC_STEPS, 16), generator=g, device=device,
                        dtype=su.cfg.tdtype)
         trace = []
         tk.reset_counts()
         (_, stats), syncs = _count_syncs(lambda: multichain.run_chunk_batched(
-            su.states, su.params, su.cfg, su.thermo, 50, uniforms=u,
+            su.states, su.params, su.cfg, su.thermo, SYNC_STEPS, uniforms=u,
             trace=trace))
         rounds = sum(int(np.max(r["iters"])) for r in trace)
         del trace
@@ -3130,12 +3182,13 @@ def phase_polar_chains(device, C=C_POLAR, numsteps=100, chunk=50):
                 f"{label}: {tk.dipole_field_chains.launches} B5-over-chains "
                 f"launches for {rounds} CG rounds")
         iters = stats.host().polar_iters
-        rep.update(chunk_cg_rounds_per_step=rounds / 50,
-                   chunk_cg_iters_per_chain_step=float(iters.mean()) / 50,
-                   host_syncs_per_step=syncs / 50)
+        rep.update(chunk_cg_rounds_per_step=rounds / SYNC_STEPS,
+                   chunk_cg_iters_per_chain_step=(float(iters.mean())
+                                                  / SYNC_STEPS),
+                   host_syncs_per_step=syncs / SYNC_STEPS)
         prof = _profile(label, lambda: multichain.run_chunk_batched(
-            su.states, su.params, su.cfg, su.thermo, 50, generator=g), 50,
-            device, kernel="thole_field")
+            su.states, su.params, su.cfg, su.thermo, PROFILE_STEPS,
+            generator=g), PROFILE_STEPS, device, kernel="thole_field")
         rep.update(device_busy_share=prof["device_busy_share"],
                    b5_share=prof.get("kernel_share"),
                    ms_per_step=prof["ms_per_step"])
@@ -3302,7 +3355,7 @@ def _replay_frame_plain(job, frame, dtype, pressure):
     return terms, e_pm, obs["N"], obs["volume"]
 
 
-def phase_replay(device, smi):
+def phase_replay(device, smi, refs):
     """``ensemble replay`` at full width over two trajectories written by
     port runs: the 10k LJ fluid (fused NVT, 10 frames) with
     ``calc_pressure on`` and the 10.8k GCMC fused µVT deck (10 frames, N
@@ -3312,8 +3365,9 @@ def phase_replay(device, smi):
     against the plain float64 terms of the same parsed frame on the CPU by
     phase_energy's rule, and the first LJ frame's pressure against the
     float64 pressure within the bound of its two energies' float32
-    rounding.  Frames/s, and the reader's ms per
-    frame."""
+    rounding — those CPU frames in a process of their own beside the later
+    phases (``refs``, _ReplayReferences; compared by its ``check``, at the
+    end).  Frames/s, and the reader's ms per frame."""
     from mpmc_tpu_torch.constants import ATM2K_A3
     from mpmc_tpu_torch.io import input_script, native, pqr
     from mpmc_tpu_torch.mc import run
@@ -3353,51 +3407,128 @@ def phase_replay(device, smi):
             if label == "gcmc" and " 0 laid out" in summary:
                 raise AssertionError("replay gcmc: no frame was laid out "
                                      "into the existing slots")
-            t_cpu = time.perf_counter()
-            frames = pqr.read_frames(traj)
+            # the plain float64 / float32 frame on the CPU, in a process
+            # of its own beside the later card phases (_ReplayReferences):
             # the LJ trajectory's first frame (with its pressure), the
             # GCMC one's last (laid out into the existing slots)
-            for i in ((0,) if job.calc_pressure else (n_frames - 1,)):
-                with_p = job.calc_pressure and i == 0
-                ref, e64, n, vol = _replay_frame_plain(job, frames[i],
-                                                       "float64", with_p)
-                p32, e32, _, _ = _replay_frame_plain(job, frames[i],
-                                                     "float32", with_p)
-                for k, r in ref.items():
-                    got = avgs.samples[f"energy_{k}"][i]
-                    tol = max(1e-5 * abs(r), 1e-2, 4.0 * abs(p32[k] - r))
-                    if not abs(got - r) <= tol:
-                        raise AssertionError(
-                            f"replay {label} frame {i}: {k} card {got!r} "
-                            f"cpu-f64 {r!r} tol {tol:.3e}")
-                if with_p:
-                    dlnv = job.calc_pressure_dv
-                    p_ref = ((n * job.temperature
-                              - (e64[0] - e64[1]) / (2.0 * dlnv))
-                             / vol / ATM2K_A3)
-                    # each card energy within 4x the plain f32 distance or
-                    # 2 ulps (float32) of its value: the difference over
-                    # 2 dlnV V bounds the pressure's error
-                    t_e = sum(max(4.0 * abs(a - b), 2.0 * EPS32 * abs(b))
-                              for a, b in zip(e32, e64))
-                    bound = t_e / (2.0 * dlnv) / vol / ATM2K_A3
-                    got = avgs.samples["pressure_atm"][i]
-                    log(f"    frame {i}: pressure card {got:.6f} atm, "
-                        f"cpu-f64 {p_ref:.6f}, |d| {abs(got - p_ref):.3e} "
-                        f"bound {bound:.3e} ({smi})")
-                    if not abs(got - p_ref) <= bound:
-                        raise AssertionError(f"replay {label} frame {i}: "
-                                             "pressure disagrees")
-            log(f"replay {label}: frame {i} held against cpu f64 term by "
-                f"term; seconds: trajectory run {t_traj:.1f}"
-                f", replay {wall:.1f}, cpu checks "
-                f"{time.perf_counter() - t_cpu:.1f}")
+            i = 0 if job.calc_pressure else n_frames - 1
+            keep = os.path.join(refs.dir, f"{label}.traj.pqr")
+            shutil.move(traj, keep)
+            refs.add(label, text.replace(f"pqr_input {traj}",
+                                         f"pqr_input {keep}"), i, {
+                "terms": {k[7:]: v[i] for k, v in avgs.samples.items()
+                          if k.startswith("energy_")},
+                "pressure": (avgs.samples["pressure_atm"][i]
+                             if job.calc_pressure else None)})
+            log(f"replay {label}: seconds: trajectory run {t_traj:.1f}, "
+                f"replay {wall:.1f}")
             rep[label] = {"frames": n_frames,
                           "frames_per_sec": n_frames / wall,
                           "reader_ms_per_frame": read_ms,
                           "pair_terms": ln["pair_terms"],
                           "summary": summary}
     return rep
+
+
+class _ReplayReferences:
+    """phase_replay's CPU frames (_replay_frame_plain in float64 and
+    float32 of each replayed deck's checked frame), computed in a process
+    of their own (``python3 chip_smoke.py --replay-references <dir>``,
+    CPU_REFERENCE_THREADS threads) while the card's later phases run;
+    ``check`` waits for it and holds each card frame against them."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="replay_refs_")
+        self.items, self.proc = {}, None
+
+    def add(self, label, deck, frame, card):
+        with open(os.path.join(self.dir, f"{label}.inp"), "w") as f:
+            f.write(deck)
+        self.items[label] = {"frame": frame, "card": card}
+
+    def start(self):
+        with open(os.path.join(self.dir, "frames.json"), "w") as f:
+            json.dump({k: v["frame"] for k, v in self.items.items()}, f)
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS=str(CPU_REFERENCE_THREADS))
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--replay-references", self.dir], env=env, cwd=REPO)
+
+    def check(self, smi):
+        from mpmc_tpu_torch.constants import ATM2K_A3
+        from mpmc_tpu_torch.io import input_script
+        t0 = time.perf_counter()
+        rc = self.proc.wait()
+        out = os.path.join(self.dir, "refs.json")
+        if rc != 0 or not os.path.exists(out):
+            raise AssertionError(f"the replay references' process failed "
+                                 f"({rc})")
+        with open(out) as f:
+            refs = json.load(f)
+        for label, item in self.items.items():
+            r = refs[label]
+            i, card = item["frame"], item["card"]
+            job = input_script.parse_file(os.path.join(self.dir,
+                                                       f"{label}.inp"))
+            for k, ref in r["f64"].items():
+                got = card["terms"][k]
+                tol = max(1e-5 * abs(ref), 1e-2, 4.0 * abs(r["f32"][k] - ref))
+                if not abs(got - ref) <= tol:
+                    raise AssertionError(
+                        f"replay {label} frame {i}: {k} card {got!r} cpu-f64 "
+                        f"{ref!r} tol {tol:.3e}")
+            if card["pressure"] is not None:
+                dlnv, (n, vol) = job.calc_pressure_dv, r["n_vol"]
+                e64, e32 = r["e64"], r["e32"]
+                p_ref = ((n * job.temperature - (e64[0] - e64[1])
+                          / (2.0 * dlnv)) / vol / ATM2K_A3)
+                # each card energy within 4x the plain f32 distance or 2
+                # ulps (float32) of its value: the difference over 2 dlnV V
+                # bounds the pressure's error
+                t_e = sum(max(4.0 * abs(a - b), 2.0 * EPS32 * abs(b))
+                          for a, b in zip(e32, e64))
+                bound = t_e / (2.0 * dlnv) / vol / ATM2K_A3
+                got = card["pressure"]
+                log(f"    replay {label} frame {i}: pressure card {got:.6f} "
+                    f"atm, cpu-f64 {p_ref:.6f}, |d| {abs(got - p_ref):.3e} "
+                    f"bound {bound:.3e} ({smi})")
+                if not abs(got - p_ref) <= bound:
+                    raise AssertionError(f"replay {label} frame {i}: "
+                                         "pressure disagrees")
+            log(f"replay {label}: frame {i} held against cpu f64 term by "
+                f"term (the references' process {r['seconds']:.1f} s, "
+                f"waited {time.perf_counter() - t0:.1f} s)")
+        self.stop()
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def replay_references(path):
+    """The --replay-references process: _replay_frame_plain of each deck
+    in ``path`` (float64 and float32, the pressure's two energies where
+    the deck computes it), written to ``path``/refs.json."""
+    from mpmc_tpu_torch.io import input_script, pqr
+    torch.set_num_threads(CPU_REFERENCE_THREADS)
+    with open(os.path.join(path, "frames.json")) as f:
+        frames = json.load(f)
+    out = {}
+    for label, i in frames.items():
+        t0 = time.perf_counter()
+        job = input_script.parse_file(os.path.join(path, f"{label}.inp"))
+        frame = pqr.read_frames(job.pqr_input)[i]
+        with_p = bool(job.calc_pressure)
+        ref, e64, n, vol = _replay_frame_plain(job, frame, "float64", with_p)
+        p32, e32, _, _ = _replay_frame_plain(job, frame, "float32", with_p)
+        out[label] = {"f64": ref, "f32": p32, "e64": e64, "e32": e32,
+                      "n_vol": [n, vol],
+                      "seconds": time.perf_counter() - t0}
+    with open(os.path.join(path, "refs.json"), "w") as f:
+        json.dump(out, f)
 
 
 class _PointLog(io.StringIO):
@@ -3595,7 +3726,7 @@ def _uvt_fh_check(label, system, thermo_c, u, device, cluster=16,
     return k, trace, max(float(d_sums.max()), d_pos, d_sk), (args, kw)
 
 
-def phase_fh_kernels(device, K=64, seed=2026, k_time=1000):
+def phase_fh_kernels(device, K=32, seed=2026, k_time=1000):
     """B1, B3 and B6 under the Feynman-Hibbs (order 2, 4) and
     Feynman-Kleinert corrections against their plain versions, float32,
     at G = 16, on numpy-seeded tables: B1 on the 10.8k bench system (77
@@ -4386,7 +4517,7 @@ def _grid_rotors_past(cfg, n, G):
                             cfg)["grid_min"] // G + 1
 
 
-def phase_qrot_table(device, n_check=8):
+def phase_qrot_table(device, n_check=4):
     """The rotor table of DECK's system (256 H2 rotors, float32 on the
     card): B4 at position stride 0 over the 512 orientations of the
     fewest rotors past grid_min (regime 1) against its plain version (the
@@ -5426,7 +5557,7 @@ def _form_system(system, form):
             thermo)
 
 
-def phase_rd_fused_kernels(device, K=32, K32=16, seed=2029, k_time=1000):
+def phase_rd_fused_kernels(device, K=16, K32=8, seed=2029, k_time=1000):
     """B1, B3 and B6's instance of each form (sg, dreiding, b14_7,
     disp_expansion damped with its tail, and coulomb gwp with LJ: widths
     0.2-0.6 A, numpy seed 17) against its plain version on numpy-seeded
@@ -6266,9 +6397,7 @@ def phase_cdvdw(device, numsteps=100):
         if not abs(carried - full) <= 1e-9 * max(abs(full), 1.0):
             raise AssertionError(f"{label}: carried {carried!r} fresh "
                                  f"{full!r}")
-        cpu = su.params.__class__(**{
-            f.name: getattr(su.params, f.name).cpu()
-            for f in dataclasses.fields(su.params) if f.init})
+        cpu = _params_on(su.params)
         e_cpu = float(vdw.vdw_energy(st2.pos.cpu(), st2.box.cpu(),
                                      st2.atom_alive(su.params).cpu(), cpu,
                                      su.cfg))
@@ -6340,9 +6469,7 @@ def phase_rd_crystal(device, cells=4, order=3, numsteps=300):
     card = float(crystal.rd_crystal_full(st.pos, st.box,
                                          st.atom_alive(su.params), su.params,
                                          su.cfg, su.thermo.temperature))
-    cpu_p = su.params.__class__(**{
-        f.name: getattr(su.params, f.name).cpu()
-        for f in dataclasses.fields(su.params) if f.init})
+    cpu_p = _params_on(su.params)
     cpu = float(crystal.rd_crystal_full(st.pos.cpu(), st.box.cpu(),
                                         st.atom_alive(su.params).cpu(),
                                         cpu_p, su.cfg,
@@ -6507,11 +6634,7 @@ def phase_qvib(device, numsteps=200):
     if not np.all(gerr <= tol):
         raise AssertionError("qvib: the grid launch disagrees with plain")
     gerr = float(gerr[:, :3].max())
-    cpu_p = su.params.__class__(**{
-        f.name: getattr(su.params, f.name).double().cpu()
-        if getattr(su.params, f.name).is_floating_point()
-        else getattr(su.params, f.name).cpu()
-        for f in dataclasses.fields(su.params) if f.init})
+    cpu_p = _params_on(su.params, float64=True)
     cfg64 = dataclasses.replace(su.cfg, dtype="float64")
     err = 0.0
     for m in mols[:4]:
@@ -6549,6 +6672,531 @@ def _rows_equal(a, b):
         a[k] == b[k] or (a[k] != a[k] and b[k] != b[k]) for k in a)
 
 
+
+# ---------------------------------------------------------------------------
+# cell_list, mol_cache, the surf drivers over B2 x C
+# ---------------------------------------------------------------------------
+
+# the cell_list decks' explicit cutoff, far below L/2 = 42 A
+RC_CELL = 12.0
+# B2 over a batch of geometries: a surf scan batch of dimers
+C_SURF = 512
+# the surf decks: the BSS H2 dimer in a 30 A cube, separations 2.5-8.0 A
+SURF_BOX = 30.0
+SURF_LINES = ("surf_min 2.5\nsurf_max 8.0\nsurf_inc 0.25\nsurf_decomp on\n"
+              "surf_output surf.dat\n")
+# the polar surf scan's orientation grid (cut from 45 degrees: the SCF of
+# 102,400 pairs a separation would take ~100 s)
+SURF_ANG, SURF_ANG_POLAR = 45, 90
+# the fits: an argon curve of 60 points, 256 H2 cluster configurations
+FIT_POINTS, FIT_CONFIGS, FIT_CLUSTER = 60, 256, 4
+FIT_LINES = "numsteps 2000\nfit_schedule 0.998\n"
+
+
+def _dimer_system(dtype, device, n=2, seed=12, spread=None):
+    """(params, state, cfg) of n BSS H2 molecules in a SURF_BOX cube (the
+    surf decks' system), LJ + Ewald with the tail: two at (0, 0, 0) and
+    (4, 0, 0); with ``spread`` a seeded cluster of n molecules within
+    that radius."""
+    from mpmc_tpu_torch.config import RunConfig
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.state import build_system
+    sp = systems.h2_bss3()
+    if spread is None:
+        com = np.array([[0.0, 0, 0], [4.0, 0, 0]])
+    else:
+        com = _cluster_coms(np.random.default_rng(seed), n, spread)
+    dt = torch.float64 if dtype == "float64" else torch.float32
+    params, state = build_system(
+        np.eye(3) * SURF_BOX, species=(sp,), capacity=(n,),
+        initial_counts=(n,), initial_pos={0: com[:, None, :] + sp.pos},
+        dtype=dt, device=device)
+    return params, state, RunConfig(ensemble="surf", dtype=dtype)
+
+
+def _cluster_coms(rng, n, spread, dmin=3.2):
+    """n centres within ``spread`` of the origin, each pair >= dmin
+    apart."""
+    out = []
+    while len(out) < n:
+        p = rng.uniform(-spread, spread, 3)
+        if np.linalg.norm(p) <= spread and all(
+                np.linalg.norm(p - q) >= dmin for q in out):
+            out.append(p)
+    return np.array(out)
+
+
+def _dimer_batch(params, state, C, seed=5):
+    """C geometries of the dimer: separations 2.5-8.0 A, seeded
+    orientations of both molecules ([C, N, 3])."""
+    from mpmc_tpu_torch.mc import surface
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(2, C, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    dt, dev = state.pos.dtype, state.pos.device
+    return surface.dimer_positions(
+        params, state.pos, 0, 1,
+        torch.as_tensor(rng.uniform(2.5, 8.0, C), dtype=dt, device=dev),
+        torch.as_tensor(q[1], dtype=dt, device=dev),
+        torch.as_tensor(q[0], dtype=dt, device=dev)).contiguous()
+
+
+def _b2_shared(params, state, cfg):
+    from mpmc_tpu_torch.ops import pairs
+    return (params.charge, params.eps, params.sig, params.mol_id32,
+            state.atom_alive(params), params.mol_frozen[params.mol_id],
+            pairs.pair_scalars(state.box, cfg), cfg)
+
+
+def phase_b2_chains(device, C=C_SURF):
+    """B2 over a batch of geometries (pair_terms_chains): on C dimers in
+    float64 and float32 every entry equal to the lone launch on its
+    positions bit for bit, C = 1 equal to pair_terms, and the batch
+    within B2's tolerance (_tol) of pair_terms_chains_plain; on two
+    geometries of the 10.8k system at row_start F the same; times at C
+    (per call, on the card alone, plain) beside a lone dimer launch, and
+    the bound from this run's inputs."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    rep = {"max_abs_err": 0.0}
+    ref = {}
+    for dt in ("float64", "float32"):
+        params, state, cfg = _dimer_system(dt, device)
+        pos = _dimer_batch(params, state, C)
+        sh = _b2_shared(params, state, cfg)
+        k = pk.pair_terms_chains(pos, *sh)
+        for c in range(C):
+            if not torch.equal(k[c], pk.pair_terms(pos[c].contiguous(),
+                                                   *sh)):
+                raise AssertionError(f"B2 x C {dt}: entry {c} is not its "
+                                     "lone launch bit for bit")
+        if not torch.equal(pk.pair_terms_chains(pos[:1].contiguous(),
+                                                *sh)[0],
+                           pk.pair_terms(pos[0].contiguous(), *sh)):
+            raise AssertionError(f"B2 x C {dt}: C = 1 is not pair_terms")
+        p = pk.pair_terms_chains_plain(pos, *sh).double().cpu().numpy()
+        kk = k.double().cpu().numpy()
+        if dt == "float64":
+            ref["dimer"] = p
+            tol = _tol(torch.float64, p)
+        else:
+            tol = _tol(torch.float32, ref["dimer"], p)
+            p = ref["dimer"]
+        fin = np.isfinite(p)
+        err = np.where(fin, np.abs(kk - p), 0.0)
+        if not (np.array_equal(np.isfinite(kk), fin)
+                and np.all(err <= tol)):
+            raise AssertionError(f"B2 x C {dt}: disagrees with its plain "
+                                 f"version at {np.argwhere(err > tol)[:4]}")
+        rep["max_abs_err"] = max(rep["max_abs_err"], float(err.max()))
+        log(f"B2 x C {dt} C={C} dimers: every entry its lone launch bit for "
+            f"bit, C = 1 pair_terms; max |d| vs plain {err.max():.3e}")
+        # the 10.8k system: its own geometry and a jittered one, row_start F
+        bp, bs, bc, _ = bench_system(dt, device)
+        two = torch.stack([bs.pos, systems.jittered(bp, bs, seed=4).pos])
+        shb = _b2_shared(bp, bs, bc)
+        rs = metropolis.frozen_refresh_rows(bp, bc)
+        kb = pk.pair_terms_chains(two.contiguous(), *shb, row_start=rs)
+        for c in range(2):
+            lone = pk.pair_terms(two[c].contiguous(), *shb, row_start=rs)
+            if not torch.equal(kb[c], lone):
+                raise AssertionError(f"B2 x C {dt} 10.8k: entry {c} is not "
+                                     "its lone launch bit for bit")
+        pb = pk.pair_terms_chains_plain(two, *shb,
+                                        row_start=rs).double().cpu().numpy()
+        if dt == "float64":
+            ref["bench"] = pb
+            tol = _tol(torch.float64, pb)
+        else:
+            tol = _tol(torch.float32, ref["bench"], pb)
+            pb = ref["bench"]
+        err = np.abs(kb.double().cpu().numpy() - pb)
+        if not np.all(err <= tol):
+            raise AssertionError(f"B2 x C {dt} 10.8k disagrees with plain")
+        log(f"B2 x C {dt} 10.8k C=2 row_start {rs}: bit for bit per entry, "
+            f"max |d| vs plain {err.max():.3e}")
+        if dt == "float32":
+            ms = time_calls(lambda: pk.pair_terms_chains(pos, *sh), device)
+            dms = time_device(lambda: pk.pair_terms_chains(pos, *sh), device)
+            pms = time_calls(lambda: pk.pair_terms_chains_plain(pos, *sh),
+                             device, n=3)
+            one = pos[0].contiguous()
+            lms = time_calls(lambda: pk.pair_terms(one, *sh), device)
+            ldms = time_device(lambda: pk.pair_terms(one, *sh), device)
+            # counted pairs of this run's inputs: every alive i < j pair
+            alive = sh[4]
+            na = int(alive.sum())
+            n_pairs = C * na * (na - 1) // 2
+            nbytes = (_nbytes(pos, *sh[:7]) + C * 9 * 4
+                      + pk.work_list(pos.shape[1], 0, device).numel() * 4)
+            bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4, nbytes)
+            rep.update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bound,
+                       bound_by=by, lone_ms=lms, lone_device_ms=ldms,
+                       pairs=n_pairs, bytes=nbytes)
+            log(f"B2 x C f32 C={C} dimers: {ms:.4f} ms per call, {dms:.4f} "
+                f"ms on the card alone ({1e3 * dms / C:.3f} us an entry); a "
+                f"lone dimer launch {lms:.4f} / {ldms:.4f} ms; plain "
+                f"{pms:.3f} ms; bound {bound:.6f} ms ({by}; {n_pairs} pairs "
+                f"x {OPS_PAIR_B2B4}, {nbytes} bytes)")
+    return rep
+
+
+def _cache_gap(label, st, su):
+    """The carried molecule-pair cache against a fresh pair_matrix (each
+    matrix within 1e-4 of its largest entry: float32 partials summed in
+    another order), and the carried energy against a fresh recompute."""
+    from mpmc_tpu_torch.ops import pairs
+    fresh = pairs.pair_matrix(st.pos, st.box, st.atom_alive(su.params),
+                              su.params, su.cfg, su.thermo.temperature)
+    for k, f in zip(("cache_rd", "cache_es", "cache_lrc"), fresh):
+        gap = float((getattr(st, k) - f).abs().max())
+        scale = max(float(f.abs().max()), 1.0)
+        log(f"cache {label} {k}: max |carried - fresh| {gap:.3e} "
+            f"(largest entry {scale:.3e})")
+        if not gap <= 1e-4 * scale:
+            raise AssertionError(f"{label}: the carried cache drifted from "
+                                 "a fresh pair_matrix")
+    _check_bookkeeping(label, st, su)
+
+
+def phase_cell_list(device, scan_steps=1000, chains=16, chain_steps=200,
+                    fused_steps=1000):
+    """``cell_list on`` at rc 12 on DECK: the index attached, the scan
+    path (culled per-move pass, B4 never launched), ``chains 16``, and
+    fused µVT with and without the option under rd_lrc off (the same
+    trajectory: B1 reads no index; with the tail on, the reference's
+    trap, CELL_LIST_FUSED_LRC_TRAP, is refused); bookkeeping after a further chunk; the culled pass's time
+    beside B4's dense delta on the same system and cutoff, and the share
+    of framework columns the cells cover."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops import celllist, pairs
+    from mpmc_tpu_torch.parallel import multichain
+    from mpmc_tpu_torch.state import slice_chain
+    lines = f"cutoff {RC_CELL}\ncell_list on\n"
+    reps, launches = {}, {}
+    su, avgs, text, ln = _run_deck(device, lines, numsteps=scan_steps)
+    ci = su.params.cell_index
+    if ci is None or "cell_list: framework cell index" not in text:
+        raise AssertionError("cell_list: no index attached on DECK")
+    if ln["mol_pair"] or ln["mol_pair_chains"] or not ln["pair_terms"]:
+        raise AssertionError(f"cell_list scan: B4 launched or B2 not: {ln}")
+    g = torch.Generator(device=device).manual_seed(31)
+    st, _ = metropolis.run_chunk(su.state, su.params, su.cfg, su.thermo, 500,
+                                 generator=g)
+    _check_bookkeeping("cell_list scan, 500 steps", st, su)
+    cover = ci.columns / ci.n_frozen
+    # the culled pass against B4's dense delta: one H2's trial rows
+    mol = torch.nonzero(st.mol_alive & ~su.params.mol_frozen)[0, 0]
+    rows = st.pos[su.params.mol_atoms[mol]] + 0.5
+    alive = st.atom_alive(su.params)
+    dense = dataclasses.replace(su.cfg, cell_list=False)
+    scal = pairs.pair_scalars(st.box, su.cfg)
+
+    def culled():
+        return pairs.mol_pair_pass(st.pos, st.box, alive, su.params, su.cfg,
+                                   su.thermo.temperature, mol, row_pos=rows,
+                                   scal=scal)
+
+    def b4():
+        return pairs.mol_pair_pass(st.pos, st.box, alive, su.params, dense,
+                                   su.thermo.temperature, mol, row_pos=rows,
+                                   scal=scal)
+    # the two in float64 (float32 es_real nets terms of either sign): a
+    # float64 copy of the system, its own index
+    c64 = dataclasses.replace(su.cfg, dtype="float64")
+    pos64, box64 = st.pos.double(), st.box.double()
+    p64 = celllist.attach(_params_on(su.params.replace(cell_index=None),
+                                     device, float64=True), pos64, box64,
+                          c64)
+    t64 = su.thermo.temperature.double()
+    a, b = (pairs.mol_pair_pass(pos64, box64, alive, p64, cfg, t64, mol,
+                                row_pos=rows.double(),
+                                scal=pairs.pair_scalars(box64, cfg))
+            for cfg in (c64, dataclasses.replace(c64, cell_list=False)))
+    for f in ("rd", "es_real", "lrc_coeff", "min_r2"):
+        x, y = float(getattr(a, f)), float(getattr(b, f))
+        if not abs(x - y) <= 1e-9 * max(abs(y), 1e-3):
+            raise AssertionError(f"cell_list f64: culled {f} {x!r} vs B4 "
+                                 f"{y!r}")
+    # the culled pass is hundreds of launches: 2 calls stay inside the
+    # card's queue of pending launches, so the host still queues ahead
+    c_ms, c_dms = time_calls(culled, device), time_device(culled, device,
+                                                          n=2)
+    b_ms, b_dms = time_calls(b4, device), time_device(b4, device)
+    reps["culled"] = {"ms": c_ms, "device_ms": c_dms, "b4_ms": b_ms,
+                      "b4_device_ms": b_dms, "cover": cover,
+                      "grid": ci.grid, "columns": ci.columns}
+    log(f"cell_list rc {RC_CELL}: grid {ci.grid}, {ci.offsets.shape[0]} "
+        f"cells x {ci.fw_pos.shape[1]} = {ci.columns} of {ci.n_frozen} "
+        f"framework columns ({cover:.4f}); culled pass {c_ms:.4f} ms per "
+        f"call, {c_dms:.4f} ms on the card alone; B4 dense {b_ms:.4f} / "
+        f"{b_dms:.4f} ms")
+    reps["scan"] = {"steps_per_sec": float(
+        text.split("steps/sec:")[1].split()[0])}
+    launches["scan"] = ln
+    # chains: the culled pass over the chains
+    suc, _, text, ln = _run_deck(device, lines + f"chains {chains}\n"
+                                 "corrtime 100\n", numsteps=chain_steps,
+                                 verbose=False)
+    if "one culled cell-list pass over the chains" not in text or \
+            ln["mol_pair_chains"]:
+        raise AssertionError(f"cell_list chains: not the culled route {ln}")
+    sts, _ = multichain.run_chunk_batched(suc.states, suc.params, suc.cfg,
+                                          suc.thermo, 100, generator=g)
+    for c in (0, chains - 1):
+        _check_bookkeeping(f"cell_list c{chains} chain {c}, 100 steps",
+                           slice_chain(sts, c), suc)
+    reps["c16"] = {"steps_per_sec": float(
+        text.split("steps/sec:")[1].split()[0])}
+    launches["c16"] = ln
+    # fused µVT with and without the option (rd_lrc off: with the tail
+    # on, the reference's trap is refused): one trajectory
+    try:
+        metropolis.check_cell_list_fused(
+            su.params, dataclasses.replace(su.cfg, fused_mc=True))
+    except ValueError as err:
+        if "fused_mc µVT under cell_list" not in str(err):
+            raise
+    else:
+        raise AssertionError("fused µVT + cell_list + rd_lrc not refused")
+    runs = {}
+    for key, extra in (("fused", lines), ("fused_no_index",
+                                          f"cutoff {RC_CELL}\n")):
+        s, _, text, ln = _run_deck(device, extra + "fused_mc on\n"
+                                   "rd_lrc off\n", numsteps=fused_steps,
+                                   verbose=False)
+        if "single-chain fused µVT kernel" not in text:
+            raise AssertionError(f"{key}: not the fused µVT route")
+        runs[key] = (s, text, ln)
+    a, b = runs["fused"][0].state, runs["fused_no_index"][0].state
+    if not (torch.equal(a.pos, b.pos) and torch.equal(a.mol_alive,
+                                                      b.mol_alive)
+            and float(a.energy.total) == float(b.energy.total)):
+        raise AssertionError("fused µVT under cell_list left the trajectory "
+                             "it runs without the option")
+    log(f"cell_list fused µVT: {fused_steps} steps, the trajectory without "
+        f"the option bit for bit (N {int(a.n_molecules(runs['fused'][0].params))},"
+        f" U {float(a.energy.total):.6f} K)")
+    reps["fused"] = {"steps_per_sec": float(
+        runs["fused"][1].split("steps/sec:")[1].split()[0])}
+    launches["fused"] = runs["fused"][2]
+    return launches, reps
+
+
+def phase_mol_cache(device, scan_steps=1000, chains=16, chain_steps=200):
+    """DECK with RunConfig(mol_cache=True) (a library option, no deck
+    keyword; M = 513, a 513 x 513 cache): the scan path (the partials
+    replace B4; B2 still refreshes) and ``chains 16`` (a [16, 513, 513]
+    cache); after each run and a further chunk the carried cache against
+    a fresh pair_matrix and the carried energy against a recompute; the
+    cache's build ms."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops import pairs
+    from mpmc_tpu_torch.parallel import multichain
+    from mpmc_tpu_torch.state import slice_chain
+    reps, launches = {}, {}
+    su, _, text, ln = _run_deck(device, numsteps=scan_steps,
+                                cfg_kw={"mol_cache": True})
+    if "mol_cache: the molecule-pair cache" not in text or ln["mol_pair"]:
+        raise AssertionError(f"mol_cache scan: not the cache route {ln}")
+    M = su.params.n_mols_max
+    if tuple(su.state.cache_rd.shape) != (M, M):
+        raise AssertionError("mol_cache: the cache is not [M, M]")
+    _cache_gap("mol_cache scan", su.state, su)
+    g = torch.Generator(device=device).manual_seed(37)
+    st, _ = metropolis.run_chunk(su.state, su.params, su.cfg, su.thermo, 500,
+                                 generator=g)
+    _cache_gap("mol_cache scan + 500 steps", st, su)
+    build_ms = 1e3 * _clock_host(lambda: pairs.pair_matrix(
+        st.pos, st.box, st.atom_alive(su.params), su.params, su.cfg,
+        su.thermo.temperature), device)
+    reps["scan"] = {"steps_per_sec": float(
+        text.split("steps/sec:")[1].split()[0]), "build_ms": build_ms, "M": M}
+    launches["scan"] = ln
+    suc, _, text, ln = _run_deck(device, f"chains {chains}\ncorrtime 100\n",
+                                 numsteps=chain_steps, verbose=False,
+                                 cfg_kw={"mol_cache": True})
+    if tuple(suc.states.cache_rd.shape) != (chains, M, M) or \
+            ln["mol_pair_chains"]:
+        raise AssertionError(f"mol_cache chains: not [C, M, M] {ln}")
+    sts, _ = multichain.run_chunk_batched(suc.states, suc.params, suc.cfg,
+                                          suc.thermo, 100, generator=g)
+    for c in (0, chains - 1):
+        _cache_gap(f"mol_cache c{chains} chain {c}", slice_chain(sts, c), suc)
+    reps["c16"] = {"steps_per_sec": float(
+        text.split("steps/sec:")[1].split()[0])}
+    launches["c16"] = ln
+    log(f"mol_cache: M {M}, a pair_matrix {build_ms:.1f} ms; scan "
+        f"{reps['scan']['steps_per_sec']:.2f} steps/s, c{chains} "
+        f"{reps['c16']['steps_per_sec']:.2f} aggregate")
+    return launches, reps
+
+
+def _surf_run(device, text, files=None):
+    """An ensemble surf* deck through run.run in a temporary directory
+    (``files``: name -> text written beside it), every launch count set to
+    0 just before and read just after: (result, log, launches, seconds,
+    surf_output's text or None)."""
+    from mpmc_tpu_torch.io import input_script
+    from mpmc_tpu_torch.mc import run
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for name, body in (files or {}).items():
+                if callable(body):
+                    body()
+                else:
+                    with open(name, "w") as f:
+                        f.write(body)
+            job = input_script.parse(text)
+            buf = io.StringIO()
+            _reset_counts()
+            t0 = time.time()
+            res = run.run(job, log=buf, device=device)
+            torch.cuda.synchronize(device)
+            secs = time.time() - t0
+            ln = _launch_counts()
+            out = (open("surf.dat").read() if os.path.exists("surf.dat")
+                   else None)
+        finally:
+            os.chdir(old)
+    return res, buf.getvalue(), ln, secs, out
+
+
+def _write_dimer_pqr(path):
+    from mpmc_tpu_torch.io import pqr
+    params, state, _ = _dimer_system("float64", "cpu")
+    pqr.write_state(path, params, state, ["H2"])
+
+
+SURF_DECK = (f"ensemble surf\ntemperature 77\nbasis1 {SURF_BOX} 0 0\n"
+             f"basis2 0 {SURF_BOX} 0\nbasis3 0 0 {SURF_BOX}\n"
+             "pqr_input dimer.pqr\n")
+
+
+def phase_surf(device):
+    """The surf drivers on the card: the BSS H2 dimer scan (surf_ang 45:
+    320 orientations each, 102,400 pairs, 200 launches of 512 a
+    separation; 2.5-8.0 A by 0.25; surf_decomp), the same with
+    polarization on (surf_ang 90: B5 over the batch in the SCF), an argon
+    surf_fit of 60 analytic-LJ points from perturbed parameters (2,000 SA
+    steps, one B2 x 60 launch each) and a surf_multi_fit of 256 four-H2
+    cluster configurations with energies from the true parameters (one
+    B2 x 256 launch a step): B2 x C launched once per batch or
+    evaluation, never the lone B2, scans/s and SA steps/s, the minimum
+    well of the scan, parameters recovered."""
+    from mpmc_tpu_torch.mc import surface
+    from mpmc_tpu_torch.ops import energy as energy_mod
+    reps, launches = {}, {}
+    dimer = {"dimer.pqr": lambda: _write_dimer_pqr("dimer.pqr")}
+    seps = int(round((8.0 - 2.5) / 0.25)) + 1
+    for key, extra, ang in (("surf", "", SURF_ANG),
+                            ("surf_polar", "polarization on\n",
+                             SURF_ANG_POLAR)):
+        n_one = len(np.arange(0, 360 - 1e-9, ang)) ** 2 * len(
+            np.arange(0, 180 + 1e-9, ang))
+        batches = -(-n_one ** 2 // surface.BATCH)
+        res, text, ln, secs, out = _surf_run(
+            device, SURF_DECK + SURF_LINES + extra + f"surf_ang {ang}\n",
+            dimer)
+        if ln["pair_terms_chains"] != seps * batches or ln["pair_terms"]:
+            raise AssertionError(f"{key}: B2 x C launched "
+                                 f"{ln['pair_terms_chains']} times, want "
+                                 f"{seps * batches} ({ln})")
+        if extra and not ln["charge_field_chains"]:
+            raise AssertionError(f"{key}: B5 over the batch not launched")
+        if out is None or len(out.splitlines()) != seps + 1 or any(
+                not np.isfinite(r["min"]) for r in res):
+            raise AssertionError(f"{key}: surf_output malformed")
+        best = min(res, key=lambda r: r["min"])
+        reps[key] = {"seconds": secs, "separations": seps,
+                     "pairs_per_sep": n_one ** 2,
+                     "batches_per_sec": seps * batches / secs,
+                     "geometries_per_sec": seps * n_one ** 2 / secs,
+                     "well_r": best["r"], "well_min": best["min"]}
+        launches[key] = ln
+        log(f"{key}: {seps} separations x {n_one ** 2} orientation pairs in "
+            f"{secs:.2f} s ({seps * batches / secs:.1f} B2 x "
+            f"{surface.BATCH} batches/s); well {best['min']:.4f} K at {best['r']:.2f} A; "
+            f"launches {ln}")
+    # surf_fit: argon, 60 points of the analytic LJ, perturbed start
+    eps_t, sig_t = 119.8, 3.405
+    rs = 3.0 + 0.1 * np.arange(FIT_POINTS)
+    curve = "\n".join(f"{r:.4f} {4 * eps_t * ((sig_t / r) ** 12 - (sig_t / r) ** 6):.8f}"
+                      for r in rs)
+    ar = ("ATOM 1 Ar AR 1 M 0.0 0.0 0.0 39.948 0.0 0.0 140.0 3.30\n"
+          "ATOM 2 Ar AR 2 M 4.0 0.0 0.0 39.948 0.0 0.0 140.0 3.30\nEND\n")
+    (res, chi2), text, ln, secs, _ = _surf_run(
+        device, SURF_DECK.replace("ensemble surf", "ensemble surf_fit")
+        .replace("dimer.pqr", "ar2.pqr") + FIT_LINES
+        + "fit_input curve.dat\nfit_boltzmann_weight 500\n",
+        {"ar2.pqr": ar, "curve.dat": curve})
+    fit = res["type0"]
+    _fit_check("surf_fit", fit, eps_t, sig_t, ln, 2001, text)
+    reps["surf_fit"] = {"sa_steps_per_sec": 2001 / secs, "chi2": chi2,
+                        "eps": fit["eps"], "sig": fit["sig"]}
+    launches["surf_fit"] = ln
+    # surf_multi_fit: 256 configurations of a four-H2 cluster
+    params, state, cfg = _dimer_system("float32", device, n=FIT_CLUSTER,
+                                       spread=4.0)
+    rng = np.random.default_rng(7)
+    from mpmc_tpu_torch.config import Thermo
+    from mpmc_tpu_torch.utils import quaternion as quat
+    coms = np.stack([_cluster_coms(rng, FIT_CLUSTER, 4.5)
+                     for _ in range(FIT_CONFIGS)])
+    q = rng.normal(size=(FIT_CONFIGS, FIT_CLUSTER, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    tmpl = torch.as_tensor(params.species_pos[0][:3].cpu().numpy(),
+                           dtype=torch.float64)
+    xyz = (quat.rotate(tmpl[None, None].expand(FIT_CONFIGS, FIT_CLUSTER, 3,
+                                               3),
+                       torch.as_tensor(q)[:, :, None, :]).numpy()
+           + coms[:, :, None, :]).reshape(FIT_CONFIGS, -1, 3)
+    rows = torch.arange(3 * FIT_CLUSTER, device=device)
+    pos = state.pos.expand(FIT_CONFIGS, -1, 3).clone()
+    pos[:, rows] = torch.as_tensor(xyz, dtype=pos.dtype, device=device)
+    thermo = Thermo.make(temperature=77.0, dtype=torch.float32,
+                         device=device)
+    e_true = energy_mod.total_energy_chains(
+        pos, state.box, state.mol_alive, params, cfg,
+        thermo).total.double().cpu().numpy()
+    conf = "\n".join(f"E {e:.6f}\n" + "\n".join(
+        f"{x:.6f} {y:.6f} {z:.6f}" for x, y, z in c)
+        for e, c in zip(e_true, xyz))
+
+    def start_pqr():       # the start: eps 15 % high, sig 4 % low
+        from mpmc_tpu_torch.io import pqr
+        pqr.write_state("cluster.pqr", params.replace(
+            eps=params.eps * 1.15, sig=params.sig * 0.96), state, ["H2"])
+    (res, chi2), text, ln, secs, _ = _surf_run(
+        device, SURF_DECK.replace("ensemble surf", "ensemble surf_multi_fit")
+        .replace("dimer.pqr", "cluster.pqr") + FIT_LINES
+        + "fit_input configs.dat\n",
+        {"configs.dat": conf, "cluster.pqr": start_pqr})
+    fit = res["type0"]
+    _fit_check("surf_multi_fit", fit, 34.2, 2.96, ln, 2001, text)
+    reps["surf_multi_fit"] = {"sa_steps_per_sec": 2001 / secs, "chi2": chi2,
+                              "eps": fit["eps"], "sig": fit["sig"]}
+    launches["surf_multi_fit"] = ln
+    return launches, reps
+
+
+def _fit_check(label, fit, eps_t, sig_t, ln, evals, text):
+    """A fit's parameters within 5 % (eps) and 2 % (sig) of the truth, one
+    B2 x C launch per chi^2 evaluation (the start and every SA step)."""
+    log(f"{label}: {text.strip().splitlines()[0]} -> eps {fit['eps']:.4f} "
+        f"K (true {eps_t}), sig {fit['sig']:.4f} A (true {sig_t}); "
+        f"launches {ln}")
+    if ln["pair_terms_chains"] != evals or ln["pair_terms"]:
+        raise AssertionError(f"{label}: {ln['pair_terms_chains']} B2 x C "
+                             f"launches for {evals} evaluations")
+    if not (abs(fit["eps"] / eps_t - 1) <= 0.05
+            and abs(fit["sig"] / sig_t - 1) <= 0.02):
+        raise AssertionError(f"{label}: parameters not recovered")
+
+
 def main():
     dev, smi = phase_device()
     sys.path.insert(0, REPO)
@@ -6556,13 +7204,15 @@ def main():
     build_s = phase_build()
     # phase_energy's CPU references, computed beside the card's phases
     refs = _CpuReferences()
+    replay_refs = _ReplayReferences()
     try:
-        _phases(dev, smi, t0, build_s, refs)
+        _phases(dev, smi, t0, build_s, refs, replay_refs)
     finally:
         refs.stop()
+        replay_refs.stop()
 
 
-def _phases(dev, smi, t0, build_s, refs):
+def _phases(dev, smi, t0, build_s, refs, replay_refs):
     """Every phase after the build (main), then the JSON lines."""
 
     def mark(name):
@@ -6622,7 +7272,8 @@ def _phases(dev, smi, t0, build_s, refs):
     mark("phase_checkpoint")
     ckpt_rep = phase_checkpoint(dev, smi)
     mark("phase_replay")
-    replay_rep = phase_replay(dev, smi)
+    replay_rep = phase_replay(dev, smi, replay_refs)
+    replay_refs.start()
     mark("phase_campaign")
     campaign_rep = phase_campaign(dev, smi)
     t_11 = time.time() - t_11
@@ -6682,9 +7333,21 @@ def _phases(dev, smi, t0, build_s, refs):
     mark("phase_qvib")
     qv_launches, qv_rep = phase_qvib(dev)
     t_19 = time.time() - t_19
+    t_ccs = time.time()
+    mark("phase_b2_chains")
+    report["pair_terms_chains"] = phase_b2_chains(dev)
+    mark("phase_cell_list")
+    cl_launches, cl_reps = phase_cell_list(dev)
+    mark("phase_mol_cache")
+    mc_launches, mc_reps = phase_mol_cache(dev)
+    mark("phase_surf")
+    surf_launches, surf_reps = phase_surf(dev)
+    t_ccs = time.time() - t_ccs
     # last: its CPU references have had the card's phases to finish in
     mark("phase_energy")
     phase_energy(dev, refs)
+    mark("replay references")
+    replay_refs.check(smi)
     # each kernel's launches on its own main path: B2 and B4 on the scan
     # path, B1 on the fused single-chain µVT path, B3 on the single-chain
     # MOF NVT deck, B5 (both modes) on the polar scan-path deck (dipole:
@@ -6750,7 +7413,10 @@ def _phases(dev, smi, t0, build_s, refs):
                 # B5 over chains with a header per chain: the polar NPT
                 # chains deck, every chain in its own cell
                 "dipole_field_c8_header": pnpt_launches[
-                    f"npt_polar_c{C_POLAR}"]["dipole_field_chains"]}
+                    f"npt_polar_c{C_POLAR}"]["dipole_field_chains"],
+                # B2 over a batch of geometries: the surf scan deck
+                "pair_terms_chains": surf_launches["surf"][
+                    "pair_terms_chains"]}
     report["mol_pair_c16_header"] = report["mol_pair_c128"]["header"]
     report["mol_pair_chains_disp"] = report["mol_pair_disp"]["c128"]
     report["run_steps_uvt_disp_c32"] = dict(
@@ -6772,7 +7438,7 @@ def _phases(dev, smi, t0, build_s, refs):
              "run_steps_uvt_disp_c32", "run_steps_uvt_gwp_fh2",
              *(f"run_steps_{k}" for k in FUSED_KEY.values()),
              *(f"run_steps_uvt_pda_{k}" for k in FUSED_KEY.values()),
-             "dipole_field_c8_header")
+             "dipole_field_c8_header", "pair_terms_chains")
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": report[name]["max_abs_err"],
@@ -7010,6 +7676,36 @@ def _phases(dev, smi, t0, build_s, refs):
         f"rd_crystal {cry_launches} spectre {spc_launches} qvib "
         f"{qv_launches}  slice19_phases_seconds {t_19:.1f}  wall_seconds "
         f"{time.time() - t0:.1f}  ({smi})")
+    b2c = report["pair_terms_chains"]
+    cul = cl_reps["culled"]
+    log(f"b2_c{C_SURF}_ms {b2c['ms']:.4f}  b2_c{C_SURF}_device_ms "
+        f"{b2c['device_ms']:.4f}  b2_c{C_SURF}_device_us_per_entry "
+        f"{1e3 * b2c['device_ms'] / C_SURF:.3f}  b2_lone_dimer_ms "
+        f"{b2c['lone_ms']:.4f}  b2_lone_dimer_device_ms "
+        f"{b2c['lone_device_ms']:.4f}  b2_c{C_SURF}_plain_ms "
+        f"{b2c['plain_ms']:.3f}  b2_c{C_SURF}_bound_ms {b2c['bound_ms']:.6f}"
+        f"  culled_ms {cul['ms']:.4f}  culled_device_ms "
+        f"{cul['device_ms']:.4f}  b4_rc{RC_CELL:g}_ms {cul['b4_ms']:.4f}  "
+        f"b4_rc{RC_CELL:g}_device_ms {cul['b4_device_ms']:.4f}  "
+        f"cell_cover {cul['cover']:.4f}  "
+        + "  ".join(f"cell_list_{k}_steps_per_sec {r['steps_per_sec']:.2f}"
+                    for k, r in cl_reps.items() if "steps_per_sec" in r)
+        + "  " + "  ".join(f"mol_cache_{k}_steps_per_sec "
+                           f"{r['steps_per_sec']:.2f}"
+                           for k, r in mc_reps.items())
+        + f"  mol_cache_build_ms {mc_reps['scan']['build_ms']:.1f}  "
+        + "  ".join(f"{k}_seconds {r['seconds']:.2f}  {k}_batches_per_sec "
+                    f"{r['batches_per_sec']:.1f}  {k}_well {r['well_min']:.4f}"
+                    f"@{r['well_r']:.2f}" for k, r in surf_reps.items()
+                    if "seconds" in r)
+        + "  " + "  ".join(f"{k}_sa_steps_per_sec "
+                           f"{surf_reps[k]['sa_steps_per_sec']:.1f}  {k}_eps "
+                           f"{surf_reps[k]['eps']:.4f}  {k}_sig "
+                           f"{surf_reps[k]['sig']:.4f}"
+                           for k in ("surf_fit", "surf_multi_fit"))
+        + f"  launches cell_list {cl_launches} mol_cache {mc_launches} surf "
+        f"{surf_launches}  cell_cache_surf_phases_seconds {t_ccs:.1f}  wall_seconds "
+        f"{time.time() - t0:.1f}  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -7020,5 +7716,7 @@ def _phases(dev, smi, t0, build_s, refs):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-references"]:
         cpu_references(sys.argv[2])
+    elif sys.argv[1:2] == ["--replay-references"]:
+        replay_references(sys.argv[2])
     else:
         main()

@@ -38,15 +38,33 @@ def _energy(e, device):
                                         "vdw")})
 
 
+def cell_index_from(ci, device="cpu"):
+    """The port's CellIndex (ops/celllist.py) with the values of the
+    reference's, its tables carried across as numpy arrays; None for
+    None."""
+    if ci is None:
+        return None
+    from mpmc_tpu_torch.ops.celllist import CellIndex
+    kw = {f.name: _tensor(getattr(ci, f.name), device)
+          for f in dataclasses.fields(CellIndex)
+          if f.name not in ("grid", "n_frozen")}
+    return CellIndex(**kw, grid=tuple(int(g) for g in ci.grid),
+                     n_frozen=int(ci.n_frozen))
+
+
 def from_jax(params, state, cfg, thermo, device="cpu"):
     """(Params, SimState, RunConfig, Thermo) of the port with the values
     of the reference's objects.  Fields the port's slice does not carry
-    (PRNG key, caches of options outside the slice) are dropped.  A
+    (the PRNG key) are dropped; a reference cell index comes across as
+    the port's (cell_index_from).  A
     stacked state (the reference's multichain.stack_states) comes across
     with its leading chain axis on every tensor; its step is chain 0's
     (the chains advance in lockstep)."""
     p = Params(**{f.name: _tensor(getattr(params, f.name), device)
-                  for f in dataclasses.fields(Params) if f.init})
+                  for f in dataclasses.fields(Params)
+                  if f.init and f.name != "cell_index"},
+               cell_index=cell_index_from(
+                   getattr(params, "cell_index", None), device))
     sk = (lambda x: None if x is None else _tensor(x, device))
     s = SimState(
         pos=_tensor(state.pos, device), box=_tensor(state.box, device),
@@ -60,7 +78,10 @@ def from_jax(params, state, cfg, thermo, device="cpu"):
         tmmc_c=sk(getattr(state, "tmmc_c", None)),
         spin=(None if getattr(state, "spin", None) is None
               else sk(state.spin).to(torch.int32)),
-        rot_f=sk(getattr(state, "rot_f", None)))
+        rot_f=sk(getattr(state, "rot_f", None)),
+        cache_rd=sk(getattr(state, "cache_rd", None)),
+        cache_es=sk(getattr(state, "cache_es", None)),
+        cache_lrc=sk(getattr(state, "cache_lrc", None)))
     t = Thermo(**{f.name: (None if getattr(thermo, f.name, None) is None
                            else _tensor(getattr(thermo, f.name), device))
                   for f in dataclasses.fields(Thermo)})

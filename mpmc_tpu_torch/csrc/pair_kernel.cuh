@@ -34,9 +34,18 @@
 //     lane's pair lies within rc, and erf (the exclusion term) where no
 //     lane's pair is intra-molecular.
 //   - One launch: each listed tile's double partials go to their own slot
-//     (its position in the list); the CTA that finishes last (an atomic
-//     ticket, after a __threadfence) adds the slots in a fixed order and
-//     writes the nine sums - identical bits run to run, for any grid.
+//     (its position in the list); a CTA takes an entry's atomic ticket
+//     once, after a __threadfence, as its walk leaves the entry, and the
+//     CTA whose ticket completes the entry adds its slots in a fixed order
+//     and writes its nine sums - identical bits run to run, for any grid.
+//   - Over a batch of C geometries (the surf drivers' vmapped energies:
+//     a position array per entry, every parameter column, the alive mask
+//     and the header shared), a work item is (entry, tile): item qq is
+//     tile wl[qq % W] of entry qq / W, positions read at entry x n x 3,
+//     the partials, minimum and ticket the entry's own.  So entry c of a
+//     batched launch has the bits of a lone launch on its positions (and
+//     C = 1 the bits of the one-entry design), and a batch of tiny
+//     systems (a dimer: one tile, W = 1) fills the card with C items.
 //
 // B4 mol_pair    replaces mpmc_tpu/ops/pallas/pair_kernel.py::_mol_kernel
 //   (mol_pair_tiles / mol_pair_pass_pallas): one molecule's <= 8 rows
@@ -305,6 +314,40 @@ __device__ __forceinline__ void sums_to(double (&a)[8], T mn,
   __syncthreads();
 }
 
+// The CTA's walk leaves entry e after `done` of its tiles: one ticket for
+// them (so one per CTA at C = 1), and the CTA that brings the entry's count
+// to W adds the entry's slots: thread t the slots t, t + NT2, ... in order,
+// then sums_to's fixed tree.  Every thread calls it.
+template <typename T>
+__device__ __forceinline__ void close_entry(
+    int e, int done, int W, const double* __restrict__ part,
+    const T* __restrict__ pmin, int32_t* __restrict__ ticket,
+    T* __restrict__ out, double (*wred)[8], T* wmin, double* tot,
+    int* last) {
+  const int t = threadIdx.x;
+  __threadfence();
+  __syncthreads();
+  if (t == 0) *last = atomicAdd(ticket + e, done) + done == W;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  double a[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) a[s] = 0.0;
+  T tm = T(INFINITY);
+  const double* __restrict__ pe8 = part + size_t(e) * W * 8;
+  const T* __restrict__ pem = pmin + size_t(e) * W;
+  for (int b = t; b < W; b += NT2) {
+#pragma unroll
+    for (int s = 0; s < 8; ++s) a[s] += __ldcg(pe8 + size_t(b) * 8 + s);
+    tm = x_min(tm, __ldcg(pem + b));
+  }
+  T* __restrict__ oe = out + size_t(e) * 9;
+  sums_to<T>(a, tm, wred, wmin, tot, oe + 8);
+  if (t < 8) oe[t] = T(tot[t]);
+  if (t == 0) ticket[e] = 0;      // ready for the next launch
+}
+
 // Column planes in shared memory: sqrt(eps) and sig / 2 (the mixing's
 // halves; a form's instance: eps and sig), RD_DISP's C6, C8, C10, and
 // flags: bit 0 alive (and j < n), bit 1 frozen.  The C columns c6, c8,
@@ -319,7 +362,8 @@ __global__ void __launch_bounds__(NT2, sizeof(T) == 4 ? MINB2 : MINB2 / 2)
                       const bool* __restrict__ frozen,
                       const T* __restrict__ sc,
                       const int32_t* __restrict__ wl, int W, int nt, int n,
-                      int row_start, Opts o, double* __restrict__ part,
+                      int row_start, int C, Opts o,
+                      double* __restrict__ part,
                       T* __restrict__ pmin, int32_t* __restrict__ ticket,
                       T* __restrict__ out, const T* __restrict__ c6,
                       const T* __restrict__ c8, const T* __restrict__ c10) {
@@ -329,6 +373,7 @@ __global__ void __launch_bounds__(NT2, sizeof(T) == 4 ? MINB2 : MINB2 / 2)
   __shared__ unsigned char sfl[TJ];
   __shared__ double wred[NW2][8];
   __shared__ T wmin[NW2];
+  __shared__ double tot[8];
   __shared__ int last;
   const int t = threadIdx.x;
   const int g = t % GR;           // rows g, g + GR, ... of the tile
@@ -352,22 +397,32 @@ __global__ void __launch_bounds__(NT2, sizeof(T) == 4 ? MINB2 : MINB2 / 2)
   int32_t mi[R2];
   int ri[R2];
   bool iok[R2], fi[R2];
-  int cur = -1;
-  for (int qq = blockIdx.x; qq < W; qq += gridDim.x) {
-    const int tile = wl[qq];
+  long long cur = -1;
+  int ecur = -1, done = 0;        // the entry walked and its tiles done
+  const long long items = (long long)C * W;
+  for (long long qq = blockIdx.x; qq < items; qq += gridDim.x) {
+    const int e = int(qq / W);            // the entry (geometry)
+    if (e != ecur) {
+      if (done) close_entry<T>(ecur, done, W, part, pmin, ticket, out, wred,
+                               wmin, tot, &last);
+      ecur = e;
+      done = 0;
+    }
+    const int tile = wl[qq - (long long)e * W];
     const int I = tile / nt;
     const int J = tile - I * nt;
-    if (I != cur) {
-      cur = I;
+    const T* __restrict__ pe = pos + size_t(e) * 3 * n;
+    if ((long long)e * nt + I != cur) {
+      cur = (long long)e * nt + I;
 #pragma unroll
       for (int r = 0; r < R2; ++r) {
         const int i = I * TI + g + r * GR;
         const bool in = i < n;
         ri[r] = i;
         iok[r] = in && i >= row_start && alive[i];
-        xi[r] = in ? pos[3 * i] : T(0);
-        yi[r] = in ? pos[3 * i + 1] : T(0);
-        zi[r] = in ? pos[3 * i + 2] : T(0);
+        xi[r] = in ? pe[3 * i] : T(0);
+        yi[r] = in ? pe[3 * i + 1] : T(0);
+        zi[r] = in ? pe[3 * i + 2] : T(0);
         qi[r] = in ? q[i] : T(0);
         if constexpr (RD == RD_CLASSIC) {
           ei[r] = in ? x_sqrt(eps[i]) : T(0);
@@ -389,9 +444,9 @@ __global__ void __launch_bounds__(NT2, sizeof(T) == 4 ? MINB2 : MINB2 / 2)
     for (int c = t; c < TJ; c += NT2) {
       const int j = J * TJ + c;
       const bool in = j < n;
-      sx[c] = in ? pos[3 * j] : T(0);
-      sy[c] = in ? pos[3 * j + 1] : T(0);
-      sz[c] = in ? pos[3 * j + 2] : T(0);
+      sx[c] = in ? pe[3 * j] : T(0);
+      sy[c] = in ? pe[3 * j + 1] : T(0);
+      sz[c] = in ? pe[3 * j + 2] : T(0);
       sq[c] = in ? q[j] : T(0);
       if constexpr (RD == RD_CLASSIC) {
         se[c] = in ? x_sqrt(eps[j]) : T(0);
@@ -526,28 +581,10 @@ __global__ void __launch_bounds__(NT2, sizeof(T) == 4 ? MINB2 : MINB2 / 2)
 #pragma unroll
     for (int s = 0; s < 8; ++s) a[s] = double(acc[s]);
     sums_to<T>(a, mn, wred, wmin, part + size_t(qq) * 8, pmin + qq);
+    ++done;
   }
-  // the last CTA adds every slot: thread t the slots t, t + NT2, ... in
-  // order, then sums_to's fixed tree
-  __threadfence();
-  __syncthreads();
-  if (t == 0) last = atomicAdd(ticket, 1) == int(gridDim.x) - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  double a[8];
-#pragma unroll
-  for (int s = 0; s < 8; ++s) a[s] = 0.0;
-  T mn = T(INFINITY);
-  for (int b = t; b < W; b += NT2) {
-#pragma unroll
-    for (int s = 0; s < 8; ++s) a[s] += __ldcg(part + size_t(b) * 8 + s);
-    mn = x_min(mn, __ldcg(pmin + b));
-  }
-  __shared__ double tot[8];
-  sums_to<T>(a, mn, wred, wmin, tot, out + 8);
-  if (t < 8) out[t] = T(tot[t]);
-  if (t == 0) *ticket = 0;        // ready for the next launch
+  if (done) close_entry<T>(ecur, done, W, part, pmin, ticket, out, wred, wmin,
+                           tot, &last);
 }
 
 // ---------------------------------------------------------------- B4
@@ -1149,13 +1186,13 @@ template <typename T, int RD>
 int launch_pair_terms(const T* pos, const T* q, const T* eps, const T* sig,
                       const int32_t* mol, const bool* alive,
                       const bool* frozen, const T* sc, const int32_t* wl,
-                      int W, int nt, int n, int row_start, Opts o, int grid,
-                      double* part, T* pmin, int32_t* ticket, T* out,
-                      const T* c6, const T* c8, const T* c10,
+                      int W, int nt, int n, int row_start, int C, Opts o,
+                      int grid, double* part, T* pmin, int32_t* ticket,
+                      T* out, const T* c6, const T* c8, const T* c10,
                       cudaStream_t stream) {
   pair_terms_kernel<T, RD><<<grid, NT2, 0, stream>>>(
-      pos, q, eps, sig, mol, alive, frozen, sc, wl, W, nt, n, row_start, o,
-      part, pmin, ticket, out, c6, c8, c10);
+      pos, q, eps, sig, mol, alive, frozen, sc, wl, W, nt, n, row_start, C,
+      o, part, pmin, ticket, out, c6, c8, c10);
   return int(cudaGetLastError());
 }
 
@@ -1284,12 +1321,12 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
       const void* pos, const void* q, const void* eps, const void* sig,     \
       const void* mol, const void* alive, const void* frozen,               \
       const void* sc, const void* wl, int W, int nt, int n, int row_start,  \
-      int rd, int mix, int es, int lrc, int grid, void* part, void* pmin,   \
-      void* ticket, void* out, void* stream) {                              \
+      int C, int rd, int mix, int es, int lrc, int grid, void* part,        \
+      void* pmin, void* ticket, void* out, void* stream) {                  \
     return launch_pair_terms<T, RD_CLASSIC>(                                \
         (const T*)pos, (const T*)q, (const T*)eps, (const T*)sig,           \
         (const int32_t*)mol, (const bool*)alive, (const bool*)frozen,       \
-        (const T*)sc, (const int32_t*)wl, W, nt, n, row_start,              \
+        (const T*)sc, (const int32_t*)wl, W, nt, n, row_start, C,           \
         Opts{rd, mix, es, lrc}, grid, (double*)part, (T*)pmin,              \
         (int32_t*)ticket, (T*)out, nullptr, nullptr, nullptr,               \
         (cudaStream_t)stream);                                              \
@@ -1327,13 +1364,13 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
       const void* pos, const void* q, const void* eps, const void* sig,     \
       const void* mol, const void* alive, const void* frozen,               \
       const void* sc, const void* wl, int W, int nt, int n, int row_start,  \
-      int damp, int mix, int es, int lrc, int grid, void* part,             \
+      int C, int damp, int mix, int es, int lrc, int grid, void* part,      \
       void* pmin, void* ticket, void* out, const void* c6, const void* c8,  \
       const void* c10, void* stream) {                                      \
     return launch_pair_terms<T, RD>(                                        \
         (const T*)pos, (const T*)q, (const T*)eps, (const T*)sig,           \
         (const int32_t*)mol, (const bool*)alive, (const bool*)frozen,       \
-        (const T*)sc, (const int32_t*)wl, W, nt, n, row_start,              \
+        (const T*)sc, (const int32_t*)wl, W, nt, n, row_start, C,           \
         Opts{damp, mix, es, lrc}, grid, (double*)part, (T*)pmin,            \
         (int32_t*)ticket, (T*)out, (const T*)c6, (const T*)c8,              \
         (const T*)c10, (cudaStream_t)stream);                               \

@@ -59,6 +59,16 @@ with no initial residual (the reference's b_volume: under NPT the CG's
 O(A N) residual is off for every move, ``_pol_resid``); under
 ``polar_delayed`` the surrogate filters it first, as any trial.
 
+Under ``mol_cache`` (``cache_eligible``: nvt/uvt/nve, pairwise terms, the
+dense delta path) the state carries the molecule-pair matrices
+``cache_rd``, ``cache_es``, ``cache_lrc`` [M, M] (pairs.pair_matrix,
+built by the first refresh; [C, M, M] over chains): a displacement prices
+its new rows with one partials pass (pairs.mol_pair_partials) and takes
+its old interactions from its cache row, an insert takes its partials,
+a delete its row alone (no pass), and an accepted move writes its fresh
+partials into its row and column.  Under ``cell_list`` with an index
+attached, every per-move pass is the culled one (ops/celllist.py).
+
 Under ``cdvdw`` every trial — a volume attempt too — recomputes the
 many-body dispersion of its configuration (ops/vdw.py: the 3P x 3P
 eigensolve, as the reference reruns it per candidate); its change enters
@@ -129,6 +139,57 @@ def draw_uniforms(generator: torch.Generator, n_steps, dtype=torch.float32):
     """[K, 16] uniforms in [0, 1) on the generator's device."""
     return torch.rand((n_steps, N_LANES), generator=generator, dtype=dtype,
                       device=generator.device)
+
+
+def cache_eligible(cfg: RunConfig) -> bool:
+    """Static gate of the molecule-pair energy cache (``mol_cache``), the
+    reference's (mpmc_tpu/mc/metropolis.py:101-116): a fixed box (no NPT
+    volume rescales), pairwise terms only (no polarization, no cdvdw
+    many-body re-solve), and the dense delta path (rd_crystal, the
+    culled pass of cell_list and the pallas_delta kernel emit no
+    per-molecule partials); not under SPECTRE, which rewrites the charges
+    every corrtime (cached ES entries would go stale)."""
+    return bool(cfg.mol_cache
+                and cfg.ensemble in ("nvt", "uvt", "nve")
+                and not cfg.polarization
+                and not cfg.cdvdw
+                and not cfg.rd_crystal
+                and not cfg.cell_list
+                and not cfg.pallas_delta
+                and not cfg.spectre)
+
+
+def _cache_row(carry, key, mol):
+    """Row ``mol`` of a carried cache matrix: [M] for one chain, [C, M]
+    over chains (``mol`` [C])."""
+    cache = carry[key]
+    if cache.ndim == 3:
+        return cache[torch.arange(cache.shape[0], device=cache.device), mol]
+    return take(cache, mol)
+
+
+def _cache_commit(carry, mol, accept):
+    """The accept-time symmetric row and column scatter of the candidate's
+    fresh columns (rd, es_real, lrc: ``carry["cache_cols"]``, set by the
+    move) into the carried cache, in place (the reference's, metropolis
+    .py:852-865): row and column ``mol`` become the fresh partials where
+    the move is accepted, and stay where it is not.  A candidate without
+    columns (spinflip) leaves the cache as it is."""
+    cols = carry.pop("cache_cols", None)
+    if cols is None:
+        return
+    for key, col in zip(("cache_rd", "cache_es", "cache_lrc"), cols):
+        cache = carry[key]
+        if cache.ndim == 3:
+            ar = torch.arange(cache.shape[0], device=cache.device)
+            row = torch.where(accept[:, None], col, cache[ar, mol])
+            cache[ar, mol] = row
+            cache[ar, :, mol] = row
+        else:
+            row = torch.where(accept, col, take(cache, mol))
+            m = mol.reshape(1)
+            cache.index_copy_(0, m, row[None])
+            cache.index_copy_(1, m, row[:, None])
 
 
 def spinflip_active(cfg: RunConfig) -> bool:
@@ -265,6 +326,24 @@ CDVDW_LRC_TRAP = (
     "mpmc_tpu/mc/metropolis.py:458-460), so the carried energy leaves the "
     "refreshed one at every accepted insert or delete; run it with rd_lrc "
     "off")
+
+
+CELL_LIST_FUSED_LRC_TRAP = (
+    "fused_mc µVT under cell_list with rd_lrc: the reference's fused "
+    "kernel takes its per-chunk tail constants c1 and cx from the culled "
+    "pass (mpmc_tpu/mc/metropolis.py:1377-1392), which adds the "
+    "framework's whole tail table whatever the alive mask "
+    "(mpmc_tpu/ops/celllist.py:364-367), so cx carries the framework's "
+    "tail over V on every insert and delete; run it with rd_lrc off or "
+    "without fused_mc")
+
+
+def check_cell_list_fused(params: Params, cfg: RunConfig):
+    """Refuse the reference's fused µVT tail trap under cell_list
+    (CELL_LIST_FUSED_LRC_TRAP, ValueError): an attached index and an
+    active tail."""
+    if cfg.cell_list and params.cell_index is not None and pairs.lrc_on(cfg):
+        raise ValueError(CELL_LIST_FUSED_LRC_TRAP)
 
 
 def check_cdvdw(cfg: RunConfig):
@@ -623,6 +702,66 @@ def _tmmc_add(tm, n_cur, t, a):
         tm.index_put_((torch.cat([n, n]), cols), vals, accumulate=True)
 
 
+def _move_passes(params: Params, cfg: RunConfig, cache_mode: bool):
+    """(displace pass, insert pass, delete pass) of a step builder, one
+    chain or C: a displacement's (d_rd, d_es, the trial's min_r2) from
+    two mol_pair_pass calls, or under the molecule-pair cache from the
+    trial's partials against the cache row; an insert's and a delete's
+    inter PairTerms from mol_pair_pass, or under the cache from the
+    trial's partials (insert) and the cache row alone (delete: no pass).
+    Under the cache each records its fresh columns for the accept's
+    scatter (the displacement's tail column is its row: tails do not
+    depend on r; a delete's are zeros)."""
+    def displace_pass(carry, thermo, c, mol, rows):
+        pos, alive = carry["pos"], carry["alive"]
+        if not cache_mode:
+            old = pairs.mol_pair_pass(pos, c.box, alive, params, cfg,
+                                      thermo.temperature, mol, scal=c.scal)
+            new = pairs.mol_pair_pass(pos, c.box, alive, params, cfg,
+                                      thermo.temperature, mol, row_pos=rows,
+                                      scal=c.scal)
+            return new.rd - old.rd, new.es_real - old.es_real, new.min_r2
+        new = pairs.mol_pair_partials(pos, c.box, alive, params, cfg,
+                                      thermo.temperature, mol, row_pos=rows,
+                                      scal=c.scal)
+        carry["cache_cols"] = (new.rd, new.es_real,
+                               _cache_row(carry, "cache_lrc", mol))
+        return (torch.sum(new.rd, -1)
+                - torch.sum(_cache_row(carry, "cache_rd", mol), -1),
+                torch.sum(new.es_real, -1)
+                - torch.sum(_cache_row(carry, "cache_es", mol), -1),
+                new.min_r2)
+
+    def insert_pass(carry, thermo, c, slot, rows):
+        if not cache_mode:
+            return pairs.mol_pair_pass(carry["pos"], c.box, carry["alive"],
+                                       params, cfg, thermo.temperature,
+                                       slot, row_pos=rows, scal=c.scal)
+        p = pairs.mol_pair_partials(carry["pos"], c.box, carry["alive"],
+                                    params, cfg, thermo.temperature, slot,
+                                    row_pos=rows, scal=c.scal)
+        carry["cache_cols"] = (p.rd, p.es_real, p.lrc)
+        return pairs.PairTerms(
+            rd=torch.sum(p.rd, -1), es_real=torch.sum(p.es_real, -1),
+            es_excl=torch.zeros_like(p.min_r2),
+            lrc_coeff=torch.sum(p.lrc, -1), min_r2=p.min_r2)
+
+    def delete_pass(carry, thermo, c, slot):
+        if not cache_mode:
+            return pairs.mol_pair_pass(carry["pos"], c.box, carry["alive"],
+                                       params, cfg, thermo.temperature,
+                                       slot, scal=c.scal)
+        rows = [_cache_row(carry, k, slot)
+                for k in ("cache_rd", "cache_es", "cache_lrc")]
+        carry["cache_cols"] = tuple(torch.zeros_like(r) for r in rows)
+        rd, es, lrc = (torch.sum(r, -1) for r in rows)
+        return pairs.PairTerms(rd=rd, es_real=es,
+                               es_excl=torch.zeros_like(rd), lrc_coeff=lrc,
+                               min_r2=torch.full_like(rd, math.inf))
+
+    return displace_pass, insert_pass, delete_pass
+
+
 def make_step_fn(params: Params, cfg: RunConfig):
     """The single-step function of this (params, cfg):
     step(carry, u, t, thermo, c, stats, trace=None) with ``carry`` a dict
@@ -652,6 +791,11 @@ def make_step_fn(params: Params, cfg: RunConfig):
     n_sp = len(cfg.insert_species)
     cav = cfg.cavity_bias
     tm_on = tmmc_on(cfg)
+    # the molecule-pair cache: displace prices its old interactions from
+    # the cache row (one partials pass), delete from the row alone (none)
+    cache_mode = cache_eligible(cfg)
+    _displace_pass, _insert_pass, _delete_pass = _move_passes(params, cfg,
+                                                              cache_mode)
 
     def eb(rd=zero, lrc=zero, es_real=zero, es_recip=zero, es_self=zero,
            es_excl=zero):
@@ -683,21 +827,15 @@ def make_step_fn(params: Params, cfg: RunConfig):
         pos = carry["pos"]
         mol, cnt = moves.pick_by_rank(
             _movable_mask(params, carry["mol_alive"]), u[0])
-        alive = carry["alive"]
         rows = moves.displace_rows(pos, params, mol, u,
                                    thermo.move_factor, thermo.rot_factor)
-        old = pairs.mol_pair_pass(pos, c.box, alive, params, cfg,
-                                  thermo.temperature, mol, scal=c.scal)
-        new = pairs.mol_pair_pass(pos, c.box, alive, params, cfg,
-                                  thermo.temperature, mol, row_pos=rows,
-                                  scal=c.scal)
+        d_rd, d_es, min_r2 = _displace_pass(carry, thermo, c, mol, rows)
         sk = (carry["sk_re"], carry["sk_im"], zero)
         if c.ewald:
             sk = recip(c, carry, *_mol_sf_delta(pos, rows, params, mol,
                                                 c.kv))
-        d = eb(rd=new.rd - old.rd, es_real=new.es_real - old.es_real,
-               es_recip=sk[2])
-        reject = (cnt == 0) | _overlap_r2(new.min_r2, cfg)
+        d = eb(rd=d_rd, es_real=d_es, es_recip=sk[2])
+        reject = (cnt == 0) | _overlap_r2(min_r2, cfg)
         return mol, rows, None, d, zero, reject, sk
 
     def b_insert(carry, u, thermo, c):
@@ -707,9 +845,7 @@ def make_step_fn(params: Params, cfg: RunConfig):
             ~mol_alive & (params.mol_species == si), u[0])
         frac = cavity_frac(carry, u)
         rows = moves.place_rows(params, slot, si, u, c.box, frac=frac)
-        inter = pairs.mol_pair_pass(pos, c.box, carry["alive"], params, cfg,
-                                    thermo.temperature, slot, row_pos=rows,
-                                    scal=c.scal)
+        inter = _insert_pass(carry, thermo, c, slot, rows)
         intra = pairs.intra_terms(pos, c.box, params, cfg, slot,
                                   row_pos=rows, scal=c.scal)
         d_self, d_lrc = self_and_lrc(c, slot, inter.lrc_coeff)
@@ -735,8 +871,7 @@ def make_step_fn(params: Params, cfg: RunConfig):
         slot, cnt = moves.pick_by_rank(
             _movable_mask(params, mol_alive) & (params.mol_species == si),
             u[0])
-        inter = pairs.mol_pair_pass(pos, c.box, carry["alive"], params, cfg,
-                                    thermo.temperature, slot, scal=c.scal)
+        inter = _delete_pass(carry, thermo, c, slot)
         intra = pairs.intra_terms(pos, c.box, params, cfg, slot,
                                   scal=c.scal)
         d_self, d_lrc = self_and_lrc(c, slot, inter.lrc_coeff)
@@ -853,6 +988,8 @@ def make_step_fn(params: Params, cfg: RunConfig):
         if pol:
             new_energy = polar_commit(carry, pol_t, accept, new_energy, cfg)
         carry["energy"] = new_energy.select(accept, carry["energy"])
+        if cache_mode:
+            _cache_commit(carry, mol, accept)
         if c.ewald:
             carry["sk_re"] = torch.where(accept, sk[0], carry["sk_re"])
             carry["sk_im"] = torch.where(accept, sk[1], carry["sk_im"])
@@ -903,6 +1040,12 @@ def _carry(state: SimState, params: Params, cfg: RunConfig):
             - math.log(float(cfg.cavity_grid) ** 3))
     if tmmc_on(cfg):
         carry["tmmc_c"] = state.tmmc_c.clone()
+    if cache_eligible(cfg):
+        if state.cache_rd is None:
+            raise ValueError("mol_cache: the state has no molecule-pair "
+                             "cache — initialize it first")
+        for k in ("cache_rd", "cache_es", "cache_lrc"):
+            carry[k] = getattr(state, k).clone()
     if spinflip_active(cfg):
         if state.spin is None or state.rot_f is None:
             raise ValueError("quantum_rotation: the state has no spins or "
@@ -922,6 +1065,9 @@ def _from_carry(state: SimState, carry, n_steps: int) -> SimState:
                          e0=carry["e0"], r_pol=carry["r_pol"],
                          tmmc_c=carry.get("tmmc_c", state.tmmc_c),
                          spin=carry.get("spin", state.spin),
+                         cache_rd=carry.get("cache_rd", state.cache_rd),
+                         cache_es=carry.get("cache_es", state.cache_es),
+                         cache_lrc=carry.get("cache_lrc", state.cache_lrc),
                          step=state.step + n_steps)
 
 
@@ -1011,6 +1157,9 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
     n_sp = len(cfg.insert_species)
     cav = cfg.cavity_bias
     tm_on = tmmc_on(cfg)
+    cache_mode = cache_eligible(cfg)     # make_step_fn's, per chain
+    _displace_pass, _insert_pass, _delete_pass = _move_passes(params, cfg,
+                                                              cache_mode)
 
     def recip(c, carry, d_re, d_im):
         new_re = carry["sk_re"] + d_re
@@ -1046,21 +1195,15 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         pos = carry["pos"]
         mol, cnt = moves.pick_by_rank(
             _movable_mask(params, carry["mol_alive"]), u[:, 0])
-        alive = carry["alive"]
         rows = moves.displace_rows(pos, params, mol, u, thermo.move_factor,
                                    thermo.rot_factor)
-        old = pairs.mol_pair_pass(pos, c.box, alive, params, cfg,
-                                  thermo.temperature, mol, scal=c.scal)
-        new = pairs.mol_pair_pass(pos, c.box, alive, params, cfg,
-                                  thermo.temperature, mol, row_pos=rows,
-                                  scal=c.scal)
+        d_rd, d_es, min_r2 = _displace_pass(carry, thermo, c, mol, rows)
         sk = (carry["sk_re"], carry["sk_im"], zero)
         if c.ewald:
             sk = recip(c, carry, *_mol_sf_delta(pos, rows, params, mol,
                                                 c.kv))
-        d = eb(zero, rd=new.rd - old.rd, es_real=new.es_real - old.es_real,
-               es_recip=sk[2])
-        reject = (cnt == 0) | _overlap_r2(new.min_r2, cfg)
+        d = eb(zero, rd=d_rd, es_real=d_es, es_recip=sk[2])
+        reject = (cnt == 0) | _overlap_r2(min_r2, cfg)
         return mol, rows, None, d, zero, reject, sk
 
     def b_insert(carry, u, thermo, c, zero):
@@ -1070,9 +1213,7 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         slot, free = moves.pick_by_rank(~mol_alive & same, u[:, 0])
         frac = cavity_frac(carry, u)
         rows = moves.place_rows(params, slot, si, u, c.box, frac=frac)
-        inter = pairs.mol_pair_pass(pos, c.box, carry["alive"], params, cfg,
-                                    thermo.temperature, slot, row_pos=rows,
-                                    scal=c.scal)
+        inter = _insert_pass(carry, thermo, c, slot, rows)
         intra = pairs.intra_terms(pos, c.box, params, cfg, slot,
                                   row_pos=rows, scal=c.scal)
         d_self, d_lrc = self_and_lrc(c, slot, inter.lrc_coeff, zero)
@@ -1097,8 +1238,7 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         same = params.mol_species[None, :] == si[:, None]
         slot, cnt = moves.pick_by_rank(
             _movable_mask(params, mol_alive) & same, u[:, 0])
-        inter = pairs.mol_pair_pass(pos, c.box, carry["alive"], params, cfg,
-                                    thermo.temperature, slot, scal=c.scal)
+        inter = _delete_pass(carry, thermo, c, slot)
         intra = pairs.intra_terms(pos, c.box, params, cfg, slot,
                                   scal=c.scal)
         d_self, d_lrc = self_and_lrc(c, slot, inter.lrc_coeff, zero)
@@ -1213,6 +1353,8 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
         if pol:
             new_energy = polar_commit(carry, pol_t, accept, new_energy, cfg)
         carry["energy"] = new_energy.select(accept, carry["energy"])
+        if cache_mode:
+            _cache_commit(carry, mol, accept)
         if c.ewald:
             carry["sk_re"] = torch.where(accept[:, None], sk[0],
                                          carry["sk_re"])
@@ -1544,7 +1686,9 @@ def _uvt_chunk_consts(pos, box, params, thermo, cfg, A_list, rep_slots):
     the same helpers the scan path's insert and delete use, so both paths
     agree term by term.  The LRC coefficients pair a representative slot
     with the frozen atoms (c1) and with a slot of each species (cx); on
-    the card they run through B4."""
+    the card they run through B4.  Under cell_list with an index and a
+    tail it refuses the reference's trap (check_cell_list_fused)."""
+    check_cell_list_fused(params, cfg)
     S = len(A_list)
     rc = pairs.derived_cutoff(box, cfg)
     alpha = pairs.derived_alpha(rc, cfg)
@@ -2033,7 +2177,21 @@ def initialize(state: SimState, params: Params, cfg: RunConfig,
     if cfg.tmmc and tmmc_c is None:
         tmmc_c = torch.zeros((params.n_mols_max + 1, 4), dtype=cfg.tdtype,
                              device=state.pos.device)
+    # the molecule-pair cache: built once (the accept-time scatters keep
+    # its entries exact), and again at every refresh where the pair
+    # values depend on the temperature (FH/FK: annealing or a ladder may
+    # have moved it since the entries were written)
+    cache = (state.cache_rd, state.cache_es, state.cache_lrc)
+    if cache_eligible(cfg):
+        if cache[0] is None or cfg.feynman_hibbs or cfg.feynman_kleinert:
+            cache = pairs.pair_matrix(state.pos, state.box,
+                                      state.atom_alive(params), params, cfg,
+                                      thermo.temperature)
+    else:
+        cache = (None, None, None)
     return state.replace(energy=e, e_frozen=e_frozen,
                          sk_re=aux.get("sk_re"), sk_im=aux.get("sk_im"),
                          mu=mu, e0=aux.get("e0"), r_pol=aux.get("r_pol"),
-                         cavity_open=cavity_open, tmmc_c=tmmc_c)
+                         cavity_open=cavity_open, tmmc_c=tmmc_c,
+                         cache_rd=cache[0], cache_es=cache[1],
+                         cache_lrc=cache[2])

@@ -22,7 +22,10 @@ and annealing/adaptation; a tmmc run ends by writing the matrix for
 the S-flagged sites' charges are renormalized between each chunk and its
 refresh (mc/spectre.py); under ``quantum_vibration`` each block adds the
 stretch levels' ``qvib_zpe`` and ``qvib_fundamental_shift``
-(ops/qvib.py, one B4 launch per refresh).
+(ops/qvib.py, one B4 launch per refresh).  ``cell_list`` attaches the
+framework cell index at set-up (ops/celllist.attach) and ``mol_cache`` (a
+RunConfig field, no deck keyword) carries the molecule-pair cache; the
+ensembles surf, surf_fit and surf_multi_fit run in mc/surface.py.
 
 The entry points run on the current CUDA device unless the caller names
 another (``device="cpu"``), and raise when there is none.  Options outside
@@ -149,7 +152,10 @@ def check_supported(job: input_script.Job):
     or for gwp the plain pass; log_pair_route).  Polar NPT, cdvdw and its
     repulsions, rd_crystal, spectre and quantum_vibration run where the
     reference runs them: the scan path and the batched chains (the fused
-    gates refuse them, as the reference's do)."""
+    gates refuse them, as the reference's do).  ``cell_list`` and
+    ``mol_cache`` run on the scan path and the batched chains (the fused
+    kernels ignore both, as the reference's do), and the ensembles surf,
+    surf_fit and surf_multi_fit through mc/surface.py."""
     cfg = job.cfg
     if cfg.ensemble == "npt":
         if job.parallel_tempering or job.pt_fugacity:
@@ -158,18 +164,17 @@ def check_supported(job: input_script.Job):
             and job.parallel_tempering and not job.pt_fugacity):
         raise ValueError(FH_PT_TRAP)
     metropolis.check_cdvdw(cfg)
-    if cfg.ensemble not in ("uvt", "nvt", "nve", "npt", "te", "replay"):
+    if cfg.ensemble not in ("uvt", "nvt", "nve", "npt", "te", "replay",
+                            "surf", "surf_fit", "surf_multi_fit"):
         _refuse(f"ensemble {cfg.ensemble}", "A12b")
     for flag, what, item in (
-            (cfg.mol_cache, "mol_cache", "A12b"),
-            (cfg.cell_list, "cell_list", "A12b"),
             (job.spatial_devices > 1, "spatial_devices", "A13"),
             (job.chain_devices > 1, "chain_devices", "A13")):
         if flag:
             _refuse(what, item)
 
 
-def log_pair_route(cfg, log):
+def log_pair_route(cfg, log, params=None):
     """Name the route of the pair passes in the run log where it is not
     the kernels': B2 and B4's static gate (pair_kernel.supported, the
     reference's) refuses Feynman-Hibbs/Kleinert, coulomb gwp and the
@@ -191,6 +196,23 @@ def log_pair_route(cfg, log):
         print("pair passes: the plain tile pass on the device (B2 and B4's "
               "gate refuses feynman_hibbs / feynman_kleinert / coulomb gwp "
               "/ the cdvdw repulsions, as the reference's does)", file=log)
+    if cfg.cell_list and params is not None:
+        ci = params.cell_index
+        if ci is None:
+            print("cell_list: no index (no explicit cutoff or frozen "
+                  "framework, a cdvdw repulsion, or too little reduction) "
+                  "— the dense per-move pass", file=log)
+        else:
+            print(f"cell_list: framework cell index, grid {ci.grid}, "
+                  f"{ci.offsets.shape[0]} cells x {ci.fw_pos.shape[1]} "
+                  f"slots = {ci.columns} of {ci.n_frozen} framework "
+                  "columns a move — the per-move deltas are the culled "
+                  "pass (plain, on the device; B4 is not launched)",
+                  file=log)
+    if metropolis.cache_eligible(cfg):
+        print("mol_cache: the molecule-pair cache prices displace with one "
+              "partials pass and delete with none (plain, on the device; "
+              "B4 is not launched)", file=log)
     stem = mc_kernel.form_stem(cfg)
     if cfg.fused_mc and stem:
         print(f"fused_mc: rd {cfg.rd_potential} / coulomb {cfg.coulomb} "
@@ -307,6 +329,9 @@ def setup(job: input_script.Job, device=None,
         c10[m] = 49.0 / 40.0 * c8[m] ** 2 / c6[m]
         params = params.replace(c10=torch.as_tensor(
             c10, dtype=cfg.tdtype, device=device))
+    if cfg.cell_list:
+        from mpmc_tpu_torch.ops import celllist
+        params = celllist.attach(params, state.pos, state.box, cfg)
 
     if cfg.coulomb == "ewald" and not cfg.spectre:
         # non-neutral cells carry the jellium correction, but only on
@@ -904,7 +929,7 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     if job.unknown_options:
         print(f"WARNING: unknown options ignored: {job.unknown_options}",
               file=writer.log)
-    log_pair_route(cfg, writer.log)
+    log_pair_route(cfg, writer.log, params)
     _log_tmmc_bias(cfg, writer)
     chunk = metropolis.run_chunk
     if cfg.fused_mc:
@@ -1041,7 +1066,7 @@ def _chains_route(cfg, params, mol_alive, C, writer, what="multi-chain",
     axis, which the fused gates refuse; under NPT a box per chain) — and
     the log lines that say which."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
-    log_pair_route(cfg, writer.log)
+    log_pair_route(cfg, writer.log, params)
     fused = cfg.fused_mc and fused_ok
     if cfg.fused_mc and not fused_ok:
         print("fused_mc: feynman_hibbs / feynman_kleinert keep this "
@@ -1060,11 +1085,17 @@ def _chains_route(cfg, params, mol_alive, C, writer, what="multi-chain",
             print("WARNING: fused_mc requested but unsupported for this "
                   "configuration (needs the fused NVT or µVT surface, no "
                   "nve) — batched scan chains used", file=writer.log)
+        if cfg.cell_list and params.cell_index is not None:
+            delta = "one culled cell-list pass over the chains"
+        elif metropolis.cache_eligible(cfg):
+            delta = ("from the chains' [C, M, M] molecule-pair caches, one "
+                     "partials pass over the chains")
+        elif pair_kernel.supported(cfg):
+            delta = "one B4 launch over the chains"
+        else:
+            delta = "the plain tile pass over the chains"
         print(f"batched scan chains (C={C}): one step of every chain at "
-              "a time, each move's delta "
-              + ("one B4 launch over the chains"
-                 if pair_kernel.supported(cfg) else
-                 "the plain tile pass over the chains")
+              "a time, each move's delta " + delta
               + (", the SCF's matvec one B5 launch over the chains"
                  if cfg.polarization else ""), file=writer.log)
         return multichain.run_chunk_batched, False
@@ -1462,6 +1493,13 @@ def run(job: input_script.Job, **kw):
     if job.cfg.ensemble == "replay":
         kw.pop("jsonl_path", None)
         return run_replay(job, **kw)
+    if job.cfg.ensemble in ("surf", "surf_fit", "surf_multi_fit"):
+        from mpmc_tpu_torch.mc import surface
+        kw.pop("jsonl_path", None)
+        return {"surf": surface.run_surface,
+                "surf_fit": surface.run_surface_fit,
+                "surf_multi_fit": surface.run_surface_multi_fit}[
+                    job.cfg.ensemble](job, **kw)
     check_supported(job)
     raise NotImplementedError(
         f"ensemble {job.cfg.ensemble!r} not yet implemented")

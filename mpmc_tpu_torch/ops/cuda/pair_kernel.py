@@ -7,8 +7,12 @@ all atoms, optionally restricted to rows >= row_start.  Raw output [9]:
 (no Coulomb constant).  One launch per call over a work list of the
 TI x TJ tiles that hold a counted pair (``work_list``, built once per
 (n, row_start, device) and kept), on as many CTAs as the card holds; each
-tile's partials go to a kept slot (``pair_terms_scratch``) and the last
-CTA adds them.
+tile's partials go to a kept slot (``pair_terms_scratch``) and the CTA
+that finishes the last tile adds them.  ``pair_terms_chains`` launches it
+over a batch of C geometries (the surf drivers' energies, which the
+reference evaluates under jax.vmap): positions [C, N, 3], everything else
+shared, raw output [C, 9], each entry with the bits of ``pair_terms`` on
+its positions.
 
 B4 ``mol_pair`` replaces ops/pallas/pair_kernel.py::_mol_kernel (through
 ``mol_pair_tiles``/``mol_pair_pass_pallas``): one molecule's <= 8 rows
@@ -68,7 +72,8 @@ from mpmc_tpu_torch.state import take
 A_PAD = 8        # most rows a molecule may have (B4 row registers)
 PT = 128         # B2 tile edge: rows = columns per tile (TI = TJ)
 PLAIN_ROWS = 256  # row chunk of the plain full pass ([256, N] temporaries)
-PLAIN_PAIRS = 1 << 23   # pairs of a block of B4's plain version at stride 0
+PLAIN_PAIRS = 1 << 23   # pairs of a block of plain B2 over a batch, and of
+                        # B4's plain version at stride 0
 
 _RD = {"none": 0, "lj": 1}       # the classical instance's run-time forms
 _MIX = {"lb": 0, "waldman_hagler": 1}
@@ -136,25 +141,15 @@ def _rows_of(idx, disp, gwp):
 
 def pair_terms_plain(pos, charge, eps, sig, mol_id, alive, frozen, scal,
                      cfg, row_start=0, qc=None, disp=None, gwp=None):
-    """Plain B2: row blocks of dense [B, N] masks (pairs._block_terms).
-    ``qc``: (the atoms' molecular masses [N], the temperature) for a
-    Feynman-Hibbs/Kleinert cfg; ``disp``: the (c6, c8, c10) columns [N]
-    for disp_expansion; ``gwp``: the GWP widths [N] for coulomb gwp."""
-    n = pos.shape[0]
-    out = torch.zeros(pairs.N_SLOTS, dtype=pos.dtype, device=pos.device)
-    out[8] = float("inf")
-    for i0 in range(row_start, n, PLAIN_ROWS):
-        rows = torch.arange(i0, min(i0 + PLAIN_ROWS, n), device=pos.device)
-        d, g = _rows_of(rows, disp, gwp)
-        t = pairs._block_terms(
-            pos[rows], rows, alive[rows], mol_id[rows], frozen[rows],
-            charge[rows], eps[rows], sig[rows], pos, alive, mol_id, frozen,
-            charge, eps, sig, scal, cfg, triangular=True,
-            row_start=row_start,
-            qc=None if qc is None else (qc[0][rows], qc[0], qc[1]),
-            disp=d, gwp=g)
-        out = torch.cat([out[:8] + t[:8], torch.minimum(out[8:], t[8:])])
-    return out
+    """Plain B2 on one geometry ``pos`` [N, 3]: pair_terms_chains_plain
+    at C = 1, raw [9].  ``qc``: (the atoms' molecular masses [N], the
+    temperature) for a Feynman-Hibbs/Kleinert cfg; ``disp``: the (c6, c8,
+    c10) columns [N] for disp_expansion; ``gwp``: the GWP widths [N] for
+    coulomb gwp."""
+    return pair_terms_chains_plain(pos[None], charge, eps, sig, mol_id,
+                                   alive, frozen, scal, cfg,
+                                   row_start=row_start, qc=qc, disp=disp,
+                                   gwp=gwp)[0]
 
 
 def mol_pair_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
@@ -255,16 +250,18 @@ _pair_scratch: dict = {}
 _pair_config: dict = {}
 
 
-def pair_terms_scratch(device, dtype, w):
-    """(part [>= w, 8] double, pmin [>= w], ticket [1] int32, zero
-    between launches): B2's tile partials on ``device``, grown to the
-    largest list and kept.  Calls share them in stream order (the port
-    launches every kernel on one stream)."""
+def pair_terms_scratch(device, dtype, w, C=1):
+    """(part [>= C w, 8] double, pmin [>= C w], ticket [>= C] int32, zero
+    between launches): B2's tile partials of C entries of w tiles on
+    ``device``, grown to the largest launch and kept.  Calls share them
+    in stream order (the port launches every kernel on one stream)."""
     have = _pair_scratch.get((device, dtype))
-    if have is None or have[1].numel() < w:
-        have = (torch.empty((w, 8), dtype=torch.float64, device=device),
-                torch.empty(w, dtype=dtype, device=device),
-                torch.zeros(1, dtype=torch.int32, device=device))
+    if have is None or have[1].numel() < C * w or have[2].numel() < C:
+        items = max(C * w, 0 if have is None else have[1].numel())
+        tickets = max(C, 0 if have is None else have[2].numel())
+        have = (torch.empty((items, 8), dtype=torch.float64, device=device),
+                torch.empty(items, dtype=dtype, device=device),
+                torch.zeros(tickets, dtype=torch.int32, device=device))
         _pair_scratch[(device, dtype)] = have
     return have
 
@@ -298,9 +295,75 @@ def pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal, cfg,
                                 disp=disp)
     if pos.device.type != "cuda":
         raise ValueError(f"pair_terms: no kernel for {pos.device}")
-    n = pos.shape[0]
+    out, launched = _launch_pair_terms(pos[None], charge, eps, sig, mol_id,
+                                       alive, frozen, scal, cfg, row_start,
+                                       disp)
+    pair_terms.launches += launched
+    return out[0]
+
+
+pair_terms.launches = 0
+
+
+def pair_terms_chains_plain(pos, charge, eps, sig, mol_id, alive, frozen,
+                            scal, cfg, row_start=0, qc=None, disp=None,
+                            gwp=None):
+    """Plain B2 over a batch of geometries: ``pos`` [C, N, 3], every other
+    argument shared (``qc``, ``disp``, ``gwp`` as in pair_terms_plain),
+    raw [C, 9], from row blocks of [C, B, N] dense masks
+    (pairs._block_terms), B chosen so a block holds at most PLAIN_PAIRS
+    pairs and at most PLAIN_ROWS rows."""
+    C, n = pos.shape[0], pos.shape[1]
+    out = torch.zeros((C, pairs.N_SLOTS), dtype=pos.dtype, device=pos.device)
+    out[:, 8] = float("inf")
+    rows_blk = max(1, min(PLAIN_ROWS, PLAIN_PAIRS // max(C * n, 1)))
+    for i0 in range(row_start, n, rows_blk):
+        rows = torch.arange(i0, min(i0 + rows_blk, n), device=pos.device)
+        d, g = _rows_of(rows, disp, gwp)
+        t = pairs._block_terms(
+            pos[:, rows], rows, alive[rows], mol_id[rows], frozen[rows],
+            charge[rows], eps[rows], sig[rows], pos, alive, mol_id, frozen,
+            charge, eps, sig, scal, cfg, triangular=True,
+            row_start=row_start,
+            qc=None if qc is None else (qc[0][rows], qc[0], qc[1]),
+            disp=d, gwp=g)
+        out = torch.cat([out[:, :8] + t[:, :8],
+                         torch.minimum(out[:, 8:], t[:, 8:])], -1)
+    return out
+
+
+def pair_terms_chains(pos, charge, eps, sig, mol_id, alive, frozen, scal,
+                      cfg, row_start=0, disp=None):
+    """B2 over a batch of C geometries in one launch: ``pos`` [C, N, 3],
+    the parameter columns, ``alive``, ``frozen`` and the [20] header
+    shared; raw [C, 9], entry c with the bits of ``pair_terms`` on
+    ``pos[c]`` (the kernel's work items are (entry, tile), each entry
+    reduced in its own fixed order)."""
+    if pos.device.type == "cpu":
+        return pair_terms_chains_plain(pos, charge, eps, sig, mol_id, alive,
+                                       frozen, scal, cfg,
+                                       row_start=row_start, disp=disp)
+    if pos.device.type != "cuda":
+        raise ValueError(f"pair_terms_chains: no kernel for {pos.device}")
+    out, launched = _launch_pair_terms(pos, charge, eps, sig, mol_id, alive,
+                                       frozen, scal, cfg, row_start, disp)
+    pair_terms_chains.launches += launched
+    return out
+
+
+pair_terms_chains.launches = 0
+
+
+def _launch_pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal,
+                       cfg, row_start, disp):
+    """One B2 launch over the C = pos.shape[0] entries of ``pos`` [C, N,
+    3]: (raw [C, 9], 1), or (the empty pass's sums, 0) without a listed
+    tile (no row at or past row_start: nothing is launched)."""
+    C, n = pos.shape[0], pos.shape[1]
     dt, dev = pos.dtype, pos.device
-    _check("pos", pos, dt, (n, 3))
+    if C < 1:
+        raise ValueError(f"pair_terms: {C} entries")
+    _check("pos", pos, dt, (C, n, 3))
     for nm, t in (("charge", charge), ("eps", eps), ("sig", sig)):
         _check(nm, t, dt, (n,), dev)
     _check("mol_id", mol_id, torch.int32, (n,), dev)
@@ -309,27 +372,25 @@ def pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal, cfg,
     _check("scal", scal, dt, (20,), dev)
     lib, sfx, opts = _opts(cfg)
     extra = _disp_args(cfg, disp, n, dt, dev) if sfx else []
-    out = torch.empty(pairs.N_SLOTS, dtype=dt, device=dev)
+    out = torch.empty((C, pairs.N_SLOTS), dtype=dt, device=dev)
     wl = work_list(n, row_start, dev)
     w = wl.numel()
     if w == 0:                        # no row at or past row_start
         out.zero_()
-        out[8] = float("inf")
-        return out
-    part, pmin, ticket = pair_terms_scratch(dev, dt, w)
-    grid = min(card_ctas(dev, dt, lib, sfx), w)
+        out[:, 8] = float("inf")
+        return out, 0
+    part, pmin, ticket = pair_terms_scratch(dev, dt, w, C)
+    # the grid covers the C w items: a batch of one-tile dimers fills the
+    # card as one big system does
+    grid = min(card_ctas(dev, dt, lib, sfx), C * w)
     from mpmc_tpu_torch.ops.cuda import _build
     fn = getattr(_build.library(lib), f"pair_terms{sfx}_" + _suffix(dt))
     err = fn(_ptr(pos), _ptr(charge), _ptr(eps), _ptr(sig), _ptr(mol_id),
              _ptr(alive), _ptr(frozen), _ptr(scal), _ptr(wl), w, -(-n // PT),
-             n, int(row_start), *opts, grid, _ptr(part), _ptr(pmin),
+             n, int(row_start), C, *opts, grid, _ptr(part), _ptr(pmin),
              _ptr(ticket), _ptr(out), *extra, _stream(dev))
-    pair_terms.launches += 1
     _raise_on(err, "pair_terms")
-    return out
-
-
-pair_terms.launches = 0
+    return out, 1
 
 
 def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
@@ -543,6 +604,7 @@ mol_pair_chains.shared_launches = 0     # of them at position stride 0
 def reset_counts():
     """Zero the kernels' launch counters."""
     pair_terms.launches = 0
+    pair_terms_chains.launches = 0
     mol_pair.launches = 0
     mol_pair_chains.launches = 0
     mol_pair_chains.shared_launches = 0

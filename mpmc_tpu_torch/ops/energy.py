@@ -1,7 +1,9 @@
 """Total-energy dispatcher (port of mpmc_tpu/ops/energy.py): pair pass ->
 reciprocal/self electrostatics -> long-range tail -> polarization SCF ->
 coupled-dipole vdW (``cdvdw``, ops/vdw.py), summed into per-term
-EnergyBreakdown slots.
+EnergyBreakdown slots.  ``total_energy_chains`` computes the same over a
+batch of geometries at once (the surf drivers, where the reference vmaps
+total_energy): one B2 launch over the batch.
 """
 from __future__ import annotations
 
@@ -136,3 +138,64 @@ def total_energy(pos, box, mol_alive, params, cfg, thermo, mu0=None,
         rd=pt_ff.rd, lrc=lrc_ff, es_real=pt_ff.es_real, es_recip=zero,
         es_self=es_self_ff, es_excl=pt_ff.es_excl, polar=zero, vdw=zero)
     return e, e_frozen, aux
+
+
+def box_constants(box, cfg):
+    """(pair header, volume, Ewald k-vectors, reciprocal weights) of a
+    fixed ``box`` (the last two None without Ewald): what
+    total_energy_chains needs of the box.  A 3 x 3 inverse or determinant
+    on the card is a solver call of its own, slow beside a batched energy,
+    so a caller with a fixed box (the surf drivers) computes these once."""
+    scal = pairs.pair_scalars(box, cfg)
+    volume = torch.abs(torch.linalg.det(box))
+    if cfg.coulomb != "ewald":
+        return scal, volume, None, None
+    kv = ewald.kvectors(box, cfg.ewald_kmax)
+    return scal, volume, kv, ewald.recip_weights(box, scal[1], kv)
+
+
+def total_energy_chains(pos, box, mol_alive, params, cfg, thermo,
+                        box_consts=None):
+    """``total_energy`` of each geometry of ``pos`` [C, N, 3] with the box,
+    the params and ``mol_alive`` shared (the surf drivers, where the
+    reference vmaps total_energy): an EnergyBreakdown of [C] slots, what C
+    lone total_energy calls compute (split_frozen off; the SCF starts from
+    zero dipoles), from the same pieces over the batch — pairs.pair_pass
+    (one B2 launch), ewald's structure factor and reciprocal sum, under
+    polarization the SCF of every geometry in the same CG rounds
+    (thole.solve_scf_chains: B5 over the batch), under cdvdw one batched
+    eigensolve.  ``box_consts``: box_constants(box, cfg), computed here
+    when not given."""
+    C = pos.shape[0]
+    alive = mol_alive[params.mol_id] & params.atom_ok
+    zero = torch.zeros(C, dtype=pos.dtype, device=pos.device)
+    scal, volume, kv, recip_w = box_consts or box_constants(box, cfg)
+    pt = pairs.pair_pass(pos, box, alive, params, cfg, thermo.temperature,
+                         scal=scal)
+    rc, alpha = scal[0], scal[1]
+    lrc = zero
+    if pairs.lrc_on(cfg):
+        sc = pairs.lrc_self_coefficient(alive, params, cfg, rc)
+        lrc = (pt.lrc_coeff + 0.5 * sc) / volume
+    es_recip = es_self = zero
+    if cfg.coulomb == "ewald":
+        es_recip = ewald.recip_energy_w(
+            *ewald.structure_factor(pos, params.charge, alive, kv), *recip_w)
+        es_self = zero + (ewald.self_energy(params.charge, alive, alpha)
+                          + ewald.background_correction(
+                              params.charge, alive, alpha, volume))
+    elif cfg.coulomb == "wolf":
+        es_self = zero + ewald.wolf_self_energy(params.charge, alive, alpha,
+                                                rc)
+    alive_c = alive.expand(C, alive.shape[0]).contiguous()
+    polar = zero
+    if cfg.polarization:
+        e0 = thole.static_field_chains(pos, box, alive_c, params, cfg)
+        mu, _, _ = thole.solve_scf_chains(pos, box, alive_c, params, cfg, e0)
+        polar = thole.polar_energy(mu, e0)
+    vdw = zero
+    if cfg.cdvdw:
+        vdw = vdw_mod.vdw_energy(pos, box, alive_c, params, cfg)
+    return EnergyBreakdown(
+        rd=pt.rd, lrc=lrc, es_real=pt.es_real, es_recip=es_recip,
+        es_self=es_self, es_excl=pt.es_excl, polar=polar, vdw=vdw)

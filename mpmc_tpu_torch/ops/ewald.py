@@ -55,16 +55,21 @@ def _phase(rows, kvecs):
 
 
 def structure_factor(pos, charge, alive, kvecs, chunk=4096):
-    """S(k) = sum_i alive_i q_i e^{i k.r_i} -> (re, im), each [Nk].
-    Row-chunked so the [rows, Nk] phase block stays small at 10k atoms."""
+    """S(k) = sum_i alive_i q_i e^{i k.r_i} -> (re, im), each [Nk]; over
+    a batch of geometries ``pos`` [C, N, 3] (charges, alive mask and
+    k-vectors shared), each [C, Nk].  Row-chunked so the [(C,) rows, Nk]
+    phase block stays within chunk x Nk at 10k atoms."""
     q = torch.where(alive, charge, torch.zeros_like(charge))
-    re = torch.zeros(kvecs.shape[0], dtype=pos.dtype, device=pos.device)
+    lead = pos.shape[:-2]
+    re = torch.zeros(lead + kvecs.shape[:1], dtype=pos.dtype,
+                     device=pos.device)
     im = torch.zeros_like(re)
-    for i0 in range(0, pos.shape[0], chunk):
-        ph = _phase(pos[i0:i0 + chunk], kvecs)
-        qc = q[i0:i0 + chunk, None]
-        re = re + torch.sum(qc * torch.cos(ph), dim=0)
-        im = im + torch.sum(qc * torch.sin(ph), dim=0)
+    step = max(1, chunk // max(math.prod(lead), 1))
+    for i0 in range(0, pos.shape[-2], step):
+        ph = _phase(pos[..., i0:i0 + step, :], kvecs)
+        qc = q[i0:i0 + step, None]
+        re = re + torch.sum(qc * torch.cos(ph), dim=-2)
+        im = im + torch.sum(qc * torch.sin(ph), dim=-2)
     return re, im
 
 
@@ -105,7 +110,8 @@ def recip_energy_from_sk(sk_re, sk_im, box, alpha, kvecs, pair_w=2.0):
 
 
 def recip_energy(pos, charge, alive, box, alpha, kmax: int):
-    """Full reciprocal-space energy + structure factor."""
+    """Full reciprocal-space energy + structure factor ([C] and [C, Nk]
+    over a batch of geometries ``pos`` [C, N, 3])."""
     kv = kvectors(box, kmax)
     sk_re, sk_im = structure_factor(pos, charge, alive, kv)
     return recip_energy_from_sk(sk_re, sk_im, box, alpha, kv), (sk_re, sk_im)

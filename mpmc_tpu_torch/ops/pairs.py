@@ -3,7 +3,11 @@ mpmc_tpu/ops/pairs.py).
 
 - ``pair_pass``     : full-system terms (refresh and full energy);
 - ``mol_pair_pass`` : one molecule's rows against everything (the
-                      per-move delta of displace, insert and delete).
+                      per-move delta of displace, insert and delete);
+- ``mol_pair_partials`` / ``pair_matrix`` : the same rows reduced per
+                      column molecule — the molecule-pair energy cache
+                      of ``mol_cache`` (plain PyTorch, the reference's
+                      jnp path).
 
 Both go through ops/cuda/pair_kernel.py: on a CUDA tensor they launch the
 hand-written kernels (B2 and B4), on a CPU tensor they run the kernels'
@@ -210,14 +214,20 @@ def _block_terms(pos_i, row_idx, row_ok, row_mol, row_frozen, qi, ei, si,
     masks the molecule's own columns out of ``col_ok``).  Per-term masks:
     rd/es_real over inter pairs within rc, es_excl over intra pairs, lrc
     over inter pairs at any distance, min_r2 over active inter pairs at
-    any distance; each sum split by ff = frozen row & frozen col."""
+    any distance; each sum split by ff = frozen row & frozen col.
+
+    Over a batch of geometries (pair_kernel.pair_terms_chains_plain):
+    ``pos_i`` [C, B, 3] and ``pos`` [C, N, 3], everything else shared,
+    raw [C, 9]."""
     rc, alpha = scal[0], scal[1]
     box, box_inv = scal[2:11].reshape(3, 3), scal[11:20].reshape(3, 3)
-    dr = pbc_ops.min_image(pos_i[:, None, :] - pos[None, :, :], box, box_inv)
-    r2 = torch.sum(dr * dr, dim=-1)                       # [B,N]
+    dr = pbc_ops.min_image(pos_i[..., :, None, :] - pos[..., None, :, :],
+                           box, box_inv)
+    r2 = torch.sum(dr * dr, dim=-1)                       # [(C,) B, N]
+    lead = r2.shape[:-2]
     pair_ok = row_ok[:, None] & col_ok[None, :]
     if triangular:
-        cols = torch.arange(pos.shape[0], device=pos.device)
+        cols = torch.arange(pos.shape[-2], device=pos.device)
         tri = cols[None, :] > row_idx[:, None]
         if row_start:
             tri = tri | (cols[None, :] < row_start)
@@ -246,27 +256,32 @@ def _block_terms(pos_i, row_idx, row_ok, row_mol, row_frozen, qi, ei, si,
 
     def s(values, mask):
         if values is None:
-            return zero
-        return torch.sum(torch.where(mask, values, zero))
+            return torch.zeros(lead, dtype=pos.dtype, device=pos.device)
+        # a position-free value (the tail coefficient) lacks the batch axis
+        v = torch.broadcast_to(torch.where(mask, values, zero), r2.shape)
+        return torch.sum(v, dim=(-2, -1))
 
     out = []
     for keep in (~ff, ff):
         out += [s(rd_u, act & keep), s(es_u, act & keep),
                 s(ex_u, intra & keep), s(tc, inter & keep)]
-    out.append(torch.min(torch.where(inter & ~ff, r2,
-                                     torch.full_like(r2, math.inf)))
-               if r2.numel() else torch.full((), math.inf, dtype=pos.dtype,
-                                             device=pos.device))
-    return torch.stack(out)
+    if r2.numel():
+        mn = torch.where(inter & ~ff, r2, torch.full_like(r2, math.inf))
+        out.append(mn.amin(dim=(-2, -1)))
+    else:
+        out.append(torch.full(lead, math.inf, dtype=pos.dtype,
+                              device=pos.device))
+    return torch.stack(out, -1)
 
 
 def _pair_terms(raw):
-    """(active, frozen_frozen) PairTerms from a raw [9] pass output."""
-    act = PairTerms(rd=raw[0], es_real=KE * raw[1], es_excl=KE * raw[2],
-                    lrc_coeff=raw[3], min_r2=raw[8])
-    ff = PairTerms(rd=raw[4], es_real=KE * raw[5], es_excl=KE * raw[6],
-                   lrc_coeff=raw[7],
-                   min_r2=torch.full_like(raw[8], math.inf))
+    """(active, frozen_frozen) PairTerms from a raw [9] pass output (of
+    [C] tensors from a raw [C, 9])."""
+    r = raw.unbind(-1)
+    act = PairTerms(rd=r[0], es_real=KE * r[1], es_excl=KE * r[2],
+                    lrc_coeff=r[3], min_r2=r[8])
+    ff = PairTerms(rd=r[4], es_real=KE * r[5], es_excl=KE * r[6],
+                   lrc_coeff=r[7], min_r2=torch.full_like(r[8], math.inf))
     return act, ff
 
 
@@ -278,7 +293,7 @@ def quantum(cfg) -> bool:
 
 
 def pair_pass(pos, box, atom_alive, params, cfg, temperature,
-              split_frozen=False, row_start=0):
+              split_frozen=False, row_start=0, scal=None):
     """Full-system pair terms: each (i<j) pair once.  With
     ``split_frozen`` returns (active, frozen_frozen) PairTerms.
 
@@ -291,9 +306,16 @@ def pair_pass(pos, box, atom_alive, params, cfg, temperature,
     refuses them (and coulomb gwp and the cdvdw repulsions), the pass is
     B2's plain version on the tensors' device.  Under ``rd_crystal`` RD is
     the image sum (crystal.rd_crystal_full) and the rest the pass with rd
-    none; it takes no ``row_start`` and no rd_lrc, as the reference's."""
+    none; it takes no ``row_start`` and no rd_lrc, as the reference's.
+
+    Over a batch of geometries (the surf drivers, where the reference
+    vmaps total_energy): ``pos`` [C, N, 3], everything else shared, one
+    B2 launch over the batch (pair_kernel.pair_terms_chains), PairTerms
+    of [C] tensors.  ``scal``: a precomputed pair_scalars(box, cfg)."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
 
+    if scal is None:
+        scal = pair_scalars(box, cfg)
     if cfg.rd_crystal:
         from mpmc_tpu_torch.ops import crystal
         if cfg.rd_lrc:
@@ -303,23 +325,34 @@ def pair_pass(pos, box, atom_alive, params, cfg, temperature,
             raise ValueError("row-restricted pair_pass does not support "
                              "rd_crystal (image-sum split differs)")
         base = pair_pass(pos, box, atom_alive, params, _crystal_es(cfg),
-                         temperature, split_frozen=split_frozen)
-        cry = crystal.rd_crystal_full(pos, box, atom_alive, params, cfg,
-                                      temperature, split_frozen=split_frozen)
+                         temperature, split_frozen=split_frozen, scal=scal)
+        if pos.dim() == 3:          # a batch: each geometry's image sum
+            if split_frozen:
+                raise ValueError("a batch of geometries takes no "
+                                 "split_frozen under rd_crystal")
+            cry = torch.stack([crystal.rd_crystal_full(
+                p, box, atom_alive, params, cfg, temperature) for p in pos])
+        else:
+            cry = crystal.rd_crystal_full(pos, box, atom_alive, params, cfg,
+                                          temperature,
+                                          split_frozen=split_frozen)
         if split_frozen:
             return (dataclasses.replace(base[0], rd=base[0].rd + cry[0]),
                     dataclasses.replace(base[1], rd=base[1].rd + cry[1]))
         return dataclasses.replace(base, rd=base.rd + cry)
     frozen = params.mol_frozen[params.mol_id]
-    args = (pos, params.charge, params.eps, params.sig, params.mol_id32,
-            atom_alive, frozen, pair_scalars(box, cfg), cfg)
+    args = (pos.contiguous(), params.charge, params.eps, params.sig,
+            params.mol_id32, atom_alive, frozen, scal, cfg)
     disp, gwp = site_columns(params, cfg)
+    batch = pos.dim() == 3
     if pair_kernel.supported(cfg):
-        raw = pair_kernel.pair_terms(*args, row_start=row_start, disp=disp)
+        fn = pair_kernel.pair_terms_chains if batch else pair_kernel.pair_terms
+        raw = fn(*args, row_start=row_start, disp=disp)
     else:
-        raw = pair_kernel.pair_terms_plain(
-            *args, row_start=row_start,
-            qc=(params.mol_mass_atom, temperature), disp=disp, gwp=gwp)
+        fn = (pair_kernel.pair_terms_chains_plain if batch
+              else pair_kernel.pair_terms_plain)
+        raw = fn(*args, row_start=row_start,
+                 qc=(params.mol_mass_atom, temperature), disp=disp, gwp=gwp)
     act, ff = _pair_terms(raw)
     # row-restricted: ff slots are exact zeros (no frozen row)
     return (act, ff) if split_frozen else act.combine(ff)
@@ -344,7 +377,12 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
     (Feynman-Hibbs/Kleinert, coulomb gwp, the cdvdw repulsions), the pass
     is B4's plain version on the tensors' device.  Under ``rd_crystal``
     RD is the molecule's image sum (crystal.mol_rd_crystal, per chain
-    over chains) and the rest the pass with rd none."""
+    over chains) and the rest the pass with rd none.  Under ``cell_list``
+    with an index attached (ops/celllist.attach) the pass is the culled
+    one (celllist.mol_pair_pass_culled, plain PyTorch on the device, one
+    batched pass over chains): B4 is not launched, as the reference's
+    routing (rd_crystal, then the culled pass, then the kernel) has
+    it."""
     from mpmc_tpu_torch.ops.cuda import pair_kernel
 
     if cfg.rd_crystal:
@@ -356,6 +394,11 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
                                          temperature, mol, row_pos=row_pos,
                                          shared=shared)
         return dataclasses.replace(base, rd=base.rd + cry)
+    if cfg.cell_list and params.cell_index is not None:
+        from mpmc_tpu_torch.ops import celllist
+        return celllist.mol_pair_pass_culled(
+            pos, box, atom_alive, params, cfg, temperature, mol,
+            params.cell_index, row_pos=row_pos, shared=shared, scal=scal)
     if scal is None:
         scal = pair_scalars(box, cfg)
     args = (pos, params.charge, params.eps, params.sig, params.mol_id32,
@@ -460,3 +503,144 @@ def mol_lrc_self_coefficient(params, cfg, rc, mol):
     return torch.sum(torch.where(row_valid(params, mol), tc,
                                  torch.zeros_like(tc)), dim=-1)
 
+
+# ---------------------------------------------------------------------------
+# molecule-pair energy cache (cfg.mol_cache)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MolPartials:
+    """Per-column-molecule partial sums of one molecule's pair pass: the
+    unit of the molecule-pair energy cache (displace needs one pass,
+    delete none).  [M] each (``min_r2`` 0-d) for one chain, [C, M] ([C])
+    over chains."""
+    rd: torch.Tensor        # sum of RD pair energies against each molecule
+    es_real: torch.Tensor   # real-space Coulomb, the constant applied
+    lrc: torch.Tensor       # distance-independent tail coefficients
+    min_r2: torch.Tensor    # closest approach (the overlap test)
+
+
+def per_molecule_sums(v, params):
+    """[..., N] -> [..., M]: the sum of v over each molecule's atoms (the
+    padding rows, which carry the last slot's id, left out), one
+    index_add over the atoms' molecule ids (the reference takes
+    differences of one cumulative sum, a segment sum for its backend)."""
+    out = torch.zeros(v.shape[:-1] + (params.n_mols_max,), dtype=v.dtype,
+                      device=v.device)
+    v = torch.where(params.atom_ok, v, torch.zeros_like(v))
+    return out.index_add_(v.ndim - 1, params.mol_id, v)
+
+
+def _partials_block(rows, valid, pos, col_ok, params, cfg, temperature,
+                    idx, mol, scal):
+    """(rd, es raw, lrc) [B, M] and min_r2 [B] of B row sets [B, A, 3]
+    against the columns of ``pos`` ([B, N, 3], or [1, N, 3] shared)."""
+    rc, alpha = scal[0], scal[1]
+    dr = pbc_ops.min_image(rows[:, :, None, :] - pos[:, None, :, :],
+                           scal[2:11].reshape(3, 3),
+                           scal[11:20].reshape(3, 3))
+    r2 = torch.sum(dr * dr, dim=-1)                         # [B, A, N]
+    inter = valid[:, :, None] & col_ok[:, None, :]
+    act = inter & (r2 < rc * rc)
+    disp, gwp = site_columns(params, cfg)
+    if disp is not None:
+        disp = (tuple(c[idx][..., None] for c in disp), disp)
+    if gwp is not None:
+        gwp = (gwp[idx][..., None], gwp)
+    qc = None
+    if quantum(cfg):
+        t = torch.as_tensor(temperature, dtype=r2.dtype, device=r2.device)
+        qc = (params.mol_mass[mol][:, None, None], params.mol_mass_atom,
+              t.reshape(t.shape + (1, 1)))
+    rd_u, es_u, _, tc = _tile_values(
+        r2, params.charge[idx][..., None], params.eps[idx][..., None],
+        params.sig[idx][..., None], params.charge, params.eps, params.sig,
+        cfg, rc, alpha, qc, disp, gwp)
+    zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
+
+    def seg(values, mask):
+        if values is None:
+            return torch.zeros((r2.shape[0], params.n_mols_max),
+                               dtype=r2.dtype, device=r2.device)
+        return per_molecule_sums(
+            torch.sum(torch.where(mask, values, zero), dim=1), params)
+
+    mn = torch.where(inter, r2, torch.full_like(r2, math.inf)).amin(
+        dim=(1, 2))
+    return seg(rd_u, act), seg(es_u, act), seg(tc, inter), mn
+
+
+def mol_pair_partials(pos, box, atom_alive, params, cfg, temperature, mol,
+                      row_pos=None, shared=False, scal=None) -> MolPartials:
+    """mol_pair_pass reduced per column molecule instead of to scalars:
+    ``sum(p.rd)`` is mol_pair_pass(...).rd, and so on.  One chain
+    (``pos`` [N, 3], ``mol`` 0-d), C chains (``pos`` [C, N, 3],
+    ``atom_alive`` [C, N], ``mol`` [C], ``row_pos`` [C, A, 3]) or, with
+    ``shared``, one system against the rows of ``mol`` [K] (pair_matrix),
+    in blocks of at most PLAIN_PAIRS pairs.  Plain PyTorch on the
+    tensors' device: the reference's jnp path, outside any kernel."""
+    from mpmc_tpu_torch.ops.cuda.pair_kernel import PLAIN_PAIRS
+    single = pos.ndim == 2 and not shared
+    mol = torch.as_tensor(mol, device=pos.device).reshape(-1)
+    if pos.ndim == 2:
+        pos, atom_alive = pos[None], atom_alive[None]
+        if row_pos is not None and single:
+            row_pos = row_pos[None]
+    if scal is None:
+        scal = pair_scalars(box, cfg)
+    temp = torch.as_tensor(temperature, device=pos.device)
+    B = mol.shape[0]
+    A = params.max_atoms_per_mol
+    step = max(1, PLAIN_PAIRS // max(A * pos.shape[1], 1))
+    one = pos.shape[0] == 1
+    outs = []
+    for b0 in range(0, B, step):
+        sl = slice(b0, min(b0 + step, B))
+        m = mol[sl]
+        idx = params.mol_atoms[m]                               # [b, A]
+        valid = (torch.arange(A, device=pos.device)[None, :]
+                 < params.mol_natoms[m][:, None])
+        p = pos if one else pos[sl]
+        al = atom_alive if one else atom_alive[sl]
+        if row_pos is not None:
+            rows = row_pos[sl]
+        elif one:
+            rows = p[0][idx]
+        else:
+            rows = p[torch.arange(p.shape[0], device=pos.device)[:, None],
+                     idx]
+        col_ok = al & (params.mol_id[None, :] != m[:, None])
+        outs.append(_partials_block(
+            rows, valid, p, col_ok, params, cfg,
+            temp[sl] if temp.ndim else temp, idx, m, scal))
+    rd, es, lrc, mn = (torch.cat(x) for x in zip(*outs))
+    out = MolPartials(rd=rd, es_real=KE * es, lrc=lrc, min_r2=mn)
+    if single:
+        return MolPartials(out.rd[0], out.es_real[0], out.lrc[0],
+                           out.min_r2[0])
+    return out
+
+
+def pair_matrix(pos, box, atom_alive, params, cfg, temperature):
+    """[M, M] symmetric molecule-pair matrices (rd, es_real, lrc_coeff):
+    entry (m, o) is the total pair term between molecules m and o (each
+    atom pair once; diagonal zero).  Built at the first refresh
+    (metropolis.initialize) from one row pass of every molecule slot
+    (mol_pair_partials over the slots), a frozen molecule's row (never a
+    move's target, but a column of every sorbate row) filled by symmetry.
+    Kept current by the accept-time row and column scatters: entries are
+    always whole pass outputs, never sums of increments, so the cache
+    cannot drift."""
+    M = params.n_mols_max
+    p = mol_pair_partials(pos, box, atom_alive, params, cfg, temperature,
+                          torch.arange(M, device=pos.device), shared=True)
+    # frozen rows (mol_atoms truncates the framework to A rows) and dead
+    # slots stay zero; frozen rows come back from their columns below
+    ok = atom_alive[params.mol_start] & ~params.mol_frozen
+    frozen = params.mol_frozen[:, None]
+
+    def assemble(c):
+        c = torch.where(ok[:, None], c, torch.zeros_like(c))
+        return torch.where(frozen, c.T, c)
+
+    return assemble(p.rd), assemble(p.es_real), assemble(p.lrc)

@@ -99,6 +99,9 @@ class Params:
     # [P] int64 rows of the coupled-dipole vdW sites (alpha > 0 and
     # omega > 0), fixed at build: ops/vdw.py's 3P x 3P eigensolve
     vdw_sites: Optional[torch.Tensor] = None
+    # the framework cell index (ops/celllist.CellIndex), attached by
+    # celllist.attach when cfg.cell_list is on and culling applies
+    cell_index: Optional[object] = None
     # int32 copy of mol_id, the type the CUDA pair kernels read (derived)
     mol_id32: torch.Tensor = dataclasses.field(init=False, repr=False)
     # [N] each atom's molecular mass mol_mass[mol_id]: the molecule-pair
@@ -226,6 +229,13 @@ class SimState:
     # None unless cfg.quantum_rotation
     spin: Optional[torch.Tensor] = None
     rot_f: Optional[torch.Tensor] = None
+    # molecule-pair energy cache (ops/pairs.pair_matrix; cfg.mol_cache):
+    # [M, M] symmetric rd, es_real and tail-coefficient sums between
+    # molecule slots, kept exact by the accept-time row and column
+    # scatters; None unless metropolis.cache_eligible
+    cache_rd: Optional[torch.Tensor] = None
+    cache_es: Optional[torch.Tensor] = None
+    cache_lrc: Optional[torch.Tensor] = None
 
     def atom_alive(self, params: Params):
         return self.mol_alive[params.mol_id] & params.atom_ok

@@ -118,9 +118,9 @@ def test_cli_needs_cuda_without_cpu_flag(tmp_path):
 # single-chain polar deck writes its checkpoint), NPT (item None: a
 # frameless LJ deck on the scan path), the Feynman-Hibbs/Kleinert
 # corrections, cavity bias, TMMC, spinflip, the other RD forms, coulomb
-# gwp, cdvdw, rd_crystal and spectre (item None: the single-chain polar
-# deck with the line), and polar NPT (item None: a frameless polar H2
-# deck on the scan path)
+# gwp, cdvdw, rd_crystal, spectre and cell_list (item None: the
+# single-chain polar deck with the line), and polar NPT (item None: a
+# frameless polar H2 deck on the scan path)
 REFUSED = [
     ("chains 4", "chains 4\npolarization on", None),
     ("ensemble npt", None),
@@ -131,7 +131,7 @@ REFUSED = [
     ("cavity_bias on", None),
     ("tmmc on", None), ("quantum_rotation on", None),
     ("cdvdw on", None), ("feynman_hibbs on", None),
-    ("feynman_kleinert on", None), ("cell_list on", "A12b"),
+    ("feynman_kleinert on", None), ("cell_list on", None),
     ("rd_crystal on", None), ("spectre on", None), ("sg on", None),
     ("disp_expansion on", None), ("gwp on", None),
     ("spatial_devices 2", "A13"), ("checkpoint_output ck.npz", None),
@@ -155,8 +155,10 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
     gwp, once refused, run it with a polar term (gwp through the plain
     pass, named in the log); cdvdw, rd_crystal and spectre, once refused,
     run it too (no site has a Drude omega, so vdw is 0; the image-sum
-    route and the spectre sites named in the log); polar NPT, once
-    refused, runs a frameless polar H2 deck whose box moves."""
+    route and the spectre sites named in the log); cell_list, once
+    refused, runs it with the index's decision logged (no explicit
+    cutoff: the dense pass); polar NPT, once refused, runs a frameless
+    polar H2 deck whose box moves."""
     line, item = case[-2:]
     if item is None and line == "ensemble npt\npolarization on":
         from test_torch_polar_npt import _deck
@@ -208,6 +210,11 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
                     == (line == "rd_crystal on"))
             assert (("spectre: 0 free-charge sites" in out)
                     == (line == "spectre on"))
+            return
+        if line == "cell_list on":
+            assert su.state.step == 3 and float(su.state.energy.polar) < 0
+            assert "cell_list: no index" in buf.getvalue()
+            assert su.params.cell_index is None
             return
         if line in ("sg on", "disp_expansion on", "gwp on"):
             assert su.state.step == 3 and float(su.state.energy.polar) < 0

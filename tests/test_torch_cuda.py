@@ -3,7 +3,9 @@ or a per-chain header, and at position stride 0; each RD form's instance
 of both, and a short run of each form and of coulomb gwp —, the fused µVT kernel
 B1, the fused NVT/NVE kernel B3 — both at every cluster size, B3 after an
 NPT volume move too —, the Thole field kernel B5 and the polar
-delayed-acceptance stage-1 kernel B6; B1, B3 and B6 with the
+delayed-acceptance stage-1 kernel B6, B2 over a batch of geometries
+(every RD instance; the surf drivers' energies) and the culled cell-list
+pass and molecule-pair cache on the card; B1, B3 and B6 with the
 Feynman-Hibbs/Kleinert corrections too, B1 and B6 with cavity bias and
 TMMC, their XT instances, all three with spinflip, and all three's
 instance of each RD form and of coulomb gwp) against
@@ -2272,3 +2274,176 @@ def test_qvib_grid_is_one_stride0_launch(device, dtype):
         rows.reshape(-1, rows.shape[2], 3).contiguous(),
         pairs.pair_scalars(state.box, cfg), cfg)
     _close(k.reshape(-1), (p[:, 0] + pairs.KE * p[:, 1]), dtype)
+
+
+# ---------------------------------------------------------------- B2 x C
+B2C_FORMS = ("lj",) + RD_FORMS
+
+
+def _dimer_batch(dtype, device, form, C=512, seed=12):
+    """C geometries of a charged three-site H2 dimer in a 30 A cube (the
+    surf drivers' system: one B2 tile, nearly all padding), each with its
+    own separation (2.5-8 A) and orientations of both molecules, under the
+    RD ``form`` (systems.with_rd_form, disp_expansion damped with its
+    tail) and Ewald: (pair_terms' shared arguments, pos [C, N, 3],
+    disp)."""
+    from mpmc_tpu_torch.config import RunConfig
+    from mpmc_tpu_torch.mc import surface
+    from mpmc_tpu_torch.state import build_system
+    dt = torch.float64 if dtype == "float64" else torch.float32
+    params, state = build_system(np.eye(3) * 30.0,
+                                 species=(systems.h2_bss3(),),
+                                 capacity=(2,), initial_counts=(2,),
+                                 dtype=dt, device=device)
+    cfg = RunConfig(ensemble="nvt", dtype=dtype, rd_lrc=True)
+    if form != "lj":
+        params, cfg = systems.with_rd_form(params, cfg, form, rd_lrc=True,
+                                           damp_dispersion=True)
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(2, C, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    pos = surface.dimer_positions(
+        params, state.pos, 0, 1,
+        torch.as_tensor(rng.uniform(2.5, 8.0, C), dtype=dt, device=device),
+        torch.as_tensor(q[1], dtype=dt, device=device),
+        torch.as_tensor(q[0], dtype=dt, device=device)).contiguous()
+    disp, _ = pairs.site_columns(params, cfg)
+    shared = (params.charge, params.eps, params.sig, params.mol_id32,
+              state.atom_alive(params), params.mol_frozen[params.mol_id],
+              pairs.pair_scalars(state.box, cfg), cfg)
+    return shared, pos, disp
+
+
+@pytest.mark.parametrize("form", B2C_FORMS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pair_terms_chains_kernel_identities(device, dtype, form):
+    """B2 over a batch of dimer geometries at C = 1, 3, 64 and 512, every
+    RD instance: one launch a call; each entry (every entry at C <= 64,
+    every 37th at 512) equal to the lone B2 launch on its positions bit
+    for bit; C = 1 equal to pair_terms; every entry within _close of
+    pair_terms_chains_plain."""
+    shared, pos, disp = _dimer_batch(dtype, device, form)
+    for C in (1, 3, 64, 512):
+        before = pk.pair_terms_chains.launches
+        k = pk.pair_terms_chains(pos[:C].contiguous(), *shared, disp=disp)
+        torch.cuda.synchronize(device)
+        assert pk.pair_terms_chains.launches == before + 1
+        assert k.shape == (C, 9)
+        for c in range(0, C, 1 if C <= 64 else 37):
+            lone = pk.pair_terms(pos[c].contiguous(), *shared, disp=disp)
+            assert torch.equal(k[c], lone), (C, c)
+        p = pk.pair_terms_chains_plain(pos[:C], *shared, disp=disp)
+        _close(k, p, dtype)
+    assert float(k[:, 0].abs().max()) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pair_terms_chains_on_the_bench_system(device, dtype):
+    """B2 over two geometries of the 10.8k bench system (its own and a
+    jittered copy) at row_start 0 and F: each entry the lone launch bit
+    for bit, within _close of the plain version."""
+    params, state, cfg, _ = systems.mof_h2_gcmc(
+        n_side=21, n_h2=256, capacity=512, dtype=dtype, device=device)
+    moved = systems.jittered(params, state, seed=4)
+    pos = torch.stack([state.pos, moved.pos]).contiguous()
+    shared = (params.charge, params.eps, params.sig, params.mol_id32,
+              state.atom_alive(params), params.mol_frozen[params.mol_id],
+              pairs.pair_scalars(state.box, cfg), cfg)
+    for rs in (0, metropolis.frozen_refresh_rows(params, cfg)):
+        k = pk.pair_terms_chains(pos, *shared, row_start=rs)
+        for c in range(2):
+            assert torch.equal(k[c], pk.pair_terms(pos[c].contiguous(),
+                                                   *shared, row_start=rs))
+            _close(k[c], pk.pair_terms_plain(pos[c], *shared, row_start=rs),
+                   dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_batched_total_energy_launches_b2_over_the_batch(device, dtype):
+    """energy.total_energy_chains of 64 dimer geometries on the card: one
+    B2 launch over the batch in either precision (its gate is
+    pair_kernel.supported, as pairs.pair_pass's for a lone geometry), and
+    each entry's terms those of a lone total_energy on its positions."""
+    from mpmc_tpu_torch.config import RunConfig, Thermo
+    from mpmc_tpu_torch.mc import surface
+    from mpmc_tpu_torch.ops import energy
+    from mpmc_tpu_torch.state import build_system
+    dt = torch.float64 if dtype == "float64" else torch.float32
+    params, state = build_system(np.eye(3) * 30.0,
+                                 species=(systems.h2_bss3(),),
+                                 capacity=(2,), initial_counts=(2,),
+                                 dtype=dt, device=device)
+    cfg = RunConfig(ensemble="nvt", dtype=dtype, rd_lrc=True)
+    thermo = Thermo.make(temperature=77.0, dtype=dt, device=device)
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(2, 64, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    pos = surface.dimer_positions(
+        params, state.pos, 0, 1,
+        torch.as_tensor(rng.uniform(2.5, 8.0, 64), dtype=dt, device=device),
+        torch.as_tensor(q[1], dtype=dt, device=device),
+        torch.as_tensor(q[0], dtype=dt, device=device))
+    before = (pk.pair_terms_chains.launches, pk.pair_terms.launches)
+    e = energy.total_energy_chains(pos, state.box, state.mol_alive, params,
+                                   cfg, thermo)
+    assert (pk.pair_terms_chains.launches, pk.pair_terms.launches) == (
+        before[0] + 1, before[1])
+    for c in range(0, 64, 9):
+        lone, _ = energy.total_energy(pos[c], state.box, state.mol_alive,
+                                      params, cfg, thermo)
+        for k in ("rd", "es_real", "es_excl", "lrc"):
+            assert torch.equal(getattr(e, k)[c], getattr(lone, k)), (c, k)
+        _close(e.total[c], lone.total, dtype)
+
+
+def _culled_system(device):
+    """The small MOF + H2 system in float64 with rc 6 and the cell index
+    forced (min_reduction None), on ``device``."""
+    from mpmc_tpu_torch.ops import celllist
+    params, state, cfg, thermo = systems.mof_h2_gcmc(
+        n_side=6, n_h2=12, capacity=24, dtype="float64", device=device)
+    cfg = dataclasses.replace(cfg, cutoff=6.0, cell_list=True)
+    params = celllist.attach(params, state.pos, state.box, cfg,
+                             min_reduction=None)
+    assert params.cell_index is not None
+    return params, state, cfg, thermo
+
+
+def test_culled_pass_and_partials_on_the_card(device):
+    """The culled pass (one chain, and over chains at stride 0) and the
+    molecule-pair partials and pair_matrix on the card against the same
+    calls on the CPU (rel 1e-12); the scan path under cell_list and under
+    mol_cache launches no B4."""
+    P, S, C, T = _culled_system(device)
+    Pc, Sc, _, Tc = _culled_system("cpu")
+    mols = torch.tensor([1, 2, 3, 4])
+    rows = S.pos[P.mol_atoms[mols.to(device)]] + 0.7
+    k = pairs.mol_pair_pass(S.pos, S.box, S.atom_alive(P), P, C,
+                            T.temperature, mols.to(device), row_pos=rows,
+                            shared=True)
+    p = pairs.mol_pair_pass(Sc.pos, Sc.box, Sc.atom_alive(Pc), Pc, C,
+                            Tc.temperature, mols, row_pos=rows.cpu(),
+                            shared=True)
+    for f in ("rd", "es_real", "lrc_coeff", "min_r2"):
+        np.testing.assert_allclose(getattr(k, f).cpu().numpy(),
+                                   getattr(p, f).numpy(), rtol=1e-12,
+                                   atol=1e-9)
+    Cm = dataclasses.replace(C, cell_list=False, mol_cache=True)
+    km = pairs.pair_matrix(S.pos, S.box, S.atom_alive(P), P, Cm,
+                           T.temperature)
+    pm = pairs.pair_matrix(Sc.pos, Sc.box, Sc.atom_alive(Pc), Pc, Cm,
+                           Tc.temperature)
+    for a, b in zip(km, pm):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-12,
+                                   atol=1e-9 * float(b.abs().max()))
+    for cfg in (C, Cm):
+        pk.reset_counts()
+        st = metropolis.initialize(S, P, cfg, T)
+        g = torch.Generator(device=device).manual_seed(3)
+        st, _ = metropolis.run_chunk(st, P, cfg, T, 100, generator=g)
+        torch.cuda.synchronize(device)
+        assert pk.mol_pair.launches == 0 and pk.pair_terms.launches == 1
+        fresh = metropolis.initialize(st, P, cfg, T)
+        np.testing.assert_allclose(float(st.energy.total),
+                                   float(fresh.energy.total), rtol=1e-9,
+                                   atol=1e-6)
