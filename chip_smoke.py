@@ -96,6 +96,16 @@ Phases (any failure raises, so the exit code is non-zero):
    CPU float64, the pressure
    within the bound of its energies' float32 rounding; frames/s and the
    reader's ms per frame;
+15b. analyze (phase_analyze) — every frame, insertion and geometry
+   analyzer of mpmc_tpu_torch.analyze in float64 on the card over those
+   two trajectories at the reference's defaults: rdf, density (0.7 A),
+   loading, cluster, msd and orient of the GCMC one's H2, sq of the LJ
+   fluid, widom and widom_mol (h2_bss3) at 2,000 tries a frame, pore
+   (20,000 points, 2,000 centres) and asa (512 points a sphere) over its
+   framework; frames/s (pore, asa: seconds), and each held against the
+   same call on the CPU in the replay references' process (cuts:
+   ANALYZE_CUTS), integers equal, floats within rel 1e-9, pairs that
+   move bins within 1e-9 A of an edge;
 16. isotherm campaign (phase_campaign) — ``python -m
    mpmc_tpu_torch.campaign``'s main on DECK, 16 chains at 0.5, 1 and 2
    atm, twice uninterrupted and once stopped after the first pressure and
@@ -3440,6 +3450,7 @@ class _ReplayReferences:
     def __init__(self):
         self.dir = tempfile.mkdtemp(prefix="replay_refs_")
         self.items, self.proc = {}, None
+        self.analyze = {}          # phase_analyze's card runs of its checks
 
     def add(self, label, deck, frame, card):
         with open(os.path.join(self.dir, f"{label}.inp"), "w") as f:
@@ -3499,6 +3510,14 @@ class _ReplayReferences:
             log(f"replay {label}: frame {i} held against cpu f64 term by "
                 f"term (the references' process {r['seconds']:.1f} s, "
                 f"waited {time.perf_counter() - t0:.1f} s)")
+        if self.analyze:
+            cpu = refs["analyze"]
+            moved = {k: _analyze_agree(k, v, cpu[k])
+                     for k, v in self.analyze.items()}
+            log(f"analyze: {len(moved)} analyzers held card against cpu "
+                f"float64 (integers equal, floats rel 1e-9; pairs moved "
+                f"bins within 1e-9 A of an edge: {moved}; cpu cuts: "
+                f"{ANALYZE_CUTS}; cpu runs {cpu['seconds']:.1f} s) ({smi})")
         self.stop()
 
     def stop(self):
@@ -3527,8 +3546,214 @@ def replay_references(path):
         out[label] = {"f64": ref, "f32": p32, "e64": e64, "e32": e32,
                       "n_vol": [n, vol],
                       "seconds": time.perf_counter() - t0}
+    spec = os.path.join(path, "analyze.json")
+    if os.path.exists(spec):
+        t0 = time.perf_counter()
+        with open(spec) as f:
+            labels = json.load(f)
+        calls = _analyze_calls(path)
+        out["analyze"] = {k: _json_ready((calls[k][1] or calls[k][0])("cpu"))
+                          for k in labels}
+        out["analyze"]["seconds"] = time.perf_counter() - t0
     with open(os.path.join(path, "refs.json"), "w") as f:
         json.dump(out, f)
+
+
+# phase_analyze: the analyzers at the reference's defaults over the replay
+# trajectories, and the cuts of their CPU checks (the checks' inputs; the
+# card runs the cut input too, to compare)
+ANALYZE_T, ANALYZE_TRIES, ANALYZE_SPHERE = 77.0, 2000, 512
+ANALYZE_CUTS = {
+    "sq": "the LJ trajectory's first 2 of 10 frames",
+    "widom_mol": "the GCMC trajectory's first 3 of 10 frames",
+    "asa": "the spheres of 64 of the 9,261 framework atoms, every 145th "
+           "(all 9,261 block)"}
+
+
+def _first_frames(src, dst, n):
+    """The first n frames of a PQR trajectory, copied to dst."""
+    out, k = [], 0
+    with open(src) as f:
+        for line in f:
+            out.append(line)
+            if line.startswith("END"):
+                k += 1
+                if k == n:
+                    break
+    with open(dst, "w") as f:
+        f.writelines(out)
+
+
+def analyze_inputs(refs):
+    """The analyze phase's inputs beside the replay trajectories in
+    ``refs.dir``: the h2_bss3 insertion template and the cut trajectories
+    of the CPU checks (ANALYZE_CUTS); and the request for the CPU runs in
+    the references' process."""
+    from mpmc_tpu_torch.io import pqr
+    from mpmc_tpu_torch.models import systems
+    sp = systems.h2_bss3()
+    atoms = [pqr.PqrAtom(serial=k + 1, name=sp.atom_names[k],
+                         mol_name=sp.name, mol_id=1, flag="M",
+                         xyz=np.asarray(sp.pos[k], np.float64),
+                         mass=float(sp.mass[k]), charge=float(sp.charge[k]),
+                         polar=0.0, eps=float(sp.eps[k]),
+                         sig=float(sp.sig[k]))
+             for k in range(len(sp.atom_names))]
+    d = refs.dir
+    pqr.write(os.path.join(d, "h2_bss3.pqr"), atoms)
+    _first_frames(os.path.join(d, "lj.traj.pqr"),
+                  os.path.join(d, "lj2.traj.pqr"), 2)
+    _first_frames(os.path.join(d, "gcmc.traj.pqr"),
+                  os.path.join(d, "gcmc3.traj.pqr"), 3)
+    with open(os.path.join(d, "analyze.json"), "w") as f:
+        json.dump(sorted(_analyze_calls(d)), f)
+
+
+def _analyze_calls(d):
+    """{label: (timed call, the CPU check's call or None: the timed one)},
+    a call taking the device and returning {"frames", "exact" (lists
+    equal), "float" (lists within rel 1e-9), "bins" (integer histograms
+    under the bin-edge rule), "near" (entries within 1e-9 A of an
+    edge)}, over the trajectories in ``d``."""
+    from mpmc_tpu_torch import analyze as an
+    from mpmc_tpu_torch.io import pqr
+    g, lj, g3, lj2, tpl = (os.path.join(d, f) for f in (
+        "gcmc.traj.pqr", "lj.traj.pqr", "gcmc3.traj.pqr", "lj2.traj.pqr",
+        "h2_bss3.pqr"))
+    box = pqr.read_first_frame(g).box
+    dims = tuple(int(x) for x in np.maximum(np.ceil(
+        np.linalg.norm(box, axis=1) / 0.7), 1))
+    rng = np.random.default_rng(0)          # pore(seed=0)'s points
+    pts, ctr = rng.uniform(0, 1, (20000, 3)), rng.uniform(0, 1, (2000, 3))
+    fp = np.random.default_rng(0).uniform(0, 1, (ANALYZE_TRIES, 3))
+    pq = an.random_posquat(ANALYZE_TRIES, seed=0)
+    u = an.sphere_points(ANALYZE_SPHERE, seed=0)
+
+    def rdf(dev):
+        h, norm, near, nf = an.rdf_counts(g, "H2G", "H2G", device=dev)
+        return {"frames": nf, "bins": [h], "float": [[norm]], "near": near}
+
+    def density(dev):
+        grid, nf, near = an.density_grid(g, "H2", "M", dims, device=dev)
+        return {"frames": nf, "bins": [grid.ravel()], "near": near}
+
+    def loading(dev):
+        n = an.loading(g, "H2", "M", device=dev)
+        return {"frames": len(n), "exact": [n]}
+
+    def cluster(dev):
+        series, hist = an.cluster(g, "H2", "M", device=dev)
+        return {"frames": len(series), "exact": [series.ravel(), hist]}
+
+    def msd(dev):
+        m, c = an.msd(g, "H2", "M", device=dev)
+        return {"frames": len(m), "float": [m], "exact": [c]}
+
+    def orient(dev):
+        c1, c2, c = an.orientation(g, "H2", "M", "H2E", device=dev)
+        return {"frames": len(c1), "float": [c1, c2], "exact": [c]}
+
+    def sq(path):
+        def call(dev):
+            _, total, nf, near = an.sq_hist(path, device=dev)
+            return {"frames": nf, "bins": [total], "near": near}
+        return call
+
+    def widom(dev):
+        e, ue, nf = an.widom_means(g, 34.2, 2.96, ANALYZE_T, fp, device=dev)
+        return {"frames": nf, "float": [[e, ue]]}
+
+    def widom_mol(path):
+        def call(dev):
+            e, ue, nf = an.widom_mol_means(path, *an.template_sites(tpl),
+                                           ANALYZE_T, pq, device=dev)
+            return {"frames": nf, "float": [[e, ue]]}
+        return call
+
+    def pore(dev):
+        ds, rp = an.pore_samples(g, "*", "F", frac_pts=pts, frac_ctr=ctr,
+                                 device=dev)
+        return {"frames": 1, "float": [ds, rp]}
+
+    def asa(atoms):
+        def call(dev):
+            c, _ = an.asa_counts(g, "*", "F", probe_sigma=3.64, unit_pts=u,
+                                 atoms=atoms, device=dev)
+            return {"frames": 1, "exact": [c]}
+        return call
+
+    n_fw = sum(1 for a in pqr.read_first_frame(g).atoms
+               if a.flag == "F" and a.sig > 0)
+    return {"rdf": (rdf, None), "density": (density, None),
+            "loading": (loading, None), "cluster": (cluster, None),
+            "msd": (msd, None), "orient": (orient, None),
+            "sq": (sq(lj), sq(lj2)), "widom": (widom, None),
+            "widom_mol": (widom_mol(g), widom_mol(g3)),
+            "pore": (pore, None),
+            "asa": (asa(None), asa(np.arange(0, n_fw, 145)[:64]))}
+
+
+def _json_ready(res):
+    return {k: ([np.asarray(x).tolist() for x in v] if isinstance(v, list)
+                else v) for k, v in res.items()}
+
+
+def phase_analyze(device, smi, refs):
+    """Every frame, insertion and geometry analyzer of
+    mpmc_tpu_torch.analyze on the card in float64, over phase_replay's
+    10-frame trajectories: rdf of the H2 centres, the H2 COM density at
+    0.7 A, loading, cluster, msd and orient of the 10.8k GCMC run (N
+    changing), sq of the 10k LJ fluid, widom (one LJ site) and widom_mol
+    (h2_bss3) at 2,000 tries a frame, pore (20,000 points, 2,000 centres)
+    and asa (512 points a sphere) over its 9,261 framework atoms.  Each
+    is timed (frames/s; seconds for pore and asa) and its check run
+    kept: the references' process runs the same calls on the CPU
+    (ANALYZE_CUTS), compared by _ReplayReferences.check."""
+    calls = _analyze_calls(refs.dir)
+    rep = {}
+    for label, (timed, check) in calls.items():
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        res = timed(device)
+        torch.cuda.synchronize(device)
+        sec = time.perf_counter() - t0
+        rep[label] = {"seconds": sec, "frames": res["frames"],
+                      "frames_per_sec": res["frames"] / sec}
+        refs.analyze[label] = check(device) if check else res
+    log("analyze on the card (float64): " + "  ".join(
+        f"{k} {r['seconds']:.2f} s" if k in ("pore", "asa")
+        else f"{k} {r['frames_per_sec']:.2f} frames/s"
+        for k, r in rep.items()) + f"  ({smi})")
+    return rep
+
+
+def _analyze_agree(label, card, cpu):
+    """Hold one analyzer's card run against its CPU run; returns the
+    count of pairs that moved bins (within the edge rule)."""
+    for a, b in zip(card.get("exact", []), cpu.get("exact", [])):
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise AssertionError(f"analyze {label}: exact outputs differ")
+    for a, b in zip(card.get("float", []), cpu.get("float", [])):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = float(np.max(np.abs(b))) if b.size else 0.0
+        if not np.allclose(a, b, rtol=1e-9, atol=1e-9 * scale):
+            raise AssertionError(f"analyze {label}: card vs cpu beyond rel "
+                                 f"1e-9: {np.max(np.abs(a - b))!r}")
+    moved = 0
+    for a, b in zip(card.get("bins", []), cpu.get("bins", [])):
+        a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+        n = max(a.size, b.size)
+        a, b = np.pad(a, (0, n - a.size)), np.pad(b, (0, n - b.size))
+        diff = int(np.abs(a - b).sum())
+        allowed = 2 * (card.get("near", 0) + cpu.get("near", 0))
+        if diff > allowed:
+            raise AssertionError(f"analyze {label}: {diff} bin counts moved,"
+                                 f" {allowed} allowed by the edge rule")
+        moved += (diff + 1) // 2
+    if card["frames"] != cpu["frames"]:
+        raise AssertionError(f"analyze {label}: frames {card['frames']} vs "
+                             f"{cpu['frames']}")
+    return moved
 
 
 class _PointLog(io.StringIO):
@@ -7273,7 +7498,10 @@ def _phases(dev, smi, t0, build_s, refs, replay_refs):
     ckpt_rep = phase_checkpoint(dev, smi)
     mark("phase_replay")
     replay_rep = phase_replay(dev, smi, replay_refs)
+    analyze_inputs(replay_refs)
     replay_refs.start()
+    mark("phase_analyze")
+    analyze_rep = phase_analyze(dev, smi, replay_refs)
     mark("phase_campaign")
     campaign_rep = phase_campaign(dev, smi)
     t_11 = time.time() - t_11
@@ -7706,6 +7934,10 @@ def _phases(dev, smi, t0, build_s, refs, replay_refs):
         + f"  launches cell_list {cl_launches} mol_cache {mc_launches} surf "
         f"{surf_launches}  cell_cache_surf_phases_seconds {t_ccs:.1f}  wall_seconds "
         f"{time.time() - t0:.1f}  ({smi})")
+    log("  ".join(f"analyze_{k}_seconds {r['seconds']:.3f}" if k in (
+        "pore", "asa") else f"analyze_{k}_frames_per_sec "
+        f"{r['frames_per_sec']:.2f}" for k, r in analyze_rep.items())
+        + f"  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,10 @@ Feynman-Hibbs/Kleinert corrections too, B1 and B6 with cavity bias and
 TMMC, their XT instances, all three with spinflip, and all three's
 instance of each RD form and of coulomb gwp) against
 their plain versions on the card; B2 and B4 never launched under those
-corrections; the native trajectory reader on a 10.8k-atom trajectory and
-checkpoints of card states with a CUDA generator.
+corrections; the native trajectory reader on a 10.8k-atom trajectory,
+checkpoints of card states with a CUDA generator, and the float64 frame,
+insertion and geometry analyzers of analyze.py on the card against the
+same functions on the CPU.
 
 These need a CUDA device and ``nvcc``; they skip elsewhere.  The file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -2447,3 +2449,62 @@ def test_culled_pass_and_partials_on_the_card(device):
         np.testing.assert_allclose(float(st.energy.total),
                                    float(fresh.energy.total), rtol=1e-9,
                                    atol=1e-6)
+
+
+ANALYZERS = ("rdf", "density", "loading", "cluster", "msd", "orient", "sq",
+             "widom", "widom_mol", "pore", "asa")
+
+
+def _analyzer_runs(name, path, tpl):
+    """(integer outputs, float outputs) of one analyzer on a device."""
+    from mpmc_tpu_torch import analyze as an
+    u = an.sphere_points(96, seed=3)
+    calls = {
+        "rdf": lambda d: an.rdf_counts(path, "H2G", "H2G", rmax=6.0,
+                                       nbins=60, device=d)[:2],
+        "density": lambda d: an.density_grid(path, "H2", "M", (12, 11, 10),
+                                             device=d),
+        "loading": lambda d: (an.loading(path, "H2", "M", device=d),),
+        "cluster": lambda d: an.cluster(path, "H2", "M", rc=4.5,
+                                        max_size=8, device=d),
+        "msd": lambda d: an.msd(path, "H2", "M", device=d),
+        "orient": lambda d: an.orientation(path, "H2", "M", "H2E",
+                                           device=d),
+        "sq": lambda d: an.sq_hist(path, "*", "*", dr_bin=0.01,
+                                   device=d)[:3],
+        "widom": lambda d: an.widom_means(
+            path, 34.2, 2.96, 77.0,
+            np.random.default_rng(1).uniform(0, 1, (300, 3)), rc=6.0,
+            device=d),
+        "widom_mol": lambda d: an.widom_mol(path, tpl, 77.0, n_try=100,
+                                            seed=2, rc=6.0, device=d),
+        "pore": lambda d: an.pore_samples(
+            path, "*", "F", frac_pts=np.random.default_rng(4).uniform(
+                0, 1, (1500, 3)),
+            frac_ctr=np.random.default_rng(5).uniform(0, 1, (200, 3)),
+            device=d),
+        "asa": lambda d: an.asa_counts(path, "*", "*", probe_sigma=1.0,
+                                       unit_pts=u, device=d),
+    }
+    return calls[name]
+
+
+@pytest.mark.parametrize("name", ANALYZERS)
+def test_analyzer_on_the_card_equals_the_cpu(device, name, tmp_path):
+    """Each frame analyzer in float64 on the card against the same
+    function on the CPU (a GCMC trajectory, N changing, triclinic cell):
+    integer outputs equal, float outputs within rel 1e-9."""
+    from torch_analyze import gcmc_traj, h2_template
+    path, _, _ = gcmc_traj(tmp_path)
+    tpl = h2_template(tmp_path)
+    call = _analyzer_runs(name, path, tpl)
+    card, cpu = call(device), call("cpu")
+    if isinstance(cpu, dict):
+        card = [card[k] for k in sorted(cpu)]
+        cpu = [cpu[k] for k in sorted(cpu)]
+    for a, b in zip(card, cpu):
+        a, b = np.asarray(a), np.asarray(b)
+        if b.dtype.kind in "iub":
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)

@@ -1,6 +1,7 @@
 """The port's fugacity-ladder parallel tempering on an ideal gas (a port
 of the reference's tests/test_parallel.py::test_pt_fugacity_ladder_ideal_gas
-through mpmc_tpu_torch.mc.run on the CPU)."""
+through mpmc_tpu_torch.mc.run on the CPU, its ladder records reweighted by
+the port's analyze.pt_gcmc_mbar)."""
 import io
 import json
 import os
@@ -10,7 +11,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from mpmc_tpu import analyze as janalyze  # noqa: E402
 from mpmc_tpu.constants import ATM2K_A3  # noqa: E402
+from mpmc_tpu_torch import analyze as tanalyze  # noqa: E402
 from mpmc_tpu_torch.io import input_script  # noqa: E402
 from mpmc_tpu_torch.mc import run as trun  # noqa: E402
 
@@ -19,10 +22,12 @@ torch.set_num_threads(1)
 
 def test_pt_fugacity_ladder_ideal_gas(tmp_path):
     """Fugacity-ladder PT of an ideal gas (the reference's
-    tests/test_parallel.py::test_pt_fugacity_ladder_ideal_gas, without its
-    MBAR reweighting: the port has no analyze module yet, ROADMAP A12):
-    each rung holds its own <N> = f V / kT, read from the JSONL ladder
-    records, and the ladder's multiset is conserved."""
+    tests/test_parallel.py::test_pt_fugacity_ladder_ideal_gas): each rung
+    holds its own <N> = f V / kT, read from the JSONL ladder records, the
+    ladder's multiset is conserved, and the port's pt_gcmc_mbar turns the
+    one run into the continuous linear isotherm (the reference's
+    pt_gcmc_mbar on the same stream equal to it), while pt_mbar refuses
+    the stream."""
     pqr = tmp_path / "he.pqr"
     pqr.write_text(
         "ATOM 1 He HE 1 M 5.0 5.0 5.0 4.0026 0.0 0.0 0.0 0.0\nEND\n")
@@ -75,3 +80,14 @@ pqr_input {pqr}
         mean_n = ns[skip:][sel].mean()
         expect = fv * ATM2K_A3 * v / T
         assert mean_n == pytest.approx(expect, rel=0.35), fv
+    res = tanalyze.pt_gcmc_mbar(str(jsonl), n_f=6, skip=0.2)
+    assert res["converged"] and res["temperature"] == T
+    np.testing.assert_allclose(res["n_mean"],
+                               res["f_grid"] * ATM2K_A3 * v / T, rtol=0.35)
+    assert np.all(np.diff(res["n_mean"]) > 0)
+    want = janalyze.pt_gcmc_mbar(str(jsonl), n_f=6, skip=0.2)
+    for k in ("f_grid", "n_mean", "u_mean", "var_n", "ess", "ladder_f",
+              "delta_f"):
+        np.testing.assert_allclose(res[k], want[k], rtol=1e-10, atol=0)
+    with pytest.raises(ValueError, match="pt_gcmc_mbar"):
+        tanalyze.pt_mbar(str(jsonl))
