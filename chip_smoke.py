@@ -50,12 +50,12 @@ Phases (any failure raises, so the exit code is non-zero):
    C = 1 and 16 with B3's share of the device time;
 9. polar — the 10.8k system with polarizable framework sites through
    run.run (phase_polar): plain Metropolis, the scan-path delayed
-   acceptance and the rc 14 A tile-culled CG, 200 steps each, B5 in
+   acceptance and the rc 14 A tile-culled CG, 100 steps each, B5 in
    every CG iteration, with bookkeeping of the polar term, B5 launches
    against CG iterations, host syncs and a profile per step;
 9b. fused polar DA — the same system with ``polar_delayed on`` and
    ``fused_mc on`` (phase_pda_decks): the direct field, ``polar_wolf on``
-   and ``cutoff 14``, 200 steps each through run.run — B6 per segment,
+   and ``cutoff 14``, 100 steps each through run.run — B6 per segment,
    the exact SCF per survivor — with the same checks, B6 launches per
    step and B6's share of a profiled chunk.
 
@@ -237,7 +237,7 @@ Phases (any failure raises, so the exit code is non-zero):
    on two geometries of the 10.8k system at row_start F; times at C =
    512 beside a lone dimer launch, the bound;
 34. cell_list (phase_cell_list) — DECK with cutoff 12 and ``cell_list
-   on``: the scan path (1,000 steps; B4 never launched), ``chains 16``
+   on``: the scan path (500 steps; B4 never launched), ``chains 16``
    (200), fused µVT (1,000, rd_lrc off) bit for bit against the same
    deck without the option, and with rd_lrc the reference's tail trap
    refused; bookkeeping; the culled pass beside B4's dense delta and
@@ -247,11 +247,29 @@ Phases (any failure raises, so the exit code is non-zero):
    (200), the carried cache against a fresh pair_matrix after each run
    and a further chunk, bookkeeping;
 36. the surf drivers (phase_surf) — the BSS H2 dimer scan (surf_ang 45:
-   102,400 orientation pairs a separation, 2.5-8.0 A by 0.25, one B2 x
+   102,400 orientation pairs a separation, 2.5-8.0 A by 0.5, one B2 x
    512 launch a batch), the polar scan (surf_ang 90; B5 over the batch),
    an argon surf_fit (60 points, 2,000 SA steps) and a surf_multi_fit
    (256 four-H2 configurations): launches per batch or evaluation,
    surf_output's lines, parameters recovered.
+37. multi-device (ROADMAP A13; every time here of ranks that share the
+   one card: the route, not the scaling) — phase_spatial: two gloo ranks
+   (``chip_smoke.py --md-rank``) run ``ensemble te`` with
+   ``spatial_devices 2`` on DECK (each term against the single-rank te),
+   the polar bench system's sharded energy (the polar term within
+   _polar_tol, CG iterations beside one rank's), a 200-step spatial µVT
+   scan (the ranks' digests equal at every block, carried energy against
+   a fresh recompute, steps/s, collectives a step and their share) and
+   each rank's strips against their plain versions (B2 on its row tiles,
+   B4 on its column range and, on rank 0, the full range bit for bit the
+   launch without one, B5 with its row tiles' visit table), beside a
+   world-size-1 NCCL group's sharded te; phase_chain_devices: ``chains
+   32`` fused µVT and the 8-replica B3 PT deck with ``chain_devices 2``
+   (each rank's block after the first chunk bit for bit this process's
+   launch of it, the ladder a permutation); phase_multihost_pt: the PT
+   deck through ``python -m mpmc_tpu_torch --distributed --dist-backend
+   gloo`` as two processes, its JSONL history equal to
+   phase_chain_devices's.
 
 Phase 4c (phase_thole_kernel) holds B5, both modes, against its plain
 version on that polar system, dense and culled (culled == dense bit for
@@ -280,6 +298,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -313,6 +332,12 @@ SOURCES = {"pair_terms": "mpmc_tpu_torch/csrc/pair_kernel.cu",
               for f in ("sg", "dreiding", "b14_7", "disp")},
            "mol_pair_chains_disp": "mpmc_tpu_torch/csrc/pair_disp_kernel.cu",
            "dipole_field_c8_header": "mpmc_tpu_torch/csrc/thole_kernel.cu",
+           # the spatial strips (A13): B2 on a rank's row tiles, B4 on its
+           # column range, B5 with its row tiles' visit table
+           "pair_terms_strip": "mpmc_tpu_torch/csrc/pair_kernel.cu",
+           "mol_pair_cols": "mpmc_tpu_torch/csrc/pair_kernel.cu",
+           "dipole_field_strip": "mpmc_tpu_torch/csrc/thole_kernel.cu",
+           "charge_field_strip": "mpmc_tpu_torch/csrc/thole_kernel.cu",
            **{f"run_steps_uvt_{f}": f"mpmc_tpu_torch/csrc/uvt_{f}_kernel.cu"
               for f in ("sg", "dreiding", "b14_7", "disp", "gwp")},
            "run_steps_uvt_disp_c32": "mpmc_tpu_torch/csrc/uvt_disp_kernel.cu",
@@ -351,6 +376,10 @@ REPLACES = {"pair_terms": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
                for f in ("sg", "dreiding", "b14_7", "disp")},
             "mol_pair_chains_disp": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
             "dipole_field_c8_header": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
+            "pair_terms_strip": "mpmc_tpu/ops/pallas/pair_kernel.py:79",
+            "mol_pair_cols": "mpmc_tpu/ops/pallas/pair_kernel.py:336",
+            "dipole_field_strip": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
+            "charge_field_strip": "mpmc_tpu/ops/pallas/thole_kernel.py:68",
             **{f"run_steps_uvt_{f}": "mpmc_tpu/ops/pallas/mc_kernel.py:910"
                for f in ("sg", "dreiding", "b14_7", "disp", "gwp",
                          "disp_c32", "gwp_fh2")},
@@ -435,7 +464,8 @@ EPS32 = float(np.finfo(np.float32).eps)
 RC_CULL = 14.0
 # the polar decks: steps each, and a corrtime short enough that a deck
 # makes several per-corrtime refreshes (a full SCF solve each)
-POLAR_STEPS, POLAR_CORRTIME = 200, 100
+# one block of the polar decks (cut from two, 200 steps, for the time limit)
+POLAR_STEPS, POLAR_CORRTIME = 100, 100
 # the bench system: mof_h2_gcmc(n_side=21, spacing=4.0, n_h2=256,
 # capacity=512) -> 9,261 framework atoms + 512 x 3 H2 sites
 N_SIDE, N_H2, CAPACITY = 21, 256, 512
@@ -455,7 +485,7 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_calls(fn, device, n=20):
+def time_calls(fn, device, n=10):
     """Median ms of ``n`` CUDA-event-timed calls (after one warm-up), or
     of host-clock calls on the CPU."""
     fn()
@@ -2259,7 +2289,7 @@ def _profile(label, chunk, n_steps, device, kernel=None):
     return out
 
 
-def phase_profile(device, su, n_steps=50):
+def phase_profile(device, su, n_steps=20):
     """Where a scan-path GCMC step's time goes, and the check that a step
     makes no host sync (over ``n_steps`` steps each)."""
     from mpmc_tpu_torch.mc import metropolis
@@ -6908,8 +6938,11 @@ RC_CELL = 12.0
 C_SURF = 512
 # the surf decks: the BSS H2 dimer in a 30 A cube, separations 2.5-8.0 A
 SURF_BOX = 30.0
-SURF_LINES = ("surf_min 2.5\nsurf_max 8.0\nsurf_inc 0.25\nsurf_decomp on\n"
-              "surf_output surf.dat\n")
+# 2.5-8.0 A by SURF_INC (cut from 0.25 A, 23 separations, for the time
+# limit: the launches a separation and the output's rows are checked alike)
+SURF_INC = 0.5
+SURF_LINES = ("surf_min 2.5\nsurf_max 8.0\nsurf_inc " + f"{SURF_INC}"
+              "\nsurf_decomp on\nsurf_output surf.dat\n")
 # the polar surf scan's orientation grid (cut from 45 degrees: the SCF of
 # 102,400 pairs a separation would take ~100 s)
 SURF_ANG, SURF_ANG_POLAR = 45, 90
@@ -7085,7 +7118,7 @@ def _cache_gap(label, st, su):
     _check_bookkeeping(label, st, su)
 
 
-def phase_cell_list(device, scan_steps=1000, chains=16, chain_steps=200,
+def phase_cell_list(device, scan_steps=500, chains=16, chain_steps=200,
                     fused_steps=1000):
     """``cell_list on`` at rc 12 on DECK: the index attached, the scan
     path (culled per-move pass, B4 never launched), ``chains 16``, and
@@ -7100,7 +7133,8 @@ def phase_cell_list(device, scan_steps=1000, chains=16, chain_steps=200,
     from mpmc_tpu_torch.state import slice_chain
     lines = f"cutoff {RC_CELL}\ncell_list on\n"
     reps, launches = {}, {}
-    su, avgs, text, ln = _run_deck(device, lines, numsteps=scan_steps)
+    su, avgs, text, ln = _run_deck(device, lines + f"corrtime {scan_steps}\n",
+                                   numsteps=scan_steps)
     ci = su.params.cell_index
     if ci is None or "cell_list: framework cell index" not in text:
         raise AssertionError("cell_list: no index attached on DECK")
@@ -7304,7 +7338,7 @@ SURF_DECK = (f"ensemble surf\ntemperature 77\nbasis1 {SURF_BOX} 0 0\n"
 def phase_surf(device):
     """The surf drivers on the card: the BSS H2 dimer scan (surf_ang 45:
     320 orientations each, 102,400 pairs, 200 launches of 512 a
-    separation; 2.5-8.0 A by 0.25; surf_decomp), the same with
+    separation; 2.5-8.0 A by SURF_INC; surf_decomp), the same with
     polarization on (surf_ang 90: B5 over the batch in the SCF), an argon
     surf_fit of 60 analytic-LJ points from perturbed parameters (2,000 SA
     steps, one B2 x 60 launch each) and a surf_multi_fit of 256 four-H2
@@ -7316,7 +7350,7 @@ def phase_surf(device):
     from mpmc_tpu_torch.ops import energy as energy_mod
     reps, launches = {}, {}
     dimer = {"dimer.pqr": lambda: _write_dimer_pqr("dimer.pqr")}
-    seps = int(round((8.0 - 2.5) / 0.25)) + 1
+    seps = int(round((8.0 - 2.5) / SURF_INC)) + 1
     for key, extra, ang in (("surf", "", SURF_ANG),
                             ("surf_polar", "polarization on\n",
                              SURF_ANG_POLAR)):
@@ -7420,6 +7454,713 @@ def _fit_check(label, fit, eps_t, sig_t, ln, evals, text):
     if not (abs(fit["eps"] / eps_t - 1) <= 0.05
             and abs(fit["sig"] / sig_t - 1) <= 0.02):
         raise AssertionError(f"{label}: parameters not recovered")
+
+
+# ---------------------------------------------------------------------------
+# Multi-device (A13): ranks of a torch.distributed group on the one card
+# ---------------------------------------------------------------------------
+
+# ranks of the gloo groups that share the card, the spatial µVT scan
+# (steps, corrtime: two lockstep checks), the chain_devices decks' steps
+MD_RANKS = 2
+SPATIAL_STEPS, SPATIAL_CORRTIME = 200, 100
+MD_MOVES = ("displace", "insert", "delete")   # metropolis.DISPLACE.. order
+CHAIN_STEPS = 2000
+# seconds a group of ranks may take before the phase fails
+MD_TIMEOUT = 300
+MD_TE = "ensemble te\nspatial_devices {D}\n"
+MD_SCAN = "spatial_devices {D}\n"
+MD_CHAINS = "fused_mc on\nchains 32\nchain_devices {D}\n"
+MD_PT = PT_DECKS[0][2] + "chain_devices {D}\n"
+
+
+def _md_decks(tmp, D=MD_RANKS):
+    """The multi-device decks over ``D`` ranks, written into ``tmp`` beside
+    the bench system's PQR (DECK's): te.inp, scan.inp, chains.inp and
+    pt.inp."""
+    from mpmc_tpu_torch.io import pqr
+    params, state, _, _ = bench_system("float32", "cpu")
+    pqr.write_state(os.path.join(tmp, "bench10k.pqr"), params, state,
+                    ["H2"])
+    L = float(state.box[0, 0])
+    decks = {
+        "te": DECK.format(numsteps=0, L=L) + MD_TE.format(D=D),
+        "scan": DECK.format(numsteps=SPATIAL_STEPS, L=L).replace(
+            "corrtime 1000", f"corrtime {SPATIAL_CORRTIME}")
+        + MD_SCAN.format(D=D),
+        "chains": DECK.format(numsteps=CHAIN_STEPS, L=L)
+        + MD_CHAINS.format(D=D),
+        "pt": DECK.format(numsteps=CHAIN_STEPS, L=L) + MD_PT.format(D=D)}
+    for k, text in decks.items():
+        with open(os.path.join(tmp, f"{k}.inp"), "w") as f:
+            f.write(text)
+
+
+def _md_launch(mode, world, tmp, backend="gloo"):
+    """Start ``world`` ranks of ``chip_smoke.py --md-rank <mode>`` (one
+    gloo or NCCL group at a free local port, cwd ``tmp``), wait for all,
+    and return each rank's result (a JSON file); a rank that fails or
+    runs past MD_TIMEOUT fails the phase with its output's end."""
+    return _md_wait(_md_start(mode, world, tmp, backend), f"{mode} ranks")
+
+
+def _md_start(mode, world, tmp, backend="gloo"):
+    """_md_launch's processes, started: [(process, log, result path)]."""
+    from mpmc_tpu_torch.parallel import multihost
+    port = multihost.free_port()
+    procs = []
+    for r in range(world):
+        out = os.path.join(tmp, f"{mode}_{r}.json")
+        logf = open(os.path.join(tmp, f"{mode}_{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--md-rank", mode,
+             str(r), str(world), str(port), out, backend], cwd=tmp,
+            stdout=logf, stderr=subprocess.STDOUT), logf, out))
+    return procs
+
+
+def _md_wait(procs, what):
+    """Wait for (process, log file, result path or None) entries; kill
+    them all and fail if one fails or MD_TIMEOUT passes."""
+    t_end = time.time() + MD_TIMEOUT
+    try:
+        for p, _, _ in procs:
+            p.wait(timeout=max(1.0, t_end - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, f, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+    bad = [(i, p.returncode) for i, (p, _, _) in enumerate(procs)
+           if p.returncode != 0]
+    if bad:
+        tails = "\n".join(f"--- {what} {i} (rc {rc}):\n" + open(
+            procs[i][1].name).read()[-3000:] for i, rc in bad)
+        raise AssertionError(f"{what} failed: {bad}\n{tails}")
+    return [json.load(open(out)) if out else None for _, _, out in procs]
+
+
+def md_rank(mode, rank, world, port, out, backend):
+    """A child rank (``chip_smoke.py --md-rank``): join the group, run
+    ``mode``'s body on this rank's device, write its result as JSON."""
+    sys.path.insert(0, REPO)
+    from mpmc_tpu_torch.parallel import multihost
+    dev = multihost.initialize(f"127.0.0.1:{port}", int(world), int(rank),
+                               backend=backend)
+    try:
+        res = {"spatial": _md_spatial_rank, "te1": _md_te1_rank,
+               "chains": _md_chains_rank}[mode](dev)
+        torch.cuda.synchronize(dev)
+    finally:
+        multihost.teardown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def _md_strip_checks(dev, d, D):
+    """This rank's strips against their plain versions on the card: B2 on
+    row tiles I mod D == d of the bench system (row_start 0), B4 on the
+    column strip d of D (and, on rank 0, the full range [0, N) bit for
+    bit the launch without a range), B5 (dipole mode) with the strip's
+    visit table on the polar bench system (the other rows exact zeros);
+    float32 against the plain float64, _tol's and phase_thole_kernel's
+    rules.  Times per call (CUDA events) while the other ranks time
+    theirs: two ranks on one card."""
+    from mpmc_tpu_torch.ops import pairs
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    rep, strip = {}, (d, D)
+    sys32 = bench_system("float32", dev)
+    sys64 = bench_system("float64", dev)
+
+    def b2_args(s):
+        params, state, cfg, _ = s
+        return (state.pos, params.charge, params.eps, params.sig,
+                params.mol_id32, state.atom_alive(params),
+                params.mol_frozen[params.mol_id],
+                pairs.pair_scalars(state.box, cfg), cfg)
+
+    a32, a64 = b2_args(sys32), b2_args(sys64)
+    k = pk.pair_terms(*a32, strip=strip).double().cpu().numpy()
+    p64 = pk.pair_terms_plain(*a64, strip=strip).cpu().numpy()
+    p32 = pk.pair_terms_plain(*a32, strip=strip).double().cpu().numpy()
+    fin = np.isfinite(p64)
+    tol = _tol(torch.float32, p64, p32)
+    err = np.abs(k - p64)
+    if not (np.all(err[fin] <= tol[fin])
+            and np.array_equal(np.isfinite(k), fin)):
+        raise AssertionError(f"B2 strip {strip} disagrees with its plain "
+                             f"version: {err} tol {tol}")
+    alive = a32[5].cpu().numpy()
+    rows = pk.strip_rows(len(alive), 0, strip)
+    idx = np.flatnonzero(alive)
+    above = len(idx) - np.searchsorted(idx, rows, side="right")
+    n_pairs = int(np.sum(above[alive[rows]]))
+    bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4, _nbytes(*a32[:8]) + 36)
+    rep["pair_terms_strip"] = dict(
+        max_abs_err=float(err[fin].max()),
+        ms=time_calls(lambda: pk.pair_terms(*a32, strip=strip), dev),
+        device_ms=time_device(lambda: pk.pair_terms(*a32, strip=strip), dev,
+                              n=50),
+        plain_ms=time_calls(lambda: pk.pair_terms_plain(*a32, strip=strip),
+                            dev, n=3),
+        full_ms=time_calls(lambda: pk.pair_terms(*a32), dev),
+        bound_ms=bound, bound_by=by, pairs=n_pairs,
+        tiles=pk.work_list(len(alive), 0, dev, strip).numel(),
+        tiles_full=pk.work_list(len(alive), 0, dev).numel())
+    # B4: an alive H2's current rows against the column strip
+    params, state, cfg, _ = sys32
+    h2 = int(np.flatnonzero((params.mol_species >= 0).cpu().numpy()
+                            & state.mol_alive.cpu().numpy())[0])
+
+    def m_args(s):
+        params, state, cfg, _ = s
+        return (state.pos, params.charge, params.eps, params.sig,
+                params.mol_id32, state.atom_alive(params), params.mol_atoms,
+                params.mol_natoms, torch.tensor(h2, device=dev), None,
+                pairs.pair_scalars(state.box, cfg), cfg)
+
+    m32, m64 = m_args(sys32), m_args(sys64)
+    n = len(alive)
+    cols = pk.strip_cols(n, strip)
+    ranges = [cols] + ([(0, n)] if d == 0 else [])
+    for cr in ranges:
+        k = pk.mol_pair(*m32, cols=cr).double().cpu().numpy()
+        p64 = pk.mol_pair_plain(*m64, cols=cr).cpu().numpy()
+        p32 = pk.mol_pair_plain(*m32, cols=cr).double().cpu().numpy()
+        tol = _tol(torch.float32, p64, p32)
+        err = np.abs(k - p64)
+        fin = np.isfinite(p64)
+        if not (np.all(err[fin] <= tol[fin])
+                and np.array_equal(np.isfinite(k), fin)):
+            raise AssertionError(f"B4 columns {cr} disagree with the plain "
+                                 f"version: {err} tol {tol}")
+        if cr == (0, n):
+            if not torch.equal(pk.mol_pair(*m32, cols=cr),
+                               pk.mol_pair(*m32)):
+                raise AssertionError("B4 over the full range [0, N) is not "
+                                     "the launch without a range, bit for "
+                                     "bit")
+            rep["mol_pair_full_range_bits"] = True
+            continue
+        own = (params.mol_id == h2).cpu().numpy()
+        n_cols = int(np.sum(alive[cr[0]:cr[1]] & ~own[cr[0]:cr[1]]))
+        n_pairs = int(params.mol_natoms[h2]) * n_cols
+        sub = [t[cr[0]:cr[1]] if torch.is_tensor(t) and t.ndim
+               and t.shape[0] == n else t for t in m32[:8]]
+        bound, by = _bound_ms(n_pairs * OPS_PAIR_B2B4,
+                              _nbytes(*sub, m32[10]) + 16)
+        rep["mol_pair_cols"] = dict(
+            max_abs_err=float(err[fin].max()), cols=list(cr),
+            ms=time_calls(lambda: pk.mol_pair(*m32, cols=cr), dev),
+            device_ms=time_device(lambda: pk.mol_pair(*m32, cols=cr), dev,
+                                  n=200),
+            full_ms=time_calls(lambda: pk.mol_pair(*m32), dev),
+            plain_ms=time_calls(lambda: pk.mol_pair_plain(*m32, cols=cr),
+                                dev),
+            bound_ms=bound, bound_by=by, pairs=n_pairs,
+            plan=pk.mol_pair_plan(cr[1] - cr[0], 1, False, torch.float32,
+                                  cfg))
+    # B5, both modes, over the strip's row tiles: the charge mode is the
+    # sharded static field, the dipole mode every sharded matvec
+    for mode, kern, plain in (("dipole", tk.dipole_field,
+                               tk.dipole_field_plain),
+                              ("charge", tk.charge_field,
+                               tk.charge_field_plain)):
+        out = {}
+        for dtype in ("float64", "float32"):
+            params, state, cfg, _ = bench_system(dtype, dev,
+                                                 polarization=True)
+            alive = state.atom_alive(params)
+            pol_ok = alive & (params.polar > 0)
+            if mode == "dipole":
+                g = np.random.default_rng(91)
+                src = torch.as_tensor(g.normal(size=(len(alive), 3)) * 0.05,
+                                      dtype=state.pos.dtype, device=dev)
+                site_ok, src = pol_ok, torch.where(pol_ok[:, None], src, 0.0)
+            else:
+                site_ok, src = alive, params.charge
+            _, ni, nj = tk.grid_shape(len(alive))
+            visit = ((torch.arange(ni, device=dev) % D) == d)[:, None].expand(
+                ni, nj).to(torch.int32).contiguous()
+            args = (state.pos, state.box, site_ok, src, params.mol_id32,
+                    pairs.derived_cutoff(state.box, cfg), cfg.polar_damp,
+                    cfg.polar_damp_type)
+            out[dtype] = (args, kern(*args, ortho=True, visit=visit), visit)
+        (a64, _, _), (a32, k, visit) = out["float64"], out["float32"]
+        rows_in = (torch.arange(k.shape[0], device=dev) // tk.TI % D) == d
+        if bool((k[~rows_in] != 0).any()):
+            raise AssertionError(f"B5 {mode} strip: a row outside the strip "
+                                 "is not exactly zero")
+        p64 = plain(*a64, ortho=True, visit=visit).cpu()
+        p32 = plain(*a32, ortho=True, visit=visit).double().cpu()
+        scale = float(p64.abs().max())
+        err = float((k.double().cpu() - p64).abs().max())
+        tol = max(4.0 * float((p32 - p64).abs().max()), 2e-6 * scale)
+        if not err <= tol:
+            raise AssertionError(f"B5 {mode} strip {strip} disagrees with "
+                                 f"its plain version: {err} > {tol}")
+        fplan = tk.plan(a32[1], a32[5], a32[6], k.shape[0], visit)
+        n_eval, n_in = _b5_pairs(mode, a32[0], a32[1], a32[2], a32[4],
+                                 a32[5], visit)
+        bound, by = _bound_ms(n_eval * OPS_B5_PAIR + n_in * OPS_B5_IN[mode],
+                              _nbytes(*a32[:5], fplan.scal, visit, k))
+        rep[f"{mode}_field_strip"] = dict(
+            max_abs_err=err, tol=tol,
+            ms=time_calls(lambda: kern(*a32, ortho=True, visit=visit,
+                                       plan=fplan), dev),
+            device_ms=time_device(lambda: kern(
+                *a32, ortho=True, visit=visit, plan=fplan), dev, n=50),
+            full_ms=time_calls(lambda: kern(*a32, ortho=True), dev),
+            plain_ms=time_calls(lambda: plain(*a32, ortho=True, visit=visit),
+                                dev, n=3),
+            bound_ms=bound, bound_by=by, pairs=n_eval, pairs_in=n_in)
+    return rep
+
+
+def _md_spatial_rank(dev):
+    """A rank of phase_spatial: (a) te.inp through run.run (the sharded
+    te), its B2 strip launches and tiles; (b) the polar bench system's
+    sharded total energy (the polar term, CG iterations, mu saved for
+    the parent); (c) scan.inp (spatial µVT, SPATIAL_STEPS steps) through
+    run.run, then a further chunk's carried energy against a fresh
+    sharded recompute, the ranks' digests compared; the strip checks."""
+    from mpmc_tpu_torch.io import input_script
+    from mpmc_tpu_torch.mc import run as run_mod
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    from mpmc_tpu_torch.parallel import multihost, spatial
+    d, D = multihost.rank(), multihost.world()
+    res = {"rank": d}
+    _reset_counts()
+    multihost.reset_counts()
+    t0 = time.time()
+    job = input_script.parse_file("te.inp")
+    e = run_mod.run(job, log=io.StringIO(), device=dev)
+    torch.cuda.synchronize(dev)
+    res["te"] = {k: float(v) for k, v in e.as_dict().items()}
+    res["te_seconds"] = time.time() - t0
+    n = int(run_mod.setup(job, device="cpu").params.mol_id.shape[0])
+    res["te_b2"] = {"launches": pk.pair_terms.launches,
+                    "strip_launches": pk.pair_terms.strip_launches,
+                    "tiles": len(pk.strip_tiles(n, 0, (d, D))),
+                    "tiles_full": len(pk.strip_tiles(n, 0)),
+                    "collectives": dict(multihost.counts)}
+    # (b) the polar bench system's sharded total energy
+    params, state, cfg, thermo = bench_system("float32", dev,
+                                              polarization=True)
+    _reset_counts()
+    multihost.reset_counts()
+    e, aux = spatial.total_energy_sharded(state.pos, state.box,
+                                          state.mol_alive, params, cfg,
+                                          thermo)
+    torch.cuda.synchronize(dev)
+    torch.save(aux["mu"].cpu(), f"mu_{d}.pt")
+    res["polar"] = {"polar": float(e.polar), "iters": int(aux["polar_iters"]),
+                    "launches": _launch_counts(),
+                    "collectives": dict(multihost.counts)}
+    # (c) the spatial µVT scan through run.run
+    _reset_counts()
+    buf = io.StringIO()
+    su, avgs = run_mod.run(input_script.parse_file("scan.inp"), log=buf,
+                           device=dev)
+    torch.cuda.synchronize(dev)
+    text = buf.getvalue()
+    res["scan"] = {"launches": _launch_counts(),
+                   "b2_strip": pk.pair_terms.strip_launches,
+                   "b4_strip": pk.mol_pair.strip_launches,
+                   "steps_per_sec": float(text.split("steps/sec:")[1]
+                                          .split()[0]),
+                   "collectives_line": text.split("spatial MC:")[1]
+                   .splitlines()[0].strip(), "N": avgs.mean("N"),
+                   "acc": {k: avgs.mean(f"acc_{k}") for k in MD_MOVES},
+                   "log_tail": text.splitlines()[-4:]}
+    g = torch.Generator(device=dev).manual_seed(17)
+    st, stats = spatial.run_chunk_spatial(su.state, su.params, su.cfg,
+                                          su.thermo, SPATIAL_CORRTIME,
+                                          generator=g)
+    stats = stats.host()
+    res["scan"]["chunk_accepts"] = stats.accepts[:3].tolist()
+    res["scan"]["chunk_attempts"] = stats.attempts[:3].tolist()
+    fresh = spatial.initialize_spatial(st, su.params, su.cfg, su.thermo)
+    spatial.check_lockstep(st, "phase_spatial carried")
+    spatial.check_lockstep(fresh, "phase_spatial fresh")
+    res["scan"]["carried"] = float(st.energy.total)
+    res["scan"]["fresh"] = float(fresh.energy.total)
+    res["strips"] = _md_strip_checks(dev, d, D)
+    return res
+
+
+def _md_te1_rank(dev):
+    """phase_spatial (d): the bench system's sharded total energy at world
+    size 1 (the group's backend: NCCL)."""
+    from mpmc_tpu_torch.parallel import spatial
+    params, state, cfg, thermo = bench_system("float32", dev)
+    e, _ = spatial.total_energy_sharded(state.pos, state.box,
+                                        state.mol_alive, params, cfg, thermo)
+    return {k: float(v) for k, v in e.as_dict().items()}
+
+
+def _md_chunk_thermo(job, thermo, C):
+    """(the Thermo, the steps) of a chain_devices deck's first chunk, as
+    run_mc_chains (corrtime, the shared Thermo) or run_mc_pt (ptemp_freq
+    at most corrtime, the ladder's Thermo) takes it."""
+    from mpmc_tpu_torch.parallel import replica
+    corr = max(job.cfg.corrtime, 1)
+    if not job.parallel_tempering:
+        return thermo, corr
+    ladder = replica.geometric_ladder(
+        job.temperature, job.max_temperature or 2.0 * job.temperature, C)
+    return (replica.stack_thermo(thermo, ladder),
+            max(min(job.ptemp_freq, corr), 1))
+
+
+def _md_first_chunk(job, dev):
+    """The first chunk of a chain_devices deck as its driver takes it on
+    this rank (multichain.ChainBlock over the deck's route, the run's
+    generator): this block's positions and energies, saved for the
+    parent's single-process launch at the same shape."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.mc import run as run_mod
+    from mpmc_tpu_torch.parallel import multichain
+    su = run_mod.setup(job, device=dev)
+    cfg, params, thermo = su.cfg, su.params, su.thermo
+    state = metropolis.initialize(su.state, params, cfg, thermo)
+    pt = job.parallel_tempering
+    C = job.n_replicas if pt else job.chains
+    blk = multichain.ChainBlock(C, job.chain_devices, device=dev)
+    chunk, fused = run_mod._chains_route(
+        cfg, params, state.mol_alive, C,
+        types.SimpleNamespace(log=io.StringIO()))
+    thermo, n = _md_chunk_thermo(job, thermo, C)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    loc, _ = blk.chunk(chunk, blk.local(multichain.stack_states(state, C)),
+                       params, cfg, thermo, n, gen)
+    torch.save({"pos": loc.pos.cpu(), "energy": loc.energy.total.cpu()},
+               f"first_{'pt' if pt else 'chains'}_{blk.lo}.pt")
+    return {"fused": fused, "lo": blk.lo, "hi": blk.hi, "steps": n}
+
+
+def _md_chains_rank(dev):
+    """A rank of phase_chain_devices: the first chunk of chains.inp and of
+    pt.inp as their drivers take them (_md_first_chunk), then both decks
+    through run.run (pt.inp with a JSONL stream on rank 0), the rates,
+    launches and the final ladder."""
+    from mpmc_tpu_torch.io import input_script
+    from mpmc_tpu_torch.mc import run as run_mod
+    from mpmc_tpu_torch.parallel import multihost
+    res = {}
+    for name in ("chains", "pt"):
+        job = input_script.parse_file(f"{name}.inp")
+        res[f"{name}_first"] = _md_first_chunk(job, dev)
+        _reset_counts()
+        buf = io.StringIO()
+        su, avgs = run_mod.run(
+            job, log=buf, device=dev,
+            jsonl_path=("pt_ranks.jsonl" if name == "pt"
+                        and multihost.is_root() else None))
+        torch.cuda.synchronize(dev)
+        text = buf.getvalue()
+        res[name] = {"launches": _launch_counts(),
+                     "steps_per_sec": float(text.split("steps/sec:")[1]
+                                            .split()[0]),
+                     "N": avgs.mean("N"), "log_tail": text.splitlines()[-3:]}
+        if name == "pt":
+            res[name]["ladder"] = su.thermo.temperature.double().cpu() \
+                .tolist()
+    return res
+
+
+def _md_single_first(tmp, name, dev, D=MD_RANKS):
+    """Each rank's block of ``name``.inp's first chunk, launched in this
+    process at the rank's shape (C/D chains, its rows of the run's
+    uniform table, the batched route's move types from global chain 0),
+    against the block the rank saved: bit for bit."""
+    from mpmc_tpu_torch.io import input_script
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.mc import run as run_mod
+    from mpmc_tpu_torch.parallel import multichain
+    from mpmc_tpu_torch.state import chain_block
+    old = os.getcwd()
+    os.chdir(tmp)
+    try:
+        job = input_script.parse_file(f"{name}.inp")
+        su = run_mod.setup(job, device=dev)
+    finally:
+        os.chdir(old)
+    cfg, params, thermo = su.cfg, su.params, su.thermo
+    state = metropolis.initialize(su.state, params, cfg, thermo)
+    pt = job.parallel_tempering
+    C = job.n_replicas if pt else job.chains
+    chunk, _ = run_mod._chains_route(
+        cfg, params, state.mol_alive, C,
+        types.SimpleNamespace(log=io.StringIO()))
+    thermo, n = _md_chunk_thermo(job, thermo, C)
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    u = torch.rand((C, n, metropolis.N_LANES), generator=gen,
+                   dtype=cfg.tdtype, device=dev)
+    stack = multichain.stack_states(state, C)
+    per = C // D
+    for d in range(D):
+        lo, hi = d * per, (d + 1) * per
+        kw = ({"branch_u": u[0]} if chunk is multichain.run_chunk_batched
+              else {})
+        loc, _ = chunk(chain_block(stack, lo, hi), params, cfg,
+                       multichain.thermo_block(thermo, lo, hi, C), n,
+                       uniforms=u[lo:hi], **kw)
+        got = torch.load(os.path.join(tmp, f"first_{name}_{lo}.pt"))
+        same = (torch.equal(got["pos"], loc.pos.cpu())
+                and torch.equal(got["energy"], loc.energy.total.cpu()))
+        log(f"    {name}: rank {d}'s chains [{lo}, {hi}) after the first "
+            f"chunk ({n} steps) {'equal' if same else 'DIFFER FROM'} this "
+            "process's launch at C = {0} bit for bit".format(per))
+        if not same:
+            raise AssertionError(f"{name}: rank {d}'s chains differ from "
+                                 "the single-process launch of its block")
+
+
+def phase_spatial(device, smi):
+    """spatial_devices over MD_RANKS gloo ranks sharing the one card
+    (every time here is of ranks that share it: the route, not the
+    scaling): (a) ensemble te on DECK, each term against the single-rank
+    te by phase_energy's rule (rel 1e-5, 1e-2 K, or 4x the plain f32
+    distance); (b) the polar bench system's sharded energy, the polar
+    term within _polar_tol of the single-rank solve, CG iterations beside
+    the single-rank count; (c) a spatial µVT scan of SPATIAL_STEPS steps
+    on DECK (the ranks' digests equal at every block, or the run stops),
+    a further chunk's carried energy against a fresh recompute at rel
+    1e-4, steps/s and collectives a step; (d) (a) at world size 1 on NCCL
+    (its process beside the gloo ranks).
+    Each rank's strips against their plain versions (_md_strip_checks).
+    Returns (launches of the strip forms on the main path, report)."""
+    from mpmc_tpu_torch.mc import run as run_mod
+    from mpmc_tpu_torch.ops import energy
+    rep = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _md_decks(tmp)
+        t0 = time.time()
+        # (d) beside the two gloo ranks: its own group (NCCL, world 1)
+        te1_procs = _md_start("te1", 1, tmp, backend="nccl")
+        ranks = _md_launch("spatial", MD_RANKS, tmp)
+        te1 = _md_wait(te1_procs, "te1 rank")[0]
+        rep["seconds"] = time.time() - t0
+        # the single-rank references, in this process
+        from mpmc_tpu_torch.io import input_script
+        old = os.getcwd()
+        os.chdir(tmp)
+        try:
+            job = input_script.parse_file("te.inp")
+            single = run_mod.run(dataclasses.replace(job, spatial_devices=0),
+                                 log=io.StringIO(), device=device)
+        finally:
+            os.chdir(old)
+        mu = [torch.load(os.path.join(tmp, f"mu_{d}.pt"))
+              for d in range(MD_RANKS)]
+    ref = {k: float(v) for k, v in single.as_dict().items()}
+    for label, got in [(f"rank {r['rank']}", r["te"]) for r in ranks] + [
+            ("world 1 NCCL", te1)]:
+        for k, want in ref.items():
+            tol = max(1e-5 * abs(want), 1e-2)
+            log(f"    spatial te {label} {k:9s} {got[k]: .8e} single "
+                f"{want: .8e} |d| {abs(got[k] - want):.3e} tol {tol:.3e}")
+            if not abs(got[k] - want) <= tol:
+                raise AssertionError(f"spatial te ({label}) term {k} "
+                                     "disagrees with the single-rank te")
+    for r in ranks:
+        log(f"spatial te rank {r['rank']}: B2 {r['te_b2']['launches']} "
+            f"launches ({r['te_b2']['strip_launches']} on its strip), "
+            f"{r['te_b2']['tiles']} of {r['te_b2']['tiles_full']} tiles; "
+            f"collectives {r['te_b2']['collectives']}; "
+            f"{r['te_seconds']:.2f} s")
+    # (b) the polar term and the dipoles against one rank's solve
+    params, state, cfg, thermo = bench_system("float32", device,
+                                              polarization=True)
+    e, aux = energy.total_energy(state.pos, state.box, state.mol_alive,
+                                 params, cfg, thermo)
+    tol = _polar_tol(state.replace(mu=aux["mu"], energy=e), params, cfg)
+    for r in ranks:
+        pol = r["polar"]
+        dmu = float((mu[r["rank"]] - aux["mu"].cpu()).abs().max())
+        log(f"spatial polar rank {r['rank']}: {pol['polar']:.8e} K in "
+            f"{pol['iters']} CG iterations; single rank {float(e.polar):.8e}"
+            f" K in {int(aux['polar_iters'])}; |d| "
+            f"{abs(pol['polar'] - float(e.polar)):.3e} tol {tol:.3e}; max "
+            f"|d mu| {dmu:.3e}; B5 launches {pol['launches']}; "
+            f"collectives {pol['collectives']}")
+        if not abs(pol["polar"] - float(e.polar)) <= tol:
+            raise AssertionError("spatial polar term disagrees with the "
+                                 "single-rank solve")
+    if not torch.equal(mu[0], mu[1]):
+        raise AssertionError("the ranks' sharded dipoles differ")
+    # (c) the spatial scan: every move type accepted, the ranks alike
+    for r in ranks:
+        s = r["scan"]
+        log(f"spatial scan rank {r['rank']}: {s['steps_per_sec']:.2f} "
+            f"steps/s (two ranks on one card), {s['collectives_line']}; "
+            f"<N> {s['N']:.3f}; acceptance d/i/d "
+            + "/".join(f"{s['acc'][k]:.4f}" for k in MD_MOVES)
+            + f" over the run, accepts/attempts {s['chunk_accepts']}/"
+            f"{s['chunk_attempts']} over a further {SPATIAL_CORRTIME} "
+            f"steps; launches {s['launches']} (strips: B2 "
+            f"{s['b2_strip']}, B4 {s['b4_strip']}); carried "
+            f"{s['carried']:.6f} fresh {s['fresh']:.6f}")
+        for i, k in enumerate(MD_MOVES):
+            if not (s["acc"][k] > 0 or s["chunk_accepts"][i] > 0):
+                raise AssertionError(f"spatial scan rank {r['rank']}: no "
+                                     f"{k} move was accepted")
+        if not abs(s["carried"] - s["fresh"]) <= 1e-4 * max(
+                abs(s["fresh"]), 1.0):
+            raise AssertionError("spatial scan: carried energy drifted from "
+                                 "a fresh recompute beyond rel 1e-4")
+        if not (s["b4_strip"] > 0 and s["b2_strip"] > 0):
+            raise AssertionError("spatial scan: the strips were not "
+                                 f"launched: {s}")
+    for k in ("carried", "acc", "chunk_accepts", "chunk_attempts"):
+        if ranks[0]["scan"][k] != ranks[1]["scan"][k]:
+            raise AssertionError(f"spatial scan: the ranks' {k} differ")
+    for r in ranks:
+        for k, v in r["strips"].items():
+            log(f"strip rank {r['rank']} {k}: {v}")
+    rep["ranks"] = ranks
+    rep["te1"] = te1
+    launches = {"pair_terms_strip": sum(r["scan"]["b2_strip"]
+                                        + r["te_b2"]["strip_launches"]
+                                        for r in ranks),
+                "mol_pair_cols": sum(r["scan"]["b4_strip"] for r in ranks),
+                "dipole_field_strip": sum(
+                    r["polar"]["launches"]["dipole_field"]
+                    + r["polar"]["launches"]["dipole_field_chains"]
+                    for r in ranks),
+                "charge_field_strip": sum(
+                    r["polar"]["launches"]["charge_field"] for r in ranks)}
+    log(f"phase_spatial: {rep['seconds']:.1f} s for the ranks; strip "
+        f"launches {launches} ({smi})")
+    return launches, rep
+
+
+def phase_chain_devices(device, smi):
+    """chain_devices over MD_RANKS gloo ranks sharing the one card:
+    ``chains 32`` fused µVT (B1 at 16 chains a rank) and PT (i) on B3 with
+    8 replicas (4 a rank), CHAIN_STEPS steps each through run.run.  Each
+    rank's block after the first chunk against this process's launch of
+    the same chains at the same shape, bit for bit; the ladder a
+    permutation of its rungs; the aggregate rates (two ranks on one
+    card).  Returns (the launches, report, the PT run's JSONL)."""
+    from mpmc_tpu_torch.parallel import replica
+    with tempfile.TemporaryDirectory() as tmp:
+        _md_decks(tmp)
+        t0 = time.time()
+        ranks = _md_launch("chains", MD_RANKS, tmp)
+        secs = time.time() - t0
+        for name in ("chains", "pt"):
+            _md_single_first(tmp, name, device)
+        with open(os.path.join(tmp, "pt_ranks.jsonl")) as f:
+            jsonl = f.read()
+    want = replica.geometric_ladder(77.0, PT_T_MAX, PT_R)
+    got = np.sort(ranks[0]["pt"]["ladder"])
+    if not np.allclose(got, want, rtol=1e-5):
+        raise AssertionError(f"chain_devices PT: the ladder is not a "
+                             f"permutation of its rungs: {got}")
+    if ranks[0]["pt"]["ladder"] != ranks[1]["pt"]["ladder"]:
+        raise AssertionError("chain_devices PT: the ranks' ladders differ")
+    for r, res in enumerate(ranks):
+        for name in ("chains", "pt"):
+            log(f"chain_devices {name} rank {r}: {res[name]['steps_per_sec']}"
+                f" steps/s aggregate (two ranks on one card), <N> "
+                f"{res[name]['N']:.3f}, launches {res[name]['launches']}; "
+                f"first chunk {res[name + '_first']}")
+    if not all(r["chains"]["launches"]["run_steps_uvt"] > 0
+               and r["pt"]["launches"]["run_steps"] > 0 for r in ranks):
+        raise AssertionError("chain_devices: B1 or B3 was not launched")
+    log(f"phase_chain_devices: {secs:.1f} s for the ranks ({smi})")
+    return ({"run_steps_uvt": [r["chains"]["launches"]["run_steps_uvt"]
+                               for r in ranks],
+             "run_steps": [r["pt"]["launches"]["run_steps"] for r in ranks]},
+            ranks, jsonl)
+
+
+def _jsonl_rows(text):
+    """The JSONL records without their timing fields."""
+    rows = []
+    for line in text.splitlines():
+        rec = json.loads(line)
+        rows.append({k: v for k, v in rec.items()
+                     if "sec" not in k and "time" not in k})
+    return rows
+
+
+def phase_multihost_pt(device, smi, ranks_jsonl):
+    """``python -m mpmc_tpu_torch --distributed --dist-backend gloo`` as
+    MD_RANKS processes on the card (the multi-host command line, one
+    process a host), the PT deck of phase_chain_devices (8 replicas, 4 a
+    rank): its JSONL history equal to that run's."""
+    from mpmc_tpu_torch.parallel import multihost
+    with tempfile.TemporaryDirectory() as tmp:
+        _md_decks(tmp)
+        port = multihost.free_port()
+        env = dict(os.environ, PYTHONPATH=REPO)
+        procs = []
+        t0 = time.time()
+        for r in range(MD_RANKS):
+            logf = open(os.path.join(tmp, f"cli_{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "mpmc_tpu_torch", "--distributed",
+                 "--dist-backend", "gloo", "--coordinator",
+                 f"127.0.0.1:{port}", "--num-processes", str(MD_RANKS),
+                 "--process-id", str(r), "pt.inp", "--jsonl", "pt.jsonl"],
+                cwd=tmp, env=env, stdout=logf, stderr=subprocess.STDOUT),
+                logf, None))
+        _md_wait(procs, "multi-host PT processes")
+        secs = time.time() - t0
+        with open(os.path.join(tmp, "pt.jsonl")) as f:
+            cli = f.read()
+        out = open(os.path.join(tmp, "cli_0.log")).read()
+    log("\n".join(out.splitlines()[-4:]))
+    a, b = _jsonl_rows(cli), _jsonl_rows(ranks_jsonl)
+    if a != b or not a:
+        raise AssertionError("multi-host PT: the --distributed history "
+                             "differs from the chain_devices run's")
+    log(f"phase_multihost_pt: {len(a)} JSONL records equal to the "
+        f"chain_devices run's; {secs:.1f} s for the two processes ({smi})")
+    return {"seconds": secs, "records": len(a)}
+
+
+def _md_phases(dev, smi, mark):
+    """phase_spatial, phase_chain_devices and phase_multihost_pt: (the
+    strips' report, their launches, seconds)."""
+    t_md = time.time()
+    mark("phase_spatial")
+    md_launches, md_rep = phase_spatial(dev, smi)
+    mark("phase_chain_devices")
+    cd_launches, _, pt_jsonl = phase_chain_devices(dev, smi)
+    mark("phase_multihost_pt")
+    phase_multihost_pt(dev, smi, pt_jsonl)
+    log(f"chain_devices launches {cd_launches}")
+    return md_rep, md_launches, time.time() - t_md
+
+
+def _md_kernels(md_rep, launches):
+    """The kernels line's entries of the three strip forms: rank 0's
+    times (two ranks sharing the card) with rank 1's beside them, the
+    larger error of the two ranks' strips."""
+    out = []
+    r0, r1 = (r["strips"] for r in md_rep["ranks"])
+    for name in ("pair_terms_strip", "mol_pair_cols", "dipole_field_strip",
+                 "charge_field_strip"):
+        a, b = r0[name], r1[name]
+        out.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                    "replaces": REPLACES[name], "launches": launches[name],
+                    "max_abs_err": max(a["max_abs_err"], b["max_abs_err"]),
+                    "ms": a["ms"], "device_ms": a["device_ms"],
+                    "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+                    "bound_by": a["bound_by"], "library_ms": None,
+                    "ranks": "2 sharing one card",
+                    "rank1": {k: b[k] for k in ("ms", "device_ms",
+                                                "plain_ms", "bound_ms")},
+                    "full_ms": a["full_ms"]})
+    return out
 
 
 def main():
@@ -7571,6 +8312,7 @@ def _phases(dev, smi, t0, build_s, refs, replay_refs):
     mark("phase_surf")
     surf_launches, surf_reps = phase_surf(dev)
     t_ccs = time.time() - t_ccs
+    md_report, md_launches, t_md = _md_phases(dev, smi, mark)
     # last: its CPU references have had the card's phases to finish in
     mark("phase_energy")
     phase_energy(dev, refs)
@@ -7680,6 +8422,7 @@ def _phases(dev, smi, t0, build_s, refs, replay_refs):
     for kern in kernels:       # B1 and B3: the cluster size of each timing
         if "cluster" in report[kern["name"]]:
             kern["cluster"] = report[kern["name"]]["cluster"]
+    kernels += _md_kernels(md_report, md_launches)
     # B2 on the replay path: one pass per frame, three with the pressure
     kernels[0]["replay_launches"] = {k: r["pair_terms"]
                                      for k, r in replay_rep.items()}
@@ -7938,6 +8681,8 @@ def _phases(dev, smi, t0, build_s, refs, replay_refs):
         "pore", "asa") else f"analyze_{k}_frames_per_sec "
         f"{r['frames_per_sec']:.2f}" for k, r in analyze_rep.items())
         + f"  ({smi})")
+    log(f"multi-device phases (two ranks sharing one card) {t_md:.1f} s; "
+        f"wall_seconds {time.time() - t0:.1f}  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -7950,5 +8695,7 @@ if __name__ == "__main__":
         cpu_references(sys.argv[2])
     elif sys.argv[1:2] == ["--replay-references"]:
         replay_references(sys.argv[2])
+    elif sys.argv[1:2] == ["--md-rank"]:
+        md_rank(*sys.argv[2:8])
     else:
         main()

@@ -78,6 +78,12 @@
 //     the 16 SMs a cluster may hold (tools/measure_b4_variants.py).
 //   Chain c of any launch has the bits of chain c launched alone, and of
 //   the single-launch kernel this design replaced.
+//   A column range [c0, c0 + n) (both regimes; c0 = 0 and n the atom count
+//   is the whole system): the rows are gathered from the full arrays, the
+//   column walk reads from the range's bases, so one rank of the spatial
+//   MC step prices a move against its own column strip
+//   (mpmc_tpu_torch/parallel/spatial.py).  The full range runs the same
+//   instructions on the same addresses as before the range existed.
 //
 // Both: partials in double (B2 per tile, reduced by its last CTA; B4 per
 // chunk, inside the kernel) in a fixed order - identical results run to
@@ -860,7 +866,8 @@ __global__ void __launch_bounds__(NT4, sizeof(T) == 4 && RD != RD_DISP ? 3
     const int64_t* __restrict__ mol_atoms,
     const int64_t* __restrict__ mol_natoms, const int64_t* __restrict__ molp,
     const T* __restrict__ rows, int A, const T* __restrict__ sc,
-    int sc_stride, int n, int C, int cpw, Opts o, T* __restrict__ out,
+    int sc_stride, int col0, int n, int C, int cpw, Opts o,
+    T* __restrict__ out,
     const T* __restrict__ c6, const T* __restrict__ c8,
     const T* __restrict__ c10) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -892,6 +899,17 @@ __global__ void __launch_bounds__(NT4, sizeof(T) == 4 && RD != RD_DISP ? 3
       }
     }
   }
+  // the columns [col0, col0 + n): the rows above were gathered from the
+  // full arrays, the column walk reads from these bases
+  const T* cpos = pos + size_t(3) * col0;
+  const T* cq = q + col0;
+  const T* ceps = eps + col0;
+  const T* csig = sig + col0;
+  const T* cc6 = c6 ? c6 + col0 : c6;
+  const T* cc8 = c8 ? c8 + col0 : c8;
+  const T* cc10 = c10 ? c10 + col0 : c10;
+  const int32_t* cmol = mol_id + col0;
+  const bool* calive = alive + col0;
   // the mixing serves the chains whose NR_FIXED rows have chain 0's eps
   // and sig (the same species), under a shared header
   bool mixing = false;
@@ -926,22 +944,22 @@ __global__ void __launch_bounds__(NT4, sizeof(T) == 4 && RD != RD_DISP ? 3
     const int cnt = n - j0 < MT ? n - j0 : MT;
     T* tp = planes(buf);
     for (int e = t; e < 3 * cnt; e += NT4)
-      cp_async(tp + e, pos + size_t(3) * j0 + e);
+      cp_async(tp + e, cpos + size_t(3) * j0 + e);
     if (t < cnt) {
-      cp_async(tp + 3 * MT + t, q + j0 + t);
-      cp_async(tp + 4 * MT + t, eps + j0 + t);
-      cp_async(tp + 5 * MT + t, sig + j0 + t);
+      cp_async(tp + 3 * MT + t, cq + j0 + t);
+      cp_async(tp + 4 * MT + t, ceps + j0 + t);
+      cp_async(tp + 5 * MT + t, csig + j0 + t);
       if constexpr (RD == RD_DISP) {
-        cp_async(tp + 6 * MT + t, c6 + j0 + t);
-        cp_async(tp + 7 * MT + t, c8 + j0 + t);
-        cp_async(tp + 8 * MT + t, c10 + j0 + t);
+        cp_async(tp + 6 * MT + t, cc6 + j0 + t);
+        cp_async(tp + 7 * MT + t, cc8 + j0 + t);
+        cp_async(tp + 8 * MT + t, cc10 + j0 + t);
       }
-      cp_async(mols(buf) + t, mol_id + j0 + t);
+      cp_async(mols(buf) + t, cmol + j0 + t);
     }
   };
   if (nb > 0) {
     load(0, 0);
-    if (t < n) alv(0)[t] = alive[t];
+    if (t < n) alv(0)[t] = calive[t];
   }
   cp_commit();
   for (int b = 0; b < nb; ++b) {
@@ -950,7 +968,7 @@ __global__ void __launch_bounds__(NT4, sizeof(T) == 4 && RD != RD_DISP ? 3
     if (b + 1 < nb) {
       load(b + 1, cur ^ 1);
       const int jn = (b + 1) * MT + t;
-      if (jn < n) al_next = alive[jn];
+      if (jn < n) al_next = calive[jn];
     }
     cp_commit();
     cp_wait_prior();     // chunk b's copies (this thread's) have landed
@@ -1066,7 +1084,7 @@ __global__ void __launch_bounds__(NT2C, 2) mol_pair_cluster_kernel(
     int pos_stride, const int64_t* __restrict__ mol_atoms,
     const int64_t* __restrict__ mol_natoms, const int64_t* __restrict__ molp,
     const T* __restrict__ rows, int A, const T* __restrict__ sc,
-    int sc_stride, int n, int G, Opts o, T* __restrict__ out,
+    int sc_stride, int col0, int n, int G, Opts o, T* __restrict__ out,
     const T* __restrict__ c6, const T* __restrict__ c8,
     const T* __restrict__ c10) {
   namespace cg = cooperative_groups;
@@ -1091,6 +1109,17 @@ __global__ void __launch_bounds__(NT2C, 2) mol_pair_cluster_kernel(
                       rows ? rows + size_t(c) * A * 3 : nullptr, mol_atoms,
                       q, eps, sig, c6, c8, c10);
   __syncthreads();
+  // the columns [col0, col0 + n) of the chain: the rows above were
+  // gathered from the full arrays, the column walk reads from these bases
+  const T* cpos = pos + size_t(3) * col0;
+  const T* cq = q + col0;
+  const T* ceps = eps + col0;
+  const T* csig = sig + col0;
+  const T* cc6 = c6 ? c6 + col0 : c6;
+  const T* cc8 = c8 ? c8 + col0 : c8;
+  const T* cc10 = c10 ? c10 + col0 : c10;
+  const int32_t* cmol = mol_id + col0;
+  const bool* calive = alive + col0;
   double* slots = cluster.map_shared_rank(
       reinterpret_cast<double*>(smem), 0);
   T* smins = cluster.map_shared_rank(
@@ -1105,20 +1134,20 @@ __global__ void __launch_bounds__(NT2C, 2) mol_pair_cluster_kernel(
     auto col = [&](int j) {
       const int i = j < n ? j : n - 1;
       Col<T> v;
-      v.x = pos[3 * i];
-      v.y = pos[3 * i + 1];
-      v.z = pos[3 * i + 2];
-      v.q = q[i];
-      v.e = eps[i];
-      v.s = sig[i];
+      v.x = cpos[3 * i];
+      v.y = cpos[3 * i + 1];
+      v.z = cpos[3 * i + 2];
+      v.q = cq[i];
+      v.e = ceps[i];
+      v.s = csig[i];
       v.c6 = v.c8 = v.c10 = T(0);
       if constexpr (RD == RD_DISP) {
-        v.c6 = c6[i];
-        v.c8 = c8[i];
-        v.c10 = c10[i];
+        v.c6 = cc6[i];
+        v.c8 = cc8[i];
+        v.c10 = cc10[i];
       }
       v.jj = 0;
-      v.ok = j < n && alive[i] && mol_id[i] != int32_t(m);
+      v.ok = j < n && calive[i] && cmol[i] != int32_t(m);
       return v;
     };
     double s[3];
@@ -1267,9 +1296,11 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
                     int pos_stride, const int64_t* mol_atoms,
                     const int64_t* mol_natoms,
                     const int64_t* mol, const T* rows, int A, const T* sc,
-                    int sc_stride, int n, int C, Opts o, T* out, const T* c6,
-                    const T* c8, const T* c10, cudaStream_t stream) {
-  if (A < 1 || A > A_PAD || C < 1 || n < 0) return int(cudaErrorInvalidValue);
+                    int sc_stride, int c0, int n, int C, Opts o, T* out,
+                    const T* c6, const T* c8, const T* c10,
+                    cudaStream_t stream) {
+  if (A < 1 || A > A_PAD || C < 1 || n < 0 || c0 < 0)
+    return int(cudaErrorInvalidValue);
   int plan[5];
   int e = mol_pair_plan<T, RD>(n, C, pos_stride == 0, plan);
   if (e) return e;
@@ -1280,7 +1311,7 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
     if (r != cudaSuccess) return int(r);
     mol_pair_grid_kernel<T, RD><<<plan[2], NT4, plan[3], stream>>>(
         pos, q, eps, sig, mol_id, alive, mol_atoms, mol_natoms, mol, rows,
-        A, sc, sc_stride, n, C, plan[1], o, out, c6, c8, c10);
+        A, sc, sc_stride, c0, n, C, plan[1], o, out, c6, c8, c10);
     return int(cudaGetLastError());
   }
   static size_t have2 = 48 * 1024;
@@ -1307,8 +1338,8 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
   cfg.numAttrs = 1;
   r = cudaLaunchKernelEx(&cfg, mol_pair_cluster_kernel<T, RD>, pos, q, eps,
                          sig, mol_id, alive, pos_stride, mol_atoms,
-                         mol_natoms, mol, rows, A, sc, sc_stride, n, plan[1],
-                         o, out, c6, c8, c10);
+                         mol_natoms, mol, rows, A, sc, sc_stride, c0, n,
+                         plan[1], o, out, c6, c8, c10);
   if (r != cudaSuccess) return int(r);
   return int(cudaGetLastError());
 }
@@ -1341,14 +1372,14 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
       const void* mol_id, const void* alive, int pos_stride,                \
       const void* mol_atoms,                                                \
       const void* mol_natoms, const void* mol, const void* rows, int A,     \
-      const void* sc, int sc_stride, int n, int C, int rd, int mix, int es, \
-      int lrc, void* out, void* stream) {                                   \
+      const void* sc, int sc_stride, int c0, int n, int C, int rd, int mix, \
+      int es, int lrc, void* out, void* stream) {                           \
     return launch_mol_pair<T, RD_CLASSIC>(                                  \
         (const T*)pos, (const T*)q, (const T*)eps, (const T*)sig,           \
         (const int32_t*)mol_id, (const bool*)alive, pos_stride,             \
         (const int64_t*)mol_atoms, (const int64_t*)mol_natoms,              \
-        (const int64_t*)mol, (const T*)rows, A, (const T*)sc, sc_stride, n, \
-        C, Opts{rd, mix, es, lrc}, (T*)out, nullptr, nullptr, nullptr,      \
+        (const int64_t*)mol, (const T*)rows, A, (const T*)sc, sc_stride, c0, \
+        n, C, Opts{rd, mix, es, lrc}, (T*)out, nullptr, nullptr, nullptr,   \
         (cudaStream_t)stream);                                              \
   }                                                                         \
   extern "C" int mol_pair_plan_##SFX(int n, int C, int stride0, int* out) { \
@@ -1382,15 +1413,15 @@ int launch_mol_pair(const T* pos, const T* q, const T* eps, const T* sig,
       const void* pos, const void* q, const void* eps, const void* sig,     \
       const void* mol_id, const void* alive, int pos_stride,                \
       const void* mol_atoms, const void* mol_natoms, const void* mol,       \
-      const void* rows, int A, const void* sc, int sc_stride, int n, int C, \
-      int damp, int mix, int es, int lrc, void* out, const void* c6,        \
+      const void* rows, int A, const void* sc, int sc_stride, int c0, int n, \
+      int C, int damp, int mix, int es, int lrc, void* out, const void* c6, \
       const void* c8, const void* c10, void* stream) {                      \
     return launch_mol_pair<T, RD>(                                          \
         (const T*)pos, (const T*)q, (const T*)eps, (const T*)sig,           \
         (const int32_t*)mol_id, (const bool*)alive, pos_stride,             \
         (const int64_t*)mol_atoms, (const int64_t*)mol_natoms,              \
-        (const int64_t*)mol, (const T*)rows, A, (const T*)sc, sc_stride, n, \
-        C, Opts{damp, mix, es, lrc}, (T*)out, (const T*)c6, (const T*)c8,   \
+        (const int64_t*)mol, (const T*)rows, A, (const T*)sc, sc_stride, c0, \
+        n, C, Opts{damp, mix, es, lrc}, (T*)out, (const T*)c6, (const T*)c8, \
         (const T*)c10, (cudaStream_t)stream);                               \
   }                                                                         \
   extern "C" int mol_pair_plan_rd_##SFX(int n, int C, int stride0,         \

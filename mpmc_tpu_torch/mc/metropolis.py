@@ -715,11 +715,10 @@ def _move_passes(params: Params, cfg: RunConfig, cache_mode: bool):
     def displace_pass(carry, thermo, c, mol, rows):
         pos, alive = carry["pos"], carry["alive"]
         if not cache_mode:
-            old = pairs.mol_pair_pass(pos, c.box, alive, params, cfg,
-                                      thermo.temperature, mol, scal=c.scal)
-            new = pairs.mol_pair_pass(pos, c.box, alive, params, cfg,
-                                      thermo.temperature, mol, row_pos=rows,
-                                      scal=c.scal)
+            # one pass each (under spatial_axis both meet in one plane)
+            old, new = pairs.mol_pair_passes(pos, c.box, alive, params, cfg,
+                                             thermo.temperature, mol,
+                                             [None, rows], scal=c.scal)
             return new.rd - old.rd, new.es_real - old.es_real, new.min_r2
         new = pairs.mol_pair_partials(pos, c.box, alive, params, cfg,
                                       thermo.temperature, mol, row_pos=rows,
@@ -1379,7 +1378,7 @@ def make_batched_step_fn(params: Params, cfg: RunConfig):
 
 
 def batched_chunk_setup(states: SimState, params: Params, cfg: RunConfig,
-                        thermo: Thermo, uniforms):
+                        thermo: Thermo, uniforms, branch_u=None):
     """(step, carry, consts, branch ids [K] on the host, stats) for a
     chunk of the stacked ``states`` over the [C, K, 16] table
     ``uniforms``: ``chunk_setup`` over chains.  Every chain takes the
@@ -1389,11 +1388,15 @@ def batched_chunk_setup(states: SimState, params: Params, cfg: RunConfig,
     chains' mu, e0 and r_pol (the polar step's); ``stats.polar_iters`` is
     [C].  The
     constants are chain 0's box's (every ensemble but NPT shares the box),
-    under NPT each chain's ([C] constants)."""
+    under NPT each chain's ([C] constants).  ``branch_u`` [K, 16]: the
+    row whose lanes 8 and 11 pick the move types instead of chain 0's
+    (chain_devices: global chain 0's row, on a rank whose block starts
+    elsewhere)."""
     u = uniforms.to(device=states.pos.device, dtype=cfg.tdtype)
     C = states.pos.shape[0]
     pick, _ = make_branch_picker(cfg)
-    branch = pick(*_host_lanes(u[0]), thermo)
+    lanes = u[0] if branch_u is None else branch_u.to(u.device, u.dtype)
+    branch = pick(*_host_lanes(lanes), thermo)
     carry = _carry(states, params, cfg)
     carry["u"] = u
     dev = states.pos.device

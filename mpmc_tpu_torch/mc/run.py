@@ -27,6 +27,14 @@ framework cell index at set-up (ops/celllist.attach) and ``mol_cache`` (a
 RunConfig field, no deck keyword) carries the molecule-pair cache; the
 ensembles surf, surf_fit and surf_multi_fit run in mc/surface.py.
 
+Multi-device (ROADMAP A13, parallel/): under ``spatial_devices D`` (``te``
+and the single-chain MC loop) every rank of a D-rank process group holds
+the whole state and computes its share of each O(N^2) pass
+(parallel/spatial.py); under ``chain_devices D`` (``chains N`` and the PT
+ladder) each rank advances its block of N/D chains
+(multichain.ChainBlock).  ``python -m mpmc_tpu_torch`` starts the ranks
+(``ranks_wanted``); rank 0 writes every output.
+
 The entry points run on the current CUDA device unless the caller names
 another (``device="cpu"``), and raise when there is none.  Options outside
 this port's slice are refused with NotImplementedError naming the ROADMAP
@@ -167,11 +175,38 @@ def check_supported(job: input_script.Job):
     if cfg.ensemble not in ("uvt", "nvt", "nve", "npt", "te", "replay",
                             "surf", "surf_fit", "surf_multi_fit"):
         _refuse(f"ensemble {cfg.ensemble}", "A12b")
-    for flag, what, item in (
-            (job.spatial_devices > 1, "spatial_devices", "A13"),
-            (job.chain_devices > 1, "chain_devices", "A13")):
-        if flag:
-            _refuse(what, item)
+
+
+MC_ENSEMBLES = ("nvt", "uvt", "npt", "nve")
+
+
+def ranks_wanted(job: input_script.Job) -> Tuple[int, Optional[str]]:
+    """(D, the option) of the ranks a job runs on: ``spatial_devices`` for
+    ``te`` and the single-chain MC loop, ``chain_devices`` for ``chains
+    N`` and the temperature ladder — where the reference reads each —, else
+    (1, None)."""
+    cfg = job.cfg
+    single = not (job.chains > 1 or job.parallel_tempering
+                  or job.pt_fugacity)
+    if job.spatial_devices > 1 and (
+            cfg.ensemble == "te" or (cfg.ensemble in MC_ENSEMBLES
+                                     and single)):
+        return job.spatial_devices, "spatial_devices"
+    if (job.chain_devices > 1 and cfg.ensemble in MC_ENSEMBLES
+            and not single and not job.pt_fugacity):
+        return job.chain_devices, "chain_devices"
+    return 1, None
+
+
+def _check_ranks(D: int, what: str):
+    """Raise unless the process group holds D ranks (the drivers run one
+    rank each; ``python -m mpmc_tpu_torch`` starts them)."""
+    from mpmc_tpu_torch.parallel import multihost
+    if multihost.world() != D:
+        raise ValueError(
+            f"{what} {D} but the process group has {multihost.world()} "
+            "ranks: run the deck through python -m mpmc_tpu_torch, which "
+            f"starts {D} ranks (or --distributed over {D} processes)")
 
 
 def log_pair_route(cfg, log, params=None):
@@ -553,11 +588,20 @@ def _qrot_levels(su: Setup, eigs_all, device):
 
 
 def run_te(job: input_script.Job, log=None, device=None):
-    """ensemble te: one energy evaluation + per-term printout."""
+    """ensemble te: one energy evaluation + per-term printout; under
+    ``spatial_devices D`` the pair pass, the direct static field and the
+    polar SCF's matvec split over the D ranks
+    (spatial.total_energy_sharded)."""
     su = setup(job, device=device)
-    e, _ = energy_mod.total_energy(
-        su.state.pos, su.state.box, su.state.mol_alive, su.params, su.cfg,
-        su.thermo)
+    energy_fn = energy_mod.total_energy
+    if job.spatial_devices > 1:
+        from mpmc_tpu_torch.parallel import spatial
+        _check_ranks(job.spatial_devices, "spatial_devices")
+        energy_fn = spatial.total_energy_sharded
+        print(f"spatial sharding: {job.spatial_devices} devices",
+              file=log or sys.stdout)
+    e, _ = energy_fn(su.state.pos, su.state.box, su.state.mol_alive,
+                     su.params, su.cfg, su.thermo)
     output_io.print_energy_report(e, file=log)
     if job.polarizability_tensor:
         alpha = thole.polarizability_tensor(
@@ -909,7 +953,12 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     fused µVT kernel (B1), with polarization and ``polar_delayed`` the
     fused polar delayed acceptance (B6), or under NPT the hybrid path (B3
     segments and scan-path volume attempts); ``chains N`` goes to
-    ``run_mc_chains``."""
+    ``run_mc_chains``.  Under ``spatial_devices D`` the scan path runs on
+    each of D ranks with the state replicated and every pair pass split
+    (spatial.run_chunk_spatial: B4 on the rank's column strip, B2 and B5
+    on its row tiles), in place of the fused routes, as the reference's
+    (mpmc_tpu/mc/run.py:1521-1556); every block end checks that the
+    ranks still hold the same state."""
     if job.pt_fugacity:       # implies tempering, along the fugacity
         return run_mc_pt_fug(job, log=log, jsonl_path=jsonl_path,
                              device=device)
@@ -932,7 +981,17 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
     log_pair_route(cfg, writer.log, params)
     _log_tmmc_bias(cfg, writer)
     chunk = metropolis.run_chunk
-    if cfg.fused_mc:
+    refresh = metropolis.initialize
+    spatial_d = job.spatial_devices if job.spatial_devices > 1 else 0
+    if spatial_d:
+        from mpmc_tpu_torch.parallel import multihost, spatial
+        if not spatial.mc_supported(cfg):
+            raise ValueError(spatial.MC_REFUSAL)
+        _check_ranks(spatial_d, "spatial_devices")
+        chunk, refresh = spatial.run_chunk_spatial, spatial.initialize_spatial
+        print(f"spatial MC step: {spatial_d} devices (replicated state, "
+              "sharded pair passes)", file=writer.log)
+    elif cfg.fused_mc:
         # the reference's gate order: the NVT/NVE kernel, the µVT one (both
         # refuse polarization), then the polar delayed-acceptance kernel
         if mc_kernel.supported(cfg, params):
@@ -974,7 +1033,8 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
                   "none/cutoff/wolf/ewald ES, a neutral template under "
                   "ewald, f32) — scan path used",
                   file=writer.log)
-    state = metropolis.initialize(su.state, params, cfg, thermo)
+    state = refresh(spatial.replicate(su.state) if spatial_d else su.state,
+                    params, cfg, thermo)
     if cfg.quantum_rotation:
         # the spins and the rotor table, before a checkpoint is read (it
         # carries both)
@@ -1005,6 +1065,8 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
         print(f"spectre: {len(spectre_idx)} free-charge sites",
               file=writer.log)
     steps_done = 0
+    if spatial_d:
+        multihost.reset_counts()
     t0 = time.time()
     for _ in range(n_blocks):
         state, stats = chunk(state, params, cfg, thermo, corr,
@@ -1016,8 +1078,9 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
             params = spectre_mod.apply(params, spectre_idx, cfg)
             su = dataclasses.replace(su, params=params)
         # per-corrtime refresh on the frozen-reuse fast path
-        state = metropolis.initialize(state, params, cfg, thermo,
-                                      frozen_rows=refresh_rows)
+        state = refresh(state, params, cfg, thermo, frozen_rows=refresh_rows)
+        if spatial_d:
+            spatial.check_lockstep(state)
         if cfg.quantum_rotation:
             state = qrot_refresh(su, state, thermo)
         stats = stats.host()
@@ -1053,6 +1116,13 @@ def run_mc(job: input_script.Job, log=None, jsonl_path=None, device=None):
                           fugacities=thermo.fugacity.cpu().numpy())
     print(f"steps/sec: {steps_done / max(wall, 1e-9):.2f}  "
           f"({steps_done} steps in {wall:.2f}s)", file=writer.log)
+    if spatial_d:
+        n = multihost.counts
+        print(f"spatial MC: {n['collectives']} collectives "
+              f"({n['collectives'] / max(steps_done, 1):.3f} a step, "
+              f"{n['bytes']} bytes, {n['seconds']:.3f} s in them: "
+              f"{n['seconds'] / max(wall, 1e-9):.3f} of the loop), the "
+              "ranks in lockstep at every block", file=writer.log)
     writer.close()
     return dataclasses.replace(su, state=state, thermo=thermo), avgs
 
@@ -1113,7 +1183,10 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
     the chain axis).  Observables are averaged over the chains each
     corrtime (the reference's cross-rank observable reduce); restart and
     trajectory follow chain 0, with one file per chain under
-    ``parallel_restarts``."""
+    ``parallel_restarts``.  Under ``chain_devices D`` each of D ranks
+    advances its block of N/D chains with the same launches
+    (multichain.ChainBlock; the fused gates judge the block), and the
+    stack is gathered at every block end."""
     su = setup(job, device=device)
     device = su.state.pos.device
     cfg, params, thermo = su.cfg, su.params, su.thermo
@@ -1133,6 +1206,10 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
               "single-chain driver (chains 1)", file=writer.log)
     _log_tmmc_bias(cfg, writer)
     state = metropolis.initialize(su.state, params, cfg, thermo)
+    blk = multichain.ChainBlock(C, job.chain_devices, device=device)
+    if blk.D > 1:
+        print(f"chain sharding: {blk.D} devices x {blk.n} chains",
+              file=writer.log)
     chunk, _ = _chains_route(cfg, params, state.mol_alive, C, writer)
     states = multichain.stack_states(state, C)
     qrot_on = metropolis.spinflip_active(cfg)
@@ -1148,10 +1225,11 @@ def run_mc_chains(job: input_script.Job, log=None, jsonl_path=None,
     refresh_rows = metropolis.frozen_refresh_rows(params, cfg)
     t0 = time.time()
     for _ in range(n_blocks):
-        states, stats = chunk(states, params, cfg, thermo, corr,
-                              generator=generator)
-        states = multichain.initialize_batched(states, params, cfg, thermo,
-                                               frozen_rows=refresh_rows)
+        loc, stats = blk.chunk(chunk, blk.local(states), params, cfg, thermo,
+                               corr, generator)
+        loc = multichain.initialize_batched(loc, params, cfg, thermo,
+                                            frozen_rows=refresh_rows)
+        states, stats = blk.gather(loc), blk.gather_stats(stats)
         if qrot_on:       # each chain's table (tracks annealing T)
             states, _ = _qrot_refresh_batched(
                 su, states, [float(thermo.temperature)] * C)
@@ -1257,9 +1335,14 @@ def run_mc_pt(job: input_script.Job, log=None, jsonl_path=None,
     otherwise as batched scan chains with host swaps
     (replica.host_swap, numpy's default_rng(seed + 101)).  A µVT ladder
     adds the (beta_j/beta_i)^dN factor.  Observables and the restart
-    follow the base-temperature replica, wherever it is.  Returns (Setup
-    with the stacked ``states``, the per-replica ``thermo`` and the last
-    round in ``pt_round``, averages)."""
+    follow the base-temperature replica, wherever it is.  Under
+    ``chain_devices D`` each of D ranks advances its block of R/D
+    replicas (multichain.ChainBlock): replicas stay on their rank and
+    temperatures move; each round's energies and molecule counts meet in
+    one plane, and every rank takes the same swap decisions from the
+    same uniforms.  Returns (Setup with the stacked ``states``, the
+    per-replica ``thermo`` and the last round in ``pt_round``,
+    averages)."""
     su = setup(job, device=device)
     device = su.state.pos.device
     cfg, params, thermo = su.cfg, su.params, su.thermo
@@ -1279,9 +1362,18 @@ def run_mc_pt(job: input_script.Job, log=None, jsonl_path=None,
                     n_chains=R)
     print(f"parallel tempering: {R} replicas, T = "
           + " ".join(f"{t:.2f}" for t in temps), file=writer.log)
+    corr = max(cfg.corrtime, 1)
+    ptf = max(min(job.ptemp_freq, corr), 1)
     state = metropolis.initialize(su.state, params, cfg, thermo)
     chunk, fused = _chains_route(cfg, params, state.mol_alive, R, writer,
                                  "PT")
+    # one round: the rank's block advances, the ladder meets in one plane
+    runner = replica.PTRunner(params, cfg, R, ptf, device=device,
+                              chunk=chunk, D=job.chain_devices)
+    blk = runner.blk
+    if blk.D > 1:
+        print(f"chain sharding: {blk.D} devices x {blk.n} replicas",
+              file=writer.log)
     if fused:
         print(f"fused_mc: on-device swaps (R={R})", file=writer.log)
     states = multichain.stack_states(state, R)
@@ -1301,35 +1393,31 @@ def run_mc_pt(job: input_script.Job, log=None, jsonl_path=None,
     uvt = cfg.ensemble == "uvt"
     avgs = Averages()
     swap_acc, swap_att, swap_acc_dev = 0, 0, None
-    corr = max(cfg.corrtime, 1)
-    ptf = max(min(job.ptemp_freq, corr), 1)
     n_blocks = max(cfg.numsteps // corr, 1)
     refresh_rows = metropolis.frozen_refresh_rows(params, cfg)
     hist = _hist_make(job, su.state.box)
     parity, rnd = 0, None
     t0 = time.time()
     for _ in range(n_blocks):
+        loc = blk.local(states)
         for _ in range(max(corr // ptf, 1)):
-            states, _ = chunk(states, params, cfg, thermos, ptf,
-                              generator=generator)
-            n_mov = (replica.movable_counts(states.mol_alive,
-                                            params.mol_frozen,
-                                            params.mol_species)
-                     if uvt else None)
             t_in = thermos.temperature
             if fused:
                 u = replica.swap_uniforms(R, swap_gen, t_in.dtype)
-                new_t, acc = replica.ladder_swap_batched(
-                    t_in, states.energy, u, parity, n_mols=n_mov)
-                thermos = thermos.replace(temperature=new_t)
+                loc, thermos, rnd = runner.round(loc, thermos, generator, u,
+                                                 parity)
+                acc, new_t = rnd["accepted"], thermos.temperature
                 swap_acc_dev = acc if swap_acc_dev is None else \
                     swap_acc_dev + acc
                 if qrot_lv is not None:
-                    states = states.replace(
-                        rot_f=qrot.free_energies_from_levels(
-                            *qrot_lv, new_t.double()).to(cfg.tdtype))
+                    loc = loc.replace(rot_f=qrot.free_energies_from_levels(
+                        *qrot_lv, new_t.double()).to(cfg.tdtype)[
+                            blk.lo:blk.hi])
             else:
-                energies = states.energy.total.double().cpu().numpy()
+                loc, energy, n_mov, _ = runner.advance(loc, thermos,
+                                                       generator)
+                n_mov = n_mov if uvt else None
+                energies = energy.double().cpu().numpy()
                 n_h = None if n_mov is None else n_mov.cpu().numpy()
                 u = _pt_pair_uniforms(rng, R, parity)
                 temps, acc = replica.host_swap(temps, energies, parity, rng,
@@ -1337,18 +1425,20 @@ def run_mc_pt(job: input_script.Job, log=None, jsonl_path=None,
                 swap_acc += acc
                 thermos = replica.stack_thermo(thermo, temps)
                 if qrot_eigs is not None:
-                    states = states.replace(rot_f=torch.as_tensor(
+                    loc = loc.replace(rot_f=torch.as_tensor(
                         np.stack([qrot.table_from_eigs(
                             qrot_eigs[r], params.n_mols_max, temps[r])
-                            for r in range(R)]), dtype=cfg.tdtype,
-                        device=device))
-            rnd = {"temps": t_in, "energies": states.energy.total,
-                   "n_mols": n_mov, "u": u, "parity": parity,
-                   "new_temps": thermos.temperature, "accepted": acc}
+                            for r in range(blk.lo, blk.hi)]),
+                        dtype=cfg.tdtype, device=device))
+                rnd = {"temps": t_in, "energies": energy,
+                       "n_mols": n_mov, "u": u, "parity": parity,
+                       "new_temps": thermos.temperature, "accepted": acc}
             swap_att += max((R - parity) // 2, 0)
             parity ^= 1
-        states = multichain.initialize_batched(states, params, cfg, thermos,
-                                               frozen_rows=refresh_rows)
+        loc = multichain.initialize_batched(loc, params, cfg,
+                                            blk.thermo(thermos),
+                                            frozen_rows=refresh_rows)
+        states = blk.gather(loc)
         if fused:
             # the swaps ran on the card: one fetch per block
             temps = thermos.temperature.double().cpu().numpy()

@@ -20,7 +20,9 @@ the first native read or write ``host_library()``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -44,8 +46,9 @@ _SIGNATURES = {
         # [CTAs resident on the card] out
         "pair_config": [_PI],
         # pos q eps sig mol alive | pos_stride | mol_atoms natoms mol rows
-        # | A | scal | scal_stride n C rd mix es lrc | out | stream
-        "mol_pair": [_P] * 6 + [_I] + [_P] * 4 + [_I] + [_P] + [_I] * 7
+        # | A | scal | scal_stride c0 n C rd mix es lrc | out | stream
+        # (the columns [c0, c0 + n))
+        "mol_pair": [_P] * 6 + [_I] + [_P] * 4 + [_I] + [_P] + [_I] * 8
         + [_P] + [_P],
         # n C stride0 | [regime per ctas smem grid_min] out
         "mol_pair_plan": [_I] * 3 + [_PI],
@@ -86,7 +89,7 @@ _SIGNATURES = {
     "pair_sg_kernel": {
         "pair_terms_rd": [_P] * 9 + [_I] * 9 + [_P] * 7 + [_P],
         "pair_config_rd": [_PI],
-        "mol_pair_rd": [_P] * 6 + [_I] + [_P] * 4 + [_I] + [_P] + [_I] * 7
+        "mol_pair_rd": [_P] * 6 + [_I] + [_P] * 4 + [_I] + [_P] + [_I] * 8
         + [_P] * 4 + [_P],
         "mol_pair_plan_rd": [_I] * 3 + [_PI],
     },
@@ -204,8 +207,27 @@ def build(force=False):
     """Compile every csrc/*.cu into its hashed shared library, one nvcc
     per source, all started together; returns {name: path}.  ptxas's
     register/shared-memory/spill report lands beside each library in
-    ``<library>.ptxas.txt``."""
+    ``<library>.ptxas.txt``.  Processes that build at once (the ranks of
+    a multi-device run) take turns on a file lock: the first builds, the
+    others find its libraries."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        return _build_locked(force)
+
+
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on ``BUILD_DIR/.lock`` (fcntl; released when the
+    holder exits, however it exits)."""
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build_locked(force):
     running = {}
     for name in _SIGNATURES:
         out = target(name)
@@ -274,16 +296,9 @@ def host_library(name: str):
     if name in _libs:
         return _libs[name]
     out = host_target(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [gxx(), "-O2", "-shared", "-fPIC", "-std=c++17", "-o", str(tmp),
-             str(CSRC / (name + ".cpp"))], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed on {name}.cpp "
-                               f"({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        _host_build(name, out)
     lib = ctypes.CDLL(str(out))
     for entry, (args, res) in _HOST_SIGNATURES[name].items():
         fn = getattr(lib, entry)
@@ -291,3 +306,17 @@ def host_library(name: str):
         fn.restype = res
     _libs[name] = lib
     return lib
+
+
+def _host_build(name: str, out: Path):
+    """g++ of ``csrc/<name>.cpp`` into ``out`` unless it is there."""
+    if out.exists():
+        return
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [gxx(), "-O2", "-shared", "-fPIC", "-std=c++17", "-o", str(tmp),
+         str(CSRC / (name + ".cpp"))], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on {name}.cpp "
+                           f"({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)

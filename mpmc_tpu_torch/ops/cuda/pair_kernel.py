@@ -32,6 +32,15 @@ other launch gives each chain a cluster of CTAs that meet in distributed
 shared memory.  Both sum in one order, so chain c of any launch has the
 bits of chain c launched alone.
 
+Strips (the spatial passes of parallel/spatial.py, one rank each of D):
+B2 with ``strip=(d, D)`` walks only the listed tiles of row tiles I with I
+mod D == d (``strip_tiles``, kept per key as the full list is), the same
+kernel on a shorter list, so the D strips' sums add up to the full pass;
+B4 with ``cols=(c0, c1)`` prices the molecule's rows against the columns
+[c0, c1) only (the rank's column strip ``strip_cols``), the rows gathered
+from the full arrays as ever.  Their plain versions take the same rows or
+columns.
+
 Each wrapper takes the plain PyTorch version for a tensor on the CPU and
 launches its kernel for a CUDA tensor; anything else raises.  There is no
 fallback from the kernel to the plain version.  ``launches`` on each
@@ -140,7 +149,8 @@ def _rows_of(idx, disp, gwp):
 
 
 def pair_terms_plain(pos, charge, eps, sig, mol_id, alive, frozen, scal,
-                     cfg, row_start=0, qc=None, disp=None, gwp=None):
+                     cfg, row_start=0, qc=None, disp=None, gwp=None,
+                     strip=None):
     """Plain B2 on one geometry ``pos`` [N, 3]: pair_terms_chains_plain
     at C = 1, raw [9].  ``qc``: (the atoms' molecular masses [N], the
     temperature) for a Feynman-Hibbs/Kleinert cfg; ``disp``: the (c6, c8,
@@ -149,13 +159,14 @@ def pair_terms_plain(pos, charge, eps, sig, mol_id, alive, frozen, scal,
     return pair_terms_chains_plain(pos[None], charge, eps, sig, mol_id,
                                    alive, frozen, scal, cfg,
                                    row_start=row_start, qc=qc, disp=disp,
-                                   gwp=gwp)[0]
+                                   gwp=gwp, strip=strip)[0]
 
 
 def mol_pair_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
                    mol_natoms, mol, rows, scal, cfg, qc=None, disp=None,
-                   gwp=None):
-    """Plain B4: the molecule's [A, N] block (pairs._block_terms).
+                   gwp=None, cols=None):
+    """Plain B4: the molecule's [A, N] block (pairs._block_terms), or with
+    ``cols`` = (c0, c1) its [A, c1 - c0] block against those columns.
     ``qc``: (the atoms' molecular masses [N], the temperature) for a
     Feynman-Hibbs/Kleinert cfg; ``disp``, ``gwp`` as in
     pair_terms_plain."""
@@ -163,15 +174,23 @@ def mol_pair_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     a = idx.shape[0]
     valid = torch.arange(a, device=pos.device) < take(mol_natoms, mol)
     row_pos = pos[idx] if rows is None else rows
-    col_ok = alive & (mol_id != mol)
     no = torch.zeros(a, dtype=torch.bool, device=pos.device)
     d, g = _rows_of(idx, disp, gwp)
+    row = (mol_id[idx], no, charge[idx], eps[idx], sig[idx])
+    q_row = None if qc is None else qc[0][idx]
+    if cols is not None:
+        sl = slice(*cols)
+        pos, alive, mol_id = pos[sl], alive[sl], mol_id[sl]
+        charge, eps, sig = charge[sl], eps[sl], sig[sl]
+        d = None if d is None else (d[0], tuple(c[sl] for c in d[1]))
+        g = None if g is None else (g[0], g[1][sl])
+        qc = None if qc is None else (qc[0][sl], qc[1])
+    col_ok = alive & (mol_id != mol)
     t = pairs._block_terms(
-        row_pos, None, valid, mol_id[idx], no, charge[idx], eps[idx],
-        sig[idx], pos, col_ok, mol_id, torch.zeros_like(alive), charge, eps,
-        sig, scal, cfg, triangular=False,
-        qc=None if qc is None else (qc[0][idx], qc[0], qc[1]), disp=d,
-        gwp=g)
+        row_pos, None, valid, *row, pos, col_ok, mol_id,
+        torch.zeros_like(alive), charge, eps, sig, scal, cfg,
+        triangular=False,
+        qc=None if qc is None else (q_row, qc[0], qc[1]), disp=d, gwp=g)
     return t[[0, 1, 3, 8]]
 
 
@@ -232,16 +251,49 @@ def tiles_with_pairs(n, row_start):
     return tiles[has].astype(np.int32)
 
 
+def strip_tiles(n, row_start, strip=None):
+    """``tiles_with_pairs(n, row_start)``, or with ``strip`` = (d, D) the
+    listed tiles of the row tiles I with I mod D == d: one rank's strip
+    of the D that split the pass (round-robin, so the triangle's load
+    stays balanced)."""
+    t = tiles_with_pairs(n, row_start)
+    if strip is None:
+        return t
+    d, D = strip
+    nt = max(-(-n // PT), 1)
+    return t[(t // nt) % D == d]
+
+
+def strip_rows(n, row_start, strip=None):
+    """The rows >= row_start of the row tiles ``strip_tiles`` keeps (all
+    of them without a strip), ascending: the plain version's rows."""
+    rows = np.arange(row_start, n)
+    if strip is None:
+        return rows
+    d, D = strip
+    return rows[(rows // PT) % D == d]
+
+
+def strip_cols(n, strip):
+    """(c0, c1): rank d's column strip [d nl, (d + 1) nl) of n columns
+    over D ranks, nl = ceil(n / D), cut at n (the reference's
+    _mol_pair_pass_spatial split, mpmc_tpu/ops/pairs.py:518-540)."""
+    d, D = strip
+    nl = -(-n // D)
+    return min(d * nl, n), min((d + 1) * nl, n)
+
+
 _lists: dict = {}
 
 
-def work_list(n, row_start, device):
-    """B2's work list of ``tiles_with_pairs(n, row_start)`` on ``device``
-    (int32 [W]), built once per (n, row_start, device) and kept: the list
-    depends on nothing else, so a call copies nothing to the card."""
-    key = (int(n), int(row_start), torch.device(device))
+def work_list(n, row_start, device, strip=None):
+    """B2's work list of ``strip_tiles(n, row_start, strip)`` on
+    ``device`` (int32 [W]), built once per (n, row_start, strip, device)
+    and kept: the list depends on nothing else, so a call copies nothing
+    to the card."""
+    key = (int(n), int(row_start), strip, torch.device(device))
     if key not in _lists:
-        _lists[key] = torch.as_tensor(tiles_with_pairs(n, row_start),
+        _lists[key] = torch.as_tensor(strip_tiles(n, row_start, strip),
                                       device=device)
     return _lists[key]
 
@@ -285,40 +337,46 @@ def card_ctas(device, dtype, library="pair_kernel", sfx=""):
 
 
 def pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal, cfg,
-               row_start=0, disp=None):
+               row_start=0, disp=None, strip=None):
     """B2: raw [9] full-pass sums (module docstring).  ``mol_id`` int32,
     ``alive``/``frozen`` bool, ``scal`` = pairs.pair_scalars, ``disp``
-    the (c6, c8, c10) columns [N] (disp_expansion needs them)."""
+    the (c6, c8, c10) columns [N] (disp_expansion needs them); ``strip``
+    (d, D): the sums of rank d's row tiles only (``strip_tiles``)."""
     if pos.device.type == "cpu":
         return pair_terms_plain(pos, charge, eps, sig, mol_id, alive,
                                 frozen, scal, cfg, row_start=row_start,
-                                disp=disp)
+                                disp=disp, strip=strip)
     if pos.device.type != "cuda":
         raise ValueError(f"pair_terms: no kernel for {pos.device}")
     out, launched = _launch_pair_terms(pos[None], charge, eps, sig, mol_id,
                                        alive, frozen, scal, cfg, row_start,
-                                       disp)
+                                       disp, strip)
     pair_terms.launches += launched
+    pair_terms.strip_launches += launched * int(strip is not None)
     return out[0]
 
 
 pair_terms.launches = 0
+pair_terms.strip_launches = 0       # of them on a strip
 
 
 def pair_terms_chains_plain(pos, charge, eps, sig, mol_id, alive, frozen,
                             scal, cfg, row_start=0, qc=None, disp=None,
-                            gwp=None):
+                            gwp=None, strip=None):
     """Plain B2 over a batch of geometries: ``pos`` [C, N, 3], every other
     argument shared (``qc``, ``disp``, ``gwp`` as in pair_terms_plain),
     raw [C, 9], from row blocks of [C, B, N] dense masks
     (pairs._block_terms), B chosen so a block holds at most PLAIN_PAIRS
-    pairs and at most PLAIN_ROWS rows."""
+    pairs and at most PLAIN_ROWS rows; ``strip`` (d, D) takes the rows of
+    rank d's row tiles only (``strip_rows``)."""
     C, n = pos.shape[0], pos.shape[1]
     out = torch.zeros((C, pairs.N_SLOTS), dtype=pos.dtype, device=pos.device)
     out[:, 8] = float("inf")
     rows_blk = max(1, min(PLAIN_ROWS, PLAIN_PAIRS // max(C * n, 1)))
-    for i0 in range(row_start, n, rows_blk):
-        rows = torch.arange(i0, min(i0 + rows_blk, n), device=pos.device)
+    all_rows = torch.as_tensor(strip_rows(n, row_start, strip),
+                               device=pos.device)
+    for i0 in range(0, all_rows.numel(), rows_blk):
+        rows = all_rows[i0:i0 + rows_blk]
         d, g = _rows_of(rows, disp, gwp)
         t = pairs._block_terms(
             pos[:, rows], rows, alive[rows], mol_id[rows], frozen[rows],
@@ -355,10 +413,11 @@ pair_terms_chains.launches = 0
 
 
 def _launch_pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal,
-                       cfg, row_start, disp):
+                       cfg, row_start, disp, strip=None):
     """One B2 launch over the C = pos.shape[0] entries of ``pos`` [C, N,
     3]: (raw [C, 9], 1), or (the empty pass's sums, 0) without a listed
-    tile (no row at or past row_start: nothing is launched)."""
+    tile (no row at or past row_start, or none in the strip: nothing is
+    launched)."""
     C, n = pos.shape[0], pos.shape[1]
     dt, dev = pos.dtype, pos.device
     if C < 1:
@@ -373,7 +432,7 @@ def _launch_pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal,
     lib, sfx, opts = _opts(cfg)
     extra = _disp_args(cfg, disp, n, dt, dev) if sfx else []
     out = torch.empty((C, pairs.N_SLOTS), dtype=dt, device=dev)
-    wl = work_list(n, row_start, dev)
+    wl = work_list(n, row_start, dev, strip)
     w = wl.numel()
     if w == 0:                        # no row at or past row_start
         out.zero_()
@@ -394,12 +453,13 @@ def _launch_pair_terms(pos, charge, eps, sig, mol_id, alive, frozen, scal,
 
 
 def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
-                     mol_natoms, mol, rows, scal, cfg, disp=None):
+                     mol_natoms, mol, rows, scal, cfg, disp=None, cols=None):
     """One B4 launch over C = mol.shape[0] chains (mol [C], rows [C, A, 3]
     or None, scal [20] shared or [C, 20] per chain): raw [C, 4].  ``pos``
     [C, N, 3] with ``alive`` [C, N] gives each chain its own (position
     stride N 3); ``pos`` [N, 3] with ``alive`` [N] is read by every chain
-    (stride 0: one molecule's orientations, qrot.potentials_on_grid)."""
+    (stride 0: one molecule's orientations, qrot.potentials_on_grid).
+    ``cols`` (c0, c1): the columns [c0, c1) only (default all)."""
     C = mol.shape[0]
     shared = pos.ndim == 2
     n = pos.shape[-2]
@@ -420,6 +480,9 @@ def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
     if rows is not None:
         _check("rows", rows, dt, (C, a, 3), dev)
     _check("scal", scal, dt, (C, 20) if scal.ndim == 2 else (20,), dev)
+    c0, c1 = (0, n) if cols is None else (int(cols[0]), int(cols[1]))
+    if not 0 <= c0 <= c1 <= n:
+        raise ValueError(f"mol_pair: columns [{c0}, {c1}) of {n}")
     lib, sfx, opts = _opts(cfg)
     extra = _disp_args(cfg, disp, n, dt, dev) if sfx else []
     out = torch.empty((C, 4), dtype=dt, device=dev)
@@ -429,8 +492,8 @@ def _launch_mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms,
              _ptr(alive), 0 if shared else 3 * n, _ptr(mol_atoms),
              _ptr(mol_natoms), _ptr(mol),
              ctypes.c_void_p(None if rows is None else rows.data_ptr()),
-             a, _ptr(scal), 20 if scal.ndim == 2 else 0, n, C, *opts,
-             _ptr(out), *extra, _stream(dev))
+             a, _ptr(scal), 20 if scal.ndim == 2 else 0, c0, c1 - c0, C,
+             *opts, _ptr(out), *extra, _stream(dev))
     _raise_on(err, "mol_pair")
     return out
 
@@ -452,27 +515,31 @@ def mol_pair_plan(n, C, shared, dtype, cfg):
 
 
 def mol_pair(pos, charge, eps, sig, mol_id, alive, mol_atoms, mol_natoms,
-             mol, rows, scal, cfg, disp=None):
+             mol, rows, scal, cfg, disp=None, cols=None):
     """B4: raw [4] one-molecule sums (module docstring).  ``mol`` is a
     0-d int64 tensor (read on the device — no host sync); ``rows`` are
     trial coordinates [A, 3] or None for the molecule's current rows;
-    ``disp`` the (c6, c8, c10) columns [N] (disp_expansion needs them)."""
+    ``disp`` the (c6, c8, c10) columns [N] (disp_expansion needs them);
+    ``cols`` (c0, c1): the sums over the columns [c0, c1) only (a rank's
+    column strip, ``strip_cols``)."""
     if pos.device.type == "cpu":
         return mol_pair_plain(pos, charge, eps, sig, mol_id, alive,
                               mol_atoms, mol_natoms, mol, rows, scal, cfg,
-                              disp=disp)
+                              disp=disp, cols=cols)
     if pos.device.type != "cuda":
         raise ValueError(f"mol_pair: no kernel for {pos.device}")
     _check("mol", mol, torch.int64, (), pos.device)
     out = _launch_mol_pair(pos[None], charge, eps, sig, mol_id, alive[None],
                            mol_atoms, mol_natoms, mol.reshape(1),
                            None if rows is None else rows[None], scal, cfg,
-                           disp)
+                           disp, cols)
     mol_pair.launches += 1
+    mol_pair.strip_launches += int(cols is not None)
     return out[0]
 
 
 mol_pair.launches = 0
+mol_pair.strip_launches = 0         # of them on a column range
 
 
 def mol_pair_chains_plain(pos, charge, eps, sig, mol_id, alive, mol_atoms,
@@ -604,7 +671,9 @@ mol_pair_chains.shared_launches = 0     # of them at position stride 0
 def reset_counts():
     """Zero the kernels' launch counters."""
     pair_terms.launches = 0
+    pair_terms.strip_launches = 0
     pair_terms_chains.launches = 0
     mol_pair.launches = 0
+    mol_pair.strip_launches = 0
     mol_pair_chains.launches = 0
     mol_pair_chains.shared_launches = 0

@@ -23,6 +23,16 @@ cutoff pass with rd none (the kernels' classical instance) and RD from
 the periodic-image lattice sum of ops/crystal.py, as the reference's
 pair_pass and mol_pair_pass route it.
 
+Under ``cfg.spatial_axis`` (("atoms", D): a rank of D in a process group,
+the replicated state of parallel/spatial.py) a single-geometry pass
+computes this rank's share and the ranks' raw sums meet in one plane
+(parallel/multihost.plane: sums added in rank order, the closest approach
+the minimum): ``pair_pass`` over the row tiles I with I mod D == d (B2 on
+a strip of its work list), ``mol_pair_pass`` over the column strip
+[d nl, (d + 1) nl) (B4 on a column range), ``mol_pair_passes`` several
+trial placements in one plane (the displacement's old and new rows).
+Batched passes stay whole on every rank.
+
 Raw pass outputs leave the Coulomb constant out; this module applies it.
 """
 from __future__ import annotations
@@ -64,6 +74,28 @@ def derived_alpha(cutoff, cfg):
     if cfg.ewald_alpha is not None:
         return torch.full_like(cutoff, cfg.ewald_alpha)
     return 3.5 / cutoff
+
+
+def spatial_strip(cfg):
+    """(d, D): this rank's strip under ``cfg.spatial_axis``, else None.
+    The process group must hold exactly D ranks."""
+    if cfg.spatial_axis is None:
+        return None
+    from mpmc_tpu_torch.parallel import multihost
+    D = int(cfg.spatial_axis[1])
+    if multihost.world() != D:
+        raise ValueError(f"spatial_axis over {D} devices but the process "
+                         f"group has {multihost.world()} ranks")
+    return multihost.rank(), D
+
+
+def _spatial_raw(raw, n_sum):
+    """The ranks' raw pass sums (last axis: n_sum sums, then minima) met
+    in one plane: the sums added in rank order, the minima taken."""
+    from mpmc_tpu_torch.parallel import multihost
+    p = multihost.plane(raw)
+    return torch.cat([multihost.psum_rows(p[..., :n_sum]),
+                      multihost.pmin_rows(p[..., n_sum:])], -1)
 
 
 def pair_scalars(box, cfg):
@@ -345,14 +377,18 @@ def pair_pass(pos, box, atom_alive, params, cfg, temperature,
             params.mol_id32, atom_alive, frozen, scal, cfg)
     disp, gwp = site_columns(params, cfg)
     batch = pos.dim() == 3
+    strip = {} if batch else {"strip": spatial_strip(cfg)}
     if pair_kernel.supported(cfg):
         fn = pair_kernel.pair_terms_chains if batch else pair_kernel.pair_terms
-        raw = fn(*args, row_start=row_start, disp=disp)
+        raw = fn(*args, row_start=row_start, disp=disp, **strip)
     else:
         fn = (pair_kernel.pair_terms_chains_plain if batch
               else pair_kernel.pair_terms_plain)
         raw = fn(*args, row_start=row_start,
-                 qc=(params.mol_mass_atom, temperature), disp=disp, gwp=gwp)
+                 qc=(params.mol_mass_atom, temperature), disp=disp, gwp=gwp,
+                 **strip)
+    if strip.get("strip") is not None:
+        raw = _spatial_raw(raw, 8)
     act, ff = _pair_terms(raw)
     # row-restricted: ff slots are exact zeros (no frozen row)
     return (act, ff) if split_frozen else act.combine(ff)
@@ -382,9 +418,8 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
     one (celllist.mol_pair_pass_culled, plain PyTorch on the device, one
     batched pass over chains): B4 is not launched, as the reference's
     routing (rd_crystal, then the culled pass, then the kernel) has
-    it."""
-    from mpmc_tpu_torch.ops.cuda import pair_kernel
-
+    it.  Under ``cfg.spatial_axis`` one chain's pass is this rank's column
+    strip, met with the others in one plane (mol_pair_passes)."""
     if cfg.rd_crystal:
         from mpmc_tpu_torch.ops import crystal
         base = mol_pair_pass(pos, box, atom_alive, params, _crystal_es(cfg),
@@ -399,26 +434,67 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
         return celllist.mol_pair_pass_culled(
             pos, box, atom_alive, params, cfg, temperature, mol,
             params.cell_index, row_pos=row_pos, shared=shared, scal=scal)
+    if cfg.spatial_axis is not None and pos.ndim == 2 and not shared:
+        return mol_pair_passes(pos, box, atom_alive, params, cfg,
+                               temperature, mol, [row_pos], scal=scal)[0]
+    return _mol_terms(_mol_raw(pos, box, atom_alive, params, cfg,
+                               temperature, mol, row_pos, scal, shared))
+
+
+def _mol_terms(raw):
+    """PairTerms of a raw [..., 4] molecule pass."""
+    raw = raw.unbind(-1)
+    return PairTerms(rd=raw[0], es_real=KE * raw[1],
+                     es_excl=torch.zeros_like(raw[0]), lrc_coeff=raw[2],
+                     min_r2=raw[3])
+
+
+def _mol_raw(pos, box, atom_alive, params, cfg, temperature, mol, row_pos,
+             scal, shared, cols=None):
+    """The raw [4] (over chains [C, 4]) molecule pass of mol_pair_pass
+    (its kernel route or the plain one), over the columns ``cols`` (c0,
+    c1) only when given (one chain)."""
+    from mpmc_tpu_torch.ops.cuda import pair_kernel
+
     if scal is None:
         scal = pair_scalars(box, cfg)
     args = (pos, params.charge, params.eps, params.sig, params.mol_id32,
             atom_alive, params.mol_atoms, params.mol_natoms,
             torch.as_tensor(mol, device=pos.device), row_pos, scal, cfg)
     batched = pos.ndim == 3 or shared
+    cut = {} if cols is None else {"cols": cols}
     disp, gwp = site_columns(params, cfg)
     if pair_kernel.supported(cfg):
         kernel = pair_kernel.mol_pair_chains if batched else \
             pair_kernel.mol_pair
-        raw = kernel(*args, disp=disp)
-    else:
-        plain = pair_kernel.mol_pair_chains_plain if batched else \
-            pair_kernel.mol_pair_plain
-        raw = plain(*args, qc=(params.mol_mass_atom, temperature),
-                    disp=disp, gwp=gwp)
-    raw = raw.unbind(-1)
-    return PairTerms(rd=raw[0], es_real=KE * raw[1],
-                     es_excl=torch.zeros_like(raw[0]), lrc_coeff=raw[2],
-                     min_r2=raw[3])
+        return kernel(*args, disp=disp, **cut)
+    plain = pair_kernel.mol_pair_chains_plain if batched else \
+        pair_kernel.mol_pair_plain
+    return plain(*args, qc=(params.mol_mass_atom, temperature), disp=disp,
+                 gwp=gwp, **cut)
+
+
+def mol_pair_passes(pos, box, atom_alive, params, cfg, temperature, mol,
+                    rows_list, scal=None):
+    """[mol_pair_pass of ``mol`` with each of ``rows_list``'s trial rows
+    (None: its current rows)] on one chain.  Under ``cfg.spatial_axis``
+    each rank prices them against its column strip (B4 on a column
+    range) and all of them meet in ONE plane: the displacement's old and
+    new passes cost one collective, not two."""
+    from mpmc_tpu_torch.ops.cuda import pair_kernel
+
+    strip = (None if cfg.rd_crystal or pos.ndim == 3
+             or (cfg.cell_list and params.cell_index is not None)
+             else spatial_strip(cfg))
+    if strip is None:
+        return [mol_pair_pass(pos, box, atom_alive, params, cfg,
+                              temperature, mol, row_pos=r, scal=scal)
+                for r in rows_list]
+    cols = pair_kernel.strip_cols(pos.shape[0], strip)
+    raw = torch.stack([_mol_raw(pos, box, atom_alive, params, cfg,
+                                temperature, mol, r, scal, False, cols)
+                       for r in rows_list])
+    return [_mol_terms(x) for x in _spatial_raw(raw, 3)]
 
 
 def _crystal_es(cfg):

@@ -23,6 +23,15 @@ solve of n iterations makes n host syncs (n + 1 in residual mode).  The
 tile-culled CG (``cull_supported``) runs wherever the configuration asks
 for it: on the card through the kernel with a visit table, on the CPU
 through its plain version.
+
+Under ``cfg.spatial_axis`` (a rank d of D holding the replicated state,
+parallel/spatial.py) the direct static field, the matvec and the SCF's
+matvecs run B5 with a visit table of the rank's row tiles only (I mod D
+== d, ``strip_visit``; with the culled CG, times the cull table): the
+kernel writes exact zeros for the other row tiles, and the ranks' [N, 3]
+outputs meet in one all-reduce (multihost.sum_disjoint) per field or CG
+iteration.  The CG recurrence stays replicated (the reference's
+solve_scf_sharded, mpmc_tpu/parallel/spatial.py:240).
 """
 from __future__ import annotations
 
@@ -168,13 +177,37 @@ def static_field_wolf(pos, box, atom_alive, params, cfg):
     return torch.cat(out)
 
 
+def strip_visit(n, device, cfg):
+    """[NI, NJ] int32 B5 visit table of this rank's row tiles (I mod D ==
+    d) under ``cfg.spatial_axis``, else None."""
+    from mpmc_tpu_torch.ops.pairs import spatial_strip
+    strip = spatial_strip(cfg)
+    if strip is None:
+        return None
+    d, D = strip
+    _, ni, nj = tk.grid_shape(n)
+    rows = (torch.arange(ni, device=device) % D) == d
+    return rows[:, None].expand(ni, nj).to(torch.int32).contiguous()
+
+
+def _met(field, visit):
+    """A strip's field met with the other ranks' (one all-reduce), or the
+    field as it is without a strip."""
+    if visit is None:
+        return field
+    from mpmc_tpu_torch.parallel import multihost
+    return multihost.sum_disjoint(field)
+
+
 def static_field_direct(pos, box, atom_alive, params, cfg):
     """Damped intermolecular field E0 [N,3] of the permanent charges at
-    every alive site, within the pair cutoff: B5 in charge mode."""
-    return tk.charge_field(pos, box, atom_alive, params.charge,
-                           params.mol_id32, derived_cutoff(box, cfg),
-                           cfg.polar_damp, cfg.polar_damp_type,
-                           ortho=cfg.ortho_box)
+    every alive site, within the pair cutoff: B5 in charge mode (under
+    ``cfg.spatial_axis`` the rank's row strip, met with the others')."""
+    visit = strip_visit(pos.shape[0], pos.device, cfg)
+    return _met(tk.charge_field(pos, box, atom_alive, params.charge,
+                                params.mol_id32, derived_cutoff(box, cfg),
+                                cfg.polar_damp, cfg.polar_damp_type,
+                                ortho=cfg.ortho_box, visit=visit), visit)
 
 
 def _chain_box(box, c):
@@ -553,11 +586,12 @@ def dipole_matvec(pos, box, atom_alive, params, cfg, mu):
     dipole at site i, intramolecular pairs included, within the cutoff —
     B5 in dipole mode."""
     pol_ok = atom_alive & (params.polar > 0)
-    return tk.dipole_field(pos, box, pol_ok,
-                           torch.where(pol_ok[:, None], mu, _zero(mu)),
-                           params.mol_id32, derived_cutoff(box, cfg),
-                           cfg.polar_damp, cfg.polar_damp_type,
-                           ortho=cfg.ortho_box)
+    visit = strip_visit(pos.shape[0], pos.device, cfg)
+    return _met(tk.dipole_field(pos, box, pol_ok,
+                                torch.where(pol_ok[:, None], mu, _zero(mu)),
+                                params.mol_id32, derived_cutoff(box, cfg),
+                                cfg.polar_damp, cfg.polar_damp_type,
+                                ortho=cfg.ortho_box, visit=visit), visit)
 
 
 # ---------------------------------------------------------------------------
@@ -735,6 +769,11 @@ def solve_scf_chains(pos, box, atom_alive, params, cfg, e0, mu0=None,
         mu0 = _gather_sites(mu0, perm) if mu0 is not None else None
         r0 = _gather_sites(r0, perm) if r0 is not None else None
         visit = cull_visit(pos, pol_ok, box, rc_c)
+    strip = strip_visit(n, dev, cfg) if C == 1 else None
+    if strip is not None:
+        # this rank's row tiles of every matvec (in the culled sort's site
+        # order when culled); the CG recurrence stays replicated
+        visit = strip[None] if visit is None else visit * strip[None]
     pos = pos.contiguous()
     mask = pol_ok[..., None]
     inv_a = torch.where(pol_ok, 1.0 / torch.clamp(polar_vec, min=1e-30),
@@ -764,10 +803,10 @@ def solve_scf_chains(pos, box, atom_alive, params, cfg, e0, mu0=None,
             chains = (None if len(open_h) == C else torch.nonzero_static(
                 open_d, size=len(open_h)).reshape(-1).to(torch.int32))
             sub[open_h] = tk.subplan(fplan, open_h, chains)
-        return tk.dipole_field_chains(pos, box, pol_ok, v, mol_s, rc_c,
-                                      cfg.polar_damp, cfg.polar_damp_type,
-                                      ortho=cfg.ortho_box, visit=visit,
-                                      plan=sub[open_h], active=open_h)
+        return _met(tk.dipole_field_chains(
+            pos, box, pol_ok, v, mol_s, rc_c, cfg.polar_damp,
+            cfg.polar_damp_type, ortho=cfg.ortho_box, visit=visit,
+            plan=sub[open_h], active=open_h), strip)
 
     def amul(v, open_h, open_d):
         v = torch.where(mask, v, _zero(v))

@@ -1,7 +1,7 @@
-"""Parallel tempering on one card (port of the single-device part of
-mpmc_tpu/parallel/replica.py: the swap rules and the library drivers
-``run_parallel_tempering_fused`` and ``run_parallel_tempering_fused_multi``;
-the mesh ``run_parallel_tempering`` / ``PTRunner`` is ROADMAP A13).
+"""Parallel tempering on one card and over ranks (port of
+mpmc_tpu/parallel/replica.py: the swap rules, the library drivers
+``run_parallel_tempering_fused`` and ``run_parallel_tempering_fused_multi``,
+and the mesh ``PTRunner`` / ``run_parallel_tempering``).
 
 Replicas are the stacked chains of parallel/multichain.py, each at one
 rung of a ladder: a temperature ladder (``stack_thermo``) or, at one shared
@@ -23,6 +23,15 @@ The library drivers run R replicas for n rounds of fused steps, then a
 ladder swap on the device each round: ``run_parallel_tempering_fused``
 one single-chain launch of B3 (NVT) or B1 (µVT) per replica,
 ``run_parallel_tempering_fused_multi`` one launch over every replica.
+
+The mesh driver (``PTRunner``, ``run_parallel_tempering``): the reference
+puts one replica on each mesh slot and swaps over ``ppermute``; here each
+rank of the process group holds its block of R/D replicas (one rank: all
+of them) and advances it as batched scan chains, a temperature per
+replica.  A swap round's energies and molecule counts meet in one plane
+(``ladder_rows``); every rank draws the round's uniforms from a generator
+seeded alike, so every rank takes the same decisions and holds the same
+ladder, and the replica means come from the same plane.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ import numpy as np
 import torch
 
 from mpmc_tpu_torch.config import RunConfig, Thermo
+from mpmc_tpu_torch.state import Params
 
 
 def geometric_ladder(t_min: float, t_max: float, n: int) -> np.ndarray:
@@ -350,3 +360,123 @@ def run_parallel_tempering_fused_multi(params, state, cfg: RunConfig,
         n_acc = n_acc + acc
     final, n = _finish(thermos.temperature, n_acc)
     return states, final, n
+
+
+# ---------------------------------------------------------------------------
+# the mesh driver: replicas in blocks over the ranks of a process group
+# ---------------------------------------------------------------------------
+
+def ladder_rows(blk, energy, n_mols=None):
+    """(energy [R], n_mols [R] or None) of the whole ladder from this
+    rank's block (multichain.ChainBlock ``blk``): one plane, none at D =
+    1.  The values travel in float64 (exact for the float32 energies and
+    the counts) and come back in their own types."""
+    if blk.D == 1:
+        return energy, n_mols
+    cols = [energy.double()] + ([] if n_mols is None else [n_mols.double()])
+    full = blk.rows(torch.stack(cols, -1))
+    return (full[:, 0].to(energy.dtype),
+            None if n_mols is None else full[:, 1].to(n_mols.dtype))
+
+
+class PTRunner:
+    """One parallel-tempering round over the ranks (the reference's
+    PTRunner, mpmc_tpu/parallel/replica.py:133): this rank's block of the
+    R replicas advances ``steps_per_round`` steps of ``chunk`` (a
+    stacked-chain route; default the batched scan chains), each replica
+    at its rung's temperature, then one neighbour swap of temperatures
+    with a shared coin per pair (_ladder_swap_core; under µVT with each
+    replica's movable count), and the replica means of the energy and the
+    molecule count.  run_mc_pt drives its ladder through it, over
+    ``chain_devices`` ranks (``D``; default the group's)."""
+
+    def __init__(self, params: Params, cfg: RunConfig, R: int,
+                 steps_per_round: int, device=None, chunk=None, D=None):
+        from mpmc_tpu_torch.parallel import multichain, multihost
+        self.params, self.cfg, self.R = params, cfg, R
+        self.steps = steps_per_round
+        self.chunk = multichain.run_chunk_batched if chunk is None else chunk
+        self.blk = multichain.ChainBlock(
+            R, multihost.world() if D is None else D, "n_replicas",
+            device=device)
+
+    def advance(self, states, thermos: Thermo, generator):
+        """(block states, energy [R], movable counts [R], block stats):
+        this rank's block advances one round's steps, then the ladder's
+        energies and counts meet in one plane (``ladder_rows``)."""
+        params = self.params
+        states, stats = self.blk.chunk(self.chunk, states, params, self.cfg,
+                                       thermos, self.steps, generator)
+        energy, n = ladder_rows(
+            self.blk, states.energy.total,
+            movable_counts(states.mol_alive, params.mol_frozen,
+                           params.mol_species))
+        return states, energy, n, stats
+
+    def round(self, states, thermos: Thermo, generator, u, parity: int):
+        """(block states, thermos with the new [R] ladder, record) of one
+        round: ``states`` this rank's block, ``thermos`` the whole ladder,
+        ``u`` the round's [R] swap uniforms (the same on every rank)."""
+        states, energy, n, stats = self.advance(states, thermos, generator)
+        n_mols = n if self.cfg.ensemble == "uvt" else None
+        t_in = thermos.temperature
+        new_t, acc = _ladder_swap_core(t_in, energy.to(t_in.dtype), u,
+                                       parity, n_mols=n_mols)
+        rec = {"temps": t_in, "energies": energy, "n_mols": n_mols, "u": u,
+               "parity": parity, "new_temps": new_t, "accepted": acc,
+               "mean_energy": energy.double().mean(),
+               "mean_N": n.double().mean(),
+               "swap_acceptance": 2.0 * acc.double() / self.R,
+               "stats": stats}
+        return states, thermos.replace(temperature=new_t), rec
+
+
+def run_parallel_tempering(params, state, cfg: RunConfig, thermo: Thermo,
+                           temps, n_rounds: int, steps_per_round: int,
+                           seed: int = 0, round_uniforms=None, trace=None,
+                           log=None):
+    """Drive a PT run over the ranks of the process group (one rank:
+    all replicas on it) — the reference's run_parallel_tempering
+    (mpmc_tpu/parallel/replica.py:237): replicate, then alternate
+    even/odd swap rounds.  The replicas' uniform tables come from a
+    generator seeded ``seed`` (every rank draws the whole table and keeps
+    its rows), the swap uniforms from one seeded ``seed + 7`` (or the
+    injected [n_rounds, R] ``round_uniforms``).  Returns (this rank's
+    block of states, the final [R] ladder ndarray, history: a dict a
+    round with the replica-mean energy and N, the swap acceptance and the
+    ladder); ``trace`` gets each round's record, and rank 0 prints each
+    round to ``log`` (the multi-host drive, mpmc_tpu/parallel/
+    multihost.py:98: every process calls this with the same inputs)."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.parallel import multichain, multihost
+    temps = np.asarray(temps, np.float64)
+    R = len(temps)
+    multihost.global_replica_mesh(R)
+    if metropolis.spinflip_active(cfg):
+        raise ValueError("mesh parallel tempering does not support "
+                         "quantum_rotation spinflip moves — use the "
+                         "single-card PT driver (run_mc_pt)")
+    dev = state.pos.device
+    state = metropolis.initialize(state, params, cfg, thermo)
+    states = multihost.distribute(multichain.stack_states(state, R), R)
+    thermos = stack_thermo(thermo, temps)
+    dtype = thermos.temperature.dtype
+    runner = PTRunner(params, cfg, R, steps_per_round, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    swap_gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    history = []
+    for r in range(n_rounds):
+        u = _round_uniforms(round_uniforms, r, R, swap_gen, dtype)
+        states, thermos, rec = runner.round(states, thermos, gen, u, r % 2)
+        if trace is not None:
+            trace.append(rec)
+        history.append({
+            "round": r, "mean_energy": float(rec["mean_energy"]),
+            "mean_N": float(rec["mean_N"]),
+            "swap_acceptance": float(rec["swap_acceptance"]),
+            "temperatures": thermos.temperature.double().cpu().tolist()})
+        if log is not None and multihost.is_root():
+            print(f"PT round {r}: <E>={history[-1]['mean_energy']:.3f} "
+                  f"swap_acc={history[-1]['swap_acceptance']:.2f}",
+                  file=log, flush=True)
+    return states, thermos.temperature.double().cpu().numpy(), history

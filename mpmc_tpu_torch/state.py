@@ -258,7 +258,7 @@ class SimState:
         return dataclasses.replace(self, **kw)
 
 
-def _map_state(fn, states):
+def map_state(fn, states):
     """A SimState whose tensor fields (energy slots included) are
     ``fn([field of each state])``; ``step`` and absent fields are taken
     from the first state."""
@@ -278,12 +278,17 @@ def _map_state(fn, states):
 def stack_chains(states) -> SimState:
     """One state with a leading [C] on every tensor field, from a list of
     C states at the same step (the multi-chain layout)."""
-    return _map_state(torch.stack, states)
+    return map_state(torch.stack, states)
 
 
 def slice_chain(states: SimState, k: int) -> SimState:
     """Chain ``k`` of a stacked state (views, no copy)."""
-    return _map_state(lambda xs: xs[0][k], [states])
+    return map_state(lambda xs: xs[0][k], [states])
+
+
+def chain_block(states: SimState, lo: int, hi: int) -> SimState:
+    """Chains [lo, hi) of a stacked state (views, no copy)."""
+    return map_state(lambda xs: xs[0][lo:hi], [states])
 
 
 # ---------------------------------------------------------------------------

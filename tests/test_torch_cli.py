@@ -134,7 +134,9 @@ REFUSED = [
     ("feynman_kleinert on", None), ("cell_list on", None),
     ("rd_crystal on", None), ("spectre on", None), ("sg on", None),
     ("disp_expansion on", None), ("gwp on", None),
-    ("spatial_devices 2", "A13"), ("checkpoint_output ck.npz", None),
+    ("spatial_devices 2", "A13"),
+    ("chain_devices 2", "chains 4\nchain_devices 2", "A13"),
+    ("checkpoint_output ck.npz", None),
 ]
 
 
@@ -158,8 +160,21 @@ def test_options_outside_the_slice_are_refused(case, tmp_path):
     route and the spectre sites named in the log); cell_list, once
     refused, runs it with the index's decision logged (no explicit
     cutoff: the dense pass); polar NPT, once refused, runs a frameless
-    polar H2 deck whose box moves."""
+    polar H2 deck whose box moves; spatial_devices and chain_devices (item
+    A13), once refused, run through the command line with --cpu: two gloo
+    ranks it starts itself, a few steps of a small GCMC deck, the log
+    naming the sharding."""
     line, item = case[-2:]
+    if item == "A13":
+        import torch_dist
+        deck = torch_dist.gcmc_deck(tmp_path, line + "\n", numsteps=20)
+        out = _port_cli([deck], tmp_path)
+        assert "process group: 2 ranks, backend gloo" in out
+        assert ("spatial MC step: 2 devices" in out
+                if line.startswith("spatial")
+                else "chain sharding: 2 devices x 2 chains" in out)
+        assert "steps/sec" in out
+        return
     if item is None and line == "ensemble npt\npolarization on":
         from test_torch_polar_npt import _deck
         su, avgs = trun.run(_deck(tmp_path), log=io.StringIO(),

@@ -2508,3 +2508,138 @@ def test_analyzer_on_the_card_equals_the_cpu(device, name, tmp_path):
             np.testing.assert_array_equal(a, b)
         else:
             np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# A13: the strip forms of B2, B4 and B5, and two ranks on the one card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [2, 3])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pair_terms_strips_match_plain(device, dtype, D):
+    """B2 over each strip's row tiles (I mod D == d) against its plain
+    version over the same rows; the strips' sums add up to the whole
+    pass, the closest approach their minimum."""
+    params, state, cfg, _ = _system(dtype, device)
+    args = (state.pos, params.charge, params.eps, params.sig,
+            params.mol_id32, state.atom_alive(params),
+            params.mol_frozen[params.mol_id],
+            pairs.pair_scalars(state.box, cfg), cfg)
+    parts = []
+    for d in range(D):
+        before = pk.pair_terms.strip_launches
+        k = pk.pair_terms(*args, strip=(d, D))
+        torch.cuda.synchronize(device)
+        assert pk.pair_terms.strip_launches == before + 1
+        _close(k, pk.pair_terms_plain(*args, strip=(d, D)), dtype)
+        parts.append(k.double())
+    full = pk.pair_terms(*args).double()
+    summed = torch.stack(parts).sum(0)
+    _close(summed[:8], full[:8], dtype)
+    assert float(torch.stack(parts)[:, 8].min()) == float(full[8])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_mol_pair_column_ranges_match_plain(device, dtype):
+    """B4 over a rank's column range at d = 0 and 1 of 2 against its
+    plain version, the two ranges adding up to the whole pass; the full
+    range [0, N) bit for bit the launch without a range."""
+    params, state, cfg, _ = _system(dtype, device)
+    mol = torch.tensor(int(np.flatnonzero(
+        state.mol_alive.cpu().numpy()
+        & (params.mol_species >= 0).cpu().numpy())[0]), device=device)
+    args = (state.pos, params.charge, params.eps, params.sig,
+            params.mol_id32, state.atom_alive(params), params.mol_atoms,
+            params.mol_natoms, mol, None,
+            pairs.pair_scalars(state.box, cfg), cfg)
+    n = state.pos.shape[0]
+    parts = []
+    for d in range(2):
+        cols = pk.strip_cols(n, (d, 2))
+        k = pk.mol_pair(*args, cols=cols)
+        _close(k, pk.mol_pair_plain(*args, cols=cols), dtype)
+        parts.append(k.double())
+    whole = pk.mol_pair(*args)
+    _close(parts[0][:3] + parts[1][:3], whole[:3].double(), dtype)
+    assert torch.equal(pk.mol_pair(*args, cols=(0, n)), whole)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mode", ["dipole", "charge"])
+def test_field_strip_matches_plain(device, mode, dtype):
+    """B5 with a strip's visit table (its row tiles) against the plain
+    version with the same table, in dipole mode (every sharded matvec)
+    and charge mode (the sharded static field); rows outside the strip
+    exact zeros."""
+    params, state, cfg, _ = systems.mof_h2_gcmc(
+        n_side=6, n_h2=20, capacity=40, polarization=True, dtype=dtype,
+        device=device)
+    alive = state.atom_alive(params)
+    if mode == "dipole":
+        kern, plain = tk.dipole_field, tk.dipole_field_plain
+        ok = alive & (params.polar > 0)
+        g = np.random.default_rng(5)
+        src = torch.where(ok[:, None], torch.as_tensor(
+            g.normal(size=(len(alive), 3)) * 0.05, dtype=state.pos.dtype,
+            device=device), 0.0)
+    else:
+        kern, plain = tk.charge_field, tk.charge_field_plain
+        ok, src = alive, params.charge
+    _, ni, nj = tk.grid_shape(len(alive))
+    for d in range(2):
+        visit = ((torch.arange(ni, device=device) % 2) == d)[:, None] \
+            .expand(ni, nj).to(torch.int32).contiguous()
+        args = (state.pos, state.box, ok, src, params.mol_id32,
+                pairs.derived_cutoff(state.box, cfg), cfg.polar_damp,
+                cfg.polar_damp_type)
+        k = kern(*args, ortho=True, visit=visit)
+        rows = (torch.arange(len(alive), device=device) // tk.TI % 2) == d
+        assert not bool((k[~rows] != 0).any())
+        _close(k, plain(*args, ortho=True, visit=visit), dtype)
+
+def test_spatial_te_on_two_ranks_of_one_card(device, tmp_path):
+    """A spatial ``ensemble te`` on two gloo ranks sharing the card
+    (--distributed --dist-backend gloo, one process a rank) against the
+    single-rank te, term by term."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from mpmc_tpu_torch.io import pqr
+    from mpmc_tpu_torch.parallel import multihost
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    params, state, _, _ = _system("float64", "cpu")
+    pqr.write_state(str(tmp_path / "s.pqr"), params, state, ["H2"])
+    L = float(state.box[0, 0])
+    base = (f"ensemble te\ntemperature 77\nbasis1 {L} 0 0\nbasis2 0 {L} 0\n"
+            f"basis3 0 0 {L}\nprecision float64\nallow_charged_cell on\n"
+            f"pqr_input {tmp_path / 's.pqr'}\n")
+    (tmp_path / "one.inp").write_text(base)
+    (tmp_path / "two.inp").write_text(base + "spatial_devices 2\n")
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    port = multihost.free_port()
+
+    def cli(*a):
+        return subprocess.Popen([sys.executable, "-m", "mpmc_tpu_torch", *a],
+                                cwd=tmp_path, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+
+    procs = [cli("--distributed", "--dist-backend", "gloo", "--coordinator",
+                 f"127.0.0.1:{port}", "--num-processes", "2",
+                 "--process-id", str(r), "two.inp") for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    one = cli("one.inp").communicate(timeout=300)[0]
+
+    def terms(text):
+        return {ln.split("=")[0].strip(): float(ln.split("=")[1])
+                for ln in text.splitlines() if ln.count("=") == 1
+                and ln.split("=")[0].strip() in ("rd", "es_real", "es_recip",
+                                                 "total")}
+    got, want = terms(outs[0][0]), terms(one)
+    assert "spatial sharding: 2 devices" in outs[0][0]
+    assert set(got) == set(want) == {"rd", "es_real", "es_recip", "total"}
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-10, abs=1e-6), k
