@@ -7173,11 +7173,39 @@ def phase_cell_list(device, scan_steps=500, chains=16, chain_steps=200,
                                 row_pos=rows.double(),
                                 scal=pairs.pair_scalars(box64, cfg))
             for cfg in (c64, dataclasses.replace(c64, cell_list=False)))
-    for f in ("rd", "es_real", "lrc_coeff", "min_r2"):
+    fields = ("rd", "es_real", "lrc_coeff", "min_r2")
+    for f in fields:
         x, y = float(getattr(a, f)), float(getattr(b, f))
         if not abs(x - y) <= 1e-9 * max(abs(y), 1e-3):
             raise AssertionError(f"cell_list f64: culled {f} {x!r} vs B4 "
                                  f"{y!r}")
+    # float32: the culled pass and B4 on the card, each against the float64
+    # value within _tol's float32 rule (max of rel 2e-5, 4x the plain
+    # float32 dense pass's distance from the float64 value, 1e-3 K), so
+    # their gap is bounded by twice that
+    ref = np.array([float(getattr(b, f)) for f in fields])
+    pl = pairs.mol_pair_pass(
+        st.pos.cpu(), st.box.cpu(), alive.cpu(),
+        _params_on(su.params.replace(cell_index=None), "cpu"), dense,
+        su.thermo.temperature.cpu(), mol.cpu(), row_pos=rows.cpu(),
+        scal=pairs.pair_scalars(st.box.cpu(), dense))
+    p32 = np.array([float(getattr(pl, f)) for f in fields])
+    tol = _tol(torch.float32, ref, p32)
+    c32 = np.array([float(getattr(culled(), f)) for f in fields])
+    k32 = np.array([float(getattr(b4(), f)) for f in fields])
+    d_c, d_k, gap = np.abs(c32 - ref), np.abs(k32 - ref), np.abs(c32 - k32)
+    for i, f in enumerate(fields):
+        log(f"cell_list f32 {f}: culled {c32[i]: .9e} B4 {k32[i]: .9e} "
+            f"f64 {ref[i]: .9e}; |culled - B4| {gap[i]:.3e} (bound "
+            f"{2 * tol[i]:.3e}), |culled - f64| {d_c[i]:.3e} |B4 - f64| "
+            f"{d_k[i]:.3e} (tol {tol[i]:.3e}, plain f32 {abs(p32[i] - ref[i]):.3e})")
+    if not (np.all(d_c <= tol) and np.all(d_k <= tol)):
+        raise AssertionError("cell_list f32: the culled pass or B4 beyond "
+                             "its float32 tolerance of the float64 value")
+    reps["culled_f32"] = {"fields": fields, "gap": gap.tolist(),
+                          "bound": (2 * tol).tolist(), "tol": tol.tolist(),
+                          "culled_f64": d_c.tolist(), "b4_f64": d_k.tolist(),
+                          "plain_f64": np.abs(p32 - ref).tolist()}
     # the culled pass is hundreds of launches: 2 calls stay inside the
     # card's queue of pending launches, so the host still queues ahead
     c_ms, c_dms = time_calls(culled, device), time_device(culled, device,
@@ -8127,6 +8155,501 @@ def phase_multihost_pt(device, smi, ranks_jsonl):
     return {"seconds": secs, "records": len(a)}
 
 
+# ---------------------------------------------------------------------------
+# phase_fuzz: the parity fuzz corpus through every hand kernel its routes run
+# ---------------------------------------------------------------------------
+
+FUZZ_CORPUS = os.path.join(REPO, "tests", "torch_fuzz_corpus.json")
+
+
+def fuzz_system(entry, dtype, device):
+    """(params, state, cfg, thermo) of a corpus entry built by the port
+    (tools/make_fuzz_corpus.py: the named builder or build_system, then
+    finish_system's form columns, GWP widths, skew, cfg, thermo, tmmc
+    eta, rotor table and cell index), not initialized.  The CPU tests
+    hold it equal to the reference's build carried over."""
+    from tools import make_fuzz_corpus as fc
+    from mpmc_tpu_torch.config import RunConfig, Thermo
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.ops import celllist
+    from mpmc_tpu_torch.state import Species, build_system
+    kind, kw = fc.system_recipe(entry)
+    if kind == "builder":
+        p, s, c, _ = getattr(systems, kw["name"])(**kw["args"], dtype=dtype,
+                                                  device=device)
+    else:
+        kw = dict(kw)
+        sp = tuple(Species(**fc.species_kwargs(d))
+                   for d in kw.pop("species"))
+        tdt = torch.float64 if dtype == "float64" else torch.float32
+        p, s = build_system(species=sp, dtype=tdt, device=device, **kw)
+        c = RunConfig()
+    return fc.finish_system(entry, p, s, c, dtype, None, Thermo,
+                            systems.rd_form_columns, celllist.attach,
+                            device=device)
+
+
+def _fuzz_route(entry, system, steps, generator, uniforms=None):
+    """(states, stats) of ``steps`` steps of the entry's route through the
+    port's chunk functions on the card (the kernels the route runs), or
+    the ValueError of a refusal entry."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.parallel import multichain
+    params, state, cfg, thermo = system
+    r, C = entry["route"], entry["chains"]
+    g = dict(generator=generator, uniforms=uniforms)
+    if r == "scan":
+        return metropolis.run_chunk(state, params, cfg, thermo, steps, **g)
+    if r.startswith("batched"):
+        return multichain.run_chunk_batched(
+            multichain.stack_states(state, C), params, cfg, thermo, steps,
+            **g)
+    if r == "pda":
+        return metropolis.run_chunk_fused_uvt_polar_da(
+            state, params, cfg, thermo, steps, **g)
+    if r == "fused1":
+        fn = {"uvt": metropolis.run_chunk_fused_uvt,
+              "npt": metropolis.run_chunk_fused_npt}.get(
+                  cfg.ensemble, metropolis.run_chunk_fused)
+        return fn(state, params, cfg, thermo, steps, **g)
+    fn = (metropolis.run_chunk_fused_uvt_multi if cfg.ensemble == "uvt"
+          else metropolis.run_chunk_fused_multi)
+    if uniforms is None:
+        g["uniforms"] = torch.rand((C, steps, 16), generator=generator,
+                                   dtype=cfg.tdtype,
+                                   device=generator.device)
+    return fn(multichain.stack_states(state, C), params, cfg, thermo,
+              steps, uniforms=g["uniforms"])
+
+
+class _FuzzShare:
+    """The largest share of its tolerance any check of phase_fuzz used:
+    max |d| / tol, with the entry and the check."""
+
+    def __init__(self):
+        self.share, self.where = 0.0, None
+
+    def add(self, eid, what, d, tol):
+        d = np.asarray(d, np.float64)
+        tol = np.asarray(tol, np.float64)
+        s = float(np.max(np.where(tol > 0, d / np.maximum(tol, 1e-300),
+                                  np.where(d > 0, np.inf, 0.0)), initial=0))
+        if not s <= 1.0:
+            raise AssertionError(f"phase_fuzz {eid} {what}: |d| {d.max():.3e}"
+                                 f" beyond its tolerance (share {s:.3f})")
+        if s > self.share:
+            self.share, self.where = s, f"{eid} {what}"
+
+
+def _fuzz_agree(sh, eid, what, k, p, r):
+    """A float32 kernel result k against the float64 plain result r of
+    the same inputs within _tol's float32 rule (p: the float32 plain
+    result); the same terms finite on both sides."""
+    k, p, r = (x.double().cpu().numpy() for x in (k, p, r))
+    fin = np.isfinite(r)
+    if not np.array_equal(np.isfinite(k), fin):
+        raise AssertionError(f"phase_fuzz {eid} {what}: non-finite terms "
+                             "differ")
+    with np.errstate(invalid="ignore"):
+        sh.add(eid, what, np.abs(k - r)[fin],
+               _tol(torch.float32, r, p)[fin])
+
+
+def _fuzz_b2(eid, system, sh, dev):
+    """B2 (pair_terms) at row_start 0 and F, and B2 over a batch of three
+    jittered geometries (pair_terms_chains), against the plain version,
+    within _tol's float32 rule (the plain version in float64 on the same
+    inputs is the reference)."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    params, state, cfg, _ = system
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    disp = ((params.c6, params.c8, params.c10)
+            if cfg.rd_potential == "disp_expansion" else None)
+    d64 = None if disp is None else tuple(x.double() for x in disp)
+    F = metropolis.frozen_refresh_rows(params, cfg)
+    a32 = (state.pos,) + _b2_shared(params, state, cfg)
+    p64 = params.replace(charge=params.charge.double(),
+                         eps=params.eps.double(), sig=params.sig.double())
+    a64 = (state.pos.double(),) + _b2_shared(
+        p64, state.replace(box=state.box.double()), cfg64)
+    for rs in sorted({0, F}):
+        k = pk.pair_terms(*a32, row_start=rs, disp=disp)
+        p = pk.pair_terms_plain(*a32, row_start=rs, disp=disp)
+        r = pk.pair_terms_plain(*a64, row_start=rs, disp=d64)
+        _fuzz_agree(sh, eid, f"B2 row_start {rs}", k, p, r)
+    pos = torch.stack([systems.jittered(params, state, seed=s,
+                                        amplitude=0.1).pos
+                       for s in range(3)]).contiguous()
+    k = pk.pair_terms_chains(pos, *a32[1:], row_start=F, disp=disp)
+    p = pk.pair_terms_chains_plain(pos, *a32[1:], row_start=F, disp=disp)
+    r = pk.pair_terms_chains_plain(pos.double(), *a64[1:], row_start=F,
+                                   disp=d64)
+    _fuzz_agree(sh, eid, "B2 x 3", k, p, r)
+
+
+def _fuzz_b4(eid, system, sh, dev, C):
+    """B4 (mol_pair) on an alive movable molecule's rows and on trial rows
+    shifted off them, and B4 over C chains (mol_pair_chains) with one
+    shared header and with a header per chain (each chain's box scaled
+    by 1 + 0.02 c), against the plain version within _tol's float32
+    rule."""
+    from mpmc_tpu_torch.ops import pairs
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    params, state, cfg, _ = system
+    mov = ((params.mol_species >= 0) & state.mol_alive
+           & ~params.mol_frozen).cpu().numpy()
+    if not mov.any():
+        return
+    mols = np.flatnonzero(mov)
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    disp = ((params.c6, params.c8, params.c10)
+            if cfg.rd_potential == "disp_expansion" else None)
+    d64 = None if disp is None else tuple(x.double() for x in disp)
+    alive = state.atom_alive(params)
+    col32 = (params.charge, params.eps, params.sig, params.mol_id32)
+    col64 = (params.charge.double(), params.eps.double(),
+             params.sig.double(), params.mol_id32)
+    tab = (params.mol_atoms, params.mol_natoms)
+    m = torch.tensor(int(mols[0]), device=dev)
+    rows0 = state.pos[params.mol_atoms[int(mols[0])]]
+    shift = torch.tensor([0.37, -0.21, 0.13], dtype=state.pos.dtype,
+                         device=dev)
+    for label, rows in (("rows", None), ("trial", rows0 + shift)):
+        a32 = (state.pos, *col32, alive, *tab, m, rows,
+               pairs.pair_scalars(state.box, cfg), cfg)
+        a64 = (state.pos.double(), *col64, alive, *tab, m,
+               None if rows is None else rows.double(),
+               pairs.pair_scalars(state.box.double(), cfg64), cfg64)
+        k = pk.mol_pair(*a32, disp=disp)
+        p = pk.mol_pair_plain(*a32, disp=disp)
+        r = pk.mol_pair_plain(*a64, disp=d64)
+        _fuzz_agree(sh, eid, f"B4 {label}", k, p, r)
+    # over C chains: a molecule per chain, shared header, then one per chain
+    C = max(C, 2)
+    pos = torch.stack([state.pos] * C).contiguous()
+    al = torch.stack([alive] * C).contiguous()
+    mc = torch.as_tensor(mols[np.arange(C) % len(mols)], device=dev)
+    scal1 = pairs.pair_scalars(state.box, cfg)
+    hdr = torch.stack([pairs.pair_scalars(state.box * (1 + 0.02 * c), cfg)
+                       for c in range(C)])
+    hdr64 = torch.stack([pairs.pair_scalars(
+        state.box.double() * (1 + 0.02 * c), cfg64) for c in range(C)])
+    for label, s32, s64 in (("shared header", scal1,
+                             pairs.pair_scalars(state.box.double(), cfg64)),
+                            ("header per chain", hdr, hdr64)):
+        a32 = (pos, *col32, al, *tab, mc, None, s32, cfg)
+        a64 = (pos.double(), *col64, al, *tab, mc, None, s64, cfg64)
+        k = pk.mol_pair_chains(*a32, disp=disp)
+        p = pk.mol_pair_chains_plain(*a32, disp=disp)
+        r = pk.mol_pair_chains_plain(*a64, disp=d64)
+        _fuzz_agree(sh, eid, f"B4 x {C} {label}", k, p, r)
+
+
+def _fuzz_b5(eid, system, sh, dev, C):
+    """B5 in both modes, dense at the derived rc and culled at rc 6 A on
+    the cell-sorted sites (equal to the dense launch on the sorted input
+    bit for bit), and over C jittered chains, against the plain version:
+    phase_thole_kernel's float32 rule (at most 4x the plain float32
+    version's distance from the float64 plain version, or 2e-6 x the
+    largest |E_i|)."""
+    from mpmc_tpu_torch.models import systems
+    from mpmc_tpu_torch.ops import pairs, thole
+    from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
+    params, state, cfg, _ = system
+    alive = state.atom_alive(params)
+    pol_ok = alive & (params.polar > 0)
+    if not bool(pol_ok.any()):
+        return
+    box, lam, kind = state.box, cfg.polar_damp, cfg.polar_damp_type
+    mu = torch.where(pol_ok[:, None], state.mu, 0.0)
+    rc = pairs.derived_cutoff(box, cfg)
+    rc6 = torch.as_tensor(min(6.0, float(rc)), dtype=box.dtype, device=dev)
+
+    def rule(what, k, p, r):
+        k, p, r = (x.double().cpu().numpy() for x in (k, p, r))
+        scale = float(np.abs(r).max())
+        sh.add(eid, what, np.abs(k - r),
+               np.maximum(4.0 * np.abs(p - r), 2e-6 * scale))
+
+    for mode, kern, plain, kc, pc in (
+            ("dipole", tk.dipole_field, tk.dipole_field_plain,
+             tk.dipole_field_chains, tk.dipole_field_chains_plain),
+            ("charge", tk.charge_field, tk.charge_field_plain,
+             tk.charge_field_chains, tk.charge_field_chains_plain)):
+        ok, src = (pol_ok, mu) if mode == "dipole" else (alive,
+                                                        params.charge)
+        src = src.contiguous()
+        mol = params.mol_id32
+        k = kern(state.pos, box, ok, src, mol, rc, lam, kind)
+        p = plain(state.pos, box, ok, src, mol, rc, lam, kind)
+        r = plain(state.pos.double(), box.double(), ok, src.double(), mol,
+                  rc.double(), lam, kind)
+        rule(f"B5 {mode} dense", k, p, r)
+        perm, _ = thole.cull_perm(state.pos, box, ok, rc6)
+        ps_, oks, srcs, mols = (state.pos[perm].contiguous(), ok[perm],
+                                src[perm].contiguous(), mol[perm])
+        visit = thole.cull_visit(ps_, oks, box, rc6)
+        kd = kern(ps_, box, oks, srcs, mols, rc6, lam, kind)
+        kv = kern(ps_, box, oks, srcs, mols, rc6, lam, kind, visit=visit)
+        if not torch.equal(kd, kv):
+            raise AssertionError(f"phase_fuzz {eid} B5 {mode}: the culled "
+                                 "launch is not the dense one bit for bit")
+        rule(f"B5 {mode} culled", kv,
+             plain(ps_, box, oks, srcs, mols, rc6, lam, kind),
+             plain(ps_.double(), box.double(), oks, srcs.double(), mols,
+                   rc6.double(), lam, kind))
+        Cc = max(C, 2)
+        pos = torch.stack([systems.jittered(params, state, seed=s,
+                                            amplitude=0.1).pos
+                           for s in range(Cc)]).contiguous()
+        okc = torch.stack([ok] * Cc)
+        srcc = torch.stack([src] * Cc).contiguous()
+        molc = torch.stack([mol] * Cc).contiguous()
+        k = kc(pos, box, okc, srcc, molc, rc, lam, kind)
+        p = pc(pos, box, okc, srcc, molc, rc, lam, kind)
+        r = pc(pos.double(), box.double(), okc, srcc.double(), molc,
+               rc.double(), lam, kind)
+        rule(f"B5 {mode} x {Cc}", k, p, r)
+
+
+def _fuzz_b1(eid, system, sh, dev, u):
+    """B1 on the entry's table u [C, K, 16] against its plain version:
+    equal counts, slot aliveness, spins and TMMC attempts; the sums within
+    phase_uvt_kernel's float32 rule plus _rss_tol, positions within 1e-4
+    A, S(k) within 1e-4 of its scale, the Sigma a columns within
+    _sum_a_tol."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    params, state, cfg, thermo = system
+    C = u.shape[0]
+    args, kw = metropolis.fused_uvt_launch_args(
+        multichain.stack_states(state, C), params, cfg, thermo, u,
+        metropolis.uvt_fused_tables(params, cfg))
+    trace = []
+    p = mk.run_steps_uvt_plain(*args, **kw, trace=trace)
+    kw_k = dict(kw)
+    if "tmmc_out" in kw:
+        kw_k["tmmc_out"] = torch.zeros_like(kw["tmmc_out"])
+    k = mk.run_steps_uvt(*args, **kw_k)
+    torch.cuda.synchronize(dev)
+    ps, ks = p[2].cpu().numpy(), k[2].cpu().numpy()
+    same = (np.array_equal(ks[:, 6:14], ps[:, 6:14])
+            and torch.equal(k[1], p[1]))
+    if cfg.quantum_rotation:
+        same = same and torch.equal(k[5], p[5])
+    if "tmmc_out" in kw:
+        tk_, tp_ = kw_k["tmmc_out"].cpu().numpy(), kw["tmmc_out"].cpu(
+            ).numpy()
+        same = same and np.array_equal(tk_[..., [0, 2]], tp_[..., [0, 2]])
+    if not same:
+        raise AssertionError(f"phase_fuzz {eid} B1: decisions differ from "
+                             f"the plain version: kernel {ks[:, 6:14]} "
+                             f"plain {ps[:, 6:14]}")
+    n_acc = ps[:, 6:9].sum(1, keepdims=True)
+    tol = 2e-5 * np.abs(ps[:, :6]) + 2e-3 * np.sqrt(n_acc + 1.0)
+    tol[:, :2] += _rss_tol(trace)
+    sh.add(eid, "B1 sums", np.abs(ks[:, :6] - ps[:, :6]), tol)
+    sh.add(eid, "B1 positions", float((k[0] - p[0]).abs().max()), 1e-4)
+    if cfg.coulomb == "ewald":
+        sh.add(eid, "B1 S(k)", max(float((a - b).abs().max())
+                                   for a, b in zip(k[3:5], p[3:5])),
+               1e-4 * (1.0 + float(p[3].abs().max())))
+    if "tmmc_out" in kw:
+        beta = float(args[14].reshape(-1)[0])
+        sh.add(eid, "B1 Sigma a", np.abs(tk_[..., [1, 3]] - tp_[..., [1, 3]]),
+               _sum_a_tol(tp_, beta))
+    return int(ps[:, 6:9].sum())
+
+
+def _fuzz_b3(eid, system, sh, dev, u):
+    """B3 on the entry's table against its plain version (the hybrid NPT
+    path's segments: under nvt): equal accepts and spinflip counts, the
+    sums within the float32 rule plus _rss_tol, positions within 1e-4 A,
+    S(k) within 1e-4 of its scale."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.parallel import multichain
+    params, state, cfg, thermo = system
+    if cfg.ensemble == "npt":
+        cfg = dataclasses.replace(cfg, ensemble="nvt")
+    C = u.shape[0]
+    args, kw = metropolis.fused_nvt_launch_args(
+        multichain.stack_states(state, C), params, cfg, thermo, u,
+        metropolis.nvt_fused_tables(params, state.mol_alive))
+    trace = []
+    p = mk.run_steps_plain(*args, **kw, trace=trace)
+    k = mk.run_steps(*args, **kw)
+    torch.cuda.synchronize(dev)
+    ps, ks = p[1].cpu().numpy(), k[1].cpu().numpy()
+    if not np.array_equal(ks[:, 3:], ps[:, 3:]):
+        raise AssertionError(f"phase_fuzz {eid} B3: decisions differ from "
+                             f"the plain version: kernel {ks[:, 3:]} plain "
+                             f"{ps[:, 3:]}")
+    tol = 2e-5 * np.abs(ps[:, :3]) + 2e-3 * np.sqrt(ps[:, 3:4] + 1.0)
+    tol[:, :2] += _rss_tol(trace)
+    sh.add(eid, "B3 sums", np.abs(ks[:, :3] - ps[:, :3]), tol)
+    sh.add(eid, "B3 positions", float((k[0] - p[0]).abs().max()), 1e-4)
+    if cfg.coulomb == "ewald":
+        sh.add(eid, "B3 S(k)", max(float((a - b).abs().max())
+                                   for a, b in zip(k[2:4], p[2:4])),
+               1e-4 * (1.0 + float(p[2].abs().max())))
+    return int(ps[:, 3].sum())
+
+
+def _fuzz_b6(eid, system, sh, dev, us):
+    """B6 on segment tables us [n, PDA_SEG, 16] against its plain version
+    (phase_pda_kernel's float32 rule): equal n_done, hit, move type, slot,
+    species and attempts; rows within 1e-4 A; the six deltas, d* and lnb
+    within 2e-5 of their size + 1e-3 K + 8 float32 epsilons x their rss."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    params, state, cfg, thermo = system
+    if cfg.ensemble == "nvt":
+        thermo = thermo.replace(insert_probability=torch.zeros_like(
+            thermo.insert_probability))
+    cfg = mk.pda_effective_cfg(cfg, params)
+    tables = metropolis.uvt_fused_tables(params, cfg)
+    hits = 0
+    for u in us:
+        a, kw = metropolis.pda_launch_args(state, params, cfg, thermo, u,
+                                           tables)
+        trace = []
+        p = mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace).cpu().numpy()
+        k = mk.run_steps_uvt_pda(*a, **kw).cpu().numpy()
+        if not np.array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8]],
+                              p[0, [0, 1, 2, 3, 4, 6, 7, 8]]):
+            raise AssertionError(f"phase_fuzz {eid} B6: record differs from "
+                                 f"the plain version: kernel {k[0, :12]} "
+                                 f"plain {p[0, :12]}")
+        rss = np.zeros(8)
+        if trace and trace[-1].get("rss"):
+            rss[[0, 1, 2, 6]] = trace[-1]["rss"]
+        want = np.concatenate([p[1, :6], p[0, 9:11]])
+        vals = np.concatenate([k[1, :6], k[0, 9:11]])
+        sh.add(eid, "B6 deltas", np.abs(vals - want),
+               2e-5 * np.abs(want) + 1e-3 + 8 * EPS32 * rss)
+        sh.add(eid, "B6 rows", float(np.abs(k[2:5] - p[2:5]).max()), 1e-4)
+        hits += int(p[0, 1])
+    return hits
+
+
+def _fuzz_book(eid, entry, system, states, sh, start):
+    """The deck's carried energy against a fresh recompute: every chain's
+    total within rel 1e-4 (_check_bookkeeping's rule) of the largest of
+    the total and the sums of the terms' sizes at the deck's start
+    (``start``) and end (on these small cells the terms nearly cancel,
+    and a molecule inserted and deleted again leaves the float32 rounding
+    of its terms behind), its polar term within _polar_tol (and the
+    1e-4 K floor of the total's rule)."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.parallel import multichain
+    from mpmc_tpu_torch.state import slice_chain
+    params, _, cfg, thermo = system
+    multi = entry["chains"] > 1 and entry["route"] != "pda"
+    fresh = (multichain.initialize_batched(states, params, cfg, thermo)
+             if multi else metropolis.initialize(states, params, cfg,
+                                                 thermo))
+    for c in range(entry["chains"] if multi else 1):
+        st = slice_chain(states, c) if multi else states
+        fr = slice_chain(fresh, c) if multi else fresh
+        a, b = float(st.energy.total), float(fr.energy.total)
+        mag = max(sum(abs(float(getattr(x.energy, k))) for k in (
+            "rd", "lrc", "es_real", "es_recip", "es_self", "es_excl",
+            "polar", "vdw")) for x in (fr, start))
+        sh.add(eid, "carried = fresh", abs(a - b),
+               1e-4 * max(abs(b), mag, 1.0))
+        if cfg.polarization:
+            sh.add(eid, "carried = fresh polar",
+                   abs(float(st.energy.polar) - float(fr.energy.polar)),
+                   _polar_tol(fr, params, cfg) + 1e-4)
+
+
+FUZZ_DECK_STEPS = 64
+
+
+def phase_fuzz(device, ids=None):
+    """The parity fuzz corpus (tests/torch_fuzz_corpus.json,
+    tools/make_fuzz_corpus.py) on the card in float32, every entry built
+    by the port (fuzz_system) and initialized: B2 (row_start 0 and F, and
+    over a batch) and B4 (rows, a trial, over chains with a shared header
+    and with a header per chain) where their gate takes the entry; B5
+    (both modes, dense, culled and over chains) where it is polar; on a
+    fused route B1, B3 or B6 on the entry's own numpy table through every
+    instance the entry selects (its RD form, coulomb, quantum correction,
+    cavity / TMMC, spinflip); each against its plain version on the same
+    inputs with the rules of their own phases; then FUZZ_DECK_STEPS steps
+    of the entry's route through the port's chunk functions and carried =
+    fresh.  A refusal entry must raise its named ValueError.  Returns
+    (entries run, launches per kernel in the phase, the largest share of
+    a tolerance used and where, seconds)."""
+    from mpmc_tpu_torch.mc import metropolis
+    from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
+    from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
+    from tools import make_fuzz_corpus as fc
+    t0 = time.time()
+    entries = [e for e in fc.load(FUZZ_CORPUS)["entries"]
+               if ids is None or e["id"] in ids]
+    sh = _FuzzShare()
+    _reset_counts()
+    for e in entries:
+        eid, r = e["id"], e["route"]
+        system = fuzz_system(e, "float32", device)
+        params, state, cfg, thermo = system
+        state = metropolis.initialize(state, params, cfg, thermo)
+        if cfg.ensemble == "nve":
+            u0 = float(state.energy.total + state.e_frozen.total)
+            thermo = thermo.replace(nve_energy=torch.tensor(
+                u0 + e["nve_kinetic"], dtype=torch.float32, device=device))
+        system = (params, state, cfg, thermo)
+        C = e["chains"]
+        if pk.supported(cfg):
+            _fuzz_b2(eid, system, sh, device)
+            _fuzz_b4(eid, system, sh, device, C)
+        if cfg.polarization:
+            _fuzz_b5(eid, system, sh, device, C)
+        g = torch.Generator(device=device).manual_seed(e["useed"] % 2 ** 31)
+        if e["refusal"]:
+            try:
+                _fuzz_route(e, system, 8, g)
+            except ValueError as err:
+                if not str(err).startswith(
+                        getattr(metropolis, e["refusal"])[:40]):
+                    raise
+            else:
+                raise AssertionError(f"phase_fuzz {eid}: {e['refusal']} "
+                                     "was not refused")
+            log(f"fuzz {eid} {r} {cfg.ensemble}: refused "
+                f"({e['refusal']}) as the port must")
+            continue
+        if r in ("fused1", "fused2", "fused5"):
+            u = torch.as_tensor(fc.uniforms(e, (C, e["steps"], 16)),
+                                dtype=torch.float32, device=device)
+            if cfg.ensemble == "uvt":
+                _fuzz_b1(eid, system, sh, device, u)
+            else:
+                _fuzz_b3(eid, system, sh, device, u)
+        elif r == "pda":
+            us = fc.uniforms(e, (3, mk.PDA_SEG, 16)).astype(np.float32)
+            us[0, 0, 4], us[0, 0, 8] = 1e-30, 0.9
+            _fuzz_b6(eid, system, sh, device,
+                     torch.as_tensor(us, device=device))
+        states, stats = _fuzz_route(e, system, FUZZ_DECK_STEPS, g)
+        _fuzz_book(eid, e, system, states, sh, state)
+        log(f"fuzz {eid} {r} {cfg.ensemble} {cfg.rd_potential}/"
+            f"{cfg.coulomb} N={state.pos.shape[0]}: "
+            f"accepts {np.asarray(stats.host().accepts).sum(0).tolist()}; "
+            f"largest share so far {sh.share:.3f} ({sh.where})")
+    torch.cuda.synchronize(device)
+    launches = _launch_counts()
+    secs = time.time() - t0
+    log(f"phase_fuzz: {len(entries)} entries, launches {launches}, largest "
+        f"tolerance share {sh.share:.4f} ({sh.where}), {secs:.1f} s")
+    return len(entries), launches, sh.share, sh.where, secs
+
+
 def _md_phases(dev, smi, mark):
     """phase_spatial, phase_chain_devices and phase_multihost_pt: (the
     strips' report, their launches, seconds)."""
@@ -8161,6 +8684,18 @@ def _md_kernels(md_rep, launches):
                                                 "plain_ms", "bound_ms")},
                     "full_ms": a["full_ms"]})
     return out
+
+
+def fuzz_main(ids):
+    """``python3 chip_smoke.py --fuzz [ids...]``: the build, phase_fuzz
+    (on the corpus entries ``ids``, or all) and phase_cell_list, with no
+    JSON lines: a quick card run of the fuzz corpus."""
+    dev, smi = phase_device()
+    sys.path.insert(0, REPO)
+    phase_build()
+    phase_fuzz(dev, ids=ids or None)
+    if not ids:
+        phase_cell_list(dev)
 
 
 def main():
@@ -8313,6 +8848,8 @@ def _phases(dev, smi, t0, build_s, refs, replay_refs):
     surf_launches, surf_reps = phase_surf(dev)
     t_ccs = time.time() - t_ccs
     md_report, md_launches, t_md = _md_phases(dev, smi, mark)
+    mark("phase_fuzz")
+    fuzz = phase_fuzz(dev)
     # last: its CPU references have had the card's phases to finish in
     mark("phase_energy")
     phase_energy(dev, refs)
@@ -8683,6 +9220,14 @@ def _phases(dev, smi, t0, build_s, refs, replay_refs):
         + f"  ({smi})")
     log(f"multi-device phases (two ranks sharing one card) {t_md:.1f} s; "
         f"wall_seconds {time.time() - t0:.1f}  ({smi})")
+    cf = cl_reps["culled_f32"]
+    log("cell_list_f32 " + "  ".join(
+        f"{f}_gap {g:.3e} {f}_bound {b:.3e}" for f, g, b in
+        zip(cf["fields"], cf["gap"], cf["bound"])) + f"  ({smi})")
+    n_fz, fz_launches, fz_share, fz_where, fz_s = fuzz
+    log(f"phase_fuzz entries {n_fz}  launches {fz_launches}  "
+        f"largest_tolerance_share {fz_share:.4f} ({fz_where})  seconds "
+        f"{fz_s:.1f}  wall_seconds {time.time() - t0:.1f}  ({smi})")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -8697,5 +9242,7 @@ if __name__ == "__main__":
         replay_references(sys.argv[2])
     elif sys.argv[1:2] == ["--md-rank"]:
         md_rank(*sys.argv[2:8])
+    elif sys.argv[1:2] == ["--fuzz"]:
+        fuzz_main(sys.argv[2:])
     else:
         main()
