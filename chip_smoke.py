@@ -8164,29 +8164,56 @@ FUZZ_CORPUS = os.path.join(REPO, "tests", "torch_fuzz_corpus.json")
 
 def fuzz_system(entry, dtype, device):
     """(params, state, cfg, thermo) of a corpus entry built by the port
-    (tools/make_fuzz_corpus.py: the named builder or build_system, then
-    finish_system's form columns, GWP widths, skew, cfg, thermo, tmmc
-    eta, rotor table and cell index), not initialized.  The CPU tests
-    hold it equal to the reference's build carried over."""
-    from tools import make_fuzz_corpus as fc
+    (tools/fuzz_recipe.py: the named builder or build_system, then the RD
+    form's columns, GWP widths, skew, cfg, thermo, tmmc eta, rotor table
+    and cell index), not initialized.  The CPU tests hold it equal to the
+    reference's build carried over."""
+    from tools import fuzz_recipe as fr
     from mpmc_tpu_torch.config import RunConfig, Thermo
     from mpmc_tpu_torch.models import systems
     from mpmc_tpu_torch.ops import celllist
     from mpmc_tpu_torch.state import Species, build_system
-    kind, kw = fc.system_recipe(entry)
+    tdt = torch.float64 if dtype == "float64" else torch.float32
+    arr = lambda a: torch.as_tensor(np.asarray(a), dtype=tdt,  # noqa: E731
+                                    device=device)
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+    kind, kw = fr.system_recipe(entry)
     if kind == "builder":
         p, s, c, _ = getattr(systems, kw["name"])(**kw["args"], dtype=dtype,
                                                   device=device)
     else:
         kw = dict(kw)
-        sp = tuple(Species(**fc.species_kwargs(d))
+        sp = tuple(Species(**fr.species_kwargs(d))
                    for d in kw.pop("species"))
-        tdt = torch.float64 if dtype == "float64" else torch.float32
         p, s = build_system(species=sp, dtype=tdt, device=device, **kw)
         c = RunConfig()
-    return fc.finish_system(entry, p, s, c, dtype, None, Thermo,
-                            systems.rd_form_columns, celllist.attach,
-                            device=device)
+    c = dataclasses.replace(c, **fr.cfg_fields(entry, dtype))
+    rep = {}
+    if c.rd_potential in fr.RD_FORMS:
+        cols = systems.rd_form_columns(host(p.eps), host(p.sig),
+                                       c.rd_potential)
+        rep.update({k: arr(v) for k, v in
+                    zip(("eps", "sig", "c6", "c8", "c10"), cols)})
+    if c.coulomb == "gwp":
+        rep["gwp_alpha"] = arr(fr.gwp_widths(host(p.charge),
+                                             entry["gwp_seed"]))
+    if rep:
+        p = p.replace(**rep)
+    if entry["skew"]:
+        s = s.replace(box=arr(fr.skewed_box(host(s.box), entry["skew"])))
+    t = Thermo.make(**entry["thermo"],
+                    n_species=len(entry["system"]["species"]), dtype=tdt,
+                    device=device)
+    if c.tmmc_bias:
+        t = t.replace(tmmc_eta=arr(fr.tmmc_eta(int(p.n_mols_max) + 1,
+                                               entry["rseed"])))
+    if c.quantum_rotation:
+        spins, rot_f = fr.rotor_table(int(p.n_mols_max), entry["rseed"])
+        s = s.replace(spin=torch.as_tensor(spins, device=device),
+                      rot_f=arr(rot_f))
+    if c.cell_list:
+        p = celllist.attach(p, s.pos, s.box, c, min_reduction=None)
+    return p, s, c, t
 
 
 def _fuzz_route(entry, system, steps, generator, uniforms=None):
@@ -8347,13 +8374,56 @@ def _fuzz_b4(eid, system, sh, dev, C):
         _fuzz_agree(sh, eid, f"B4 x {C} {label}", k, p, r)
 
 
+F32_EPS = float(np.finfo(np.float32).eps)
+# float32 ulps of a B5 field component's sum of |terms|: each term within
+# a few ulps (sqrt, the damping's exp, the division), the sum of the terms
+# far inside the (n - 1) ulps of a worst case
+B5_TERM_ULPS = 8.0
+
+
+def _b5_terms(mode, pos, box, src, ok, mol, rc, lam, kind):
+    """The sum over j of |term_ij| of each component of plain B5's field
+    (thole_kernel._field_plain's pairs, terms and damping, in float64):
+    what the float32 rounding of a component scales with."""
+    from mpmc_tpu_torch.ops import pbc as pbc_ops
+    from mpmc_tpu_torch.ops.cuda.thole_kernel import damping
+    pos, box, src = pos.double(), box.double(), src.double()
+    n = pos.shape[-2]
+    dr = pbc_ops.min_image(pos[..., :, None, :] - pos[..., None, :, :],
+                           box, torch.linalg.inv(box))
+    r2 = torch.sum(dr * dr, -1)
+    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
+    pair = (ok[..., :, None] & ok[..., None, :] & ~eye
+            & (r2 < float(rc) ** 2))
+    if mode == "charge":
+        pair = pair & (mol[..., :, None] != mol[..., None, :])
+    r2s = torch.where(pair, r2, torch.ones_like(r2))
+    r = torch.sqrt(r2s)
+    d1, d2 = damping(r, lam, kind)
+    zero = torch.zeros_like(r2)
+    adr = dr.abs()
+    if mode == "charge":
+        coef = torch.where(pair, (src[..., None, :] * d1 / (r2s * r)).abs(),
+                           zero)
+        return torch.einsum("...ij,...ijk->...ik", coef, adr)
+    inv_r3 = 1.0 / (r2s * r)
+    mdotr = torch.einsum("...jk,...ijk->...ij", src, dr)
+    c1 = torch.where(pair, (3.0 * d2 * mdotr * inv_r3 / r2s).abs(), zero)
+    c2 = torch.where(pair, (d1 * inv_r3).abs(), zero)
+    return (torch.einsum("...ij,...ijk->...ik", c1, adr)
+            + c2 @ src.abs())
+
+
 def _fuzz_b5(eid, system, sh, dev, C):
     """B5 in both modes, dense at the derived rc and culled at rc 6 A on
     the cell-sorted sites (equal to the dense launch on the sorted input
     bit for bit), and over C jittered chains, against the plain version:
     phase_thole_kernel's float32 rule (at most 4x the plain float32
     version's distance from the float64 plain version, or 2e-6 x the
-    largest |E_i|)."""
+    largest |E_i|), or B5_TERM_ULPS float32 ulps of the component's sum
+    of |terms| (_b5_terms): on these small cells the terms of a field
+    component cancel to far below the largest field, and their float32
+    rounding is what is left."""
     from mpmc_tpu_torch.models import systems
     from mpmc_tpu_torch.ops import pairs, thole
     from mpmc_tpu_torch.ops.cuda import thole_kernel as tk
@@ -8367,11 +8437,12 @@ def _fuzz_b5(eid, system, sh, dev, C):
     rc = pairs.derived_cutoff(box, cfg)
     rc6 = torch.as_tensor(min(6.0, float(rc)), dtype=box.dtype, device=dev)
 
-    def rule(what, k, p, r):
+    def rule(what, k, p, r, terms):
         k, p, r = (x.double().cpu().numpy() for x in (k, p, r))
         scale = float(np.abs(r).max())
         sh.add(eid, what, np.abs(k - r),
-               np.maximum(4.0 * np.abs(p - r), 2e-6 * scale))
+               np.maximum(np.maximum(4.0 * np.abs(p - r), 2e-6 * scale),
+                          B5_TERM_ULPS * F32_EPS * terms.cpu().numpy()))
 
     for mode, kern, plain, kc, pc in (
             ("dipole", tk.dipole_field, tk.dipole_field_plain,
@@ -8386,7 +8457,8 @@ def _fuzz_b5(eid, system, sh, dev, C):
         p = plain(state.pos, box, ok, src, mol, rc, lam, kind)
         r = plain(state.pos.double(), box.double(), ok, src.double(), mol,
                   rc.double(), lam, kind)
-        rule(f"B5 {mode} dense", k, p, r)
+        rule(f"B5 {mode} dense", k, p, r,
+             _b5_terms(mode, state.pos, box, src, ok, mol, rc, lam, kind))
         perm, _ = thole.cull_perm(state.pos, box, ok, rc6)
         ps_, oks, srcs, mols = (state.pos[perm].contiguous(), ok[perm],
                                 src[perm].contiguous(), mol[perm])
@@ -8399,7 +8471,8 @@ def _fuzz_b5(eid, system, sh, dev, C):
         rule(f"B5 {mode} culled", kv,
              plain(ps_, box, oks, srcs, mols, rc6, lam, kind),
              plain(ps_.double(), box.double(), oks, srcs.double(), mols,
-                   rc6.double(), lam, kind))
+                   rc6.double(), lam, kind),
+             _b5_terms(mode, ps_, box, srcs, oks, mols, rc6, lam, kind))
         Cc = max(C, 2)
         pos = torch.stack([systems.jittered(params, state, seed=s,
                                             amplitude=0.1).pos
@@ -8411,15 +8484,16 @@ def _fuzz_b5(eid, system, sh, dev, C):
         p = pc(pos, box, okc, srcc, molc, rc, lam, kind)
         r = pc(pos.double(), box.double(), okc, srcc.double(), molc,
                rc.double(), lam, kind)
-        rule(f"B5 {mode} x {Cc}", k, p, r)
+        rule(f"B5 {mode} x {Cc}", k, p, r,
+             _b5_terms(mode, pos, box, srcc, okc, molc, rc, lam, kind))
 
 
 def _fuzz_b1(eid, system, sh, dev, u):
     """B1 on the entry's table u [C, K, 16] against its plain version:
     equal counts, slot aliveness, spins and TMMC attempts; the sums within
-    phase_uvt_kernel's float32 rule plus _rss_tol, positions within 1e-4
-    A, S(k) within 1e-4 of its scale, the Sigma a columns within
-    _sum_a_tol."""
+    phase_uvt_kernel's float32 rule plus _rss_tol and _slope_tol (the
+    rule of phase_rd_fused_kernels), positions within 1e-4 A, S(k) within
+    1e-4 of its scale, the Sigma a columns within _sum_a_tol."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     from mpmc_tpu_torch.parallel import multichain
@@ -8429,7 +8503,7 @@ def _fuzz_b1(eid, system, sh, dev, u):
         multichain.stack_states(state, C), params, cfg, thermo, u,
         metropolis.uvt_fused_tables(params, cfg))
     trace = []
-    p = mk.run_steps_uvt_plain(*args, **kw, trace=trace)
+    p = mk.run_steps_uvt_plain(*args, **kw, trace=trace, slopes=True)
     kw_k = dict(kw)
     if "tmmc_out" in kw:
         kw_k["tmmc_out"] = torch.zeros_like(kw["tmmc_out"])
@@ -8451,6 +8525,7 @@ def _fuzz_b1(eid, system, sh, dev, u):
     n_acc = ps[:, 6:9].sum(1, keepdims=True)
     tol = 2e-5 * np.abs(ps[:, :6]) + 2e-3 * np.sqrt(n_acc + 1.0)
     tol[:, :2] += _rss_tol(trace)
+    tol += _slope_tol(trace, state.box, 6)
     sh.add(eid, "B1 sums", np.abs(ks[:, :6] - ps[:, :6]), tol)
     sh.add(eid, "B1 positions", float((k[0] - p[0]).abs().max()), 1e-4)
     if cfg.coulomb == "ewald":
@@ -8467,8 +8542,9 @@ def _fuzz_b1(eid, system, sh, dev, u):
 def _fuzz_b3(eid, system, sh, dev, u):
     """B3 on the entry's table against its plain version (the hybrid NPT
     path's segments: under nvt): equal accepts and spinflip counts, the
-    sums within the float32 rule plus _rss_tol, positions within 1e-4 A,
-    S(k) within 1e-4 of its scale."""
+    sums within the float32 rule plus _rss_tol and _slope_tol (the rule
+    of phase_rd_fused_kernels), positions within 1e-4 A, S(k) within 1e-4
+    of its scale."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     from mpmc_tpu_torch.parallel import multichain
@@ -8480,7 +8556,7 @@ def _fuzz_b3(eid, system, sh, dev, u):
         multichain.stack_states(state, C), params, cfg, thermo, u,
         metropolis.nvt_fused_tables(params, state.mol_alive))
     trace = []
-    p = mk.run_steps_plain(*args, **kw, trace=trace)
+    p = mk.run_steps_plain(*args, **kw, trace=trace, slopes=True)
     k = mk.run_steps(*args, **kw)
     torch.cuda.synchronize(dev)
     ps, ks = p[1].cpu().numpy(), k[1].cpu().numpy()
@@ -8490,6 +8566,7 @@ def _fuzz_b3(eid, system, sh, dev, u):
                              f"{ps[:, 3:]}")
     tol = 2e-5 * np.abs(ps[:, :3]) + 2e-3 * np.sqrt(ps[:, 3:4] + 1.0)
     tol[:, :2] += _rss_tol(trace)
+    tol += _slope_tol(trace, state.box, 3)
     sh.add(eid, "B3 sums", np.abs(ks[:, :3] - ps[:, :3]), tol)
     sh.add(eid, "B3 positions", float((k[0] - p[0]).abs().max()), 1e-4)
     if cfg.coulomb == "ewald":
@@ -8503,7 +8580,8 @@ def _fuzz_b6(eid, system, sh, dev, us):
     """B6 on segment tables us [n, PDA_SEG, 16] against its plain version
     (phase_pda_kernel's float32 rule): equal n_done, hit, move type, slot,
     species and attempts; rows within 1e-4 A; the six deltas, d* and lnb
-    within 2e-5 of their size + 1e-3 K + 8 float32 epsilons x their rss."""
+    within 2e-5 of their size + 1e-3 K + 8 float32 epsilons x their rss,
+    rd and es also within _slope_tol's rule."""
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     params, state, cfg, thermo = system
@@ -8517,7 +8595,8 @@ def _fuzz_b6(eid, system, sh, dev, us):
         a, kw = metropolis.pda_launch_args(state, params, cfg, thermo, u,
                                            tables)
         trace = []
-        p = mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace).cpu().numpy()
+        p = mk.run_steps_uvt_pda_plain(*a, **kw, trace=trace,
+                                       slopes=True).cpu().numpy()
         k = mk.run_steps_uvt_pda(*a, **kw).cpu().numpy()
         if not np.array_equal(k[0, [0, 1, 2, 3, 4, 6, 7, 8]],
                               p[0, [0, 1, 2, 3, 4, 6, 7, 8]]):
@@ -8529,8 +8608,10 @@ def _fuzz_b6(eid, system, sh, dev, us):
             rss[[0, 1, 2, 6]] = trace[-1]["rss"]
         want = np.concatenate([p[1, :6], p[0, 9:11]])
         vals = np.concatenate([k[1, :6], k[0, 9:11]])
-        sh.add(eid, "B6 deltas", np.abs(vals - want),
-               2e-5 * np.abs(want) + 1e-3 + 8 * EPS32 * rss)
+        tol = 2e-5 * np.abs(want) + 1e-3 + 8 * EPS32 * rss
+        if trace and trace[-1].get("slope"):
+            tol[:2] += np.asarray(trace[-1]["slope"]) * _row_bound(state.box)
+        sh.add(eid, "B6 deltas", np.abs(vals - want), tol)
         sh.add(eid, "B6 rows", float(np.abs(k[2:5] - p[2:5]).max()), 1e-4)
         hits += int(p[0, 1])
     return hits
@@ -8570,7 +8651,7 @@ def _fuzz_book(eid, entry, system, states, sh, start):
 FUZZ_DECK_STEPS = 64
 
 
-def phase_fuzz(device, ids=None):
+def phase_fuzz(device):
     """The parity fuzz corpus (tests/torch_fuzz_corpus.json,
     tools/make_fuzz_corpus.py) on the card in float32, every entry built
     by the port (fuzz_system) and initialized: B2 (row_start 0 and F, and
@@ -8588,10 +8669,9 @@ def phase_fuzz(device, ids=None):
     from mpmc_tpu_torch.mc import metropolis
     from mpmc_tpu_torch.ops.cuda import mc_kernel as mk
     from mpmc_tpu_torch.ops.cuda import pair_kernel as pk
-    from tools import make_fuzz_corpus as fc
+    from tools import fuzz_recipe as fr
     t0 = time.time()
-    entries = [e for e in fc.load(FUZZ_CORPUS)["entries"]
-               if ids is None or e["id"] in ids]
+    entries = fr.load(FUZZ_CORPUS)["entries"]
     sh = _FuzzShare()
     _reset_counts()
     for e in entries:
@@ -8625,14 +8705,14 @@ def phase_fuzz(device, ids=None):
                 f"({e['refusal']}) as the port must")
             continue
         if r in ("fused1", "fused2", "fused5"):
-            u = torch.as_tensor(fc.uniforms(e, (C, e["steps"], 16)),
+            u = torch.as_tensor(fr.uniforms(e, (C, e["steps"], 16)),
                                 dtype=torch.float32, device=device)
             if cfg.ensemble == "uvt":
                 _fuzz_b1(eid, system, sh, device, u)
             else:
                 _fuzz_b3(eid, system, sh, device, u)
         elif r == "pda":
-            us = fc.uniforms(e, (3, mk.PDA_SEG, 16)).astype(np.float32)
+            us = fr.uniforms(e, (3, mk.PDA_SEG, 16)).astype(np.float32)
             us[0, 0, 4], us[0, 0, 8] = 1e-30, 0.9
             _fuzz_b6(eid, system, sh, device,
                      torch.as_tensor(us, device=device))
@@ -8684,18 +8764,6 @@ def _md_kernels(md_rep, launches):
                                                 "plain_ms", "bound_ms")},
                     "full_ms": a["full_ms"]})
     return out
-
-
-def fuzz_main(ids):
-    """``python3 chip_smoke.py --fuzz [ids...]``: the build, phase_fuzz
-    (on the corpus entries ``ids``, or all) and phase_cell_list, with no
-    JSON lines: a quick card run of the fuzz corpus."""
-    dev, smi = phase_device()
-    sys.path.insert(0, REPO)
-    phase_build()
-    phase_fuzz(dev, ids=ids or None)
-    if not ids:
-        phase_cell_list(dev)
 
 
 def main():
@@ -9242,7 +9310,5 @@ if __name__ == "__main__":
         replay_references(sys.argv[2])
     elif sys.argv[1:2] == ["--md-rank"]:
         md_rank(*sys.argv[2:8])
-    elif sys.argv[1:2] == ["--fuzz"]:
-        fuzz_main(sys.argv[2:])
     else:
         main()

@@ -48,7 +48,8 @@ from mpmc_tpu_torch.ops.cuda import pair_kernel as tpk
 from mpmc_tpu_torch.ops.cuda import thole_kernel as ttk
 from mpmc_tpu_torch.parallel import multichain
 from mpmc_tpu_torch.parallel import spatial as tspatial
-from mpmc_tpu_torch.state import slice_chain, stack_chains
+from mpmc_tpu_torch.state import (mol_rows_update, slice_chain,
+                                  stack_chains)
 from tools import make_fuzz_corpus as fc
 
 torch.set_num_threads(1)
@@ -67,6 +68,8 @@ E_REL, E_ABS = 1e-10, 1e-8
 # rounded in float64, so the rule scales with the system's energy
 # magnitude (the sum of |terms|, frozen part included)
 MOVE_REL, BOOK_REL = 1e-10, 1e-9
+# (c): draws a move type gets until one is accepted
+MOVE_TRIES = 24
 
 
 def cost(entry):
@@ -387,6 +390,16 @@ def _branch_index(C, move):
 
 
 def check_moves(eid):
+    """Each move type through the port's step on fresh draws of the
+    uniforms (both coins 0), until one is accepted: the first draw at the
+    entry's step sizes, the next MOVE_TRIES - 1 at a tenth of them.  On
+    every draw the proposal's deltas (the step's trace) against the
+    reference's recompute of the proposed state, and after it the carried
+    deltas against the reference's recompute of the state the step left
+    (a rejected draw: unchanged).  Every move type must be accepted on some
+    draw, unless the reference says no draw could be: an insert the state
+    cannot take (``_insert_blocked``), or every proposal's reference
+    energy change beyond what the coin 0 lets through (``_prohibitive``)."""
     e = ENTRIES[eid]
     _, (P, S, C, T) = system(eid)
     rng = np.random.default_rng(e["useed"] + 1)
@@ -396,28 +409,133 @@ def check_moves(eid):
         return
     energy = reference_energy(eid, True)
     a0, f0 = energy(S.pos, S.box, S.mol_alive)
-    done = []
+    small = T.replace(move_factor=0.1 * T.move_factor,
+                      rot_factor=0.1 * T.rot_factor,
+                      volume_change_factor=0.1 * T.volume_change_factor)
+    ok = {}
     for move in fc.moves(e):
-        u = torch.as_tensor(rng.random(16))
-        u[4] = 0.0                    # the coin: accept unless refused
-        step, carry, cc, _, stats = tm.chunk_setup(S, P, C, T, u[None])
-        step(carry, u, _branch_index(C, move), T, cc, stats)
-        acc = int(stats.accepts[MOVE_BRANCH[move]])
-        done.append((move, acc))
-        a1, f1 = energy(carry["pos"], carry["box"], carry["mol_alive"])
-        scale = _scale(a0, f0, a1, f1)
+        ok[move] = move == "insert" and _insert_blocked(S, P, C)
+        could = False
+        for k in range(1 if ok[move] else MOVE_TRIES):
+            acc, du_ref, rec = _one_move(S, P, C, small if k else T, move,
+                                         rng, energy, a0, f0)
+            if acc:
+                ok[move] = True
+                break
+            could |= du_ref is not None and not _prohibitive(
+                S, C, T, rec, du_ref)
+        ok[move] = ok[move] or (move in ("displace", "insert", "delete")
+                                and not could)
+    assert all(ok.values()), ok
+
+
+def _insert_blocked(S, P, C):
+    """Whether no insert can be accepted: under cavity bias the grid has
+    no open cell (the step rejects every insert, as the reference's
+    does), or no insert species has a free slot."""
+    if C.cavity_bias and not bool(S.cavity_open.any()):
+        return True
+    free = ~S.mol_alive & torch.isin(
+        P.mol_species, torch.as_tensor(C.insert_species))
+    return not bool(free.any())
+
+
+# the coin 0 is clamped to 1e-38: a move whose log acceptance is below
+# log(1e-38) = -87.5 is rejected; the margin covers the TMMC tilt (|d eta|
+# < 2) and the delayed acceptance's surrogate
+PROHIBITIVE = 87.5 + 10.0
+
+
+def _prohibitive(S, C, T, rec, du_ref):
+    """Whether a proposal whose reference energy change is ``du_ref`` K
+    cannot pass the coin 0: under NVE the reservoir cannot pay it, else
+    its log acceptance (the step's ln_bias, the reference's du) is below
+    -PROHIBITIVE."""
+    if C.ensemble == "nve":
+        k_old = float(T.nve_energy - (S.energy.total + S.e_frozen.total))
+        return du_ref >= k_old
+    return float(rec["ln_bias"]) - du_ref / float(T.temperature) < (
+        -PROHIBITIVE)
+
+
+def _proposed(S, P, C, move, rec):
+    """(pos, mol_alive) of the proposal in the step's trace ``rec``, or
+    None where there is no state to price: a move whose proposal the trace
+    does not spell out (volume, spinflip), a target the move cannot take
+    (a dead or frozen molecule to move or delete, a live one to insert
+    over), or an insert or displacement inside the autoreject radius —
+    each judged from the state, not from the step's own reject flag."""
+    if move not in ("displace", "insert", "delete"):
+        return None
+    mol = int(rec["mol"])
+    sp = int(P.mol_species[mol])
+    live = bool(S.mol_alive[mol]) and not bool(P.mol_frozen[mol])
+    if sp < 0 or live != (move != "insert") or (
+            move != "displace" and sp not in C.insert_species):
+        return None
+    pos, alive = S.pos.clone(), S.mol_alive.clone()
+    if rec["rows"] is not None:
+        mol_rows_update(pos, P, torch.tensor(mol), rec["rows"])
+    if move != "displace":
+        alive[mol] = move == "insert"
+    if move != "delete" and C.cavity_autoreject_absolute > 0.0:
+        own = P.mol_id == mol
+        other = alive[P.mol_id] & P.atom_ok & ~own
+        d = pos[own & P.atom_ok][:, None] - pos[other][None]
+        f = d @ torch.linalg.inv(S.box)
+        d = (f - torch.round(f)) @ S.box
+        if bool((d.norm(dim=-1) < C.cavity_autoreject_absolute).any()):
+            return None
+    return pos, alive
+
+
+def _one_move(S, P, C, T, move, rng, energy, a0, f0):
+    """One ``move`` of the port's step on a fresh draw, checked: (1 if it
+    was accepted, the reference's energy change of the proposal or None,
+    the step's trace record).  A rejected draw must leave the state as it
+    was; an accepted one's carried deltas are held against the reference's
+    energy of the state it left (the proposal's, when that was priced)."""
+    u = torch.as_tensor(rng.random(16))
+    u[4] = u[12] = 0.0            # the coins (stage 2's under delayed acc.)
+    step, carry, cc, _, stats = tm.chunk_setup(S, P, C, T, u[None])
+    trace = []
+    step(carry, u, _branch_index(C, move), T, cc, stats, trace=trace)
+    rec = trace[0]
+    acc = int(stats.accepts[MOVE_BRANCH[move]])
+    du_ref = None
+    e1 = None
+    prop = _proposed(S, P, C, move, rec)
+    if prop is not None:
+        a2, f2 = energy(prop[0], S.box, prop[1])
+        du_ref = sum(float(getattr(a2, k) - getattr(a0, k)) for k in TERMS)
+        scale = _scale(a0, f0, a2, f2)
         for k in TERMS:
-            d_port = float(getattr(carry["energy"], k)
-                           - getattr(S.energy, k))
-            d_ref = float(getattr(a1, k) - getattr(a0, k))
+            if k in ("polar", "vdw"):
+                continue          # priced outside the trace's d
+            d_port = float(getattr(rec["d"], k))
+            d_ref = float(getattr(a2, k) - getattr(a0, k))
             assert abs(d_port - d_ref) <= (MOVE_REL * abs(d_ref)
                                            + 1e-12 * scale + 1e-9), (
-                move, acc, k, d_port, d_ref)
-        if not acc:
-            for k in TERMS:
-                assert float(getattr(carry["energy"], k)) == float(
-                    getattr(S.energy, k)), (move, k)
-    assert done
+                "proposal", move, k, d_port, d_ref)
+        if torch.equal(carry["pos"], prop[0]) and torch.equal(
+                carry["mol_alive"], prop[1]):
+            e1 = (a2, f2)
+    if not acc:
+        assert torch.equal(carry["pos"], S.pos) and torch.equal(
+            carry["mol_alive"], S.mol_alive), move
+        for k in TERMS:
+            assert float(getattr(carry["energy"], k)) == float(
+                getattr(S.energy, k)), (move, k)
+        return acc, du_ref, rec
+    a1, f1 = e1 or energy(carry["pos"], carry["box"], carry["mol_alive"])
+    scale = _scale(a0, f0, a1, f1)
+    for k in TERMS:
+        d_port = float(getattr(carry["energy"], k) - getattr(S.energy, k))
+        d_ref = float(getattr(a1, k) - getattr(a0, k))
+        assert abs(d_port - d_ref) <= (MOVE_REL * abs(d_ref)
+                                       + 1e-12 * scale + 1e-9), (
+            move, acc, k, d_port, d_ref)
+    return acc, du_ref, rec
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,10 @@ only where the reference builds it and, on a fused route, its fused gate
 accepts it; a draw that meets a trap the port refuses on purpose keeps its
 route and names the refusal (``refusal``).
 
-Nothing at module level imports jax or torch: ``system_recipe`` and
-``load`` are shared by the CPU tests (which build with mpmc_tpu) and by
-chip_smoke.py's phase_fuzz (which builds with mpmc_tpu_torch); only
-``draw_entries`` and ``reference_system`` import the reference.
+The numpy-only recipe of an entry is tools/fuzz_recipe.py, which the
+port's card phase reads too; this module finishes an entry with the
+reference (``reference_system``), and only ``draw_entries`` and
+``reference_system`` import it.
 """
 from __future__ import annotations
 
@@ -31,10 +31,15 @@ import sys
 
 import numpy as np
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+from tools.fuzz_recipe import (  # noqa: E402,F401
+    CORPUS, RD_FORMS, SPACING, cfg_fields, gwp_widths, load, rotor_table,
+    skewed_box, species_kwargs, system_recipe, tmmc_eta, uniforms)
+
 SEED = 20231019
 N_MIN = 72
-CORPUS = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "tests", "torch_fuzz_corpus.json")
 
 # the axes every value of which the corpus holds at least twice
 AXES = {
@@ -76,7 +81,6 @@ FUSED = ("fused1", "fused2", "fused5")
 # the draw favours the GCMC main path
 ENSEMBLE_WEIGHT = {"uvt": 2.5, "nvt": 1.5}
 TILE = 128          # the kernels' tile width (B2's, B5's)
-SPACING = 5.0       # the framework lattice of a build_system entry, in A
 
 def _species_menu():
     """Rigid neutral templates by site count, as numbers: 1 CH4 (united
@@ -117,121 +121,6 @@ def _species_menu():
 
 
 SPECIES = _species_menu()
-
-
-def load(path=CORPUS):
-    """The committed corpus: {"seed", "entries"}."""
-    with open(path) as f:
-        return json.load(f)
-
-
-def _framework(n_side, spacing, polar):
-    """The charge-alternating cubic framework of both packages'
-    systems._framework_lattice, as numpy: (pos, per-atom params, edge)."""
-    ijk = np.stack(np.meshgrid(*[np.arange(n_side)] * 3, indexing="ij"),
-                   -1).reshape(-1, 3)
-    pos = (ijk + 0.5) * spacing
-    sign = (-1.0) ** ijk.sum(axis=1)
-    F = len(pos)
-    fp = {"charge": 0.30 * sign, "mass": np.full(F, 60.0),
-          "polar": np.full(F, polar), "eps": np.full(F, 25.0),
-          "sig": np.full(F, 3.0)}
-    return pos, fp, n_side * spacing
-
-
-def _rotation(rng):
-    """A uniform random rotation matrix (Shoemake)."""
-    u1, u2, u3 = rng.random(3)
-    a, b = math.sqrt(1 - u1), math.sqrt(u1)
-    x, y, z, w = (a * math.sin(2 * math.pi * u2), a * math.cos(2 * math.pi * u2),
-                  b * math.sin(2 * math.pi * u3), b * math.cos(2 * math.pi * u3))
-    return np.array([
-        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
-        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
-        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
-
-
-def system_recipe(entry):
-    """(kind, kwargs) of an entry's system, numpy only: ``("builder",
-    {"name", "args"})`` for a named builder of models/systems.py, or
-    ``("build_system", kw)`` with build_system's keywords (box,
-    frozen_pos, frozen_params, capacity, initial_counts, initial_pos, seed)
-    and ``kw["species"]`` the templates as dicts of numbers (each
-    package makes its Species of them)."""
-    sysd = entry["system"]
-    if sysd["builder"] != "build_system":
-        return "builder", {"name": sysd["builder"], "args": sysd["args"]}
-    a = sysd["args"]
-    species = sysd["species"]
-    counts, caps = a["initial_counts"], a["capacity"]
-    rng = np.random.default_rng(a["seed"])
-    kw = dict(capacity=tuple(caps), initial_counts=tuple(counts),
-              seed=a["seed"], species=species)
-    if a.get("frame"):
-        fr = a["frame"]
-        fpos, fp, edge = _framework(fr["n_side"], SPACING, fr["polar"])
-        kw.update(box=np.eye(3) * edge, frozen_pos=fpos, frozen_params=fp)
-        n = fr["n_side"]
-        ijk = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"),
-                       -1).reshape(-1, 3)
-        sites = (ijk[rng.permutation(len(ijk))[:sum(counts)]] + 1.0) * SPACING
-        init, k = {}, 0
-        for i, (sp, c) in enumerate(zip(species, counts)):
-            tmpl = np.asarray(sp["pos"], np.float64)
-            m = np.asarray(sp["mass"], np.float64)
-            tmpl = tmpl - (m[:, None] * tmpl).sum(0) / m.sum()
-            rows = [sites[k + j] + tmpl @ _rotation(rng).T for j in range(c)]
-            init[i] = np.asarray(rows).reshape(c, len(m), 3)
-            k += c
-        kw["initial_pos"] = init
-    else:
-        kw.update(box=np.eye(3) * a["edge"], frozen_pos=None,
-                  frozen_params=None, initial_pos=None)
-    return "build_system", kw
-
-
-def species_kwargs(d):
-    """A stored template (a dict of numbers) as the keywords of either
-    package's Species."""
-    return {k: (tuple(v) if k == "atom_names" else v if k == "name"
-                else np.asarray(v, np.float64)) for k, v in d.items()}
-
-
-def gwp_widths(charge, seed):
-    """Seeded GWP widths 0.2-0.6 A on every charged site, 0 elsewhere."""
-    q = np.asarray(charge, np.float64)
-    w = np.random.default_rng(seed).uniform(0.2, 0.6, q.shape)
-    return np.where(q != 0.0, w, 0.0)
-
-
-def skewed_box(box, skew):
-    """The cell with basis vector 2 sheared by ``skew`` A along x and
-    basis vector 3 by skew / 2 along y (0: the box as it is)."""
-    b = np.array(box, np.float64, copy=True)
-    if skew:
-        b[1, 0] += skew
-        b[2, 1] += 0.5 * skew
-    return b
-
-
-def rotor_table(n_mols, seed):
-    """(spins [M] 0/1, rot_f [M, 2] K) of a quantum_rotation entry: a
-    seeded table standing for the rotor free energies (F_para, F_ortho),
-    which the kernels and the step read as data."""
-    rng = np.random.default_rng(seed)
-    spins = (rng.random(n_mols) < 0.5).astype(np.int32)
-    rot_f = rng.uniform(-60.0, 60.0, (n_mols, 2))
-    return spins, rot_f
-
-
-def tmmc_eta(n_macro, seed):
-    """A seeded tmmc_bias eta in [-1, 1) per macrostate."""
-    return np.random.default_rng(seed).uniform(-1.0, 1.0, n_macro)
-
-
-def uniforms(entry, shape):
-    """The entry's numpy uniform table of ``shape`` (float64, in [0, 1))."""
-    return np.random.default_rng(entry["useed"]).random(shape)
 
 
 def moves(entry):
@@ -505,14 +394,16 @@ def reference_system(entry, dtype="float64"):
     (mpmc_tpu_torch.models.systems.rd_form_columns, numpy), GWP widths,
     the skewed box, the cfg and thermo fields, the tmmc_bias eta, the
     seeded rotor table, and under cell_list the reference's index
-    (celllist.attach, min_reduction None)."""
+    (celllist.attach, min_reduction None).  chip_smoke.py fuzz_system is
+    the port's build of the same recipe."""
     import jax.numpy as jnp
-    from mpmc_tpu.config import Thermo
+    from mpmc_tpu.config import RunConfig, Thermo
     from mpmc_tpu.models import systems
     from mpmc_tpu.ops import celllist
     from mpmc_tpu.state import Species, build_system
     from mpmc_tpu_torch.models.systems import rd_form_columns
     jdt = jnp.float64 if dtype == "float64" else jnp.float32
+    arr = lambda a: jnp.asarray(np.asarray(a), jdt)  # noqa: E731
     kind, kw = system_recipe(entry)
     if kind == "builder":
         p, s, c, _ = getattr(systems, kw["name"])(**kw["args"], dtype=dtype)
@@ -520,61 +411,31 @@ def reference_system(entry, dtype="float64"):
         kw = dict(kw)
         sp = tuple(Species(**species_kwargs(d)) for d in kw.pop("species"))
         p, s = build_system(species=sp, dtype=jdt, **kw)
-        from mpmc_tpu.config import RunConfig
         c = RunConfig()
-    return finish_system(entry, p, s, c, dtype, jnp, Thermo,
-                         rd_form_columns, celllist.attach)
-
-
-def finish_system(entry, p, s, c, dtype, xnp, Thermo, rd_form_columns,
-                  attach, device=None):
-    """The package-independent tail of an entry's system: reference_system
-    passes jax.numpy (``xnp``), chip_smoke.fuzz_system the port's device
-    (``device``, torch tensors)."""
-    is_torch = device is not None
-    if is_torch:
-        import torch
-        tdt = torch.float64 if dtype == "float64" else torch.float32
-        arr = lambda a: torch.as_tensor(np.asarray(a), dtype=tdt,  # noqa
-                                        device=device)
-    else:
-        jdt = xnp.float64 if dtype == "float64" else xnp.float32
-        arr = lambda a: xnp.asarray(np.asarray(a), jdt)  # noqa: E731
-    host = lambda t: np.asarray(t.cpu() if is_torch else t)  # noqa: E731
-    cfg_kw = dict(entry["cfg"])
-    cfg_kw["insert_species"] = tuple(cfg_kw["insert_species"])
-    cfg_kw["dtype"] = dtype
-    c = dataclasses.replace(c, **cfg_kw)
+    c = dataclasses.replace(c, **cfg_fields(entry, dtype))
     rep = {}
-    if c.rd_potential in ("sg", "dreiding", "b14_7", "disp_expansion"):
-        cols = rd_form_columns(host(p.eps), host(p.sig), c.rd_potential)
+    if c.rd_potential in RD_FORMS:
+        cols = rd_form_columns(np.asarray(p.eps), np.asarray(p.sig),
+                               c.rd_potential)
         rep.update({k: arr(v) for k, v in
                     zip(("eps", "sig", "c6", "c8", "c10"), cols)})
     if c.coulomb == "gwp":
-        rep["gwp_alpha"] = arr(gwp_widths(host(p.charge), entry["gwp_seed"]))
+        rep["gwp_alpha"] = arr(gwp_widths(np.asarray(p.charge),
+                                          entry["gwp_seed"]))
     if rep:
-        p = p.replace(**rep) if is_torch else dataclasses.replace(p, **rep)
+        p = dataclasses.replace(p, **rep)
     if entry["skew"]:
-        s = s.replace(box=arr(skewed_box(host(s.box), entry["skew"])))
-    th = dict(entry["thermo"])
-    n_sp = len(entry["system"]["species"])
-    kw = dict(n_species=n_sp, dtype=arr(0.0).dtype)
-    if is_torch:
-        kw["device"] = device
-    t = Thermo.make(**th, **kw)
+        s = s.replace(box=arr(skewed_box(np.asarray(s.box), entry["skew"])))
+    t = Thermo.make(**entry["thermo"],
+                    n_species=len(entry["system"]["species"]), dtype=jdt)
     if c.tmmc_bias:
         t = t.replace(tmmc_eta=arr(tmmc_eta(int(p.n_mols_max) + 1,
                                             entry["rseed"])))
     if c.quantum_rotation:
         spins, rot_f = rotor_table(int(p.n_mols_max), entry["rseed"])
-        if is_torch:
-            import torch
-            sp = torch.as_tensor(spins, device=device)
-        else:
-            sp = xnp.asarray(spins)
-        s = s.replace(spin=sp, rot_f=arr(rot_f))
+        s = s.replace(spin=jnp.asarray(spins), rot_f=arr(rot_f))
     if c.cell_list:
-        p = attach(p, s.pos, s.box, c, min_reduction=None)
+        p = celllist.attach(p, s.pos, s.box, c, min_reduction=None)
     return p, s, c, t
 
 
